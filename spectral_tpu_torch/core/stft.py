@@ -1,0 +1,228 @@
+"""STFT / power-spectral-density core in PyTorch: host constants and the
+plain dense route.
+
+Counterpart of the host and plain half of ``spectral_tpu/core/stft.py``.
+The numerical contract is the same: ``scipy.signal.spectrogram(...,
+scaling="density", mode="psd")`` (PlotEngine.py:113), computed as two real
+GEMMs against DFT matrices with the window and the detrend folded in.
+
+The host constants (window, PSD weights, axes, folded DFT matrices) are the
+JAX package's numpy f64 code, unchanged, so both packages start from
+bitwise-identical constants. Framing is a ``Tensor.unfold`` view; the JAX
+package's gcd slice-and-concat framing works around the TPU compiler and
+has no counterpart here.
+
+What this module computes is the plain version of the CUDA STFT/PSD kernel
+(``spectral_tpu_torch.ops.stft_cuda``). Only the dense route is ported; the
+centered framing and the non-PSD modes raise until their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import math
+from typing import Iterator, Tuple
+
+import numpy as np
+import torch
+
+from spectral_tpu.config import SpecConfig
+from spectral_tpu.core.windows import get_window
+
+
+# ---------------------------------------------------------------------------
+# Framing
+# ---------------------------------------------------------------------------
+
+def num_frames(n: int, nperseg: int, hop: int) -> int:
+    """Number of complete frames (scipy boundary=None: trailing rest dropped)."""
+    if n < nperseg:
+        return 0
+    return (n - nperseg) // hop + 1
+
+
+def ensure_real_waveform(x) -> torch.Tensor:
+    """Coerce a waveform to a real float tensor of at least 32 bits.
+
+    Array-likes are accepted. bool, integer and sub-32-bit float inputs
+    (int16 PCM, float16, bfloat16) promote to float32 before any arithmetic;
+    float32 and float64 pass through. Complex and 0-d inputs are refused,
+    as in the JAX package."""
+    x = torch.as_tensor(x)
+    if x.ndim == 0:
+        raise ValueError("waveform must have at least one axis (got a "
+                         "scalar); pass a 1-D signal or a (..., n) batch")
+    if x.is_complex():
+        raise ValueError(
+            f"real-valued waveform required, got {x.dtype} (complex "
+            "STFT output is cfg.mode='complex'; complex inputs are not "
+            "supported)")
+    if not x.is_floating_point() or torch.finfo(x.dtype).bits < 32:
+        x = x.to(torch.float32)
+    return x
+
+
+def frame_signal(x, nperseg: int, hop: int) -> torch.Tensor:
+    """Overlapping frames as a view: (..., n) -> (..., nframes, nperseg)."""
+    x = ensure_real_waveform(x)
+    if num_frames(x.shape[-1], nperseg, hop) <= 0:
+        return x.new_zeros(x.shape[:-1] + (0, nperseg))
+    return x.unfold(-1, nperseg, hop)
+
+
+# ---------------------------------------------------------------------------
+# Window / scaling constants (host-side, float64)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _window_f64(cfg: SpecConfig) -> np.ndarray:
+    return get_window(cfg.window, cfg.nperseg, periodic=True)
+
+
+def _require_fs(fs: float) -> float:
+    """Reject nonpositive / non-finite sampling rates: every fs formula
+    divides by it."""
+    try:
+        f = float(fs)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"sampling rate must be a positive finite number, got {fs!r}")
+    if not (math.isfinite(f) and f > 0):
+        raise ValueError(
+            f"sampling rate must be a positive finite number, got {fs!r}")
+    return f
+
+
+def psd_scale(cfg: SpecConfig, fs: float) -> float:
+    """Scalar PSD scale: 'density' -> 1/(fs*sum(w^2)); 'spectrum' -> 1/sum(w)^2."""
+    fs = _require_fs(fs)
+    w = _window_f64(cfg)
+    if cfg.scaling == "density":
+        return float(1.0 / (fs * np.sum(w * w)))
+    return float(1.0 / (np.sum(w) ** 2))
+
+
+def onesided_weights(cfg: SpecConfig, fs: float) -> np.ndarray:
+    """Per-bin multiplier combining the PSD scale and scipy's one-sided
+    doubling of interior bins (DC, and Nyquist for even nfft, not doubled)."""
+    scale = psd_scale(cfg, fs)
+    nb = cfg.n_freqs
+    wts = np.full(nb, scale, dtype=np.float64)
+    if cfg.onesided and cfg.mode == "psd":
+        if cfg.nfft_ % 2 == 0:
+            wts[1:-1] *= 2.0
+        else:
+            wts[1:] *= 2.0
+    return wts
+
+
+def freq_axis(cfg: SpecConfig, fs: float) -> np.ndarray:
+    """Frequency bin centers (np.fft.rfftfreq semantics)."""
+    fs = _require_fs(fs)
+    if cfg.onesided:
+        return np.fft.rfftfreq(cfg.nfft_, d=1.0 / fs)
+    return np.fft.fftfreq(cfg.nfft_, d=1.0 / fs)
+
+
+def time_axis(cfg: SpecConfig, fs: float, n: int) -> np.ndarray:
+    """Frame-center times: t[k] = (nperseg/2 + k*hop)/fs (scipy spectrogram);
+    k*hop/fs when center=True."""
+    fs = _require_fs(fs)
+    nf = num_frames(n + (2 * (cfg.nperseg // 2) if cfg.center else 0),
+                    cfg.nperseg, cfg.hop_)
+    k = np.arange(nf, dtype=np.float64)
+    if cfg.center:
+        return k * cfg.hop_ / fs
+    return (cfg.nperseg / 2.0 + k * cfg.hop_) / fs
+
+
+@functools.lru_cache(maxsize=16)
+def dft_matrices(cfg: SpecConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """Window-folded real-DFT matrices A_re, A_im of shape (nperseg, n_freqs),
+    float64, with the constant or linear detrend projection folded in:
+
+        X_re = f @ A_re,  X_im = f @ A_im
+        A[n,k] = w[n] c/s(-2π n k / nfft);  A <- (I - P) A  (detrend)
+
+    The arrays are cached and shared: copy before handing them to torch."""
+    N = cfg.nperseg
+    nfft = cfg.nfft_
+    w = _window_f64(cfg)
+    n = np.arange(N, dtype=np.float64)[:, None]
+    k = np.arange(cfg.n_freqs, dtype=np.float64)[None, :]
+    ang = -2.0 * np.pi * n * k / nfft
+    a_re = w[:, None] * np.cos(ang)
+    a_im = w[:, None] * np.sin(ang)
+    if cfg.detrend == "constant":
+        a_re = a_re - np.mean(a_re, axis=0, keepdims=True)
+        a_im = a_im - np.mean(a_im, axis=0, keepdims=True)
+    elif cfg.detrend == "linear":
+        ns = np.arange(N, dtype=np.float64)[:, None]
+        Q = np.linalg.qr(np.concatenate([np.ones((N, 1)), ns], axis=1))[0]
+        a_re = a_re - Q @ (Q.T @ a_re)
+        a_im = a_im - Q @ (Q.T @ a_im)
+    return np.ascontiguousarray(a_re), np.ascontiguousarray(a_im)
+
+
+# ---------------------------------------------------------------------------
+# The plain dense route
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def ieee_fp32_dots() -> Iterator[None]:
+    """Run float32 matrix products in full IEEE float32 (TF32 off).
+
+    TF32 keeps a 10-bit mantissa, far outside the 1e-3 dB display contract.
+    torch's default is already "highest"; this pins it for the contract
+    dots whatever the caller set globally, and restores the caller's
+    setting afterwards."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def dense_power(frames: torch.Tensor, a_re: torch.Tensor,
+                a_im: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
+    """(..., T, nperseg) frames -> (..., T, F) PSD: (X_re² + X_im²) · wts."""
+    with ieee_fp32_dots():
+        xr = torch.matmul(frames, a_re)
+        xi = torch.matmul(frames, a_im)
+    return (xr * xr + xi * xi) * wts
+
+
+def _require_dense_psd(cfg: SpecConfig) -> None:
+    if cfg.center or cfg.mode != "psd":
+        raise NotImplementedError(
+            "the port computes uncentered PSD spectrograms only; centered "
+            "framing and the magnitude/complex modes arrive with ROADMAP "
+            "queue 1 item 8 (the extended modes)")
+
+
+def power_spectrogram(x, fs: float, cfg: SpecConfig) -> torch.Tensor:
+    """PSD spectrogram, frame-major: (..., n) -> (..., nframes, n_freqs).
+
+    The dense window/detrend-folded DFT route of the JAX package's
+    ``power_spectrogram(use_matmul=True)``, computed in x's float dtype on
+    x's device."""
+    _require_dense_psd(cfg)
+    x = ensure_real_waveform(x)
+    a_re, a_im = dft_matrices(cfg)
+
+    def const(a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(a, dtype=x.dtype, device=x.device)
+
+    return dense_power(frame_signal(x, cfg.nperseg, cfg.hop_),
+                       const(a_re), const(a_im),
+                       const(onesided_weights(cfg, fs)))
+
+
+def power_spectrogram_fm(x, fs: float, cfg: SpecConfig,
+                         flip_freqs: bool = False) -> torch.Tensor:
+    """Freq-major PSD: (..., n) -> (..., n_freqs, nframes), the display
+    layout; flip_freqs=True puts the highest frequency in row 0."""
+    p = power_spectrogram(x, fs, cfg).transpose(-1, -2)
+    return p.flip(-2) if flip_freqs else p

@@ -1,0 +1,179 @@
+"""The slice end to end: the port's batched_spectrogram_fn on the CPU (the
+kernels' plain versions) held against the JAX package's
+batched_spectrogram_fn(use_matmul=True) and pallas_pipeline_fn on the same
+clips.
+
+Tolerances:
+- psd within 5e-6 of each clip's max (float32 GEMMs summed in other orders);
+- image error times the clip's dB range within 5e-3 dB, the budget the
+  JAX package's own golden test gives its matmul route against scipy
+  float64 on the CPU (test_stft_golden.py::test_db_pipeline_error_budget).
+  At the deepest bin of white noise every float32 engine carries ~1e-3 dB,
+  set by the summation order: 2.7e-3 dB was measured between the port and
+  the JAX matmul route at 1024/256 on two 1 s clips, where the JAX route
+  itself sits 3.2e-3 dB from scipy and the port 6e-4;
+- rgb_packed >= 99.9% identical words and never more than one LUT index
+  apart (a pixel near a 1/256 bin edge may cross it);
+- finite equal exactly.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from spectral_tpu.config import SpecConfig  # noqa: E402
+from spectral_tpu.ops.stft_pallas import pallas_pipeline_fn  # noqa: E402
+from spectral_tpu.parallel.sharding import (  # noqa: E402
+    batched_spectrogram_fn as jax_pipeline)
+from spectral_tpu.render.lut import get_lut  # noqa: E402
+from spectral_tpu_torch.parallel.sharding import (  # noqa: E402
+    batched_spectrogram_fn)
+
+FS = 16000.0
+PSD_TOL = 5e-6
+DB_TOL = 5e-3
+SAME_WORDS = 0.999
+NS_256 = SpecConfig.north_star(256, 64, log_scale=True)
+
+
+def _clips(seed, n_clips=2, n=16000):
+    return np.random.RandomState(seed).randn(n_clips, n).astype(np.float32)
+
+
+def _index_range(words):
+    """First and last LUT index of each packed jet word (duplicate words
+    of the table are neighbours)."""
+    lut = get_lut("jet").astype(np.uint32)
+    table = lut[:, 0] | (lut[:, 1] << 8) | (lut[:, 2] << 16) | (255 << 24)
+    first = {w: i for i, w in reversed(list(enumerate(table.tolist())))}
+    last = {w: i for i, w in enumerate(table.tolist())}
+    uniq, inv = np.unique(words.ravel(), return_inverse=True)
+    return (np.array([first[w] for w in uniq.tolist()])[inv],
+            np.array([last[w] for w in uniq.tolist()])[inv])
+
+
+def _assert_same_display(port, ref):
+    psd, psd_r = port["psd"].numpy(), np.asarray(ref["psd"])
+    scale = psd_r.max(axis=(1, 2))
+    assert np.all(np.abs(psd - psd_r).max(axis=(1, 2)) <= PSD_TOL * scale)
+    p64 = psd_r.astype(np.float64)
+    rng_db = 10 * np.log10(p64.max(axis=(1, 2)) / p64.min(axis=(1, 2)))
+    img, img_r = port["image"].numpy(), np.asarray(ref["image"])
+    assert img.shape == img_r.shape
+    err_db = np.abs(img - img_r).max(axis=(1, 2)) * rng_db
+    assert np.all(err_db <= DB_TOL), err_db
+    words, words_r = port["rgb_packed"].numpy(), np.asarray(ref["rgb_packed"])
+    assert words.dtype == np.uint32 and words.shape == words_r.shape
+    lo, hi = _index_range(words)
+    lo_r, hi_r = _index_range(words_r)
+    step = np.maximum(0, np.maximum(lo - hi_r, lo_r - hi)).max()
+    assert (words == words_r).mean() >= SAME_WORDS and step <= 1
+    assert np.array_equal(port["finite"].numpy(), np.asarray(ref["finite"]))
+
+
+@pytest.mark.parametrize("share_max", [False, True])
+@pytest.mark.parametrize("flip_image", [True, False])
+def test_slice_matches_jax_pipeline(flip_image, share_max):
+    x = _clips(0)
+    ref = jax.jit(jax_pipeline(FS, NS_256, use_matmul=True,
+                               flip_image=flip_image,
+                               share_max=share_max))(jnp.asarray(x))
+    port = batched_spectrogram_fn(FS, NS_256, flip_image=flip_image,
+                                  share_max=share_max)(torch.from_numpy(x))
+    _assert_same_display(port, ref)
+
+
+@pytest.mark.parametrize("cfg", [
+    NS_256,
+    SpecConfig.north_star(1024, 256, log_scale=True),
+    SpecConfig.scipy_default(1024, log_scale=True),
+], ids=["north_star_256_64", "north_star_1024_256", "scipy_1024"])
+def test_slice_matches_pallas_pipeline(cfg):
+    """pallas_pipeline_fn's layout: image unflipped, packed words flipped.
+    At 1024 the JAX matmul route on the CPU sums in an order that sits
+    3.2e-3 dB from scipy on these clips (the pallas route and the port
+    6e-4), enough to move more than 0.1% of the words; the pallas route is
+    the reference there."""
+    x = _clips(1)
+    ref = jax.jit(pallas_pipeline_fn(FS, cfg))(jnp.asarray(x))
+    port = batched_spectrogram_fn(FS, cfg)(x)
+    _assert_same_display(port, ref)
+
+
+def test_flip_conventions():
+    """image is flipped only under flip_image; packed words always put the
+    highest frequency in row 0; psd is frame-major and never flipped."""
+    t = np.arange(16000) / FS
+    tone = np.sin(2 * np.pi * 100.0 * t).astype(np.float32)[None]
+    flipped = batched_spectrogram_fn(FS, NS_256, flip_image=True)(tone)
+    plain = batched_spectrogram_fn(FS, NS_256, flip_image=False)(tone)
+    assert torch.equal(flipped["psd"], plain["psd"])
+    assert flipped["psd"].shape == (1, 247, 129)
+    assert torch.equal(flipped["image"], plain["image"].flip(1))
+    assert torch.equal(flipped["rgb_packed"], plain["rgb_packed"])
+    # a 100 Hz tone is energetic at bin 1-2 of 129: the bottom of the PNG
+    energy = plain["image"][0].mean(dim=1)
+    assert int(torch.argmax(energy)) <= 2
+    red = (flipped["rgb_packed"][0].numpy() & 0xFF).astype(int).mean(axis=1)
+    assert np.argmax(red) >= 129 - 10
+
+
+def test_finite_flags_match_both_jax_pipelines():
+    rs = np.random.RandomState(4)
+    nan = rs.randn(4096).astype(np.float32)
+    nan[1000] = np.nan
+    x = np.stack([rs.randn(4096), nan, 1e-25 * rs.randn(4096),
+                  np.zeros(4096), np.full(4096, 0.25),
+                  1e19 * rs.randn(4096)]).astype(np.float32)
+    want = [True, False, False, True, True, False]
+    port = batched_spectrogram_fn(FS, NS_256)(torch.from_numpy(x))
+    assert port["finite"].tolist() == want
+    for ref in (jax_pipeline(FS, NS_256, use_matmul=True),
+                pallas_pipeline_fn(FS, NS_256)):
+        assert np.asarray(jax.jit(ref)(jnp.asarray(x))["finite"]).tolist() \
+            == want
+
+
+def test_zero_frames_like_pallas_pipeline():
+    cfg = SpecConfig.north_star(1024, 256, log_scale=True)
+    ref = jax.jit(pallas_pipeline_fn(FS, cfg))(jnp.zeros((2, 100)))
+    port = batched_spectrogram_fn(FS, cfg)(torch.zeros(2, 100))
+    for key in ("psd", "image", "rgb_packed", "finite"):
+        assert tuple(port[key].shape) == ref[key].shape
+    assert port["finite"].tolist() == np.asarray(ref["finite"]).tolist()
+
+
+def test_colormap_none_and_input_coercion():
+    x = (_clips(5) * 1000).astype(np.int16)
+    out = batched_spectrogram_fn(FS, NS_256, colormap=None,
+                                 device="cpu")(x)
+    assert set(out) == {"psd", "image", "finite"}
+    assert out["psd"].dtype == torch.float32
+    with pytest.raises(ValueError, match=r"\(B, n\)"):
+        batched_spectrogram_fn(FS, NS_256)(np.zeros(4096, np.float32))
+
+
+def test_unsupported_configs_raise_on_build():
+    for cfg, item in ((SpecConfig.north_star(256, 64, n_mels=32), "item 5"),
+                      (SpecConfig.scipy_default(256, fmax=100.0), "item 5"),
+                      (SpecConfig.scipy_default(4096), "item 8")):
+        with pytest.raises(NotImplementedError, match=item):
+            batched_spectrogram_fn(FS, cfg)
+
+
+def test_device_is_explicit(monkeypatch):
+    from spectral_tpu_torch.utils import device as dev
+    assert dev.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        dev.resolve_device(None)
+    with pytest.raises(ValueError):
+        dev.resolve_device("meta")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        dev.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        batched_spectrogram_fn(FS, NS_256, device="cuda")

@@ -1,0 +1,234 @@
+"""The port's boundaries: it never imports jax, its plain versions run only
+for CPU tensors, a kernel that cannot be built or launched raises instead
+of falling back, its contract dots run in full float32, and chip_smoke.py
+refuses to report without a card.
+
+A tensor on the ``meta`` device stands in for a CUDA tensor here: like a
+CUDA tensor it does not lie on the CPU, so the wrappers must take the
+kernel route for it.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from spectral_tpu.config import SpecConfig  # noqa: E402
+from spectral_tpu_torch.ops import build, display_triton, stft_cuda  # noqa: E402
+from spectral_tpu_torch.parallel.sharding import (  # noqa: E402
+    batched_spectrogram_fn)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FS = 16000.0
+NS_256 = SpecConfig.north_star(256, 64, log_scale=True)
+
+
+def _run(code, cwd=REPO, env_extra=None, timeout=120):
+    env = dict(os.environ, PYTHONPATH=REPO, **(env_extra or {}))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_imports_and_runs_without_jax():
+    code = textwrap.dedent("""
+        import json, pkgutil, sys
+        sys.modules["jax"] = None          # any import of jax now fails
+        import importlib
+        import numpy as np
+        import spectral_tpu_torch
+        names = sorted(m.name for m in pkgutil.walk_packages(
+            spectral_tpu_torch.__path__, "spectral_tpu_torch."))
+        for name in names:
+            importlib.import_module(name)
+        from spectral_tpu_torch import SpecConfig
+        from spectral_tpu_torch.parallel.sharding import (
+            batched_spectrogram_fn)
+        x = np.random.RandomState(0).randn(2, 4096).astype(np.float32)
+        out = batched_spectrogram_fn(
+            16000.0, SpecConfig.north_star(256, 64, log_scale=True),
+            flip_image=True, device="cpu")(x)
+        loaded = [m for m in sys.modules
+                  if m.startswith(("jax.", "jaxlib"))
+                  or (m == "jax" and sys.modules[m] is not None)]
+        print(json.dumps({"modules": names, "jax": loaded,
+                          "triton": "triton" in sys.modules,
+                          "shapes": {k: list(v.shape) for k, v in out.items()},
+                          "finite": out["finite"].tolist()}))
+    """)
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["jax"] == [] and not report["triton"]
+    assert "spectral_tpu_torch.ops.display_triton" in report["modules"]
+    assert "spectral_tpu_torch.parallel.sharding" in report["modules"]
+    assert report["shapes"] == {"psd": [2, 61, 129], "image": [2, 129, 61],
+                                "rgb_packed": [2, 129, 61], "finite": [2]}
+    assert report["finite"] == [True, True]
+
+
+def test_plain_dots_run_in_ieee_float32(monkeypatch):
+    seen = []
+    real = torch.matmul
+
+    def spy(*args, **kwargs):
+        seen.append((torch.get_float32_matmul_precision(),
+                     torch.backends.cuda.matmul.allow_tf32))
+        return real(*args, **kwargs)
+
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        monkeypatch.setattr(torch, "matmul", spy)
+        x = torch.from_numpy(np.random.RandomState(0).randn(2, 4096)
+                             .astype(np.float32))
+        batched_spectrogram_fn(FS, NS_256)(x)
+        assert torch.get_float32_matmul_precision() == "medium"
+    finally:
+        torch.set_float32_matmul_precision(before)
+    assert len(seen) == 2
+    assert all(p == "highest" and not tf32 for p, tf32 in seen)
+
+
+def _fail(*args, **kwargs):
+    raise AssertionError("the plain version ran for a non-CPU tensor")
+
+
+def test_cpu_tensors_never_touch_the_kernels(monkeypatch):
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("a kernel was loaded for a CPU tensor")
+
+    monkeypatch.setattr(build, "load_library", no_kernel)
+    monkeypatch.setattr(display_triton, "_kernel", no_kernel)
+    launches = (stft_cuda.launches, display_triton.launches)
+    x = torch.from_numpy(np.random.RandomState(1).randn(2, 4096)
+                         .astype(np.float32))
+    out = batched_spectrogram_fn(FS, NS_256)(x)
+    assert out["finite"].tolist() == [True, True]
+    assert (stft_cuda.launches, display_triton.launches) == launches
+
+
+def test_stft_kernel_failure_propagates(monkeypatch):
+    def broken(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    monkeypatch.setattr(build, "load_library", broken)
+    monkeypatch.setattr(stft_cuda, "stft_psd_reference", _fail)
+    x = torch.empty((2, 4096), device="meta")
+    with pytest.raises(RuntimeError, match="cannot build stft_psd"):
+        stft_cuda.stft_psd(x, FS, NS_256, with_stats=True)
+    with pytest.raises(RuntimeError, match="cannot build stft_psd"):
+        batched_spectrogram_fn(FS, NS_256)(x)
+    # unsupported configs raise before any device question
+    with pytest.raises(NotImplementedError):
+        stft_cuda.stft_psd(x, FS, SpecConfig.scipy_default(2048))
+
+
+def test_display_kernel_failure_propagates(monkeypatch):
+    def broken():
+        raise RuntimeError("no triton")
+
+    monkeypatch.setattr(display_triton, "_kernel", broken)
+    monkeypatch.setattr(display_triton, "display_epilogue_reference", _fail)
+    psd = torch.empty((2, 61, 129), device="meta")
+    stats = torch.empty(2, device="meta")
+    with pytest.raises(RuntimeError, match="no triton"):
+        display_triton.display_epilogue(psd, stats, stats, log_scale=True)
+
+
+def test_stft_kernel_refuses_what_it_cannot_take(monkeypatch):
+    monkeypatch.setattr(build, "load_library", lambda name: None)
+    monkeypatch.setattr(stft_cuda, "_library", lambda: None)
+    meta64 = torch.empty((2, 4096), dtype=torch.float64, device="meta")
+    with pytest.raises(TypeError, match="float32"):
+        stft_cuda.stft_psd(meta64, FS, NS_256)
+    with pytest.raises(ValueError, match="CUDA"):
+        stft_cuda._stft_psd_cuda(torch.zeros(2, 4096), FS, NS_256, False,
+                                 False)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "find_nvcc", lambda: None)
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        build.build_library("stft_psd")
+    assert list(tmp_path.iterdir()) == []
+
+
+def _fake_nvcc(tmp_path, body):
+    path = tmp_path / "nvcc"
+    path.write_text("#!/bin/sh\n" + body)
+    path.chmod(0o755)
+    return str(path)
+
+
+def test_failed_build_raises_and_leaves_nothing(monkeypatch, tmp_path):
+    out = tmp_path / "out"
+    monkeypatch.setattr(build, "BUILD_DIR", out)
+    nvcc = _fake_nvcc(tmp_path, "echo 'stft_psd.cu(1): error: boom' >&2\n"
+                                "exit 2\n")
+    monkeypatch.setattr(build, "find_nvcc", lambda: nvcc)
+    with pytest.raises(RuntimeError, match="boom"):
+        build.build_library("stft_psd")
+    assert list(out.iterdir()) == []
+
+
+def test_build_is_cached_by_source_hash(monkeypatch, tmp_path):
+    out = tmp_path / "out"
+    monkeypatch.setattr(build, "BUILD_DIR", out)
+    # a stand-in nvcc that writes its -o target and reports like ptxas
+    nvcc = _fake_nvcc(tmp_path, textwrap.dedent("""\
+        while [ "$1" != "-o" ]; do shift; done
+        echo lib > "$2"
+        echo 'ptxas info    : Used 126 registers' >&2
+        """))
+    monkeypatch.setattr(build, "find_nvcc", lambda: nvcc)
+    first = build.build_library("stft_psd")
+    assert "126 registers" in first["log"]
+    assert first["path"] == str(build.library_path("stft_psd"))
+    assert os.path.basename(first["path"]).startswith("libstft_psd_")
+    again = build.build_library("stft_psd")
+    assert again == {"path": first["path"], "seconds": 0.0, "log": ""}
+    assert [p.name for p in out.iterdir()] == [os.path.basename(
+        first["path"])]
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    proc = subprocess.run([sys.executable, os.path.join(REPO,
+                                                        "chip_smoke.py")],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120, env=dict(os.environ,
+                                                CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=alone,
+                          capture_output=True, text=True, timeout=120,
+                          env={k: v for k, v in os.environ.items()
+                               if k != "PYTHONPATH"})
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    import ast
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as fh:
+        tree = ast.parse(fh.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    assert not [n for n in names if n == "jax" or n.startswith("jax.")]
+    # of the JAX package, only the JAX-free PNG encoder
+    assert [n for n in names if n.startswith("spectral_tpu.")] == [
+        "spectral_tpu.render.png"]
