@@ -4,12 +4,24 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, nvcc and triton; run it from the root of a checkout.
-It builds every kernel of the port's main path from the sources in the
-checkout, holds each kernel against its plain PyTorch version on the card,
-drives the main path once at full size (1024 clips of 10 s at 16 kHz
-through ``batched_spectrogram_fn`` at north_star 1024/256 log, the batch the
-reference app's display spine runs), checks the result against scipy in
-float64, and times kernel and plain paths with CUDA events.
+It builds every kernel of the port's paths from the sources in the
+checkout and holds each kernel against its plain PyTorch version on the
+card, on both accumulation routes of the STFT kernel and both output modes
+of the display kernel. Then it drives three paths at full size, each with
+the launch counts set to 0 just before it and read just after:
+
+1. the display spine: 1024 clips of 10 s at 16 kHz through
+   ``batched_spectrogram_fn`` at north_star 1024/256 log (the STFT
+   kernel's float32 route, RGBA words);
+2. the end of the GUI's range: 256 clips of 60 s through
+   ``batched_spectrogram_fn`` at scipy_default 8192 log (the float64
+   route, the TPU's manual-DMA kernel K2's counterpart);
+3. the dataset export: ``export_spectrograms`` at the CLI's defaults
+   (north_star 1024/256 log, 10 s clips, batch 64, palette PNGs) over 1024
+   synthetic clips, a batch of int16 WAVs and a NaN clip.
+
+It checks images against scipy in float64 (limit 1e-3 dB) and times kernel
+and plain paths with CUDA events.
 
 Every phase that fails raises, so the script exits nonzero and prints no
 result. Without a CUDA card, or without the package beside it, it fails.
@@ -17,23 +29,33 @@ The last line of its output is one JSON object:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import itertools
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 FS = 16000.0
 CLIP_SECONDS = 10.0
 BATCH = 1024
+K2_CLIPS = 256
+K2_SECONDS = 60.0
+EXPORT_CLIPS = 1024
+EXPORT_BATCH = 64
 REPS = 5
 PSD_TOL = 5e-6          # max|Δ| per clip, relative to the clip's PSD max
 IMAGE_TOL = 1e-6        # display image, same PSD in (shared scalars)
 DB_TOL = 1e-3           # display contract against scipy float64
 SAME_WORDS = 0.999      # packed words identical, else one LUT index apart
+PR1_HEADLINE_MS = 41.48  # the fp32 STFT stage in PR 1's chip run
+FP32_PEAK = 67e12       # H100 SXM, fp32 outside the tensor cores
+HBM_RATE = 3.35e12      # H100 SXM device memory, bytes/s
 
 
 def require(ok, what):
@@ -66,8 +88,8 @@ def word_index_range(words):
     """First and last LUT index of each packed word (duplicates of the jet
     table are neighbours)."""
     import numpy as np
-    from spectral_tpu_torch.ops.colormap import _packed_lut_np
-    lut = _packed_lut_np("jet", True).view(np.uint32)
+    from spectral_tpu_torch.ops.colormap import packed_lut
+    lut = packed_lut("jet").numpy().view(np.uint32)
     first = {}
     last = {}
     for i, w in enumerate(lut.tolist()):
@@ -83,8 +105,9 @@ def word_index_range(words):
 def check_words(got, want, what):
     """>= 99.9% identical words and never more than one LUT index apart."""
     import numpy as np
-    a = got.cpu().numpy()
-    b = want.cpu().numpy()
+    import torch
+    a = got.cpu().view(torch.int32).numpy().view(np.uint32)
+    b = want.cpu().view(torch.int32).numpy().view(np.uint32)
     same = float(np.mean(a == b))
     alo, ahi = word_index_range(a)
     blo, bhi = word_index_range(b)
@@ -94,28 +117,46 @@ def check_words(got, want, what):
     return same
 
 
-def db_error_vs_scipy(img_unflipped, x64):
+def check_indices(got, want, what):
+    """Index images (uint8 LUT indices): >= 99.9% identical and never more
+    than one index apart."""
+    import numpy as np
+    a = np.asarray(got).astype(np.int64)
+    b = np.asarray(want).astype(np.int64)
+    require(a.shape == b.shape, f"{what}: shapes {a.shape} vs {b.shape}")
+    same = float(np.mean(a == b))
+    step = int(np.abs(a - b).max()) if a.size else 0
+    require(same >= SAME_WORDS and step <= 1,
+            f"{what}: {same:.6f} identical indices, max step {step}")
+    return same
+
+
+def db_error_vs_scipy(img_unflipped, x64, cfg):
     """bench.py's display-error formula: max |Δimage| x dB range against
-    scipy.signal.spectrogram in float64 at north_star 1024/256 (Hann)."""
+    scipy.signal.spectrogram in float64 at cfg's framing and window."""
     import numpy as np
     from scipy.signal import spectrogram
-    _f, _t, sxx = spectrogram(x64, fs=FS, window="hann", nperseg=1024,
-                              noverlap=1024 - 256, nfft=1024, detrend=False,
-                              scaling="density", mode="psd")
+    _f, _t, sxx = spectrogram(
+        x64, fs=FS, window=cfg.window, nperseg=cfg.nperseg,
+        noverlap=cfg.nperseg - cfg.hop_, nfft=cfg.nperseg,
+        detrend=False if cfg.detrend == "none" else cfg.detrend,
+        scaling="density", mode="psd")
     norm = np.clip(sxx / (sxx.max() + 1e-20), 0.0, 1.0)
     db = np.nan_to_num(10.0 * np.log10(norm + 1e-12))
     rng_db = db.max() - db.min()
     oracle = (db - db.min()) / rng_db
+    require(img_unflipped.shape == oracle.shape,
+            f"image {img_unflipped.shape} vs scipy {oracle.shape}")
     return float(np.max(np.abs(img_unflipped - oracle)) * rng_db)
 
 
-def time_ms(fn):
-    """Median of REPS CUDA-event timings after one warm-up, in ms."""
+def time_ms(fn, reps=REPS):
+    """Median of reps CUDA-event timings after one warm-up, in ms."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -124,7 +165,40 @@ def time_ms(fn):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
         del out
-    return sorted(times)[REPS // 2], times
+    return sorted(times)[reps // 2], times
+
+
+def reset_counts():
+    from spectral_tpu_torch.ops import display_triton, stft_cuda
+    for counts in (stft_cuda.launches, display_triton.launches):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_counts():
+    from spectral_tpu_torch.ops import display_triton, stft_cuda
+    return {"stft_psd": dict(stft_cuda.launches),
+            "display_epilogue": dict(display_triton.launches)}
+
+
+def stft_bound(B, n, T, F, K, acc_bytes, peak):
+    """(bound_ms, bound_by): each input (signal, folded DFT matrices,
+    weights) read once, each output (PSD, per-clip min and max) written
+    once, against 4*B*T*F*K + 3*B*T*F operations at the route's peak."""
+    bytes_ = (B * n * 4 + (2 * K * F + F) * acc_bytes + B * T * F * 4
+              + 2 * B * 4)
+    ops = 4.0 * B * T * F * K + 3.0 * B * T * F
+    t_mem, t_ops = bytes_ / HBM_RATE, ops / peak
+    return (1e3 * max(t_mem, t_ops),
+            "operations" if t_ops >= t_mem else "bytes")
+
+
+def display_bound(B, T, F, words_per_row):
+    """Bytes: the PSD and per-clip scalars read, the image and the words
+    written; a handful of operations per pixel."""
+    bytes_ = B * T * F * 4 + B * 3 * 4 + 256 * 4 + B * F * T * 4 \
+        + B * F * words_per_row * 4
+    return 1e3 * bytes_ / HBM_RATE, "bytes"
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +229,19 @@ def toolchain():
     card = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
                      "--format=csv,noheader"]).splitlines()[0]
     print(card, flush=True)
-    return card
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(run_text(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"]).splitlines()[0])
+    fp64 = sms * 64 * 2 * mhz * 1e6
+    print(f"{sms} SMs, max SM clock {mhz:g} MHz: FP64 FMA peak "
+          f"{fp64 / 1e12:.2f} TFLOP/s (64 DFMA/clk/SM); fp32 peak "
+          f"{FP32_PEAK / 1e12:g}, HBM {HBM_RATE / 1e12:g} TB/s (data sheet)")
+    try:
+        import PIL
+        print(f"PIL {PIL.__version__}: PNGs encode through PIL")
+    except ImportError:
+        print("no PIL: PNGs encode through the stdlib zlib path")
+    return card, fp64
 
 
 def build_kernels():
@@ -165,7 +251,8 @@ def build_kernels():
     print(f"stft_psd.cu -> {os.path.relpath(info['path'], HERE)} in "
           f"{info['seconds']:.2f} s")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if ("registers" in line or "spill" in line or "error" in line
+                or "Compiling entry" in line):
             print("  " + line.strip())
     build.load_library("stft_psd")
 
@@ -176,6 +263,7 @@ def kernel_cases(dev):
     from spectral_tpu_torch import SpecConfig
     from spectral_tpu_torch.ops import display_triton as disp
     from spectral_tpu_torch.ops import stft_cuda
+    from spectral_tpu_torch.ops.colormap import unpack_indices
     from spectral_tpu_torch.parallel.sharding import finite_flags
 
     phase("kernels against their plain versions")
@@ -204,77 +292,144 @@ def kernel_cases(dev):
                 f"(relative to clip max)")
         print(f"{what}: psd {psd_rel:.2e}, pmin {lo:.2e}, pmax {hi:.2e}")
 
+    def check_log(x, cfg, what):
+        got, want = both(x, cfg, log10_out=True)
+        lin_rel, _ = psd_err(10.0 ** got.double(), 10.0 ** want.double())
+        require(lin_rel <= PSD_TOL, f"{what}: {lin_rel:.2e}")
+        print(f"{what} (compared in linear units): {lin_rel:.2e}")
+
     x8 = on_card(rs.randn(8, n))
     t0 = time.perf_counter()
     got, want = both(x8, north, with_stats=True)
     print(f"first stft_psd launch (module load) {time.perf_counter() - t0:.2f}"
           " s")
-    check_stats(got, want, "8 x 10 s, north_star 1024/256, with_stats")
+    check_stats(got, want, "[fp32] 8 x 10 s, north_star 1024/256, with_stats")
     psd8, pmin8, pmax8 = got
 
     xs = on_card(rs.randn(4, n) + 3.0)           # DC offset: detrend works
     check_stats(*both(xs, scipy_cfg, with_stats=True),
-                "scipy_default 1024 (hop 896, Tukey, constant detrend)")
-
-    got, want = both(x8[:2], north, log10_out=True)
-    lin_rel, _ = psd_err(10.0 ** got.double(), 10.0 ** want.double())
-    require(lin_rel <= PSD_TOL, f"log10_out: {lin_rel:.2e}")
-    print(f"log10_out (compared in linear units): {lin_rel:.2e}")
+                "[f64] scipy_default 1024 (hop 896, Tukey, constant "
+                "detrend), noise + 3")
+    check_log(x8[:2], north, "[fp32] log10_out")
 
     xr = on_card(rs.randn(3, 40000))             # T = 153: ragged frame tile
-    check_stats(*both(xr, north, with_stats=True), "ragged T = 153")
+    check_stats(*both(xr, north, with_stats=True), "[fp32] ragged T = 153")
     check_stats(*both(xr, SpecConfig.north_star(256, 64), with_stats=True),
-                "north_star 256/64")
+                "[fp32] north_star 256/64")
     # nperseg 100: K not a multiple of the kernel's 16-sample stage
     check_stats(*both(xr, SpecConfig.scipy_default(100), with_stats=True),
-                "scipy_default 100 (hop 88)")
+                "[f64] scipy_default 100 (hop 88)")
 
-    before = stft_cuda.launches
-    psd0, lo0, hi0 = stft_cuda.stft_psd(on_card(rs.randn(2, 500)), FS, north,
-                                        with_stats=True)
-    require(tuple(psd0.shape) == (2, 0, 513) and stft_cuda.launches == before
-            and float(lo0.abs().sum() + hi0.abs().sum()) == 0.0,
-            "T = 0 gives empty PSD and zero extrema without a launch")
-    print("T = 0: empty PSD, zero extrema, no launch")
+    # nperseg 2048-8192: K1's frequency-tiled sizes and K2's range; the
+    # clips' frames share row tiles across clip boundaries
+    for what, cfg, offset in (
+            ("north_star 2048/512", SpecConfig.north_star(2048, 512), 0.0),
+            ("scipy_default 4096, noise + 3", SpecConfig.scipy_default(4096),
+             3.0),
+            ("scipy_default 8192 (hop 7168), noise + 3",
+             SpecConfig.scipy_default(8192), 3.0),
+            ("north_star 8192/2048", SpecConfig.north_star(8192, 2048), 0.0)):
+        x = on_card(rs.randn(3, 8 * cfg.nperseg) + offset)
+        check_stats(*both(x, cfg, with_stats=True),
+                    f"[{stft_cuda.route(cfg)}] {what}")
+    s2048 = SpecConfig.scipy_default(2048)
+    xr2 = on_card(rs.randn(5, 40000) + 1.0)      # T = 22, 110 rows, 5 clips
+    check_stats(*both(xr2, s2048, with_stats=True),
+                "[f64] scipy_default 2048, ragged T = 22")
+    check_log(on_card(rs.randn(2, 8 * 4096) + 3.0),
+              SpecConfig.scipy_default(4096), "[f64] log10_out")
 
-    xn = rs.randn(2, 20000)
-    xn[1, 5000] = np.nan
-    xn = on_card(xn)
-    psd_n, lo_n, hi_n = stft_cuda.stft_psd(xn, FS, north, with_stats=True)
-    flags = finite_flags(xn, lo_n, hi_n).tolist()
-    require(bool(torch.isnan(lo_n[1])) and bool(torch.isnan(hi_n[1]))
-            and bool(torch.isfinite(lo_n[0])) and flags == [True, False],
-            f"NaN sample: pmin {lo_n.tolist()}, pmax {hi_n.tolist()}, "
-            f"finite {flags}")
-    print("NaN sample: pmin and pmax NaN, finite [True, False]")
+    for cfg in (north, SpecConfig.scipy_default(8192)):
+        before = read_counts()["stft_psd"]
+        psd0, lo0, hi0 = stft_cuda.stft_psd(on_card(rs.randn(2, 500)), FS,
+                                            cfg, with_stats=True)
+        require(tuple(psd0.shape) == (2, 0, cfg.n_freqs)
+                and read_counts()["stft_psd"] == before
+                and float(lo0.abs().sum() + hi0.abs().sum()) == 0.0,
+                "T = 0 gives empty PSD and zero extrema without a launch")
+        print(f"[{stft_cuda.route(cfg)}] T = 0: empty PSD, zero extrema, "
+              "no launch")
 
+    for cfg in (north, s2048):
+        xn = rs.randn(3, 20000)
+        xn[1, 5000] = np.nan
+        xn = on_card(xn)
+        psd_n, lo_n, hi_n = stft_cuda.stft_psd(xn, FS, cfg, with_stats=True)
+        flags = finite_flags(xn, lo_n, hi_n).tolist()
+        require(bool(torch.isnan(lo_n[1])) and bool(torch.isnan(hi_n[1]))
+                and bool(torch.isfinite(lo_n[0]))
+                and bool(torch.isfinite(lo_n[2]))
+                and flags == [True, False, True],
+                f"NaN sample: pmin {lo_n.tolist()}, pmax {hi_n.tolist()}, "
+                f"finite {flags}")
+        print(f"[{stft_cuda.route(cfg)}] NaN sample: pmin and pmax NaN, "
+              "finite [True, False, True]")
+
+    T8 = psd8.shape[1]
     for log_scale, flip, share in ((True, True, False), (True, False, False),
                                    (True, True, True), (True, False, True),
                                    (False, True, False)):
         kw = dict(log_scale=log_scale, share_max=share, flip_image=flip)
+        what = f"display log={log_scale} flip={flip} share_max={share}"
         img_k, rgb_k = disp.display_epilogue(psd8, pmin8, pmax8, **kw)
         img_p, rgb_p = disp.display_epilogue_reference(psd8, pmin8, pmax8,
                                                        **kw)
         torch.cuda.synchronize()
         err = float(torch.amax(torch.abs(img_k - img_p)))
-        what = f"display log={log_scale} flip={flip} share_max={share}"
         require(err <= IMAGE_TOL, f"{what}: image {err:.2e}")
         same = check_words(rgb_k, rgb_p, what)
         print(f"{what}: image {err:.2e}, words identical {same:.6f}")
+        img_k, idx_k = disp.display_epilogue(psd8, pmin8, pmax8, palette=True,
+                                             **kw)
+        img_p, idx_p = disp.display_epilogue_reference(psd8, pmin8, pmax8,
+                                                       palette=True, **kw)
+        torch.cuda.synchronize()
+        err = float(torch.amax(torch.abs(img_k - img_p)))
+        require(err <= IMAGE_TOL and tuple(idx_k.shape) == (
+            8, 513, -(-T8 // 4)), f"palette {what}: image {err:.2e}")
+        same = check_indices(unpack_indices(idx_k, T8),
+                             unpack_indices(idx_p, T8), f"palette {what}")
+        pad = idx_k.cpu().view(torch.int32).numpy().view(np.uint8)
+        require(not pad.reshape(8, 513, -1)[..., T8:].any(),
+                f"palette {what}: pad bytes past T are zero")
+        print(f"palette {what}: image {err:.2e}, indices identical "
+              f"{same:.6f}, T = {T8} padded to {4 * idx_k.shape[-1]}")
+
+
+def scipy_checks(dev):
+    """The display contract against scipy float64 on clips that break a
+    float32 chain: scipy_default 1024 on noise + 3 (the f64 route)."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
+    phase("against scipy float64 (limit 1e-3 dB)")
+    cfg = SpecConfig.scipy_default(1024, log_scale=True)
+    x = (np.random.RandomState(3).randn(2, int(FS * CLIP_SECONDS))
+         + 3.0).astype(np.float32)
+    out = batched_spectrogram_fn(FS, cfg, flip_image=True)(x)
+    err = db_error_vs_scipy(out["image"][0].flip(0).cpu().numpy(),
+                            x[0].astype(np.float64), cfg)
+    require(err <= DB_TOL, f"scipy_default 1024 noise + 3: {err:.3e} dB")
+    print(f"scipy_default 1024, noise + 3 clip vs scipy float64: {err:.3e} "
+          f"dB (limit {DB_TOL:g})")
+    torch.cuda.synchronize()
 
 
 def main_path(dev, card):
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
-    from spectral_tpu.render.png import encode_png
+    from spectral_tpu_torch.core.stft import num_frames
     from spectral_tpu_torch.ops import display_triton as disp
     from spectral_tpu_torch.ops import stft_cuda
     from spectral_tpu_torch.ops.colormap import unpack_rgba
     from spectral_tpu_torch.parallel.sharding import (batched_spectrogram_fn,
                                                       finite_flags)
+    from spectral_tpu_torch.render.png import encode_png
 
-    phase(f"main path: {BATCH} clips x {CLIP_SECONDS:g} s at {FS:g} Hz")
+    phase(f"path 1, the display spine: {BATCH} clips x {CLIP_SECONDS:g} s "
+          f"at {FS:g} Hz, north_star 1024/256 log")
     n = int(FS * CLIP_SECONDS)
     cfg = SpecConfig.north_star(1024, 256, log_scale=True)
     x_host = np.random.RandomState(0).randn(BATCH, n).astype(np.float32)
@@ -282,17 +437,16 @@ def main_path(dev, card):
     fn = batched_spectrogram_fn(FS, cfg, flip_image=True)
     consts = stft_cuda.dft_constants(cfg, FS, dev)
 
-    stft_cuda.launches = 0
-    disp.launches = 0
+    reset_counts()
     out = fn(x)
     torch.cuda.synchronize()
-    counts = {"stft_psd": stft_cuda.launches,
-              "display_epilogue": disp.launches}
-    print(f"launches in the main-path run: {counts}")
-    require(all(c >= 1 for c in counts.values()),
+    counts = read_counts()
+    print(f"launches in this path's run: {counts}")
+    require(counts["stft_psd"]["fp32"] >= 1
+            and counts["display_epilogue"]["rgba"] >= 1,
             f"a kernel of the path did not launch: {counts}")
 
-    T, F = 622, 513
+    T, F = num_frames(n, cfg.nperseg, cfg.hop_), cfg.n_freqs   # 622, 513
     require(tuple(out["psd"].shape) == (BATCH, T, F)
             and tuple(out["image"].shape) == (BATCH, F, T)
             and tuple(out["rgb_packed"].shape) == (BATCH, F, T)
@@ -305,7 +459,8 @@ def main_path(dev, card):
             and float(out["image"].amax()) == 1.0, "image spans [0, 1]")
 
     db_err = db_error_vs_scipy(
-        out["image"][0].flip(0).cpu().numpy(), x_host[0].astype(np.float64))
+        out["image"][0].flip(0).cpu().numpy(), x_host[0].astype(np.float64),
+        cfg)
     require(db_err <= DB_TOL, f"clip 0 vs scipy f64: {db_err:.3e} dB")
     print(f"clip 0 vs scipy float64: {db_err:.3e} dB (limit {DB_TOL:g})")
 
@@ -323,6 +478,13 @@ def main_path(dev, card):
     require(disp_abs <= IMAGE_TOL, f"main-path image vs plain: {disp_abs:.2e}")
     print(f"image vs plain display on the same PSD: {disp_abs:.2e}")
     del img_ref
+    other = stft_cuda._stft_psd_cuda(x, FS, cfg, False, True,
+                                     freq_fast=False)
+    require(all(torch.equal(a, b) for a, b in zip(
+        other, (out["psd"], pmin_k, pmax_k))),
+        "both grid orders give the same PSD and extrema")
+    print("the other grid order: bitwise the same PSD and extrema")
+    del other
     _, rgb_p = disp.display_epilogue_reference(
         psd_p[:8], pmin_p[:8], pmax_p[:8], log_scale=True, flip_image=True)
     same = check_words(out["rgb_packed"][:8], rgb_p, "rgb_packed, 8 clips")
@@ -337,7 +499,8 @@ def main_path(dev, card):
     require(head == b"\x89PNG\r\n\x1a\n", "PNG signature")
     print("clip 0 PNG written, signature ok")
 
-    phase(f"times (CUDA events, median of {REPS} after a warm-up; {card})")
+    phase(f"path 1 times (CUDA events, median of {REPS} after a warm-up; "
+          f"{card})")
     psd, pmin, pmax = out["psd"], pmin_k, pmax_k
     del out
 
@@ -349,6 +512,7 @@ def main_path(dev, card):
         return p, img, rgb, finite_flags(x, lo, hi)
 
     disp_kw = dict(log_scale=True, flip_image=True)
+    window = torch.hann_window(1024, periodic=True, device=dev)
     timings = {
         "stft_kernel": time_ms(lambda: stft_cuda.stft_psd(
             x, FS, cfg, with_stats=True)),
@@ -360,6 +524,14 @@ def main_path(dev, card):
             psd, pmin, pmax, **disp_kw)),
         "pipeline_kernel": time_ms(lambda: fn(x)),
         "pipeline_plain": time_ms(plain_pipeline),
+        "cufft_transform_only": time_ms(lambda: torch.stft(
+            x, 1024, hop_length=256, window=window, center=False,
+            return_complex=True)),
+        # the other grid order (csrc/stft_psd.cu), then the rule's again
+        "stft_kernel_freq_slow": time_ms(lambda: stft_cuda._stft_psd_cuda(
+            x, FS, cfg, False, True, freq_fast=False)),
+        "stft_kernel_again": time_ms(lambda: stft_cuda.stft_psd(
+            x, FS, cfg, with_stats=True)),
     }
     audio_h = BATCH * CLIP_SECONDS / 3600.0
     summary = {"card": card, "batch": BATCH, "peak_gib": round(
@@ -370,33 +542,326 @@ def main_path(dev, card):
                          "reps_ms": reps}
         print(f"{name}: {ms:.3f} ms/batch, {ms / BATCH:.5f} ms/clip, "
               f"{audio_h / (ms / 60000.0):.1f} audio-h/min [{card}]")
-    print(json.dumps({"times": summary}))
-    return counts, {"stft_psd": stft_abs, "display_epilogue": disp_abs}, \
-        timings
+    flops = 4.0 * BATCH * T * F * 1024
+    ms = timings["stft_kernel"][0]
+    print(f"fp32 STFT stage: {ms:.3f} ms against PR 1's {PR1_HEADLINE_MS} "
+          f"ms, {flops / ms / 1e9:.2f} TFLOP/s of {FP32_PEAK / 1e12:g} "
+          f"[{card}]")
+    print(json.dumps({"path1_times": summary}))
+    stft_b = stft_bound(BATCH, n, T, F, 1024, 4, FP32_PEAK)
+    disp_b = display_bound(BATCH, T, F, T)
+    return {
+        "stft_fp32": dict(launches=counts["stft_psd"]["fp32"],
+                          err=stft_abs, ms=timings["stft_kernel"][0],
+                          plain_ms=timings["stft_plain"][0], bound=stft_b),
+        "display_rgba": dict(launches=counts["display_epilogue"]["rgba"],
+                             err=disp_abs, ms=timings["display_kernel"][0],
+                             plain_ms=timings["display_plain"][0],
+                             bound=disp_b),
+    }
+
+
+def k2_path(dev, card, fp64_peak):
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.stft import num_frames
+    from spectral_tpu_torch.ops import display_triton as disp
+    from spectral_tpu_torch.ops import stft_cuda
+    from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
+
+    n = int(FS * K2_SECONDS)
+    cfg = SpecConfig.scipy_default(8192, log_scale=True)
+    phase(f"path 2, the end of the GUI's range: {K2_CLIPS} clips x "
+          f"{K2_SECONDS:g} s, scipy_default 8192 log (K2's counterpart)")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((K2_CLIPS, n), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    consts = stft_cuda.dft_constants(cfg, FS, dev)
+    print(f"f64 DFT constants on the card in {time.perf_counter() - t0:.2f}"
+          " s (host f64 build + upload; set-up)")
+    fn = batched_spectrogram_fn(FS, cfg, flip_image=True)
+
+    reset_counts()
+    out = fn(x)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"launches in this path's run: {counts}")
+    require(counts["stft_psd"]["f64"] >= 1
+            and counts["display_epilogue"]["rgba"] >= 1,
+            f"a kernel of the path did not launch: {counts}")
+    T, F = num_frames(n, cfg.nperseg, cfg.hop_), cfg.n_freqs  # 133, 4097
+    require(tuple(out["psd"].shape) == (K2_CLIPS, T, F)
+            and tuple(out["image"].shape) == (K2_CLIPS, F, T)
+            and bool(out["finite"].all())
+            and float(out["image"].amin()) == 0.0
+            and float(out["image"].amax()) == 1.0,
+            "path 2 shapes, finite flags and image range")
+    x0 = x[0].double().cpu().numpy()
+    db_err = db_error_vs_scipy(out["image"][0].flip(0).cpu().numpy(), x0,
+                               cfg)
+    require(db_err <= DB_TOL, f"8192 clip 0 vs scipy f64: {db_err:.3e} dB")
+    print(f"clip 0 vs scipy float64: {db_err:.3e} dB (limit {DB_TOL:g})")
+    x3 = (np.random.RandomState(4).randn(1, n) + 3.0).astype(np.float32)
+    img3 = fn(x3)["image"][0].flip(0).cpu().numpy()
+    db3 = db_error_vs_scipy(img3, x3[0].astype(np.float64), cfg)
+    require(db3 <= DB_TOL, f"8192 noise + 3 vs scipy f64: {db3:.3e} dB")
+    print(f"noise + 3 clip vs scipy float64: {db3:.3e} dB "
+          f"(limit {DB_TOL:g})")
+
+    psd_p, pmin_p, pmax_p = stft_cuda.stft_psd_reference(x, consts, cfg,
+                                                         with_stats=True)
+    stft_rel, stft_abs = psd_err(out["psd"], psd_p)
+    require(stft_rel <= PSD_TOL, f"path 2 psd vs plain: {stft_rel:.2e}")
+    print(f"psd vs plain (cuBLAS f64): {stft_rel:.2e} of clip max "
+          f"({stft_abs:.3e} abs)")
+    pmin_k = torch.amin(out["psd"], dim=(1, 2))
+    pmax_k = torch.amax(out["psd"], dim=(1, 2))
+    require(torch.equal(torch.isnan(pmin_k), torch.isnan(pmin_p)),
+            "path 2 extrema")
+    img_ref, _ = disp.display_epilogue_reference(
+        out["psd"], pmin_k, pmax_k, log_scale=True, flip_image=True)
+    disp_abs = float(torch.amax(torch.abs(out["image"] - img_ref)))
+    require(disp_abs <= IMAGE_TOL, f"path 2 image vs plain: {disp_abs:.2e}")
+    print(f"image vs plain display on the same PSD: {disp_abs:.2e}")
+    other = stft_cuda._stft_psd_cuda(x, FS, cfg, False, True,
+                                     freq_fast=True)
+    require(all(torch.equal(a, b) for a, b in zip(
+        other, (out["psd"], pmin_k, pmax_k))),
+        "both grid orders give the same PSD and extrema")
+    print("the other grid order: bitwise the same PSD and extrema")
+    del img_ref, psd_p, pmin_p, pmax_p, out, other
+
+    phase(f"path 2 times (CUDA events, median of {REPS} after a warm-up; "
+          f"{card})")
+    from spectral_tpu_torch.core.windows import get_window
+    window = torch.tensor(get_window(cfg.window, 8192), dtype=torch.float64,
+                          device=dev)
+    x64 = x.double()
+    timings = {
+        "stft_kernel": time_ms(lambda: stft_cuda.stft_psd(
+            x, FS, cfg, with_stats=True)),
+        "stft_plain": time_ms(lambda: stft_cuda.stft_psd_reference(
+            x, consts, cfg, with_stats=True)),
+        "pipeline_kernel": time_ms(lambda: fn(x)),
+        "cufft_transform_only_f64": time_ms(lambda: torch.stft(
+            x64, 8192, hop_length=cfg.hop_, window=window, center=False,
+            return_complex=True)),
+        # the other grid order (csrc/stft_psd.cu), then the rule's again
+        "stft_kernel_freq_fast": time_ms(lambda: stft_cuda._stft_psd_cuda(
+            x, FS, cfg, False, True, freq_fast=True)),
+        "stft_kernel_again": time_ms(lambda: stft_cuda.stft_psd(
+            x, FS, cfg, with_stats=True)),
+    }
+    del x64
+    flops = 4.0 * K2_CLIPS * T * F * 8192
+    for name, (ms, reps) in timings.items():
+        print(f"{name}: {ms:.3f} ms [{card}] reps {reps}")
+    ms = timings["stft_kernel"][0]
+    print(f"f64 STFT kernel: {flops / 1e12:.3f} TFLOP in {ms:.3f} ms = "
+          f"{flops / ms / 1e9:.2f} TFLOP/s against the FP64 FMA bound "
+          f"{fp64_peak / 1e12:.2f} ({1e3 * flops / fp64_peak:.1f} ms) "
+          f"[{card}]")
+    print(json.dumps({"path2_times": {k: v[0] for k, v in timings.items()},
+                      "card": card}))
+    return {"stft_f64": dict(
+        launches=counts["stft_psd"]["f64"], err=stft_abs, ms=ms,
+        plain_ms=timings["stft_plain"][0],
+        bound=stft_bound(K2_CLIPS, n, T, F, 8192, 8, fp64_peak))}
+
+
+def decode_palette_png(path):
+    """The index image of an indexed-color PNG (8-bit, any filter)."""
+    import numpy as np
+    with open(path, "rb") as fh:
+        data = fh.read()
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: PNG signature")
+    pos, idat = 8, b""
+    while pos < len(data):
+        size, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + size]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            require(depth == 8 and ctype == 3, f"{path}: 8-bit palette PNG")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + size
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    out = np.zeros((h, w), np.int64)
+    prev = np.zeros(w, np.int64)
+    for r in range(h):
+        f, line = raw[r, 0], raw[r, 1:].astype(np.int64)
+        if f == 0:
+            cur = line
+        elif f == 2:
+            cur = (line + prev) % 256
+        else:          # sub, average, paeth: byte by byte (bpp 1)
+            cur = np.zeros(w, np.int64)
+            for i in range(w):
+                a = cur[i - 1] if i else 0
+                b, c = prev[i], prev[i - 1] if i else 0
+                if f == 1:
+                    pred = a
+                elif f == 3:
+                    pred = (a + b) // 2
+                else:
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (
+                        b if pb <= pc else c)
+                cur[i] = (line[i] + pred) % 256
+        out[r] = cur
+        prev = cur
+    return out.astype(np.uint8)
+
+
+def export_path(dev, card):
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.io.wav import write_wav
+    from spectral_tpu_torch.ops import display_triton as disp
+    from spectral_tpu_torch.ops import stft_cuda
+    from spectral_tpu_torch.ops.colormap import unpack_indices
+    from spectral_tpu_torch.parallel.pipeline import (export_spectrograms,
+                                                      wav_clip_source)
+
+    n = int(FS * CLIP_SECONDS)
+    cfg = SpecConfig.north_star(1024, 256, log_scale=True)
+    phase(f"path 3, the dataset export: {EXPORT_CLIPS} clips x "
+          f"{CLIP_SECONDS:g} s, north_star 1024/256 log, batch "
+          f"{EXPORT_BATCH}, palette PNGs")
+    clips = np.random.RandomState(5).randn(EXPORT_CLIPS, n).astype(
+        np.float32)
+    nan_clip = clips[0].copy()
+    nan_clip[777] = np.nan
+    t = np.arange(n) / FS
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_dir = os.path.join(tmp, "wav")
+        out_dir = os.path.join(tmp, "png")
+        os.makedirs(wav_dir)
+        # one batch of int16 WAVs, so it stages as raw int16: tones from
+        # 100 Hz up, with a little noise
+        wavs = []
+        for i in range(EXPORT_BATCH):
+            path = os.path.join(wav_dir, f"tone{i}.wav")
+            write_wav(path, 0.5 * np.sin(2 * np.pi * (100.0 + 100.0 * i) * t)
+                      + 0.01 * np.random.RandomState(i).randn(n), FS)
+            wavs.append(path)
+        source = itertools.chain(
+            ((f"clip{i:04d}", clips[i]) for i in range(EXPORT_CLIPS)),
+            wav_clip_source(wavs), [("nan_clip", nan_clip)])
+        reset_counts()
+        stats = export_spectrograms(source, FS, cfg, out_dir,
+                                    clip_samples=n, batch=EXPORT_BATCH,
+                                    on_error="skip")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"launches in this path's run: {counts}")
+        require(counts["stft_psd"]["fp32"] >= 1
+                and counts["display_epilogue"]["palette"] >= 1,
+                f"a kernel of the path did not launch: {counts}")
+        names = set(os.listdir(out_dir))
+        want = {f"clip{i:04d}.png" for i in range(EXPORT_CLIPS)}
+        require(want <= names and len(want) == EXPORT_CLIPS,
+                f"{len(want & names)} of {EXPORT_CLIPS} clip PNGs written")
+        tones = {f"tone{i}.png" for i in range(EXPORT_BATCH)}
+        require(tones <= names and "nan_clip.png" not in names
+                and stats.nonfinite == 1 and stats.failed == 1
+                and stats.pngs_written == EXPORT_CLIPS + EXPORT_BATCH
+                and stats.clips == EXPORT_CLIPS + EXPORT_BATCH + 1,
+                f"export counts: {stats}")
+        print(f"{EXPORT_CLIPS} clip PNGs + {EXPORT_BATCH} WAV PNGs written, "
+              f"the NaN clip skipped: {stats}")
+        ahpm = stats.seconds_audio / 3600.0 / (stats.wall_s / 60.0)
+        print(f"export: {stats.seconds_audio:.0f} s of audio in "
+              f"{stats.wall_s:.3f} s = {ahpm:.1f} audio-h/min [{card}]")
+        print(json.dumps({"export_breakdown": stats.breakdown(),
+                          "audio_h_per_min": ahpm, "card": card}))
+
+        # decoded PNG indices against the plain path on the card
+        check = [0, 1, EXPORT_CLIPS // 2 - 1, EXPORT_CLIPS - 1]
+        xc = torch.from_numpy(clips[check]).to(dev)
+        consts = stft_cuda.dft_constants(cfg, FS, dev)
+        p, lo, hi = stft_cuda.stft_psd_reference(xc, consts, cfg,
+                                                 with_stats=True)
+        _, words = disp.display_epilogue_reference(
+            p, lo, hi, log_scale=True, flip_image=True, palette=True)
+        T = p.shape[1]
+        want_idx = unpack_indices(words, T)
+        for j, i in enumerate(check):
+            got = decode_palette_png(os.path.join(out_dir,
+                                                  f"clip{i:04d}.png"))
+            same = check_indices(got, want_idx[j], f"clip{i:04d}.png")
+            print(f"clip{i:04d}.png decoded: {got.shape}, indices identical "
+                  f"to the plain path {same:.6f}")
+        tone = decode_palette_png(os.path.join(out_dir, "tone0.png"))
+        require(tone.shape == (513, T)
+                and int(np.argmax(tone.mean(axis=1))) >= 513 - 10,
+                "the 100 Hz WAV's energy sits at the bottom rows")
+        print("tone0.png (int16 WAV, 100 Hz): energy at the bottom rows")
+
+    # the palette display kernel at the export's batch shape
+    phase(f"path 3 display kernel times (CUDA events; {card})")
+    xb = torch.from_numpy(clips[:EXPORT_BATCH]).to(dev)
+    psd, pmin, pmax = stft_cuda.stft_psd(xb, FS, cfg, with_stats=True)
+    kw = dict(log_scale=True, flip_image=True, palette=True)
+    img_k, idx_k = disp.display_epilogue(psd, pmin, pmax, **kw)
+    img_p, idx_p = disp.display_epilogue_reference(psd, pmin, pmax, **kw)
+    torch.cuda.synchronize()
+    err = float(torch.amax(torch.abs(img_k - img_p)))
+    require(err <= IMAGE_TOL, f"palette at the export batch: {err:.2e}")
+    check_indices(unpack_indices(idx_k, T), unpack_indices(idx_p, T),
+                  "palette at the export batch")
+    k_ms = time_ms(lambda: disp.display_epilogue(psd, pmin, pmax, **kw))
+    p_ms = time_ms(lambda: disp.display_epilogue_reference(psd, pmin, pmax,
+                                                           **kw))
+    print(f"palette display: kernel {k_ms[0]:.3f} ms, plain {p_ms[0]:.3f} "
+          f"ms per batch of {EXPORT_BATCH} [{card}]")
+    return {"display_palette": dict(
+        launches=counts["display_epilogue"]["palette"], err=err, ms=k_ms[0],
+        plain_ms=p_ms[0],
+        bound=display_bound(EXPORT_BATCH, T, 513, -(-T // 4)))}
 
 
 def main():
     import torch
-    card = toolchain()
+    t_start = time.perf_counter()
+    card, fp64_peak = toolchain()
     dev = torch.device("cuda", 0)
     build_kernels()
     kernel_cases(dev)
-    counts, errs, timings = main_path(dev, card)
-    kernels = [
-        {"name": "stft_psd", "route": "cuda",
-         "source": "spectral_tpu_torch/ops/csrc/stft_psd.cu",
-         "replaces": "spectral_tpu/ops/stft_pallas.py:217",
-         "launches": counts["stft_psd"], "max_abs_err": errs["stft_psd"],
-         "ms": timings["stft_kernel"][0],
-         "plain_ms": timings["stft_plain"][0]},
-        {"name": "display_epilogue", "route": "triton",
-         "source": "spectral_tpu_torch/ops/display_triton.py",
-         "replaces": "spectral_tpu/ops/stft_pallas.py:456",
-         "launches": counts["display_epilogue"],
-         "max_abs_err": errs["display_epilogue"],
-         "ms": timings["display_kernel"][0],
-         "plain_ms": timings["display_plain"][0]},
-    ]
+    scipy_checks(dev)
+    rows = {}
+    rows.update(main_path(dev, card))
+    torch.cuda.empty_cache()
+    rows.update(k2_path(dev, card, fp64_peak))
+    torch.cuda.empty_cache()
+    rows.update(export_path(dev, card))
+    src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
+    meta = {
+        "stft_fp32": ("stft_psd fp32", "cuda", src,
+                      "spectral_tpu/ops/stft_pallas.py:217"),
+        "stft_f64": ("stft_psd f64", "cuda", src,
+                     "spectral_tpu/ops/stft_pallas.py:367"),
+        "display_rgba": ("display_epilogue rgba", "triton",
+                         "spectral_tpu_torch/ops/display_triton.py",
+                         "spectral_tpu/ops/stft_pallas.py:456"),
+        "display_palette": ("display_epilogue palette", "triton",
+                            "spectral_tpu_torch/ops/display_triton.py",
+                            "spectral_tpu/ops/stft_pallas.py:456"),
+    }
+    kernels = []
+    for key, (name, route, source, replaces) in meta.items():
+        r = rows[key]
+        require(r["launches"] >= 1, f"{name}: no launch on its path")
+        kernels.append({
+            "name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": r["launches"],
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None})
+    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

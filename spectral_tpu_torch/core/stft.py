@@ -7,8 +7,8 @@ scaling="density", mode="psd")`` (PlotEngine.py:113), computed as two real
 GEMMs against DFT matrices with the window and the detrend folded in.
 
 The host constants (window, PSD weights, axes, folded DFT matrices) are the
-JAX package's numpy f64 code, unchanged, so both packages start from
-bitwise-identical constants. Framing is a ``Tensor.unfold`` view; the JAX
+JAX package's numpy f64 code, unchanged, over the port's own copy of the
+windows, so both packages start from bitwise-identical constants. Framing is a ``Tensor.unfold`` view; the JAX
 package's gcd slice-and-concat framing works around the TPU compiler and
 has no counterpart here.
 
@@ -27,8 +27,8 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from spectral_tpu.config import SpecConfig
-from spectral_tpu.core.windows import get_window
+from spectral_tpu_torch.config import SpecConfig
+from spectral_tpu_torch.core.windows import get_window
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +187,10 @@ def ieee_fp32_dots() -> Iterator[None]:
 
 def dense_power(frames: torch.Tensor, a_re: torch.Tensor,
                 a_im: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
-    """(..., T, nperseg) frames -> (..., T, F) PSD: (X_re² + X_im²) · wts."""
+    """(..., T, nperseg) frames -> (..., T, F) PSD: (X_re² + X_im²) · wts,
+    matmuls and epilogue in the operands' dtype: IEEE float32 (TF32 off)
+    for float32 operands, float64 throughout for float64 ones (the STFT
+    kernel's f64 route, ``ops.stft_cuda``)."""
     with ieee_fp32_dots():
         xr = torch.matmul(frames, a_re)
         xi = torch.matmul(frames, a_im)

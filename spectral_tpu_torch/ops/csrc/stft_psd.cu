@@ -1,55 +1,84 @@
-// Fused STFT / PSD kernel for NVIDIA Hopper (sm_90a), plain fp32 FMA.
+// Fused STFT / PSD kernel for NVIDIA Hopper (sm_90a), nperseg up to 8192.
 //
-// Replaces the TPU kernel spectral_tpu/ops/stft_pallas.py::stft_psd_pallas
-// (its auto kernel `_compute`, with the `with_stats` and `log10_out` modes).
-// It computes the same thing, not the same blocks:
+// Replaces the TPU kernels of spectral_tpu/ops/stft_pallas.py::
+// stft_psd_pallas: the auto kernel `_compute` (K1, with the `with_stats` and
+// `log10_out` modes) and the manual-DMA kernel `kernel_manual` (K2, A left in
+// HBM and one A tile reloaded per frequency tile, nperseg 6145-8192). Both
+// compute the same function, so one kernel source serves both:
 //
-//   frame t of clip b       = x[b, t*hop : t*hop + K]           (read in place)
-//   X_re, X_im              = frame @ A_re, frame @ A_im         (window and
-//                                                                 detrend folded
-//                                                                 into A)
+//   row r = b*T + t         : frame t of clip b, all clips' frames flattened
+//   frame                   = x[b, t*hop : t*hop + K]        (read in place)
+//   X_re, X_im              = frame @ A_re, frame @ A_im      (window and
+//                                                             detrend folded
+//                                                             into A)
 //   p[b, t, f]              = (X_re^2 + X_im^2) * wts[f]
 //   log10_out               : p <- log10(p + 1e-20)
-//   with_stats              : one (min, max) of p per block over valid t < T,
-//                             f < F, NaN-propagating; a second pass reduces the
-//                             partials to per-clip extrema.
+//   with_stats              : per (frequency tile, row) (min, max) of p,
+//                             NaN-propagating; torch.amin/amax finish them
+//                             per clip.
 //
-// Output is frame-major (B, T, F) f32 with no padding; ragged edges are masked.
+// Output is frame-major (B, T, F) f32 with no padding; ragged edges are
+// masked.
 //
-// What bounds it on this card: 4*B*T*F*K flops (about 1.34 TFLOP at the
-// headline batch: B = 1024 clips of 160,000 samples, K = 1024, hop 256,
-// F = 513, T = 622) against about 1.3 GB of output and 0.66 GB of input, so
-// it is compute-bound on fp32 FMA (no TF32, no tensor cores: the display
-// contract is 1e-3 dB, and TF32 keeps 10 mantissa bits). The design is a
-// register-blocked SGEMM: each block owns a 128-frame x 64-bin tile of one
-// clip, stages 16-sample chunks of its frames and of the A_re/A_im tiles in
-// shared memory, and each thread accumulates an 8 x 4 tile of both X_re and
-// X_im in registers (64 FMAs per 4 vector shared-memory loads). Frames are
-// read straight from the signal at stride hop, so no frame tensor
-// (nperseg/hop times the signal) is ever written, and the gcd decomposition
-// the TPU kernel needs for hops that do not divide nperseg has no
-// counterpart. A (4.2 MB at K = 1024) stays in the 50 MB L2; clips are the
-// outermost grid axis so all tiles of one clip run together.
+// Accumulation precision is a template parameter (the rule and its measured
+// reasons are in ops/stft_cuda.py):
+//   float  : one fp32 FMA chain per output over ascending k; the epilogue
+//            rounds every step explicitly. Bitwise what cuBLAS's SGEMM plus
+//            the plain elementwise epilogue give.
+//   double : x staged to f64 in shared memory, A in f64 (the host's f64
+//            constants unrounded), one DFMA chain per output, the epilogue
+//            (re^2 + im^2) * w in f64, rounded once to f32 at the store.
+//
+// What bounds it on this card: 4*B*T*F*K flops against B*n*4 bytes in and
+// B*T*F*4 bytes out, so it is compute-bound: on fp32 FMA (67 TFLOP/s; no
+// TF32, which keeps 10 mantissa bits against a 1e-3 dB contract) and on
+// FP64 FMA (about 33.5 TFLOP/s) for the double route. The design is a
+// register-blocked GEMM: each block owns a 128-row x 64-bin tile, stages
+// 16-sample chunks of its frames and of the A_re/A_im tiles in shared
+// memory, and each thread accumulates an 8 x 4 tile of both X_re and X_im
+// in registers. Frames are read straight from the signal by pointer, so no
+// frame tensor (nperseg/hop times the signal) is written, and the gcd
+// framing the TPU kernel needs for hops that do not divide nperseg has no
+// counterpart.
+//
+// Grid order: one linear grid over (row tile, frequency tile), walked in
+// one of two orders, which the wrapper picks by whether A fits in L2.
+//   freq_fast = 0: the frequency tile is the slow axis and the flattened
+//     rows the fast one. At nperseg 8192 A is 268 MB in f32 and 537 MB in
+//     f64, far past the 50 MB L2; the blocks resident together then all
+//     work on one frequency tile (8.4 MB of f64 A at K = 8192), which stays
+//     in L2, so A crosses HBM about once, while the signal is read once per
+//     frequency tile. This is what K2's "A tile resident, clips innermost"
+//     order becomes on a machine whose blocks run in parallel.
+//   freq_fast = 1: the frequency tiles of one row tile run together and
+//     share its frames in L2; A, small enough to stay in L2 whole, is read
+//     by every row tile. With a block's stage loads waiting on memory
+//     (no double buffering), frames from L2 rather than HBM keep the
+//     headline path at its fp32 FMA rate.
+// The flattened rows (r = b*T + t) fill row tiles across clip boundaries:
+// 10 s clips at scipy_default 8192 have T = 22, which would fill 17% of a
+// per-clip tile.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int BM = 128;          // frames per block
+constexpr int BM = 128;          // rows (frames) per block
 constexpr int BN = 64;           // frequency bins per block
 constexpr int BK = 16;           // samples per shared-memory stage
 constexpr int TX = 16;           // threads along bins
-constexpr int TY = 16;           // threads along frames
+constexpr int TY = 16;           // threads along rows
 constexpr int NT = TX * TY;      // threads per block
-constexpr int TM = BM / TY;      // frames per thread (8)
+constexpr int TM = BM / TY;      // rows per thread (8)
 constexpr int TN = BN / TX;      // bins per thread (4)
-constexpr int XPAD = 4;          // keeps float4 alignment, spreads banks
+constexpr int XPAD = 4;          // keeps 16-byte alignment, spreads banks
 
 static_assert(TM == 8 && TN == 4, "the vector loads below assume 8 x 4");
 static_assert((BM * BK) % NT == 0 && (BN * BK) % NT == 0, "stage split");
+static_assert(TX == 16 && NT % 32 == 0, "row reduction over 16 lanes");
 
-// min/max that propagate NaN like jnp.min/jnp.max (fminf/fmaxf drop it)
+// min/max that propagate NaN like torch.amin/amax (fminf/fmaxf drop it)
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (a != a || a < b) ? a : b;
 }
@@ -57,48 +86,106 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
 
+// N consecutive shared-memory values as 16-byte vector loads
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p + i);
+    v[i] = q.x;
+    v[i + 1] = q.y;
+    v[i + 2] = q.z;
+    v[i + 3] = q.w;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_vec(const double* p, double (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    const double2 q = *reinterpret_cast<const double2*>(p + i);
+    v[i] = q.x;
+    v[i + 1] = q.y;
+  }
+}
+
+__device__ __forceinline__ float fma_acc(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_acc(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// (re^2 + im^2) * w with every step rounded to nearest: no FMA
+// contraction, so it rounds exactly like the plain elementwise version
+__device__ __forceinline__ float power(float re, float im, float w) {
+  return __fmul_rn(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)), w);
+}
+__device__ __forceinline__ double power(double re, double im, double w) {
+  return __dmul_rn(__dadd_rn(__dmul_rn(re, re), __dmul_rn(im, im)), w);
+}
+
+__device__ __forceinline__ float log10_psd(float p) {
+  return log10f(p + 1e-20f);
+}
+__device__ __forceinline__ float log10_psd(double p) {
+  return static_cast<float>(log10(p + 1e-20));
+}
+
+template <typename Acc>
 __global__ void __launch_bounds__(NT)
-stft_psd_kernel(const float* __restrict__ x, const float* __restrict__ a_re,
-                const float* __restrict__ a_im,
-                const float* __restrict__ wts, float* __restrict__ out,
-                float* __restrict__ part_min, float* __restrict__ part_max,
-                long long n, int T, int F, int K, int hop, int log10_out,
-                int with_stats) {
-  __shared__ __align__(16) float xs[BK][BM + XPAD];
-  __shared__ __align__(16) float ars[BK][BN];
-  __shared__ __align__(16) float ais[BK][BN];
-  __shared__ float red_lo[NT / 32];
-  __shared__ float red_hi[NT / 32];
+stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
+                const Acc* __restrict__ a_im, const Acc* __restrict__ wts,
+                float* __restrict__ out, float* __restrict__ part_min,
+                float* __restrict__ part_max, long long n, int R, int T,
+                int F, int K, int hop, int log10_out, int with_stats,
+                int freq_fast) {
+  __shared__ __align__(16) Acc xs[BK][BM + XPAD];
+  __shared__ __align__(16) Acc ars[BK][BN];
+  __shared__ __align__(16) Acc ais[BK][BN];
 
   const int tid = threadIdx.x;
   const int tx = tid % TX;
   const int ty = tid / TX;
-  const int f0 = blockIdx.x * BN;
-  const int t0 = blockIdx.y * BM;
-  const long long b = blockIdx.z;
-  const float* xb = x + b * n;
+  const int n_row_tiles = (R + BM - 1) / BM;
+  const int n_freq_tiles = (F + BN - 1) / BN;
+  const int row_tile = freq_fast ? blockIdx.x / n_freq_tiles
+                                 : blockIdx.x % n_row_tiles;
+  const int freq_tile = freq_fast ? blockIdx.x % n_freq_tiles
+                                  : blockIdx.x / n_row_tiles;
+  const int r0 = row_tile * BM;
+  const int f0 = freq_tile * BN;
 
-  float acc_re[TM][TN];
-  float acc_im[TM][TN];
+  // the frames this thread stages, as pointers held in registers for the
+  // whole k loop, so each stage's loads issue at once; rows past R read
+  // nothing
+  constexpr int XS = (BM * BK) / NT;  // frame samples a thread stages
+  const int xk = tid % BK;            // the sample within the stage
+  const float* frame[XS];
+#pragma unroll
+  for (int s = 0; s < XS; ++s) {
+    const int r = r0 + (tid + s * NT) / BK;
+    frame[s] = r < R ? x + (long long)(r / T) * n + (long long)(r % T) * hop
+                     : nullptr;
+  }
+
+  Acc acc_re[TM][TN];
+  Acc acc_im[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      acc_re[i][j] = 0.f;
-      acc_im[i][j] = 0.f;
+      acc_re[i][j] = Acc(0);
+      acc_im[i][j] = Acc(0);
     }
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    // frames: xs[k][m] = x[b, (t0 + m) * hop + k0 + k]; 16 neighbouring
+    // frames: xs[k][m] = x[frame of row r0 + m, k0 + k]; 16 neighbouring
     // threads read 16 neighbouring samples of one frame
 #pragma unroll
-    for (int s = 0; s < (BM * BK) / NT; ++s) {
-      const int idx = tid + s * NT;
-      const int k = idx % BK;
-      const int m = idx / BK;
-      const int t = t0 + m;
-      const int kk = k0 + k;
-      xs[k][m] = (t < T && kk < K) ? xb[(long long)t * hop + kk] : 0.f;
+    for (int s = 0; s < XS; ++s) {
+      const int kk = k0 + xk;
+      xs[xk][(tid + s * NT) / BK] =
+          (frame[s] != nullptr && kk < K) ? Acc(frame[s][kk]) : Acc(0);
     }
     // matrices: ars[k][j] = A_re[k0 + k, f0 + j]
 #pragma unroll
@@ -110,102 +197,108 @@ stft_psd_kernel(const float* __restrict__ x, const float* __restrict__ a_re,
       const int kk = k0 + k;
       const bool ok = f < F && kk < K;
       const long long off = (long long)kk * F + f;
-      ars[k][j] = ok ? a_re[off] : 0.f;
-      ais[k][j] = ok ? a_im[off] : 0.f;
+      ars[k][j] = ok ? a_re[off] : Acc(0);
+      ais[k][j] = ok ? a_im[off] : Acc(0);
     }
     __syncthreads();
 
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
-      const float4 x_lo = *reinterpret_cast<const float4*>(&xs[k][ty * TM]);
-      const float4 x_hi =
-          *reinterpret_cast<const float4*>(&xs[k][ty * TM + 4]);
-      const float4 c4 = *reinterpret_cast<const float4*>(&ars[k][tx * TN]);
-      const float4 s4 = *reinterpret_cast<const float4*>(&ais[k][tx * TN]);
-      const float xv[TM] = {x_lo.x, x_lo.y, x_lo.z, x_lo.w,
-                            x_hi.x, x_hi.y, x_hi.z, x_hi.w};
-      const float cr[TN] = {c4.x, c4.y, c4.z, c4.w};
-      const float ci[TN] = {s4.x, s4.y, s4.z, s4.w};
+      Acc xv[TM];
+      Acc cr[TN];
+      Acc ci[TN];
+      load_vec(&xs[k][ty * TM], xv);
+      load_vec(&ars[k][tx * TN], cr);
+      load_vec(&ais[k][tx * TN], ci);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
-          acc_re[i][j] = fmaf(xv[i], cr[j], acc_re[i][j]);
-          acc_im[i][j] = fmaf(xv[i], ci[j], acc_im[i][j]);
+          acc_re[i][j] = fma_acc(xv[i], cr[j], acc_re[i][j]);
+          acc_im[i][j] = fma_acc(xv[i], ci[j], acc_im[i][j]);
         }
     }
     __syncthreads();
   }
 
-  float lo = INFINITY;
-  float hi = -INFINITY;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int t = t0 + ty * TM + i;
+    const int r = r0 + ty * TM + i;
+    float lo = INFINITY;
+    float hi = -INFINITY;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int f = f0 + tx * TN + j;
-      if (t < T && f < F) {
-        const float re = acc_re[i][j];
-        const float im = acc_im[i][j];
-        // explicit roundings: no FMA contraction, so the epilogue rounds
-        // exactly like the plain version's elementwise ops
-        float p = __fmul_rn(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)),
-                            wts[f]);
+      if (r < R && f < F) {
+        const Acc pw = power(acc_re[i][j], acc_im[i][j], wts[f]);
+        const float p = static_cast<float>(pw);
         lo = nan_min(lo, p);
         hi = nan_max(hi, p);
-        if (log10_out) p = log10f(p + 1e-20f);
-        out[(b * T + t) * F + f] = p;
+        out[(long long)r * F + f] = log10_out ? log10_psd(pw) : p;
       }
     }
-  }
-
-  if (with_stats) {
+    if (with_stats) {
+      // reduce over the 16 threads that share this row (tx = lane % 16);
+      // every lane of the warp takes part, so the shuffles stay converged
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-      hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    }
-    if (tid % 32 == 0) {
-      red_lo[tid / 32] = lo;
-      red_hi[tid / 32] = hi;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < NT / 32; ++w) {
-        lo = nan_min(lo, red_lo[w]);
-        hi = nan_max(hi, red_hi[w]);
+      for (int off = TX / 2; off > 0; off >>= 1) {
+        lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+        hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
       }
-      const long long p_idx =
-          (b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-      part_min[p_idx] = lo;
-      part_max[p_idx] = hi;
+      if (tx == 0 && r < R) {
+        const long long p_idx = (long long)freq_tile * R + r;
+        part_min[p_idx] = lo;
+        part_max[p_idx] = hi;
+      }
     }
   }
+}
+
+template <typename Acc>
+int launch(const float* x, const Acc* a_re, const Acc* a_im, const Acc* wts,
+           float* out, float* part_min, float* part_max, int B, long long n,
+           int T, int F, int K, int hop, int log10_out, int with_stats,
+           int freq_fast, void* stream) {
+  const int R = B * T;
+  const unsigned blocks = (unsigned)((R + BM - 1) / BM) * ((F + BN - 1) / BN);
+  stft_psd_kernel<Acc><<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, a_re, a_im, wts, out, part_min, part_max, n, R, T, F, K, hop,
+      log10_out, with_stats, freq_fast);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of (min, max) partials per clip that stft_psd_launch writes.
-int stft_psd_partials(int T, int F) {
-  return ((T + BM - 1) / BM) * ((F + BN - 1) / BN);
-}
+// Number of frequency tiles: the (min, max) partials are
+// (stft_psd_freq_tiles(F), B * T) each.
+int stft_psd_freq_tiles(int F) { return (F + BN - 1) / BN; }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// x is (B, n) contiguous; a_re/a_im are (K, F) contiguous; wts is (F,);
-// out is (B, T, F); part_min/part_max are (B, stft_psd_partials(T, F)) and
-// may be null when with_stats is 0.
-int stft_psd_launch(const float* x, const float* a_re, const float* a_im,
-                    const float* wts, float* out, float* part_min,
-                    float* part_max, int B, long long n, int T, int F, int K,
-                    int hop, int log10_out, int with_stats, void* stream) {
-  const dim3 grid((F + BN - 1) / BN, (T + BM - 1) / BM, B);
-  stft_psd_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, a_re, a_im, wts, out, part_min, part_max, n, T, F, K, hop, log10_out,
-      with_stats);
-  return static_cast<int>(cudaGetLastError());
+// x is (B, n) contiguous f32; a_re/a_im are (K, F) contiguous and wts is
+// (F,), in f32 for the _f32 entry and f64 for the _f64 entry; out is
+// (B, T, F) f32; part_min/part_max are (stft_psd_freq_tiles(F), B * T) f32
+// and may be null when with_stats is 0. freq_fast picks the grid order
+// (header). The caller keeps B * T and the number of blocks, row tiles
+// times frequency tiles, within the grid's limits.
+int stft_psd_launch_f32(const float* x, const float* a_re, const float* a_im,
+                        const float* wts, float* out, float* part_min,
+                        float* part_max, int B, long long n, int T, int F,
+                        int K, int hop, int log10_out, int with_stats,
+                        int freq_fast, void* stream) {
+  return launch<float>(x, a_re, a_im, wts, out, part_min, part_max, B, n, T,
+                       F, K, hop, log10_out, with_stats, freq_fast, stream);
+}
+
+int stft_psd_launch_f64(const float* x, const double* a_re,
+                        const double* a_im, const double* wts, float* out,
+                        float* part_min, float* part_max, int B, long long n,
+                        int T, int F, int K, int hop, int log10_out,
+                        int with_stats, int freq_fast, void* stream) {
+  return launch<double>(x, a_re, a_im, wts, out, part_min, part_max, B, n,
+                        T, F, K, hop, log10_out, with_stats, freq_fast,
+                        stream);
 }
 
 const char* stft_psd_error_string(int code) {

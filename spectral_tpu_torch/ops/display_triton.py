@@ -3,11 +3,16 @@
 Port of the jnp tail of ``spectral_tpu/ops/stft_pallas.py::pallas_pipeline_fn``
 (``normalize_from_stats`` -> dB -> clip -> colormap pack). One pass over the
 frame-major (B, T, F) PSD writes the freq-major (B, F, T) display image and
-its packed RGBA words, given each clip's PSD extrema from the STFT kernel.
+its packed words, given each clip's PSD extrema from the STFT kernel. The
+words are either one RGBA word per pixel (``apply_colormap_packed``) or, in
+palette mode, four LUT indices per word with the width padded to a multiple
+of 4 (``colormap_index_packed``, the dataset export's default), computed
+from the same index the RGBA words take.
 
 What bounds it on this card: memory. Per pixel it reads 4 bytes and writes
-8 (about 1.3 GB in and 2.6 GB out at the headline batch) against a handful
-of flops and one 256-entry table lookup. Its one hard part is the transpose
+8 (about 1.3 GB in and 2.6 GB out at the headline batch; 5 in palette
+mode) against a handful of flops and one 256-entry table lookup. Its one
+hard part is the transpose
 from frame-major to freq-major: each program owns a 64 x 64 (frames x bins)
 tile, loads it along bins and stores it along frames, and Triton stages the
 layout change through shared memory, so both sides stay coalesced.
@@ -30,13 +35,16 @@ from typing import Optional, Tuple
 import torch
 
 from spectral_tpu_torch.core.scale import display_params, normalize_from_stats
-from spectral_tpu_torch.ops.colormap import apply_colormap_packed, packed_lut
+from spectral_tpu_torch.ops.colormap import (apply_colormap_packed,
+                                             colormap_index_packed,
+                                             packed_lut)
 
 BLOCK_T = 64
 BLOCK_F = 64
 MAX_CLIPS = 65535            # the grid's second axis
 
-launches = 0                 # kernel launches, for run-time proof of the path
+# kernel launches per output mode, for run-time proof of the path
+launches = {"rgba": 0, "palette": 0}
 
 # Triton's language modules, bound by _kernel() on first use: importing this
 # module must work where triton is not installed.
@@ -44,10 +52,10 @@ tl = None
 libdevice = None
 
 
-def _display_kernel(psd_ptr, params_ptr, lut_ptr, img_ptr, rgb_ptr, T, F,
-                    n_f_tiles,
+def _display_kernel(psd_ptr, params_ptr, lut_ptr, img_ptr, words_ptr, T, F,
+                    n_f_tiles, W4,
                     LOG_SCALE: tl.constexpr, FLIP_IMAGE: tl.constexpr,
-                    WITH_RGB: tl.constexpr, BLOCK_T: tl.constexpr,
+                    WORDS: tl.constexpr, BLOCK_T: tl.constexpr,
                     BLOCK_F: tl.constexpr):
     tile = tl.program_id(0)
     b = tl.program_id(1)
@@ -87,14 +95,26 @@ def _display_kernel(psd_ptr, params_ptr, lut_ptr, img_ptr, rgb_ptr, T, F,
     else:
         rows = f
     tl.store(img_ptr + clip + rows[None, :] * T + t[:, None], img, mask=mask)
-    if WITH_RGB:
-        # matplotlib's index rule; a NaN pixel takes index 0 as in torch/jnp
-        level = tl.where(img != img, 0.0, img) * 256.0
-        idx = tl.minimum(tl.maximum(level.to(tl.int32), 0), 255)
+    # matplotlib's index rule; a NaN pixel takes index 0 as in torch/jnp
+    level = tl.where(img != img, 0.0, img) * 256.0
+    idx = tl.minimum(tl.maximum(level.to(tl.int32), 0), 255)
+    # packed words always put the highest frequency in row 0
+    if WORDS == 1:
         word = tl.load(lut_ptr + idx)
-        # packed words always put the highest frequency in row 0
-        tl.store(rgb_ptr + clip + (F - 1 - f)[None, :] * T + t[:, None],
+        tl.store(words_ptr + clip + (F - 1 - f)[None, :] * T + t[:, None],
                  word, mask=mask)
+    if WORDS == 2:
+        # four indices per little-endian word: frame t lands in byte t % 4
+        # of word t // 4; frames past T pad with index 0. The tile starts
+        # at a multiple of 4 frames, so its words are whole.
+        shift = ((t % 4) * 8).to(tl.uint32)
+        byte = tl.where(mask, idx, 0).to(tl.uint32) << shift[:, None]
+        word = tl.sum(tl.reshape(byte, (BLOCK_T // 4, 4, BLOCK_F)), axis=1)
+        t4 = (tile // n_f_tiles) * (BLOCK_T // 4) + tl.arange(0, BLOCK_T // 4)
+        tl.store(words_ptr + b.to(tl.int64) * F * W4
+                 + (F - 1 - f)[None, :] * W4 + t4[:, None],
+                 word.to(tl.int32, bitcast=True),
+                 mask=(t4[:, None] < W4) & (f[None, :] < F))
 
 
 @functools.lru_cache(maxsize=1)
@@ -123,26 +143,30 @@ def display_epilogue_reference(psd: torch.Tensor, pmin: torch.Tensor,
                                pmax: torch.Tensor, *, log_scale: bool,
                                share_max: bool = False,
                                flip_image: bool = False,
-                               colormap: Optional[str] = "jet"
+                               colormap: Optional[str] = "jet",
+                               palette: bool = False
                                ) -> Tuple[torch.Tensor,
                                           Optional[torch.Tensor]]:
     """The plain version: psd (B, T, F) and extrema (B,) -> image (B, F, T)
-    float (display-flipped when flip_image) and packed RGBA words (B, F, T)
-    uint32 with row 0 the highest frequency (None without a colormap)."""
+    float (display-flipped when flip_image) and packed words with row 0
+    the highest frequency: RGBA words (B, F, T) uint32 from the colormap
+    (None without one), or under palette LUT indices four to a word,
+    (B, F, ceil(T / 4)) uint32, whatever the colormap."""
     gm = torch.amax(pmax) if share_max else None
     img = normalize_from_stats(psd.transpose(1, 2), pmin[:, None, None],
                                pmax[:, None, None], log_scale, gm)
     if flip_image:
         img = img.flip(1)
     img = img.contiguous()
+    if palette:
+        return img, colormap_index_packed(img, flip_rows=not flip_image)
     rgb = (apply_colormap_packed(img, colormap, flip_rows=not flip_image)
            if colormap else None)
     return img, rgb
 
 
 def _display_epilogue_triton(psd, pmin, pmax, log_scale, share_max,
-                             flip_image, colormap):
-    global launches
+                             flip_image, colormap, palette):
     kernel = _kernel()
     if psd.device.type != "cuda":
         raise ValueError(f"the display kernel takes CUDA tensors, "
@@ -156,29 +180,32 @@ def _display_epilogue_triton(psd, pmin, pmax, log_scale, share_max,
         raise ValueError(f"at most {MAX_CLIPS} clips per launch, got {B}")
     params = clip_params(pmin, pmax, share_max)
     image = torch.empty((B, F, T), dtype=torch.float32, device=psd.device)
-    rgb = (torch.empty((B, F, T), dtype=torch.int32, device=psd.device)
-           if colormap else None)
+    W4 = -(-T // 4)
+    mode = 2 if palette else (1 if colormap else 0)
+    words = (torch.empty((B, F, W4), dtype=torch.int32, device=psd.device)
+             if palette else
+             torch.empty((B, F, T), dtype=torch.int32, device=psd.device)
+             if colormap else None)
     if B * T * F:
         n_f_tiles = -(-F // BLOCK_F)
         grid = (-(-T // BLOCK_T) * n_f_tiles, B)
-        # without a colormap the kernel reads no LUT and writes no words;
-        # any valid pointers fill those two slots
-        lut = packed_lut(colormap, psd.device) if colormap else params
+        # the kernel reads the LUT only for RGBA words and writes words
+        # only in modes 1 and 2; any valid pointers fill the unused slots
+        lut = packed_lut(colormap, psd.device) if mode == 1 else params
         with torch.cuda.device(psd.device):
             kernel[grid](psd, params, lut, image,
-                         rgb if colormap else image, T, F, n_f_tiles,
-                         LOG_SCALE=bool(log_scale),
-                         FLIP_IMAGE=bool(flip_image),
-                         WITH_RGB=bool(colormap), BLOCK_T=BLOCK_T,
-                         BLOCK_F=BLOCK_F, num_warps=4)
-        launches += 1
-    return image, (rgb.view(torch.uint32) if colormap else None)
+                         image if words is None else words, T, F, n_f_tiles,
+                         W4, LOG_SCALE=bool(log_scale),
+                         FLIP_IMAGE=bool(flip_image), WORDS=mode,
+                         BLOCK_T=BLOCK_T, BLOCK_F=BLOCK_F, num_warps=4)
+        launches["palette" if palette else "rgba"] += 1
+    return image, (None if words is None else words.view(torch.uint32))
 
 
 def display_epilogue(psd: torch.Tensor, pmin: torch.Tensor,
                      pmax: torch.Tensor, *, log_scale: bool,
                      share_max: bool = False, flip_image: bool = False,
-                     colormap: Optional[str] = "jet"
+                     colormap: Optional[str] = "jet", palette: bool = False
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Display image and packed words from a PSD and its extrema; see
     :func:`display_epilogue_reference` for the layouts. share_max uses the
@@ -186,6 +213,6 @@ def display_epilogue(psd: torch.Tensor, pmin: torch.Tensor,
     if psd.device.type == "cpu":
         return display_epilogue_reference(
             psd, pmin, pmax, log_scale=log_scale, share_max=share_max,
-            flip_image=flip_image, colormap=colormap)
+            flip_image=flip_image, colormap=colormap, palette=palette)
     return _display_epilogue_triton(psd, pmin, pmax, log_scale, share_max,
-                                    flip_image, colormap)
+                                    flip_image, colormap, palette)

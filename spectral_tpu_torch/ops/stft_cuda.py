@@ -2,9 +2,35 @@
 
 Counterpart of ``spectral_tpu/ops/stft_pallas.py``. The kernel
 (``csrc/stft_psd.cu``) replaces ``stft_psd_pallas`` with its ``with_stats``
-and ``log10_out`` modes: framing, the window- and detrend-folded real DFT,
-|X|² times the one-sided PSD weights, and the per-clip PSD extrema, with no
-frame tensor written to memory.
+and ``log10_out`` modes, across the GUI's whole nperseg range up to 8192
+(the TPU's auto kernel K1 and, above nperseg 6144, its manual-DMA kernel
+K2): framing, the window- and detrend-folded real DFT, |X|² times the
+one-sided PSD weights, and the per-clip PSD extrema, with no frame tensor
+written to memory.
+
+Precision rule. The kernel accumulates each output in one FMA chain over
+the nperseg samples. In float32 that chain holds the 1e-3 dB display
+contract only for short frames without detrend; everything else
+accumulates in float64. Display error against scipy in float64
+(``bench.py``'s formula), on white-noise clips of 8·nperseg samples, with
+the kernel's order emulated in numpy (CPU emulation, PR 2):
+
+    config                       clip       fp32 chain   f64 chain, A f32   f64 chain, A f64
+    north_star 1024/256          noise + 3  6.2e-4 dB    —                  —
+    scipy_default 1024           noise      2.0e-4       4.7e-5             3.3e-7
+    scipy_default 1024           noise + 3  1.6e-3       1.2e-4             2.8e-7
+    north_star 8192/2048         noise      2.2e-3       —                  —
+    scipy_default 8192           noise      2.8e-3       2.8e-5             3.4e-7
+    scipy_default 8192           noise + 3  1.07e-1      3.1e-4             4.3e-7
+
+The detrend fold cancels a DC offset inside the sum, where a float32 chain
+loses the small bins; partial sums or an exact mean removal before a
+float32 DFT still left 1.1e-2 dB at 8192 with the offset. So:
+
+- float32 (one fp32 FMA chain, bitwise cuBLAS's SGEMM order) for
+  nperseg <= 1024 with ``detrend == "none"``, the measured headline path;
+- float64 (DFMA, A the host's f64 constants unrounded, the epilogue in f64,
+  rounded once to float32 at the store) for every other config.
 
 :func:`stft_psd` takes the kernel for a CUDA tensor and the plain version
 (:func:`stft_psd_reference`) for a CPU tensor, and only because the tensor
@@ -19,17 +45,27 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from spectral_tpu.config import SpecConfig
+from spectral_tpu_torch.config import SpecConfig
 from spectral_tpu_torch.core.stft import (dense_power, dft_matrices,
                                           ensure_real_waveform, frame_signal,
                                           num_frames, onesided_weights)
 from spectral_tpu_torch.ops import build
 
 KERNEL = "stft_psd"
-MAX_NPERSEG = 1024
-MAX_CLIPS = 65535            # the grid's z extent
+MAX_NPERSEG = 8192           # the GUI's ceiling (GUI.py:87-90)
+F32_MAX_NPERSEG = 1024       # the float32 route's ceiling (module docstring)
+MAX_ROWS = 2 ** 31 - 256     # B * T: the kernel indexes rows with int32
+MAX_BLOCKS = 2 ** 31 - 1     # row tiles x frequency tiles: the grid's extent
+ROW_TILE = 128               # frames per block (csrc/stft_psd.cu BM)
+# A (both matrices) up to this size stays in the 50 MB L2 beside the frames;
+# then the frequency tiles of a row tile run together and share its frames
+# (the headline path), else the frequency tile is the grid's slow axis and
+# one A tile stays in L2 for all clips (K2's order). csrc/stft_psd.cu says
+# why; PERF.md has both orders' times.
+A_L2_BYTES = 16 * 2 ** 20
 
-launches = 0                 # kernel launches, for run-time proof of the path
+# kernel launches per route, for run-time proof of the path
+launches = {"fp32": 0, "f64": 0}
 
 
 class DftConstants(NamedTuple):
@@ -39,9 +75,23 @@ class DftConstants(NamedTuple):
     wts: torch.Tensor
 
 
+def accumulator_dtype(cfg: SpecConfig) -> torch.dtype:
+    """The precision the kernel accumulates cfg in (module docstring)."""
+    if cfg.nperseg <= F32_MAX_NPERSEG and cfg.detrend == "none":
+        return torch.float32
+    return torch.float64
+
+
+def route(cfg: SpecConfig) -> str:
+    """'fp32' or 'f64': the kernel instantiation that computes cfg."""
+    return "fp32" if accumulator_dtype(cfg) == torch.float32 else "f64"
+
+
 def unsupported_reason(cfg: SpecConfig) -> Optional[str]:
     """Why the kernel cannot compute cfg (naming the ROADMAP item that will
-    bring it), or None when it can."""
+    bring it), or None when it can. These are the semantic conditions of
+    the JAX package's ``pallas_supported``; its gcd and VMEM conditions are
+    TPU layout limits, and the kernel reads frames by pointer."""
     if cfg.mode != "psd" or cfg.center or cfg.nfft_ != cfg.nperseg:
         return ("the STFT kernel computes uncentered PSD with nfft == "
                 "nperseg; other modes arrive with ROADMAP queue 1 item 8 "
@@ -50,16 +100,15 @@ def unsupported_reason(cfg: SpecConfig) -> Optional[str]:
         return ("the mel branch and the fmin/fmax band mask arrive with "
                 "ROADMAP queue 1 item 5 (the rest of the main-path pipeline)")
     if cfg.nperseg > MAX_NPERSEG:
-        return (f"nperseg {cfg.nperseg} > {MAX_NPERSEG}: larger transforms "
-                "arrive with ROADMAP queue 1 item 8 (nperseg 2048-8192, "
-                "queue 2 K2)")
+        return (f"nperseg {cfg.nperseg} > {MAX_NPERSEG}, the GUI's ceiling "
+                "(GUI.py:87-90); larger transforms arrive with ROADMAP "
+                "queue 1 item 8 (the extended modes)")
     return None
 
 
 def kernel_supported(cfg: SpecConfig) -> bool:
-    """The semantic conditions of the JAX package's ``pallas_supported``
-    (nfft == nperseg, PSD mode, uncentered, no mel, no band mask), plus
-    nperseg <= 1024 until larger sizes are checked on the card."""
+    """The semantic conditions of the JAX package's ``pallas_supported``:
+    nfft == nperseg <= 8192, PSD mode, uncentered, no mel, no band mask."""
     return unsupported_reason(cfg) is None
 
 
@@ -71,10 +120,10 @@ def check_supported(cfg: SpecConfig) -> None:
 
 def constants_from_numpy(a_re: np.ndarray, a_im: np.ndarray,
                          wts: np.ndarray, device,
-                         dtype: torch.dtype = torch.float32) -> DftConstants:
+                         dtype: torch.dtype) -> DftConstants:
     """Host f64 constants (``dft_matrices(cfg)``, ``onesided_weights(cfg,
-    fs)`` of either package) -> the kernel's operands on ``device``. The
-    numpy arrays are copied, never shared."""
+    fs)`` of either package) -> the kernel's operands on ``device`` in
+    ``dtype``. The numpy arrays are copied, never shared."""
     def put(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
     return DftConstants(put(a_re), put(a_im), put(wts))
@@ -84,8 +133,10 @@ _CONSTANTS: dict = {}
 
 
 def dft_constants(cfg: SpecConfig, fs: float, device,
-                  dtype: torch.dtype = torch.float32) -> DftConstants:
-    """The operands for (cfg, fs), cached per device and dtype."""
+                  dtype: Optional[torch.dtype] = None) -> DftConstants:
+    """The operands for (cfg, fs), in the route's precision unless dtype is
+    given, cached per device and dtype."""
+    dtype = accumulator_dtype(cfg) if dtype is None else dtype
     key = (cfg, float(fs), str(torch.device(device)), dtype)
     consts = _CONSTANTS.get(key)
     if consts is None:
@@ -106,17 +157,27 @@ def _empty_result(B: int, F: int, like: torch.Tensor, with_stats: bool):
 def stft_psd_reference(x: torch.Tensor, consts: DftConstants,
                        cfg: SpecConfig, *, log10_out: bool = False,
                        with_stats: bool = False):
-    """The plain version of the kernel: (B, n) -> (B, T, F) PSD, plus
-    (pmin, pmax) of shape (B,) under with_stats (NaN-propagating, like
-    jnp.min/jnp.max). Computes in x's dtype on x's device."""
+    """The plain version of the kernel: (B, n) -> (B, T, F) PSD in x's
+    dtype, plus (pmin, pmax) of shape (B,) under with_stats
+    (NaN-propagating, like jnp.min/jnp.max).
+
+    It computes in the route's precision, or x's if wider: IEEE float32
+    matmuls on the fp32 route; float64 matmuls, epilogue and log10 on the
+    f64 route, rounded once to x's dtype. ``consts`` must be in that
+    precision (``dft_constants(cfg, fs, device)``): float32 matrices on the
+    f64 route would be the "A f32" column of the module docstring."""
     B = x.shape[0]
     if num_frames(x.shape[-1], cfg.nperseg, cfg.hop_) <= 0:
         return _empty_result(B, cfg.n_freqs, x, with_stats)
-    p = dense_power(frame_signal(x, cfg.nperseg, cfg.hop_),
-                    consts.a_re.to(x.dtype), consts.a_im.to(x.dtype),
-                    consts.wts.to(x.dtype))
+    dt = torch.promote_types(x.dtype, accumulator_dtype(cfg))
+    if consts.a_re.dtype != dt:
+        raise ValueError(f"the plain STFT computes this config in {dt}; "
+                         f"got {consts.a_re.dtype} constants")
+    p = dense_power(frame_signal(x.to(dt), cfg.nperseg, cfg.hop_),
+                    consts.a_re, consts.a_im, consts.wts)
     if log10_out:
         p = torch.log10(p + 1e-20)
+    p = p.to(x.dtype)
     if with_stats:
         return p, torch.amin(p, dim=(1, 2)), torch.amax(p, dim=(1, 2))
     return p
@@ -124,21 +185,31 @@ def stft_psd_reference(x: torch.Tensor, consts: DftConstants,
 
 def _library() -> ctypes.CDLL:
     lib = build.load_library(KERNEL)
-    if lib.stft_psd_launch.argtypes is None:
+    if lib.stft_psd_launch_f32.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.stft_psd_launch.argtypes = [ptr] * 7 + [
-            i32, ctypes.c_longlong, i32, i32, i32, i32, i32, i32, ptr]
-        lib.stft_psd_launch.restype = i32
-        lib.stft_psd_partials.argtypes = [i32, i32]
-        lib.stft_psd_partials.restype = i32
+        for fn in (lib.stft_psd_launch_f32, lib.stft_psd_launch_f64):
+            fn.argtypes = [ptr] * 7 + [i32, ctypes.c_longlong, i32, i32, i32,
+                                       i32, i32, i32, i32, ptr]
+            fn.restype = i32
+        lib.stft_psd_freq_tiles.argtypes = [i32]
+        lib.stft_psd_freq_tiles.restype = i32
         lib.stft_psd_error_string.argtypes = [i32]
         lib.stft_psd_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def freq_fast_order(cfg: SpecConfig) -> bool:
+    """The kernel's grid order for cfg: frequency tiles fastest when A fits
+    in L2 (``A_L2_BYTES``)."""
+    itemsize = 4 if route(cfg) == "fp32" else 8
+    return 2 * cfg.nperseg * cfg.n_freqs * itemsize <= A_L2_BYTES
+
+
 def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
-                   log10_out: bool, with_stats: bool):
-    global launches
+                   log10_out: bool, with_stats: bool,
+                   freq_fast: Optional[bool] = None):
+    """The kernel on a CUDA tensor; freq_fast overrides the grid order of
+    :func:`freq_fast_order` (for timing both orders on the card)."""
     lib = _library()
     if x.dtype != torch.float32:
         raise TypeError(f"the STFT kernel computes in float32, got {x.dtype}; "
@@ -148,31 +219,43 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
     if not x.is_contiguous():
         raise ValueError("the STFT kernel needs a contiguous (B, n) waveform")
     B, n = x.shape
-    if B > MAX_CLIPS:
-        raise ValueError(f"at most {MAX_CLIPS} clips per launch, got {B}")
     T = num_frames(n, cfg.nperseg, cfg.hop_)
     F = cfg.n_freqs
     if T <= 0:
         return _empty_result(B, F, x, with_stats)
+    if B * T > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} frames per launch, got "
+                         f"{B} clips x {T} frames")
+    n_tiles = lib.stft_psd_freq_tiles(F)
+    if -(-B * T // ROW_TILE) * n_tiles > MAX_BLOCKS:
+        raise ValueError(f"{B} clips x {T} frames x {F} bins exceed the "
+                         "kernel's grid")
+    if freq_fast is None:
+        freq_fast = freq_fast_order(cfg)
+    kind = route(cfg)
     consts = dft_constants(cfg, fs, x.device)
     out = torch.empty((B, T, F), dtype=torch.float32, device=x.device)
-    parts = (torch.empty((2, B, lib.stft_psd_partials(T, F)),
-                         dtype=torch.float32, device=x.device)
-             if with_stats else None)
+    parts = (torch.empty((2, n_tiles, B * T), dtype=torch.float32,
+                         device=x.device) if with_stats else None)
+    launch = (lib.stft_psd_launch_f32 if kind == "fp32"
+              else lib.stft_psd_launch_f64)
     with torch.cuda.device(x.device):
-        err = lib.stft_psd_launch(
+        err = launch(
             x.data_ptr(), consts.a_re.data_ptr(), consts.a_im.data_ptr(),
             consts.wts.data_ptr(), out.data_ptr(),
             parts[0].data_ptr() if with_stats else None,
             parts[1].data_ptr() if with_stats else None,
             B, n, T, F, cfg.nperseg, cfg.hop_, int(log10_out),
-            int(with_stats), torch.cuda.current_stream(x.device).cuda_stream)
+            int(with_stats), int(freq_fast),
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError("stft_psd kernel launch failed: "
                            + lib.stft_psd_error_string(err).decode())
-    launches += 1
+    launches[kind] += 1
     if with_stats:
-        return out, torch.amin(parts[0], dim=1), torch.amax(parts[1], dim=1)
+        per_clip = parts.view(2, n_tiles, B, T)
+        return (out, torch.amin(per_clip[0], dim=(0, 2)),
+                torch.amax(per_clip[1], dim=(0, 2)))
     return out
 
 
@@ -196,7 +279,8 @@ def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
     if x.ndim != 2:
         raise ValueError(f"expected a (n,) or (B, n) waveform, got {x.ndim}-D")
     if x.device.type == "cpu":
-        return stft_psd_reference(x, dft_constants(cfg, fs, x.device,
-                                                   x.dtype), cfg,
-                                  log10_out=log10_out, with_stats=with_stats)
+        dt = torch.promote_types(x.dtype, accumulator_dtype(cfg))
+        return stft_psd_reference(x, dft_constants(cfg, fs, x.device, dt),
+                                  cfg, log10_out=log10_out,
+                                  with_stats=with_stats)
     return _stft_psd_cuda(x, fs, cfg, log10_out, with_stats)

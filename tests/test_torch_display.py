@@ -169,3 +169,49 @@ def test_display_wrapper_on_cpu_is_the_plain_version():
     img, rgb = display_triton.display_epilogue(psd, pmin, pmax, colormap=None,
                                                log_scale=True)
     assert rgb is None and img.shape == (2, 65, 40)
+
+
+@pytest.mark.parametrize("width", [16, 13])
+@pytest.mark.parametrize("flip_rows", [False, True])
+def test_index_pack_byte_exact(flip_rows, width):
+    """Four LUT indices per word, the width zero-padded to a multiple of 4,
+    and the host unpack, against the JAX package for all 256 levels, the
+    clip edges and a NaN pixel (index 0)."""
+    levels = ((np.arange(256) + 0.5) / 256).astype(np.float32)
+    img = np.concatenate([levels, [0.0, 1.0, -0.5, 1.5, np.nan] * 8])
+    img = img[:(img.size // width) * width].astype(np.float32)
+    img = img.reshape(2, -1, width)
+    want = np.asarray(jcmap.colormap_index_packed(jnp.asarray(img),
+                                                  flip_rows=flip_rows))
+    got = tcmap.colormap_index_packed(torch.from_numpy(img),
+                                      flip_rows=flip_rows)
+    assert got.dtype == torch.uint32 and tuple(got.shape) == want.shape
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(tcmap.unpack_indices(got, width),
+                          jcmap.unpack_indices(want, width))
+    # the index behind each RGBA word is the index the pack holds
+    rgb = tcmap.apply_colormap_packed(torch.from_numpy(img),
+                                      flip_rows=flip_rows)
+    lut = tcmap.packed_lut("jet").view(torch.uint32)
+    idx = torch.from_numpy(tcmap.unpack_indices(got, width).astype(np.int64))
+    assert torch.equal(lut[idx], rgb)
+
+
+@pytest.mark.parametrize("flip_image", [False, True])
+def test_display_palette_reference_matches_pallas_tail(flip_image):
+    psd, pmin, pmax = _batch_psd()
+    img_j, _ = _pallas_tail(psd, pmin, pmax, True)
+    want = np.asarray(jcmap.colormap_index_packed(jnp.asarray(img_j),
+                                                  flip_rows=True))
+    img, words = display_triton.display_epilogue(
+        torch.from_numpy(psd), torch.from_numpy(pmin),
+        torch.from_numpy(pmax), log_scale=True, flip_image=flip_image,
+        palette=True)
+    _close(img.flip(1) if flip_image else img, img_j)
+    # index words always put the highest frequency in row 0, whatever the
+    # colormap
+    assert words.shape == (2, 65, 10) and np.array_equal(words.numpy(), want)
+    _, none = display_triton.display_epilogue_reference(
+        torch.from_numpy(psd), torch.from_numpy(pmin),
+        torch.from_numpy(pmax), log_scale=True, colormap=None, palette=True)
+    assert torch.equal(none, words)

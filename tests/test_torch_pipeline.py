@@ -25,19 +25,36 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from spectral_tpu.config import SpecConfig  # noqa: E402
-from spectral_tpu.ops.stft_pallas import pallas_pipeline_fn  # noqa: E402
-from spectral_tpu.parallel.sharding import (  # noqa: E402
-    batched_spectrogram_fn as jax_pipeline)
+from spectral_tpu import config as jconfig  # noqa: E402
+from spectral_tpu.ops import stft_pallas  # noqa: E402
+from spectral_tpu.parallel import sharding as jsharding  # noqa: E402
 from spectral_tpu.render.lut import get_lut  # noqa: E402
-from spectral_tpu_torch.parallel.sharding import (  # noqa: E402
-    batched_spectrogram_fn)
+from spectral_tpu_torch import SpecConfig  # noqa: E402
+from spectral_tpu_torch.parallel import sharding  # noqa: E402
 
 FS = 16000.0
 PSD_TOL = 5e-6
 DB_TOL = 5e-3
 SAME_WORDS = 0.999
 NS_256 = SpecConfig.north_star(256, 64, log_scale=True)
+
+
+def _jax(cfg):
+    """The JAX package's twin of a port config."""
+    return jconfig.SpecConfig.from_json(cfg.to_json())
+
+
+def jax_pipeline(fs, cfg, **kw):
+    return jsharding.batched_spectrogram_fn(fs, _jax(cfg), **kw)
+
+
+def pallas_pipeline_fn(fs, cfg, **kw):
+    return stft_pallas.pallas_pipeline_fn(fs, _jax(cfg), **kw)
+
+
+def batched_spectrogram_fn(fs, cfg, device="cpu", **kw):
+    """The port's pipeline, on the CPU unless the test says otherwise."""
+    return sharding.batched_spectrogram_fn(fs, cfg, device=device, **kw)
 
 
 def _clips(seed, n_clips=2, n=16000):
@@ -160,7 +177,7 @@ def test_colormap_none_and_input_coercion():
 def test_unsupported_configs_raise_on_build():
     for cfg, item in ((SpecConfig.north_star(256, 64, n_mels=32), "item 5"),
                       (SpecConfig.scipy_default(256, fmax=100.0), "item 5"),
-                      (SpecConfig.scipy_default(4096), "item 8")):
+                      (SpecConfig.scipy_default(16384), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             batched_spectrogram_fn(FS, cfg)
 
@@ -177,3 +194,67 @@ def test_device_is_explicit(monkeypatch):
         dev.resolve_device("cuda")
     with pytest.raises(RuntimeError, match="is_available"):
         batched_spectrogram_fn(FS, NS_256, device="cuda")
+    # the card is the default: without one, building the pipeline raises
+    with pytest.raises(RuntimeError, match="is_available"):
+        sharding.batched_spectrogram_fn(FS, NS_256)
+
+
+def _index_bytes(words, width):
+    from spectral_tpu_torch.ops.colormap import unpack_indices
+    return unpack_indices(words, width).astype(int)
+
+
+@pytest.mark.parametrize("flip_image", [True, False])
+def test_palette_matches_jax_index_pack(flip_image):
+    """palette=True: the JAX package's colormap_index_packed of its image
+    (row 0 the highest frequency, width padded to a multiple of 4), held
+    to the packed-word rule in index units, on the clips of
+    test_slice_matches_jax_pipeline. Index units see every step that the
+    deepest bin's float32 error moves the dB scale by (99.84-99.997%
+    identical over five seeds against either JAX route), where RGBA words
+    hide the steps between the jet table's duplicate entries."""
+    from spectral_tpu.ops.colormap import colormap_index_packed
+    x = _clips(0)                            # T = 247: one byte of pad
+    ref = jax.jit(jax_pipeline(FS, NS_256, use_matmul=True,
+                               flip_image=flip_image))(jnp.asarray(x))
+    want = np.asarray(colormap_index_packed(ref["image"],
+                                            flip_rows=not flip_image))
+    port = batched_spectrogram_fn(FS, NS_256, flip_image=flip_image,
+                                  palette=True)(x)
+    assert set(port) == {"psd", "image", "index_packed", "finite"}
+    got = port["index_packed"]
+    T = port["psd"].shape[1]
+    assert got.dtype == torch.uint32 and tuple(got.shape) == want.shape
+    assert want.shape == (2, 129, -(-T // 4)) and T % 4
+    a, b = _index_bytes(got, T), _index_bytes(want, T)
+    assert (a == b).mean() >= SAME_WORDS and np.abs(a - b).max() <= 1
+    # the pad bytes past T are zero, as jnp.pad leaves them
+    pad = got.numpy().view(np.uint8).reshape(2, 129, -1)[..., T:]
+    assert not pad.any()
+    # the same pixels as the RGBA words of the same run
+    rgb = batched_spectrogram_fn(FS, NS_256, flip_image=flip_image)(x)
+    assert torch.equal(rgb["image"], port["image"])
+
+
+def test_slice_at_scipy_2048_matches_pallas_pipeline():
+    """The f64 route end to end at a frequency-tiled size, on noise + 3.
+    The port's PSD is held to the JAX Pallas kernel at that kernel's own
+    tolerance (tests/test_stft_pallas.py:120) and its image to scipy in
+    float64 at 1e-3 dB: the float32 Pallas route is the less accurate of
+    the two here, so its packed words are no reference (99.84% identical
+    on these clips)."""
+    from scipy.signal import spectrogram
+    cfg = SpecConfig.scipy_default(2048, log_scale=True)
+    x = _clips(7, n=8 * 2048) + np.float32(3.0)
+    ref = jax.jit(pallas_pipeline_fn(FS, cfg))(jnp.asarray(x))
+    port = batched_spectrogram_fn(FS, cfg)(x)
+    psd_r = np.asarray(ref["psd"])
+    np.testing.assert_allclose(port["psd"].numpy(), psd_r, rtol=3e-4,
+                               atol=float(psd_r.max()) * 1e-6)
+    assert port["finite"].tolist() == np.asarray(ref["finite"]).tolist()
+    for clip, img in zip(x.astype(np.float64), port["image"].numpy()):
+        _f, _t, sxx = spectrogram(clip, fs=FS, nperseg=2048)
+        db = np.nan_to_num(10 * np.log10(np.clip(sxx / sxx.max(), 0, 1)
+                                         + 1e-12))
+        rng_db = db.max() - db.min()
+        assert np.abs(img - (db - db.min()) / rng_db).max() * rng_db <= 1e-3

@@ -1,13 +1,16 @@
-"""The port's boundaries: it never imports jax, its plain versions run only
-for CPU tensors, a kernel that cannot be built or launched raises instead
-of falling back, its contract dots run in full float32, and chip_smoke.py
-refuses to report without a card.
+"""The port's boundaries: it never imports jax nor anything of the JAX
+package, its entry points run on the card unless the caller asks for the
+CPU, its plain versions run only for CPU tensors, a kernel that cannot be
+built or launched raises instead of falling back, its contract dots run in
+full float32, and chip_smoke.py refuses to report without a card.
 
 A tensor on the ``meta`` device stands in for a CUDA tensor here: like a
 CUDA tensor it does not lie on the CPU, so the wrappers must take the
 kernel route for it.
 """
 
+import ast
+import glob
 import json
 import os
 import shutil
@@ -20,8 +23,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from spectral_tpu.config import SpecConfig  # noqa: E402
+from spectral_tpu_torch import SpecConfig  # noqa: E402
 from spectral_tpu_torch.ops import build, display_triton, stft_cuda  # noqa: E402
+from spectral_tpu_torch.parallel import pipeline, sharding  # noqa: E402
 from spectral_tpu_torch.parallel.sharding import (  # noqa: E402
     batched_spectrogram_fn)
 
@@ -51,21 +55,36 @@ def test_port_imports_and_runs_without_jax():
         from spectral_tpu_torch.parallel.sharding import (
             batched_spectrogram_fn)
         x = np.random.RandomState(0).randn(2, 4096).astype(np.float32)
-        out = batched_spectrogram_fn(
-            16000.0, SpecConfig.north_star(256, 64, log_scale=True),
-            flip_image=True, device="cpu")(x)
+        cfg = SpecConfig.north_star(256, 64, log_scale=True)
+        out = batched_spectrogram_fn(16000.0, cfg, flip_image=True,
+                                     device="cpu")(x)
+        import os, tempfile
+        from spectral_tpu_torch.parallel.pipeline import export_spectrograms
+        with tempfile.TemporaryDirectory() as tmp:
+            stats = export_spectrograms(
+                [("a", x[0]), ("b", (x[1] * 9000).astype(np.int16))],
+                16000.0, cfg, tmp, clip_samples=4096, batch=2,
+                device="cpu", encode_workers=1)
+            pngs = sorted(os.listdir(tmp))
         loaded = [m for m in sys.modules
                   if m.startswith(("jax.", "jaxlib"))
                   or (m == "jax" and sys.modules[m] is not None)]
+        reference = [m for m in sys.modules
+                     if m == "spectral_tpu" or m.startswith("spectral_tpu.")]
         print(json.dumps({"modules": names, "jax": loaded,
+                          "spectral_tpu": reference,
                           "triton": "triton" in sys.modules,
                           "shapes": {k: list(v.shape) for k, v in out.items()},
-                          "finite": out["finite"].tolist()}))
+                          "finite": out["finite"].tolist(),
+                          "pngs": pngs, "written": stats.pngs_written}))
     """)
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["jax"] == [] and not report["triton"]
+    assert report["spectral_tpu"] == []
+    assert report["pngs"] == ["a.png", "b.png"] and report["written"] == 2
+    assert "spectral_tpu_torch.parallel.pipeline" in report["modules"]
     assert "spectral_tpu_torch.ops.display_triton" in report["modules"]
     assert "spectral_tpu_torch.parallel.sharding" in report["modules"]
     assert report["shapes"] == {"psd": [2, 61, 129], "image": [2, 129, 61],
@@ -88,7 +107,7 @@ def test_plain_dots_run_in_ieee_float32(monkeypatch):
         monkeypatch.setattr(torch, "matmul", spy)
         x = torch.from_numpy(np.random.RandomState(0).randn(2, 4096)
                              .astype(np.float32))
-        batched_spectrogram_fn(FS, NS_256)(x)
+        batched_spectrogram_fn(FS, NS_256, device="cpu")(x)
         assert torch.get_float32_matmul_precision() == "medium"
     finally:
         torch.set_float32_matmul_precision(before)
@@ -106,11 +125,14 @@ def test_cpu_tensors_never_touch_the_kernels(monkeypatch):
 
     monkeypatch.setattr(build, "load_library", no_kernel)
     monkeypatch.setattr(display_triton, "_kernel", no_kernel)
-    launches = (stft_cuda.launches, display_triton.launches)
+    launches = (dict(stft_cuda.launches), dict(display_triton.launches))
     x = torch.from_numpy(np.random.RandomState(1).randn(2, 4096)
                          .astype(np.float32))
-    out = batched_spectrogram_fn(FS, NS_256)(x)
-    assert out["finite"].tolist() == [True, True]
+    for cfg in (NS_256, SpecConfig.scipy_default(2048, log_scale=True)):
+        for palette in (False, True):
+            out = batched_spectrogram_fn(FS, cfg, palette=palette,
+                                         device="cpu")(x)
+            assert out["finite"].tolist() == [True, True]
     assert (stft_cuda.launches, display_triton.launches) == launches
 
 
@@ -120,14 +142,18 @@ def test_stft_kernel_failure_propagates(monkeypatch):
 
     monkeypatch.setattr(build, "load_library", broken)
     monkeypatch.setattr(stft_cuda, "stft_psd_reference", _fail)
-    x = torch.empty((2, 4096), device="meta")
-    with pytest.raises(RuntimeError, match="cannot build stft_psd"):
-        stft_cuda.stft_psd(x, FS, NS_256, with_stats=True)
-    with pytest.raises(RuntimeError, match="cannot build stft_psd"):
-        batched_spectrogram_fn(FS, NS_256)(x)
+    # the pipeline's device: a stand-in for the card
+    monkeypatch.setattr(sharding, "resolve_device",
+                        lambda device: torch.device("meta"))
+    x = torch.empty((2, 8192), device="meta")
+    for cfg in (NS_256, SpecConfig.scipy_default(8192)):
+        with pytest.raises(RuntimeError, match="cannot build stft_psd"):
+            stft_cuda.stft_psd(x, FS, cfg, with_stats=True)
+        with pytest.raises(RuntimeError, match="cannot build stft_psd"):
+            batched_spectrogram_fn(FS, cfg)(x)
     # unsupported configs raise before any device question
     with pytest.raises(NotImplementedError):
-        stft_cuda.stft_psd(x, FS, SpecConfig.scipy_default(2048))
+        stft_cuda.stft_psd(x, FS, SpecConfig.scipy_default(16384))
 
 
 def test_display_kernel_failure_propagates(monkeypatch):
@@ -218,17 +244,48 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     assert '"ok"' not in proc.stdout
 
 
-def test_chip_smoke_imports_nothing_of_jax():
-    import ast
-    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as fh:
+def _imported_modules(path):
+    with open(path, encoding="utf-8") as fh:
         tree = ast.parse(fh.read())
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.add(node.module)
-    assert not [n for n in names if n == "jax" or n.startswith("jax.")]
-    # of the JAX package, only the JAX-free PNG encoder
-    assert [n for n in names if n.startswith("spectral_tpu.")] == [
-        "spectral_tpu.render.png"]
+    return names
+
+
+def test_chip_smoke_and_port_import_nothing_of_jax():
+    """An AST scan: chip_smoke.py and every module of the port import
+    neither jax nor any module of the JAX package."""
+    paths = [os.path.join(REPO, "chip_smoke.py")] + sorted(glob.glob(
+        os.path.join(REPO, "spectral_tpu_torch", "**", "*.py"),
+        recursive=True))
+    assert len(paths) > 15
+    for path in paths:
+        names = _imported_modules(path)
+        bad = [n for n in names if n in ("jax", "jaxlib", "spectral_tpu")
+               or n.startswith(("jax.", "jaxlib.", "spectral_tpu."))]
+        assert not bad, (path, bad)
+        assert all(n == "spectral_tpu_torch" or n.startswith(
+            "spectral_tpu_torch.") for n in names
+            if n.startswith("spectral_tpu")), path
+
+
+def test_entry_points_run_on_the_card_by_default(monkeypatch, tmp_path):
+    """batched_spectrogram_fn and export_spectrograms take device='cuda'
+    unless told otherwise, and raise without a card instead of running
+    on the CPU."""
+    import inspect
+    for fn in (sharding.batched_spectrogram_fn,
+               pipeline.export_spectrograms):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        sharding.batched_spectrogram_fn(FS, NS_256)
+    clips = [("a", np.zeros(4096, np.float32))]
+    with pytest.raises(RuntimeError, match="is_available"):
+        pipeline.export_spectrograms(clips, FS, NS_256, str(tmp_path),
+                                     clip_samples=4096)
+    assert list(tmp_path.iterdir()) == []
