@@ -53,7 +53,8 @@ PSD_TOL = 5e-6          # max|Δ| per clip, relative to the clip's PSD max
 IMAGE_TOL = 1e-6        # display image, same PSD in (shared scalars)
 DB_TOL = 1e-3           # display contract against scipy float64
 SAME_WORDS = 0.999      # packed words identical, else one LUT index apart
-PR1_HEADLINE_MS = 41.48  # the fp32 STFT stage in PR 1's chip run
+FIRST_HEADLINE_MS = 41.48  # the fp32 STFT stage as first measured on
+#                            an H100 at 700 W (PERF.md, Findings)
 FP32_PEAK = 67e12       # H100 SXM, fp32 outside the tensor cores
 HBM_RATE = 3.35e12      # H100 SXM device memory, bytes/s
 
@@ -135,16 +136,8 @@ def db_error_vs_scipy(img_unflipped, x64, cfg):
     """bench.py's display-error formula: max |Δimage| x dB range against
     scipy.signal.spectrogram in float64 at cfg's framing and window."""
     import numpy as np
-    from scipy.signal import spectrogram
-    _f, _t, sxx = spectrogram(
-        x64, fs=FS, window=cfg.window, nperseg=cfg.nperseg,
-        noverlap=cfg.nperseg - cfg.hop_, nfft=cfg.nperseg,
-        detrend=False if cfg.detrend == "none" else cfg.detrend,
-        scaling="density", mode="psd")
-    norm = np.clip(sxx / (sxx.max() + 1e-20), 0.0, 1.0)
-    db = np.nan_to_num(10.0 * np.log10(norm + 1e-12))
-    rng_db = db.max() - db.min()
-    oracle = (db - db.min()) / rng_db
+    from spectral_tpu_torch.ops.precision_emulation import scipy_display
+    oracle, rng_db = scipy_display(x64, cfg, FS)
     require(img_unflipped.shape == oracle.shape,
             f"image {img_unflipped.shape} vs scipy {oracle.shape}")
     return float(np.max(np.abs(img_unflipped - oracle)) * rng_db)
@@ -396,23 +389,42 @@ def kernel_cases(dev):
               f"{same:.6f}, T = {T8} padded to {4 * idx_k.shape[-1]}")
 
 
-def scipy_checks(dev):
+def scipy_checks(dev, card, fp64_peak):
     """The display contract against scipy float64 on clips that break a
-    float32 chain: scipy_default 1024 on noise + 3 (the f64 route)."""
+    float32 chain: scipy_default 1024 on noise + 3 (the f64 route), and
+    that route's time at the display spine's batch."""
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.stft import num_frames
+    from spectral_tpu_torch.ops import stft_cuda
     from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
     phase("against scipy float64 (limit 1e-3 dB)")
     cfg = SpecConfig.scipy_default(1024, log_scale=True)
-    x = (np.random.RandomState(3).randn(2, int(FS * CLIP_SECONDS))
-         + 3.0).astype(np.float32)
+    n = int(FS * CLIP_SECONDS)
+    x = (np.random.RandomState(3).randn(2, n) + 3.0).astype(np.float32)
+    before = read_counts()["stft_psd"]["f64"]
     out = batched_spectrogram_fn(FS, cfg, flip_image=True)(x)
+    require(read_counts()["stft_psd"]["f64"] == before + 1,
+            "scipy_default 1024 runs the f64 route")
     err = db_error_vs_scipy(out["image"][0].flip(0).cpu().numpy(),
                             x[0].astype(np.float64), cfg)
     require(err <= DB_TOL, f"scipy_default 1024 noise + 3: {err:.3e} dB")
     print(f"scipy_default 1024, noise + 3 clip vs scipy float64: {err:.3e} "
           f"dB (limit {DB_TOL:g})")
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xb = torch.randn((BATCH, n), generator=gen, device=dev) + 3.0
+    consts = stft_cuda.dft_constants(cfg, FS, dev)
+    k_ms = time_ms(lambda: stft_cuda.stft_psd(xb, FS, cfg, with_stats=True))
+    p_ms = time_ms(lambda: stft_cuda.stft_psd_reference(xb, consts, cfg,
+                                                        with_stats=True))
+    T = num_frames(n, cfg.nperseg, cfg.hop_)
+    bound = stft_bound(BATCH, n, T, cfg.n_freqs, 1024, 8, fp64_peak)
+    print(f"f64 route at scipy_default 1024, {BATCH} x {CLIP_SECONDS:g} s "
+          f"(CUDA events, median of {REPS}): kernel {k_ms[0]:.3f} ms, plain "
+          f"{p_ms[0]:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}) [{card}]")
+    del xb
     torch.cuda.synchronize()
 
 
@@ -478,13 +490,6 @@ def main_path(dev, card):
     require(disp_abs <= IMAGE_TOL, f"main-path image vs plain: {disp_abs:.2e}")
     print(f"image vs plain display on the same PSD: {disp_abs:.2e}")
     del img_ref
-    other = stft_cuda._stft_psd_cuda(x, FS, cfg, False, True,
-                                     freq_fast=False)
-    require(all(torch.equal(a, b) for a, b in zip(
-        other, (out["psd"], pmin_k, pmax_k))),
-        "both grid orders give the same PSD and extrema")
-    print("the other grid order: bitwise the same PSD and extrema")
-    del other
     _, rgb_p = disp.display_epilogue_reference(
         psd_p[:8], pmin_p[:8], pmax_p[:8], log_scale=True, flip_image=True)
     same = check_words(out["rgb_packed"][:8], rgb_p, "rgb_packed, 8 clips")
@@ -527,11 +532,11 @@ def main_path(dev, card):
         "cufft_transform_only": time_ms(lambda: torch.stft(
             x, 1024, hop_length=256, window=window, center=False,
             return_complex=True)),
-        # the other grid order (csrc/stft_psd.cu), then the rule's again
-        "stft_kernel_freq_slow": time_ms(lambda: stft_cuda._stft_psd_cuda(
-            x, FS, cfg, False, True, freq_fast=False)),
-        "stft_kernel_again": time_ms(lambda: stft_cuda.stft_psd(
-            x, FS, cfg, with_stats=True)),
+        # K1-log, the kernel's log10_out mode, off the driven paths
+        "stft_kernel_log10": time_ms(lambda: stft_cuda.stft_psd(
+            x, FS, cfg, log10_out=True)),
+        "stft_plain_log10": time_ms(lambda: stft_cuda.stft_psd_reference(
+            x, consts, cfg, log10_out=True)),
     }
     audio_h = BATCH * CLIP_SECONDS / 3600.0
     summary = {"card": card, "batch": BATCH, "peak_gib": round(
@@ -544,9 +549,9 @@ def main_path(dev, card):
               f"{audio_h / (ms / 60000.0):.1f} audio-h/min [{card}]")
     flops = 4.0 * BATCH * T * F * 1024
     ms = timings["stft_kernel"][0]
-    print(f"fp32 STFT stage: {ms:.3f} ms against PR 1's {PR1_HEADLINE_MS} "
-          f"ms, {flops / ms / 1e9:.2f} TFLOP/s of {FP32_PEAK / 1e12:g} "
-          f"[{card}]")
+    print(f"fp32 STFT stage: {ms:.3f} ms against the first measured "
+          f"{FIRST_HEADLINE_MS} ms, {flops / ms / 1e9:.2f} TFLOP/s of "
+          f"{FP32_PEAK / 1e12:g} [{card}]")
     print(json.dumps({"path1_times": summary}))
     stft_b = stft_bound(BATCH, n, T, F, 1024, 4, FP32_PEAK)
     disp_b = display_bound(BATCH, T, F, T)
@@ -624,13 +629,7 @@ def k2_path(dev, card, fp64_peak):
     disp_abs = float(torch.amax(torch.abs(out["image"] - img_ref)))
     require(disp_abs <= IMAGE_TOL, f"path 2 image vs plain: {disp_abs:.2e}")
     print(f"image vs plain display on the same PSD: {disp_abs:.2e}")
-    other = stft_cuda._stft_psd_cuda(x, FS, cfg, False, True,
-                                     freq_fast=True)
-    require(all(torch.equal(a, b) for a, b in zip(
-        other, (out["psd"], pmin_k, pmax_k))),
-        "both grid orders give the same PSD and extrema")
-    print("the other grid order: bitwise the same PSD and extrema")
-    del img_ref, psd_p, pmin_p, pmax_p, out, other
+    del img_ref, psd_p, pmin_p, pmax_p, out
 
     phase(f"path 2 times (CUDA events, median of {REPS} after a warm-up; "
           f"{card})")
@@ -647,11 +646,6 @@ def k2_path(dev, card, fp64_peak):
         "cufft_transform_only_f64": time_ms(lambda: torch.stft(
             x64, 8192, hop_length=cfg.hop_, window=window, center=False,
             return_complex=True)),
-        # the other grid order (csrc/stft_psd.cu), then the rule's again
-        "stft_kernel_freq_fast": time_ms(lambda: stft_cuda._stft_psd_cuda(
-            x, FS, cfg, False, True, freq_fast=True)),
-        "stft_kernel_again": time_ms(lambda: stft_cuda.stft_psd(
-            x, FS, cfg, with_stats=True)),
     }
     del x64
     flops = 4.0 * K2_CLIPS * T * F * 8192
@@ -831,7 +825,7 @@ def main():
     dev = torch.device("cuda", 0)
     build_kernels()
     kernel_cases(dev)
-    scipy_checks(dev)
+    scipy_checks(dev, card, fp64_peak)
     rows = {}
     rows.update(main_path(dev, card))
     torch.cuda.empty_cache()

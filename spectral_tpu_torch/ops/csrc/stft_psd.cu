@@ -41,23 +41,18 @@
 // framing the TPU kernel needs for hops that do not divide nperseg has no
 // counterpart.
 //
-// Grid order: one linear grid over (row tile, frequency tile), walked in
-// one of two orders, which the wrapper picks by whether A fits in L2.
-//   freq_fast = 0: the frequency tile is the slow axis and the flattened
-//     rows the fast one. At nperseg 8192 A is 268 MB in f32 and 537 MB in
-//     f64, far past the 50 MB L2; the blocks resident together then all
-//     work on one frequency tile (8.4 MB of f64 A at K = 8192), which stays
-//     in L2, so A crosses HBM about once, while the signal is read once per
-//     frequency tile. This is what K2's "A tile resident, clips innermost"
-//     order becomes on a machine whose blocks run in parallel.
-//   freq_fast = 1: the frequency tiles of one row tile run together and
-//     share its frames in L2; A, small enough to stay in L2 whole, is read
-//     by every row tile. With a block's stage loads waiting on memory
-//     (no double buffering), frames from L2 rather than HBM keep the
-//     headline path at its fp32 FMA rate.
-// The flattened rows (r = b*T + t) fill row tiles across clip boundaries:
-// 10 s clips at scipy_default 8192 have T = 22, which would fill 17% of a
-// per-clip tile.
+// Grid order: one linear grid over (row tile, frequency tile) with the
+// frequency tiles of a row tile adjacent, so they run together and share
+// the row tile's frames in L2. The flattened rows (r = b*T + t) fill row
+// tiles across clip boundaries: 10 s clips at scipy_default 8192 have
+// T = 22, which would fill 17% of a per-clip tile. The other order, K2's
+// "A tile resident, clips innermost" with the frequency tile slow, was
+// measured on the card and is no faster even where A (537 MB in f64 at
+// K = 8192) is far past the 50 MB L2: 301 ms against 299 ms at
+// scipy_default 8192, and 46.3 ms against 41.8 ms on the fp32 headline
+// path (PERF.md). Each block's stage loads wait on memory (no double
+// buffering); frames found in L2, and frame pointers held in registers,
+// are what keep those waits short.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -137,8 +132,7 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
                 const Acc* __restrict__ a_im, const Acc* __restrict__ wts,
                 float* __restrict__ out, float* __restrict__ part_min,
                 float* __restrict__ part_max, long long n, int R, int T,
-                int F, int K, int hop, int log10_out, int with_stats,
-                int freq_fast) {
+                int F, int K, int hop, int log10_out, int with_stats) {
   __shared__ __align__(16) Acc xs[BK][BM + XPAD];
   __shared__ __align__(16) Acc ars[BK][BN];
   __shared__ __align__(16) Acc ais[BK][BN];
@@ -146,12 +140,9 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
   const int tid = threadIdx.x;
   const int tx = tid % TX;
   const int ty = tid / TX;
-  const int n_row_tiles = (R + BM - 1) / BM;
   const int n_freq_tiles = (F + BN - 1) / BN;
-  const int row_tile = freq_fast ? blockIdx.x / n_freq_tiles
-                                 : blockIdx.x % n_row_tiles;
-  const int freq_tile = freq_fast ? blockIdx.x % n_freq_tiles
-                                  : blockIdx.x / n_row_tiles;
+  const int row_tile = blockIdx.x / n_freq_tiles;
+  const int freq_tile = blockIdx.x % n_freq_tiles;
   const int r0 = row_tile * BM;
   const int f0 = freq_tile * BN;
 
@@ -258,12 +249,12 @@ template <typename Acc>
 int launch(const float* x, const Acc* a_re, const Acc* a_im, const Acc* wts,
            float* out, float* part_min, float* part_max, int B, long long n,
            int T, int F, int K, int hop, int log10_out, int with_stats,
-           int freq_fast, void* stream) {
+           void* stream) {
   const int R = B * T;
   const unsigned blocks = (unsigned)((R + BM - 1) / BM) * ((F + BN - 1) / BN);
   stft_psd_kernel<Acc><<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       x, a_re, a_im, wts, out, part_min, part_max, n, R, T, F, K, hop,
-      log10_out, with_stats, freq_fast);
+      log10_out, with_stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -279,26 +270,25 @@ int stft_psd_freq_tiles(int F) { return (F + BN - 1) / BN; }
 // x is (B, n) contiguous f32; a_re/a_im are (K, F) contiguous and wts is
 // (F,), in f32 for the _f32 entry and f64 for the _f64 entry; out is
 // (B, T, F) f32; part_min/part_max are (stft_psd_freq_tiles(F), B * T) f32
-// and may be null when with_stats is 0. freq_fast picks the grid order
-// (header). The caller keeps B * T and the number of blocks, row tiles
-// times frequency tiles, within the grid's limits.
+// and may be null when with_stats is 0. The caller keeps B * T and the
+// number of blocks, row tiles times frequency tiles, within the grid's
+// limits.
 int stft_psd_launch_f32(const float* x, const float* a_re, const float* a_im,
                         const float* wts, float* out, float* part_min,
                         float* part_max, int B, long long n, int T, int F,
                         int K, int hop, int log10_out, int with_stats,
-                        int freq_fast, void* stream) {
+                        void* stream) {
   return launch<float>(x, a_re, a_im, wts, out, part_min, part_max, B, n, T,
-                       F, K, hop, log10_out, with_stats, freq_fast, stream);
+                       F, K, hop, log10_out, with_stats, stream);
 }
 
 int stft_psd_launch_f64(const float* x, const double* a_re,
                         const double* a_im, const double* wts, float* out,
                         float* part_min, float* part_max, int B, long long n,
                         int T, int F, int K, int hop, int log10_out,
-                        int with_stats, int freq_fast, void* stream) {
+                        int with_stats, void* stream) {
   return launch<double>(x, a_re, a_im, wts, out, part_min, part_max, B, n,
-                        T, F, K, hop, log10_out, with_stats, freq_fast,
-                        stream);
+                        T, F, K, hop, log10_out, with_stats, stream);
 }
 
 const char* stft_psd_error_string(int code) {

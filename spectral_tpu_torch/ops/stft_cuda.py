@@ -13,19 +13,21 @@ the nperseg samples. In float32 that chain holds the 1e-3 dB display
 contract only for short frames without detrend; everything else
 accumulates in float64. Display error against scipy in float64
 (``bench.py``'s formula), on white-noise clips of 8·nperseg samples, with
-the kernel's order emulated in numpy (CPU emulation, PR 2):
+the kernel's order emulated in numpy on the CPU
+(``python -m spectral_tpu_torch.ops.precision_emulation``):
 
-    config                       clip       fp32 chain   f64 chain, A f32   f64 chain, A f64
-    north_star 1024/256          noise + 3  6.2e-4 dB    —                  —
-    scipy_default 1024           noise      2.0e-4       4.7e-5             3.3e-7
-    scipy_default 1024           noise + 3  1.6e-3       1.2e-4             2.8e-7
-    north_star 8192/2048         noise      2.2e-3       —                  —
-    scipy_default 8192           noise      2.8e-3       2.8e-5             3.4e-7
-    scipy_default 8192           noise + 3  1.07e-1      3.1e-4             4.3e-7
+    config                 clip       fp32 chain  fp32 16-sums  f64, A f32  f64, A f64
+    north_star 1024/256    noise + 3  6.16e-4 dB  —             —           —
+    scipy_default 1024     noise      1.95e-4     2.32e-4       4.73e-5     3.30e-7
+    scipy_default 1024     noise + 3  5.06e-4     4.03e-4       5.56e-5     3.62e-7
+    north_star 8192/2048   noise      1.49e-3     —             —           —
+    scipy_default 8192     noise      2.79e-3     4.42e-4       2.84e-5     3.40e-7
+    scipy_default 8192     noise + 3  9.86e-3     2.41e-3       5.16e-5     2.73e-7
 
-The detrend fold cancels a DC offset inside the sum, where a float32 chain
-loses the small bins; partial sums or an exact mean removal before a
-float32 DFT still left 1.1e-2 dB at 8192 with the offset. So:
+and at scipy_default 1024 on noise + 3, 13 of 20 seeds put the float32
+chain above 1e-3 dB (up to 4.87e-3). The detrend fold cancels a DC offset
+inside the sum, where a float32 chain loses the small bins, and float32
+partial sums do not repair it at 8192. So:
 
 - float32 (one fp32 FMA chain, bitwise cuBLAS's SGEMM order) for
   nperseg <= 1024 with ``detrend == "none"``, the measured headline path;
@@ -54,15 +56,9 @@ from spectral_tpu_torch.ops import build
 KERNEL = "stft_psd"
 MAX_NPERSEG = 8192           # the GUI's ceiling (GUI.py:87-90)
 F32_MAX_NPERSEG = 1024       # the float32 route's ceiling (module docstring)
-MAX_ROWS = 2 ** 31 - 256     # B * T: the kernel indexes rows with int32
-MAX_BLOCKS = 2 ** 31 - 1     # row tiles x frequency tiles: the grid's extent
-ROW_TILE = 128               # frames per block (csrc/stft_psd.cu BM)
-# A (both matrices) up to this size stays in the 50 MB L2 beside the frames;
-# then the frequency tiles of a row tile run together and share its frames
-# (the headline path), else the frequency tile is the grid's slow axis and
-# one A tile stays in L2 for all clips (K2's order). csrc/stft_psd.cu says
-# why; PERF.md has both orders' times.
-A_L2_BYTES = 16 * 2 ** 20
+# B * T: the kernel indexes rows with int32; with nperseg <= 8192 (at most
+# 65 frequency tiles) the grid's block count then stays below 2**31 too
+MAX_ROWS = 2 ** 31 - 256
 
 # kernel launches per route, for run-time proof of the path
 launches = {"fp32": 0, "f64": 0}
@@ -189,7 +185,7 @@ def _library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.stft_psd_launch_f32, lib.stft_psd_launch_f64):
             fn.argtypes = [ptr] * 7 + [i32, ctypes.c_longlong, i32, i32, i32,
-                                       i32, i32, i32, i32, ptr]
+                                       i32, i32, i32, ptr]
             fn.restype = i32
         lib.stft_psd_freq_tiles.argtypes = [i32]
         lib.stft_psd_freq_tiles.restype = i32
@@ -198,18 +194,8 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def freq_fast_order(cfg: SpecConfig) -> bool:
-    """The kernel's grid order for cfg: frequency tiles fastest when A fits
-    in L2 (``A_L2_BYTES``)."""
-    itemsize = 4 if route(cfg) == "fp32" else 8
-    return 2 * cfg.nperseg * cfg.n_freqs * itemsize <= A_L2_BYTES
-
-
 def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
-                   log10_out: bool, with_stats: bool,
-                   freq_fast: Optional[bool] = None):
-    """The kernel on a CUDA tensor; freq_fast overrides the grid order of
-    :func:`freq_fast_order` (for timing both orders on the card)."""
+                   log10_out: bool, with_stats: bool):
     lib = _library()
     if x.dtype != torch.float32:
         raise TypeError(f"the STFT kernel computes in float32, got {x.dtype}; "
@@ -227,11 +213,6 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
         raise ValueError(f"at most {MAX_ROWS} frames per launch, got "
                          f"{B} clips x {T} frames")
     n_tiles = lib.stft_psd_freq_tiles(F)
-    if -(-B * T // ROW_TILE) * n_tiles > MAX_BLOCKS:
-        raise ValueError(f"{B} clips x {T} frames x {F} bins exceed the "
-                         "kernel's grid")
-    if freq_fast is None:
-        freq_fast = freq_fast_order(cfg)
     kind = route(cfg)
     consts = dft_constants(cfg, fs, x.device)
     out = torch.empty((B, T, F), dtype=torch.float32, device=x.device)
@@ -246,8 +227,7 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
             parts[0].data_ptr() if with_stats else None,
             parts[1].data_ptr() if with_stats else None,
             B, n, T, F, cfg.nperseg, cfg.hop_, int(log10_out),
-            int(with_stats), int(freq_fast),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            int(with_stats), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError("stft_psd kernel launch failed: "
                            + lib.stft_psd_error_string(err).decode())

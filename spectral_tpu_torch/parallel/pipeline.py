@@ -41,6 +41,7 @@ import torch
 
 from spectral_tpu_torch.config import SpecConfig
 from spectral_tpu_torch.core.stft import num_frames
+from spectral_tpu_torch.io.wav import read_wav, read_wav_int16
 from spectral_tpu_torch.ops.colormap import unpack_indices, unpack_rgba
 from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
 from spectral_tpu_torch.render.lut import get_lut
@@ -450,7 +451,6 @@ def wav_clip_source(paths: Sequence[str], on_error: str = "raise",
     skip_existing_in: a directory; files whose '{stem}.png' already exists
     there are skipped without decoding (the resume fast path — pair with
     export_spectrograms(resume=True), which re-checks at staging time)."""
-    from spectral_tpu_torch.io.wav import read_wav, read_wav_int16
     seen = set()
     for p in paths:
         stem = os.path.splitext(os.path.basename(p))[0]

@@ -243,7 +243,7 @@ def test_slice_at_scipy_2048_matches_pallas_pipeline():
     float64 at 1e-3 dB: the float32 Pallas route is the less accurate of
     the two here, so its packed words are no reference (99.84% identical
     on these clips)."""
-    from scipy.signal import spectrogram
+    from spectral_tpu_torch.ops.precision_emulation import scipy_display
     cfg = SpecConfig.scipy_default(2048, log_scale=True)
     x = _clips(7, n=8 * 2048) + np.float32(3.0)
     ref = jax.jit(pallas_pipeline_fn(FS, cfg))(jnp.asarray(x))
@@ -253,8 +253,5 @@ def test_slice_at_scipy_2048_matches_pallas_pipeline():
                                atol=float(psd_r.max()) * 1e-6)
     assert port["finite"].tolist() == np.asarray(ref["finite"]).tolist()
     for clip, img in zip(x.astype(np.float64), port["image"].numpy()):
-        _f, _t, sxx = spectrogram(clip, fs=FS, nperseg=2048)
-        db = np.nan_to_num(10 * np.log10(np.clip(sxx / sxx.max(), 0, 1)
-                                         + 1e-12))
-        rng_db = db.max() - db.min()
-        assert np.abs(img - (db - db.min()) / rng_db).max() * rng_db <= 1e-3
+        oracle, rng_db = scipy_display(clip, cfg, FS)
+        assert np.abs(img - oracle).max() * rng_db <= 1e-3

@@ -31,6 +31,7 @@ from spectral_tpu.ops import stft_pallas  # noqa: E402
 from spectral_tpu_torch import SpecConfig  # noqa: E402
 from spectral_tpu_torch.core import scale as tscale  # noqa: E402
 from spectral_tpu_torch.core import stft as tstft  # noqa: E402
+from spectral_tpu_torch.ops import precision_emulation  # noqa: E402
 from spectral_tpu_torch.ops import stft_cuda  # noqa: E402
 
 FS = 16000.0
@@ -274,17 +275,7 @@ def _db_error(psd_tf, x64, cfg):
     """bench.py's display error: max |Δimage| x the dB range, the port's
     log display of a (F, T) PSD against scipy.signal.spectrogram in
     float64 on the same clip."""
-    from scipy.signal import spectrogram
-    window = ("tukey", 0.25) if cfg.window == ("tukey", 0.25) else cfg.window
-    _f, _t, sxx = spectrogram(
-        x64, fs=FS, window=window, nperseg=cfg.nperseg,
-        noverlap=cfg.nperseg - cfg.hop_, nfft=cfg.nperseg,
-        detrend=False if cfg.detrend == "none" else cfg.detrend,
-        scaling="density", mode="psd")
-    norm = np.clip(sxx / (sxx.max() + 1e-20), 0.0, 1.0)
-    db = np.nan_to_num(10.0 * np.log10(norm + 1e-12))
-    rng_db = db.max() - db.min()
-    oracle = (db - db.min()) / rng_db
+    oracle, rng_db = precision_emulation.scipy_display(x64, cfg, FS)
     img = tscale.normalize(torch.as_tensor(psd_tf), log_scale=True).numpy()
     assert img.shape == oracle.shape
     return float(np.max(np.abs(img - oracle)) * rng_db)
@@ -333,34 +324,40 @@ def test_precision_routing():
             x, stft_cuda.dft_constants(cfg, FS, "cpu", torch.float32), cfg)
 
 
-def _fp32_chain_psd(frames, a_re, a_im, wts):
-    """The float32 route's arithmetic emulated in numpy: each output one
-    float32 FMA chain over ascending k (exact products, one rounding per
-    step), then the epilogue rounded per step."""
-    a_re = a_re.astype(np.float32).astype(np.float64)
-    a_im = a_im.astype(np.float32).astype(np.float64)
-    f = frames.astype(np.float64)
-    re = np.zeros((f.shape[0], a_re.shape[1]), np.float32)
-    im = np.zeros_like(re)
-    for k in range(f.shape[1]):
-        re = (re + f[:, k:k + 1] * a_re[k]).astype(np.float32)
-        im = (im + f[:, k:k + 1] * a_im[k]).astype(np.float32)
-    return (re * re + im * im) * wts.astype(np.float32)
-
-
 def test_f64_routing_holds_the_contract_where_fp32_breaks_it(
         drop_large_constants):
     """scipy_default 8192 on white noise + 3 (the detrend fold cancels the
-    offset inside the sum): the float32 chain breaks 1e-3 dB, the f64
-    route the wrapper takes holds it."""
+    offset inside the sum): the float32 route's arithmetic, emulated in
+    numpy, breaks 1e-3 dB; the f64 route the wrapper takes holds it."""
     cfg = LARGE["scipy_8192"]
     x = _clips(11, n_clips=1, n=8 * cfg.nperseg, offset=3.0)[0]
     x64 = x.astype(np.float64)
     a_re, a_im = tstft.dft_matrices(cfg)
-    frames = tstft.frame_signal(torch.from_numpy(x), cfg.nperseg,
-                                cfg.hop_).numpy()
-    fp32 = _fp32_chain_psd(frames, a_re, a_im,
-                           tstft.onesided_weights(cfg, FS))
+    fp32 = precision_emulation.psd_fp32_chain(
+        precision_emulation.frames_of(x, cfg), a_re, a_im,
+        tstft.onesided_weights(cfg, FS))
     assert _db_error(fp32.T, x64, cfg) > 1e-3
     routed = stft_cuda.stft_psd(torch.from_numpy(x), FS, cfg)
     assert _db_error(routed.T, x64, cfg) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["north_star_256_64", "scipy_256"])
+def test_emulation_models_the_plain_routes(name):
+    """The numpy emulation that justifies the precision rule computes the
+    same PSD as the route the wrapper takes: the f64 model to within one
+    float32 rounding (both sum in f64 and round once), the float32 chain
+    within the float32 PSD bound (torch's CPU matmul sums in another
+    order)."""
+    cfg = CONFIGS[name]
+    x = _clips(12, n_clips=1, offset=3.0)[0]
+    a_re, a_im = tstft.dft_matrices(cfg)
+    wts = tstft.onesided_weights(cfg, FS)
+    frames = precision_emulation.frames_of(x, cfg)
+    plain = stft_cuda.stft_psd(torch.from_numpy(x), FS, cfg).numpy()
+    if stft_cuda.route(cfg) == "f64":
+        model = precision_emulation.psd_f64(frames, a_re, a_im, wts)
+        np.testing.assert_allclose(plain, model, rtol=1.2e-7,
+                                   atol=float(model.max()) * 1e-12)
+    else:
+        model = precision_emulation.psd_fp32_chain(frames, a_re, a_im, wts)
+        _assert_psd_close(plain[None], model[None])
