@@ -6,22 +6,23 @@
 Needs one CUDA card, nvcc and triton; run it from the root of a checkout.
 It builds every kernel of the port's paths from the sources in the
 checkout and holds each kernel against its plain PyTorch version on the
-card, on both accumulation routes of the STFT kernel and both output modes
-of the display kernel. Then it drives three paths at full size, each with
-the launch counts set to 0 just before it and read just after:
+card, the STFT kernel from nperseg 100 to 8192 and the display kernel in
+both output modes, with and without the float image. Then it drives three
+paths at full size, each with the launch counts set to 0 just before it
+and read just after:
 
 1. the display spine: 1024 clips of 10 s at 16 kHz through
-   ``batched_spectrogram_fn`` at north_star 1024/256 log (the STFT
-   kernel's float32 route, RGBA words);
+   ``batched_spectrogram_fn`` at north_star 1024/256 log (RGBA words);
 2. the end of the GUI's range: 256 clips of 60 s through
-   ``batched_spectrogram_fn`` at scipy_default 8192 log (the float64
-   route, the TPU's manual-DMA kernel K2's counterpart);
+   ``batched_spectrogram_fn`` at scipy_default 8192 log (the TPU's
+   manual-DMA kernel K2's counterpart);
 3. the dataset export: ``export_spectrograms`` at the CLI's defaults
    (north_star 1024/256 log, 10 s clips, batch 64, palette PNGs) over 1024
    synthetic clips, a batch of int16 WAVs and a NaN clip.
 
-It checks images against scipy in float64 (limit 1e-3 dB) and times kernel
-and plain paths with CUDA events.
+It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
+``tools/torch_precision.py``, and times kernel and plain paths with CUDA
+events.
 
 Every phase that fails raises, so the script exits nonzero and prints no
 result. Without a CUDA card, or without the package beside it, it fails.
@@ -53,9 +54,9 @@ PSD_TOL = 5e-6          # max|Δ| per clip, relative to the clip's PSD max
 IMAGE_TOL = 1e-6        # display image, same PSD in (shared scalars)
 DB_TOL = 1e-3           # display contract against scipy float64
 SAME_WORDS = 0.999      # packed words identical, else one LUT index apart
-FIRST_HEADLINE_MS = 41.48  # the fp32 STFT stage as first measured on
-#                            an H100 at 700 W (PERF.md, Findings)
-FP32_PEAK = 67e12       # H100 SXM, fp32 outside the tensor cores
+FIRST_HEADLINE_MS = 41.48  # the STFT stage of path 1 as first measured
+#                            on an H100 at 700 W, in float32 (PERF.md)
+FP64_PEAK = 67e12       # H100 SXM, FP64 on the tensor cores (data sheet)
 HBM_RATE = 3.35e12      # H100 SXM device memory, bytes/s
 
 
@@ -136,7 +137,7 @@ def db_error_vs_scipy(img_unflipped, x64, cfg):
     """bench.py's display-error formula: max |Δimage| x dB range against
     scipy.signal.spectrogram in float64 at cfg's framing and window."""
     import numpy as np
-    from spectral_tpu_torch.ops.precision_emulation import scipy_display
+    from torch_precision import scipy_display
     oracle, rng_db = scipy_display(x64, cfg, FS)
     require(img_unflipped.shape == oracle.shape,
             f"image {img_unflipped.shape} vs scipy {oracle.shape}")
@@ -174,23 +175,24 @@ def read_counts():
             "display_epilogue": dict(display_triton.launches)}
 
 
-def stft_bound(B, n, T, F, K, acc_bytes, peak):
-    """(bound_ms, bound_by): each input (signal, folded DFT matrices,
+def stft_bound(B, n, T, F, K):
+    """(bound_ms, bound_by): each input (signal, float64 DFT matrices and
     weights) read once, each output (PSD, per-clip min and max) written
-    once, against 4*B*T*F*K + 3*B*T*F operations at the route's peak."""
-    bytes_ = (B * n * 4 + (2 * K * F + F) * acc_bytes + B * T * F * 4
-              + 2 * B * 4)
+    once, against 4*B*T*F*K + 3*B*T*F float64 operations at the card's
+    FP64 peak."""
+    bytes_ = (B * n * 4 + (2 * K * F + F) * 8 + B * T * F * 4 + 2 * B * 4)
     ops = 4.0 * B * T * F * K + 3.0 * B * T * F
-    t_mem, t_ops = bytes_ / HBM_RATE, ops / peak
+    t_mem, t_ops = bytes_ / HBM_RATE, ops / FP64_PEAK
     return (1e3 * max(t_mem, t_ops),
             "operations" if t_ops >= t_mem else "bytes")
 
 
-def display_bound(B, T, F, words_per_row):
-    """Bytes: the PSD and per-clip scalars read, the image and the words
-    written; a handful of operations per pixel."""
-    bytes_ = B * T * F * 4 + B * 3 * 4 + 256 * 4 + B * F * T * 4 \
-        + B * F * words_per_row * 4
+def display_bound(B, T, F, words_per_row, image=True, lut=True):
+    """Bytes: the PSD and per-clip scalars read (and the LUT for RGBA
+    words), the words written, and the image when it is stored; a handful
+    of operations per pixel."""
+    bytes_ = (B * T * F * 4 + B * 3 * 4 + (256 * 4 if lut else 0)
+              + (B * F * T * 4 if image else 0) + B * F * words_per_row * 4)
     return 1e3 * bytes_ / HBM_RATE, "bytes"
 
 
@@ -205,6 +207,7 @@ def toolchain():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this run needs a CUDA card")
     sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.join(HERE, "tools"))
     # Triton's kernel cache goes into the checkout's build directory
     os.environ.setdefault("TRITON_CACHE_DIR",
                           os.path.join(HERE, "build", "triton"))
@@ -225,16 +228,18 @@ def toolchain():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(run_text(["nvidia-smi", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"]).splitlines()[0])
-    fp64 = sms * 64 * 2 * mhz * 1e6
-    print(f"{sms} SMs, max SM clock {mhz:g} MHz: FP64 FMA peak "
-          f"{fp64 / 1e12:.2f} TFLOP/s (64 DFMA/clk/SM); fp32 peak "
-          f"{FP32_PEAK / 1e12:g}, HBM {HBM_RATE / 1e12:g} TB/s (data sheet)")
+    dfma = sms * 64 * 2 * mhz * 1e6
+    print(f"{sms} SMs, max SM clock {mhz:g} MHz: DFMA outside the tensor "
+          f"cores {dfma / 1e12:.2f} TFLOP/s (64 per clock per SM), the most "
+          f"the STFT kernel's design can reach; bounds use the FP64 peak on "
+          f"the tensor cores, {FP64_PEAK / 1e12:g} TFLOP/s, and HBM "
+          f"{HBM_RATE / 1e12:g} TB/s (data sheet)")
     try:
         import PIL
         print(f"PIL {PIL.__version__}: PNGs encode through PIL")
     except ImportError:
         print("no PIL: PNGs encode through the stdlib zlib path")
-    return card, fp64
+    return card, dfma
 
 
 def build_kernels():
@@ -296,22 +301,29 @@ def kernel_cases(dev):
     got, want = both(x8, north, with_stats=True)
     print(f"first stft_psd launch (module load) {time.perf_counter() - t0:.2f}"
           " s")
-    check_stats(got, want, "[fp32] 8 x 10 s, north_star 1024/256, with_stats")
+    check_stats(got, want, "8 x 10 s, north_star 1024/256, with_stats")
     psd8, pmin8, pmax8 = got
 
     xs = on_card(rs.randn(4, n) + 3.0)           # DC offset: detrend works
     check_stats(*both(xs, scipy_cfg, with_stats=True),
-                "[f64] scipy_default 1024 (hop 896, Tukey, constant "
-                "detrend), noise + 3")
-    check_log(x8[:2], north, "[fp32] log10_out")
+                "scipy_default 1024 (hop 896, Tukey, constant detrend), "
+                "noise + 3")
+    check_log(x8[:2], north, "log10_out")
 
     xr = on_card(rs.randn(3, 40000))             # T = 153: ragged frame tile
-    check_stats(*both(xr, north, with_stats=True), "[fp32] ragged T = 153")
+    check_stats(*both(xr, north, with_stats=True), "ragged T = 153")
     check_stats(*both(xr, SpecConfig.north_star(256, 64), with_stats=True),
-                "[fp32] north_star 256/64")
+                "north_star 256/64")
     # nperseg 100: K not a multiple of the kernel's 16-sample stage
     check_stats(*both(xr, SpecConfig.scipy_default(100), with_stats=True),
-                "[f64] scipy_default 100 (hop 88)")
+                "scipy_default 100 (hop 88)")
+    # |X|^2 past float32's range: inf, as the float32 pipeline overflows
+    xo = on_card(np.stack([rs.randn(20000), 1e19 * rs.randn(20000)]))
+    p_o, lo_o, hi_o = stft_cuda.stft_psd(xo, FS, north, with_stats=True)
+    require(bool(torch.isfinite(hi_o[0])) and bool(torch.isinf(hi_o[1]))
+            and finite_flags(xo, lo_o, hi_o).tolist() == [True, False],
+            f"overflow guard: pmax {hi_o.tolist()}")
+    print("1e19-amplitude clip: pmax inf, finite [True, False]")
 
     # nperseg 2048-8192: K1's frequency-tiled sizes and K2's range; the
     # clips' frames share row tiles across clip boundaries
@@ -323,14 +335,13 @@ def kernel_cases(dev):
              SpecConfig.scipy_default(8192), 3.0),
             ("north_star 8192/2048", SpecConfig.north_star(8192, 2048), 0.0)):
         x = on_card(rs.randn(3, 8 * cfg.nperseg) + offset)
-        check_stats(*both(x, cfg, with_stats=True),
-                    f"[{stft_cuda.route(cfg)}] {what}")
+        check_stats(*both(x, cfg, with_stats=True), what)
     s2048 = SpecConfig.scipy_default(2048)
     xr2 = on_card(rs.randn(5, 40000) + 1.0)      # T = 22, 110 rows, 5 clips
     check_stats(*both(xr2, s2048, with_stats=True),
-                "[f64] scipy_default 2048, ragged T = 22")
+                "scipy_default 2048, ragged T = 22")
     check_log(on_card(rs.randn(2, 8 * 4096) + 3.0),
-              SpecConfig.scipy_default(4096), "[f64] log10_out")
+              SpecConfig.scipy_default(4096), "scipy_default 4096 log10_out")
 
     for cfg in (north, SpecConfig.scipy_default(8192)):
         before = read_counts()["stft_psd"]
@@ -340,7 +351,7 @@ def kernel_cases(dev):
                 and read_counts()["stft_psd"] == before
                 and float(lo0.abs().sum() + hi0.abs().sum()) == 0.0,
                 "T = 0 gives empty PSD and zero extrema without a launch")
-        print(f"[{stft_cuda.route(cfg)}] T = 0: empty PSD, zero extrema, "
+        print(f"nperseg {cfg.nperseg}, T = 0: empty PSD, zero extrema, "
               "no launch")
 
     for cfg in (north, s2048):
@@ -355,7 +366,7 @@ def kernel_cases(dev):
                 and flags == [True, False, True],
                 f"NaN sample: pmin {lo_n.tolist()}, pmax {hi_n.tolist()}, "
                 f"finite {flags}")
-        print(f"[{stft_cuda.route(cfg)}] NaN sample: pmin and pmax NaN, "
+        print(f"nperseg {cfg.nperseg}, NaN sample: pmin and pmax NaN, "
               "finite [True, False, True]")
 
     T8 = psd8.shape[1]
@@ -387,12 +398,30 @@ def kernel_cases(dev):
                 f"palette {what}: pad bytes past T are zero")
         print(f"palette {what}: image {err:.2e}, indices identical "
               f"{same:.6f}, T = {T8} padded to {4 * idx_k.shape[-1]}")
+        for palette in (False, True):
+            none, lean = disp.display_epilogue(psd8, pmin8, pmax8,
+                                               palette=palette,
+                                               with_image=False, **kw)
+            _, full = disp.display_epilogue_reference(
+                psd8, pmin8, pmax8, palette=palette, **kw)
+            torch.cuda.synchronize()
+            require(none is None, "with_image=False returns no image")
+            if palette:
+                same = check_indices(unpack_indices(lean, T8),
+                                     unpack_indices(full, T8),
+                                     f"palette {what}, no image")
+            else:
+                same = check_words(lean, full, f"{what}, no image")
+            print(f"{'palette' if palette else 'rgba'} {what}, no image: "
+                  f"identical {same:.6f}")
 
 
-def scipy_checks(dev, card, fp64_peak):
+def scipy_checks(dev, card):
     """The display contract against scipy float64 on clips that break a
-    float32 chain: scipy_default 1024 on noise + 3 (the f64 route), and
-    that route's time at the display spine's batch."""
+    float32 chain (tools/torch_precision.py): scipy_default 1024 on
+    noise + 3, and north_star 1024/256 on the sweep's worst clips; then
+    the kernel's time at scipy_default 1024 on the display spine's
+    batch."""
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
@@ -403,15 +432,25 @@ def scipy_checks(dev, card, fp64_peak):
     cfg = SpecConfig.scipy_default(1024, log_scale=True)
     n = int(FS * CLIP_SECONDS)
     x = (np.random.RandomState(3).randn(2, n) + 3.0).astype(np.float32)
-    before = read_counts()["stft_psd"]["f64"]
-    out = batched_spectrogram_fn(FS, cfg, flip_image=True)(x)
-    require(read_counts()["stft_psd"]["f64"] == before + 1,
-            "scipy_default 1024 runs the f64 route")
-    err = db_error_vs_scipy(out["image"][0].flip(0).cpu().numpy(),
-                            x[0].astype(np.float64), cfg)
-    require(err <= DB_TOL, f"scipy_default 1024 noise + 3: {err:.3e} dB")
-    print(f"scipy_default 1024, noise + 3 clip vs scipy float64: {err:.3e} "
-          f"dB (limit {DB_TOL:g})")
+    cases = [("scipy_default 1024, 10 s noise + 3", cfg, x[:1])]
+    # the precision sweep's worst clips for one float32 chain: 4.87e-3 dB
+    # (seed 7, noise) and 4.55e-3 dB (seed 44, noise + 3)
+    north = SpecConfig.north_star(1024, 256, log_scale=True)
+    for seed, offset in ((7, 0.0), (44, 3.0)):
+        clip = (np.random.RandomState(seed).randn(8 * 1024)
+                + offset).astype(np.float32)
+        cases.append((f"north_star 1024/256, sweep seed {seed}"
+                      + (" noise + 3" if offset else " noise"), north,
+                      clip[None]))
+    for what, c, xc in cases:
+        before = read_counts()["stft_psd"]["f64"]
+        out = batched_spectrogram_fn(FS, c, flip_image=True)(xc)
+        require(read_counts()["stft_psd"]["f64"] == before + 1,
+                f"{what}: one launch of the STFT kernel")
+        err = db_error_vs_scipy(out["image"][0].flip(0).cpu().numpy(),
+                                xc[0].astype(np.float64), c)
+        require(err <= DB_TOL, f"{what}: {err:.3e} dB")
+        print(f"{what} vs scipy float64: {err:.3e} dB (limit {DB_TOL:g})")
 
     gen = torch.Generator(device=dev).manual_seed(3)
     xb = torch.randn((BATCH, n), generator=gen, device=dev) + 3.0
@@ -420,8 +459,8 @@ def scipy_checks(dev, card, fp64_peak):
     p_ms = time_ms(lambda: stft_cuda.stft_psd_reference(xb, consts, cfg,
                                                         with_stats=True))
     T = num_frames(n, cfg.nperseg, cfg.hop_)
-    bound = stft_bound(BATCH, n, T, cfg.n_freqs, 1024, 8, fp64_peak)
-    print(f"f64 route at scipy_default 1024, {BATCH} x {CLIP_SECONDS:g} s "
+    bound = stft_bound(BATCH, n, T, cfg.n_freqs, 1024)
+    print(f"STFT kernel at scipy_default 1024, {BATCH} x {CLIP_SECONDS:g} s "
           f"(CUDA events, median of {REPS}): kernel {k_ms[0]:.3f} ms, plain "
           f"{p_ms[0]:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}) [{card}]")
     del xb
@@ -454,7 +493,7 @@ def main_path(dev, card):
     torch.cuda.synchronize()
     counts = read_counts()
     print(f"launches in this path's run: {counts}")
-    require(counts["stft_psd"]["fp32"] >= 1
+    require(counts["stft_psd"]["f64"] >= 1
             and counts["display_epilogue"]["rgba"] >= 1,
             f"a kernel of the path did not launch: {counts}")
 
@@ -549,14 +588,15 @@ def main_path(dev, card):
               f"{audio_h / (ms / 60000.0):.1f} audio-h/min [{card}]")
     flops = 4.0 * BATCH * T * F * 1024
     ms = timings["stft_kernel"][0]
-    print(f"fp32 STFT stage: {ms:.3f} ms against the first measured "
-          f"{FIRST_HEADLINE_MS} ms, {flops / ms / 1e9:.2f} TFLOP/s of "
-          f"{FP32_PEAK / 1e12:g} [{card}]")
+    stft_b = stft_bound(BATCH, n, T, F, 1024)
+    print(f"STFT stage (float64): {ms:.3f} ms against {FIRST_HEADLINE_MS} ms "
+          f"as first measured in float32, {flops / ms / 1e9:.2f} TFLOP/s; "
+          f"bound {stft_b[0]:.3f} ms at {FP64_PEAK / 1e12:g} TFLOP/s "
+          f"[{card}]")
     print(json.dumps({"path1_times": summary}))
-    stft_b = stft_bound(BATCH, n, T, F, 1024, 4, FP32_PEAK)
     disp_b = display_bound(BATCH, T, F, T)
     return {
-        "stft_fp32": dict(launches=counts["stft_psd"]["fp32"],
+        "stft_1024": dict(launches=counts["stft_psd"]["f64"],
                           err=stft_abs, ms=timings["stft_kernel"][0],
                           plain_ms=timings["stft_plain"][0], bound=stft_b),
         "display_rgba": dict(launches=counts["display_epilogue"]["rgba"],
@@ -566,7 +606,7 @@ def main_path(dev, card):
     }
 
 
-def k2_path(dev, card, fp64_peak):
+def k2_path(dev, card, dfma_peak):
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
@@ -652,16 +692,17 @@ def k2_path(dev, card, fp64_peak):
     for name, (ms, reps) in timings.items():
         print(f"{name}: {ms:.3f} ms [{card}] reps {reps}")
     ms = timings["stft_kernel"][0]
-    print(f"f64 STFT kernel: {flops / 1e12:.3f} TFLOP in {ms:.3f} ms = "
-          f"{flops / ms / 1e9:.2f} TFLOP/s against the FP64 FMA bound "
-          f"{fp64_peak / 1e12:.2f} ({1e3 * flops / fp64_peak:.1f} ms) "
-          f"[{card}]")
+    bound = stft_bound(K2_CLIPS, n, T, F, 8192)
+    print(f"STFT kernel: {flops / 1e12:.3f} TFLOP in {ms:.3f} ms = "
+          f"{flops / ms / 1e9:.2f} TFLOP/s; bound {bound[0]:.3f} ms at the "
+          f"FP64 peak {FP64_PEAK / 1e12:g} TFLOP/s; {1e3 * flops / dfma_peak:.3f}"
+          f" ms at the {dfma_peak / 1e12:.2f} TFLOP/s of DFMA this design "
+          f"can reach [{card}]")
     print(json.dumps({"path2_times": {k: v[0] for k, v in timings.items()},
                       "card": card}))
-    return {"stft_f64": dict(
+    return {"stft_8192": dict(
         launches=counts["stft_psd"]["f64"], err=stft_abs, ms=ms,
-        plain_ms=timings["stft_plain"][0],
-        bound=stft_bound(K2_CLIPS, n, T, F, 8192, 8, fp64_peak))}
+        plain_ms=timings["stft_plain"][0], bound=bound)}
 
 
 def decode_palette_png(path):
@@ -752,7 +793,7 @@ def export_path(dev, card):
         torch.cuda.synchronize()
         counts = read_counts()
         print(f"launches in this path's run: {counts}")
-        require(counts["stft_psd"]["fp32"] >= 1
+        require(counts["stft_psd"]["f64"] >= 1
                 and counts["display_epilogue"]["palette"] >= 1,
                 f"a kernel of the path did not launch: {counts}")
         names = set(os.listdir(out_dir))
@@ -796,48 +837,52 @@ def export_path(dev, card):
         print("tone0.png (int16 WAV, 100 Hz): energy at the bottom rows")
 
     # the palette display kernel at the export's batch shape
+    # as the export calls it: palette indices, no float image; the error
+    # is in LUT indices
     phase(f"path 3 display kernel times (CUDA events; {card})")
     xb = torch.from_numpy(clips[:EXPORT_BATCH]).to(dev)
     psd, pmin, pmax = stft_cuda.stft_psd(xb, FS, cfg, with_stats=True)
-    kw = dict(log_scale=True, flip_image=True, palette=True)
-    img_k, idx_k = disp.display_epilogue(psd, pmin, pmax, **kw)
-    img_p, idx_p = disp.display_epilogue_reference(psd, pmin, pmax, **kw)
+    kw = dict(log_scale=True, flip_image=True, palette=True,
+              with_image=False)
+    _, idx_k = disp.display_epilogue(psd, pmin, pmax, **kw)
+    _, idx_p = disp.display_epilogue_reference(psd, pmin, pmax, **kw)
     torch.cuda.synchronize()
-    err = float(torch.amax(torch.abs(img_k - img_p)))
-    require(err <= IMAGE_TOL, f"palette at the export batch: {err:.2e}")
-    check_indices(unpack_indices(idx_k, T), unpack_indices(idx_p, T),
-                  "palette at the export batch")
+    got, want = unpack_indices(idx_k, T), unpack_indices(idx_p, T)
+    check_indices(got, want, "palette at the export batch")
+    err = float(np.abs(got.astype(np.int64) - want.astype(np.int64)).max())
     k_ms = time_ms(lambda: disp.display_epilogue(psd, pmin, pmax, **kw))
     p_ms = time_ms(lambda: disp.display_epilogue_reference(psd, pmin, pmax,
                                                            **kw))
-    print(f"palette display: kernel {k_ms[0]:.3f} ms, plain {p_ms[0]:.3f} "
-          f"ms per batch of {EXPORT_BATCH} [{card}]")
+    bound = display_bound(EXPORT_BATCH, T, 513, -(-T // 4), image=False,
+                          lut=False)
+    print(f"palette display without the image: kernel {k_ms[0]:.3f} ms, "
+          f"plain {p_ms[0]:.3f} ms, bound {bound[0]:.4f} ms per batch of "
+          f"{EXPORT_BATCH}; largest index difference {err:g} [{card}]")
     return {"display_palette": dict(
         launches=counts["display_epilogue"]["palette"], err=err, ms=k_ms[0],
-        plain_ms=p_ms[0],
-        bound=display_bound(EXPORT_BATCH, T, 513, -(-T // 4)))}
+        plain_ms=p_ms[0], bound=bound)}
 
 
 def main():
     import torch
     t_start = time.perf_counter()
-    card, fp64_peak = toolchain()
+    card, dfma_peak = toolchain()
     dev = torch.device("cuda", 0)
     build_kernels()
     kernel_cases(dev)
-    scipy_checks(dev, card, fp64_peak)
+    scipy_checks(dev, card)
     rows = {}
     rows.update(main_path(dev, card))
     torch.cuda.empty_cache()
-    rows.update(k2_path(dev, card, fp64_peak))
+    rows.update(k2_path(dev, card, dfma_peak))
     torch.cuda.empty_cache()
     rows.update(export_path(dev, card))
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
     meta = {
-        "stft_fp32": ("stft_psd fp32", "cuda", src,
+        "stft_1024": ("stft_psd, nperseg 1024 (path 1)", "cuda", src,
                       "spectral_tpu/ops/stft_pallas.py:217"),
-        "stft_f64": ("stft_psd f64", "cuda", src,
-                     "spectral_tpu/ops/stft_pallas.py:367"),
+        "stft_8192": ("stft_psd, nperseg 8192 (path 2)", "cuda", src,
+                      "spectral_tpu/ops/stft_pallas.py:367"),
         "display_rgba": ("display_epilogue rgba", "triton",
                          "spectral_tpu_torch/ops/display_triton.py",
                          "spectral_tpu/ops/stft_pallas.py:456"),

@@ -185,15 +185,21 @@ def ieee_fp32_dots() -> Iterator[None]:
         torch.set_float32_matmul_precision(prev)
 
 
+def dense_dft(frames: torch.Tensor, a_re: torch.Tensor,
+              a_im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., T, nperseg) frames -> (X_re, X_im), (..., T, F) each, as
+    matmuls in the operands' dtype: IEEE float32 (TF32 off) for float32
+    operands, float64 for float64 ones (the STFT kernel's precision,
+    ``ops.stft_cuda``)."""
+    with ieee_fp32_dots():
+        return torch.matmul(frames, a_re), torch.matmul(frames, a_im)
+
+
 def dense_power(frames: torch.Tensor, a_re: torch.Tensor,
                 a_im: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
     """(..., T, nperseg) frames -> (..., T, F) PSD: (X_re² + X_im²) · wts,
-    matmuls and epilogue in the operands' dtype: IEEE float32 (TF32 off)
-    for float32 operands, float64 throughout for float64 ones (the STFT
-    kernel's f64 route, ``ops.stft_cuda``)."""
-    with ieee_fp32_dots():
-        xr = torch.matmul(frames, a_re)
-        xi = torch.matmul(frames, a_im)
+    computed in the operands' dtype (:func:`dense_dft`)."""
+    xr, xi = dense_dft(frames, a_re, a_im)
     return (xr * xr + xi * xi) * wts
 
 

@@ -20,20 +20,16 @@
 // Output is frame-major (B, T, F) f32 with no padding; ragged edges are
 // masked.
 //
-// Accumulation precision is a template parameter (the rule and its measured
-// reasons are in ops/stft_cuda.py):
-//   float  : one fp32 FMA chain per output over ascending k; the epilogue
-//            rounds every step explicitly. Bitwise what cuBLAS's SGEMM plus
-//            the plain elementwise epilogue give.
-//   double : x staged to f64 in shared memory, A in f64 (the host's f64
-//            constants unrounded), one DFMA chain per output, the epilogue
-//            (re^2 + im^2) * w in f64, rounded once to f32 at the store.
+// Accumulation is float64 (a float32 chain breaks the 1e-3 dB display
+// contract; the measurements are in ops/stft_cuda.py): x staged to f64 in
+// shared memory, A in f64 (the host's f64 constants unrounded), one DFMA
+// chain per output, the epilogue (re^2 + im^2) * w in f64, rounded once to
+// f32 at the store.
 //
 // What bounds it on this card: 4*B*T*F*K flops against B*n*4 bytes in and
-// B*T*F*4 bytes out, so it is compute-bound: on fp32 FMA (67 TFLOP/s; no
-// TF32, which keeps 10 mantissa bits against a 1e-3 dB contract) and on
-// FP64 FMA (about 33.5 TFLOP/s) for the double route. The design is a
-// register-blocked GEMM: each block owns a 128-row x 64-bin tile, stages
+// B*T*F*4 bytes out, so it is compute-bound: 67 TFLOP/s of FP64 on the
+// tensor cores, of which this design, on DFMA outside them, can reach at
+// most half (about 33.5 TFLOP/s). It is a register-blocked GEMM: each block owns a 128-row x 64-bin tile, stages
 // 16-sample chunks of its frames and of the A_re/A_im tiles in shared
 // memory, and each thread accumulates an 8 x 4 tile of both X_re and X_im
 // in registers. Frames are read straight from the signal by pointer, so no
@@ -52,7 +48,8 @@
 // scipy_default 8192, and 46.3 ms against 41.8 ms on the fp32 headline
 // path (PERF.md). Each block's stage loads wait on memory (no double
 // buffering); frames found in L2, and frame pointers held in registers,
-// are what keep those waits short.
+// are what keep those waits short. (Those timings include the float32
+// instantiation this source had then.)
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -83,17 +80,6 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 
 // N consecutive shared-memory values as 16-byte vector loads
 template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; i += 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p + i);
-    v[i] = q.x;
-    v[i + 1] = q.y;
-    v[i + 2] = q.z;
-    v[i + 3] = q.w;
-  }
-}
-template <int N>
 __device__ __forceinline__ void load_vec(const double* p, double (&v)[N]) {
 #pragma unroll
   for (int i = 0; i < N; i += 2) {
@@ -103,30 +89,17 @@ __device__ __forceinline__ void load_vec(const double* p, double (&v)[N]) {
   }
 }
 
-__device__ __forceinline__ float fma_acc(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double fma_acc(double a, double b, double c) {
-  return fma(a, b, c);
-}
-
 // (re^2 + im^2) * w with every step rounded to nearest: no FMA
-// contraction, so it rounds exactly like the plain elementwise version
-__device__ __forceinline__ float power(float re, float im, float w) {
-  return __fmul_rn(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)), w);
-}
+// contraction, so it rounds exactly like the plain elementwise version.
+// |X|^2 past float32's range gives inf, as the float32 pipeline of the JAX
+// package overflows there, so the clip's finite flag trips as it does there.
 __device__ __forceinline__ double power(double re, double im, double w) {
-  return __dmul_rn(__dadd_rn(__dmul_rn(re, re), __dmul_rn(im, im)), w);
+  const double s = __dadd_rn(__dmul_rn(re, re), __dmul_rn(im, im));
+  return s > 3.4028234663852886e38 ? INFINITY : __dmul_rn(s, w);
 }
 
-__device__ __forceinline__ float log10_psd(float p) {
-  return log10f(p + 1e-20f);
-}
-__device__ __forceinline__ float log10_psd(double p) {
-  return static_cast<float>(log10(p + 1e-20));
-}
+using Acc = double;
 
-template <typename Acc>
 __global__ void __launch_bounds__(NT)
 stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
                 const Acc* __restrict__ a_im, const Acc* __restrict__ wts,
@@ -205,8 +178,8 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
-          acc_re[i][j] = fma_acc(xv[i], cr[j], acc_re[i][j]);
-          acc_im[i][j] = fma_acc(xv[i], ci[j], acc_im[i][j]);
+          acc_re[i][j] = fma(xv[i], cr[j], acc_re[i][j]);
+          acc_im[i][j] = fma(xv[i], ci[j], acc_im[i][j]);
         }
     }
     __syncthreads();
@@ -225,7 +198,8 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
         const float p = static_cast<float>(pw);
         lo = nan_min(lo, p);
         hi = nan_max(hi, p);
-        out[(long long)r * F + f] = log10_out ? log10_psd(pw) : p;
+        out[(long long)r * F + f] =
+            log10_out ? static_cast<float>(log10(pw + 1e-20)) : p;
       }
     }
     if (with_stats) {
@@ -245,19 +219,6 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
   }
 }
 
-template <typename Acc>
-int launch(const float* x, const Acc* a_re, const Acc* a_im, const Acc* wts,
-           float* out, float* part_min, float* part_max, int B, long long n,
-           int T, int F, int K, int hop, int log10_out, int with_stats,
-           void* stream) {
-  const int R = B * T;
-  const unsigned blocks = (unsigned)((R + BM - 1) / BM) * ((F + BN - 1) / BN);
-  stft_psd_kernel<Acc><<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, a_re, a_im, wts, out, part_min, part_max, n, R, T, F, K, hop,
-      log10_out, with_stats);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -267,28 +228,21 @@ extern "C" {
 int stft_psd_freq_tiles(int F) { return (F + BN - 1) / BN; }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// x is (B, n) contiguous f32; a_re/a_im are (K, F) contiguous and wts is
-// (F,), in f32 for the _f32 entry and f64 for the _f64 entry; out is
-// (B, T, F) f32; part_min/part_max are (stft_psd_freq_tiles(F), B * T) f32
-// and may be null when with_stats is 0. The caller keeps B * T and the
-// number of blocks, row tiles times frequency tiles, within the grid's
-// limits.
-int stft_psd_launch_f32(const float* x, const float* a_re, const float* a_im,
-                        const float* wts, float* out, float* part_min,
-                        float* part_max, int B, long long n, int T, int F,
-                        int K, int hop, int log10_out, int with_stats,
-                        void* stream) {
-  return launch<float>(x, a_re, a_im, wts, out, part_min, part_max, B, n, T,
-                       F, K, hop, log10_out, with_stats, stream);
-}
-
-int stft_psd_launch_f64(const float* x, const double* a_re,
-                        const double* a_im, const double* wts, float* out,
-                        float* part_min, float* part_max, int B, long long n,
-                        int T, int F, int K, int hop, int log10_out,
-                        int with_stats, void* stream) {
-  return launch<double>(x, a_re, a_im, wts, out, part_min, part_max, B, n,
-                        T, F, K, hop, log10_out, with_stats, stream);
+// x is (B, n) contiguous f32; a_re/a_im are (K, F) contiguous f64 and wts
+// is (F,) f64; out is (B, T, F) f32; part_min/part_max are
+// (stft_psd_freq_tiles(F), B * T) f32 and may be null when with_stats is
+// 0. The caller keeps B * T and the number of blocks, row tiles times
+// frequency tiles, within the grid's limits.
+int stft_psd_launch(const float* x, const double* a_re, const double* a_im,
+                    const double* wts, float* out, float* part_min,
+                    float* part_max, int B, long long n, int T, int F, int K,
+                    int hop, int log10_out, int with_stats, void* stream) {
+  const int R = B * T;
+  const unsigned blocks = (unsigned)((R + BM - 1) / BM) * ((F + BN - 1) / BN);
+  stft_psd_kernel<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, a_re, a_im, wts, out, part_min, part_max, n, R, T, F, K, hop,
+      log10_out, with_stats);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* stft_psd_error_string(int code) {

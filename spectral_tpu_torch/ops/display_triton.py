@@ -10,9 +10,11 @@ of 4 (``colormap_index_packed``, the dataset export's default), computed
 from the same index the RGBA words take.
 
 What bounds it on this card: memory. Per pixel it reads 4 bytes and writes
-8 (about 1.3 GB in and 2.6 GB out at the headline batch; 5 in palette
-mode) against a handful of flops and one 256-entry table lookup. Its one
-hard part is the transpose
+8 (about 1.3 GB in and 2.6 GB out at the headline batch) against a handful
+of flops and one 256-entry table lookup. The float image store is optional
+(``with_image``): the dataset export reads back only the words, so in
+palette mode without the image a pixel costs 4 bytes in and one out. Its
+one hard part is the transpose
 from frame-major to freq-major: each program owns a 64 x 64 (frames x bins)
 tile, loads it along bins and stores it along frames, and Triton stages the
 layout change through shared memory, so both sides stay coalesced.
@@ -55,6 +57,7 @@ libdevice = None
 def _display_kernel(psd_ptr, params_ptr, lut_ptr, img_ptr, words_ptr, T, F,
                     n_f_tiles, W4,
                     LOG_SCALE: tl.constexpr, FLIP_IMAGE: tl.constexpr,
+                    STORE_IMAGE: tl.constexpr,
                     WORDS: tl.constexpr, BLOCK_T: tl.constexpr,
                     BLOCK_F: tl.constexpr):
     tile = tl.program_id(0)
@@ -90,11 +93,13 @@ def _display_kernel(psd_ptr, params_ptr, lut_ptr, img_ptr, words_ptr, T, F,
         img = tl.where(rng > 1e-6, r, 0.0)
     else:
         img = norm
-    if FLIP_IMAGE:
-        rows = F - 1 - f
-    else:
-        rows = f
-    tl.store(img_ptr + clip + rows[None, :] * T + t[:, None], img, mask=mask)
+    if STORE_IMAGE:
+        if FLIP_IMAGE:
+            rows = F - 1 - f
+        else:
+            rows = f
+        tl.store(img_ptr + clip + rows[None, :] * T + t[:, None], img,
+                 mask=mask)
     # matplotlib's index rule; a NaN pixel takes index 0 as in torch/jnp
     level = tl.where(img != img, 0.0, img) * 256.0
     idx = tl.minimum(tl.maximum(level.to(tl.int32), 0), 255)
@@ -144,14 +149,16 @@ def display_epilogue_reference(psd: torch.Tensor, pmin: torch.Tensor,
                                share_max: bool = False,
                                flip_image: bool = False,
                                colormap: Optional[str] = "jet",
-                               palette: bool = False
-                               ) -> Tuple[torch.Tensor,
+                               palette: bool = False,
+                               with_image: bool = True
+                               ) -> Tuple[Optional[torch.Tensor],
                                           Optional[torch.Tensor]]:
     """The plain version: psd (B, T, F) and extrema (B,) -> image (B, F, T)
-    float (display-flipped when flip_image) and packed words with row 0
-    the highest frequency: RGBA words (B, F, T) uint32 from the colormap
-    (None without one), or under palette LUT indices four to a word,
-    (B, F, ceil(T / 4)) uint32, whatever the colormap."""
+    float (display-flipped when flip_image; None unless with_image) and
+    packed words with row 0 the highest frequency: RGBA words (B, F, T)
+    uint32 from the colormap (None without one), or under palette LUT
+    indices four to a word, (B, F, ceil(T / 4)) uint32, whatever the
+    colormap."""
     gm = torch.amax(pmax) if share_max else None
     img = normalize_from_stats(psd.transpose(1, 2), pmin[:, None, None],
                                pmax[:, None, None], log_scale, gm)
@@ -159,14 +166,16 @@ def display_epilogue_reference(psd: torch.Tensor, pmin: torch.Tensor,
         img = img.flip(1)
     img = img.contiguous()
     if palette:
-        return img, colormap_index_packed(img, flip_rows=not flip_image)
-    rgb = (apply_colormap_packed(img, colormap, flip_rows=not flip_image)
-           if colormap else None)
-    return img, rgb
+        words = colormap_index_packed(img, flip_rows=not flip_image)
+    else:
+        words = (apply_colormap_packed(img, colormap,
+                                       flip_rows=not flip_image)
+                 if colormap else None)
+    return (img if with_image else None), words
 
 
 def _display_epilogue_triton(psd, pmin, pmax, log_scale, share_max,
-                             flip_image, colormap, palette):
+                             flip_image, colormap, palette, with_image):
     kernel = _kernel()
     if psd.device.type != "cuda":
         raise ValueError(f"the display kernel takes CUDA tensors, "
@@ -179,7 +188,8 @@ def _display_epilogue_triton(psd, pmin, pmax, log_scale, share_max,
     if B > MAX_CLIPS:
         raise ValueError(f"at most {MAX_CLIPS} clips per launch, got {B}")
     params = clip_params(pmin, pmax, share_max)
-    image = torch.empty((B, F, T), dtype=torch.float32, device=psd.device)
+    image = (torch.empty((B, F, T), dtype=torch.float32, device=psd.device)
+             if with_image else None)
     W4 = -(-T // 4)
     mode = 2 if palette else (1 if colormap else 0)
     words = (torch.empty((B, F, W4), dtype=torch.int32, device=psd.device)
@@ -189,14 +199,17 @@ def _display_epilogue_triton(psd, pmin, pmax, log_scale, share_max,
     if B * T * F:
         n_f_tiles = -(-F // BLOCK_F)
         grid = (-(-T // BLOCK_T) * n_f_tiles, B)
-        # the kernel reads the LUT only for RGBA words and writes words
-        # only in modes 1 and 2; any valid pointers fill the unused slots
+        # the kernel reads the LUT only for RGBA words, writes words only
+        # in modes 1 and 2 and the image only under with_image; any valid
+        # pointers fill the unused slots
         lut = packed_lut(colormap, psd.device) if mode == 1 else params
         with torch.cuda.device(psd.device):
-            kernel[grid](psd, params, lut, image,
-                         image if words is None else words, T, F, n_f_tiles,
-                         W4, LOG_SCALE=bool(log_scale),
-                         FLIP_IMAGE=bool(flip_image), WORDS=mode,
+            kernel[grid](psd, params, lut,
+                         params if image is None else image,
+                         params if words is None else words, T, F,
+                         n_f_tiles, W4, LOG_SCALE=bool(log_scale),
+                         FLIP_IMAGE=bool(flip_image),
+                         STORE_IMAGE=bool(with_image), WORDS=mode,
                          BLOCK_T=BLOCK_T, BLOCK_F=BLOCK_F, num_warps=4)
         launches["palette" if palette else "rgba"] += 1
     return image, (None if words is None else words.view(torch.uint32))
@@ -205,14 +218,19 @@ def _display_epilogue_triton(psd, pmin, pmax, log_scale, share_max,
 def display_epilogue(psd: torch.Tensor, pmin: torch.Tensor,
                      pmax: torch.Tensor, *, log_scale: bool,
                      share_max: bool = False, flip_image: bool = False,
-                     colormap: Optional[str] = "jet", palette: bool = False
-                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                     colormap: Optional[str] = "jet", palette: bool = False,
+                     with_image: bool = True
+                     ) -> Tuple[Optional[torch.Tensor],
+                                Optional[torch.Tensor]]:
     """Display image and packed words from a PSD and its extrema; see
     :func:`display_epilogue_reference` for the layouts. share_max uses the
-    batch's largest max as every clip's base (the reference's global_max)."""
+    batch's largest max as every clip's base (the reference's global_max).
+    with_image=False skips the image (returned as None): the kernel then
+    writes only the words."""
     if psd.device.type == "cpu":
         return display_epilogue_reference(
             psd, pmin, pmax, log_scale=log_scale, share_max=share_max,
-            flip_image=flip_image, colormap=colormap, palette=palette)
+            flip_image=flip_image, colormap=colormap, palette=palette,
+            with_image=with_image)
     return _display_epilogue_triton(psd, pmin, pmax, log_scale, share_max,
-                                    flip_image, colormap, palette)
+                                    flip_image, colormap, palette, with_image)

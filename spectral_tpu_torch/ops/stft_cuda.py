@@ -8,31 +8,27 @@ K2): framing, the window- and detrend-folded real DFT, |X|² times the
 one-sided PSD weights, and the per-clip PSD extrema, with no frame tensor
 written to memory.
 
-Precision rule. The kernel accumulates each output in one FMA chain over
-the nperseg samples. In float32 that chain holds the 1e-3 dB display
-contract only for short frames without detrend; everything else
-accumulates in float64. Display error against scipy in float64
-(``bench.py``'s formula), on white-noise clips of 8·nperseg samples, with
-the kernel's order emulated in numpy on the CPU
-(``python -m spectral_tpu_torch.ops.precision_emulation``):
+Precision. The kernel accumulates each output in one float64 FMA chain
+over the nperseg samples (DFMA), with A the host's float64 constants
+unrounded and the epilogue (re² + im²) · w in float64, rounded once to
+float32 at the store. A float32 chain does not hold the 1e-3 dB display
+contract at any nperseg in the GUI's range: its error lands on the clip's
+deepest bin, and how deep that bin is depends on the clip. Display error
+against scipy in float64 (``bench.py``'s formula), the kernel's order
+emulated in numpy on the CPU, on white-noise clips of 8·nperseg samples,
+seeds 0-99 (``python3 tools/torch_precision.py``):
 
-    config                 clip       fp32 chain  fp32 16-sums  f64, A f32  f64, A f64
-    north_star 1024/256    noise + 3  6.16e-4 dB  —             —           —
-    scipy_default 1024     noise      1.95e-4     2.32e-4       4.73e-5     3.30e-7
-    scipy_default 1024     noise + 3  5.06e-4     4.03e-4       5.56e-5     3.62e-7
-    north_star 8192/2048   noise      1.49e-3     —             —           —
-    scipy_default 8192     noise      2.79e-3     4.42e-4       2.84e-5     3.40e-7
-    scipy_default 8192     noise + 3  9.86e-3     2.41e-3       5.16e-5     2.73e-7
+    config                 clip       one fp32 chain: worst, seeds above 1e-3 dB
+    north_star 128/32      noise      1.74e-3 dB   3 of 100
+    north_star 256/64      noise      2.29e-3      1 of 100
+    north_star 512/128     noise      5.39e-3      6 of 100
+    north_star 1024/256    noise + 3  4.55e-3     24 of 100
+    scipy_default 1024     noise + 3  2.92e-2     45 of 100
+    scipy_default 8192     noise + 3  9.86e-3     seed 0 alone
 
-and at scipy_default 1024 on noise + 3, 13 of 20 seeds put the float32
-chain above 1e-3 dB (up to 4.87e-3). The detrend fold cancels a DC offset
-inside the sum, where a float32 chain loses the small bins, and float32
-partial sums do not repair it at 8192. So:
-
-- float32 (one fp32 FMA chain, bitwise cuBLAS's SGEMM order) for
-  nperseg <= 1024 with ``detrend == "none"``, the measured headline path;
-- float64 (DFMA, A the host's f64 constants unrounded, the epilogue in f64,
-  rounded once to float32 at the store) for every other config.
+The float64 chain stays below 5e-7 dB on every one of those clips. So
+every config takes the float64 route; a faster route that holds the
+contract (the float64 tensor cores, ROADMAP) is later work.
 
 :func:`stft_psd` takes the kernel for a CUDA tensor and the plain version
 (:func:`stft_psd_reference`) for a CPU tensor, and only because the tensor
@@ -48,20 +44,23 @@ import numpy as np
 import torch
 
 from spectral_tpu_torch.config import SpecConfig
-from spectral_tpu_torch.core.stft import (dense_power, dft_matrices,
+from spectral_tpu_torch.core.stft import (dense_dft, dft_matrices,
                                           ensure_real_waveform, frame_signal,
                                           num_frames, onesided_weights)
 from spectral_tpu_torch.ops import build
 
 KERNEL = "stft_psd"
 MAX_NPERSEG = 8192           # the GUI's ceiling (GUI.py:87-90)
-F32_MAX_NPERSEG = 1024       # the float32 route's ceiling (module docstring)
+# |X|² past float32's range makes the bin inf, as the JAX package's float32
+# pipeline overflows there: the clip's extrema turn inf and its finite flag
+# (the overflow guard) trips, though float64 could carry the value
+F32_MAX = float(np.finfo(np.float32).max)
 # B * T: the kernel indexes rows with int32; with nperseg <= 8192 (at most
 # 65 frequency tiles) the grid's block count then stays below 2**31 too
 MAX_ROWS = 2 ** 31 - 256
 
-# kernel launches per route, for run-time proof of the path
-launches = {"fp32": 0, "f64": 0}
+# kernel launches, for run-time proof of the path
+launches = {"f64": 0}
 
 
 class DftConstants(NamedTuple):
@@ -69,18 +68,6 @@ class DftConstants(NamedTuple):
     a_re: torch.Tensor
     a_im: torch.Tensor
     wts: torch.Tensor
-
-
-def accumulator_dtype(cfg: SpecConfig) -> torch.dtype:
-    """The precision the kernel accumulates cfg in (module docstring)."""
-    if cfg.nperseg <= F32_MAX_NPERSEG and cfg.detrend == "none":
-        return torch.float32
-    return torch.float64
-
-
-def route(cfg: SpecConfig) -> str:
-    """'fp32' or 'f64': the kernel instantiation that computes cfg."""
-    return "fp32" if accumulator_dtype(cfg) == torch.float32 else "f64"
 
 
 def unsupported_reason(cfg: SpecConfig) -> Optional[str]:
@@ -128,17 +115,15 @@ def constants_from_numpy(a_re: np.ndarray, a_im: np.ndarray,
 _CONSTANTS: dict = {}
 
 
-def dft_constants(cfg: SpecConfig, fs: float, device,
-                  dtype: Optional[torch.dtype] = None) -> DftConstants:
-    """The operands for (cfg, fs), in the route's precision unless dtype is
-    given, cached per device and dtype."""
-    dtype = accumulator_dtype(cfg) if dtype is None else dtype
-    key = (cfg, float(fs), str(torch.device(device)), dtype)
+def dft_constants(cfg: SpecConfig, fs: float, device) -> DftConstants:
+    """The operands for (cfg, fs) in float64, the kernel's precision,
+    cached per device."""
+    key = (cfg, float(fs), str(torch.device(device)))
     consts = _CONSTANTS.get(key)
     if consts is None:
         a_re, a_im = dft_matrices(cfg)
         consts = constants_from_numpy(a_re, a_im, onesided_weights(cfg, fs),
-                                      device, dtype)
+                                      device, torch.float64)
         _CONSTANTS[key] = consts
     return consts
 
@@ -157,20 +142,21 @@ def stft_psd_reference(x: torch.Tensor, consts: DftConstants,
     dtype, plus (pmin, pmax) of shape (B,) under with_stats
     (NaN-propagating, like jnp.min/jnp.max).
 
-    It computes in the route's precision, or x's if wider: IEEE float32
-    matmuls on the fp32 route; float64 matmuls, epilogue and log10 on the
-    f64 route, rounded once to x's dtype. ``consts`` must be in that
-    precision (``dft_constants(cfg, fs, device)``): float32 matrices on the
-    f64 route would be the "A f32" column of the module docstring."""
+    It computes as the kernel does: float64 matmuls, epilogue and log10,
+    rounded once to x's dtype, and a bin whose |X|² lies past the float32
+    range is inf (:data:`F32_MAX`). ``consts`` must be float64
+    (``dft_constants(cfg, fs, device)``): float32 matrices would round A,
+    which the kernel does not."""
     B = x.shape[0]
     if num_frames(x.shape[-1], cfg.nperseg, cfg.hop_) <= 0:
         return _empty_result(B, cfg.n_freqs, x, with_stats)
-    dt = torch.promote_types(x.dtype, accumulator_dtype(cfg))
-    if consts.a_re.dtype != dt:
-        raise ValueError(f"the plain STFT computes this config in {dt}; "
-                         f"got {consts.a_re.dtype} constants")
-    p = dense_power(frame_signal(x.to(dt), cfg.nperseg, cfg.hop_),
-                    consts.a_re, consts.a_im, consts.wts)
+    if consts.a_re.dtype != torch.float64:
+        raise ValueError(f"the plain STFT computes in float64; got "
+                         f"{consts.a_re.dtype} constants")
+    frames = frame_signal(x.double(), cfg.nperseg, cfg.hop_)
+    xr, xi = dense_dft(frames, consts.a_re, consts.a_im)
+    power = xr * xr + xi * xi
+    p = torch.where(power > F32_MAX, torch.inf, power * consts.wts)
     if log10_out:
         p = torch.log10(p + 1e-20)
     p = p.to(x.dtype)
@@ -181,12 +167,11 @@ def stft_psd_reference(x: torch.Tensor, consts: DftConstants,
 
 def _library() -> ctypes.CDLL:
     lib = build.load_library(KERNEL)
-    if lib.stft_psd_launch_f32.argtypes is None:
+    if lib.stft_psd_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.stft_psd_launch_f32, lib.stft_psd_launch_f64):
-            fn.argtypes = [ptr] * 7 + [i32, ctypes.c_longlong, i32, i32, i32,
-                                       i32, i32, i32, ptr]
-            fn.restype = i32
+        lib.stft_psd_launch.argtypes = [ptr] * 7 + [
+            i32, ctypes.c_longlong, i32, i32, i32, i32, i32, i32, ptr]
+        lib.stft_psd_launch.restype = i32
         lib.stft_psd_freq_tiles.argtypes = [i32]
         lib.stft_psd_freq_tiles.restype = i32
         lib.stft_psd_error_string.argtypes = [i32]
@@ -213,15 +198,12 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
         raise ValueError(f"at most {MAX_ROWS} frames per launch, got "
                          f"{B} clips x {T} frames")
     n_tiles = lib.stft_psd_freq_tiles(F)
-    kind = route(cfg)
     consts = dft_constants(cfg, fs, x.device)
     out = torch.empty((B, T, F), dtype=torch.float32, device=x.device)
     parts = (torch.empty((2, n_tiles, B * T), dtype=torch.float32,
                          device=x.device) if with_stats else None)
-    launch = (lib.stft_psd_launch_f32 if kind == "fp32"
-              else lib.stft_psd_launch_f64)
     with torch.cuda.device(x.device):
-        err = launch(
+        err = lib.stft_psd_launch(
             x.data_ptr(), consts.a_re.data_ptr(), consts.a_im.data_ptr(),
             consts.wts.data_ptr(), out.data_ptr(),
             parts[0].data_ptr() if with_stats else None,
@@ -231,7 +213,7 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
     if err != 0:
         raise RuntimeError("stft_psd kernel launch failed: "
                            + lib.stft_psd_error_string(err).decode())
-    launches[kind] += 1
+    launches["f64"] += 1
     if with_stats:
         per_clip = parts.view(2, n_tiles, B, T)
         return (out, torch.amin(per_clip[0], dim=(0, 2)),
@@ -259,8 +241,7 @@ def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
     if x.ndim != 2:
         raise ValueError(f"expected a (n,) or (B, n) waveform, got {x.ndim}-D")
     if x.device.type == "cpu":
-        dt = torch.promote_types(x.dtype, accumulator_dtype(cfg))
-        return stft_psd_reference(x, dft_constants(cfg, fs, x.device, dt),
+        return stft_psd_reference(x, dft_constants(cfg, fs, x.device),
                                   cfg, log10_out=log10_out,
                                   with_stats=with_stats)
     return _stft_psd_cuda(x, fs, cfg, log10_out, with_stats)

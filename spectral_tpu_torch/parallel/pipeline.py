@@ -213,10 +213,11 @@ def export_spectrograms(clips: Iterable[Tuple[str, np.ndarray]], fs: float,
     palette_arr = get_lut(colormap) if palette_mode else None
     n_frames = num_frames(clip_samples, cfg.nperseg, cfg.hop_)
     dev = resolve_device(device)
-    # flip_image puts the PNG row order into the image itself
+    # flip_image puts the PNG row order into the image itself; only the
+    # packed words come back, so the float image is never written
     base = batched_spectrogram_fn(
-        fs, cfg, flip_image=True, palette=palette_mode, device=dev,
-        colormap=None if palette_mode else colormap)
+        fs, cfg, flip_image=True, palette=palette_mode, with_image=False,
+        device=dev, colormap=None if palette_mode else colormap)
     words_key = "index_packed" if palette_mode else "rgb_packed"
 
     os.makedirs(out_dir, exist_ok=True)

@@ -13,6 +13,7 @@ plain versions. The outputs and layouts are the JAX function's:
 
     psd            (B, T, F) float32, frame-major, never flipped
     image          (B, F, T) float32, display-flipped when flip_image
+                   (left out under with_image=False)
     rgb_packed     (B, F, T) uint32, row 0 always the highest frequency
     finite         (B,) bool, the per-clip health flag
 
@@ -55,6 +56,7 @@ def batched_spectrogram_fn(fs: float, cfg: SpecConfig, *,
                            share_max: bool = False,
                            flip_image: bool = False,
                            palette: bool = False,
+                           with_image: bool = True,
                            device="cuda"):
     """Build the batch pipeline (B, n) -> dict of outputs (module docstring).
 
@@ -63,7 +65,9 @@ def batched_spectrogram_fn(fs: float, cfg: SpecConfig, *,
     raises here. share_max normalizes every clip against the batch's
     largest PSD value (the reference's global_max, PlotEngine.py:78,110,
     126); the dB rescale stays per clip. palette=True returns
-    index_packed instead of rgb_packed. A config the STFT kernel cannot
+    index_packed instead of rgb_packed. with_image=False leaves the float
+    image out, so the display kernel writes only the packed words (what
+    the dataset export reads back). A config the STFT kernel cannot
     compute raises NotImplementedError here, on every device."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -79,9 +83,11 @@ def batched_spectrogram_fn(fs: float, cfg: SpecConfig, *,
                                         log_scale=cfg.log_scale,
                                         share_max=share_max,
                                         flip_image=flip_image,
-                                        colormap=colormap, palette=palette)
-        out = {"psd": psd, "image": image,
-               "finite": finite_flags(x, pmin, pmax)}
+                                        colormap=colormap, palette=palette,
+                                        with_image=with_image)
+        out = {"psd": psd, "finite": finite_flags(x, pmin, pmax)}
+        if with_image:
+            out["image"] = image
         if palette:
             out["index_packed"] = words
         elif colormap:

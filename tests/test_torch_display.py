@@ -215,3 +215,15 @@ def test_display_palette_reference_matches_pallas_tail(flip_image):
         torch.from_numpy(psd), torch.from_numpy(pmin),
         torch.from_numpy(pmax), log_scale=True, colormap=None, palette=True)
     assert torch.equal(none, words)
+
+
+@pytest.mark.parametrize("palette", [False, True])
+def test_display_without_image_keeps_the_words(palette):
+    """with_image=False returns no image and the same words."""
+    psd, pmin, pmax = (torch.from_numpy(a) for a in _batch_psd())
+    kw = dict(log_scale=True, flip_image=True, palette=palette)
+    img, words = display_triton.display_epilogue(psd, pmin, pmax, **kw)
+    none, lean = display_triton.display_epilogue(psd, pmin, pmax,
+                                                 with_image=False, **kw)
+    assert img is not None and none is None
+    assert torch.equal(lean, words)

@@ -4,23 +4,30 @@ batched_spectrogram_fn(use_matmul=True) and pallas_pipeline_fn on the same
 clips.
 
 Tolerances:
-- psd within 5e-6 of each clip's max (float32 GEMMs summed in other orders);
+- psd within 5e-6 of each clip's max (the JAX side's float32 GEMMs against
+  the port's float64);
 - image error times the clip's dB range within 5e-3 dB, the budget the
   JAX package's own golden test gives its matmul route against scipy
   float64 on the CPU (test_stft_golden.py::test_db_pipeline_error_budget).
   At the deepest bin of white noise every float32 engine carries ~1e-3 dB,
-  set by the summation order: 2.7e-3 dB was measured between the port and
-  the JAX matmul route at 1024/256 on two 1 s clips, where the JAX route
-  itself sits 3.2e-3 dB from scipy and the port 6e-4;
+  set by the summation order: on two 1 s clips at 1024/256 the JAX matmul
+  route sits 3.2e-3 dB from scipy, its pallas route 6e-4, and the port,
+  in float64, below 1e-5;
 - rgb_packed >= 99.9% identical words and never more than one LUT index
   apart (a pixel near a 1/256 bin edge may cross it);
 - finite equal exactly.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools"))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -112,9 +119,9 @@ def test_slice_matches_jax_pipeline(flip_image, share_max):
 def test_slice_matches_pallas_pipeline(cfg):
     """pallas_pipeline_fn's layout: image unflipped, packed words flipped.
     At 1024 the JAX matmul route on the CPU sums in an order that sits
-    3.2e-3 dB from scipy on these clips (the pallas route and the port
-    6e-4), enough to move more than 0.1% of the words; the pallas route is
-    the reference there."""
+    3.2e-3 dB from scipy on these clips (the pallas route 6e-4), enough to
+    move more than 0.1% of the words; the pallas route is the reference
+    there."""
     x = _clips(1)
     ref = jax.jit(pallas_pipeline_fn(FS, cfg))(jnp.asarray(x))
     port = batched_spectrogram_fn(FS, cfg)(x)
@@ -236,6 +243,21 @@ def test_palette_matches_jax_index_pack(flip_image):
     assert torch.equal(rgb["image"], port["image"])
 
 
+@pytest.mark.parametrize("palette", [True, False])
+def test_without_image_keeps_the_words(palette):
+    """with_image=False (the dataset export's call) leaves the float image
+    out and returns the same words, PSD and flags."""
+    x = _clips(0)
+    key = "index_packed" if palette else "rgb_packed"
+    full = batched_spectrogram_fn(FS, NS_256, flip_image=True,
+                                  palette=palette)(x)
+    lean = batched_spectrogram_fn(FS, NS_256, flip_image=True,
+                                  palette=palette, with_image=False)(x)
+    assert set(lean) == {"psd", key, "finite"}
+    for k in lean:
+        assert torch.equal(lean[k], full[k])
+
+
 def test_slice_at_scipy_2048_matches_pallas_pipeline():
     """The f64 route end to end at a frequency-tiled size, on noise + 3.
     The port's PSD is held to the JAX Pallas kernel at that kernel's own
@@ -243,7 +265,7 @@ def test_slice_at_scipy_2048_matches_pallas_pipeline():
     float64 at 1e-3 dB: the float32 Pallas route is the less accurate of
     the two here, so its packed words are no reference (99.84% identical
     on these clips)."""
-    from spectral_tpu_torch.ops.precision_emulation import scipy_display
+    from torch_precision import scipy_display
     cfg = SpecConfig.scipy_default(2048, log_scale=True)
     x = _clips(7, n=8 * 2048) + np.float32(3.0)
     ref = jax.jit(pallas_pipeline_fn(FS, cfg))(jnp.asarray(x))

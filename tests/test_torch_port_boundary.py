@@ -257,12 +257,14 @@ def _imported_modules(path):
 
 
 def test_chip_smoke_and_port_import_nothing_of_jax():
-    """An AST scan: chip_smoke.py and every module of the port import
-    neither jax nor any module of the JAX package."""
+    """An AST scan: chip_smoke.py, every module of the port and the port's
+    tools import neither jax nor any module of the JAX package."""
     paths = [os.path.join(REPO, "chip_smoke.py")] + sorted(glob.glob(
         os.path.join(REPO, "spectral_tpu_torch", "**", "*.py"),
-        recursive=True))
+        recursive=True)) + sorted(glob.glob(os.path.join(REPO, "tools",
+                                                         "torch_*.py")))
     assert len(paths) > 15
+    assert os.path.join(REPO, "tools", "torch_precision.py") in paths
     for path in paths:
         names = _imported_modules(path)
         bad = [n for n in names if n in ("jax", "jaxlib", "spectral_tpu")

@@ -6,21 +6,27 @@ The JAX side runs as its own tests run it on the CPU: the Pallas kernel in
 interpret mode and the dense matmul route of ``power_spectrogram``. Port
 configs are the port's SpecConfig; each JAX twin is built from its JSON.
 
-Tolerances: the PSD within 5e-6 of each clip's max (float32 GEMMs over up
-to 1024 terms, summed in another order by XLA and by torch); the per-clip
-max to rtol 1e-5. The per-clip min is the deepest bin, where cancellation
-makes any float32 engine's relative error large (up to ~3e-4 measured
-between these two), so it is held to the PSD's own bound and to equal the
-min of the port's PSD exactly. At nperseg 2048-8192 the JAX package's own
+Tolerances: the PSD within 5e-6 of each clip's max (the JAX side's
+float32 GEMMs over up to 1024 terms against the port's float64); the
+per-clip max to rtol 1e-5. The per-clip min is the deepest bin, where
+cancellation makes a float32 engine's relative error large (up to ~3e-4
+measured), so it is held to the PSD's own bound and to equal the min of
+the port's PSD exactly. At nperseg 2048-8192 the JAX package's own
 tolerance for its Pallas kernel holds (tests/test_stft_pallas.py:120:
 rtol 3e-4, atol 1e-6 of the max), and the display error against scipy in
 float64 is held to the 1e-3 dB contract.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools"))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -31,8 +37,8 @@ from spectral_tpu.ops import stft_pallas  # noqa: E402
 from spectral_tpu_torch import SpecConfig  # noqa: E402
 from spectral_tpu_torch.core import scale as tscale  # noqa: E402
 from spectral_tpu_torch.core import stft as tstft  # noqa: E402
-from spectral_tpu_torch.ops import precision_emulation  # noqa: E402
 from spectral_tpu_torch.ops import stft_cuda  # noqa: E402
+import torch_precision  # noqa: E402
 
 FS = 16000.0
 PSD_TOL = 5e-6
@@ -62,7 +68,15 @@ def _jax_constants(cfg):
     a_re, a_im = jstft.dft_matrices(_jax(cfg))
     return stft_cuda.constants_from_numpy(
         a_re, a_im, jstft.onesided_weights(_jax(cfg), FS), "cpu",
-        stft_cuda.accumulator_dtype(cfg))
+        torch.float64)
+
+
+def _float32_constants(cfg):
+    """The kernel's operands rounded to float32, as an fp32 chain takes
+    them."""
+    a_re, a_im = tstft.dft_matrices(cfg)
+    return stft_cuda.constants_from_numpy(
+        a_re, a_im, tstft.onesided_weights(cfg, FS), "cpu", torch.float32)
 
 
 def _assert_psd_close(got, want):
@@ -90,7 +104,7 @@ def test_host_constants_bitwise_equal(name):
     # the operands built from the JAX package's constants are the port's
     for a, b in zip(_jax_constants(cfg), stft_cuda.dft_constants(cfg, FS,
                                                                  "cpu")):
-        assert a.dtype == stft_cuda.accumulator_dtype(cfg)
+        assert a.dtype == torch.float64
         assert torch.equal(a, b)
 
 
@@ -138,11 +152,13 @@ def test_log10_out_matches_pallas_kernel():
     got = stft_cuda.stft_psd(torch.from_numpy(x), FS, cfg, log10_out=True)
     # log10 turns the PSD's absolute error at the deepest bins into large
     # log-domain steps (2.8e-5 measured at 1e-5 of the max), so compare in
-    # linear units under the PSD's bound, and the log itself exactly
+    # linear units under the PSD's bound, and the log itself exactly: the
+    # log10 of the float64 PSD, rounded once
     _assert_psd_close(10.0 ** got.double().numpy(),
                       10.0 ** want.astype(np.float64))
-    psd = stft_cuda.stft_psd(torch.from_numpy(x), FS, cfg)
-    assert torch.equal(got, torch.log10(psd + 1e-20))
+    psd64 = stft_cuda.stft_psd(torch.from_numpy(x).double(), FS, cfg)
+    assert psd64.dtype == torch.float64
+    assert torch.equal(got, torch.log10(psd64 + 1e-20).float())
     with pytest.raises(ValueError, match="with_stats"):
         stft_cuda.stft_psd(torch.from_numpy(x), FS, cfg, log10_out=True,
                            with_stats=True)
@@ -275,7 +291,7 @@ def _db_error(psd_tf, x64, cfg):
     """bench.py's display error: max |Δimage| x the dB range, the port's
     log display of a (F, T) PSD against scipy.signal.spectrogram in
     float64 on the same clip."""
-    oracle, rng_db = precision_emulation.scipy_display(x64, cfg, FS)
+    oracle, rng_db = torch_precision.scipy_display(x64, cfg, FS)
     img = tscale.normalize(torch.as_tensor(psd_tf), log_scale=True).numpy()
     assert img.shape == oracle.shape
     return float(np.max(np.abs(img - oracle)) * rng_db)
@@ -290,7 +306,6 @@ def test_large_nperseg_matches_pallas_kernel(name, drop_large_constants):
             jnp.asarray(x)))
     psd, lo, hi = (a.numpy() for a in stft_cuda.stft_psd(
         torch.from_numpy(x), FS, cfg, with_stats=True))
-    assert stft_cuda.route(cfg) == "f64"
     assert psd.shape == psd_j.shape and psd.shape[1] >= 3
     np.testing.assert_allclose(psd, psd_j, rtol=3e-4,
                                atol=float(psd_j.max()) * 1e-6)
@@ -308,20 +323,24 @@ def test_scipy_8192_within_the_display_contract(drop_large_constants):
 
 
 def test_precision_routing():
-    """float32 only for nperseg <= 1024 without detrend: the measured
-    headline path; every other config accumulates in float64."""
-    fp32 = [SpecConfig.north_star(1024, 256), SpecConfig.north_star(256, 64),
-            SpecConfig(nperseg=512, hop=128, detrend="none")]
-    f64 = [SpecConfig.scipy_default(1024), SpecConfig.scipy_default(256),
-           SpecConfig.north_star(2048, 512), SpecConfig.north_star(8192, 2048),
-           SpecConfig(nperseg=1024, hop=256, detrend="linear")]
-    assert [stft_cuda.route(c) for c in fp32] == ["fp32"] * 3
-    assert [stft_cuda.route(c) for c in f64] == ["f64"] * 5
-    cfg = SpecConfig.scipy_default(256)
+    """Every config accumulates in float64, with or without detrend (a
+    float32 chain breaks 1e-3 dB at every nperseg): the plain version is
+    float64 matmuls rounded once to float32, and float32 constants are
+    refused."""
     x = torch.from_numpy(_clips(10, offset=3.0))
+    for cfg in (SpecConfig.north_star(1024, 256), SpecConfig.north_star(256, 64),
+                SpecConfig(nperseg=512, hop=128, detrend="none"),
+                SpecConfig.scipy_default(256),
+                SpecConfig(nperseg=1024, hop=256, detrend="linear")):
+        consts = stft_cuda.dft_constants(cfg, FS, "cpu")
+        assert consts.a_re.dtype == torch.float64
+        want = tstft.dense_power(
+            tstft.frame_signal(x.double(), cfg.nperseg, cfg.hop_),
+            *consts).float()
+        assert torch.equal(stft_cuda.stft_psd(x, FS, cfg), want)
+    cfg = SpecConfig.scipy_default(256)
     with pytest.raises(ValueError, match="float64"):
-        stft_cuda.stft_psd_reference(
-            x, stft_cuda.dft_constants(cfg, FS, "cpu", torch.float32), cfg)
+        stft_cuda.stft_psd_reference(x, _float32_constants(cfg), cfg)
 
 
 def test_f64_routing_holds_the_contract_where_fp32_breaks_it(
@@ -333,8 +352,25 @@ def test_f64_routing_holds_the_contract_where_fp32_breaks_it(
     x = _clips(11, n_clips=1, n=8 * cfg.nperseg, offset=3.0)[0]
     x64 = x.astype(np.float64)
     a_re, a_im = tstft.dft_matrices(cfg)
-    fp32 = precision_emulation.psd_fp32_chain(
-        precision_emulation.frames_of(x, cfg), a_re, a_im,
+    fp32 = torch_precision.psd_fp32_chain(
+        torch_precision.frames_of(x, cfg), a_re, a_im,
+        tstft.onesided_weights(cfg, FS))
+    assert _db_error(fp32.T, x64, cfg) > 1e-3
+    routed = stft_cuda.stft_psd(torch.from_numpy(x), FS, cfg)
+    assert _db_error(routed.T, x64, cfg) <= 1e-5
+
+
+def test_headline_config_needs_f64_too(drop_large_constants):
+    """north_star 1024/256, no detrend, on a white-noise clip (seed 7 of
+    the precision sweep): one float32 chain, emulated in numpy, breaks
+    1e-3 dB at its deepest bin; the float64 route the wrapper takes holds
+    it."""
+    cfg = CONFIGS["north_star_1024_256"]
+    x = np.random.RandomState(7).randn(8 * cfg.nperseg).astype(np.float32)
+    x64 = x.astype(np.float64)
+    a_re, a_im = tstft.dft_matrices(cfg)
+    fp32 = torch_precision.psd_fp32_chain(
+        torch_precision.frames_of(x, cfg), a_re, a_im,
         tstft.onesided_weights(cfg, FS))
     assert _db_error(fp32.T, x64, cfg) > 1e-3
     routed = stft_cuda.stft_psd(torch.from_numpy(x), FS, cfg)
@@ -343,21 +379,22 @@ def test_f64_routing_holds_the_contract_where_fp32_breaks_it(
 
 @pytest.mark.parametrize("name", ["north_star_256_64", "scipy_256"])
 def test_emulation_models_the_plain_routes(name):
-    """The numpy emulation that justifies the precision rule computes the
-    same PSD as the route the wrapper takes: the f64 model to within one
-    float32 rounding (both sum in f64 and round once), the float32 chain
+    """The numpy emulation behind the precision rule computes the same
+    PSD as the plain versions: its float64 model as the route the wrapper
+    takes, to within one float32 rounding (both sum in float64 and round
+    once); its float32 chain as a float32 matmul of the float32 matrices,
     within the float32 PSD bound (torch's CPU matmul sums in another
     order)."""
     cfg = CONFIGS[name]
     x = _clips(12, n_clips=1, offset=3.0)[0]
     a_re, a_im = tstft.dft_matrices(cfg)
     wts = tstft.onesided_weights(cfg, FS)
-    frames = precision_emulation.frames_of(x, cfg)
+    frames = torch_precision.frames_of(x, cfg)
     plain = stft_cuda.stft_psd(torch.from_numpy(x), FS, cfg).numpy()
-    if stft_cuda.route(cfg) == "f64":
-        model = precision_emulation.psd_f64(frames, a_re, a_im, wts)
-        np.testing.assert_allclose(plain, model, rtol=1.2e-7,
-                                   atol=float(model.max()) * 1e-12)
-    else:
-        model = precision_emulation.psd_fp32_chain(frames, a_re, a_im, wts)
-        _assert_psd_close(plain[None], model[None])
+    model = torch_precision.psd_f64(frames, a_re, a_im, wts)
+    np.testing.assert_allclose(plain, model, rtol=1.2e-7,
+                               atol=float(model.max()) * 1e-12)
+    consts32 = _float32_constants(cfg)
+    plain32 = tstft.dense_power(torch.from_numpy(frames), *consts32).numpy()
+    chain = torch_precision.psd_fp32_chain(frames, a_re, a_im, wts)
+    _assert_psd_close(plain32[None], chain[None])
