@@ -6,23 +6,36 @@
 Needs one CUDA card, nvcc and triton; run it from the root of a checkout.
 It builds every kernel of the port's paths from the sources in the
 checkout and holds each kernel against its plain PyTorch version on the
-card, the STFT kernel from nperseg 100 to 8192 and the display kernel in
-both output modes, with and without the float image. Then it drives three
-paths at full size, each with the launch counts set to 0 just before it
-and read just after:
+card: the STFT/PSD kernel's two routes (the FFT kernel at power-of-two
+nperseg 32-8192, the GEMM kernel at every other nperseg, from 100 to
+8160) and the display kernel in both output modes, with and without the
+float image. Then it drives four paths at full size, each with the launch
+counts set to 0 just before it and read just after:
 
 1. the display spine: 1024 clips of 10 s at 16 kHz through
-   ``batched_spectrogram_fn`` at north_star 1024/256 log (RGBA words);
+   ``batched_spectrogram_fn`` at north_star 1024/256 log (RGBA words), on
+   the FFT route;
 2. the end of the GUI's range: 256 clips of 60 s through
    ``batched_spectrogram_fn`` at scipy_default 8192 log (the TPU's
-   manual-DMA kernel K2's counterpart);
+   manual-DMA kernel K2's counterpart), on the FFT route;
 3. the dataset export: ``export_spectrograms`` at the CLI's defaults
    (north_star 1024/256 log, 10 s clips, batch 64, palette PNGs) over 1024
-   synthetic clips, a batch of int16 WAVs and a NaN clip.
+   synthetic clips, a batch of int16 WAVs and a NaN clip, on the FFT
+   route;
+4. the GEMM route at the GUI's largest value that is not a power of two:
+   path 2's batch at scipy_default 8160.
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
-``tools/torch_precision.py``, and times kernel and plain paths with CUDA
-events.
+``tools/torch_precision.py``, and times kernel, plain and library paths
+with CUDA events: the library yardstick of the STFT kernels is cuFFT's
+float64 real transform of the same frames (``library_psd``), which the
+port never calls. The GEMM kernel is also timed on paths 1 and 2, forced
+through ``stft_psd``'s module-private ``_route``, beside the FFT kernel.
+
+``main(_phases={...})`` runs the named phases only (a short first call
+after a kernel changes: ``python3 -c "import chip_smoke;
+chip_smoke.main(_phases={'kernels'})"``); with no arguments every phase
+runs.
 
 Every phase that fails raises, so the script exits nonzero and prints no
 result. Without a CUDA card, or without the package beside it, it fails.
@@ -32,6 +45,7 @@ The last line of its output is one JSON object:
 
 import itertools
 import json
+import math
 import os
 import struct
 import subprocess
@@ -47,6 +61,7 @@ CLIP_SECONDS = 10.0
 BATCH = 1024
 K2_CLIPS = 256
 K2_SECONDS = 60.0
+GEMM_NPERSEG = 8160     # the GUI's largest nperseg that is not a power of 2
 EXPORT_CLIPS = 1024
 EXPORT_BATCH = 64
 REPS = 5
@@ -54,8 +69,6 @@ PSD_TOL = 5e-6          # max|Δ| per clip, relative to the clip's PSD max
 IMAGE_TOL = 1e-6        # display image, same PSD in (shared scalars)
 DB_TOL = 1e-3           # display contract against scipy float64
 SAME_WORDS = 0.999      # packed words identical, else one LUT index apart
-FIRST_HEADLINE_MS = 41.48  # the STFT stage of path 1 as first measured
-#                            on an H100 at 700 W, in float32 (PERF.md)
 FP64_PEAK = 67e12       # H100 SXM, FP64 on the tensor cores (data sheet)
 HBM_RATE = 3.35e12      # H100 SXM device memory, bytes/s
 
@@ -84,6 +97,39 @@ def psd_err(got, want):
     diff = torch.amax(torch.abs(got - want), dim=(1, 2))
     scale = torch.amax(torch.abs(want), dim=(1, 2)).clamp_min(1e-30)
     return float(torch.amax(diff / scale)), float(torch.amax(diff))
+
+
+def ulp_distance(got, want):
+    """Largest distance in float32 ulps between entries finite in both
+    (the bit patterns as ordered integers)."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    ok = torch.isfinite(got) & torch.isfinite(want)
+    if not bool(ok.any()):
+        return 0
+    return int(torch.where(ok, (ordered(got) - ordered(want)).abs(), 0).max())
+
+
+def library_psd(x, cfg):
+    """The STFT kernels' library yardstick, never called by the port: the
+    same PSD through cuFFT's float64 real transform (the transform
+    ``torch.stft`` runs) of the same frames, framed with ``unfold`` so the
+    constant detrend fits, then |X|² times the weights, rounded to
+    float32."""
+    import torch
+    from spectral_tpu_torch.core.stft import _window_f64, onesided_weights
+    frames = x.double().unfold(-1, cfg.nperseg, cfg.hop_)
+    if cfg.detrend == "constant":
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+    win = torch.tensor(_window_f64(cfg), dtype=torch.float64, device=x.device)
+    wts = torch.tensor(onesided_weights(cfg, FS), dtype=torch.float64,
+                       device=x.device)
+    spec = torch.view_as_real(torch.fft.rfft(frames * win, dim=-1))
+    return (spec.square().sum(dim=-1) * wts).float()
 
 
 def word_index_range(words):
@@ -176,15 +222,22 @@ def read_counts():
 
 
 def stft_bound(B, n, T, F, K):
-    """(bound_ms, bound_by): each input (signal, float64 DFT matrices and
-    weights) read once, each output (PSD, per-clip min and max) written
-    once, against 4*B*T*F*K + 3*B*T*F float64 operations at the card's
-    FP64 peak."""
-    bytes_ = (B * n * 4 + (2 * K * F + F) * 8 + B * T * F * 4 + 2 * B * 4)
-    ops = 4.0 * B * T * F * K + 3.0 * B * T * F
+    """(bound_ms, bound_by) of the STFT/PSD function, one count for both
+    routes: the signal read once and the PSD and per-clip min and max
+    written once, against a real FFT's 2.5*K*log2(K) operations per frame
+    plus 3 per output bin (the power and its weight) at the card's FP64
+    peak."""
+    bytes_ = B * n * 4 + B * T * F * 4 + 2 * B * 4
+    ops = B * T * (2.5 * K * math.log2(K) + 3.0 * F)
     t_mem, t_ops = bytes_ / HBM_RATE, ops / FP64_PEAK
     return (1e3 * max(t_mem, t_ops),
             "operations" if t_ops >= t_mem else "bytes")
+
+
+def dense_dft_bound_ms(B, T, F, K):
+    """The GEMM design's ceiling: its 4*B*T*F*K float64 operations at the
+    card's FP64 peak."""
+    return 1e3 * 4.0 * B * T * F * K / FP64_PEAK
 
 
 def display_bound(B, T, F, words_per_row, image=True, lut=True):
@@ -269,81 +322,116 @@ def kernel_cases(dev):
     n = int(FS * CLIP_SECONDS)
     north = SpecConfig.north_star(1024, 256, log_scale=True)
     scipy_cfg = SpecConfig.scipy_default(1024, log_scale=True)
+    s992 = SpecConfig.scipy_default(992)         # the GEMM route's
+    s2048 = SpecConfig.scipy_default(2048)
 
     def on_card(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
-    def both(x, cfg, **kw):
-        got = stft_cuda.stft_psd(x, FS, cfg, **kw)
+    def both(x, cfg, route=None, **kw):
+        """The kernel (the route's, checked by its launch count) and the
+        plain version on the same input."""
+        want_route = route or ("fft" if stft_cuda.fft_route(cfg) else "gemm")
+        before = dict(stft_cuda.launches)
+        got = stft_cuda.stft_psd(x, FS, cfg, _route=route, **kw)
+        torch.cuda.synchronize()
+        after = dict(stft_cuda.launches)
+        require(after[want_route] == before[want_route] + 1
+                and sum(after.values()) == sum(before.values()) + 1,
+                f"nperseg {cfg.nperseg}: one launch of the {want_route} "
+                f"kernel, counts {before} -> {after}")
         want = stft_cuda.stft_psd_reference(
             x, stft_cuda.dft_constants(cfg, FS, dev), cfg, **kw)
         torch.cuda.synchronize()
-        return got, want
+        return got, want, want_route
 
-    def check_stats(got, want, what):
+    def check_stats(got, want, route, what):
         psd_rel, _ = psd_err(got[0], want[0])
         scale = torch.amax(want[0], dim=(1, 2))
         lo = float(torch.amax(torch.abs(got[1] - want[1]) / scale))
         hi = float(torch.amax(torch.abs(got[2] - want[2]) / scale))
         require(psd_rel <= PSD_TOL and lo <= PSD_TOL and hi <= PSD_TOL,
-                f"{what}: psd {psd_rel:.2e}, pmin {lo:.2e}, pmax {hi:.2e} "
-                f"(relative to clip max)")
-        print(f"{what}: psd {psd_rel:.2e}, pmin {lo:.2e}, pmax {hi:.2e}")
+                f"{what} [{route}]: psd {psd_rel:.2e}, pmin {lo:.2e}, pmax "
+                f"{hi:.2e} (relative to clip max)")
+        print(f"{what} [{route}]: psd {psd_rel:.2e}, pmin {lo:.2e}, pmax "
+              f"{hi:.2e}; largest float32 ulp distance "
+              f"{ulp_distance(got[0], want[0])}")
 
-    def check_log(x, cfg, what):
-        got, want = both(x, cfg, log10_out=True)
+    def check_log(x, cfg, what, route=None):
+        got, want, used = both(x, cfg, route, log10_out=True)
         lin_rel, _ = psd_err(10.0 ** got.double(), 10.0 ** want.double())
-        require(lin_rel <= PSD_TOL, f"{what}: {lin_rel:.2e}")
-        print(f"{what} (compared in linear units): {lin_rel:.2e}")
+        require(lin_rel <= PSD_TOL, f"{what} [{used}]: {lin_rel:.2e}")
+        print(f"{what} [{used}] (compared in linear units): {lin_rel:.2e}; "
+              f"largest float32 ulp distance {ulp_distance(got, want)}")
 
     x8 = on_card(rs.randn(8, n))
     t0 = time.perf_counter()
-    got, want = both(x8, north, with_stats=True)
+    got, want, route = both(x8, north, with_stats=True)
     print(f"first stft_psd launch (module load) {time.perf_counter() - t0:.2f}"
           " s")
-    check_stats(got, want, "8 x 10 s, north_star 1024/256, with_stats")
+    check_stats(got, want, route, "8 x 10 s, north_star 1024/256, with_stats")
     psd8, pmin8, pmax8 = got
 
     xs = on_card(rs.randn(4, n) + 3.0)           # DC offset: detrend works
     check_stats(*both(xs, scipy_cfg, with_stats=True),
                 "scipy_default 1024 (hop 896, Tukey, constant detrend), "
                 "noise + 3")
-    check_log(x8[:2], north, "log10_out")
+    check_stats(*both(xs, s992, with_stats=True),
+                "scipy_default 992 (hop 868), noise + 3")
+    check_stats(*both(x8[:4], SpecConfig.north_star(960, 240),
+                      with_stats=True), "north_star 960/240")
+    for route in (None, "gemm"):
+        check_log(x8[:2], north, "log10_out", route)
 
     xr = on_card(rs.randn(3, 40000))             # T = 153: ragged frame tile
-    check_stats(*both(xr, north, with_stats=True), "ragged T = 153")
-    check_stats(*both(xr, SpecConfig.north_star(256, 64), with_stats=True),
-                "north_star 256/64")
-    # nperseg 100: K not a multiple of the kernel's 16-sample stage
+    for route in (None, "gemm"):
+        check_stats(*both(xr, north, route, with_stats=True),
+                    "ragged T = 153")
+    # the FFT kernel's smallest sizes: 32 threads, idle lanes in the
+    # butterflies at nperseg 32
+    for cfg in (SpecConfig.north_star(32, 8), SpecConfig.scipy_default(64),
+                SpecConfig.north_star(128, 32),
+                SpecConfig.north_star(256, 64),
+                SpecConfig.north_star(512, 128)):
+        check_stats(*both(xr, cfg, with_stats=True),
+                    f"nperseg {cfg.nperseg}, hop {cfg.hop_}, detrend "
+                    f"{cfg.detrend}")
+    # nperseg 100: K not a multiple of the GEMM kernel's 16-sample stage
     check_stats(*both(xr, SpecConfig.scipy_default(100), with_stats=True),
                 "scipy_default 100 (hop 88)")
     # |X|^2 past float32's range: inf, as the float32 pipeline overflows
     xo = on_card(np.stack([rs.randn(20000), 1e19 * rs.randn(20000)]))
-    p_o, lo_o, hi_o = stft_cuda.stft_psd(xo, FS, north, with_stats=True)
-    require(bool(torch.isfinite(hi_o[0])) and bool(torch.isinf(hi_o[1]))
-            and finite_flags(xo, lo_o, hi_o).tolist() == [True, False],
-            f"overflow guard: pmax {hi_o.tolist()}")
-    print("1e19-amplitude clip: pmax inf, finite [True, False]")
+    for route in (None, "gemm"):
+        p_o, lo_o, hi_o = stft_cuda.stft_psd(xo, FS, north, with_stats=True,
+                                             _route=route)
+        require(bool(torch.isfinite(hi_o[0])) and bool(torch.isinf(hi_o[1]))
+                and finite_flags(xo, lo_o, hi_o).tolist() == [True, False],
+                f"overflow guard [{route or 'fft'}]: pmax {hi_o.tolist()}")
+        print(f"1e19-amplitude clip [{route or 'fft'}]: pmax inf, finite "
+              "[True, False]")
 
-    # nperseg 2048-8192: K1's frequency-tiled sizes and K2's range; the
-    # clips' frames share row tiles across clip boundaries
+    # nperseg 2048-8192: K1's frequency-tiled sizes and K2's range (for the
+    # GEMM kernel, the clips' frames share row tiles across clip
+    # boundaries); the FFT kernel's buffer passes 48 KB of shared memory
+    # from 4096 on
     for what, cfg, offset in (
             ("north_star 2048/512", SpecConfig.north_star(2048, 512), 0.0),
             ("scipy_default 4096, noise + 3", SpecConfig.scipy_default(4096),
              3.0),
             ("scipy_default 8192 (hop 7168), noise + 3",
              SpecConfig.scipy_default(8192), 3.0),
-            ("north_star 8192/2048", SpecConfig.north_star(8192, 2048), 0.0)):
+            ("north_star 8192/2048", SpecConfig.north_star(8192, 2048), 0.0),
+            (f"scipy_default {GEMM_NPERSEG}, noise + 3",
+             SpecConfig.scipy_default(GEMM_NPERSEG), 3.0)):
         x = on_card(rs.randn(3, 8 * cfg.nperseg) + offset)
         check_stats(*both(x, cfg, with_stats=True), what)
-    s2048 = SpecConfig.scipy_default(2048)
     xr2 = on_card(rs.randn(5, 40000) + 1.0)      # T = 22, 110 rows, 5 clips
     check_stats(*both(xr2, s2048, with_stats=True),
                 "scipy_default 2048, ragged T = 22")
     check_log(on_card(rs.randn(2, 8 * 4096) + 3.0),
               SpecConfig.scipy_default(4096), "scipy_default 4096 log10_out")
 
-    for cfg in (north, SpecConfig.scipy_default(8192)):
+    for cfg in (north, SpecConfig.scipy_default(8192), s992):
         before = read_counts()["stft_psd"]
         psd0, lo0, hi0 = stft_cuda.stft_psd(on_card(rs.randn(2, 500)), FS,
                                             cfg, with_stats=True)
@@ -354,7 +442,7 @@ def kernel_cases(dev):
         print(f"nperseg {cfg.nperseg}, T = 0: empty PSD, zero extrema, "
               "no launch")
 
-    for cfg in (north, s2048):
+    for cfg in (north, s2048, s992):
         xn = rs.randn(3, 20000)
         xn[1, 5000] = np.nan
         xn = on_card(xn)
@@ -366,8 +454,13 @@ def kernel_cases(dev):
                 and flags == [True, False, True],
                 f"NaN sample: pmin {lo_n.tolist()}, pmax {hi_n.tolist()}, "
                 f"finite {flags}")
-        print(f"nperseg {cfg.nperseg}, NaN sample: pmin and pmax NaN, "
-              "finite [True, False, True]")
+        _, want_lo, want_hi = stft_cuda.stft_psd_reference(
+            xn, stft_cuda.dft_constants(cfg, FS, dev), cfg, with_stats=True)
+        require(torch.equal(torch.isnan(lo_n), torch.isnan(want_lo))
+                and torch.equal(torch.isnan(hi_n), torch.isnan(want_hi)),
+                "NaN extrema agree with the plain version")
+        print(f"nperseg {cfg.nperseg}, NaN sample: pmin and pmax NaN as in "
+              "the plain version, finite [True, False, True]")
 
     T8 = psd8.shape[1]
     for log_scale, flip, share in ((True, True, False), (True, False, False),
@@ -419,9 +512,9 @@ def kernel_cases(dev):
 def scipy_checks(dev, card):
     """The display contract against scipy float64 on clips that break a
     float32 chain (tools/torch_precision.py): scipy_default 1024 on
-    noise + 3, and north_star 1024/256 on the sweep's worst clips; then
-    the kernel's time at scipy_default 1024 on the display spine's
-    batch."""
+    noise + 3, and north_star 1024/256 on the sweep's worst clips, all on
+    the FFT route; then both kernels' times at scipy_default 1024 on the
+    display spine's batch."""
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
@@ -443,10 +536,10 @@ def scipy_checks(dev, card):
                       + (" noise + 3" if offset else " noise"), north,
                       clip[None]))
     for what, c, xc in cases:
-        before = read_counts()["stft_psd"]["f64"]
+        before = read_counts()["stft_psd"]["fft"]
         out = batched_spectrogram_fn(FS, c, flip_image=True)(xc)
-        require(read_counts()["stft_psd"]["f64"] == before + 1,
-                f"{what}: one launch of the STFT kernel")
+        require(read_counts()["stft_psd"]["fft"] == before + 1,
+                f"{what}: one launch of the FFT kernel")
         err = db_error_vs_scipy(out["image"][0].flip(0).cpu().numpy(),
                                 xc[0].astype(np.float64), c)
         require(err <= DB_TOL, f"{what}: {err:.3e} dB")
@@ -456,13 +549,17 @@ def scipy_checks(dev, card):
     xb = torch.randn((BATCH, n), generator=gen, device=dev) + 3.0
     consts = stft_cuda.dft_constants(cfg, FS, dev)
     k_ms = time_ms(lambda: stft_cuda.stft_psd(xb, FS, cfg, with_stats=True))
+    g_ms = time_ms(lambda: stft_cuda.stft_psd(xb, FS, cfg, with_stats=True,
+                                              _route="gemm"))
     p_ms = time_ms(lambda: stft_cuda.stft_psd_reference(xb, consts, cfg,
                                                         with_stats=True))
+    l_ms = time_ms(lambda: library_psd(xb, cfg))
     T = num_frames(n, cfg.nperseg, cfg.hop_)
     bound = stft_bound(BATCH, n, T, cfg.n_freqs, 1024)
-    print(f"STFT kernel at scipy_default 1024, {BATCH} x {CLIP_SECONDS:g} s "
-          f"(CUDA events, median of {REPS}): kernel {k_ms[0]:.3f} ms, plain "
-          f"{p_ms[0]:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}) [{card}]")
+    print(f"STFT at scipy_default 1024, {BATCH} x {CLIP_SECONDS:g} s (CUDA "
+          f"events, median of {REPS}): FFT kernel {k_ms[0]:.3f} ms, GEMM "
+          f"kernel {g_ms[0]:.3f} ms, plain {p_ms[0]:.3f} ms, library "
+          f"{l_ms[0]:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}) [{card}]")
     del xb
     torch.cuda.synchronize()
 
@@ -493,7 +590,7 @@ def main_path(dev, card):
     torch.cuda.synchronize()
     counts = read_counts()
     print(f"launches in this path's run: {counts}")
-    require(counts["stft_psd"]["f64"] >= 1
+    require(counts["stft_psd"]["fft"] >= 1
             and counts["display_epilogue"]["rgba"] >= 1,
             f"a kernel of the path did not launch: {counts}")
 
@@ -520,7 +617,13 @@ def main_path(dev, card):
                                                          with_stats=True)
     stft_rel, stft_abs = psd_err(out["psd"], psd_p)
     require(stft_rel <= PSD_TOL, f"main-path psd vs plain: {stft_rel:.2e}")
-    print(f"psd vs plain: {stft_rel:.2e} of clip max ({stft_abs:.3e} abs)")
+    print(f"psd vs plain: {stft_rel:.2e} of clip max ({stft_abs:.3e} abs); "
+          f"largest float32 ulp distance (64 clips) "
+          f"{ulp_distance(out['psd'][:64], psd_p[:64])}")
+    lib_rel, _ = psd_err(library_psd(x[:64], cfg), psd_p[:64])
+    require(lib_rel <= PSD_TOL, f"library yardstick vs plain: {lib_rel:.2e}")
+    print(f"library yardstick (cuFFT f64) vs plain, 64 clips: {lib_rel:.2e} "
+          "of clip max")
     pmin_k = torch.amin(out["psd"], dim=(1, 2))
     pmax_k = torch.amax(out["psd"], dim=(1, 2))
     img_ref, _ = disp.display_epilogue_reference(
@@ -556,21 +659,20 @@ def main_path(dev, card):
         return p, img, rgb, finite_flags(x, lo, hi)
 
     disp_kw = dict(log_scale=True, flip_image=True)
-    window = torch.hann_window(1024, periodic=True, device=dev)
     timings = {
         "stft_kernel": time_ms(lambda: stft_cuda.stft_psd(
             x, FS, cfg, with_stats=True)),
+        "stft_gemm_kernel": time_ms(lambda: stft_cuda.stft_psd(
+            x, FS, cfg, with_stats=True, _route="gemm")),
         "stft_plain": time_ms(lambda: stft_cuda.stft_psd_reference(
             x, consts, cfg, with_stats=True)),
+        "stft_library": time_ms(lambda: library_psd(x, cfg)),
         "display_kernel": time_ms(lambda: disp.display_epilogue(
             psd, pmin, pmax, **disp_kw)),
         "display_plain": time_ms(lambda: disp.display_epilogue_reference(
             psd, pmin, pmax, **disp_kw)),
         "pipeline_kernel": time_ms(lambda: fn(x)),
         "pipeline_plain": time_ms(plain_pipeline),
-        "cufft_transform_only": time_ms(lambda: torch.stft(
-            x, 1024, hop_length=256, window=window, center=False,
-            return_complex=True)),
         # K1-log, the kernel's log10_out mode, off the driven paths
         "stft_kernel_log10": time_ms(lambda: stft_cuda.stft_psd(
             x, FS, cfg, log10_out=True)),
@@ -586,19 +688,21 @@ def main_path(dev, card):
                          "reps_ms": reps}
         print(f"{name}: {ms:.3f} ms/batch, {ms / BATCH:.5f} ms/clip, "
               f"{audio_h / (ms / 60000.0):.1f} audio-h/min [{card}]")
-    flops = 4.0 * BATCH * T * F * 1024
-    ms = timings["stft_kernel"][0]
     stft_b = stft_bound(BATCH, n, T, F, 1024)
-    print(f"STFT stage (float64): {ms:.3f} ms against {FIRST_HEADLINE_MS} ms "
-          f"as first measured in float32, {flops / ms / 1e9:.2f} TFLOP/s; "
-          f"bound {stft_b[0]:.3f} ms at {FP64_PEAK / 1e12:g} TFLOP/s "
-          f"[{card}]")
+    print(f"STFT stage: FFT kernel {timings['stft_kernel'][0]:.3f} ms, GEMM "
+          f"kernel {timings['stft_gemm_kernel'][0]:.3f} ms (its design's "
+          f"ceiling, the dense DFT at the FP64 peak, "
+          f"{dense_dft_bound_ms(BATCH, T, F, 1024):.3f} ms), plain (cuBLAS "
+          f"DGEMM) {timings['stft_plain'][0]:.3f} ms, library (cuFFT f64) "
+          f"{timings['stft_library'][0]:.3f} ms; bound {stft_b[0]:.3f} ms "
+          f"({stft_b[1]}) [{card}]")
     print(json.dumps({"path1_times": summary}))
     disp_b = display_bound(BATCH, T, F, T)
     return {
-        "stft_1024": dict(launches=counts["stft_psd"]["f64"],
+        "stft_1024": dict(launches=counts["stft_psd"]["fft"],
                           err=stft_abs, ms=timings["stft_kernel"][0],
-                          plain_ms=timings["stft_plain"][0], bound=stft_b),
+                          plain_ms=timings["stft_plain"][0], bound=stft_b,
+                          library_ms=timings["stft_library"][0]),
         "display_rgba": dict(launches=counts["display_epilogue"]["rgba"],
                              err=disp_abs, ms=timings["display_kernel"][0],
                              plain_ms=timings["display_plain"][0],
@@ -606,7 +710,11 @@ def main_path(dev, card):
     }
 
 
-def k2_path(dev, card, dfma_peak):
+def long_path(dev, card, dfma_peak, nperseg, label):
+    """256 clips of 60 s through ``batched_spectrogram_fn`` at
+    scipy_default(nperseg) log: path 2 at 8192 (the FFT route; K2's
+    counterpart) and path 4 at 8160 (the GEMM route). Returns the STFT
+    kernel's row."""
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
@@ -616,15 +724,23 @@ def k2_path(dev, card, dfma_peak):
     from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
 
     n = int(FS * K2_SECONDS)
-    cfg = SpecConfig.scipy_default(8192, log_scale=True)
-    phase(f"path 2, the end of the GUI's range: {K2_CLIPS} clips x "
-          f"{K2_SECONDS:g} s, scipy_default 8192 log (K2's counterpart)")
+    cfg = SpecConfig.scipy_default(nperseg, log_scale=True)
+    route = "fft" if stft_cuda.fft_route(cfg) else "gemm"
+    phase(f"{label}: {K2_CLIPS} clips x {K2_SECONDS:g} s, scipy_default "
+          f"{nperseg} log, the {route} route")
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((K2_CLIPS, n), generator=gen, device=dev)
+    if route == "fft":
+        t0 = time.perf_counter()
+        stft_cuda.fft_constants(cfg, FS, dev)
+        print(f"FFT route's f64 constants (window, twiddles, weights) on the "
+              f"card in {time.perf_counter() - t0:.4f} s (host build + "
+              "upload; set-up)")
     t0 = time.perf_counter()
     consts = stft_cuda.dft_constants(cfg, FS, dev)
-    print(f"f64 DFT constants on the card in {time.perf_counter() - t0:.2f}"
-          " s (host f64 build + upload; set-up)")
+    print(f"f64 DFT matrices on the card in {time.perf_counter() - t0:.2f} s "
+          f"(host f64 build + upload; set-up of the GEMM route and the plain "
+          f"version)")
     fn = batched_spectrogram_fn(FS, cfg, flip_image=True)
 
     reset_counts()
@@ -632,7 +748,8 @@ def k2_path(dev, card, dfma_peak):
     torch.cuda.synchronize()
     counts = read_counts()
     print(f"launches in this path's run: {counts}")
-    require(counts["stft_psd"]["f64"] >= 1
+    require(counts["stft_psd"][route] >= 1
+            and sum(counts["stft_psd"].values()) == counts["stft_psd"][route]
             and counts["display_epilogue"]["rgba"] >= 1,
             f"a kernel of the path did not launch: {counts}")
     T, F = num_frames(n, cfg.nperseg, cfg.hop_), cfg.n_freqs  # 133, 4097
@@ -641,68 +758,79 @@ def k2_path(dev, card, dfma_peak):
             and bool(out["finite"].all())
             and float(out["image"].amin()) == 0.0
             and float(out["image"].amax()) == 1.0,
-            "path 2 shapes, finite flags and image range")
+            f"{label} shapes, finite flags and image range")
     x0 = x[0].double().cpu().numpy()
     db_err = db_error_vs_scipy(out["image"][0].flip(0).cpu().numpy(), x0,
                                cfg)
-    require(db_err <= DB_TOL, f"8192 clip 0 vs scipy f64: {db_err:.3e} dB")
+    require(db_err <= DB_TOL, f"{nperseg} clip 0 vs scipy f64: {db_err:.3e} "
+            "dB")
     print(f"clip 0 vs scipy float64: {db_err:.3e} dB (limit {DB_TOL:g})")
     x3 = (np.random.RandomState(4).randn(1, n) + 3.0).astype(np.float32)
     img3 = fn(x3)["image"][0].flip(0).cpu().numpy()
     db3 = db_error_vs_scipy(img3, x3[0].astype(np.float64), cfg)
-    require(db3 <= DB_TOL, f"8192 noise + 3 vs scipy f64: {db3:.3e} dB")
+    require(db3 <= DB_TOL, f"{nperseg} noise + 3 vs scipy f64: {db3:.3e} dB")
     print(f"noise + 3 clip vs scipy float64: {db3:.3e} dB "
           f"(limit {DB_TOL:g})")
 
     psd_p, pmin_p, pmax_p = stft_cuda.stft_psd_reference(x, consts, cfg,
                                                          with_stats=True)
     stft_rel, stft_abs = psd_err(out["psd"], psd_p)
-    require(stft_rel <= PSD_TOL, f"path 2 psd vs plain: {stft_rel:.2e}")
+    require(stft_rel <= PSD_TOL, f"{label} psd vs plain: {stft_rel:.2e}")
     print(f"psd vs plain (cuBLAS f64): {stft_rel:.2e} of clip max "
-          f"({stft_abs:.3e} abs)")
+          f"({stft_abs:.3e} abs); largest float32 ulp distance "
+          f"{ulp_distance(out['psd'], psd_p)}")
+    lib_rel, _ = psd_err(library_psd(x, cfg), psd_p)
+    require(lib_rel <= PSD_TOL, f"library yardstick vs plain: {lib_rel:.2e}")
+    print(f"library yardstick (cuFFT f64) vs plain: {lib_rel:.2e} of clip "
+          "max")
     pmin_k = torch.amin(out["psd"], dim=(1, 2))
     pmax_k = torch.amax(out["psd"], dim=(1, 2))
     require(torch.equal(torch.isnan(pmin_k), torch.isnan(pmin_p)),
-            "path 2 extrema")
+            f"{label} extrema")
     img_ref, _ = disp.display_epilogue_reference(
         out["psd"], pmin_k, pmax_k, log_scale=True, flip_image=True)
     disp_abs = float(torch.amax(torch.abs(out["image"] - img_ref)))
-    require(disp_abs <= IMAGE_TOL, f"path 2 image vs plain: {disp_abs:.2e}")
+    require(disp_abs <= IMAGE_TOL, f"{label} image vs plain: {disp_abs:.2e}")
     print(f"image vs plain display on the same PSD: {disp_abs:.2e}")
     del img_ref, psd_p, pmin_p, pmax_p, out
 
-    phase(f"path 2 times (CUDA events, median of {REPS} after a warm-up; "
+    phase(f"{label} times (CUDA events, median of {REPS} after a warm-up; "
           f"{card})")
-    from spectral_tpu_torch.core.windows import get_window
-    window = torch.tensor(get_window(cfg.window, 8192), dtype=torch.float64,
-                          device=dev)
-    x64 = x.double()
     timings = {
         "stft_kernel": time_ms(lambda: stft_cuda.stft_psd(
             x, FS, cfg, with_stats=True)),
         "stft_plain": time_ms(lambda: stft_cuda.stft_psd_reference(
             x, consts, cfg, with_stats=True)),
+        "stft_library": time_ms(lambda: library_psd(x, cfg)),
         "pipeline_kernel": time_ms(lambda: fn(x)),
-        "cufft_transform_only_f64": time_ms(lambda: torch.stft(
-            x64, 8192, hop_length=cfg.hop_, window=window, center=False,
-            return_complex=True)),
     }
-    del x64
-    flops = 4.0 * K2_CLIPS * T * F * 8192
+    if route == "fft":
+        timings["stft_gemm_kernel"] = time_ms(lambda: stft_cuda.stft_psd(
+            x, FS, cfg, with_stats=True, _route="gemm"))
     for name, (ms, reps) in timings.items():
         print(f"{name}: {ms:.3f} ms [{card}] reps {reps}")
-    ms = timings["stft_kernel"][0]
-    bound = stft_bound(K2_CLIPS, n, T, F, 8192)
-    print(f"STFT kernel: {flops / 1e12:.3f} TFLOP in {ms:.3f} ms = "
-          f"{flops / ms / 1e9:.2f} TFLOP/s; bound {bound[0]:.3f} ms at the "
-          f"FP64 peak {FP64_PEAK / 1e12:g} TFLOP/s; {1e3 * flops / dfma_peak:.3f}"
-          f" ms at the {dfma_peak / 1e12:.2f} TFLOP/s of DFMA this design "
-          f"can reach [{card}]")
-    print(json.dumps({"path2_times": {k: v[0] for k, v in timings.items()},
+    audio_h = K2_CLIPS * K2_SECONDS / 3600.0
+    ms = timings["pipeline_kernel"][0]
+    print(f"pipeline: {ms:.3f} ms per batch, {audio_h / (ms / 60000.0):.1f} "
+          f"audio-h/min [{card}]")
+    dense_ms = dense_dft_bound_ms(K2_CLIPS, T, F, nperseg)
+    gemm_ms = timings.get("stft_gemm_kernel", timings["stft_kernel"])[0]
+    flops = 4.0 * K2_CLIPS * T * F * nperseg
+    print(f"GEMM kernel: {flops / 1e12:.3f} TFLOP of dense DFT in "
+          f"{gemm_ms:.3f} ms = {flops / gemm_ms / 1e9:.2f} TFLOP/s; that "
+          f"design's ceiling {dense_ms:.3f} ms at the FP64 peak "
+          f"{FP64_PEAK / 1e12:g} TFLOP/s, {1e3 * flops / dfma_peak:.3f} ms "
+          f"at the {dfma_peak / 1e12:.2f} TFLOP/s of DFMA [{card}]")
+    bound = stft_bound(K2_CLIPS, n, T, F, nperseg)
+    print(f"STFT kernel ({route}): {timings['stft_kernel'][0]:.3f} ms; "
+          f"bound {bound[0]:.3f} ms ({bound[1]}) [{card}]")
+    print(json.dumps({f"path_{nperseg}_times": {k: v[0] for k, v in
+                                                 timings.items()},
                       "card": card}))
-    return {"stft_8192": dict(
-        launches=counts["stft_psd"]["f64"], err=stft_abs, ms=ms,
-        plain_ms=timings["stft_plain"][0], bound=bound)}
+    return dict(launches=counts["stft_psd"][route], err=stft_abs,
+                ms=timings["stft_kernel"][0],
+                plain_ms=timings["stft_plain"][0], bound=bound,
+                library_ms=timings["stft_library"][0])
 
 
 def decode_palette_png(path):
@@ -793,7 +921,7 @@ def export_path(dev, card):
         torch.cuda.synchronize()
         counts = read_counts()
         print(f"launches in this path's run: {counts}")
-        require(counts["stft_psd"]["f64"] >= 1
+        require(counts["stft_psd"]["fft"] >= 1
                 and counts["display_epilogue"]["palette"] >= 1,
                 f"a kernel of the path did not launch: {counts}")
         names = set(os.listdir(out_dir))
@@ -860,29 +988,57 @@ def export_path(dev, card):
           f"{EXPORT_BATCH}; largest index difference {err:g} [{card}]")
     return {"display_palette": dict(
         launches=counts["display_epilogue"]["palette"], err=err, ms=k_ms[0],
-        plain_ms=p_ms[0], bound=bound)}
+        plain_ms=p_ms[0], bound=bound),
+        "stft_export_launches": counts["stft_psd"]["fft"]}
 
 
-def main():
+PHASES = ("kernels", "scipy", "path1", "path2", "path3", "path4")
+
+
+def main(_phases=None):
+    """Every phase, then the kernels line and the contract line; with
+    ``_phases`` (a subset of PHASES) the build and those phases only,
+    and no result line."""
     import torch
     t_start = time.perf_counter()
+    phases = set(PHASES if _phases is None else _phases)
+    require(phases <= set(PHASES), f"phases {sorted(phases)} of {PHASES}")
     card, dfma_peak = toolchain()
     dev = torch.device("cuda", 0)
     build_kernels()
-    kernel_cases(dev)
-    scipy_checks(dev, card)
+    if "kernels" in phases:
+        kernel_cases(dev)
+    if "scipy" in phases:
+        scipy_checks(dev, card)
     rows = {}
-    rows.update(main_path(dev, card))
-    torch.cuda.empty_cache()
-    rows.update(k2_path(dev, card, dfma_peak))
-    torch.cuda.empty_cache()
-    rows.update(export_path(dev, card))
+    if "path1" in phases:
+        rows.update(main_path(dev, card))
+        torch.cuda.empty_cache()
+    if "path2" in phases:
+        rows["stft_8192"] = long_path(dev, card, dfma_peak, 8192, "path 2")
+        torch.cuda.empty_cache()
+    if "path3" in phases:
+        rows.update(export_path(dev, card))
+        torch.cuda.empty_cache()
+    if "path4" in phases:
+        rows["stft_gemm"] = long_path(dev, card, dfma_peak, GEMM_NPERSEG,
+                                      "path 4, the GEMM route")
+    if _phases is not None:
+        print(f"chip_smoke phases {sorted(phases)} passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    print(f"the FFT kernel's launches: path 1 {rows['stft_1024']['launches']}"
+          f", path 2 {rows['stft_8192']['launches']}, path 3 "
+          f"{rows['stft_export_launches']}; the GEMM kernel's: path 4 "
+          f"{rows['stft_gemm']['launches']}")
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
     meta = {
-        "stft_1024": ("stft_psd, nperseg 1024 (path 1)", "cuda", src,
+        "stft_1024": ("stft_fft_psd, nperseg 1024 (path 1)", "cuda", src,
                       "spectral_tpu/ops/stft_pallas.py:217"),
-        "stft_8192": ("stft_psd, nperseg 8192 (path 2)", "cuda", src,
+        "stft_8192": ("stft_fft_psd, nperseg 8192 (path 2)", "cuda", src,
                       "spectral_tpu/ops/stft_pallas.py:367"),
+        "stft_gemm": (f"stft_psd GEMM, nperseg {GEMM_NPERSEG} (path 4)",
+                      "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
         "display_rgba": ("display_epilogue rgba", "triton",
                          "spectral_tpu_torch/ops/display_triton.py",
                          "spectral_tpu/ops/stft_pallas.py:456"),
@@ -899,7 +1055,7 @@ def main():
             "replaces": replaces, "launches": r["launches"],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": None})
+            "bound_by": r["bound"][1], "library_ms": r.get("library_ms")})
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,7 +8,8 @@ GEMMs against DFT matrices with the window and the detrend folded in.
 
 The host constants (window, PSD weights, axes, folded DFT matrices) are the
 JAX package's numpy f64 code, unchanged, over the port's own copy of the
-windows, so both packages start from bitwise-identical constants. Framing is a ``Tensor.unfold`` view; the JAX
+windows, so both packages start from bitwise-identical constants; the FFT
+kernel's twiddle table (:func:`fft_twiddles`) is the port's own. Framing is a ``Tensor.unfold`` view; the JAX
 package's gcd slice-and-concat framing works around the TPU compiler and
 has no counterpart here.
 
@@ -163,6 +164,24 @@ def dft_matrices(cfg: SpecConfig) -> Tuple[np.ndarray, np.ndarray]:
         a_re = a_re - Q @ (Q.T @ a_re)
         a_im = a_im - Q @ (Q.T @ a_im)
     return np.ascontiguousarray(a_re), np.ascontiguousarray(a_im)
+
+
+@functools.lru_cache(maxsize=16)
+def fft_twiddles(nfft: int) -> np.ndarray:
+    """The FFT kernel's twiddle table, stage by stage: (nfft - 1, 2)
+    float64 rows (cos, sin), row h - 1 + k holding W_2h^k = exp(-2πi k /
+    2h) for k < h, h = 1, 2, 4, ..., nfft / 2 (the radix-2 stage that
+    combines values h apart).
+
+    Every row is a row of numpy's table of (cos, sin) of -2π j / nfft,
+    j < nfft / 2, at j = k · nfft / 2h, bitwise; the stage order lets the
+    kernel's neighbouring threads read neighbouring rows. The array is
+    cached and shared: copy before handing it to torch."""
+    ang = -2.0 * np.pi * np.arange(nfft // 2, dtype=np.float64) / nfft
+    base = np.stack([np.cos(ang), np.sin(ang)], axis=1)
+    spans = [1 << b for b in range(nfft.bit_length() - 1)]
+    j = np.concatenate([np.arange(h) * (nfft // (2 * h)) for h in spans])
+    return np.ascontiguousarray(base[j])
 
 
 # ---------------------------------------------------------------------------

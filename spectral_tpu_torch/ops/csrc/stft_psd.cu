@@ -1,10 +1,19 @@
-// Fused STFT / PSD kernel for NVIDIA Hopper (sm_90a), nperseg up to 8192.
+// Fused STFT / PSD kernels for NVIDIA Hopper (sm_90a), nperseg up to 8192.
 //
-// Replaces the TPU kernels of spectral_tpu/ops/stft_pallas.py::
+// Replace the TPU kernels of spectral_tpu/ops/stft_pallas.py::
 // stft_psd_pallas: the auto kernel `_compute` (K1, with the `with_stats` and
 // `log10_out` modes) and the manual-DMA kernel `kernel_manual` (K2, A left in
 // HBM and one A tile reloaded per frequency tile, nperseg 6145-8192). Both
-// compute the same function, so one kernel source serves both:
+// compute the same function, which this file computes by two routes:
+//
+// - stft_psd_kernel (stft_psd_launch), the GEMM route below: any nperseg,
+//   any detrend, the real DFT as a GEMM against (K, F) matrices;
+// - stft_fft_psd_kernel (stft_fft_psd_launch), the FFT route at the end of
+//   the file: power-of-two nperseg 32-8192 with detrend none or constant, a
+//   radix-2 FFT in shared memory, one frame per block.
+//
+// The wrapper (ops/stft_cuda.py::fft_route) picks the route by config. The
+// GEMM route computes:
 //
 //   row r = b*T + t         : frame t of clip b, all clips' frames flattened
 //   frame                   = x[b, t*hop : t*hop + K]        (read in place)
@@ -219,6 +228,158 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The FFT route: power-of-two nperseg K = 32-8192, detrend none or constant.
+//
+// One block per frame (row r = b*T + t, read in place by pointer):
+//
+//   1. mean = sum(frame) / K in float64 (a block reduction), under
+//      detrend == constant; else 0;
+//   2. buf[bitrev(i)] = ((double)frame[i] - mean) * win[i]: the detrend,
+//      then the window (scipy's order), stored in bit-reversed order as
+//      complex values with a zero imaginary part;
+//   3. a K-point radix-2 decimation-in-time FFT in place in shared memory:
+//      log2(K) stages, stage h (h = 1, 2, ..., K/2) combining buf[i0] and
+//      buf[i0 + h] with the twiddle W_2h^k = tw[h - 1 + k], k = i0 mod h;
+//   4. the epilogue of the GEMM route on bins f < F (the power, log10_out,
+//      NaN-propagating (min, max) partials, one per row), bins in natural
+//      order, so the stores of one frame coalesce.
+//
+// Everything between the float32 load and the float32 store is float64;
+// the window, twiddles and weights are the host's float64 numpy values,
+// unrounded (tw is numpy's cos and sin of -2 pi j / K, j < K/2, laid out
+// stage by stage: core/stft.py::fft_twiddles). The order of summation is
+// not the GEMM route's, so the two agree to about log2(K) float64
+// roundings of the clip's largest bin, not bitwise.
+// tools/torch_precision.py::psd_fft is this arithmetic in numpy.
+//
+// What bounds it on this card: 2.5 K log2 K operations per frame against
+// K*4 bytes read per frame (less with overlap) and F*4 written, so the
+// function is bound by bytes; this design is bound by shared memory
+// instead: each stage reads and writes the K-point buffer (32 K bytes a
+// stage, 16 bytes a complex float64). The buffer is K * 16 bytes, 128 KB
+// at K = 8192, past the 48 KB default, so the launcher raises the
+// kernel's dynamic shared memory limit first; at that size one block fits
+// an SM. What the design does about the shared-memory traffic:
+// neighbouring threads take neighbouring butterflies, so from stage 8 on
+// a warp reads and writes consecutive complex values; the buffer's index
+// is swizzled (swz below) so that the bit-reversed store of step 2, whose
+// eight neighbouring addresses would otherwise share one bank group, is
+// free of conflicts too; frame and window loads are in natural order and
+// coalesce; the stage-ordered twiddle table gives a warp consecutive rows.
+
+constexpr int FFT_MAX_THREADS = 512;
+constexpr int FFT_MAX_WARPS = FFT_MAX_THREADS / 32;
+
+// The shared-memory slot of buffer index p: its low three bits XORed with
+// its top three. A 16-byte value's bank group is its slot mod 8, so eight
+// indices that differ only in their top bits (bit-reversed neighbours)
+// land in eight groups, and eight consecutive ones stay a permutation of
+// one aligned group of eight.
+__device__ __forceinline__ int swz(int p, int log2k) {
+  return p ^ ((p >> (log2k - 3)) & 7);
+}
+
+// the sum of v over the block, returned to every thread; blockDim.x is a
+// multiple of 32 and scratch holds one double per warp
+__device__ __forceinline__ double block_sum(double v, double* scratch) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  double s = 0.0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += scratch[w];
+  return s;
+}
+
+__global__ void __launch_bounds__(FFT_MAX_THREADS)
+stft_fft_psd_kernel(const float* __restrict__ x,
+                    const double* __restrict__ win,
+                    const double2* __restrict__ tw,
+                    const double* __restrict__ wts, float* __restrict__ out,
+                    float* __restrict__ part_min, float* __restrict__ part_max,
+                    long long n, int T, int F, int log2k, int hop,
+                    int detrend, int log10_out, int with_stats) {
+  extern __shared__ double2 buf[];  // K complex values
+  __shared__ double red_sum[FFT_MAX_WARPS];
+  __shared__ float red_lo[FFT_MAX_WARPS];
+  __shared__ float red_hi[FFT_MAX_WARPS];
+
+  const int K = 1 << log2k;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int r = blockIdx.x;
+  const float* frame = x + (long long)(r / T) * n + (long long)(r % T) * hop;
+
+  double mean = 0.0;
+  if (detrend) {
+    double s = 0.0;
+    for (int i = tid; i < K; i += nt) s += static_cast<double>(frame[i]);
+    mean = block_sum(s, red_sum) / K;
+  }
+  for (int i = tid; i < K; i += nt) {
+    const int p = static_cast<int>(__brev(static_cast<unsigned>(i)) >>
+                                   (32 - log2k));
+    buf[swz(p, log2k)] = make_double2(
+        (static_cast<double>(frame[i]) - mean) * win[i], 0.0);
+  }
+  __syncthreads();
+
+  for (int h = 1; h < K; h <<= 1) {
+    for (int j = tid; j < (K >> 1); j += nt) {
+      const int k = j & (h - 1);
+      const int i0 = ((j - k) << 1) + k;
+      const int s0 = swz(i0, log2k);
+      const int s1 = swz(i0 + h, log2k);
+      const double2 w = tw[h - 1 + k];
+      const double2 a = buf[s0];
+      const double2 b = buf[s1];
+      const double tr = w.x * b.x - w.y * b.y;
+      const double ti = w.x * b.y + w.y * b.x;
+      buf[s0] = make_double2(a.x + tr, a.y + ti);
+      buf[s1] = make_double2(a.x - tr, a.y - ti);
+    }
+    __syncthreads();
+  }
+
+  float lo = INFINITY;
+  float hi = -INFINITY;
+  for (int f = tid; f < F; f += nt) {
+    const double2 v = buf[swz(f, log2k)];
+    const double pw = power(v.x, v.y, wts[f]);
+    const float p = static_cast<float>(pw);
+    lo = nan_min(lo, p);
+    hi = nan_max(hi, p);
+    out[(long long)r * F + f] =
+        log10_out ? static_cast<float>(log10(pw + 1e-20)) : p;
+  }
+  if (with_stats) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+      hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+    if ((tid & 31) == 0) {
+      red_lo[tid >> 5] = lo;
+      red_hi[tid >> 5] = hi;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < (nt >> 5); ++w) {
+        lo = nan_min(lo, red_lo[w]);
+        hi = nan_max(hi, red_hi[w]);
+      }
+      part_min[r] = lo;
+      part_max[r] = hi;
+    }
+  }
+}
+
+constexpr int FFT_MAX_DEVICES = 64;
+// the dynamic shared memory limit already set for the FFT kernel, per device
+size_t fft_smem_set[FFT_MAX_DEVICES] = {};
+
 }  // namespace
 
 extern "C" {
@@ -242,6 +403,47 @@ int stft_psd_launch(const float* x, const double* a_re, const double* a_im,
   stft_psd_kernel<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       x, a_re, a_im, wts, out, part_min, part_max, n, R, T, F, K, hop,
       log10_out, with_stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The FFT route, on `stream`; returns a cudaError_t (0 = success): that of
+// raising the kernel's shared memory limit, else that of the launch. x is
+// (B, n) contiguous f32; win is (K,) f64; tw is (K - 1, 2) f64, the
+// stage-ordered (cos, sin) rows of core/stft.py::fft_twiddles; wts is (F,)
+// f64 with F <= K; out is (B, T, F) f32;
+// part_min/part_max are (B * T,) f32 and may be null when with_stats is 0.
+// K is a power of two from 32 to 8192; detrend is 1 for constant, 0 for
+// none. The caller keeps B * T within the grid's limit.
+int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
+                        const double* wts, float* out, float* part_min,
+                        float* part_max, int B, long long n, int T, int F,
+                        int K, int hop, int detrend, int log10_out,
+                        int with_stats, void* stream) {
+  int log2k = 0;
+  while ((1 << log2k) < K) ++log2k;
+  if (K < 32 || K > 8192 || (1 << log2k) != K || F < 1 || F > K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(K) * sizeof(double2);
+  if (smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess &&
+        (dev >= FFT_MAX_DEVICES || fft_smem_set[dev] < smem)) {
+      err = cudaFuncSetAttribute(stft_fft_psd_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err == cudaSuccess && dev < FFT_MAX_DEVICES) fft_smem_set[dev] = smem;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // K/4 threads, 2 butterflies each a stage, 32 to FFT_MAX_THREADS
+  const int threads = K / 4 < 32 ? 32
+                      : (K / 4 > FFT_MAX_THREADS ? FFT_MAX_THREADS : K / 4);
+  const unsigned blocks = static_cast<unsigned>(B) * static_cast<unsigned>(T);
+  stft_fft_psd_kernel<<<blocks, threads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      x, win, reinterpret_cast<const double2*>(tw), wts, out, part_min,
+      part_max, n, T, F, log2k, hop, detrend, log10_out, with_stats);
   return static_cast<int>(cudaGetLastError());
 }
 

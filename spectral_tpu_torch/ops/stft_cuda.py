@@ -1,20 +1,34 @@
-"""Fused STFT/PSD: the CUDA kernel's wrapper and its plain version.
+"""Fused STFT/PSD: the CUDA kernels' wrapper and their plain version.
 
-Counterpart of ``spectral_tpu/ops/stft_pallas.py``. The kernel
-(``csrc/stft_psd.cu``) replaces ``stft_psd_pallas`` with its ``with_stats``
+Counterpart of ``spectral_tpu/ops/stft_pallas.py``. Two kernels in
+``csrc/stft_psd.cu`` replace ``stft_psd_pallas`` with its ``with_stats``
 and ``log10_out`` modes, across the GUI's whole nperseg range up to 8192
 (the TPU's auto kernel K1 and, above nperseg 6144, its manual-DMA kernel
-K2): framing, the window- and detrend-folded real DFT, |X|² times the
+K2): framing, the windowed and detrended real DFT, |X|² times the
 one-sided PSD weights, and the per-clip PSD extrema, with no frame tensor
-written to memory.
+written to memory. Both compute the same function, by two routes that
+:func:`fft_route` picks from the config alone:
 
-Precision. The kernel accumulates each output in one float64 FMA chain
-over the nperseg samples (DFMA), with A the host's float64 constants
-unrounded and the epilogue (re² + im²) · w in float64, rounded once to
-float32 at the store. A float32 chain does not hold the 1e-3 dB display
+- the FFT route (``stft_fft_psd_launch``): power-of-two nperseg from 32 to
+  8192 with detrend none or constant, which covers the driven paths
+  (1024 and 8192). One block per frame: the frame widened to float64 in
+  shared memory, its mean subtracted under constant detrend, the window
+  applied, a radix-2 FFT in place, then the PSD epilogue. Its host
+  constants are the window, the twiddles (numpy's cos and sin of
+  -2π j / nperseg, j < nperseg/2, laid out stage by stage) and the
+  weights (:func:`fft_constants`);
+- the GEMM route (``stft_psd_launch``): every other nperseg and linear
+  detrend (the GUI offers 32-8192 in steps of 32, GUI.py:87-90, so most of
+  its values). The real DFT as a register-blocked GEMM against (nperseg,
+  F) matrices with the window and detrend folded in
+  (:func:`dft_constants`).
+
+Precision. Both routes compute in float64 from the float32 load to the
+float32 store, with the host's float64 constants unrounded, and round
+once at the store. A float32 chain does not hold the 1e-3 dB display
 contract at any nperseg in the GUI's range: its error lands on the clip's
 deepest bin, and how deep that bin is depends on the clip. Display error
-against scipy in float64 (``bench.py``'s formula), the kernel's order
+against scipy in float64 (``bench.py``'s formula), the kernels' orders
 emulated in numpy on the CPU, on white-noise clips of 8·nperseg samples,
 seeds 0-99 (``python3 tools/torch_precision.py``):
 
@@ -26,13 +40,14 @@ seeds 0-99 (``python3 tools/torch_precision.py``):
     scipy_default 1024     noise + 3  2.92e-2     45 of 100
     scipy_default 8192     noise + 3  9.86e-3     seed 0 alone
 
-The float64 chain stays below 5e-7 dB on every one of those clips. So
-every config takes the float64 route; a faster route that holds the
-contract (the float64 tensor cores, ROADMAP) is later work.
+The float64 GEMM route stays below 5e-7 dB on every one of those clips,
+and so does the float64 FFT route (the sweep's last column).
 
-:func:`stft_psd` takes the kernel for a CUDA tensor and the plain version
-(:func:`stft_psd_reference`) for a CPU tensor, and only because the tensor
-lies on the CPU. On a CUDA tensor it launches the kernel or raises.
+:func:`stft_psd` takes a kernel for a CUDA tensor and the plain version
+(:func:`stft_psd_reference`, a float64 dense DFT, the plain version of
+both kernels) for a CPU tensor, and only because the tensor lies on the
+CPU. On a CUDA tensor it launches the route's kernel or raises; nothing
+falls back to the other route.
 """
 
 from __future__ import annotations
@@ -44,23 +59,26 @@ import numpy as np
 import torch
 
 from spectral_tpu_torch.config import SpecConfig
-from spectral_tpu_torch.core.stft import (dense_dft, dft_matrices,
-                                          ensure_real_waveform, frame_signal,
+from spectral_tpu_torch.core.stft import (_window_f64, dense_dft,
+                                          dft_matrices, ensure_real_waveform,
+                                          fft_twiddles, frame_signal,
                                           num_frames, onesided_weights)
 from spectral_tpu_torch.ops import build
 
 KERNEL = "stft_psd"
 MAX_NPERSEG = 8192           # the GUI's ceiling (GUI.py:87-90)
+MIN_FFT_NPERSEG = 32         # the GUI's floor, the FFT kernel's smallest
 # |X|² past float32's range makes the bin inf, as the JAX package's float32
 # pipeline overflows there: the clip's extrema turn inf and its finite flag
 # (the overflow guard) trips, though float64 could carry the value
 F32_MAX = float(np.finfo(np.float32).max)
-# B * T: the kernel indexes rows with int32; with nperseg <= 8192 (at most
-# 65 frequency tiles) the grid's block count then stays below 2**31 too
+# B * T: the kernels index rows with int32; with nperseg <= 8192 (at most
+# 65 frequency tiles) the GEMM route's block count then stays below 2**31
+# too, and the FFT route launches one block per row
 MAX_ROWS = 2 ** 31 - 256
 
-# kernel launches, for run-time proof of the path
-launches = {"f64": 0}
+# kernel launches per route, for run-time proof of the path
+launches = {"gemm": 0, "fft": 0}
 
 
 class DftConstants(NamedTuple):
@@ -101,6 +119,17 @@ def check_supported(cfg: SpecConfig) -> None:
         raise NotImplementedError(reason)
 
 
+def fft_route(cfg: SpecConfig) -> bool:
+    """Whether the FFT kernel computes cfg: a supported config
+    (:func:`kernel_supported`) with a power-of-two nperseg from 32 to 8192
+    and detrend none or constant. Every other supported config takes the
+    GEMM kernel. A pure function of the config."""
+    k = cfg.nperseg
+    return (kernel_supported(cfg) and k & (k - 1) == 0
+            and MIN_FFT_NPERSEG <= k <= MAX_NPERSEG
+            and cfg.detrend in ("none", "constant"))
+
+
 def constants_from_numpy(a_re: np.ndarray, a_im: np.ndarray,
                          wts: np.ndarray, device,
                          dtype: torch.dtype) -> DftConstants:
@@ -124,6 +153,31 @@ def dft_constants(cfg: SpecConfig, fs: float, device) -> DftConstants:
         a_re, a_im = dft_matrices(cfg)
         consts = constants_from_numpy(a_re, a_im, onesided_weights(cfg, fs),
                                       device, torch.float64)
+        _CONSTANTS[key] = consts
+    return consts
+
+
+class FftConstants(NamedTuple):
+    """The FFT kernel's operands, float64: the window (K,), the stage
+    twiddle table (K - 1, 2) of (cos, sin) (``core.stft.fft_twiddles``),
+    and the weights (F,)."""
+    window: torch.Tensor
+    twiddles: torch.Tensor
+    wts: torch.Tensor
+
+
+def fft_constants(cfg: SpecConfig, fs: float, device) -> FftConstants:
+    """The FFT route's operands for (cfg, fs), the host's float64 numpy
+    values unrounded, cached per device. No (K, F) matrix is built."""
+    key = ("fft", cfg, float(fs), str(torch.device(device)))
+    consts = _CONSTANTS.get(key)
+    if consts is None:
+        def put(a):
+            return torch.tensor(np.asarray(a), dtype=torch.float64,
+                                device=device)
+        consts = FftConstants(put(_window_f64(cfg)),
+                              put(fft_twiddles(cfg.nperseg)),
+                              put(onesided_weights(cfg, fs)))
         _CONSTANTS[key] = consts
     return consts
 
@@ -172,6 +226,9 @@ def _library() -> ctypes.CDLL:
         lib.stft_psd_launch.argtypes = [ptr] * 7 + [
             i32, ctypes.c_longlong, i32, i32, i32, i32, i32, i32, ptr]
         lib.stft_psd_launch.restype = i32
+        lib.stft_fft_psd_launch.argtypes = [ptr] * 7 + [
+            i32, ctypes.c_longlong, i32, i32, i32, i32, i32, i32, i32, ptr]
+        lib.stft_fft_psd_launch.restype = i32
         lib.stft_psd_freq_tiles.argtypes = [i32]
         lib.stft_psd_freq_tiles.restype = i32
         lib.stft_psd_error_string.argtypes = [i32]
@@ -180,8 +237,10 @@ def _library() -> ctypes.CDLL:
 
 
 def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
-                   log10_out: bool, with_stats: bool):
+                   log10_out: bool, with_stats: bool,
+                   route: Optional[str] = None):
     lib = _library()
+    route = route or ("fft" if fft_route(cfg) else "gemm")
     if x.dtype != torch.float32:
         raise TypeError(f"the STFT kernel computes in float32, got {x.dtype}; "
                         "cast the waveform explicitly")
@@ -197,23 +256,32 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
     if B * T > MAX_ROWS:
         raise ValueError(f"at most {MAX_ROWS} frames per launch, got "
                          f"{B} clips x {T} frames")
-    n_tiles = lib.stft_psd_freq_tiles(F)
-    consts = dft_constants(cfg, fs, x.device)
+    n_tiles = 1 if route == "fft" else lib.stft_psd_freq_tiles(F)
     out = torch.empty((B, T, F), dtype=torch.float32, device=x.device)
     parts = (torch.empty((2, n_tiles, B * T), dtype=torch.float32,
                          device=x.device) if with_stats else None)
+    stats = ((parts[0].data_ptr(), parts[1].data_ptr()) if with_stats
+             else (None, None))
     with torch.cuda.device(x.device):
-        err = lib.stft_psd_launch(
-            x.data_ptr(), consts.a_re.data_ptr(), consts.a_im.data_ptr(),
-            consts.wts.data_ptr(), out.data_ptr(),
-            parts[0].data_ptr() if with_stats else None,
-            parts[1].data_ptr() if with_stats else None,
-            B, n, T, F, cfg.nperseg, cfg.hop_, int(log10_out),
-            int(with_stats), torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route == "fft":
+            fc = fft_constants(cfg, fs, x.device)
+            err = lib.stft_fft_psd_launch(
+                x.data_ptr(), fc.window.data_ptr(), fc.twiddles.data_ptr(),
+                fc.wts.data_ptr(), out.data_ptr(), *stats, B, n, T, F,
+                cfg.nperseg, cfg.hop_, int(cfg.detrend == "constant"),
+                int(log10_out), int(with_stats), stream)
+        else:
+            dc = dft_constants(cfg, fs, x.device)
+            err = lib.stft_psd_launch(
+                x.data_ptr(), dc.a_re.data_ptr(), dc.a_im.data_ptr(),
+                dc.wts.data_ptr(), out.data_ptr(), *stats, B, n, T, F,
+                cfg.nperseg, cfg.hop_, int(log10_out), int(with_stats),
+                stream)
     if err != 0:
-        raise RuntimeError("stft_psd kernel launch failed: "
+        raise RuntimeError(f"stft_psd {route} kernel launch failed: "
                            + lib.stft_psd_error_string(err).decode())
-    launches["f64"] += 1
+    launches[route] += 1
     if with_stats:
         per_clip = parts.view(2, n_tiles, B, T)
         return (out, torch.amin(per_clip[0], dim=(0, 2)),
@@ -222,21 +290,27 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
 
 
 def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
-             with_stats: bool = False):
+             with_stats: bool = False, _route: Optional[str] = None):
     """Fused PSD spectrogram: (n,) or (B, n) -> (B?, T, F) float32.
 
     with_stats=True also returns each clip's PSD min and max, (B?,) each,
     NaN-propagating, for ``core.scale.normalize_from_stats``; it cannot be
     combined with log10_out. A config outside :func:`kernel_supported`
-    raises NotImplementedError on every device."""
+    raises NotImplementedError on every device. On a CUDA tensor the
+    kernel is the one :func:`fft_route` picks; ``_route`` ("gemm" or
+    "fft") forces one, for timing the two kernels against each other."""
     if with_stats and log10_out:
         raise ValueError("with_stats computes linear-PSD extrema; "
                          "combine with log10_out is unsupported")
     check_supported(cfg)
+    route = _route or ("fft" if fft_route(cfg) else "gemm")
+    if route not in launches or (route == "fft" and not fft_route(cfg)):
+        raise ValueError(f"no {route!r} route for nperseg {cfg.nperseg}, "
+                         f"detrend {cfg.detrend!r}")
     x = ensure_real_waveform(x)
     if x.ndim == 1:
         out = stft_psd(x[None], fs, cfg, log10_out=log10_out,
-                       with_stats=with_stats)
+                       with_stats=with_stats, _route=_route)
         return tuple(o[0] for o in out) if with_stats else out[0]
     if x.ndim != 2:
         raise ValueError(f"expected a (n,) or (B, n) waveform, got {x.ndim}-D")
@@ -244,4 +318,4 @@ def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
         return stft_psd_reference(x, dft_constants(cfg, fs, x.device),
                                   cfg, log10_out=log10_out,
                                   with_stats=with_stats)
-    return _stft_psd_cuda(x, fs, cfg, log10_out, with_stats)
+    return _stft_psd_cuda(x, fs, cfg, log10_out, with_stats, route)

@@ -19,7 +19,10 @@ the nperseg samples of a frame:
 
 The second table repeats the float32 chain and the float64 route over
 seeds 0 to N-1 (default 100): whether a float32 chain breaks the 1e-3 dB
-contract depends on the clip, through the depth of its deepest bin.
+contract depends on the clip, through the depth of its deepest bin. Its
+last column is the FFT route (``psd_fft``): the FFT kernel's exact
+butterfly order and twiddle table, in float64, at every config of the
+sweep (all take that route).
 
 Each PSD is rounded to float32, as the kernel stores it. The display error
 is ``bench.py``'s formula, max |Δimage| times the image's dB range, with
@@ -42,11 +45,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from spectral_tpu_torch.config import SpecConfig  # noqa: E402
-from spectral_tpu_torch.core.stft import (dft_matrices,  # noqa: E402
+from spectral_tpu_torch.core.stft import (_window_f64,  # noqa: E402
+                                          dft_matrices, fft_twiddles,
                                           onesided_weights)
 
 FS = 16000.0
 CONTRACT_DB = 1e-3
+F32_MAX = float(np.finfo(np.float32).max)
 
 
 def log_display(p: np.ndarray):
@@ -126,6 +131,67 @@ def psd_f64(frames: np.ndarray, a_re: np.ndarray, a_im: np.ndarray,
     return ((re * re + im * im) * wts).astype(np.float32)
 
 
+def bit_reverse(k: int) -> np.ndarray:
+    """bitrev(p) for p < k, k a power of two: the FFT kernel's load order
+    (``__brev(p) >> (32 - log2 k)``)."""
+    bits = k.bit_length() - 1
+    p = np.arange(k)
+    r = np.zeros_like(p)
+    for b in range(bits):
+        r |= ((p >> b) & 1) << (bits - 1 - b)
+    return r
+
+
+def psd_fft(frames: np.ndarray, window: np.ndarray, twiddles: np.ndarray,
+            wts: np.ndarray, detrend: str = "none",
+            round_f32: bool = True) -> np.ndarray:
+    """(T, F) PSD by the FFT kernel's arithmetic
+    (``csrc/stft_psd.cu::stft_fft_psd_kernel``), in float64: the frame's
+    mean subtracted under constant detrend, then the window, stored in
+    bit-reversed order; a radix-2 decimation-in-time FFT whose stage h
+    combines buf[i0] and buf[i0 + h] (i0 = 2h·(j div h) + j mod h) with
+    the twiddle table's row h - 1 + (j mod h), W_2h^(j mod h); then
+    (re² + im²)·w, inf past float32's range, rounded once to float32
+    unless round_f32 is False. (The kernel's swizzle of shared-memory
+    addresses moves values, not arithmetic, and has no counterpart here.)
+
+    window, twiddles and wts are the kernel's host operands
+    (``ops/stft_cuda.py::fft_constants``). What differs from the card:
+    the mean is one numpy sum, not the kernel's block reduction, and numpy
+    rounds the butterfly's products where the card may fuse them (FMA)."""
+    f = frames.astype(np.float64)
+    K = f.shape[-1]
+    F = wts.shape[0]
+    mean = (f.sum(axis=-1, keepdims=True) / K if detrend == "constant"
+            else 0.0)
+    i = bit_reverse(K)
+    re = (f[:, i] - mean) * window[i]
+    im = np.zeros_like(re)
+    j = np.arange(K // 2)
+    h = 1
+    while h < K:
+        k = j & (h - 1)
+        i0 = ((j - k) << 1) + k
+        i1 = i0 + h
+        wr, wi = twiddles[h - 1 + k, 0], twiddles[h - 1 + k, 1]
+        ar, ai, br, bi = re[:, i0], im[:, i0], re[:, i1], im[:, i1]
+        tr = wr * br - wi * bi
+        ti = wr * bi + wi * br
+        re[:, i0], im[:, i0] = ar + tr, ai + ti
+        re[:, i1], im[:, i1] = ar - tr, ai - ti
+        h *= 2
+    s = re[:, :F] * re[:, :F] + im[:, :F] * im[:, :F]
+    p = np.where(s > F32_MAX, np.inf, s * wts)
+    return p.astype(np.float32) if round_f32 else p
+
+
+def fft_operands(cfg: SpecConfig, fs: float = FS):
+    """The FFT kernel's host operands as numpy float64: window, twiddle
+    table, weights."""
+    return (_window_f64(cfg), fft_twiddles(cfg.nperseg),
+            onesided_weights(cfg, fs))
+
+
 def clip(cfg: SpecConfig, seed: int, offset: float) -> np.ndarray:
     """White noise of 8·nperseg float32 samples, plus offset."""
     rs = np.random.RandomState(seed)
@@ -174,12 +240,13 @@ def one_clip_table() -> None:
 def sweep_table(seeds: int) -> None:
     print(f"\nconfig                 clip       fp32 chain: worst  seed  "
           f"above {CONTRACT_DB:g} dB  worst of seeds 0-19 | f64, A f64: "
-          f"worst  (seeds 0-{seeds - 1})")
+          f"worst | fft route: worst  (seeds 0-{seeds - 1})")
     for name, cfg in SWEEP:
         a_re, a_im = dft_matrices(cfg)
         wts = onesided_weights(cfg, FS)
+        ops = fft_operands(cfg)
         for offset in (0.0, 3.0):
-            fp32, f64 = [], []
+            fp32, f64, fft = [], [], []
             for s in range(seeds):
                 x = clip(cfg, s, offset)
                 x64 = x.astype(np.float64)
@@ -188,12 +255,15 @@ def sweep_table(seeds: int) -> None:
                     psd_fp32_chain(frames, a_re, a_im, wts).T, x64, cfg))
                 f64.append(display_error_db(
                     psd_f64(frames, a_re, a_im, wts).T, x64, cfg))
+                fft.append(display_error_db(
+                    psd_fft(frames, *ops, detrend=cfg.detrend).T, x64, cfg))
             fp32 = np.asarray(fp32)
             kind = "noise + 3" if offset else "noise"
             print(f"{name:22s} {kind:10s} {fp32.max():.2e}           "
                   f"{int(fp32.argmax()):4d}  {int((fp32 > CONTRACT_DB).sum()):3d}"
                   f" of {seeds:<4d}     {fp32[:20].max():.2e}"
-                  f"            | {max(f64):.2e}", flush=True)
+                  f"            | {max(f64):.2e}           | {max(fft):.2e}",
+                  flush=True)
 
 
 def main(argv=None) -> None:
