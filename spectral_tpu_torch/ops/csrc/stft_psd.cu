@@ -10,7 +10,7 @@
 //   any detrend, the real DFT as a GEMM against (K, F) matrices;
 // - stft_fft_psd_kernel (stft_fft_psd_launch), the FFT route at the end of
 //   the file: power-of-two nperseg 32-8192 with detrend none or constant, a
-//   radix-2 FFT in shared memory, one frame per block.
+//   radix-2 FFT of nperseg/2 points in shared memory, one frame per block.
 //
 // The wrapper (ops/stft_cuda.py::fft_route) picks the route by config. The
 // GEMM route computes:
@@ -231,53 +231,62 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
 // ---------------------------------------------------------------------------
 // The FFT route: power-of-two nperseg K = 32-8192, detrend none or constant.
 //
-// One block per frame (row r = b*T + t, read in place by pointer):
+// One block per frame (row r = b*T + t, read in place by pointer), the
+// real frame packed into M = K/2 complex values:
 //
 //   1. mean = sum(frame) / K in float64 (a block reduction), under
 //      detrend == constant; else 0;
-//   2. buf[bitrev(i)] = ((double)frame[i] - mean) * win[i]: the detrend,
-//      then the window (scipy's order), stored in bit-reversed order as
-//      complex values with a zero imaginary part;
-//   3. a K-point radix-2 decimation-in-time FFT in place in shared memory:
-//      log2(K) stages, stage h (h = 1, 2, ..., K/2) combining buf[i0] and
-//      buf[i0 + h] with the twiddle W_2h^k = tw[h - 1 + k], k = i0 mod h;
-//   4. the epilogue of the GEMM route on bins f < F (the power, log10_out,
-//      NaN-propagating (min, max) partials, one per row), bins in natural
-//      order, so the stores of one frame coalesce.
+//   2. v[i] = ((double)frame[i] - mean) * win[i], the detrend, then the
+//      window (scipy's order); z[m] = v[2m] + i v[2m + 1], stored at
+//      bitrev(m);
+//   3. an M-point radix-2 decimation-in-time FFT in place in shared
+//      memory: log2(M) stages, stage h (h = 1, 2, ..., M/2) combining
+//      z[i0] and z[i0 + h] with the twiddle W_2h^k = tw[h - 1 + k],
+//      k = i0 mod h;
+//   4. the split step and the epilogue of the GEMM route on bins f < F:
+//      with g = min(f, K - f), E = (Z[g] + conj Z[M - g]) / 2 and
+//      O = -i (Z[g] - conj Z[M - g]) / 2 (indices mod M), X[f] = E +
+//      W_K^g O (W_K^g = tw[M - 1 + g], -1 at g = M); then the power,
+//      log10_out and the NaN-propagating (min, max) partials, one per row;
+//      bins in natural order, so the stores of one frame coalesce.
 //
 // Everything between the float32 load and the float32 store is float64;
 // the window, twiddles and weights are the host's float64 numpy values,
 // unrounded (tw is numpy's cos and sin of -2 pi j / K, j < K/2, laid out
-// stage by stage: core/stft.py::fft_twiddles). The order of summation is
-// not the GEMM route's, so the two agree to about log2(K) float64
-// roundings of the clip's largest bin, not bitwise.
+// stage by stage: core/stft.py::fft_twiddles; its first M - 1 rows are
+// the M-point transform's, its last M the split step's). The order of
+// summation is not the GEMM route's, so the two agree to about log2(K)
+// float64 roundings of the clip's largest bin, not bitwise.
 // tools/torch_precision.py::psd_fft is this arithmetic in numpy.
 //
 // What bounds it on this card: 2.5 K log2 K operations per frame against
 // K*4 bytes read per frame (less with overlap) and F*4 written, so the
 // function is bound by bytes; this design is bound by shared memory
-// instead: each stage reads and writes the K-point buffer (32 K bytes a
-// stage, 16 bytes a complex float64). The buffer is K * 16 bytes, 128 KB
-// at K = 8192, past the 48 KB default, so the launcher raises the
-// kernel's dynamic shared memory limit first; at that size one block fits
-// an SM. What the design does about the shared-memory traffic:
-// neighbouring threads take neighbouring butterflies, so from stage 8 on
-// a warp reads and writes consecutive complex values; the buffer's index
-// is swizzled (swz below) so that the bit-reversed store of step 2, whose
-// eight neighbouring addresses would otherwise share one bank group, is
-// free of conflicts too; frame and window loads are in natural order and
-// coalesce; the stage-ordered twiddle table gives a warp consecutive rows.
+// instead: each stage reads and writes the M-point buffer (16 K bytes a
+// stage, 16 bytes a complex float64). Packing two real samples into each
+// complex value halves the buffer, the butterflies and the traffic of a
+// complex K-point transform with a zero imaginary part. The buffer is
+// K * 8 bytes, 64 KB at K = 8192, past the 48 KB default, so the
+// launcher raises the kernel's dynamic shared memory limit first; three
+// such blocks fit an SM. What the design does about the shared-memory
+// traffic: neighbouring threads take neighbouring butterflies, so from
+// stage 8 on a warp reads and writes consecutive complex values; the
+// buffer's index is swizzled (swz below) so that the bit-reversed store
+// of step 2, whose eight neighbouring addresses would otherwise share one
+// bank group, is free of conflicts too; frame and window loads are in
+// natural order and coalesce; the stage-ordered twiddle table gives a warp
+// consecutive rows.
 
 constexpr int FFT_MAX_THREADS = 512;
 constexpr int FFT_MAX_WARPS = FFT_MAX_THREADS / 32;
 
-// The shared-memory slot of buffer index p: its low three bits XORed with
-// its top three. A 16-byte value's bank group is its slot mod 8, so eight
-// indices that differ only in their top bits (bit-reversed neighbours)
-// land in eight groups, and eight consecutive ones stay a permutation of
-// one aligned group of eight.
-__device__ __forceinline__ int swz(int p, int log2k) {
-  return p ^ ((p >> (log2k - 3)) & 7);
+// The shared-memory slot of buffer index p < 2^log2m: its low three bits
+// XORed with its top three (a bijection for log2m >= 4). A 16-byte value's
+// bank group is its slot mod 8, so eight indices that differ only in
+// their top bits (bit-reversed neighbours) land in eight groups, and
+// eight consecutive ones stay a permutation of one aligned group of eight.
+__device__ __forceinline__ int swz(int p, int log2m) {
+  return p ^ ((p >> (log2m - 3)) & 7);
 }
 
 // the sum of v over the block, returned to every thread; blockDim.x is a
@@ -301,12 +310,14 @@ stft_fft_psd_kernel(const float* __restrict__ x,
                     float* __restrict__ part_min, float* __restrict__ part_max,
                     long long n, int T, int F, int log2k, int hop,
                     int detrend, int log10_out, int with_stats) {
-  extern __shared__ double2 buf[];  // K complex values
+  extern __shared__ double2 buf[];  // K/2 complex values
   __shared__ double red_sum[FFT_MAX_WARPS];
   __shared__ float red_lo[FFT_MAX_WARPS];
   __shared__ float red_hi[FFT_MAX_WARPS];
 
   const int K = 1 << log2k;
+  const int log2m = log2k - 1;
+  const int M = K >> 1;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int r = blockIdx.x;
@@ -318,20 +329,22 @@ stft_fft_psd_kernel(const float* __restrict__ x,
     for (int i = tid; i < K; i += nt) s += static_cast<double>(frame[i]);
     mean = block_sum(s, red_sum) / K;
   }
+  // even samples in .x, odd in .y of slot bitrev(i / 2)
+  double* bufd = reinterpret_cast<double*>(buf);
   for (int i = tid; i < K; i += nt) {
-    const int p = static_cast<int>(__brev(static_cast<unsigned>(i)) >>
-                                   (32 - log2k));
-    buf[swz(p, log2k)] = make_double2(
-        (static_cast<double>(frame[i]) - mean) * win[i], 0.0);
+    const int p = static_cast<int>(__brev(static_cast<unsigned>(i >> 1)) >>
+                                   (32 - log2m));
+    bufd[2 * swz(p, log2m) + (i & 1)] =
+        (static_cast<double>(frame[i]) - mean) * win[i];
   }
   __syncthreads();
 
-  for (int h = 1; h < K; h <<= 1) {
-    for (int j = tid; j < (K >> 1); j += nt) {
+  for (int h = 1; h < M; h <<= 1) {
+    for (int j = tid; j < (M >> 1); j += nt) {
       const int k = j & (h - 1);
       const int i0 = ((j - k) << 1) + k;
-      const int s0 = swz(i0, log2k);
-      const int s1 = swz(i0 + h, log2k);
+      const int s0 = swz(i0, log2m);
+      const int s1 = swz(i0 + h, log2m);
       const double2 w = tw[h - 1 + k];
       const double2 a = buf[s0];
       const double2 b = buf[s1];
@@ -346,8 +359,17 @@ stft_fft_psd_kernel(const float* __restrict__ x,
   float lo = INFINITY;
   float hi = -INFINITY;
   for (int f = tid; f < F; f += nt) {
-    const double2 v = buf[swz(f, log2k)];
-    const double pw = power(v.x, v.y, wts[f]);
+    const int g = f <= M ? f : K - f;
+    const double2 a = buf[swz(g & (M - 1), log2m)];
+    const double2 b = buf[swz((M - g) & (M - 1), log2m)];
+    const double2 w = g < M ? tw[M - 1 + g] : make_double2(-1.0, 0.0);
+    const double er = 0.5 * (a.x + b.x);
+    const double ei = 0.5 * (a.y - b.y);
+    const double o_r = 0.5 * (a.y + b.y);
+    const double o_i = 0.5 * (b.x - a.x);
+    const double xr = er + (w.x * o_r - w.y * o_i);
+    const double xi = ei + (w.x * o_i + w.y * o_r);
+    const double pw = power(xr, xi, wts[f]);
     const float p = static_cast<float>(pw);
     lo = nan_min(lo, p);
     hi = nan_max(hi, p);
@@ -423,7 +445,7 @@ int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
   while ((1 << log2k) < K) ++log2k;
   if (K < 32 || K > 8192 || (1 << log2k) != K || F < 1 || F > K)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(K) * sizeof(double2);
+  const size_t smem = static_cast<size_t>(K / 2) * sizeof(double2);
   if (smem > 48 * 1024) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -436,7 +458,8 @@ int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  // K/4 threads, 2 butterflies each a stage, 32 to FFT_MAX_THREADS
+  // K/4 threads, 32 to FFT_MAX_THREADS: one butterfly each a stage up to
+  // K = 2048
   const int threads = K / 4 < 32 ? 32
                       : (K / 4 > FFT_MAX_THREADS ? FFT_MAX_THREADS : K / 4);
   const unsigned blocks = static_cast<unsigned>(B) * static_cast<unsigned>(T);

@@ -11,9 +11,11 @@ written to memory. Both compute the same function, by two routes that
 
 - the FFT route (``stft_fft_psd_launch``): power-of-two nperseg from 32 to
   8192 with detrend none or constant, which covers the driven paths
-  (1024 and 8192). One block per frame: the frame widened to float64 in
-  shared memory, its mean subtracted under constant detrend, the window
-  applied, a radix-2 FFT in place, then the PSD epilogue. Its host
+  (1024 and 8192). One block per frame: the frame widened to float64,
+  its mean subtracted under constant detrend, the window applied, two
+  real samples packed into each complex value in shared memory, a
+  radix-2 FFT of nperseg/2 points in place, then the split step into the
+  nperseg/2 + 1 bins and the PSD epilogue. Its host
   constants are the window, the twiddles (numpy's cos and sin of
   -2π j / nperseg, j < nperseg/2, laid out stage by stage) and the
   weights (:func:`fft_constants`);
@@ -303,9 +305,9 @@ def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
         raise ValueError("with_stats computes linear-PSD extrema; "
                          "combine with log10_out is unsupported")
     check_supported(cfg)
-    route = _route or ("fft" if fft_route(cfg) else "gemm")
-    if route not in launches or (route == "fft" and not fft_route(cfg)):
-        raise ValueError(f"no {route!r} route for nperseg {cfg.nperseg}, "
+    if _route is not None and (_route not in launches or (
+            _route == "fft" and not fft_route(cfg))):
+        raise ValueError(f"no {_route!r} route for nperseg {cfg.nperseg}, "
                          f"detrend {cfg.detrend!r}")
     x = ensure_real_waveform(x)
     if x.ndim == 1:
@@ -318,4 +320,4 @@ def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
         return stft_psd_reference(x, dft_constants(cfg, fs, x.device),
                                   cfg, log10_out=log10_out,
                                   with_stats=with_stats)
-    return _stft_psd_cuda(x, fs, cfg, log10_out, with_stats, route)
+    return _stft_psd_cuda(x, fs, cfg, log10_out, with_stats, _route)

@@ -146,30 +146,37 @@ def psd_fft(frames: np.ndarray, window: np.ndarray, twiddles: np.ndarray,
             wts: np.ndarray, detrend: str = "none",
             round_f32: bool = True) -> np.ndarray:
     """(T, F) PSD by the FFT kernel's arithmetic
-    (``csrc/stft_psd.cu::stft_fft_psd_kernel``), in float64: the frame's
-    mean subtracted under constant detrend, then the window, stored in
-    bit-reversed order; a radix-2 decimation-in-time FFT whose stage h
-    combines buf[i0] and buf[i0 + h] (i0 = 2h·(j div h) + j mod h) with
-    the twiddle table's row h - 1 + (j mod h), W_2h^(j mod h); then
-    (re² + im²)·w, inf past float32's range, rounded once to float32
-    unless round_f32 is False. (The kernel's swizzle of shared-memory
-    addresses moves values, not arithmetic, and has no counterpart here.)
+    (``csrc/stft_psd.cu::stft_fft_psd_kernel``), in float64, K = nperseg,
+    M = K/2:
+
+    - v = (frame - mean) · window (the mean under constant detrend only);
+    - z[m] = v[2m] + i v[2m + 1], stored in bit-reversed order;
+    - an M-point radix-2 decimation-in-time FFT whose stage h combines
+      z[i0] and z[i0 + h] (i0 = 2h·(j div h) + j mod h) with the twiddle
+      table's row h - 1 + (j mod h), W_2h^(j mod h);
+    - the split step: for bin f (g = min(f, K - f)), E = (Z[g] + conj
+      Z[M - g]) / 2, O = -i (Z[g] - conj Z[M - g]) / 2 (indices mod M),
+      X = E + W_K^g O with W_K^g the table's row M - 1 + g (-1 at g = M);
+    - (re² + im²)·w, inf past float32's range, rounded once to float32
+      unless round_f32 is False.
 
     window, twiddles and wts are the kernel's host operands
     (``ops/stft_cuda.py::fft_constants``). What differs from the card:
-    the mean is one numpy sum, not the kernel's block reduction, and numpy
-    rounds the butterfly's products where the card may fuse them (FMA)."""
+    the mean is one numpy sum, not the kernel's block reduction; numpy
+    rounds the products where the card may fuse them (FMA); the kernel's
+    swizzle of shared-memory addresses moves values, not arithmetic."""
     f = frames.astype(np.float64)
     K = f.shape[-1]
+    M = K // 2
     F = wts.shape[0]
     mean = (f.sum(axis=-1, keepdims=True) / K if detrend == "constant"
             else 0.0)
-    i = bit_reverse(K)
-    re = (f[:, i] - mean) * window[i]
-    im = np.zeros_like(re)
-    j = np.arange(K // 2)
+    v = (f - mean) * window
+    i = bit_reverse(M)
+    re, im = v[:, 0::2][:, i], v[:, 1::2][:, i]
+    j = np.arange(M // 2)
     h = 1
-    while h < K:
+    while h < M:
         k = j & (h - 1)
         i0 = ((j - k) << 1) + k
         i1 = i0 + h
@@ -180,7 +187,18 @@ def psd_fft(frames: np.ndarray, window: np.ndarray, twiddles: np.ndarray,
         re[:, i0], im[:, i0] = ar + tr, ai + ti
         re[:, i1], im[:, i1] = ar - tr, ai - ti
         h *= 2
-    s = re[:, :F] * re[:, :F] + im[:, :F] * im[:, :F]
+    fb = np.arange(F)
+    g = np.minimum(fb, K - fb)
+    a, b = g % M, (M - g) % M
+    ar, ai, br, bi = re[:, a], im[:, a], re[:, b], im[:, b]
+    er, ei = 0.5 * (ar + br), 0.5 * (ai - bi)
+    o_r, o_i = 0.5 * (ai + bi), 0.5 * (br - ar)
+    last = np.minimum(g, M - 1)
+    wr = np.where(g < M, twiddles[M - 1 + last, 0], -1.0)
+    wi = np.where(g < M, twiddles[M - 1 + last, 1], 0.0)
+    xr = er + (wr * o_r - wi * o_i)
+    xi = ei + (wr * o_i + wi * o_r)
+    s = xr * xr + xi * xi
     p = np.where(s > F32_MAX, np.inf, s * wts)
     return p.astype(np.float32) if round_f32 else p
 
