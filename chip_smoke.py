@@ -6,11 +6,12 @@
 Needs one CUDA card, nvcc and triton; run it from the root of a checkout.
 It builds every kernel of the port's paths from the sources in the
 checkout and holds each kernel against its plain PyTorch version on the
-card: the STFT/PSD kernel's two routes (the FFT kernel at power-of-two
-nperseg 32-8192, the GEMM kernel at every other nperseg, from 100 to
-8160) and the display kernel in both output modes, with and without the
-float image. Then it drives four paths at full size, each with the launch
-counts set to 0 just before it and read just after:
+card: the STFT/PSD kernel's three routes (the FFT kernel at power-of-two
+nperseg 32-8192; the mixed-radix kernel at the other GUI values, every
+radix from 3 to 251, nperseg 96-8160; the GEMM kernel forced or under
+linear detrend) and the display kernel in both output modes, with and
+without the float image. Then it drives six paths at full size, each with
+the launch counts set to 0 just before it and read just after:
 
 1. the display spine: 1024 clips of 10 s at 16 kHz through
    ``batched_spectrogram_fn`` at north_star 1024/256 log (RGBA words), on
@@ -22,15 +23,20 @@ counts set to 0 just before it and read just after:
    (north_star 1024/256 log, 10 s clips, batch 64, palette PNGs) over 1024
    synthetic clips, a batch of int16 WAVs and a NaN clip, on the FFT
    route;
-4. the GEMM route at the GUI's largest value that is not a power of two:
-   path 2's batch at scipy_default 8160.
+4. the mixed-radix route at the GUI's largest value that is not a power
+   of two: path 2's batch at scipy_default 8160 (M = 2^4 3 5 17);
+5. the mixed-radix route's slowest GUI value, its largest prime: path 2's
+   batch at scipy_default 8032 (M = 2^4 251);
+6. the GEMM route on a config it still computes: path 2's batch at
+   scipy_default 8160 with linear detrend.
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
 with CUDA events: the library yardstick of the STFT kernels is cuFFT's
 float64 real transform of the same frames (``library_psd``), which the
-port never calls. The GEMM kernel is also timed on paths 1 and 2, forced
-through ``stft_psd``'s module-private ``_route``, beside the FFT kernel.
+port never calls. The GEMM kernel is also timed on paths 1, 2, 4 and 5,
+forced through ``stft_psd``'s module-private ``_route``, beside the FFT
+kernels.
 
 ``main(_phases={...})`` runs the named phases only (a short first call
 after a kernel changes: ``python3 -c "import chip_smoke;
@@ -61,7 +67,8 @@ CLIP_SECONDS = 10.0
 BATCH = 1024
 K2_CLIPS = 256
 K2_SECONDS = 60.0
-GEMM_NPERSEG = 8160     # the GUI's largest nperseg that is not a power of 2
+MIXED_NPERSEG = 8160    # the GUI's largest nperseg that is not a power of 2
+PRIME_NPERSEG = 8032    # 32 * 251: the GUI's largest odd prime factor
 EXPORT_CLIPS = 1024
 EXPORT_BATCH = 64
 REPS = 5
@@ -118,13 +125,17 @@ def library_psd(x, cfg):
     """The STFT kernels' library yardstick, never called by the port: the
     same PSD through cuFFT's float64 real transform (the transform
     ``torch.stft`` runs) of the same frames, framed with ``unfold`` so the
-    constant detrend fits, then |X|² times the weights, rounded to
-    float32."""
+    detrend fits (the frame's mean, or its least-squares line), then |X|²
+    times the weights, rounded to float32."""
     import torch
     from spectral_tpu_torch.core.stft import _window_f64, onesided_weights
     frames = x.double().unfold(-1, cfg.nperseg, cfg.hop_)
-    if cfg.detrend == "constant":
+    if cfg.detrend in ("constant", "linear"):
         frames = frames - frames.mean(dim=-1, keepdim=True)
+    if cfg.detrend == "linear":
+        t = torch.arange(cfg.nperseg, dtype=torch.float64, device=x.device)
+        t = t - t.mean()
+        frames = frames - ((frames @ t) / (t @ t))[..., None] * t
     win = torch.tensor(_window_f64(cfg), dtype=torch.float64, device=x.device)
     wts = torch.tensor(onesided_weights(cfg, FS), dtype=torch.float64,
                        device=x.device)
@@ -322,8 +333,9 @@ def kernel_cases(dev):
     n = int(FS * CLIP_SECONDS)
     north = SpecConfig.north_star(1024, 256, log_scale=True)
     scipy_cfg = SpecConfig.scipy_default(1024, log_scale=True)
-    s992 = SpecConfig.scipy_default(992)         # the GEMM route's
+    s992 = SpecConfig.scipy_default(992)         # the mixed route's, M 16 31
     s2048 = SpecConfig.scipy_default(2048)
+    linear = SpecConfig(nperseg=960, hop=240, detrend="linear")  # GEMM's
 
     def on_card(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
@@ -331,7 +343,7 @@ def kernel_cases(dev):
     def both(x, cfg, route=None, **kw):
         """The kernel (the route's, checked by its launch count) and the
         plain version on the same input."""
-        want_route = route or ("fft" if stft_cuda.fft_route(cfg) else "gemm")
+        want_route = route or stft_cuda.route(cfg)
         before = dict(stft_cuda.launches)
         got = stft_cuda.stft_psd(x, FS, cfg, _route=route, **kw)
         torch.cuda.synchronize()
@@ -376,17 +388,22 @@ def kernel_cases(dev):
     check_stats(*both(xs, scipy_cfg, with_stats=True),
                 "scipy_default 1024 (hop 896, Tukey, constant detrend), "
                 "noise + 3")
-    check_stats(*both(xs, s992, with_stats=True),
-                "scipy_default 992 (hop 868), noise + 3")
-    check_stats(*both(x8[:4], SpecConfig.north_star(960, 240),
-                      with_stats=True), "north_star 960/240")
+    for route in (None, "gemm"):
+        check_stats(*both(xs, s992, route, with_stats=True),
+                    "scipy_default 992 (hop 868), noise + 3")
+        check_stats(*both(x8[:4], SpecConfig.north_star(960, 240), route,
+                          with_stats=True), "north_star 960/240")
+    check_stats(*both(xs, linear, with_stats=True),
+                "nperseg 960, hop 240, linear detrend, noise + 3")
     for route in (None, "gemm"):
         check_log(x8[:2], north, "log10_out", route)
+    check_log(xs[:2], s992, "scipy_default 992 log10_out")
 
     xr = on_card(rs.randn(3, 40000))             # T = 153: ragged frame tile
-    for route in (None, "gemm"):
-        check_stats(*both(xr, north, route, with_stats=True),
-                    "ragged T = 153")
+    for cfg, route in ((north, None), (north, "gemm"),
+                       (SpecConfig.north_star(992, 256), None)):
+        check_stats(*both(xr, cfg, route, with_stats=True),
+                    f"nperseg {cfg.nperseg}, ragged T = 153")
     # the FFT kernel's smallest sizes: 32 threads, idle lanes in the
     # butterflies at nperseg 32
     for cfg in (SpecConfig.north_star(32, 8), SpecConfig.scipy_default(64),
@@ -396,19 +413,44 @@ def kernel_cases(dev):
         check_stats(*both(xr, cfg, with_stats=True),
                     f"nperseg {cfg.nperseg}, hop {cfg.hop_}, detrend "
                     f"{cfg.detrend}")
-    # nperseg 100: K not a multiple of the GEMM kernel's 16-sample stage
-    check_stats(*both(xr, SpecConfig.scipy_default(100), with_stats=True),
-                "scipy_default 100 (hop 88)")
+    # nperseg 100: K not a multiple of the GEMM kernel's 16-sample stage;
+    # M = 50 = 2 5^2 on the mixed route, a repeated radix and one radix-2
+    # stage
+    for route in (None, "gemm"):
+        check_stats(*both(xr, SpecConfig.scipy_default(100), route,
+                          with_stats=True), "scipy_default 100 (hop 88)")
+    # the mixed-radix kernel at each radix it has (hand-written 3, 5, 7;
+    # the generic stage from 11 to 251, and twice where M has two primes
+    # past 7, so a generic stage runs at span L > 1), noise + 3 under
+    # constant detrend; from 6176 its buffer passes 48 KB
+    for what, cfg in (
+            ("north_star 96/24, M = 2^4 3", SpecConfig.north_star(96, 24)),
+            ("scipy_default 160, M = 2^4 5", SpecConfig.scipy_default(160)),
+            ("scipy_default 224, M = 2^4 7", SpecConfig.scipy_default(224)),
+            ("scipy_default 352, M = 2^4 11", SpecConfig.scipy_default(352)),
+            ("scipy_default 4576, M = 2^4 13 11",
+             SpecConfig.scipy_default(4576)),
+            ("scipy_default 7904, M = 2^4 19 13",
+             SpecConfig.scipy_default(7904)),
+            ("scipy_default 7968, M = 2^4 83 3",
+             SpecConfig.scipy_default(7968)),
+            ("scipy_default 8032, M = 2^4 251",
+             SpecConfig.scipy_default(PRIME_NPERSEG)),
+            ("scipy_default 8160, M = 2^4 17 5 3",
+             SpecConfig.scipy_default(MIXED_NPERSEG))):
+        x = on_card(rs.randn(3, 8 * cfg.nperseg) + 3.0)
+        check_stats(*both(x, cfg, with_stats=True), what)
     # |X|^2 past float32's range: inf, as the float32 pipeline overflows
     xo = on_card(np.stack([rs.randn(20000), 1e19 * rs.randn(20000)]))
-    for route in (None, "gemm"):
-        p_o, lo_o, hi_o = stft_cuda.stft_psd(xo, FS, north, with_stats=True,
+    for cfg, route in ((north, None), (north, "gemm"), (s992, None)):
+        used = route or stft_cuda.route(cfg)
+        p_o, lo_o, hi_o = stft_cuda.stft_psd(xo, FS, cfg, with_stats=True,
                                              _route=route)
         require(bool(torch.isfinite(hi_o[0])) and bool(torch.isinf(hi_o[1]))
                 and finite_flags(xo, lo_o, hi_o).tolist() == [True, False],
-                f"overflow guard [{route or 'fft'}]: pmax {hi_o.tolist()}")
-        print(f"1e19-amplitude clip [{route or 'fft'}]: pmax inf, finite "
-              "[True, False]")
+                f"overflow guard [{used}]: pmax {hi_o.tolist()}")
+        print(f"1e19-amplitude clip, nperseg {cfg.nperseg} [{used}]: pmax "
+              "inf, finite [True, False]")
 
     # nperseg 2048-8192: K1's frequency-tiled sizes and K2's range (for the
     # GEMM kernel, the clips' frames share row tiles across clip
@@ -420,18 +462,20 @@ def kernel_cases(dev):
              3.0),
             ("scipy_default 8192 (hop 7168), noise + 3",
              SpecConfig.scipy_default(8192), 3.0),
-            ("north_star 8192/2048", SpecConfig.north_star(8192, 2048), 0.0),
-            (f"scipy_default {GEMM_NPERSEG}, noise + 3",
-             SpecConfig.scipy_default(GEMM_NPERSEG), 3.0)):
+            ("north_star 8192/2048", SpecConfig.north_star(8192, 2048), 0.0)):
         x = on_card(rs.randn(3, 8 * cfg.nperseg) + offset)
         check_stats(*both(x, cfg, with_stats=True), what)
+    x = on_card(rs.randn(3, 8 * MIXED_NPERSEG) + 3.0)
+    check_stats(*both(x, SpecConfig.scipy_default(MIXED_NPERSEG), "gemm",
+                      with_stats=True),
+                f"scipy_default {MIXED_NPERSEG}, noise + 3")
     xr2 = on_card(rs.randn(5, 40000) + 1.0)      # T = 22, 110 rows, 5 clips
     check_stats(*both(xr2, s2048, with_stats=True),
                 "scipy_default 2048, ragged T = 22")
     check_log(on_card(rs.randn(2, 8 * 4096) + 3.0),
               SpecConfig.scipy_default(4096), "scipy_default 4096 log10_out")
 
-    for cfg in (north, SpecConfig.scipy_default(8192), s992):
+    for cfg in (north, SpecConfig.scipy_default(8192), s992, linear):
         before = read_counts()["stft_psd"]
         psd0, lo0, hi0 = stft_cuda.stft_psd(on_card(rs.randn(2, 500)), FS,
                                             cfg, with_stats=True)
@@ -442,11 +486,13 @@ def kernel_cases(dev):
         print(f"nperseg {cfg.nperseg}, T = 0: empty PSD, zero extrema, "
               "no launch")
 
-    for cfg in (north, s2048, s992):
+    for cfg, route in ((north, None), (s2048, None), (s992, None),
+                       (s992, "gemm")):
         xn = rs.randn(3, 20000)
         xn[1, 5000] = np.nan
         xn = on_card(xn)
-        psd_n, lo_n, hi_n = stft_cuda.stft_psd(xn, FS, cfg, with_stats=True)
+        psd_n, lo_n, hi_n = stft_cuda.stft_psd(xn, FS, cfg, with_stats=True,
+                                               _route=route)
         flags = finite_flags(xn, lo_n, hi_n).tolist()
         require(bool(torch.isnan(lo_n[1])) and bool(torch.isnan(hi_n[1]))
                 and bool(torch.isfinite(lo_n[0]))
@@ -459,8 +505,9 @@ def kernel_cases(dev):
         require(torch.equal(torch.isnan(lo_n), torch.isnan(want_lo))
                 and torch.equal(torch.isnan(hi_n), torch.isnan(want_hi)),
                 "NaN extrema agree with the plain version")
-        print(f"nperseg {cfg.nperseg}, NaN sample: pmin and pmax NaN as in "
-              "the plain version, finite [True, False, True]")
+        print(f"nperseg {cfg.nperseg} [{route or stft_cuda.route(cfg)}], NaN "
+              "sample: pmin and pmax NaN as in the plain version, finite "
+              "[True, False, True]")
 
     T8 = psd8.shape[1]
     for log_scale, flip, share in ((True, True, False), (True, False, False),
@@ -513,8 +560,8 @@ def scipy_checks(dev, card):
     """The display contract against scipy float64 on clips that break a
     float32 chain (tools/torch_precision.py): scipy_default 1024 on
     noise + 3, and north_star 1024/256 on the sweep's worst clips, all on
-    the FFT route; then both kernels' times at scipy_default 1024 on the
-    display spine's batch."""
+    the FFT route; then the kernels' times at scipy_default 1024 (FFT and
+    GEMM) and 992 (mixed radix and GEMM) on the display spine's batch."""
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
@@ -547,19 +594,22 @@ def scipy_checks(dev, card):
 
     gen = torch.Generator(device=dev).manual_seed(3)
     xb = torch.randn((BATCH, n), generator=gen, device=dev) + 3.0
-    consts = stft_cuda.dft_constants(cfg, FS, dev)
-    k_ms = time_ms(lambda: stft_cuda.stft_psd(xb, FS, cfg, with_stats=True))
-    g_ms = time_ms(lambda: stft_cuda.stft_psd(xb, FS, cfg, with_stats=True,
-                                              _route="gemm"))
-    p_ms = time_ms(lambda: stft_cuda.stft_psd_reference(xb, consts, cfg,
-                                                        with_stats=True))
-    l_ms = time_ms(lambda: library_psd(xb, cfg))
-    T = num_frames(n, cfg.nperseg, cfg.hop_)
-    bound = stft_bound(BATCH, n, T, cfg.n_freqs, 1024)
-    print(f"STFT at scipy_default 1024, {BATCH} x {CLIP_SECONDS:g} s (CUDA "
-          f"events, median of {REPS}): FFT kernel {k_ms[0]:.3f} ms, GEMM "
-          f"kernel {g_ms[0]:.3f} ms, plain {p_ms[0]:.3f} ms, library "
-          f"{l_ms[0]:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}) [{card}]")
+    for c in (cfg, SpecConfig.scipy_default(992)):
+        kernel = stft_cuda.route(c)
+        consts = stft_cuda.dft_constants(c, FS, dev)
+        k_ms = time_ms(lambda: stft_cuda.stft_psd(xb, FS, c, with_stats=True))
+        g_ms = time_ms(lambda: stft_cuda.stft_psd(xb, FS, c, with_stats=True,
+                                                  _route="gemm"))
+        p_ms = time_ms(lambda: stft_cuda.stft_psd_reference(xb, consts, c,
+                                                            with_stats=True))
+        l_ms = time_ms(lambda: library_psd(xb, c))
+        T = num_frames(n, c.nperseg, c.hop_)
+        bound = stft_bound(BATCH, n, T, c.n_freqs, c.nperseg)
+        print(f"STFT at scipy_default {c.nperseg}, {BATCH} x "
+              f"{CLIP_SECONDS:g} s (CUDA events, median of {REPS}): "
+              f"{kernel} kernel {k_ms[0]:.3f} ms, GEMM kernel {g_ms[0]:.3f} "
+              f"ms, plain {p_ms[0]:.3f} ms, library {l_ms[0]:.3f} ms, bound "
+              f"{bound[0]:.3f} ms ({bound[1]}) [{card}]")
     del xb
     torch.cuda.synchronize()
 
@@ -710,32 +760,34 @@ def main_path(dev, card):
     }
 
 
-def long_path(dev, card, dfma_peak, nperseg, label):
-    """256 clips of 60 s through ``batched_spectrogram_fn`` at
-    scipy_default(nperseg) log: path 2 at 8192 (the FFT route; K2's
-    counterpart) and path 4 at 8160 (the GEMM route). Returns the STFT
-    kernel's row."""
+def long_path(dev, card, dfma_peak, cfg, label):
+    """256 clips of 60 s through ``batched_spectrogram_fn`` at cfg: path 2
+    at scipy_default 8192 (the FFT route; K2's counterpart), paths 4 and 5
+    at scipy_default 8160 and 8032 (the mixed-radix route) and path 6 at
+    8160 under linear detrend (the GEMM route). Returns the STFT kernel's
+    row."""
     import numpy as np
     import torch
-    from spectral_tpu_torch import SpecConfig
     from spectral_tpu_torch.core.stft import num_frames
     from spectral_tpu_torch.ops import display_triton as disp
     from spectral_tpu_torch.ops import stft_cuda
     from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
 
     n = int(FS * K2_SECONDS)
-    cfg = SpecConfig.scipy_default(nperseg, log_scale=True)
-    route = "fft" if stft_cuda.fft_route(cfg) else "gemm"
-    phase(f"{label}: {K2_CLIPS} clips x {K2_SECONDS:g} s, scipy_default "
-          f"{nperseg} log, the {route} route")
+    nperseg = cfg.nperseg
+    route = stft_cuda.route(cfg)
+    phase(f"{label}: {K2_CLIPS} clips x {K2_SECONDS:g} s, nperseg {nperseg} "
+          f"hop {cfg.hop_}, detrend {cfg.detrend}, log, the {route} route")
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((K2_CLIPS, n), generator=gen, device=dev)
-    if route == "fft":
+    if route != "gemm":
+        setup = (stft_cuda.fft_constants if route == "fft"
+                 else stft_cuda.mixed_constants)
         t0 = time.perf_counter()
-        stft_cuda.fft_constants(cfg, FS, dev)
-        print(f"FFT route's f64 constants (window, twiddles, weights) on the "
-              f"card in {time.perf_counter() - t0:.4f} s (host build + "
-              "upload; set-up)")
+        setup(cfg, FS, dev)
+        print(f"{route} route's f64 constants (window, plan, twiddles, "
+              f"weights) on the card in {time.perf_counter() - t0:.4f} s "
+              "(host build + upload; set-up)")
     t0 = time.perf_counter()
     consts = stft_cuda.dft_constants(cfg, FS, dev)
     print(f"f64 DFT matrices on the card in {time.perf_counter() - t0:.2f} s "
@@ -762,13 +814,12 @@ def long_path(dev, card, dfma_peak, nperseg, label):
     x0 = x[0].double().cpu().numpy()
     db_err = db_error_vs_scipy(out["image"][0].flip(0).cpu().numpy(), x0,
                                cfg)
-    require(db_err <= DB_TOL, f"{nperseg} clip 0 vs scipy f64: {db_err:.3e} "
-            "dB")
+    require(db_err <= DB_TOL, f"{label} clip 0 vs scipy f64: {db_err:.3e} dB")
     print(f"clip 0 vs scipy float64: {db_err:.3e} dB (limit {DB_TOL:g})")
     x3 = (np.random.RandomState(4).randn(1, n) + 3.0).astype(np.float32)
     img3 = fn(x3)["image"][0].flip(0).cpu().numpy()
     db3 = db_error_vs_scipy(img3, x3[0].astype(np.float64), cfg)
-    require(db3 <= DB_TOL, f"{nperseg} noise + 3 vs scipy f64: {db3:.3e} dB")
+    require(db3 <= DB_TOL, f"{label} noise + 3 vs scipy f64: {db3:.3e} dB")
     print(f"noise + 3 clip vs scipy float64: {db3:.3e} dB "
           f"(limit {DB_TOL:g})")
 
@@ -804,7 +855,7 @@ def long_path(dev, card, dfma_peak, nperseg, label):
         "stft_library": time_ms(lambda: library_psd(x, cfg)),
         "pipeline_kernel": time_ms(lambda: fn(x)),
     }
-    if route == "fft":
+    if route != "gemm":
         timings["stft_gemm_kernel"] = time_ms(lambda: stft_cuda.stft_psd(
             x, FS, cfg, with_stats=True, _route="gemm"))
     for name, (ms, reps) in timings.items():
@@ -824,9 +875,8 @@ def long_path(dev, card, dfma_peak, nperseg, label):
     bound = stft_bound(K2_CLIPS, n, T, F, nperseg)
     print(f"STFT kernel ({route}): {timings['stft_kernel'][0]:.3f} ms; "
           f"bound {bound[0]:.3f} ms ({bound[1]}) [{card}]")
-    print(json.dumps({f"path_{nperseg}_times": {k: v[0] for k, v in
-                                                 timings.items()},
-                      "card": card}))
+    print(json.dumps({f"path_{nperseg}_{cfg.detrend}_times": {
+        k: v[0] for k, v in timings.items()}, "card": card}))
     return dict(launches=counts["stft_psd"][route], err=stft_abs,
                 ms=timings["stft_kernel"][0],
                 plain_ms=timings["stft_plain"][0], bound=bound,
@@ -992,14 +1042,17 @@ def export_path(dev, card):
         "stft_export_launches": counts["stft_psd"]["fft"]}
 
 
-PHASES = ("kernels", "scipy", "path1", "path2", "path3", "path4")
+PHASES = ("kernels", "scipy", "path1", "path2", "path3", "path4", "path5",
+          "path6")
 
 
 def main(_phases=None):
     """Every phase, then the kernels line and the contract line; with
     ``_phases`` (a subset of PHASES) the build and those phases only,
     and no result line."""
+    import dataclasses
     import torch
+    from spectral_tpu_torch import SpecConfig
     t_start = time.perf_counter()
     phases = set(PHASES if _phases is None else _phases)
     require(phases <= set(PHASES), f"phases {sorted(phases)} of {PHASES}")
@@ -1015,21 +1068,34 @@ def main(_phases=None):
         rows.update(main_path(dev, card))
         torch.cuda.empty_cache()
     if "path2" in phases:
-        rows["stft_8192"] = long_path(dev, card, dfma_peak, 8192, "path 2")
+        rows["stft_8192"] = long_path(
+            dev, card, dfma_peak,
+            SpecConfig.scipy_default(8192, log_scale=True), "path 2")
         torch.cuda.empty_cache()
     if "path3" in phases:
         rows.update(export_path(dev, card))
         torch.cuda.empty_cache()
-    if "path4" in phases:
-        rows["stft_gemm"] = long_path(dev, card, dfma_peak, GEMM_NPERSEG,
-                                      "path 4, the GEMM route")
+    s8160 = SpecConfig.scipy_default(MIXED_NPERSEG, log_scale=True)
+    for name, key, label, cfg in (
+            ("path4", "stft_mixed_8160", "path 4, the mixed-radix route",
+             s8160),
+            ("path5", "stft_mixed_8032",
+             "path 5, the mixed-radix route's largest prime",
+             SpecConfig.scipy_default(PRIME_NPERSEG, log_scale=True)),
+            ("path6", "stft_gemm", "path 6, the GEMM route (linear detrend)",
+             dataclasses.replace(s8160, detrend="linear"))):
+        if name in phases:
+            rows[key] = long_path(dev, card, dfma_peak, cfg, label)
+            torch.cuda.empty_cache()
     if _phases is not None:
         print(f"chip_smoke phases {sorted(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
     print(f"the FFT kernel's launches: path 1 {rows['stft_1024']['launches']}"
           f", path 2 {rows['stft_8192']['launches']}, path 3 "
-          f"{rows['stft_export_launches']}; the GEMM kernel's: path 4 "
+          f"{rows['stft_export_launches']}; the mixed-radix kernel's: path 4 "
+          f"{rows['stft_mixed_8160']['launches']}, path 5 "
+          f"{rows['stft_mixed_8032']['launches']}; the GEMM kernel's: path 6 "
           f"{rows['stft_gemm']['launches']}")
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
     meta = {
@@ -1037,8 +1103,15 @@ def main(_phases=None):
                       "spectral_tpu/ops/stft_pallas.py:217"),
         "stft_8192": ("stft_fft_psd, nperseg 8192 (path 2)", "cuda", src,
                       "spectral_tpu/ops/stft_pallas.py:367"),
-        "stft_gemm": (f"stft_psd GEMM, nperseg {GEMM_NPERSEG} (path 4)",
-                      "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
+        "stft_mixed_8160": (
+            f"stft_mixed_fft_psd, nperseg {MIXED_NPERSEG} (path 4)", "cuda",
+            src, "spectral_tpu/ops/stft_pallas.py:367"),
+        "stft_mixed_8032": (
+            f"stft_mixed_fft_psd, nperseg {PRIME_NPERSEG} (path 5)", "cuda",
+            src, "spectral_tpu/ops/stft_pallas.py:367"),
+        "stft_gemm": (f"stft_psd GEMM, nperseg {MIXED_NPERSEG} linear "
+                      "detrend (path 6)", "cuda", src,
+                      "spectral_tpu/ops/stft_pallas.py:367"),
         "display_rgba": ("display_epilogue rgba", "triton",
                          "spectral_tpu_torch/ops/display_triton.py",
                          "spectral_tpu/ops/stft_pallas.py:456"),

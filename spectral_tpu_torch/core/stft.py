@@ -9,7 +9,8 @@ GEMMs against DFT matrices with the window and the detrend folded in.
 The host constants (window, PSD weights, axes, folded DFT matrices) are the
 JAX package's numpy f64 code, unchanged, over the port's own copy of the
 windows, so both packages start from bitwise-identical constants; the FFT
-kernel's twiddle table (:func:`fft_twiddles`) is the port's own. Framing is a ``Tensor.unfold`` view; the JAX
+kernels' twiddle tables and plan (:func:`fft_twiddles`, :func:`fft_plan`)
+are the port's own. Framing is a ``Tensor.unfold`` view; the JAX
 package's gcd slice-and-concat framing works around the TPU compiler and
 has no counterpart here.
 
@@ -23,7 +24,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-from typing import Iterator, Tuple
+from typing import Iterator, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -182,6 +183,89 @@ def fft_twiddles(nfft: int) -> np.ndarray:
     spans = [1 << b for b in range(nfft.bit_length() - 1)]
     j = np.concatenate([np.arange(h) * (nfft // (2 * h)) for h in spans])
     return np.ascontiguousarray(base[j])
+
+
+class FftPlan(NamedTuple):
+    """The mixed-radix FFT kernel's plan for nperseg K, the transform of
+    M = K/2 packed points (:func:`fft_plan`)."""
+    factors: Tuple[int, ...]   # radices in stage order; their product is M
+    stages: np.ndarray         # (S, 4) int32: radix p, span L, twiddle row,
+                               # root row of each stage
+    perm: np.ndarray           # (M,) int32: packed value m goes to slot perm[m]
+    twiddles: np.ndarray       # (rows, 2) float64 (cos, sin), stage-ordered
+    split: int                 # first of the M split-step rows W_K^g
+
+
+def fft_radices(m: int) -> Tuple[int, ...]:
+    """m's prime factors in the stage order: odd primes descending, then
+    the twos."""
+    odd = []
+    twos = 0
+    while m % 2 == 0:
+        m //= 2
+        twos += 1
+    p = 3
+    while m > 1:
+        while m % p == 0:
+            odd.append(p)
+            m //= p
+        p += 2
+    return tuple(sorted(odd, reverse=True)) + (2,) * twos
+
+
+@functools.lru_cache(maxsize=16)
+def fft_plan(nfft: int) -> FftPlan:
+    """Host plan of the mixed-radix FFT kernel for an even nfft = K: a
+    decimation-in-time transform of M = K/2 points in stage order
+    ``factors`` (odd primes descending, then the twos), stage s of radix p
+    and span L (the product of the radices before it) combining p
+    transforms of L points, values L apart, into one of L·p points.
+
+    - ``perm``: the load order, the mixed-radix digit reversal: packed
+      value m lands at slot (m mod p_last)·(M/p_last) + the same rule for
+      m div p_last over the stages before the last.
+    - ``twiddles``: every row is (cos, sin) of -2π j / K for an integer j
+      reduced exactly mod K, in numpy float64, unrounded. Stage s holds,
+      from row ``stages[s, 2]``, the (p - 1)·L inter-stage twiddles
+      W_Lp^(q·k) at row (q - 1)·L + k (q = 1..p-1, k < L), and for an odd
+      radix, from row ``stages[s, 3]``, the p roots W_p^i (i < p); the
+      last M rows, from row ``split``, are the split step's W_K^g, g < M.
+
+    No (K, F) matrix is built. The arrays are cached and shared: copy
+    before handing them to torch."""
+    if nfft % 2 or nfft < 4:
+        raise ValueError(f"the mixed-radix plan needs an even nfft, got "
+                         f"{nfft}")
+    M = nfft // 2
+    factors = fft_radices(M)
+
+    def rows(j):
+        ang = -2.0 * np.pi * (np.asarray(j, np.int64) % nfft) / nfft
+        return np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+
+    blocks, stages, row, L = [], [], 0, 1
+    for p in factors:
+        q, k = np.meshgrid(np.arange(1, p), np.arange(L), indexing="ij")
+        blocks.append(rows((q * k).ravel() % (L * p) * (M // (L * p)) * 2))
+        tw_row, row = row, row + (p - 1) * L
+        root_row = row
+        if p % 2:
+            blocks.append(rows(np.arange(p) * (nfft // p)))
+            row += p
+        stages.append((p, L, tw_row, root_row))
+        L *= p
+    blocks.append(rows(np.arange(M)))
+
+    perm = np.zeros(M, np.int64)
+    m = np.arange(M)
+    span = M
+    for p in reversed(factors):
+        span //= p
+        perm += (m % p) * span
+        m //= p
+    return FftPlan(factors, np.asarray(stages, np.int32),
+                   perm.astype(np.int32),
+                   np.ascontiguousarray(np.concatenate(blocks)), row)
 
 
 # ---------------------------------------------------------------------------

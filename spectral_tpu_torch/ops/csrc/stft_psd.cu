@@ -4,15 +4,20 @@
 // stft_psd_pallas: the auto kernel `_compute` (K1, with the `with_stats` and
 // `log10_out` modes) and the manual-DMA kernel `kernel_manual` (K2, A left in
 // HBM and one A tile reloaded per frequency tile, nperseg 6145-8192). Both
-// compute the same function, which this file computes by two routes:
+// compute the same function, which this file computes by three routes:
 //
 // - stft_psd_kernel (stft_psd_launch), the GEMM route below: any nperseg,
 //   any detrend, the real DFT as a GEMM against (K, F) matrices;
-// - stft_fft_psd_kernel (stft_fft_psd_launch), the FFT route at the end of
-//   the file: power-of-two nperseg 32-8192 with detrend none or constant, a
-//   radix-2 FFT of nperseg/2 points in shared memory, one frame per block.
+// - stft_fft_psd_kernel (stft_fft_psd_launch), the FFT route after it:
+//   power-of-two nperseg 32-8192 with detrend none or constant, a radix-2
+//   FFT of nperseg/2 points in shared memory, one frame per block;
+// - stft_mixed_fft_psd_kernel (stft_mixed_fft_psd_launch), the mixed-radix
+//   route at the end of the file: the other even nperseg 32-8192 whose
+//   nperseg/2 has no odd prime factor past 255 (every other GUI value),
+//   detrend none or constant, the same structure with radix-2, 3, 5, 7 and
+//   generic odd-radix stages.
 //
-// The wrapper (ops/stft_cuda.py::fft_route) picks the route by config. The
+// The wrapper (ops/stft_cuda.py::route) picks the route by config. The
 // GEMM route computes:
 //
 //   row r = b*T + t         : frame t of clip b, all clips' frames flattened
@@ -398,9 +403,314 @@ stft_fft_psd_kernel(const float* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The mixed-radix FFT route: even nperseg K = 32-8192 with detrend none or
+// constant whose M = K/2 has no odd prime factor past 255 (every GUI value
+// that is not a power of two: K = 32 m, m <= 256, so M = 2^q m' with
+// q >= 4 and m' odd, m' <= 255).
+//
+// The radix-2 kernel's structure with another transform: one block per
+// frame (row r = b*T + t, read in place by pointer); the constant-detrend
+// mean by block reduction; v[i] = ((double)frame[i] - mean) * win[i]; two
+// real samples packed per complex value, z[m] = v[2m] + i v[2m + 1],
+// stored at slot perm[m], the mixed-radix digit reversal; an M-point
+// decimation-in-time FFT in place in shared memory; the split step and
+// the PSD epilogue on bins f < F. Everything between the float32 load and
+// the float32 store is float64.
+//
+// The transform runs the host plan's stages (core/stft.py::fft_plan): odd
+// prime radices descending, then the twos, M = p_1 p_2 ... p_S. Stage s of
+// radix p and span L (the product of the radices before it) takes, for
+// each group g of L*p slots and each k < L, the p values y_q at slots
+// g*L*p + k + q*L, twiddles y_q (q >= 1) by W_Lp^(q k) (table row
+// (q - 1) L + k; skipped at L = 1, where all are 1), and writes their
+// p-point DFT back to the same slots:
+//
+//   - radix 2: (y_0 + W y_1, y_0 - W y_1), one butterfly per thread;
+//   - radix 3, 5, 7 (stage_odd): one butterfly per thread in registers,
+//     the symmetric form of the odd DFT: a_q = y_q + y_(p-q), b_q = y_q -
+//     y_(p-q), A_m = y_0 + sum_q a_q c_qm, B_m = sum_q b_q s_qm (q, m =
+//     1..(p-1)/2, (c, s) the table's root W_p^(q m mod p)), out[m] = A_m
+//     + i B_m, out[p - m] = A_m - i B_m;
+//   - any other odd radix, 11-251 on the GUI's range (stage_generic): the
+//     same sums, but a thread per output pair (m, p - m) of a (g, k),
+//     looping over q, its p roots staged in shared memory; the results
+//     wait in registers until every thread has read its inputs (at most
+//     MIX_MAX_ITEMS pairs a thread), then are written in place. The
+//     twiddle pass runs before it, over the whole buffer. No p values are
+//     held in registers.
+//
+// The host's table rows are numpy's float64 (cos, sin) of -2 pi j / K,
+// j an integer reduced exactly mod K, unrounded, stage by stage; the last
+// M rows are the split step's W_K^g. tools/torch_precision.py::
+// psd_mixed_fft is this arithmetic in numpy.
+//
+// What bounds it: the function is bound by bytes (as the radix-2 route);
+// this design by shared memory and, at a large prime, by the generic
+// stage's float64 arithmetic: (p - 1)/2 iterations of 4 DFMA and 4 DADD
+// for each output pair, about M p / 2 real multiply-adds a frame against
+// the radix-2 kernel's 2 M log2 M. The buffer holds M complex float64 values (M * 16 bytes,
+// 64 KB at K = 8160), so three blocks fit an SM; the launcher raises the
+// kernel's dynamic shared memory limit past 48 KB. The indices are not
+// swizzled: M is not a power of two, so the radix-2 kernel's XOR swizzle
+// does not apply, and bank conflicts are left for a later design.
+
+constexpr int MIX_MAX_STAGES = 16;   // M <= 4096 has at most 12 factors
+constexpr int MIX_MAX_RADIX = 255;   // largest odd radix; roots in smem
+constexpr int MIX_MAX_ITEMS = 5;     // generic-stage output pairs a thread
+                                     // holds (the launcher checks)
+
+struct MixedPlan {
+  int n_stages;
+  int split;                       // first row of the split step's W_K^g
+  int stage[MIX_MAX_STAGES][4];    // radix p, span L, twiddle row, root row
+};
+
+__device__ __forceinline__ double2 cmul(double2 w, double2 y) {
+  return make_double2(w.x * y.x - w.y * y.y, w.x * y.y + w.y * y.x);
+}
+
+// radix 2 at span L: butterfly j of M/2 takes slots (g 2L + k, +L)
+__device__ __forceinline__ void stage_radix2(double2* buf,
+                                             const double2* __restrict__ tw,
+                                             int M, int L, int tw_row) {
+  for (int j = threadIdx.x; j < (M >> 1); j += blockDim.x) {
+    const int k = j % L;
+    const int i0 = ((j - k) << 1) + k;
+    const double2 t = cmul(tw[tw_row + k], buf[i0 + L]);
+    const double2 a = buf[i0];
+    buf[i0] = make_double2(a.x + t.x, a.y + t.y);
+    buf[i0 + L] = make_double2(a.x - t.x, a.y - t.y);
+  }
+}
+
+// radix P = 3, 5 or 7 at span L: butterfly j of M/P in registers
+template <int P>
+__device__ __forceinline__ void stage_odd(double2* buf,
+                                          const double2* __restrict__ tw,
+                                          int M, int L, int tw_row,
+                                          int root_row) {
+  constexpr int H = (P - 1) / 2;
+  double2 root[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) root[i] = tw[root_row + i];
+  for (int j = threadIdx.x; j < M / P; j += blockDim.x) {
+    const int k = j % L;
+    const int base = (j - k) * P + k;
+    double2 y[P];
+#pragma unroll
+    for (int q = 0; q < P; ++q) y[q] = buf[base + q * L];
+    if (L > 1) {
+#pragma unroll
+      for (int q = 1; q < P; ++q)
+        y[q] = cmul(tw[tw_row + (q - 1) * L + k], y[q]);
+    }
+    double2 a[H + 1];
+    double2 b[H + 1];
+#pragma unroll
+    for (int q = 1; q <= H; ++q) {
+      a[q] = make_double2(y[q].x + y[P - q].x, y[q].y + y[P - q].y);
+      b[q] = make_double2(y[q].x - y[P - q].x, y[q].y - y[P - q].y);
+    }
+#pragma unroll
+    for (int m = 0; m <= H; ++m) {
+      double ar = y[0].x, ai = y[0].y, br = 0.0, bi = 0.0;
+#pragma unroll
+      for (int q = 1; q <= H; ++q) {
+        const double2 c = root[(q * m) % P];
+        ar += a[q].x * c.x;
+        ai += a[q].y * c.x;
+        br += b[q].x * c.y;
+        bi += b[q].y * c.y;
+      }
+      buf[base + m * L] = make_double2(ar - bi, ai + br);
+      if (m > 0) buf[base + (P - m) * L] = make_double2(ar + bi, ai - br);
+    }
+  }
+}
+
+// any odd radix p at span L: output pair (m, p - m) of butterfly (g, k)
+// per work item, item = ((g (h + 1) + m) L + k, m = 0..h, h = (p - 1)/2
+__device__ __forceinline__ void stage_generic(double2* buf, double2* roots,
+                                              const double2* __restrict__ tw,
+                                              int M, int p, int L,
+                                              int tw_row, int root_row) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lp = L * p;
+  for (int i = tid; i < p; i += nt) roots[i] = tw[root_row + i];
+  if (L > 1) {
+    for (int s = tid; s < M; s += nt) {
+      const int r = s % lp;          // q L + k
+      if (r >= L) buf[s] = cmul(tw[tw_row + r - L], buf[s]);
+    }
+  }
+  __syncthreads();
+  const int h = (p - 1) >> 1;
+  const int items = (M / p) * (h + 1);
+  double2 lo[MIX_MAX_ITEMS];
+  double2 hi[MIX_MAX_ITEMS];
+#pragma unroll
+  for (int s = 0; s < MIX_MAX_ITEMS; ++s) {
+    const int it = tid + s * nt;
+    if (it < items) {
+      const int k = it % L;
+      const int gm = it / L;
+      const int m = gm % (h + 1);
+      const int base = (gm / (h + 1)) * lp + k;
+      const double2 y0 = buf[base];
+      double ar = y0.x, ai = y0.y, br = 0.0, bi = 0.0;
+      int idx = 0;                   // q m mod p
+      for (int q = 1; q <= h; ++q) {
+        idx += m;
+        if (idx >= p) idx -= p;
+        const double2 c = roots[idx];
+        const double2 u = buf[base + q * L];
+        const double2 v = buf[base + (p - q) * L];
+        ar += (u.x + v.x) * c.x;
+        ai += (u.y + v.y) * c.x;
+        br += (u.x - v.x) * c.y;
+        bi += (u.y - v.y) * c.y;
+      }
+      lo[s] = make_double2(ar - bi, ai + br);
+      hi[s] = make_double2(ar + bi, ai - br);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < MIX_MAX_ITEMS; ++s) {
+    const int it = tid + s * nt;
+    if (it < items) {
+      const int k = it % L;
+      const int gm = it / L;
+      const int m = gm % (h + 1);
+      const int base = (gm / (h + 1)) * lp + k;
+      buf[base + m * L] = lo[s];
+      if (m > 0) buf[base + (p - m) * L] = hi[s];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(FFT_MAX_THREADS)
+stft_mixed_fft_psd_kernel(const float* __restrict__ x,
+                          const double* __restrict__ win,
+                          const int* __restrict__ perm,
+                          const double2* __restrict__ tw,
+                          const double* __restrict__ wts,
+                          float* __restrict__ out,
+                          float* __restrict__ part_min,
+                          float* __restrict__ part_max, long long n, int T,
+                          int F, int K, int hop, int detrend, int log10_out,
+                          int with_stats, const __grid_constant__ MixedPlan plan) {
+  extern __shared__ double2 buf[];  // K/2 complex values
+  __shared__ double2 roots[MIX_MAX_RADIX + 1];
+  __shared__ double red_sum[FFT_MAX_WARPS];
+  __shared__ float red_lo[FFT_MAX_WARPS];
+  __shared__ float red_hi[FFT_MAX_WARPS];
+
+  const int M = K >> 1;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int r = blockIdx.x;
+  const float* frame = x + (long long)(r / T) * n + (long long)(r % T) * hop;
+
+  double mean = 0.0;
+  if (detrend) {
+    double s = 0.0;
+    for (int i = tid; i < K; i += nt) s += static_cast<double>(frame[i]);
+    mean = block_sum(s, red_sum) / K;
+  }
+  // even samples in .x, odd in .y of slot perm[i / 2]
+  double* bufd = reinterpret_cast<double*>(buf);
+  for (int i = tid; i < K; i += nt)
+    bufd[2 * perm[i >> 1] + (i & 1)] =
+        (static_cast<double>(frame[i]) - mean) * win[i];
+  __syncthreads();
+
+  for (int s = 0; s < plan.n_stages; ++s) {
+    const int p = plan.stage[s][0];
+    const int L = plan.stage[s][1];
+    const int tw_row = plan.stage[s][2];
+    const int root_row = plan.stage[s][3];
+    switch (p) {
+      case 2: stage_radix2(buf, tw, M, L, tw_row); break;
+      case 3: stage_odd<3>(buf, tw, M, L, tw_row, root_row); break;
+      case 5: stage_odd<5>(buf, tw, M, L, tw_row, root_row); break;
+      case 7: stage_odd<7>(buf, tw, M, L, tw_row, root_row); break;
+      default: stage_generic(buf, roots, tw, M, p, L, tw_row, root_row);
+    }
+    __syncthreads();
+  }
+
+  float lo = INFINITY;
+  float hi = -INFINITY;
+  for (int f = tid; f < F; f += nt) {
+    const int g = f <= M ? f : K - f;
+    const double2 a = buf[g == M ? 0 : g];
+    const double2 b = buf[g == 0 ? 0 : M - g];
+    const double2 w = g < M ? tw[plan.split + g] : make_double2(-1.0, 0.0);
+    const double er = 0.5 * (a.x + b.x);
+    const double ei = 0.5 * (a.y - b.y);
+    const double o_r = 0.5 * (a.y + b.y);
+    const double o_i = 0.5 * (b.x - a.x);
+    const double xr = er + (w.x * o_r - w.y * o_i);
+    const double xi = ei + (w.x * o_i + w.y * o_r);
+    const double pw = power(xr, xi, wts[f]);
+    const float pf = static_cast<float>(pw);
+    lo = nan_min(lo, pf);
+    hi = nan_max(hi, pf);
+    out[(long long)r * F + f] =
+        log10_out ? static_cast<float>(log10(pw + 1e-20)) : pf;
+  }
+  if (with_stats) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+      hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+    if ((tid & 31) == 0) {
+      red_lo[tid >> 5] = lo;
+      red_hi[tid >> 5] = hi;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < (nt >> 5); ++w) {
+        lo = nan_min(lo, red_lo[w]);
+        hi = nan_max(hi, red_hi[w]);
+      }
+      part_min[r] = lo;
+      part_max[r] = hi;
+    }
+  }
+}
+
 constexpr int FFT_MAX_DEVICES = 64;
-// the dynamic shared memory limit already set for the FFT kernel, per device
+// the dynamic shared memory limit already set for the FFT kernels, per
+// device
 size_t fft_smem_set[FFT_MAX_DEVICES] = {};
+size_t mixed_smem_set[FFT_MAX_DEVICES] = {};
+
+// raise `kernel`'s dynamic shared memory limit to smem once per device
+// (set[] records it); returns a cudaError_t
+template <typename Kernel>
+int raise_smem(Kernel kernel, size_t smem, size_t* set) {
+  if (smem <= 48 * 1024) return static_cast<int>(cudaSuccess);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= FFT_MAX_DEVICES || set[dev] < smem)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess && dev < FFT_MAX_DEVICES) set[dev] = smem;
+  }
+  return static_cast<int>(err);
+}
+
+// K/4 threads, rounded up to a warp, 32 to FFT_MAX_THREADS
+int fft_threads(int K) {
+  const int t = (K / 4 + 31) / 32 * 32;
+  return t < 32 ? 32 : (t > FFT_MAX_THREADS ? FFT_MAX_THREADS : t);
+}
 
 }  // namespace
 
@@ -446,27 +756,65 @@ int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
   if (K < 32 || K > 8192 || (1 << log2k) != K || F < 1 || F > K)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(K / 2) * sizeof(double2);
-  if (smem > 48 * 1024) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess &&
-        (dev >= FFT_MAX_DEVICES || fft_smem_set[dev] < smem)) {
-      err = cudaFuncSetAttribute(stft_fft_psd_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err == cudaSuccess && dev < FFT_MAX_DEVICES) fft_smem_set[dev] = smem;
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  // K/4 threads, 32 to FFT_MAX_THREADS: one butterfly each a stage up to
-  // K = 2048
-  const int threads = K / 4 < 32 ? 32
-                      : (K / 4 > FFT_MAX_THREADS ? FFT_MAX_THREADS : K / 4);
+  const int err = raise_smem(stft_fft_psd_kernel, smem, fft_smem_set);
+  if (err != 0) return err;
+  // one butterfly a thread each stage up to K = 2048
   const unsigned blocks = static_cast<unsigned>(B) * static_cast<unsigned>(T);
-  stft_fft_psd_kernel<<<blocks, threads, smem,
+  stft_fft_psd_kernel<<<blocks, fft_threads(K), smem,
                         static_cast<cudaStream_t>(stream)>>>(
       x, win, reinterpret_cast<const double2*>(tw), wts, out, part_min,
       part_max, n, T, F, log2k, hop, detrend, log10_out, with_stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The mixed-radix FFT route, on `stream`; returns a cudaError_t (0 =
+// success): cudaErrorInvalidValue for a plan the kernel does not take,
+// else that of raising the kernel's shared memory limit, else that of the
+// launch. x is (B, n) contiguous f32; win is (K,) f64; perm is (K/2,)
+// int32; tw is (rows, 2) f64, and stages, in HOST memory, (n_stages, 4)
+// int32 rows (radix, span, twiddle row, root row), both from
+// core/stft.py::fft_plan, with split the first row of the split step's
+// twiddles; wts is (F,) f64 with F <= K; out is (B, T, F) f32;
+// part_min/part_max are (B * T,) f32 and may be null when with_stats is
+// 0. K is even, 32 to 8192; detrend is 1 for constant, 0 for none. The
+// caller keeps B * T within the grid's limit.
+int stft_mixed_fft_psd_launch(const float* x, const double* win,
+                              const int* perm, const double* tw,
+                              const int* stages, int n_stages, int split,
+                              const double* wts, float* out,
+                              float* part_min, float* part_max, int B,
+                              long long n, int T, int F, int K, int hop,
+                              int detrend, int log10_out, int with_stats,
+                              void* stream) {
+  const cudaError_t bad = cudaErrorInvalidValue;
+  if (K < 32 || K > 8192 || K % 2 || F < 1 || F > K || n_stages < 1 ||
+      n_stages > MIX_MAX_STAGES)
+    return static_cast<int>(bad);
+  const int M = K / 2;
+  const int threads = fft_threads(K);
+  MixedPlan plan;
+  plan.n_stages = n_stages;
+  plan.split = split;
+  int span = 1;
+  for (int s = 0; s < n_stages; ++s) {
+    const int p = stages[4 * s];
+    const bool odd = p % 2 == 1 && p >= 3 && p <= MIX_MAX_RADIX;
+    if ((p != 2 && !odd) || stages[4 * s + 1] != span || span * p > M ||
+        (odd && p > 7 &&
+         (M / p) * ((p + 1) / 2) > MIX_MAX_ITEMS * threads))
+      return static_cast<int>(bad);
+    for (int j = 0; j < 4; ++j) plan.stage[s][j] = stages[4 * s + j];
+    span *= p;
+  }
+  if (span != M) return static_cast<int>(bad);
+  const size_t smem = static_cast<size_t>(M) * sizeof(double2);
+  const int err = raise_smem(stft_mixed_fft_psd_kernel, smem, mixed_smem_set);
+  if (err != 0) return err;
+  const unsigned blocks = static_cast<unsigned>(B) * static_cast<unsigned>(T);
+  stft_mixed_fft_psd_kernel<<<blocks, threads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      x, win, perm, reinterpret_cast<const double2*>(tw), wts, out, part_min,
+      part_max, n, T, F, K, hop, detrend, log10_out, with_stats, plan);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,31 +1,37 @@
 """Fused STFT/PSD: the CUDA kernels' wrapper and their plain version.
 
-Counterpart of ``spectral_tpu/ops/stft_pallas.py``. Two kernels in
+Counterpart of ``spectral_tpu/ops/stft_pallas.py``. Three kernels in
 ``csrc/stft_psd.cu`` replace ``stft_psd_pallas`` with its ``with_stats``
 and ``log10_out`` modes, across the GUI's whole nperseg range up to 8192
 (the TPU's auto kernel K1 and, above nperseg 6144, its manual-DMA kernel
 K2): framing, the windowed and detrended real DFT, |X|² times the
 one-sided PSD weights, and the per-clip PSD extrema, with no frame tensor
-written to memory. Both compute the same function, by two routes that
-:func:`fft_route` picks from the config alone:
+written to memory. All compute the same function, by three routes that
+:func:`route` picks from the config alone:
 
-- the FFT route (``stft_fft_psd_launch``): power-of-two nperseg from 32 to
-  8192 with detrend none or constant, which covers the driven paths
-  (1024 and 8192). One block per frame: the frame widened to float64,
-  its mean subtracted under constant detrend, the window applied, two
-  real samples packed into each complex value in shared memory, a
-  radix-2 FFT of nperseg/2 points in place, then the split step into the
-  nperseg/2 + 1 bins and the PSD epilogue. Its host
+- ``"fft"`` (``stft_fft_psd_launch``): power-of-two nperseg from 32 to
+  8192 with detrend none or constant (the GUI's nine powers of two, and
+  the driven paths at 1024 and 8192). One block per frame: the frame
+  widened to float64, its mean subtracted under constant detrend, the
+  window applied, two real samples packed into each complex value in
+  shared memory, a radix-2 FFT of nperseg/2 points in place, then the
+  split step into the nperseg/2 + 1 bins and the PSD epilogue. Its host
   constants are the window, the twiddles (numpy's cos and sin of
   -2π j / nperseg, j < nperseg/2, laid out stage by stage) and the
   weights (:func:`fft_constants`);
-- the GEMM route (``stft_psd_launch``): every other nperseg and linear
-  detrend (the GUI offers 32-8192 in steps of 32, GUI.py:87-90, so most of
-  its values). The real DFT as a register-blocked GEMM against (nperseg,
-  F) matrices with the window and detrend folded in
-  (:func:`dft_constants`).
+- ``"mixed"`` (``stft_mixed_fft_psd_launch``): the other even nperseg
+  from 32 to 8192 with detrend none or constant whose nperseg/2 has no
+  odd prime factor past 255 (:data:`MAX_MIXED_RADIX`), which covers the
+  other 247 values of the GUI's range (32-8192 in steps of 32,
+  GUI.py:87-90). The same structure with a mixed-radix transform: radix
+  2, 3, 5 and 7 stages and a generic odd-radix stage, in the order and
+  with the load permutation and twiddle rows of the host plan
+  (``core.stft.fft_plan``, :func:`mixed_constants`);
+- ``"gemm"`` (``stft_psd_launch``): linear detrend, odd nperseg and the
+  rest. The real DFT as a register-blocked GEMM against (nperseg, F)
+  matrices with the window and detrend folded in (:func:`dft_constants`).
 
-Precision. Both routes compute in float64 from the float32 load to the
+Precision. Every route computes in float64 from the float32 load to the
 float32 store, with the host's float64 constants unrounded, and round
 once at the store. A float32 chain does not hold the 1e-3 dB display
 contract at any nperseg in the GUI's range: its error lands on the clip's
@@ -43,13 +49,14 @@ seeds 0-99 (``python3 tools/torch_precision.py``):
     scipy_default 8192     noise + 3  9.86e-3     seed 0 alone
 
 The float64 GEMM route stays below 5e-7 dB on every one of those clips,
-and so does the float64 FFT route (the sweep's last column).
+and so do the float64 FFT routes (the sweep's last columns, with the
+mixed-radix route's own configs).
 
 :func:`stft_psd` takes a kernel for a CUDA tensor and the plain version
 (:func:`stft_psd_reference`, a float64 dense DFT, the plain version of
 both kernels) for a CPU tensor, and only because the tensor lies on the
 CPU. On a CUDA tensor it launches the route's kernel or raises; nothing
-falls back to the other route.
+falls back to another route.
 """
 
 from __future__ import annotations
@@ -63,24 +70,26 @@ import torch
 from spectral_tpu_torch.config import SpecConfig
 from spectral_tpu_torch.core.stft import (_window_f64, dense_dft,
                                           dft_matrices, ensure_real_waveform,
+                                          fft_plan, fft_radices,
                                           fft_twiddles, frame_signal,
                                           num_frames, onesided_weights)
 from spectral_tpu_torch.ops import build
 
 KERNEL = "stft_psd"
 MAX_NPERSEG = 8192           # the GUI's ceiling (GUI.py:87-90)
-MIN_FFT_NPERSEG = 32         # the GUI's floor, the FFT kernel's smallest
+MIN_FFT_NPERSEG = 32         # the GUI's floor, the FFT kernels' smallest
+MAX_MIXED_RADIX = 255        # the mixed kernel's largest odd radix
 # |X|² past float32's range makes the bin inf, as the JAX package's float32
 # pipeline overflows there: the clip's extrema turn inf and its finite flag
 # (the overflow guard) trips, though float64 could carry the value
 F32_MAX = float(np.finfo(np.float32).max)
 # B * T: the kernels index rows with int32; with nperseg <= 8192 (at most
 # 65 frequency tiles) the GEMM route's block count then stays below 2**31
-# too, and the FFT route launches one block per row
+# too, and the FFT routes launch one block per row
 MAX_ROWS = 2 ** 31 - 256
 
 # kernel launches per route, for run-time proof of the path
-launches = {"gemm": 0, "fft": 0}
+launches = {"gemm": 0, "fft": 0, "mixed": 0}
 
 
 class DftConstants(NamedTuple):
@@ -121,15 +130,22 @@ def check_supported(cfg: SpecConfig) -> None:
         raise NotImplementedError(reason)
 
 
-def fft_route(cfg: SpecConfig) -> bool:
-    """Whether the FFT kernel computes cfg: a supported config
-    (:func:`kernel_supported`) with a power-of-two nperseg from 32 to 8192
-    and detrend none or constant. Every other supported config takes the
-    GEMM kernel. A pure function of the config."""
+def route(cfg: SpecConfig) -> str:
+    """The kernel that computes a supported config (:func:`kernel_supported`;
+    others raise NotImplementedError): ``"fft"`` for a power-of-two nperseg
+    from 32 to 8192 with detrend none or constant, ``"mixed"`` for any
+    other even nperseg in that range and detrend whose nperseg/2 has no odd
+    prime factor past :data:`MAX_MIXED_RADIX`, ``"gemm"`` for the rest
+    (linear detrend, odd nperseg, larger primes, nperseg below 32). A pure
+    function of the config."""
+    check_supported(cfg)
     k = cfg.nperseg
-    return (kernel_supported(cfg) and k & (k - 1) == 0
-            and MIN_FFT_NPERSEG <= k <= MAX_NPERSEG
-            and cfg.detrend in ("none", "constant"))
+    if (cfg.detrend not in ("none", "constant") or k % 2
+            or not MIN_FFT_NPERSEG <= k <= MAX_NPERSEG):
+        return "gemm"
+    if k & (k - 1) == 0:
+        return "fft"
+    return "mixed" if max(fft_radices(k // 2)) <= MAX_MIXED_RADIX else "gemm"
 
 
 def constants_from_numpy(a_re: np.ndarray, a_im: np.ndarray,
@@ -184,6 +200,39 @@ def fft_constants(cfg: SpecConfig, fs: float, device) -> FftConstants:
     return consts
 
 
+class MixedConstants(NamedTuple):
+    """The mixed-radix kernel's operands: the window (K,), the load order
+    (K/2,) int32, the plan's twiddle table (rows, 2) and the weights (F,)
+    in float64 on the device, and the plan's (S, 4) int32 stage rows and
+    the split step's first row on the host (``core.stft.fft_plan``)."""
+    window: torch.Tensor
+    perm: torch.Tensor
+    twiddles: torch.Tensor
+    wts: torch.Tensor
+    stages: np.ndarray
+    split: int
+
+
+def mixed_constants(cfg: SpecConfig, fs: float, device) -> MixedConstants:
+    """The mixed-radix route's operands for (cfg, fs), the host's float64
+    numpy values unrounded, cached per device. No (K, F) matrix is
+    built."""
+    key = ("mixed", cfg, float(fs), str(torch.device(device)))
+    consts = _CONSTANTS.get(key)
+    if consts is None:
+        plan = fft_plan(cfg.nperseg)
+
+        def put(a, dtype=torch.float64):
+            return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+        consts = MixedConstants(put(_window_f64(cfg)),
+                                put(plan.perm, torch.int32),
+                                put(plan.twiddles),
+                                put(onesided_weights(cfg, fs)),
+                                np.array(plan.stages, np.int32), plan.split)
+        _CONSTANTS[key] = consts
+    return consts
+
+
 def _empty_result(B: int, F: int, like: torch.Tensor, with_stats: bool):
     empty = like.new_zeros((B, 0, F))
     if with_stats:
@@ -231,6 +280,9 @@ def _library() -> ctypes.CDLL:
         lib.stft_fft_psd_launch.argtypes = [ptr] * 7 + [
             i32, ctypes.c_longlong, i32, i32, i32, i32, i32, i32, i32, ptr]
         lib.stft_fft_psd_launch.restype = i32
+        lib.stft_mixed_fft_psd_launch.argtypes = [ptr] * 5 + [i32, i32] + [
+            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 7 + [ptr]
+        lib.stft_mixed_fft_psd_launch.restype = i32
         lib.stft_psd_freq_tiles.argtypes = [i32]
         lib.stft_psd_freq_tiles.restype = i32
         lib.stft_psd_error_string.argtypes = [i32]
@@ -240,9 +292,9 @@ def _library() -> ctypes.CDLL:
 
 def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
                    log10_out: bool, with_stats: bool,
-                   route: Optional[str] = None):
+                   kernel: Optional[str] = None):
     lib = _library()
-    route = route or ("fft" if fft_route(cfg) else "gemm")
+    kernel = kernel or route(cfg)
     if x.dtype != torch.float32:
         raise TypeError(f"the STFT kernel computes in float32, got {x.dtype}; "
                         "cast the waveform explicitly")
@@ -258,20 +310,29 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
     if B * T > MAX_ROWS:
         raise ValueError(f"at most {MAX_ROWS} frames per launch, got "
                          f"{B} clips x {T} frames")
-    n_tiles = 1 if route == "fft" else lib.stft_psd_freq_tiles(F)
+    n_tiles = lib.stft_psd_freq_tiles(F) if kernel == "gemm" else 1
     out = torch.empty((B, T, F), dtype=torch.float32, device=x.device)
     parts = (torch.empty((2, n_tiles, B * T), dtype=torch.float32,
                          device=x.device) if with_stats else None)
     stats = ((parts[0].data_ptr(), parts[1].data_ptr()) if with_stats
              else (None, None))
+    detrend = int(cfg.detrend == "constant")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if route == "fft":
+        if kernel == "fft":
             fc = fft_constants(cfg, fs, x.device)
             err = lib.stft_fft_psd_launch(
                 x.data_ptr(), fc.window.data_ptr(), fc.twiddles.data_ptr(),
                 fc.wts.data_ptr(), out.data_ptr(), *stats, B, n, T, F,
-                cfg.nperseg, cfg.hop_, int(cfg.detrend == "constant"),
+                cfg.nperseg, cfg.hop_, detrend, int(log10_out),
+                int(with_stats), stream)
+        elif kernel == "mixed":
+            mc = mixed_constants(cfg, fs, x.device)
+            err = lib.stft_mixed_fft_psd_launch(
+                x.data_ptr(), mc.window.data_ptr(), mc.perm.data_ptr(),
+                mc.twiddles.data_ptr(), mc.stages.ctypes.data,
+                len(mc.stages), mc.split, mc.wts.data_ptr(), out.data_ptr(),
+                *stats, B, n, T, F, cfg.nperseg, cfg.hop_, detrend,
                 int(log10_out), int(with_stats), stream)
         else:
             dc = dft_constants(cfg, fs, x.device)
@@ -281,9 +342,9 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
                 cfg.nperseg, cfg.hop_, int(log10_out), int(with_stats),
                 stream)
     if err != 0:
-        raise RuntimeError(f"stft_psd {route} kernel launch failed: "
+        raise RuntimeError(f"stft_psd {kernel} kernel launch failed: "
                            + lib.stft_psd_error_string(err).decode())
-    launches[route] += 1
+    launches[kernel] += 1
     if with_stats:
         per_clip = parts.view(2, n_tiles, B, T)
         return (out, torch.amin(per_clip[0], dim=(0, 2)),
@@ -299,16 +360,18 @@ def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
     NaN-propagating, for ``core.scale.normalize_from_stats``; it cannot be
     combined with log10_out. A config outside :func:`kernel_supported`
     raises NotImplementedError on every device. On a CUDA tensor the
-    kernel is the one :func:`fft_route` picks; ``_route`` ("gemm" or
-    "fft") forces one, for timing the two kernels against each other."""
+    kernel is the one :func:`route` picks; ``_route`` forces another the
+    config allows ("gemm" always, else only the config's own route), for
+    timing the kernels against each other."""
     if with_stats and log10_out:
         raise ValueError("with_stats computes linear-PSD extrema; "
                          "combine with log10_out is unsupported")
-    check_supported(cfg)
-    if _route is not None and (_route not in launches or (
-            _route == "fft" and not fft_route(cfg))):
-        raise ValueError(f"no {_route!r} route for nperseg {cfg.nperseg}, "
-                         f"detrend {cfg.detrend!r}")
+    kernel = route(cfg)
+    if _route is not None:
+        if _route not in ("gemm", kernel):
+            raise ValueError(f"no {_route!r} route for nperseg "
+                             f"{cfg.nperseg}, detrend {cfg.detrend!r}")
+        kernel = _route
     x = ensure_real_waveform(x)
     if x.ndim == 1:
         out = stft_psd(x[None], fs, cfg, log10_out=log10_out,
@@ -320,4 +383,4 @@ def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
         return stft_psd_reference(x, dft_constants(cfg, fs, x.device),
                                   cfg, log10_out=log10_out,
                                   with_stats=with_stats)
-    return _stft_psd_cuda(x, fs, cfg, log10_out, with_stats, _route)
+    return _stft_psd_cuda(x, fs, cfg, log10_out, with_stats, kernel)

@@ -1,5 +1,5 @@
 """The FFT route of the port's STFT/PSD kernel (spectral_tpu_torch.ops.
-stft_cuda.fft_route, fft_constants; csrc/stft_psd.cu::stft_fft_psd_kernel),
+stft_cuda.route, fft_constants; csrc/stft_psd.cu::stft_fft_psd_kernel),
 held on the CPU through a numpy model of the kernel's exact algorithm
 (``tools/torch_precision.py::psd_fft``: the same bit-reversed load, the
 same radix-2 butterfly order, the same host twiddle table).
@@ -80,30 +80,38 @@ def _assert_close(got, want, tol):
 
 
 def test_fft_route_on_the_gui_range():
-    """Powers of two from 32 to 8192 with detrend none or constant take
-    the FFT kernel; every other value of the GUI's range (32-8192 in steps
-    of 32) and linear detrend take the GEMM kernel."""
+    """The routes on the GUI's range (32-8192 in steps of 32): under
+    detrend none or constant its 9 powers of two take the FFT kernel and
+    its other 247 values the mixed-radix kernel; linear detrend takes the
+    GEMM kernel."""
     gui = range(32, 8193, 32)
+    counts = {"fft": 0, "mixed": 0}
     for k in gui:
-        pow2 = k & (k - 1) == 0
+        want = "fft" if k & (k - 1) == 0 else "mixed"
         for cfg in (SpecConfig.scipy_default(k),
                     SpecConfig.north_star(k, max(1, k // 4))):
-            assert stft_cuda.fft_route(cfg) is pow2, k
-        assert not stft_cuda.fft_route(SpecConfig(nperseg=k,
-                                                  detrend="linear"))
-    assert sum(k & (k - 1) == 0 for k in gui) == 9      # 32, 64, ..., 8192
-    for k in (992, 8160, 960, 100):
-        assert not stft_cuda.fft_route(SpecConfig.scipy_default(k))
-    for cfg in (SpecConfig.north_star(16, 4),         # below the kernel's 32
-                SpecConfig.scipy_default(16384),      # past the GUI
+            assert stft_cuda.route(cfg) == want, k
+        counts[want] += 1
+        assert stft_cuda.route(SpecConfig(nperseg=k,
+                                          detrend="linear")) == "gemm"
+    assert counts == {"fft": 9, "mixed": 247}
+    for k in (992, 8160, 960, 100, 8032):
+        assert stft_cuda.route(SpecConfig.scipy_default(k)) == "mixed"
+    for cfg in (SpecConfig.north_star(16, 4),         # below the kernels' 32
+                SpecConfig.scipy_default(99),         # odd
+                SpecConfig.scipy_default(2 * 257)):   # an odd prime past 255
+        assert stft_cuda.route(cfg) == "gemm"
+    for cfg in (SpecConfig.scipy_default(16384),      # past the GUI
                 SpecConfig(nperseg=256, nfft=512),    # unsupported anywhere
                 SpecConfig(nperseg=256, mode="magnitude"),
                 SpecConfig(nperseg=256, n_mels=32)):
-        assert not stft_cuda.fft_route(cfg)
+        with pytest.raises(NotImplementedError):
+            stft_cuda.route(cfg)
     # a pure function of the config: equal configs, equal answers
-    assert stft_cuda.fft_route(SpecConfig.scipy_default(1024)) == \
-        stft_cuda.fft_route(SpecConfig.from_json(
-            SpecConfig.scipy_default(1024).to_json()))
+    for k in (1024, 8160):
+        assert stft_cuda.route(SpecConfig.scipy_default(k)) == \
+            stft_cuda.route(SpecConfig.from_json(
+                SpecConfig.scipy_default(k).to_json()))
 
 
 @pytest.mark.parametrize("nperseg", [32, 1024, 8192])
@@ -189,7 +197,7 @@ def test_fft_model_two_sided():
     complex transform."""
     cfg = SpecConfig(nperseg=256, hop=64, window="hann", detrend="none",
                      onesided=False)
-    assert stft_cuda.fft_route(cfg) and cfg.n_freqs == 256
+    assert stft_cuda.route(cfg) == "fft" and cfg.n_freqs == 256
     x = _clips(60, cfg)
     want = stft_cuda.stft_psd_reference(
         torch.from_numpy(x).double(), stft_cuda.dft_constants(cfg, FS, "cpu"),
@@ -226,15 +234,23 @@ def test_fft_model_nan_and_overflow_like_the_plain_version():
 
 
 def test_forced_route_is_checked():
-    """The module-private ``_route`` forces a kernel on the card; the FFT
-    kernel cannot be forced onto a config outside :func:`fft_route`. On a
-    CPU tensor either route is the plain version."""
+    """The module-private ``_route`` forces a kernel on the card: the GEMM
+    kernel on any config, the FFT and mixed-radix kernels only on the
+    configs :func:`route` gives them. On a CPU tensor every route is the
+    plain version."""
     x = torch.from_numpy(_clips(63, SpecConfig.scipy_default(992)))
     with pytest.raises(ValueError, match="'fft' route"):
         stft_cuda.stft_psd(x, FS, SpecConfig.scipy_default(992), _route="fft")
+    for cfg in (SpecConfig.scipy_default(1024),
+                SpecConfig(nperseg=992, hop=248, detrend="linear")):
+        with pytest.raises(ValueError, match="'mixed' route"):
+            stft_cuda.stft_psd(x, FS, cfg, _route="mixed")
     with pytest.raises(ValueError, match="'dense' route"):
         stft_cuda.stft_psd(x, FS, SpecConfig.scipy_default(1024),
                            _route="dense")
-    cfg = SpecConfig.scipy_default(1024)
-    assert torch.equal(stft_cuda.stft_psd(x, FS, cfg, _route="gemm"),
+    for cfg in (SpecConfig.scipy_default(1024), SpecConfig.scipy_default(992)):
+        assert torch.equal(stft_cuda.stft_psd(x, FS, cfg, _route="gemm"),
+                           stft_cuda.stft_psd(x, FS, cfg))
+    cfg = SpecConfig.scipy_default(992)
+    assert torch.equal(stft_cuda.stft_psd(x, FS, cfg, _route="mixed"),
                        stft_cuda.stft_psd(x, FS, cfg))

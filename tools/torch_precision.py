@@ -20,9 +20,12 @@ the nperseg samples of a frame:
 The second table repeats the float32 chain and the float64 route over
 seeds 0 to N-1 (default 100): whether a float32 chain breaks the 1e-3 dB
 contract depends on the clip, through the depth of its deepest bin. Its
-last column is the FFT route (``psd_fft``): the FFT kernel's exact
-butterfly order and twiddle table, in float64, at every config of the
-sweep (all take that route).
+last two columns are the FFT routes in float64: the radix-2 FFT kernel's
+exact butterfly order and twiddle table (``psd_fft``) at the powers of
+two, and the mixed-radix kernel's stages, load order and twiddle rows
+(``psd_mixed_fft``) at the other configs (``MIXED_SWEEP``, where the
+float32 chain is not emulated: it is a question of the GEMM design, and
+at 8160 its emulation would take hours).
 
 Each PSD is rounded to float32, as the kernel stores it. The display error
 is ``bench.py``'s formula, max |Δimage| times the image's dB range, with
@@ -46,8 +49,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from spectral_tpu_torch.config import SpecConfig  # noqa: E402
 from spectral_tpu_torch.core.stft import (_window_f64,  # noqa: E402
-                                          dft_matrices, fft_twiddles,
-                                          onesided_weights)
+                                          dft_matrices, fft_plan,
+                                          fft_twiddles, onesided_weights)
 
 FS = 16000.0
 CONTRACT_DB = 1e-3
@@ -203,10 +206,109 @@ def psd_fft(frames: np.ndarray, window: np.ndarray, twiddles: np.ndarray,
     return p.astype(np.float32) if round_f32 else p
 
 
+def _cmul(wr, wi, yr, yi):
+    """(wr + i wi)(yr + i yi) as the kernels compute it."""
+    return wr * yr - wi * yi, wr * yi + wi * yr
+
+
+def psd_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
+                  wts: np.ndarray, detrend: str = "none",
+                  round_f32: bool = True) -> np.ndarray:
+    """(T, F) PSD by the mixed-radix FFT kernel's arithmetic
+    (``csrc/stft_psd.cu::stft_mixed_fft_psd_kernel``), in float64, with
+    ``plan`` = ``core/stft.py::fft_plan(nperseg)``, K = nperseg, M = K/2:
+
+    - v = (frame - mean) · window; z[m] = v[2m] + i v[2m + 1] stored at
+      slot perm[m] (the mixed-radix digit reversal);
+    - per stage (p, L) in plan order, on each group g of L·p slots and
+      each k < L (the butterfly (g, k) reads and writes slots g·L·p + k +
+      q·L, q < p):
+      - p = 2: t = W y_1, (y_0 + t, y_0 - t), W the stage's row k;
+      - odd p: y_q ← W_q y_q for q ≥ 1 (row (q - 1)·L + k) when L > 1;
+        then with a_q = y_q + y_(p-q), b_q = y_q - y_(p-q) and the root
+        row (c, s) at (q·m mod p), for m = 0..(p-1)/2 and q = 1..(p-1)/2
+        in ascending order: A = y_0 + Σ a_q c, B = Σ b_q s, out[m] = A +
+        i B and out[p - m] = A - i B;
+    - the split step and the epilogue of :func:`psd_fft` with indices
+      reduced mod M (g = M reads slot 0 and takes W = -1).
+
+    What differs from the card: the mean is one numpy sum, not the
+    kernel's block reduction, and numpy rounds the products where the card
+    may fuse them (FMA)."""
+    f = frames.astype(np.float64)
+    T, K = f.shape
+    M = K // 2
+    mean = (f.sum(axis=-1, keepdims=True) / K if detrend == "constant"
+            else 0.0)
+    v = (f - mean) * window
+    re = np.empty((T, M))
+    im = np.empty((T, M))
+    re[:, plan.perm] = v[:, 0::2]
+    im[:, plan.perm] = v[:, 1::2]
+    tw = plan.twiddles
+    for p, L, tw_row, root_row in plan.stages.tolist():
+        G = M // (L * p)
+        # slot of (group g, value q, k): g·L·p + q·L + k, as (T, G, p, L)
+        zr = re.reshape(T, G, p, L)
+        zi = im.reshape(T, G, p, L)
+        if p == 2:
+            wr, wi = tw[tw_row:tw_row + L, 0], tw[tw_row:tw_row + L, 1]
+            tr, ti = _cmul(wr, wi, zr[:, :, 1], zi[:, :, 1])
+            ar, ai = zr[:, :, 0].copy(), zi[:, :, 0].copy()
+            zr[:, :, 0], zi[:, :, 0] = ar + tr, ai + ti
+            zr[:, :, 1], zi[:, :, 1] = ar - tr, ai - ti
+            continue
+        if L > 1:
+            w = tw[tw_row:tw_row + (p - 1) * L].reshape(p - 1, L, 2)
+            zr[:, :, 1:], zi[:, :, 1:] = _cmul(w[..., 0], w[..., 1],
+                                               zr[:, :, 1:], zi[:, :, 1:])
+        h = (p - 1) // 2
+        roots = tw[root_row:root_row + p]
+        m = np.arange(h + 1)
+        # (T, G, h + 1, L): A and B of outputs m = 0..h
+        Ar = np.repeat(zr[:, :, :1], h + 1, axis=2)
+        Ai = np.repeat(zi[:, :, :1], h + 1, axis=2)
+        Br = np.zeros_like(Ar)
+        Bi = np.zeros_like(Ar)
+        for q in range(1, h + 1):
+            c = roots[(q * m) % p, 0][:, None]
+            s = roots[(q * m) % p, 1][:, None]
+            yr, yi = zr[:, :, q:q + 1], zi[:, :, q:q + 1]
+            xr, xi = zr[:, :, p - q:p - q + 1], zi[:, :, p - q:p - q + 1]
+            Ar = Ar + (yr + xr) * c
+            Ai = Ai + (yi + xi) * c
+            Br = Br + (yr - xr) * s
+            Bi = Bi + (yi - xi) * s
+        zr[:, :, :h + 1], zi[:, :, :h + 1] = Ar - Bi, Ai + Br
+        zr[:, :, p - h:], zi[:, :, p - h:] = ((Ar + Bi)[:, :, :0:-1],
+                                              (Ai - Br)[:, :, :0:-1])
+    F = wts.shape[0]
+    fb = np.arange(F)
+    g = np.minimum(fb, K - fb)
+    a, b = g % M, (M - g) % M
+    ar, ai, br, bi = re[:, a], im[:, a], re[:, b], im[:, b]
+    er, ei = 0.5 * (ar + br), 0.5 * (ai - bi)
+    o_r, o_i = 0.5 * (ai + bi), 0.5 * (br - ar)
+    last = np.minimum(g, M - 1)
+    wr = np.where(g < M, tw[plan.split + last, 0], -1.0)
+    wi = np.where(g < M, tw[plan.split + last, 1], 0.0)
+    xr = er + (wr * o_r - wi * o_i)
+    xi = ei + (wr * o_i + wi * o_r)
+    s = xr * xr + xi * xi
+    p = np.where(s > F32_MAX, np.inf, s * wts)
+    return p.astype(np.float32) if round_f32 else p
+
+
 def fft_operands(cfg: SpecConfig, fs: float = FS):
     """The FFT kernel's host operands as numpy float64: window, twiddle
     table, weights."""
     return (_window_f64(cfg), fft_twiddles(cfg.nperseg),
+            onesided_weights(cfg, fs))
+
+
+def mixed_operands(cfg: SpecConfig, fs: float = FS):
+    """The mixed-radix kernel's host operands: window, plan, weights."""
+    return (_window_f64(cfg), fft_plan(cfg.nperseg),
             onesided_weights(cfg, fs))
 
 
@@ -231,6 +333,14 @@ SWEEP = [
     ("north_star 512/128", SpecConfig.north_star(512, 128)),
     ("north_star 1024/256", SpecConfig.north_star(1024, 256)),
     ("scipy_default 1024", SpecConfig.scipy_default(1024)),
+]
+
+MIXED_SWEEP = [
+    ("north_star 960/240", SpecConfig.north_star(960, 240)),
+    ("scipy_default 992", SpecConfig.scipy_default(992)),
+    ("scipy_default 7968", SpecConfig.scipy_default(7968)),
+    ("scipy_default 8032", SpecConfig.scipy_default(8032)),
+    ("scipy_default 8160", SpecConfig.scipy_default(8160)),
 ]
 
 
@@ -258,30 +368,41 @@ def one_clip_table() -> None:
 def sweep_table(seeds: int) -> None:
     print(f"\nconfig                 clip       fp32 chain: worst  seed  "
           f"above {CONTRACT_DB:g} dB  worst of seeds 0-19 | f64, A f64: "
-          f"worst | fft route: worst  (seeds 0-{seeds - 1})")
-    for name, cfg in SWEEP:
+          f"worst | fft route: worst | mixed route: worst  (seeds "
+          f"0-{seeds - 1})")
+    for name, cfg in SWEEP + MIXED_SWEEP:
+        chain = (name, cfg) in SWEEP
         a_re, a_im = dft_matrices(cfg)
         wts = onesided_weights(cfg, FS)
-        ops = fft_operands(cfg)
+        if chain:
+            model, ops = psd_fft, fft_operands(cfg)
+        else:
+            model, ops = psd_mixed_fft, mixed_operands(cfg)
         for offset in (0.0, 3.0):
             fp32, f64, fft = [], [], []
             for s in range(seeds):
                 x = clip(cfg, s, offset)
                 x64 = x.astype(np.float64)
                 frames = frames_of(x, cfg)
-                fp32.append(display_error_db(
-                    psd_fp32_chain(frames, a_re, a_im, wts).T, x64, cfg))
+                if chain:
+                    fp32.append(display_error_db(
+                        psd_fp32_chain(frames, a_re, a_im, wts).T, x64, cfg))
                 f64.append(display_error_db(
                     psd_f64(frames, a_re, a_im, wts).T, x64, cfg))
                 fft.append(display_error_db(
-                    psd_fft(frames, *ops, detrend=cfg.detrend).T, x64, cfg))
-            fp32 = np.asarray(fp32)
+                    model(frames, *ops, detrend=cfg.detrend).T, x64, cfg))
             kind = "noise + 3" if offset else "noise"
-            print(f"{name:22s} {kind:10s} {fp32.max():.2e}           "
-                  f"{int(fp32.argmax()):4d}  {int((fp32 > CONTRACT_DB).sum()):3d}"
-                  f" of {seeds:<4d}     {fp32[:20].max():.2e}"
-                  f"            | {max(f64):.2e}           | {max(fft):.2e}",
-                  flush=True)
+            if chain:
+                fp32 = np.asarray(fp32)
+                left = (f"{fp32.max():.2e}           {int(fp32.argmax()):4d}"
+                        f"  {int((fp32 > CONTRACT_DB).sum()):3d} of "
+                        f"{seeds:<4d}     {fp32[:20].max():.2e}           ")
+                cols = f"{max(fft):.2e}          | —"
+            else:
+                left = f"{'—':<49s}"
+                cols = f"{'—':<17s}| {max(fft):.2e}"
+            print(f"{name:22s} {kind:10s} {left} | {max(f64):.2e}           "
+                  f"| {cols}", flush=True)
 
 
 def main(argv=None) -> None:

@@ -1,15 +1,20 @@
 """Time the PyTorch port's STFT kernel at the display spine's batch, for one
 checkout of the port.
 
-    python3 tools/torch_route_times.py [--root DIR]
+    python3 tools/torch_route_times.py [--root DIR] [--route ROUTE]
+                                       [--nperseg N ...]
 
 Imports ``spectral_tpu_torch`` from DIR (default: the checkout holding this
 script), builds its STFT kernel from DIR's sources, and times
 ``stft_psd(x, fs, cfg, with_stats=True)`` on 1024 clips of 10 s at 16 kHz
-for scipy_default 1024 and north_star 1024/256, with CUDA events, median
-of 5 after a warm-up. Pointed at an older checkout it times that
-checkout's kernel, so one call on one card compares two versions: run it
-for the older, this, this and the older again.
+for scipy_default 1024, north_star 1024/256 and scipy_default 992 (the
+mixed-radix route), or scipy_default at each ``--nperseg`` given, with
+CUDA events, median of 5 after a warm-up. ``--route`` (gemm, fft or
+mixed) forces that kernel through ``stft_psd``'s module-private
+``_route`` on the configs that allow it and skips the others. Pointed at
+an older checkout it times that checkout's kernels, so one call on one
+card compares two versions: run it for the older, this, this and the
+older again.
 
 Needs one CUDA card. Prints one JSON line: the root, the card's name and
 power limit, and per config the median, every repeat and the launch
@@ -34,6 +39,10 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="the checkout to time")
+    ap.add_argument("--route", choices=("gemm", "fft", "mixed"),
+                    help="force this kernel where the config allows it")
+    ap.add_argument("--nperseg", type=int, nargs="*",
+                    help="time scipy_default at these nperseg instead")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -54,19 +63,30 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn((CLIPS, int(FS * SECONDS)), generator=gen, device=dev)
     report = {"root": root, "card": card, "clips": CLIPS,
-              "seconds": SECONDS}
-    for name, cfg in (("scipy_default 1024", SpecConfig.scipy_default(1024)),
-                      ("north_star 1024/256",
-                       SpecConfig.north_star(1024, 256))):
+              "seconds": SECONDS, "route": args.route}
+    configs = ([(f"scipy_default {k}", SpecConfig.scipy_default(k))
+                for k in args.nperseg] if args.nperseg else
+               [("scipy_default 1024", SpecConfig.scipy_default(1024)),
+                ("north_star 1024/256", SpecConfig.north_star(1024, 256)),
+                ("scipy_default 992", SpecConfig.scipy_default(992))])
+    kw = {"with_stats": True}
+    for name, cfg in configs:
+        if args.route is not None:
+            try:
+                stft_cuda.stft_psd(x[:1], FS, cfg, _route=args.route)
+            except ValueError:
+                report[name] = f"no {args.route} route"
+                continue
+            kw["_route"] = args.route
         before = json.loads(json.dumps(stft_cuda.launches))
-        stft_cuda.stft_psd(x, FS, cfg, with_stats=True)     # build, warm up
+        stft_cuda.stft_psd(x, FS, cfg, **kw)     # build, warm up
         torch.cuda.synchronize()
         reps = []
         for _ in range(REPS):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            stft_cuda.stft_psd(x, FS, cfg, with_stats=True)
+            stft_cuda.stft_psd(x, FS, cfg, **kw)
             end.record()
             torch.cuda.synchronize()
             reps.append(start.elapsed_time(end))
