@@ -785,9 +785,10 @@ def long_path(dev, card, dfma_peak, cfg, label):
                  else stft_cuda.mixed_constants)
         t0 = time.perf_counter()
         setup(cfg, FS, dev)
-        print(f"{route} route's f64 constants (window, plan, twiddles, "
-              f"weights) on the card in {time.perf_counter() - t0:.4f} s "
-              "(host build + upload; set-up)")
+        print(f"{route} route's f64 constants (window, "
+              f"{'plan, ' if route == 'mixed' else ''}twiddles, weights) on "
+              f"the card in {time.perf_counter() - t0:.4f} s (host build + "
+              "upload; set-up)")
     t0 = time.perf_counter()
     consts = stft_cuda.dft_constants(cfg, FS, dev)
     print(f"f64 DFT matrices on the card in {time.perf_counter() - t0:.2f} s "

@@ -188,9 +188,8 @@ def fft_twiddles(nfft: int) -> np.ndarray:
 class FftPlan(NamedTuple):
     """The mixed-radix FFT kernel's plan for nperseg K, the transform of
     M = K/2 packed points (:func:`fft_plan`)."""
-    factors: Tuple[int, ...]   # radices in stage order; their product is M
     stages: np.ndarray         # (S, 4) int32: radix p, span L, twiddle row,
-                               # root row of each stage
+                               # root row of each stage, in stage order
     perm: np.ndarray           # (M,) int32: packed value m goes to slot perm[m]
     twiddles: np.ndarray       # (rows, 2) float64 (cos, sin), stage-ordered
     split: int                 # first of the M split-step rows W_K^g
@@ -216,10 +215,11 @@ def fft_radices(m: int) -> Tuple[int, ...]:
 @functools.lru_cache(maxsize=16)
 def fft_plan(nfft: int) -> FftPlan:
     """Host plan of the mixed-radix FFT kernel for an even nfft = K: a
-    decimation-in-time transform of M = K/2 points in stage order
-    ``factors`` (odd primes descending, then the twos), stage s of radix p
-    and span L (the product of the radices before it) combining p
-    transforms of L points, values L apart, into one of L·p points.
+    decimation-in-time transform of M = K/2 points whose stages take M's
+    prime factors in :func:`fft_radices` order (odd primes descending,
+    then the twos), stage s of radix p and span L (the product of the
+    radices before it) combining p transforms of L points, values L apart,
+    into one of L·p points.
 
     - ``perm``: the load order, the mixed-radix digit reversal: packed
       value m lands at slot (m mod p_last)·(M/p_last) + the same rule for
@@ -263,7 +263,7 @@ def fft_plan(nfft: int) -> FftPlan:
         span //= p
         perm += (m % p) * span
         m //= p
-    return FftPlan(factors, np.asarray(stages, np.int32),
+    return FftPlan(np.asarray(stages, np.int32),
                    perm.astype(np.int32),
                    np.ascontiguousarray(np.concatenate(blocks)), row)
 

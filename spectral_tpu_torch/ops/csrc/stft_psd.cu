@@ -248,8 +248,9 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
 //      memory: log2(M) stages, stage h (h = 1, 2, ..., M/2) combining
 //      z[i0] and z[i0 + h] with the twiddle W_2h^k = tw[h - 1 + k],
 //      k = i0 mod h;
-//   4. the split step and the epilogue of the GEMM route on bins f < F:
-//      with g = min(f, K - f), E = (Z[g] + conj Z[M - g]) / 2 and
+//   4. the split step and the epilogue of the GEMM route on bins f < F
+//      (split_psd_epilogue, shared with the mixed-radix kernel): with
+//      g = min(f, K - f), E = (Z[g] + conj Z[M - g]) / 2 and
 //      O = -i (Z[g] - conj Z[M - g]) / 2 (indices mod M), X[f] = E +
 //      W_K^g O (W_K^g = tw[M - 1 + g], -1 at g = M); then the power,
 //      log10_out and the NaN-propagating (min, max) partials, one per row;
@@ -307,6 +308,74 @@ __device__ __forceinline__ double block_sum(double v, double* scratch) {
   return s;
 }
 
+// The slot of transform index i < M in the FFT kernels' buffers
+struct SwizzledSlot {            // the radix-2 kernel's (M = 2^log2m)
+  int log2m;
+  __device__ int operator()(int i) const { return swz(i, log2m); }
+};
+struct PlainSlot {               // the mixed-radix kernel's
+  __device__ int operator()(int i) const { return i; }
+};
+
+// The FFT kernels' epilogue for row r, from the M-point transform Z of the
+// packed frame in buf: for bins f < F, with g = min(f, K - f), E = (Z[g] +
+// conj Z[M - g]) / 2 and O = -i (Z[g] - conj Z[M - g]) / 2 (indices mod
+// M), X[f] = E + W_K^g O (W_K^g = split[g], -1 at g = M); then the power,
+// log10_out and the NaN-propagating (min, max) of the row, one partial
+// per row; bins in natural order, so the stores of one frame coalesce.
+// red_lo/red_hi hold one float per warp.
+template <typename Slot>
+__device__ __forceinline__ void split_psd_epilogue(
+    const double2* buf, Slot slot, const double2* __restrict__ split,
+    const double* __restrict__ wts, float* __restrict__ out,
+    float* __restrict__ part_min, float* __restrict__ part_max,
+    float* red_lo, float* red_hi, int r, int F, int K, int log10_out,
+    int with_stats) {
+  const int M = K >> 1;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  float lo = INFINITY;
+  float hi = -INFINITY;
+  for (int f = tid; f < F; f += nt) {
+    const int g = f <= M ? f : K - f;
+    const double2 a = buf[slot(g == M ? 0 : g)];
+    const double2 b = buf[slot(g == 0 ? 0 : M - g)];
+    const double2 w = g < M ? split[g] : make_double2(-1.0, 0.0);
+    const double er = 0.5 * (a.x + b.x);
+    const double ei = 0.5 * (a.y - b.y);
+    const double o_r = 0.5 * (a.y + b.y);
+    const double o_i = 0.5 * (b.x - a.x);
+    const double xr = er + (w.x * o_r - w.y * o_i);
+    const double xi = ei + (w.x * o_i + w.y * o_r);
+    const double pw = power(xr, xi, wts[f]);
+    const float p = static_cast<float>(pw);
+    lo = nan_min(lo, p);
+    hi = nan_max(hi, p);
+    out[(long long)r * F + f] =
+        log10_out ? static_cast<float>(log10(pw + 1e-20)) : p;
+  }
+  if (with_stats) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+      hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+    if ((tid & 31) == 0) {
+      red_lo[tid >> 5] = lo;
+      red_hi[tid >> 5] = hi;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < (nt >> 5); ++w) {
+        lo = nan_min(lo, red_lo[w]);
+        hi = nan_max(hi, red_hi[w]);
+      }
+      part_min[r] = lo;
+      part_max[r] = hi;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(FFT_MAX_THREADS)
 stft_fft_psd_kernel(const float* __restrict__ x,
                     const double* __restrict__ win,
@@ -361,46 +430,9 @@ stft_fft_psd_kernel(const float* __restrict__ x,
     __syncthreads();
   }
 
-  float lo = INFINITY;
-  float hi = -INFINITY;
-  for (int f = tid; f < F; f += nt) {
-    const int g = f <= M ? f : K - f;
-    const double2 a = buf[swz(g & (M - 1), log2m)];
-    const double2 b = buf[swz((M - g) & (M - 1), log2m)];
-    const double2 w = g < M ? tw[M - 1 + g] : make_double2(-1.0, 0.0);
-    const double er = 0.5 * (a.x + b.x);
-    const double ei = 0.5 * (a.y - b.y);
-    const double o_r = 0.5 * (a.y + b.y);
-    const double o_i = 0.5 * (b.x - a.x);
-    const double xr = er + (w.x * o_r - w.y * o_i);
-    const double xi = ei + (w.x * o_i + w.y * o_r);
-    const double pw = power(xr, xi, wts[f]);
-    const float p = static_cast<float>(pw);
-    lo = nan_min(lo, p);
-    hi = nan_max(hi, p);
-    out[(long long)r * F + f] =
-        log10_out ? static_cast<float>(log10(pw + 1e-20)) : p;
-  }
-  if (with_stats) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-      hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    }
-    if ((tid & 31) == 0) {
-      red_lo[tid >> 5] = lo;
-      red_hi[tid >> 5] = hi;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < (nt >> 5); ++w) {
-        lo = nan_min(lo, red_lo[w]);
-        hi = nan_max(hi, red_hi[w]);
-      }
-      part_min[r] = lo;
-      part_max[r] = hi;
-    }
-  }
+  split_psd_epilogue(buf, SwizzledSlot{log2m}, tw + (M - 1), wts, out,
+                     part_min, part_max, red_lo, red_hi, r, F, K, log10_out,
+                     with_stats);
 }
 
 // ---------------------------------------------------------------------------
@@ -428,17 +460,20 @@ stft_fft_psd_kernel(const float* __restrict__ x,
 //
 //   - radix 2: (y_0 + W y_1, y_0 - W y_1), one butterfly per thread;
 //   - radix 3, 5, 7 (stage_odd): one butterfly per thread in registers,
-//     the symmetric form of the odd DFT: a_q = y_q + y_(p-q), b_q = y_q -
-//     y_(p-q), A_m = y_0 + sum_q a_q c_qm, B_m = sum_q b_q s_qm (q, m =
-//     1..(p-1)/2, (c, s) the table's root W_p^(q m mod p)), out[m] = A_m
-//     + i B_m, out[p - m] = A_m - i B_m;
+//     the symmetric form of the odd DFT: with a_q = y_q + y_(p-q), b_q =
+//     y_q - y_(p-q) and (c, s) the table's root W_p^(q m mod p), A_m = y_0
+//     + sum_q a_q c, B_m = sum_q b_q s (q, m = 1..(p-1)/2), out[m] = A_m +
+//     i B_m and out[p - m] = A_m - i B_m;
 //   - any other odd radix, 11-251 on the GUI's range (stage_generic): the
-//     same sums, but a thread per output pair (m, p - m) of a (g, k),
-//     looping over q, its p roots staged in shared memory; the results
-//     wait in registers until every thread has read its inputs (at most
-//     MIX_MAX_ITEMS pairs a thread), then are written in place. The
-//     twiddle pass runs before it, over the whole buffer. No p values are
-//     held in registers.
+//     same sums, but a thread per output pair (m, p - m) of a butterfly,
+//     looping over q, in rounds of as many whole butterflies as the block
+//     has threads for: a round reads its butterflies' slots, waits at a
+//     barrier, and writes them. The twiddle pass runs before it, over the
+//     whole buffer. No p values are held in registers.
+//
+// The odd radices' p roots are staged in shared memory, so neighbouring
+// threads read them as broadcasts and they take no registers: the kernel
+// fits 64 registers, two blocks of 512 threads an SM.
 //
 // The host's table rows are numpy's float64 (cos, sin) of -2 pi j / K,
 // j an integer reduced exactly mod K, unrounded, stage by stage; the last
@@ -449,16 +484,16 @@ stft_fft_psd_kernel(const float* __restrict__ x,
 // this design by shared memory and, at a large prime, by the generic
 // stage's float64 arithmetic: (p - 1)/2 iterations of 4 DFMA and 4 DADD
 // for each output pair, about M p / 2 real multiply-adds a frame against
-// the radix-2 kernel's 2 M log2 M. The buffer holds M complex float64 values (M * 16 bytes,
-// 64 KB at K = 8160), so three blocks fit an SM; the launcher raises the
-// kernel's dynamic shared memory limit past 48 KB. The indices are not
+// the radix-2 kernel's 2 M log2 M. The buffer holds M complex float64
+// values (M * 16 bytes, 64 KB at K = 8160; the launcher raises the
+// kernel's dynamic shared memory limit past 48 KB), so registers, not
+// shared memory, set the blocks an SM holds. The indices are not
 // swizzled: M is not a power of two, so the radix-2 kernel's XOR swizzle
 // does not apply, and bank conflicts are left for a later design.
 
 constexpr int MIX_MAX_STAGES = 16;   // M <= 4096 has at most 12 factors
 constexpr int MIX_MAX_RADIX = 255;   // largest odd radix; roots in smem
-constexpr int MIX_MAX_ITEMS = 5;     // generic-stage output pairs a thread
-                                     // holds (the launcher checks)
+constexpr int MIX_MIN_BLOCKS = 2;    // blocks of 512 threads an SM holds
 
 struct MixedPlan {
   int n_stages;
@@ -484,16 +519,24 @@ __device__ __forceinline__ void stage_radix2(double2* buf,
   }
 }
 
+// stage the p roots W_p^i of an odd radix in shared memory; the caller's
+// __syncthreads after the previous stage keeps them from being replaced
+// while that stage reads them
+__device__ __forceinline__ void load_roots(double2* roots,
+                                           const double2* __restrict__ tw,
+                                           int p, int root_row) {
+  for (int i = threadIdx.x; i < p; i += blockDim.x) roots[i] = tw[root_row + i];
+  __syncthreads();
+}
+
 // radix P = 3, 5 or 7 at span L: butterfly j of M/P in registers
 template <int P>
-__device__ __forceinline__ void stage_odd(double2* buf,
+__device__ __forceinline__ void stage_odd(double2* buf, double2* roots,
                                           const double2* __restrict__ tw,
                                           int M, int L, int tw_row,
                                           int root_row) {
   constexpr int H = (P - 1) / 2;
-  double2 root[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) root[i] = tw[root_row + i];
+  load_roots(roots, tw, P, root_row);
   for (int j = threadIdx.x; j < M / P; j += blockDim.x) {
     const int k = j % L;
     const int base = (j - k) * P + k;
@@ -505,23 +548,16 @@ __device__ __forceinline__ void stage_odd(double2* buf,
       for (int q = 1; q < P; ++q)
         y[q] = cmul(tw[tw_row + (q - 1) * L + k], y[q]);
     }
-    double2 a[H + 1];
-    double2 b[H + 1];
-#pragma unroll
-    for (int q = 1; q <= H; ++q) {
-      a[q] = make_double2(y[q].x + y[P - q].x, y[q].y + y[P - q].y);
-      b[q] = make_double2(y[q].x - y[P - q].x, y[q].y - y[P - q].y);
-    }
 #pragma unroll
     for (int m = 0; m <= H; ++m) {
       double ar = y[0].x, ai = y[0].y, br = 0.0, bi = 0.0;
 #pragma unroll
       for (int q = 1; q <= H; ++q) {
-        const double2 c = root[(q * m) % P];
-        ar += a[q].x * c.x;
-        ai += a[q].y * c.x;
-        br += b[q].x * c.y;
-        bi += b[q].y * c.y;
+        const double2 c = roots[(q * m) % P];
+        ar += (y[q].x + y[P - q].x) * c.x;
+        ai += (y[q].y + y[P - q].y) * c.x;
+        br += (y[q].x - y[P - q].x) * c.y;
+        bi += (y[q].y - y[P - q].y) * c.y;
       }
       buf[base + m * L] = make_double2(ar - bi, ai + br);
       if (m > 0) buf[base + (P - m) * L] = make_double2(ar + bi, ai - br);
@@ -529,8 +565,10 @@ __device__ __forceinline__ void stage_odd(double2* buf,
   }
 }
 
-// any odd radix p at span L: output pair (m, p - m) of butterfly (g, k)
-// per work item, item = ((g (h + 1) + m) L + k, m = 0..h, h = (p - 1)/2
+// any odd radix p at span L, in rounds of whole butterflies: thread t
+// computes output pair (m, p - m), m = t mod (h + 1), h = (p - 1)/2, of
+// butterfly j0 + t div (h + 1); a round reads all its butterflies' slots
+// before any is written, and no other round touches them
 __device__ __forceinline__ void stage_generic(double2* buf, double2* roots,
                                               const double2* __restrict__ tw,
                                               int M, int p, int L,
@@ -538,28 +576,27 @@ __device__ __forceinline__ void stage_generic(double2* buf, double2* roots,
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lp = L * p;
-  for (int i = tid; i < p; i += nt) roots[i] = tw[root_row + i];
   if (L > 1) {
     for (int s = tid; s < M; s += nt) {
       const int r = s % lp;          // q L + k
       if (r >= L) buf[s] = cmul(tw[tw_row + r - L], buf[s]);
     }
   }
-  __syncthreads();
+  load_roots(roots, tw, p, root_row);
   const int h = (p - 1) >> 1;
-  const int items = (M / p) * (h + 1);
-  double2 lo[MIX_MAX_ITEMS];
-  double2 hi[MIX_MAX_ITEMS];
-#pragma unroll
-  for (int s = 0; s < MIX_MAX_ITEMS; ++s) {
-    const int it = tid + s * nt;
-    if (it < items) {
-      const int k = it % L;
-      const int gm = it / L;
-      const int m = gm % (h + 1);
-      const int base = (gm / (h + 1)) * lp + k;
+  const int per_round = nt / (h + 1);
+  const int jt = tid / (h + 1);
+  const int m = tid - jt * (h + 1);
+  for (int j0 = 0; j0 < M / p; j0 += per_round) {
+    const int j = j0 + jt;
+    const bool on = jt < per_round && j < M / p;
+    const int k = on ? j % L : 0;
+    const int base = (j - k) * p + k;
+    double ar = 0.0, ai = 0.0, br = 0.0, bi = 0.0;
+    if (on) {
       const double2 y0 = buf[base];
-      double ar = y0.x, ai = y0.y, br = 0.0, bi = 0.0;
+      ar = y0.x;
+      ai = y0.y;
       int idx = 0;                   // q m mod p
       for (int q = 1; q <= h; ++q) {
         idx += m;
@@ -572,26 +609,16 @@ __device__ __forceinline__ void stage_generic(double2* buf, double2* roots,
         br += (u.x - v.x) * c.y;
         bi += (u.y - v.y) * c.y;
       }
-      lo[s] = make_double2(ar - bi, ai + br);
-      hi[s] = make_double2(ar + bi, ai - br);
     }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < MIX_MAX_ITEMS; ++s) {
-    const int it = tid + s * nt;
-    if (it < items) {
-      const int k = it % L;
-      const int gm = it / L;
-      const int m = gm % (h + 1);
-      const int base = (gm / (h + 1)) * lp + k;
-      buf[base + m * L] = lo[s];
-      if (m > 0) buf[base + (p - m) * L] = hi[s];
+    __syncthreads();
+    if (on) {
+      buf[base + m * L] = make_double2(ar - bi, ai + br);
+      if (m > 0) buf[base + (p - m) * L] = make_double2(ar + bi, ai - br);
     }
   }
 }
 
-__global__ void __launch_bounds__(FFT_MAX_THREADS)
+__global__ void __launch_bounds__(FFT_MAX_THREADS, MIX_MIN_BLOCKS)
 stft_mixed_fft_psd_kernel(const float* __restrict__ x,
                           const double* __restrict__ win,
                           const int* __restrict__ perm,
@@ -601,7 +628,8 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
                           float* __restrict__ part_min,
                           float* __restrict__ part_max, long long n, int T,
                           int F, int K, int hop, int detrend, int log10_out,
-                          int with_stats, const __grid_constant__ MixedPlan plan) {
+                          int with_stats,
+                          const __grid_constant__ MixedPlan plan) {
   extern __shared__ double2 buf[];  // K/2 complex values
   __shared__ double2 roots[MIX_MAX_RADIX + 1];
   __shared__ double red_sum[FFT_MAX_WARPS];
@@ -634,54 +662,17 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
     const int root_row = plan.stage[s][3];
     switch (p) {
       case 2: stage_radix2(buf, tw, M, L, tw_row); break;
-      case 3: stage_odd<3>(buf, tw, M, L, tw_row, root_row); break;
-      case 5: stage_odd<5>(buf, tw, M, L, tw_row, root_row); break;
-      case 7: stage_odd<7>(buf, tw, M, L, tw_row, root_row); break;
+      case 3: stage_odd<3>(buf, roots, tw, M, L, tw_row, root_row); break;
+      case 5: stage_odd<5>(buf, roots, tw, M, L, tw_row, root_row); break;
+      case 7: stage_odd<7>(buf, roots, tw, M, L, tw_row, root_row); break;
       default: stage_generic(buf, roots, tw, M, p, L, tw_row, root_row);
     }
     __syncthreads();
   }
 
-  float lo = INFINITY;
-  float hi = -INFINITY;
-  for (int f = tid; f < F; f += nt) {
-    const int g = f <= M ? f : K - f;
-    const double2 a = buf[g == M ? 0 : g];
-    const double2 b = buf[g == 0 ? 0 : M - g];
-    const double2 w = g < M ? tw[plan.split + g] : make_double2(-1.0, 0.0);
-    const double er = 0.5 * (a.x + b.x);
-    const double ei = 0.5 * (a.y - b.y);
-    const double o_r = 0.5 * (a.y + b.y);
-    const double o_i = 0.5 * (b.x - a.x);
-    const double xr = er + (w.x * o_r - w.y * o_i);
-    const double xi = ei + (w.x * o_i + w.y * o_r);
-    const double pw = power(xr, xi, wts[f]);
-    const float pf = static_cast<float>(pw);
-    lo = nan_min(lo, pf);
-    hi = nan_max(hi, pf);
-    out[(long long)r * F + f] =
-        log10_out ? static_cast<float>(log10(pw + 1e-20)) : pf;
-  }
-  if (with_stats) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-      hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    }
-    if ((tid & 31) == 0) {
-      red_lo[tid >> 5] = lo;
-      red_hi[tid >> 5] = hi;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < (nt >> 5); ++w) {
-        lo = nan_min(lo, red_lo[w]);
-        hi = nan_max(hi, red_hi[w]);
-      }
-      part_min[r] = lo;
-      part_max[r] = hi;
-    }
-  }
+  split_psd_epilogue(buf, PlainSlot{}, tw + plan.split, wts, out, part_min,
+                     part_max, red_lo, red_hi, r, F, K, log10_out,
+                     with_stats);
 }
 
 constexpr int FFT_MAX_DEVICES = 64;
@@ -800,8 +791,7 @@ int stft_mixed_fft_psd_launch(const float* x, const double* win,
     const int p = stages[4 * s];
     const bool odd = p % 2 == 1 && p >= 3 && p <= MIX_MAX_RADIX;
     if ((p != 2 && !odd) || stages[4 * s + 1] != span || span * p > M ||
-        (odd && p > 7 &&
-         (M / p) * ((p + 1) / 2) > MIX_MAX_ITEMS * threads))
+        (p + 1) / 2 > threads)
       return static_cast<int>(bad);
     for (int j = 0; j < 4; ++j) plan.stage[s][j] = stages[4 * s + j];
     span *= p;

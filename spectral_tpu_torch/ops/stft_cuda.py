@@ -148,15 +148,19 @@ def route(cfg: SpecConfig) -> str:
     return "mixed" if max(fft_radices(k // 2)) <= MAX_MIXED_RADIX else "gemm"
 
 
+def _put(a, device, dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """A copy of host array ``a`` on ``device`` in ``dtype``, never shared
+    with the (cached) numpy array."""
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
 def constants_from_numpy(a_re: np.ndarray, a_im: np.ndarray,
                          wts: np.ndarray, device,
                          dtype: torch.dtype) -> DftConstants:
     """Host f64 constants (``dft_matrices(cfg)``, ``onesided_weights(cfg,
     fs)`` of either package) -> the kernel's operands on ``device`` in
     ``dtype``. The numpy arrays are copied, never shared."""
-    def put(a):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
-    return DftConstants(put(a_re), put(a_im), put(wts))
+    return DftConstants(*(_put(a, device, dtype) for a in (a_re, a_im, wts)))
 
 
 _CONSTANTS: dict = {}
@@ -190,12 +194,9 @@ def fft_constants(cfg: SpecConfig, fs: float, device) -> FftConstants:
     key = ("fft", cfg, float(fs), str(torch.device(device)))
     consts = _CONSTANTS.get(key)
     if consts is None:
-        def put(a):
-            return torch.tensor(np.asarray(a), dtype=torch.float64,
-                                device=device)
-        consts = FftConstants(put(_window_f64(cfg)),
-                              put(fft_twiddles(cfg.nperseg)),
-                              put(onesided_weights(cfg, fs)))
+        consts = FftConstants(_put(_window_f64(cfg), device),
+                              _put(fft_twiddles(cfg.nperseg), device),
+                              _put(onesided_weights(cfg, fs), device))
         _CONSTANTS[key] = consts
     return consts
 
@@ -221,14 +222,11 @@ def mixed_constants(cfg: SpecConfig, fs: float, device) -> MixedConstants:
     consts = _CONSTANTS.get(key)
     if consts is None:
         plan = fft_plan(cfg.nperseg)
-
-        def put(a, dtype=torch.float64):
-            return torch.tensor(np.asarray(a), dtype=dtype, device=device)
-        consts = MixedConstants(put(_window_f64(cfg)),
-                                put(plan.perm, torch.int32),
-                                put(plan.twiddles),
-                                put(onesided_weights(cfg, fs)),
-                                np.array(plan.stages, np.int32), plan.split)
+        consts = MixedConstants(_put(_window_f64(cfg), device),
+                                _put(plan.perm, device, torch.int32),
+                                _put(plan.twiddles, device),
+                                _put(onesided_weights(cfg, fs), device),
+                                plan.stages.copy(), plan.split)
         _CONSTANTS[key] = consts
     return consts
 

@@ -92,22 +92,23 @@ def _assert_close(got, want, tol):
 def test_plan_factors_order_and_load_permutation(nperseg):
     plan = tstft.fft_plan(nperseg)
     M = nperseg // 2
-    assert int(np.prod(plan.factors)) == M
-    odd = [p for p in plan.factors if p % 2]
-    assert list(plan.factors) == sorted(odd, reverse=True) + \
-        [2] * (len(plan.factors) - len(odd))
-    assert all(all(p % d for d in range(2, p)) for p in plan.factors)
-    assert plan.perm.dtype == np.int32
+    factors = plan.stages[:, 0].tolist()
+    assert factors == list(tstft.fft_radices(M))
+    assert int(np.prod(factors)) == M
+    odd = [p for p in factors if p % 2]
+    assert factors == sorted(odd, reverse=True) + [2] * (len(factors)
+                                                         - len(odd))
+    assert all(all(p % d for d in range(2, p)) for p in factors)
+    assert plan.stages.dtype == np.int32 and plan.perm.dtype == np.int32
     assert np.array_equal(np.sort(plan.perm), np.arange(M))
     # span L of each stage is the product of the radices before it
-    assert plan.stages[:, 0].tolist() == list(plan.factors)
     assert plan.stages[:, 1].tolist() == [
-        int(np.prod(plan.factors[:s])) for s in range(len(plan.factors))]
+        int(np.prod(factors[:s])) for s in range(len(factors))]
     # the mixed-radix digit reversal: value m's digits, least significant
     # in the last stage's radix, read back most significant first
     for m in (0, 1, M // 3, M - 1):
         slot, rest, span = 0, m, M
-        for p in reversed(plan.factors):
+        for p in reversed(factors):
             span //= p
             slot += (rest % p) * span
             rest //= p
@@ -161,24 +162,26 @@ def test_mixed_constants_build_no_dft_matrix(monkeypatch):
     assert stft_cuda.mixed_constants(cfg, FS, "cpu") is mc      # cached
 
 
-def test_generic_stage_fits_the_register_buffer():
-    """The launcher's limit, on every mixed GUI value: a thread of the
-    generic stage holds at most MIX_MAX_ITEMS = 5 output pairs, with the
-    kernel's K/4 threads rounded up to a warp, 32 to 512."""
+def _threads(nperseg):
+    """The kernel's block: K/4 threads rounded up to a warp, 32 to 512."""
+    return min(512, max(32, (nperseg // 4 + 31) // 32 * 32))
+
+
+def test_generic_stage_rounds_fit_the_block():
+    """The launcher's limit, on every mixed GUI value: a round of the
+    generic stage gives each of a butterfly's (p + 1)/2 output pairs a
+    thread, so one butterfly must fit the block."""
     for k in MIXED_GUI:
-        plan = tstft.fft_plan(k)
-        threads = min(512, max(32, (k // 4 + 31) // 32 * 32))
-        for p in plan.factors:
-            if p > 7:
-                assert (k // 2 // p) * ((p + 1) // 2) <= 5 * threads, (k, p)
-        assert max(plan.factors) <= stft_cuda.MAX_MIXED_RADIX
-        assert len(plan.factors) <= 16
+        factors = tstft.fft_plan(k).stages[:, 0]
+        assert all((p + 1) // 2 <= _threads(k) for p in factors)
+        assert max(factors) <= stft_cuda.MAX_MIXED_RADIX
+        assert len(factors) <= 16
 
 
 def _kernel_loops(frame, window, plan, F, detrend):
     """The mixed-radix kernel's thread loops for one frame, transcribed
-    scalar by scalar from csrc/stft_psd.cu (the generic stage's results
-    held until every item has read its inputs): its index arithmetic,
+    scalar by scalar from csrc/stft_psd.cu (each round of a stage reads
+    its butterflies' slots before it writes them): its index arithmetic,
     run before any card."""
     tw = plan.twiddles[:, 0] + 1j * plan.twiddles[:, 1]
 
@@ -203,43 +206,35 @@ def _kernel_loops(frame, window, plan, F, detrend):
             continue
         h = (p - 1) // 2
         roots = tw[root_row:root_row + p]
-        held = []
-        if p <= 7:
-            butterflies = [(j - j % L) * p + j % L for j in range(M // p)]
-            items = [(base, m) for base in butterflies for m in range(h + 1)]
-        else:
+        bases = [(j - j % L) * p + j % L for j in range(M // p)]
+        if p <= 7:      # a thread's butterfly: read, then written
+            per_round = 1
+        else:           # whole butterflies, one output pair a thread
+            per_round = _threads(K) // (h + 1)
             if L > 1:
                 for s in range(M):
                     if s % (L * p) >= L:
                         buf[s] = cmul(tw[tw_row + s % (L * p) - L], buf[s])
-            items = []
-            for it in range((M // p) * (h + 1)):
-                gm = it // L
-                items.append(((gm // (h + 1)) * L * p + it % L, gm % (h + 1)))
-        for base, m in items:
-            y = [buf[base + q * L] for q in range(p)]
-            if p <= 7 and L > 1:
-                k = base % L
-                y[1:] = [cmul(tw[tw_row + (q - 1) * L + k], y[q])
-                         for q in range(1, p)]
-            ar, ai, br, bi = y[0].real, y[0].imag, 0.0, 0.0
-            for q in range(1, h + 1):
-                c = roots[(q * m) % p]
-                a, b = y[q] + y[p - q], y[q] - y[p - q]
-                ar, ai = ar + a.real * c.real, ai + a.imag * c.real
-                br, bi = br + b.real * c.imag, bi + b.imag * c.imag
-            held.append((base, m, complex(ar - bi, ai + br),
-                         complex(ar + bi, ai - br)))
-            if p <= 7 and m == h:          # a butterfly writes at its end
-                for b0, mm, lo, hi in held:
-                    buf[b0 + mm * L] = lo
-                    if mm:
-                        buf[b0 + (p - mm) * L] = hi
-                held = []
-        for base, m, lo, hi in held:
-            buf[base + m * L] = lo
-            if m:
-                buf[base + (p - m) * L] = hi
+        for j0 in range(0, M // p, per_round):
+            held = []
+            for base in bases[j0:j0 + per_round]:
+                y = [buf[base + q * L] for q in range(p)]
+                if p <= 7 and L > 1:
+                    y[1:] = [cmul(tw[tw_row + (q - 1) * L + base % L], y[q])
+                             for q in range(1, p)]
+                for m in range(h + 1):
+                    ar, ai, br, bi = y[0].real, y[0].imag, 0.0, 0.0
+                    for q in range(1, h + 1):
+                        c = roots[(q * m) % p]
+                        a, b = y[q] + y[p - q], y[q] - y[p - q]
+                        ar, ai = ar + a.real * c.real, ai + a.imag * c.real
+                        br, bi = br + b.real * c.imag, bi + b.imag * c.imag
+                    held.append((base, m, complex(ar - bi, ai + br),
+                                 complex(ar + bi, ai - br)))
+            for base, m, lo, hi in held:
+                buf[base + m * L] = lo
+                if m:
+                    buf[base + (p - m) * L] = hi
     out = np.zeros(F)
     for f in range(F):
         g = f if f <= M else K - f
