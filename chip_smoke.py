@@ -428,6 +428,8 @@ def kernel_cases(dev):
             ("scipy_default 160, M = 2^4 5", SpecConfig.scipy_default(160)),
             ("scipy_default 224, M = 2^4 7", SpecConfig.scipy_default(224)),
             ("scipy_default 352, M = 2^4 11", SpecConfig.scipy_default(352)),
+            # off the GUI's grid: p = 193 needs 97 threads, K/4 gives 96
+            ("scipy_default 386, M = 193", SpecConfig.scipy_default(386)),
             ("scipy_default 4576, M = 2^4 13 11",
              SpecConfig.scipy_default(4576)),
             ("scipy_default 7904, M = 2^4 19 13",

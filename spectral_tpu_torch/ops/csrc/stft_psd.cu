@@ -782,21 +782,26 @@ int stft_mixed_fft_psd_launch(const float* x, const double* win,
       n_stages > MIX_MAX_STAGES)
     return static_cast<int>(bad);
   const int M = K / 2;
-  const int threads = fft_threads(K);
   MixedPlan plan;
   plan.n_stages = n_stages;
   plan.split = split;
   int span = 1;
+  int p_max = 2;
   for (int s = 0; s < n_stages; ++s) {
     const int p = stages[4 * s];
     const bool odd = p % 2 == 1 && p >= 3 && p <= MIX_MAX_RADIX;
-    if ((p != 2 && !odd) || stages[4 * s + 1] != span || span * p > M ||
-        (p + 1) / 2 > threads)
+    if ((p != 2 && !odd) || stages[4 * s + 1] != span || span * p > M)
       return static_cast<int>(bad);
     for (int j = 0; j < 4; ++j) plan.stage[s][j] = stages[4 * s + j];
     span *= p;
+    if (p > p_max) p_max = p;
   }
   if (span != M) return static_cast<int>(bad);
+  // fft_threads(K), widened to a warp multiple that holds one generic
+  // butterfly's (p + 1)/2 output pairs (K = 386, p = 193: 128, not 96);
+  // at most 128 for p <= MIX_MAX_RADIX
+  const int pairs = ((p_max + 1) / 2 + 31) / 32 * 32;
+  const int threads = fft_threads(K) > pairs ? fft_threads(K) : pairs;
   const size_t smem = static_cast<size_t>(M) * sizeof(double2);
   const int err = raise_smem(stft_mixed_fft_psd_kernel, smem, mixed_smem_set);
   if (err != 0) return err;

@@ -78,7 +78,9 @@ from spectral_tpu_torch.ops import build
 KERNEL = "stft_psd"
 MAX_NPERSEG = 8192           # the GUI's ceiling (GUI.py:87-90)
 MIN_FFT_NPERSEG = 32         # the GUI's floor, the FFT kernels' smallest
-MAX_MIXED_RADIX = 255        # the mixed kernel's largest odd radix
+# the mixed kernel's largest odd radix: MIX_MAX_RADIX in csrc/stft_psd.cu,
+# whose launcher takes every plan :func:`route` gives it
+MAX_MIXED_RADIX = 255
 # |X|² past float32's range makes the bin inf, as the JAX package's float32
 # pipeline overflows there: the clip's extrema turn inf and its finite flag
 # (the overflow guard) trips, though float64 could carry the value

@@ -21,6 +21,7 @@ float64. Tolerances, each with its reason:
 """
 
 import os
+import re
 import sys
 
 import numpy as np
@@ -162,20 +163,47 @@ def test_mixed_constants_build_no_dft_matrix(monkeypatch):
     assert stft_cuda.mixed_constants(cfg, FS, "cpu") is mc      # cached
 
 
-def _threads(nperseg):
-    """The kernel's block: K/4 threads rounded up to a warp, 32 to 512."""
-    return min(512, max(32, (nperseg // 4 + 31) // 32 * 32))
+CSRC = os.path.join(os.path.dirname(stft_cuda.__file__), "csrc",
+                    "stft_psd.cu")
+
+
+def _cuda_constant(name):
+    with open(CSRC) as fh:
+        m = re.search(rf"constexpr int {name} = (\d+);", fh.read())
+    return int(m.group(1))
+
+
+def _threads(nperseg, p_max):
+    """The mixed kernel's block (its launcher's rule): K/4 threads rounded
+    up to a warp, 32 to 512, widened to a warp multiple that holds the
+    largest radix's (p + 1)/2 output pairs."""
+    fft = min(512, max(32, (nperseg // 4 + 31) // 32 * 32))
+    return max(fft, ((p_max + 1) // 2 + 31) // 32 * 32)
 
 
 def test_generic_stage_rounds_fit_the_block():
-    """The launcher's limit, on every mixed GUI value: a round of the
-    generic stage gives each of a butterfly's (p + 1)/2 output pairs a
-    thread, so one butterfly must fit the block."""
-    for k in MIXED_GUI:
-        factors = tstft.fft_plan(k).stages[:, 0]
-        assert all((p + 1) // 2 <= _threads(k) for p in factors)
-        assert max(factors) <= stft_cuda.MAX_MIXED_RADIX
-        assert len(factors) <= 16
+    """Every even nperseg from 32 to 8192 that :func:`route` sends to the
+    mixed kernel is a plan its launcher takes: at most MIX_MAX_STAGES
+    stages, odd radices up to MIX_MAX_RADIX (the constants of
+    csrc/stft_psd.cu), and a block that gives each of a generic
+    butterfly's (p + 1)/2 output pairs a thread (nperseg 386: p = 193
+    needs 97 threads, where K/4 gives 96)."""
+    max_radix = _cuda_constant("MIX_MAX_RADIX")
+    max_stages = _cuda_constant("MIX_MAX_STAGES")
+    max_threads = _cuda_constant("FFT_MAX_THREADS")
+    assert max_radix == stft_cuda.MAX_MIXED_RADIX
+    mixed = [k for k in range(32, 8193, 2) if stft_cuda.route(SpecConfig(
+        nperseg=k, hop=k // 4, detrend="constant")) == "mixed"]
+    assert set(MIXED_GUI) <= set(mixed) and 386 in mixed
+    assert len(mixed) == 2660
+    for k in mixed:
+        factors = tstft.fft_radices(k // 2)
+        assert int(np.prod(factors)) == k // 2 and len(factors) <= max_stages
+        assert all(p == 2 or 3 <= p <= max_radix for p in factors)
+        threads = _threads(k, max(factors))
+        assert threads % 32 == 0 and threads <= max_threads
+        assert all((p + 1) // 2 <= threads for p in factors)
+    assert _threads(386, 193) == 128
 
 
 def _kernel_loops(frame, window, plan, F, detrend):
@@ -210,7 +238,7 @@ def _kernel_loops(frame, window, plan, F, detrend):
         if p <= 7:      # a thread's butterfly: read, then written
             per_round = 1
         else:           # whole butterflies, one output pair a thread
-            per_round = _threads(K) // (h + 1)
+            per_round = _threads(K, int(plan.stages[:, 0].max())) // (h + 1)
             if L > 1:
                 for s in range(M):
                     if s % (L * p) >= L:
@@ -249,10 +277,12 @@ def _kernel_loops(frame, window, plan, F, detrend):
 
 
 @pytest.mark.parametrize("nperseg,onesided", [
-    (96, True), (100, False), (224, True), (352, True), (4576, True)])
+    (96, True), (100, False), (224, True), (352, True), (386, True),
+    (4576, True)])
 def test_kernel_loops_are_the_model(nperseg, onesided):
     """The kernel's indexing, transcribed, computes the model's transform
-    bitwise (4576: two generic stages, the second at span 13)."""
+    bitwise (386: M = 193, one generic stage wider than K/4 threads; 4576:
+    two generic stages, the second at span 13)."""
     cfg = SpecConfig(nperseg=nperseg, hop=nperseg // 4, detrend="constant",
                      onesided=onesided)
     frame = _clips(70 + nperseg, cfg, n_clips=1)[0, :nperseg].astype(
@@ -267,7 +297,7 @@ def test_kernel_loops_are_the_model(nperseg, onesided):
 
 
 @pytest.mark.parametrize("detrend", ["none", "constant"])
-@pytest.mark.parametrize("nperseg", [96, 100, 160, 224, 352, 960, 992])
+@pytest.mark.parametrize("nperseg", [96, 100, 160, 224, 352, 386, 960, 992])
 def test_mixed_model_matches_plain_version(nperseg, detrend):
     cfg = _config(nperseg, detrend)
     assert stft_cuda.route(cfg) == "mixed"

@@ -11,10 +11,12 @@ for scipy_default 1024, north_star 1024/256 and scipy_default 992 (the
 mixed-radix route), or scipy_default at each ``--nperseg`` given, with
 CUDA events, median of 5 after a warm-up. ``--route`` (gemm, fft or
 mixed) forces that kernel through ``stft_psd``'s module-private
-``_route`` on the configs that allow it and skips the others. Pointed at
-an older checkout it times that checkout's kernels, so one call on one
-card compares two versions: run it for the older, this, this and the
-older again.
+``_route`` on the configs that allow it and skips the others; ``--route
+mixed`` also takes the power-of-two configs, whose plan is all radix-2
+stages, and reports the largest difference from the radix-2 kernel's PSD
+relative to its max. Pointed at an older checkout it times that
+checkout's kernels, so one call on one card compares two versions: run it
+for the older, this, this and the older again.
 
 Needs one CUDA card. Prints one JSON line: the root, the card's name and
 power limit, and per config the median, every repeat and the launch
@@ -69,24 +71,36 @@ def main(argv=None) -> None:
                [("scipy_default 1024", SpecConfig.scipy_default(1024)),
                 ("north_star 1024/256", SpecConfig.north_star(1024, 256)),
                 ("scipy_default 992", SpecConfig.scipy_default(992))])
-    kw = {"with_stats": True}
     for name, cfg in configs:
-        if args.route is not None:
+        def call(v, cfg=cfg, route=args.route):
+            return stft_cuda.stft_psd(v, FS, cfg, with_stats=True,
+                                      _route=route)
+        if args.route == "mixed" and stft_cuda.route(cfg) == "fft":
+            # route() never gives the mixed kernel a power of two, where its
+            # plan is all radix-2 stages: launch it through the wrapper's
+            # internal entry, and hold it to the radix-2 kernel's PSD
+            def call(v, cfg=cfg):
+                return stft_cuda._stft_psd_cuda(v, FS, cfg, False, True,
+                                                "mixed")
+            want = stft_cuda.stft_psd(x[:64], FS, cfg)
+            got = call(x[:64])[0]
+            report[f"{name} mixed vs fft"] = float(
+                (got - want).abs().amax() / want.abs().amax())
+        elif args.route is not None:
             try:
-                stft_cuda.stft_psd(x[:1], FS, cfg, _route=args.route)
+                call(x[:1])
             except ValueError:
                 report[name] = f"no {args.route} route"
                 continue
-            kw["_route"] = args.route
         before = json.loads(json.dumps(stft_cuda.launches))
-        stft_cuda.stft_psd(x, FS, cfg, **kw)     # build, warm up
+        call(x)                                  # build, warm up
         torch.cuda.synchronize()
         reps = []
         for _ in range(REPS):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            stft_cuda.stft_psd(x, FS, cfg, **kw)
+            call(x)
             end.record()
             torch.cuda.synchronize()
             reps.append(start.elapsed_time(end))
