@@ -8,10 +8,11 @@ It builds every kernel of the port's paths from the sources in the
 checkout and holds each kernel against its plain PyTorch version on the
 card: the STFT/PSD kernel's three routes (the FFT kernel at power-of-two
 nperseg 32-8192; the mixed-radix kernel at the other GUI values, every
-radix from 3 to 251, nperseg 96-8160; the GEMM kernel forced or under
-linear detrend) and the display kernel in both output modes, with and
-without the float image. Then it drives six paths at full size, each with
-the launch counts set to 0 just before it and read just after:
+radix from 3 to 251, nperseg 96-8160; both under linear detrend on ramp
+clips too; the GEMM kernel forced beside them) and the display kernel in
+both output modes, with and without the float image. Then it drives seven
+paths at full size, each with the launch counts set to 0 just before it
+and read just after:
 
 1. the display spine: 1024 clips of 10 s at 16 kHz through
    ``batched_spectrogram_fn`` at north_star 1024/256 log (RGBA words), on
@@ -27,16 +28,19 @@ the launch counts set to 0 just before it and read just after:
    of two: path 2's batch at scipy_default 8160 (M = 2^4 3 5 17);
 5. the mixed-radix route's slowest GUI value, its largest prime: path 2's
    batch at scipy_default 8032 (M = 2^4 251);
-6. the GEMM route on a config it still computes: path 2's batch at
-   scipy_default 8160 with linear detrend.
+6. linear detrend on the mixed-radix route: path 2's batch at
+   scipy_default 8160 with detrend='linear', held to scipy on a ramp clip
+   too;
+7. the GEMM route on a config it still computes, an odd nperseg off the
+   GUI's range: path 2's batch at scipy_default 8191.
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
 with CUDA events: the library yardstick of the STFT kernels is cuFFT's
 float64 real transform of the same frames (``library_psd``), which the
-port never calls. The GEMM kernel is also timed on paths 1, 2, 4 and 5,
-forced through ``stft_psd``'s module-private ``_route``, beside the FFT
-kernels.
+port never calls. The GEMM kernel is also timed on paths 1, 2, 4, 5 and
+6, forced through ``stft_psd``'s module-private ``_route``, beside the
+FFT kernels.
 
 ``main(_phases={...})`` runs the named phases only (a short first call
 after a kernel changes: ``python3 -c "import chip_smoke;
@@ -69,6 +73,7 @@ K2_CLIPS = 256
 K2_SECONDS = 60.0
 MIXED_NPERSEG = 8160    # the GUI's largest nperseg that is not a power of 2
 PRIME_NPERSEG = 8032    # 32 * 251: the GUI's largest odd prime factor
+ODD_NPERSEG = 8191      # odd, off the GUI's grid: the GEMM route's
 EXPORT_CLIPS = 1024
 EXPORT_BATCH = 64
 REPS = 5
@@ -320,6 +325,7 @@ def build_kernels():
 
 
 def kernel_cases(dev):
+    import dataclasses
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
@@ -327,6 +333,7 @@ def kernel_cases(dev):
     from spectral_tpu_torch.ops import stft_cuda
     from spectral_tpu_torch.ops.colormap import unpack_indices
     from spectral_tpu_torch.parallel.sharding import finite_flags
+    from torch_precision import trend
 
     phase("kernels against their plain versions")
     rs = np.random.RandomState(1)
@@ -335,7 +342,8 @@ def kernel_cases(dev):
     scipy_cfg = SpecConfig.scipy_default(1024, log_scale=True)
     s992 = SpecConfig.scipy_default(992)         # the mixed route's, M 16 31
     s2048 = SpecConfig.scipy_default(2048)
-    linear = SpecConfig(nperseg=960, hop=240, detrend="linear")  # GEMM's
+    linear = SpecConfig(nperseg=960, hop=240, detrend="linear")  # mixed
+    north_linear = dataclasses.replace(north, detrend="linear")   # radix 2
 
     def on_card(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
@@ -477,6 +485,32 @@ def kernel_cases(dev):
     check_log(on_card(rs.randn(2, 8 * 4096) + 3.0),
               SpecConfig.scipy_default(4096), "scipy_default 4096 log10_out")
 
+    # linear detrend on both FFT kernels, on ramp clips (noise plus a trend
+    # rising from 3 to 43 over the clip), each against the GEMM kernel
+    # forced too: the radix-2 kernel at its smallest block, the headline
+    # and 8192; the mixed kernel at 960, a generic stage wider than K/4
+    # threads (386), the largest prime (8032) and path 6's 8160
+    for what, cfg in (
+            ("north_star 1024/256", SpecConfig.north_star(1024, 256)),
+            ("nperseg 32, hop 8", SpecConfig(nperseg=32, hop=8)),
+            ("scipy_default 8192", SpecConfig.scipy_default(8192)),
+            ("north_star 960/240", SpecConfig.north_star(960, 240)),
+            ("scipy_default 386", SpecConfig.scipy_default(386)),
+            ("scipy_default 8032", SpecConfig.scipy_default(PRIME_NPERSEG)),
+            ("scipy_default 8160", SpecConfig.scipy_default(MIXED_NPERSEG))):
+        cfg = dataclasses.replace(cfg, detrend="linear")
+        x = on_card(rs.randn(3, 8 * cfg.nperseg) + trend(8 * cfg.nperseg))
+        for route in (None, "gemm"):
+            check_stats(*both(x, cfg, route, with_stats=True),
+                        f"{what}, linear detrend, ramp")
+    xrl = on_card(rs.randn(3, 40000) + trend(40000))    # T = 153
+    for cfg in (north_linear, SpecConfig(nperseg=992, hop=256,
+                                         detrend="linear")):
+        for route in (None, "gemm"):
+            check_stats(*both(xrl, cfg, route, with_stats=True),
+                        f"nperseg {cfg.nperseg}, linear detrend, ramp, "
+                        "ragged T")
+
     for cfg in (north, SpecConfig.scipy_default(8192), s992, linear):
         before = read_counts()["stft_psd"]
         psd0, lo0, hi0 = stft_cuda.stft_psd(on_card(rs.randn(2, 500)), FS,
@@ -489,7 +523,9 @@ def kernel_cases(dev):
               "no launch")
 
     for cfg, route in ((north, None), (s2048, None), (s992, None),
-                       (s992, "gemm")):
+                       (s992, "gemm"), (north_linear, None),
+                       (north_linear, "gemm"), (linear, None),
+                       (linear, "gemm")):
         xn = rs.randn(3, 20000)
         xn[1, 5000] = np.nan
         xn = on_card(xn)
@@ -764,16 +800,17 @@ def main_path(dev, card):
 
 def long_path(dev, card, dfma_peak, cfg, label):
     """256 clips of 60 s through ``batched_spectrogram_fn`` at cfg: path 2
-    at scipy_default 8192 (the FFT route; K2's counterpart), paths 4 and 5
-    at scipy_default 8160 and 8032 (the mixed-radix route) and path 6 at
-    8160 under linear detrend (the GEMM route). Returns the STFT kernel's
-    row."""
+    at scipy_default 8192 (the FFT route; K2's counterpart), paths 4, 5
+    and 6 at scipy_default 8160, 8032 and 8160 under linear detrend (the
+    mixed-radix route) and path 7 at 8191 (the GEMM route). Returns the
+    STFT kernel's row."""
     import numpy as np
     import torch
     from spectral_tpu_torch.core.stft import num_frames
     from spectral_tpu_torch.ops import display_triton as disp
     from spectral_tpu_torch.ops import stft_cuda
     from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
+    from torch_precision import trend
 
     n = int(FS * K2_SECONDS)
     nperseg = cfg.nperseg
@@ -803,11 +840,13 @@ def long_path(dev, card, dfma_peak, cfg, label):
     torch.cuda.synchronize()
     counts = read_counts()
     print(f"launches in this path's run: {counts}")
-    require(counts["stft_psd"][route] >= 1
-            and sum(counts["stft_psd"].values()) == counts["stft_psd"][route]
+    require(counts["stft_psd"][route] == 1
+            and sum(counts["stft_psd"].values()) == 1
             and counts["display_epilogue"]["rgba"] >= 1,
-            f"a kernel of the path did not launch: {counts}")
-    T, F = num_frames(n, cfg.nperseg, cfg.hop_), cfg.n_freqs  # 133, 4097
+            f"one launch of the {route} kernel and the display kernel: "
+            f"{counts}")
+    # 133 and 4097 at 8192
+    T, F = num_frames(n, cfg.nperseg, cfg.hop_), cfg.n_freqs
     require(tuple(out["psd"].shape) == (K2_CLIPS, T, F)
             and tuple(out["image"].shape) == (K2_CLIPS, F, T)
             and bool(out["finite"].all())
@@ -819,12 +858,18 @@ def long_path(dev, card, dfma_peak, cfg, label):
                                cfg)
     require(db_err <= DB_TOL, f"{label} clip 0 vs scipy f64: {db_err:.3e} dB")
     print(f"clip 0 vs scipy float64: {db_err:.3e} dB (limit {DB_TOL:g})")
-    x3 = (np.random.RandomState(4).randn(1, n) + 3.0).astype(np.float32)
-    img3 = fn(x3)["image"][0].flip(0).cpu().numpy()
-    db3 = db_error_vs_scipy(img3, x3[0].astype(np.float64), cfg)
-    require(db3 <= DB_TOL, f"{label} noise + 3 vs scipy f64: {db3:.3e} dB")
-    print(f"noise + 3 clip vs scipy float64: {db3:.3e} dB "
-          f"(limit {DB_TOL:g})")
+    x3 = np.random.RandomState(4).randn(1, n) + 3.0
+    clips = [("noise + 3", x3)]
+    if cfg.detrend == "linear":
+        # noise plus a trend rising from 3 to 43 over the clip
+        clips.append(("ramp", x3 - 3.0 + trend(n)))
+    for what, xc in clips:
+        xc = xc.astype(np.float32)
+        img = fn(xc)["image"][0].flip(0).cpu().numpy()
+        db = db_error_vs_scipy(img, xc[0].astype(np.float64), cfg)
+        require(db <= DB_TOL, f"{label} {what} vs scipy f64: {db:.3e} dB")
+        print(f"{what} clip vs scipy float64: {db:.3e} dB "
+              f"(limit {DB_TOL:g})")
 
     psd_p, pmin_p, pmax_p = stft_cuda.stft_psd_reference(x, consts, cfg,
                                                          with_stats=True)
@@ -1046,7 +1091,7 @@ def export_path(dev, card):
 
 
 PHASES = ("kernels", "scipy", "path1", "path2", "path3", "path4", "path5",
-          "path6")
+          "path6", "path7")
 
 
 def main(_phases=None):
@@ -1085,8 +1130,12 @@ def main(_phases=None):
             ("path5", "stft_mixed_8032",
              "path 5, the mixed-radix route's largest prime",
              SpecConfig.scipy_default(PRIME_NPERSEG, log_scale=True)),
-            ("path6", "stft_gemm", "path 6, the GEMM route (linear detrend)",
-             dataclasses.replace(s8160, detrend="linear"))):
+            ("path6", "stft_mixed_8160_linear",
+             "path 6, linear detrend on the mixed-radix route",
+             dataclasses.replace(s8160, detrend="linear")),
+            ("path7", "stft_gemm",
+             "path 7, the GEMM route at an odd nperseg",
+             SpecConfig.scipy_default(ODD_NPERSEG, log_scale=True))):
         if name in phases:
             rows[key] = long_path(dev, card, dfma_peak, cfg, label)
             torch.cuda.empty_cache()
@@ -1098,8 +1147,9 @@ def main(_phases=None):
           f", path 2 {rows['stft_8192']['launches']}, path 3 "
           f"{rows['stft_export_launches']}; the mixed-radix kernel's: path 4 "
           f"{rows['stft_mixed_8160']['launches']}, path 5 "
-          f"{rows['stft_mixed_8032']['launches']}; the GEMM kernel's: path 6 "
-          f"{rows['stft_gemm']['launches']}")
+          f"{rows['stft_mixed_8032']['launches']}, path 6 "
+          f"{rows['stft_mixed_8160_linear']['launches']}; the GEMM kernel's: "
+          f"path 7 {rows['stft_gemm']['launches']}")
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
     meta = {
         "stft_1024": ("stft_fft_psd, nperseg 1024 (path 1)", "cuda", src,
@@ -1112,9 +1162,11 @@ def main(_phases=None):
         "stft_mixed_8032": (
             f"stft_mixed_fft_psd, nperseg {PRIME_NPERSEG} (path 5)", "cuda",
             src, "spectral_tpu/ops/stft_pallas.py:367"),
-        "stft_gemm": (f"stft_psd GEMM, nperseg {MIXED_NPERSEG} linear "
-                      "detrend (path 6)", "cuda", src,
-                      "spectral_tpu/ops/stft_pallas.py:367"),
+        "stft_mixed_8160_linear": (
+            f"stft_mixed_fft_psd, nperseg {MIXED_NPERSEG} linear detrend "
+            "(path 6)", "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
+        "stft_gemm": (f"stft_psd GEMM, nperseg {ODD_NPERSEG} (path 7)",
+                      "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
         "display_rgba": ("display_epilogue rgba", "triton",
                          "spectral_tpu_torch/ops/display_triton.py",
                          "spectral_tpu/ops/stft_pallas.py:456"),

@@ -9,13 +9,13 @@
 // - stft_psd_kernel (stft_psd_launch), the GEMM route below: any nperseg,
 //   any detrend, the real DFT as a GEMM against (K, F) matrices;
 // - stft_fft_psd_kernel (stft_fft_psd_launch), the FFT route after it:
-//   power-of-two nperseg 32-8192 with detrend none or constant, a radix-2
-//   FFT of nperseg/2 points in shared memory, one frame per block;
+//   power-of-two nperseg 32-8192, any detrend, a radix-2 FFT of nperseg/2
+//   points in shared memory, one frame per block;
 // - stft_mixed_fft_psd_kernel (stft_mixed_fft_psd_launch), the mixed-radix
 //   route at the end of the file: the other even nperseg 32-8192 whose
 //   nperseg/2 has no odd prime factor past 255 (every other GUI value),
-//   detrend none or constant, the same structure with radix-2, 3, 5, 7 and
-//   generic odd-radix stages.
+//   any detrend, the same structure with radix-2, 3, 5, 7 and generic
+//   odd-radix stages.
 //
 // The wrapper (ops/stft_cuda.py::route) picks the route by config. The
 // GEMM route computes:
@@ -234,16 +234,17 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
 }
 
 // ---------------------------------------------------------------------------
-// The FFT route: power-of-two nperseg K = 32-8192, detrend none or constant.
+// The FFT route: power-of-two nperseg K = 32-8192, any detrend.
 //
 // One block per frame (row r = b*T + t, read in place by pointer), the
 // real frame packed into M = K/2 complex values:
 //
-//   1. mean = sum(frame) / K in float64 (a block reduction), under
-//      detrend == constant; else 0;
-//   2. v[i] = ((double)frame[i] - mean) * win[i], the detrend, then the
-//      window (scipy's order); z[m] = v[2m] + i v[2m + 1], stored at
-//      bitrev(m);
+//   1. the frame's detrend line (mean, slope) in float64 by one block
+//      reduction (frame_line): (0, 0) under detrend none, the mean under
+//      constant, the least-squares line under linear;
+//   2. v[i] = ((double)frame[i] - mean - slope (i - c)) * win[i], c =
+//      (K - 1)/2, the detrend, then the window (scipy's order); z[m] =
+//      v[2m] + i v[2m + 1], stored at bitrev(m);
 //   3. an M-point radix-2 decimation-in-time FFT in place in shared
 //      memory: log2(M) stages, stage h (h = 1, 2, ..., M/2) combining
 //      z[i0] and z[i0 + h] with the twiddle W_2h^k = tw[h - 1 + k],
@@ -295,17 +296,54 @@ __device__ __forceinline__ int swz(int p, int log2m) {
   return p ^ ((p >> (log2m - 3)) & 7);
 }
 
-// the sum of v over the block, returned to every thread; blockDim.x is a
-// multiple of 32 and scratch holds one double per warp
-__device__ __forceinline__ double block_sum(double v, double* scratch) {
+// the launchers' detrend codes
+constexpr int DETREND_NONE = 0;
+constexpr int DETREND_CONSTANT = 1;
+constexpr int DETREND_LINEAR = 2;
+
+// the sums of v.x and v.y over the block, returned to every thread, at one
+// barrier; blockDim.x is a multiple of 32 and scratch holds one double2
+// per warp
+__device__ __forceinline__ double2 block_sum(double2 v, double2* scratch) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, off);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, off);
+  }
   if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
   __syncthreads();
-  double s = 0.0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += scratch[w];
+  double2 s = make_double2(0.0, 0.0);
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    s.x += scratch[w].x;
+    s.y += scratch[w].y;
+  }
   return s;
+}
+
+// The FFT kernels' detrend of a K-sample frame, (mean, slope) in float64,
+// to be applied as v[i] = ((double)frame[i] - mean - slope (i - c)) *
+// win[i] with c = (K - 1)/2: (0, 0) under DETREND_NONE; (s0 / K, 0) under
+// DETREND_CONSTANT; under DETREND_LINEAR the least-squares line, (s0 / K,
+// s1 / D), s0 = sum x_i, s1 = sum (i - c) x_i, D = sum (i - c)^2 = K (K^2 -
+// 1)/12 (exact in float64), which is scipy's detrend(type='linear') and the
+// GEMM route's projection. The centred index keeps s1 small on a frame
+// with a large offset, where sum i x_i - c sum x_i would cancel. s0 and s1
+// are one block reduction; under the other codes the slope is 0 exactly,
+// so the load's arithmetic is the mean's alone.
+__device__ __forceinline__ double2 frame_line(const float* frame, int K,
+                                              int detrend,
+                                              double2* scratch) {
+  if (detrend == DETREND_NONE) return make_double2(0.0, 0.0);
+  const double c = 0.5 * (K - 1);
+  double2 s = make_double2(0.0, 0.0);
+  for (int i = threadIdx.x; i < K; i += blockDim.x) {
+    const double v = static_cast<double>(frame[i]);
+    s.x += v;
+    if (detrend == DETREND_LINEAR) s.y += (i - c) * v;
+  }
+  s = block_sum(s, scratch);
+  const double d = K * (static_cast<double>(K) * K - 1.0) / 12.0;
+  return make_double2(s.x / K, detrend == DETREND_LINEAR ? s.y / d : 0.0);
 }
 
 // The slot of transform index i < M in the FFT kernels' buffers
@@ -385,7 +423,7 @@ stft_fft_psd_kernel(const float* __restrict__ x,
                     long long n, int T, int F, int log2k, int hop,
                     int detrend, int log10_out, int with_stats) {
   extern __shared__ double2 buf[];  // K/2 complex values
-  __shared__ double red_sum[FFT_MAX_WARPS];
+  __shared__ double2 red_sum[FFT_MAX_WARPS];
   __shared__ float red_lo[FFT_MAX_WARPS];
   __shared__ float red_hi[FFT_MAX_WARPS];
 
@@ -397,19 +435,18 @@ stft_fft_psd_kernel(const float* __restrict__ x,
   const int r = blockIdx.x;
   const float* frame = x + (long long)(r / T) * n + (long long)(r % T) * hop;
 
-  double mean = 0.0;
-  if (detrend) {
-    double s = 0.0;
-    for (int i = tid; i < K; i += nt) s += static_cast<double>(frame[i]);
-    mean = block_sum(s, red_sum) / K;
-  }
-  // even samples in .x, odd in .y of slot bitrev(i / 2)
-  double* bufd = reinterpret_cast<double*>(buf);
-  for (int i = tid; i < K; i += nt) {
-    const int p = static_cast<int>(__brev(static_cast<unsigned>(i >> 1)) >>
-                                   (32 - log2m));
-    bufd[2 * swz(p, log2m) + (i & 1)] =
-        (static_cast<double>(frame[i]) - mean) * win[i];
+  {
+    const double2 line = frame_line(frame, K, detrend, red_sum);
+    const double c = 0.5 * (K - 1);
+    // even samples in .x, odd in .y of slot bitrev(i / 2)
+    double* bufd = reinterpret_cast<double*>(buf);
+    for (int i = tid; i < K; i += nt) {
+      const int p = static_cast<int>(
+          __brev(static_cast<unsigned>(i >> 1)) >> (32 - log2m));
+      bufd[2 * swz(p, log2m) + (i & 1)] =
+          (static_cast<double>(frame[i]) - line.x - line.y * (i - c)) *
+          win[i];
+    }
   }
   __syncthreads();
 
@@ -436,17 +473,18 @@ stft_fft_psd_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// The mixed-radix FFT route: even nperseg K = 32-8192 with detrend none or
-// constant whose M = K/2 has no odd prime factor past 255 (every GUI value
-// that is not a power of two: K = 32 m, m <= 256, so M = 2^q m' with
-// q >= 4 and m' odd, m' <= 255).
+// The mixed-radix FFT route: even nperseg K = 32-8192, any detrend, whose
+// M = K/2 has no odd prime factor past 255 (every GUI value that is not a
+// power of two: K = 32 m, m <= 256, so M = 2^q m' with q >= 4 and m' odd,
+// m' <= 255).
 //
 // The radix-2 kernel's structure with another transform: one block per
-// frame (row r = b*T + t, read in place by pointer); the constant-detrend
-// mean by block reduction; v[i] = ((double)frame[i] - mean) * win[i]; two
-// real samples packed per complex value, z[m] = v[2m] + i v[2m + 1],
-// stored at slot perm[m], the mixed-radix digit reversal; an M-point
-// decimation-in-time FFT in place in shared memory; the split step and
+// frame (row r = b*T + t, read in place by pointer); the detrend line by
+// block reduction (frame_line); v[i] = ((double)frame[i] - mean - slope
+// (i - c)) * win[i]; two real samples packed per complex value, z[m] =
+// v[2m] + i v[2m + 1], stored at slot perm[m], the mixed-radix digit
+// reversal; an M-point decimation-in-time FFT in place in shared memory;
+// the split step and
 // the PSD epilogue on bins f < F. Everything between the float32 load and
 // the float32 store is float64.
 //
@@ -632,7 +670,7 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
                           const __grid_constant__ MixedPlan plan) {
   extern __shared__ double2 buf[];  // K/2 complex values
   __shared__ double2 roots[MIX_MAX_RADIX + 1];
-  __shared__ double red_sum[FFT_MAX_WARPS];
+  __shared__ double2 red_sum[FFT_MAX_WARPS];
   __shared__ float red_lo[FFT_MAX_WARPS];
   __shared__ float red_hi[FFT_MAX_WARPS];
 
@@ -642,17 +680,17 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
   const int r = blockIdx.x;
   const float* frame = x + (long long)(r / T) * n + (long long)(r % T) * hop;
 
-  double mean = 0.0;
-  if (detrend) {
-    double s = 0.0;
-    for (int i = tid; i < K; i += nt) s += static_cast<double>(frame[i]);
-    mean = block_sum(s, red_sum) / K;
+  {
+    // the line is dead before the first stage
+    const double2 line = frame_line(frame, K, detrend, red_sum);
+    const double c = 0.5 * (K - 1);
+    // even samples in .x, odd in .y of slot perm[i / 2]
+    double* bufd = reinterpret_cast<double*>(buf);
+    for (int i = tid; i < K; i += nt)
+      bufd[2 * perm[i >> 1] + (i & 1)] =
+          (static_cast<double>(frame[i]) - line.x - line.y * (i - c)) *
+          win[i];
   }
-  // even samples in .x, odd in .y of slot perm[i / 2]
-  double* bufd = reinterpret_cast<double*>(buf);
-  for (int i = tid; i < K; i += nt)
-    bufd[2 * perm[i >> 1] + (i & 1)] =
-        (static_cast<double>(frame[i]) - mean) * win[i];
   __syncthreads();
 
   for (int s = 0; s < plan.n_stages; ++s) {
@@ -697,6 +735,12 @@ int raise_smem(Kernel kernel, size_t smem, size_t* set) {
   return static_cast<int>(err);
 }
 
+// a detrend code the FFT kernels take
+bool detrend_ok(int detrend) {
+  return detrend == DETREND_NONE || detrend == DETREND_CONSTANT ||
+         detrend == DETREND_LINEAR;
+}
+
 // K/4 threads, rounded up to a warp, 32 to FFT_MAX_THREADS
 int fft_threads(int K) {
   const int t = (K / 4 + 31) / 32 * 32;
@@ -729,14 +773,17 @@ int stft_psd_launch(const float* x, const double* a_re, const double* a_im,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The FFT route, on `stream`; returns a cudaError_t (0 = success): that of
-// raising the kernel's shared memory limit, else that of the launch. x is
-// (B, n) contiguous f32; win is (K,) f64; tw is (K - 1, 2) f64, the
+// The FFT route, on `stream`; returns a cudaError_t (0 = success):
+// cudaErrorInvalidValue for a size or detrend code the kernel does not
+// take, else that of raising the kernel's shared memory limit, else that
+// of the launch. x is (B, n) contiguous f32; win is (K,) f64; tw is
+// (K - 1, 2) f64, the
 // stage-ordered (cos, sin) rows of core/stft.py::fft_twiddles; wts is (F,)
 // f64 with F <= K; out is (B, T, F) f32;
 // part_min/part_max are (B * T,) f32 and may be null when with_stats is 0.
-// K is a power of two from 32 to 8192; detrend is 1 for constant, 0 for
-// none. The caller keeps B * T within the grid's limit.
+// K is a power of two from 32 to 8192; detrend is 0 for none, 1 for
+// constant, 2 for linear, and any other value is refused. The caller keeps
+// B * T within the grid's limit.
 int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
                         const double* wts, float* out, float* part_min,
                         float* part_max, int B, long long n, int T, int F,
@@ -744,7 +791,8 @@ int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
                         int with_stats, void* stream) {
   int log2k = 0;
   while ((1 << log2k) < K) ++log2k;
-  if (K < 32 || K > 8192 || (1 << log2k) != K || F < 1 || F > K)
+  if (K < 32 || K > 8192 || (1 << log2k) != K || F < 1 || F > K ||
+      !detrend_ok(detrend))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(K / 2) * sizeof(double2);
   const int err = raise_smem(stft_fft_psd_kernel, smem, fft_smem_set);
@@ -759,16 +807,18 @@ int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
 }
 
 // The mixed-radix FFT route, on `stream`; returns a cudaError_t (0 =
-// success): cudaErrorInvalidValue for a plan the kernel does not take,
-// else that of raising the kernel's shared memory limit, else that of the
-// launch. x is (B, n) contiguous f32; win is (K,) f64; perm is (K/2,)
+// success): cudaErrorInvalidValue for a plan or detrend code the kernel
+// does not take, else that of raising the kernel's shared memory limit,
+// else that of the launch. x is (B, n) contiguous f32; win is (K,) f64;
+// perm is (K/2,)
 // int32; tw is (rows, 2) f64, and stages, in HOST memory, (n_stages, 4)
 // int32 rows (radix, span, twiddle row, root row), both from
 // core/stft.py::fft_plan, with split the first row of the split step's
 // twiddles; wts is (F,) f64 with F <= K; out is (B, T, F) f32;
 // part_min/part_max are (B * T,) f32 and may be null when with_stats is
-// 0. K is even, 32 to 8192; detrend is 1 for constant, 0 for none. The
-// caller keeps B * T within the grid's limit.
+// 0. K is even, 32 to 8192; detrend is 0 for none, 1 for constant, 2 for
+// linear, and any other value is refused. The caller keeps B * T within
+// the grid's limit.
 int stft_mixed_fft_psd_launch(const float* x, const double* win,
                               const int* perm, const double* tw,
                               const int* stages, int n_stages, int split,
@@ -779,7 +829,7 @@ int stft_mixed_fft_psd_launch(const float* x, const double* win,
                               void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   if (K < 32 || K > 8192 || K % 2 || F < 1 || F > K || n_stages < 1 ||
-      n_stages > MIX_MAX_STAGES)
+      n_stages > MIX_MAX_STAGES || !detrend_ok(detrend))
     return static_cast<int>(bad);
   const int M = K / 2;
   MixedPlan plan;

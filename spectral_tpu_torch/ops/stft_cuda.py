@@ -10,26 +10,32 @@ written to memory. All compute the same function, by three routes that
 :func:`route` picks from the config alone:
 
 - ``"fft"`` (``stft_fft_psd_launch``): power-of-two nperseg from 32 to
-  8192 with detrend none or constant (the GUI's nine powers of two, and
-  the driven paths at 1024 and 8192). One block per frame: the frame
-  widened to float64, its mean subtracted under constant detrend, the
-  window applied, two real samples packed into each complex value in
-  shared memory, a radix-2 FFT of nperseg/2 points in place, then the
+  8192 under any detrend (the GUI's nine powers of two, and the driven
+  paths at 1024 and 8192). One block per frame: the frame widened to
+  float64, its mean (constant detrend) or its least-squares line (linear
+  detrend, the slope against the centred sample index) subtracted in
+  float64 after one block reduction, the window applied, two real
+  samples packed into each complex value in shared memory, a radix-2
+  FFT of nperseg/2 points in place, then the
   split step into the nperseg/2 + 1 bins and the PSD epilogue. Its host
   constants are the window, the twiddles (numpy's cos and sin of
   -2π j / nperseg, j < nperseg/2, laid out stage by stage) and the
   weights (:func:`fft_constants`);
 - ``"mixed"`` (``stft_mixed_fft_psd_launch``): the other even nperseg
-  from 32 to 8192 with detrend none or constant whose nperseg/2 has no
-  odd prime factor past 255 (:data:`MAX_MIXED_RADIX`), which covers the
+  from 32 to 8192, under any detrend, whose nperseg/2 has no odd prime
+  factor past 255 (:data:`MAX_MIXED_RADIX`), which covers the
   other 247 values of the GUI's range (32-8192 in steps of 32,
   GUI.py:87-90). The same structure with a mixed-radix transform: radix
   2, 3, 5 and 7 stages and a generic odd-radix stage, in the order and
   with the load permutation and twiddle rows of the host plan
   (``core.stft.fft_plan``, :func:`mixed_constants`);
-- ``"gemm"`` (``stft_psd_launch``): linear detrend, odd nperseg and the
-  rest. The real DFT as a register-blocked GEMM against (nperseg, F)
-  matrices with the window and detrend folded in (:func:`dft_constants`).
+- ``"gemm"`` (``stft_psd_launch``): odd nperseg, nperseg below 32 and
+  nperseg/2 with an odd prime past 255, none of them on the GUI's range.
+  The real DFT as a register-blocked GEMM against (nperseg, F) matrices
+  with the window and detrend folded in (:func:`dft_constants`).
+
+The FFT kernels take the detrend as a code (:data:`DETREND_CODES`: 0
+none, 1 constant, 2 linear); their launchers refuse any other value.
 
 Precision. Every route computes in float64 from the float32 load to the
 float32 store, with the host's float64 constants unrounded, and round
@@ -92,6 +98,8 @@ MAX_ROWS = 2 ** 31 - 256
 
 # kernel launches per route, for run-time proof of the path
 launches = {"gemm": 0, "fft": 0, "mixed": 0}
+# the FFT kernels' detrend codes (DETREND_* in csrc/stft_psd.cu)
+DETREND_CODES = {"none": 0, "constant": 1, "linear": 2}
 
 
 class DftConstants(NamedTuple):
@@ -134,16 +142,14 @@ def check_supported(cfg: SpecConfig) -> None:
 
 def route(cfg: SpecConfig) -> str:
     """The kernel that computes a supported config (:func:`kernel_supported`;
-    others raise NotImplementedError): ``"fft"`` for a power-of-two nperseg
-    from 32 to 8192 with detrend none or constant, ``"mixed"`` for any
-    other even nperseg in that range and detrend whose nperseg/2 has no odd
-    prime factor past :data:`MAX_MIXED_RADIX`, ``"gemm"`` for the rest
-    (linear detrend, odd nperseg, larger primes, nperseg below 32). A pure
-    function of the config."""
+    others raise NotImplementedError), under any detrend: ``"fft"`` for a
+    power-of-two nperseg from 32 to 8192, ``"mixed"`` for any other even
+    nperseg in that range whose nperseg/2 has no odd prime factor past
+    :data:`MAX_MIXED_RADIX`, ``"gemm"`` for the rest (odd nperseg, larger
+    primes, nperseg below 32). A pure function of the config."""
     check_supported(cfg)
     k = cfg.nperseg
-    if (cfg.detrend not in ("none", "constant") or k % 2
-            or not MIN_FFT_NPERSEG <= k <= MAX_NPERSEG):
+    if k % 2 or not MIN_FFT_NPERSEG <= k <= MAX_NPERSEG:
         return "gemm"
     if k & (k - 1) == 0:
         return "fft"
@@ -316,7 +322,7 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
                          device=x.device) if with_stats else None)
     stats = ((parts[0].data_ptr(), parts[1].data_ptr()) if with_stats
              else (None, None))
-    detrend = int(cfg.detrend == "constant")
+    detrend = DETREND_CODES[cfg.detrend]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if kernel == "fft":

@@ -12,14 +12,22 @@ float64. Tolerances, each with its reason:
 - against the plain version, both in float64 before the float32 store:
   1e-12 of each clip's largest bin. Both sum in float64 in other orders;
   the largest departure measured is 7.3e-14 (nperseg 1024, constant
-  detrend, noise + 3).
+  detrend, noise + 3). Under linear detrend the clips are ramps, and the
+  plain version, whose GEMM multiplies the raw samples, rounds in
+  proportion to their size: on the full ramp (3 to 43) it sits 1.1e-12
+  of the clip max from a long-double DFT at nperseg 992, where the
+  model's detrend-first arithmetic sits at 6.8e-15. So those cases take
+  half the ramp (1.0e-13 at 1024, 6.2e-13 at 992).
 - against the Pallas kernel, which sums in float32: the 5e-6 of each
   clip's max that ``tests/test_torch_stft.py`` holds the plain version to.
 - against scipy in float64: 1e-6 dB of display error, three orders inside
   the 1e-3 dB contract (the float64 GEMM route sits at 2.7e-7 dB there).
 """
 
+import dataclasses
+import inspect
 import os
+import re
 import sys
 
 import numpy as np
@@ -51,17 +59,25 @@ def _jax(cfg):
 
 def _config(nperseg, detrend):
     """nperseg with hop nperseg/4: a Hann window for detrend none (the
-    north_star family), scipy's Tukey 0.25 for constant. (scipy's own hop,
-    7/8 nperseg, has gcd 4 with nperseg 32, which the Pallas kernel
-    refuses.)"""
+    north_star family), scipy's Tukey 0.25 for constant and linear.
+    (scipy's own hop, 7/8 nperseg, has gcd 4 with nperseg 32, which the
+    Pallas kernel refuses.)"""
     if detrend == "none":
         return SpecConfig.north_star(nperseg, nperseg // 4)
-    return SpecConfig(nperseg=nperseg, hop=nperseg // 4, detrend="constant")
+    return SpecConfig(nperseg=nperseg, hop=nperseg // 4, detrend=detrend)
 
 
-def _clips(seed, cfg, n_clips=2, offset=3.0):
+def _clips(seed, cfg, n_clips=2, offset=3.0, trend=1.0):
+    """White noise plus offset; under linear detrend, ramp clips instead:
+    noise plus ``trend`` times the trend 5·t + 3 of
+    ``tests/test_extended_modes.py``, scaled to the clip's length
+    (``torch_precision.trend``), whose slope a frame's line must remove."""
     rs = np.random.RandomState(seed)
-    return (rs.randn(n_clips, 8 * cfg.nperseg) + offset).astype(np.float32)
+    x = rs.randn(n_clips, 8 * cfg.nperseg)
+    if cfg.detrend == "linear":
+        return (x + trend * torch_precision.trend(x.shape[-1])).astype(
+            np.float32)
+    return (x + offset).astype(np.float32)
 
 
 def _model(x, cfg, round_f32=False):
@@ -80,27 +96,32 @@ def _assert_close(got, want, tol):
 
 
 def test_fft_route_on_the_gui_range():
-    """The routes on the GUI's range (32-8192 in steps of 32): under
-    detrend none or constant its 9 powers of two take the FFT kernel and
-    its other 247 values the mixed-radix kernel; linear detrend takes the
-    GEMM kernel."""
+    """The routes on the GUI's range (32-8192 in steps of 32): under every
+    detrend, linear too, its 9 powers of two take the FFT kernel and its
+    other 247 values the mixed-radix kernel; the GEMM kernel computes no
+    GUI value."""
     gui = range(32, 8193, 32)
     counts = {"fft": 0, "mixed": 0}
+    linear = {"fft": 0, "mixed": 0}
     for k in gui:
         want = "fft" if k & (k - 1) == 0 else "mixed"
         for cfg in (SpecConfig.scipy_default(k),
                     SpecConfig.north_star(k, max(1, k // 4))):
             assert stft_cuda.route(cfg) == want, k
         counts[want] += 1
-        assert stft_cuda.route(SpecConfig(nperseg=k,
-                                          detrend="linear")) == "gemm"
+        got = stft_cuda.route(SpecConfig(nperseg=k, detrend="linear"))
+        assert got == want, k
+        linear[got] += 1
     assert counts == {"fft": 9, "mixed": 247}
+    assert linear == {"fft": 9, "mixed": 247}
     for k in (992, 8160, 960, 100, 8032):
         assert stft_cuda.route(SpecConfig.scipy_default(k)) == "mixed"
     for cfg in (SpecConfig.north_star(16, 4),         # below the kernels' 32
                 SpecConfig.scipy_default(99),         # odd
                 SpecConfig.scipy_default(2 * 257)):   # an odd prime past 255
         assert stft_cuda.route(cfg) == "gemm"
+        assert stft_cuda.route(dataclasses.replace(
+            cfg, detrend="linear")) == "gemm"
     for cfg in (SpecConfig.scipy_default(16384),      # past the GUI
                 SpecConfig(nperseg=256, nfft=512),    # unsupported anywhere
                 SpecConfig(nperseg=256, mode="magnitude"),
@@ -159,11 +180,13 @@ def test_bit_reverse_is_the_kernels_load_order():
         assert np.array_equal(rev[rev], np.arange(k))
 
 
-@pytest.mark.parametrize("detrend", ["none", "constant"])
+@pytest.mark.parametrize("detrend", ["none", "constant", "linear"])
 @pytest.mark.parametrize("nperseg", [32, 256, 1024])
 def test_fft_model_matches_plain_version(nperseg, detrend):
     cfg = _config(nperseg, detrend)
-    x = _clips(20 + nperseg, cfg)
+    # half the ramp: the plain version's own rounding grows with the
+    # samples' size (module docstring)
+    x = _clips(20 + nperseg, cfg, trend=0.5)
     want = stft_cuda.stft_psd_reference(
         torch.from_numpy(x).double(), stft_cuda.dft_constants(cfg, FS, "cpu"),
         cfg).numpy()
@@ -176,11 +199,22 @@ def test_fft_model_matches_plain_version(nperseg, detrend):
     _assert_close(_model(x, cfg, round_f32=True), plain32, 1.2e-7)
 
 
-@pytest.mark.parametrize("detrend", ["none", "constant"])
+@pytest.mark.parametrize("detrend", ["none", "constant", "linear"])
 @pytest.mark.parametrize("nperseg", [32, 256, 1024])
 def test_fft_model_matches_pallas_kernel(nperseg, detrend):
+    """The Pallas kernel sums in float32, so its rounding grows with the
+    samples' size: the offset is 1 rather than 3, and the ramp a twentieth
+    of the others' (from 0.15 to 2.15; the full 3 to 43 puts the Pallas
+    kernel 1.2e-5 to 3.9e-5 of the clip max from the float64 PSD). That
+    ramp still moves the PSD far from the constant detrend's."""
     cfg = _config(nperseg, detrend)
-    x = _clips(40 + nperseg, cfg, offset=0.0 if detrend == "none" else 1.0)
+    x = _clips(40 + nperseg, cfg, offset=0.0 if detrend == "none" else 1.0,
+               trend=0.05)
+    if detrend == "linear":
+        lin = _model(x, cfg)
+        const = _model(x, dataclasses.replace(cfg, detrend="constant"))
+        assert np.all(np.abs(const - lin).max(axis=(1, 2))
+                      > 1e-2 * lin.max(axis=(1, 2)))
     psd_j, lo_j, hi_j = (np.asarray(a) for a in jax.jit(
         lambda v: stft_pallas.stft_psd_pallas(v, FS, _jax(cfg),
                                               with_stats=True))(
@@ -236,15 +270,23 @@ def test_fft_model_nan_and_overflow_like_the_plain_version():
 def test_forced_route_is_checked():
     """The module-private ``_route`` forces a kernel on the card: the GEMM
     kernel on any config, the FFT and mixed-radix kernels only on the
-    configs :func:`route` gives them. On a CPU tensor every route is the
-    plain version."""
+    configs :func:`route` gives them, under linear detrend too. On a CPU
+    tensor every route is the plain version."""
     x = torch.from_numpy(_clips(63, SpecConfig.scipy_default(992)))
-    with pytest.raises(ValueError, match="'fft' route"):
-        stft_cuda.stft_psd(x, FS, SpecConfig.scipy_default(992), _route="fft")
-    for cfg in (SpecConfig.scipy_default(1024),
-                SpecConfig(nperseg=992, hop=248, detrend="linear")):
+    linear992 = SpecConfig(nperseg=992, hop=248, detrend="linear")
+    linear1024 = SpecConfig(nperseg=1024, hop=256, detrend="linear")
+    for cfg in (SpecConfig.scipy_default(992), linear992):
+        with pytest.raises(ValueError, match="'fft' route"):
+            stft_cuda.stft_psd(x, FS, cfg, _route="fft")
+    for cfg in (SpecConfig.scipy_default(1024), linear1024):
         with pytest.raises(ValueError, match="'mixed' route"):
             stft_cuda.stft_psd(x, FS, cfg, _route="mixed")
+    for cfg, own in ((linear992, "mixed"), (linear1024, "fft")):
+        assert stft_cuda.route(cfg) == own
+        assert torch.equal(stft_cuda.stft_psd(x, FS, cfg, _route=own),
+                           stft_cuda.stft_psd(x, FS, cfg))
+        assert torch.equal(stft_cuda.stft_psd(x, FS, cfg, _route="gemm"),
+                           stft_cuda.stft_psd(x, FS, cfg))
     with pytest.raises(ValueError, match="'dense' route"):
         stft_cuda.stft_psd(x, FS, SpecConfig.scipy_default(1024),
                            _route="dense")
@@ -254,3 +296,38 @@ def test_forced_route_is_checked():
     cfg = SpecConfig.scipy_default(992)
     assert torch.equal(stft_cuda.stft_psd(x, FS, cfg, _route="mixed"),
                        stft_cuda.stft_psd(x, FS, cfg))
+
+
+def test_detrend_codes_are_the_kernels():
+    """The wrapper hands the FFT kernels a three-valued detrend code, the
+    CUDA source's DETREND_* constants, and both launchers refuse any
+    other value."""
+    assert stft_cuda.DETREND_CODES == {"none": 0, "constant": 1,
+                                       "linear": 2}
+    assert "detrend = DETREND_CODES[cfg.detrend]" in inspect.getsource(
+        stft_cuda._stft_psd_cuda)
+    csrc = os.path.join(os.path.dirname(stft_cuda.__file__), "csrc",
+                        "stft_psd.cu")
+    with open(csrc) as fh:
+        src = fh.read()
+    for mode, code in stft_cuda.DETREND_CODES.items():
+        m = re.search(rf"constexpr int DETREND_{mode.upper()} = (\d+);", src)
+        assert m and int(m.group(1)) == code, mode
+    for launcher in ("stft_fft_psd_launch", "stft_mixed_fft_psd_launch"):
+        body = src[src.index(f"int {launcher}("):]
+        body = body[:body.index("return static_cast<int>(cudaGetLastError")]
+        assert "!detrend_ok(detrend)" in body, launcher
+
+
+@pytest.mark.parametrize("nperseg", [256, 1024, 8192])
+def test_fft_model_linear_detrend_within_the_display_contract(nperseg):
+    """Under linear detrend on a ramp clip, the model against scipy's
+    detrend='linear' in float64: 1e-6 dB, as the other detrends."""
+    cfg = dataclasses.replace(SpecConfig.scipy_default(nperseg),
+                              detrend="linear")
+    assert stft_cuda.route(cfg) == "fft"
+    x = _clips(64, cfg, n_clips=1)
+    psd = _model(x, cfg, round_f32=True)[0]
+    err = torch_precision.display_error_db(psd.T, x[0].astype(np.float64),
+                                           cfg)
+    assert err <= 1e-6, err

@@ -14,12 +14,15 @@ float64. Tolerances, each with its reason:
 - against the plain version, both in float64 before the float32 store:
   1e-12 of each clip's largest bin. Both sum in float64 in other orders;
   the direct odd-radix DFTs add at most (p - 1)/2 roundings a stage.
+  Under linear detrend the ramp clips take half the ramp, for the plain
+  version's own rounding (``tests/test_torch_fft.py``).
 - against the Pallas kernel, which sums in float32: the 5e-6 of each
   clip's max that ``tests/test_torch_stft.py`` holds the plain version to.
 - against scipy in float64: 1e-6 dB of display error, three orders inside
   the 1e-3 dB contract.
 """
 
+import dataclasses
 import os
 import re
 import sys
@@ -55,15 +58,22 @@ def _jax(cfg):
 
 def _config(nperseg, detrend):
     """nperseg with hop nperseg/4: a Hann window for detrend none (the
-    north_star family), scipy's Tukey 0.25 for constant."""
+    north_star family), scipy's Tukey 0.25 for constant and linear."""
     if detrend == "none":
         return SpecConfig.north_star(nperseg, nperseg // 4)
-    return SpecConfig(nperseg=nperseg, hop=nperseg // 4, detrend="constant")
+    return SpecConfig(nperseg=nperseg, hop=nperseg // 4, detrend=detrend)
 
 
-def _clips(seed, cfg, n_clips=2, offset=3.0):
+def _clips(seed, cfg, n_clips=2, offset=3.0, trend=1.0):
+    """White noise plus offset; under linear detrend, ramp clips instead:
+    noise plus ``trend`` times ``torch_precision.trend``, the 5·t + 3 of
+    ``tests/test_extended_modes.py`` scaled to the clip's length."""
     rs = np.random.RandomState(seed)
-    return (rs.randn(n_clips, 8 * cfg.nperseg) + offset).astype(np.float32)
+    x = rs.randn(n_clips, 8 * cfg.nperseg)
+    if cfg.detrend == "linear":
+        return (x + trend * torch_precision.trend(x.shape[-1])).astype(
+            np.float32)
+    return (x + offset).astype(np.float32)
 
 
 def _model(x, cfg, round_f32=False):
@@ -219,10 +229,15 @@ def _kernel_loops(frame, window, plan, F, detrend):
 
     K = len(frame)
     M = K // 2
-    mean = frame.sum() / K if detrend == "constant" else 0.0
+    # frame_line: (mean, slope) against the centred index i - c
+    c = (K - 1) / 2.0
+    mean = frame.sum() / K if detrend != "none" else 0.0
+    slope = (((np.arange(K) - c) * frame).sum() / (K * (K * K - 1.0) / 12.0)
+             if detrend == "linear" else 0.0)
     bufd = np.zeros(2 * M)
     for i in range(K):
-        bufd[2 * plan.perm[i >> 1] + (i & 1)] = (frame[i] - mean) * window[i]
+        bufd[2 * plan.perm[i >> 1] + (i & 1)] = (
+            frame[i] - mean - slope * (i - c)) * window[i]
     buf = bufd[0::2] + 1j * bufd[1::2]
     for p, L, tw_row, root_row in plan.stages.tolist():
         if p == 2:
@@ -276,6 +291,21 @@ def _kernel_loops(frame, window, plan, F, detrend):
     return out
 
 
+def _loops_against_model(nperseg, onesided, detrend, seed):
+    """The transcribed thread loops and the model on one frame of a clip
+    at nperseg under detrend."""
+    cfg = SpecConfig(nperseg=nperseg, hop=nperseg // 4, detrend=detrend,
+                     onesided=onesided)
+    frame = _clips(seed, cfg, n_clips=1)[0, :nperseg].astype(np.float64)
+    window = stft_cuda.mixed_constants(cfg, FS, "cpu").window.numpy()
+    plan = tstft.fft_plan(nperseg)
+    got = _kernel_loops(frame, window, plan, cfg.n_freqs, detrend)
+    want = torch_precision.psd_mixed_fft(
+        frame[None], window, plan, np.ones(cfg.n_freqs), detrend=detrend,
+        round_f32=False)[0]
+    return got, want, (frame, window, plan, cfg.n_freqs)
+
+
 @pytest.mark.parametrize("nperseg,onesided", [
     (96, True), (100, False), (224, True), (352, True), (386, True),
     (4576, True)])
@@ -283,25 +313,30 @@ def test_kernel_loops_are_the_model(nperseg, onesided):
     """The kernel's indexing, transcribed, computes the model's transform
     bitwise (386: M = 193, one generic stage wider than K/4 threads; 4576:
     two generic stages, the second at span 13)."""
-    cfg = SpecConfig(nperseg=nperseg, hop=nperseg // 4, detrend="constant",
-                     onesided=onesided)
-    frame = _clips(70 + nperseg, cfg, n_clips=1)[0, :nperseg].astype(
-        np.float64)
-    window = stft_cuda.mixed_constants(cfg, FS, "cpu").window.numpy()
-    plan = tstft.fft_plan(nperseg)
-    got = _kernel_loops(frame, window, plan, cfg.n_freqs, cfg.detrend)
-    want = torch_precision.psd_mixed_fft(
-        frame[None], window, plan, np.ones(cfg.n_freqs), detrend="constant",
-        round_f32=False)[0]
+    got, want, _ = _loops_against_model(nperseg, onesided, "constant",
+                                        70 + nperseg)
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("detrend", ["none", "constant"])
+@pytest.mark.parametrize("nperseg", [96, 386, 960, 4576])
+def test_kernel_loops_are_the_model_under_linear_detrend(nperseg):
+    """frame_line's mean and slope, transcribed, load the same buffer as
+    the model's linear detrend, bitwise, on a ramp frame."""
+    got, want, args = _loops_against_model(nperseg, True, "linear",
+                                           80 + nperseg)
+    assert np.array_equal(got, want)
+    # the line is not the mean alone on a ramp frame
+    assert not np.array_equal(got, _kernel_loops(*args, "constant"))
+
+
+@pytest.mark.parametrize("detrend", ["none", "constant", "linear"])
 @pytest.mark.parametrize("nperseg", [96, 100, 160, 224, 352, 386, 960, 992])
 def test_mixed_model_matches_plain_version(nperseg, detrend):
     cfg = _config(nperseg, detrend)
     assert stft_cuda.route(cfg) == "mixed"
-    x = _clips(20 + nperseg, cfg)
+    # half the ramp: the plain version's own rounding grows with the
+    # samples' size (module docstring)
+    x = _clips(20 + nperseg, cfg, trend=0.5)
     want = _plain(x, cfg)
     got = _model(x, cfg)
     assert got.shape == want.shape and got.shape[1] >= 7
@@ -321,11 +356,14 @@ def test_mixed_model_two_sided():
     _assert_close(_model(x, cfg), _plain(x, cfg), F64_TOL)
 
 
-@pytest.mark.parametrize("detrend", ["none", "constant"])
+@pytest.mark.parametrize("detrend", ["none", "constant", "linear"])
 @pytest.mark.parametrize("nperseg", [96, 352])
 def test_mixed_model_matches_pallas_kernel(nperseg, detrend):
+    """The Pallas kernel sums in float32: offset 1 and a twentieth of the
+    ramp, as ``tests/test_torch_fft.py`` holds the radix-2 model to it."""
     cfg = _config(nperseg, detrend)
-    x = _clips(40 + nperseg, cfg, offset=0.0 if detrend == "none" else 1.0)
+    x = _clips(40 + nperseg, cfg, offset=0.0 if detrend == "none" else 1.0,
+               trend=0.05)
     psd_j, lo_j, hi_j = (np.asarray(a) for a in jax.jit(
         lambda v: stft_pallas.stft_psd_pallas(v, FS, _jax(cfg),
                                               with_stats=True))(
@@ -367,3 +405,18 @@ def test_mixed_model_nan_and_overflow_like_the_plain_version():
     with np.errstate(invalid="ignore"):
         diff = np.where(ok, got - want, 0.0)
     assert np.all(np.abs(diff) <= 1.2e-7 * scale)
+
+
+@pytest.mark.parametrize("nperseg", [992, 8032, 8160])
+def test_mixed_model_linear_detrend_within_the_display_contract(nperseg):
+    """Under linear detrend on a ramp clip, against scipy's
+    detrend='linear' in float64: 1e-6 dB, as the other detrends (8160 and
+    8032 are chip_smoke.py's path 6 and the GUI's largest prime)."""
+    cfg = dataclasses.replace(SpecConfig.scipy_default(nperseg),
+                              detrend="linear")
+    assert stft_cuda.route(cfg) == "mixed"
+    x = _clips(65, cfg, n_clips=1)
+    psd = _model(x, cfg, round_f32=True)[0]
+    err = torch_precision.display_error_db(psd.T, x[0].astype(np.float64),
+                                           cfg)
+    assert err <= 1e-6, err

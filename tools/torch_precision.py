@@ -25,12 +25,17 @@ exact butterfly order and twiddle table (``psd_fft``) at the powers of
 two, and the mixed-radix kernel's stages, load order and twiddle rows
 (``psd_mixed_fft``) at the other configs (``MIXED_SWEEP``, where the
 float32 chain is not emulated: it is a question of the GEMM design, and
-at 8160 its emulation would take hours).
+at 8160 its emulation would take hours). Its last rows
+(``LINEAR_SWEEP``) hold both FFT models to scipy under linear detrend on
+ramp clips, the mixed-radix model at 1024 too (its plan is then all
+radix-2 stages).
 
 Each PSD is rounded to float32, as the kernel stores it. The display error
 is ``bench.py``'s formula, max |Δimage| times the image's dB range, with
 the display itself computed in float64 so that it measures the PSD alone.
-Clips are white noise of 8·nperseg samples, with or without a +3 offset.
+Clips are white noise of 8·nperseg samples, with or without a +3 offset,
+or with a trend rising from 3 to 43 over the clip (ramp clips,
+:func:`trend`).
 
 scipy is an oracle here, as in ``bench.py`` and the tests; the port's
 package never imports it.
@@ -39,6 +44,7 @@ package never imports it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -145,6 +151,24 @@ def bit_reverse(k: int) -> np.ndarray:
     return r
 
 
+def detrended(f: np.ndarray, detrend: str) -> np.ndarray:
+    """The FFT kernels' detrend of float64 frames (T, K), before the window
+    (``csrc/stft_psd.cu::frame_line``): none, f; constant, f - mean;
+    linear, f - mean - slope·(i - c) with c = (K - 1)/2, mean = Σ x / K and
+    slope = Σ (i - c)·x / D, D = K (K² - 1)/12, the least-squares line
+    against the centred index. What differs from the card: the sums are
+    numpy's, not the kernel's block reduction."""
+    if detrend == "none":
+        return f
+    K = f.shape[-1]
+    mean = f.sum(axis=-1, keepdims=True) / K
+    if detrend == "constant":
+        return f - mean
+    d = np.arange(K) - (K - 1) / 2.0
+    slope = (f * d).sum(axis=-1, keepdims=True) / (K * (K * K - 1.0) / 12.0)
+    return f - mean - slope * d
+
+
 def psd_fft(frames: np.ndarray, window: np.ndarray, twiddles: np.ndarray,
             wts: np.ndarray, detrend: str = "none",
             round_f32: bool = True) -> np.ndarray:
@@ -152,7 +176,9 @@ def psd_fft(frames: np.ndarray, window: np.ndarray, twiddles: np.ndarray,
     (``csrc/stft_psd.cu::stft_fft_psd_kernel``), in float64, K = nperseg,
     M = K/2:
 
-    - v = (frame - mean) · window (the mean under constant detrend only);
+    - v = (frame - line) · window, the line the frame's mean under
+      constant detrend, its least-squares line under linear, 0 under none
+      (:func:`detrended`);
     - z[m] = v[2m] + i v[2m + 1], stored in bit-reversed order;
     - an M-point radix-2 decimation-in-time FFT whose stage h combines
       z[i0] and z[i0 + h] (i0 = 2h·(j div h) + j mod h) with the twiddle
@@ -165,16 +191,15 @@ def psd_fft(frames: np.ndarray, window: np.ndarray, twiddles: np.ndarray,
 
     window, twiddles and wts are the kernel's host operands
     (``ops/stft_cuda.py::fft_constants``). What differs from the card:
-    the mean is one numpy sum, not the kernel's block reduction; numpy
-    rounds the products where the card may fuse them (FMA); the kernel's
-    swizzle of shared-memory addresses moves values, not arithmetic."""
+    the detrend's sums are numpy's, not the kernel's block reduction;
+    numpy rounds the products where the card may fuse them (FMA); the
+    kernel's swizzle of shared-memory addresses moves values, not
+    arithmetic."""
     f = frames.astype(np.float64)
     K = f.shape[-1]
     M = K // 2
     F = wts.shape[0]
-    mean = (f.sum(axis=-1, keepdims=True) / K if detrend == "constant"
-            else 0.0)
-    v = (f - mean) * window
+    v = detrended(f, detrend) * window
     i = bit_reverse(M)
     re, im = v[:, 0::2][:, i], v[:, 1::2][:, i]
     j = np.arange(M // 2)
@@ -218,8 +243,8 @@ def psd_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
     (``csrc/stft_psd.cu::stft_mixed_fft_psd_kernel``), in float64, with
     ``plan`` = ``core/stft.py::fft_plan(nperseg)``, K = nperseg, M = K/2:
 
-    - v = (frame - mean) · window; z[m] = v[2m] + i v[2m + 1] stored at
-      slot perm[m] (the mixed-radix digit reversal);
+    - v = (frame - line) · window (:func:`detrended`); z[m] = v[2m] + i
+      v[2m + 1] stored at slot perm[m] (the mixed-radix digit reversal);
     - per stage (p, L) in plan order, on each group g of L·p slots and
       each k < L (the butterfly (g, k) reads and writes slots g·L·p + k +
       q·L, q < p):
@@ -232,15 +257,13 @@ def psd_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
     - the split step and the epilogue of :func:`psd_fft` with indices
       reduced mod M (g = M reads slot 0 and takes W = -1).
 
-    What differs from the card: the mean is one numpy sum, not the
+    What differs from the card: the detrend's sums are numpy's, not the
     kernel's block reduction, and numpy rounds the products where the card
     may fuse them (FMA)."""
     f = frames.astype(np.float64)
     T, K = f.shape
     M = K // 2
-    mean = (f.sum(axis=-1, keepdims=True) / K if detrend == "constant"
-            else 0.0)
-    v = (f - mean) * window
+    v = detrended(f, detrend) * window
     re = np.empty((T, M))
     im = np.empty((T, M))
     re[:, plan.perm] = v[:, 0::2]
@@ -312,10 +335,23 @@ def mixed_operands(cfg: SpecConfig, fs: float = FS):
             onesided_weights(cfg, fs))
 
 
-def clip(cfg: SpecConfig, seed: int, offset: float) -> np.ndarray:
-    """White noise of 8·nperseg float32 samples, plus offset."""
+def trend(n: int) -> np.ndarray:
+    """The trend of a ramp clip of n samples: 5·t + 3 with t running from 0
+    to 8 over the clip, the linear-detrend signal of
+    ``tests/test_extended_modes.py`` (5·t + 3 over 8.2 s) scaled to the
+    clip's length."""
+    return 3.0 + 40.0 * np.arange(n) / n
+
+
+def clip(cfg: SpecConfig, seed: int, offset: float,
+         ramp: bool = False) -> np.ndarray:
+    """White noise of 8·nperseg float32 samples, plus offset, plus
+    :func:`trend` for a ramp clip."""
     rs = np.random.RandomState(seed)
-    return (rs.randn(8 * cfg.nperseg) + offset).astype(np.float32)
+    x = rs.randn(8 * cfg.nperseg) + offset
+    if ramp:
+        x = x + trend(x.size)
+    return x.astype(np.float32)
 
 
 ONE_CLIP = [
@@ -343,6 +379,17 @@ MIXED_SWEEP = [
     ("scipy_default 8160", SpecConfig.scipy_default(8160)),
 ]
 
+LINEAR_SWEEP = [(name, dataclasses.replace(cfg, detrend="linear"))
+                for name, cfg in (
+                    ("north_star 1024/256", SpecConfig.north_star(1024, 256)),
+                    ("scipy_default 992", SpecConfig.scipy_default(992)),
+                    ("scipy_default 8032", SpecConfig.scipy_default(8032)),
+                    ("scipy_default 8160", SpecConfig.scipy_default(8160)))]
+
+# clip kind -> (offset, ramp)
+CLIP_KINDS = {"noise": (0.0, False), "noise + 3": (3.0, False),
+              "ramp": (0.0, True)}
+
 
 def one_clip_table() -> None:
     print("config                 clip       fp32 chain  fp32 16-sums  "
@@ -366,22 +413,30 @@ def one_clip_table() -> None:
 
 
 def sweep_table(seeds: int) -> None:
-    print(f"\nconfig                 clip       fp32 chain: worst  seed  "
-          f"above {CONTRACT_DB:g} dB  worst of seeds 0-19 | f64, A f64: "
-          f"worst | fft route: worst | mixed route: worst  (seeds "
+    print(f"\nconfig                 clip, detrend       fp32 chain: worst  "
+          f"seed  above {CONTRACT_DB:g} dB  worst of seeds 0-19 | f64, A "
+          f"f64: worst | fft route: worst | mixed route: worst  (seeds "
           f"0-{seeds - 1})")
-    for name, cfg in SWEEP + MIXED_SWEEP:
+    rows = ([(name, cfg, ("noise", "noise + 3"))
+             for name, cfg in SWEEP + MIXED_SWEEP]
+            + [(name, cfg, ("ramp",)) for name, cfg in LINEAR_SWEEP])
+    for name, cfg, kinds in rows:
         chain = (name, cfg) in SWEEP
         a_re, a_im = dft_matrices(cfg)
         wts = onesided_weights(cfg, FS)
-        if chain:
-            model, ops = psd_fft, fft_operands(cfg)
-        else:
-            model, ops = psd_mixed_fft, mixed_operands(cfg)
-        for offset in (0.0, 3.0):
-            fp32, f64, fft = [], [], []
+        # the radix-2 model at powers of two, the mixed-radix model off the
+        # float32 chain's rows (at 1024 its plan is all radix-2 stages)
+        models = {}
+        if cfg.nperseg & (cfg.nperseg - 1) == 0:
+            models["fft"] = (psd_fft, fft_operands(cfg))
+        if not chain:
+            models["mixed"] = (psd_mixed_fft, mixed_operands(cfg))
+        for kind in kinds:
+            offset, ramp = CLIP_KINDS[kind]
+            fp32, f64 = [], []
+            routes = {route: [] for route in models}
             for s in range(seeds):
-                x = clip(cfg, s, offset)
+                x = clip(cfg, s, offset, ramp)
                 x64 = x.astype(np.float64)
                 frames = frames_of(x, cfg)
                 if chain:
@@ -389,20 +444,23 @@ def sweep_table(seeds: int) -> None:
                         psd_fp32_chain(frames, a_re, a_im, wts).T, x64, cfg))
                 f64.append(display_error_db(
                     psd_f64(frames, a_re, a_im, wts).T, x64, cfg))
-                fft.append(display_error_db(
-                    model(frames, *ops, detrend=cfg.detrend).T, x64, cfg))
-            kind = "noise + 3" if offset else "noise"
+                for route, (model, ops) in models.items():
+                    routes[route].append(display_error_db(
+                        model(frames, *ops, detrend=cfg.detrend).T, x64,
+                        cfg))
             if chain:
                 fp32 = np.asarray(fp32)
                 left = (f"{fp32.max():.2e}           {int(fp32.argmax()):4d}"
                         f"  {int((fp32 > CONTRACT_DB).sum()):3d} of "
                         f"{seeds:<4d}     {fp32[:20].max():.2e}           ")
-                cols = f"{max(fft):.2e}          | —"
             else:
                 left = f"{'—':<49s}"
-                cols = f"{'—':<17s}| {max(fft):.2e}"
-            print(f"{name:22s} {kind:10s} {left} | {max(f64):.2e}           "
-                  f"| {cols}", flush=True)
+            cols = [f"{max(routes[r]):.2e}" if r in routes else "—"
+                    for r in ("fft", "mixed")]
+            print(f"{name:22s} {kind + ', ' + cfg.detrend:19s} {left} | "
+                  f"{max(f64):.2e}           | {cols[0]:<17s}| {cols[1]}",
+                  flush=True)
+        dft_matrices.cache_clear()      # 533 MB a config at 8160
 
 
 def main(argv=None) -> None:

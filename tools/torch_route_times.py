@@ -2,14 +2,15 @@
 checkout of the port.
 
     python3 tools/torch_route_times.py [--root DIR] [--route ROUTE]
-                                       [--nperseg N ...]
+                                       [--nperseg N ...] [--detrend D]
 
 Imports ``spectral_tpu_torch`` from DIR (default: the checkout holding this
 script), builds its STFT kernel from DIR's sources, and times
 ``stft_psd(x, fs, cfg, with_stats=True)`` on 1024 clips of 10 s at 16 kHz
 for scipy_default 1024, north_star 1024/256 and scipy_default 992 (the
-mixed-radix route), or scipy_default at each ``--nperseg`` given, with
-CUDA events, median of 5 after a warm-up. ``--route`` (gemm, fft or
+mixed-radix route), or scipy_default at each ``--nperseg`` given, under
+each config's own detrend or ``--detrend``, with CUDA events, median of 5
+after a warm-up. ``--route`` (gemm, fft or
 mixed) forces that kernel through ``stft_psd``'s module-private
 ``_route`` on the configs that allow it and skips the others; ``--route
 mixed`` also takes the power-of-two configs, whose plan is all radix-2
@@ -19,13 +20,16 @@ checkout's kernels, so one call on one card compares two versions: run it
 for the older, this, this and the older again.
 
 Needs one CUDA card. Prints one JSON line: the root, the card's name and
-power limit, and per config the median, every repeat and the launch
-counts the calls added.
+power limit, and per config the median, every repeat, the launch counts
+the calls added and a SHA-256 of the first 64 clips' PSD bytes (equal
+digests in two checkouts: bitwise-equal PSDs).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -45,6 +49,8 @@ def main(argv=None) -> None:
                     help="force this kernel where the config allows it")
     ap.add_argument("--nperseg", type=int, nargs="*",
                     help="time scipy_default at these nperseg instead")
+    ap.add_argument("--detrend", choices=("none", "constant", "linear"),
+                    help="replace each config's detrend")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -65,12 +71,17 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn((CLIPS, int(FS * SECONDS)), generator=gen, device=dev)
     report = {"root": root, "card": card, "clips": CLIPS,
-              "seconds": SECONDS, "route": args.route}
+              "seconds": SECONDS, "route": args.route,
+              "detrend": args.detrend}
     configs = ([(f"scipy_default {k}", SpecConfig.scipy_default(k))
                 for k in args.nperseg] if args.nperseg else
                [("scipy_default 1024", SpecConfig.scipy_default(1024)),
                 ("north_star 1024/256", SpecConfig.north_star(1024, 256)),
                 ("scipy_default 992", SpecConfig.scipy_default(992))])
+    if args.detrend:
+        configs = [(f"{name} {args.detrend}",
+                    dataclasses.replace(cfg, detrend=args.detrend))
+                   for name, cfg in configs]
     for name, cfg in configs:
         def call(v, cfg=cfg, route=args.route):
             return stft_cuda.stft_psd(v, FS, cfg, with_stats=True,
@@ -93,7 +104,9 @@ def main(argv=None) -> None:
                 report[name] = f"no {args.route} route"
                 continue
         before = json.loads(json.dumps(stft_cuda.launches))
-        call(x)                                  # build, warm up
+        psd = call(x)[0]                         # build, warm up
+        digest = hashlib.sha256(psd[:64].cpu().numpy().tobytes()).hexdigest()
+        del psd
         torch.cuda.synchronize()
         reps = []
         for _ in range(REPS):
@@ -108,7 +121,7 @@ def main(argv=None) -> None:
         added = ({k: after[k] - before.get(k, 0) for k in after}
                  if isinstance(after, dict) else after - before)
         report[name] = {"ms": sorted(reps)[REPS // 2], "reps_ms": reps,
-                        "launches": added}
+                        "launches": added, "psd_sha256": digest[:16]}
     print(json.dumps(report))
 
 
