@@ -6,13 +6,15 @@
 Needs one CUDA card, nvcc and triton; run it from the root of a checkout.
 It builds every kernel of the port's paths from the sources in the
 checkout and holds each kernel against its plain PyTorch version on the
-card: the STFT/PSD kernel's three routes (the FFT kernel at power-of-two
+card: the STFT/PSD kernel's four routes (the FFT kernel at power-of-two
 nperseg 32-8192; the mixed-radix kernel at the other GUI values, every
-radix from 3 to 251, nperseg 96-8160; both under linear detrend on ramp
-clips too; the GEMM kernel forced beside them) and the display kernel in
-both output modes, with and without the float image. Then it drives seven
-paths at full size, each with the launch counts set to 0 just before it
-and read just after:
+radix from 3 to 251, nperseg 96-8160, and with its Rader stage at 514 and
+8186; both under linear detrend on ramp clips too; the odd kernel at
+nperseg 33-8191 under every detrend, with and without a Rader stage, and
+on frames that its pairing must keep apart; the GEMM kernel forced beside
+them) and the display kernel in both output modes, with and without the
+float image. Then it drives eight paths at full size, each with the launch
+counts set to 0 just before it and read just after:
 
 1. the display spine: 1024 clips of 10 s at 16 kHz through
    ``batched_spectrogram_fn`` at north_star 1024/256 log (RGBA words), on
@@ -31,16 +33,19 @@ and read just after:
 6. linear detrend on the mixed-radix route: path 2's batch at
    scipy_default 8160 with detrend='linear', held to scipy on a ramp clip
    too;
-7. the GEMM route on a config it still computes, an odd nperseg off the
-   GUI's range: path 2's batch at scipy_default 8191.
+7. the odd route with a Rader stage, off the GUI's range: path 2's batch
+   at scipy_default 8191 (a prime; 8190 = 2 3^2 5 7 13), timed with its
+   frames packed two a transform and alone;
+8. the GEMM route on a config it still computes: 64 clips of 60 s at
+   scipy_default 8185 (5 1637, and 1636 = 2^2 409).
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
 with CUDA events: the library yardstick of the STFT kernels is cuFFT's
 float64 real transform of the same frames (``library_psd``), which the
-port never calls. The GEMM kernel is also timed on paths 1, 2, 4, 5 and
-6, forced through ``stft_psd``'s module-private ``_route``, beside the
-FFT kernels.
+port never calls. The GEMM kernel is also timed on paths 1, 2, 4, 5, 6
+and 7, forced through ``stft_psd``'s module-private ``_route``, beside
+the FFT kernels.
 
 ``main(_phases={...})`` runs the named phases only (a short first call
 after a kernel changes: ``python3 -c "import chip_smoke;
@@ -73,7 +78,12 @@ K2_CLIPS = 256
 K2_SECONDS = 60.0
 MIXED_NPERSEG = 8160    # the GUI's largest nperseg that is not a power of 2
 PRIME_NPERSEG = 8032    # 32 * 251: the GUI's largest odd prime factor
-ODD_NPERSEG = 8191      # odd, off the GUI's grid: the GEMM route's
+ODD_NPERSEG = 8191      # a prime off the GUI's grid: the odd route, Rader
+GEMM_NPERSEG = 8185     # 5 * 1637: a config the GEMM kernel computes
+GEMM_CLIPS = 64
+# the odd route's kernel cases, and the Rader stage's on the mixed-radix
+# kernel (514 = 2 * 257, 8186 = 2 * 4093)
+ODD_CASES = (33, 45, 257, 514, 1021, 1023, 4093, 8186, 8191)
 EXPORT_CLIPS = 1024
 EXPORT_BATCH = 64
 REPS = 5
@@ -594,6 +604,118 @@ def kernel_cases(dev):
                   f"identical {same:.6f}")
 
 
+def odd_kernel_cases(dev):
+    """The odd route (two frames of a clip a transform) and the Rader stage
+    (on the odd kernel, and at 514 and 8186 on the mixed-radix kernel)
+    against the plain version: every detrend on clips with an odd T (a
+    lone last frame), the pairing's guard on an all-zero, a NaN and a
+    1e-6 frame beside loud ones, overflow, log10_out, T = 0 and the GEMM
+    kernel forced on an odd nperseg. Every bin finite in both is held to 1
+    float32 ulp of the plain version, and NaN and inf bins to the same
+    places."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.ops import stft_cuda
+    from spectral_tpu_torch.parallel.sharding import finite_flags
+    from torch_precision import trend
+
+    phase("the odd route and the Rader stage against their plain version")
+    rs = np.random.RandomState(7)
+    worst = {}
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    def compare(x, cfg, what, route=None):
+        used = route or stft_cuda.route(cfg)
+        before = dict(stft_cuda.launches)
+        got = stft_cuda.stft_psd(x, FS, cfg, with_stats=True, _route=route)
+        torch.cuda.synchronize()
+        after = dict(stft_cuda.launches)
+        require(after[used] == before[used] + 1
+                and sum(after.values()) == sum(before.values()) + 1,
+                f"{what}: one launch of the {used} kernel, counts {before} "
+                f"-> {after}")
+        want = stft_cuda.stft_psd_reference(
+            x, stft_cuda.dft_constants(cfg, FS, dev), cfg, with_stats=True)
+        for g, w in zip(got, want):
+            require(torch.equal(torch.isnan(g), torch.isnan(w))
+                    and torch.equal(torch.isinf(g), torch.isinf(w)),
+                    f"{what} [{used}]: NaN or inf in other places")
+        ok = torch.isfinite(want[0])
+        diff = torch.where(ok, (got[0] - want[0]).abs(), 0.0)
+        scale = torch.where(ok, want[0].abs(), 0.0).amax(dim=(1, 2))
+        rel = float((diff.amax(dim=(1, 2)) / scale.clamp_min(1e-30)).amax())
+        ulps = [ulp_distance(g, w) for g, w in zip(got, want)]
+        worst[what + f" [{used}]"] = max(ulps)
+        print(f"{what} [{used}]: psd {rel:.2e} of the clip max; float32 ulp "
+              f"distance psd {ulps[0]}, pmin {ulps[1]}, pmax {ulps[2]}")
+        return got, want
+
+    for k in ODD_CASES:
+        hop = k // 4
+        n = k + 8 * hop                          # T = 9
+        noise = rs.randn(3, n)
+        for detrend, x in (("none", noise), ("constant", noise + 3.0),
+                           ("linear", noise + trend(n))):
+            cfg = (SpecConfig.north_star(k, hop) if detrend == "none" else
+                   SpecConfig(nperseg=k, hop=hop, detrend=detrend))
+            compare(on_card(x), cfg, f"nperseg {k}, {detrend}, T = 9")
+        # frames apart (hop = nperseg), T = 7: clip 0's frame 1 all zero
+        # beside loud frame 0, its frame 4 at 1e-6 beside frame 5; clip 1
+        # a NaN in frame 3 beside frame 2; frame 6 alone
+        cfg = SpecConfig(nperseg=k, hop=k, window="hann", detrend="constant")
+        xc = rs.randn(2, 7 * k) + 3.0
+        xc[0, k:2 * k] = 0.0
+        xc[0, 4 * k:5 * k] = 1e-6 * rs.randn(k)
+        xc[1, 3 * k + k // 2] = np.nan
+        got, _ = compare(on_card(xc), cfg,
+                         f"nperseg {k}, zero, 1e-6 and NaN frames beside "
+                         "loud ones")
+        frames_ok = torch.isfinite(got[0][1]).all(dim=1).tolist()
+        require(bool((got[0][0, 1] == 0).all()) and float(got[1][0]) == 0.0
+                and bool(torch.isnan(got[1][1]))
+                and frames_ok == [True, True, True, False, True, True, True],
+                f"nperseg {k}: the zero frame's bins exactly 0 and the "
+                f"clip's pmin 0, the NaN only in its own frame: {frames_ok}")
+    compare(on_card(rs.randn(3, 1023 + 8 * 255) + 3.0),
+            SpecConfig(nperseg=1023, hop=255), "nperseg 1023, constant",
+            route="gemm")
+    for k in (1023, 8191):
+        cfg = SpecConfig.north_star(k, k // 4)
+        xo = on_card(np.stack([rs.randn(8 * k), 1e19 * rs.randn(8 * k)]))
+        _, lo_o, hi_o = stft_cuda.stft_psd(xo, FS, cfg, with_stats=True)
+        require(bool(torch.isfinite(hi_o[0])) and bool(torch.isinf(hi_o[1]))
+                and finite_flags(xo, lo_o, hi_o).tolist() == [True, False],
+                f"overflow guard [odd], nperseg {k}: pmax {hi_o.tolist()}")
+        print(f"1e19-amplitude clip, nperseg {k} [odd]: pmax inf, finite "
+              "[True, False]")
+        xl = on_card(rs.randn(2, 8 * k) + 3.0)
+        got = stft_cuda.stft_psd(xl, FS, cfg, log10_out=True)
+        want = stft_cuda.stft_psd_reference(
+            xl, stft_cuda.dft_constants(cfg, FS, dev), cfg, log10_out=True)
+        lin_rel, _ = psd_err(10.0 ** got.double(), 10.0 ** want.double())
+        require(lin_rel <= PSD_TOL, f"nperseg {k} log10_out: {lin_rel:.2e}")
+        worst[f"nperseg {k} log10_out"] = ulp_distance(got, want)
+        print(f"nperseg {k} log10_out [odd] (compared in linear units): "
+              f"{lin_rel:.2e}; float32 ulp distance "
+              f"{ulp_distance(got, want)}")
+        before = read_counts()["stft_psd"]
+        psd0, lo0, hi0 = stft_cuda.stft_psd(on_card(rs.randn(2, 500)), FS,
+                                            cfg, with_stats=True)
+        require(tuple(psd0.shape) == (2, 0, cfg.n_freqs)
+                and read_counts()["stft_psd"] == before
+                and float(lo0.abs().sum() + hi0.abs().sum()) == 0.0,
+                "T = 0 gives empty PSD and zero extrema without a launch")
+        print(f"nperseg {k}, T = 0: empty PSD, zero extrema, no launch")
+    over = {k: v for k, v in worst.items() if v > 1}
+    print(f"odd route and Rader cases: largest float32 ulp distance "
+          f"{max(worst.values())} over {len(worst)} cases")
+    require(not over, f"cases past 1 float32 ulp of the plain version: "
+            f"{over}")
+
+
 def scipy_checks(dev, card):
     """The display contract against scipy float64 on clips that break a
     float32 chain (tools/torch_precision.py): scipy_default 1024 on
@@ -798,12 +920,13 @@ def main_path(dev, card):
     }
 
 
-def long_path(dev, card, dfma_peak, cfg, label):
-    """256 clips of 60 s through ``batched_spectrogram_fn`` at cfg: path 2
-    at scipy_default 8192 (the FFT route; K2's counterpart), paths 4, 5
-    and 6 at scipy_default 8160, 8032 and 8160 under linear detrend (the
-    mixed-radix route) and path 7 at 8191 (the GEMM route). Returns the
-    STFT kernel's row."""
+def long_path(dev, card, dfma_peak, cfg, label, clips=K2_CLIPS):
+    """``clips`` clips of 60 s through ``batched_spectrogram_fn`` at cfg:
+    path 2 at scipy_default 8192 (the FFT route; K2's counterpart), paths
+    4, 5 and 6 at scipy_default 8160, 8032 and 8160 under linear detrend
+    (the mixed-radix route), path 7 at 8191 (the odd route, Rader) and
+    path 8 at 8185 on 64 clips (the GEMM route). Returns the STFT kernel's
+    row."""
     import numpy as np
     import torch
     from spectral_tpu_torch.core.stft import num_frames
@@ -815,17 +938,17 @@ def long_path(dev, card, dfma_peak, cfg, label):
     n = int(FS * K2_SECONDS)
     nperseg = cfg.nperseg
     route = stft_cuda.route(cfg)
-    phase(f"{label}: {K2_CLIPS} clips x {K2_SECONDS:g} s, nperseg {nperseg} "
+    phase(f"{label}: {clips} clips x {K2_SECONDS:g} s, nperseg {nperseg} "
           f"hop {cfg.hop_}, detrend {cfg.detrend}, log, the {route} route")
     gen = torch.Generator(device=dev).manual_seed(2)
-    x = torch.randn((K2_CLIPS, n), generator=gen, device=dev)
+    x = torch.randn((clips, n), generator=gen, device=dev)
     if route != "gemm":
         setup = (stft_cuda.fft_constants if route == "fft"
                  else stft_cuda.mixed_constants)
         t0 = time.perf_counter()
         setup(cfg, FS, dev)
         print(f"{route} route's f64 constants (window, "
-              f"{'plan, ' if route == 'mixed' else ''}twiddles, weights) on "
+              f"{'' if route == 'fft' else 'plan, '}twiddles, weights) on "
               f"the card in {time.perf_counter() - t0:.4f} s (host build + "
               "upload; set-up)")
     t0 = time.perf_counter()
@@ -847,8 +970,8 @@ def long_path(dev, card, dfma_peak, cfg, label):
             f"{counts}")
     # 133 and 4097 at 8192
     T, F = num_frames(n, cfg.nperseg, cfg.hop_), cfg.n_freqs
-    require(tuple(out["psd"].shape) == (K2_CLIPS, T, F)
-            and tuple(out["image"].shape) == (K2_CLIPS, F, T)
+    require(tuple(out["psd"].shape) == (clips, T, F)
+            and tuple(out["image"].shape) == (clips, F, T)
             and bool(out["finite"].all())
             and float(out["image"].amin()) == 0.0
             and float(out["image"].amax()) == 1.0,
@@ -859,11 +982,11 @@ def long_path(dev, card, dfma_peak, cfg, label):
     require(db_err <= DB_TOL, f"{label} clip 0 vs scipy f64: {db_err:.3e} dB")
     print(f"clip 0 vs scipy float64: {db_err:.3e} dB (limit {DB_TOL:g})")
     x3 = np.random.RandomState(4).randn(1, n) + 3.0
-    clips = [("noise + 3", x3)]
+    checks = [("noise + 3", x3)]
     if cfg.detrend == "linear":
         # noise plus a trend rising from 3 to 43 over the clip
-        clips.append(("ramp", x3 - 3.0 + trend(n)))
-    for what, xc in clips:
+        checks.append(("ramp", x3 - 3.0 + trend(n)))
+    for what, xc in checks:
         xc = xc.astype(np.float32)
         img = fn(xc)["image"][0].flip(0).cpu().numpy()
         db = db_error_vs_scipy(img, xc[0].astype(np.float64), cfg)
@@ -882,6 +1005,16 @@ def long_path(dev, card, dfma_peak, cfg, label):
     require(lib_rel <= PSD_TOL, f"library yardstick vs plain: {lib_rel:.2e}")
     print(f"library yardstick (cuFFT f64) vs plain: {lib_rel:.2e} of clip "
           "max")
+    if route == "odd":
+        alone = stft_cuda._stft_psd_cuda(x, FS, cfg, False, False, "odd",
+                                         pack=False)
+        a_rel, _ = psd_err(alone, psd_p)
+        require(a_rel <= PSD_TOL, f"{label} frames alone vs plain: "
+                f"{a_rel:.2e}")
+        print(f"odd kernel, every frame alone, vs plain: {a_rel:.2e} of clip "
+              f"max; largest float32 ulp distance {ulp_distance(alone, psd_p)}"
+              f"; packed vs alone {ulp_distance(out['psd'], alone)} ulp")
+        del alone
     pmin_k = torch.amin(out["psd"], dim=(1, 2))
     pmax_k = torch.amax(out["psd"], dim=(1, 2))
     require(torch.equal(torch.isnan(pmin_k), torch.isnan(pmin_p)),
@@ -903,24 +1036,28 @@ def long_path(dev, card, dfma_peak, cfg, label):
         "stft_library": time_ms(lambda: library_psd(x, cfg)),
         "pipeline_kernel": time_ms(lambda: fn(x)),
     }
+    if route == "odd":
+        timings["stft_kernel_frames_alone"] = time_ms(
+            lambda: stft_cuda._stft_psd_cuda(x, FS, cfg, False, True, "odd",
+                                             pack=False))
     if route != "gemm":
         timings["stft_gemm_kernel"] = time_ms(lambda: stft_cuda.stft_psd(
             x, FS, cfg, with_stats=True, _route="gemm"))
     for name, (ms, reps) in timings.items():
         print(f"{name}: {ms:.3f} ms [{card}] reps {reps}")
-    audio_h = K2_CLIPS * K2_SECONDS / 3600.0
+    audio_h = clips * K2_SECONDS / 3600.0
     ms = timings["pipeline_kernel"][0]
     print(f"pipeline: {ms:.3f} ms per batch, {audio_h / (ms / 60000.0):.1f} "
           f"audio-h/min [{card}]")
-    dense_ms = dense_dft_bound_ms(K2_CLIPS, T, F, nperseg)
+    dense_ms = dense_dft_bound_ms(clips, T, F, nperseg)
     gemm_ms = timings.get("stft_gemm_kernel", timings["stft_kernel"])[0]
-    flops = 4.0 * K2_CLIPS * T * F * nperseg
+    flops = 4.0 * clips * T * F * nperseg
     print(f"GEMM kernel: {flops / 1e12:.3f} TFLOP of dense DFT in "
           f"{gemm_ms:.3f} ms = {flops / gemm_ms / 1e9:.2f} TFLOP/s; that "
           f"design's ceiling {dense_ms:.3f} ms at the FP64 peak "
           f"{FP64_PEAK / 1e12:g} TFLOP/s, {1e3 * flops / dfma_peak:.3f} ms "
           f"at the {dfma_peak / 1e12:.2f} TFLOP/s of DFMA [{card}]")
-    bound = stft_bound(K2_CLIPS, n, T, F, nperseg)
+    bound = stft_bound(clips, n, T, F, nperseg)
     print(f"STFT kernel ({route}): {timings['stft_kernel'][0]:.3f} ms; "
           f"bound {bound[0]:.3f} ms ({bound[1]}) [{card}]")
     print(json.dumps({f"path_{nperseg}_{cfg.detrend}_times": {
@@ -1091,7 +1228,7 @@ def export_path(dev, card):
 
 
 PHASES = ("kernels", "scipy", "path1", "path2", "path3", "path4", "path5",
-          "path6", "path7")
+          "path6", "path7", "path8")
 
 
 def main(_phases=None):
@@ -1109,6 +1246,7 @@ def main(_phases=None):
     build_kernels()
     if "kernels" in phases:
         kernel_cases(dev)
+        odd_kernel_cases(dev)
     if "scipy" in phases:
         scipy_checks(dev, card)
     rows = {}
@@ -1133,12 +1271,18 @@ def main(_phases=None):
             ("path6", "stft_mixed_8160_linear",
              "path 6, linear detrend on the mixed-radix route",
              dataclasses.replace(s8160, detrend="linear")),
-            ("path7", "stft_gemm",
-             "path 7, the GEMM route at an odd nperseg",
+            ("path7", "stft_odd",
+             "path 7, the odd route with a Rader stage",
              SpecConfig.scipy_default(ODD_NPERSEG, log_scale=True))):
         if name in phases:
             rows[key] = long_path(dev, card, dfma_peak, cfg, label)
             torch.cuda.empty_cache()
+    if "path8" in phases:
+        rows["stft_gemm"] = long_path(
+            dev, card, dfma_peak,
+            SpecConfig.scipy_default(GEMM_NPERSEG, log_scale=True),
+            "path 8, the GEMM route", clips=GEMM_CLIPS)
+        torch.cuda.empty_cache()
     if _phases is not None:
         print(f"chip_smoke phases {sorted(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -1148,8 +1292,9 @@ def main(_phases=None):
           f"{rows['stft_export_launches']}; the mixed-radix kernel's: path 4 "
           f"{rows['stft_mixed_8160']['launches']}, path 5 "
           f"{rows['stft_mixed_8032']['launches']}, path 6 "
-          f"{rows['stft_mixed_8160_linear']['launches']}; the GEMM kernel's: "
-          f"path 7 {rows['stft_gemm']['launches']}")
+          f"{rows['stft_mixed_8160_linear']['launches']}; the odd kernel's: "
+          f"path 7 {rows['stft_odd']['launches']}; the GEMM kernel's: path 8 "
+          f"{rows['stft_gemm']['launches']}")
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
     meta = {
         "stft_1024": ("stft_fft_psd, nperseg 1024 (path 1)", "cuda", src,
@@ -1165,7 +1310,9 @@ def main(_phases=None):
         "stft_mixed_8160_linear": (
             f"stft_mixed_fft_psd, nperseg {MIXED_NPERSEG} linear detrend "
             "(path 6)", "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
-        "stft_gemm": (f"stft_psd GEMM, nperseg {ODD_NPERSEG} (path 7)",
+        "stft_odd": (f"stft_odd_fft_psd, nperseg {ODD_NPERSEG} (path 7)",
+                     "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
+        "stft_gemm": (f"stft_psd GEMM, nperseg {GEMM_NPERSEG} (path 8)",
                       "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
         "display_rgba": ("display_epilogue rgba", "triton",
                          "spectral_tpu_torch/ops/display_triton.py",

@@ -185,14 +185,28 @@ def fft_twiddles(nfft: int) -> np.ndarray:
     return np.ascontiguousarray(base[j])
 
 
+# The largest odd radix the mixed-radix plan gives a direct stage
+# (MIX_MAX_RADIX in ops/csrc/stft_psd.cu); a transform length that is a
+# prime past it takes a Rader stage instead (:func:`fft_plan`)
+MAX_MIXED_RADIX = 255
+
+
 class FftPlan(NamedTuple):
-    """The mixed-radix FFT kernel's plan for nperseg K, the transform of
-    M = K/2 packed points (:func:`fft_plan`)."""
+    """The mixed-radix FFT kernels' plan for nperseg K (:func:`fft_plan`):
+    a transform of N points, the N = K/2 packed values of a real frame for
+    even K, the N = K values of a complex pair of frames for odd K."""
     stages: np.ndarray         # (S, 4) int32: radix p, span L, twiddle row,
-                               # root row of each stage, in stage order
-    perm: np.ndarray           # (M,) int32: packed value m goes to slot perm[m]
+                               # root row of each stage, in stage order; with
+                               # a Rader stage, the (N - 1)-point
+                               # sub-transform's
+    perm: np.ndarray           # (N,) int32: value m goes to slot perm[m];
+                               # with a Rader stage also the output map
     twiddles: np.ndarray       # (rows, 2) float64 (cos, sin), stage-ordered
-    split: int                 # first of the M split-step rows W_K^g
+    split: int                 # first of the N split-step rows W_K^g (even
+                               # K); -1 for odd K, which has no split step
+    rader: int                 # first of the N - 1 rows of the Rader
+                               # stage's kernel, in slot order; -1 without
+    generator: int             # the Rader stage's primitive root mod N; 0
 
 
 def fft_radices(m: int) -> Tuple[int, ...]:
@@ -212,60 +226,139 @@ def fft_radices(m: int) -> Tuple[int, ...]:
     return tuple(sorted(odd, reverse=True)) + (2,) * twos
 
 
-@functools.lru_cache(maxsize=16)
-def fft_plan(nfft: int) -> FftPlan:
-    """Host plan of the mixed-radix FFT kernel for an even nfft = K: a
-    decimation-in-time transform of M = K/2 points whose stages take M's
-    prime factors in :func:`fft_radices` order (odd primes descending,
-    then the twos), stage s of radix p and span L (the product of the
-    radices before it) combining p transforms of L points, values L apart,
-    into one of L·p points.
+def transform_length(nfft: int) -> int:
+    """The FFT kernels' transform length for nperseg nfft: nfft/2 packed
+    values for even nfft, nfft for odd."""
+    return nfft // 2 if nfft % 2 == 0 else nfft
 
-    - ``perm``: the load order, the mixed-radix digit reversal: packed
-      value m lands at slot (m mod p_last)·(M/p_last) + the same rule for
-      m div p_last over the stages before the last.
-    - ``twiddles``: every row is (cos, sin) of -2π j / K for an integer j
-      reduced exactly mod K, in numpy float64, unrounded. Stage s holds,
-      from row ``stages[s, 2]``, the (p - 1)·L inter-stage twiddles
-      W_Lp^(q·k) at row (q - 1)·L + k (q = 1..p-1, k < L), and for an odd
-      radix, from row ``stages[s, 3]``, the p roots W_p^i (i < p); the
-      last M rows, from row ``split``, are the split step's W_K^g, g < M.
 
-    No (K, F) matrix is built. The arrays are cached and shared: copy
-    before handing them to torch."""
-    if nfft % 2 or nfft < 4:
-        raise ValueError(f"the mixed-radix plan needs an even nfft, got "
-                         f"{nfft}")
-    M = nfft // 2
-    factors = fft_radices(M)
+def rader_prime(n: int) -> bool:
+    """Whether an n-point transform takes a Rader stage: n is a prime past
+    :data:`MAX_MIXED_RADIX`."""
+    return n > MAX_MIXED_RADIX and fft_radices(n) == (n,)
 
-    def rows(j):
-        ang = -2.0 * np.pi * (np.asarray(j, np.int64) % nfft) / nfft
-        return np.stack([np.cos(ang), np.sin(ang)], axis=-1)
 
+def plan_radices(nfft: int) -> Tuple[int, ...]:
+    """The radices of :func:`fft_plan`'s stages for nperseg nfft: the
+    transform length's (:func:`transform_length`) prime factors, or with a
+    Rader stage those of the length less one."""
+    n = transform_length(nfft)
+    return fft_radices(n - 1 if rader_prime(n) else n)
+
+
+def primitive_root(p: int) -> int:
+    """The smallest generator of the multiplicative group mod prime p."""
+    qs = set(fft_radices(p - 1))
+    return next(g for g in range(2, p)
+                if all(pow(g, (p - 1) // q, p) != 1 for q in qs))
+
+
+def _rows(j, nfft: int) -> np.ndarray:
+    """numpy's float64 (cos, sin) of -2π j / nfft, the integer j reduced
+    exactly mod nfft."""
+    ang = -2.0 * np.pi * (np.asarray(j, np.int64) % nfft) / nfft
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+
+
+def _dit_plan(n: int, nfft: int):
+    """The decimation-in-time stages of an n-point transform (n divides
+    nfft), their twiddle and root rows as angles over nfft, and the load
+    order: (stages, perm, row blocks, rows)."""
+    factors = fft_radices(n)
     blocks, stages, row, L = [], [], 0, 1
     for p in factors:
         q, k = np.meshgrid(np.arange(1, p), np.arange(L), indexing="ij")
-        blocks.append(rows((q * k).ravel() % (L * p) * (M // (L * p)) * 2))
+        blocks.append(_rows((q * k).ravel() % (L * p) * (nfft // (L * p)),
+                            nfft))
         tw_row, row = row, row + (p - 1) * L
         root_row = row
         if p % 2:
-            blocks.append(rows(np.arange(p) * (nfft // p)))
+            blocks.append(_rows(np.arange(p) * (nfft // p), nfft))
             row += p
         stages.append((p, L, tw_row, root_row))
         L *= p
-    blocks.append(rows(np.arange(M)))
-
-    perm = np.zeros(M, np.int64)
-    m = np.arange(M)
-    span = M
+    perm = np.zeros(n, np.int64)
+    m = np.arange(n)
+    span = n
     for p in reversed(factors):
         span //= p
         perm += (m % p) * span
         m //= p
-    return FftPlan(np.asarray(stages, np.int32),
-                   perm.astype(np.int32),
-                   np.ascontiguousarray(np.concatenate(blocks)), row)
+    return np.asarray(stages, np.int32).reshape(-1, 4), perm, blocks, row
+
+
+@functools.lru_cache(maxsize=16)
+def fft_plan(nfft: int) -> FftPlan:
+    """Host plan of the mixed-radix FFT kernels for nperseg nfft = K: a
+    transform of N points (:func:`transform_length`), decimation in time,
+    whose stages take N's prime factors in :func:`fft_radices` order (odd
+    primes descending, then the twos), stage s of radix p and span L (the
+    product of the radices before it) combining p transforms of L points,
+    values L apart, into one of L·p points.
+
+    - ``perm``: the load order, the mixed-radix digit reversal: value m
+      lands at slot (m mod p_last)·(N/p_last) + the same rule for m div
+      p_last over the stages before the last.
+    - ``twiddles``: every row is (cos, sin) of -2π j / K for an integer j
+      reduced exactly mod K, in numpy float64, unrounded. Stage s holds,
+      from row ``stages[s, 2]``, the (p - 1)·L inter-stage twiddles
+      W_Lp^(q·k) at row (q - 1)·L + k (q = 1..p-1, k < L), and for an odd
+      radix, from row ``stages[s, 3]``, the p roots W_p^i (i < p); for
+      even K the last N rows, from row ``split``, are the split step's
+      W_K^g, g < N.
+
+    When N is a prime p past :data:`MAX_MIXED_RADIX` (:func:`rader_prime`),
+    Rader's algorithm turns its transform into a cyclic convolution of
+    length P = p - 1, which the stages above compute. With g the smallest
+    primitive root mod p and x_q = x[g^q]:
+
+        X[0] = x[0] + Σ_q x_q,   X[g^j] = x[0] + V[j],
+        V = DFT_P(DFT_P(x_q) · b̂),   b̂ = DFT_P(W_p^(g^-q)) / P,
+
+    the inverse transform of the convolution theorem read backwards (V[j]
+    is its output at -j). In the kernel, P-point stages of the plan's
+    radices run in reverse order transposed (decimation in frequency:
+    natural order in, digit-reversed out), the product with b̂ is taken in
+    slot order, and the same stages run forwards (digit-reversed in,
+    natural out). So ``perm`` maps value n = g^q to slot q and 0 to slot
+    P, and is also the output map (X[f] reads slot perm[f], f > 0);
+    ``stages`` are the P-point sub-plan's, with rows as angles over P;
+    from row ``rader`` the P rows of b̂ in numpy float64 (``np.fft.fft``
+    of numpy's cos and sin) sit at slot perm_P[k], perm_P the sub-plan's
+    digit reversal; the split rows, for even K, follow.
+
+    No (K, F) matrix is built. The arrays are cached and shared: copy
+    before handing them to torch."""
+    if nfft < 3:
+        raise ValueError(f"the mixed-radix plan needs nfft >= 3, got {nfft}")
+    n = transform_length(nfft)
+    g = 0
+    rader = -1
+    if rader_prime(n):
+        P = n - 1
+        stages, sub_perm, blocks, row = _dit_plan(P, P)
+        g = primitive_root(n)
+        gq = np.ones(P, np.int64)
+        for q in range(1, P):
+            gq[q] = gq[q - 1] * g % n
+        perm = np.empty(n, np.int64)
+        perm[0] = P
+        perm[gq] = np.arange(P)
+        b = _rows(gq[(-np.arange(P)) % P], n)
+        bhat = np.fft.fft(b[:, 0] + 1j * b[:, 1]) / P
+        slots = np.empty(P, np.complex128)
+        slots[sub_perm] = bhat
+        blocks.append(np.stack([slots.real, slots.imag], axis=1))
+        rader, row = row, row + P
+    else:
+        stages, perm, blocks, row = _dit_plan(n, nfft)
+    split = -1
+    if nfft % 2 == 0:
+        blocks.append(_rows(np.arange(n), nfft))
+        split = row
+    return FftPlan(stages, perm.astype(np.int32),
+                   np.ascontiguousarray(np.concatenate(blocks)), split,
+                   rader, g)
 
 
 # ---------------------------------------------------------------------------

@@ -346,38 +346,93 @@ __device__ __forceinline__ double2 frame_line(const float* frame, int K,
   return make_double2(s.x / K, detrend == DETREND_LINEAR ? s.y / d : 0.0);
 }
 
-// The slot of transform index i < M in the FFT kernels' buffers
-struct SwizzledSlot {            // the radix-2 kernel's (M = 2^log2m)
+// Reads of transform output i from the FFT kernels' buffers
+struct SwizzledRead {            // the radix-2 kernel's (M = 2^log2m)
+  const double2* buf;
   int log2m;
-  __device__ int operator()(int i) const { return swz(i, log2m); }
+  __device__ double2 operator()(int i) const { return buf[swz(i, log2m)]; }
 };
-struct PlainSlot {               // the mixed-radix kernel's
-  __device__ int operator()(int i) const { return i; }
+struct PlainRead {               // the mixed-radix kernels', no Rader stage
+  const double2* buf;
+  __device__ double2 operator()(int i) const { return buf[i]; }
+};
+// With a Rader stage of P = N - 1 points (mixed_transform): X[0] is the
+// block's sum, X[i] = x[0] + slot map[i] for i > 0, x[0] kept in slot P
+struct RaderRead {
+  const double2* buf;
+  const int* __restrict__ map;
+  const double2* sum;
+  int P;
+  __device__ double2 operator()(int i) const {
+    if (i == 0) return *sum;
+    const double2 x0 = buf[P];
+    const double2 v = buf[map[i]];
+    return make_double2(x0.x + v.x, x0.y + v.y);
+  }
 };
 
+// One bin of row r: the power pw rounded once to float32 (or its log10),
+// folded into the row's NaN-propagating (lo, hi)
+__device__ __forceinline__ void store_bin(double pw, float* __restrict__ out,
+                                          long long r, int F, int f,
+                                          int log10_out, float& lo,
+                                          float& hi) {
+  const float p = static_cast<float>(pw);
+  lo = nan_min(lo, p);
+  hi = nan_max(hi, p);
+  out[r * F + f] = log10_out ? static_cast<float>(log10(pw + 1e-20)) : p;
+}
+
+// The row's (min, max) over the block, one partial per row; red_lo and
+// red_hi hold one float per warp, and a second call in the same phase
+// takes other arrays
+__device__ __forceinline__ void row_extrema(float lo, float hi, float* red_lo,
+                                            float* red_hi,
+                                            float* __restrict__ part_min,
+                                            float* __restrict__ part_max,
+                                            int r) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+  if ((tid & 31) == 0) {
+    red_lo[tid >> 5] = lo;
+    red_hi[tid >> 5] = hi;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) {
+      lo = nan_min(lo, red_lo[w]);
+      hi = nan_max(hi, red_hi[w]);
+    }
+    part_min[r] = lo;
+    part_max[r] = hi;
+  }
+}
+
 // The FFT kernels' epilogue for row r, from the M-point transform Z of the
-// packed frame in buf: for bins f < F, with g = min(f, K - f), E = (Z[g] +
-// conj Z[M - g]) / 2 and O = -i (Z[g] - conj Z[M - g]) / 2 (indices mod
-// M), X[f] = E + W_K^g O (W_K^g = split[g], -1 at g = M); then the power,
-// log10_out and the NaN-propagating (min, max) of the row, one partial
-// per row; bins in natural order, so the stores of one frame coalesce.
-// red_lo/red_hi hold one float per warp.
-template <typename Slot>
+// packed frame (read through z): for bins f < F, with g = min(f, K - f),
+// E = (Z[g] + conj Z[M - g]) / 2 and O = -i (Z[g] - conj Z[M - g]) / 2
+// (indices mod M), X[f] = E + W_K^g O (W_K^g = split[g], -1 at g = M);
+// then the power, log10_out and the NaN-propagating (min, max) of the
+// row, one partial per row; bins in natural order, so the stores of one
+// frame coalesce. red_lo/red_hi hold one float per warp.
+template <typename Read>
 __device__ __forceinline__ void split_psd_epilogue(
-    const double2* buf, Slot slot, const double2* __restrict__ split,
+    Read z, const double2* __restrict__ split,
     const double* __restrict__ wts, float* __restrict__ out,
     float* __restrict__ part_min, float* __restrict__ part_max,
     float* red_lo, float* red_hi, int r, int F, int K, int log10_out,
     int with_stats) {
   const int M = K >> 1;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
   float lo = INFINITY;
   float hi = -INFINITY;
-  for (int f = tid; f < F; f += nt) {
+  for (int f = threadIdx.x; f < F; f += blockDim.x) {
     const int g = f <= M ? f : K - f;
-    const double2 a = buf[slot(g == M ? 0 : g)];
-    const double2 b = buf[slot(g == 0 ? 0 : M - g)];
+    const double2 a = z(g == M ? 0 : g);
+    const double2 b = z(g == 0 ? 0 : M - g);
     const double2 w = g < M ? split[g] : make_double2(-1.0, 0.0);
     const double er = 0.5 * (a.x + b.x);
     const double ei = 0.5 * (a.y - b.y);
@@ -385,33 +440,10 @@ __device__ __forceinline__ void split_psd_epilogue(
     const double o_i = 0.5 * (b.x - a.x);
     const double xr = er + (w.x * o_r - w.y * o_i);
     const double xi = ei + (w.x * o_i + w.y * o_r);
-    const double pw = power(xr, xi, wts[f]);
-    const float p = static_cast<float>(pw);
-    lo = nan_min(lo, p);
-    hi = nan_max(hi, p);
-    out[(long long)r * F + f] =
-        log10_out ? static_cast<float>(log10(pw + 1e-20)) : p;
+    store_bin(power(xr, xi, wts[f]), out, r, F, f, log10_out, lo, hi);
   }
-  if (with_stats) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-      hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    }
-    if ((tid & 31) == 0) {
-      red_lo[tid >> 5] = lo;
-      red_hi[tid >> 5] = hi;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < (nt >> 5); ++w) {
-        lo = nan_min(lo, red_lo[w]);
-        hi = nan_max(hi, red_hi[w]);
-      }
-      part_min[r] = lo;
-      part_max[r] = hi;
-    }
-  }
+  if (with_stats)
+    row_extrema(lo, hi, red_lo, red_hi, part_min, part_max, r);
 }
 
 __global__ void __launch_bounds__(FFT_MAX_THREADS)
@@ -467,7 +499,7 @@ stft_fft_psd_kernel(const float* __restrict__ x,
     __syncthreads();
   }
 
-  split_psd_epilogue(buf, SwizzledSlot{log2m}, tw + (M - 1), wts, out,
+  split_psd_epilogue(SwizzledRead{buf, log2m}, tw + (M - 1), wts, out,
                      part_min, part_max, red_lo, red_hi, r, F, K, log10_out,
                      with_stats);
 }
@@ -529,13 +561,14 @@ stft_fft_psd_kernel(const float* __restrict__ x,
 // swizzled: M is not a power of two, so the radix-2 kernel's XOR swizzle
 // does not apply, and bank conflicts are left for a later design.
 
-constexpr int MIX_MAX_STAGES = 16;   // M <= 4096 has at most 12 factors
+constexpr int MIX_MAX_STAGES = 16;   // N <= 8191 points: 12 factors at most
 constexpr int MIX_MAX_RADIX = 255;   // largest odd radix; roots in smem
 constexpr int MIX_MIN_BLOCKS = 2;    // blocks of 512 threads an SM holds
 
 struct MixedPlan {
   int n_stages;
   int split;                       // first row of the split step's W_K^g
+  int rader;                       // first row of the Rader stage's b^, or -1
   int stage[MIX_MAX_STAGES][4];    // radix p, span L, twiddle row, root row
 };
 
@@ -543,17 +576,31 @@ __device__ __forceinline__ double2 cmul(double2 w, double2 y) {
   return make_double2(w.x * y.x - w.y * y.y, w.x * y.y + w.y * y.x);
 }
 
-// radix 2 at span L: butterfly j of M/2 takes slots (g 2L + k, +L)
+// Each stage below is decimation in time, or with DIF its transpose: the
+// stages run in reverse order, each butterfly's p-point DFT first and the
+// twiddles on its outputs (the DFT matrix is symmetric, so the transposed
+// network takes natural order in and leaves the plan's digit reversal
+// out). N is the stage's transform length.
+
+// radix 2 at span L: butterfly j of N/2 takes slots (g 2L + k, +L)
+template <bool DIF>
 __device__ __forceinline__ void stage_radix2(double2* buf,
                                              const double2* __restrict__ tw,
                                              int M, int L, int tw_row) {
   for (int j = threadIdx.x; j < (M >> 1); j += blockDim.x) {
     const int k = j % L;
     const int i0 = ((j - k) << 1) + k;
-    const double2 t = cmul(tw[tw_row + k], buf[i0 + L]);
-    const double2 a = buf[i0];
-    buf[i0] = make_double2(a.x + t.x, a.y + t.y);
-    buf[i0 + L] = make_double2(a.x - t.x, a.y - t.y);
+    if (DIF) {
+      const double2 a = buf[i0];
+      const double2 b = buf[i0 + L];
+      buf[i0] = make_double2(a.x + b.x, a.y + b.y);
+      buf[i0 + L] = cmul(tw[tw_row + k], make_double2(a.x - b.x, a.y - b.y));
+    } else {
+      const double2 t = cmul(tw[tw_row + k], buf[i0 + L]);
+      const double2 a = buf[i0];
+      buf[i0] = make_double2(a.x + t.x, a.y + t.y);
+      buf[i0 + L] = make_double2(a.x - t.x, a.y - t.y);
+    }
   }
 }
 
@@ -567,8 +614,8 @@ __device__ __forceinline__ void load_roots(double2* roots,
   __syncthreads();
 }
 
-// radix P = 3, 5 or 7 at span L: butterfly j of M/P in registers
-template <int P>
+// radix P = 3, 5 or 7 at span L: butterfly j of N/P in registers
+template <int P, bool DIF>
 __device__ __forceinline__ void stage_odd(double2* buf, double2* roots,
                                           const double2* __restrict__ tw,
                                           int M, int L, int tw_row,
@@ -581,7 +628,7 @@ __device__ __forceinline__ void stage_odd(double2* buf, double2* roots,
     double2 y[P];
 #pragma unroll
     for (int q = 0; q < P; ++q) y[q] = buf[base + q * L];
-    if (L > 1) {
+    if (!DIF && L > 1) {
 #pragma unroll
       for (int q = 1; q < P; ++q)
         y[q] = cmul(tw[tw_row + (q - 1) * L + k], y[q]);
@@ -597,8 +644,14 @@ __device__ __forceinline__ void stage_odd(double2* buf, double2* roots,
         br += (y[q].x - y[P - q].x) * c.y;
         bi += (y[q].y - y[P - q].y) * c.y;
       }
-      buf[base + m * L] = make_double2(ar - bi, ai + br);
-      if (m > 0) buf[base + (P - m) * L] = make_double2(ar + bi, ai - br);
+      double2 lo = make_double2(ar - bi, ai + br);
+      double2 hi = make_double2(ar + bi, ai - br);
+      if (DIF && L > 1 && m > 0) {
+        lo = cmul(tw[tw_row + (m - 1) * L + k], lo);
+        hi = cmul(tw[tw_row + (P - m - 1) * L + k], hi);
+      }
+      buf[base + m * L] = lo;
+      if (m > 0) buf[base + (P - m) * L] = hi;
     }
   }
 }
@@ -606,7 +659,10 @@ __device__ __forceinline__ void stage_odd(double2* buf, double2* roots,
 // any odd radix p at span L, in rounds of whole butterflies: thread t
 // computes output pair (m, p - m), m = t mod (h + 1), h = (p - 1)/2, of
 // butterfly j0 + t div (h + 1); a round reads all its butterflies' slots
-// before any is written, and no other round touches them
+// before any is written, and no other round touches them. In time the
+// twiddle pass runs first, over the whole buffer; in frequency each
+// thread twiddles its own outputs as it writes them.
+template <bool DIF>
 __device__ __forceinline__ void stage_generic(double2* buf, double2* roots,
                                               const double2* __restrict__ tw,
                                               int M, int p, int L,
@@ -614,7 +670,7 @@ __device__ __forceinline__ void stage_generic(double2* buf, double2* roots,
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lp = L * p;
-  if (L > 1) {
+  if (!DIF && L > 1) {
     for (int s = tid; s < M; s += nt) {
       const int r = s % lp;          // q L + k
       if (r >= L) buf[s] = cmul(tw[tw_row + r - L], buf[s]);
@@ -650,12 +706,76 @@ __device__ __forceinline__ void stage_generic(double2* buf, double2* roots,
     }
     __syncthreads();
     if (on) {
-      buf[base + m * L] = make_double2(ar - bi, ai + br);
-      if (m > 0) buf[base + (p - m) * L] = make_double2(ar + bi, ai - br);
+      double2 lo = make_double2(ar - bi, ai + br);
+      double2 hi = make_double2(ar + bi, ai - br);
+      if (DIF && L > 1 && m > 0) {
+        lo = cmul(tw[tw_row + (m - 1) * L + k], lo);
+        hi = cmul(tw[tw_row + (p - m - 1) * L + k], hi);
+      }
+      buf[base + m * L] = lo;
+      if (m > 0) buf[base + (p - m) * L] = hi;
     }
   }
 }
 
+// the plan's stages over N slots, in time (plan order) or in frequency
+// (DIF: reverse order, transposed); a barrier after each
+template <bool DIF>
+__device__ __forceinline__ void run_stages(double2* buf, double2* roots,
+                                           const double2* __restrict__ tw,
+                                           const MixedPlan& plan, int N) {
+  for (int i = 0; i < plan.n_stages; ++i) {
+    const int s = DIF ? plan.n_stages - 1 - i : i;
+    const int p = plan.stage[s][0];
+    const int L = plan.stage[s][1];
+    const int tw_row = plan.stage[s][2];
+    const int root_row = plan.stage[s][3];
+    switch (p) {
+      case 2: stage_radix2<DIF>(buf, tw, N, L, tw_row); break;
+      case 3: stage_odd<3, DIF>(buf, roots, tw, N, L, tw_row, root_row); break;
+      case 5: stage_odd<5, DIF>(buf, roots, tw, N, L, tw_row, root_row); break;
+      case 7: stage_odd<7, DIF>(buf, roots, tw, N, L, tw_row, root_row); break;
+      default:
+        stage_generic<DIF>(buf, roots, tw, N, p, L, tw_row, root_row);
+    }
+    __syncthreads();
+  }
+}
+
+// The N-point transform of the values the plan's load order put in buf,
+// in place: the plan's stages in time, output in natural order. With a
+// Rader stage (RADER, plan.rader >= 0; N a prime p, P = p - 1; slots
+// 0..P-1 hold x[g^q] at slot q, slot P holds x[0]): the P-point stages in
+// frequency (digit-reversed output), X[0] = x[0] + slot 0 into *sum, each
+// slot times its row of b^ (the host's DFT of W_p^(g^-q) over P, in slot
+// order), then the stages in time; X[i] for i > 0 is x[0] + slot perm[i]
+// (RaderRead). Ends at a barrier. The kernels are instantiated with and
+// without the Rader stage, so the plans without one run the code they ran
+// before it existed (the same registers and spills).
+template <bool RADER>
+__device__ __forceinline__ void mixed_transform(double2* buf, double2* roots,
+                                                const double2* __restrict__ tw,
+                                                const MixedPlan& plan, int N,
+                                                double2* sum) {
+  if (!RADER) {
+    run_stages<false>(buf, roots, tw, plan, N);
+    return;
+  }
+  const int P = N - 1;
+  run_stages<true>(buf, roots, tw, plan, P);
+  for (int s = threadIdx.x; s < P; s += blockDim.x) {
+    const double2 y = buf[s];
+    if (s == 0) {
+      const double2 x0 = buf[P];
+      *sum = make_double2(x0.x + y.x, x0.y + y.y);
+    }
+    buf[s] = cmul(tw[plan.rader + s], y);
+  }
+  __syncthreads();
+  run_stages<false>(buf, roots, tw, plan, P);
+}
+
+template <bool RADER>
 __global__ void __launch_bounds__(FFT_MAX_THREADS, MIX_MIN_BLOCKS)
 stft_mixed_fft_psd_kernel(const float* __restrict__ x,
                           const double* __restrict__ win,
@@ -673,6 +793,7 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
   __shared__ double2 red_sum[FFT_MAX_WARPS];
   __shared__ float red_lo[FFT_MAX_WARPS];
   __shared__ float red_hi[FFT_MAX_WARPS];
+  __shared__ double2 x_sum;         // X[0] under a Rader stage
 
   const int M = K >> 1;
   const int tid = threadIdx.x;
@@ -693,31 +814,163 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
   }
   __syncthreads();
 
-  for (int s = 0; s < plan.n_stages; ++s) {
-    const int p = plan.stage[s][0];
-    const int L = plan.stage[s][1];
-    const int tw_row = plan.stage[s][2];
-    const int root_row = plan.stage[s][3];
-    switch (p) {
-      case 2: stage_radix2(buf, tw, M, L, tw_row); break;
-      case 3: stage_odd<3>(buf, roots, tw, M, L, tw_row, root_row); break;
-      case 5: stage_odd<5>(buf, roots, tw, M, L, tw_row, root_row); break;
-      case 7: stage_odd<7>(buf, roots, tw, M, L, tw_row, root_row); break;
-      default: stage_generic(buf, roots, tw, M, p, L, tw_row, root_row);
-    }
-    __syncthreads();
-  }
+  mixed_transform<RADER>(buf, roots, tw, plan, M, &x_sum);
 
-  split_psd_epilogue(buf, PlainSlot{}, tw + plan.split, wts, out, part_min,
-                     part_max, red_lo, red_hi, r, F, K, log10_out,
-                     with_stats);
+  if (!RADER)
+    split_psd_epilogue(PlainRead{buf}, tw + plan.split, wts, out, part_min,
+                       part_max, red_lo, red_hi, r, F, K, log10_out,
+                       with_stats);
+  else
+    split_psd_epilogue(RaderRead{buf, perm, &x_sum, M - 1}, tw + plan.split,
+                       wts, out, part_min, part_max, red_lo, red_hi, r, F, K,
+                       log10_out, with_stats);
+}
+
+// ---------------------------------------------------------------------------
+// The odd route: odd nperseg K = 33-8191 whose transform the mixed plan
+// takes (every prime of K at most 255, or K itself a prime whose K - 1
+// has none past 255: a Rader stage), any detrend.
+//
+// No two samples of one odd frame pack into a complex value, so the
+// kernel packs two frames: block j of clip b takes frames t = 2j and
+// t + 1 of that clip (a clip with odd T leaves its last frame alone). Both
+// frames' detrend lines by block reduction (frame_line); z[i] = v_a[i] +
+// i v_b[i], v = ((double)frame[i] - mean - slope (i - c)) * win[i], at
+// slot perm[i]; the K-point transform (mixed_transform: the radix stages
+// of the mixed-radix kernel, with or without the Rader stage); then, with
+// Z the transform, the two frames' bins
+//
+//   A[f] = (Z[f] + conj Z[K - f]) / 2,  B[f] = (Z[f] - conj Z[K - f]) / 2i
+//
+// (indices mod K) and the PSD epilogue of both rows.
+//
+// Packing couples the frames: a pair's transform rounds at the scale of
+// the louder frame, so a quiet frame beside a loud one would take the
+// loud one's rounding (about (eps |A|)^2 in its bins, where the plain
+// version of an all-zero frame gives exact zeros), and a NaN would spread
+// to both. The load's block reduction sums each frame's energy (v^2), and
+// a pair shares a transform only if both sums are finite and positive and
+// within PAIR_MAX_RATIO of each other; else each frame is transformed
+// alone, z = v + 0i, X[f] = Z[f]. So a frame's bins never depend on a
+// frame that is not finite, is all zero or is 48 dB louder.
+//
+// What bounds it: as the mixed-radix kernel, shared memory and the
+// generic stages' float64 arithmetic; a Rader stage runs two (K - 1)-point
+// transforms for one K-point transform. The buffer holds K complex
+// float64 values, 131 KB at K = 8191, so one block fits an SM there;
+// packing two frames per transform halves the transforms, as packing two
+// samples does on even K. tools/torch_precision.py::psd_odd_fft is this
+// arithmetic in numpy.
+
+constexpr int ODD_MIN_BLOCKS = 1;    // blocks of 512 threads an SM holds
+constexpr double PAIR_MAX_RATIO = 65536.0;
+
+template <bool RADER>
+__global__ void __launch_bounds__(FFT_MAX_THREADS, ODD_MIN_BLOCKS)
+stft_odd_fft_psd_kernel(const float* __restrict__ x,
+                        const double* __restrict__ win,
+                        const int* __restrict__ perm,
+                        const double2* __restrict__ tw,
+                        const double* __restrict__ wts,
+                        float* __restrict__ out, float* __restrict__ part_min,
+                        float* __restrict__ part_max, long long n, int T,
+                        int F, int K, int hop, int detrend, int log10_out,
+                        int with_stats, int pack,
+                        const __grid_constant__ MixedPlan plan) {
+  extern __shared__ double2 buf[];  // K complex values
+  __shared__ double2 roots[MIX_MAX_RADIX + 1];
+  __shared__ double2 red_sum[3][FFT_MAX_WARPS];
+  __shared__ float red_lo[2][FFT_MAX_WARPS];
+  __shared__ float red_hi[2][FFT_MAX_WARPS];
+  __shared__ double2 x_sum;         // X[0] under a Rader stage
+
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int pairs = (T + 1) >> 1;
+  const int clip = blockIdx.x / pairs;
+  const int t = (blockIdx.x - clip * pairs) * 2;
+  const int ra = clip * T + t;
+  const bool has_b = t + 1 < T;
+  const float* fa = x + (long long)clip * n + (long long)t * hop;
+  const float* fb = fa + hop;
+  const double c = 0.5 * (K - 1);
+  const double2 la = frame_line(fa, K, detrend, red_sum[0]);
+  const double2 lb = has_b ? frame_line(fb, K, detrend, red_sum[1])
+                           : make_double2(0.0, 0.0);
+
+  double2 e = make_double2(0.0, 0.0);
+  for (int i = tid; i < K; i += nt) {
+    const double va =
+        (static_cast<double>(fa[i]) - la.x - la.y * (i - c)) * win[i];
+    const double vb =
+        has_b ? (static_cast<double>(fb[i]) - lb.x - lb.y * (i - c)) * win[i]
+              : 0.0;
+    buf[perm[i]] = make_double2(va, vb);
+    e.x += va * va;
+    e.y += vb * vb;
+  }
+  e = block_sum(e, red_sum[2]);     // also the loads' barrier
+  const bool paired = pack && has_b && isfinite(e.x) && isfinite(e.y) &&
+                      e.x > 0.0 && e.y > 0.0 &&
+                      fmax(e.x, e.y) <= PAIR_MAX_RATIO * fmin(e.x, e.y);
+
+  // the bins of row r0, or of rows r0 and r0 + 1 from a pair's transform
+  const auto epilogue = [&](auto z, int r0, bool pair) {
+    float lo[2] = {INFINITY, INFINITY};
+    float hi[2] = {-INFINITY, -INFINITY};
+    for (int f = tid; f < F; f += nt) {
+      const double2 a = z(f);
+      if (pair) {
+        const double2 b = z(f == 0 ? 0 : K - f);
+        store_bin(power(0.5 * (a.x + b.x), 0.5 * (a.y - b.y), wts[f]), out,
+                  r0, F, f, log10_out, lo[0], hi[0]);
+        store_bin(power(0.5 * (a.y + b.y), 0.5 * (b.x - a.x), wts[f]), out,
+                  r0 + 1, F, f, log10_out, lo[1], hi[1]);
+      } else {
+        store_bin(power(a.x, a.y, wts[f]), out, r0, F, f, log10_out, lo[0],
+                  hi[0]);
+      }
+    }
+    if (with_stats) {
+      row_extrema(lo[0], hi[0], red_lo[0], red_hi[0], part_min, part_max,
+                  r0);
+      if (pair)
+        row_extrema(lo[1], hi[1], red_lo[1], red_hi[1], part_min, part_max,
+                    r0 + 1);
+    }
+  };
+  const auto transform_and_store = [&](int r0, bool pair) {
+    mixed_transform<RADER>(buf, roots, tw, plan, K, &x_sum);
+    if (!RADER)
+      epilogue(PlainRead{buf}, r0, pair);
+    else
+      epilogue(RaderRead{buf, perm, &x_sum, K - 1}, r0, pair);
+  };
+
+  if (paired) {
+    transform_and_store(ra, true);
+    return;
+  }
+  // each frame alone: a with its partner's part zeroed, then b
+  for (int s = tid; s < K; s += nt) buf[s].y = 0.0;
+  __syncthreads();
+  transform_and_store(ra, false);
+  if (!has_b) return;
+  __syncthreads();
+  for (int i = tid; i < K; i += nt)
+    buf[perm[i]] = make_double2(
+        (static_cast<double>(fb[i]) - lb.x - lb.y * (i - c)) * win[i], 0.0);
+  __syncthreads();
+  transform_and_store(ra + 1, false);
 }
 
 constexpr int FFT_MAX_DEVICES = 64;
 // the dynamic shared memory limit already set for the FFT kernels, per
 // device
 size_t fft_smem_set[FFT_MAX_DEVICES] = {};
-size_t mixed_smem_set[FFT_MAX_DEVICES] = {};
+// (without and with a Rader stage for the mixed-radix kernels)
+size_t mixed_smem_set[2][FFT_MAX_DEVICES] = {};
+size_t odd_smem_set[2][FFT_MAX_DEVICES] = {};
 
 // raise `kernel`'s dynamic shared memory limit to smem once per device
 // (set[] records it); returns a cudaError_t
@@ -745,6 +998,36 @@ bool detrend_ok(int detrend) {
 int fft_threads(int K) {
   const int t = (K / 4 + 31) / 32 * 32;
   return t < 32 ? 32 : (t > FFT_MAX_THREADS ? FFT_MAX_THREADS : t);
+}
+
+// The plan of an N-point transform from the host's (n_stages, 4) rows
+// (radix, span, twiddle row, root row) into *plan, with the block that
+// runs it in *threads; false for a plan the mixed-radix kernels do not
+// take. With a Rader stage (rader >= 0) the stages transform N - 1
+// points. The block is N/2 threads (fft_threads(2 N)) widened to a warp
+// multiple that holds one generic butterfly's (p + 1)/2 output pairs (N =
+// 193: 128, not 96); at most 128 for p <= MIX_MAX_RADIX.
+bool load_plan(const int* stages, int n_stages, int split, int rader, int N,
+               MixedPlan* plan, int* threads) {
+  if (n_stages < 1 || n_stages > MIX_MAX_STAGES || rader < -1) return false;
+  const int len = rader >= 0 ? N - 1 : N;
+  plan->n_stages = n_stages;
+  plan->split = split;
+  plan->rader = rader;
+  int span = 1;
+  int p_max = 2;
+  for (int s = 0; s < n_stages; ++s) {
+    const int p = stages[4 * s];
+    const bool odd = p % 2 == 1 && p >= 3 && p <= MIX_MAX_RADIX;
+    if ((p != 2 && !odd) || stages[4 * s + 1] != span || span * p > len)
+      return false;
+    for (int j = 0; j < 4; ++j) plan->stage[s][j] = stages[4 * s + j];
+    span *= p;
+    if (p > p_max) p_max = p;
+  }
+  const int pairs = ((p_max + 1) / 2 + 31) / 32 * 32;
+  *threads = fft_threads(2 * N) > pairs ? fft_threads(2 * N) : pairs;
+  return span == len;
 }
 
 }  // namespace
@@ -810,11 +1093,11 @@ int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
 // success): cudaErrorInvalidValue for a plan or detrend code the kernel
 // does not take, else that of raising the kernel's shared memory limit,
 // else that of the launch. x is (B, n) contiguous f32; win is (K,) f64;
-// perm is (K/2,)
-// int32; tw is (rows, 2) f64, and stages, in HOST memory, (n_stages, 4)
-// int32 rows (radix, span, twiddle row, root row), both from
-// core/stft.py::fft_plan, with split the first row of the split step's
-// twiddles; wts is (F,) f64 with F <= K; out is (B, T, F) f32;
+// perm is (K/2,) int32; tw is (rows, 2) f64, and stages, in HOST memory,
+// (n_stages, 4) int32 rows (radix, span, twiddle row, root row), both
+// from core/stft.py::fft_plan, with split the first row of the split
+// step's twiddles and rader the first row of the Rader stage's b^ (-1
+// without one); wts is (F,) f64 with F <= K; out is (B, T, F) f32;
 // part_min/part_max are (B * T,) f32 and may be null when with_stats is
 // 0. K is even, 32 to 8192; detrend is 0 for none, 1 for constant, 2 for
 // linear, and any other value is refused. The caller keeps B * T within
@@ -822,44 +1105,62 @@ int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
 int stft_mixed_fft_psd_launch(const float* x, const double* win,
                               const int* perm, const double* tw,
                               const int* stages, int n_stages, int split,
-                              const double* wts, float* out,
+                              int rader, const double* wts, float* out,
                               float* part_min, float* part_max, int B,
                               long long n, int T, int F, int K, int hop,
                               int detrend, int log10_out, int with_stats,
                               void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
-  if (K < 32 || K > 8192 || K % 2 || F < 1 || F > K || n_stages < 1 ||
-      n_stages > MIX_MAX_STAGES || !detrend_ok(detrend))
-    return static_cast<int>(bad);
-  const int M = K / 2;
   MixedPlan plan;
-  plan.n_stages = n_stages;
-  plan.split = split;
-  int span = 1;
-  int p_max = 2;
-  for (int s = 0; s < n_stages; ++s) {
-    const int p = stages[4 * s];
-    const bool odd = p % 2 == 1 && p >= 3 && p <= MIX_MAX_RADIX;
-    if ((p != 2 && !odd) || stages[4 * s + 1] != span || span * p > M)
-      return static_cast<int>(bad);
-    for (int j = 0; j < 4; ++j) plan.stage[s][j] = stages[4 * s + j];
-    span *= p;
-    if (p > p_max) p_max = p;
-  }
-  if (span != M) return static_cast<int>(bad);
-  // fft_threads(K), widened to a warp multiple that holds one generic
-  // butterfly's (p + 1)/2 output pairs (K = 386, p = 193: 128, not 96);
-  // at most 128 for p <= MIX_MAX_RADIX
-  const int pairs = ((p_max + 1) / 2 + 31) / 32 * 32;
-  const int threads = fft_threads(K) > pairs ? fft_threads(K) : pairs;
-  const size_t smem = static_cast<size_t>(M) * sizeof(double2);
-  const int err = raise_smem(stft_mixed_fft_psd_kernel, smem, mixed_smem_set);
+  int threads = 0;
+  if (K < 32 || K > 8192 || K % 2 || F < 1 || F > K || !detrend_ok(detrend) ||
+      split < 0 || !load_plan(stages, n_stages, split, rader, K / 2, &plan,
+                              &threads))
+    return static_cast<int>(bad);
+  const auto kernel = rader >= 0 ? stft_mixed_fft_psd_kernel<true>
+                                  : stft_mixed_fft_psd_kernel<false>;
+  const size_t smem = static_cast<size_t>(K / 2) * sizeof(double2);
+  const int err = raise_smem(kernel, smem, mixed_smem_set[rader >= 0]);
   if (err != 0) return err;
   const unsigned blocks = static_cast<unsigned>(B) * static_cast<unsigned>(T);
-  stft_mixed_fft_psd_kernel<<<blocks, threads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, win, perm, reinterpret_cast<const double2*>(tw), wts, out, part_min,
       part_max, n, T, F, K, hop, detrend, log10_out, with_stats, plan);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The odd route, on `stream`; returns a cudaError_t as the mixed-radix
+// launcher does. Its operands are the mixed-radix launcher's for an odd K,
+// 33 to 8191: perm is (K,) int32, the plan transforms K points (with a
+// Rader stage, K - 1) and has no split rows. pack 0 transforms every frame
+// alone (for timing the packing); 1 packs pairs of frames as the kernel's
+// guard allows. The kernel runs B * ceil(T / 2) blocks.
+int stft_odd_fft_psd_launch(const float* x, const double* win,
+                            const int* perm, const double* tw,
+                            const int* stages, int n_stages, int rader,
+                            const double* wts, float* out, float* part_min,
+                            float* part_max, int B, long long n, int T,
+                            int F, int K, int hop, int detrend,
+                            int log10_out, int with_stats, int pack,
+                            void* stream) {
+  const cudaError_t bad = cudaErrorInvalidValue;
+  MixedPlan plan;
+  int threads = 0;
+  if (K < 33 || K > 8191 || K % 2 == 0 || F < 1 || F > K ||
+      !detrend_ok(detrend) ||
+      !load_plan(stages, n_stages, -1, rader, K, &plan, &threads))
+    return static_cast<int>(bad);
+  const auto kernel = rader >= 0 ? stft_odd_fft_psd_kernel<true>
+                                  : stft_odd_fft_psd_kernel<false>;
+  const size_t smem = static_cast<size_t>(K) * sizeof(double2);
+  const int err = raise_smem(kernel, smem, odd_smem_set[rader >= 0]);
+  if (err != 0) return err;
+  const unsigned blocks =
+      static_cast<unsigned>(B) * static_cast<unsigned>((T + 1) / 2);
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, win, perm, reinterpret_cast<const double2*>(tw), wts, out, part_min,
+      part_max, n, T, F, K, hop, detrend, log10_out, with_stats, pack != 0,
+      plan);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,7 @@ and ``log10_out`` modes, across the GUI's whole nperseg range up to 8192
 (the TPU's auto kernel K1 and, above nperseg 6144, its manual-DMA kernel
 K2): framing, the windowed and detrended real DFT, |X|² times the
 one-sided PSD weights, and the per-clip PSD extrema, with no frame tensor
-written to memory. All compute the same function, by three routes that
+written to memory. All compute the same function, by four routes that
 :func:`route` picks from the config alone:
 
 - ``"fft"`` (``stft_fft_psd_launch``): power-of-two nperseg from 32 to
@@ -25,14 +25,25 @@ written to memory. All compute the same function, by three routes that
   from 32 to 8192, under any detrend, whose nperseg/2 has no odd prime
   factor past 255 (:data:`MAX_MIXED_RADIX`), which covers the
   other 247 values of the GUI's range (32-8192 in steps of 32,
-  GUI.py:87-90). The same structure with a mixed-radix transform: radix
-  2, 3, 5 and 7 stages and a generic odd-radix stage, in the order and
-  with the load permutation and twiddle rows of the host plan
-  (``core.stft.fft_plan``, :func:`mixed_constants`);
-- ``"gemm"`` (``stft_psd_launch``): odd nperseg, nperseg below 32 and
-  nperseg/2 with an odd prime past 255, none of them on the GUI's range.
-  The real DFT as a register-blocked GEMM against (nperseg, F) matrices
-  with the window and detrend folded in (:func:`dft_constants`).
+  GUI.py:87-90), or is itself a prime p whose p - 1 has none. The same
+  structure with a mixed-radix transform: radix 2, 3, 5 and 7 stages and
+  a generic odd-radix stage, in the order and with the load permutation
+  and twiddle rows of the host plan (``core.stft.fft_plan``,
+  :func:`mixed_constants`), and for the prime a Rader stage: a cyclic
+  convolution of length p - 1 by two transforms of those radices;
+- ``"odd"`` (``stft_odd_fft_psd_launch``): odd nperseg from 33 to 8191,
+  under any detrend, with no prime factor past 255, or itself a prime p
+  whose p - 1 has none (a Rader stage; scipy_default 8191). The
+  mixed-radix kernel's stages on a complex nperseg-point transform that
+  carries two frames of one clip, one in each part, separated in the
+  epilogue; a guard transforms a frame alone beside a frame that is not
+  finite, is all zero or is far louder;
+- ``"gemm"`` (``stft_psd_launch``): nperseg below 32 and the nperseg
+  whose transform length (nperseg/2, or nperseg when odd) has a prime
+  past 255 beside other factors, or is a prime p whose p - 1 has one;
+  none of them on the GUI's range. The real DFT as a register-blocked
+  GEMM against (nperseg, F) matrices with the window and detrend folded
+  in (:func:`dft_constants`).
 
 The FFT kernels take the detrend as a code (:data:`DETREND_CODES`: 0
 none, 1 constant, 2 linear); their launchers refuse any other value.
@@ -56,7 +67,7 @@ seeds 0-99 (``python3 tools/torch_precision.py``):
 
 The float64 GEMM route stays below 5e-7 dB on every one of those clips,
 and so do the float64 FFT routes (the sweep's last columns, with the
-mixed-radix route's own configs).
+mixed-radix and odd routes' own configs).
 
 :func:`stft_psd` takes a kernel for a CUDA tensor and the plain version
 (:func:`stft_psd_reference`, a float64 dense DFT, the plain version of
@@ -74,19 +85,17 @@ import numpy as np
 import torch
 
 from spectral_tpu_torch.config import SpecConfig
-from spectral_tpu_torch.core.stft import (_window_f64, dense_dft,
-                                          dft_matrices, ensure_real_waveform,
-                                          fft_plan, fft_radices,
+from spectral_tpu_torch.core.stft import (MAX_MIXED_RADIX, _window_f64,
+                                          dense_dft, dft_matrices,
+                                          ensure_real_waveform, fft_plan,
                                           fft_twiddles, frame_signal,
-                                          num_frames, onesided_weights)
+                                          num_frames, onesided_weights,
+                                          plan_radices)
 from spectral_tpu_torch.ops import build
 
 KERNEL = "stft_psd"
 MAX_NPERSEG = 8192           # the GUI's ceiling (GUI.py:87-90)
 MIN_FFT_NPERSEG = 32         # the GUI's floor, the FFT kernels' smallest
-# the mixed kernel's largest odd radix: MIX_MAX_RADIX in csrc/stft_psd.cu,
-# whose launcher takes every plan :func:`route` gives it
-MAX_MIXED_RADIX = 255
 # |X|² past float32's range makes the bin inf, as the JAX package's float32
 # pipeline overflows there: the clip's extrema turn inf and its finite flag
 # (the overflow guard) trips, though float64 could carry the value
@@ -97,7 +106,7 @@ F32_MAX = float(np.finfo(np.float32).max)
 MAX_ROWS = 2 ** 31 - 256
 
 # kernel launches per route, for run-time proof of the path
-launches = {"gemm": 0, "fft": 0, "mixed": 0}
+launches = {"gemm": 0, "fft": 0, "mixed": 0, "odd": 0}
 # the FFT kernels' detrend codes (DETREND_* in csrc/stft_psd.cu)
 DETREND_CODES = {"none": 0, "constant": 1, "linear": 2}
 
@@ -143,17 +152,23 @@ def check_supported(cfg: SpecConfig) -> None:
 def route(cfg: SpecConfig) -> str:
     """The kernel that computes a supported config (:func:`kernel_supported`;
     others raise NotImplementedError), under any detrend: ``"fft"`` for a
-    power-of-two nperseg from 32 to 8192, ``"mixed"`` for any other even
-    nperseg in that range whose nperseg/2 has no odd prime factor past
-    :data:`MAX_MIXED_RADIX`, ``"gemm"`` for the rest (odd nperseg, larger
-    primes, nperseg below 32). A pure function of the config."""
+    power-of-two nperseg from 32 to 8192; for the other nperseg in that
+    range whose plan's radices (``core.stft.plan_radices``: the prime
+    factors of the transform length, nperseg/2 or an odd nperseg, or of
+    the length less one where a Rader stage takes a prime length past
+    :data:`MAX_MIXED_RADIX`) are all at most :data:`MAX_MIXED_RADIX`,
+    ``"mixed"`` when even and ``"odd"`` when odd; ``"gemm"`` for the rest
+    (nperseg below 32, and transform lengths with a larger prime). A pure
+    function of the config."""
     check_supported(cfg)
     k = cfg.nperseg
-    if k % 2 or not MIN_FFT_NPERSEG <= k <= MAX_NPERSEG:
+    if not MIN_FFT_NPERSEG <= k <= MAX_NPERSEG:
         return "gemm"
     if k & (k - 1) == 0:
         return "fft"
-    return "mixed" if max(fft_radices(k // 2)) <= MAX_MIXED_RADIX else "gemm"
+    if max(plan_radices(k)) > MAX_MIXED_RADIX:
+        return "gemm"
+    return "odd" if k % 2 else "mixed"
 
 
 def _put(a, device, dtype: torch.dtype = torch.float64) -> torch.Tensor:
@@ -210,21 +225,24 @@ def fft_constants(cfg: SpecConfig, fs: float, device) -> FftConstants:
 
 
 class MixedConstants(NamedTuple):
-    """The mixed-radix kernel's operands: the window (K,), the load order
-    (K/2,) int32, the plan's twiddle table (rows, 2) and the weights (F,)
-    in float64 on the device, and the plan's (S, 4) int32 stage rows and
-    the split step's first row on the host (``core.stft.fft_plan``)."""
+    """The mixed-radix and odd kernels' operands: the window (K,), the
+    load order (N,) int32 (N = K/2, or K when odd), the plan's twiddle
+    table (rows, 2) and the weights (F,) in float64 on the device, and the
+    plan's (S, 4) int32 stage rows, the split step's first row (-1 when
+    odd) and the Rader stage's (-1 without one) on the host
+    (``core.stft.fft_plan``)."""
     window: torch.Tensor
     perm: torch.Tensor
     twiddles: torch.Tensor
     wts: torch.Tensor
     stages: np.ndarray
     split: int
+    rader: int
 
 
 def mixed_constants(cfg: SpecConfig, fs: float, device) -> MixedConstants:
-    """The mixed-radix route's operands for (cfg, fs), the host's float64
-    numpy values unrounded, cached per device. No (K, F) matrix is
+    """The mixed-radix and odd routes' operands for (cfg, fs), the host's
+    float64 numpy values unrounded, cached per device. No (K, F) matrix is
     built."""
     key = ("mixed", cfg, float(fs), str(torch.device(device)))
     consts = _CONSTANTS.get(key)
@@ -234,7 +252,7 @@ def mixed_constants(cfg: SpecConfig, fs: float, device) -> MixedConstants:
                                 _put(plan.perm, device, torch.int32),
                                 _put(plan.twiddles, device),
                                 _put(onesided_weights(cfg, fs), device),
-                                plan.stages.copy(), plan.split)
+                                plan.stages.copy(), plan.split, plan.rader)
         _CONSTANTS[key] = consts
     return consts
 
@@ -286,9 +304,12 @@ def _library() -> ctypes.CDLL:
         lib.stft_fft_psd_launch.argtypes = [ptr] * 7 + [
             i32, ctypes.c_longlong, i32, i32, i32, i32, i32, i32, i32, ptr]
         lib.stft_fft_psd_launch.restype = i32
-        lib.stft_mixed_fft_psd_launch.argtypes = [ptr] * 5 + [i32, i32] + [
+        lib.stft_mixed_fft_psd_launch.argtypes = [ptr] * 5 + [i32] * 3 + [
             ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 7 + [ptr]
         lib.stft_mixed_fft_psd_launch.restype = i32
+        lib.stft_odd_fft_psd_launch.argtypes = [ptr] * 5 + [i32] * 2 + [
+            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 8 + [ptr]
+        lib.stft_odd_fft_psd_launch.restype = i32
         lib.stft_psd_freq_tiles.argtypes = [i32]
         lib.stft_psd_freq_tiles.restype = i32
         lib.stft_psd_error_string.argtypes = [i32]
@@ -298,7 +319,9 @@ def _library() -> ctypes.CDLL:
 
 def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
                    log10_out: bool, with_stats: bool,
-                   kernel: Optional[str] = None):
+                   kernel: Optional[str] = None, pack: bool = True):
+    """The route's launch; ``pack=False`` makes the odd kernel transform
+    every frame alone, for timing its packing."""
     lib = _library()
     kernel = kernel or route(cfg)
     if x.dtype != torch.float32:
@@ -337,9 +360,17 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
             err = lib.stft_mixed_fft_psd_launch(
                 x.data_ptr(), mc.window.data_ptr(), mc.perm.data_ptr(),
                 mc.twiddles.data_ptr(), mc.stages.ctypes.data,
-                len(mc.stages), mc.split, mc.wts.data_ptr(), out.data_ptr(),
+                len(mc.stages), mc.split, mc.rader, mc.wts.data_ptr(),
+                out.data_ptr(), *stats, B, n, T, F, cfg.nperseg, cfg.hop_,
+                detrend, int(log10_out), int(with_stats), stream)
+        elif kernel == "odd":
+            mc = mixed_constants(cfg, fs, x.device)
+            err = lib.stft_odd_fft_psd_launch(
+                x.data_ptr(), mc.window.data_ptr(), mc.perm.data_ptr(),
+                mc.twiddles.data_ptr(), mc.stages.ctypes.data,
+                len(mc.stages), mc.rader, mc.wts.data_ptr(), out.data_ptr(),
                 *stats, B, n, T, F, cfg.nperseg, cfg.hop_, detrend,
-                int(log10_out), int(with_stats), stream)
+                int(log10_out), int(with_stats), int(pack), stream)
         else:
             dc = dft_constants(cfg, fs, x.device)
             err = lib.stft_psd_launch(

@@ -45,6 +45,7 @@ from spectral_tpu import config as jconfig  # noqa: E402
 from spectral_tpu.core import stft as jstft  # noqa: E402
 from spectral_tpu.ops import stft_pallas  # noqa: E402
 from spectral_tpu_torch import SpecConfig  # noqa: E402
+from spectral_tpu_torch.core import stft as tstft  # noqa: E402
 from spectral_tpu_torch.ops import stft_cuda  # noqa: E402
 import torch_precision  # noqa: E402
 
@@ -99,7 +100,13 @@ def test_fft_route_on_the_gui_range():
     """The routes on the GUI's range (32-8192 in steps of 32): under every
     detrend, linear too, its 9 powers of two take the FFT kernel and its
     other 247 values the mixed-radix kernel; the GEMM kernel computes no
-    GUI value."""
+    GUI value. Off the grid, every nperseg from 32 to 8192: the odd route
+    and the Rader stage take 3,103 values that the GEMM kernel computed
+    before them (odd nperseg whose primes are all at most 255, and
+    transform lengths that are a prime p whose p - 1 has none past 255),
+    and the GEMM kernel keeps 2,389 (a prime past 255 beside other
+    factors, such as 2049 = 3 · 683, or one whose p - 1 has a prime past
+    255, such as 8185 = 5 · 1637)."""
     gui = range(32, 8193, 32)
     counts = {"fft": 0, "mixed": 0}
     linear = {"fft": 0, "mixed": 0}
@@ -114,14 +121,29 @@ def test_fft_route_on_the_gui_range():
         linear[got] += 1
     assert counts == {"fft": 9, "mixed": 247}
     assert linear == {"fft": 9, "mixed": 247}
-    for k in (992, 8160, 960, 100, 8032):
+    for k in (992, 8160, 960, 100, 8032, 2 * 257, 2 * 4093):
         assert stft_cuda.route(SpecConfig.scipy_default(k)) == "mixed"
+    for k in (33, 45, 99, 257, 1021, 1023, 4093, 8191):
+        assert stft_cuda.route(SpecConfig.scipy_default(k)) == "odd"
     for cfg in (SpecConfig.north_star(16, 4),         # below the kernels' 32
-                SpecConfig.scipy_default(99),         # odd
-                SpecConfig.scipy_default(2 * 257)):   # an odd prime past 255
+                SpecConfig.north_star(31, 8),
+                SpecConfig.scipy_default(2049),       # 3 · 683
+                SpecConfig.scipy_default(2 * 771),    # 2 · 3 · 257
+                SpecConfig.scipy_default(8185)):      # 5 · 1637
         assert stft_cuda.route(cfg) == "gemm"
         assert stft_cuda.route(dataclasses.replace(
             cfg, detrend="linear")) == "gemm"
+    # the whole range against the rule before the odd route: odd nperseg
+    # and nperseg/2 with an odd prime past 255 took the GEMM kernel
+    before, after = set(), set()
+    for k in range(32, 8193):
+        cfg = SpecConfig(nperseg=k, hop=k // 4)
+        if k % 2 or max(tstft.fft_radices(k // 2)) > 255:
+            before.add(k)
+        if stft_cuda.route(cfg) == "gemm":
+            after.add(k)
+    assert after <= before
+    assert (len(before - after), len(after)) == (3103, 2389)
     for cfg in (SpecConfig.scipy_default(16384),      # past the GUI
                 SpecConfig(nperseg=256, nfft=512),    # unsupported anywhere
                 SpecConfig(nperseg=256, mode="magnitude"),

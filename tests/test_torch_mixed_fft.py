@@ -183,37 +183,48 @@ def _cuda_constant(name):
     return int(m.group(1))
 
 
-def _threads(nperseg, p_max):
-    """The mixed kernel's block (its launcher's rule): K/4 threads rounded
-    up to a warp, 32 to 512, widened to a warp multiple that holds the
-    largest radix's (p + 1)/2 output pairs."""
-    fft = min(512, max(32, (nperseg // 4 + 31) // 32 * 32))
+def _threads(n, p_max):
+    """The mixed-radix kernels' block for an n-point transform (their
+    launchers' rule, ``load_plan``): n/2 threads rounded up to a warp, 32
+    to 512, widened to a warp multiple that holds the largest radix's
+    (p + 1)/2 output pairs."""
+    fft = min(512, max(32, (2 * n // 4 + 31) // 32 * 32))
     return max(fft, ((p_max + 1) // 2 + 31) // 32 * 32)
 
 
 def test_generic_stage_rounds_fit_the_block():
-    """Every even nperseg from 32 to 8192 that :func:`route` sends to the
-    mixed kernel is a plan its launcher takes: at most MIX_MAX_STAGES
-    stages, odd radices up to MIX_MAX_RADIX (the constants of
-    csrc/stft_psd.cu), and a block that gives each of a generic
-    butterfly's (p + 1)/2 output pairs a thread (nperseg 386: p = 193
-    needs 97 threads, where K/4 gives 96)."""
+    """Every nperseg from 32 to 8192 that :func:`route` sends to the
+    mixed-radix kernel (even) or the odd kernel is a plan its launcher
+    takes: at most MIX_MAX_STAGES stages, odd radices up to MIX_MAX_RADIX
+    (the constants of csrc/stft_psd.cu), stages that multiply to the
+    transform length (less one under a Rader stage), and a block that
+    gives each of a generic butterfly's (p + 1)/2 output pairs a thread
+    (nperseg 386: p = 193 needs 97 threads, where K/4 gives 96)."""
     max_radix = _cuda_constant("MIX_MAX_RADIX")
     max_stages = _cuda_constant("MIX_MAX_STAGES")
     max_threads = _cuda_constant("FFT_MAX_THREADS")
-    assert max_radix == stft_cuda.MAX_MIXED_RADIX
-    mixed = [k for k in range(32, 8193, 2) if stft_cuda.route(SpecConfig(
-        nperseg=k, hop=k // 4, detrend="constant")) == "mixed"]
+    assert max_radix == stft_cuda.MAX_MIXED_RADIX == tstft.MAX_MIXED_RADIX
+    routes = {k: stft_cuda.route(SpecConfig(nperseg=k, hop=k // 4,
+                                            detrend="constant"))
+              for k in range(32, 8193)}
+    mixed = [k for k, r in routes.items() if r == "mixed"]
+    odd = [k for k, r in routes.items() if r == "odd"]
     assert set(MIXED_GUI) <= set(mixed) and 386 in mixed
-    assert len(mixed) == 2660
-    for k in mixed:
-        factors = tstft.fft_radices(k // 2)
-        assert int(np.prod(factors)) == k // 2 and len(factors) <= max_stages
+    assert all(k % 2 == 0 for k in mixed) and all(k % 2 for k in odd)
+    assert len(mixed) == 2660 + 405 and len(odd) == 1999 + 699
+    rader = 0
+    for k in mixed + odd:
+        n = tstft.transform_length(k)
+        factors = tstft.plan_radices(k)
+        rader += tstft.rader_prime(n)
+        assert int(np.prod(factors)) == n - tstft.rader_prime(n)
+        assert len(factors) <= max_stages
         assert all(p == 2 or 3 <= p <= max_radix for p in factors)
-        threads = _threads(k, max(factors))
+        threads = _threads(n, max(factors))
         assert threads % 32 == 0 and threads <= max_threads
         assert all((p + 1) // 2 <= threads for p in factors)
-    assert _threads(386, 193) == 128
+    assert rader == 405 + 699
+    assert _threads(193, 193) == 128
 
 
 def _kernel_loops(frame, window, plan, F, detrend):
@@ -253,7 +264,7 @@ def _kernel_loops(frame, window, plan, F, detrend):
         if p <= 7:      # a thread's butterfly: read, then written
             per_round = 1
         else:           # whole butterflies, one output pair a thread
-            per_round = _threads(K, int(plan.stages[:, 0].max())) // (h + 1)
+            per_round = _threads(M, int(plan.stages[:, 0].max())) // (h + 1)
             if L > 1:
                 for s in range(M):
                     if s % (L * p) >= L:

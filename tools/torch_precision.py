@@ -2,7 +2,7 @@
 (``spectral_tpu_torch/ops/stft_cuda.py``), and the scipy display oracle
 that its checks compare against.
 
-    python3 tools/torch_precision.py [--seeds N]
+    python3 tools/torch_precision.py [--seeds N] [--only NAME ...]
 
 The kernel's accumulation orders are emulated in numpy on the CPU. The
 first table gives, for each config on one clip (seed 0), the display error
@@ -28,7 +28,12 @@ float32 chain is not emulated: it is a question of the GEMM design, and
 at 8160 its emulation would take hours). Its last rows
 (``LINEAR_SWEEP``) hold both FFT models to scipy under linear detrend on
 ramp clips, the mixed-radix model at 1024 too (its plan is then all
-radix-2 stages).
+radix-2 stages), and ``ODD_SWEEP`` holds the odd kernel's model
+(``psd_odd_fft``, two frames a transform, a Rader stage at the primes)
+and the mixed-radix model's Rader stage (8186) to scipy, on pairs clips
+too: a zero, a NaN and a 1e-6 frame beside loud ones, compared on the
+frames scipy computes finite. ``--only NAME ...`` runs the sweep's rows
+whose names contain one of the words, without the first table.
 
 Each PSD is rounded to float32, as the kernel stores it. The display error
 is ``bench.py``'s formula, max |Δimage| times the image's dB range, with
@@ -73,25 +78,36 @@ def log_display(p: np.ndarray):
     return (db - db.min()) / rng, rng
 
 
-def scipy_display(x64: np.ndarray, cfg: SpecConfig, fs: float = FS):
-    """The oracle of the display contract: scipy.signal.spectrogram of a
-    float64 clip at cfg's framing, window and detrend, through
-    :func:`log_display`. Returns the (F, T) image and its dB range."""
+def scipy_psd(x64: np.ndarray, cfg: SpecConfig, fs: float = FS):
+    """scipy.signal.spectrogram's (F, T) PSD of a float64 clip at cfg's
+    framing, window and detrend."""
     from scipy.signal import spectrogram
     _f, _t, sxx = spectrogram(
         x64, fs=fs, window=cfg.window, nperseg=cfg.nperseg,
         noverlap=cfg.nperseg - cfg.hop_, nfft=cfg.nperseg,
         detrend=False if cfg.detrend == "none" else cfg.detrend,
         scaling="density", mode="psd")
-    return log_display(sxx)
+    return sxx
+
+
+def scipy_display(x64: np.ndarray, cfg: SpecConfig, fs: float = FS):
+    """The oracle of the display contract: :func:`scipy_psd` through
+    :func:`log_display`. Returns the (F, T) image and its dB range."""
+    return log_display(scipy_psd(x64, cfg, fs))
 
 
 def display_error_db(psd_tf: np.ndarray, x64: np.ndarray,
                      cfg: SpecConfig) -> float:
     """bench.py's display error of a (F, T) PSD against scipy in float64,
-    both displays computed in float64."""
-    img_ref, rng = scipy_display(x64, cfg)
-    img, _ = log_display(psd_tf)
+    both displays computed in float64. A clip with NaN samples is compared
+    on the frames that scipy computes finite, when the PSD has NaN in
+    exactly the other frames (else the error is inf)."""
+    ref = scipy_psd(x64, cfg)
+    bad = np.isnan(ref).any(axis=0)
+    if not np.array_equal(bad, np.isnan(psd_tf).any(axis=0)):
+        return float("inf")
+    img_ref, rng = log_display(ref[:, ~bad])
+    img, _ = log_display(psd_tf[:, ~bad])
     return float(np.max(np.abs(img - img_ref)) * rng)
 
 
@@ -236,53 +252,46 @@ def _cmul(wr, wi, yr, yi):
     return wr * yr - wi * yi, wr * yi + wi * yr
 
 
-def psd_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
-                  wts: np.ndarray, detrend: str = "none",
-                  round_f32: bool = True) -> np.ndarray:
-    """(T, F) PSD by the mixed-radix FFT kernel's arithmetic
-    (``csrc/stft_psd.cu::stft_mixed_fft_psd_kernel``), in float64, with
-    ``plan`` = ``core/stft.py::fft_plan(nperseg)``, K = nperseg, M = K/2:
+def _stages(re: np.ndarray, im: np.ndarray, plan, n: int,
+            dif: bool = False) -> None:
+    """The plan's stages on (T, n) contiguous arrays in place: decimation
+    in time in plan order, or with ``dif`` each stage transposed in
+    reverse order (decimation in frequency: the butterfly's DFT first,
+    then the twiddles on its outputs). Per stage (p, L), on each group g
+    of L·p slots and each k < L (the butterfly (g, k) reads and writes
+    slots g·L·p + k + q·L, q < p):
 
-    - v = (frame - line) · window (:func:`detrended`); z[m] = v[2m] + i
-      v[2m + 1] stored at slot perm[m] (the mixed-radix digit reversal);
-    - per stage (p, L) in plan order, on each group g of L·p slots and
-      each k < L (the butterfly (g, k) reads and writes slots g·L·p + k +
-      q·L, q < p):
-      - p = 2: t = W y_1, (y_0 + t, y_0 - t), W the stage's row k;
-      - odd p: y_q ← W_q y_q for q ≥ 1 (row (q - 1)·L + k) when L > 1;
-        then with a_q = y_q + y_(p-q), b_q = y_q - y_(p-q) and the root
-        row (c, s) at (q·m mod p), for m = 0..(p-1)/2 and q = 1..(p-1)/2
-        in ascending order: A = y_0 + Σ a_q c, B = Σ b_q s, out[m] = A +
-        i B and out[p - m] = A - i B;
-    - the split step and the epilogue of :func:`psd_fft` with indices
-      reduced mod M (g = M reads slot 0 and takes W = -1).
-
-    What differs from the card: the detrend's sums are numpy's, not the
-    kernel's block reduction, and numpy rounds the products where the card
-    may fuse them (FMA)."""
-    f = frames.astype(np.float64)
-    T, K = f.shape
-    M = K // 2
-    v = detrended(f, detrend) * window
-    re = np.empty((T, M))
-    im = np.empty((T, M))
-    re[:, plan.perm] = v[:, 0::2]
-    im[:, plan.perm] = v[:, 1::2]
+    - p = 2: t = W y_1, (y_0 + t, y_0 - t), W the stage's row k; in
+      frequency (y_0 + y_1, W (y_0 - y_1));
+    - odd p: y_q <- W_q y_q for q >= 1 (row (q - 1)·L + k) when L > 1;
+      then with a_q = y_q + y_(p-q), b_q = y_q - y_(p-q) and the root row
+      (c, s) at (q·m mod p), for m = 0..(p-1)/2 and q = 1..(p-1)/2 in
+      ascending order: A = y_0 + Σ a_q c, B = Σ b_q s, out[m] = A + i B
+      and out[p - m] = A - i B; in frequency the twiddles multiply
+      out[m] (m >= 1) instead."""
     tw = plan.twiddles
-    for p, L, tw_row, root_row in plan.stages.tolist():
-        G = M // (L * p)
+    T = re.shape[0]
+    order = plan.stages.tolist()
+    for p, L, tw_row, root_row in (order[::-1] if dif else order):
+        G = n // (L * p)
         # slot of (group g, value q, k): g·L·p + q·L + k, as (T, G, p, L)
         zr = re.reshape(T, G, p, L)
         zi = im.reshape(T, G, p, L)
         if p == 2:
             wr, wi = tw[tw_row:tw_row + L, 0], tw[tw_row:tw_row + L, 1]
+            if dif:
+                ar, ai = zr[:, :, 0].copy(), zi[:, :, 0].copy()
+                br, bi = zr[:, :, 1].copy(), zi[:, :, 1].copy()
+                zr[:, :, 0], zi[:, :, 0] = ar + br, ai + bi
+                zr[:, :, 1], zi[:, :, 1] = _cmul(wr, wi, ar - br, ai - bi)
+                continue
             tr, ti = _cmul(wr, wi, zr[:, :, 1], zi[:, :, 1])
             ar, ai = zr[:, :, 0].copy(), zi[:, :, 0].copy()
             zr[:, :, 0], zi[:, :, 0] = ar + tr, ai + ti
             zr[:, :, 1], zi[:, :, 1] = ar - tr, ai - ti
             continue
-        if L > 1:
-            w = tw[tw_row:tw_row + (p - 1) * L].reshape(p - 1, L, 2)
+        w = tw[tw_row:tw_row + (p - 1) * L].reshape(p - 1, L, 2)
+        if L > 1 and not dif:
             zr[:, :, 1:], zi[:, :, 1:] = _cmul(w[..., 0], w[..., 1],
                                                zr[:, :, 1:], zi[:, :, 1:])
         h = (p - 1) // 2
@@ -305,6 +314,72 @@ def psd_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
         zr[:, :, :h + 1], zi[:, :, :h + 1] = Ar - Bi, Ai + Br
         zr[:, :, p - h:], zi[:, :, p - h:] = ((Ar + Bi)[:, :, :0:-1],
                                               (Ai - Br)[:, :, :0:-1])
+        if L > 1 and dif:
+            zr[:, :, 1:], zi[:, :, 1:] = _cmul(w[..., 0], w[..., 1],
+                                               zr[:, :, 1:], zi[:, :, 1:])
+
+
+def _transform(re: np.ndarray, im: np.ndarray, plan, n: int):
+    """The n-point transform of the values the plan's load order put in
+    the (T, n) slots re + i im, in natural order, as the kernels compute
+    it (``csrc/stft_psd.cu::mixed_transform``): the plan's stages, or with
+    a Rader stage (``plan.rader >= 0``, P = n - 1, x0 in slot P) the
+    P-point stages in frequency, X[0] = x0 + slot 0, the product with the
+    b̂ rows in slot order, the stages in time, and X[f] = x0 + slot
+    perm[f] for f > 0."""
+    if plan.rader < 0:
+        _stages(re, im, plan, n)
+        return re, im
+    P = n - 1
+    x0r, x0i = re[:, P].copy(), im[:, P].copy()
+    sr, si = re[:, :P].copy(), im[:, :P].copy()
+    _stages(sr, si, plan, P, dif=True)
+    sum_r, sum_i = x0r + sr[:, 0], x0i + si[:, 0]
+    b = plan.twiddles[plan.rader:plan.rader + P]
+    sr, si = _cmul(b[:, 0], b[:, 1], sr, si)
+    _stages(sr, si, plan, P)
+    zr = np.empty_like(re)
+    zi = np.empty_like(im)
+    zr[:, 0], zi[:, 0] = sum_r, sum_i
+    zr[:, 1:] = x0r[:, None] + sr[:, plan.perm[1:]]
+    zi[:, 1:] = x0i[:, None] + si[:, plan.perm[1:]]
+    return zr, zi
+
+
+def _power(xr, xi, wts, round_f32):
+    s = xr * xr + xi * xi
+    p = np.where(s > F32_MAX, np.inf, s * wts)
+    return p.astype(np.float32) if round_f32 else p
+
+
+def psd_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
+                  wts: np.ndarray, detrend: str = "none",
+                  round_f32: bool = True) -> np.ndarray:
+    """(T, F) PSD by the mixed-radix FFT kernel's arithmetic
+    (``csrc/stft_psd.cu::stft_mixed_fft_psd_kernel``), in float64, with
+    ``plan`` = ``core/stft.py::fft_plan(nperseg)``, K = nperseg even, M =
+    K/2:
+
+    - v = (frame - line) · window (:func:`detrended`); z[m] = v[2m] + i
+      v[2m + 1] stored at slot perm[m] (the mixed-radix digit reversal, or
+      with a Rader stage the Rader order);
+    - the M-point transform (:func:`_transform`, :func:`_stages`);
+    - the split step and the epilogue of :func:`psd_fft` with indices
+      reduced mod M (g = M reads slot 0 and takes W = -1).
+
+    What differs from the card: the detrend's sums are numpy's, not the
+    kernel's block reduction, and numpy rounds the products where the card
+    may fuse them (FMA)."""
+    f = frames.astype(np.float64)
+    T, K = f.shape
+    M = K // 2
+    v = detrended(f, detrend) * window
+    re = np.empty((T, M))
+    im = np.empty((T, M))
+    re[:, plan.perm] = v[:, 0::2]
+    im[:, plan.perm] = v[:, 1::2]
+    re, im = _transform(re, im, plan, M)
+    tw = plan.twiddles
     F = wts.shape[0]
     fb = np.arange(F)
     g = np.minimum(fb, K - fb)
@@ -317,9 +392,80 @@ def psd_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
     wi = np.where(g < M, tw[plan.split + last, 1], 0.0)
     xr = er + (wr * o_r - wi * o_i)
     xi = ei + (wr * o_i + wi * o_r)
-    s = xr * xr + xi * xi
-    p = np.where(s > F32_MAX, np.inf, s * wts)
-    return p.astype(np.float32) if round_f32 else p
+    return _power(xr, xi, wts, round_f32)
+
+
+# csrc/stft_psd.cu::PAIR_MAX_RATIO: two frames share a transform when both
+# are finite, neither is all zero after detrend and window, and their
+# energies are within this ratio
+PAIR_MAX_RATIO = 65536.0
+
+
+def paired_frames(v: np.ndarray) -> np.ndarray:
+    """(T,) bool: frame t (even) shares a transform with frame t + 1, and
+    t + 1 with t, by the odd kernel's guard on the detrended, windowed
+    frames v (T, K). What differs from the card: the energies are numpy's
+    sums, not the kernel's block reduction (a pair at the ratio's edge may
+    fall on the other side)."""
+    T = v.shape[0]
+    e = (v * v).sum(axis=1)
+    a, b = e[0:T - 1:2], e[1:T:2]
+    with np.errstate(invalid="ignore", over="ignore"):
+        ok = (np.isfinite(a) & np.isfinite(b) & (a > 0) & (b > 0)
+              & (np.maximum(a, b) <= PAIR_MAX_RATIO * np.minimum(a, b)))
+    paired = np.zeros(T, bool)
+    paired[0:2 * ok.size:2] = ok
+    paired[1:2 * ok.size:2] = ok
+    return paired
+
+
+def psd_odd_fft(frames: np.ndarray, window: np.ndarray, plan,
+                wts: np.ndarray, detrend: str = "none",
+                round_f32: bool = True, pack: bool = True) -> np.ndarray:
+    """(T, F) PSD by the odd-nperseg kernel's arithmetic
+    (``csrc/stft_psd.cu::stft_odd_fft_psd_kernel``), in float64, with
+    ``plan`` = ``core/stft.py::fft_plan(nperseg)``, K = nperseg odd:
+
+    - v = (frame - line) · window (:func:`detrended`), per frame;
+    - frames 2j and 2j + 1 of the clip share one K-point transform, z =
+      v_a + i v_b at slot perm[i], where :func:`paired_frames` says so
+      (and ``pack``); a frame without a partner, or whose pair the guard
+      refuses, is transformed alone, z = v + 0i;
+    - the K-point transform (:func:`_transform`);
+    - a pair's bins A[f] = (Z[f] + conj Z[K - f]) / 2 and B[f] = (Z[f] -
+      conj Z[K - f]) / 2i (indices mod K), a lone frame's X[f] = Z[f];
+      then (re² + im²)·w, inf past float32's range, rounded once to
+      float32 unless round_f32 is False.
+
+    What differs from the card: the detrend's sums and the guard's
+    energies are numpy's, not the kernel's block reductions, and numpy
+    rounds the products where the card may fuse them (FMA)."""
+    f = frames.astype(np.float64)
+    T, K = f.shape
+    F = wts.shape[0]
+    v = detrended(f, detrend) * window
+    paired = (paired_frames(v) if pack else np.zeros(T, bool))
+    out = np.empty((T, F))
+    fb = np.arange(F)
+    a_rows = np.flatnonzero(paired)[0::2]
+    if a_rows.size:
+        re = np.empty((a_rows.size, K))
+        im = np.empty((a_rows.size, K))
+        re[:, plan.perm] = v[a_rows]
+        im[:, plan.perm] = v[a_rows + 1]
+        zr, zi = _transform(re, im, plan, K)
+        j = (K - fb) % K
+        ar, ai, br, bi = zr[:, fb], zi[:, fb], zr[:, j], zi[:, j]
+        out[a_rows] = _power(0.5 * (ar + br), 0.5 * (ai - bi), wts, False)
+        out[a_rows + 1] = _power(0.5 * (ai + bi), 0.5 * (br - ar), wts,
+                                 False)
+    alone = np.flatnonzero(~paired)
+    if alone.size:
+        re = np.empty((alone.size, K))
+        re[:, plan.perm] = v[alone]
+        zr, zi = _transform(re, np.zeros((alone.size, K)), plan, K)
+        out[alone] = _power(zr[:, :F], zi[:, :F], wts, False)
+    return out.astype(np.float32) if round_f32 else out
 
 
 def fft_operands(cfg: SpecConfig, fs: float = FS):
@@ -344,14 +490,30 @@ def trend(n: int) -> np.ndarray:
 
 
 def clip(cfg: SpecConfig, seed: int, offset: float,
-         ramp: bool = False) -> np.ndarray:
+         ramp: bool = False, pairs: bool = False) -> np.ndarray:
     """White noise of 8·nperseg float32 samples, plus offset, plus
-    :func:`trend` for a ramp clip."""
+    :func:`trend` for a ramp clip. A pairs clip (:func:`pair_breakers`)
+    holds the frames that the odd kernel's pairing must keep apart."""
     rs = np.random.RandomState(seed)
     x = rs.randn(8 * cfg.nperseg) + offset
     if ramp:
         x = x + trend(x.size)
+    if pairs:
+        x = pair_breakers(x, cfg)
     return x.astype(np.float32)
+
+
+def pair_breakers(x: np.ndarray, cfg: SpecConfig) -> np.ndarray:
+    """x with frame 1 all zero (beside frame 0), a NaN in frame 3 where no
+    other frame reads (beside frame 2), and frame 5 scaled by 1e-6
+    (beside frame 4): the zero, NaN and 1e6-ratio neighbours of the odd
+    kernel's pairs, at hop 7/8 nperseg (scipy's default) or more."""
+    K, hop = cfg.nperseg, cfg.hop_
+    x = x.copy()
+    x[hop:hop + K] = 0.0
+    x[3 * hop + K // 2] = np.nan
+    x[5 * hop:5 * hop + K] *= 1e-6
+    return x
 
 
 ONE_CLIP = [
@@ -379,6 +541,11 @@ MIXED_SWEEP = [
     ("scipy_default 8160", SpecConfig.scipy_default(8160)),
 ]
 
+# the odd route (odd nperseg, Rader at the primes 4093 and 8191) and the
+# Rader stage on the mixed-radix kernel (8186 = 2 · 4093)
+ODD_SWEEP = [(f"scipy_default {k}", SpecConfig.scipy_default(k))
+             for k in (1023, 4093, 8186, 8191)]
+
 LINEAR_SWEEP = [(name, dataclasses.replace(cfg, detrend="linear"))
                 for name, cfg in (
                     ("north_star 1024/256", SpecConfig.north_star(1024, 256)),
@@ -386,9 +553,9 @@ LINEAR_SWEEP = [(name, dataclasses.replace(cfg, detrend="linear"))
                     ("scipy_default 8032", SpecConfig.scipy_default(8032)),
                     ("scipy_default 8160", SpecConfig.scipy_default(8160)))]
 
-# clip kind -> (offset, ramp)
-CLIP_KINDS = {"noise": (0.0, False), "noise + 3": (3.0, False),
-              "ramp": (0.0, True)}
+# clip kind -> (offset, ramp, pairs)
+CLIP_KINDS = {"noise": (0.0, False, False), "noise + 3": (3.0, False, False),
+              "ramp": (0.0, True, False), "pairs": (3.0, False, True)}
 
 
 def one_clip_table() -> None:
@@ -412,14 +579,18 @@ def one_clip_table() -> None:
               flush=True)
 
 
-def sweep_table(seeds: int) -> None:
+def sweep_table(seeds: int, only=None) -> None:
     print(f"\nconfig                 clip, detrend       fp32 chain: worst  "
           f"seed  above {CONTRACT_DB:g} dB  worst of seeds 0-19 | f64, A "
-          f"f64: worst | fft route: worst | mixed route: worst  (seeds "
-          f"0-{seeds - 1})")
+          f"f64: worst | fft route: worst | mixed route: worst | odd route: "
+          f"worst  (seeds 0-{seeds - 1})")
     rows = ([(name, cfg, ("noise", "noise + 3"))
              for name, cfg in SWEEP + MIXED_SWEEP]
-            + [(name, cfg, ("ramp",)) for name, cfg in LINEAR_SWEEP])
+            + [(name, cfg, ("ramp",)) for name, cfg in LINEAR_SWEEP]
+            + [(name, cfg, ("noise", "noise + 3", "pairs"))
+               for name, cfg in ODD_SWEEP])
+    if only:
+        rows = [r for r in rows if any(o in r[0] for o in only)]
     for name, cfg, kinds in rows:
         chain = (name, cfg) in SWEEP
         a_re, a_im = dft_matrices(cfg)
@@ -429,14 +600,16 @@ def sweep_table(seeds: int) -> None:
         models = {}
         if cfg.nperseg & (cfg.nperseg - 1) == 0:
             models["fft"] = (psd_fft, fft_operands(cfg))
-        if not chain:
+        if cfg.nperseg % 2:
+            models["odd"] = (psd_odd_fft, mixed_operands(cfg))
+        elif not chain:
             models["mixed"] = (psd_mixed_fft, mixed_operands(cfg))
         for kind in kinds:
-            offset, ramp = CLIP_KINDS[kind]
+            offset, ramp, pairs = CLIP_KINDS[kind]
             fp32, f64 = [], []
             routes = {route: [] for route in models}
             for s in range(seeds):
-                x = clip(cfg, s, offset, ramp)
+                x = clip(cfg, s, offset, ramp, pairs)
                 x64 = x.astype(np.float64)
                 frames = frames_of(x, cfg)
                 if chain:
@@ -456,10 +629,10 @@ def sweep_table(seeds: int) -> None:
             else:
                 left = f"{'—':<49s}"
             cols = [f"{max(routes[r]):.2e}" if r in routes else "—"
-                    for r in ("fft", "mixed")]
+                    for r in ("fft", "mixed", "odd")]
             print(f"{name:22s} {kind + ', ' + cfg.detrend:19s} {left} | "
-                  f"{max(f64):.2e}           | {cols[0]:<17s}| {cols[1]}",
-                  flush=True)
+                  f"{max(f64):.2e}           | {cols[0]:<17s}| "
+                  f"{cols[1]:<19s}| {cols[2]}", flush=True)
         dft_matrices.cache_clear()      # 533 MB a config at 8160
 
 
@@ -467,9 +640,13 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", type=int, default=100,
                     help="clips per config and offset in the sweep")
+    ap.add_argument("--only", nargs="*",
+                    help="the sweep's rows whose config names contain one "
+                         "of these, without the first table")
     args = ap.parse_args(argv)
-    one_clip_table()
-    sweep_table(args.seeds)
+    if not args.only:
+        one_clip_table()
+    sweep_table(args.seeds, args.only)
 
 
 if __name__ == "__main__":

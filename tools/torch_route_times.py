@@ -3,6 +3,7 @@ checkout of the port.
 
     python3 tools/torch_route_times.py [--root DIR] [--route ROUTE]
                                        [--nperseg N ...] [--detrend D]
+                                       [--paths] [--frames-alone]
 
 Imports ``spectral_tpu_torch`` from DIR (default: the checkout holding this
 script), builds its STFT kernel from DIR's sources, and times
@@ -10,14 +11,19 @@ script), builds its STFT kernel from DIR's sources, and times
 for scipy_default 1024, north_star 1024/256 and scipy_default 992 (the
 mixed-radix route), or scipy_default at each ``--nperseg`` given, under
 each config's own detrend or ``--detrend``, with CUDA events, median of 5
-after a warm-up. ``--route`` (gemm, fft or
-mixed) forces that kernel through ``stft_psd``'s module-private
-``_route`` on the configs that allow it and skips the others; ``--route
-mixed`` also takes the power-of-two configs, whose plan is all radix-2
-stages, and reports the largest difference from the radix-2 kernel's PSD
-relative to its max. Pointed at an older checkout it times that
-checkout's kernels, so one call on one card compares two versions: run it
-for the older, this, this and the older again.
+after a warm-up. ``--paths`` times instead the STFT/PSD configs of
+``chip_smoke.py``'s paths 1-7 at their batches (1024 clips of 10 s at
+north_star 1024/256, the export's config too; 256 clips of 60 s at
+scipy_default 8192, 8160, 8032, 8160 under linear detrend and 8191).
+``--route`` (gemm, fft, mixed or odd) forces that kernel through
+``stft_psd``'s module-private ``_route`` on the configs that allow it and
+skips the others; ``--route mixed`` also takes the power-of-two configs,
+whose plan is all radix-2 stages, and reports the largest difference
+from the radix-2 kernel's PSD relative to its max. ``--frames-alone``
+launches the odd kernel with every frame transformed alone (its packing
+off). Pointed at an older checkout it times that checkout's kernels, so
+one call on one card compares two versions: run it for the older, this,
+this and the older again.
 
 Needs one CUDA card. Prints one JSON line: the root, the card's name and
 power limit, and per config the median, every repeat, the launch counts
@@ -45,8 +51,12 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="the checkout to time")
-    ap.add_argument("--route", choices=("gemm", "fft", "mixed"),
+    ap.add_argument("--route", choices=("gemm", "fft", "mixed", "odd"),
                     help="force this kernel where the config allows it")
+    ap.add_argument("--paths", action="store_true",
+                    help="time chip_smoke.py's paths 1-7 configs and batches")
+    ap.add_argument("--frames-alone", action="store_true",
+                    help="the odd kernel without its packing")
     ap.add_argument("--nperseg", type=int, nargs="*",
                     help="time scipy_default at these nperseg instead")
     ap.add_argument("--detrend", choices=("none", "constant", "linear"),
@@ -68,11 +78,20 @@ def main(argv=None) -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn((CLIPS, int(FS * SECONDS)), generator=gen, device=dev)
+    batches = {}
+
+    def batch(clips, seconds):
+        """Seeded noise, the same in every checkout and call."""
+        if (clips, seconds) not in batches:
+            gen = torch.Generator(device=dev).manual_seed(3)
+            batches.clear()
+            batches[clips, seconds] = torch.randn(
+                (clips, int(FS * seconds)), generator=gen, device=dev)
+        return batches[clips, seconds]
+
     report = {"root": root, "card": card, "clips": CLIPS,
               "seconds": SECONDS, "route": args.route,
-              "detrend": args.detrend}
+              "detrend": args.detrend, "frames_alone": args.frames_alone}
     configs = ([(f"scipy_default {k}", SpecConfig.scipy_default(k))
                 for k in args.nperseg] if args.nperseg else
                [("scipy_default 1024", SpecConfig.scipy_default(1024)),
@@ -82,8 +101,30 @@ def main(argv=None) -> None:
         configs = [(f"{name} {args.detrend}",
                     dataclasses.replace(cfg, detrend=args.detrend))
                    for name, cfg in configs]
+    shape = {name: (CLIPS, SECONDS) for name, _ in configs}
+    if args.paths:
+        s8160 = SpecConfig.scipy_default(8160, log_scale=True)
+        configs = [
+            ("path 1 north_star 1024/256",
+             SpecConfig.north_star(1024, 256, log_scale=True)),
+            ("path 2 scipy_default 8192",
+             SpecConfig.scipy_default(8192, log_scale=True)),
+            ("path 4 scipy_default 8160", s8160),
+            ("path 5 scipy_default 8032",
+             SpecConfig.scipy_default(8032, log_scale=True)),
+            ("path 6 scipy_default 8160 linear",
+             dataclasses.replace(s8160, detrend="linear")),
+            ("path 7 scipy_default 8191",
+             SpecConfig.scipy_default(8191, log_scale=True))]
+        shape = {name: (CLIPS, SECONDS) if name.startswith("path 1")
+                 else (256, 60.0) for name, _ in configs}
     for name, cfg in configs:
+        x = batch(*shape[name])
+
         def call(v, cfg=cfg, route=args.route):
+            if args.frames_alone and stft_cuda.route(cfg) == "odd":
+                return stft_cuda._stft_psd_cuda(v, FS, cfg, False, True,
+                                                "odd", pack=False)
             return stft_cuda.stft_psd(v, FS, cfg, with_stats=True,
                                       _route=route)
         if args.route == "mixed" and stft_cuda.route(cfg) == "fft":
@@ -121,7 +162,8 @@ def main(argv=None) -> None:
         added = ({k: after[k] - before.get(k, 0) for k in after}
                  if isinstance(after, dict) else after - before)
         report[name] = {"ms": sorted(reps)[REPS // 2], "reps_ms": reps,
-                        "launches": added, "psd_sha256": digest[:16]}
+                        "launches": added, "psd_sha256": digest[:16],
+                        "batch": list(shape[name])}
     print(json.dumps(report))
 
 
