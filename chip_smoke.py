@@ -6,15 +6,17 @@
 Needs one CUDA card, nvcc and triton; run it from the root of a checkout.
 It builds every kernel of the port's paths from the sources in the
 checkout and holds each kernel against its plain PyTorch version on the
-card: the STFT/PSD kernel's four routes (the FFT kernel at power-of-two
+card: the STFT/PSD kernel's five routes (the FFT kernel at power-of-two
 nperseg 32-8192; the mixed-radix kernel at the other GUI values, every
 radix from 3 to 251, nperseg 96-8160, and with its Rader stage at 514 and
 8186; both under linear detrend on ramp clips too; the odd kernel at
 nperseg 33-8191 under every detrend, with and without a Rader stage, and
-on frames that its pairing must keep apart; the GEMM kernel forced beside
-them) and the display kernel in both output modes, with and without the
-float image. Then it drives eight paths at full size, each with the launch
-counts set to 0 just before it and read just after:
+on frames that its pairing must keep apart; the Bluestein kernel on one
+block at 563-8182 and on a cluster of two at 7207-8189, the same way, and
+forced at 33, 1024, 8032 and 8191; the GEMM kernel forced beside them)
+and the display kernel in both output modes, with and without the float
+image. Then it drives ten paths at full size, each with the launch counts
+set to 0 just before it and read just after:
 
 1. the display spine: 1024 clips of 10 s at 16 kHz through
    ``batched_spectrogram_fn`` at north_star 1024/256 log (RGBA words), on
@@ -36,16 +38,20 @@ counts set to 0 just before it and read just after:
 7. the odd route with a Rader stage, off the GUI's range: path 2's batch
    at scipy_default 8191 (a prime; 8190 = 2 3^2 5 7 13), timed with its
    frames packed two a transform and alone;
-8. the GEMM route on a config it still computes: 64 clips of 60 s at
-   scipy_default 8185 (5 1637, and 1636 = 2^2 409).
+8. the Bluestein route on a cluster of two blocks: path 2's batch at
+   scipy_default 8185 (5 1637, and 1636 = 2^2 409; M = 16384);
+9. the Bluestein route on one block: path 2's batch at scipy_default 8182
+   (2 4091, and 4090 = 2 5 409; M = 8192);
+10. the GEMM route on a config it still computes: path 1's batch at
+    scipy_default 24, below the FFT kernels' 32.
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
 with CUDA events: the library yardstick of the STFT kernels is cuFFT's
 float64 real transform of the same frames (``library_psd``), which the
-port never calls. The GEMM kernel is also timed on paths 1, 2, 4, 5, 6
-and 7, forced through ``stft_psd``'s module-private ``_route``, beside
-the FFT kernels.
+port never calls. The GEMM kernel is also timed on paths 1, 2 and 4-9,
+and the Bluestein kernel on paths 2 and 4-7, forced through
+``stft_psd``'s module-private ``_route``, beside the route's kernel.
 
 ``main(_phases={...})`` runs the named phases only (a short first call
 after a kernel changes: ``python3 -c "import chip_smoke;
@@ -79,11 +85,16 @@ K2_SECONDS = 60.0
 MIXED_NPERSEG = 8160    # the GUI's largest nperseg that is not a power of 2
 PRIME_NPERSEG = 8032    # 32 * 251: the GUI's largest odd prime factor
 ODD_NPERSEG = 8191      # a prime off the GUI's grid: the odd route, Rader
-GEMM_NPERSEG = 8185     # 5 * 1637: a config the GEMM kernel computes
-GEMM_CLIPS = 64
+BLUESTEIN_NPERSEG = 8185  # 5 * 1637, 1636 = 2^2 409: Bluestein, a cluster
+BLUESTEIN_EVEN_NPERSEG = 8182   # 2 * 4091, 4090 = 2 5 409: one block
+GEMM_NPERSEG = 24       # below the FFT kernels' 32: the GEMM kernel
 # the odd route's kernel cases, and the Rader stage's on the mixed-radix
 # kernel (514 = 2 * 257, 8186 = 2 * 4093)
 ODD_CASES = (33, 45, 257, 514, 1021, 1023, 4093, 8186, 8191)
+# the Bluestein route's kernel cases: even (1126 = 2 563, 8182 = 2 4091),
+# odd on one block (563, 2049 = 3 683, and 7201 at the block's budget, M =
+# 14406) and on a cluster of two (7207, M = 14580; 8185, 8189, M = 16384)
+BLUESTEIN_CASES = (563, 1126, 2049, 7201, 7207, 8182, 8185, 8189)
 EXPORT_CLIPS = 1024
 EXPORT_BATCH = 64
 REPS = 5
@@ -604,15 +615,17 @@ def kernel_cases(dev):
                   f"identical {same:.6f}")
 
 
-def odd_kernel_cases(dev):
+def odd_kernel_cases(dev, cases=ODD_CASES, edges=(1023, 8191),
+                     title="the odd route and the Rader stage", seed=7,
+                     forced=((1023, "gemm"),)):
     """The odd route (two frames of a clip a transform) and the Rader stage
-    (on the odd kernel, and at 514 and 8186 on the mixed-radix kernel)
-    against the plain version: every detrend on clips with an odd T (a
-    lone last frame), the pairing's guard on an all-zero, a NaN and a
-    1e-6 frame beside loud ones, overflow, log10_out, T = 0 and the GEMM
-    kernel forced on an odd nperseg. Every bin finite in both is held to 1
-    float32 ulp of the plain version, and NaN and inf bins to the same
-    places."""
+    (on the odd kernel, and at 514 and 8186 on the mixed-radix kernel), or
+    with ``cases=BLUESTEIN_CASES`` the Bluestein route, against the plain
+    version: every detrend on clips with an odd T (a lone last frame),
+    the pairing's guard on an all-zero, a NaN and a 1e-6 frame beside
+    loud ones, overflow, log10_out and T = 0 at ``edges``, and ``forced``
+    (nperseg, route) pairs. Every bin finite in both is held to 1 float32
+    ulp of the plain version, and NaN and inf bins to the same places."""
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
@@ -620,8 +633,8 @@ def odd_kernel_cases(dev):
     from spectral_tpu_torch.parallel.sharding import finite_flags
     from torch_precision import trend
 
-    phase("the odd route and the Rader stage against their plain version")
-    rs = np.random.RandomState(7)
+    phase(f"{title} against the plain version")
+    rs = np.random.RandomState(seed)
     worst = {}
 
     def on_card(a):
@@ -653,7 +666,7 @@ def odd_kernel_cases(dev):
               f"distance psd {ulps[0]}, pmin {ulps[1]}, pmax {ulps[2]}")
         return got, want
 
-    for k in ODD_CASES:
+    for k in cases:
         hop = k // 4
         n = k + 8 * hop                          # T = 9
         noise = rs.randn(3, n)
@@ -679,17 +692,19 @@ def odd_kernel_cases(dev):
                 and frames_ok == [True, True, True, False, True, True, True],
                 f"nperseg {k}: the zero frame's bins exactly 0 and the "
                 f"clip's pmin 0, the NaN only in its own frame: {frames_ok}")
-    compare(on_card(rs.randn(3, 1023 + 8 * 255) + 3.0),
-            SpecConfig(nperseg=1023, hop=255), "nperseg 1023, constant",
-            route="gemm")
-    for k in (1023, 8191):
+    for k, route in forced:
+        compare(on_card(rs.randn(3, k + 8 * (k // 4)) + 3.0),
+                SpecConfig(nperseg=k, hop=k // 4), f"nperseg {k}, constant",
+                route=route)
+    for k in edges:
         cfg = SpecConfig.north_star(k, k // 4)
         xo = on_card(np.stack([rs.randn(8 * k), 1e19 * rs.randn(8 * k)]))
         _, lo_o, hi_o = stft_cuda.stft_psd(xo, FS, cfg, with_stats=True)
+        used = stft_cuda.route(cfg)
         require(bool(torch.isfinite(hi_o[0])) and bool(torch.isinf(hi_o[1]))
                 and finite_flags(xo, lo_o, hi_o).tolist() == [True, False],
-                f"overflow guard [odd], nperseg {k}: pmax {hi_o.tolist()}")
-        print(f"1e19-amplitude clip, nperseg {k} [odd]: pmax inf, finite "
+                f"overflow guard [{used}], nperseg {k}: pmax {hi_o.tolist()}")
+        print(f"1e19-amplitude clip, nperseg {k} [{used}]: pmax inf, finite "
               "[True, False]")
         xl = on_card(rs.randn(2, 8 * k) + 3.0)
         got = stft_cuda.stft_psd(xl, FS, cfg, log10_out=True)
@@ -698,7 +713,7 @@ def odd_kernel_cases(dev):
         lin_rel, _ = psd_err(10.0 ** got.double(), 10.0 ** want.double())
         require(lin_rel <= PSD_TOL, f"nperseg {k} log10_out: {lin_rel:.2e}")
         worst[f"nperseg {k} log10_out"] = ulp_distance(got, want)
-        print(f"nperseg {k} log10_out [odd] (compared in linear units): "
+        print(f"nperseg {k} log10_out [{used}] (compared in linear units): "
               f"{lin_rel:.2e}; float32 ulp distance "
               f"{ulp_distance(got, want)}")
         before = read_counts()["stft_psd"]
@@ -710,8 +725,8 @@ def odd_kernel_cases(dev):
                 "T = 0 gives empty PSD and zero extrema without a launch")
         print(f"nperseg {k}, T = 0: empty PSD, zero extrema, no launch")
     over = {k: v for k, v in worst.items() if v > 1}
-    print(f"odd route and Rader cases: largest float32 ulp distance "
-          f"{max(worst.values())} over {len(worst)} cases")
+    print(f"{title}: largest float32 ulp distance {max(worst.values())} over "
+          f"{len(worst)} cases")
     require(not over, f"cases past 1 float32 ulp of the plain version: "
             f"{over}")
 
@@ -720,8 +735,9 @@ def scipy_checks(dev, card):
     """The display contract against scipy float64 on clips that break a
     float32 chain (tools/torch_precision.py): scipy_default 1024 on
     noise + 3, and north_star 1024/256 on the sweep's worst clips, all on
-    the FFT route; then the kernels' times at scipy_default 1024 (FFT and
-    GEMM) and 992 (mixed radix and GEMM) on the display spine's batch."""
+    the FFT route; then the kernels' times at scipy_default 1024 (FFT),
+    992 (mixed radix) and 2049 (Bluestein on one block), each beside the
+    GEMM kernel, on the display spine's batch."""
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
@@ -754,7 +770,8 @@ def scipy_checks(dev, card):
 
     gen = torch.Generator(device=dev).manual_seed(3)
     xb = torch.randn((BATCH, n), generator=gen, device=dev) + 3.0
-    for c in (cfg, SpecConfig.scipy_default(992)):
+    for c in (cfg, SpecConfig.scipy_default(992),
+              SpecConfig.scipy_default(2049)):
         kernel = stft_cuda.route(c)
         consts = stft_cuda.dft_constants(c, FS, dev)
         k_ms = time_ms(lambda: stft_cuda.stft_psd(xb, FS, c, with_stats=True))
@@ -888,6 +905,8 @@ def main_path(dev, card):
             x, FS, cfg, log10_out=True)),
         "stft_plain_log10": time_ms(lambda: stft_cuda.stft_psd_reference(
             x, consts, cfg, log10_out=True)),
+        "stft_library_log10": time_ms(lambda: torch.log10(
+            library_psd(x, cfg) + 1e-20)),
     }
     audio_h = BATCH * CLIP_SECONDS / 3600.0
     summary = {"card": card, "batch": BATCH, "peak_gib": round(
@@ -920,13 +939,17 @@ def main_path(dev, card):
     }
 
 
-def long_path(dev, card, dfma_peak, cfg, label, clips=K2_CLIPS):
-    """``clips`` clips of 60 s through ``batched_spectrogram_fn`` at cfg:
-    path 2 at scipy_default 8192 (the FFT route; K2's counterpart), paths
-    4, 5 and 6 at scipy_default 8160, 8032 and 8160 under linear detrend
-    (the mixed-radix route), path 7 at 8191 (the odd route, Rader) and
-    path 8 at 8185 on 64 clips (the GEMM route). Returns the STFT kernel's
-    row."""
+def long_path(dev, card, dfma_peak, cfg, label, clips=K2_CLIPS,
+              seconds=K2_SECONDS):
+    """``clips`` clips of ``seconds`` through ``batched_spectrogram_fn`` at
+    cfg: path 2 at scipy_default 8192 (the FFT route; K2's counterpart),
+    paths 4, 5 and 6 at scipy_default 8160, 8032 and 8160 under linear
+    detrend (the mixed-radix route), path 7 at 8191 (the odd route,
+    Rader), paths 8 and 9 at 8185 and 8182 (the Bluestein route, on a
+    cluster of two blocks and on one), all on 256 clips of 60 s, and path
+    10 at 24 on 1024 clips of 10 s (the GEMM route). Times the GEMM
+    kernel and, off the Bluestein route, the Bluestein kernel forced
+    beside the route's kernel. Returns the STFT kernel's row."""
     import numpy as np
     import torch
     from spectral_tpu_torch.core.stft import num_frames
@@ -935,16 +958,17 @@ def long_path(dev, card, dfma_peak, cfg, label, clips=K2_CLIPS):
     from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
     from torch_precision import trend
 
-    n = int(FS * K2_SECONDS)
+    n = int(FS * seconds)
     nperseg = cfg.nperseg
     route = stft_cuda.route(cfg)
-    phase(f"{label}: {clips} clips x {K2_SECONDS:g} s, nperseg {nperseg} "
+    phase(f"{label}: {clips} clips x {seconds:g} s, nperseg {nperseg} "
           f"hop {cfg.hop_}, detrend {cfg.detrend}, log, the {route} route")
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((clips, n), generator=gen, device=dev)
     if route != "gemm":
-        setup = (stft_cuda.fft_constants if route == "fft"
-                 else stft_cuda.mixed_constants)
+        setup = {"fft": stft_cuda.fft_constants,
+                 "bluestein": stft_cuda.bluestein_constants}.get(
+                     route, stft_cuda.mixed_constants)
         t0 = time.perf_counter()
         setup(cfg, FS, dev)
         print(f"{route} route's f64 constants (window, "
@@ -1043,9 +1067,13 @@ def long_path(dev, card, dfma_peak, cfg, label, clips=K2_CLIPS):
     if route != "gemm":
         timings["stft_gemm_kernel"] = time_ms(lambda: stft_cuda.stft_psd(
             x, FS, cfg, with_stats=True, _route="gemm"))
+    if route not in ("gemm", "bluestein"):
+        timings["stft_bluestein_kernel"] = time_ms(
+            lambda: stft_cuda.stft_psd(x, FS, cfg, with_stats=True,
+                                       _route="bluestein"))
     for name, (ms, reps) in timings.items():
         print(f"{name}: {ms:.3f} ms [{card}] reps {reps}")
-    audio_h = clips * K2_SECONDS / 3600.0
+    audio_h = clips * seconds / 3600.0
     ms = timings["pipeline_kernel"][0]
     print(f"pipeline: {ms:.3f} ms per batch, {audio_h / (ms / 60000.0):.1f} "
           f"audio-h/min [{card}]")
@@ -1228,7 +1256,7 @@ def export_path(dev, card):
 
 
 PHASES = ("kernels", "scipy", "path1", "path2", "path3", "path4", "path5",
-          "path6", "path7", "path8")
+          "path6", "path7", "path8", "path9", "path10")
 
 
 def main(_phases=None):
@@ -1247,6 +1275,11 @@ def main(_phases=None):
     if "kernels" in phases:
         kernel_cases(dev)
         odd_kernel_cases(dev)
+        odd_kernel_cases(
+            dev, BLUESTEIN_CASES, edges=(2049, 8182, 8185),
+            title="the Bluestein route", seed=8,
+            forced=((2049, "gemm"), (1024, "bluestein"), (8032, "bluestein"),
+                    (8191, "bluestein"), (33, "bluestein")))
     if "scipy" in phases:
         scipy_checks(dev, card)
     rows = {}
@@ -1273,15 +1306,22 @@ def main(_phases=None):
              dataclasses.replace(s8160, detrend="linear")),
             ("path7", "stft_odd",
              "path 7, the odd route with a Rader stage",
-             SpecConfig.scipy_default(ODD_NPERSEG, log_scale=True))):
+             SpecConfig.scipy_default(ODD_NPERSEG, log_scale=True)),
+            ("path8", "stft_bluestein_cluster",
+             "path 8, the Bluestein route on a cluster of two blocks",
+             SpecConfig.scipy_default(BLUESTEIN_NPERSEG, log_scale=True)),
+            ("path9", "stft_bluestein",
+             "path 9, the Bluestein route on one block",
+             SpecConfig.scipy_default(BLUESTEIN_EVEN_NPERSEG,
+                                      log_scale=True))):
         if name in phases:
             rows[key] = long_path(dev, card, dfma_peak, cfg, label)
             torch.cuda.empty_cache()
-    if "path8" in phases:
+    if "path10" in phases:
         rows["stft_gemm"] = long_path(
             dev, card, dfma_peak,
             SpecConfig.scipy_default(GEMM_NPERSEG, log_scale=True),
-            "path 8, the GEMM route", clips=GEMM_CLIPS)
+            "path 10, the GEMM route", clips=BATCH, seconds=CLIP_SECONDS)
         torch.cuda.empty_cache()
     if _phases is not None:
         print(f"chip_smoke phases {sorted(phases)} passed in "
@@ -1293,7 +1333,9 @@ def main(_phases=None):
           f"{rows['stft_mixed_8160']['launches']}, path 5 "
           f"{rows['stft_mixed_8032']['launches']}, path 6 "
           f"{rows['stft_mixed_8160_linear']['launches']}; the odd kernel's: "
-          f"path 7 {rows['stft_odd']['launches']}; the GEMM kernel's: path 8 "
+          f"path 7 {rows['stft_odd']['launches']}; the Bluestein kernel's: "
+          f"path 8 {rows['stft_bluestein_cluster']['launches']}, path 9 "
+          f"{rows['stft_bluestein']['launches']}; the GEMM kernel's: path 10 "
           f"{rows['stft_gemm']['launches']}")
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
     meta = {
@@ -1312,8 +1354,16 @@ def main(_phases=None):
             "(path 6)", "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
         "stft_odd": (f"stft_odd_fft_psd, nperseg {ODD_NPERSEG} (path 7)",
                      "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
-        "stft_gemm": (f"stft_psd GEMM, nperseg {GEMM_NPERSEG} (path 8)",
-                      "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
+        "stft_bluestein_cluster": (
+            f"stft_bluestein_psd on a cluster of two blocks, nperseg "
+            f"{BLUESTEIN_NPERSEG} (path 8)", "cuda", src,
+            "spectral_tpu/ops/stft_pallas.py:367"),
+        "stft_bluestein": (
+            f"stft_bluestein_psd on one block, nperseg "
+            f"{BLUESTEIN_EVEN_NPERSEG} (path 9)", "cuda", src,
+            "spectral_tpu/ops/stft_pallas.py:367"),
+        "stft_gemm": (f"stft_psd GEMM, nperseg {GEMM_NPERSEG} (path 10)",
+                      "cuda", src, "spectral_tpu/ops/stft_pallas.py:217"),
         "display_rgba": ("display_epilogue rgba", "triton",
                          "spectral_tpu_torch/ops/display_triton.py",
                          "spectral_tpu/ops/stft_pallas.py:456"),

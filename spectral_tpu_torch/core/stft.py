@@ -9,10 +9,10 @@ GEMMs against DFT matrices with the window and the detrend folded in.
 The host constants (window, PSD weights, axes, folded DFT matrices) are the
 JAX package's numpy f64 code, unchanged, over the port's own copy of the
 windows, so both packages start from bitwise-identical constants; the FFT
-kernels' twiddle tables and plan (:func:`fft_twiddles`, :func:`fft_plan`)
-are the port's own. Framing is a ``Tensor.unfold`` view; the JAX
-package's gcd slice-and-concat framing works around the TPU compiler and
-has no counterpart here.
+kernels' twiddle tables and plans (:func:`fft_twiddles`, :func:`fft_plan`,
+:func:`bluestein_plan`) are the port's own. Framing is a
+``Tensor.unfold`` view; the JAX package's gcd slice-and-concat framing
+works around the TPU compiler and has no counterpart here.
 
 What this module computes is the plain version of the CUDA STFT/PSD kernel
 (``spectral_tpu_torch.ops.stft_cuda``). Only the dense route is ported; the
@@ -359,6 +359,111 @@ def fft_plan(nfft: int) -> FftPlan:
     return FftPlan(stages, perm.astype(np.int32),
                    np.ascontiguousarray(np.concatenate(blocks)), split,
                    rader, g)
+
+
+# The most complex float64 values one block of the Bluestein kernel holds in
+# shared memory (BLUE_MAX_BLOCK_POINTS in ops/csrc/stft_psd.cu, the largest
+# 2, 3, 5, 7-smooth number whose buffer fits the card's 227 KB beside the
+# kernel's static arrays): a convolution longer than this runs on a cluster
+# of two blocks, half each
+BLUESTEIN_BLOCK_POINTS = 14406
+BLUESTEIN_RADICES = (2, 3, 5, 7)
+
+
+def _smooth(m: int) -> bool:
+    """Whether m's prime factors are all in :data:`BLUESTEIN_RADICES`."""
+    for p in BLUESTEIN_RADICES:
+        while m % p == 0:
+            m //= p
+    return m == 1
+
+
+def bluestein_length(n: int) -> int:
+    """M, the Bluestein kernel's convolution length for an n-point
+    transform: the smallest number >= 2n - 1 whose prime factors are 2, 3,
+    5 and 7, or past :data:`BLUESTEIN_BLOCK_POINTS` (a cluster of two
+    blocks) the smallest even one, so that the plan's last stage is the
+    radix-2 stage that joins the two halves."""
+    m = 2 * n - 1
+    while not _smooth(m):
+        m += 1
+    if m > BLUESTEIN_BLOCK_POINTS:
+        m += m % 2
+        while not _smooth(m):
+            m += 2
+    return m
+
+
+class BluesteinPlan(NamedTuple):
+    """The Bluestein kernel's plan for nperseg K (:func:`bluestein_plan`):
+    an N-point transform (:func:`transform_length`) as a cyclic
+    convolution of M points."""
+    n: int                     # N, the transform length
+    m: int                     # M, the convolution length
+    ranks: int                 # blocks that hold the M slots: 1 or 2
+    stages: np.ndarray         # (S, 4) int32: M's stages, as in FftPlan
+    perm: np.ndarray           # (M,) int32: M's digit reversal; DFT index
+                               # j lies at slot perm[j] after the stages
+                               # in frequency
+    twiddles: np.ndarray       # (rows, 2) float64 (cos, sin)
+    bhat: int                  # first of the M rows of b̂, in slot order
+    chirp: int                 # first of the N rows of the chirp w_i
+    split: int                 # first of the N split-step rows W_K^g (even
+                               # K); -1 for odd K
+
+
+@functools.lru_cache(maxsize=16)
+def bluestein_plan(nfft: int) -> BluesteinPlan:
+    """Host plan of the Bluestein kernel for nperseg nfft = K: the N-point
+    transform of :func:`fft_plan` (N = K/2 packed values, or K for a pair
+    of odd frames) for any N, by Bluestein's identity n k = (n² + k² -
+    (k - n)²) / 2:
+
+        X[k] = w_k Σ_n (x_n w_n) conj(w_(k-n)),   w_n = exp(-iπ n² / N),
+
+    a cyclic convolution of length M (:func:`bluestein_length`) of a_n =
+    x_n w_n (n < N, zero to M) with b, the M-periodic conj(w): b_m =
+    conj(w_m) for m < N, b_(M-m) = conj(w_m) for 0 < m < N, else 0. The
+    kernel runs M's stages (the generator of :func:`fft_plan`, radices 2,
+    3, 5 and 7) in frequency (natural order in, digit-reversed out), takes
+    each slot times its row of b̂ (numpy's float64 DFT of b, times 1/M,
+    laid out at slot perm[j]) and conjugates it, runs the stages in time
+    (digit-reversed in, natural out), so that slot k holds conj(y_k) for
+    the convolution y, and reads X[k] = w_k conj(slot k) for k < N. The
+    conjugation makes the forward stages compute the inverse transform,
+    and leaves the outputs in slots 0..N-1.
+
+    Every row is numpy's float64 (cos, sin) of an integer phase reduced
+    exactly: the stage rows as :func:`fft_plan`'s over M, the chirp at
+    -2π (n² mod 2N) / 2N, the split rows (even K) at -2π g / K. Rows:
+    M's stages and roots, then b̂ (``bhat``), the chirp (``chirp``) and
+    the split step (``split``). No (K, F) matrix is built. The arrays are
+    cached and shared: copy before handing them to torch."""
+    if nfft < 3:
+        raise ValueError(f"the Bluestein plan needs nfft >= 3, got {nfft}")
+    n = transform_length(nfft)
+    m = bluestein_length(n)
+    stages, perm, blocks, row = _dit_plan(m, m)
+    idx = np.arange(n, dtype=np.int64)
+    chirp = _rows(idx * idx, 2 * n)
+    conj_w = chirp[:, 0] - 1j * chirp[:, 1]
+    b = np.zeros(m, np.complex128)
+    b[:n] = conj_w
+    b[m - idx[1:]] = conj_w[1:]
+    slots = np.empty(m, np.complex128)
+    slots[perm] = np.fft.fft(b) / m
+    blocks.append(np.stack([slots.real, slots.imag], axis=1))
+    bhat, row = row, row + m
+    blocks.append(chirp)
+    chirp_row, row = row, row + n
+    split = -1
+    if nfft % 2 == 0:
+        blocks.append(_rows(idx, nfft))
+        split = row
+    return BluesteinPlan(n, m, 1 if m <= BLUESTEIN_BLOCK_POINTS else 2,
+                         stages, perm.astype(np.int32),
+                         np.ascontiguousarray(np.concatenate(blocks)), bhat,
+                         chirp_row, split)
 
 
 # ---------------------------------------------------------------------------

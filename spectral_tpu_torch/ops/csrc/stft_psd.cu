@@ -4,7 +4,7 @@
 // stft_psd_pallas: the auto kernel `_compute` (K1, with the `with_stats` and
 // `log10_out` modes) and the manual-DMA kernel `kernel_manual` (K2, A left in
 // HBM and one A tile reloaded per frequency tile, nperseg 6145-8192). Both
-// compute the same function, which this file computes by three routes:
+// compute the same function, which this file computes by five routes:
 //
 // - stft_psd_kernel (stft_psd_launch), the GEMM route below: any nperseg,
 //   any detrend, the real DFT as a GEMM against (K, F) matrices;
@@ -12,10 +12,16 @@
 //   power-of-two nperseg 32-8192, any detrend, a radix-2 FFT of nperseg/2
 //   points in shared memory, one frame per block;
 // - stft_mixed_fft_psd_kernel (stft_mixed_fft_psd_launch), the mixed-radix
-//   route at the end of the file: the other even nperseg 32-8192 whose
-//   nperseg/2 has no odd prime factor past 255 (every other GUI value),
-//   any detrend, the same structure with radix-2, 3, 5, 7 and generic
-//   odd-radix stages.
+//   route: the other even nperseg 32-8192 whose nperseg/2 has no odd prime
+//   factor past 255 (every other GUI value) or is a prime whose p - 1 has
+//   none (a Rader stage), any detrend, the same structure with radix-2, 3,
+//   5, 7 and generic odd-radix stages;
+// - stft_odd_fft_psd_kernel (stft_odd_fft_psd_launch), the odd route: odd
+//   nperseg 33-8191 by the same rule, two frames of a clip a transform;
+// - stft_bluestein_psd_kernel (stft_bluestein_psd_launch), the Bluestein
+//   route at the end of the file: every other nperseg 32-8192, the
+//   transform as a cyclic convolution of a 2, 3, 5, 7-smooth length, on
+//   one block or a cluster of two.
 //
 // The wrapper (ops/stft_cuda.py::route) picks the route by config. The
 // GEMM route computes:
@@ -65,6 +71,7 @@
 // are what keep those waits short. (Those timings include the float32
 // instantiation this source had then.)
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -964,6 +971,284 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
   transform_and_store(ra + 1, false);
 }
 
+// ---------------------------------------------------------------------------
+// The Bluestein route: every nperseg K = 32-8192 that the routes above do
+// not take (a transform length N, K/2 or an odd K, with a prime past 255
+// beside other factors, or a prime p past 255 whose p - 1 has one; 2049,
+// 8182, 8185), any detrend.
+//
+// Bluestein's identity n k = (n^2 + k^2 - (k - n)^2) / 2 turns the N-point
+// DFT into a cyclic convolution of any length M >= 2N - 1, taken M = 2^a
+// 3^b 5^c 7^d (core/stft.py::bluestein_plan):
+//
+//   X[k] = w_k y_k,  y = a (*) b,  a_n = x_n w_n (n < N, zero to M),
+//   w_n = exp(-i pi n^2 / N),  b the M-periodic conj(w).
+//
+// In shared memory: a in slots 0..N-1 and zeros to M; M's stages in
+// frequency (run_stages<true>: natural order in, digit-reversed out); each
+// slot s <- conj(b^_s s), b^ the host's DFT of b times 1/M in slot order;
+// the stages in time (run_stages<false>: digit-reversed in, natural out).
+// The conjugation turns the forward stages into the inverse transform
+// read conjugated, so slot k holds conj(y_k) and X[k] = w_k conj(slot k)
+// (BluesteinRead), with every output in slots 0..N-1. The structure is the
+// Rader stage's (mixed_transform<true>): the chirp takes the place of the
+// generator permutation and the zero padding that of the N - 1 slots.
+//
+// Even K: one frame per block, two real samples packed a complex value
+// (z[m] = v[2m] + i v[2m + 1], N = K/2, M <= 8192), the split step and
+// epilogue of the other even kernels (split_psd_epilogue). Odd K: two
+// frames of a clip a transform (N = K), with the odd kernel's guard on
+// their energies and its pair epilogue (pair_psd_epilogue).
+//
+// What bounds it: the function is bound by bytes, as on every FFT route;
+// this design by shared memory, about 2 M log2 M butterfly passes of 16
+// bytes a value for an N-point transform, 2-4x the mixed-radix kernel's
+// at the same N. The buffer holds M complex float64 values. Past
+// BLUE_MAX_BLOCK_POINTS (14406 values, 225 KB; odd K from 7207, M up to
+// 16384, 256 KB) no block holds it, so a cluster of two blocks on
+// neighbouring SMs holds M/2 slots each, rank 0 the first half, and reads
+// the other's shared memory where a stage crosses the halves. M is then
+// even and the plan's last stage is radix 2 at span M/2
+// (core/stft.py::bluestein_length), and since N <= M/2 every input and
+// every output read lies in rank 0's half:
+// the first stage in frequency leaves rank 0's slots as they are (their
+// partners are zeros) and gives rank 1 W^j a_j from rank 0's slot j; the
+// last in time gives rank 0 a_j + W^j b_j from rank 1's slot j, for j < N;
+// every other stage, and the product, runs on each half alone. Both ranks
+// compute the frames' lines and energies; rank 0 loads and stores. The
+// alternative, a global-memory scratch kept in L2, would put every stage's
+// traffic through L2 instead of shared memory; the cluster keeps it on
+// chip and spreads the butterflies over two SMs. tools/torch_precision.py::
+// psd_bluestein is this arithmetic in numpy, with the halves modelled as
+// the cluster indexes them.
+
+namespace cg = cooperative_groups;
+
+constexpr int BLUE_MAX_RADIX = 7;              // M's radices: 2, 3, 5, 7
+constexpr int BLUE_MIN_BLOCKS = 1;             // blocks of 512 threads an SM
+// A block's shared memory on this card (227 KB, static and dynamic
+// together), the kernel's static arrays (roots, red_sum, red_lo, red_hi),
+// and the most complex float64 values its dynamic buffer then holds: the
+// largest 2, 3, 5, 7-smooth M whose buffer fits, 14406 (225 KB). A
+// longer convolution runs on a cluster of two blocks.
+constexpr int BLOCK_SMEM = 232448;
+constexpr int BLUE_STATIC_SMEM =
+    (BLUE_MAX_RADIX + 1) * 16 + 3 * FFT_MAX_WARPS * 16 + 4 * FFT_MAX_WARPS * 4;
+constexpr int BLUE_MAX_BLOCK_POINTS = 14406;
+static_assert(BLUE_MAX_BLOCK_POINTS * 16 + BLUE_STATIC_SMEM <= BLOCK_SMEM,
+              "the one-block buffer fits");
+
+// X[i] = w_i conj(slot i), i < N: the Bluestein transform's output
+struct BluesteinRead {
+  const double2* buf;
+  const double2* __restrict__ chirp;
+  __device__ double2 operator()(int i) const {
+    const double2 o = buf[i];
+    return cmul(chirp[i], make_double2(o.x, -o.y));
+  }
+};
+
+// The convolution of the values a_i the load put in slots 0..N-1 (zeros
+// to M) with b, in place, starting with the barrier that orders the
+// loads: slot k of rank 0 ends holding conj(y_k), k < N, after a barrier.
+// RANKS = 1: buf holds the M slots and the plan every stage of M. RANKS =
+// 2 (a cluster of two blocks): buf holds this block's M/2 slots, the plan
+// every stage but the last (radix 2 at span M/2, twiddle rows from
+// half_row), which the ranks take through each other's shared memory.
+template <int RANKS>
+__device__ __forceinline__ void bluestein_transform(
+    double2* buf, double2* roots, const double2* __restrict__ tw,
+    const MixedPlan& plan, int M, int N, int bhat, int half_row) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int H = M / RANKS;                      // this block's slots
+  int rank = 0;
+  if constexpr (RANKS == 2) {
+    cg::cluster_group cluster = cg::this_cluster();
+    rank = static_cast<int>(cluster.block_rank());
+    cluster.sync();                             // rank 0's loads
+    if (rank == 1) {
+      const double2* half0 = cluster.map_shared_rank(buf, 0);
+      for (int j = tid; j < H; j += nt)
+        buf[j] = cmul(tw[half_row + j], half0[j]);
+    }
+    cluster.sync();                             // read before rank 0 writes
+  } else {
+    __syncthreads();
+  }
+  run_stages<true>(buf, roots, tw, plan, H);
+  const double2* b = tw + bhat + rank * H;
+  for (int s = tid; s < H; s += nt) {
+    const double2 p = cmul(b[s], buf[s]);
+    buf[s] = make_double2(p.x, -p.y);
+  }
+  __syncthreads();
+  run_stages<false>(buf, roots, tw, plan, H);
+  if constexpr (RANKS == 2) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();                             // rank 1's half transformed
+    if (rank == 0) {
+      const double2* half1 = cluster.map_shared_rank(buf, 1);
+      for (int j = tid; j < N; j += nt) {
+        const double2 t = cmul(tw[half_row + j], half1[j]);
+        const double2 a = buf[j];
+        buf[j] = make_double2(a.x + t.x, a.y + t.y);
+      }
+    }
+    cluster.sync();                             // rank 1 may go on or exit
+  }
+}
+
+// The odd kernels' epilogue, as stft_odd_fft_psd_kernel's: the bins of
+// row r0 from a lone frame's transform z, X[f] = Z[f], or of rows r0 and
+// r0 + 1 from a pair's, A[f] = (Z[f] + conj Z[K - f]) / 2 and B[f] = (Z[f]
+// - conj Z[K - f]) / 2i; the power, log10_out and each row's (min, max)
+template <typename Read>
+__device__ __forceinline__ void pair_psd_epilogue(
+    Read z, int r0, bool pair, int K, int F, const double* __restrict__ wts,
+    float* __restrict__ out, float* __restrict__ part_min,
+    float* __restrict__ part_max, float (*red_lo)[FFT_MAX_WARPS],
+    float (*red_hi)[FFT_MAX_WARPS], int log10_out, int with_stats) {
+  float lo[2] = {INFINITY, INFINITY};
+  float hi[2] = {-INFINITY, -INFINITY};
+  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+    const double2 a = z(f);
+    if (pair) {
+      const double2 b = z(f == 0 ? 0 : K - f);
+      store_bin(power(0.5 * (a.x + b.x), 0.5 * (a.y - b.y), wts[f]), out, r0,
+                F, f, log10_out, lo[0], hi[0]);
+      store_bin(power(0.5 * (a.y + b.y), 0.5 * (b.x - a.x), wts[f]), out,
+                r0 + 1, F, f, log10_out, lo[1], hi[1]);
+    } else {
+      store_bin(power(a.x, a.y, wts[f]), out, r0, F, f, log10_out, lo[0],
+                hi[0]);
+    }
+  }
+  if (with_stats) {
+    row_extrema(lo[0], hi[0], red_lo[0], red_hi[0], part_min, part_max, r0);
+    if (pair)
+      row_extrema(lo[1], hi[1], red_lo[1], red_hi[1], part_min, part_max,
+                  r0 + 1);
+  }
+}
+
+// One block (RANKS = 1) or cluster (RANKS = 2) per unit: a frame of even
+// K, row blockIdx.x; or for odd K frames t = 2j and t + 1 of clip b, unit
+// b ceil(T / 2) + j. Even K runs on one block only.
+template <int RANKS>
+__global__ void __launch_bounds__(FFT_MAX_THREADS, BLUE_MIN_BLOCKS)
+stft_bluestein_psd_kernel(const float* __restrict__ x,
+                          const double* __restrict__ win,
+                          const double2* __restrict__ tw,
+                          const double* __restrict__ wts,
+                          float* __restrict__ out,
+                          float* __restrict__ part_min,
+                          float* __restrict__ part_max, long long n, int T,
+                          int F, int K, int hop, int detrend, int log10_out,
+                          int with_stats, int M, int bhat, int chirp_row,
+                          int half_row,
+                          const __grid_constant__ MixedPlan plan) {
+  extern __shared__ double2 buf[];  // M / RANKS complex values
+  __shared__ double2 roots[BLUE_MAX_RADIX + 1];
+  __shared__ double2 red_sum[3][FFT_MAX_WARPS];
+  __shared__ float red_lo[2][FFT_MAX_WARPS];
+  __shared__ float red_hi[2][FFT_MAX_WARPS];
+
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int unit = blockIdx.x / RANKS;
+  const int H = M / RANKS;
+  const double2* chirp = tw + chirp_row;
+  const double c = 0.5 * (K - 1);
+  bool loads = true;                // rank 0 loads, transforms and stores
+  if constexpr (RANKS == 2) loads = cg::this_cluster().block_rank() == 0;
+
+  if constexpr (RANKS == 1) {
+    if (K % 2 == 0) {
+      const int N = K >> 1;
+      const int r = unit;
+      const float* frame =
+          x + (long long)(r / T) * n + (long long)(r % T) * hop;
+      const double2 line = frame_line(frame, K, detrend, red_sum[0]);
+      for (int m = tid; m < H; m += nt) {
+        double2 z = make_double2(0.0, 0.0);
+        if (m < N) {
+          const int i = 2 * m;
+          const double va =
+              (static_cast<double>(frame[i]) - line.x - line.y * (i - c)) *
+              win[i];
+          const double vb = (static_cast<double>(frame[i + 1]) - line.x -
+                             line.y * (i + 1 - c)) *
+                            win[i + 1];
+          z = cmul(chirp[m], make_double2(va, vb));
+        }
+        buf[m] = z;
+      }
+      bluestein_transform<RANKS>(buf, roots, tw, plan, M, N, bhat, half_row);
+      split_psd_epilogue(BluesteinRead{buf, chirp}, tw + plan.split, wts,
+                         out, part_min, part_max, red_lo[0], red_hi[0], r, F,
+                         K, log10_out, with_stats);
+      return;
+    }
+  }
+
+  const int pairs = (T + 1) >> 1;
+  const int clip = unit / pairs;
+  const int t = (unit - clip * pairs) * 2;
+  const int ra = clip * T + t;
+  const bool has_b = t + 1 < T;
+  const float* fa = x + (long long)clip * n + (long long)t * hop;
+  const float* fb = fa + hop;
+  const double2 la = frame_line(fa, K, detrend, red_sum[0]);
+  const double2 lb = has_b ? frame_line(fb, K, detrend, red_sum[1])
+                           : make_double2(0.0, 0.0);
+  const auto sample = [&](const float* f, double2 line, int i) {
+    return (static_cast<double>(f[i]) - line.x - line.y * (i - c)) * win[i];
+  };
+
+  // the pair's load, z_i = (v_a[i] + i v_b[i]) w_i, and both energies
+  double2 e = make_double2(0.0, 0.0);
+  for (int i = tid; i < H; i += nt) {
+    double2 z = make_double2(0.0, 0.0);
+    if (i < K) {
+      const double va = sample(fa, la, i);
+      const double vb = has_b ? sample(fb, lb, i) : 0.0;
+      z = cmul(chirp[i], make_double2(va, vb));
+      e.x += va * va;
+      e.y += vb * vb;
+    }
+    if (loads) buf[i] = z;
+  }
+  e = block_sum(e, red_sum[2]);     // also orders the loads before reloads
+  const bool paired = has_b && isfinite(e.x) && isfinite(e.y) &&
+                      e.x > 0.0 && e.y > 0.0 &&
+                      fmax(e.x, e.y) <= PAIR_MAX_RATIO * fmin(e.x, e.y);
+  const auto transform_and_store = [&](int r0, bool pair) {
+    bluestein_transform<RANKS>(buf, roots, tw, plan, M, K, bhat, half_row);
+    if (loads)
+      pair_psd_epilogue(BluesteinRead{buf, chirp}, r0, pair, K, F, wts, out,
+                        part_min, part_max, red_lo, red_hi, log10_out,
+                        with_stats);
+  };
+  if (paired) {
+    transform_and_store(ra, true);
+    return;
+  }
+  // each frame alone, z_i = v[i] w_i: a, then b
+  const auto load_alone = [&](const float* f, double2 line) {
+    if (!loads) return;
+    for (int i = tid; i < H; i += nt)
+      buf[i] = i < K ? cmul(chirp[i], make_double2(sample(f, line, i), 0.0))
+                     : make_double2(0.0, 0.0);
+  };
+  load_alone(fa, la);
+  transform_and_store(ra, false);
+  if (!has_b) return;
+  __syncthreads();                  // the epilogue's reads before the loads
+  load_alone(fb, lb);
+  transform_and_store(ra + 1, false);
+}
+
 constexpr int FFT_MAX_DEVICES = 64;
 // the dynamic shared memory limit already set for the FFT kernels, per
 // device
@@ -971,6 +1256,8 @@ size_t fft_smem_set[FFT_MAX_DEVICES] = {};
 // (without and with a Rader stage for the mixed-radix kernels)
 size_t mixed_smem_set[2][FFT_MAX_DEVICES] = {};
 size_t odd_smem_set[2][FFT_MAX_DEVICES] = {};
+// (on one block and on a cluster of two for the Bluestein kernels)
+size_t blue_smem_set[2][FFT_MAX_DEVICES] = {};
 
 // raise `kernel`'s dynamic shared memory limit to smem once per device
 // (set[] records it); returns a cudaError_t
@@ -1161,6 +1448,89 @@ int stft_odd_fft_psd_launch(const float* x, const double* win,
       x, win, perm, reinterpret_cast<const double2*>(tw), wts, out, part_min,
       part_max, n, T, F, K, hop, detrend, log10_out, with_stats, pack != 0,
       plan);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Bluestein route, on `stream`; returns a cudaError_t (0 = success):
+// cudaErrorInvalidValue for a plan or detrend code the kernel does not
+// take, else that of raising the kernel's shared memory limit, else that
+// of the launch (a cluster that cannot be placed included). x is (B, n)
+// contiguous f32; win is (K,) f64; tw is (rows, 2) f64, and stages, in
+// HOST memory, the (n_stages, 4) int32 rows of M's plan, both from
+// core/stft.py::bluestein_plan, with bhat, chirp and split the first rows
+// of b^ (M rows), of the chirp (N rows) and of the split step (N rows;
+// -1 for odd K, which has none); wts is (F,) f64 with F <= K; out is (B,
+// T, F) f32; part_min/part_max are (B * T,) f32 and may be null when
+// with_stats is 0. K is 32 to 8192, M >= 2N - 1 (N = K/2, or K when odd)
+// with radices 2, 3, 5 and 7; M past BLUE_MAX_BLOCK_POINTS runs on
+// clusters of two blocks and must be even with a last stage of radix 2 at
+// span M/2, and K odd. detrend is 0 for none, 1 for constant, 2 for
+// linear. The kernel runs B * T units for even K and B * ceil(T / 2) for
+// odd K, a block or a cluster each; the caller keeps B * T within the
+// grid's limit.
+int stft_bluestein_psd_launch(const float* x, const double* win,
+                              const double* tw, const int* stages,
+                              int n_stages, int M, int bhat, int chirp,
+                              int split, const double* wts, float* out,
+                              float* part_min, float* part_max, int B,
+                              long long n, int T, int F, int K, int hop,
+                              int detrend, int log10_out, int with_stats,
+                              void* stream) {
+  const cudaError_t bad = cudaErrorInvalidValue;
+  const bool odd = K % 2 == 1;
+  const int N = odd ? K : K / 2;
+  const int ranks = M > BLUE_MAX_BLOCK_POINTS ? 2 : 1;
+  MixedPlan plan;
+  int threads = 0;
+  if (K < 32 || K > 8192 || F < 1 || F > K || !detrend_ok(detrend) ||
+      M < 2 * N - 1 || bhat < 0 || chirp < 0 || (split < 0) != odd ||
+      !load_plan(stages, n_stages, split, -1, M, &plan, &threads))
+    return static_cast<int>(bad);
+  for (int s = 0; s < n_stages; ++s)
+    if (plan.stage[s][0] > BLUE_MAX_RADIX) return static_cast<int>(bad);
+  int half_row = -1;
+  if (ranks == 2) {
+    const int* last = stages + 4 * (n_stages - 1);
+    if (!odd || M % 2 || M / 2 > BLUE_MAX_BLOCK_POINTS || last[0] != 2 ||
+        last[1] != M / 2)
+      return static_cast<int>(bad);
+    half_row = last[2];
+    plan.n_stages -= 1;             // the halves' stages; the last crosses
+  }
+  const int local = M / ranks;
+  threads = fft_threads(2 * local);  // local/2 radix-2 butterflies
+  const auto kernel = ranks == 2 ? stft_bluestein_psd_kernel<2>
+                                 : stft_bluestein_psd_kernel<1>;
+  const size_t smem = static_cast<size_t>(local) * sizeof(double2);
+  const int err = raise_smem(kernel, smem, blue_smem_set[ranks - 1]);
+  if (err != 0) return err;
+  const unsigned units =
+      static_cast<unsigned>(B) *
+      static_cast<unsigned>(odd ? (T + 1) / 2 : T);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const double2* tw2 = reinterpret_cast<const double2*>(tw);
+  if (ranks == 1) {
+    kernel<<<units, threads, smem, s>>>(
+        x, win, tw2, wts, out, part_min, part_max, n, T, F, K, hop, detrend,
+        log10_out, with_stats, M, bhat, chirp, half_row, plan);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(units * 2);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &config, kernel, x, win, tw2, wts, out, part_min, part_max, n, T, F, K,
+      hop, detrend, log10_out, with_stats, M, bhat, chirp, half_row, plan);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,12 +1,12 @@
 """Fused STFT/PSD: the CUDA kernels' wrapper and their plain version.
 
-Counterpart of ``spectral_tpu/ops/stft_pallas.py``. Three kernels in
+Counterpart of ``spectral_tpu/ops/stft_pallas.py``. Five kernels in
 ``csrc/stft_psd.cu`` replace ``stft_psd_pallas`` with its ``with_stats``
 and ``log10_out`` modes, across the GUI's whole nperseg range up to 8192
 (the TPU's auto kernel K1 and, above nperseg 6144, its manual-DMA kernel
 K2): framing, the windowed and detrended real DFT, |X|² times the
 one-sided PSD weights, and the per-clip PSD extrema, with no frame tensor
-written to memory. All compute the same function, by four routes that
+written to memory. All compute the same function, by five routes that
 :func:`route` picks from the config alone:
 
 - ``"fft"`` (``stft_fft_psd_launch``): power-of-two nperseg from 32 to
@@ -38,12 +38,21 @@ written to memory. All compute the same function, by four routes that
   carries two frames of one clip, one in each part, separated in the
   epilogue; a guard transforms a frame alone beside a frame that is not
   finite, is all zero or is far louder;
-- ``"gemm"`` (``stft_psd_launch``): nperseg below 32 and the nperseg
-  whose transform length (nperseg/2, or nperseg when odd) has a prime
-  past 255 beside other factors, or is a prime p whose p - 1 has one;
-  none of them on the GUI's range. The real DFT as a register-blocked
-  GEMM against (nperseg, F) matrices with the window and detrend folded
-  in (:func:`dft_constants`).
+- ``"bluestein"`` (``stft_bluestein_psd_launch``): the other 2,389
+  nperseg from 32 to 8192, under any detrend, whose transform length
+  (nperseg/2, or nperseg when odd) has a prime past 255 beside other
+  factors (2049 = 3 · 683), or is a prime p whose p - 1 has one (8185 =
+  5 · 1637); none of them on the GUI's range. The transform as a cyclic
+  convolution of a 2, 3, 5, 7-smooth length M >= 2N - 1 by Bluestein's
+  chirp (``core.stft.bluestein_plan``, :func:`bluestein_constants`): M's
+  stages in frequency, a product with the host's b̂, the stages in time,
+  on even nperseg's packed frames or odd nperseg's pairs of frames as the
+  routes above; past 14,406 points (odd nperseg from 7207, M up to
+  16,384) on a cluster of two blocks that hold half of M each;
+- ``"gemm"`` (``stft_psd_launch``): nperseg below 32. The real DFT as a
+  register-blocked GEMM against (nperseg, F) matrices with the window and
+  detrend folded in (:func:`dft_constants`); forced on any config for
+  timing.
 
 The FFT kernels take the detrend as a code (:data:`DETREND_CODES`: 0
 none, 1 constant, 2 linear); their launchers refuse any other value.
@@ -67,11 +76,11 @@ seeds 0-99 (``python3 tools/torch_precision.py``):
 
 The float64 GEMM route stays below 5e-7 dB on every one of those clips,
 and so do the float64 FFT routes (the sweep's last columns, with the
-mixed-radix and odd routes' own configs).
+mixed-radix, odd and Bluestein routes' own configs).
 
 :func:`stft_psd` takes a kernel for a CUDA tensor and the plain version
 (:func:`stft_psd_reference`, a float64 dense DFT, the plain version of
-both kernels) for a CPU tensor, and only because the tensor lies on the
+every kernel) for a CPU tensor, and only because the tensor lies on the
 CPU. On a CUDA tensor it launches the route's kernel or raises; nothing
 falls back to another route.
 """
@@ -86,16 +95,17 @@ import torch
 
 from spectral_tpu_torch.config import SpecConfig
 from spectral_tpu_torch.core.stft import (MAX_MIXED_RADIX, _window_f64,
-                                          dense_dft, dft_matrices,
-                                          ensure_real_waveform, fft_plan,
-                                          fft_twiddles, frame_signal,
-                                          num_frames, onesided_weights,
-                                          plan_radices)
+                                          bluestein_plan, dense_dft,
+                                          dft_matrices, ensure_real_waveform,
+                                          fft_plan, fft_twiddles,
+                                          frame_signal, num_frames,
+                                          onesided_weights, plan_radices)
 from spectral_tpu_torch.ops import build
 
 KERNEL = "stft_psd"
 MAX_NPERSEG = 8192           # the GUI's ceiling (GUI.py:87-90)
-MIN_FFT_NPERSEG = 32         # the GUI's floor, the FFT kernels' smallest
+MIN_FFT_NPERSEG = 32         # the GUI's floor, the FFT kernels' smallest;
+                             # below it the GEMM kernel computes
 # |X|² past float32's range makes the bin inf, as the JAX package's float32
 # pipeline overflows there: the clip's extrema turn inf and its finite flag
 # (the overflow guard) trips, though float64 could carry the value
@@ -106,7 +116,7 @@ F32_MAX = float(np.finfo(np.float32).max)
 MAX_ROWS = 2 ** 31 - 256
 
 # kernel launches per route, for run-time proof of the path
-launches = {"gemm": 0, "fft": 0, "mixed": 0, "odd": 0}
+launches = {"gemm": 0, "fft": 0, "mixed": 0, "odd": 0, "bluestein": 0}
 # the FFT kernels' detrend codes (DETREND_* in csrc/stft_psd.cu)
 DETREND_CODES = {"none": 0, "constant": 1, "linear": 2}
 
@@ -151,15 +161,15 @@ def check_supported(cfg: SpecConfig) -> None:
 
 def route(cfg: SpecConfig) -> str:
     """The kernel that computes a supported config (:func:`kernel_supported`;
-    others raise NotImplementedError), under any detrend: ``"fft"`` for a
-    power-of-two nperseg from 32 to 8192; for the other nperseg in that
-    range whose plan's radices (``core.stft.plan_radices``: the prime
-    factors of the transform length, nperseg/2 or an odd nperseg, or of
-    the length less one where a Rader stage takes a prime length past
-    :data:`MAX_MIXED_RADIX`) are all at most :data:`MAX_MIXED_RADIX`,
-    ``"mixed"`` when even and ``"odd"`` when odd; ``"gemm"`` for the rest
-    (nperseg below 32, and transform lengths with a larger prime). A pure
-    function of the config."""
+    others raise NotImplementedError), under any detrend: ``"gemm"`` for
+    nperseg below 32; ``"fft"`` for a power-of-two nperseg from 32 to
+    8192; for the other nperseg in that range whose plan's radices
+    (``core.stft.plan_radices``: the prime factors of the transform
+    length, nperseg/2 or an odd nperseg, or of the length less one where
+    a Rader stage takes a prime length past :data:`MAX_MIXED_RADIX`) are
+    all at most :data:`MAX_MIXED_RADIX`, ``"mixed"`` when even and
+    ``"odd"`` when odd; ``"bluestein"`` for the rest (transform lengths
+    with a larger prime). A pure function of the config."""
     check_supported(cfg)
     k = cfg.nperseg
     if not MIN_FFT_NPERSEG <= k <= MAX_NPERSEG:
@@ -167,7 +177,7 @@ def route(cfg: SpecConfig) -> str:
     if k & (k - 1) == 0:
         return "fft"
     if max(plan_radices(k)) > MAX_MIXED_RADIX:
-        return "gemm"
+        return "bluestein"
     return "odd" if k % 2 else "mixed"
 
 
@@ -257,6 +267,39 @@ def mixed_constants(cfg: SpecConfig, fs: float, device) -> MixedConstants:
     return consts
 
 
+class BluesteinConstants(NamedTuple):
+    """The Bluestein kernel's operands (``core.stft.bluestein_plan``): the
+    window (K,), the plan's twiddle table (rows, 2) and the weights (F,)
+    in float64 on the device; M's (S, 4) int32 stage rows on the host; M
+    and the first rows of b̂, the chirp and the split step (-1 when odd)."""
+    window: torch.Tensor
+    twiddles: torch.Tensor
+    wts: torch.Tensor
+    stages: np.ndarray
+    m: int
+    bhat: int
+    chirp: int
+    split: int
+
+
+def bluestein_constants(cfg: SpecConfig, fs: float,
+                        device) -> BluesteinConstants:
+    """The Bluestein route's operands for (cfg, fs), the host's float64
+    numpy values unrounded, cached per device. No (K, F) matrix is
+    built."""
+    key = ("bluestein", cfg, float(fs), str(torch.device(device)))
+    consts = _CONSTANTS.get(key)
+    if consts is None:
+        plan = bluestein_plan(cfg.nperseg)
+        consts = BluesteinConstants(_put(_window_f64(cfg), device),
+                                    _put(plan.twiddles, device),
+                                    _put(onesided_weights(cfg, fs), device),
+                                    plan.stages.copy(), plan.m, plan.bhat,
+                                    plan.chirp, plan.split)
+        _CONSTANTS[key] = consts
+    return consts
+
+
 def _empty_result(B: int, F: int, like: torch.Tensor, with_stats: bool):
     empty = like.new_zeros((B, 0, F))
     if with_stats:
@@ -310,6 +353,9 @@ def _library() -> ctypes.CDLL:
         lib.stft_odd_fft_psd_launch.argtypes = [ptr] * 5 + [i32] * 2 + [
             ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 8 + [ptr]
         lib.stft_odd_fft_psd_launch.restype = i32
+        lib.stft_bluestein_psd_launch.argtypes = [ptr] * 4 + [i32] * 5 + [
+            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 7 + [ptr]
+        lib.stft_bluestein_psd_launch.restype = i32
         lib.stft_psd_freq_tiles.argtypes = [i32]
         lib.stft_psd_freq_tiles.restype = i32
         lib.stft_psd_error_string.argtypes = [i32]
@@ -371,6 +417,14 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
                 len(mc.stages), mc.rader, mc.wts.data_ptr(), out.data_ptr(),
                 *stats, B, n, T, F, cfg.nperseg, cfg.hop_, detrend,
                 int(log10_out), int(with_stats), int(pack), stream)
+        elif kernel == "bluestein":
+            bc = bluestein_constants(cfg, fs, x.device)
+            err = lib.stft_bluestein_psd_launch(
+                x.data_ptr(), bc.window.data_ptr(), bc.twiddles.data_ptr(),
+                bc.stages.ctypes.data, len(bc.stages), bc.m, bc.bhat,
+                bc.chirp, bc.split, bc.wts.data_ptr(), out.data_ptr(),
+                *stats, B, n, T, F, cfg.nperseg, cfg.hop_, detrend,
+                int(log10_out), int(with_stats), stream)
         else:
             dc = dft_constants(cfg, fs, x.device)
             err = lib.stft_psd_launch(
@@ -398,14 +452,18 @@ def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
     combined with log10_out. A config outside :func:`kernel_supported`
     raises NotImplementedError on every device. On a CUDA tensor the
     kernel is the one :func:`route` picks; ``_route`` forces another the
-    config allows ("gemm" always, else only the config's own route), for
-    timing the kernels against each other."""
+    config allows ("gemm" always, "bluestein" on any nperseg from 32,
+    else only the config's own route), for timing the kernels against
+    each other."""
     if with_stats and log10_out:
         raise ValueError("with_stats computes linear-PSD extrema; "
                          "combine with log10_out is unsupported")
     kernel = route(cfg)
     if _route is not None:
-        if _route not in ("gemm", kernel):
+        forced = ["gemm", kernel]
+        if cfg.nperseg >= MIN_FFT_NPERSEG:
+            forced.append("bluestein")
+        if _route not in forced:
             raise ValueError(f"no {_route!r} route for nperseg "
                              f"{cfg.nperseg}, detrend {cfg.detrend!r}")
         kernel = _route

@@ -104,9 +104,10 @@ def test_fft_route_on_the_gui_range():
     and the Rader stage take 3,103 values that the GEMM kernel computed
     before them (odd nperseg whose primes are all at most 255, and
     transform lengths that are a prime p whose p - 1 has none past 255),
-    and the GEMM kernel keeps 2,389 (a prime past 255 beside other
-    factors, such as 2049 = 3 · 683, or one whose p - 1 has a prime past
-    255, such as 8185 = 5 · 1637)."""
+    and the Bluestein route the other 2,389 (a prime past 255 beside
+    other factors, such as 2049 = 3 · 683, or one whose p - 1 has a prime
+    past 255, such as 8185 = 5 · 1637); the GEMM kernel keeps nperseg
+    below 32, and is forced on any config (the test below)."""
     gui = range(32, 8193, 32)
     counts = {"fft": 0, "mixed": 0}
     linear = {"fft": 0, "mixed": 0}
@@ -125,22 +126,25 @@ def test_fft_route_on_the_gui_range():
         assert stft_cuda.route(SpecConfig.scipy_default(k)) == "mixed"
     for k in (33, 45, 99, 257, 1021, 1023, 4093, 8191):
         assert stft_cuda.route(SpecConfig.scipy_default(k)) == "odd"
-    for cfg in (SpecConfig.north_star(16, 4),         # below the kernels' 32
-                SpecConfig.north_star(31, 8),
-                SpecConfig.scipy_default(2049),       # 3 · 683
-                SpecConfig.scipy_default(2 * 771),    # 2 · 3 · 257
-                SpecConfig.scipy_default(8185)):      # 5 · 1637
-        assert stft_cuda.route(cfg) == "gemm"
+    for cfg, want in ((SpecConfig.north_star(16, 4), "gemm"),  # below 32
+                      (SpecConfig.north_star(31, 8), "gemm"),
+                      (SpecConfig.scipy_default(2049), "bluestein"),
+                      (SpecConfig.scipy_default(2 * 771), "bluestein"),
+                      (SpecConfig.scipy_default(8185), "bluestein")):
+        assert stft_cuda.route(cfg) == want
         assert stft_cuda.route(dataclasses.replace(
-            cfg, detrend="linear")) == "gemm"
+            cfg, detrend="linear")) == want
     # the whole range against the rule before the odd route: odd nperseg
-    # and nperseg/2 with an odd prime past 255 took the GEMM kernel
+    # and nperseg/2 with an odd prime past 255 took the GEMM kernel; what
+    # the odd and mixed routes left it, the Bluestein route takes
     before, after = set(), set()
     for k in range(32, 8193):
         cfg = SpecConfig(nperseg=k, hop=k // 4)
         if k % 2 or max(tstft.fft_radices(k // 2)) > 255:
             before.add(k)
-        if stft_cuda.route(cfg) == "gemm":
+        got = stft_cuda.route(cfg)
+        assert got != "gemm", k
+        if got == "bluestein":
             after.add(k)
     assert after <= before
     assert (len(before - after), len(after)) == (3103, 2389)
@@ -312,7 +316,8 @@ def test_forced_route_is_checked():
     with pytest.raises(ValueError, match="'dense' route"):
         stft_cuda.stft_psd(x, FS, SpecConfig.scipy_default(1024),
                            _route="dense")
-    for cfg in (SpecConfig.scipy_default(1024), SpecConfig.scipy_default(992)):
+    for cfg in (SpecConfig.scipy_default(1024), SpecConfig.scipy_default(992),
+                SpecConfig.scipy_default(2049)):
         assert torch.equal(stft_cuda.stft_psd(x, FS, cfg, _route="gemm"),
                            stft_cuda.stft_psd(x, FS, cfg))
     cfg = SpecConfig.scipy_default(992)

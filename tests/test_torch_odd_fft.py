@@ -264,7 +264,8 @@ def _cuda_double(name):
 
 def test_kernel_and_model_share_the_guard_and_launch_counts():
     assert _cuda_double("PAIR_MAX_RATIO") == torch_precision.PAIR_MAX_RATIO
-    assert set(stft_cuda.launches) == {"gemm", "fft", "mixed", "odd"}
+    assert set(stft_cuda.launches) == {"gemm", "fft", "mixed", "odd",
+                                       "bluestein"}
 
 
 # ---------------------------------------------------------------------------

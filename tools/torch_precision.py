@@ -32,8 +32,10 @@ radix-2 stages), and ``ODD_SWEEP`` holds the odd kernel's model
 (``psd_odd_fft``, two frames a transform, a Rader stage at the primes)
 and the mixed-radix model's Rader stage (8186) to scipy, on pairs clips
 too: a zero, a NaN and a 1e-6 frame beside loud ones, compared on the
-frames scipy computes finite. ``--only NAME ...`` runs the sweep's rows
-whose names contain one of the words, without the first table.
+frames scipy computes finite; ``BLUESTEIN_SWEEP`` does the same for the
+Bluestein kernel's model (``psd_bluestein``) at 563-8189. ``--only NAME
+...`` runs the sweep's rows whose names contain one of the words, without
+the first table.
 
 Each PSD is rounded to float32, as the kernel stores it. The display error
 is ``bench.py``'s formula, max |Δimage| times the image's dB range, with
@@ -59,9 +61,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from spectral_tpu_torch.config import SpecConfig  # noqa: E402
-from spectral_tpu_torch.core.stft import (_window_f64,  # noqa: E402
-                                          dft_matrices, fft_plan,
-                                          fft_twiddles, onesided_weights)
+from spectral_tpu_torch.core.stft import (  # noqa: E402
+    MAX_MIXED_RADIX, _window_f64, bluestein_plan, dft_matrices, fft_plan,
+    fft_twiddles, onesided_weights, plan_radices)
 
 FS = 16000.0
 CONTRACT_DB = 1e-3
@@ -379,7 +381,18 @@ def psd_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
     re[:, plan.perm] = v[:, 0::2]
     im[:, plan.perm] = v[:, 1::2]
     re, im = _transform(re, im, plan, M)
-    tw = plan.twiddles
+    return _split_psd(re, im, plan.twiddles[plan.split:], K, wts, round_f32)
+
+
+def _split_psd(re: np.ndarray, im: np.ndarray, split: np.ndarray, K: int,
+               wts: np.ndarray, round_f32: bool) -> np.ndarray:
+    """The split step and the PSD epilogue of the even-K FFT kernels
+    (``split_psd_epilogue``) on the (T, M) transform Z of the packed
+    frames, M = K/2, in natural order: for bin f (g = min(f, K - f)), E =
+    (Z[g] + conj Z[M - g]) / 2, O = -i (Z[g] - conj Z[M - g]) / 2 (indices
+    mod M), X = E + W_K^g O with W_K^g the row g of ``split`` (-1 at g =
+    M); then :func:`_power`."""
+    M = K // 2
     F = wts.shape[0]
     fb = np.arange(F)
     g = np.minimum(fb, K - fb)
@@ -388,8 +401,8 @@ def psd_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
     er, ei = 0.5 * (ar + br), 0.5 * (ai - bi)
     o_r, o_i = 0.5 * (ai + bi), 0.5 * (br - ar)
     last = np.minimum(g, M - 1)
-    wr = np.where(g < M, tw[plan.split + last, 0], -1.0)
-    wi = np.where(g < M, tw[plan.split + last, 1], 0.0)
+    wr = np.where(g < M, split[last, 0], -1.0)
+    wi = np.where(g < M, split[last, 1], 0.0)
     xr = er + (wr * o_r - wi * o_i)
     xi = ei + (wr * o_i + wi * o_r)
     return _power(xr, xi, wts, round_f32)
@@ -440,20 +453,35 @@ def psd_odd_fft(frames: np.ndarray, window: np.ndarray, plan,
     What differs from the card: the detrend's sums and the guard's
     energies are numpy's, not the kernel's block reductions, and numpy
     rounds the products where the card may fuse them (FMA)."""
-    f = frames.astype(np.float64)
-    T, K = f.shape
+    K = frames.shape[-1]
+
+    def transform(re, im):
+        zr = np.empty_like(re)
+        zi = np.empty_like(im)
+        zr[:, plan.perm], zi[:, plan.perm] = re, im
+        return _transform(zr, zi, plan, K)
+
+    v = detrended(frames.astype(np.float64), detrend) * window
+    return _pair_psd(v, transform, wts, round_f32, pack)
+
+
+def _pair_psd(v: np.ndarray, transform, wts: np.ndarray, round_f32: bool,
+              pack: bool = True) -> np.ndarray:
+    """The odd kernels' pairing and pair epilogue on the detrended,
+    windowed odd frames v (T, K), with ``transform(re, im)`` the kernel's
+    K-point transform of values in natural order: frames 2j and 2j + 1
+    share one transform, z = v_a + i v_b, where :func:`paired_frames` says
+    so (and ``pack``), their bins A[f] = (Z[f] + conj Z[K - f]) / 2 and
+    B[f] = (Z[f] - conj Z[K - f]) / 2i (indices mod K); any other frame
+    is transformed alone, z = v + 0i, X[f] = Z[f]; then :func:`_power`."""
+    T, K = v.shape
     F = wts.shape[0]
-    v = detrended(f, detrend) * window
     paired = (paired_frames(v) if pack else np.zeros(T, bool))
     out = np.empty((T, F))
     fb = np.arange(F)
     a_rows = np.flatnonzero(paired)[0::2]
     if a_rows.size:
-        re = np.empty((a_rows.size, K))
-        im = np.empty((a_rows.size, K))
-        re[:, plan.perm] = v[a_rows]
-        im[:, plan.perm] = v[a_rows + 1]
-        zr, zi = _transform(re, im, plan, K)
+        zr, zi = transform(v[a_rows], v[a_rows + 1])
         j = (K - fb) % K
         ar, ai, br, bi = zr[:, fb], zi[:, fb], zr[:, j], zi[:, j]
         out[a_rows] = _power(0.5 * (ar + br), 0.5 * (ai - bi), wts, False)
@@ -461,11 +489,89 @@ def psd_odd_fft(frames: np.ndarray, window: np.ndarray, plan,
                                  False)
     alone = np.flatnonzero(~paired)
     if alone.size:
-        re = np.empty((alone.size, K))
-        re[:, plan.perm] = v[alone]
-        zr, zi = _transform(re, np.zeros((alone.size, K)), plan, K)
+        zr, zi = transform(v[alone], np.zeros((alone.size, K)))
         out[alone] = _power(zr[:, :F], zi[:, :F], wts, False)
     return out.astype(np.float32) if round_f32 else out
+
+
+def _bluestein_transform(re: np.ndarray, im: np.ndarray, plan):
+    """The N-point DFT of the (T, N) values re + i im in natural order, in
+    natural order, as the Bluestein kernel computes it
+    (``csrc/stft_psd.cu::bluestein_transform``, ``plan`` =
+    ``core/stft.py::bluestein_plan``): a = x·w (the chirp rows) in slots
+    0..N-1 of M, zero past them; M's stages in frequency; each slot
+    conj(b̂·slot); the stages in time; X[k] = w_k·conj(slot k).
+
+    With ``plan.ranks == 2`` the M slots are the two blocks' halves of M/2
+    as the cluster indexes them: the plan's last stage is radix 2 at span
+    M/2, which in frequency leaves rank 0's slots as they are (its
+    partner slots hold zeros: a + 0 = a) and gives rank 1 W^k·a from rank
+    0's slot k, and in time gives rank 0 a + W^k·b from rank 1's slot k;
+    every other stage, and the product, runs on each half alone with the
+    rows of the whole plan."""
+    T, N = re.shape
+    M = plan.m
+    tw = plan.twiddles
+    cr, ci = tw[plan.chirp:plan.chirp + N, 0], tw[plan.chirp:plan.chirp + N, 1]
+    ar, ai = _cmul(cr, ci, re, im)
+    bhat = tw[plan.bhat:plan.bhat + M]
+
+    def product(sr, si, b):
+        pr, pi = _cmul(b[:, 0], b[:, 1], sr, si)
+        return pr, -pi
+
+    if plan.ranks == 1:
+        sr, si = np.zeros((T, M)), np.zeros((T, M))
+        sr[:, :N], si[:, :N] = ar, ai
+        _stages(sr, si, plan, M, dif=True)
+        sr, si = product(sr, si, bhat)
+        _stages(sr, si, plan, M)
+        o_r, o_i = sr[:, :N], si[:, :N]
+    else:
+        H = M // 2
+        p, L, row, _ = plan.stages[-1].tolist()
+        assert (p, L) == (2, H) and N <= H
+        wr, wi = tw[row:row + H, 0], tw[row:row + H, 1]
+        local = plan._replace(stages=plan.stages[:-1])
+        h0r, h0i = np.zeros((T, H)), np.zeros((T, H))
+        h0r[:, :N], h0i[:, :N] = ar, ai
+        h1r, h1i = _cmul(wr, wi, h0r, h0i)
+        halves = []
+        for r, (hr, hi) in enumerate(((h0r, h0i), (h1r, h1i))):
+            _stages(hr, hi, local, H, dif=True)
+            hr, hi = product(hr, hi, bhat[r * H:(r + 1) * H])
+            _stages(hr, hi, local, H)
+            halves.append((hr, hi))
+        (h0r, h0i), (h1r, h1i) = halves
+        tr, ti = _cmul(wr[:N], wi[:N], h1r[:, :N], h1i[:, :N])
+        o_r, o_i = h0r[:, :N] + tr, h0i[:, :N] + ti
+    return _cmul(cr, ci, o_r, -o_i)
+
+
+def psd_bluestein(frames: np.ndarray, window: np.ndarray, plan,
+                  wts: np.ndarray, detrend: str = "none",
+                  round_f32: bool = True, pack: bool = True) -> np.ndarray:
+    """(T, F) PSD by the Bluestein kernel's arithmetic
+    (``csrc/stft_psd.cu::stft_bluestein_psd_kernel``), in float64, with
+    ``plan`` = ``core/stft.py::bluestein_plan(nperseg)``:
+
+    - v = (frame - line) · window (:func:`detrended`);
+    - even K: z[m] = v[2m] + i v[2m + 1], the N = K/2-point transform
+      (:func:`_bluestein_transform`), then the split step and epilogue of
+      :func:`_split_psd` with the plan's split rows;
+    - odd K: the odd kernel's pairing and pair epilogue (:func:`_pair_psd`)
+      around the N = K-point transform.
+
+    What differs from the card: the detrend's sums and the guard's
+    energies are numpy's, not the kernel's block reductions, and numpy
+    rounds the products where the card may fuse them (FMA)."""
+    K = frames.shape[-1]
+    v = detrended(frames.astype(np.float64), detrend) * window
+    if K % 2:
+        return _pair_psd(v, lambda re, im: _bluestein_transform(re, im, plan),
+                         wts, round_f32, pack)
+    re, im = _bluestein_transform(v[:, 0::2], v[:, 1::2], plan)
+    return _split_psd(re, im, plan.twiddles[plan.split:], K, wts, round_f32)
 
 
 def fft_operands(cfg: SpecConfig, fs: float = FS):
@@ -478,6 +584,12 @@ def fft_operands(cfg: SpecConfig, fs: float = FS):
 def mixed_operands(cfg: SpecConfig, fs: float = FS):
     """The mixed-radix kernel's host operands: window, plan, weights."""
     return (_window_f64(cfg), fft_plan(cfg.nperseg),
+            onesided_weights(cfg, fs))
+
+
+def bluestein_operands(cfg: SpecConfig, fs: float = FS):
+    """The Bluestein kernel's host operands: window, plan, weights."""
+    return (_window_f64(cfg), bluestein_plan(cfg.nperseg),
             onesided_weights(cfg, fs))
 
 
@@ -546,6 +658,11 @@ MIXED_SWEEP = [
 ODD_SWEEP = [(f"scipy_default {k}", SpecConfig.scipy_default(k))
              for k in (1023, 4093, 8186, 8191)]
 
+# the Bluestein route: even on one block (1126, 8182), odd on one block
+# (563, 2049) and on a cluster of two (8185, 8189)
+BLUESTEIN_SWEEP = [(f"scipy_default {k}", SpecConfig.scipy_default(k))
+                   for k in (563, 1126, 2049, 8182, 8185, 8189)]
+
 LINEAR_SWEEP = [(name, dataclasses.replace(cfg, detrend="linear"))
                 for name, cfg in (
                     ("north_star 1024/256", SpecConfig.north_star(1024, 256)),
@@ -583,12 +700,12 @@ def sweep_table(seeds: int, only=None) -> None:
     print(f"\nconfig                 clip, detrend       fp32 chain: worst  "
           f"seed  above {CONTRACT_DB:g} dB  worst of seeds 0-19 | f64, A "
           f"f64: worst | fft route: worst | mixed route: worst | odd route: "
-          f"worst  (seeds 0-{seeds - 1})")
+          f"worst | bluestein route: worst  (seeds 0-{seeds - 1})")
     rows = ([(name, cfg, ("noise", "noise + 3"))
              for name, cfg in SWEEP + MIXED_SWEEP]
             + [(name, cfg, ("ramp",)) for name, cfg in LINEAR_SWEEP]
             + [(name, cfg, ("noise", "noise + 3", "pairs"))
-               for name, cfg in ODD_SWEEP])
+               for name, cfg in ODD_SWEEP + BLUESTEIN_SWEEP])
     if only:
         rows = [r for r in rows if any(o in r[0] for o in only)]
     for name, cfg, kinds in rows:
@@ -600,7 +717,9 @@ def sweep_table(seeds: int, only=None) -> None:
         models = {}
         if cfg.nperseg & (cfg.nperseg - 1) == 0:
             models["fft"] = (psd_fft, fft_operands(cfg))
-        if cfg.nperseg % 2:
+        if max(plan_radices(cfg.nperseg)) > MAX_MIXED_RADIX:
+            models["bluestein"] = (psd_bluestein, bluestein_operands(cfg))
+        elif cfg.nperseg % 2:
             models["odd"] = (psd_odd_fft, mixed_operands(cfg))
         elif not chain:
             models["mixed"] = (psd_mixed_fft, mixed_operands(cfg))
@@ -629,10 +748,10 @@ def sweep_table(seeds: int, only=None) -> None:
             else:
                 left = f"{'—':<49s}"
             cols = [f"{max(routes[r]):.2e}" if r in routes else "—"
-                    for r in ("fft", "mixed", "odd")]
+                    for r in ("fft", "mixed", "odd", "bluestein")]
             print(f"{name:22s} {kind + ', ' + cfg.detrend:19s} {left} | "
                   f"{max(f64):.2e}           | {cols[0]:<17s}| "
-                  f"{cols[1]:<19s}| {cols[2]}", flush=True)
+                  f"{cols[1]:<19s}| {cols[2]:<17s}| {cols[3]}", flush=True)
         dft_matrices.cache_clear()      # 533 MB a config at 8160
 
 

@@ -12,18 +12,18 @@ for scipy_default 1024, north_star 1024/256 and scipy_default 992 (the
 mixed-radix route), or scipy_default at each ``--nperseg`` given, under
 each config's own detrend or ``--detrend``, with CUDA events, median of 5
 after a warm-up. ``--paths`` times instead the STFT/PSD configs of
-``chip_smoke.py``'s paths 1-7 at their batches (1024 clips of 10 s at
+``chip_smoke.py``'s paths 1-9 at their batches (1024 clips of 10 s at
 north_star 1024/256, the export's config too; 256 clips of 60 s at
-scipy_default 8192, 8160, 8032, 8160 under linear detrend and 8191).
-``--route`` (gemm, fft, mixed or odd) forces that kernel through
-``stft_psd``'s module-private ``_route`` on the configs that allow it and
-skips the others; ``--route mixed`` also takes the power-of-two configs,
-whose plan is all radix-2 stages, and reports the largest difference
-from the radix-2 kernel's PSD relative to its max. ``--frames-alone``
-launches the odd kernel with every frame transformed alone (its packing
-off). Pointed at an older checkout it times that checkout's kernels, so
-one call on one card compares two versions: run it for the older, this,
-this and the older again.
+scipy_default 8192, 8160, 8032, 8160 under linear detrend, 8191, 8185
+and 8182). ``--route`` (gemm, fft, mixed, odd or bluestein) forces that
+kernel through ``stft_psd``'s module-private ``_route`` on the configs
+that allow it and skips the others; ``--route mixed`` also takes the
+power-of-two configs, whose plan is all radix-2 stages, and reports the
+largest difference from the radix-2 kernel's PSD relative to its max.
+``--frames-alone`` launches the odd kernel with every frame transformed
+alone (its packing off). Pointed at an older checkout it times that
+checkout's kernels, so one call on one card compares two versions: run it
+for the older, this, this and the older again.
 
 Needs one CUDA card. Prints one JSON line: the root, the card's name and
 power limit, and per config the median, every repeat, the launch counts
@@ -51,10 +51,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="the checkout to time")
-    ap.add_argument("--route", choices=("gemm", "fft", "mixed", "odd"),
+    ap.add_argument("--route",
+                    choices=("gemm", "fft", "mixed", "odd", "bluestein"),
                     help="force this kernel where the config allows it")
     ap.add_argument("--paths", action="store_true",
-                    help="time chip_smoke.py's paths 1-7 configs and batches")
+                    help="time chip_smoke.py's paths 1-9 configs and batches")
     ap.add_argument("--frames-alone", action="store_true",
                     help="the odd kernel without its packing")
     ap.add_argument("--nperseg", type=int, nargs="*",
@@ -115,7 +116,11 @@ def main(argv=None) -> None:
             ("path 6 scipy_default 8160 linear",
              dataclasses.replace(s8160, detrend="linear")),
             ("path 7 scipy_default 8191",
-             SpecConfig.scipy_default(8191, log_scale=True))]
+             SpecConfig.scipy_default(8191, log_scale=True)),
+            ("path 8 scipy_default 8185",
+             SpecConfig.scipy_default(8185, log_scale=True)),
+            ("path 9 scipy_default 8182",
+             SpecConfig.scipy_default(8182, log_scale=True))]
         shape = {name: (CLIPS, SECONDS) if name.startswith("path 1")
                  else (256, 60.0) for name, _ in configs}
     for name, cfg in configs:
