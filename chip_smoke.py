@@ -7,11 +7,14 @@ Needs one CUDA card, nvcc and triton; run it from the root of a checkout.
 It builds every kernel of the port's paths from the sources in the
 checkout and holds each kernel against its plain PyTorch version on the
 card: the STFT/PSD kernel's five routes (the FFT kernel at power-of-two
-nperseg 32-8192; the mixed-radix kernel at the other GUI values, every
-radix from 3 to 251, nperseg 96-8160, and with its Rader stage at 514 and
-8186; both under linear detrend on ramp clips too; the odd kernel at
-nperseg 33-8191 under every detrend, with and without a Rader stage, and
-on frames that its pairing must keep apart; the Bluestein kernel on one
+nperseg 32-8192, under every detrend, beside zero, NaN and 1e-6 frames,
+an overflow clip, log10_out, B T = 1 and T = 0, each held to 1 float32
+ulp, with its ptxas registers and spills printed; the mixed-radix
+kernel at the other GUI values, every radix from 3 to 251, nperseg
+96-8160, and with its Rader stage at 514 and 8186; both under linear
+detrend on ramp clips too; the odd kernel at nperseg 33-8191 under every
+detrend, with and without a Rader stage, and on frames that its pairing
+must keep apart; the Bluestein kernel on one
 block at 563-8182 and on a cluster of two at 7207-8189, the same way, and
 forced at 33, 1024, 8032 and 8191; the GEMM kernel forced beside them)
 and the display kernel in both output modes, with and without the float
@@ -95,6 +98,9 @@ ODD_CASES = (33, 45, 257, 514, 1021, 1023, 4093, 8186, 8191)
 # odd on one block (563, 2049 = 3 683, and 7201 at the block's budget, M =
 # 14406) and on a cluster of two (7207, M = 14580; 8185, 8189, M = 16384)
 BLUESTEIN_CASES = (563, 1126, 2049, 7201, 7207, 8182, 8185, 8189)
+# the radix-2 route's kernel cases: every power of two it takes, each
+# with its own geometry (8 values a thread, 128 to 1 frames a block)
+R2_CASES = tuple(2 ** b for b in range(5, 14))
 EXPORT_CLIPS = 1024
 EXPORT_BATCH = 64
 REPS = 5
@@ -342,7 +348,30 @@ def build_kernels():
         if ("registers" in line or "spill" in line or "error" in line
                 or "Compiling entry" in line):
             print("  " + line.strip())
+    print("radix-2 kernel (stft_fft_psd_kernel<LOG2M, LR>), ptxas: "
+          + "; ".join(radix2_ptxas(info["log"])))
     build.load_library("stft_psd")
+
+
+def radix2_ptxas(log):
+    """The registers and spills of each radix-2 instantiation in nvcc's
+    -Xptxas -v log, as "LOG2M m, v values: r registers, s bytes
+    spilled"."""
+    import re
+    rows, m = [], None
+    for line in log.splitlines():
+        entry = re.search(r"stft_fft_psd_kernelILi(\d+)ELi(\d+)E", line)
+        if "Compiling entry" in line:
+            m = (f"{entry.group(1)}, {2 ** int(entry.group(2))} values"
+                 if entry else None)
+            spill = "?"
+        elif m is not None and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif m is not None and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            rows.append(f"LOG2M {m}: {regs} registers, {spill} bytes spilled")
+            m = None
+    return rows or ["no radix-2 entry in the build log"]
 
 
 def kernel_cases(dev):
@@ -624,8 +653,12 @@ def odd_kernel_cases(dev, cases=ODD_CASES, edges=(1023, 8191),
     version: every detrend on clips with an odd T (a lone last frame),
     the pairing's guard on an all-zero, a NaN and a 1e-6 frame beside
     loud ones, overflow, log10_out and T = 0 at ``edges``, and ``forced``
-    (nperseg, route) pairs. Every bin finite in both is held to 1 float32
-    ulp of the plain version, and NaN and inf bins to the same places."""
+    (nperseg, route) pairs, and one clip of one frame (B T = 1). Every bin
+    finite in both is held to 1 float32 ulp of the plain version, and NaN
+    and inf bins to the same places. With ``cases=R2_CASES`` the radix-2
+    route: 27 and 14 rows are no multiple of its frames a block (128 to 8
+    at nperseg 32-512, where the NaN frame shares a block with finite
+    ones; one frame a block from 1024)."""
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
@@ -717,13 +750,14 @@ def odd_kernel_cases(dev, cases=ODD_CASES, edges=(1023, 8191),
               f"{lin_rel:.2e}; float32 ulp distance "
               f"{ulp_distance(got, want)}")
         before = read_counts()["stft_psd"]
-        psd0, lo0, hi0 = stft_cuda.stft_psd(on_card(rs.randn(2, 500)), FS,
-                                            cfg, with_stats=True)
+        psd0, lo0, hi0 = stft_cuda.stft_psd(
+            on_card(rs.randn(2, min(500, k - 1))), FS, cfg, with_stats=True)
         require(tuple(psd0.shape) == (2, 0, cfg.n_freqs)
                 and read_counts()["stft_psd"] == before
                 and float(lo0.abs().sum() + hi0.abs().sum()) == 0.0,
                 "T = 0 gives empty PSD and zero extrema without a launch")
         print(f"nperseg {k}, T = 0: empty PSD, zero extrema, no launch")
+        compare(on_card(rs.randn(1, k) + 3.0), cfg, f"nperseg {k}, B T = 1")
     over = {k: v for k, v in worst.items() if v > 1}
     print(f"{title}: largest float32 ulp distance {max(worst.values())} over "
           f"{len(worst)} cases")
@@ -1274,6 +1308,8 @@ def main(_phases=None):
     build_kernels()
     if "kernels" in phases:
         kernel_cases(dev)
+        odd_kernel_cases(dev, R2_CASES, edges=R2_CASES,
+                         title="the radix-2 route", seed=9, forced=())
         odd_kernel_cases(dev)
         odd_kernel_cases(
             dev, BLUESTEIN_CASES, edges=(2049, 8182, 8185),

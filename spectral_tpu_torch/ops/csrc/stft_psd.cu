@@ -10,7 +10,8 @@
 //   any detrend, the real DFT as a GEMM against (K, F) matrices;
 // - stft_fft_psd_kernel (stft_fft_psd_launch), the FFT route after it:
 //   power-of-two nperseg 32-8192, any detrend, a radix-2 FFT of nperseg/2
-//   points in shared memory, one frame per block;
+//   points, three or four stages at a time in registers, a frame on 2-256
+//   threads;
 // - stft_mixed_fft_psd_kernel (stft_mixed_fft_psd_launch), the mixed-radix
 //   route: the other even nperseg 32-8192 whose nperseg/2 has no odd prime
 //   factor past 255 (every other GUI value) or is a prime whose p - 1 has
@@ -243,26 +244,19 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
 // ---------------------------------------------------------------------------
 // The FFT route: power-of-two nperseg K = 32-8192, any detrend.
 //
-// One block per frame (row r = b*T + t, read in place by pointer), the
-// real frame packed into M = K/2 complex values:
-//
-//   1. the frame's detrend line (mean, slope) in float64 by one block
-//      reduction (frame_line): (0, 0) under detrend none, the mean under
-//      constant, the least-squares line under linear;
-//   2. v[i] = ((double)frame[i] - mean - slope (i - c)) * win[i], c =
-//      (K - 1)/2, the detrend, then the window (scipy's order); z[m] =
-//      v[2m] + i v[2m + 1], stored at bitrev(m);
-//   3. an M-point radix-2 decimation-in-time FFT in place in shared
-//      memory: log2(M) stages, stage h (h = 1, 2, ..., M/2) combining
-//      z[i0] and z[i0 + h] with the twiddle W_2h^k = tw[h - 1 + k],
-//      k = i0 mod h;
-//   4. the split step and the epilogue of the GEMM route on bins f < F
-//      (split_psd_epilogue, shared with the mixed-radix kernel): with
-//      g = min(f, K - f), E = (Z[g] + conj Z[M - g]) / 2 and
-//      O = -i (Z[g] - conj Z[M - g]) / 2 (indices mod M), X[f] = E +
-//      W_K^g O (W_K^g = tw[M - 1 + g], -1 at g = M); then the power,
-//      log10_out and the NaN-propagating (min, max) partials, one per row;
-//      bins in natural order, so the stores of one frame coalesce.
+// The real frame (row r = b*T + t, read in place by pointer) is packed
+// into M = K/2 complex values, z[j] = v[2j] + i v[2j + 1], with v[i] =
+// ((double)frame[i] - mean - slope (i - c)) * win[i], c = (K - 1)/2, the
+// detrend line (mean, slope) being (0, 0) under detrend none, the mean
+// under constant and the least-squares line under linear (frame_line's
+// arithmetic); an M-point radix-2 decimation-in-time FFT of the buffer
+// b[p] = z[bitrev(p)], whose stage h (h = 1, 2, ..., M/2) combines b[i0]
+// and b[i0 + h] with the twiddle W_2h^k = tw[h - 1 + k], k = i0 mod h;
+// then the split step and the epilogue on bins f < F: with g = min(f, K -
+// f), E = (Z[g] + conj Z[M - g]) / 2 and O = -i (Z[g] - conj Z[M - g]) /
+// 2 (indices mod M), X[f] = E + W_K^g O (W_K^g = tw[M - 1 + g], -1 at g =
+// M); the power, log10_out and the NaN-propagating (min, max) partials,
+// one per row; bins in natural order, so a frame's stores coalesce.
 //
 // Everything between the float32 load and the float32 store is float64;
 // the window, twiddles and weights are the host's float64 numpy values,
@@ -273,35 +267,77 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
 // float64 roundings of the clip's largest bin, not bitwise.
 // tools/torch_precision.py::psd_fft is this arithmetic in numpy.
 //
-// What bounds it on this card: 2.5 K log2 K operations per frame against
-// K*4 bytes read per frame (less with overlap) and F*4 written, so the
-// function is bound by bytes; this design is bound by shared memory
-// instead: each stage reads and writes the M-point buffer (16 K bytes a
-// stage, 16 bytes a complex float64). Packing two real samples into each
-// complex value halves the buffer, the butterflies and the traffic of a
-// complex K-point transform with a zero imaginary part. The buffer is
-// K * 8 bytes, 64 KB at K = 8192, past the 48 KB default, so the
-// launcher raises the kernel's dynamic shared memory limit first; three
-// such blocks fit an SM. What the design does about the shared-memory
-// traffic: neighbouring threads take neighbouring butterflies, so from
-// stage 8 on a warp reads and writes consecutive complex values; the
-// buffer's index is swizzled (swz below) so that the bit-reversed store
-// of step 2, whose eight neighbouring addresses would otherwise share one
-// bank group, is free of conflicts too; frame and window loads are in
-// natural order and coalesce; the stage-ordered twiddle table gives a warp
-// consecutive rows.
+// What bounds it on this card. The function reads K*4 bytes a frame
+// (less with overlap) and writes F*4, and does 2.5 K log2 K operations on
+// them, so it is bound by bytes: 0.586 ms on the display spine (1024 clips
+// of 10 s at nperseg 1024, hop 256: 636,928 frames). A transform kept in
+// shared memory is bound instead by the SM's L1/shared-memory datapath
+// (128 bytes a clock): a pass over the M-point buffer for every stage
+// reads and writes 32 M bytes, and a twiddle load for every butterfly
+// adds 8 M, about 220 KB a frame at K = 1024 with the bit-reversed store
+// and the epilogue, 4-5 ms of datapath at the display spine. The float64
+// arithmetic (8 DFMA/DMUL/DADD a butterfly, 64 a clock on an SM) is about
+// 1.3 ms there. With those trips cut, what is left waits on latency: the
+// more warps an SM holds, the faster (PERF.md).
+//
+// What the design (stft_fft_psd_kernel<LOG2M, LR>, M = 2^LOG2M) does about
+// it:
+//
+// - Stages in registers. A frame is held by P = M / 2^LR threads, 2^LR
+//   values each. LR consecutive stages combine only slots that differ in
+//   LR index bits, so a thread that holds the 2^LR slots of one setting of
+//   the other bits runs those stages on them in registers (a pass). log2 M
+//   stages take ceil(log2 M / LR) passes with one exchange through shared
+//   memory between two passes: at K = 1024, three passes and two exchanges
+//   against nine trips. The launcher's R2_LR picks LR by size, the faster
+//   on the card: 8 values (three stages a pass, 64 registers, so an SM
+//   holds twice the warps) up to K = 1024, 16 values (four stages a pass,
+//   one exchange fewer, 128 registers) from 2048.
+// - Pass q runs stages LR q to min(LR q + LR, log2 M) - 1 on register bits
+//   s_q to s_q + LR - 1, s_q = min(LR q, log2 M - LR) (the last pass may
+//   hold bits whose stages are done). In pass 0 thread u of a frame holds
+//   slots 2^LR bitrev(u) + i (bitrev over log2 M - LR bits), which is
+//   z[bitrev_LR(i) P + u]: for each register i the frame's threads load
+//   consecutive float2 samples straight from device memory (two floats
+//   where the frame is not 8-byte aligned) and consecutive double2 window
+//   values. In pass q > 0 thread u holds the slots whose bits below s_q
+//   are u's low s_q bits, bits s_q to s_q + LR - 1 the register, and the
+//   bits above u's other bits.
+// - Twiddles: a stage's butterflies in one thread share a table row where
+//   their register bits below the stage's bit agree, so a pass loads 2^LR
+//   - 1 rows a thread, not one a butterfly; in pass 0 all threads load the
+//   same rows.
+// - The exchanges: value p of frame fl lives at r2_slot(fl, p) = fl M + (p
+//   XOR phi), phi = ((fl P) mod 8) XOR (p's bits from max(LR, log2 M - 3)
+//   up, masked to min(P, 8) - 1). A 16-byte value fills a bank group, and
+//   in every write and read of every exchange each eight neighbouring
+//   lanes hit eight groups (tests/test_torch_fft_registers.py checks them
+//   all). A thread writes a pass's results to the slots it read that pass,
+//   so one barrier orders an exchange.
+// - Frames of at most a warp (K <= 512) share a block of R2_BLOCK threads,
+//   R2_BLOCK / P consecutive rows (overlapping frames of a clip, whose
+//   loads share L1 lines; a ragged last block is masked), and sync with
+//   __syncwarp(): no block barrier at all, the detrend sums and the row's
+//   (min, max) by warp shuffles over the frame's lanes. A larger frame (K
+//   = 1024-8192, 2-8 warps) takes a block of its own, syncs with
+//   __syncthreads() and reduces through shared memory (block_sum,
+//   row_extrema); that block's frame and row are compile-time and
+//   blockIdx.x (ALONE: computed at run time instead, the kernel took 1.24x
+//   as long at nperseg 1024 and 1.6-1.9x at 2048-8192 on the card). The
+//   last pass writes the natural-order Z once for the epilogue
+//   (r2_epilogue).
+//   Registers, not the buffers, set the blocks an SM holds at every size.
+// - Every butterfly computes tr = w.x b.x - w.y b.y, ti = w.x b.y + w.y b.x,
+//   a + t and a - t in one function (r2_butterfly), and every bin the
+//   split step's expressions of split_psd_epilogue, on the operands and
+//   table rows of psd_fft, so under detrend none the PSD is the earlier
+//   shared-memory design's bit for bit while nvcc contracts the products
+//   alike. The detrend sums run in another order (a thread's samples, then
+//   shuffles), so under constant and linear detrend the two designs agree
+//   to float64 rounding.
 
 constexpr int FFT_MAX_THREADS = 512;
 constexpr int FFT_MAX_WARPS = FFT_MAX_THREADS / 32;
-
-// The shared-memory slot of buffer index p < 2^log2m: its low three bits
-// XORed with its top three (a bijection for log2m >= 4). A 16-byte value's
-// bank group is its slot mod 8, so eight indices that differ only in
-// their top bits (bit-reversed neighbours) land in eight groups, and
-// eight consecutive ones stay a permutation of one aligned group of eight.
-__device__ __forceinline__ int swz(int p, int log2m) {
-  return p ^ ((p >> (log2m - 3)) & 7);
-}
 
 // the launchers' detrend codes
 constexpr int DETREND_NONE = 0;
@@ -354,11 +390,6 @@ __device__ __forceinline__ double2 frame_line(const float* frame, int K,
 }
 
 // Reads of transform output i from the FFT kernels' buffers
-struct SwizzledRead {            // the radix-2 kernel's (M = 2^log2m)
-  const double2* buf;
-  int log2m;
-  __device__ double2 operator()(int i) const { return buf[swz(i, log2m)]; }
-};
 struct PlainRead {               // the mixed-radix kernels', no Rader stage
   const double2* buf;
   __device__ double2 operator()(int i) const { return buf[i]; }
@@ -453,62 +484,301 @@ __device__ __forceinline__ void split_psd_epilogue(
     row_extrema(lo, hi, red_lo, red_hi, part_min, part_max, r);
 }
 
-__global__ void __launch_bounds__(FFT_MAX_THREADS)
+constexpr int R2_BLOCK = 256;        // threads of a block of frames of a
+                                     // warp or less
+constexpr int R2_MAX_THREADS = 512;  // the largest frame's
+constexpr int R2_WARPS = R2_MAX_THREADS / 32;
+constexpr int R2_STATIC_SMEM = R2_WARPS * (16 + 4 + 4);  // the reductions'
+
+// The radix-2 kernel's geometry at M = 2^LOG2M points (K = 2M), 2^LR
+// values a thread: LR stages a pass, 8 values at 64 registers a thread or
+// 16 at 128
+template <int LOG2M, int LR>
+struct R2Geometry {
+  static_assert(LOG2M >= 4 && LOG2M <= 12, "nperseg 32-8192");
+  static_assert((LR == 3 || LR == 4) && LOG2M > LR, "two threads a frame");
+  static constexpr int M = 1 << LOG2M;
+  static constexpr int P = M >> LR;                          // threads a frame
+  static constexpr int FRAMES = P <= 32 ? R2_BLOCK / P : 1;  // frames a block
+  static constexpr int THREADS = P * FRAMES;
+  static constexpr int PASSES = (LOG2M + LR - 1) / LR;
+  static constexpr int SMEM = M * FRAMES * 16;               // the buffers
+  static constexpr int VALUES = 1 << LR;
+  static constexpr int MIN_BLOCKS = LR == 3 ? 2 : 1;  // of R2_MAX_THREADS
+};
+
+// the low `bits` bits of i reversed
+__host__ __device__ constexpr int brev_low(int i, int bits) {
+  return bits == 0 ? 0 : ((i & 1) << (bits - 1)) | brev_low(i >> 1, bits - 1);
+}
+
+// the register base bit s_q of pass Q
+template <int LOG2M, int LR, int Q>
+__host__ __device__ constexpr int r2_base() {
+  return LR * Q < LOG2M - LR ? LR * Q : LOG2M - LR;
+}
+
+// The transform slot p that thread u of a frame holds in register i
+// during pass Q
+template <int LOG2M, int LR, int Q>
+__device__ __forceinline__ int r2_index(int u, int i) {
+  if constexpr (Q == 0) {
+    const int t = static_cast<int>(__brev(static_cast<unsigned>(u)) >>
+                                   (32 - (LOG2M - LR)));
+    return (t << LR) | i;
+  } else {
+    constexpr int SB = r2_base<LOG2M, LR, Q>();
+    return (u & ((1 << SB) - 1)) | (i << SB) | ((u >> SB) << (SB + LR));
+  }
+}
+
+// Where slot p of frame fl lives in the block's buffer: the frame's M
+// values, p's low three bits XORed with bits of fl and of p's upper part
+// (a bijection on each frame's values), so that each eight neighbouring
+// lanes of every exchange hit eight bank groups
+template <int LOG2M, int LR>
+__device__ __forceinline__ int r2_slot(int fl, int p) {
+  using G = R2Geometry<LOG2M, LR>;
+  constexpr int SHIFT = LOG2M - 3 > LR ? LOG2M - 3 : LR;
+  constexpr int MASK = (G::P < 8 ? G::P : 8) - 1;
+  return fl * G::M + (p ^ (((fl * G::P) & 7) ^ ((p >> SHIFT) & MASK)));
+}
+
+// The radix-2 butterfly of psd_fft: (a, b) <- (a + w b, a - w b)
+__device__ __forceinline__ void r2_butterfly(double2& a, double2& b,
+                                             double2 w) {
+  const double tr = w.x * b.x - w.y * b.y;
+  const double ti = w.x * b.y + w.y * b.x;
+  const double2 a0 = a;
+  a = make_double2(a0.x + tr, a0.y + ti);
+  b = make_double2(a0.x - tr, a0.y - ti);
+}
+
+// One stage on register bit J of V values: for each setting t of the
+// register bits below J, one table row (row[t << SB]) for the butterflies
+// that share it
+template <int V, int J, int SB>
+__device__ __forceinline__ void r2_stage(double2 (&v)[V],
+                                         const double2* __restrict__ row) {
+#pragma unroll
+  for (int t = 0; t < (1 << J); ++t) {
+    const double2 w = row[t << SB];
+#pragma unroll
+    for (int hi = 0; hi < (V >> (J + 1)); ++hi) {
+      const int i = t | (hi << (J + 1));
+      r2_butterfly(v[i], v[i | (1 << J)], w);
+    }
+  }
+}
+
+// Pass Q's stages, LR Q up to min(LR Q + LR, LOG2M) - 1, in registers:
+// stage s takes the table rows 2^s - 1 + k, k = i0 mod 2^s, whose bits
+// below s_q are u's (none in pass 0)
+template <int LOG2M, int LR, int Q>
+__device__ __forceinline__ void r2_pass(double2 (&v)[1 << LR],
+                                        const double2* __restrict__ tw,
+                                        int u) {
+  constexpr int V = 1 << LR;
+  constexpr int SB = r2_base<LOG2M, LR, Q>();
+  constexpr int S0 = LR * Q;
+  constexpr int S1 = S0 + LR < LOG2M ? S0 + LR : LOG2M;
+  const int low = u & ((1 << SB) - 1);
+  if constexpr (S0 < S1)
+    r2_stage<V, S0 - SB, SB>(v, tw + ((1 << S0) - 1) + low);
+  if constexpr (S0 + 1 < S1)
+    r2_stage<V, S0 + 1 - SB, SB>(v, tw + ((1 << (S0 + 1)) - 1) + low);
+  if constexpr (S0 + 2 < S1)
+    r2_stage<V, S0 + 2 - SB, SB>(v, tw + ((1 << (S0 + 2)) - 1) + low);
+  if constexpr (S0 + 3 < S1)
+    r2_stage<V, S0 + 3 - SB, SB>(v, tw + ((1 << (S0 + 3)) - 1) + low);
+}
+
+template <int LOG2M, int LR, int Q>
+__device__ __forceinline__ void r2_store(const double2 (&v)[1 << LR],
+                                         double2* buf, int fl, int u) {
+#pragma unroll
+  for (int i = 0; i < (1 << LR); ++i)
+    buf[r2_slot<LOG2M, LR>(fl, r2_index<LOG2M, LR, Q>(u, i))] = v[i];
+}
+
+template <int LOG2M, int LR, int Q>
+__device__ __forceinline__ void r2_load(double2 (&v)[1 << LR],
+                                        const double2* buf, int fl, int u) {
+#pragma unroll
+  for (int i = 0; i < (1 << LR); ++i)
+    v[i] = buf[r2_slot<LOG2M, LR>(fl, r2_index<LOG2M, LR, Q>(u, i))];
+}
+
+// the frame's barrier: a warp's, or the block's when the frame is the block
+template <int P>
+__device__ __forceinline__ void r2_sync() {
+  if constexpr (P <= 32) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+// after pass Q - 1, the exchange into pass Q and its stages
+template <int LOG2M, int LR, int Q>
+__device__ __forceinline__ void r2_exchange_pass(double2 (&v)[1 << LR],
+                                                 double2* buf,
+                                                 const double2* tw, int fl,
+                                                 int u) {
+  r2_store<LOG2M, LR, Q - 1>(v, buf, fl, u);
+  r2_sync<R2Geometry<LOG2M, LR>::P>();
+  r2_load<LOG2M, LR, Q>(v, buf, fl, u);
+  r2_pass<LOG2M, LR, Q>(v, tw, u);
+}
+
+// the sums of s.x and s.y over the frame's P threads, in every thread
+template <int P>
+__device__ __forceinline__ double2 r2_frame_sum(double2 s, double2* scratch) {
+  if constexpr (P > 32) {
+    return block_sum(s, scratch);                // the frame is the block
+  } else {
+#pragma unroll
+    for (int off = P / 2; off > 0; off >>= 1) {
+      s.x += __shfl_xor_sync(0xffffffffu, s.x, off);
+      s.y += __shfl_xor_sync(0xffffffffu, s.y, off);
+    }
+    return s;
+  }
+}
+
+// The epilogue of row r from its natural-order Z in the buffer: bins u, u +
+// P, ... as split_psd_epilogue computes them; the (min, max) partial by
+// shuffles over the frame's lanes, or by row_extrema when the frame is
+// the block. Rows past the last (valid false) store nothing.
+template <int LOG2M, int LR>
+__device__ __forceinline__ void r2_epilogue(
+    const double2* buf, const double2* __restrict__ split,
+    const double* __restrict__ wts, float* __restrict__ out,
+    float* __restrict__ part_min, float* __restrict__ part_max,
+    float* red_lo, float* red_hi, int fl, int u, int r, bool valid, int F,
+    int log10_out, int with_stats) {
+  using G = R2Geometry<LOG2M, LR>;
+  constexpr int M = G::M;
+  constexpr int K = 2 * M;
+  constexpr int P = G::P;
+  float lo = INFINITY;
+  float hi = -INFINITY;
+  for (int f = u; f < F; f += P) {
+    const int g = f <= M ? f : K - f;
+    const double2 a = buf[r2_slot<LOG2M, LR>(fl, g == M ? 0 : g)];
+    const double2 b = buf[r2_slot<LOG2M, LR>(fl, g == 0 ? 0 : M - g)];
+    const double2 w = g < M ? split[g] : make_double2(-1.0, 0.0);
+    const double er = 0.5 * (a.x + b.x);
+    const double ei = 0.5 * (a.y - b.y);
+    const double o_r = 0.5 * (a.y + b.y);
+    const double o_i = 0.5 * (b.x - a.x);
+    const double xr = er + (w.x * o_r - w.y * o_i);
+    const double xi = ei + (w.x * o_i + w.y * o_r);
+    if (valid)
+      store_bin(power(xr, xi, wts[f]), out, r, F, f, log10_out, lo, hi);
+  }
+  if (!with_stats) return;
+  if constexpr (P > 32) {
+    row_extrema(lo, hi, red_lo, red_hi, part_min, part_max, r);
+  } else {
+#pragma unroll
+    for (int off = P / 2; off > 0; off >>= 1) {
+      lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+      hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+    if (u == 0 && valid) {
+      part_min[r] = lo;
+      part_max[r] = hi;
+    }
+  }
+}
+
+template <int LOG2M, int LR>
+__global__ void __launch_bounds__(R2_MAX_THREADS,
+                                  R2Geometry<LOG2M, LR>::MIN_BLOCKS)
 stft_fft_psd_kernel(const float* __restrict__ x,
                     const double* __restrict__ win,
                     const double2* __restrict__ tw,
                     const double* __restrict__ wts, float* __restrict__ out,
                     float* __restrict__ part_min, float* __restrict__ part_max,
-                    long long n, int T, int F, int log2k, int hop,
-                    int detrend, int log10_out, int with_stats) {
-  extern __shared__ double2 buf[];  // K/2 complex values
-  __shared__ double2 red_sum[FFT_MAX_WARPS];
-  __shared__ float red_lo[FFT_MAX_WARPS];
-  __shared__ float red_hi[FFT_MAX_WARPS];
+                    long long n, int R, int T, int F, int hop, int detrend,
+                    int log10_out, int with_stats) {
+  using G = R2Geometry<LOG2M, LR>;
+  constexpr int V = G::VALUES;
+  constexpr int K = 2 * G::M;
+  constexpr int P = G::P;
+  extern __shared__ double2 buf[];  // G::FRAMES frames of M values
+  __shared__ double2 red_sum[R2_WARPS];
+  __shared__ float red_lo[R2_WARPS];
+  __shared__ float red_hi[R2_WARPS];
 
-  const int K = 1 << log2k;
-  const int log2m = log2k - 1;
-  const int M = K >> 1;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int r = blockIdx.x;
-  const float* frame = x + (long long)(r / T) * n + (long long)(r % T) * hop;
+  // a block of one frame has no ragged edge: it is row blockIdx.x
+  constexpr bool ALONE = G::FRAMES == 1;
+  const int fl = ALONE ? 0 : static_cast<int>(threadIdx.x) / P;
+  const int u = ALONE ? static_cast<int>(threadIdx.x)
+                      : static_cast<int>(threadIdx.x) % P;
+  const int r = blockIdx.x * G::FRAMES + fl;
+  const bool valid = ALONE || r < R;
+  const float* frame =
+      x + (valid ? (long long)(r / T) * n + (long long)(r % T) * hop : 0);
 
-  {
-    const double2 line = frame_line(frame, K, detrend, red_sum);
-    const double c = 0.5 * (K - 1);
-    // even samples in .x, odd in .y of slot bitrev(i / 2)
-    double* bufd = reinterpret_cast<double*>(buf);
-    for (int i = tid; i < K; i += nt) {
-      const int p = static_cast<int>(
-          __brev(static_cast<unsigned>(i >> 1)) >> (32 - log2m));
-      bufd[2 * swz(p, log2m) + (i & 1)] =
-          (static_cast<double>(frame[i]) - line.x - line.y * (i - c)) *
-          win[i];
+  // pass 0's values straight from the frame: register i holds z[j], j =
+  // bitrev(i) P + u (over LR bits), samples 2j and 2j + 1
+  double2 v[V];
+  const bool pairs = (reinterpret_cast<size_t>(frame) & 7) == 0;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int j = brev_low(i, LR) * P + u;
+    v[i] = make_double2(0.0, 0.0);
+    if (valid) {
+      if (pairs) {
+        const float2 s = reinterpret_cast<const float2*>(frame)[j];
+        v[i] = make_double2(s.x, s.y);
+      } else {
+        v[i] = make_double2(frame[2 * j], frame[2 * j + 1]);
+      }
     }
   }
-  __syncthreads();
-
-  for (int h = 1; h < M; h <<= 1) {
-    for (int j = tid; j < (M >> 1); j += nt) {
-      const int k = j & (h - 1);
-      const int i0 = ((j - k) << 1) + k;
-      const int s0 = swz(i0, log2m);
-      const int s1 = swz(i0 + h, log2m);
-      const double2 w = tw[h - 1 + k];
-      const double2 a = buf[s0];
-      const double2 b = buf[s1];
-      const double tr = w.x * b.x - w.y * b.y;
-      const double ti = w.x * b.y + w.y * b.x;
-      buf[s0] = make_double2(a.x + tr, a.y + ti);
-      buf[s1] = make_double2(a.x - tr, a.y - ti);
+  const double c = 0.5 * (K - 1);
+  double2 line = make_double2(0.0, 0.0);
+  if (detrend != DETREND_NONE) {
+    double2 s = make_double2(0.0, 0.0);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int i0 = 2 * (brev_low(i, LR) * P + u);
+      s.x += v[i].x;
+      s.x += v[i].y;
+      if (detrend == DETREND_LINEAR) {
+        s.y += (i0 - c) * v[i].x;
+        s.y += (i0 + 1 - c) * v[i].y;
+      }
     }
-    __syncthreads();
+    s = r2_frame_sum<P>(s, red_sum);
+    const double d = K * (static_cast<double>(K) * K - 1.0) / 12.0;
+    line = make_double2(s.x / K, detrend == DETREND_LINEAR ? s.y / d : 0.0);
+  }
+  const double2* win2 = reinterpret_cast<const double2*>(win);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int i0 = 2 * (brev_low(i, LR) * P + u);
+    const double2 w = win2[i0 >> 1];
+    v[i].x = (v[i].x - line.x - line.y * (i0 - c)) * w.x;
+    v[i].y = (v[i].y - line.x - line.y * (i0 + 1 - c)) * w.y;
   }
 
-  split_psd_epilogue(SwizzledRead{buf, log2m}, tw + (M - 1), wts, out,
-                     part_min, part_max, red_lo, red_hi, r, F, K, log10_out,
-                     with_stats);
+  r2_pass<LOG2M, LR, 0>(v, tw, u);
+  if constexpr (G::PASSES > 1)
+    r2_exchange_pass<LOG2M, LR, 1>(v, buf, tw, fl, u);
+  if constexpr (G::PASSES > 2)
+    r2_exchange_pass<LOG2M, LR, 2>(v, buf, tw, fl, u);
+  if constexpr (G::PASSES > 3)
+    r2_exchange_pass<LOG2M, LR, 3>(v, buf, tw, fl, u);
+  // the natural-order Z, at the slots this thread read
+  r2_store<LOG2M, LR, G::PASSES - 1>(v, buf, fl, u);
+  r2_sync<P>();
+  r2_epilogue<LOG2M, LR>(buf, tw + (G::M - 1), wts, out, part_min,
+                         part_max, red_lo, red_hi, fl, u, r, valid, F,
+                         log10_out, with_stats);
 }
 
 // ---------------------------------------------------------------------------
@@ -1251,8 +1521,8 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
 
 constexpr int FFT_MAX_DEVICES = 64;
 // the dynamic shared memory limit already set for the FFT kernels, per
-// device
-size_t fft_smem_set[FFT_MAX_DEVICES] = {};
+// device (the radix-2 kernel's per LOG2M)
+size_t r2_smem_set[13][FFT_MAX_DEVICES] = {};
 // (without and with a Rader stage for the mixed-radix kernels)
 size_t mixed_smem_set[2][FFT_MAX_DEVICES] = {};
 size_t odd_smem_set[2][FFT_MAX_DEVICES] = {};
@@ -1317,6 +1587,37 @@ bool load_plan(const int* stages, int n_stages, int split, int rader, int N,
   return span == len;
 }
 
+// log2 of the values a thread of the radix-2 kernel holds at M = 2^LOG2M:
+// 8 (three stages a pass, 64 registers, twice the warps) up to nperseg
+// 1024, 16 (four stages a pass) from 2048, the faster on the card at each
+// size (tools/torch_r2_variants.py; tests/test_torch_fft_registers.py
+// pins it)
+constexpr int R2_LR[13] = {0, 0, 0, 0, 3, 3, 3, 3, 3, 3, 4, 4, 4};
+
+// The radix-2 kernel at M = 2^LOG2M (R2Geometry): R rows in blocks of
+// FRAMES rows, the last block masked
+template <int LOG2M>
+int r2_launch(const float* x, const double* win, const double* tw,
+              const double* wts, float* out, float* part_min,
+              float* part_max, int R, long long n, int T, int F, int hop,
+              int detrend, int log10_out, int with_stats, cudaStream_t s) {
+  constexpr int LR = R2_LR[LOG2M];
+  using G = R2Geometry<LOG2M, LR>;
+  static_assert(G::SMEM + R2_STATIC_SMEM <= BLOCK_SMEM,
+                "the radix-2 kernel's buffers fit a block");
+  static_assert(G::THREADS <= R2_MAX_THREADS && G::THREADS % 32 == 0,
+                "whole warps, at most R2_MAX_THREADS threads");
+  const int err = raise_smem(stft_fft_psd_kernel<LOG2M, LR>, G::SMEM,
+                             r2_smem_set[LOG2M]);
+  if (err != 0) return err;
+  const unsigned blocks =
+      static_cast<unsigned>((R + G::FRAMES - 1) / G::FRAMES);
+  stft_fft_psd_kernel<LOG2M, LR><<<blocks, G::THREADS, G::SMEM, s>>>(
+      x, win, reinterpret_cast<const double2*>(tw), wts, out, part_min,
+      part_max, n, R, T, F, hop, detrend, log10_out, with_stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1364,16 +1665,38 @@ int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
   if (K < 32 || K > 8192 || (1 << log2k) != K || F < 1 || F > K ||
       !detrend_ok(detrend))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(K / 2) * sizeof(double2);
-  const int err = raise_smem(stft_fft_psd_kernel, smem, fft_smem_set);
-  if (err != 0) return err;
-  // one butterfly a thread each stage up to K = 2048
-  const unsigned blocks = static_cast<unsigned>(B) * static_cast<unsigned>(T);
-  stft_fft_psd_kernel<<<blocks, fft_threads(K), smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      x, win, reinterpret_cast<const double2*>(tw), wts, out, part_min,
-      part_max, n, T, F, log2k, hop, detrend, log10_out, with_stats);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = B * T;
+  switch (log2k - 1) {
+    case 4:
+      return r2_launch<4>(x, win, tw, wts, out, part_min, part_max, R, n, T,
+                          F, hop, detrend, log10_out, with_stats, s);
+    case 5:
+      return r2_launch<5>(x, win, tw, wts, out, part_min, part_max, R, n, T,
+                          F, hop, detrend, log10_out, with_stats, s);
+    case 6:
+      return r2_launch<6>(x, win, tw, wts, out, part_min, part_max, R, n, T,
+                          F, hop, detrend, log10_out, with_stats, s);
+    case 7:
+      return r2_launch<7>(x, win, tw, wts, out, part_min, part_max, R, n, T,
+                          F, hop, detrend, log10_out, with_stats, s);
+    case 8:
+      return r2_launch<8>(x, win, tw, wts, out, part_min, part_max, R, n, T,
+                          F, hop, detrend, log10_out, with_stats, s);
+    case 9:
+      return r2_launch<9>(x, win, tw, wts, out, part_min, part_max, R, n, T,
+                          F, hop, detrend, log10_out, with_stats, s);
+    case 10:
+      return r2_launch<10>(x, win, tw, wts, out, part_min, part_max, R, n,
+                           T, F, hop, detrend, log10_out, with_stats, s);
+    case 11:
+      return r2_launch<11>(x, win, tw, wts, out, part_min, part_max, R, n,
+                           T, F, hop, detrend, log10_out, with_stats, s);
+    case 12:
+      return r2_launch<12>(x, win, tw, wts, out, part_min, part_max, R, n,
+                           T, F, hop, detrend, log10_out, with_stats, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The mixed-radix FFT route, on `stream`; returns a cudaError_t (0 =

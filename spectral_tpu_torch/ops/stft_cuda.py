@@ -11,13 +11,16 @@ written to memory. All compute the same function, by five routes that
 
 - ``"fft"`` (``stft_fft_psd_launch``): power-of-two nperseg from 32 to
   8192 under any detrend (the GUI's nine powers of two, and the driven
-  paths at 1024 and 8192). One block per frame: the frame widened to
-  float64, its mean (constant detrend) or its least-squares line (linear
-  detrend, the slope against the centred sample index) subtracted in
-  float64 after one block reduction, the window applied, two real
-  samples packed into each complex value in shared memory, a radix-2
-  FFT of nperseg/2 points in place, then the
-  split step into the nperseg/2 + 1 bins and the PSD epilogue. Its host
+  paths at 1024 and 8192). A frame on nperseg/16 threads with 8 values
+  each up to 1024 (a warp at 512), on nperseg/32 with 16 values from 2048
+  (8 warps at 8192): the frame read straight into registers and widened
+  to float64, its mean (constant detrend) or its least-squares line
+  (linear detrend, the slope against the centred sample index)
+  subtracted after a reduction over the frame's threads, the window
+  applied, two real samples packed into each complex value, a radix-2
+  FFT of nperseg/2 points three or four stages at a time in registers
+  with an exchange through shared memory between, then the split step
+  into the nperseg/2 + 1 bins and the PSD epilogue. Its host
   constants are the window, the twiddles (numpy's cos and sin of
   -2π j / nperseg, j < nperseg/2, laid out stage by stage) and the
   weights (:func:`fft_constants`);
@@ -337,7 +340,15 @@ def stft_psd_reference(x: torch.Tensor, consts: DftConstants,
     return p
 
 
+_LIB: list = []      # the library once loaded: finding it hashes the source
+
+
 def _library() -> ctypes.CDLL:
+    """The STFT kernels' library, built and loaded at first use, then kept
+    for the process: ``build.load_library`` reads and hashes the CUDA
+    source to find it, host time that no launch should wait for."""
+    if _LIB:
+        return _LIB[0]
     lib = build.load_library(KERNEL)
     if lib.stft_psd_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -360,6 +371,7 @@ def _library() -> ctypes.CDLL:
         lib.stft_psd_freq_tiles.restype = i32
         lib.stft_psd_error_string.argtypes = [i32]
         lib.stft_psd_error_string.restype = ctypes.c_char_p
+    _LIB.append(lib)
     return lib
 
 
