@@ -11,11 +11,13 @@ nperseg 32-8192, under every detrend, beside zero, NaN and 1e-6 frames,
 an overflow clip, log10_out, B T = 1 and T = 0, each held to 1 float32
 ulp, with its ptxas registers and spills printed; the mixed-radix
 kernel at the other GUI values, every radix from 3 to 251, nperseg
-96-8160, and with its Rader stage at 514 and 8186; both under linear
-detrend on ramp clips too; the odd kernel at nperseg 33-8191 under every
-detrend, with and without a Rader stage, and on frames that its pairing
-must keep apart; the Bluestein kernel on one
-block at 563-8182 and on a cluster of two at 7207-8189, the same way, and
+96-8160, the edges of its passes, and with its Rader stage at 514 and
+8186, with its ptxas registers and spills printed too; both under linear
+detrend on ramp clips too; each mixed-radix, Rader and odd kernel's first
+launch at a buffer just under 48 KB, in a fresh process; the odd kernel
+at nperseg 33-8191 under every detrend, with and without a Rader stage,
+and on frames that its pairing must keep apart; the Bluestein kernel on
+one block at 563-8182 and on a cluster of two at 7207-8189, the same way, and
 forced at 33, 1024, 8032 and 8191; the GEMM kernel forced beside them)
 and the display kernel in both output modes, with and without the float
 image. Then it drives ten paths at full size, each with the launch counts
@@ -350,28 +352,61 @@ def build_kernels():
             print("  " + line.strip())
     print("radix-2 kernel (stft_fft_psd_kernel<LOG2M, LR>), ptxas: "
           + "; ".join(radix2_ptxas(info["log"])))
+    print("mixed-radix kernel (stft_mixed_fft_psd_kernel<RMAX>), ptxas: "
+          + "; ".join(mixed_ptxas(info["log"])))
     build.load_library("stft_psd")
 
 
-def radix2_ptxas(log):
-    """The registers and spills of each radix-2 instantiation in nvcc's
-    -Xptxas -v log, as "LOG2M m, v values: r registers, s bytes
-    spilled"."""
+def mixed_ptxas(log):
+    """The registers and spills of each instantiation of the mixed-radix
+    kernel, as "RMAX m: r registers, s bytes spilled"."""
+    return radix2_ptxas(log, r"stft_mixed_fft_psd_kernelILi(\d+)E",
+                        lambda e: f"RMAX {e.group(1)}")
+
+
+def radix2_ptxas(log, pattern=r"stft_fft_psd_kernelILi(\d+)ELi(\d+)E",
+                 label=lambda e: f"LOG2M {e.group(1)}, "
+                 f"{2 ** int(e.group(2))} values"):
+    """The registers and spills of each radix-2 instantiation (or of the
+    entries ``pattern`` matches) in nvcc's -Xptxas -v log, as "LOG2M m, v
+    values: r registers, s bytes spilled"."""
     import re
     rows, m = [], None
     for line in log.splitlines():
-        entry = re.search(r"stft_fft_psd_kernelILi(\d+)ELi(\d+)E", line)
+        entry = re.search(pattern, line)
         if "Compiling entry" in line:
-            m = (f"{entry.group(1)}, {2 ** int(entry.group(2))} values"
-                 if entry else None)
+            m = label(entry) if entry else None
             spill = "?"
         elif m is not None and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
         elif m is not None and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            rows.append(f"LOG2M {m}: {regs} registers, {spill} bytes spilled")
+            rows.append(f"{m}: {regs} registers, {spill} bytes spilled")
             m = None
-    return rows or ["no radix-2 entry in the build log"]
+    return rows or [f"no entry {pattern} in the build log"]
+
+
+# a fresh process's first launch of the mixed-radix, Rader and odd kernels
+# at buffers just under 48 KB, each against its plain version
+SMEM_EDGE_SCRIPT = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from spectral_tpu_torch import SpecConfig
+from spectral_tpu_torch.ops import stft_cuda
+for k, route in ((96, "mixed"), (5594, "mixed"), (3001, "odd")):
+    cfg = SpecConfig.scipy_default(k)
+    assert stft_cuda.route(cfg) == route
+    x = torch.from_numpy(np.random.RandomState(k).randn(2, 8 * k).astype(
+        np.float32)).cuda()
+    got = stft_cuda.stft_psd(x, 16000.0, cfg)
+    want = stft_cuda.stft_psd_reference(
+        x, stft_cuda.dft_constants(cfg, 16000.0, x.device), cfg)
+    rel = float((got - want).abs().amax() / want.abs().amax())
+    assert rel <= 5e-6, (k, rel)
+    print(f"first launch at nperseg {k} [{route}] in a fresh process: "
+          f"{rel:.2e} of the max")
+"""
 
 
 def kernel_cases(dev):
@@ -497,9 +532,43 @@ def kernel_cases(dev):
             ("scipy_default 8032, M = 2^4 251",
              SpecConfig.scipy_default(PRIME_NPERSEG)),
             ("scipy_default 8160, M = 2^4 17 5 3",
-             SpecConfig.scipy_default(MIXED_NPERSEG))):
+             SpecConfig.scipy_default(MIXED_NPERSEG)),
+            # the passes' own edges: radix-2 passes of 4, 8 and 16 values
+            # (2 at 100 above), merged as 8 + 4 and 16 + 8 + 8; a block of
+            # 512 threads (radix 131); a generic pass at span 41 past the
+            # compile-time primes (and 11 at span 13 at 4576 above)
+            ("scipy_default 120, M = 2^2 5 3", SpecConfig.scipy_default(120)),
+            ("scipy_default 240, M = 2^3 5 3", SpecConfig.scipy_default(240)),
+            ("scipy_default 192, M = 2^5 3", SpecConfig.scipy_default(192)),
+            ("scipy_default 6144, M = 2^10 3",
+             SpecConfig.scipy_default(6144)),
+            ("scipy_default 4192, M = 2^4 131",
+             SpecConfig.scipy_default(4192)),
+            ("scipy_default 6068, M = 2 41 37",
+             SpecConfig.scipy_default(6068))):
         x = on_card(rs.randn(3, 8 * cfg.nperseg) + 3.0)
         check_stats(*both(x, cfg, with_stats=True), what)
+    # each kernel's first launch at a buffer just under 48 KB beside its
+    # static arrays (the shared-memory opt-in must cover both), in a fresh
+    # process: nperseg 96 (64 frames of 48 values: 48 KB), 5594 (a Rader
+    # stage, 43.7 KB) and 3001 (the odd kernel, 46.9 KB)
+    edge = subprocess.run(
+        [sys.executable, "-c", SMEM_EDGE_SCRIPT, HERE], capture_output=True,
+        text=True)
+    require(edge.returncode == 0, f"first launches at the 48 KB edge:\n"
+            f"{edge.stdout}{edge.stderr}")
+    print(edge.stdout.strip())
+    # several frames a block, a ragged last block (T = 29 and 25: 87 and 75
+    # rows against 64 and 32 frames a block) under every detrend
+    for k in (96, 160, 224):
+        for detrend in ("none", "constant", "linear"):
+            cfg = SpecConfig(nperseg=k, hop=k // 4, detrend=detrend)
+            x = rs.randn(3, 8 * k) + 3.0
+            if detrend == "linear":
+                x = x + trend(8 * k)
+            check_stats(*both(on_card(x), cfg, with_stats=True),
+                        f"nperseg {k}, hop {k // 4}, {detrend}, frames "
+                        "several a block")
     # |X|^2 past float32's range: inf, as the float32 pipeline overflows
     xo = on_card(np.stack([rs.randn(20000), 1e19 * rs.randn(20000)]))
     for cfg, route in ((north, None), (north, "gemm"), (s992, None)):

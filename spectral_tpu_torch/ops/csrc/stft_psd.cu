@@ -785,62 +785,99 @@ stft_fft_psd_kernel(const float* __restrict__ x,
 // The mixed-radix FFT route: even nperseg K = 32-8192, any detrend, whose
 // M = K/2 has no odd prime factor past 255 (every GUI value that is not a
 // power of two: K = 32 m, m <= 256, so M = 2^q m' with q >= 4 and m' odd,
-// m' <= 255).
+// m' <= 255), or is a prime p past 255 whose p - 1 has none (a Rader
+// stage). It replaces the TPU kernels K1 and K2 of stft_pallas.py at those
+// nperseg, as the routes above do.
 //
-// The radix-2 kernel's structure with another transform: one block per
-// frame (row r = b*T + t, read in place by pointer); the detrend line by
-// block reduction (frame_line); v[i] = ((double)frame[i] - mean - slope
-// (i - c)) * win[i]; two real samples packed per complex value, z[m] =
-// v[2m] + i v[2m + 1], stored at slot perm[m], the mixed-radix digit
-// reversal; an M-point decimation-in-time FFT in place in shared memory;
-// the split step and
-// the PSD epilogue on bins f < F. Everything between the float32 load and
-// the float32 store is float64.
+// The transform is the host plan's (core/stft.py::fft_plan): odd prime
+// radices descending, then the twos, M = p_1 p_2 ... p_S, decimation in
+// time from the digit-reversed load order perm. Stage s of radix p and
+// span L (the product of the radices before it) takes, for each group g
+// of L*p slots and each k < L, the p values y_q at slots g*L*p + k + q*L,
+// twiddles y_q (q >= 1) by W_Lp^(q k) (table row (q - 1) L + k; skipped at
+// L = 1), and writes their p-point DFT back to the same slots: radix 2 as
+// (y_0 + W y_1, y_0 - W y_1); an odd p in the symmetric form, with a_q =
+// y_q + y_(p-q), b_q = y_q - y_(p-q) and (c, s) the root W_p^(q m mod p),
+// A_m = y_0 + sum_q a_q c, B_m = sum_q b_q s (q, m = 1..(p-1)/2, q
+// ascending), out[m] = A_m + i B_m, out[p - m] = A_m - i B_m. Then the
+// split step and the PSD epilogue on bins f < F. Everything between the
+// float32 load and the float32 store is float64, on the host's float64
+// rows (numpy's cos and sin of -2 pi j / K, j reduced exactly mod K),
+// unrounded. tools/torch_precision.py::psd_mixed_fft is this arithmetic in
+// numpy; tests/test_torch_mixed_registers.py transcribes the kernel's
+// geometry below and holds it to that model bit for bit.
 //
-// The transform runs the host plan's stages (core/stft.py::fft_plan): odd
-// prime radices descending, then the twos, M = p_1 p_2 ... p_S. Stage s of
-// radix p and span L (the product of the radices before it) takes, for
-// each group g of L*p slots and each k < L, the p values y_q at slots
-// g*L*p + k + q*L, twiddles y_q (q >= 1) by W_Lp^(q k) (table row
-// (q - 1) L + k; skipped at L = 1, where all are 1), and writes their
-// p-point DFT back to the same slots:
+// What bounds it. The function reads K*4 bytes a frame and writes F*4, so
+// it is bound by bytes: 0.46 ms at the GUI's largest nperseg on 256 clips
+// of 60 s. The first design made one shared-memory trip per stage (seven at
+// 8160), a block of one frame, and a generic stage where each thread
+// computed one output pair (m, p - m) and read all p inputs for it: about
+// M p / 2 reads of 16 bytes a frame, 500 K at 8032 (p = 251), with the
+// roots gathered at a different address in each lane. It ran at 10x its
+// bound at 8160 and 35x at 8032 (PERF.md). What is left of the work: the
+// generic stage's (p - 1)/2 multiply-adds for each of four sums of each
+// output pair, about M p / 2 DFMA a frame (1 M at 8032, 2.1 ms of path 5
+// at the 33.5 TFLOP/s of DFMA outside the tensor cores), and a trip
+// through shared memory for each pass.
 //
-//   - radix 2: (y_0 + W y_1, y_0 - W y_1), one butterfly per thread;
-//   - radix 3, 5, 7 (stage_odd): one butterfly per thread in registers,
-//     the symmetric form of the odd DFT: with a_q = y_q + y_(p-q), b_q =
-//     y_q - y_(p-q) and (c, s) the table's root W_p^(q m mod p), A_m = y_0
-//     + sum_q a_q c, B_m = sum_q b_q s (q, m = 1..(p-1)/2), out[m] = A_m +
-//     i B_m and out[p - m] = A_m - i B_m;
-//   - any other odd radix, 11-251 on the GUI's range (stage_generic): the
-//     same sums, but a thread per output pair (m, p - m) of a butterfly,
-//     looping over q, in rounds of as many whole butterflies as the block
-//     has threads for: a round reads its butterflies' slots, waits at a
-//     barrier, and writes them. The twiddle pass runs before it, over the
-//     whole buffer. No p values are held in registers.
+// What the design (stft_mixed_fft_psd_kernel<RMAX>, planner
+// mixed_register_plan) does about it:
 //
-// The odd radices' p roots are staged in shared memory, so neighbouring
-// threads read them as broadcasts and they take no registers: the kernel
-// fits 64 registers, two blocks of 512 threads an SM.
-//
-// The host's table rows are numpy's float64 (cos, sin) of -2 pi j / K,
-// j an integer reduced exactly mod K, unrounded, stage by stage; the last
-// M rows are the split step's W_K^g. tools/torch_precision.py::
-// psd_mixed_fft is this arithmetic in numpy.
-//
-// What bounds it: the function is bound by bytes (as the radix-2 route);
-// this design by shared memory and, at a large prime, by the generic
-// stage's float64 arithmetic: (p - 1)/2 iterations of 4 DFMA and 4 DADD
-// for each output pair, about M p / 2 real multiply-adds a frame against
-// the radix-2 kernel's 2 M log2 M. The buffer holds M complex float64
-// values (M * 16 bytes, 64 KB at K = 8160; the launcher raises the
-// kernel's dynamic shared memory limit past 48 KB), so registers, not
-// shared memory, set the blocks an SM holds. The indices are not
-// swizzled: M is not a power of two, so the radix-2 kernel's XOR swizzle
-// does not apply, and bank conflicts are left for a later design.
+// - Passes. Each odd prime is a pass, and the a radix-2 stages are
+//   ceil(a/4) passes of up to four stages (16 values) in registers, as
+//   the radix-2 kernel's: 8160 (M = 2^4 17 5 3) runs four passes against
+//   seven stages, 8032 (2^4 251) two. Each pass is one read and one write
+//   of the buffer, in place (a thread's butterflies are its own), and one
+//   barrier. Radix 3, 5 and 7 run a butterfly a thread in registers
+//   (stage_odd's arithmetic), their roots staged in shared memory.
+// - The generic radix (any odd prime from 11; 11-31 instantiated at
+//   compile time, the rest at run time). The warps split into groups of
+//   ceil((h + 1)/RM) (h = (p - 1)/2), the group's warp w computing the
+//   output pairs m = RM w ... for 32 butterflies, one a lane: a lane reads
+//   each input pair once, forms a_q and b_q once and feeds its RM outputs
+//   from them, and the warp's lanes read one root a step (a broadcast):
+//   for a compile-time prime from a table staged in the lanes' order, at
+//   fixed offsets; else at an index stepped as q m mod p. The sums and
+//   their order are stage_generic's, so the PSD is the model's. Rounds of
+//   whole butterflies hold their outputs in registers across one barrier
+//   before writing them; at L > 1 a twiddle pass over the buffer runs
+//   first.
+// - Registers. The generic lane's 4 RM float64 sums are the kernel's
+//   largest state, and the compiler sizes every pass's registers by the
+//   largest: with 8 pairs compiled in, plans without a generic pass ran
+//   up to 1.5x slower (the 368 bytes it spills). So the kernel is
+//   instantiated three times by the plan's largest radix (mix_rmax): no
+//   generic code up to 7, 4 pairs a lane up to MIX_NARROW_RADIX (16 warps
+//   of 4 hold the 64 pairs of 127), 8 past it (16 of 8 at 255). Each runs
+//   512 threads at 128 registers, one block an SM.
+// - Several frames a block: a frame takes pf threads, the least power of
+//   two that loads it in MIX_LOAD sample pairs each (a warp from M = 257),
+//   and a block holds MIX_THREADS / pf frames (128 at nperseg 96, two at
+//   8160); every pass spreads the block's butterflies over all its
+//   threads. The frame loads straight into registers, consecutive float2
+//   samples across the frame's threads, its detrend sums from them
+//   (shuffles within a warp, the frame's warps in order past one), then
+//   into the plan's slots through perm. The epilogue takes bins g and M -
+//   g together, which read the same two values of Z.
+// - Bank conflicts. A value is 16 bytes, so each eight lanes of a warp
+//   must hit eight bank groups (slot mod 8). Radix-2 passes take k (the
+//   butterfly's offset within its span) fastest across the lanes, odd
+//   passes the group: every pass's access is free of conflicts on every
+//   GUI value but a radix-2 pass at a span that is no multiple of 8 (the
+//   first, at the odd part m'), whose rows of butterflies straddle the
+//   lanes' phases (at most three lanes a group), and the load's scatter
+//   through perm (tests/test_torch_mixed_registers.py counts them). The
+//   indices are not swizzled: the padded and XOR maps tried broke more
+//   accesses than they mended.
+// - Twiddles stay in the table in device memory, read through L1, 2^B - 1
+//   rows a radix-2 butterfly, not one a stage. Staging them in shared
+//   memory does not fit: the plan's rows (65 KB at 8160) are as large as
+//   the frame's buffer.
 
 constexpr int MIX_MAX_STAGES = 16;   // N <= 8191 points: 12 factors at most
 constexpr int MIX_MAX_RADIX = 255;   // largest odd radix; roots in smem
 constexpr int MIX_MIN_BLOCKS = 2;    // blocks of 512 threads an SM holds
+                                     // (the Rader kernel's)
 
 struct MixedPlan {
   int n_stages;
@@ -853,6 +890,9 @@ __device__ __forceinline__ double2 cmul(double2 w, double2 y) {
   return make_double2(w.x * y.x - w.y * y.y, w.x * y.y + w.y * y.x);
 }
 
+// The stages one at a time through shared memory, the first design, which the
+// Rader, odd and Bluestein kernels run (run_stages, mixed_transform): one
+// trip and one barrier a stage, a generic stage's thread one output pair.
 // Each stage below is decimation in time, or with DIF its transpose: the
 // stages run in reverse order, each butterfly's p-point DFT first and the
 // twiddles on its outputs (the DFT matrix is symmetric, so the transposed
@@ -1026,8 +1066,8 @@ __device__ __forceinline__ void run_stages(double2* buf, double2* roots,
 // frequency (digit-reversed output), X[0] = x[0] + slot 0 into *sum, each
 // slot times its row of b^ (the host's DFT of W_p^(g^-q) over P, in slot
 // order), then the stages in time; X[i] for i > 0 is x[0] + slot perm[i]
-// (RaderRead). Ends at a barrier. The kernels are instantiated with and
-// without the Rader stage, so the plans without one run the code they ran
+// (RaderRead). Ends at a barrier. The odd kernel is instantiated with and
+// without the Rader stage, so its plans without one run the code they ran
 // before it existed (the same registers and spills).
 template <bool RADER>
 __device__ __forceinline__ void mixed_transform(double2* buf, double2* roots,
@@ -1052,25 +1092,28 @@ __device__ __forceinline__ void mixed_transform(double2* buf, double2* roots,
   run_stages<false>(buf, roots, tw, plan, P);
 }
 
-template <bool RADER>
+// The mixed-radix kernel with a Rader stage (K/2 a prime p past
+// MIX_MAX_RADIX whose p - 1 has no odd prime past it): one frame a block,
+// the plan's stages through shared memory one at a time (mixed_transform),
+// the old structure that the odd and Bluestein kernels share.
 __global__ void __launch_bounds__(FFT_MAX_THREADS, MIX_MIN_BLOCKS)
-stft_mixed_fft_psd_kernel(const float* __restrict__ x,
-                          const double* __restrict__ win,
-                          const int* __restrict__ perm,
-                          const double2* __restrict__ tw,
-                          const double* __restrict__ wts,
-                          float* __restrict__ out,
-                          float* __restrict__ part_min,
-                          float* __restrict__ part_max, long long n, int T,
-                          int F, int K, int hop, int detrend, int log10_out,
-                          int with_stats,
-                          const __grid_constant__ MixedPlan plan) {
+stft_mixed_rader_psd_kernel(const float* __restrict__ x,
+                            const double* __restrict__ win,
+                            const int* __restrict__ perm,
+                            const double2* __restrict__ tw,
+                            const double* __restrict__ wts,
+                            float* __restrict__ out,
+                            float* __restrict__ part_min,
+                            float* __restrict__ part_max, long long n, int T,
+                            int F, int K, int hop, int detrend, int log10_out,
+                            int with_stats,
+                            const __grid_constant__ MixedPlan plan) {
   extern __shared__ double2 buf[];  // K/2 complex values
   __shared__ double2 roots[MIX_MAX_RADIX + 1];
   __shared__ double2 red_sum[FFT_MAX_WARPS];
   __shared__ float red_lo[FFT_MAX_WARPS];
   __shared__ float red_hi[FFT_MAX_WARPS];
-  __shared__ double2 x_sum;         // X[0] under a Rader stage
+  __shared__ double2 x_sum;         // X[0]
 
   const int M = K >> 1;
   const int tid = threadIdx.x;
@@ -1091,16 +1134,533 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
   }
   __syncthreads();
 
-  mixed_transform<RADER>(buf, roots, tw, plan, M, &x_sum);
+  mixed_transform<true>(buf, roots, tw, plan, M, &x_sum);
+  split_psd_epilogue(RaderRead{buf, perm, &x_sum, M - 1}, tw + plan.split,
+                     wts, out, part_min, part_max, red_lo, red_hi, r, F, K,
+                     log10_out, with_stats);
+}
 
-  if (!RADER)
-    split_psd_epilogue(PlainRead{buf}, tw + plan.split, wts, out, part_min,
-                       part_max, red_lo, red_hi, r, F, K, log10_out,
-                       with_stats);
-  else
-    split_psd_epilogue(RaderRead{buf, perm, &x_sum, M - 1}, tw + plan.split,
-                       wts, out, part_min, part_max, red_lo, red_hi, r, F, K,
-                       log10_out, with_stats);
+// ---------------------------------------------------------------------------
+// The mixed-radix kernel without a Rader stage, in passes (see the note
+// above stft_mixed_fft_psd_kernel's constants).
+
+constexpr int MIX_THREADS = 512;        // a block's threads
+constexpr int MIX_LOAD = 16;            // sample pairs a thread loads at most
+constexpr int MIX_R2_BITS = 4;          // radix-2 stages a pass at most
+constexpr int MIX_NARROW_RADIX = 127;   // the largest radix on 4 output pairs
+constexpr int MIX_MAX_PASSES = MIX_MAX_STAGES;
+
+// The output pairs a generic lane holds (RMAX, the kernel's template
+// argument) by the plan's largest radix: none up to 7 (no generic pass is
+// compiled in), 4 up to MIX_NARROW_RADIX (whose (p + 1)/2 pairs fill at
+// most 16 warps of 4), else 8 (16 warps of 8 at 255). The generic lane's
+// sums are the kernel's largest live state, so a plan carries the fewest
+// its radices need.
+constexpr int mix_rmax(int p_max) {
+  return p_max <= 7 ? 0 : (p_max <= MIX_NARROW_RADIX ? 4 : 8);
+}
+
+// x div d for 0 <= x < 2^31 by a multiply: shift = ceil(log2 d), mul =
+// floor(2^32 (2^shift - d) / d) + 1 (Granlund and Montgomery), made on the
+// host once per launch
+struct FastDiv {
+  unsigned d, mul, shift;
+  __host__ __device__ unsigned div(unsigned v) const {
+#ifdef __CUDA_ARCH__
+    const unsigned hi = __umulhi(v, mul);
+#else
+    const unsigned hi = static_cast<unsigned>(
+        (static_cast<unsigned long long>(v) * mul) >> 32);
+#endif
+    return (hi + v) >> shift;
+  }
+};
+
+FastDiv make_fastdiv(unsigned d) {
+  unsigned shift = 0;
+  while ((1u << shift) < d) ++shift;
+  const unsigned long long num = (1ull << 32) * ((1ull << shift) - d);
+  return FastDiv{d, static_cast<unsigned>(num / d + 1), shift};
+}
+
+// One pass: radix 2^B (B radix-2 stages at spans L, 2L, ..., twiddle rows
+// tw[0..B-1]) or an odd prime p (one stage at span L, its twiddle rows from
+// tw[0], its roots from root). A butterfly b of the block's frames: frame
+// b div nb, j = b mod nb; radix 2: k = j mod L fastest, group j div L; odd:
+// group j mod G fastest (G = M / (L p)), k = j div G (inner divides by L
+// or G). lp divides by L p.
+struct MixPass {
+  int radix;
+  int span;
+  int tw[4];
+  int root;
+  FastDiv nb;
+  FastDiv inner;
+  FastDiv lp;
+};
+
+struct MixRegPlan {
+  int n_passes;
+  int split;                        // first row of the split step's W_K^g
+  int frames;                       // frames a block
+  int pf;                           // threads a frame (load and epilogue)
+  MixPass pass[MIX_MAX_PASSES];
+};
+
+// The first slot of butterfly b of pass ps (its values at + q L) and its k
+__device__ __forceinline__ int mix_base(const MixPass& ps, int M, int b,
+                                        int& k) {
+  const int f = static_cast<int>(ps.nb.div(b));
+  const int j = b - f * static_cast<int>(ps.nb.d);
+  const int L = ps.span;
+  int g;
+  if (ps.radix % 2 == 0) {
+    g = static_cast<int>(ps.inner.div(j));
+    k = j - g * L;
+  } else {
+    k = static_cast<int>(ps.inner.div(j));
+    g = j - k * static_cast<int>(ps.inner.d);
+  }
+  return f * M + g * L * ps.radix + k;
+}
+
+// Radix-2 stage S of a pass of R values in registers: values i and i + 2^S
+// (bit S of i clear) at span L 2^S, with the row row + k + L (i mod 2^S)
+template <int R, int S>
+__device__ __forceinline__ void mix_r2_stage(double2 (&v)[R],
+                                             const double2* __restrict__ tw,
+                                             int row, int k, int L) {
+#pragma unroll
+  for (int t = 0; t < (1 << S); ++t) {
+    const double2 w = tw[row + k + L * t];
+#pragma unroll
+    for (int hi = 0; hi < (R >> (S + 1)); ++hi) {
+      const int i = t | (hi << (S + 1));
+      r2_butterfly(v[i], v[i | (1 << S)], w);
+    }
+  }
+}
+
+// B radix-2 stages in registers (stage S at span L 2^S, its rows from
+// ps.tw[S])
+template <int B>
+__device__ __forceinline__ void mix_r2_pass(double2* buf,
+                                            const double2* __restrict__ tw,
+                                            const MixPass& ps, int M,
+                                            int nbt) {
+  constexpr int R = 1 << B;
+  const int L = ps.span;
+  for (int b = threadIdx.x; b < nbt; b += blockDim.x) {
+    int k;
+    const int base = mix_base(ps, M, b, k);
+    double2 v[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) v[q] = buf[base + q * L];
+    mix_r2_stage<R, 0>(v, tw, ps.tw[0], k, L);
+    if constexpr (B > 1) mix_r2_stage<R, 1>(v, tw, ps.tw[1], k, L);
+    if constexpr (B > 2) mix_r2_stage<R, 2>(v, tw, ps.tw[2], k, L);
+    if constexpr (B > 3) mix_r2_stage<R, 3>(v, tw, ps.tw[3], k, L);
+#pragma unroll
+    for (int q = 0; q < R; ++q) buf[base + q * L] = v[q];
+  }
+}
+
+// radix P = 3, 5 or 7: a butterfly a thread in registers, stage_odd's
+// arithmetic, the roots from shared memory (staged by the kernel)
+template <int P>
+__device__ __forceinline__ void mix_odd_pass(double2* buf,
+                                             const double2* roots,
+                                             const double2* __restrict__ tw,
+                                             const MixPass& ps, int M,
+                                             int nbt) {
+  constexpr int H = (P - 1) / 2;
+  const int L = ps.span;
+  for (int b = threadIdx.x; b < nbt; b += blockDim.x) {
+    int k;
+    const int base = mix_base(ps, M, b, k);
+    double2 y[P];
+#pragma unroll
+    for (int q = 0; q < P; ++q) y[q] = buf[base + q * L];
+    if (L > 1) {
+#pragma unroll
+      for (int q = 1; q < P; ++q)
+        y[q] = cmul(tw[ps.tw[0] + (q - 1) * L + k], y[q]);
+    }
+#pragma unroll
+    for (int m = 0; m <= H; ++m) {
+      double ar = y[0].x, ai = y[0].y, br = 0.0, bi = 0.0;
+#pragma unroll
+      for (int q = 1; q <= H; ++q) {
+        const double2 c = roots[(q * m) % P];
+        ar += (y[q].x + y[P - q].x) * c.x;
+        ai += (y[q].y + y[P - q].y) * c.x;
+        br += (y[q].x - y[P - q].x) * c.y;
+        bi += (y[q].y - y[P - q].y) * c.y;
+      }
+      buf[base + m * L] = make_double2(ar - bi, ai + br);
+      if (m > 0) buf[base + (P - m) * L] = make_double2(ar + bi, ai - br);
+    }
+  }
+}
+
+// A generic lane's output pairs: RMAX for p at run time; for P at compile
+// time the fewest that keep its groups of warps, ceil((h + 1)/RMAX) of
+// them, as even as they go (P = 17, RMAX = 8: two groups of 5 for the 9
+// pairs, not of 8)
+template <int P, int RMAX>
+__host__ __device__ constexpr int mix_rm() {
+  return P == 0 ? RMAX
+                : ((P + 1) / 2 + ((P + 1) / 2 + RMAX - 1) / RMAX - 1) /
+                      (((P + 1) / 2 + RMAX - 1) / RMAX);
+}
+
+// A generic lane's sums: output pairs m0 + i (i < mix_rm<P, RMAX>()) of
+// the butterfly at base, stage_generic's expressions with q ascending.
+// With P at compile time (11-31) the roots sit in shared memory in the
+// lane's order, group by group, q by q, i by i (mix_generic_pass stages
+// them): a step reads the next mix_rm of them at fixed offsets. Else the
+// root index steps as q m mod p, one shared index for m0 and steps of q
+// for the lane's other outputs.
+template <int P, int RMAX>
+__device__ __forceinline__ void mix_generic_sums(
+    const double2* buf, const double2* roots, int base, int L, int p, int m0,
+    double (&ar)[RMAX], double (&ai)[RMAX], double (&br)[RMAX],
+    double (&bi)[RMAX]) {
+  constexpr int RM = mix_rm<P, RMAX>();
+  const double2 y0 = buf[base];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    ar[i] = y0.x;
+    ai[i] = y0.y;
+    br[i] = 0.0;
+    bi[i] = 0.0;
+  }
+  if constexpr (P > 0) {
+    constexpr int H = (P - 1) / 2;
+    const double2* rq = roots + (m0 / RM) * H * RM;   // this group's roots
+#pragma unroll 1
+    for (int q = 1; q <= H; ++q, rq += RM) {
+      const double2 u = buf[base + q * L];
+      const double2 v = buf[base + (P - q) * L];
+      const double sr = u.x + v.x, si = u.y + v.y;
+      const double dr = u.x - v.x, di = u.y - v.y;
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const double2 c = rq[i];                 // W_P^(q (m0 + i) mod P)
+        ar[i] += sr * c.x;
+        ai[i] += si * c.x;
+        br[i] += dr * c.y;
+        bi[i] += di * c.y;
+      }
+    }
+  } else {
+    const int h = (p - 1) >> 1;
+    int idx = 0;                             // q m0 mod p
+#pragma unroll 1
+    for (int q = 1; q <= h; ++q) {
+      const double2 u = buf[base + q * L];
+      const double2 v = buf[base + (p - q) * L];
+      const double sr = u.x + v.x, si = u.y + v.y;
+      const double dr = u.x - v.x, di = u.y - v.y;
+      idx += m0;
+      if (idx >= p) idx -= p;
+      int t = idx;                           // q (m0 + i) mod p
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        if (i > 0) {
+          t += q;
+          if (t >= p) t -= p;
+        }
+        const double2 c = roots[t];
+        ar[i] += sr * c.x;
+        ai[i] += si * c.x;
+        br[i] += dr * c.y;
+        bi[i] += di * c.y;
+      }
+    }
+  }
+}
+
+// Any odd prime p >= 11 (P: p at compile time, 11-31; 0: p from the plan):
+// the warps of the block split into groups of ceil((h + 1) / RM) (h = (p -
+// 1)/2, RM = mix_rm<P, RMAX>()), warp w of a group computing output pairs
+// (m, p - m), m = RM (w mod groups) ..., for 32 consecutive butterflies,
+// one a lane. Each lane reads every input pair (y_q, y_(p-q)) of its
+// butterfly once, forms their sum and difference once and feeds its RM
+// outputs from them (stage_generic's sums, in the same order); the warp's
+// lanes read the same root at each step (a broadcast). Rounds of whole
+// butterflies: a round reads, holds its outputs in registers across a
+// barrier and writes them. At L > 1 a twiddle pass over every slot runs
+// first, with the roots' load (groups h RM roots at most for the
+// compile-time primes, 240 at 31).
+template <int P, int RMAX>
+__device__ __forceinline__ void mix_generic_pass(
+    double2* buf, double2* roots, const double2* __restrict__ tw,
+    const MixPass& ps, int M, int frames, int nbt) {
+  constexpr int RM = mix_rm<P, RMAX>();
+  const int p = P > 0 ? P : ps.radix;
+  const int h = (p - 1) >> 1;
+  const int L = ps.span;
+  const int tid = threadIdx.x;
+  if constexpr (P > 0) {
+    // group g's roots for step q and pair i at ((g H) + q - 1) RM + i
+    constexpr int H = (P - 1) / 2;
+    for (int e = tid; e < ((H + RM) / RM) * H * RM; e += blockDim.x) {
+      const int i = e % RM;
+      const int q = (e / RM) % H + 1;
+      const int g = e / (RM * H);
+      roots[e] = tw[ps.root + (q * (g * RM + i)) % P];
+    }
+  } else {
+    for (int i = tid; i < p; i += blockDim.x) roots[i] = tw[ps.root + i];
+  }
+  if (L > 1) {
+    for (int s = tid; s < frames * M; s += blockDim.x) {
+      const int r = s - static_cast<int>(ps.lp.div(s) * ps.lp.d);   // q L + k
+      if (r >= L) buf[s] = cmul(tw[ps.tw[0] + r - L], buf[s]);
+    }
+  }
+  __syncthreads();
+  const int groups = (h + RM) / RM;
+  const int warp = tid >> 5;
+  const int per_round = static_cast<int>(blockDim.x >> 5) / groups;
+  const int m0 = (warp % groups) * RM;
+  const int chunk = warp / groups;
+  const int chunks = (nbt + 31) >> 5;
+  for (int c0 = 0; c0 < chunks; c0 += per_round) {
+    const int b = (c0 + chunk) * 32 + (tid & 31);
+    const bool on = chunk < per_round && b < nbt;
+    double ar[RMAX], ai[RMAX], br[RMAX], bi[RMAX];
+    int base = 0;
+    if (on) {
+      int k;
+      base = mix_base(ps, M, b, k);
+      mix_generic_sums<P, RMAX>(buf, roots, base, L, p, m0, ar, ai, br, bi);
+    }
+    __syncthreads();
+    if (on) {
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int m = m0 + i;
+        if (m <= h) {
+          buf[base + m * L] = make_double2(ar[i] - bi[i], ai[i] + br[i]);
+          if (m > 0)
+            buf[base + (p - m) * L] = make_double2(ar[i] + bi[i],
+                                                   ai[i] - br[i]);
+        }
+      }
+    }
+  }
+}
+
+// the sums of s over each frame's pf threads (a power of two), in every
+// thread: by shuffles within a warp, past a warp through scratch (one
+// double2 a warp), the frame's warps added in order
+__device__ __forceinline__ double2 mix_frame_sum(double2 s, int pf,
+                                                 double2* scratch) {
+  const int lanes = pf < 32 ? pf : 32;
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
+    s.x += __shfl_xor_sync(0xffffffffu, s.x, off);
+    s.y += __shfl_xor_sync(0xffffffffu, s.y, off);
+  }
+  if (pf <= 32) return s;
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) scratch[warp] = s;
+  __syncthreads();
+  const int w0 = warp - warp % (pf >> 5);
+  double2 t = scratch[w0];
+  for (int w = w0 + 1; w < w0 + (pf >> 5); ++w) {
+    t.x += scratch[w].x;
+    t.y += scratch[w].y;
+  }
+  return t;
+}
+
+template <int RMAX>
+__global__ void __launch_bounds__(MIX_THREADS, 1)
+stft_mixed_fft_psd_kernel(const float* __restrict__ x,
+                          const double* __restrict__ win,
+                          const int* __restrict__ perm,
+                          const double2* __restrict__ tw,
+                          const double* __restrict__ wts,
+                          float* __restrict__ out,
+                          float* __restrict__ part_min,
+                          float* __restrict__ part_max, long long n, int R,
+                          int T, int F, int K, int hop, int detrend,
+                          int log10_out, int with_stats,
+                          const __grid_constant__ MixRegPlan plan) {
+  extern __shared__ double2 buf[];  // plan.frames frames of K/2 values
+  __shared__ double2 roots[MIX_MAX_RADIX + 1];
+  __shared__ double2 odd_roots[MIX_MAX_PASSES][8];  // radix 3, 5, 7
+  __shared__ double2 red_sum[MIX_THREADS / 32];
+  __shared__ float red_lo[MIX_THREADS / 32];
+  __shared__ float red_hi[MIX_THREADS / 32];
+
+  const int M = K >> 1;
+  const int pf = plan.pf;
+  const int tid = threadIdx.x;
+  const int fl = tid / pf;
+  const int u = tid - fl * pf;
+  const int r = blockIdx.x * plan.frames + fl;
+  const bool valid = r < R;
+  const float* frame =
+      x + (valid ? (long long)(r / T) * n + (long long)(r % T) * hop : 0);
+  double2* fbuf = buf + fl * M;
+
+  // the radix 3, 5 and 7 passes' roots, ordered by the first barrier
+  if (tid < MIX_MAX_PASSES * 8) {
+    const int q = tid >> 3;
+    const int i = tid & 7;
+    if (q < plan.n_passes && plan.pass[q].radix <= 7 &&
+        plan.pass[q].radix % 2 && i < plan.pass[q].radix)
+      odd_roots[q][i] = tw[plan.pass[q].root + i];
+  }
+
+  // the frame's sample pairs j = u + i pf straight from device memory,
+  // consecutive across the frame's threads
+  float2 s[MIX_LOAD];
+  const bool pairs = (reinterpret_cast<size_t>(frame) & 7) == 0;
+#pragma unroll
+  for (int i = 0; i < MIX_LOAD; ++i) {
+    const int j = u + i * pf;
+    s[i] = make_float2(0.0f, 0.0f);
+    if (valid && j < M)
+      s[i] = pairs ? reinterpret_cast<const float2*>(frame)[j]
+                   : make_float2(frame[2 * j], frame[2 * j + 1]);
+  }
+  const double c = 0.5 * (K - 1);
+  double2 line = make_double2(0.0, 0.0);
+  if (detrend != DETREND_NONE) {
+    double2 a = make_double2(0.0, 0.0);
+#pragma unroll
+    for (int i = 0; i < MIX_LOAD; ++i) {
+      const int j = u + i * pf;
+      if (j < M) {
+        a.x += static_cast<double>(s[i].x);
+        a.x += static_cast<double>(s[i].y);
+        if (detrend == DETREND_LINEAR) {
+          a.y += (2 * j - c) * static_cast<double>(s[i].x);
+          a.y += (2 * j + 1 - c) * static_cast<double>(s[i].y);
+        }
+      }
+    }
+    a = mix_frame_sum(a, pf, red_sum);
+    const double d = K * (static_cast<double>(K) * K - 1.0) / 12.0;
+    line = make_double2(a.x / K, detrend == DETREND_LINEAR ? a.y / d : 0.0);
+  }
+  const double2* win2 = reinterpret_cast<const double2*>(win);
+#pragma unroll
+  for (int i = 0; i < MIX_LOAD; ++i) {
+    const int j = u + i * pf;
+    if (j < M) {
+      const double2 w = win2[j];
+      const int i0 = 2 * j;
+      fbuf[perm[j]] = make_double2(
+          (static_cast<double>(s[i].x) - line.x - line.y * (i0 - c)) * w.x,
+          (static_cast<double>(s[i].y) - line.x - line.y * (i0 + 1 - c)) *
+              w.y);
+    }
+  }
+  __syncthreads();
+
+  for (int q = 0; q < plan.n_passes; ++q) {
+    const MixPass& ps = plan.pass[q];
+    const int nbt = plan.frames * static_cast<int>(ps.nb.d);
+    switch (ps.radix) {
+      case 2: mix_r2_pass<1>(buf, tw, ps, M, nbt); break;
+      case 4: mix_r2_pass<2>(buf, tw, ps, M, nbt); break;
+      case 8: mix_r2_pass<3>(buf, tw, ps, M, nbt); break;
+      case 16: mix_r2_pass<4>(buf, tw, ps, M, nbt); break;
+      case 3: mix_odd_pass<3>(buf, odd_roots[q], tw, ps, M, nbt); break;
+      case 5: mix_odd_pass<5>(buf, odd_roots[q], tw, ps, M, nbt); break;
+      case 7: mix_odd_pass<7>(buf, odd_roots[q], tw, ps, M, nbt); break;
+      default:
+        if constexpr (RMAX > 0) {
+          const int fr = plan.frames;
+          switch (ps.radix) {
+            case 11:
+              mix_generic_pass<11, RMAX>(buf, roots, tw, ps, M, fr, nbt);
+              break;
+            case 13:
+              mix_generic_pass<13, RMAX>(buf, roots, tw, ps, M, fr, nbt);
+              break;
+            case 17:
+              mix_generic_pass<17, RMAX>(buf, roots, tw, ps, M, fr, nbt);
+              break;
+            case 19:
+              mix_generic_pass<19, RMAX>(buf, roots, tw, ps, M, fr, nbt);
+              break;
+            case 23:
+              mix_generic_pass<23, RMAX>(buf, roots, tw, ps, M, fr, nbt);
+              break;
+            case 29:
+              mix_generic_pass<29, RMAX>(buf, roots, tw, ps, M, fr, nbt);
+              break;
+            case 31:
+              mix_generic_pass<31, RMAX>(buf, roots, tw, ps, M, fr, nbt);
+              break;
+            default:
+              mix_generic_pass<0, RMAX>(buf, roots, tw, ps, M, fr, nbt);
+          }
+        }
+    }
+    __syncthreads();
+  }
+
+  // the split step and the PSD epilogue of row r: bins g and M - g from
+  // Z[g] and Z[M - g] together, g = u, u + pf, ... up to M/2; past M (two
+  // sided) bin f as bin K - f
+  const double2* split = tw + plan.split;
+  float lo = INFINITY;
+  float hi = -INFINITY;
+  const int last = F - 1 < M ? F - 1 : M;      // the largest bin up to M
+  // bin f from a = Z[g], b = Z[M - g], w = W_K^g and its weight, as
+  // split_psd_epilogue
+  const auto bin = [&](int f, double2 a, double2 b, double2 w, double wt) {
+    const double er = 0.5 * (a.x + b.x);
+    const double ei = 0.5 * (a.y - b.y);
+    const double o_r = 0.5 * (a.y + b.y);
+    const double o_i = 0.5 * (b.x - a.x);
+    const double xr = er + (w.x * o_r - w.y * o_i);
+    const double xi = ei + (w.x * o_i + w.y * o_r);
+    if (valid) store_bin(power(xr, xi, wt), out, r, F, f, log10_out, lo, hi);
+  };
+#pragma unroll 2
+  for (int g = u; 2 * g <= M; g += pf) {
+    const double2 a = fbuf[g];
+    const double2 b = fbuf[g == 0 ? 0 : M - g];
+    if (g <= last)
+      bin(g, a, b, g < M ? split[g] : make_double2(-1.0, 0.0), wts[g]);
+    const int f = M - g;                     // Z[f] is b, Z[M - f] is a
+    if (f > g && f <= last)
+      bin(f, b, a, f < M ? split[f] : make_double2(-1.0, 0.0), wts[f]);
+  }
+  for (int f = M + 1 + u; f < F; f += pf) {
+    const int g = K - f;
+    bin(f, fbuf[g], fbuf[M - g], split[g], wts[f]);
+  }
+  if (!with_stats) return;
+  const int lanes = pf < 32 ? pf : 32;
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
+    lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+  if (pf > 32) {
+    const int warp = tid >> 5;
+    if ((tid & 31) == 0) {
+      red_lo[warp] = lo;
+      red_hi[warp] = hi;
+    }
+    __syncthreads();
+    for (int w = warp + 1; u == 0 && w < warp + (pf >> 5); ++w) {
+      lo = nan_min(lo, red_lo[w]);
+      hi = nan_max(hi, red_hi[w]);
+    }
+  }
+  if (u == 0 && valid) {
+    part_min[r] = lo;
+    part_max[r] = hi;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1523,17 +2083,20 @@ constexpr int FFT_MAX_DEVICES = 64;
 // the dynamic shared memory limit already set for the FFT kernels, per
 // device (the radix-2 kernel's per LOG2M)
 size_t r2_smem_set[13][FFT_MAX_DEVICES] = {};
-// (without and with a Rader stage for the mixed-radix kernels)
-size_t mixed_smem_set[2][FFT_MAX_DEVICES] = {};
+// (the mixed-radix kernel's three instantiations, and with a Rader stage)
+size_t mixed_smem_set[4][FFT_MAX_DEVICES] = {};
 size_t odd_smem_set[2][FFT_MAX_DEVICES] = {};
 // (on one block and on a cluster of two for the Bluestein kernels)
 size_t blue_smem_set[2][FFT_MAX_DEVICES] = {};
 
 // raise `kernel`'s dynamic shared memory limit to smem once per device
-// (set[] records it); returns a cudaError_t
+// (set[] records it); returns a cudaError_t. A block whose static and
+// dynamic shared memory together pass 48 KB needs the limit raised, so it
+// is raised at any size: a dynamic buffer just under 48 KB beside a
+// kernel's static arrays (4.5 KB of roots and reductions in the mixed-radix
+// kernels) is refused without it.
 template <typename Kernel>
 int raise_smem(Kernel kernel, size_t smem, size_t* set) {
-  if (smem <= 48 * 1024) return static_cast<int>(cudaSuccess);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && (dev >= FFT_MAX_DEVICES || set[dev] < smem)) {
@@ -1585,6 +2148,69 @@ bool load_plan(const int* stages, int n_stages, int split, int rader, int N,
   const int pairs = ((p_max + 1) / 2 + 31) / 32 * 32;
   *threads = fft_threads(2 * N) > pairs ? fft_threads(2 * N) : pairs;
   return span == len;
+}
+
+// The passes of an N-point plan without a Rader stage from the host's
+// (n_stages, 4) rows (core/stft.py::fft_plan: odd primes, then the twos)
+// into *plan, and the kernel's generic output pairs (mix_rmax) in *rmax;
+// false for a plan the kernel does not take. Each odd stage is a pass; the
+// twos, a of them, ceil(a / MIX_R2_BITS) passes of as even a number each,
+// the larger first (a = 5: 8, 4). A frame takes pf threads, the least
+// power of two that loads it in MIX_LOAD pairs each, and a block of
+// MIX_THREADS threads MIX_THREADS / pf frames.
+bool mixed_register_plan(const int* stages, int n_stages, int split, int N,
+                         MixRegPlan* plan, int* rmax) {
+  if (n_stages < 1 || n_stages > MIX_MAX_STAGES || split < 0 || N > 4096)
+    return false;
+  int span = 1;
+  int p_max = 2;
+  int twos = 0;
+  plan->n_passes = 0;
+  for (int s = 0; s < n_stages; ++s) {
+    const int p = stages[4 * s];
+    const bool odd = p % 2 == 1 && p >= 3 && p <= MIX_MAX_RADIX;
+    if ((p != 2 && !odd) || (odd && twos > 0) || stages[4 * s + 1] != span ||
+        span * p > N)
+      return false;
+    if (odd) {
+      MixPass& ps = plan->pass[plan->n_passes++];
+      ps.radix = p;
+      ps.span = span;
+      ps.tw[0] = stages[4 * s + 2];
+      ps.root = stages[4 * s + 3];
+      if (p > p_max) p_max = p;
+    } else {
+      ++twos;
+    }
+    span *= p;
+  }
+  if (span != N) return false;
+  *rmax = mix_rmax(p_max);
+  const int n2 = (twos + MIX_R2_BITS - 1) / MIX_R2_BITS;
+  int s = n_stages - twos;
+  for (int i = 0; i < n2; ++i) {
+    const int bits = twos / n2 + (i < twos % n2 ? 1 : 0);
+    MixPass& ps = plan->pass[plan->n_passes++];
+    ps.radix = 1 << bits;
+    ps.span = stages[4 * s + 1];
+    ps.root = -1;
+    for (int j = 0; j < 4; ++j)
+      ps.tw[j] = j < bits ? stages[4 * (s + j) + 2] : -1;
+    s += bits;
+  }
+  for (int i = 0; i < plan->n_passes; ++i) {
+    MixPass& ps = plan->pass[i];
+    const int lp = ps.span * ps.radix;
+    ps.nb = make_fastdiv(N / ps.radix);
+    ps.inner = make_fastdiv(ps.radix % 2 ? N / lp : ps.span);
+    ps.lp = make_fastdiv(lp);
+  }
+  int pf = 1;
+  while (pf * MIX_LOAD < N) pf *= 2;
+  plan->split = split;
+  plan->pf = pf;
+  plan->frames = MIX_THREADS / pf;
+  return true;
 }
 
 // log2 of the values a thread of the radix-2 kernel holds at M = 2^LOG2M:
@@ -1721,21 +2347,46 @@ int stft_mixed_fft_psd_launch(const float* x, const double* win,
                               int detrend, int log10_out, int with_stats,
                               void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
-  MixedPlan plan;
-  int threads = 0;
   if (K < 32 || K > 8192 || K % 2 || F < 1 || F > K || !detrend_ok(detrend) ||
-      split < 0 || !load_plan(stages, n_stages, split, rader, K / 2, &plan,
-                              &threads))
+      split < 0)
     return static_cast<int>(bad);
-  const auto kernel = rader >= 0 ? stft_mixed_fft_psd_kernel<true>
-                                  : stft_mixed_fft_psd_kernel<false>;
-  const size_t smem = static_cast<size_t>(K / 2) * sizeof(double2);
-  const int err = raise_smem(kernel, smem, mixed_smem_set[rader >= 0]);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const double2* tw2 = reinterpret_cast<const double2*>(tw);
+  if (rader >= 0) {
+    MixedPlan plan;
+    int threads = 0;
+    if (!load_plan(stages, n_stages, split, rader, K / 2, &plan, &threads))
+      return static_cast<int>(bad);
+    const size_t smem = static_cast<size_t>(K / 2) * sizeof(double2);
+    const int err =
+        raise_smem(stft_mixed_rader_psd_kernel, smem, mixed_smem_set[3]);
+    if (err != 0) return err;
+    const unsigned blocks =
+        static_cast<unsigned>(B) * static_cast<unsigned>(T);
+    stft_mixed_rader_psd_kernel<<<blocks, threads, smem, st>>>(
+        x, win, perm, tw2, wts, out, part_min, part_max, n, T, F, K, hop,
+        detrend, log10_out, with_stats, plan);
+    return static_cast<int>(cudaGetLastError());
+  }
+  MixRegPlan plan;
+  int rmax = 0;
+  if (!mixed_register_plan(stages, n_stages, split, K / 2, &plan, &rmax))
+    return static_cast<int>(bad);
+  const int variant = rmax / 4;                 // 0, 1, 2
+  const auto kernel = variant == 0   ? stft_mixed_fft_psd_kernel<0>
+                      : variant == 1 ? stft_mixed_fft_psd_kernel<4>
+                                     : stft_mixed_fft_psd_kernel<8>;
+  const size_t smem =
+      static_cast<size_t>(plan.frames) * (K / 2) * sizeof(double2);
+  const int err = raise_smem(kernel, smem, mixed_smem_set[variant]);
   if (err != 0) return err;
-  const unsigned blocks = static_cast<unsigned>(B) * static_cast<unsigned>(T);
-  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, win, perm, reinterpret_cast<const double2*>(tw), wts, out, part_min,
-      part_max, n, T, F, K, hop, detrend, log10_out, with_stats, plan);
+  const int R = B * T;
+  const unsigned blocks =
+      static_cast<unsigned>((R + plan.frames - 1) / plan.frames);
+  kernel<<<blocks, MIX_THREADS, smem, st>>>(x, win, perm, tw2, wts, out,
+                                             part_min, part_max, n, R, T, F,
+                                             K, hop, detrend, log10_out,
+                                             with_stats, plan);
   return static_cast<int>(cudaGetLastError());
 }
 

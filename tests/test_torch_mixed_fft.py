@@ -4,7 +4,9 @@ csrc/stft_psd.cu::stft_mixed_fft_psd_kernel), held on the CPU through a
 numpy model of the kernel's exact algorithm
 (``tools/torch_precision.py::psd_mixed_fft``: the same digit-reversed load,
 the same stage order and butterflies, the same host twiddle rows) and a
-scalar transcription of the kernel's thread loops.
+scalar transcription of the stage-at-a-time thread loops (``run_stages``)
+that the Rader, odd and Bluestein kernels run; the mixed-radix kernel's
+own passes are transcribed in ``tests/test_torch_mixed_registers.py``.
 
 The model is held to the kernels' plain version (``stft_psd_reference``,
 a float64 dense DFT) in float64, to the JAX package's Pallas kernel in
@@ -184,8 +186,8 @@ def _cuda_constant(name):
 
 
 def _threads(n, p_max):
-    """The mixed-radix kernels' block for an n-point transform (their
-    launchers' rule, ``load_plan``): n/2 threads rounded up to a warp, 32
+    """The stage-at-a-time kernels' block for an n-point transform (their
+    launchers' rule, ``load_plan``; the Rader, odd and Bluestein kernels): n/2 threads rounded up to a warp, 32
     to 512, widened to a warp multiple that holds the largest radix's
     (p + 1)/2 output pairs."""
     fft = min(512, max(32, (2 * n // 4 + 31) // 32 * 32))
@@ -228,10 +230,12 @@ def test_generic_stage_rounds_fit_the_block():
 
 
 def _kernel_loops(frame, window, plan, F, detrend):
-    """The mixed-radix kernel's thread loops for one frame, transcribed
-    scalar by scalar from csrc/stft_psd.cu (each round of a stage reads
-    its butterflies' slots before it writes them): its index arithmetic,
-    run before any card."""
+    """The stage-at-a-time thread loops (``run_stages``: stage_radix2,
+    stage_odd, stage_generic, which the Rader, odd and Bluestein kernels
+    run) for one frame, with the even kernels' load and epilogue,
+    transcribed scalar by scalar from csrc/stft_psd.cu (each round of a
+    stage reads its butterflies' slots before it writes them): their index
+    arithmetic, run before any card."""
     tw = plan.twiddles[:, 0] + 1j * plan.twiddles[:, 1]
 
     def cmul(w, y):
@@ -321,7 +325,7 @@ def _loops_against_model(nperseg, onesided, detrend, seed):
     (96, True), (100, False), (224, True), (352, True), (386, True),
     (4576, True)])
 def test_kernel_loops_are_the_model(nperseg, onesided):
-    """The kernel's indexing, transcribed, computes the model's transform
+    """run_stages's indexing, transcribed, computes the model's transform
     bitwise (386: M = 193, one generic stage wider than K/4 threads; 4576:
     two generic stages, the second at span 13)."""
     got, want, _ = _loops_against_model(nperseg, onesided, "constant",

@@ -358,9 +358,14 @@ def psd_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
                   wts: np.ndarray, detrend: str = "none",
                   round_f32: bool = True) -> np.ndarray:
     """(T, F) PSD by the mixed-radix FFT kernel's arithmetic
-    (``csrc/stft_psd.cu::stft_mixed_fft_psd_kernel``), in float64, with
-    ``plan`` = ``core/stft.py::fft_plan(nperseg)``, K = nperseg even, M =
-    K/2:
+    (``csrc/stft_psd.cu::stft_mixed_fft_psd_kernel``, and with a Rader
+    stage ``stft_mixed_rader_psd_kernel``), in float64, with ``plan`` =
+    ``core/stft.py::fft_plan(nperseg)``, K = nperseg even, M = K/2. The
+    kernel groups the plan's stages into passes (radix-2 stages up to four
+    in registers, a generic prime's outputs blocked over warps), which
+    moves values, not arithmetic: each butterfly's expressions and the
+    order of its sums are these (``tests/test_torch_mixed_registers.py``
+    transcribes the passes and holds them to this model bit for bit):
 
     - v = (frame - line) · window (:func:`detrended`); z[m] = v[2m] + i
       v[2m + 1] stored at slot perm[m] (the mixed-radix digit reversal, or
@@ -648,6 +653,7 @@ SWEEP = [
 MIXED_SWEEP = [
     ("north_star 960/240", SpecConfig.north_star(960, 240)),
     ("scipy_default 992", SpecConfig.scipy_default(992)),
+    ("scipy_default 4192", SpecConfig.scipy_default(4192)),
     ("scipy_default 7968", SpecConfig.scipy_default(7968)),
     ("scipy_default 8032", SpecConfig.scipy_default(8032)),
     ("scipy_default 8160", SpecConfig.scipy_default(8160)),

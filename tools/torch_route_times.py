@@ -12,12 +12,13 @@ for scipy_default 1024, north_star 1024/256 and scipy_default 992 (the
 mixed-radix route), or scipy_default at each ``--nperseg`` given, under
 each config's own detrend or ``--detrend``, with CUDA events, median of 5
 after a warm-up. ``--paths`` times instead the STFT/PSD configs of
-``chip_smoke.py``'s paths 1-9 at their batches (1024 clips of 10 s at
+``chip_smoke.py``'s paths 1-10 at their batches (1024 clips of 10 s at
 north_star 1024/256, the export's config too; 256 clips of 60 s at
 scipy_default 8192, 8160, 8032, 8160 under linear detrend, 8191, 8185
-and 8182). ``--route`` (gemm, fft, mixed, odd or bluestein) forces that
-kernel through ``stft_psd``'s module-private ``_route`` on the configs
-that allow it and skips the others; ``--route mixed`` also takes the
+and 8182; 1024 clips of 10 s at scipy_default 24). ``--route`` (gemm,
+fft, mixed, odd or bluestein) forces that kernel through ``stft_psd``'s
+module-private ``_route`` on the configs that allow it and skips the
+others; ``--route mixed`` also takes the
 power-of-two configs, whose plan is all radix-2 stages, and reports the
 largest difference from the radix-2 kernel's PSD relative to its max.
 ``--frames-alone`` launches the odd kernel with every frame transformed
@@ -25,7 +26,8 @@ alone (its packing off). Pointed at an older checkout it times that
 checkout's kernels, so one call on one card compares two versions: run it
 for the older, this, this and the older again.
 
-Needs one CUDA card. Prints one JSON line: the root, the card's name and
+A launch that fails is reported as such for its config, and the others
+run on. Needs one CUDA card. Prints one JSON line: the root, the card's name and
 power limit, and per config the median, every repeat, the launch counts
 the calls added and a SHA-256 of the first 64 clips' PSD bytes (equal
 digests in two checkouts: bitwise-equal PSDs).
@@ -55,7 +57,7 @@ def main(argv=None) -> None:
                     choices=("gemm", "fft", "mixed", "odd", "bluestein"),
                     help="force this kernel where the config allows it")
     ap.add_argument("--paths", action="store_true",
-                    help="time chip_smoke.py's paths 1-9 configs and batches")
+                    help="time chip_smoke.py's paths 1-10 configs and batches")
     ap.add_argument("--frames-alone", action="store_true",
                     help="the odd kernel without its packing")
     ap.add_argument("--nperseg", type=int, nargs="*",
@@ -120,8 +122,11 @@ def main(argv=None) -> None:
             ("path 8 scipy_default 8185",
              SpecConfig.scipy_default(8185, log_scale=True)),
             ("path 9 scipy_default 8182",
-             SpecConfig.scipy_default(8182, log_scale=True))]
-        shape = {name: (CLIPS, SECONDS) if name.startswith("path 1")
+             SpecConfig.scipy_default(8182, log_scale=True)),
+            ("path 10 scipy_default 24",
+             SpecConfig.scipy_default(24, log_scale=True))]
+        shape = {name: (CLIPS, SECONDS) if name.startswith(("path 1 ",
+                                                            "path 10"))
                  else (256, 60.0) for name, _ in configs}
     for name, cfg in configs:
         x = batch(*shape[name])
@@ -150,7 +155,12 @@ def main(argv=None) -> None:
                 report[name] = f"no {args.route} route"
                 continue
         before = json.loads(json.dumps(stft_cuda.launches))
-        psd = call(x)[0]                         # build, warm up
+        print(name, file=sys.stderr, flush=True)
+        try:
+            psd = call(x)[0]                     # build, warm up
+        except RuntimeError as err:              # a launch the kernel refused
+            report[name] = f"launch failed: {err}"
+            continue
         digest = hashlib.sha256(psd[:64].cpu().numpy().tobytes()).hexdigest()
         del psd
         torch.cuda.synchronize()
