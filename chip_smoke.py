@@ -18,7 +18,9 @@ launch at a buffer just under 48 KB, in a fresh process; the odd kernel
 at nperseg 33-8191 under every detrend, with and without a Rader stage,
 and on frames that its pairing must keep apart; the Bluestein kernel on
 one block at 563-8182 and on a cluster of two at 7207-8189, the same way, and
-forced at 33, 1024, 8032 and 8191; the GEMM kernel forced beside them)
+forced at 33, 1024, 8032 and 8191; the ptxas registers and spills of the
+odd and Bluestein kernels' instantiations; the GEMM kernel forced beside
+them)
 and the display kernel in both output modes, with and without the float
 image. Then it drives ten paths at full size, each with the launch counts
 set to 0 just before it and read just after:
@@ -52,7 +54,9 @@ set to 0 just before it and read just after:
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
-with CUDA events: the library yardstick of the STFT kernels is cuFFT's
+with CUDA events (also scipy_default 1024, 992, 2049 and 8186, the
+mixed-radix kernel's Rader stage, on path 1's batch): the library
+yardstick of the STFT kernels is cuFFT's
 float64 real transform of the same frames (``library_psd``), which the
 port never calls. The GEMM kernel is also timed on paths 1, 2 and 4-9,
 and the Bluestein kernel on paths 2 and 4-7, forced through
@@ -92,10 +96,16 @@ PRIME_NPERSEG = 8032    # 32 * 251: the GUI's largest odd prime factor
 ODD_NPERSEG = 8191      # a prime off the GUI's grid: the odd route, Rader
 BLUESTEIN_NPERSEG = 8185  # 5 * 1637, 1636 = 2^2 409: Bluestein, a cluster
 BLUESTEIN_EVEN_NPERSEG = 8182   # 2 * 4091, 4090 = 2 5 409: one block
+RADER_NPERSEG = 8186    # 2 * 4093, 4092 = 2^2 3 11 31: the mixed-radix
+                        # kernel's Rader stage (stft_mixed_rader_psd_kernel)
 GEMM_NPERSEG = 24       # below the FFT kernels' 32: the GEMM kernel
 # the odd route's kernel cases, and the Rader stage's on the mixed-radix
-# kernel (514 = 2 * 257, 8186 = 2 * 4093)
-ODD_CASES = (33, 45, 257, 514, 1021, 1023, 4093, 8186, 8191)
+# kernel (514 = 2 * 257, 8186 = 2 * 4093): each of the odd kernel's eight
+# instantiations <RADER, RMAX> (conv_plan), without a Rader stage 45 <0, 0>,
+# 33 and 1023 <0, 1>, 8181 <0, 4>, 8183 <0, 8>, with one 257 <1, 0>, 1021
+# <1, 1>, 4093 and 8191 <1, 4>, 7487 <1, 8>
+ODD_CASES = (33, 45, 257, 514, 1021, 1023, 4093, 7487, 8181, 8183, 8186,
+             8191)
 # the Bluestein route's kernel cases: even (1126 = 2 563, 8182 = 2 4091),
 # odd on one block (563, 2049 = 3 683, and 7201 at the block's budget, M =
 # 14406) and on a cluster of two (7207, M = 14580; 8185, 8189, M = 16384)
@@ -354,6 +364,14 @@ def build_kernels():
           + "; ".join(radix2_ptxas(info["log"])))
     print("mixed-radix kernel (stft_mixed_fft_psd_kernel<RMAX>), ptxas: "
           + "; ".join(mixed_ptxas(info["log"])))
+    print("odd kernel (stft_odd_fft_psd_kernel<RADER, RMAX>), ptxas: "
+          + "; ".join(radix2_ptxas(
+              info["log"], r"stft_odd_fft_psd_kernelILb(\d)ELi(\d+)E",
+              lambda e: f"RADER {e.group(1)}, RMAX {e.group(2)}")))
+    print("Bluestein kernel (stft_bluestein_psd_kernel<RANKS, TWO>), ptxas: "
+          + "; ".join(radix2_ptxas(
+              info["log"], r"stft_bluestein_psd_kernelILi(\d)ELb(\d)E",
+              lambda e: f"RANKS {e.group(1)}, TWO {e.group(2)}")))
     build.load_library("stft_psd")
 
 
@@ -839,7 +857,8 @@ def scipy_checks(dev, card):
     float32 chain (tools/torch_precision.py): scipy_default 1024 on
     noise + 3, and north_star 1024/256 on the sweep's worst clips, all on
     the FFT route; then the kernels' times at scipy_default 1024 (FFT),
-    992 (mixed radix) and 2049 (Bluestein on one block), each beside the
+    992 (mixed radix), 2049 (Bluestein on one block) and 8186 (the
+    mixed-radix kernel's Rader stage), each beside the
     GEMM kernel, on the display spine's batch."""
     import numpy as np
     import torch
@@ -874,7 +893,8 @@ def scipy_checks(dev, card):
     gen = torch.Generator(device=dev).manual_seed(3)
     xb = torch.randn((BATCH, n), generator=gen, device=dev) + 3.0
     for c in (cfg, SpecConfig.scipy_default(992),
-              SpecConfig.scipy_default(2049)):
+              SpecConfig.scipy_default(2049),
+              SpecConfig.scipy_default(RADER_NPERSEG)):
         kernel = stft_cuda.route(c)
         consts = stft_cuda.dft_constants(c, FS, dev)
         k_ms = time_ms(lambda: stft_cuda.stft_psd(xb, FS, c, with_stats=True))

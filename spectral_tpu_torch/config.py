@@ -61,7 +61,7 @@ class SpecConfig:
     # Precision tier: 'accurate' (the 1e-3 dB display contract) or 'fast'
     # (a display-only tier). The port runs both at the contract precision,
     # as the JAX package's Pallas kernel does, until the fast tier lands
-    # (ROADMAP queue 1 item 9).
+    # (ROADMAP [ext-modes]).
     precision: str = "accurate"
 
     def __post_init__(self):

@@ -509,7 +509,7 @@ def _require_dense_psd(cfg: SpecConfig) -> None:
         raise NotImplementedError(
             "the port computes uncentered PSD spectrograms only; centered "
             "framing and the magnitude/complex modes arrive with ROADMAP "
-            "queue 1 item 8 (the extended modes)")
+            "[ext-modes] (the extended modes)")
 
 
 def power_spectrogram(x, fs: float, cfg: SpecConfig) -> torch.Tensor:

@@ -389,12 +389,8 @@ __device__ __forceinline__ double2 frame_line(const float* frame, int K,
   return make_double2(s.x / K, detrend == DETREND_LINEAR ? s.y / d : 0.0);
 }
 
-// Reads of transform output i from the FFT kernels' buffers
-struct PlainRead {               // the mixed-radix kernels', no Rader stage
-  const double2* buf;
-  __device__ double2 operator()(int i) const { return buf[i]; }
-};
-// With a Rader stage of P = N - 1 points (mixed_transform): X[0] is the
+// Reads of transform output i from the mixed-radix Rader kernel's buffer:
+// with a Rader stage of P = N - 1 points (mixed_transform), X[0] is the
 // block's sum, X[i] = x[0] + slot map[i] for i > 0, x[0] kept in slot P
 struct RaderRead {
   const double2* buf;
@@ -891,8 +887,9 @@ __device__ __forceinline__ double2 cmul(double2 w, double2 y) {
 }
 
 // The stages one at a time through shared memory, the first design, which the
-// Rader, odd and Bluestein kernels run (run_stages, mixed_transform): one
-// trip and one barrier a stage, a generic stage's thread one output pair.
+// mixed-radix kernel's Rader plans still run (run_stages, mixed_transform):
+// one trip and one barrier a stage, a generic stage's thread one output
+// pair. The odd and Bluestein kernels run the pass engine (conv_*) below.
 // Each stage below is decimation in time, or with DIF its transpose: the
 // stages run in reverse order, each butterfly's p-point DFT first and the
 // twiddles on its outputs (the DFT matrix is symmetric, so the transposed
@@ -1060,24 +1057,16 @@ __device__ __forceinline__ void run_stages(double2* buf, double2* roots,
 }
 
 // The N-point transform of the values the plan's load order put in buf,
-// in place: the plan's stages in time, output in natural order. With a
-// Rader stage (RADER, plan.rader >= 0; N a prime p, P = p - 1; slots
-// 0..P-1 hold x[g^q] at slot q, slot P holds x[0]): the P-point stages in
-// frequency (digit-reversed output), X[0] = x[0] + slot 0 into *sum, each
-// slot times its row of b^ (the host's DFT of W_p^(g^-q) over P, in slot
-// order), then the stages in time; X[i] for i > 0 is x[0] + slot perm[i]
-// (RaderRead). Ends at a barrier. The odd kernel is instantiated with and
-// without the Rader stage, so its plans without one run the code they ran
-// before it existed (the same registers and spills).
-template <bool RADER>
+// in place, with a Rader stage (plan.rader >= 0; N a prime p, P = p - 1;
+// slots 0..P-1 hold x[g^q] at slot q, slot P holds x[0]): the P-point
+// stages in frequency (digit-reversed output), X[0] = x[0] + slot 0 into
+// *sum, each slot times its row of b^ (the host's DFT of W_p^(g^-q) over
+// P, in slot order), then the stages in time; X[i] for i > 0 is x[0] +
+// slot perm[i] (RaderRead). Ends at a barrier.
 __device__ __forceinline__ void mixed_transform(double2* buf, double2* roots,
                                                 const double2* __restrict__ tw,
                                                 const MixedPlan& plan, int N,
                                                 double2* sum) {
-  if (!RADER) {
-    run_stages<false>(buf, roots, tw, plan, N);
-    return;
-  }
   const int P = N - 1;
   run_stages<true>(buf, roots, tw, plan, P);
   for (int s = threadIdx.x; s < P; s += blockDim.x) {
@@ -1095,7 +1084,7 @@ __device__ __forceinline__ void mixed_transform(double2* buf, double2* roots,
 // The mixed-radix kernel with a Rader stage (K/2 a prime p past
 // MIX_MAX_RADIX whose p - 1 has no odd prime past it): one frame a block,
 // the plan's stages through shared memory one at a time (mixed_transform),
-// the old structure that the odd and Bluestein kernels share.
+// the first design.
 __global__ void __launch_bounds__(FFT_MAX_THREADS, MIX_MIN_BLOCKS)
 stft_mixed_rader_psd_kernel(const float* __restrict__ x,
                             const double* __restrict__ win,
@@ -1134,7 +1123,7 @@ stft_mixed_rader_psd_kernel(const float* __restrict__ x,
   }
   __syncthreads();
 
-  mixed_transform<true>(buf, roots, tw, plan, M, &x_sum);
+  mixed_transform(buf, roots, tw, plan, M, &x_sum);
   split_psd_epilogue(RaderRead{buf, perm, &x_sum, M - 1}, tw + plan.split,
                      wts, out, part_min, part_max, red_lo, red_hi, r, F, K,
                      log10_out, with_stats);
@@ -1186,9 +1175,10 @@ FastDiv make_fastdiv(unsigned d) {
 // One pass: radix 2^B (B radix-2 stages at spans L, 2L, ..., twiddle rows
 // tw[0..B-1]) or an odd prime p (one stage at span L, its twiddle rows from
 // tw[0], its roots from root). A butterfly b of the block's frames: frame
-// b div nb, j = b mod nb; radix 2: k = j mod L fastest, group j div L; odd:
-// group j mod G fastest (G = M / (L p)), k = j div G (inner divides by L
-// or G). lp divides by L p.
+// b div nb, j = b mod nb; radix 2 (and with KFAST, mix_base's, every pass
+// of the conv kernels, whose plans divide by L): k = j mod L fastest,
+// group j div L; odd: group j mod G fastest (G = M / (L p)), k = j div G
+// (inner divides by L or G). lp divides by L p.
 struct MixPass {
   int radix;
   int span;
@@ -1207,14 +1197,21 @@ struct MixRegPlan {
   MixPass pass[MIX_MAX_PASSES];
 };
 
-// The first slot of butterfly b of pass ps (its values at + q L) and its k
+// The first slot of butterfly b of pass ps (its values at + q L) and its
+// k. KFAST (every pass of the conv kernels): k fastest in the odd and
+// generic passes too. The mixed kernel keeps the group fastest there: on
+// the card KFAST made it slower at 8160 (path 4 3.643 ms against 3.606,
+// path 6 3.731 against 3.706) and faster at 8032 (path 5 7.979 against
+// 8.072), the small plans within 0.6% (tools/torch_kernel_variants.py
+// mixed, kfast; NVIDIA H100 80GB HBM3, 700 W).
+template <bool KFAST = false>
 __device__ __forceinline__ int mix_base(const MixPass& ps, int M, int b,
                                         int& k) {
   const int f = static_cast<int>(ps.nb.div(b));
   const int j = b - f * static_cast<int>(ps.nb.d);
   const int L = ps.span;
   int g;
-  if (ps.radix % 2 == 0) {
+  if (KFAST || ps.radix % 2 == 0) {
     g = static_cast<int>(ps.inner.div(j));
     k = j - g * L;
   } else {
@@ -1224,9 +1221,19 @@ __device__ __forceinline__ int mix_base(const MixPass& ps, int M, int b,
   return f * M + g * L * ps.radix + k;
 }
 
+// The radix-2 butterfly in frequency, stage_radix2<true>'s: (a, b) <- (a +
+// b, w (a - b))
+__device__ __forceinline__ void r2_dif_butterfly(double2& a, double2& b,
+                                                 double2 w) {
+  const double2 a0 = a;
+  a = make_double2(a0.x + b.x, a0.y + b.y);
+  b = cmul(w, make_double2(a0.x - b.x, a0.y - b.y));
+}
+
 // Radix-2 stage S of a pass of R values in registers: values i and i + 2^S
-// (bit S of i clear) at span L 2^S, with the row row + k + L (i mod 2^S)
-template <int R, int S>
+// (bit S of i clear) at span L 2^S, with the row row + k + L (i mod 2^S);
+// with DIF its transpose, on the same values with the same row
+template <int R, int S, bool DIF = false>
 __device__ __forceinline__ void mix_r2_stage(double2 (&v)[R],
                                              const double2* __restrict__ tw,
                                              int row, int k, int L) {
@@ -1236,18 +1243,55 @@ __device__ __forceinline__ void mix_r2_stage(double2 (&v)[R],
 #pragma unroll
     for (int hi = 0; hi < (R >> (S + 1)); ++hi) {
       const int i = t | (hi << (S + 1));
-      r2_butterfly(v[i], v[i | (1 << S)], w);
+      if constexpr (DIF)
+        r2_dif_butterfly(v[i], v[i | (1 << S)], w);
+      else
+        r2_butterfly(v[i], v[i | (1 << S)], w);
     }
   }
 }
 
+// A radix-2^B pass's stages on its values in registers: in time stage S at
+// span L 2^S, its rows from ps.tw[S], S ascending; in frequency (DIF) the
+// same stages transposed, S descending
+template <int B, bool DIF>
+__device__ __forceinline__ void mix_r2_stages(double2 (&v)[1 << B],
+                                              const double2* __restrict__ tw,
+                                              const MixPass& ps, int k,
+                                              int L) {
+  constexpr int R = 1 << B;
+  if constexpr (DIF) {
+    if constexpr (B > 3) mix_r2_stage<R, 3, true>(v, tw, ps.tw[3], k, L);
+    if constexpr (B > 2) mix_r2_stage<R, 2, true>(v, tw, ps.tw[2], k, L);
+    if constexpr (B > 1) mix_r2_stage<R, 1, true>(v, tw, ps.tw[1], k, L);
+    mix_r2_stage<R, 0, true>(v, tw, ps.tw[0], k, L);
+  } else {
+    mix_r2_stage<R, 0>(v, tw, ps.tw[0], k, L);
+    if constexpr (B > 1) mix_r2_stage<R, 1>(v, tw, ps.tw[1], k, L);
+    if constexpr (B > 2) mix_r2_stage<R, 2>(v, tw, ps.tw[2], k, L);
+    if constexpr (B > 3) mix_r2_stage<R, 3>(v, tw, ps.tw[3], k, L);
+  }
+}
+
+// Slot s's place in a buffer: s with its low three bits XORed with bits
+// shift to shift + 2 under mask 7 (the conv kernels' power-of-two
+// transforms; a bijection on each eight aligned slots), or s itself under
+// mask 0 (every other transform, the mixed kernel's)
+struct SlotMap {
+  int mask, shift;
+  __device__ __forceinline__ int operator()(int s) const {
+    return s ^ ((s >> shift) & mask);
+  }
+};
+
 // B radix-2 stages in registers (stage S at span L 2^S, its rows from
-// ps.tw[S])
-template <int B>
+// ps.tw[S]), in time or (DIF) in frequency, at the slots map gives
+template <int B, bool DIF = false>
 __device__ __forceinline__ void mix_r2_pass(double2* buf,
                                             const double2* __restrict__ tw,
                                             const MixPass& ps, int M,
-                                            int nbt) {
+                                            int nbt,
+                                            SlotMap map = SlotMap{0, 0}) {
   constexpr int R = 1 << B;
   const int L = ps.span;
   for (int b = threadIdx.x; b < nbt; b += blockDim.x) {
@@ -1255,19 +1299,18 @@ __device__ __forceinline__ void mix_r2_pass(double2* buf,
     const int base = mix_base(ps, M, b, k);
     double2 v[R];
 #pragma unroll
-    for (int q = 0; q < R; ++q) v[q] = buf[base + q * L];
-    mix_r2_stage<R, 0>(v, tw, ps.tw[0], k, L);
-    if constexpr (B > 1) mix_r2_stage<R, 1>(v, tw, ps.tw[1], k, L);
-    if constexpr (B > 2) mix_r2_stage<R, 2>(v, tw, ps.tw[2], k, L);
-    if constexpr (B > 3) mix_r2_stage<R, 3>(v, tw, ps.tw[3], k, L);
+    for (int q = 0; q < R; ++q) v[q] = buf[map(base + q * L)];
+    mix_r2_stages<B, DIF>(v, tw, ps, k, L);
 #pragma unroll
-    for (int q = 0; q < R; ++q) buf[base + q * L] = v[q];
+    for (int q = 0; q < R; ++q) buf[map(base + q * L)] = v[q];
   }
 }
 
 // radix P = 3, 5 or 7: a butterfly a thread in registers, stage_odd's
-// arithmetic, the roots from shared memory (staged by the kernel)
-template <int P>
+// arithmetic, the roots from shared memory (staged by the kernel); in time
+// the twiddles on the inputs, in frequency (DIF) on the outputs; KFAST,
+// k fastest across the lanes (mix_base)
+template <int P, bool DIF = false, bool KFAST = false>
 __device__ __forceinline__ void mix_odd_pass(double2* buf,
                                              const double2* roots,
                                              const double2* __restrict__ tw,
@@ -1277,11 +1320,11 @@ __device__ __forceinline__ void mix_odd_pass(double2* buf,
   const int L = ps.span;
   for (int b = threadIdx.x; b < nbt; b += blockDim.x) {
     int k;
-    const int base = mix_base(ps, M, b, k);
+    const int base = mix_base<KFAST>(ps, M, b, k);
     double2 y[P];
 #pragma unroll
     for (int q = 0; q < P; ++q) y[q] = buf[base + q * L];
-    if (L > 1) {
+    if (!DIF && L > 1) {
 #pragma unroll
       for (int q = 1; q < P; ++q)
         y[q] = cmul(tw[ps.tw[0] + (q - 1) * L + k], y[q]);
@@ -1296,6 +1339,15 @@ __device__ __forceinline__ void mix_odd_pass(double2* buf,
         ai += (y[q].y + y[P - q].y) * c.x;
         br += (y[q].x - y[P - q].x) * c.y;
         bi += (y[q].y - y[P - q].y) * c.y;
+      }
+      if (DIF && L > 1 && m > 0) {
+        buf[base + m * L] =
+            cmul(tw[ps.tw[0] + (m - 1) * L + k],
+                 make_double2(ar - bi, ai + br));
+        buf[base + (P - m) * L] =
+            cmul(tw[ps.tw[0] + (P - m - 1) * L + k],
+                 make_double2(ar + bi, ai - br));
+        continue;
       }
       buf[base + m * L] = make_double2(ar - bi, ai + br);
       if (m > 0) buf[base + (P - m) * L] = make_double2(ar + bi, ai - br);
@@ -1390,10 +1442,18 @@ __device__ __forceinline__ void mix_generic_sums(
 // outputs from them (stage_generic's sums, in the same order); the warp's
 // lanes read the same root at each step (a broadcast). Rounds of whole
 // butterflies: a round reads, holds its outputs in registers across a
-// barrier and writes them. At L > 1 a twiddle pass over every slot runs
-// first, with the roots' load (groups h RM roots at most for the
-// compile-time primes, 240 at 31).
-template <int P, int RMAX>
+// barrier and writes them. In time, at L > 1 a twiddle pass over every
+// slot runs first, with the roots' load (groups h RM roots at most for the
+// compile-time primes, 240 at 31); in frequency (DIF) each lane twiddles
+// its outputs as it writes them, stage_generic<true>'s. NARROW (the odd
+// kernel's plans with a small generic pass or block, conv_plan) runs the
+// pass as stage_generic does instead, a thread an output pair (m, p - m),
+// m = t mod (h + 1), of butterfly t div (h + 1), the roots staged in
+// order, with no lane sums compiled in: a lane's 4 or 8 outputs would
+// leave most of a small block idle on long chains (nperseg 263, P = 2 131:
+// 33 ms against 5.6 at 8191 on the card). KFAST: k fastest (mix_base).
+template <int P, int RMAX, bool DIF = false, bool NARROW = false,
+          bool KFAST = false>
 __device__ __forceinline__ void mix_generic_pass(
     double2* buf, double2* roots, const double2* __restrict__ tw,
     const MixPass& ps, int M, int frames, int nbt) {
@@ -1414,13 +1474,56 @@ __device__ __forceinline__ void mix_generic_pass(
   } else {
     for (int i = tid; i < p; i += blockDim.x) roots[i] = tw[ps.root + i];
   }
-  if (L > 1) {
+  if (!DIF && L > 1) {
     for (int s = tid; s < frames * M; s += blockDim.x) {
       const int r = s - static_cast<int>(ps.lp.div(s) * ps.lp.d);   // q L + k
       if (r >= L) buf[s] = cmul(tw[ps.tw[0] + r - L], buf[s]);
     }
   }
   __syncthreads();
+  if constexpr (NARROW) {
+    static_assert(P == 0, "a narrow pass reads its roots in order");
+    const int per = static_cast<int>(blockDim.x) / (h + 1);
+    const int m = tid % (h + 1);
+    const int j = tid / (h + 1);
+    for (int b0 = 0; b0 < nbt; b0 += per) {
+      const int b = b0 + j;
+      const bool on = j < per && b < nbt;
+      double ar = 0.0, ai = 0.0, br = 0.0, bi = 0.0;
+      int base = 0;
+      int k = 0;
+      if (on) {
+        base = mix_base<KFAST>(ps, M, b, k);
+        const double2 y0 = buf[base];
+        ar = y0.x;
+        ai = y0.y;
+        int idx = 0;                         // q m mod p
+        for (int q = 1; q <= h; ++q) {
+          idx += m;
+          if (idx >= p) idx -= p;
+          const double2 c = roots[idx];
+          const double2 u = buf[base + q * L];
+          const double2 v = buf[base + (p - q) * L];
+          ar += (u.x + v.x) * c.x;
+          ai += (u.y + v.y) * c.x;
+          br += (u.x - v.x) * c.y;
+          bi += (u.y - v.y) * c.y;
+        }
+      }
+      __syncthreads();
+      if (on) {
+        double2 lo = make_double2(ar - bi, ai + br);
+        double2 hi = make_double2(ar + bi, ai - br);
+        if (DIF && L > 1 && m > 0) {
+          lo = cmul(tw[ps.tw[0] + (m - 1) * L + k], lo);
+          hi = cmul(tw[ps.tw[0] + (p - m - 1) * L + k], hi);
+        }
+        buf[base + m * L] = lo;
+        if (m > 0) buf[base + (p - m) * L] = hi;
+      }
+    }
+    return;
+  } else {
   const int groups = (h + RM) / RM;
   const int warp = tid >> 5;
   const int per_round = static_cast<int>(blockDim.x >> 5) / groups;
@@ -1432,9 +1535,9 @@ __device__ __forceinline__ void mix_generic_pass(
     const bool on = chunk < per_round && b < nbt;
     double ar[RMAX], ai[RMAX], br[RMAX], bi[RMAX];
     int base = 0;
+    int k = 0;
     if (on) {
-      int k;
-      base = mix_base(ps, M, b, k);
+      base = mix_base<KFAST>(ps, M, b, k);
       mix_generic_sums<P, RMAX>(buf, roots, base, L, p, m0, ar, ai, br, bi);
     }
     __syncthreads();
@@ -1443,13 +1546,18 @@ __device__ __forceinline__ void mix_generic_pass(
       for (int i = 0; i < RM; ++i) {
         const int m = m0 + i;
         if (m <= h) {
-          buf[base + m * L] = make_double2(ar[i] - bi[i], ai[i] + br[i]);
-          if (m > 0)
-            buf[base + (p - m) * L] = make_double2(ar[i] + bi[i],
-                                                   ai[i] - br[i]);
+          double2 lo = make_double2(ar[i] - bi[i], ai[i] + br[i]);
+          double2 hi = make_double2(ar[i] + bi[i], ai[i] - br[i]);
+          if (DIF && L > 1 && m > 0) {
+            lo = cmul(tw[ps.tw[0] + (m - 1) * L + k], lo);
+            hi = cmul(tw[ps.tw[0] + (p - m - 1) * L + k], hi);
+          }
+          buf[base + m * L] = lo;
+          if (m > 0) buf[base + (p - m) * L] = hi;
         }
       }
     }
+  }
   }
 }
 
@@ -1664,275 +1772,331 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// The odd route: odd nperseg K = 33-8191 whose transform the mixed plan
-// takes (every prime of K at most 255, or K itself a prime whose K - 1
-// has none past 255: a Rader stage), any detrend.
+// The pass engine of the odd and Bluestein kernels (conv_*). A block holds
+// one transform of N points (two odd frames, a packed even frame, or one
+// rank's half of a Bluestein convolution) and runs the host plan's stages
+// grouped into the mixed kernel's passes (group_passes): each odd prime a
+// pass, the twos up to four a pass in registers. A Rader or Bluestein
+// convolution runs them in both directions: the passes in frequency (the
+// plan's stages in reverse order, each transposed: a butterfly's p-point
+// DFT first, the twiddles on its outputs; stage_radix2<true>'s,
+// stage_odd<P, true>'s and stage_generic<true>'s arithmetic in their
+// order, tools/torch_precision.py::_stages(dif=True)), each slot's
+// product, then the passes in time. tests/test_torch_conv_registers.py
+// transcribes this geometry and holds it to the numpy models bit for bit.
 //
-// No two samples of one odd frame pack into a complex value, so the
-// kernel packs two frames: block j of clip b takes frames t = 2j and
-// t + 1 of that clip (a clip with odd T leaves its last frame alone). Both
-// frames' detrend lines by block reduction (frame_line); z[i] = v_a[i] +
-// i v_b[i], v = ((double)frame[i] - mean - slope (i - c)) * win[i], at
-// slot perm[i]; the K-point transform (mixed_transform: the radix stages
-// of the mixed-radix kernel, with or without the Rader stage); then, with
-// Z the transform, the two frames' bins
+// What bounds it. The function is bound by bytes, 0.46 ms on paths 7-9
+// (PERF.md). The first design (run_stages) made one trip through shared
+// memory and one barrier a stage, reloaded an odd stage's roots behind a
+// barrier of its own, and read all p inputs of a generic butterfly for each
+// of its (p + 1)/2 output pairs: 27 trips a frame at path 9 (M = 8192), 13
+// in each direction. What is left is a trip a pass, the generic passes'
+// DFMA and latency: at these sizes a block holds one transform, and its
+// buffer (up to 225 KB) keeps one block on an SM.
 //
-//   A[f] = (Z[f] + conj Z[K - f]) / 2,  B[f] = (Z[f] - conj Z[K - f]) / 2i
+// What the design does about it:
 //
-// (indices mod K) and the PSD epilogue of both rows.
-//
-// Packing couples the frames: a pair's transform rounds at the scale of
-// the louder frame, so a quiet frame beside a loud one would take the
-// loud one's rounding (about (eps |A|)^2 in its bins, where the plain
-// version of an all-zero frame gives exact zeros), and a NaN would spread
-// to both. The load's block reduction sums each frame's energy (v^2), and
-// a pair shares a transform only if both sums are finite and positive and
-// within PAIR_MAX_RATIO of each other; else each frame is transformed
-// alone, z = v + 0i, X[f] = Z[f]. So a frame's bins never depend on a
-// frame that is not finite, is all zero or is 48 dB louder.
-//
-// What bounds it: as the mixed-radix kernel, shared memory and the
-// generic stages' float64 arithmetic; a Rader stage runs two (K - 1)-point
-// transforms for one K-point transform. The buffer holds K complex
-// float64 values, 131 KB at K = 8191, so one block fits an SM there;
-// packing two frames per transform halves the transforms, as packing two
-// samples does on even K. tools/torch_precision.py::psd_odd_fft is this
-// arithmetic in numpy.
+// - Passes in both directions (conv_pass): the mixed kernel's pass code,
+//   mix_r2_pass, mix_odd_pass and mix_generic_pass, each with a DIF form.
+//   Path 9 makes 7 trips for 27; path 7 (P = 8190: 13, 7, 5, 3, 3, 2) 13
+//   for 13, but the generic 13 reads each input once, and no pass reloads
+//   its roots behind a barrier.
+// - The turn-around fused (conv_turn_r2, conv_turn_odd). The last pass in
+//   frequency and the first in time are the plan's first stage, at span 1:
+//   whole butterflies on contiguous slots. Where that pass is radix 2^B, 3,
+//   5 or 7, one thread runs it in frequency, the product and it in time in
+//   registers: two trips and a barrier fewer. A generic first stage keeps
+//   the trip.
+// - Roots: the plan's radix 3, 5 and 7 roots are staged once
+//   (conv_stage_roots; a radix's roots are the same rows in every pass of a
+//   plan), a generic pass's as the mixed kernel stages them.
+// - Bank conflicts. A power-of-two N (61 Bluestein lengths, paths 8 and 9;
+//   the Rader stage at nperseg 257) runs radix-2 passes only, and the
+//   first, at span 1, gives each lane 2^B contiguous slots, so every lane
+//   of a phase would hit one bank group. There slot s lives at s XOR ((s >>
+//   B0) & 7), B0 = log2 of pass 0's radix (SlotMap), which keeps each eight
+//   aligned slots together and puts the eight lanes of every phase of every
+//   pass, load, product and epilogue on eight groups. Other lengths keep
+//   plain slots (mask 0): their radix-2 passes start at the odd part's
+//   span, and their odd and generic passes never see a mask. Every pass
+//   takes k fastest across the lanes (conv_plan), the stage-at-a-time
+//   design's order, a few lanes a group where a span is below 8
+//   (tests/test_torch_conv_registers.py counts them).
+// - Instantiated by the largest radix (mix_rmax), as the mixed kernel:
+//   Bluestein's M has radices 2-7 and carries no generic code, and runs
+//   two blocks an SM at 64 registers where two buffers fit
+//   (BLUE_TWO_BLOCK_POINTS); the odd
+//   kernel, with and without a Rader stage, takes 0, 4 or 8 output pairs a
+//   generic lane, or 1: generic passes narrow, a thread an output pair, the
+//   stage-at-a-time design's, where a pass has at most 16 butterflies or
+//   the transform is small enough for two blocks an SM (ODD_NARROW_POINTS,
+//   RADER_NARROW_POINTS); the narrow plans, and without a Rader stage
+//   those of radix 3, 5 and 7 passes only, run two blocks an SM at 64
+//   registers (ODD_SMALL_BLOCKS). Registers, not the work, set these: a small
+//   block at 128 registers leaves an SM few warps (nperseg 481 took 9.7 ms
+//   so against the stage-at-a-time kernel's 7.2).
 
-constexpr int ODD_MIN_BLOCKS = 1;    // blocks of 512 threads an SM holds
-constexpr double PAIR_MAX_RATIO = 65536.0;
+constexpr int SMALL_ROOTS = 16;   // the roots of radix 3, 5 and 7
 
-template <bool RADER>
-__global__ void __launch_bounds__(FFT_MAX_THREADS, ODD_MIN_BLOCKS)
-stft_odd_fft_psd_kernel(const float* __restrict__ x,
-                        const double* __restrict__ win,
-                        const int* __restrict__ perm,
-                        const double2* __restrict__ tw,
-                        const double* __restrict__ wts,
-                        float* __restrict__ out, float* __restrict__ part_min,
-                        float* __restrict__ part_max, long long n, int T,
-                        int F, int K, int hop, int detrend, int log10_out,
-                        int with_stats, int pack,
-                        const __grid_constant__ MixedPlan plan) {
-  extern __shared__ double2 buf[];  // K complex values
-  __shared__ double2 roots[MIX_MAX_RADIX + 1];
-  __shared__ double2 red_sum[3][FFT_MAX_WARPS];
-  __shared__ float red_lo[2][FFT_MAX_WARPS];
-  __shared__ float red_hi[2][FFT_MAX_WARPS];
-  __shared__ double2 x_sum;         // X[0] under a Rader stage
-
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int pairs = (T + 1) >> 1;
-  const int clip = blockIdx.x / pairs;
-  const int t = (blockIdx.x - clip * pairs) * 2;
-  const int ra = clip * T + t;
-  const bool has_b = t + 1 < T;
-  const float* fa = x + (long long)clip * n + (long long)t * hop;
-  const float* fb = fa + hop;
-  const double c = 0.5 * (K - 1);
-  const double2 la = frame_line(fa, K, detrend, red_sum[0]);
-  const double2 lb = has_b ? frame_line(fb, K, detrend, red_sum[1])
-                           : make_double2(0.0, 0.0);
-
-  double2 e = make_double2(0.0, 0.0);
-  for (int i = tid; i < K; i += nt) {
-    const double va =
-        (static_cast<double>(fa[i]) - la.x - la.y * (i - c)) * win[i];
-    const double vb =
-        has_b ? (static_cast<double>(fb[i]) - lb.x - lb.y * (i - c)) * win[i]
-              : 0.0;
-    buf[perm[i]] = make_double2(va, vb);
-    e.x += va * va;
-    e.y += vb * vb;
-  }
-  e = block_sum(e, red_sum[2]);     // also the loads' barrier
-  const bool paired = pack && has_b && isfinite(e.x) && isfinite(e.y) &&
-                      e.x > 0.0 && e.y > 0.0 &&
-                      fmax(e.x, e.y) <= PAIR_MAX_RATIO * fmin(e.x, e.y);
-
-  // the bins of row r0, or of rows r0 and r0 + 1 from a pair's transform
-  const auto epilogue = [&](auto z, int r0, bool pair) {
-    float lo[2] = {INFINITY, INFINITY};
-    float hi[2] = {-INFINITY, -INFINITY};
-    for (int f = tid; f < F; f += nt) {
-      const double2 a = z(f);
-      if (pair) {
-        const double2 b = z(f == 0 ? 0 : K - f);
-        store_bin(power(0.5 * (a.x + b.x), 0.5 * (a.y - b.y), wts[f]), out,
-                  r0, F, f, log10_out, lo[0], hi[0]);
-        store_bin(power(0.5 * (a.y + b.y), 0.5 * (b.x - a.x), wts[f]), out,
-                  r0 + 1, F, f, log10_out, lo[1], hi[1]);
-      } else {
-        store_bin(power(a.x, a.y, wts[f]), out, r0, F, f, log10_out, lo[0],
-                  hi[0]);
-      }
-    }
-    if (with_stats) {
-      row_extrema(lo[0], hi[0], red_lo[0], red_hi[0], part_min, part_max,
-                  r0);
-      if (pair)
-        row_extrema(lo[1], hi[1], red_lo[1], red_hi[1], part_min, part_max,
-                    r0 + 1);
-    }
-  };
-  const auto transform_and_store = [&](int r0, bool pair) {
-    mixed_transform<RADER>(buf, roots, tw, plan, K, &x_sum);
-    if (!RADER)
-      epilogue(PlainRead{buf}, r0, pair);
-    else
-      epilogue(RaderRead{buf, perm, &x_sum, K - 1}, r0, pair);
-  };
-
-  if (paired) {
-    transform_and_store(ra, true);
-    return;
-  }
-  // each frame alone: a with its partner's part zeroed, then b
-  for (int s = tid; s < K; s += nt) buf[s].y = 0.0;
-  __syncthreads();
-  transform_and_store(ra, false);
-  if (!has_b) return;
-  __syncthreads();
-  for (int i = tid; i < K; i += nt)
-    buf[perm[i]] = make_double2(
-        (static_cast<double>(fb[i]) - lb.x - lb.y * (i - c)) * win[i], 0.0);
-  __syncthreads();
-  transform_and_store(ra + 1, false);
+// where radix p's roots sit among the staged small roots
+__host__ __device__ constexpr int small_root_at(int p) {
+  return p == 3 ? 0 : (p == 5 ? 3 : 8);
 }
 
-// ---------------------------------------------------------------------------
-// The Bluestein route: every nperseg K = 32-8192 that the routes above do
-// not take (a transform length N, K/2 or an odd K, with a prime past 255
-// beside other factors, or a prime p past 255 whose p - 1 has one; 2049,
-// 8182, 8185), any detrend.
-//
-// Bluestein's identity n k = (n^2 + k^2 - (k - n)^2) / 2 turns the N-point
-// DFT into a cyclic convolution of any length M >= 2N - 1, taken M = 2^a
-// 3^b 5^c 7^d (core/stft.py::bluestein_plan):
-//
-//   X[k] = w_k y_k,  y = a (*) b,  a_n = x_n w_n (n < N, zero to M),
-//   w_n = exp(-i pi n^2 / N),  b the M-periodic conj(w).
-//
-// In shared memory: a in slots 0..N-1 and zeros to M; M's stages in
-// frequency (run_stages<true>: natural order in, digit-reversed out); each
-// slot s <- conj(b^_s s), b^ the host's DFT of b times 1/M in slot order;
-// the stages in time (run_stages<false>: digit-reversed in, natural out).
-// The conjugation turns the forward stages into the inverse transform
-// read conjugated, so slot k holds conj(y_k) and X[k] = w_k conj(slot k)
-// (BluesteinRead), with every output in slots 0..N-1. The structure is the
-// Rader stage's (mixed_transform<true>): the chirp takes the place of the
-// generator permutation and the zero padding that of the N - 1 slots.
-//
-// Even K: one frame per block, two real samples packed a complex value
-// (z[m] = v[2m] + i v[2m + 1], N = K/2, M <= 8192), the split step and
-// epilogue of the other even kernels (split_psd_epilogue). Odd K: two
-// frames of a clip a transform (N = K), with the odd kernel's guard on
-// their energies and its pair epilogue (pair_psd_epilogue).
-//
-// What bounds it: the function is bound by bytes, as on every FFT route;
-// this design by shared memory, about 2 M log2 M butterfly passes of 16
-// bytes a value for an N-point transform, 2-4x the mixed-radix kernel's
-// at the same N. The buffer holds M complex float64 values. Past
-// BLUE_MAX_BLOCK_POINTS (14406 values, 225 KB; odd K from 7207, M up to
-// 16384, 256 KB) no block holds it, so a cluster of two blocks on
-// neighbouring SMs holds M/2 slots each, rank 0 the first half, and reads
-// the other's shared memory where a stage crosses the halves. M is then
-// even and the plan's last stage is radix 2 at span M/2
-// (core/stft.py::bluestein_length), and since N <= M/2 every input and
-// every output read lies in rank 0's half:
-// the first stage in frequency leaves rank 0's slots as they are (their
-// partners are zeros) and gives rank 1 W^j a_j from rank 0's slot j; the
-// last in time gives rank 0 a_j + W^j b_j from rank 1's slot j, for j < N;
-// every other stage, and the product, runs on each half alone. Both ranks
-// compute the frames' lines and energies; rank 0 loads and stores. The
-// alternative, a global-memory scratch kept in L2, would put every stage's
-// traffic through L2 instead of shared memory; the cluster keeps it on
-// chip and spreads the butterflies over two SMs. tools/torch_precision.py::
-// psd_bluestein is this arithmetic in numpy, with the halves modelled as
-// the cluster indexes them.
+struct ConvPlan {
+  int n_passes;
+  int fuse;                     // 1: pass 0 turns around in registers
+  int swz_mask;                 // SlotMap: 7 for a power-of-two N, else 0
+  int swz_shift;                // log2 of pass 0's radix
+  int rader;                    // first row of the Rader stage's b^, or -1
+  int split;                    // first row of the split step's W_K^g, or -1
+  int root[3];                  // the root rows of radix 3, 5, 7, or -1
+  MixPass pass[MIX_MAX_PASSES];
+};
 
-namespace cg = cooperative_groups;
+// stage the plan's radix 3, 5 and 7 roots (small_root_at), once for every
+// pass in both directions; the kernel's first barrier orders them
+__device__ __forceinline__ void conv_stage_roots(
+    double2* small, const double2* __restrict__ tw, const ConvPlan& plan) {
+  const int t = threadIdx.x;
+  const int r = t < 3 ? 0 : (t < 8 ? 1 : 2);
+  if (t < 15 && plan.root[r] >= 0)
+    small[t] = tw[plan.root[r] + t - small_root_at(2 * r + 3)];
+}
 
-constexpr int BLUE_MAX_RADIX = 7;              // M's radices: 2, 3, 5, 7
-constexpr int BLUE_MIN_BLOCKS = 1;             // blocks of 512 threads an SM
-// A block's shared memory on this card (227 KB, static and dynamic
-// together), the kernel's static arrays (roots, red_sum, red_lo, red_hi),
-// and the most complex float64 values its dynamic buffer then holds: the
-// largest 2, 3, 5, 7-smooth M whose buffer fits, 14406 (225 KB). A
-// longer convolution runs on a cluster of two blocks.
-constexpr int BLOCK_SMEM = 232448;
-constexpr int BLUE_STATIC_SMEM =
-    (BLUE_MAX_RADIX + 1) * 16 + 3 * FFT_MAX_WARPS * 16 + 4 * FFT_MAX_WARPS * 4;
-constexpr int BLUE_MAX_BLOCK_POINTS = 14406;
-static_assert(BLUE_MAX_BLOCK_POINTS * 16 + BLUE_STATIC_SMEM <= BLOCK_SMEM,
-              "the one-block buffer fits");
+// One pass over the block's N slots, in time or (DIF) in frequency
+template <int RMAX, bool DIF>
+__device__ __forceinline__ void conv_pass(double2* buf, double2* roots,
+                                          const double2* small,
+                                          const double2* __restrict__ tw,
+                                          const MixPass& ps, int N,
+                                          SlotMap map) {
+  const int nb = static_cast<int>(ps.nb.d);
+  switch (ps.radix) {
+    case 2: mix_r2_pass<1, DIF>(buf, tw, ps, N, nb, map); break;
+    case 4: mix_r2_pass<2, DIF>(buf, tw, ps, N, nb, map); break;
+    case 8: mix_r2_pass<3, DIF>(buf, tw, ps, N, nb, map); break;
+    case 16: mix_r2_pass<4, DIF>(buf, tw, ps, N, nb, map); break;
+    case 3:
+      mix_odd_pass<3, DIF, true>(buf, small + small_root_at(3), tw, ps, N,
+                                 nb);
+      break;
+    case 5:
+      mix_odd_pass<5, DIF, true>(buf, small + small_root_at(5), tw, ps, N,
+                                 nb);
+      break;
+    case 7:
+      mix_odd_pass<7, DIF, true>(buf, small + small_root_at(7), tw, ps, N,
+                                 nb);
+      break;
+    default:
+      if constexpr (RMAX == 1) {
+        mix_generic_pass<0, 1, DIF, true, true>(buf, roots, tw, ps, N, 1,
+                                                nb);
+      } else if constexpr (RMAX > 0) {
+        switch (ps.radix) {
+          case 11:
+            mix_generic_pass<11, RMAX, DIF, false, true>(buf, roots, tw, ps,
+                                                       N, 1, nb);
+            break;
+          case 13:
+            mix_generic_pass<13, RMAX, DIF, false, true>(buf, roots, tw, ps,
+                                                       N, 1, nb);
+            break;
+          case 17:
+            mix_generic_pass<17, RMAX, DIF, false, true>(buf, roots, tw, ps,
+                                                       N, 1, nb);
+            break;
+          case 19:
+            mix_generic_pass<19, RMAX, DIF, false, true>(buf, roots, tw, ps,
+                                                       N, 1, nb);
+            break;
+          case 23:
+            mix_generic_pass<23, RMAX, DIF, false, true>(buf, roots, tw, ps,
+                                                       N, 1, nb);
+            break;
+          case 29:
+            mix_generic_pass<29, RMAX, DIF, false, true>(buf, roots, tw, ps,
+                                                       N, 1, nb);
+            break;
+          case 31:
+            mix_generic_pass<31, RMAX, DIF, false, true>(buf, roots, tw, ps,
+                                                       N, 1, nb);
+            break;
+          default:
+            mix_generic_pass<0, RMAX, DIF, false, true>(buf, roots, tw, ps,
+                                                       N, 1, nb);
+        }
+      }
+  }
+}
 
-// X[i] = w_i conj(slot i), i < N: the Bluestein transform's output
-struct BluesteinRead {
-  const double2* buf;
-  const double2* __restrict__ chirp;
-  __device__ double2 operator()(int i) const {
-    const double2 o = buf[i];
-    return cmul(chirp[i], make_double2(o.x, -o.y));
+// Bluestein's product: slot s <- conj(b^_s slot s)
+struct BluesteinProduct {
+  const double2* bhat;
+  __device__ __forceinline__ double2 operator()(int s, double2 y) const {
+    const double2 p = cmul(bhat[s], y);
+    return make_double2(p.x, -p.y);
   }
 };
 
-// The convolution of the values a_i the load put in slots 0..N-1 (zeros
-// to M) with b, in place, starting with the barrier that orders the
-// loads: slot k of rank 0 ends holding conj(y_k), k < N, after a barrier.
-// RANKS = 1: buf holds the M slots and the plan every stage of M. RANKS =
-// 2 (a cluster of two blocks): buf holds this block's M/2 slots, the plan
-// every stage but the last (radix 2 at span M/2, twiddle rows from
-// half_row), which the ranks take through each other's shared memory.
-template <int RANKS>
-__device__ __forceinline__ void bluestein_transform(
-    double2* buf, double2* roots, const double2* __restrict__ tw,
-    const MixedPlan& plan, int M, int N, int bhat, int half_row) {
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int H = M / RANKS;                      // this block's slots
-  int rank = 0;
-  if constexpr (RANKS == 2) {
-    cg::cluster_group cluster = cg::this_cluster();
-    rank = static_cast<int>(cluster.block_rank());
-    cluster.sync();                             // rank 0's loads
-    if (rank == 1) {
-      const double2* half0 = cluster.map_shared_rank(buf, 0);
-      for (int j = tid; j < H; j += nt)
-        buf[j] = cmul(tw[half_row + j], half0[j]);
-    }
-    cluster.sync();                             // read before rank 0 writes
-  } else {
-    __syncthreads();
+// Rader's: X[0] = x[0] + slot 0 into *sum (x[0] at *x0), slot s <- b^_s
+// slot s
+struct RaderProduct {
+  const double2* bhat;
+  const double2* x0;
+  double2* sum;
+  __device__ __forceinline__ double2 operator()(int s, double2 y) const {
+    if (s == 0) *sum = make_double2(x0->x + y.x, x0->y + y.y);
+    return cmul(bhat[s], y);
   }
-  run_stages<true>(buf, roots, tw, plan, H);
-  const double2* b = tw + bhat + rank * H;
-  for (int s = tid; s < H; s += nt) {
-    const double2 p = cmul(b[s], buf[s]);
-    buf[s] = make_double2(p.x, -p.y);
-  }
-  __syncthreads();
-  run_stages<false>(buf, roots, tw, plan, H);
-  if constexpr (RANKS == 2) {
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();                             // rank 1's half transformed
-    if (rank == 0) {
-      const double2* half1 = cluster.map_shared_rank(buf, 1);
-      for (int j = tid; j < N; j += nt) {
-        const double2 t = cmul(tw[half_row + j], half1[j]);
-        const double2 a = buf[j];
-        buf[j] = make_double2(a.x + t.x, a.y + t.y);
-      }
+};
+
+// The P-point DFT z of y by stage_odd's sums (q ascending, the root of
+// (q m) mod P)
+template <int P>
+__device__ __forceinline__ void odd_dft(const double2 (&y)[P],
+                                        const double2* roots,
+                                        double2 (&z)[P]) {
+  constexpr int H = (P - 1) / 2;
+#pragma unroll
+  for (int m = 0; m <= H; ++m) {
+    double ar = y[0].x, ai = y[0].y, br = 0.0, bi = 0.0;
+#pragma unroll
+    for (int q = 1; q <= H; ++q) {
+      const double2 c = roots[(q * m) % P];
+      ar += (y[q].x + y[P - q].x) * c.x;
+      ai += (y[q].y + y[P - q].y) * c.x;
+      br += (y[q].x - y[P - q].x) * c.y;
+      bi += (y[q].y - y[P - q].y) * c.y;
     }
-    cluster.sync();                             // rank 1 may go on or exit
+    z[m] = make_double2(ar - bi, ai + br);
+    if (m > 0) z[P - m] = make_double2(ar + bi, ai - br);
   }
 }
 
-// The odd kernels' epilogue, as stft_odd_fft_psd_kernel's: the bins of
-// row r0 from a lone frame's transform z, X[f] = Z[f], or of rows r0 and
-// r0 + 1 from a pair's, A[f] = (Z[f] + conj Z[K - f]) / 2 and B[f] = (Z[f]
-// - conj Z[K - f]) / 2i; the power, log10_out and each row's (min, max)
+// The turn-around of a radix-2^B pass 0: butterfly b's 2^B contiguous
+// slots b 2^B + q (span 1) in frequency, each slot's product, in time, in
+// registers
+template <int B, typename Product>
+__device__ __forceinline__ void conv_turn_r2(double2* buf,
+                                             const double2* __restrict__ tw,
+                                             const MixPass& ps, int N,
+                                             SlotMap map, Product product) {
+  constexpr int R = 1 << B;
+  for (int b = threadIdx.x; b < N / R; b += blockDim.x) {
+    double2 v[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) v[q] = buf[map(b * R + q)];
+    mix_r2_stages<B, true>(v, tw, ps, 0, 1);
+#pragma unroll
+    for (int q = 0; q < R; ++q) v[q] = product(b * R + q, v[q]);
+    mix_r2_stages<B, false>(v, tw, ps, 0, 1);
+#pragma unroll
+    for (int q = 0; q < R; ++q) buf[map(b * R + q)] = v[q];
+  }
+}
+
+// The same for a pass 0 of radix P = 3, 5 or 7 (no twiddles at span 1)
+template <int P, typename Product>
+__device__ __forceinline__ void conv_turn_odd(double2* buf,
+                                              const double2* roots, int N,
+                                              Product product) {
+  for (int b = threadIdx.x; b < N / P; b += blockDim.x) {
+    double2 y[P], z[P];
+#pragma unroll
+    for (int q = 0; q < P; ++q) y[q] = buf[b * P + q];
+    odd_dft<P>(y, roots, z);
+#pragma unroll
+    for (int q = 0; q < P; ++q) z[q] = product(b * P + q, z[q]);
+    odd_dft<P>(z, roots, y);
+#pragma unroll
+    for (int q = 0; q < P; ++q) buf[b * P + q] = y[q];
+  }
+}
+
+// The plan's passes in time over the block's N slots from pass `first` on,
+// each ending at a barrier (digit-reversed in, natural order out)
+template <int RMAX>
+__device__ __forceinline__ void conv_forward(double2* buf, double2* roots,
+                                             const double2* small,
+                                             const double2* __restrict__ tw,
+                                             const ConvPlan& plan, int N,
+                                             int first) {
+  const SlotMap map{plan.swz_mask, plan.swz_shift};
+  for (int q = first; q < plan.n_passes; ++q) {
+    conv_pass<RMAX, false>(buf, roots, small, tw, plan.pass[q], N, map);
+    __syncthreads();
+  }
+}
+
+// The cyclic convolution step of a Rader or Bluestein transform over the
+// block's N slots, in place, after the barrier that orders the loads: the
+// passes in frequency (reverse order; natural order in, digit-reversed
+// out), each slot's product in slot order, the passes in time; pass 0
+// turns around in registers where the plan fuses it. Ends at a barrier.
+template <int RMAX, typename Product>
+__device__ __forceinline__ void conv_transform(double2* buf, double2* roots,
+                                               const double2* small,
+                                               const double2* __restrict__ tw,
+                                               const ConvPlan& plan, int N,
+                                               Product product) {
+  const SlotMap map{plan.swz_mask, plan.swz_shift};
+  for (int q = plan.n_passes - 1; q >= plan.fuse; --q) {
+    conv_pass<RMAX, true>(buf, roots, small, tw, plan.pass[q], N, map);
+    __syncthreads();
+  }
+  if (plan.fuse) {
+    const MixPass& ps = plan.pass[0];
+    switch (ps.radix) {
+      case 2: conv_turn_r2<1>(buf, tw, ps, N, map, product); break;
+      case 4: conv_turn_r2<2>(buf, tw, ps, N, map, product); break;
+      case 8: conv_turn_r2<3>(buf, tw, ps, N, map, product); break;
+      case 16: conv_turn_r2<4>(buf, tw, ps, N, map, product); break;
+      case 3:
+        conv_turn_odd<3>(buf, small + small_root_at(3), N, product);
+        break;
+      case 5:
+        conv_turn_odd<5>(buf, small + small_root_at(5), N, product);
+        break;
+      case 7:
+        conv_turn_odd<7>(buf, small + small_root_at(7), N, product);
+        break;
+    }
+  } else {
+    for (int s = threadIdx.x; s < N; s += blockDim.x)
+      buf[map(s)] = product(s, buf[map(s)]);
+  }
+  __syncthreads();
+  conv_forward<RMAX>(buf, roots, small, tw, plan, N, plan.fuse);
+}
+
+// Reads of transform output i from a conv kernel's buffer: plain, or
+// after a Rader stage of P = N - 1 points X[0] = *sum and X[i] = x[0] +
+// slot perm[i] (x[0] in slot P)
+struct ConvRead {
+  const double2* buf;
+  SlotMap map;
+  __device__ double2 operator()(int i) const { return buf[map(i)]; }
+};
+struct ConvRaderRead {
+  const double2* buf;
+  const int* __restrict__ perm;
+  const double2* sum;
+  int P;
+  SlotMap map;
+  __device__ double2 operator()(int i) const {
+    if (i == 0) return *sum;
+    const double2 x0 = buf[map(P)];
+    const double2 v = buf[map(perm[i])];
+    return make_double2(x0.x + v.x, x0.y + v.y);
+  }
+};
+
+// The odd kernels' epilogue: the bins of row r0 from a lone frame's
+// transform z, X[f] = Z[f], or of rows r0 and r0 + 1 from a pair's, A[f] =
+// (Z[f] + conj Z[K - f]) / 2 and B[f] = (Z[f] - conj Z[K - f]) / 2i; the
+// power, log10_out and each row's (min, max)
 template <typename Read>
 __device__ __forceinline__ void pair_psd_epilogue(
     Read z, int r0, bool pair, int K, int F, const double* __restrict__ wts,
@@ -1962,11 +2126,285 @@ __device__ __forceinline__ void pair_psd_epilogue(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The odd route: odd nperseg K = 33-8191 whose transform the mixed plan
+// takes (every prime of K at most 255, or K itself a prime whose K - 1
+// has none past 255: a Rader stage), any detrend.
+//
+// No two samples of one odd frame pack into a complex value, so the
+// kernel packs two frames: block j of clip b takes frames t = 2j and
+// t + 1 of that clip (a clip with odd T leaves its last frame alone). Both
+// frames' detrend lines by block reduction (frame_line); z[i] = v_a[i] +
+// i v_b[i], v = ((double)frame[i] - mean - slope (i - c)) * win[i], at
+// slot perm[i]; the K-point transform on the pass engine above: the plan's
+// passes in time (conv_forward), or with a Rader stage (slot q holds
+// x[g^q], slot P = K - 1 holds x[0]) the P-point convolution
+// (conv_transform: the passes in frequency, X[0] = x[0] + slot 0 and each
+// slot times its row of b^, the passes in time) and X[i] = x[0] + slot
+// perm[i] (ConvRaderRead); then, with Z the transform, the two frames' bins
+//
+//   A[f] = (Z[f] + conj Z[K - f]) / 2,  B[f] = (Z[f] - conj Z[K - f]) / 2i
+//
+// (indices mod K) and the PSD epilogue of both rows (pair_psd_epilogue).
+//
+// Packing couples the frames: a pair's transform rounds at the scale of
+// the louder frame, so a quiet frame beside a loud one would take the
+// loud one's rounding (about (eps |A|)^2 in its bins, where the plain
+// version of an all-zero frame gives exact zeros), and a NaN would spread
+// to both. The load's block reduction sums each frame's energy (v^2), and
+// a pair shares a transform only if both sums are finite and positive and
+// within PAIR_MAX_RATIO of each other; else each frame is transformed
+// alone, z = v + 0i, X[f] = Z[f]. So a frame's bins never depend on a
+// frame that is not finite, is all zero or is 48 dB louder.
+//
+// What bounds it: the function is bound by bytes (0.46 ms at path 7); the
+// design by latency and the generic passes' DFMA, as the mixed kernel; a
+// Rader stage runs two (K - 1)-point transforms for one K-point transform.
+// The buffer holds K complex float64 values, 131 KB at K = 8191, so one
+// block fits an SM there; packing two frames per transform halves the
+// transforms, as packing two samples does on even K.
+// tools/torch_precision.py::psd_odd_fft is this arithmetic in numpy.
+
+// blocks of 512 threads an SM holds: two (64 registers) for the plans
+// with narrow generic passes, and without a Rader stage for those of radix
+// 3, 5 and 7 passes only (on the card 1029 took 4.3 ms against 6.3 with
+// one block, Rader 557 13.5 against 21.6); one (128) for the rest, whose
+// lanes of output pairs or radix-2 passes of up to 16 values spill at 64
+constexpr int ODD_SMALL_BLOCKS = 2;
+// the largest odd nperseg without a Rader stage, and with one, whose
+// generic passes all run narrow at two blocks an SM; past them the wide
+// passes at one block are the faster (on the card the crossovers lay
+// between 5343 and 5457, and near 2048 for the Rader plans, which also run
+// two transforms of K - 1 points)
+constexpr int ODD_NARROW_POINTS = 5448;
+constexpr int RADER_NARROW_POINTS = 2048;
+constexpr double PAIR_MAX_RATIO = 65536.0;
+
+template <bool RADER, int RMAX>
+__global__ void __launch_bounds__(FFT_MAX_THREADS,
+                                  RMAX == 1 || (!RADER && RMAX == 0)
+                                      ? ODD_SMALL_BLOCKS
+                                      : 1)
+stft_odd_fft_psd_kernel(const float* __restrict__ x,
+                        const double* __restrict__ win,
+                        const int* __restrict__ perm,
+                        const double2* __restrict__ tw,
+                        const double* __restrict__ wts,
+                        float* __restrict__ out, float* __restrict__ part_min,
+                        float* __restrict__ part_max, long long n, int T,
+                        int F, int K, int hop, int detrend, int log10_out,
+                        int with_stats, int pack,
+                        const __grid_constant__ ConvPlan plan) {
+  extern __shared__ double2 buf[];  // K complex values
+  __shared__ double2 roots[RMAX > 0 ? MIX_MAX_RADIX + 1 : 1];
+  __shared__ double2 small[SMALL_ROOTS];
+  __shared__ double2 red_sum[3][FFT_MAX_WARPS];
+  __shared__ float red_lo[2][FFT_MAX_WARPS];
+  __shared__ float red_hi[2][FFT_MAX_WARPS];
+  __shared__ double2 x_sum;         // X[0] under a Rader stage
+
+  conv_stage_roots(small, tw, plan);
+  const SlotMap map{plan.swz_mask, plan.swz_shift};
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int pairs = (T + 1) >> 1;
+  const int clip = blockIdx.x / pairs;
+  const int t = (blockIdx.x - clip * pairs) * 2;
+  const int ra = clip * T + t;
+  const bool has_b = t + 1 < T;
+  const float* fa = x + (long long)clip * n + (long long)t * hop;
+  const float* fb = fa + hop;
+  const double c = 0.5 * (K - 1);
+  const double2 la = frame_line(fa, K, detrend, red_sum[0]);
+  const double2 lb = has_b ? frame_line(fb, K, detrend, red_sum[1])
+                           : make_double2(0.0, 0.0);
+
+  double2 e = make_double2(0.0, 0.0);
+  for (int i = tid; i < K; i += nt) {
+    const double va =
+        (static_cast<double>(fa[i]) - la.x - la.y * (i - c)) * win[i];
+    const double vb =
+        has_b ? (static_cast<double>(fb[i]) - lb.x - lb.y * (i - c)) * win[i]
+              : 0.0;
+    buf[map(perm[i])] = make_double2(va, vb);
+    e.x += va * va;
+    e.y += vb * vb;
+  }
+  e = block_sum(e, red_sum[2]);     // also the loads' barrier
+  const bool paired = pack && has_b && isfinite(e.x) && isfinite(e.y) &&
+                      e.x > 0.0 && e.y > 0.0 &&
+                      fmax(e.x, e.y) <= PAIR_MAX_RATIO * fmin(e.x, e.y);
+
+  // the pair's transform, or each frame alone (a with its partner's part
+  // zeroed, then b), from one place in the code
+  const int units = paired || !has_b ? 1 : 2;
+  for (int u = 0; u < units; ++u) {
+    if (!paired) {
+      if (u == 0) {
+        for (int s = tid; s < K; s += nt) buf[s].y = 0.0;
+      } else {
+        __syncthreads();            // the epilogue's reads before the loads
+        for (int i = tid; i < K; i += nt)
+          buf[map(perm[i])] = make_double2(
+              (static_cast<double>(fb[i]) - lb.x - lb.y * (i - c)) * win[i],
+              0.0);
+      }
+      __syncthreads();
+    }
+    if constexpr (RADER) {
+      const int P = K - 1;
+      conv_transform<RMAX>(buf, roots, small, tw, plan, P,
+                           RaderProduct{tw + plan.rader, buf + map(P),
+                                        &x_sum});
+      pair_psd_epilogue(ConvRaderRead{buf, perm, &x_sum, P, map}, ra + u,
+                        paired, K, F, wts, out, part_min, part_max, red_lo,
+                        red_hi, log10_out, with_stats);
+    } else {
+      conv_forward<RMAX>(buf, roots, small, tw, plan, K, 0);
+      pair_psd_epilogue(ConvRead{buf, map}, ra + u, paired, K, F, wts, out,
+                        part_min, part_max, red_lo, red_hi, log10_out,
+                        with_stats);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The Bluestein route: every nperseg K = 32-8192 that the routes above do
+// not take (a transform length N, K/2 or an odd K, with a prime past 255
+// beside other factors, or a prime p past 255 whose p - 1 has one; 2049,
+// 8182, 8185), any detrend.
+//
+// Bluestein's identity n k = (n^2 + k^2 - (k - n)^2) / 2 turns the N-point
+// DFT into a cyclic convolution of any length M >= 2N - 1, taken M = 2^a
+// 3^b 5^c 7^d (core/stft.py::bluestein_plan):
+//
+//   X[k] = w_k y_k,  y = a (*) b,  a_n = x_n w_n (n < N, zero to M),
+//   w_n = exp(-i pi n^2 / N),  b the M-periodic conj(w).
+//
+// In shared memory: a in slots 0..N-1 and zeros to M; the convolution on
+// the pass engine above (conv_transform): M's passes in frequency (natural
+// order in, digit-reversed out), each slot s <- conj(b^_s s), b^ the
+// host's DFT of b times 1/M in slot order, the passes in time
+// (digit-reversed in, natural out). The conjugation turns the forward
+// passes into the inverse transform read conjugated, so slot k holds
+// conj(y_k) and X[k] = w_k conj(slot k) (BluesteinRead), with every output
+// in slots 0..N-1. The structure is the Rader stage's: the chirp takes the
+// place of the generator permutation and the zero padding that of the N -
+// 1 slots.
+//
+// Even K: one frame per block, two real samples packed a complex value
+// (z[m] = v[2m] + i v[2m + 1], N = K/2, M <= 8192), the split step and
+// epilogue of the other even kernels (split_psd_epilogue). Odd K: two
+// frames of a clip a transform (N = K), with the odd kernel's guard on
+// their energies and its pair epilogue (pair_psd_epilogue).
+//
+// What bounds it: the function is bound by bytes, as on every FFT route
+// (0.46 ms on paths 8 and 9); the design by latency, as the mixed kernel:
+// 2 M log2 M butterfly values for an N-point transform, 2-4x the mixed
+// kernel's at the same N, in passes of up to four radix-2 stages. The
+// buffer holds M complex float64 values. Past BLUE_MAX_BLOCK_POINTS (14406
+// values, 225 KB; odd K from 7207, M up to 16384, 256 KB) no block holds
+// it, so a cluster of two blocks on neighbouring SMs holds M/2 slots each,
+// rank 0 the first half, and reads the other's shared memory where a stage
+// crosses the halves. M is then even and the plan's last stage is radix 2
+// at span M/2 (core/stft.py::bluestein_length), and since N <= M/2 every
+// input and every output read lies in rank 0's half: the first stage in
+// frequency leaves rank 0's slots as they are (their partners are zeros)
+// and gives rank 1 W^j a_j from rank 0's slot j; the last in time gives
+// rank 0 a_j + W^j b_j from rank 1's slot j, for j < N; every other stage's
+// passes, and the product, run on each half alone (M/2 = 8192 at path 8,
+// path 9's passes). Both ranks compute the frames' lines and energies;
+// rank 0 loads and stores. The alternative, a global-memory scratch kept
+// in L2, would put every pass's traffic through L2 instead of shared
+// memory; the cluster keeps it on chip and spreads the butterflies over two
+// SMs. tools/torch_precision.py::psd_bluestein is this arithmetic in numpy,
+// with the halves modelled as the cluster indexes them.
+
+namespace cg = cooperative_groups;
+
+constexpr int BLUE_MAX_RADIX = 7;              // M's radices: 2, 3, 5, 7
+constexpr int BLUE_MIN_BLOCKS = 1;             // blocks of 512 threads an SM
+// the largest M / RANKS that runs two blocks an SM (64 registers): two
+// buffers fit the SM's shared memory up to about 7150 points; on the card
+// two blocks ran M = 1125-6250 up to 1.5x faster (nperseg 563: 9.4 ms
+// against 14.2) and one block M = 8192 1.6x faster than two
+constexpr int BLUE_TWO_BLOCK_POINTS = 7000;
+// A block's shared memory on this card (227 KB, static and dynamic
+// together), the kernel's static arrays (small, red_sum, red_lo, red_hi),
+// and the most complex float64 values its dynamic buffer then holds: the
+// largest 2, 3, 5, 7-smooth M whose buffer fits, 14406 (225 KB). A
+// longer convolution runs on a cluster of two blocks.
+constexpr int BLOCK_SMEM = 232448;
+constexpr int BLUE_STATIC_SMEM =
+    SMALL_ROOTS * 16 + 3 * FFT_MAX_WARPS * 16 + 4 * FFT_MAX_WARPS * 4;
+constexpr int BLUE_MAX_BLOCK_POINTS = 14406;
+static_assert(BLUE_MAX_BLOCK_POINTS * 16 + BLUE_STATIC_SMEM <= BLOCK_SMEM,
+              "the one-block buffer fits");
+
+// X[i] = w_i conj(slot i), i < N: the Bluestein transform's output
+struct BluesteinRead {
+  const double2* buf;
+  const double2* __restrict__ chirp;
+  SlotMap map;
+  __device__ double2 operator()(int i) const {
+    const double2 o = buf[map(i)];
+    return cmul(chirp[i], make_double2(o.x, -o.y));
+  }
+};
+
+// The convolution of the values a_i the load put in slots 0..N-1 (zeros
+// to M) with b, in place, starting with the barrier that orders the
+// loads: slot k of rank 0 ends holding conj(y_k), k < N, after a barrier.
+// RANKS = 1: buf holds the M slots and the plan every stage of M. RANKS =
+// 2 (a cluster of two blocks): buf holds this block's M/2 slots, the plan
+// every stage but the last (radix 2 at span M/2, twiddle rows from
+// half_row), which the ranks take through each other's shared memory.
+template <int RANKS>
+__device__ __forceinline__ void bluestein_transform(
+    double2* buf, const double2* small, const double2* __restrict__ tw,
+    const ConvPlan& plan, int M, int N, int bhat, int half_row) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int H = M / RANKS;                      // this block's slots
+  const SlotMap map{plan.swz_mask, plan.swz_shift};
+  int rank = 0;
+  if constexpr (RANKS == 2) {
+    cg::cluster_group cluster = cg::this_cluster();
+    rank = static_cast<int>(cluster.block_rank());
+    cluster.sync();                             // rank 0's loads
+    if (rank == 1) {
+      const double2* half0 = cluster.map_shared_rank(buf, 0);
+      for (int j = tid; j < H; j += nt)
+        buf[map(j)] = cmul(tw[half_row + j], half0[map(j)]);
+    }
+    cluster.sync();                             // read before rank 0 writes
+  } else {
+    __syncthreads();
+  }
+  conv_transform<0>(buf, nullptr, small, tw, plan, H,
+                    BluesteinProduct{tw + bhat + rank * H});
+  if constexpr (RANKS == 2) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();                             // rank 1's half transformed
+    if (rank == 0) {
+      const double2* half1 = cluster.map_shared_rank(buf, 1);
+      for (int j = tid; j < N; j += nt) {
+        const double2 t = cmul(tw[half_row + j], half1[map(j)]);
+        const double2 a = buf[map(j)];
+        buf[map(j)] = make_double2(a.x + t.x, a.y + t.y);
+      }
+    }
+    cluster.sync();                             // rank 1 may go on or exit
+  }
+}
+
 // One block (RANKS = 1) or cluster (RANKS = 2) per unit: a frame of even
 // K, row blockIdx.x; or for odd K frames t = 2j and t + 1 of clip b, unit
-// b ceil(T / 2) + j. Even K runs on one block only.
-template <int RANKS>
-__global__ void __launch_bounds__(FFT_MAX_THREADS, BLUE_MIN_BLOCKS)
+// b ceil(T / 2) + j. Even K runs on one block only. TWO: two blocks an SM
+// (M up to BLUE_TWO_BLOCK_POINTS).
+template <int RANKS, bool TWO>
+__global__ void __launch_bounds__(FFT_MAX_THREADS,
+                                  TWO ? 2 : BLUE_MIN_BLOCKS)
 stft_bluestein_psd_kernel(const float* __restrict__ x,
                           const double* __restrict__ win,
                           const double2* __restrict__ tw,
@@ -1977,13 +2415,15 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
                           int F, int K, int hop, int detrend, int log10_out,
                           int with_stats, int M, int bhat, int chirp_row,
                           int half_row,
-                          const __grid_constant__ MixedPlan plan) {
+                          const __grid_constant__ ConvPlan plan) {
   extern __shared__ double2 buf[];  // M / RANKS complex values
-  __shared__ double2 roots[BLUE_MAX_RADIX + 1];
+  __shared__ double2 small[SMALL_ROOTS];
   __shared__ double2 red_sum[3][FFT_MAX_WARPS];
   __shared__ float red_lo[2][FFT_MAX_WARPS];
   __shared__ float red_hi[2][FFT_MAX_WARPS];
 
+  conv_stage_roots(small, tw, plan);
+  const SlotMap map{plan.swz_mask, plan.swz_shift};
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int unit = blockIdx.x / RANKS;
@@ -1993,40 +2433,15 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
   bool loads = true;                // rank 0 loads, transforms and stores
   if constexpr (RANKS == 2) loads = cg::this_cluster().block_rank() == 0;
 
-  if constexpr (RANKS == 1) {
-    if (K % 2 == 0) {
-      const int N = K >> 1;
-      const int r = unit;
-      const float* frame =
-          x + (long long)(r / T) * n + (long long)(r % T) * hop;
-      const double2 line = frame_line(frame, K, detrend, red_sum[0]);
-      for (int m = tid; m < H; m += nt) {
-        double2 z = make_double2(0.0, 0.0);
-        if (m < N) {
-          const int i = 2 * m;
-          const double va =
-              (static_cast<double>(frame[i]) - line.x - line.y * (i - c)) *
-              win[i];
-          const double vb = (static_cast<double>(frame[i + 1]) - line.x -
-                             line.y * (i + 1 - c)) *
-                            win[i + 1];
-          z = cmul(chirp[m], make_double2(va, vb));
-        }
-        buf[m] = z;
-      }
-      bluestein_transform<RANKS>(buf, roots, tw, plan, M, N, bhat, half_row);
-      split_psd_epilogue(BluesteinRead{buf, chirp}, tw + plan.split, wts,
-                         out, part_min, part_max, red_lo[0], red_hi[0], r, F,
-                         K, log10_out, with_stats);
-      return;
-    }
-  }
-
+  // even K: frame t of clip b, two samples a value (N = K/2); odd K: its
+  // frames t = 2j and t + 1 (N = K)
+  const bool even = RANKS == 1 && K % 2 == 0;
+  const int N = even ? K >> 1 : K;
   const int pairs = (T + 1) >> 1;
-  const int clip = unit / pairs;
-  const int t = (unit - clip * pairs) * 2;
+  const int clip = even ? unit / T : unit / pairs;
+  const int t = even ? unit - clip * T : (unit - clip * pairs) * 2;
   const int ra = clip * T + t;
-  const bool has_b = t + 1 < T;
+  const bool has_b = !even && t + 1 < T;
   const float* fa = x + (long long)clip * n + (long long)t * hop;
   const float* fb = fa + hop;
   const double2 la = frame_line(fa, K, detrend, red_sum[0]);
@@ -2036,47 +2451,52 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
     return (static_cast<double>(f[i]) - line.x - line.y * (i - c)) * win[i];
   };
 
-  // the pair's load, z_i = (v_a[i] + i v_b[i]) w_i, and both energies
+  // the load, z_m = (v[2m] + i v[2m + 1]) w_m for even K, z_i = (v_a[i] +
+  // i v_b[i]) w_i and both energies for a pair of odd frames
   double2 e = make_double2(0.0, 0.0);
   for (int i = tid; i < H; i += nt) {
     double2 z = make_double2(0.0, 0.0);
-    if (i < K) {
-      const double va = sample(fa, la, i);
-      const double vb = has_b ? sample(fb, lb, i) : 0.0;
+    if (i < N) {
+      const double va = sample(fa, la, even ? 2 * i : i);
+      const double vb = even    ? sample(fa, la, 2 * i + 1)
+                        : has_b ? sample(fb, lb, i)
+                                : 0.0;
       z = cmul(chirp[i], make_double2(va, vb));
       e.x += va * va;
       e.y += vb * vb;
     }
-    if (loads) buf[i] = z;
+    if (loads) buf[map(i)] = z;
   }
-  e = block_sum(e, red_sum[2]);     // also orders the loads before reloads
-  const bool paired = has_b && isfinite(e.x) && isfinite(e.y) &&
-                      e.x > 0.0 && e.y > 0.0 &&
-                      fmax(e.x, e.y) <= PAIR_MAX_RATIO * fmin(e.x, e.y);
-  const auto transform_and_store = [&](int r0, bool pair) {
-    bluestein_transform<RANKS>(buf, roots, tw, plan, M, K, bhat, half_row);
-    if (loads)
-      pair_psd_epilogue(BluesteinRead{buf, chirp}, r0, pair, K, F, wts, out,
-                        part_min, part_max, red_lo, red_hi, log10_out,
-                        with_stats);
-  };
-  if (paired) {
-    transform_and_store(ra, true);
-    return;
+  if (!even)
+    e = block_sum(e, red_sum[2]);   // also orders the loads before reloads
+  const bool paired = even || (has_b && isfinite(e.x) && isfinite(e.y) &&
+                               e.x > 0.0 && e.y > 0.0 &&
+                               fmax(e.x, e.y) <=
+                                   PAIR_MAX_RATIO * fmin(e.x, e.y));
+  // the transform, or each odd frame alone, z_i = v[i] w_i (a, then b),
+  // from one place in the code
+  const int units = paired || !has_b ? 1 : 2;
+  for (int u = 0; u < units; ++u) {
+    if (!paired) {
+      if (u == 1) __syncthreads();  // the epilogue's reads before the loads
+      for (int i = tid; loads && i < H; i += nt)
+        buf[map(i)] = i < K ? cmul(chirp[i],
+                                   make_double2(u ? sample(fb, lb, i)
+                                                  : sample(fa, la, i),
+                                                0.0))
+                            : make_double2(0.0, 0.0);
+    }
+    bluestein_transform<RANKS>(buf, small, tw, plan, M, N, bhat, half_row);
+    if (!loads) continue;
+    if (even)
+      split_psd_epilogue(BluesteinRead{buf, chirp, map}, tw + plan.split,
+                         wts, out, part_min, part_max, red_lo[0], red_hi[0],
+                         ra, F, K, log10_out, with_stats);
+    else
+      pair_psd_epilogue(BluesteinRead{buf, chirp, map}, ra + u, paired, K, F,
+                        wts, out, part_min, part_max, red_lo, red_hi,
+                        log10_out, with_stats);
   }
-  // each frame alone, z_i = v[i] w_i: a, then b
-  const auto load_alone = [&](const float* f, double2 line) {
-    if (!loads) return;
-    for (int i = tid; i < H; i += nt)
-      buf[i] = i < K ? cmul(chirp[i], make_double2(sample(f, line, i), 0.0))
-                     : make_double2(0.0, 0.0);
-  };
-  load_alone(fa, la);
-  transform_and_store(ra, false);
-  if (!has_b) return;
-  __syncthreads();                  // the epilogue's reads before the loads
-  load_alone(fb, lb);
-  transform_and_store(ra + 1, false);
 }
 
 constexpr int FFT_MAX_DEVICES = 64;
@@ -2085,9 +2505,12 @@ constexpr int FFT_MAX_DEVICES = 64;
 size_t r2_smem_set[13][FFT_MAX_DEVICES] = {};
 // (the mixed-radix kernel's three instantiations, and with a Rader stage)
 size_t mixed_smem_set[4][FFT_MAX_DEVICES] = {};
-size_t odd_smem_set[2][FFT_MAX_DEVICES] = {};
-// (on one block and on a cluster of two for the Bluestein kernels)
-size_t blue_smem_set[2][FFT_MAX_DEVICES] = {};
+// (the odd kernel's eight: without a Rader stage and with, by conv_plan's
+// rmax 0, 1, 4 or 8)
+size_t odd_smem_set[8][FFT_MAX_DEVICES] = {};
+// (the Bluestein kernel's: on one block, at two blocks an SM, and on a
+// cluster of two)
+size_t blue_smem_set[3][FFT_MAX_DEVICES] = {};
 
 // raise `kernel`'s dynamic shared memory limit to smem once per device
 // (set[] records it); returns a cudaError_t. A block whose static and
@@ -2150,22 +2573,24 @@ bool load_plan(const int* stages, int n_stages, int split, int rader, int N,
   return span == len;
 }
 
-// The passes of an N-point plan without a Rader stage from the host's
-// (n_stages, 4) rows (core/stft.py::fft_plan: odd primes, then the twos)
-// into *plan, and the kernel's generic output pairs (mix_rmax) in *rmax;
-// false for a plan the kernel does not take. Each odd stage is a pass; the
-// twos, a of them, ceil(a / MIX_R2_BITS) passes of as even a number each,
-// the larger first (a = 5: 8, 4). A frame takes pf threads, the least
-// power of two that loads it in MIX_LOAD pairs each, and a block of
-// MIX_THREADS threads MIX_THREADS / pf frames.
-bool mixed_register_plan(const int* stages, int n_stages, int split, int N,
-                         MixRegPlan* plan, int* rmax) {
-  if (n_stages < 1 || n_stages > MIX_MAX_STAGES || split < 0 || N > 4096)
-    return false;
+// The passes of an N-point plan from the host's (n_stages, 4) rows
+// (core/stft.py::fft_plan: odd primes, then the twos) into pass[0..
+// *n_passes), and its largest radix in *p_max; false for a plan the pass
+// engine does not take. Each odd stage is a pass; the twos, a of them,
+// ceil(a / MIX_R2_BITS) passes of as even a number each, the smaller first
+// (a = 5: 4, 8; a = 13: 8, 8, 8, 16): the conv kernels' pass 0 turns
+// around in registers, and 8 values do it faster than 16 on the card
+// (scipy_default 8182 on 1024 clips of 10 s: 6.09 ms against 6.47 larger
+// first), and the mixed kernel runs either order in the same time (path 4
+// 3.593 against 3.606 ms; tools/torch_kernel_variants.py, NVIDIA H100
+// 80GB HBM3, 700 W).
+bool group_passes(const int* stages, int n_stages, int N,
+                  MixPass* pass, int* n_passes, int* p_max) {
+  if (n_stages < 1 || n_stages > MIX_MAX_STAGES) return false;
   int span = 1;
-  int p_max = 2;
   int twos = 0;
-  plan->n_passes = 0;
+  int np = 0;
+  *p_max = 2;
   for (int s = 0; s < n_stages; ++s) {
     const int p = stages[4 * s];
     const bool odd = p % 2 == 1 && p >= 3 && p <= MIX_MAX_RADIX;
@@ -2173,24 +2598,24 @@ bool mixed_register_plan(const int* stages, int n_stages, int split, int N,
         span * p > N)
       return false;
     if (odd) {
-      MixPass& ps = plan->pass[plan->n_passes++];
+      MixPass& ps = pass[np++];
       ps.radix = p;
       ps.span = span;
       ps.tw[0] = stages[4 * s + 2];
       ps.root = stages[4 * s + 3];
-      if (p > p_max) p_max = p;
+      if (p > *p_max) *p_max = p;
     } else {
       ++twos;
     }
     span *= p;
   }
   if (span != N) return false;
-  *rmax = mix_rmax(p_max);
   const int n2 = (twos + MIX_R2_BITS - 1) / MIX_R2_BITS;
   int s = n_stages - twos;
-  for (int i = 0; i < n2; ++i) {
+  for (int pn = 0; pn < n2; ++pn) {
+    const int i = n2 - 1 - pn;       // its rank among the passes, larger first
     const int bits = twos / n2 + (i < twos % n2 ? 1 : 0);
-    MixPass& ps = plan->pass[plan->n_passes++];
+    MixPass& ps = pass[np++];
     ps.radix = 1 << bits;
     ps.span = stages[4 * s + 1];
     ps.root = -1;
@@ -2198,13 +2623,30 @@ bool mixed_register_plan(const int* stages, int n_stages, int split, int N,
       ps.tw[j] = j < bits ? stages[4 * (s + j) + 2] : -1;
     s += bits;
   }
-  for (int i = 0; i < plan->n_passes; ++i) {
-    MixPass& ps = plan->pass[i];
+  for (int i = 0; i < np; ++i) {
+    MixPass& ps = pass[i];
     const int lp = ps.span * ps.radix;
     ps.nb = make_fastdiv(N / ps.radix);
     ps.inner = make_fastdiv(ps.radix % 2 ? N / lp : ps.span);
     ps.lp = make_fastdiv(lp);
   }
+  *n_passes = np;
+  return true;
+}
+
+// The mixed-radix kernel's plan of an N-point transform without a Rader
+// stage (group_passes) into *plan, and its generic output pairs
+// (mix_rmax) in *rmax; false for a plan the kernel does not take. A frame
+// takes pf threads, the least power of two that loads it in MIX_LOAD pairs
+// each, and a block of MIX_THREADS threads MIX_THREADS / pf frames.
+bool mixed_register_plan(const int* stages, int n_stages, int split, int N,
+                         MixRegPlan* plan, int* rmax) {
+  int p_max = 2;
+  if (split < 0 || N > 4096 ||
+      !group_passes(stages, n_stages, N, plan->pass, &plan->n_passes,
+                    &p_max))
+    return false;
+  *rmax = mix_rmax(p_max);
   int pf = 1;
   while (pf * MIX_LOAD < N) pf *= 2;
   plan->split = split;
@@ -2213,10 +2655,77 @@ bool mixed_register_plan(const int* stages, int n_stages, int split, int N,
   return true;
 }
 
+// The conv kernels' plan of the N-point transform a block holds
+// (group_passes, the twos smaller first) into *plan, with rader and split
+// its first rows of b^ and of the split step (-1 without), and turn
+// whether a Rader or Bluestein convolution runs the passes both ways; the
+// generic output pairs a lane (mix_rmax) in *rmax, or 1 where the generic
+// passes run narrow (mix_generic_pass): where a pass has at most 16
+// butterflies, whose lanes' sums leave most of the block idle on long
+// chains (on the card the wide passes ran up to 2.6x slower there, and up
+// to 2x faster from 17: P = 796, 199 4 butterflies, against P = 6690, 223
+// 30), or more groups of output pairs than the block has warps; and in
+// every plan of at most ODD_NARROW_POINTS (RADER_NARROW_POINTS with a
+// Rader stage, turn), which then runs two blocks an SM; and in *threads
+// the block,
+// the stage-at-a-time kernels' (load_plan's): `width` / 2 threads rounded
+// up to a warp, 32 to FFT_MAX_THREADS (width the transform length),
+// widened to whole warps for the largest radix's (p + 1)/2 output pairs,
+// a thread each in a narrow pass; that holds a wide pass's groups of warps
+// wherever it has 32 butterflies (N >= 32 p). The turn-around is fused
+// when pass 0 is not generic; a power-of-two N (radix-2 passes only) takes
+// the XOR swizzle at pass 0's radix. Every pass takes k fastest across the
+// lanes (the mixed kernel's odd passes the group): on the card the odd and
+// generic passes ran 2-9% faster so at the Bluestein lengths of many odd
+// radices (M = 11907 = 7^2 3^5: 8.27 ms against 7.54 at nperseg 5901) and
+// at 2049 and 8191.
+bool conv_plan(const int* stages, int n_stages, int N, int rader, int split,
+               bool turn, int width, ConvPlan* plan, int* rmax,
+               int* threads) {
+  int p_max = 2;
+  if (!group_passes(stages, n_stages, N, plan->pass, &plan->n_passes,
+                    &p_max))
+    return false;
+  *rmax = mix_rmax(p_max);
+  plan->rader = rader;
+  plan->split = split;
+  const int r0 = plan->pass[0].radix;
+  plan->fuse = turn && (r0 % 2 == 0 || r0 <= 7) ? 1 : 0;
+  int b0 = 0;
+  while ((1 << b0) < r0) ++b0;
+  const bool pow2 = (N & (N - 1)) == 0;
+  plan->swz_mask = pow2 ? 7 : 0;
+  plan->swz_shift = pow2 ? b0 : 0;
+  const int pairs = ((p_max + 1) / 2 + 31) / 32 * 32;
+  *threads = fft_threads(2 * width) > pairs ? fft_threads(2 * width) : pairs;
+  bool narrow = width <= (turn ? RADER_NARROW_POINTS : ODD_NARROW_POINTS);
+  for (int r = 0; r < 3; ++r) plan->root[r] = -1;
+  for (int i = 0; i < plan->n_passes; ++i) {
+    MixPass& ps = plan->pass[i];
+    ps.inner = make_fastdiv(ps.span);           // k fastest (KFAST)
+    if (ps.radix % 2 && ps.radix <= 7) {
+      int& row = plan->root[(ps.radix - 3) / 2];
+      if (row < 0) row = ps.root;
+    } else if (ps.radix % 2) {
+      // mix_rm's lane width and the pass's groups of output pairs
+      const int pairs = (ps.radix + 1) / 2;
+      int rm = *rmax;
+      if (ps.radix <= 31) {
+        const int g = (pairs + rm - 1) / rm;
+        rm = (pairs + g - 1) / g;
+      }
+      if (N / ps.radix <= 16 || (pairs + rm - 1) / rm > *threads / 32)
+        narrow = true;
+    }
+  }
+  if (*rmax > 0 && narrow) *rmax = 1;
+  return true;
+}
+
 // log2 of the values a thread of the radix-2 kernel holds at M = 2^LOG2M:
 // 8 (three stages a pass, 64 registers, twice the warps) up to nperseg
 // 1024, 16 (four stages a pass) from 2048, the faster on the card at each
-// size (tools/torch_r2_variants.py; tests/test_torch_fft_registers.py
+// size (tools/torch_kernel_variants.py r2; tests/test_torch_fft_registers.py
 // pins it)
 constexpr int R2_LR[13] = {0, 0, 0, 0, 3, 3, 3, 3, 3, 3, 4, 4, 4};
 
@@ -2405,16 +2914,25 @@ int stft_odd_fft_psd_launch(const float* x, const double* win,
                             int log10_out, int with_stats, int pack,
                             void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
-  MixedPlan plan;
+  ConvPlan plan;
+  int rmax = 0;
   int threads = 0;
   if (K < 33 || K > 8191 || K % 2 == 0 || F < 1 || F > K ||
-      !detrend_ok(detrend) ||
-      !load_plan(stages, n_stages, -1, rader, K, &plan, &threads))
+      !detrend_ok(detrend) || rader < -1 ||
+      !conv_plan(stages, n_stages, rader >= 0 ? K - 1 : K, rader, -1,
+                 rader >= 0, K, &plan, &rmax, &threads))
     return static_cast<int>(bad);
-  const auto kernel = rader >= 0 ? stft_odd_fft_psd_kernel<true>
-                                  : stft_odd_fft_psd_kernel<false>;
+  const int variant = 4 * (rader >= 0) + (rmax == 1 ? 1 : rmax / 4 + (rmax > 0));
+  const auto kernel = variant == 0   ? stft_odd_fft_psd_kernel<false, 0>
+                      : variant == 1 ? stft_odd_fft_psd_kernel<false, 1>
+                      : variant == 2 ? stft_odd_fft_psd_kernel<false, 4>
+                      : variant == 3 ? stft_odd_fft_psd_kernel<false, 8>
+                      : variant == 4 ? stft_odd_fft_psd_kernel<true, 0>
+                      : variant == 5 ? stft_odd_fft_psd_kernel<true, 1>
+                      : variant == 6 ? stft_odd_fft_psd_kernel<true, 4>
+                                     : stft_odd_fft_psd_kernel<true, 8>;
   const size_t smem = static_cast<size_t>(K) * sizeof(double2);
-  const int err = raise_smem(kernel, smem, odd_smem_set[rader >= 0]);
+  const int err = raise_smem(kernel, smem, odd_smem_set[variant]);
   if (err != 0) return err;
   const unsigned blocks =
       static_cast<unsigned>(B) * static_cast<unsigned>((T + 1) / 2);
@@ -2454,29 +2972,37 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
   const bool odd = K % 2 == 1;
   const int N = odd ? K : K / 2;
   const int ranks = M > BLUE_MAX_BLOCK_POINTS ? 2 : 1;
-  MixedPlan plan;
-  int threads = 0;
   if (K < 32 || K > 8192 || F < 1 || F > K || !detrend_ok(detrend) ||
       M < 2 * N - 1 || bhat < 0 || chirp < 0 || (split < 0) != odd ||
-      !load_plan(stages, n_stages, split, -1, M, &plan, &threads))
+      n_stages < 1 || n_stages > MIX_MAX_STAGES)
     return static_cast<int>(bad);
   for (int s = 0; s < n_stages; ++s)
-    if (plan.stage[s][0] > BLUE_MAX_RADIX) return static_cast<int>(bad);
+    if (stages[4 * s] > BLUE_MAX_RADIX) return static_cast<int>(bad);
   int half_row = -1;
+  int local_stages = n_stages;
   if (ranks == 2) {
     const int* last = stages + 4 * (n_stages - 1);
     if (!odd || M % 2 || M / 2 > BLUE_MAX_BLOCK_POINTS || last[0] != 2 ||
         last[1] != M / 2)
       return static_cast<int>(bad);
     half_row = last[2];
-    plan.n_stages -= 1;             // the halves' stages; the last crosses
+    local_stages -= 1;              // the halves' stages; the last crosses
   }
   const int local = M / ranks;
-  threads = fft_threads(2 * local);  // local/2 radix-2 butterflies
-  const auto kernel = ranks == 2 ? stft_bluestein_psd_kernel<2>
-                                 : stft_bluestein_psd_kernel<1>;
+  ConvPlan plan;
+  int rmax = 0;
+  int threads = 0;
+  if (!conv_plan(stages, local_stages, local, -1, split, true, local, &plan,
+                 &rmax, &threads) ||
+      rmax != 0)
+    return static_cast<int>(bad);
+  const int variant =
+      ranks == 2 ? 2 : (local <= BLUE_TWO_BLOCK_POINTS ? 1 : 0);
+  const auto kernel = variant == 2   ? stft_bluestein_psd_kernel<2, false>
+                      : variant == 1 ? stft_bluestein_psd_kernel<1, true>
+                                     : stft_bluestein_psd_kernel<1, false>;
   const size_t smem = static_cast<size_t>(local) * sizeof(double2);
-  const int err = raise_smem(kernel, smem, blue_smem_set[ranks - 1]);
+  const int err = raise_smem(kernel, smem, blue_smem_set[variant]);
   if (err != 0) return err;
   const unsigned units =
       static_cast<unsigned>(B) *

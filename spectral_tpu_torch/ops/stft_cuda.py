@@ -132,21 +132,21 @@ class DftConstants(NamedTuple):
 
 
 def unsupported_reason(cfg: SpecConfig) -> Optional[str]:
-    """Why the kernel cannot compute cfg (naming the ROADMAP item that will
-    bring it), or None when it can. These are the semantic conditions of
+    """Why the kernel cannot compute cfg (naming, by its bracketed label,
+    the ROADMAP item that will bring it), or None when it can. These are the semantic conditions of
     the JAX package's ``pallas_supported``; its gcd and VMEM conditions are
     TPU layout limits, and the kernel reads frames by pointer."""
     if cfg.mode != "psd" or cfg.center or cfg.nfft_ != cfg.nperseg:
         return ("the STFT kernel computes uncentered PSD with nfft == "
-                "nperseg; other modes arrive with ROADMAP queue 1 item 8 "
+                "nperseg; other modes arrive with ROADMAP [ext-modes] "
                 "(the extended modes)")
     if cfg.n_mels is not None or cfg.fmin is not None or cfg.fmax is not None:
         return ("the mel branch and the fmin/fmax band mask arrive with "
-                "ROADMAP queue 1 item 5 (the rest of the main-path pipeline)")
+                "ROADMAP [band-mel] (the rest of the main-path pipeline)")
     if cfg.nperseg > MAX_NPERSEG:
         return (f"nperseg {cfg.nperseg} > {MAX_NPERSEG}, the GUI's ceiling "
                 "(GUI.py:87-90); larger transforms arrive with ROADMAP "
-                "queue 1 item 8 (the extended modes)")
+                "[ext-modes] (the extended modes)")
     return None
 
 

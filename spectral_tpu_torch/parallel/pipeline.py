@@ -18,7 +18,7 @@ The three stages overlap:
 Bounded queues and a fixed ring of pinned buffers keep memory flat.
 
 Left out against the JAX package: ``use_pallas`` (the port has one route,
-its kernels), ``mesh``/``batch_axis`` (ROADMAP slice 7), the XLA compile
+its kernels), ``mesh``/``batch_axis`` (ROADMAP [multi-device]), the XLA compile
 cache, and ``registry_clip_source``/``registry_first_fs``, which wait for
 the port of ``io/registry``, ``abf`` and ``nix``.
 """
@@ -191,9 +191,9 @@ def export_spectrograms(clips: Iterable[Tuple[str, np.ndarray]], fs: float,
     rename).
 
     A config the kernels cannot compute (mel, fmin/fmax, centered, nfft >
-    nperseg) raises NotImplementedError naming its ROADMAP item.
+    nperseg) raises NotImplementedError naming its ROADMAP label.
     ``cfg.precision == 'fast'`` runs at the contract precision, as the JAX
-    package's Pallas kernel does (ROADMAP queue 1 item 9).
+    package's Pallas kernel does (ROADMAP [ext-modes]).
 
     The returned stats carry a per-stage breakdown
     (:meth:`PipelineStats.breakdown`)."""

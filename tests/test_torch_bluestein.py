@@ -195,11 +195,12 @@ def test_every_bluestein_plan_fits_the_kernel():
     block_points = _cuda_int("BLUE_MAX_BLOCK_POINTS")
     block_smem = _cuda_int("BLOCK_SMEM")
     warps = _cuda_int("FFT_MAX_THREADS") // 32
+    small_roots = _cuda_int("SMALL_ROOTS")      # radix 3, 5 and 7's roots
     with open(CSRC) as fh:
         assert re.search(
-            r"BLUE_STATIC_SMEM =\s+\(BLUE_MAX_RADIX \+ 1\) \* 16 \+ 3 \* "
+            r"BLUE_STATIC_SMEM =\s+SMALL_ROOTS \* 16 \+ 3 \* "
             r"FFT_MAX_WARPS \* 16 \+ 4 \* FFT_MAX_WARPS \* 4;", fh.read())
-    static = (max_radix + 1) * 16 + 3 * warps * 16 + 4 * warps * 4
+    static = small_roots * 16 + 3 * warps * 16 + 4 * warps * 4
     assert max_radix == max(tstft.BLUESTEIN_RADICES)
     assert block_points == tstft.BLUESTEIN_BLOCK_POINTS
     assert block_points * 16 + static <= block_smem

@@ -5,8 +5,9 @@ numpy model of the kernel's exact algorithm
 (``tools/torch_precision.py::psd_mixed_fft``: the same digit-reversed load,
 the same stage order and butterflies, the same host twiddle rows) and a
 scalar transcription of the stage-at-a-time thread loops (``run_stages``)
-that the Rader, odd and Bluestein kernels run; the mixed-radix kernel's
-own passes are transcribed in ``tests/test_torch_mixed_registers.py``.
+that the mixed-radix kernel's Rader plans run; the mixed-radix kernel's
+own passes are transcribed in ``tests/test_torch_mixed_registers.py``, the
+odd and Bluestein kernels' in ``tests/test_torch_conv_registers.py``.
 
 The model is held to the kernels' plain version (``stft_psd_reference``,
 a float64 dense DFT) in float64, to the JAX package's Pallas kernel in
@@ -186,10 +187,11 @@ def _cuda_constant(name):
 
 
 def _threads(n, p_max):
-    """The stage-at-a-time kernels' block for an n-point transform (their
-    launchers' rule, ``load_plan``; the Rader, odd and Bluestein kernels): n/2 threads rounded up to a warp, 32
-    to 512, widened to a warp multiple that holds the largest radix's
-    (p + 1)/2 output pairs."""
+    """The stage-at-a-time block for an n-point transform (``load_plan``,
+    the mixed-radix kernel's Rader plans; the odd kernel's ``conv_plan``
+    takes at least this block): n/2 threads rounded up to a warp, 32 to
+    512, widened to a warp multiple that holds the largest radix's (p +
+    1)/2 output pairs."""
     fft = min(512, max(32, (2 * n // 4 + 31) // 32 * 32))
     return max(fft, ((p_max + 1) // 2 + 31) // 32 * 32)
 
@@ -231,7 +233,7 @@ def test_generic_stage_rounds_fit_the_block():
 
 def _kernel_loops(frame, window, plan, F, detrend):
     """The stage-at-a-time thread loops (``run_stages``: stage_radix2,
-    stage_odd, stage_generic, which the Rader, odd and Bluestein kernels
+    stage_odd, stage_generic, which the mixed-radix kernel's Rader plans
     run) for one frame, with the even kernels' load and epilogue,
     transcribed scalar by scalar from csrc/stft_psd.cu (each round of a
     stage reads its butterflies' slots before it writes them): their index

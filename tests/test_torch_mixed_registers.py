@@ -130,6 +130,29 @@ class Pass:
         self.lp = span * radix
 
 
+def group_passes(stages, M):
+    """group_passes: each odd stage of the plan's (p, L, row, root) rows a
+    pass, then the twos, a of them, in ceil(a / R2_BITS) passes of as even
+    a number of stages each, the smaller first."""
+    passes, twos = [], []
+    for p, L, row, root in stages:
+        if p % 2:
+            assert not twos
+            passes.append(Pass(p, L, [row], root, M))
+        else:
+            twos.append((L, row))
+    a = len(twos)
+    n2 = -(-a // R2_BITS)
+    s = 0
+    for pn in range(n2):
+        i = n2 - 1 - pn                         # smaller first
+        bits = a // n2 + (i < a % n2)
+        passes.append(Pass(2 ** bits, twos[s][0],
+                           [r for _, r in twos[s:s + bits]], -1, M))
+        s += bits
+    return passes
+
+
 class MixedRegisters:
     """The kernel's geometry at even nperseg K (no Rader stage),
     transcribed from the CUDA source (mixed_register_plan, mix_base,
@@ -142,23 +165,9 @@ class MixedRegisters:
         self.plan = plan = tstft.fft_plan(K)
         assert plan.rader < 0
         stages = plan.stages.tolist()
-        self.passes, twos = [], []
-        for p, L, row, root in stages:
-            if p % 2:
-                assert not twos
-                self.passes.append(Pass(p, L, [row], root, M))
-            else:
-                twos.append((L, row))
+        self.passes = group_passes(stages, M)
         p_max = max([p for p, _, _, _ in stages if p % 2] + [2])
         self.rmax = rmax_of(p_max)
-        a = len(twos)
-        n2 = -(-a // R2_BITS)
-        s = 0
-        for i in range(n2):
-            bits = a // n2 + (i < a % n2)
-            self.passes.append(Pass(2 ** bits, twos[s][0],
-                                    [r for _, r in twos[s:s + bits]], -1, M))
-            s += bits
         self.threads = THREADS
         self.load = LOAD
         pf = 1
@@ -649,6 +658,7 @@ def test_geometry_constants_are_the_sources():
         assert np.array_equal(((g * h) + q - 1) * rm + i, e)
         assert e.size <= _constant(SRC, "MIX_MAX_RADIX") + 1
     for line in (
+            "const int i = n2 - 1 - pn;",
             "const int bits = twos / n2 + (i < twos % n2 ? 1 : 0);",
             "const int n2 = (twos + MIX_R2_BITS - 1) / MIX_R2_BITS;",
             "*rmax = mix_rmax(p_max);",
@@ -697,7 +707,8 @@ def test_geometry_constants_are_the_sources():
         assert " ".join(line.split()) in FLAT, line
     # MixedRegisters' grouping at the driven configs: 8160 (M = 2^4 17 5
     # 3) four passes on two frames a block, 8032 (2^4 251) two with 8
-    # output pairs a generic lane, 992 two on sixteen frames
+    # output pairs a generic lane, 992 two on sixteen frames, 6144 (2^10
+    # 3) the twos' passes smaller first
     got = {k: ([ps.radix for ps in MixedRegisters(k).passes],
                MixedRegisters(k).rmax, MixedRegisters(k).frames)
            for k in (8160, 8032, 992, 96, 6144)}
@@ -705,4 +716,4 @@ def test_geometry_constants_are_the_sources():
                    8032: ([251, 16], 8, 2),
                    992: ([31, 16], 4, 16),
                    96: ([3, 16], 0, 128),
-                   6144: ([3, 16, 8, 8], 0, 2)}
+                   6144: ([3, 8, 8, 16], 0, 2)}

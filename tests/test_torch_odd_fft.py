@@ -6,7 +6,10 @@ models of the kernels' exact algorithms
 (``tools/torch_precision.py::psd_odd_fft``: two frames of a clip a
 transform, the pairing's guard, the pair epilogue; ``_transform``: the
 Rader stage's stages in frequency, product and stages in time) and a
-scalar transcription of the kernels' thread loops.
+scalar transcription of the stage-at-a-time thread loops (``run_stages``,
+which the mixed-radix kernel's Rader plans run, and the odd kernel's load,
+guard and epilogue around them; the odd kernel's own pass engine is
+transcribed in ``tests/test_torch_conv_registers.py``).
 
 The models are held to the kernels' plain version (``stft_psd_reference``,
 a float64 dense DFT) in float64, to the JAX package's Pallas kernel in
@@ -518,9 +521,10 @@ def _transform_loops(buf, plan, n, threads):
 
 
 def _odd_kernel_loops(frames, window, plan, F):
-    """stft_odd_fft_psd_kernel for the frames of one clip, block by block
-    (pairs 2j, 2j + 1): both frames' loads, the guard on their energies,
-    the K-point transform, the pair or lone epilogue; |X|² per bin."""
+    """stft_odd_fft_psd_kernel's algorithm for the frames of one clip,
+    block by block (pairs 2j, 2j + 1): both frames' loads, the guard on
+    their energies, the K-point transform (on the stage-at-a-time loops),
+    the pair or lone epilogue; |X|² per bin."""
     T, K = frames.shape
     threads = _threads(K, int(plan.stages[:, 0].max()))
     out = np.zeros((T, F))

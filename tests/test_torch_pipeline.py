@@ -182,9 +182,11 @@ def test_colormap_none_and_input_coercion():
 
 
 def test_unsupported_configs_raise_on_build():
-    for cfg, item in ((SpecConfig.north_star(256, 64, n_mels=32), "item 5"),
-                      (SpecConfig.scipy_default(256, fmax=100.0), "item 5"),
-                      (SpecConfig.scipy_default(16384), "item 8")):
+    for cfg, item in ((SpecConfig.north_star(256, 64, n_mels=32),
+                       r"\[band-mel\]"),
+                      (SpecConfig.scipy_default(256, fmax=100.0),
+                       r"\[band-mel\]"),
+                      (SpecConfig.scipy_default(16384), r"\[ext-modes\]")):
         with pytest.raises(NotImplementedError, match=item):
             batched_spectrogram_fn(FS, cfg)
 

@@ -324,7 +324,9 @@ def _stages(re: np.ndarray, im: np.ndarray, plan, n: int,
 def _transform(re: np.ndarray, im: np.ndarray, plan, n: int):
     """The n-point transform of the values the plan's load order put in
     the (T, n) slots re + i im, in natural order, as the kernels compute
-    it (``csrc/stft_psd.cu::mixed_transform``): the plan's stages, or with
+    it (``csrc/stft_psd.cu::mixed_transform``, and the odd kernel's
+    ``conv_forward``/``conv_transform``, which group the same stages into
+    passes): the plan's stages, or with
     a Rader stage (``plan.rader >= 0``, P = n - 1, x0 in slot P) the
     P-point stages in frequency, X[0] = x0 + slot 0, the product with the
     b̂ rows in slot order, the stages in time, and X[f] = x0 + slot
@@ -502,7 +504,8 @@ def _pair_psd(v: np.ndarray, transform, wts: np.ndarray, round_f32: bool,
 def _bluestein_transform(re: np.ndarray, im: np.ndarray, plan):
     """The N-point DFT of the (T, N) values re + i im in natural order, in
     natural order, as the Bluestein kernel computes it
-    (``csrc/stft_psd.cu::bluestein_transform``, ``plan`` =
+    (``csrc/stft_psd.cu::bluestein_transform`` on the pass engine
+    ``conv_transform``, ``plan`` =
     ``core/stft.py::bluestein_plan``): a = x·w (the chirp rows) in slots
     0..N-1 of M, zero past them; M's stages in frequency; each slot
     conj(b̂·slot); the stages in time; X[k] = w_k·conj(slot k).

@@ -3,7 +3,9 @@ checkout of the port.
 
     python3 tools/torch_route_times.py [--root DIR] [--route ROUTE]
                                        [--nperseg N ...] [--detrend D]
-                                       [--paths] [--frames-alone]
+                                       [--paths [P ...]] [--sweep S]
+                                       [--frames-alone] [--library]
+                                       [--ulp]
 
 Imports ``spectral_tpu_torch`` from DIR (default: the checkout holding this
 script), builds its STFT kernel from DIR's sources, and times
@@ -15,14 +17,21 @@ after a warm-up. ``--paths`` times instead the STFT/PSD configs of
 ``chip_smoke.py``'s paths 1-10 at their batches (1024 clips of 10 s at
 north_star 1024/256, the export's config too; 256 clips of 60 s at
 scipy_default 8192, 8160, 8032, 8160 under linear detrend, 8191, 8185
-and 8182; 1024 clips of 10 s at scipy_default 24). ``--route`` (gemm,
+and 8182; 1024 clips of 10 s at scipy_default 24), or those of the paths
+numbered after it; ``--sweep S`` every S-th nperseg from 32 to 8192 that
+the odd route takes and every S-th the Bluestein route takes, at
+scipy_default. ``--nperseg``, ``--paths`` and ``--sweep`` add up. ``--route`` (gemm,
 fft, mixed, odd or bluestein) forces that kernel through ``stft_psd``'s
 module-private ``_route`` on the configs that allow it and skips the
 others; ``--route mixed`` also takes the
 power-of-two configs, whose plan is all radix-2 stages, and reports the
 largest difference from the radix-2 kernel's PSD relative to its max.
 ``--frames-alone`` launches the odd kernel with every frame transformed
-alone (its packing off). Pointed at an older checkout it times that
+alone (its packing off). ``--library`` also times each config's library
+yardstick, ``chip_smoke.py::library_psd`` (cuFFT's float64 transform of
+the same frames), which the port never calls. ``--ulp`` also reports the
+largest distance in float32 ulps of the first 64 clips' PSD from the
+plain version, ``stft_psd_reference``, on the same clips. Pointed at an older checkout it times that
 checkout's kernels, so one call on one card compares two versions: run it
 for the older, this, this and the older again.
 
@@ -56,10 +65,19 @@ def main(argv=None) -> None:
     ap.add_argument("--route",
                     choices=("gemm", "fft", "mixed", "odd", "bluestein"),
                     help="force this kernel where the config allows it")
-    ap.add_argument("--paths", action="store_true",
-                    help="time chip_smoke.py's paths 1-10 configs and batches")
+    ap.add_argument("--paths", type=int, nargs="*",
+                    help="time chip_smoke.py's paths 1-10 configs and "
+                         "batches, or the paths numbered")
+    ap.add_argument("--sweep", type=int,
+                    help="every S-th nperseg of the odd and Bluestein "
+                         "routes")
     ap.add_argument("--frames-alone", action="store_true",
                     help="the odd kernel without its packing")
+    ap.add_argument("--library", action="store_true",
+                    help="time chip_smoke.py's cuFFT yardstick too")
+    ap.add_argument("--ulp", action="store_true",
+                    help="the PSD's float32 ulp distance from the plain "
+                         "version")
     ap.add_argument("--nperseg", type=int, nargs="*",
                     help="time scipy_default at these nperseg instead")
     ap.add_argument("--detrend", choices=("none", "constant", "linear"),
@@ -83,6 +101,11 @@ def main(argv=None) -> None:
     dev = torch.device("cuda", 0)
     batches = {}
 
+    if args.library or args.ulp:
+        sys.path.insert(0, os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        from chip_smoke import library_psd, ulp_distance
+
     def batch(clips, seconds):
         """Seeded noise, the same in every checkout and call."""
         if (clips, seconds) not in batches:
@@ -95,19 +118,26 @@ def main(argv=None) -> None:
     report = {"root": root, "card": card, "clips": CLIPS,
               "seconds": SECONDS, "route": args.route,
               "detrend": args.detrend, "frames_alone": args.frames_alone}
-    configs = ([(f"scipy_default {k}", SpecConfig.scipy_default(k))
-                for k in args.nperseg] if args.nperseg else
-               [("scipy_default 1024", SpecConfig.scipy_default(1024)),
-                ("north_star 1024/256", SpecConfig.north_star(1024, 256)),
-                ("scipy_default 992", SpecConfig.scipy_default(992))])
+    nperseg = list(args.nperseg or [])
+    if args.sweep:
+        for route in ("odd", "bluestein"):
+            ks = [k for k in range(32, 8193)
+                  if stft_cuda.route(SpecConfig.scipy_default(k)) == route]
+            nperseg += ks[::args.sweep]
+    configs = [(f"scipy_default {k}", SpecConfig.scipy_default(k))
+               for k in nperseg]
+    if not configs and args.paths is None:
+        configs = [("scipy_default 1024", SpecConfig.scipy_default(1024)),
+                   ("north_star 1024/256", SpecConfig.north_star(1024, 256)),
+                   ("scipy_default 992", SpecConfig.scipy_default(992))]
     if args.detrend:
         configs = [(f"{name} {args.detrend}",
                     dataclasses.replace(cfg, detrend=args.detrend))
                    for name, cfg in configs]
     shape = {name: (CLIPS, SECONDS) for name, _ in configs}
-    if args.paths:
+    if args.paths is not None:
         s8160 = SpecConfig.scipy_default(8160, log_scale=True)
-        configs = [
+        paths = [
             ("path 1 north_star 1024/256",
              SpecConfig.north_star(1024, 256, log_scale=True)),
             ("path 2 scipy_default 8192",
@@ -125,9 +155,12 @@ def main(argv=None) -> None:
              SpecConfig.scipy_default(8182, log_scale=True)),
             ("path 10 scipy_default 24",
              SpecConfig.scipy_default(24, log_scale=True))]
-        shape = {name: (CLIPS, SECONDS) if name.startswith(("path 1 ",
-                                                            "path 10"))
-                 else (256, 60.0) for name, _ in configs}
+        paths = [(name, cfg) for name, cfg in paths
+                 if not args.paths or int(name.split()[1]) in args.paths]
+        shape.update({name: (CLIPS, SECONDS)
+                      if name.startswith(("path 1 ", "path 10"))
+                      else (256, 60.0) for name, _ in paths})
+        configs = paths + configs
     for name, cfg in configs:
         x = batch(*shape[name])
 
@@ -162,23 +195,40 @@ def main(argv=None) -> None:
             report[name] = f"launch failed: {err}"
             continue
         digest = hashlib.sha256(psd[:64].cpu().numpy().tobytes()).hexdigest()
+        ulps = None
+        if args.ulp:
+            want = stft_cuda.stft_psd_reference(
+                x[:64], stft_cuda.dft_constants(cfg, FS, dev), cfg)
+            ulps = ulp_distance(psd[:64], want)
+            del want
         del psd
         torch.cuda.synchronize()
-        reps = []
-        for _ in range(REPS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            call(x)
-            end.record()
-            torch.cuda.synchronize()
-            reps.append(start.elapsed_time(end))
+
+        def timed(fn):
+            reps = []
+            for _ in range(REPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                reps.append(start.elapsed_time(end))
+            return reps
+        reps = timed(lambda: call(x))
         after = stft_cuda.launches
         added = ({k: after[k] - before.get(k, 0) for k in after}
                  if isinstance(after, dict) else after - before)
         report[name] = {"ms": sorted(reps)[REPS // 2], "reps_ms": reps,
                         "launches": added, "psd_sha256": digest[:16],
                         "batch": list(shape[name])}
+        if ulps is not None:
+            report[name]["ulp_from_plain"] = ulps
+        if args.library:
+            library_psd(x, cfg)                  # warm up
+            lib = timed(lambda: library_psd(x, cfg))
+            report[name]["library_ms"] = sorted(lib)[REPS // 2]
+            torch.cuda.empty_cache()
     print(json.dumps(report))
 
 
