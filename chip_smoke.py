@@ -11,19 +11,23 @@ nperseg 32-8192, under every detrend, beside zero, NaN and 1e-6 frames,
 an overflow clip, log10_out, B T = 1 and T = 0, each held to 1 float32
 ulp, with its ptxas registers and spills printed; the mixed-radix
 kernel at the other GUI values, every radix from 3 to 251, nperseg
-96-8160, the edges of its passes, and with its Rader stage at 514 and
-8186, with its ptxas registers and spills printed too; both under linear
-detrend on ramp clips too; each mixed-radix, Rader and odd kernel's first
-launch at a buffer just under 48 KB, in a fresh process; the odd kernel
-at nperseg 33-8191 under every detrend, with and without a Rader stage,
-and on frames that its pairing must keep apart; the Bluestein kernel on
-one block at 563-8182 and on a cluster of two at 7207-8189, the same way, and
-forced at 33, 1024, 8032 and 8191; the ptxas registers and spills of the
-odd and Bluestein kernels' instantiations; the GEMM kernel forced beside
-them)
-and the display kernel in both output modes, with and without the float
-image. Then it drives ten paths at full size, each with the launch counts
-set to 0 just before it and read just after:
+96-8160, the edges of its passes, with its ptxas registers and spills
+printed too; both under linear detrend on ramp clips too; each
+mixed-radix, Rader and odd kernel's first launch at a buffer just under 48
+KB, in a fresh process; the odd kernel at nperseg 33-8191 under every
+detrend, with and without a Rader stage, and on frames that its pairing
+must keep apart; the mixed route's Rader plans on the odd kernel's PACKED
+form at each of its four instantiations and at plans of few butterflies
+(MIXED_RADER_CASES); the Bluestein kernel on one block at 563-8182 and on
+a cluster of two at 7207-8189, the same way, and forced at 33, 1024, 8032
+and 8191; the GEMM route's small-K tile at every nperseg 2-31 with hop
+below and above nperseg, rows that cross a clip's edge inside a block,
+NaN and overflow clips, log10_out and T = 0 (GEMM_CASES); the ptxas
+registers and spills of the odd, Bluestein and GEMM kernels'
+instantiations; the GEMM kernel's large tile forced beside them) and the
+display kernel in both output modes, with and without the float image.
+Then it drives eleven paths at full size, each with the launch counts set
+to 0 just before it and read just after:
 
 1. the display spine: 1024 clips of 10 s at 16 kHz through
    ``batched_spectrogram_fn`` at north_star 1024/256 log (RGBA words), on
@@ -50,12 +54,15 @@ set to 0 just before it and read just after:
 9. the Bluestein route on one block: path 2's batch at scipy_default 8182
    (2 4091, and 4090 = 2 5 409; M = 8192);
 10. the GEMM route on a config it still computes: path 1's batch at
-    scipy_default 24, below the FFT kernels' 32.
+    scipy_default 24, below the FFT kernels' 32 (the small-K tile);
+11. the mixed route's Rader plan at full width: path 2's batch at
+    scipy_default 8186 (2 4093, and 4092 = 2^2 3 11 31), on the odd
+    kernel's PACKED form.
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
 with CUDA events (also scipy_default 1024, 992, 2049 and 8186, the
-mixed-radix kernel's Rader stage, on path 1's batch): the library
+mixed route's Rader plan, on path 1's batch): the library
 yardstick of the STFT kernels is cuFFT's
 float64 real transform of the same frames (``library_psd``), which the
 port never calls. The GEMM kernel is also timed on paths 1, 2 and 4-9,
@@ -96,16 +103,24 @@ PRIME_NPERSEG = 8032    # 32 * 251: the GUI's largest odd prime factor
 ODD_NPERSEG = 8191      # a prime off the GUI's grid: the odd route, Rader
 BLUESTEIN_NPERSEG = 8185  # 5 * 1637, 1636 = 2^2 409: Bluestein, a cluster
 BLUESTEIN_EVEN_NPERSEG = 8182   # 2 * 4091, 4090 = 2 5 409: one block
-RADER_NPERSEG = 8186    # 2 * 4093, 4092 = 2^2 3 11 31: the mixed-radix
-                        # kernel's Rader stage (stft_mixed_rader_psd_kernel)
+RADER_NPERSEG = 8186    # 2 * 4093, 4092 = 2^2 3 11 31: the mixed route's
+                        # Rader plan (the odd kernel's PACKED form, path 11)
 GEMM_NPERSEG = 24       # below the FFT kernels' 32: the GEMM kernel
-# the odd route's kernel cases, and the Rader stage's on the mixed-radix
-# kernel (514 = 2 * 257, 8186 = 2 * 4093): each of the odd kernel's eight
+# the odd route's kernel cases: each of the odd kernel's eight
 # instantiations <RADER, RMAX> (conv_plan), without a Rader stage 45 <0, 0>,
 # 33 and 1023 <0, 1>, 8181 <0, 4>, 8183 <0, 8>, with one 257 <1, 0>, 1021
 # <1, 1>, 4093 and 8191 <1, 4>, 7487 <1, 8>
-ODD_CASES = (33, 45, 257, 514, 1021, 1023, 4093, 7487, 8181, 8183, 8186,
-             8191)
+ODD_CASES = (33, 45, 257, 1021, 1023, 4093, 7487, 8181, 8183, 8191)
+# the mixed route's Rader plans (even nperseg whose half is a prime p past
+# 255 with a 255-smooth p - 1), on the odd kernel's PACKED form: both of
+# its instantiations <true, RMAX, true>, 514 (P = 256, swizzled) and 1082
+# <0>, and <1> (narrow generic passes) at 526, 934, 1006 and 2894 (a
+# generic pass of 2 or 6 butterflies: 131, 233, 251, 241; 2 or 4 a round,
+# the round's butterflies across the lanes), 4934 (137, 7 a round, the
+# output pairs across the lanes), 4106 and 8186 (19; 31 and 11)
+MIXED_RADER_CASES = (514, 526, 934, 1006, 1082, 2894, 4106, 4934, 8186)
+# the GEMM route's small-K tile: every nperseg below 32
+GEMM_CASES = tuple(range(2, 32))
 # the Bluestein route's kernel cases: even (1126 = 2 563, 8182 = 2 4091),
 # odd on one block (563, 2049 = 3 683, and 7201 at the block's budget, M =
 # 14406) and on a cluster of two (7207, M = 14580; 8185, 8189, M = 16384)
@@ -364,10 +379,19 @@ def build_kernels():
           + "; ".join(radix2_ptxas(info["log"])))
     print("mixed-radix kernel (stft_mixed_fft_psd_kernel<RMAX>), ptxas: "
           + "; ".join(mixed_ptxas(info["log"])))
-    print("odd kernel (stft_odd_fft_psd_kernel<RADER, RMAX>), ptxas: "
+    print("odd kernel (stft_odd_fft_psd_kernel<RADER, RMAX, PACKED>; "
+          "PACKED the mixed route's Rader plans), ptxas: "
           + "; ".join(radix2_ptxas(
-              info["log"], r"stft_odd_fft_psd_kernelILb(\d)ELi(\d+)E",
-              lambda e: f"RADER {e.group(1)}, RMAX {e.group(2)}")))
+              info["log"],
+              r"stft_odd_fft_psd_kernelILb(\d)ELi(\d+)ELb(\d)E",
+              lambda e: f"RADER {e.group(1)}, RMAX {e.group(2)}, PACKED "
+                        f"{e.group(3)}")))
+    print("GEMM kernel (stft_psd_kernel, 128 x 64 tile; "
+          "stft_psd_small_kernel, nperseg 2-31), ptxas: "
+          + "; ".join(radix2_ptxas(
+              info["log"], r"stft_psd_(small_kernelILi(\d)E|kernelE)",
+              lambda e: f"small-K tile<NB {e.group(2)}>" if e.group(2)
+              else "large tile")))
     print("Bluestein kernel (stft_bluestein_psd_kernel<RANKS, TWO>), ptxas: "
           + "; ".join(radix2_ptxas(
               info["log"], r"stft_bluestein_psd_kernelILi(\d)ELb(\d)E",
@@ -733,10 +757,12 @@ def kernel_cases(dev):
 
 def odd_kernel_cases(dev, cases=ODD_CASES, edges=(1023, 8191),
                      title="the odd route and the Rader stage", seed=7,
-                     forced=((1023, "gemm"),)):
-    """The odd route (two frames of a clip a transform) and the Rader stage
-    (on the odd kernel, and at 514 and 8186 on the mixed-radix kernel), or
-    with ``cases=BLUESTEIN_CASES`` the Bluestein route, against the plain
+                     forced=((1023, "gemm"),), hop_of=lambda k: k // 4,
+                     wide=False):
+    """The odd route (two frames of a clip a transform) and its Rader stage,
+    or with ``cases=MIXED_RADER_CASES`` the mixed route's Rader plans (the
+    odd kernel's PACKED form), or with ``cases=BLUESTEIN_CASES`` the
+    Bluestein route, against the plain
     version: every detrend on clips with an odd T (a lone last frame),
     the pairing's guard on an all-zero, a NaN and a 1e-6 frame beside
     loud ones, overflow, log10_out and T = 0 at ``edges``, and ``forced``
@@ -745,7 +771,10 @@ def odd_kernel_cases(dev, cases=ODD_CASES, edges=(1023, 8191),
     and inf bins to the same places. With ``cases=R2_CASES`` the radix-2
     route: 27 and 14 rows are no multiple of its frames a block (128 to 8
     at nperseg 32-512, where the NaN frame shares a block with finite
-    ones; one frame a block from 1024)."""
+    ones; one frame a block from 1024). With ``cases=GEMM_CASES`` (hops
+    ``hop_of``, at least 1) the GEMM route's small-K tile, and with
+    ``wide`` a hop past nperseg and 5 clips of 300 frames each (blocks of
+    256 or 512 rows that cross clips' edges)."""
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
@@ -787,7 +816,7 @@ def odd_kernel_cases(dev, cases=ODD_CASES, edges=(1023, 8191),
         return got, want
 
     for k in cases:
-        hop = k // 4
+        hop = hop_of(k)
         n = k + 8 * hop                          # T = 9
         noise = rs.randn(3, n)
         for detrend, x in (("none", noise), ("constant", noise + 3.0),
@@ -812,12 +841,19 @@ def odd_kernel_cases(dev, cases=ODD_CASES, edges=(1023, 8191),
                 and frames_ok == [True, True, True, False, True, True, True],
                 f"nperseg {k}: the zero frame's bins exactly 0 and the "
                 f"clip's pmin 0, the NaN only in its own frame: {frames_ok}")
+        if wide:
+            cfg = SpecConfig(nperseg=k, hop=k + 3, detrend="linear")
+            compare(on_card(rs.randn(3, k + 8 * (k + 3)) + trend(
+                k + 8 * (k + 3))), cfg, f"nperseg {k}, hop {k + 3}, linear")
+            cfg = SpecConfig.scipy_default(k)
+            compare(on_card(rs.randn(5, k + 299 * cfg.hop_) + 3.0), cfg,
+                    f"nperseg {k}, hop {cfg.hop_}, 5 clips x T = 300")
     for k, route in forced:
         compare(on_card(rs.randn(3, k + 8 * (k // 4)) + 3.0),
                 SpecConfig(nperseg=k, hop=k // 4), f"nperseg {k}, constant",
                 route=route)
     for k in edges:
-        cfg = SpecConfig.north_star(k, k // 4)
+        cfg = SpecConfig.north_star(k, hop_of(k))
         xo = on_card(np.stack([rs.randn(8 * k), 1e19 * rs.randn(8 * k)]))
         _, lo_o, hi_o = stft_cuda.stft_psd(xo, FS, cfg, with_stats=True)
         used = stft_cuda.route(cfg)
@@ -858,7 +894,7 @@ def scipy_checks(dev, card):
     noise + 3, and north_star 1024/256 on the sweep's worst clips, all on
     the FFT route; then the kernels' times at scipy_default 1024 (FFT),
     992 (mixed radix), 2049 (Bluestein on one block) and 8186 (the
-    mixed-radix kernel's Rader stage), each beside the
+    mixed route's Rader plan, the odd kernel's PACKED form), each beside the
     GEMM kernel, on the display spine's batch."""
     import numpy as np
     import torch
@@ -1379,7 +1415,7 @@ def export_path(dev, card):
 
 
 PHASES = ("kernels", "scipy", "path1", "path2", "path3", "path4", "path5",
-          "path6", "path7", "path8", "path9", "path10")
+          "path6", "path7", "path8", "path9", "path10", "path11")
 
 
 def main(_phases=None):
@@ -1400,6 +1436,13 @@ def main(_phases=None):
         odd_kernel_cases(dev, R2_CASES, edges=R2_CASES,
                          title="the radix-2 route", seed=9, forced=())
         odd_kernel_cases(dev)
+        odd_kernel_cases(dev, MIXED_RADER_CASES, edges=(1006, 8186),
+                         title="the mixed route's Rader plans", seed=10,
+                         forced=((1006, "gemm"),))
+        odd_kernel_cases(dev, GEMM_CASES, edges=(2, 13, 24, 31),
+                         title="the GEMM route's small-K tile", seed=11,
+                         forced=(), hop_of=lambda k: max(1, k // 4),
+                         wide=True)
         odd_kernel_cases(
             dev, BLUESTEIN_CASES, edges=(2049, 8182, 8185),
             title="the Bluestein route", seed=8,
@@ -1448,6 +1491,12 @@ def main(_phases=None):
             SpecConfig.scipy_default(GEMM_NPERSEG, log_scale=True),
             "path 10, the GEMM route", clips=BATCH, seconds=CLIP_SECONDS)
         torch.cuda.empty_cache()
+    if "path11" in phases:
+        rows["stft_mixed_rader"] = long_path(
+            dev, card, dfma_peak,
+            SpecConfig.scipy_default(RADER_NPERSEG, log_scale=True),
+            "path 11, the mixed route's Rader plan")
+        torch.cuda.empty_cache()
     if _phases is not None:
         print(f"chip_smoke phases {sorted(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -1461,34 +1510,46 @@ def main(_phases=None):
           f"path 7 {rows['stft_odd']['launches']}; the Bluestein kernel's: "
           f"path 8 {rows['stft_bluestein_cluster']['launches']}, path 9 "
           f"{rows['stft_bluestein']['launches']}; the GEMM kernel's: path 10 "
-          f"{rows['stft_gemm']['launches']}")
+          f"{rows['stft_gemm']['launches']}; the mixed route's Rader plan's "
+          f"(the odd kernel's PACKED form): path 11 "
+          f"{rows['stft_mixed_rader']['launches']}")
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
+    # each row names the instantiation its path launches
     meta = {
-        "stft_1024": ("stft_fft_psd, nperseg 1024 (path 1)", "cuda", src,
+        "stft_1024": ("stft_fft_psd<LOG2M 9, 8 values>, nperseg 1024 "
+                      "(path 1)", "cuda", src,
                       "spectral_tpu/ops/stft_pallas.py:217"),
-        "stft_8192": ("stft_fft_psd, nperseg 8192 (path 2)", "cuda", src,
+        "stft_8192": ("stft_fft_psd<LOG2M 12, 16 values>, nperseg 8192 "
+                      "(path 2)", "cuda", src,
                       "spectral_tpu/ops/stft_pallas.py:367"),
         "stft_mixed_8160": (
-            f"stft_mixed_fft_psd, nperseg {MIXED_NPERSEG} (path 4)", "cuda",
-            src, "spectral_tpu/ops/stft_pallas.py:367"),
+            f"stft_mixed_fft_psd<RMAX 4>, nperseg {MIXED_NPERSEG} (path 4)",
+            "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
         "stft_mixed_8032": (
-            f"stft_mixed_fft_psd, nperseg {PRIME_NPERSEG} (path 5)", "cuda",
-            src, "spectral_tpu/ops/stft_pallas.py:367"),
+            f"stft_mixed_fft_psd<RMAX 8>, nperseg {PRIME_NPERSEG} (path 5)",
+            "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
         "stft_mixed_8160_linear": (
-            f"stft_mixed_fft_psd, nperseg {MIXED_NPERSEG} linear detrend "
-            "(path 6)", "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
-        "stft_odd": (f"stft_odd_fft_psd, nperseg {ODD_NPERSEG} (path 7)",
-                     "cuda", src, "spectral_tpu/ops/stft_pallas.py:367"),
+            f"stft_mixed_fft_psd<RMAX 4>, nperseg {MIXED_NPERSEG} linear "
+            "detrend (path 6)", "cuda", src,
+            "spectral_tpu/ops/stft_pallas.py:367"),
+        "stft_odd": (f"stft_odd_fft_psd<RADER 1, RMAX 4>, nperseg "
+                     f"{ODD_NPERSEG} (path 7)", "cuda", src,
+                     "spectral_tpu/ops/stft_pallas.py:367"),
         "stft_bluestein_cluster": (
-            f"stft_bluestein_psd on a cluster of two blocks, nperseg "
-            f"{BLUESTEIN_NPERSEG} (path 8)", "cuda", src,
+            f"stft_bluestein_psd<RANKS 2> on a cluster of two blocks, "
+            f"nperseg {BLUESTEIN_NPERSEG} (path 8)", "cuda", src,
             "spectral_tpu/ops/stft_pallas.py:367"),
         "stft_bluestein": (
-            f"stft_bluestein_psd on one block, nperseg "
+            f"stft_bluestein_psd<RANKS 1> on one block, nperseg "
             f"{BLUESTEIN_EVEN_NPERSEG} (path 9)", "cuda", src,
             "spectral_tpu/ops/stft_pallas.py:367"),
-        "stft_gemm": (f"stft_psd GEMM, nperseg {GEMM_NPERSEG} (path 10)",
-                      "cuda", src, "spectral_tpu/ops/stft_pallas.py:217"),
+        "stft_gemm": (f"stft_psd GEMM, small-K tile (stft_psd_small), "
+                      f"nperseg {GEMM_NPERSEG} (path 10)", "cuda", src,
+                      "spectral_tpu/ops/stft_pallas.py:217"),
+        "stft_mixed_rader": (
+            f"stft_odd_fft_psd<RADER 1, RMAX 1, PACKED>, the mixed route's "
+            f"Rader plan, nperseg {RADER_NPERSEG} (path 11)", "cuda", src,
+            "spectral_tpu/ops/stft_pallas.py:367"),
         "display_rgba": ("display_epilogue rgba", "triton",
                          "spectral_tpu_torch/ops/display_triton.py",
                          "spectral_tpu/ops/stft_pallas.py:456"),

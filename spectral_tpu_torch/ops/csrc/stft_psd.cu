@@ -14,9 +14,10 @@
 //   threads;
 // - stft_mixed_fft_psd_kernel (stft_mixed_fft_psd_launch), the mixed-radix
 //   route: the other even nperseg 32-8192 whose nperseg/2 has no odd prime
-//   factor past 255 (every other GUI value) or is a prime whose p - 1 has
-//   none (a Rader stage), any detrend, the same structure with radix-2, 3,
-//   5, 7 and generic odd-radix stages;
+//   factor past 255 (every other GUI value), any detrend, the same
+//   structure with radix-2, 3, 5, 7 and generic odd-radix stages; where
+//   nperseg/2 is a prime whose p - 1 has none (a Rader stage), the same
+//   launcher runs the odd kernel's template on one packed frame a block;
 // - stft_odd_fft_psd_kernel (stft_odd_fft_psd_launch), the odd route: odd
 //   nperseg 33-8191 by the same rule, two frames of a clip a transform;
 // - stft_bluestein_psd_kernel (stft_bluestein_psd_launch), the Bluestein
@@ -48,9 +49,12 @@
 // f32 at the store.
 //
 // What bounds it on this card: 4*B*T*F*K flops against B*n*4 bytes in and
-// B*T*F*4 bytes out, so it is compute-bound: 67 TFLOP/s of FP64 on the
-// tensor cores, of which this design, on DFMA outside them, can reach at
-// most half (about 33.5 TFLOP/s). It is a register-blocked GEMM: each block owns a 128-row x 64-bin tile, stages
+// B*T*F*4 bytes out, so at large K it is compute-bound: 67 TFLOP/s of FP64
+// on the tensor cores, of which this design, on DFMA outside them, can
+// reach at most half (about 33.5 TFLOP/s). Below nperseg 32 (F <= 16, the
+// route's own configs) it is bound by bytes, and a tile of its own takes
+// it (stft_psd_small_kernel, below). The large-K tile is a
+// register-blocked GEMM: each block owns a 128-row x 64-bin tile, stages
 // 16-sample chunks of its frames and of the A_re/A_im tiles in shared
 // memory, and each thread accumulates an 8 x 4 tile of both X_re and X_im
 // in registers. Frames are read straight from the signal by pointer, so no
@@ -118,6 +122,29 @@ __device__ __forceinline__ void load_vec(const double* p, double (&v)[N]) {
 __device__ __forceinline__ double power(double re, double im, double w) {
   const double s = __dadd_rn(__dmul_rn(re, re), __dmul_rn(im, im));
   return s > 3.4028234663852886e38 ? INFINITY : __dmul_rn(s, w);
+}
+
+// x div d for 0 <= x < 2^31 by a multiply: shift = ceil(log2 d), mul =
+// floor(2^32 (2^shift - d) / d) + 1 (Granlund and Montgomery), made on the
+// host once per launch
+struct FastDiv {
+  unsigned d, mul, shift;
+  __host__ __device__ unsigned div(unsigned v) const {
+#ifdef __CUDA_ARCH__
+    const unsigned hi = __umulhi(v, mul);
+#else
+    const unsigned hi = static_cast<unsigned>(
+        (static_cast<unsigned long long>(v) * mul) >> 32);
+#endif
+    return (hi + v) >> shift;
+  }
+};
+
+FastDiv make_fastdiv(unsigned d) {
+  unsigned shift = 0;
+  while ((1u << shift) < d) ++shift;
+  const unsigned long long num = (1ull << 32) * ((1ull << shift) - d);
+  return FastDiv{d, static_cast<unsigned>(num / d + 1), shift};
 }
 
 using Acc = double;
@@ -237,6 +264,192 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
         part_min[p_idx] = lo;
         part_max[p_idx] = hi;
       }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The GEMM route's small-K tile: F <= SK_MAX_F bins (nperseg 2-31, the
+// route's own configs), the function above at the same arithmetic.
+//
+// What bounds it: at path 10 (scipy_default 24 on 1024 clips of 10 s: K =
+// 24, hop 21, F = 13, 7,800,832 rows) the bytes, 655 MB read and 406 MB
+// written, 0.317 ms at 3.35 TB/s; the useful DFMA, R K 2F = 4.87 G, take
+// about 0.29 ms at the 16.7 T DFMA/s outside the tensor cores. The large
+// tile computes 64 bins for 13 and 32 samples for 24 there (6.6x the work),
+// loads every frame of its rows by pointer, and stores 4-bin pieces of
+// 13-float rows.
+//
+// The design: a block takes RB consecutive rows r0 ... r0 + RB - 1 (rows r =
+// b T + t flattened over the clips, as above) with all their bins, so one
+// (min, max) partial a row and no frequency tile:
+//
+// - Its frames, staged once in shared memory as float32 by cp.async, each
+//   sample once: row i of the block at offset off(i) = i s + c(i) (K - s),
+//   s = min(hop, K) and c(i) the clips crossed since row 0 (b - b0), so the
+//   rows of one clip overlap as their frames do in the signal and a row
+//   past a clip edge starts a new span (with hop > K each row is its own K
+//   samples). Row i copies samples k >= K - s, all K where it starts a
+//   span. The block's span fits RB K floats.
+// - The (K, F) matrices once a block, as (re, im) pairs, K padded to KP, a
+//   multiple of 4 (SK_K_STEP), with zero rows.
+// - Threads: `groups` of 256 / groups (2 past SK_BINS bins), group g the
+//   NB bins from g NB (NB = ceil(F / groups), the instantiation, so no
+//   thread issues products for bins it does not hold but the last
+//   group's one); thread i of a group rows i and i + 256 / groups (RB =
+//   512 / groups), so a warp's lanes read one (re, im) pair a step (a
+//   broadcast) and each their own rows' samples. Each output is the large
+//   tile's DFMA chain, k ascending from 0 (k past K adds 0 x 0): both
+//   tiles give the same float64 sums.
+// - The output: power, log10_out and the NaN-propagating (min, max) as
+//   store_bin, the floats staged in shared memory (rows at an odd stride,
+//   FS = F | 1, over the frames' buffer once it is read), then the block's
+//   rows x F floats stored as one contiguous run of (B, T, F).
+constexpr int SK_THREADS = 256;
+constexpr int SK_MAX_F = 16;     // the most bins the tile takes
+constexpr int SK_BINS = 8;       // bins a thread at most
+constexpr int SK_K_STEP = 4;     // K is padded to a multiple of this
+// blocks an SM: with 8 bins a thread, three (80 registers) ran 1.194 ms at
+// scipy_default 24 on 1024 clips of 10 s, two (128) 1.334, four (64, 576
+// bytes spilled) 4.976 (tools/torch_kernel_variants.py small, H100, 700 W)
+constexpr int SK_MIN_BLOCKS = 3;
+
+// cp.async of one float from device to shared memory (sm_80 on)
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(SK_THREADS, SK_MIN_BLOCKS)
+stft_psd_small_kernel(const float* __restrict__ x,
+                      const double* __restrict__ a_re,
+                      const double* __restrict__ a_im,
+                      const double* __restrict__ wts, float* __restrict__ out,
+                      float* __restrict__ part_min,
+                      float* __restrict__ part_max, long long n, int R,
+                      int F, int K, int hop, int log10_out, int with_stats,
+                      int groups, const FastDiv t_div, const FastDiv k_div,
+                      const FastDiv f_div) {
+  extern __shared__ __align__(16) double2 smem[];
+  const int tid = threadIdx.x;
+  const int tpg = SK_THREADS / groups;       // threads (and half the rows)
+  const int RB = 2 * tpg;                    // a group's rows: the block's
+  const int KP = (K + SK_K_STEP - 1) / SK_K_STEP * SK_K_STEP;
+  const int FS = F | 1;                      // the output stage's row stride
+  const int stage = RB * (K > FS ? K : FS);  // floats: frames, then output
+  double2* as = smem;                        // KP x F (re, im)
+  float* xs = reinterpret_cast<float*>(as + KP * F);
+  int* off = reinterpret_cast<int*>(xs + stage);          // RB
+  int* first = off + RB;                                  // RB
+  long long* src = reinterpret_cast<long long*>(first + RB);   // RB
+  float* red = reinterpret_cast<float*>(src + RB);        // 2 groups RB
+
+  const int r0 = blockIdx.x * RB;
+  const int s = hop < K ? hop : K;
+  const int b0 = static_cast<int>(t_div.div(r0));
+  for (int i = tid; i < RB; i += SK_THREADS) {
+    const int r = r0 + i;
+    const int b = static_cast<int>(t_div.div(r));
+    const int t = r - b * static_cast<int>(t_div.d);
+    off[i] = i * s + (b - b0) * (K - s);
+    first[i] = i == 0 || t == 0 ? 0 : K - s;
+    src[i] = static_cast<long long>(b) * n + static_cast<long long>(t) * hop;
+  }
+  for (int e = tid; e < KP * F; e += SK_THREADS) {
+    const int k = e / F;
+    const long long at = static_cast<long long>(k) * F + (e - k * F);
+    as[e] = k < K ? make_double2(a_re[at], a_im[at]) : make_double2(0.0, 0.0);
+  }
+  __syncthreads();
+  for (int e = tid; e < RB * K; e += SK_THREADS) {
+    const int i = static_cast<int>(k_div.div(e));
+    const int k = e - i * K;
+    if (r0 + i < R && k >= first[i])
+      cp_async_f32(xs + off[i] + k, x + src[i] + k);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int g = tid / tpg;
+  const int ia = tid - g * tpg;
+  const int f0 = g * NB;
+  const int fn = F - f0 < NB ? F - f0 : NB;  // this group's bins
+  const float* xa = xs + off[ia];
+  const float* xb = xs + off[ia + tpg];
+  double re[2][NB], im[2][NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    re[0][j] = 0.0;
+    im[0][j] = 0.0;
+    re[1][j] = 0.0;
+    im[1][j] = 0.0;
+  }
+  for (int k0 = 0; k0 < KP; k0 += SK_K_STEP) {
+#pragma unroll
+    for (int kk = 0; kk < SK_K_STEP; ++kk) {
+      const int k = k0 + kk;
+      const double va = k < K ? static_cast<double>(xa[k]) : 0.0;
+      const double vb = k < K ? static_cast<double>(xb[k]) : 0.0;
+      const double2* ak = as + k * F + f0;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (j < fn) {
+          const double2 a = ak[j];
+          re[0][j] = fma(va, a.x, re[0][j]);
+          im[0][j] = fma(va, a.y, im[0][j]);
+          re[1][j] = fma(vb, a.x, re[1][j]);
+          im[1][j] = fma(vb, a.y, im[1][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();                           // every row's samples read
+
+  float* os = xs;                            // the output stage, RB x FS
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = ia + h * tpg;
+    float lo = INFINITY;
+    float hi = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < fn) {
+        const double pw = power(re[h][j], im[h][j], wts[f0 + j]);
+        const float p = static_cast<float>(pw);
+        lo = nan_min(lo, p);
+        hi = nan_max(hi, p);
+        os[i * FS + f0 + j] =
+            log10_out ? static_cast<float>(log10(pw + 1e-20)) : p;
+      }
+    }
+    red[g * RB + i] = lo;
+    red[(groups + g) * RB + i] = hi;
+  }
+  __syncthreads();
+
+  const int rows = R - r0 < RB ? R - r0 : RB;
+  float* dst = out + static_cast<long long>(r0) * F;
+  for (int e = tid; e < rows * F; e += SK_THREADS) {
+    const int i = static_cast<int>(f_div.div(e));
+    dst[e] = os[i * FS + (e - i * F)];
+  }
+  if (with_stats) {
+    for (int i = tid; i < rows; i += SK_THREADS) {
+      float lo = red[i];
+      float hi = red[groups * RB + i];
+      for (int gg = 1; gg < groups; ++gg) {
+        lo = nan_min(lo, red[gg * RB + i]);
+        hi = nan_max(hi, red[(groups + gg) * RB + i]);
+      }
+      part_min[r0 + i] = lo;
+      part_max[r0 + i] = hi;
     }
   }
 }
@@ -388,22 +601,6 @@ __device__ __forceinline__ double2 frame_line(const float* frame, int K,
   const double d = K * (static_cast<double>(K) * K - 1.0) / 12.0;
   return make_double2(s.x / K, detrend == DETREND_LINEAR ? s.y / d : 0.0);
 }
-
-// Reads of transform output i from the mixed-radix Rader kernel's buffer:
-// with a Rader stage of P = N - 1 points (mixed_transform), X[0] is the
-// block's sum, X[i] = x[0] + slot map[i] for i > 0, x[0] kept in slot P
-struct RaderRead {
-  const double2* buf;
-  const int* __restrict__ map;
-  const double2* sum;
-  int P;
-  __device__ double2 operator()(int i) const {
-    if (i == 0) return *sum;
-    const double2 x0 = buf[P];
-    const double2 v = buf[map[i]];
-    return make_double2(x0.x + v.x, x0.y + v.y);
-  }
-};
 
 // One bin of row r: the power pw rounded once to float32 (or its log10),
 // folded into the row's NaN-propagating (lo, hi)
@@ -782,8 +979,9 @@ stft_fft_psd_kernel(const float* __restrict__ x,
 // M = K/2 has no odd prime factor past 255 (every GUI value that is not a
 // power of two: K = 32 m, m <= 256, so M = 2^q m' with q >= 4 and m' odd,
 // m' <= 255), or is a prime p past 255 whose p - 1 has none (a Rader
-// stage). It replaces the TPU kernels K1 and K2 of stft_pallas.py at those
-// nperseg, as the routes above do.
+// stage, which the odd kernel's template runs: see the odd route). It
+// replaces the TPU kernels K1 and K2 of stft_pallas.py at those nperseg, as
+// the routes above do.
 //
 // The transform is the host plan's (core/stft.py::fft_plan): odd prime
 // radices descending, then the twos, M = p_1 p_2 ... p_S, decimation in
@@ -824,8 +1022,8 @@ stft_fft_psd_kernel(const float* __restrict__ x,
 //   the radix-2 kernel's: 8160 (M = 2^4 17 5 3) runs four passes against
 //   seven stages, 8032 (2^4 251) two. Each pass is one read and one write
 //   of the buffer, in place (a thread's butterflies are its own), and one
-//   barrier. Radix 3, 5 and 7 run a butterfly a thread in registers
-//   (stage_odd's arithmetic), their roots staged in shared memory.
+//   barrier. Radix 3, 5 and 7 run a butterfly a thread in registers (the
+//   symmetric form above), their roots staged in shared memory.
 // - The generic radix (any odd prime from 11; 11-31 instantiated at
 //   compile time, the rest at run time). The warps split into groups of
 //   ceil((h + 1)/RM) (h = (p - 1)/2), the group's warp w computing the
@@ -834,7 +1032,8 @@ stft_fft_psd_kernel(const float* __restrict__ x,
 //   from them, and the warp's lanes read one root a step (a broadcast):
 //   for a compile-time prime from a table staged in the lanes' order, at
 //   fixed offsets; else at an index stepped as q m mod p. The sums and
-//   their order are stage_generic's, so the PSD is the model's. Rounds of
+//   their order are the symmetric form's above (q ascending), so the PSD is
+//   the model's. Rounds of
 //   whole butterflies hold their outputs in registers across one barrier
 //   before writing them; at L > 1 a twiddle pass over the buffer runs
 //   first.
@@ -872,266 +1071,13 @@ stft_fft_psd_kernel(const float* __restrict__ x,
 
 constexpr int MIX_MAX_STAGES = 16;   // N <= 8191 points: 12 factors at most
 constexpr int MIX_MAX_RADIX = 255;   // largest odd radix; roots in smem
-constexpr int MIX_MIN_BLOCKS = 2;    // blocks of 512 threads an SM holds
-                                     // (the Rader kernel's)
-
-struct MixedPlan {
-  int n_stages;
-  int split;                       // first row of the split step's W_K^g
-  int rader;                       // first row of the Rader stage's b^, or -1
-  int stage[MIX_MAX_STAGES][4];    // radix p, span L, twiddle row, root row
-};
 
 __device__ __forceinline__ double2 cmul(double2 w, double2 y) {
   return make_double2(w.x * y.x - w.y * y.y, w.x * y.y + w.y * y.x);
 }
 
-// The stages one at a time through shared memory, the first design, which the
-// mixed-radix kernel's Rader plans still run (run_stages, mixed_transform):
-// one trip and one barrier a stage, a generic stage's thread one output
-// pair. The odd and Bluestein kernels run the pass engine (conv_*) below.
-// Each stage below is decimation in time, or with DIF its transpose: the
-// stages run in reverse order, each butterfly's p-point DFT first and the
-// twiddles on its outputs (the DFT matrix is symmetric, so the transposed
-// network takes natural order in and leaves the plan's digit reversal
-// out). N is the stage's transform length.
-
-// radix 2 at span L: butterfly j of N/2 takes slots (g 2L + k, +L)
-template <bool DIF>
-__device__ __forceinline__ void stage_radix2(double2* buf,
-                                             const double2* __restrict__ tw,
-                                             int M, int L, int tw_row) {
-  for (int j = threadIdx.x; j < (M >> 1); j += blockDim.x) {
-    const int k = j % L;
-    const int i0 = ((j - k) << 1) + k;
-    if (DIF) {
-      const double2 a = buf[i0];
-      const double2 b = buf[i0 + L];
-      buf[i0] = make_double2(a.x + b.x, a.y + b.y);
-      buf[i0 + L] = cmul(tw[tw_row + k], make_double2(a.x - b.x, a.y - b.y));
-    } else {
-      const double2 t = cmul(tw[tw_row + k], buf[i0 + L]);
-      const double2 a = buf[i0];
-      buf[i0] = make_double2(a.x + t.x, a.y + t.y);
-      buf[i0 + L] = make_double2(a.x - t.x, a.y - t.y);
-    }
-  }
-}
-
-// stage the p roots W_p^i of an odd radix in shared memory; the caller's
-// __syncthreads after the previous stage keeps them from being replaced
-// while that stage reads them
-__device__ __forceinline__ void load_roots(double2* roots,
-                                           const double2* __restrict__ tw,
-                                           int p, int root_row) {
-  for (int i = threadIdx.x; i < p; i += blockDim.x) roots[i] = tw[root_row + i];
-  __syncthreads();
-}
-
-// radix P = 3, 5 or 7 at span L: butterfly j of N/P in registers
-template <int P, bool DIF>
-__device__ __forceinline__ void stage_odd(double2* buf, double2* roots,
-                                          const double2* __restrict__ tw,
-                                          int M, int L, int tw_row,
-                                          int root_row) {
-  constexpr int H = (P - 1) / 2;
-  load_roots(roots, tw, P, root_row);
-  for (int j = threadIdx.x; j < M / P; j += blockDim.x) {
-    const int k = j % L;
-    const int base = (j - k) * P + k;
-    double2 y[P];
-#pragma unroll
-    for (int q = 0; q < P; ++q) y[q] = buf[base + q * L];
-    if (!DIF && L > 1) {
-#pragma unroll
-      for (int q = 1; q < P; ++q)
-        y[q] = cmul(tw[tw_row + (q - 1) * L + k], y[q]);
-    }
-#pragma unroll
-    for (int m = 0; m <= H; ++m) {
-      double ar = y[0].x, ai = y[0].y, br = 0.0, bi = 0.0;
-#pragma unroll
-      for (int q = 1; q <= H; ++q) {
-        const double2 c = roots[(q * m) % P];
-        ar += (y[q].x + y[P - q].x) * c.x;
-        ai += (y[q].y + y[P - q].y) * c.x;
-        br += (y[q].x - y[P - q].x) * c.y;
-        bi += (y[q].y - y[P - q].y) * c.y;
-      }
-      double2 lo = make_double2(ar - bi, ai + br);
-      double2 hi = make_double2(ar + bi, ai - br);
-      if (DIF && L > 1 && m > 0) {
-        lo = cmul(tw[tw_row + (m - 1) * L + k], lo);
-        hi = cmul(tw[tw_row + (P - m - 1) * L + k], hi);
-      }
-      buf[base + m * L] = lo;
-      if (m > 0) buf[base + (P - m) * L] = hi;
-    }
-  }
-}
-
-// any odd radix p at span L, in rounds of whole butterflies: thread t
-// computes output pair (m, p - m), m = t mod (h + 1), h = (p - 1)/2, of
-// butterfly j0 + t div (h + 1); a round reads all its butterflies' slots
-// before any is written, and no other round touches them. In time the
-// twiddle pass runs first, over the whole buffer; in frequency each
-// thread twiddles its own outputs as it writes them.
-template <bool DIF>
-__device__ __forceinline__ void stage_generic(double2* buf, double2* roots,
-                                              const double2* __restrict__ tw,
-                                              int M, int p, int L,
-                                              int tw_row, int root_row) {
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int lp = L * p;
-  if (!DIF && L > 1) {
-    for (int s = tid; s < M; s += nt) {
-      const int r = s % lp;          // q L + k
-      if (r >= L) buf[s] = cmul(tw[tw_row + r - L], buf[s]);
-    }
-  }
-  load_roots(roots, tw, p, root_row);
-  const int h = (p - 1) >> 1;
-  const int per_round = nt / (h + 1);
-  const int jt = tid / (h + 1);
-  const int m = tid - jt * (h + 1);
-  for (int j0 = 0; j0 < M / p; j0 += per_round) {
-    const int j = j0 + jt;
-    const bool on = jt < per_round && j < M / p;
-    const int k = on ? j % L : 0;
-    const int base = (j - k) * p + k;
-    double ar = 0.0, ai = 0.0, br = 0.0, bi = 0.0;
-    if (on) {
-      const double2 y0 = buf[base];
-      ar = y0.x;
-      ai = y0.y;
-      int idx = 0;                   // q m mod p
-      for (int q = 1; q <= h; ++q) {
-        idx += m;
-        if (idx >= p) idx -= p;
-        const double2 c = roots[idx];
-        const double2 u = buf[base + q * L];
-        const double2 v = buf[base + (p - q) * L];
-        ar += (u.x + v.x) * c.x;
-        ai += (u.y + v.y) * c.x;
-        br += (u.x - v.x) * c.y;
-        bi += (u.y - v.y) * c.y;
-      }
-    }
-    __syncthreads();
-    if (on) {
-      double2 lo = make_double2(ar - bi, ai + br);
-      double2 hi = make_double2(ar + bi, ai - br);
-      if (DIF && L > 1 && m > 0) {
-        lo = cmul(tw[tw_row + (m - 1) * L + k], lo);
-        hi = cmul(tw[tw_row + (p - m - 1) * L + k], hi);
-      }
-      buf[base + m * L] = lo;
-      if (m > 0) buf[base + (p - m) * L] = hi;
-    }
-  }
-}
-
-// the plan's stages over N slots, in time (plan order) or in frequency
-// (DIF: reverse order, transposed); a barrier after each
-template <bool DIF>
-__device__ __forceinline__ void run_stages(double2* buf, double2* roots,
-                                           const double2* __restrict__ tw,
-                                           const MixedPlan& plan, int N) {
-  for (int i = 0; i < plan.n_stages; ++i) {
-    const int s = DIF ? plan.n_stages - 1 - i : i;
-    const int p = plan.stage[s][0];
-    const int L = plan.stage[s][1];
-    const int tw_row = plan.stage[s][2];
-    const int root_row = plan.stage[s][3];
-    switch (p) {
-      case 2: stage_radix2<DIF>(buf, tw, N, L, tw_row); break;
-      case 3: stage_odd<3, DIF>(buf, roots, tw, N, L, tw_row, root_row); break;
-      case 5: stage_odd<5, DIF>(buf, roots, tw, N, L, tw_row, root_row); break;
-      case 7: stage_odd<7, DIF>(buf, roots, tw, N, L, tw_row, root_row); break;
-      default:
-        stage_generic<DIF>(buf, roots, tw, N, p, L, tw_row, root_row);
-    }
-    __syncthreads();
-  }
-}
-
-// The N-point transform of the values the plan's load order put in buf,
-// in place, with a Rader stage (plan.rader >= 0; N a prime p, P = p - 1;
-// slots 0..P-1 hold x[g^q] at slot q, slot P holds x[0]): the P-point
-// stages in frequency (digit-reversed output), X[0] = x[0] + slot 0 into
-// *sum, each slot times its row of b^ (the host's DFT of W_p^(g^-q) over
-// P, in slot order), then the stages in time; X[i] for i > 0 is x[0] +
-// slot perm[i] (RaderRead). Ends at a barrier.
-__device__ __forceinline__ void mixed_transform(double2* buf, double2* roots,
-                                                const double2* __restrict__ tw,
-                                                const MixedPlan& plan, int N,
-                                                double2* sum) {
-  const int P = N - 1;
-  run_stages<true>(buf, roots, tw, plan, P);
-  for (int s = threadIdx.x; s < P; s += blockDim.x) {
-    const double2 y = buf[s];
-    if (s == 0) {
-      const double2 x0 = buf[P];
-      *sum = make_double2(x0.x + y.x, x0.y + y.y);
-    }
-    buf[s] = cmul(tw[plan.rader + s], y);
-  }
-  __syncthreads();
-  run_stages<false>(buf, roots, tw, plan, P);
-}
-
-// The mixed-radix kernel with a Rader stage (K/2 a prime p past
-// MIX_MAX_RADIX whose p - 1 has no odd prime past it): one frame a block,
-// the plan's stages through shared memory one at a time (mixed_transform),
-// the first design.
-__global__ void __launch_bounds__(FFT_MAX_THREADS, MIX_MIN_BLOCKS)
-stft_mixed_rader_psd_kernel(const float* __restrict__ x,
-                            const double* __restrict__ win,
-                            const int* __restrict__ perm,
-                            const double2* __restrict__ tw,
-                            const double* __restrict__ wts,
-                            float* __restrict__ out,
-                            float* __restrict__ part_min,
-                            float* __restrict__ part_max, long long n, int T,
-                            int F, int K, int hop, int detrend, int log10_out,
-                            int with_stats,
-                            const __grid_constant__ MixedPlan plan) {
-  extern __shared__ double2 buf[];  // K/2 complex values
-  __shared__ double2 roots[MIX_MAX_RADIX + 1];
-  __shared__ double2 red_sum[FFT_MAX_WARPS];
-  __shared__ float red_lo[FFT_MAX_WARPS];
-  __shared__ float red_hi[FFT_MAX_WARPS];
-  __shared__ double2 x_sum;         // X[0]
-
-  const int M = K >> 1;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int r = blockIdx.x;
-  const float* frame = x + (long long)(r / T) * n + (long long)(r % T) * hop;
-
-  {
-    // the line is dead before the first stage
-    const double2 line = frame_line(frame, K, detrend, red_sum);
-    const double c = 0.5 * (K - 1);
-    // even samples in .x, odd in .y of slot perm[i / 2]
-    double* bufd = reinterpret_cast<double*>(buf);
-    for (int i = tid; i < K; i += nt)
-      bufd[2 * perm[i >> 1] + (i & 1)] =
-          (static_cast<double>(frame[i]) - line.x - line.y * (i - c)) *
-          win[i];
-  }
-  __syncthreads();
-
-  mixed_transform(buf, roots, tw, plan, M, &x_sum);
-  split_psd_epilogue(RaderRead{buf, perm, &x_sum, M - 1}, tw + plan.split,
-                     wts, out, part_min, part_max, red_lo, red_hi, r, F, K,
-                     log10_out, with_stats);
-}
-
 // ---------------------------------------------------------------------------
-// The mixed-radix kernel without a Rader stage, in passes (see the note
-// above stft_mixed_fft_psd_kernel's constants).
+// The mixed-radix kernel's passes (see the note above its constants).
 
 constexpr int MIX_THREADS = 512;        // a block's threads
 constexpr int MIX_LOAD = 16;            // sample pairs a thread loads at most
@@ -1147,29 +1093,6 @@ constexpr int MIX_MAX_PASSES = MIX_MAX_STAGES;
 // its radices need.
 constexpr int mix_rmax(int p_max) {
   return p_max <= 7 ? 0 : (p_max <= MIX_NARROW_RADIX ? 4 : 8);
-}
-
-// x div d for 0 <= x < 2^31 by a multiply: shift = ceil(log2 d), mul =
-// floor(2^32 (2^shift - d) / d) + 1 (Granlund and Montgomery), made on the
-// host once per launch
-struct FastDiv {
-  unsigned d, mul, shift;
-  __host__ __device__ unsigned div(unsigned v) const {
-#ifdef __CUDA_ARCH__
-    const unsigned hi = __umulhi(v, mul);
-#else
-    const unsigned hi = static_cast<unsigned>(
-        (static_cast<unsigned long long>(v) * mul) >> 32);
-#endif
-    return (hi + v) >> shift;
-  }
-};
-
-FastDiv make_fastdiv(unsigned d) {
-  unsigned shift = 0;
-  while ((1u << shift) < d) ++shift;
-  const unsigned long long num = (1ull << 32) * ((1ull << shift) - d);
-  return FastDiv{d, static_cast<unsigned>(num / d + 1), shift};
 }
 
 // One pass: radix 2^B (B radix-2 stages at spans L, 2L, ..., twiddle rows
@@ -1221,8 +1144,8 @@ __device__ __forceinline__ int mix_base(const MixPass& ps, int M, int b,
   return f * M + g * L * ps.radix + k;
 }
 
-// The radix-2 butterfly in frequency, stage_radix2<true>'s: (a, b) <- (a +
-// b, w (a - b))
+// The radix-2 butterfly in frequency, the transpose of r2_butterfly: (a, b)
+// <- (a + b, w (a - b))
 __device__ __forceinline__ void r2_dif_butterfly(double2& a, double2& b,
                                                  double2 w) {
   const double2 a0 = a;
@@ -1306,8 +1229,8 @@ __device__ __forceinline__ void mix_r2_pass(double2* buf,
   }
 }
 
-// radix P = 3, 5 or 7: a butterfly a thread in registers, stage_odd's
-// arithmetic, the roots from shared memory (staged by the kernel); in time
+// radix P = 3, 5 or 7: a butterfly a thread in registers, the symmetric
+// form's arithmetic (odd_dft's), the roots from shared memory (staged by the kernel); in time
 // the twiddles on the inputs, in frequency (DIF) on the outputs; KFAST,
 // k fastest across the lanes (mix_base)
 template <int P, bool DIF = false, bool KFAST = false>
@@ -1367,7 +1290,7 @@ __host__ __device__ constexpr int mix_rm() {
 }
 
 // A generic lane's sums: output pairs m0 + i (i < mix_rm<P, RMAX>()) of
-// the butterfly at base, stage_generic's expressions with q ascending.
+// the butterfly at base, the symmetric form's sums with q ascending.
 // With P at compile time (11-31) the roots sit in shared memory in the
 // lane's order, group by group, q by q, i by i (mix_generic_pass stages
 // them): a step reads the next mix_rm of them at fixed offsets. Else the
@@ -1439,19 +1362,26 @@ __device__ __forceinline__ void mix_generic_sums(
 // (m, p - m), m = RM (w mod groups) ..., for 32 consecutive butterflies,
 // one a lane. Each lane reads every input pair (y_q, y_(p-q)) of its
 // butterfly once, forms their sum and difference once and feeds its RM
-// outputs from them (stage_generic's sums, in the same order); the warp's
+// outputs from them (the symmetric form's sums, q ascending); the warp's
 // lanes read the same root at each step (a broadcast). Rounds of whole
 // butterflies: a round reads, holds its outputs in registers across a
 // barrier and writes them. In time, at L > 1 a twiddle pass over every
 // slot runs first, with the roots' load (groups h RM roots at most for the
 // compile-time primes, 240 at 31); in frequency (DIF) each lane twiddles
-// its outputs as it writes them, stage_generic<true>'s. NARROW (the odd
-// kernel's plans with a small generic pass or block, conv_plan) runs the
-// pass as stage_generic does instead, a thread an output pair (m, p - m),
-// m = t mod (h + 1), of butterfly t div (h + 1), the roots staged in
-// order, with no lane sums compiled in: a lane's 4 or 8 outputs would
-// leave most of a small block idle on long chains (nperseg 263, P = 2 131:
-// 33 ms against 5.6 at 8191 on the card). KFAST: k fastest (mix_base).
+// its outputs as it writes them. NARROW (the conv kernels' plans with a
+// small generic pass or block, conv_plan) runs the pass a thread an output
+// pair (m, p - m) instead, the roots staged in order, with no lane sums
+// compiled in: a lane's 4 or 8 outputs would leave most of a small block
+// idle on long chains (nperseg 263, P = 2 131: 33 ms against 5.6 at 8191
+// on the card). A round takes per = blockDim / (h + 1) butterflies. Where
+// per is a power of two the round's butterflies run fastest across the
+// lanes (m = t div nr, nr the round's butterflies), so an 8-lane phase
+// gathers 8 / per roots at q m mod p, not 8; else the output pairs (m = t
+// mod (h + 1), butterfly t div (h + 1)). On the card the first took 1006
+// (per 2) 14.1 ms against 20.5, and the 100 sampled plans of 2, 4, 8 and
+// 16 a round 0.70-0.88x at the median; at 3, 5 and 9 a round the second
+// was faster, by up to 1.3x (tools/torch_kernel_variants.py rader).
+// KFAST: k fastest (mix_base).
 template <int P, int RMAX, bool DIF = false, bool NARROW = false,
           bool KFAST = false>
 __device__ __forceinline__ void mix_generic_pass(
@@ -1484,11 +1414,16 @@ __device__ __forceinline__ void mix_generic_pass(
   if constexpr (NARROW) {
     static_assert(P == 0, "a narrow pass reads its roots in order");
     const int per = static_cast<int>(blockDim.x) / (h + 1);
-    const int m = tid % (h + 1);
-    const int j = tid / (h + 1);
+    const bool jfast = per > 1 && (per & (per - 1)) == 0;
+    int m = jfast ? tid / per : tid % (h + 1);
+    int j = jfast ? tid - m * per : tid / (h + 1);
     for (int b0 = 0; b0 < nbt; b0 += per) {
+      if (jfast && nbt - b0 < per) {       // a short last round, packed
+        m = tid / (nbt - b0);
+        j = tid - m * (nbt - b0);
+      }
       const int b = b0 + j;
-      const bool on = j < per && b < nbt;
+      const bool on = m <= h && j < per && b < nbt;
       double ar = 0.0, ai = 0.0, br = 0.0, bi = 0.0;
       int base = 0;
       int k = 0;
@@ -1772,25 +1707,25 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// The pass engine of the odd and Bluestein kernels (conv_*). A block holds
-// one transform of N points (two odd frames, a packed even frame, or one
-// rank's half of a Bluestein convolution) and runs the host plan's stages
+// The pass engine of the odd and Bluestein kernels (conv_*), which also
+// runs the mixed route's Rader plans. A block holds one transform of N
+// points (two odd frames, a packed even frame, or one rank's half of a
+// Bluestein convolution) and runs the host plan's stages
 // grouped into the mixed kernel's passes (group_passes): each odd prime a
 // pass, the twos up to four a pass in registers. A Rader or Bluestein
 // convolution runs them in both directions: the passes in frequency (the
 // plan's stages in reverse order, each transposed: a butterfly's p-point
-// DFT first, the twiddles on its outputs; stage_radix2<true>'s,
-// stage_odd<P, true>'s and stage_generic<true>'s arithmetic in their
-// order, tools/torch_precision.py::_stages(dif=True)), each slot's
+// DFT first, the twiddles on its outputs: the arithmetic and order of
+// tools/torch_precision.py::_stages(dif=True)), each slot's
 // product, then the passes in time. tests/test_torch_conv_registers.py
 // transcribes this geometry and holds it to the numpy models bit for bit.
 //
 // What bounds it. The function is bound by bytes, 0.46 ms on paths 7-9
-// (PERF.md). The first design (run_stages) made one trip through shared
-// memory and one barrier a stage, reloaded an odd stage's roots behind a
-// barrier of its own, and read all p inputs of a generic butterfly for each
-// of its (p + 1)/2 output pairs: 27 trips a frame at path 9 (M = 8192), 13
-// in each direction. What is left is a trip a pass, the generic passes'
+// (PERF.md). Stages run one at a time make one trip through shared memory
+// and one barrier a stage, reload an odd stage's roots behind a barrier of
+// its own, and read all p inputs of a generic butterfly for each of its (p
+// + 1)/2 output pairs: 27 trips a frame at path 9 (M = 8192), 13 in each
+// direction. What is left is a trip a pass, the generic passes'
 // DFMA and latency: at these sizes a block holds one transform, and its
 // buffer (up to 225 KB) keeps one block on an SM.
 //
@@ -1819,22 +1754,23 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
 //   pass, load, product and epilogue on eight groups. Other lengths keep
 //   plain slots (mask 0): their radix-2 passes start at the odd part's
 //   span, and their odd and generic passes never see a mask. Every pass
-//   takes k fastest across the lanes (conv_plan), the stage-at-a-time
-//   design's order, a few lanes a group where a span is below 8
+//   takes k fastest across the lanes (conv_plan), the model's butterfly
+//   order, a few lanes a group where a span is below 8
 //   (tests/test_torch_conv_registers.py counts them).
 // - Instantiated by the largest radix (mix_rmax), as the mixed kernel:
 //   Bluestein's M has radices 2-7 and carries no generic code, and runs
 //   two blocks an SM at 64 registers where two buffers fit
 //   (BLUE_TWO_BLOCK_POINTS); the odd
-//   kernel, with and without a Rader stage, takes 0, 4 or 8 output pairs a
-//   generic lane, or 1: generic passes narrow, a thread an output pair, the
-//   stage-at-a-time design's, where a pass has at most 16 butterflies or
+//   kernel, with and without a Rader stage and on the mixed route's Rader
+//   plans, takes 0, 4 or 8 output pairs a generic lane, or 1: generic
+//   passes narrow, a thread an output pair, where a pass has at most 16
+//   butterflies or
 //   the transform is small enough for two blocks an SM (ODD_NARROW_POINTS,
 //   RADER_NARROW_POINTS); the narrow plans, and without a Rader stage
 //   those of radix 3, 5 and 7 passes only, run two blocks an SM at 64
 //   registers (ODD_SMALL_BLOCKS). Registers, not the work, set these: a small
 //   block at 128 registers leaves an SM few warps (nperseg 481 took 9.7 ms
-//   so against the stage-at-a-time kernel's 7.2).
+//   so against the stages run one at a time's 7.2).
 
 constexpr int SMALL_ROOTS = 16;   // the roots of radix 3, 5 and 7
 
@@ -1952,8 +1888,8 @@ struct RaderProduct {
   }
 };
 
-// The P-point DFT z of y by stage_odd's sums (q ascending, the root of
-// (q m) mod P)
+// The P-point DFT z of y by the symmetric form's sums (q ascending, the
+// root of (q m) mod P)
 template <int P>
 __device__ __forceinline__ void odd_dft(const double2 (&y)[P],
                                         const double2* roots,
@@ -2165,11 +2101,20 @@ __device__ __forceinline__ void pair_psd_epilogue(
 // transforms, as packing two samples does on even K.
 // tools/torch_precision.py::psd_odd_fft is this arithmetic in numpy.
 
+// PACKED (with RADER): the mixed route's Rader plans, even K whose M = K/2
+// is a prime past 255 with a 255-smooth M - 1 (405 values, 514-8186; the
+// mixed-radix launcher runs them). Block r takes row r alone: the frame's
+// line, even samples in .x and odd in .y of slot perm[i / 2] (slot P = M -
+// 1 holds x[0]), the P-point Rader convolution as above, X[i] = x[0] +
+// slot perm[i] (ConvRaderRead) and the even kernels' split step and PSD
+// epilogue (split_psd_epilogue); plan and pass engine the odd frames'.
+
 // blocks of 512 threads an SM holds: two (64 registers) for the plans
-// with narrow generic passes, and without a Rader stage for those of radix
-// 3, 5 and 7 passes only (on the card 1029 took 4.3 ms against 6.3 with
-// one block, Rader 557 13.5 against 21.6); one (128) for the rest, whose
-// lanes of output pairs or radix-2 passes of up to 16 values spill at 64
+// with narrow generic passes, and without a Rader stage or PACKED for those
+// of radix 3, 5 and 7 passes only (on the card 1029 took 4.3 ms against 6.3
+// with one block, Rader 557 13.5 against 21.6, PACKED 1082 4.23 against
+// 10.0); one (128) for the rest, whose lanes of output pairs or radix-2
+// passes of up to 16 values spill at 64
 constexpr int ODD_SMALL_BLOCKS = 2;
 // the largest odd nperseg without a Rader stage, and with one, whose
 // generic passes all run narrow at two blocks an SM; past them the wide
@@ -2178,13 +2123,23 @@ constexpr int ODD_SMALL_BLOCKS = 2;
 // two transforms of K - 1 points)
 constexpr int ODD_NARROW_POINTS = 5448;
 constexpr int RADER_NARROW_POINTS = 2048;
+// PACKED: radix-2 passes of 8 values at most (at 64 registers they spill
+// less than 16: 514, P = 256, 2.93 ms against 6.34 on 1024 clips of 10 s),
+// and every generic pass narrow at two blocks an SM (the launcher passes
+// its width as narrow_points): wide lanes at one block ran 69 of the 405
+// plans slower than running the stages one at a time, narrow passes 119
+// of the 155 wide plans faster (tools/torch_kernel_variants.py rader, H100)
+constexpr int PACKED_R2_BITS = 3;
 constexpr double PAIR_MAX_RATIO = 65536.0;
 
-template <bool RADER, int RMAX>
+constexpr int odd_min_blocks(bool rader, int rmax, bool packed) {
+  return rmax == 1 || (rmax == 0 && (!rader || packed)) ? ODD_SMALL_BLOCKS
+                                                        : 1;
+}
+
+template <bool RADER, int RMAX, bool PACKED = false>
 __global__ void __launch_bounds__(FFT_MAX_THREADS,
-                                  RMAX == 1 || (!RADER && RMAX == 0)
-                                      ? ODD_SMALL_BLOCKS
-                                      : 1)
+                                  odd_min_blocks(RADER, RMAX, PACKED))
 stft_odd_fft_psd_kernel(const float* __restrict__ x,
                         const double* __restrict__ win,
                         const int* __restrict__ perm,
@@ -2207,6 +2162,28 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
   const SlotMap map{plan.swz_mask, plan.swz_shift};
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  const double c = 0.5 * (K - 1);
+  if constexpr (PACKED) {
+    static_assert(RADER, "a packed frame's plan has a Rader stage");
+    const int r = blockIdx.x;
+    const float* frame =
+        x + (long long)(r / T) * n + (long long)(r % T) * hop;
+    const double2 line = frame_line(frame, K, detrend, red_sum[0]);
+    double* bufd = reinterpret_cast<double*>(buf);
+    for (int i = tid; i < K; i += nt)
+      bufd[2 * map(perm[i >> 1]) + (i & 1)] =
+          (static_cast<double>(frame[i]) - line.x - line.y * (i - c)) *
+          win[i];
+    __syncthreads();
+    const int P = (K >> 1) - 1;
+    conv_transform<RMAX>(buf, roots, small, tw, plan, P,
+                         RaderProduct{tw + plan.rader, buf + map(P),
+                                      &x_sum});
+    split_psd_epilogue(ConvRaderRead{buf, perm, &x_sum, P, map},
+                       tw + plan.split, wts, out, part_min, part_max,
+                       red_lo[0], red_hi[0], r, F, K, log10_out, with_stats);
+    return;
+  }
   const int pairs = (T + 1) >> 1;
   const int clip = blockIdx.x / pairs;
   const int t = (blockIdx.x - clip * pairs) * 2;
@@ -2214,7 +2191,6 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
   const bool has_b = t + 1 < T;
   const float* fa = x + (long long)clip * n + (long long)t * hop;
   const float* fb = fa + hop;
-  const double c = 0.5 * (K - 1);
   const double2 la = frame_line(fa, K, detrend, red_sum[0]);
   const double2 lb = has_b ? frame_line(fb, K, detrend, red_sum[1])
                            : make_double2(0.0, 0.0);
@@ -2503,14 +2479,17 @@ constexpr int FFT_MAX_DEVICES = 64;
 // the dynamic shared memory limit already set for the FFT kernels, per
 // device (the radix-2 kernel's per LOG2M)
 size_t r2_smem_set[13][FFT_MAX_DEVICES] = {};
-// (the mixed-radix kernel's three instantiations, and with a Rader stage)
-size_t mixed_smem_set[4][FFT_MAX_DEVICES] = {};
+// (the mixed-radix kernel's three instantiations)
+size_t mixed_smem_set[3][FFT_MAX_DEVICES] = {};
 // (the odd kernel's eight: without a Rader stage and with, by conv_plan's
-// rmax 0, 1, 4 or 8)
-size_t odd_smem_set[8][FFT_MAX_DEVICES] = {};
+// rmax 0, 1, 4 or 8; then its two on the mixed route's Rader plans,
+// PACKED, rmax 0 or 1)
+size_t odd_smem_set[10][FFT_MAX_DEVICES] = {};
 // (the Bluestein kernel's: on one block, at two blocks an SM, and on a
 // cluster of two)
 size_t blue_smem_set[3][FFT_MAX_DEVICES] = {};
+// (the GEMM route's small-K tile, by its bins a thread)
+size_t small_smem_set[SK_BINS][FFT_MAX_DEVICES] = {};
 
 // raise `kernel`'s dynamic shared memory limit to smem once per device
 // (set[] records it); returns a cudaError_t. A block whose static and
@@ -2543,48 +2522,19 @@ int fft_threads(int K) {
   return t < 32 ? 32 : (t > FFT_MAX_THREADS ? FFT_MAX_THREADS : t);
 }
 
-// The plan of an N-point transform from the host's (n_stages, 4) rows
-// (radix, span, twiddle row, root row) into *plan, with the block that
-// runs it in *threads; false for a plan the mixed-radix kernels do not
-// take. With a Rader stage (rader >= 0) the stages transform N - 1
-// points. The block is N/2 threads (fft_threads(2 N)) widened to a warp
-// multiple that holds one generic butterfly's (p + 1)/2 output pairs (N =
-// 193: 128, not 96); at most 128 for p <= MIX_MAX_RADIX.
-bool load_plan(const int* stages, int n_stages, int split, int rader, int N,
-               MixedPlan* plan, int* threads) {
-  if (n_stages < 1 || n_stages > MIX_MAX_STAGES || rader < -1) return false;
-  const int len = rader >= 0 ? N - 1 : N;
-  plan->n_stages = n_stages;
-  plan->split = split;
-  plan->rader = rader;
-  int span = 1;
-  int p_max = 2;
-  for (int s = 0; s < n_stages; ++s) {
-    const int p = stages[4 * s];
-    const bool odd = p % 2 == 1 && p >= 3 && p <= MIX_MAX_RADIX;
-    if ((p != 2 && !odd) || stages[4 * s + 1] != span || span * p > len)
-      return false;
-    for (int j = 0; j < 4; ++j) plan->stage[s][j] = stages[4 * s + j];
-    span *= p;
-    if (p > p_max) p_max = p;
-  }
-  const int pairs = ((p_max + 1) / 2 + 31) / 32 * 32;
-  *threads = fft_threads(2 * N) > pairs ? fft_threads(2 * N) : pairs;
-  return span == len;
-}
-
 // The passes of an N-point plan from the host's (n_stages, 4) rows
 // (core/stft.py::fft_plan: odd primes, then the twos) into pass[0..
 // *n_passes), and its largest radix in *p_max; false for a plan the pass
 // engine does not take. Each odd stage is a pass; the twos, a of them,
-// ceil(a / MIX_R2_BITS) passes of as even a number each, the smaller first
+// ceil(a / bits_max) passes of as even a number each (bits_max MIX_R2_BITS,
+// or PACKED_R2_BITS for the PACKED plans), the smaller first
 // (a = 5: 4, 8; a = 13: 8, 8, 8, 16): the conv kernels' pass 0 turns
 // around in registers, and 8 values do it faster than 16 on the card
 // (scipy_default 8182 on 1024 clips of 10 s: 6.09 ms against 6.47 larger
 // first), and the mixed kernel runs either order in the same time (path 4
 // 3.593 against 3.606 ms; tools/torch_kernel_variants.py, NVIDIA H100
 // 80GB HBM3, 700 W).
-bool group_passes(const int* stages, int n_stages, int N,
+bool group_passes(const int* stages, int n_stages, int N, int bits_max,
                   MixPass* pass, int* n_passes, int* p_max) {
   if (n_stages < 1 || n_stages > MIX_MAX_STAGES) return false;
   int span = 1;
@@ -2610,7 +2560,7 @@ bool group_passes(const int* stages, int n_stages, int N,
     span *= p;
   }
   if (span != N) return false;
-  const int n2 = (twos + MIX_R2_BITS - 1) / MIX_R2_BITS;
+  const int n2 = (twos + bits_max - 1) / bits_max;
   int s = n_stages - twos;
   for (int pn = 0; pn < n2; ++pn) {
     const int i = n2 - 1 - pn;       // its rank among the passes, larger first
@@ -2643,7 +2593,8 @@ bool mixed_register_plan(const int* stages, int n_stages, int split, int N,
                          MixRegPlan* plan, int* rmax) {
   int p_max = 2;
   if (split < 0 || N > 4096 ||
-      !group_passes(stages, n_stages, N, plan->pass, &plan->n_passes,
+      !group_passes(stages, n_stages, N, MIX_R2_BITS, plan->pass,
+                    &plan->n_passes,
                     &p_max))
     return false;
   *rmax = mix_rmax(p_max);
@@ -2665,11 +2616,10 @@ bool mixed_register_plan(const int* stages, int n_stages, int split, int N,
 // chains (on the card the wide passes ran up to 2.6x slower there, and up
 // to 2x faster from 17: P = 796, 199 4 butterflies, against P = 6690, 223
 // 30), or more groups of output pairs than the block has warps; and in
-// every plan of at most ODD_NARROW_POINTS (RADER_NARROW_POINTS with a
-// Rader stage, turn), which then runs two blocks an SM; and in *threads
-// the block,
-// the stage-at-a-time kernels' (load_plan's): `width` / 2 threads rounded
-// up to a warp, 32 to FFT_MAX_THREADS (width the transform length),
+// every plan of at most narrow_points wide (ODD_NARROW_POINTS,
+// RADER_NARROW_POINTS with a Rader stage, every PACKED plan), which then
+// runs two blocks an SM; and in *threads
+// the block: `width` / 2 threads rounded up to a warp, 32 to FFT_MAX_THREADS (width the transform length),
 // widened to whole warps for the largest radix's (p + 1)/2 output pairs,
 // a thread each in a narrow pass; that holds a wide pass's groups of warps
 // wherever it has 32 butterflies (N >= 32 p). The turn-around is fused
@@ -2680,11 +2630,11 @@ bool mixed_register_plan(const int* stages, int n_stages, int split, int N,
 // radices (M = 11907 = 7^2 3^5: 8.27 ms against 7.54 at nperseg 5901) and
 // at 2049 and 8191.
 bool conv_plan(const int* stages, int n_stages, int N, int rader, int split,
-               bool turn, int width, ConvPlan* plan, int* rmax,
-               int* threads) {
+               bool turn, int width, int narrow_points, int bits_max,
+               ConvPlan* plan, int* rmax, int* threads) {
   int p_max = 2;
-  if (!group_passes(stages, n_stages, N, plan->pass, &plan->n_passes,
-                    &p_max))
+  if (!group_passes(stages, n_stages, N, bits_max, plan->pass,
+                    &plan->n_passes, &p_max))
     return false;
   *rmax = mix_rmax(p_max);
   plan->rader = rader;
@@ -2698,7 +2648,7 @@ bool conv_plan(const int* stages, int n_stages, int N, int rader, int split,
   plan->swz_shift = pow2 ? b0 : 0;
   const int pairs = ((p_max + 1) / 2 + 31) / 32 * 32;
   *threads = fft_threads(2 * width) > pairs ? fft_threads(2 * width) : pairs;
-  bool narrow = width <= (turn ? RADER_NARROW_POINTS : ODD_NARROW_POINTS);
+  bool narrow = width <= narrow_points;
   for (int r = 0; r < 3; ++r) plan->root[r] = -1;
   for (int i = 0; i < plan->n_passes; ++i) {
     MixPass& ps = plan->pass[i];
@@ -2765,17 +2715,47 @@ int stft_psd_freq_tiles(int F) { return (F + BN - 1) / BN; }
 // x is (B, n) contiguous f32; a_re/a_im are (K, F) contiguous f64 and wts
 // is (F,) f64; out is (B, T, F) f32; part_min/part_max are
 // (stft_psd_freq_tiles(F), B * T) f32 and may be null when with_stats is
-// 0. The caller keeps B * T and the number of blocks, row tiles times
+// 0. F <= SK_MAX_F (nperseg 2-31) runs the small-K tile, which refuses K
+// past 31 or T < 1 with cudaErrorInvalidValue; else the 128 x 64 tile.
+// The caller keeps B * T and the number of blocks, row tiles times
 // frequency tiles, within the grid's limits.
 int stft_psd_launch(const float* x, const double* a_re, const double* a_im,
                     const double* wts, float* out, float* part_min,
                     float* part_max, int B, long long n, int T, int F, int K,
                     int hop, int log10_out, int with_stats, void* stream) {
   const int R = B * T;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (F <= SK_MAX_F) {
+    if (K < 1 || K >= 2 * SK_MAX_F || T < 1 || hop < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int groups = F > SK_BINS ? 2 : 1;
+    const int nb = (F + groups - 1) / groups;   // NB, 1 to SK_BINS
+    const int rb = 2 * SK_THREADS / groups;
+    const int kp = (K + SK_K_STEP - 1) / SK_K_STEP * SK_K_STEP;
+    const int fs = F | 1;
+    const size_t smem = static_cast<size_t>(kp) * F * sizeof(double2) +
+                        static_cast<size_t>(rb) * (K > fs ? K : fs) * 4 +
+                        static_cast<size_t>(rb) * (4 + 4 + 8) +
+                        static_cast<size_t>(2 * groups * rb) * 4;
+    decltype(&stft_psd_small_kernel<1>) const by_nb[SK_BINS] = {
+        stft_psd_small_kernel<1>, stft_psd_small_kernel<2>,
+        stft_psd_small_kernel<3>, stft_psd_small_kernel<4>,
+        stft_psd_small_kernel<5>, stft_psd_small_kernel<6>,
+        stft_psd_small_kernel<7>, stft_psd_small_kernel<8>};
+    const auto kernel = by_nb[nb - 1];
+    const int err = raise_smem(kernel, smem, small_smem_set[nb - 1]);
+    if (err != 0) return err;
+    const unsigned blocks = static_cast<unsigned>((R + rb - 1) / rb);
+    kernel<<<blocks, SK_THREADS, smem, s>>>(
+        x, a_re, a_im, wts, out, part_min, part_max, n, R, F, K, hop,
+        log10_out, with_stats, groups, make_fastdiv(T), make_fastdiv(K),
+        make_fastdiv(F));
+    return static_cast<int>(cudaGetLastError());
+  }
   const unsigned blocks = (unsigned)((R + BM - 1) / BM) * ((F + BN - 1) / BN);
-  stft_psd_kernel<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, a_re, a_im, wts, out, part_min, part_max, n, R, T, F, K, hop,
-      log10_out, with_stats);
+  stft_psd_kernel<<<blocks, NT, 0, s>>>(x, a_re, a_im, wts, out, part_min,
+                                        part_max, n, R, T, F, K, hop,
+                                        log10_out, with_stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2862,19 +2842,26 @@ int stft_mixed_fft_psd_launch(const float* x, const double* win,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const double2* tw2 = reinterpret_cast<const double2*>(tw);
   if (rader >= 0) {
-    MixedPlan plan;
+    // a Rader plan: the odd kernel's template on one packed frame a block
+    // (PACKED), the convolution of M - 1 points on the pass engine
+    ConvPlan plan;
+    int rmax = 0;
     int threads = 0;
-    if (!load_plan(stages, n_stages, split, rader, K / 2, &plan, &threads))
+    if (!conv_plan(stages, n_stages, K / 2 - 1, rader, split, true, K / 2,
+                   K / 2, PACKED_R2_BITS, &plan, &rmax, &threads) ||
+        rmax > 1)
       return static_cast<int>(bad);
+    const auto kernel = rmax == 0 ? stft_odd_fft_psd_kernel<true, 0, true>
+                                  : stft_odd_fft_psd_kernel<true, 1, true>;
     const size_t smem = static_cast<size_t>(K / 2) * sizeof(double2);
-    const int err =
-        raise_smem(stft_mixed_rader_psd_kernel, smem, mixed_smem_set[3]);
+    const int err = raise_smem(kernel, smem, odd_smem_set[8 + rmax]);
     if (err != 0) return err;
     const unsigned blocks =
         static_cast<unsigned>(B) * static_cast<unsigned>(T);
-    stft_mixed_rader_psd_kernel<<<blocks, threads, smem, st>>>(
-        x, win, perm, tw2, wts, out, part_min, part_max, n, T, F, K, hop,
-        detrend, log10_out, with_stats, plan);
+    kernel<<<blocks, threads, smem, st>>>(x, win, perm, tw2, wts, out,
+                                          part_min, part_max, n, T, F, K,
+                                          hop, detrend, log10_out,
+                                          with_stats, 1, plan);
     return static_cast<int>(cudaGetLastError());
   }
   MixRegPlan plan;
@@ -2920,7 +2907,9 @@ int stft_odd_fft_psd_launch(const float* x, const double* win,
   if (K < 33 || K > 8191 || K % 2 == 0 || F < 1 || F > K ||
       !detrend_ok(detrend) || rader < -1 ||
       !conv_plan(stages, n_stages, rader >= 0 ? K - 1 : K, rader, -1,
-                 rader >= 0, K, &plan, &rmax, &threads))
+                 rader >= 0, K,
+                 rader >= 0 ? RADER_NARROW_POINTS : ODD_NARROW_POINTS,
+                 MIX_R2_BITS, &plan, &rmax, &threads))
     return static_cast<int>(bad);
   const int variant = 4 * (rader >= 0) + (rmax == 1 ? 1 : rmax / 4 + (rmax > 0));
   const auto kernel = variant == 0   ? stft_odd_fft_psd_kernel<false, 0>
@@ -2992,8 +2981,8 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
   ConvPlan plan;
   int rmax = 0;
   int threads = 0;
-  if (!conv_plan(stages, local_stages, local, -1, split, true, local, &plan,
-                 &rmax, &threads) ||
+  if (!conv_plan(stages, local_stages, local, -1, split, true, local,
+                 RADER_NARROW_POINTS, MIX_R2_BITS, &plan, &rmax, &threads) ||
       rmax != 0)
     return static_cast<int>(bad);
   const int variant =

@@ -33,7 +33,9 @@ written to memory. All compute the same function, by five routes that
   a generic odd-radix stage, in the order and with the load permutation
   and twiddle rows of the host plan (``core.stft.fft_plan``,
   :func:`mixed_constants`), and for the prime a Rader stage: a cyclic
-  convolution of length p - 1 by two transforms of those radices;
+  convolution of length p - 1 by two transforms of those radices, which
+  the same launcher runs on the odd kernel's pass engine, one packed frame
+  a block (its PACKED form);
 - ``"odd"`` (``stft_odd_fft_psd_launch``): odd nperseg from 33 to 8191,
   under any detrend, with no prime factor past 255, or itself a prime p
   whose p - 1 has none (a Rader stage; scipy_default 8191). The
@@ -53,9 +55,11 @@ written to memory. All compute the same function, by five routes that
   routes above; past 14,406 points (odd nperseg from 7207, M up to
   16,384) on a cluster of two blocks that hold half of M each;
 - ``"gemm"`` (``stft_psd_launch``): nperseg below 32. The real DFT as a
-  register-blocked GEMM against (nperseg, F) matrices with the window and
-  detrend folded in (:func:`dft_constants`); forced on any config for
-  timing.
+  GEMM against (nperseg, F) matrices with the window and detrend folded in
+  (:func:`dft_constants`): at F <= 16 (every nperseg below 32) a tile of
+  its own, 256 or 512 rows a block with all their bins, the rows' frames
+  staged once as the clip's span; a 128-row by 64-bin register-blocked
+  tile past it, forced on any config for timing.
 
 The FFT kernels take the detrend as a code (:data:`DETREND_CODES`: 0
 none, 1 constant, 2 linear); their launchers refuse any other value.

@@ -1,7 +1,8 @@
 """The pass engine of the odd and Bluestein kernels (csrc/stft_psd.cu::
 conv_plan, conv_pass, conv_transform, conv_forward and the turn-around
 conv_turn_r2/conv_turn_odd; the kernels stft_odd_fft_psd_kernel<RADER,
-RMAX> and stft_bluestein_psd_kernel<RANKS>), held on the CPU through a
+RMAX, PACKED>, whose PACKED form runs the mixed route's Rader plans, and
+stft_bluestein_psd_kernel<RANKS>), held on the CPU through a
 numpy transcription of its geometry: how the plan's stages group into
 passes, which butterflies each pass runs in time and in frequency, with
 which twiddle rows, at which slots of the buffer (the XOR swizzle of a
@@ -27,10 +28,13 @@ package and scipy:
   bit;
 - the transform equals the models' bit for bit on every one of the
   Bluestein route's 235 distinct convolution lengths M (the cluster's
-  halves as its ranks index them) and on 70 Rader plans, P = 8190 among
-  them, with each of the eight odd and two Bluestein instantiations; and the
-  PSD equals ``psd_bluestein`` and ``psd_odd_fft`` bit for bit under every
-  detrend, on frames that the pairing's guard keeps apart too;
+  halves as its ranks index them), on 70 Rader plans of the odd route, P
+  = 8190 among them, and on 48 of the mixed route's 405 (every tenth, the
+  few-butterfly plans and 8186), with each of the odd kernel's twelve
+  instantiations and the Bluestein kernel's two; and the PSD equals
+  ``psd_bluestein``, ``psd_odd_fft`` and ``psd_mixed_fft`` (the packed
+  load and the split epilogue) bit for bit under every detrend, on frames
+  that the pairing's guard keeps apart too;
 - the plans fit the launchers: the source's constants and planner lines
   are the ones the transcription uses, every odd and Bluestein value takes
   a block of whole warps that holds its generic groups.
@@ -64,6 +68,7 @@ BLOCK_POINTS = _constant(SRC, "BLUE_MAX_BLOCK_POINTS")
 SMALL_ROOTS = _constant(SRC, "SMALL_ROOTS")
 NARROW_POINTS = _constant(SRC, "ODD_NARROW_POINTS")
 RADER_NARROW_POINTS = _constant(SRC, "RADER_NARROW_POINTS")
+PACKED_R2_BITS = _constant(SRC, "PACKED_R2_BITS")
 
 
 def _routes():
@@ -85,6 +90,15 @@ for _k in ROUTES["bluestein"]:
 RADER = [k for k in ROUTES["odd"] if tstft.rader_prime(k)]
 # 70 Rader plans: every tenth, and 8191 (P = 8190 = 2 3^2 5 7 13)
 RADER_SAMPLE = sorted(set(RADER[::10]) | {8191})
+# the mixed route's 405 Rader plans (even K, M = K/2 a prime past 255,
+# PACKED), and 48 of them: every tenth, plans whose generic pass has few
+# butterflies (526: P = 262 = 2 131; 934, 233 2; 958, 239 2; 1006, 251 2;
+# 1018, 127 2^2; 2894, 241 3 2) and 8186 (P = 4092 = 2^2 3 11 31)
+MIXED_RADER = [k for k in range(32, 8193, 2)
+               if stft_cuda.route(SpecConfig(nperseg=k, hop=k // 4))
+               == "mixed" and tstft.rader_prime(k // 2)]
+MIXED_RADER_SAMPLE = sorted(set(MIXED_RADER[::10])
+                            | {526, 934, 958, 1006, 1018, 2894, 8186})
 
 
 def fft_threads(n):
@@ -99,11 +113,15 @@ class ConvRegisters:
     the block (K for the odd kernel, the block's M / RANKS for Bluestein).
     rmax is the kernel's instantiation: 0 (no generic pass), 4 or 8 output
     pairs a lane, or 1 where the generic passes run narrow, a thread an
-    output pair."""
+    output pair. packed: the mixed route's Rader plans (PACKED), whose
+    radix-2 passes hold up to 2^PACKED_R2_BITS values and whose generic
+    passes all run narrow."""
 
-    def __init__(self, stages, N, turn, width):
+    def __init__(self, stages, N, turn, width, packed=False):
         self.N = N
-        self.passes = group_passes(stages, N)
+        self.packed = packed
+        self.passes = group_passes(stages, N,
+                                   PACKED_R2_BITS if packed else None)
         p_max = max([p for p, _, _, _ in stages if p % 2] + [2])
         self.rmax = rmax_of(p_max)
         for ps in self.passes:                  # k fastest in every pass
@@ -122,7 +140,8 @@ class ConvRegisters:
             rm = rm_of(ps.radix, self.rmax)
             return ((ps.radix - 1) // 2 + rm) // rm > warps
 
-        small = RADER_NARROW_POINTS if turn else NARROW_POINTS
+        small = (width if packed else
+                 RADER_NARROW_POINTS if turn else NARROW_POINTS)
         narrow = width <= small or any(
             ps.radix % 2 and ps.radix > 7 and (ps.nb <= 16 or crowded(ps))
             for ps in self.passes)
@@ -146,15 +165,22 @@ class ConvRegisters:
     def rounds(self, ps):
         """mix_generic_pass's rounds: (thread, butterfly, m0) that are on,
         each thread's outputs m0 ... m0 + rm - 1; narrow, a thread's output
-        pair m (rm 1)."""
+        pair m (rm 1): per butterflies a round, and where per is a power of
+        two the round's nr butterflies fastest across the lanes (m = t div
+        nr), else the output pairs (m = t mod (h + 1))."""
         h = (ps.radix - 1) // 2
         tid = np.arange(self.threads)
         if self.rmax == 1:
             per = self.threads // (h + 1)
-            m, j = tid % (h + 1), tid // (h + 1)
+            jfast = per > 1 and per & (per - 1) == 0
             out = []
+            m = tid // per if jfast else tid % (h + 1)
+            j = tid - m * per if jfast else tid // (h + 1)
             for b0 in range(0, ps.nb, per):
-                on = (j < per) & (b0 + j < ps.nb)
+                if jfast and ps.nb - b0 < per:       # a short last round
+                    m = tid // (ps.nb - b0)
+                    j = tid - m * (ps.nb - b0)
+                on = (m <= h) & (j < per) & (b0 + j < ps.nb)
                 out.append((tid[on], (b0 + j)[on], m[on]))
             return out, h + 1, per
         rm = rm_of(ps.radix, self.rmax)
@@ -342,16 +368,18 @@ def bluestein_transform(plan, re, im, fuse=None):
     return _cmul(cr_, ci_, o_r, -o_i)
 
 
-def odd_transform(plan, re, im, fuse=None):
+def odd_transform(plan, re, im, fuse=None, packed=False):
     """The K-point transform as the odd kernel computes it on values in
     natural order: loaded at slot perm[i], the passes in time, or the Rader
     convolution over P = K - 1 slots (X[0] = x[0] + slot 0, each slot times
-    its row of b^) read back as x[0] + slot perm[i] (ConvRaderRead)."""
+    its row of b^) read back as x[0] + slot perm[i] (ConvRaderRead). With
+    K the packed length M = nperseg/2 and plan ``fft_plan(nperseg)`` it is
+    the PACKED form's transform (conv_plan's width M either way)."""
     T, K = re.shape
     tw = plan.twiddles
     rader = plan.rader >= 0
     n = K - 1 if rader else K
-    cr = ConvRegisters(plan.stages.tolist(), n, rader, K)
+    cr = ConvRegisters(plan.stages.tolist(), n, rader, K, packed)
     br, bi = np.zeros((T, K)), np.zeros((T, K))
     a = cr.slot(plan.perm)
     br[:, a], bi[:, a] = re, im
@@ -380,6 +408,19 @@ def odd_transform(plan, re, im, fuse=None):
     zr[:, 1:] = br[:, x0][:, None] + br[:, at]
     zi[:, 1:] = bi[:, x0][:, None] + bi[:, at]
     return zr, zi
+
+
+def packed_psd(frames, window, wts, K, detrend):
+    """(T, F) PSD of even-K frames as the PACKED form computes it: the
+    frame's line, even samples in .x and odd in .y of slot perm[i / 2], the
+    M-point transform through the pass engine (odd_transform, width M), the
+    split step and epilogue (split_psd_epilogue, ``_split_psd``)."""
+    v = torch_precision.detrended(frames.astype(np.float64),
+                                  detrend) * window
+    plan = tstft.fft_plan(K)
+    re, im = odd_transform(plan, v[:, 0::2], v[:, 1::2], packed=True)
+    return torch_precision._split_psd(re, im, plan.twiddles[plan.split:], K,
+                                      wts, True)
 
 
 def psd_engine(frames, window, wts, K, detrend, pack=True):
@@ -440,6 +481,98 @@ def test_rader_transform_equals_the_model(k):
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
     got_apart = odd_transform(plan, re, im, fuse=False)
     assert all(np.array_equal(g, w) for g, w in zip(got_apart, got))
+
+
+@pytest.mark.parametrize("k", MIXED_RADER_SAMPLE)
+def test_mixed_rader_transform_equals_the_model(k):
+    """48 of the mixed route's Rader plans (PACKED, M = k/2 points, P = M -
+    1): the pass engine's transform equals _transform bit for bit, fused
+    and not."""
+    plan = tstft.fft_plan(k)
+    M = k // 2
+    rs = np.random.RandomState(k)
+    re, im = rs.randn(2, M) + 3.0, rs.randn(2, M)
+    zr, zi = np.empty_like(re), np.empty_like(im)
+    zr[:, plan.perm], zi[:, plan.perm] = re, im
+    want = torch_precision._transform(zr, zi, plan, M)
+    got = odd_transform(plan, re, im, packed=True)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    got_apart = odd_transform(plan, re, im, fuse=False, packed=True)
+    assert all(np.array_equal(g, w) for g, w in zip(got_apart, got))
+
+
+MIXED_RADER_PSD = [514, 526, 1006, 2894, 4106, 4934, 8186]
+
+
+@pytest.mark.parametrize("detrend", ["none", "constant", "linear"])
+@pytest.mark.parametrize("k", MIXED_RADER_PSD)
+def test_packed_psd_equals_the_model_bitwise(k, detrend):
+    """Seven frames of noise + 3 (a ramp under linear detrend) at Rader
+    plans of both instantiations the PACKED form takes (514 <0>, P = 256
+    swizzled; 526, 1006, 2894, 4106, 4934, 8186 <1>, generic passes of 2
+    to 88 butterflies): the packed load, the transform and the split
+    epilogue give psd_mixed_fft's PSD bit for bit."""
+    cfg = (SpecConfig.north_star(k, k // 4) if detrend == "none"
+           else SpecConfig(nperseg=k, hop=k // 4, detrend=detrend))
+    window = tstft._window_f64(cfg)
+    wts = tstft.onesided_weights(cfg, FS)
+    assert stft_cuda.route(cfg) == "mixed"
+    frames = _frames(k, detrend, 7, k + len(detrend))
+    want = torch_precision.psd_mixed_fft(frames, window, tstft.fft_plan(k),
+                                         wts, detrend=detrend)
+    got = packed_psd(frames, window, wts, k, detrend)
+    assert np.array_equal(got, want)
+
+
+def _mixed_rader_rmax(k):
+    """The PACKED instantiation (conv_plan's rmax) of the mixed route's
+    Rader plan at nperseg k: width M = k/2, P = M - 1 points."""
+    M = k // 2
+    return ConvRegisters(tstft.fft_plan(k).stages.tolist(), M - 1, True,
+                         M, True).rmax
+
+
+def test_mixed_rader_samples_cover_every_instantiation():
+    """The mixed route's 405 Rader plans take the PACKED form's two
+    instantiations (rmax 0, no generic pass, 52 of them; 1, narrow generic
+    passes, 353); the transform sample, the PSD values and chip_smoke.py's
+    MIXED_RADER_CASES (which it holds to 1 float32 ulp of the plain version
+    on the card) each cover both, and the sample and the cases hold
+    few-butterfly plans (a generic pass of at most 16 butterflies: 84 of the
+    405), of 2 butterflies a round (the lanes' butterflies fastest) and of
+    a count that is no power of two (the output pairs fastest: 4934, 7)."""
+    import ast
+    tree = ast.parse(open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")).read())
+    cases = {t.id: ast.literal_eval(node.value) for node in tree.body
+             if isinstance(node, ast.Assign) for t in node.targets
+             if isinstance(t, ast.Name) and t.id == "MIXED_RADER_CASES"}
+    chip = cases["MIXED_RADER_CASES"]
+    assert len(MIXED_RADER) == 405 and set(chip) <= set(MIXED_RADER)
+    counts = {}
+    for k in MIXED_RADER:
+        r = _mixed_rader_rmax(k)
+        counts[r] = counts.get(r, 0) + 1
+    assert counts == {0: 52, 1: 353}
+
+    def few(k):
+        P = k // 2 - 1
+        return any(p % 2 and p > 7 and P // p <= 16
+                   for p, _, _, _ in tstft.fft_plan(k).stages.tolist())
+    assert sum(few(k) for k in MIXED_RADER) == 84
+    for sample in (MIXED_RADER_SAMPLE, MIXED_RADER_PSD, chip):
+        assert {_mixed_rader_rmax(k) for k in sample} == {0, 1}
+    assert {526, 934, 1006} <= set(chip) and 8186 in chip
+
+    def per(k):
+        M = k // 2
+        cr = ConvRegisters(tstft.fft_plan(k).stages.tolist(), M - 1, True,
+                           M, True)
+        return {cr.rounds(ps)[2] for ps in cr.passes
+                if ps.radix % 2 and ps.radix > 7}
+    pers = set().union(*(per(k) for k in chip))
+    assert 2 in pers and any(p & (p - 1) for p in pers)
+    assert sum(few(k) for k in MIXED_RADER_SAMPLE) >= 6
 
 
 def test_samples_cover_every_instantiation():
@@ -535,11 +668,15 @@ def _plans():
     for m, k in sorted(BLUE_BY_M.items()):
         plan = tstft.bluestein_plan(k)
         st = plan.stages.tolist()[:len(plan.stages) - (plan.ranks - 1)]
-        out.append((f"M {m}", st, m // plan.ranks, True, m // plan.ranks))
+        out.append((f"M {m}", st, m // plan.ranks, True, m // plan.ranks,
+                    False))
     for k in sorted(set(RADER_SAMPLE) | set(ODD_PSD)):
         r = tstft.rader_prime(k)
         out.append((f"odd {k}", tstft.fft_plan(k).stages.tolist(), k - r, r,
-                    k))
+                    k, False))
+    for k in MIXED_RADER_SAMPLE:
+        out.append((f"mixed {k}", tstft.fft_plan(k).stages.tolist(),
+                    k // 2 - 1, True, k // 2, True))
     return out
 
 
@@ -569,16 +706,17 @@ def _butterflies(cr, ps, dif):
     return out
 
 
-@pytest.mark.parametrize("label,stages,N,turn,width", PLANS,
+@pytest.mark.parametrize("label,stages,N,turn,width,packed", PLANS,
                          ids=[p[0] for p in PLANS])
 def test_every_butterfly_runs_once_each_way_with_its_rows(label, stages, N,
-                                                          turn, width):
+                                                          turn, width,
+                                                          packed):
     """In time the passes run the plan's stages in order, in frequency (a
     Rader or Bluestein convolution) in reverse: each stage (p, L) once,
     every butterfly (g, k) of it once, its first slot g L p + k and its
     rows (q - 1) L + k of the stage's twiddles; every pass's slots a
     bijection of the buffer."""
-    cr = ConvRegisters(stages, N, turn, width)
+    cr = ConvRegisters(stages, N, turn, width, packed)
     plan_rows = {(p, L): row for p, L, row, _ in stages}
     for dif in ((False, True) if turn else (False,)):
         order = []
@@ -668,31 +806,38 @@ def test_bank_conflicts_counted_and_none_at_powers_of_two():
     its own outputs); the most lanes of a phase in one bank group, counted
     by access kind over all plans: none anywhere on a power-of-two
     transform (the swizzle; without it the span-1 pass puts all eight lanes
-    of a phase on one group). Elsewhere every pass takes k fastest across
+    of a phase on one group; 2 on the PACKED plan of 514, P = 256 in passes
+    of 4, 8 and 8 values). Elsewhere every pass takes k fastest across
     the lanes, and the census is pinned as it stands: a radix-2 or odd pass
     at a span no multiple of 8 straddles phases with its rows of
     butterflies (3 lanes a group at most: a radix-2 pass at M = 1536, 3072,
     6144 and 12288, an odd one at M = 1728, 2187, 3456 and others), a wide
     generic pass 2 (19 Rader plans, 859 among them), a narrow one (a thread
     an output pair) writes its pairs 3 lanes a group at most (263, 1023)
-    and reads a butterfly's slots in all its threads at once (a
-    broadcast); the turn-around and the product never."""
+    and reads its butterflies' slots 2 lanes a group at most (a broadcast
+    where the output pairs run fastest, a round's butterflies side by side
+    where they do); the turn-around and the product never."""
     counts = {}
-    for label, stages, N, turn, width in PLANS:
-        cr = ConvRegisters(stages, N, turn, width)
+    for label, stages, N, turn, width, packed in PLANS:
+        cr = ConvRegisters(stages, N, turn, width, packed)
         worst = _worst(cr)
         if N & (N - 1) == 0:
-            assert max(worst.values()) == 1, (label, worst)
-            plain = ConvRegisters(stages, N, turn, width)
+            # the PACKED plan at P = 256 (514) runs passes of 4, 8 and 8
+            # values: the swizzle at pass 0's radix leaves a later pass 2
+            # lanes a group
+            assert max(worst.values()) == (2 if packed else 1), (label,
+                                                                 worst)
+            plain = ConvRegisters(stages, N, turn, width, packed)
             plain.mask = 0
-            assert _worst(plain)["turn" if plain.fuse else "r2"] == 8
+            assert _worst(plain)["turn" if plain.fuse else "r2"] == (
+                4 if packed else 8)          # 514's pass 0 holds 4 values
         for kind, w in worst.items():
             counts[kind] = max(counts.get(kind, 0), w)
     assert counts == COUNTS, counts
 
 
 # the census of test_bank_conflicts_counted_and_none_at_powers_of_two
-COUNTS = {"r2": 3, "odd": 3, "generic": 2, "narrow": 3, "narrow read": 1,
+COUNTS = {"r2": 3, "odd": 3, "generic": 2, "narrow": 3, "narrow read": 2,
           "turn": 1, "product": 1}
 
 
@@ -720,6 +865,17 @@ def test_loads_and_reads_are_bijections():
         assert np.array_equal(np.sort(at), np.arange(k)), k
         if cr.mask:
             assert cr.slot(k - 1) == k - 1
+    # the PACKED load: sample i to double i & 1 of slot perm[i / 2], every
+    # double of the M slots once (514: P = 256 swizzled, slot P in place)
+    for k in MIXED_RADER_SAMPLE:
+        plan = tstft.fft_plan(k)
+        M = k // 2
+        cr = ConvRegisters(plan.stages.tolist(), M - 1, True, M, True)
+        i = np.arange(k)
+        at = 2 * cr.slot(plan.perm[i >> 1]) + (i & 1)
+        assert np.array_equal(np.sort(at), np.arange(k)), k
+        if cr.mask:
+            assert k == 514 and cr.slot(M - 1) == M - 1
 
 
 # ---------------------------------------------------------------------------
@@ -727,12 +883,13 @@ def test_loads_and_reads_are_bijections():
 # ---------------------------------------------------------------------------
 
 def test_every_value_fits_its_block():
-    """Each of the odd route's 2,698 values and the Bluestein route's 2,389:
-    a block of whole warps up to FFT_MAX_THREADS that holds each generic
-    pass's groups of warps (one round at least), at most MIX_MAX_PASSES
-    passes, each radix-2 pass of 2 to 16 values; the odd kernel's eight
-    instantiations and the Bluestein kernel's radices up to 7 (no generic
-    code)."""
+    """Each of the odd route's 2,698 values, the mixed route's 405 Rader
+    plans (PACKED) and the Bluestein route's 2,389: a block of whole warps
+    up to FFT_MAX_THREADS that holds each generic pass's groups of warps
+    (one round at least), at most MIX_MAX_PASSES passes, each radix-2 pass
+    of 2 to 16 values; the odd kernel's eight instantiations and the
+    PACKED form's four, and the Bluestein kernel's radices up to 7 (no
+    generic code)."""
     max_passes = _constant(SRC, "MIX_MAX_PASSES")
     seen = set()
     for k in ROUTES["odd"]:
@@ -747,6 +904,19 @@ def test_every_value_fits_its_block():
             if ps.radix % 2 and ps.radix > 7:
                 assert cr.rounds(ps)[2] >= 1
     assert seen == {(r, x) for r in (False, True) for x in (0, 1, 4, 8)}
+    packed = set()
+    for k in MIXED_RADER:
+        plan = tstft.fft_plan(k)
+        M = k // 2
+        cr = ConvRegisters(plan.stages.tolist(), M - 1, True, M, True)
+        packed.add(cr.rmax)
+        assert cr.threads % 32 == 0 and cr.threads <= MAX_THREADS
+        assert len(cr.passes) <= max_passes
+        for ps in cr.passes:
+            assert ps.radix % 2 or ps.radix <= 2 ** R2_BITS
+            if ps.radix % 2 and ps.radix > 7:
+                assert cr.rounds(ps)[2] >= 1
+    assert packed == {0, 1}
     for m, k in BLUE_BY_M.items():
         plan = tstft.bluestein_plan(k)
         H = m // plan.ranks
@@ -766,7 +936,7 @@ def test_geometry_constants_are_the_sources():
     for line in (
             "const int i = n2 - 1 - pn;",
             "const int bits = twos / n2 + (i < twos % n2 ? 1 : 0);",
-            "!group_passes(stages, n_stages, N, plan->pass, &plan->n_passes,",
+            "if (!group_passes(stages, n_stages, N, bits_max, plan->pass,",
             "plan->fuse = turn && (r0 % 2 == 0 || r0 <= 7) ? 1 : 0;",
             "ps.inner = make_fastdiv(ps.span);           // k fastest (KFAST)",
             "if (KFAST || ps.radix % 2 == 0) {",
@@ -778,14 +948,22 @@ def test_geometry_constants_are_the_sources():
             "const int pairs = ((p_max + 1) / 2 + 31) / 32 * 32;",
             "*threads = fft_threads(2 * width) > pairs ? fft_threads(2 * "
             "width) : pairs;",
-            "bool narrow = width <= (turn ? RADER_NARROW_POINTS : "
-            "ODD_NARROW_POINTS);",
             "if (N / ps.radix <= 16 || (pairs + rm - 1) / rm > *threads / 32)",
             "if (*rmax > 0 && narrow) *rmax = 1;",
             "const int per = static_cast<int>(blockDim.x) / (h + 1);",
-            "const int m = tid % (h + 1);",
-            "const int j = tid / (h + 1);",
-            "RMAX == 1 || (!RADER && RMAX == 0) ? ODD_SMALL_BLOCKS : 1)",
+            "const bool jfast = per > 1 && (per & (per - 1)) == 0;",
+            "int m = jfast ? tid / per : tid % (h + 1);",
+            "int j = jfast ? tid - m * per : tid / (h + 1);",
+            "if (jfast && nbt - b0 < per) {",
+            "m = tid / (nbt - b0);",
+            "j = tid - m * (nbt - b0);",
+            "const bool on = m <= h && j < per && b < nbt;",
+            "return rmax == 1 || (rmax == 0 && (!rader || packed)) ? "
+            "ODD_SMALL_BLOCKS : 1;",
+            "odd_min_blocks(RADER, RMAX, PACKED))",
+            "K / 2, PACKED_R2_BITS, &plan, &rmax, &threads) ||",
+            "rader >= 0 ? RADER_NARROW_POINTS : ODD_NARROW_POINTS,",
+            "bool narrow = width <= narrow_points;",
             "return s ^ ((s >> shift) & mask);",
             "return p == 3 ? 0 : (p == 5 ? 3 : 8);",
             "for (int q = plan.n_passes - 1; q >= plan.fuse; --q) {",
@@ -810,7 +988,14 @@ def test_geometry_constants_are_the_sources():
             "BluesteinProduct{tw + bhat + rank * H});",
             "RaderProduct{tw + plan.rader, buf + map(P),",
             "const double2 v = buf[map(perm[i])];",
-            "buf[map(perm[i])] = make_double2(va, vb);"):
+            "buf[map(perm[i])] = make_double2(va, vb);",
+            "bufd[2 * map(perm[i >> 1]) + (i & 1)] =",
+            "const int P = (K >> 1) - 1;",
+            "split_psd_epilogue(ConvRaderRead{buf, perm, &x_sum, P, map},",
+            "if (!conv_plan(stages, n_stages, K / 2 - 1, rader, split, true, "
+            "K / 2,",
+            "const int err = raise_smem(kernel, smem, odd_smem_set[8 + "
+            "rmax]);"):
         assert " ".join(line.split()) in FLAT, line
     # the grouping at the driven configs: path 9 (M = 8192) and path 8's
     # ranks (8192 each) 8, 8, 8, 16 with the turn-around at radix 8 and

@@ -39,11 +39,13 @@ def test_variant_source_refuses_a_stale_edit():
 
 def test_every_kernel_names_its_routes_and_configs():
     """The kernels the table times are the STFT/PSD route's FFT kernels,
-    each on configs of its own routes."""
+    the pass engine's Rader plans (the mixed route's and the odd route's)
+    and the GEMM route's small-K tile, each on configs of its own
+    routes."""
     import importlib
     stft_cuda = importlib.import_module("spectral_tpu_torch.ops.stft_cuda")
     from spectral_tpu_torch import SpecConfig
-    assert set(tkv.KERNELS) == {"r2", "mixed", "conv"}
+    assert set(tkv.KERNELS) == {"r2", "mixed", "conv", "rader", "small"}
     for kern in tkv.KERNELS.values():
         for k in kern.nperseg:
             assert stft_cuda.route(SpecConfig.scipy_default(k)) in kern.routes

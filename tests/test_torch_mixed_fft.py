@@ -3,11 +3,11 @@ ops.stft_cuda.route, mixed_constants; core.stft.fft_plan;
 csrc/stft_psd.cu::stft_mixed_fft_psd_kernel), held on the CPU through a
 numpy model of the kernel's exact algorithm
 (``tools/torch_precision.py::psd_mixed_fft``: the same digit-reversed load,
-the same stage order and butterflies, the same host twiddle rows) and a
-scalar transcription of the stage-at-a-time thread loops (``run_stages``)
-that the mixed-radix kernel's Rader plans run; the mixed-radix kernel's
-own passes are transcribed in ``tests/test_torch_mixed_registers.py``, the
-odd and Bluestein kernels' in ``tests/test_torch_conv_registers.py``.
+the same stage order and butterflies, the same host twiddle rows). The
+mixed-radix kernel's own passes are transcribed in
+``tests/test_torch_mixed_registers.py``; the pass engine that runs its
+Rader plans, and the odd and Bluestein kernels, in
+``tests/test_torch_conv_registers.py``.
 
 The model is held to the kernels' plain version (``stft_psd_reference``,
 a float64 dense DFT) in float64, to the JAX package's Pallas kernel in
@@ -186,27 +186,24 @@ def _cuda_constant(name):
     return int(m.group(1))
 
 
-def _threads(n, p_max):
-    """The stage-at-a-time block for an n-point transform (``load_plan``,
-    the mixed-radix kernel's Rader plans; the odd kernel's ``conv_plan``
-    takes at least this block): n/2 threads rounded up to a warp, 32 to
-    512, widened to a warp multiple that holds the largest radix's (p +
-    1)/2 output pairs."""
-    fft = min(512, max(32, (2 * n // 4 + 31) // 32 * 32))
-    return max(fft, ((p_max + 1) // 2 + 31) // 32 * 32)
-
-
 def test_generic_stage_rounds_fit_the_block():
     """Every nperseg from 32 to 8192 that :func:`route` sends to the
     mixed-radix kernel (even) or the odd kernel is a plan its launcher
     takes: at most MIX_MAX_STAGES stages, odd radices up to MIX_MAX_RADIX
-    (the constants of csrc/stft_psd.cu), stages that multiply to the
-    transform length (less one under a Rader stage), and a block that
-    gives each of a generic butterfly's (p + 1)/2 output pairs a thread
-    (nperseg 386: p = 193 needs 97 threads, where K/4 gives 96)."""
+    (the constants of csrc/stft_psd.cu, which the host's MAX_MIXED_RADIX
+    repeats), stages that multiply to the transform length (less one under
+    a Rader stage). The mixed kernel's block of MIX_THREADS threads gives
+    each of a generic butterfly's (p + 1)/2 output pairs a thread; the
+    pass engine's, ``conv_plan``'s (``ConvRegisters``, width the transform
+    length), does so on the odd plans and on every Rader plan, the mixed
+    route's 405 among them, in whole warps up to FFT_MAX_THREADS with a
+    round of each generic pass at least (odd nperseg 193: p = 193 needs 97
+    threads, where K/4 gives 96)."""
+    from test_torch_conv_registers import ConvRegisters
     max_radix = _cuda_constant("MIX_MAX_RADIX")
     max_stages = _cuda_constant("MIX_MAX_STAGES")
     max_threads = _cuda_constant("FFT_MAX_THREADS")
+    mix_threads = _cuda_constant("MIX_THREADS")
     assert max_radix == stft_cuda.MAX_MIXED_RADIX == tstft.MAX_MIXED_RADIX
     routes = {k: stft_cuda.route(SpecConfig(nperseg=k, hop=k // 4,
                                             detrend="constant"))
@@ -220,130 +217,23 @@ def test_generic_stage_rounds_fit_the_block():
     for k in mixed + odd:
         n = tstft.transform_length(k)
         factors = tstft.plan_radices(k)
-        rader += tstft.rader_prime(n)
-        assert int(np.prod(factors)) == n - tstft.rader_prime(n)
+        r = tstft.rader_prime(n)
+        rader += r
+        assert int(np.prod(factors)) == n - r
         assert len(factors) <= max_stages
         assert all(p == 2 or 3 <= p <= max_radix for p in factors)
-        threads = _threads(n, max(factors))
-        assert threads % 32 == 0 and threads <= max_threads
-        assert all((p + 1) // 2 <= threads for p in factors)
-    assert rader == 405 + 699
-    assert _threads(193, 193) == 128
-
-
-def _kernel_loops(frame, window, plan, F, detrend):
-    """The stage-at-a-time thread loops (``run_stages``: stage_radix2,
-    stage_odd, stage_generic, which the mixed-radix kernel's Rader plans
-    run) for one frame, with the even kernels' load and epilogue,
-    transcribed scalar by scalar from csrc/stft_psd.cu (each round of a
-    stage reads its butterflies' slots before it writes them): their index
-    arithmetic, run before any card."""
-    tw = plan.twiddles[:, 0] + 1j * plan.twiddles[:, 1]
-
-    def cmul(w, y):
-        return complex(w.real * y.real - w.imag * y.imag,
-                       w.real * y.imag + w.imag * y.real)
-
-    K = len(frame)
-    M = K // 2
-    # frame_line: (mean, slope) against the centred index i - c
-    c = (K - 1) / 2.0
-    mean = frame.sum() / K if detrend != "none" else 0.0
-    slope = (((np.arange(K) - c) * frame).sum() / (K * (K * K - 1.0) / 12.0)
-             if detrend == "linear" else 0.0)
-    bufd = np.zeros(2 * M)
-    for i in range(K):
-        bufd[2 * plan.perm[i >> 1] + (i & 1)] = (
-            frame[i] - mean - slope * (i - c)) * window[i]
-    buf = bufd[0::2] + 1j * bufd[1::2]
-    for p, L, tw_row, root_row in plan.stages.tolist():
-        if p == 2:
-            for j in range(M >> 1):
-                k = j % L
-                i0 = ((j - k) << 1) + k
-                t = cmul(tw[tw_row + k], buf[i0 + L])
-                buf[i0], buf[i0 + L] = buf[i0] + t, buf[i0] - t
+        if k % 2 == 0 and not r:
+            assert all((p + 1) // 2 <= mix_threads for p in factors)
             continue
-        h = (p - 1) // 2
-        roots = tw[root_row:root_row + p]
-        bases = [(j - j % L) * p + j % L for j in range(M // p)]
-        if p <= 7:      # a thread's butterfly: read, then written
-            per_round = 1
-        else:           # whole butterflies, one output pair a thread
-            per_round = _threads(M, int(plan.stages[:, 0].max())) // (h + 1)
-            if L > 1:
-                for s in range(M):
-                    if s % (L * p) >= L:
-                        buf[s] = cmul(tw[tw_row + s % (L * p) - L], buf[s])
-        for j0 in range(0, M // p, per_round):
-            held = []
-            for base in bases[j0:j0 + per_round]:
-                y = [buf[base + q * L] for q in range(p)]
-                if p <= 7 and L > 1:
-                    y[1:] = [cmul(tw[tw_row + (q - 1) * L + base % L], y[q])
-                             for q in range(1, p)]
-                for m in range(h + 1):
-                    ar, ai, br, bi = y[0].real, y[0].imag, 0.0, 0.0
-                    for q in range(1, h + 1):
-                        c = roots[(q * m) % p]
-                        a, b = y[q] + y[p - q], y[q] - y[p - q]
-                        ar, ai = ar + a.real * c.real, ai + a.imag * c.real
-                        br, bi = br + b.real * c.imag, bi + b.imag * c.imag
-                    held.append((base, m, complex(ar - bi, ai + br),
-                                 complex(ar + bi, ai - br)))
-            for base, m, lo, hi in held:
-                buf[base + m * L] = lo
-                if m:
-                    buf[base + (p - m) * L] = hi
-    out = np.zeros(F)
-    for f in range(F):
-        g = f if f <= M else K - f
-        a, b = buf[0 if g == M else g], buf[0 if g == 0 else M - g]
-        w = tw[plan.split + g] if g < M else -1.0 + 0j
-        er, ei = 0.5 * (a.real + b.real), 0.5 * (a.imag - b.imag)
-        o_r, o_i = 0.5 * (a.imag + b.imag), 0.5 * (b.real - a.real)
-        xr = er + (w.real * o_r - w.imag * o_i)
-        xi = ei + (w.real * o_i + w.imag * o_r)
-        out[f] = xr * xr + xi * xi
-    return out
-
-
-def _loops_against_model(nperseg, onesided, detrend, seed):
-    """The transcribed thread loops and the model on one frame of a clip
-    at nperseg under detrend."""
-    cfg = SpecConfig(nperseg=nperseg, hop=nperseg // 4, detrend=detrend,
-                     onesided=onesided)
-    frame = _clips(seed, cfg, n_clips=1)[0, :nperseg].astype(np.float64)
-    window = stft_cuda.mixed_constants(cfg, FS, "cpu").window.numpy()
-    plan = tstft.fft_plan(nperseg)
-    got = _kernel_loops(frame, window, plan, cfg.n_freqs, detrend)
-    want = torch_precision.psd_mixed_fft(
-        frame[None], window, plan, np.ones(cfg.n_freqs), detrend=detrend,
-        round_f32=False)[0]
-    return got, want, (frame, window, plan, cfg.n_freqs)
-
-
-@pytest.mark.parametrize("nperseg,onesided", [
-    (96, True), (100, False), (224, True), (352, True), (386, True),
-    (4576, True)])
-def test_kernel_loops_are_the_model(nperseg, onesided):
-    """run_stages's indexing, transcribed, computes the model's transform
-    bitwise (386: M = 193, one generic stage wider than K/4 threads; 4576:
-    two generic stages, the second at span 13)."""
-    got, want, _ = _loops_against_model(nperseg, onesided, "constant",
-                                        70 + nperseg)
-    assert np.array_equal(got, want)
-
-
-@pytest.mark.parametrize("nperseg", [96, 386, 960, 4576])
-def test_kernel_loops_are_the_model_under_linear_detrend(nperseg):
-    """frame_line's mean and slope, transcribed, load the same buffer as
-    the model's linear detrend, bitwise, on a ramp frame."""
-    got, want, args = _loops_against_model(nperseg, True, "linear",
-                                           80 + nperseg)
-    assert np.array_equal(got, want)
-    # the line is not the mean alone on a ramp frame
-    assert not np.array_equal(got, _kernel_loops(*args, "constant"))
+        cr = ConvRegisters(tstft.fft_plan(k).stages.tolist(), n - r, r, n,
+                           r and k % 2 == 0)
+        assert cr.threads % 32 == 0 and cr.threads <= max_threads
+        assert all((p + 1) // 2 <= cr.threads for p in factors)
+        for ps in cr.passes:
+            if ps.radix % 2 and ps.radix > 7:
+                assert cr.rounds(ps)[2] >= 1, (k, ps.radix)
+    assert rader == 405 + 699
+    assert ConvRegisters([[193, 1, 0, 0]], 193, False, 193).threads == 128
 
 
 @pytest.mark.parametrize("detrend", ["none", "constant", "linear"])

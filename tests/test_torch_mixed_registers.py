@@ -130,10 +130,12 @@ class Pass:
         self.lp = span * radix
 
 
-def group_passes(stages, M):
+def group_passes(stages, M, bits_max=None):
     """group_passes: each odd stage of the plan's (p, L, row, root) rows a
-    pass, then the twos, a of them, in ceil(a / R2_BITS) passes of as even
-    a number of stages each, the smaller first."""
+    pass, then the twos, a of them, in ceil(a / bits_max) passes of as even
+    a number of stages each (bits_max R2_BITS unless given: the PACKED
+    plans' PACKED_R2_BITS), the smaller first."""
+    bits_max = bits_max or R2_BITS
     passes, twos = [], []
     for p, L, row, root in stages:
         if p % 2:
@@ -142,7 +144,7 @@ def group_passes(stages, M):
         else:
             twos.append((L, row))
     a = len(twos)
-    n2 = -(-a // R2_BITS)
+    n2 = -(-a // bits_max)
     s = 0
     for pn in range(n2):
         i = n2 - 1 - pn                         # smaller first
@@ -660,7 +662,8 @@ def test_geometry_constants_are_the_sources():
     for line in (
             "const int i = n2 - 1 - pn;",
             "const int bits = twos / n2 + (i < twos % n2 ? 1 : 0);",
-            "const int n2 = (twos + MIX_R2_BITS - 1) / MIX_R2_BITS;",
+            "const int n2 = (twos + bits_max - 1) / bits_max;",
+            "!group_passes(stages, n_stages, N, MIX_R2_BITS, plan->pass,",
             "*rmax = mix_rmax(p_max);",
             "return p_max <= 7 ? 0 : (p_max <= MIX_NARROW_RADIX ? 4 : 8);",
             "while (pf * MIX_LOAD < N) pf *= 2;",

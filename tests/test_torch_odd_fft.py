@@ -1,15 +1,13 @@
 """The odd route of the port's STFT/PSD kernel and the Rader stage of the
-mixed-radix kernels (spectral_tpu_torch.ops.stft_cuda.route,
+odd and mixed-radix routes (spectral_tpu_torch.ops.stft_cuda.route,
 mixed_constants; core.stft.fft_plan; csrc/stft_psd.cu::
-stft_odd_fft_psd_kernel, mixed_transform), held on the CPU through numpy
-models of the kernels' exact algorithms
+stft_odd_fft_psd_kernel, which runs both on the pass engine), held on the
+CPU through numpy models of the kernels' exact algorithms
 (``tools/torch_precision.py::psd_odd_fft``: two frames of a clip a
 transform, the pairing's guard, the pair epilogue; ``_transform``: the
-Rader stage's stages in frequency, product and stages in time) and a
-scalar transcription of the stage-at-a-time thread loops (``run_stages``,
-which the mixed-radix kernel's Rader plans run, and the odd kernel's load,
-guard and epilogue around them; the odd kernel's own pass engine is
-transcribed in ``tests/test_torch_conv_registers.py``).
+Rader stage's stages in frequency, product and stages in time). The pass
+engine itself, its loads and epilogues are transcribed in
+``tests/test_torch_conv_registers.py``.
 
 The models are held to the kernels' plain version (``stft_psd_reference``,
 a float64 dense DFT) in float64, to the JAX package's Pallas kernel in
@@ -429,188 +427,3 @@ def test_forced_odd_route_is_checked():
     want = stft_cuda.stft_psd(x, FS, cfg)
     assert torch.equal(stft_cuda.stft_psd(x, FS, cfg, _route="odd"), want)
     assert torch.equal(stft_cuda.stft_psd(x, FS, cfg, _route="gemm"), want)
-
-
-# ---------------------------------------------------------------------------
-# the kernels' thread loops, transcribed
-# ---------------------------------------------------------------------------
-
-def _threads(n, p_max):
-    """The mixed-radix kernels' block for an n-point transform
-    (``load_plan``)."""
-    fft = min(512, max(32, (2 * n // 4 + 31) // 32 * 32))
-    return max(fft, ((p_max + 1) // 2 + 31) // 32 * 32)
-
-
-def _cmul(w, y):
-    return complex(w.real * y.real - w.imag * y.imag,
-                   w.real * y.imag + w.imag * y.real)
-
-
-def _stage_loops(buf, plan, n, threads, dif):
-    """run_stages<DIF> over n slots of the list buf, scalar by scalar:
-    stage_radix2, stage_odd (a thread's butterfly, read then written) and
-    stage_generic (rounds of whole butterflies, one output pair a thread,
-    read before any write), the twiddles on the inputs in time and on
-    each thread's outputs in frequency."""
-    tw = plan.twiddles[:, 0] + 1j * plan.twiddles[:, 1]
-    order = plan.stages.tolist()
-    for p, L, tw_row, root_row in (order[::-1] if dif else order):
-        if p == 2:
-            for j in range(n >> 1):
-                k = j % L
-                i0 = ((j - k) << 1) + k
-                a, b = buf[i0], buf[i0 + L]
-                if dif:
-                    buf[i0] = a + b
-                    buf[i0 + L] = _cmul(tw[tw_row + k], a - b)
-                else:
-                    t = _cmul(tw[tw_row + k], b)
-                    buf[i0], buf[i0 + L] = a + t, a - t
-            continue
-        h = (p - 1) // 2
-        roots = tw[root_row:root_row + p]
-        if p > 7 and not dif and L > 1:
-            for s in range(n):
-                if s % (L * p) >= L:
-                    buf[s] = _cmul(tw[tw_row + s % (L * p) - L], buf[s])
-        per_round = 1 if p <= 7 else threads // (h + 1)
-        for j0 in range(0, n // p, per_round):
-            held = []
-            for j in range(j0, min(n // p, j0 + per_round)):
-                k = j % L
-                base = (j - k) * p + k
-                y = [buf[base + q * L] for q in range(p)]
-                if p <= 7 and not dif and L > 1:
-                    y[1:] = [_cmul(tw[tw_row + (q - 1) * L + k], y[q])
-                             for q in range(1, p)]
-                for m in range(h + 1):
-                    ar, ai, br, bi = y[0].real, y[0].imag, 0.0, 0.0
-                    for q in range(1, h + 1):
-                        c = roots[(q * m) % p]
-                        a, b = y[q] + y[p - q], y[q] - y[p - q]
-                        ar, ai = ar + a.real * c.real, ai + a.imag * c.real
-                        br, bi = br + b.real * c.imag, bi + b.imag * c.imag
-                    lo, hi = complex(ar - bi, ai + br), complex(ar + bi,
-                                                                ai - br)
-                    if dif and L > 1 and m > 0:
-                        lo = _cmul(tw[tw_row + (m - 1) * L + k], lo)
-                        hi = _cmul(tw[tw_row + (p - m - 1) * L + k], hi)
-                    held.append((base + m * L, lo))
-                    if m:
-                        held.append((base + (p - m) * L, hi))
-            for slot, value in held:
-                buf[slot] = value
-
-
-def _transform_loops(buf, plan, n, threads):
-    """mixed_transform: the reader of output i after it."""
-    if plan.rader < 0:
-        _stage_loops(buf, plan, n, threads, dif=False)
-        return lambda i: buf[i]
-    P = n - 1
-    _stage_loops(buf, plan, P, threads, dif=True)
-    total = complex(buf[P].real + buf[0].real, buf[P].imag + buf[0].imag)
-    tw = plan.twiddles[:, 0] + 1j * plan.twiddles[:, 1]
-    for s in range(P):
-        buf[s] = _cmul(tw[plan.rader + s], buf[s])
-    _stage_loops(buf, plan, P, threads, dif=False)
-    return lambda i: total if i == 0 else complex(
-        buf[P].real + buf[plan.perm[i]].real,
-        buf[P].imag + buf[plan.perm[i]].imag)
-
-
-def _odd_kernel_loops(frames, window, plan, F):
-    """stft_odd_fft_psd_kernel's algorithm for the frames of one clip,
-    block by block (pairs 2j, 2j + 1): both frames' loads, the guard on
-    their energies, the K-point transform (on the stage-at-a-time loops),
-    the pair or lone epilogue; |X|² per bin."""
-    T, K = frames.shape
-    threads = _threads(K, int(plan.stages[:, 0].max()))
-    out = np.zeros((T, F))
-    for t in range(0, T, 2):
-        has_b = t + 1 < T
-        va = frames[t] * window
-        vb = frames[t + 1] * window if has_b else np.zeros(K)
-        buf = [0j] * K
-        ea = eb = 0.0
-        for i in range(K):
-            buf[plan.perm[i]] = complex(va[i], vb[i])
-            ea += va[i] * va[i]
-            eb += vb[i] * vb[i]
-        paired = (has_b and np.isfinite(ea) and np.isfinite(eb) and ea > 0
-                  and eb > 0 and max(ea, eb)
-                  <= torch_precision.PAIR_MAX_RATIO * min(ea, eb))
-        if paired:
-            z = _transform_loops(buf, plan, K, threads)
-            for f in range(F):
-                a, b = z(f), z(0 if f == 0 else K - f)
-                for r, (xr, xi) in ((t, (0.5 * (a.real + b.real),
-                                         0.5 * (a.imag - b.imag))),
-                                    (t + 1, (0.5 * (a.imag + b.imag),
-                                             0.5 * (b.real - a.real)))):
-                    out[r, f] = xr * xr + xi * xi
-            continue
-        for r, v in ((t, va), (t + 1, vb))[:1 + has_b]:
-            buf = [0j] * K
-            for i in range(K):
-                buf[plan.perm[i]] = complex(v[i], 0.0)
-            z = _transform_loops(buf, plan, K, threads)
-            for f in range(F):
-                x = z(f)
-                out[r, f] = x.real * x.real + x.imag * x.imag
-    return out
-
-
-@pytest.mark.parametrize("nperseg", [33, 45, 331, 859])
-def test_odd_kernel_loops_are_the_model(nperseg):
-    """The odd kernel's indexing, transcribed, computes the model's PSD
-    bitwise on three frames (a pair and a lone frame), and on a pair the
-    guard keeps apart (33, 45: radices 11 · 3 and 5 · 3 · 3; 331: a Rader
-    stage over 330 = 11 · 5 · 3 · 2; 859: over 858 = 13 · 11 · 3 · 2, a
-    generic stage in frequency at span 13)."""
-    cfg = SpecConfig(nperseg=nperseg, hop=nperseg, window="hann",
-                     detrend="none")
-    plan = tstft.fft_plan(nperseg)
-    window = stft_cuda.mixed_constants(cfg, FS, "cpu").window.numpy()
-    rs = np.random.RandomState(nperseg)
-    for frames in (rs.randn(3, nperseg),
-                   np.stack([rs.randn(nperseg), 1e-6 * rs.randn(nperseg)])):
-        got = _odd_kernel_loops(frames, window, plan, cfg.n_freqs)
-        want = torch_precision.psd_odd_fft(
-            frames, window, plan, np.ones(cfg.n_freqs), round_f32=False)
-        assert np.array_equal(got, want)
-
-
-@pytest.mark.parametrize("nperseg", [514, 662])
-def test_mixed_kernel_rader_loops_are_the_model(nperseg):
-    """stft_mixed_fft_psd_kernel<true>: the packed real frame's M-point
-    transform through the Rader stage (514: M = 257, P = 2^8; 662: M =
-    331), then the split step, transcribed, bitwise the model's."""
-    cfg = SpecConfig(nperseg=nperseg, hop=nperseg, window="hann",
-                     detrend="none")
-    assert stft_cuda.route(cfg) == "mixed"
-    plan = tstft.fft_plan(nperseg)
-    K, M = nperseg, nperseg // 2
-    window = stft_cuda.mixed_constants(cfg, FS, "cpu").window.numpy()
-    frame = np.random.RandomState(nperseg).randn(K)
-    v = frame * window
-    buf = [0j] * M
-    for m in range(M):
-        buf[plan.perm[m]] = complex(v[2 * m], v[2 * m + 1])
-    z = _transform_loops(buf, plan, M,
-                         _threads(M, int(plan.stages[:, 0].max())))
-    tw = plan.twiddles[:, 0] + 1j * plan.twiddles[:, 1]
-    got = np.zeros(cfg.n_freqs)
-    for f in range(cfg.n_freqs):
-        g = f if f <= M else K - f
-        a, b = z(0 if g == M else g), z(0 if g == 0 else M - g)
-        w = tw[plan.split + g] if g < M else -1.0 + 0j
-        er, ei = 0.5 * (a.real + b.real), 0.5 * (a.imag - b.imag)
-        o_r, o_i = 0.5 * (a.imag + b.imag), 0.5 * (b.real - a.real)
-        xr = er + (w.real * o_r - w.imag * o_i)
-        xi = ei + (w.real * o_i + w.imag * o_r)
-        got[f] = xr * xr + xi * xi
-    want = torch_precision.psd_mixed_fft(
-        frame[None], window, plan, np.ones(cfg.n_freqs), round_f32=False)[0]
-    assert np.array_equal(got, want)

@@ -6,9 +6,11 @@ own source, on the card.
 
 KERNEL is one of KERNELS below: ``r2`` (the radix-2 kernel, C entry
 ``stft_fft_psd_launch``), ``mixed`` (the mixed-radix kernel,
-``stft_mixed_fft_psd_launch``) or ``conv`` (the odd and Bluestein kernels,
+``stft_mixed_fft_psd_launch``), ``conv`` (the odd and Bluestein kernels,
 ``stft_odd_fft_psd_launch`` or ``stft_bluestein_psd_launch`` by the
-config's route). Builds ``spectral_tpu_torch/ops/csrc/stft_psd.cu`` as it
+config's route), ``rader`` (the pass engine's Rader plans: the mixed
+route's, PACKED, through ``stft_mixed_fft_psd_launch``, and the odd
+route's) or ``small`` (the GEMM route's small-K tile, ``stft_psd_launch``). Builds ``spectral_tpu_torch/ops/csrc/stft_psd.cu`` as it
 stands ("this") and each of the kernel's variants, a textual edit of the
 same source that must match it exactly once, with the port's nvcc flags
 into ``build/kernel_variants/`` (gitignored), one nvcc a variant, all at
@@ -145,11 +147,11 @@ MIXED_VARIANTS = {
           "    bin(f, fbuf[g], fbuf[M - g], split[0], wts[0]);")]),
 }
 
-ODD_BLOCKS = ("                                      ? ODD_SMALL_BLOCKS\n"
-              "                                      : 1)")
+ODD_MIN = ("  return rmax == 1 || (rmax == 0 && (!rader || packed)) ? "
+           "ODD_SMALL_BLOCKS\n"
+           "                                                        : 1;")
 FUSE = "  plan->fuse = turn && (r0 % 2 == 0 || r0 <= 7) ? 1 : 0;"
-NARROW_AT = ("  bool narrow = width <= (turn ? RADER_NARROW_POINTS : "
-             "ODD_NARROW_POINTS);")
+NARROW_AT = "  bool narrow = width <= narrow_points;"
 NARROW_PASS = ("      if (N / ps.radix <= 16 || (pairs + rm - 1) / rm > "
                "*threads / 32)")
 CONV_VARIANTS = {
@@ -203,11 +205,11 @@ CONV_VARIANTS = {
         "the odd kernel's narrow plans, and those of radix 3, 5 and 7 "
         "passes only, at one block of 512 threads an SM (128 registers), as "
         "the others",
-        [(ODD_BLOCKS, ODD_BLOCKS.replace("ODD_SMALL_BLOCKS", "1"))]),
+        [(ODD_MIN, ODD_MIN.replace("ODD_SMALL_BLOCKS", "1"))]),
     "odd_two_blocks": (
         "every odd kernel at two blocks of 512 threads an SM (64 registers)",
-        [(ODD_BLOCKS, ODD_BLOCKS.replace("ODD_SMALL_BLOCKS", "2")
-          .replace(": 1)", ": 2)"))]),
+        [(ODD_MIN, ODD_MIN.replace("ODD_SMALL_BLOCKS", "2")
+          .replace(": 1;", ": 2;"))]),
     "narrow_upto_24": (
         "generic passes narrow up to 24 butterflies, not 16",
         [(NARROW_PASS, NARROW_PASS.replace("<= 16", "<= 24"))]),
@@ -233,9 +235,8 @@ CONV_VARIANTS = {
     "rader_narrow_one_block": (
         "the odd kernel's narrow Rader plans at one block an SM (128 "
         "registers), not two",
-        [("                                  RMAX == 1 || (!RADER && RMAX == 0)",
-          "                                  (RMAX == 1 && !RADER) || "
-          "(!RADER && RMAX == 0)")]),
+        [(ODD_MIN, ODD_MIN.replace("return rmax == 1 ||",
+                                   "return (rmax == 1 && !rader) ||"))]),
     "no_load_stores": (
         "ablation: the Bluestein load computes its values but stores none "
         "(what fusing the load into the first pass could save at most)",
@@ -274,6 +275,65 @@ CONV_VARIANTS = {
 }
 
 
+JFAST = "    const bool jfast = per > 1 && (per & (per - 1)) == 0;"
+RADER_VARIANTS = {
+    "narrow_m_fast": (
+        "every narrow pass with its output pairs fastest across the lanes "
+        "(the mapping before the round's butterflies took the lanes)",
+        [(JFAST, "    const bool jfast = false;")]),
+    "narrow_j_fast_all": (
+        "every narrow pass of more than one butterfly a round with the "
+        "round's butterflies fastest, not only at a power of two a round",
+        [(JFAST, "    const bool jfast = per > 1;")]),
+    "packed_bits4": (
+        "the PACKED plans' radix-2 passes of up to 16 values, not 8",
+        [("constexpr int PACKED_R2_BITS = 3;",
+          "constexpr int PACKED_R2_BITS = 4;")]),
+    "packed_r0_one_block": (
+        "the PACKED plans without a generic pass at one block an SM (128 "
+        "registers), not two",
+        [(ODD_MIN, ODD_MIN.replace("(!rader || packed)", "!rader"))]),
+    "no_root_gather": (
+        "ablation: a narrow pass reads its lane's root at one index (m), "
+        "not the gathered q m mod p",
+        [("          const double2 c = roots[idx];",
+          "          const double2 c = roots[m];")]),
+    "no_narrow_sums": (
+        "ablation: a narrow pass's sums skipped (its reads of y0 and its "
+        "writes kept)",
+        [("        for (int q = 1; q <= h; ++q) {\n          idx += m;",
+          "        for (int q = 1; q <= 0; ++q) {\n          idx += m;")]),
+    "no_odd_sums": NO_ODD_SUMS,
+    "no_r2_butterflies": NO_R2_BUTTERFLIES,
+}
+
+SK_BLOCKS = "constexpr int SK_MIN_BLOCKS = 3;"
+SMALL_VARIANTS = {
+    "sk_bins8": (
+        "the small tile compiled for 8 bins a thread at every F (the bins "
+        "a thread does not hold predicated off), not instantiated by them",
+        [("    const auto kernel = by_nb[nb - 1];",
+          "    const auto kernel = stft_psd_small_kernel<8>;"),
+         ("    const int err = raise_smem(kernel, smem, small_smem_set[nb - 1]);",
+          "    const int err = raise_smem(kernel, smem, small_smem_set[7]);")]),
+    "sk_two_blocks": (
+        "the small tile at two blocks an SM (128 registers)",
+        [(SK_BLOCKS, SK_BLOCKS.replace("3;", "2;"))]),
+    "sk_four_blocks": (
+        "the small tile at four blocks an SM (64 registers)",
+        [(SK_BLOCKS, SK_BLOCKS.replace("3;", "4;"))]),
+    "sk_no_sums": (
+        "ablation: the small tile's products skipped (staging and stores "
+        "kept)",
+        [("  for (int k0 = 0; k0 < KP; k0 += SK_K_STEP) {",
+          "  for (int k0 = 0; k0 < 0; k0 += SK_K_STEP) {")]),
+    "sk_no_stage": (
+        "ablation: the small tile stages no samples (its products read "
+        "what shared memory holds)",
+        [("      cp_async_f32(xs + off[i] + k, x + src[i] + k);",
+          "      (void)src;")]),
+}
+
 def _r2_launch(stft_cuda, cfg, dev, a):
     c = stft_cuda.fft_constants(cfg, FS, dev)
     return lambda lib: lib.stft_fft_psd_launch(
@@ -303,6 +363,19 @@ def _conv_launch(stft_cuda, cfg, dev, a):
         c.stages.ctypes.data, len(c.stages), c.m, c.bhat, c.chirp, c.split,
         c.wts.data_ptr(), *a.outs, *a.shape, a.detrend, 0, 1, a.stream)
 
+
+
+def _rader_launch(stft_cuda, cfg, dev, a):
+    if stft_cuda.route(cfg) == "odd":
+        return _conv_launch(stft_cuda, cfg, dev, a)
+    return _mixed_launch(stft_cuda, cfg, dev, a)
+
+
+def _small_launch(stft_cuda, cfg, dev, a):
+    c = stft_cuda.dft_constants(cfg, FS, dev)
+    return lambda lib: lib.stft_psd_launch(
+        a.x, c.a_re.data_ptr(), c.a_im.data_ptr(), c.wts.data_ptr(), *a.outs,
+        *a.shape, 0, 1, a.stream)
 
 @dataclasses.dataclass(frozen=True)
 class Kernel:
@@ -341,6 +414,17 @@ KERNELS = {
          ("path 8 scipy_default 8185", 8185, None),
          ("path 9 scipy_default 8182", 8182, None)),
         (563, 1023, 2049, 4093), _conv_launch, CONV_VARIANTS),
+    "rader": Kernel(
+        ("mixed", "odd"),
+        (r"stft_odd_fft_psd_kernelILb(\d)ELi(\d+)ELb(\d)E",
+         lambda e: f"odd<{e.group(1)}, {e.group(2)}, {e.group(3)}>"),
+        (), (526, 1006, 1082, 2894, 4106, 8186, 503, 1553),
+        _rader_launch, RADER_VARIANTS),
+    "small": Kernel(
+        ("gemm",),
+        (r"stft_psd_(small_kernelILi(\d)E|kernelE)",
+         lambda e: f"small<{e.group(2)}>" if e.group(2) else "large"),
+        (), (2, 7, 13, 24, 31), _small_launch, SMALL_VARIANTS),
 }
 
 
@@ -360,6 +444,7 @@ def load(so):
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     out = [ptr] * 3 + [i32, i64]
     for entry, args in (
+            ("stft_psd_launch", [ptr] * 4 + out + [i32] * 6),
             ("stft_fft_psd_launch", [ptr] * 4 + out + [i32] * 7),
             ("stft_mixed_fft_psd_launch",
              [ptr] * 5 + [i32] * 3 + [ptr] + out + [i32] * 7),

@@ -324,9 +324,9 @@ def _stages(re: np.ndarray, im: np.ndarray, plan, n: int,
 def _transform(re: np.ndarray, im: np.ndarray, plan, n: int):
     """The n-point transform of the values the plan's load order put in
     the (T, n) slots re + i im, in natural order, as the kernels compute
-    it (``csrc/stft_psd.cu::mixed_transform``, and the odd kernel's
-    ``conv_forward``/``conv_transform``, which group the same stages into
-    passes): the plan's stages, or with
+    it (``csrc/stft_psd.cu``: the mixed-radix kernel's passes, and the
+    pass engine's ``conv_forward``/``conv_transform``, which group the
+    same stages into passes): the plan's stages, or with
     a Rader stage (``plan.rader >= 0``, P = n - 1, x0 in slot P) the
     P-point stages in frequency, X[0] = x0 + slot 0, the product with the
     b̂ rows in slot order, the stages in time, and X[f] = x0 + slot
@@ -361,13 +361,15 @@ def psd_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
                   round_f32: bool = True) -> np.ndarray:
     """(T, F) PSD by the mixed-radix FFT kernel's arithmetic
     (``csrc/stft_psd.cu::stft_mixed_fft_psd_kernel``, and with a Rader
-    stage ``stft_mixed_rader_psd_kernel``), in float64, with ``plan`` =
-    ``core/stft.py::fft_plan(nperseg)``, K = nperseg even, M = K/2. The
-    kernel groups the plan's stages into passes (radix-2 stages up to four
-    in registers, a generic prime's outputs blocked over warps), which
-    moves values, not arithmetic: each butterfly's expressions and the
-    order of its sums are these (``tests/test_torch_mixed_registers.py``
-    transcribes the passes and holds them to this model bit for bit):
+    stage the odd kernel's PACKED form on the pass engine), in float64,
+    with ``plan`` = ``core/stft.py::fft_plan(nperseg)``, K = nperseg even,
+    M = K/2. The kernels group the plan's stages into passes (radix-2
+    stages up to four in registers, a generic prime's outputs blocked over
+    warps), which moves values, not arithmetic: each butterfly's
+    expressions and the order of its sums are these
+    (``tests/test_torch_mixed_registers.py`` and, for the Rader plans,
+    ``tests/test_torch_conv_registers.py`` transcribe the passes and hold
+    them to this model bit for bit):
 
     - v = (frame - line) · window (:func:`detrended`); z[m] = v[2m] + i
       v[2m + 1] stored at slot perm[m] (the mixed-radix digit reversal, or

@@ -4,8 +4,9 @@ checkout of the port.
     python3 tools/torch_route_times.py [--root DIR] [--route ROUTE]
                                        [--nperseg N ...] [--detrend D]
                                        [--paths [P ...]] [--sweep S]
+                                       [--rader S] [--small]
                                        [--frames-alone] [--library]
-                                       [--ulp]
+                                       [--plain] [--ulp]
 
 Imports ``spectral_tpu_torch`` from DIR (default: the checkout holding this
 script), builds its STFT kernel from DIR's sources, and times
@@ -14,13 +15,17 @@ for scipy_default 1024, north_star 1024/256 and scipy_default 992 (the
 mixed-radix route), or scipy_default at each ``--nperseg`` given, under
 each config's own detrend or ``--detrend``, with CUDA events, median of 5
 after a warm-up. ``--paths`` times instead the STFT/PSD configs of
-``chip_smoke.py``'s paths 1-10 at their batches (1024 clips of 10 s at
+``chip_smoke.py``'s paths 1-11 at their batches (1024 clips of 10 s at
 north_star 1024/256, the export's config too; 256 clips of 60 s at
 scipy_default 8192, 8160, 8032, 8160 under linear detrend, 8191, 8185
 and 8182; 1024 clips of 10 s at scipy_default 24), or those of the paths
-numbered after it; ``--sweep S`` every S-th nperseg from 32 to 8192 that
-the odd route takes and every S-th the Bluestein route takes, at
-scipy_default. ``--nperseg``, ``--paths`` and ``--sweep`` add up. ``--route`` (gemm,
+numbered after it (path 11: scipy_default 8186 on 256 clips of 60 s);
+``--sweep S`` every S-th nperseg from 32 to 8192 that the odd route takes
+and every S-th the Bluestein route takes, at scipy_default; ``--rader S``
+every S-th of the mixed route's 405 Rader plans (even nperseg whose half
+is a prime past 255; 1 for all); ``--small`` nperseg 2-31, the GEMM
+route's small-K tile. ``--nperseg``, ``--paths``, ``--sweep``, ``--rader``
+and ``--small`` add up. ``--route`` (gemm,
 fft, mixed, odd or bluestein) forces that kernel through ``stft_psd``'s
 module-private ``_route`` on the configs that allow it and skips the
 others; ``--route mixed`` also takes the
@@ -29,7 +34,8 @@ largest difference from the radix-2 kernel's PSD relative to its max.
 ``--frames-alone`` launches the odd kernel with every frame transformed
 alone (its packing off). ``--library`` also times each config's library
 yardstick, ``chip_smoke.py::library_psd`` (cuFFT's float64 transform of
-the same frames), which the port never calls. ``--ulp`` also reports the
+the same frames), which the port never calls; ``--plain`` the plain
+version, ``stft_psd_reference`` (its float64 DFT matrices built first). ``--ulp`` also reports the
 largest distance in float32 ulps of the first 64 clips' PSD from the
 plain version, ``stft_psd_reference``, on the same clips. Pointed at an older checkout it times that
 checkout's kernels, so one call on one card compares two versions: run it
@@ -66,15 +72,21 @@ def main(argv=None) -> None:
                     choices=("gemm", "fft", "mixed", "odd", "bluestein"),
                     help="force this kernel where the config allows it")
     ap.add_argument("--paths", type=int, nargs="*",
-                    help="time chip_smoke.py's paths 1-10 configs and "
+                    help="time chip_smoke.py's paths 1-11 configs and "
                          "batches, or the paths numbered")
     ap.add_argument("--sweep", type=int,
                     help="every S-th nperseg of the odd and Bluestein "
                          "routes")
+    ap.add_argument("--rader", type=int,
+                    help="every S-th of the mixed route's Rader plans")
+    ap.add_argument("--small", action="store_true",
+                    help="nperseg 2-31, the GEMM route's small-K tile")
     ap.add_argument("--frames-alone", action="store_true",
                     help="the odd kernel without its packing")
     ap.add_argument("--library", action="store_true",
                     help="time chip_smoke.py's cuFFT yardstick too")
+    ap.add_argument("--plain", action="store_true",
+                    help="time the plain version too")
     ap.add_argument("--ulp", action="store_true",
                     help="the PSD's float32 ulp distance from the plain "
                          "version")
@@ -124,6 +136,14 @@ def main(argv=None) -> None:
             ks = [k for k in range(32, 8193)
                   if stft_cuda.route(SpecConfig.scipy_default(k)) == route]
             nperseg += ks[::args.sweep]
+    if args.rader:
+        from spectral_tpu_torch.core.stft import rader_prime
+        ks = [k for k in range(32, 8193, 2)
+              if stft_cuda.route(SpecConfig.scipy_default(k)) == "mixed"
+              and rader_prime(k // 2)]
+        nperseg += ks[::args.rader]
+    if args.small:
+        nperseg += list(range(2, 32))
     configs = [(f"scipy_default {k}", SpecConfig.scipy_default(k))
                for k in nperseg]
     if not configs and args.paths is None:
@@ -154,7 +174,9 @@ def main(argv=None) -> None:
             ("path 9 scipy_default 8182",
              SpecConfig.scipy_default(8182, log_scale=True)),
             ("path 10 scipy_default 24",
-             SpecConfig.scipy_default(24, log_scale=True))]
+             SpecConfig.scipy_default(24, log_scale=True)),
+            ("path 11 scipy_default 8186",
+             SpecConfig.scipy_default(8186, log_scale=True))]
         paths = [(name, cfg) for name, cfg in paths
                  if not args.paths or int(name.split()[1]) in args.paths]
         shape.update({name: (CLIPS, SECONDS)
@@ -228,6 +250,15 @@ def main(argv=None) -> None:
             library_psd(x, cfg)                  # warm up
             lib = timed(lambda: library_psd(x, cfg))
             report[name]["library_ms"] = sorted(lib)[REPS // 2]
+            torch.cuda.empty_cache()
+        if args.plain:
+            consts = stft_cuda.dft_constants(cfg, FS, dev)
+
+            def plain(cfg=cfg, consts=consts):
+                return stft_cuda.stft_psd_reference(x, consts, cfg,
+                                                    with_stats=True)
+            plain()                              # warm up
+            report[name]["plain_ms"] = sorted(timed(plain))[REPS // 2]
             torch.cuda.empty_cache()
     print(json.dumps(report))
 
