@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc and triton; run it from the root of a checkout.
-It builds every kernel of the port's paths from the sources in the
-checkout and holds each kernel against its plain PyTorch version on the
+Needs one CUDA card and nvcc; run it from the root of a checkout. It
+builds every kernel of the port's paths from the sources in the checkout
+(``csrc/stft_psd.cu`` and ``csrc/display.cu``, one nvcc each, started
+together) and holds each kernel against its plain PyTorch version on the
 card: the STFT/PSD kernel's five routes (the FFT kernel at power-of-two
 nperseg 32-8192, under every detrend, beside zero, NaN and 1e-6 frames,
 an overflow clip, log10_out, B T = 1 and T = 0, each held to 1 float32
@@ -25,9 +26,22 @@ below and above nperseg, rows that cross a clip's edge inside a block,
 NaN and overflow clips, log10_out and T = 0 (GEMM_CASES); the ptxas
 registers and spills of the odd, Bluestein and GEMM kernels'
 instantiations; the GEMM kernel's large tile forced beside them) and the
-display kernel in both output modes, with and without the float image.
-Then it drives eleven paths at full size, each with the launch counts set
-to 0 just before it and read just after:
+display tail's two kernels (``clip_stats``: pmin and pmax bitwise
+``torch.amin``/``amax`` of the partials, the flags and display operands
+the plain version's, on NaN, inf, DC, tiny, silent and loud clips, odd n,
+forced GEMM partials of several frequency tiles, T = 0, share_max and a
+batch past 65,535 clips; the display map: the image within IMAGE_TOL of
+the plain version, the words at least 99.9% identical and never more
+than one LUT index apart, at odd T and F, T < 4, T = 0, share_max,
+flip_image, colormap=None, RGBA and palette words with and without the
+image, and past 65,535 clips). Pure-DC clips (1e-4, 3e-3, 0.1; 10 s)
+through ``batched_spectrogram_fn`` at scipy_default 1024 and 8160 must
+come out healthy. Then it drives eleven paths at full size, each with the
+launch counts set to 0 just before it and read just after, each call of
+the pipeline one launch of the route's STFT kernel, one of clip_stats and
+one of the display map (path 1 also under ``torch.profiler``, which must
+show those three kernels and no other; it prints them and the device's
+idle share):
 
 1. the display spine: 1024 clips of 10 s at 16 kHz through
    ``batched_spectrogram_fn`` at north_star 1024/256 log (RGBA words), on
@@ -61,7 +75,8 @@ to 0 just before it and read just after:
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
-with CUDA events (also scipy_default 1024, 992, 2049 and 8186, the
+with CUDA events (the display tail's kernels also as runs of RUN
+launches between two events, over the count; also scipy_default 1024, 992, 2049 and 8186, the
 mixed route's Rader plan, on path 1's batch): the library
 yardstick of the STFT kernels is cuFFT's
 float64 real transform of the same frames (``library_psd``), which the
@@ -131,6 +146,7 @@ R2_CASES = tuple(2 ** b for b in range(5, 14))
 EXPORT_CLIPS = 1024
 EXPORT_BATCH = 64
 REPS = 5
+RUN = 20                # launches a run, timing a kernel by runs
 PSD_TOL = 5e-6          # max|Δ| per clip, relative to the clip's PSD max
 IMAGE_TOL = 1e-6        # display image, same PSD in (shared scalars)
 DB_TOL = 1e-3           # display contract against scipy float64
@@ -260,8 +276,11 @@ def db_error_vs_scipy(img_unflipped, x64, cfg):
     return float(np.max(np.abs(img_unflipped - oracle)) * rng_db)
 
 
-def time_ms(fn, reps=REPS):
-    """Median of reps CUDA-event timings after one warm-up, in ms."""
+def time_ms(fn, reps=REPS, run=1):
+    """Median of reps CUDA-event timings after one warm-up, in ms: of one
+    call between two events, or with ``run`` > 1 of a run of that many
+    calls between two events, over the count (the host's time to launch
+    is then hidden behind the card's work wherever the card is slower)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -270,25 +289,60 @@ def time_ms(fn, reps=REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = fn()
+        for _ in range(run):
+            out = fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / run)
         del out
     return sorted(times)[reps // 2], times
 
 
 def reset_counts():
-    from spectral_tpu_torch.ops import display_triton, stft_cuda
-    for counts in (stft_cuda.launches, display_triton.launches):
+    from spectral_tpu_torch.ops import display_cuda, stft_cuda
+    for counts in (stft_cuda.launches, display_cuda.launches):
         for key in counts:
             counts[key] = 0
 
 
 def read_counts():
-    from spectral_tpu_torch.ops import display_triton, stft_cuda
+    from spectral_tpu_torch.ops import display_cuda, stft_cuda
     return {"stft_psd": dict(stft_cuda.launches),
-            "display_epilogue": dict(display_triton.launches)}
+            "display": dict(display_cuda.launches)}
+
+
+def require_one_call(counts, route, calls, what):
+    """Each pipeline call launched one STFT kernel (of ``route``), one
+    clip_stats and one display map, and nothing else."""
+    stft, tail = counts["stft_psd"], counts["display"]
+    require(stft[route] == calls and sum(stft.values()) == calls
+            and tail["clip_stats"] == calls
+            and tail["rgba"] + tail["palette"] == calls,
+            f"{what}: {calls} call(s), each one {route} STFT kernel, one "
+            f"clip_stats and one display map; counts {counts}")
+
+
+def clip_stats_bound(B, n, T, n_tiles=1):
+    """Bytes: the waveform and the partials read once, the per-clip
+    results (pmin, pmax, finite, params) written once."""
+    bytes_ = B * n * 4 + 2 * n_tiles * B * T * 4 + B * (4 + 4 + 1 + 12)
+    return 1e3 * bytes_ / HBM_RATE, "bytes"
+
+
+def card_flags(x, lo, hi):
+    """The finite flags of clips x given their PSD extrema, through the
+    clip_stats kernel (extrema as one partial row a clip), held to its
+    plain version."""
+    import torch
+    from spectral_tpu_torch.ops import display_cuda
+    parts = torch.stack([lo, hi])[:, None, :, None].contiguous()
+    got = display_cuda.clip_stats(x, parts)
+    want = display_cuda.clip_stats_reference(x, parts)
+    torch.cuda.synchronize()
+    require(torch.equal(got.finite, want.finite),
+            f"clip_stats flags {got.finite.tolist()} against the plain "
+            f"version's {want.finite.tolist()}")
+    return got.finite.tolist()
 
 
 def stft_bound(B, n, T, F, K):
@@ -331,19 +385,15 @@ def toolchain():
                          "this run needs a CUDA card")
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tools"))
-    # Triton's kernel cache goes into the checkout's build directory
-    os.environ.setdefault("TRITON_CACHE_DIR",
-                          os.path.join(HERE, "build", "triton"))
     import spectral_tpu_torch
     pkg = os.path.dirname(os.path.abspath(spectral_tpu_torch.__file__))
     require(pkg == os.path.join(HERE, "spectral_tpu_torch"),
             f"spectral_tpu_torch imported from {pkg}, not this checkout")
-    import triton
     from spectral_tpu_torch.ops.build import find_nvcc
     nvcc = find_nvcc()
     require(nvcc is not None, "nvcc not found")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}, triton {triton.__version__}")
+          f"CUDA {torch.version.cuda}")
     print(run_text([nvcc, "--version"]).splitlines()[-1])
     card = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
                      "--format=csv,noheader"]).splitlines()[0]
@@ -366,9 +416,21 @@ def toolchain():
 
 
 def build_kernels():
+    from concurrent.futures import ThreadPoolExecutor
     from spectral_tpu_torch.ops import build
     phase("build")
-    info = build.build_library("stft_psd")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        info, tail = pool.map(build.build_library, ("stft_psd", "display"))
+    print(f"both sources built side by side in "
+          f"{time.perf_counter() - t0:.2f} s")
+    print(f"display.cu -> {os.path.relpath(tail['path'], HERE)} in "
+          f"{tail['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
+              tail["log"], r"(clip_stats_kernel|display_map_kernelILi(\d)"
+              r"ELb(\d)E)",
+              lambda e: "clip_stats" if e.group(2) is None else
+              f"display_map<MODE {e.group(2)}, LOG {e.group(3)}>")))
+    build.load_library("display")
     print(f"stft_psd.cu -> {os.path.relpath(info['path'], HERE)} in "
           f"{info['seconds']:.2f} s")
     for line in info["log"].splitlines():
@@ -456,10 +518,7 @@ def kernel_cases(dev):
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
-    from spectral_tpu_torch.ops import display_triton as disp
     from spectral_tpu_torch.ops import stft_cuda
-    from spectral_tpu_torch.ops.colormap import unpack_indices
-    from spectral_tpu_torch.parallel.sharding import finite_flags
     from torch_precision import trend
 
     phase("kernels against their plain versions")
@@ -517,7 +576,6 @@ def kernel_cases(dev):
     print(f"first stft_psd launch (module load) {time.perf_counter() - t0:.2f}"
           " s")
     check_stats(got, want, route, "8 x 10 s, north_star 1024/256, with_stats")
-    psd8, pmin8, pmax8 = got
 
     xs = on_card(rs.randn(4, n) + 3.0)           # DC offset: detrend works
     check_stats(*both(xs, scipy_cfg, with_stats=True),
@@ -618,7 +676,7 @@ def kernel_cases(dev):
         p_o, lo_o, hi_o = stft_cuda.stft_psd(xo, FS, cfg, with_stats=True,
                                              _route=route)
         require(bool(torch.isfinite(hi_o[0])) and bool(torch.isinf(hi_o[1]))
-                and finite_flags(xo, lo_o, hi_o).tolist() == [True, False],
+                and card_flags(xo, lo_o, hi_o) == [True, False],
                 f"overflow guard [{used}]: pmax {hi_o.tolist()}")
         print(f"1e19-amplitude clip, nperseg {cfg.nperseg} [{used}]: pmax "
               "inf, finite [True, False]")
@@ -692,7 +750,7 @@ def kernel_cases(dev):
         xn = on_card(xn)
         psd_n, lo_n, hi_n = stft_cuda.stft_psd(xn, FS, cfg, with_stats=True,
                                                _route=route)
-        flags = finite_flags(xn, lo_n, hi_n).tolist()
+        flags = card_flags(xn, lo_n, hi_n)
         require(bool(torch.isnan(lo_n[1])) and bool(torch.isnan(hi_n[1]))
                 and bool(torch.isfinite(lo_n[0]))
                 and bool(torch.isfinite(lo_n[2]))
@@ -708,51 +766,220 @@ def kernel_cases(dev):
               "sample: pmin and pmax NaN as in the plain version, finite "
               "[True, False, True]")
 
-    T8 = psd8.shape[1]
-    for log_scale, flip, share in ((True, True, False), (True, False, False),
-                                   (True, True, True), (True, False, True),
-                                   (False, True, False)):
-        kw = dict(log_scale=log_scale, share_max=share, flip_image=flip)
-        what = f"display log={log_scale} flip={flip} share_max={share}"
-        img_k, rgb_k = disp.display_epilogue(psd8, pmin8, pmax8, **kw)
-        img_p, rgb_p = disp.display_epilogue_reference(psd8, pmin8, pmax8,
-                                                       **kw)
+
+def bitwise(a, b):
+    """Equal bit patterns, NaN in the same places (any payload)."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    ia = torch.where(na, 0, a.contiguous().view(torch.int32))
+    ib = torch.where(nb, 0, b.contiguous().view(torch.int32))
+    return bool(torch.equal(na, nb) and torch.equal(ia, ib))
+
+
+def image_err(got, want, what):
+    """Largest |Δ| of two images, NaN required in the same places; the
+    share of bitwise-equal pixels."""
+    import torch
+    nan = torch.isnan(want)
+    require(torch.equal(torch.isnan(got), nan), f"{what}: NaN pixels differ")
+    err = float(torch.where(nan, 0.0, (got - want).abs()).amax()) \
+        if want.numel() else 0.0
+    require(err <= IMAGE_TOL, f"{what}: image {err:.2e}")
+    same = float((got.view(torch.int32) == want.view(torch.int32)).float()
+                 .mean()) if want.numel() else 1.0
+    return err, same
+
+
+def tail_cases(dev):
+    """The display tail's two kernels against their plain versions:
+    clip_stats on the flag's cases (noise, NaN, inf, 1e-25, silence, pure
+    DC, 1e19) at odd n, under constant detrend, with share_max, on the
+    forced GEMM tile's partials of nine frequency tiles, at T = 0, at n
+    from 1 to 960,000 and past 65,535 clips; the display map on a real
+    PSD in every mode and on synthetic PSDs at odd T and F, T < 4, T = 0
+    and past 65,535 clips. Returns the largest differences seen."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.ops import display_cuda as disp
+    from spectral_tpu_torch.ops import stft_cuda
+    from spectral_tpu_torch.ops.colormap import unpack_indices
+
+    phase("the display tail (clip_stats, display map) against the plain "
+          "versions")
+    rs = np.random.RandomState(12)
+    worst = {"stats": 0.0, "image": 0.0}
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    def stats_case(x, parts, what, share_max=False, want_flags=None):
+        before = read_counts()["display"]["clip_stats"]
+        got = disp.clip_stats(x, parts, share_max)
         torch.cuda.synchronize()
-        err = float(torch.amax(torch.abs(img_k - img_p)))
-        require(err <= IMAGE_TOL, f"{what}: image {err:.2e}")
-        same = check_words(rgb_k, rgb_p, what)
-        print(f"{what}: image {err:.2e}, words identical {same:.6f}")
-        img_k, idx_k = disp.display_epilogue(psd8, pmin8, pmax8, palette=True,
-                                             **kw)
-        img_p, idx_p = disp.display_epilogue_reference(psd8, pmin8, pmax8,
-                                                       palette=True, **kw)
+        launched = read_counts()["display"]["clip_stats"] - before
+        want = disp.clip_stats_reference(x, parts, share_max)
+        amin = (torch.amin(parts[0], dim=(0, 2)) if parts.numel()
+                else torch.zeros_like(got.pmin))
+        amax = (torch.amax(parts[1], dim=(0, 2)) if parts.numel()
+                else torch.zeros_like(got.pmax))
+        require(launched == (1 if x.shape[0] else 0)
+                and bitwise(got.pmin, amin) and bitwise(got.pmax, amax)
+                and bitwise(got.params, want.params)
+                and torch.equal(got.finite, want.finite),
+                f"clip_stats {what}: pmin/pmax bitwise torch.amin/amax "
+                f"{bitwise(got.pmin, amin)}/{bitwise(got.pmax, amax)}, "
+                f"params {bitwise(got.params, want.params)}, flags "
+                f"{got.finite.tolist()[:12]} against "
+                f"{want.finite.tolist()[:12]}, launches {launched}")
+        if want_flags is not None:
+            require(got.finite.tolist() == want_flags,
+                    f"clip_stats {what}: flags {got.finite.tolist()}, "
+                    f"expected {want_flags}")
+        print(f"clip_stats {what}: pmin, pmax bitwise torch.amin/amax of "
+              f"the partials, params bitwise, flags "
+              f"{got.finite.tolist() if x.shape[0] <= 12 else 'equal'}")
+        return got
+
+    n = 40001                                   # odd: rows not aligned
+    clips = [rs.randn(n), rs.randn(n), rs.randn(n), 1e-25 * rs.randn(n),
+             np.zeros(n), np.full(n, 0.25), np.full(n, 1e-4),
+             np.full(n, 3e-3), np.full(n, 0.1), 1e19 * rs.randn(n)]
+    clips[1][n // 3] = np.nan
+    clips[2][n // 2] = np.inf
+    flags = [True, False, False, False, True, True, True, True, True, False]
+    xf = on_card(np.stack(clips))
+    for cfg in (SpecConfig.north_star(1024, 256, log_scale=True),
+                SpecConfig.scipy_default(1024, log_scale=True),
+                SpecConfig.scipy_default(MIXED_NPERSEG, log_scale=True)):
+        psd, parts = stft_cuda.stft_psd_partials(xf, FS, cfg)
+        what = (f"nperseg {cfg.nperseg} detrend {cfg.detrend}, noise, NaN, "
+                "inf, 1e-25, silent, DC 0.25 1e-4 3e-3 0.1, 1e19, n 40001")
+        stats_case(xf, parts, what, want_flags=flags)
+        stats_case(xf, parts, what + ", share_max", share_max=True)
+        stats_case(xf[[0, 4, 5]].contiguous(),
+                   parts[:, :, [0, 4, 5]].contiguous(),
+                   f"nperseg {cfg.nperseg}, share_max without NaN",
+                   share_max=True)
+    xg = on_card(rs.randn(3, 20000) + 3.0)
+    _, parts = stft_cuda._stft_psd_cuda(xg, FS, SpecConfig.north_star(1024,
+                                                                      256),
+                                        False, True, "gemm", partials=True)
+    require(parts.shape[1] > 1, f"GEMM partials {tuple(parts.shape)}")
+    stats_case(xg, parts, f"forced GEMM tile, {parts.shape[1]} frequency "
+               "tiles of partials")
+    stats_case(on_card(rs.randn(3, 500)), torch.zeros((2, 1, 3, 0),
+                                                      device=dev),
+               "T = 0 (no partial rows)")
+    for n in (1, 3, 5, 16383, 16384, 16385, 960000):
+        x = on_card(rs.randn(4, n) * 1e-3 + 0.5)
+        parts = on_card(rs.rand(2, 1, 4, 7))
+        stats_case(x, parts, f"n {n}")
+    big = 70000                                 # past grid axis y's 65,535
+    xb = on_card(rs.randn(big, 37))
+    psd_b, parts_b = stft_cuda.stft_psd_partials(
+        xb, FS, SpecConfig.north_star(32, 8, log_scale=True))
+    stats_b = stats_case(xb, parts_b, f"{big} clips of 37 samples")
+
+    def map_case(psd, params, what, **kw):
+        before = read_counts()["display"]
+        img_k, w_k = disp.display_map(psd, params, **kw)
         torch.cuda.synchronize()
-        err = float(torch.amax(torch.abs(img_k - img_p)))
-        require(err <= IMAGE_TOL and tuple(idx_k.shape) == (
-            8, 513, -(-T8 // 4)), f"palette {what}: image {err:.2e}")
-        same = check_indices(unpack_indices(idx_k, T8),
-                             unpack_indices(idx_p, T8), f"palette {what}")
-        pad = idx_k.cpu().view(torch.int32).numpy().view(np.uint8)
-        require(not pad.reshape(8, 513, -1)[..., T8:].any(),
-                f"palette {what}: pad bytes past T are zero")
-        print(f"palette {what}: image {err:.2e}, indices identical "
-              f"{same:.6f}, T = {T8} padded to {4 * idx_k.shape[-1]}")
-        for palette in (False, True):
-            none, lean = disp.display_epilogue(psd8, pmin8, pmax8,
-                                               palette=palette,
-                                               with_image=False, **kw)
-            _, full = disp.display_epilogue_reference(
-                psd8, pmin8, pmax8, palette=palette, **kw)
-            torch.cuda.synchronize()
-            require(none is None, "with_image=False returns no image")
-            if palette:
-                same = check_indices(unpack_indices(lean, T8),
-                                     unpack_indices(full, T8),
-                                     f"palette {what}, no image")
-            else:
-                same = check_words(lean, full, f"{what}, no image")
-            print(f"{'palette' if palette else 'rgba'} {what}, no image: "
-                  f"identical {same:.6f}")
+        after = read_counts()["display"]
+        key = "palette" if kw.get("palette") else "rgba"
+        writes = kw.get("with_image", True) or kw.get("palette") or \
+            kw.get("colormap", "jet")
+        require(after[key] - before[key] == (
+                    1 if psd.numel() and writes else 0),
+                f"display map {what}: launches {before} -> {after}")
+        img_p, w_p = disp.display_map_reference(psd, params, **kw)
+        torch.cuda.synchronize()
+        err, same_px = 0.0, 1.0
+        if img_p is not None:
+            err, same_px = image_err(img_k, img_p, f"display map {what}")
+            worst["image"] = max(worst["image"], err)
+        else:
+            require(img_k is None, f"{what}: no image asked, one returned")
+        same = 1.0
+        if w_p is None:
+            require(w_k is None, f"{what}: no words asked, some returned")
+        elif not psd.numel():
+            require(w_k.shape == w_p.shape, f"{what}: word shapes")
+        elif kw.get("palette"):
+            T = psd.shape[1]
+            require(w_k.shape == w_p.shape, f"{what}: word shapes")
+            same = check_indices(unpack_indices(w_k, T),
+                                 unpack_indices(w_p, T), what)
+            pad = w_k.cpu().view(torch.int32).numpy().view(np.uint8)
+            require(not pad.reshape(w_k.shape[0], w_k.shape[1], -1)[
+                ..., T:].any(), f"{what}: pad bytes past T are zero")
+        else:
+            same = check_words(w_k, w_p, what)
+        print(f"display map {what}: image {err:.2e} ({same_px:.6f} of the "
+              f"pixels bitwise), words identical {same:.6f}")
+
+    x8 = on_card(rs.randn(8, int(FS * CLIP_SECONDS)))
+    north = SpecConfig.north_star(1024, 256, log_scale=True)
+    psd8, parts8 = stft_cuda.stft_psd_partials(x8, FS, north)
+    for share in (False, True):
+        params = disp.clip_stats(x8, parts8, share).params
+        for log_scale, flip in ((True, True), (True, False), (False, True)):
+            for palette in (False, True):
+                for with_image in (True, False):
+                    map_case(psd8, params,
+                             f"8 x 10 s log={log_scale} flip={flip} "
+                             f"share_max={share} "
+                             f"{'palette' if palette else 'rgba'} "
+                             f"image={with_image}",
+                             log_scale=log_scale, flip_image=flip,
+                             palette=palette, with_image=with_image)
+    map_case(psd8, params, "8 x 10 s colormap=None", log_scale=True,
+             colormap=None)
+    for B, T, F in ((3, 261, 45), (2, 3, 33), (2, 1, 1), (2, 130, 4097),
+                    (4, 622, 513), (2, 0, 513)):
+        psd = 10.0 ** rs.uniform(-9, -1, (B, T, F))
+        if T:
+            psd[0, T // 2, F // 2] = np.nan
+            psd[1] = 2.5e-4                     # one value: rng 0
+        psd = on_card(psd)
+        if T:
+            lo = torch.where(psd.isnan(), torch.inf, psd).amin(dim=(1, 2))
+            hi = torch.where(psd.isnan(), -torch.inf, psd).amax(dim=(1, 2))
+        else:
+            lo = hi = torch.zeros(B, device=dev)
+        params = disp.clip_params(lo, hi)
+        for log_scale in (True, False):
+            for palette in (False, True):
+                map_case(psd, params, f"B {B} T {T} F {F} log={log_scale} "
+                         f"{'palette' if palette else 'rgba'}",
+                         log_scale=log_scale, flip_image=True,
+                         palette=palette)
+    for palette in (False, True):
+        map_case(psd_b, stats_b.params, f"{big} clips, T 1, F 17, "
+                 f"{'palette' if palette else 'rgba'}", log_scale=True,
+                 palette=palette)
+    return worst
+
+
+def dc_check(dev):
+    """Pure-DC clips under constant detrend stay healthy: 10 s of 1e-4,
+    3e-3 and 0.1 through batched_spectrogram_fn at scipy_default 1024 and
+    8160 (the float64 STFT kernels detrend them to exactly 0)."""
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
+    phase("pure DC clips (1e-4, 3e-3, 0.1; 10 s) under constant detrend")
+    n = int(FS * CLIP_SECONDS)
+    x = torch.stack([torch.full((n,), v, device=dev)
+                     for v in (1e-4, 3e-3, 0.1)])
+    for k in (1024, MIXED_NPERSEG):
+        out = batched_spectrogram_fn(FS, SpecConfig.scipy_default(
+            k, log_scale=True))(x)
+        flags = out["finite"].tolist()
+        print(f"scipy_default {k}: PSD max {out['psd'].amax(dim=(1, 2)).tolist()}"
+              f", finite {flags}")
+        require(flags == [True, True, True],
+                f"pure DC at scipy_default {k}: finite {flags}")
 
 
 def odd_kernel_cases(dev, cases=ODD_CASES, edges=(1023, 8191),
@@ -779,7 +1006,6 @@ def odd_kernel_cases(dev, cases=ODD_CASES, edges=(1023, 8191),
     import torch
     from spectral_tpu_torch import SpecConfig
     from spectral_tpu_torch.ops import stft_cuda
-    from spectral_tpu_torch.parallel.sharding import finite_flags
     from torch_precision import trend
 
     phase(f"{title} against the plain version")
@@ -858,7 +1084,7 @@ def odd_kernel_cases(dev, cases=ODD_CASES, edges=(1023, 8191),
         _, lo_o, hi_o = stft_cuda.stft_psd(xo, FS, cfg, with_stats=True)
         used = stft_cuda.route(cfg)
         require(bool(torch.isfinite(hi_o[0])) and bool(torch.isinf(hi_o[1]))
-                and finite_flags(xo, lo_o, hi_o).tolist() == [True, False],
+                and card_flags(xo, lo_o, hi_o) == [True, False],
                 f"overflow guard [{used}], nperseg {k}: pmax {hi_o.tolist()}")
         print(f"1e19-amplitude clip, nperseg {k} [{used}]: pmax inf, finite "
               "[True, False]")
@@ -950,16 +1176,63 @@ def scipy_checks(dev, card):
     torch.cuda.synchronize()
 
 
+def profile_path(fn, x, card):
+    """One call of the pipeline under torch.profiler: the device kernels
+    by name, and the device's idle share over the call's window (host
+    launch to the end of its last kernel) and over its kernels' span."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    phase(f"path 1 under torch.profiler ({card})")
+    fn(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("pipeline_call"):
+            out = fn(x)
+            torch.cuda.synchronize()
+    del out
+    events = prof.events()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name != "pipeline_call"]
+    if not device:
+        print("torch.profiler shows no device time on this machine; the "
+              "kernels' times come from CUDA events")
+        return
+    calls = [e for e in events if e.name == "pipeline_call"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    first, last = spans[0][0], max(b for _, b in spans)
+    window_start = calls[0].time_range.start if calls else first
+    for e in device:
+        print(f"  device: {e.name[:100]} "
+              f"{e.time_range.end - e.time_range.start:.1f} us")
+    kernels = [e.name for e in device if "emset" not in e.name]
+    print(f"device kernels in one call: {len(kernels)}; busy {busy:.1f} us "
+          f"of the call's window {last - window_start:.1f} us (idle share "
+          f"{1 - busy / (last - window_start):.4f}) and of the kernels' span "
+          f"{last - first:.1f} us (idle share "
+          f"{1 - busy / (last - first):.4f}) [{card}]")
+    want = ("stft_fft_psd_kernel", "clip_stats_kernel", "display_map_kernel")
+    require(len(kernels) == 3 and all(
+        any(w in k for k in kernels) for w in want),
+        f"path 1's call ran other device kernels than the three: {kernels}")
+
+
 def main_path(dev, card):
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
     from spectral_tpu_torch.core.stft import num_frames
-    from spectral_tpu_torch.ops import display_triton as disp
+    from spectral_tpu_torch.ops import display_cuda as disp
     from spectral_tpu_torch.ops import stft_cuda
     from spectral_tpu_torch.ops.colormap import unpack_rgba
-    from spectral_tpu_torch.parallel.sharding import (batched_spectrogram_fn,
-                                                      finite_flags)
+    from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
     from spectral_tpu_torch.render.png import encode_png
 
     phase(f"path 1, the display spine: {BATCH} clips x {CLIP_SECONDS:g} s "
@@ -976,9 +1249,7 @@ def main_path(dev, card):
     torch.cuda.synchronize()
     counts = read_counts()
     print(f"launches in this path's run: {counts}")
-    require(counts["stft_psd"]["fft"] >= 1
-            and counts["display_epilogue"]["rgba"] >= 1,
-            f"a kernel of the path did not launch: {counts}")
+    require_one_call(counts, "fft", 1, "path 1")
 
     T, F = num_frames(n, cfg.nperseg, cfg.hop_), cfg.n_freqs   # 622, 513
     require(tuple(out["psd"].shape) == (BATCH, T, F)
@@ -1010,19 +1281,28 @@ def main_path(dev, card):
     require(lib_rel <= PSD_TOL, f"library yardstick vs plain: {lib_rel:.2e}")
     print(f"library yardstick (cuFFT f64) vs plain, 64 clips: {lib_rel:.2e} "
           "of clip max")
-    pmin_k = torch.amin(out["psd"], dim=(1, 2))
-    pmax_k = torch.amax(out["psd"], dim=(1, 2))
-    img_ref, _ = disp.display_epilogue_reference(
-        out["psd"], pmin_k, pmax_k, log_scale=True, flip_image=True)
-    disp_abs = float(torch.amax(torch.abs(out["image"] - img_ref)))
-    require(disp_abs <= IMAGE_TOL, f"main-path image vs plain: {disp_abs:.2e}")
-    print(f"image vs plain display on the same PSD: {disp_abs:.2e}")
+    _, parts = stft_cuda.stft_psd_partials(x, FS, cfg)
+    stats = disp.clip_stats(x, parts)
+    stats_p = disp.clip_stats_reference(x, parts)
+    stats_err = float(torch.amax(torch.abs(stats.params - stats_p.params)))
+    require(bitwise(stats.params, stats_p.params)
+            and torch.equal(stats.finite, stats_p.finite)
+            and torch.equal(out["finite"], stats.finite),
+            f"path 1 clip_stats vs plain: {stats_err:.2e}")
+    print(f"clip_stats vs plain: params bitwise, flags equal")
+    img_ref, _ = disp.display_map_reference(
+        out["psd"], stats.params, log_scale=True, flip_image=True)
+    disp_abs, bitwise_px = image_err(out["image"], img_ref, "path 1 image")
+    print(f"image vs plain display on the same PSD: {disp_abs:.2e}, "
+          f"{bitwise_px:.6f} of the pixels bitwise")
     del img_ref
-    _, rgb_p = disp.display_epilogue_reference(
-        psd_p[:8], pmin_p[:8], pmax_p[:8], log_scale=True, flip_image=True)
+    _, rgb_p = disp.display_map_reference(
+        psd_p[:8], disp.clip_params(pmin_p[:8], pmax_p[:8]), log_scale=True,
+        flip_image=True)
     same = check_words(out["rgb_packed"][:8], rgb_p, "rgb_packed, 8 clips")
     print(f"rgb_packed of 8 clips vs the plain path: {same:.6f} identical")
     del psd_p, pmin_p, pmax_p, rgb_p
+    profile_path(fn, x, card)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "clip0.png")
@@ -1034,15 +1314,16 @@ def main_path(dev, card):
 
     phase(f"path 1 times (CUDA events, median of {REPS} after a warm-up; "
           f"{card})")
-    psd, pmin, pmax = out["psd"], pmin_k, pmax_k
+    psd, params = out["psd"], stats.params
     del out
 
     def plain_pipeline():
-        p, lo, hi = stft_cuda.stft_psd_reference(x, consts, cfg,
-                                                 with_stats=True)
-        img, rgb = disp.display_epilogue_reference(p, lo, hi, log_scale=True,
-                                                   flip_image=True)
-        return p, img, rgb, finite_flags(x, lo, hi)
+        p = stft_cuda.stft_psd_reference(x, consts, cfg)
+        parts_p = torch.stack([p.amin(dim=-1), p.amax(dim=-1)])[:, None]
+        st = disp.clip_stats_reference(x, parts_p)
+        img, rgb = disp.display_map_reference(p, st.params, log_scale=True,
+                                              flip_image=True)
+        return p, img, rgb, st.finite
 
     disp_kw = dict(log_scale=True, flip_image=True)
     timings = {
@@ -1053,10 +1334,17 @@ def main_path(dev, card):
         "stft_plain": time_ms(lambda: stft_cuda.stft_psd_reference(
             x, consts, cfg, with_stats=True)),
         "stft_library": time_ms(lambda: library_psd(x, cfg)),
-        "display_kernel": time_ms(lambda: disp.display_epilogue(
-            psd, pmin, pmax, **disp_kw)),
-        "display_plain": time_ms(lambda: disp.display_epilogue_reference(
-            psd, pmin, pmax, **disp_kw)),
+        "display_kernel": time_ms(lambda: disp.display_map(
+            psd, params, **disp_kw)),
+        "display_kernel_run": time_ms(lambda: disp.display_map(
+            psd, params, **disp_kw), run=RUN),
+        "display_plain": time_ms(lambda: disp.display_map_reference(
+            psd, params, **disp_kw)),
+        "clip_stats_kernel": time_ms(lambda: disp.clip_stats(x, parts)),
+        "clip_stats_kernel_run": time_ms(lambda: disp.clip_stats(x, parts),
+                                         run=RUN),
+        "clip_stats_plain": time_ms(lambda: disp.clip_stats_reference(
+            x, parts)),
         "pipeline_kernel": time_ms(lambda: fn(x)),
         "pipeline_plain": time_ms(plain_pipeline),
         # K1-log, the kernel's log10_out mode, off the driven paths
@@ -1086,15 +1374,27 @@ def main_path(dev, card):
           f"({stft_b[1]}) [{card}]")
     print(json.dumps({"path1_times": summary}))
     disp_b = display_bound(BATCH, T, F, T)
+    stats_b = clip_stats_bound(BATCH, n, T)
+    for name, b in (("display_kernel", disp_b),
+                    ("clip_stats_kernel", stats_b)):
+        print(f"{name}: {timings[name][0]:.4f} ms a single call, "
+              f"{timings[name + '_run'][0]:.4f} ms a launch in runs of "
+              f"{RUN}; bound {b[0]:.4f} ms ({b[1]}) [{card}]")
     return {
         "stft_1024": dict(launches=counts["stft_psd"]["fft"],
                           err=stft_abs, ms=timings["stft_kernel"][0],
                           plain_ms=timings["stft_plain"][0], bound=stft_b,
                           library_ms=timings["stft_library"][0]),
-        "display_rgba": dict(launches=counts["display_epilogue"]["rgba"],
-                             err=disp_abs, ms=timings["display_kernel"][0],
+        "display_rgba": dict(launches=counts["display"]["rgba"],
+                             err=disp_abs,
+                             ms=timings["display_kernel_run"][0],
                              plain_ms=timings["display_plain"][0],
                              bound=disp_b),
+        "clip_stats": dict(launches=counts["display"]["clip_stats"],
+                           err=stats_err,
+                           ms=timings["clip_stats_kernel_run"][0],
+                           plain_ms=timings["clip_stats_plain"][0],
+                           bound=stats_b),
     }
 
 
@@ -1112,7 +1412,7 @@ def long_path(dev, card, dfma_peak, cfg, label, clips=K2_CLIPS,
     import numpy as np
     import torch
     from spectral_tpu_torch.core.stft import num_frames
-    from spectral_tpu_torch.ops import display_triton as disp
+    from spectral_tpu_torch.ops import display_cuda as disp
     from spectral_tpu_torch.ops import stft_cuda
     from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
     from torch_precision import trend
@@ -1146,11 +1446,7 @@ def long_path(dev, card, dfma_peak, cfg, label, clips=K2_CLIPS,
     torch.cuda.synchronize()
     counts = read_counts()
     print(f"launches in this path's run: {counts}")
-    require(counts["stft_psd"][route] == 1
-            and sum(counts["stft_psd"].values()) == 1
-            and counts["display_epilogue"]["rgba"] >= 1,
-            f"one launch of the {route} kernel and the display kernel: "
-            f"{counts}")
+    require_one_call(counts, route, 1, label)
     # 133 and 4097 at 8192
     T, F = num_frames(n, cfg.nperseg, cfg.hop_), cfg.n_freqs
     require(tuple(out["psd"].shape) == (clips, T, F)
@@ -1198,15 +1494,20 @@ def long_path(dev, card, dfma_peak, cfg, label, clips=K2_CLIPS,
               f"max; largest float32 ulp distance {ulp_distance(alone, psd_p)}"
               f"; packed vs alone {ulp_distance(out['psd'], alone)} ulp")
         del alone
-    pmin_k = torch.amin(out["psd"], dim=(1, 2))
-    pmax_k = torch.amax(out["psd"], dim=(1, 2))
-    require(torch.equal(torch.isnan(pmin_k), torch.isnan(pmin_p)),
-            f"{label} extrema")
-    img_ref, _ = disp.display_epilogue_reference(
-        out["psd"], pmin_k, pmax_k, log_scale=True, flip_image=True)
-    disp_abs = float(torch.amax(torch.abs(out["image"] - img_ref)))
-    require(disp_abs <= IMAGE_TOL, f"{label} image vs plain: {disp_abs:.2e}")
-    print(f"image vs plain display on the same PSD: {disp_abs:.2e}")
+    _, parts = stft_cuda.stft_psd_partials(x, FS, cfg)
+    stats = disp.clip_stats(x, parts)
+    stats_p = disp.clip_stats_reference(x, parts)
+    require(bitwise(stats.params, stats_p.params)
+            and torch.equal(stats.finite, stats_p.finite)
+            and torch.equal(out["finite"], stats.finite)
+            and torch.equal(torch.isnan(stats.pmin), torch.isnan(pmin_p)),
+            f"{label} clip_stats vs plain")
+    img_ref, _ = disp.display_map_reference(
+        out["psd"], stats.params, log_scale=True, flip_image=True)
+    disp_abs, bitwise_px = image_err(out["image"], img_ref, f"{label} image")
+    print(f"clip_stats vs plain: params bitwise, flags equal; image vs plain "
+          f"display on the same PSD: {disp_abs:.2e}, {bitwise_px:.6f} of "
+          f"the pixels bitwise")
     del img_ref, psd_p, pmin_p, pmax_p, out
 
     phase(f"{label} times (CUDA events, median of {REPS} after a warm-up; "
@@ -1218,6 +1519,8 @@ def long_path(dev, card, dfma_peak, cfg, label, clips=K2_CLIPS,
             x, consts, cfg, with_stats=True)),
         "stft_library": time_ms(lambda: library_psd(x, cfg)),
         "pipeline_kernel": time_ms(lambda: fn(x)),
+        "clip_stats_kernel_run": time_ms(lambda: disp.clip_stats(x, parts),
+                                         run=RUN),
     }
     if route == "odd":
         timings["stft_kernel_frames_alone"] = time_ms(
@@ -1305,7 +1608,7 @@ def export_path(dev, card):
     import torch
     from spectral_tpu_torch import SpecConfig
     from spectral_tpu_torch.io.wav import write_wav
-    from spectral_tpu_torch.ops import display_triton as disp
+    from spectral_tpu_torch.ops import display_cuda as disp
     from spectral_tpu_torch.ops import stft_cuda
     from spectral_tpu_torch.ops.colormap import unpack_indices
     from spectral_tpu_torch.parallel.pipeline import (export_spectrograms,
@@ -1343,9 +1646,10 @@ def export_path(dev, card):
         torch.cuda.synchronize()
         counts = read_counts()
         print(f"launches in this path's run: {counts}")
-        require(counts["stft_psd"]["fft"] >= 1
-                and counts["display_epilogue"]["palette"] >= 1,
-                f"a kernel of the path did not launch: {counts}")
+        batches = -(-(EXPORT_CLIPS + EXPORT_BATCH + 1) // EXPORT_BATCH)
+        require_one_call(counts, "fft", batches, "path 3")
+        require(counts["display"]["palette"] == batches,
+                f"path 3: palette words in every batch: {counts}")
         names = set(os.listdir(out_dir))
         want = {f"clip{i:04d}.png" for i in range(EXPORT_CLIPS)}
         require(want <= names and len(want) == EXPORT_CLIPS,
@@ -1370,8 +1674,9 @@ def export_path(dev, card):
         consts = stft_cuda.dft_constants(cfg, FS, dev)
         p, lo, hi = stft_cuda.stft_psd_reference(xc, consts, cfg,
                                                  with_stats=True)
-        _, words = disp.display_epilogue_reference(
-            p, lo, hi, log_scale=True, flip_image=True, palette=True)
+        _, words = disp.display_map_reference(
+            p, disp.clip_params(lo, hi), log_scale=True, flip_image=True,
+            palette=True)
         T = p.shape[1]
         want_idx = unpack_indices(words, T)
         for j, i in enumerate(check):
@@ -1391,30 +1696,38 @@ def export_path(dev, card):
     # is in LUT indices
     phase(f"path 3 display kernel times (CUDA events; {card})")
     xb = torch.from_numpy(clips[:EXPORT_BATCH]).to(dev)
-    psd, pmin, pmax = stft_cuda.stft_psd(xb, FS, cfg, with_stats=True)
+    psd, parts = stft_cuda.stft_psd_partials(xb, FS, cfg)
+    params = disp.clip_stats(xb, parts).params
     kw = dict(log_scale=True, flip_image=True, palette=True,
               with_image=False)
-    _, idx_k = disp.display_epilogue(psd, pmin, pmax, **kw)
-    _, idx_p = disp.display_epilogue_reference(psd, pmin, pmax, **kw)
+    _, idx_k = disp.display_map(psd, params, **kw)
+    _, idx_p = disp.display_map_reference(psd, params, **kw)
     torch.cuda.synchronize()
     got, want = unpack_indices(idx_k, T), unpack_indices(idx_p, T)
     check_indices(got, want, "palette at the export batch")
     err = float(np.abs(got.astype(np.int64) - want.astype(np.int64)).max())
-    k_ms = time_ms(lambda: disp.display_epilogue(psd, pmin, pmax, **kw))
-    p_ms = time_ms(lambda: disp.display_epilogue_reference(psd, pmin, pmax,
-                                                           **kw))
+    k_ms = time_ms(lambda: disp.display_map(psd, params, **kw))
+    k_run = time_ms(lambda: disp.display_map(psd, params, **kw), run=RUN)
+    p_ms = time_ms(lambda: disp.display_map_reference(psd, params, **kw))
+    s_ms = time_ms(lambda: disp.clip_stats(xb, parts))
+    s_run = time_ms(lambda: disp.clip_stats(xb, parts), run=RUN)
     bound = display_bound(EXPORT_BATCH, T, 513, -(-T // 4), image=False,
                           lut=False)
-    print(f"palette display without the image: kernel {k_ms[0]:.3f} ms, "
-          f"plain {p_ms[0]:.3f} ms, bound {bound[0]:.4f} ms per batch of "
+    s_bound = clip_stats_bound(EXPORT_BATCH, n, T)
+    print(f"palette display without the image: kernel {k_ms[0]:.4f} ms a "
+          f"single call, {k_run[0]:.4f} ms a launch in runs of {RUN}, plain "
+          f"{p_ms[0]:.3f} ms, bound {bound[0]:.4f} ms per batch of "
           f"{EXPORT_BATCH}; largest index difference {err:g} [{card}]")
+    print(f"clip_stats at the export batch: {s_ms[0]:.4f} ms a single call, "
+          f"{s_run[0]:.4f} ms a launch in runs of {RUN}, bound "
+          f"{s_bound[0]:.4f} ms [{card}]")
     return {"display_palette": dict(
-        launches=counts["display_epilogue"]["palette"], err=err, ms=k_ms[0],
+        launches=counts["display"]["palette"], err=err, ms=k_run[0],
         plain_ms=p_ms[0], bound=bound),
         "stft_export_launches": counts["stft_psd"]["fft"]}
 
 
-PHASES = ("kernels", "scipy", "path1", "path2", "path3", "path4", "path5",
+PHASES = ("kernels", "tail", "dc", "scipy", "path1", "path2", "path3", "path4", "path5",
           "path6", "path7", "path8", "path9", "path10", "path11")
 
 
@@ -1448,6 +1761,10 @@ def main(_phases=None):
             title="the Bluestein route", seed=8,
             forced=((2049, "gemm"), (1024, "bluestein"), (8032, "bluestein"),
                     (8191, "bluestein"), (33, "bluestein")))
+    if "tail" in phases:
+        tail_cases(dev)
+    if "dc" in phases:
+        dc_check(dev)
     if "scipy" in phases:
         scipy_checks(dev, card)
     rows = {}
@@ -1514,6 +1831,7 @@ def main(_phases=None):
           f"(the odd kernel's PACKED form): path 11 "
           f"{rows['stft_mixed_rader']['launches']}")
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
+    tail_src = "spectral_tpu_torch/ops/csrc/display.cu"
     # each row names the instantiation its path launches
     meta = {
         "stft_1024": ("stft_fft_psd<LOG2M 9, 8 values>, nperseg 1024 "
@@ -1550,12 +1868,15 @@ def main(_phases=None):
             f"stft_odd_fft_psd<RADER 1, RMAX 1, PACKED>, the mixed route's "
             f"Rader plan, nperseg {RADER_NPERSEG} (path 11)", "cuda", src,
             "spectral_tpu/ops/stft_pallas.py:367"),
-        "display_rgba": ("display_epilogue rgba", "triton",
-                         "spectral_tpu_torch/ops/display_triton.py",
+        "display_rgba": ("display_map<RGBA, LOG>, RGBA words and the "
+                         "image (path 1)", "cuda", tail_src,
                          "spectral_tpu/ops/stft_pallas.py:456"),
-        "display_palette": ("display_epilogue palette", "triton",
-                            "spectral_tpu_torch/ops/display_triton.py",
+        "display_palette": ("display_map<PALETTE, LOG>, palette words, no "
+                            "image (path 3)", "cuda", tail_src,
                             "spectral_tpu/ops/stft_pallas.py:456"),
+        "clip_stats": ("clip_stats, finite flag and per-clip extrema "
+                       "(path 1)", "cuda", tail_src,
+                       "spectral_tpu/ops/stft_pallas.py:486"),
     }
     kernels = []
     for key, (name, route, source, replaces) in meta.items():

@@ -15,70 +15,69 @@ over any leading batch axes, so a (B, F, T) batch normalizes per image in
 one call. Per-image scalars (base, extrema) may be passed as tensors shaped
 to broadcast against the image, e.g. (B, 1, 1).
 
-The scalar half (:func:`display_params`) is split from the per-pixel half
-so the Triton display kernel can take the scalars precomputed here.
+The display map takes the denominator base + 1e-20 as an operand
+(:func:`normalize_with_denominator`), so the display kernel can take it,
+and the clip's extrema, precomputed per clip (``ops.display_cuda``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Optional, Union
 
 import torch
 
 Scalar = Union[float, torch.Tensor]
 
 
-def _db_of(v: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+def _db_of(v: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(
-        10.0 * torch.log10(torch.clamp(v / (base + 1e-20), 0.0, 1.0)
-                           + 1e-12))
+        10.0 * torch.log10(torch.clamp(v / denom, 0.0, 1.0) + 1e-12))
 
 
-def display_params(base_max: torch.Tensor, ext_min: torch.Tensor,
-                   ext_max: torch.Tensor, log_scale: bool,
-                   global_max: Optional[Scalar] = None,
-                   has_nan: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                              Optional[torch.Tensor]]:
-    """(base, min_db, rng) of the display map; min_db and rng are None
-    without log_scale.
-
-    base_max is the NaN-propagating max(Sxx) used for base selection
-    (np.max semantics); ext_min/ext_max feed the dB extrema, which equal
-    the dB map evaluated at them because the map is monotone; has_nan folds
-    in the 0 that nan_to_num assigns NaN pixels."""
+def display_base(base_max: torch.Tensor,
+                 global_max: Optional[Scalar] = None) -> torch.Tensor:
+    """The display base: base_max (the NaN-propagating max(Sxx), np.max
+    semantics), or global_max where that is > 0."""
     if global_max is None:
-        base = base_max
-    else:
-        gm = torch.as_tensor(global_max, dtype=base_max.dtype,
-                             device=base_max.device)
-        base = torch.where(gm > 0, gm, base_max)
+        return base_max
+    gm = torch.as_tensor(global_max, dtype=base_max.dtype,
+                         device=base_max.device)
+    return torch.where(gm > 0, gm, base_max)
+
+
+def normalize_with_denominator(sxx: torch.Tensor, denom: torch.Tensor,
+                               ext_min: torch.Tensor, ext_max: torch.Tensor,
+                               log_scale: bool,
+                               has_nan: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """The single implementation of PlotEngine.py:126-131 in the port,
+    given denom = base + 1e-20. ext_min/ext_max feed the dB extrema, which
+    equal the dB map evaluated at them because the map is monotone;
+    has_nan folds in the 0 that nan_to_num assigns NaN pixels."""
     if not log_scale:
-        return base, None, None
-    min_db = _db_of(ext_min, base)
-    max_db = _db_of(ext_max, base)
+        return torch.clamp(sxx / denom, 0.0, 1.0)
+    min_db = _db_of(ext_min, denom)
+    max_db = _db_of(ext_max, denom)
     if has_nan is not None:
         min_db = torch.where(has_nan, torch.clamp(min_db, max=0.0), min_db)
         max_db = torch.where(has_nan, torch.clamp(max_db, min=0.0), max_db)
-    return base, min_db, max_db - min_db
+    rng = max_db - min_db
+    ok = rng > 1e-6
+    db = _db_of(sxx, denom)
+    rescaled = (db - min_db) / torch.where(ok, rng, 1.0)
+    # numpy's division lands the max pixel at exactly 1.0; keep the clip
+    # so no rounding path can overshoot the reference's value range
+    rescaled = torch.clamp(rescaled, 0.0, 1.0)
+    return torch.where(ok, rescaled, torch.zeros_like(db))
 
 
 def _display_map(sxx: torch.Tensor, base_max: torch.Tensor,
                  ext_min: torch.Tensor, ext_max: torch.Tensor,
                  log_scale: bool, global_max: Optional[Scalar],
                  has_nan: Optional[torch.Tensor]) -> torch.Tensor:
-    """The single implementation of PlotEngine.py:126-131 in the port."""
-    base, min_db, rng = display_params(base_max, ext_min, ext_max, log_scale,
-                                       global_max, has_nan)
-    if not log_scale:
-        return torch.clamp(sxx / (base + 1e-20), 0.0, 1.0)
-    ok = rng > 1e-6
-    db = _db_of(sxx, base)
-    rescaled = (db - min_db) / torch.where(ok, rng, 1.0)
-    # numpy's division lands the max pixel at exactly 1.0; keep the clip
-    # so no rounding path can overshoot the reference's value range
-    rescaled = torch.clamp(rescaled, 0.0, 1.0)
-    return torch.where(ok, rescaled, torch.zeros_like(db))
+    return normalize_with_denominator(
+        sxx, display_base(base_max, global_max) + 1e-20, ext_min, ext_max,
+        log_scale, has_nan)
 
 
 def _image_reduce(sxx: torch.Tensor, op) -> torch.Tensor:

@@ -88,8 +88,10 @@ mixed-radix, odd and Bluestein routes' own configs).
 :func:`stft_psd` takes a kernel for a CUDA tensor and the plain version
 (:func:`stft_psd_reference`, a float64 dense DFT, the plain version of
 every kernel) for a CPU tensor, and only because the tensor lies on the
-CPU. On a CUDA tensor it launches the route's kernel or raises; nothing
-falls back to another route.
+CPU; so does :func:`stft_psd_partials`, the display pipeline's call,
+which returns the kernel's per-frame extrema unreduced for
+``ops.display_cuda.clip_stats``. On a CUDA tensor they launch the route's
+kernel or raise; nothing falls back to another route.
 """
 
 from __future__ import annotations
@@ -381,9 +383,12 @@ def _library() -> ctypes.CDLL:
 
 def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
                    log10_out: bool, with_stats: bool,
-                   kernel: Optional[str] = None, pack: bool = True):
+                   kernel: Optional[str] = None, pack: bool = True,
+                   partials: bool = False):
     """The route's launch; ``pack=False`` makes the odd kernel transform
-    every frame alone, for timing its packing."""
+    every frame alone, for timing its packing. With ``partials`` (and
+    with_stats) it returns the PSD and the kernel's raw partials, (2,
+    n_tiles, B, T), unreduced."""
     lib = _library()
     kernel = kernel or route(cfg)
     if x.dtype != torch.float32:
@@ -397,6 +402,8 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
     T = num_frames(n, cfg.nperseg, cfg.hop_)
     F = cfg.n_freqs
     if T <= 0:
+        if partials:
+            return x.new_zeros((B, 0, F)), x.new_zeros((2, 1, B, 0))
         return _empty_result(B, F, x, with_stats)
     if B * T > MAX_ROWS:
         raise ValueError(f"at most {MAX_ROWS} frames per launch, got "
@@ -454,9 +461,29 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
     launches[kernel] += 1
     if with_stats:
         per_clip = parts.view(2, n_tiles, B, T)
+        if partials:
+            return out, per_clip
         return (out, torch.amin(per_clip[0], dim=(0, 2)),
                 torch.amax(per_clip[1], dim=(0, 2)))
     return out
+
+
+def stft_psd_partials(x: torch.Tensor, fs: float, cfg: SpecConfig):
+    """The PSD of a (B, n) waveform and its per-row extrema unreduced:
+    (B, T, F) float32 and the partials (2, n_tiles, B, T), the min and then
+    the max of each frame's bins in each frequency tile (n_tiles 1 but on
+    the GEMM route's forced large tile), which ``ops.display_cuda.
+    clip_stats`` reduces per clip. One launch of the route's kernel for a
+    CUDA tensor; for a CPU tensor the plain version, and the partials its
+    per-frame min and max (n_tiles 1)."""
+    if x.ndim != 2:
+        raise ValueError(f"expected a (B, n) waveform, got {x.ndim}-D")
+    check_supported(cfg)
+    if x.device.type == "cpu":
+        p = stft_psd_reference(x, dft_constants(cfg, fs, x.device), cfg)
+        return p, torch.stack([torch.amin(p, dim=-1),
+                               torch.amax(p, dim=-1)])[:, None]
+    return _stft_psd_cuda(x, fs, cfg, False, True, partials=True)
 
 
 def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,

@@ -3,13 +3,15 @@
 Counterpart of ``spectral_tpu/parallel/sharding.py::batched_spectrogram_fn``
 and the reference app's reason to exist (PlotEngine.py:113-135):
 
-    waveform (B, n) -> STFT/PSD kernel (PSD + per-clip extrema)
+    waveform (B, n) -> STFT/PSD kernel (PSD + per-frame extrema)
+                    -> clip_stats kernel (per-clip extrema, finite flag,
+                       display operands)
                     -> display kernel (normalize, dB rescale, jet index,
                        packed words)
 
-On CUDA tensors both stages are the port's hand-written kernels
-(``ops.stft_cuda``, ``ops.display_triton``); on CPU tensors they are their
-plain versions. The outputs and layouts are the JAX function's:
+On CUDA tensors the three stages are the port's hand-written kernels
+(``ops.stft_cuda``, ``ops.display_cuda``), one launch each; on CPU tensors
+they are their plain versions. The outputs and layouts are the JAX function's:
 
     psd            (B, T, F) float32, frame-major, never flipped
     image          (B, F, T) float32, display-flipped when flip_image
@@ -32,23 +34,9 @@ import torch
 
 from spectral_tpu_torch.config import SpecConfig
 from spectral_tpu_torch.core.stft import ensure_real_waveform
-from spectral_tpu_torch.ops.display_triton import display_epilogue
-from spectral_tpu_torch.ops.stft_cuda import check_supported, stft_psd
+from spectral_tpu_torch.ops.display_cuda import clip_stats, display_map
+from spectral_tpu_torch.ops.stft_cuda import check_supported, stft_psd_partials
 from spectral_tpu_torch.utils.device import resolve_device
-
-
-def finite_flags(x: torch.Tensor, pmin: torch.Tensor,
-                 pmax: torch.Tensor) -> torch.Tensor:
-    """Per-clip health of the displayed spectrum (the rule of the JAX
-    package's ``pallas_pipeline_fn``): the PSD extrema are finite (inf
-    overflows and NaN samples poison them), and the clip is not a total
-    float32 underflow — a tiny-but-real clip (detrended amplitude under
-    1e-10) whose every bin rounds to zero. Exact silence and pure DC stay
-    healthy."""
-    adet = torch.amax(torch.abs(x - torch.mean(x, dim=-1, keepdim=True)),
-                      dim=-1)
-    underflow = (pmax == 0) & (adet > 0) & (adet < 1e-10)
-    return torch.isfinite(pmin) & torch.isfinite(pmax) & ~underflow
 
 
 def batched_spectrogram_fn(fs: float, cfg: SpecConfig, *,
@@ -78,14 +66,13 @@ def batched_spectrogram_fn(fs: float, cfg: SpecConfig, *,
             raise ValueError(f"expected a (B, n) batch, got shape "
                              f"{tuple(x.shape)}")
         x = x.contiguous()
-        psd, pmin, pmax = stft_psd(x, fs, cfg, with_stats=True)
-        image, words = display_epilogue(psd, pmin, pmax,
-                                        log_scale=cfg.log_scale,
-                                        share_max=share_max,
-                                        flip_image=flip_image,
-                                        colormap=colormap, palette=palette,
-                                        with_image=with_image)
-        out = {"psd": psd, "finite": finite_flags(x, pmin, pmax)}
+        psd, parts = stft_psd_partials(x, fs, cfg)
+        stats = clip_stats(x, parts, share_max)
+        image, words = display_map(psd, stats.params,
+                                   log_scale=cfg.log_scale,
+                                   flip_image=flip_image, colormap=colormap,
+                                   palette=palette, with_image=with_image)
+        out = {"psd": psd, "finite": stats.finite}
         if with_image:
             out["image"] = image
         if palette:

@@ -1,7 +1,8 @@
 """The port's display stage held against the JAX package on the same
 inputs: normalization (spectral_tpu_torch.core.scale), the packed jet
 colormap (spectral_tpu_torch.ops.colormap) and the display kernel's plain
-version (spectral_tpu_torch.ops.display_triton).
+version (spectral_tpu_torch.ops.display_cuda), given the per-clip operands
+that its clip_stats kernel computes (``clip_params``).
 
 Tolerances: normalization within 1e-6 (float32 log10 and division of the
 same values in two libraries); colormap words byte-exact (a table lookup
@@ -20,7 +21,7 @@ from spectral_tpu.core import scale as jscale  # noqa: E402
 from spectral_tpu.ops import colormap as jcmap  # noqa: E402
 from spectral_tpu_torch.core import scale as tscale  # noqa: E402
 from spectral_tpu_torch.ops import colormap as tcmap  # noqa: E402
-from spectral_tpu_torch.ops import display_triton  # noqa: E402
+from spectral_tpu_torch.ops import display_cuda  # noqa: E402
 
 TOL = 1e-6
 
@@ -129,14 +130,19 @@ def _batch_psd():
     return psd, psd.min(axis=(1, 2)), psd.max(axis=(1, 2))
 
 
+def _params(pmin, pmax, share_max=False):
+    return display_cuda.clip_params(torch.as_tensor(pmin),
+                                    torch.as_tensor(pmax), share_max)
+
+
 @pytest.mark.parametrize("log_scale", [False, True])
 @pytest.mark.parametrize("flip_image", [False, True])
 def test_display_reference_matches_pallas_tail(flip_image, log_scale):
     psd, pmin, pmax = _batch_psd()
     img_j, rgb_j = _pallas_tail(psd, pmin, pmax, log_scale)
-    img, rgb = display_triton.display_epilogue_reference(
-        torch.from_numpy(psd), torch.from_numpy(pmin),
-        torch.from_numpy(pmax), log_scale=log_scale, flip_image=flip_image)
+    img, rgb = display_cuda.display_map_reference(
+        torch.from_numpy(psd), _params(pmin, pmax), log_scale=log_scale,
+        flip_image=flip_image)
     assert img.is_contiguous() and img.shape == (2, 65, 40)
     _close(img.flip(1) if flip_image else img, img_j)
     # packed words always put the highest frequency in row 0
@@ -149,25 +155,24 @@ def test_display_share_max_uses_the_batch_max():
     want = jax.vmap(lambda s, lo, hi: jscale.normalize_from_stats(
         s, lo, hi, True, jnp.max(jnp.asarray(pmax))))(
             sxx, jnp.asarray(pmin), jnp.asarray(pmax))
-    img, _ = display_triton.display_epilogue_reference(
-        torch.from_numpy(psd), torch.from_numpy(pmin),
-        torch.from_numpy(pmax), log_scale=True, share_max=True)
+    params = _params(pmin, pmax, True)
+    img, _ = display_cuda.display_map_reference(
+        torch.from_numpy(psd), params, log_scale=True)
     _close(img, want)
-    params = display_triton.clip_params(torch.from_numpy(pmin),
-                                        torch.from_numpy(pmax), True)
     assert params.shape == (2, 3) and params.dtype == torch.float32
     assert torch.all(params[:, 0] == float(pmax.max()) + 1e-20)
     assert torch.equal(params[:, 1], torch.from_numpy(pmin))
 
 
 def test_display_wrapper_on_cpu_is_the_plain_version():
-    psd, pmin, pmax = (torch.from_numpy(a) for a in _batch_psd())
-    kw = dict(log_scale=True, share_max=False, flip_image=True)
-    got = display_triton.display_epilogue(psd, pmin, pmax, **kw)
-    want = display_triton.display_epilogue_reference(psd, pmin, pmax, **kw)
+    psd, pmin, pmax = _batch_psd()
+    psd, params = torch.from_numpy(psd), _params(pmin, pmax)
+    kw = dict(log_scale=True, flip_image=True)
+    got = display_cuda.display_map(psd, params, **kw)
+    want = display_cuda.display_map_reference(psd, params, **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    img, rgb = display_triton.display_epilogue(psd, pmin, pmax, colormap=None,
-                                               log_scale=True)
+    img, rgb = display_cuda.display_map(psd, params, colormap=None,
+                                        log_scale=True)
     assert rgb is None and img.shape == (2, 65, 40)
 
 
@@ -203,27 +208,27 @@ def test_display_palette_reference_matches_pallas_tail(flip_image):
     img_j, _ = _pallas_tail(psd, pmin, pmax, True)
     want = np.asarray(jcmap.colormap_index_packed(jnp.asarray(img_j),
                                                   flip_rows=True))
-    img, words = display_triton.display_epilogue(
-        torch.from_numpy(psd), torch.from_numpy(pmin),
-        torch.from_numpy(pmax), log_scale=True, flip_image=flip_image,
-        palette=True)
+    img, words = display_cuda.display_map(
+        torch.from_numpy(psd), _params(pmin, pmax), log_scale=True,
+        flip_image=flip_image, palette=True)
     _close(img.flip(1) if flip_image else img, img_j)
     # index words always put the highest frequency in row 0, whatever the
     # colormap
     assert words.shape == (2, 65, 10) and np.array_equal(words.numpy(), want)
-    _, none = display_triton.display_epilogue_reference(
-        torch.from_numpy(psd), torch.from_numpy(pmin),
-        torch.from_numpy(pmax), log_scale=True, colormap=None, palette=True)
+    _, none = display_cuda.display_map_reference(
+        torch.from_numpy(psd), _params(pmin, pmax), log_scale=True,
+        colormap=None, palette=True)
     assert torch.equal(none, words)
 
 
 @pytest.mark.parametrize("palette", [False, True])
 def test_display_without_image_keeps_the_words(palette):
     """with_image=False returns no image and the same words."""
-    psd, pmin, pmax = (torch.from_numpy(a) for a in _batch_psd())
+    psd, pmin, pmax = _batch_psd()
+    psd, params = torch.from_numpy(psd), _params(pmin, pmax)
     kw = dict(log_scale=True, flip_image=True, palette=palette)
-    img, words = display_triton.display_epilogue(psd, pmin, pmax, **kw)
-    none, lean = display_triton.display_epilogue(psd, pmin, pmax,
-                                                 with_image=False, **kw)
+    img, words = display_cuda.display_map(psd, params, **kw)
+    none, lean = display_cuda.display_map(psd, params, with_image=False,
+                                          **kw)
     assert img is not None and none is None
     assert torch.equal(lean, words)

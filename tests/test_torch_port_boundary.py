@@ -24,7 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from spectral_tpu_torch import SpecConfig  # noqa: E402
-from spectral_tpu_torch.ops import build, display_triton, stft_cuda  # noqa: E402
+from spectral_tpu_torch.ops import build, display_cuda, stft_cuda  # noqa: E402
 from spectral_tpu_torch.parallel import pipeline, sharding  # noqa: E402
 from spectral_tpu_torch.parallel.sharding import (  # noqa: E402
     batched_spectrogram_fn)
@@ -85,7 +85,7 @@ def test_port_imports_and_runs_without_jax():
     assert report["spectral_tpu"] == []
     assert report["pngs"] == ["a.png", "b.png"] and report["written"] == 2
     assert "spectral_tpu_torch.parallel.pipeline" in report["modules"]
-    assert "spectral_tpu_torch.ops.display_triton" in report["modules"]
+    assert "spectral_tpu_torch.ops.display_cuda" in report["modules"]
     assert "spectral_tpu_torch.parallel.sharding" in report["modules"]
     assert report["shapes"] == {"psd": [2, 61, 129], "image": [2, 129, 61],
                                 "rgb_packed": [2, 129, 61], "finite": [2]}
@@ -124,8 +124,8 @@ def test_cpu_tensors_never_touch_the_kernels(monkeypatch):
         raise AssertionError("a kernel was loaded for a CPU tensor")
 
     monkeypatch.setattr(build, "load_library", no_kernel)
-    monkeypatch.setattr(display_triton, "_kernel", no_kernel)
-    launches = (dict(stft_cuda.launches), dict(display_triton.launches))
+    monkeypatch.setattr(display_cuda, "_library", no_kernel)
+    launches = (dict(stft_cuda.launches), dict(display_cuda.launches))
     x = torch.from_numpy(np.random.RandomState(1).randn(2, 4096)
                          .astype(np.float32))
     for cfg in (NS_256, SpecConfig.scipy_default(2048, log_scale=True)):
@@ -133,7 +133,7 @@ def test_cpu_tensors_never_touch_the_kernels(monkeypatch):
             out = batched_spectrogram_fn(FS, cfg, palette=palette,
                                          device="cpu")(x)
             assert out["finite"].tolist() == [True, True]
-    assert (stft_cuda.launches, display_triton.launches) == launches
+    assert (stft_cuda.launches, display_cuda.launches) == launches
 
 
 def test_stft_kernel_failure_propagates(monkeypatch):
@@ -157,15 +157,20 @@ def test_stft_kernel_failure_propagates(monkeypatch):
 
 
 def test_display_kernel_failure_propagates(monkeypatch):
-    def broken():
-        raise RuntimeError("no triton")
+    def broken(name):
+        raise RuntimeError(f"cannot build {name}")
 
-    monkeypatch.setattr(display_triton, "_kernel", broken)
-    monkeypatch.setattr(display_triton, "display_epilogue_reference", _fail)
+    monkeypatch.setattr(build, "load_library", broken)
+    monkeypatch.setattr(display_cuda, "_LIB", [])
+    monkeypatch.setattr(display_cuda, "display_map_reference", _fail)
+    monkeypatch.setattr(display_cuda, "clip_stats_reference", _fail)
     psd = torch.empty((2, 61, 129), device="meta")
-    stats = torch.empty(2, device="meta")
-    with pytest.raises(RuntimeError, match="no triton"):
-        display_triton.display_epilogue(psd, stats, stats, log_scale=True)
+    params = torch.empty((2, 3), device="meta")
+    with pytest.raises(RuntimeError, match="cannot build display"):
+        display_cuda.display_map(psd, params, log_scale=True)
+    x = torch.empty((2, 4096), device="meta")
+    with pytest.raises(RuntimeError, match="cannot build display"):
+        display_cuda.clip_stats(x, torch.empty((2, 1, 2, 61), device="meta"))
 
 
 def test_stft_kernel_refuses_what_it_cannot_take(monkeypatch):

@@ -7,6 +7,7 @@ checkout of the port.
                                        [--rader S] [--small]
                                        [--frames-alone] [--library]
                                        [--plain] [--ulp]
+                                       [--pipelines [P ...]] [--dc]
 
 Imports ``spectral_tpu_torch`` from DIR (default: the checkout holding this
 script), builds its STFT kernel from DIR's sources, and times
@@ -41,6 +42,16 @@ plain version, ``stft_psd_reference``, on the same clips. Pointed at an older ch
 checkout's kernels, so one call on one card compares two versions: run it
 for the older, this, this and the older again.
 
+``--pipelines`` times instead (or as well) the whole pipeline,
+``batched_spectrogram_fn`` as ``chip_smoke.py`` drives it, on the batches
+of paths 1-11 (path 3: one export batch, 64 clips of 10 s, palette words
+and no image, as ``export_spectrograms`` calls it), or of the paths
+numbered: a single call between two events and a run of RUN calls over
+the count, median of 5, with digests of the first clips' PSD, words and
+flags. ``--dc`` reports the flags and PSD maxima of pure-DC clips (1e-4,
+3e-3, 0.1; 10 s) through the checkout's ``batched_spectrogram_fn`` at
+scipy_default 1024 and 8160 (constant detrend).
+
 A launch that fails is reported as such for its config, and the others
 run on. Needs one CUDA card. Prints one JSON line: the root, the card's name and
 power limit, and per config the median, every repeat, the launch counts
@@ -62,6 +73,81 @@ CLIPS = 1024
 SECONDS = 10.0
 FS = 16000.0
 REPS = 5
+RUN = 10
+
+
+def path_configs(SpecConfig):
+    """(path number, label, config, (clips, seconds)) of chip_smoke.py's
+    paths; path 3 is one batch of its export."""
+    s8160 = SpecConfig.scipy_default(8160, log_scale=True)
+    north = SpecConfig.north_star(1024, 256, log_scale=True)
+    long_ = (256, 60.0)
+    return [
+        (1, "path 1 north_star 1024/256", north, (CLIPS, SECONDS)),
+        (2, "path 2 scipy_default 8192",
+         SpecConfig.scipy_default(8192, log_scale=True), long_),
+        (3, "path 3 export batch north_star 1024/256", north, (64, SECONDS)),
+        (4, "path 4 scipy_default 8160", s8160, long_),
+        (5, "path 5 scipy_default 8032",
+         SpecConfig.scipy_default(8032, log_scale=True), long_),
+        (6, "path 6 scipy_default 8160 linear",
+         dataclasses.replace(s8160, detrend="linear"), long_),
+        (7, "path 7 scipy_default 8191",
+         SpecConfig.scipy_default(8191, log_scale=True), long_),
+        (8, "path 8 scipy_default 8185",
+         SpecConfig.scipy_default(8185, log_scale=True), long_),
+        (9, "path 9 scipy_default 8182",
+         SpecConfig.scipy_default(8182, log_scale=True), long_),
+        (10, "path 10 scipy_default 24",
+         SpecConfig.scipy_default(24, log_scale=True), (CLIPS, SECONDS)),
+        (11, "path 11 scipy_default 8186",
+         SpecConfig.scipy_default(8186, log_scale=True), long_)]
+
+
+def _digest(t) -> str:
+    import torch
+    if t.dtype in (torch.uint32, torch.bool):
+        t = t.view(torch.uint8) if t.dtype == torch.bool else t.view(
+            torch.int32)
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def time_pipelines(paths, report, SpecConfig, batch, dev):
+    """batched_spectrogram_fn on each path's batch, as chip_smoke.py
+    drives it: flip_image, RGBA words and the image; path 3 palette words
+    and no image, as the export calls it."""
+    import torch
+    from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
+    for num, name, cfg, shape in path_configs(SpecConfig):
+        if paths and num not in paths:
+            continue
+        x = batch(*shape)
+        kw = (dict(palette=True, with_image=False, colormap=None)
+              if num == 3 else {})
+        fn = batched_spectrogram_fn(FS, cfg, flip_image=True, **kw)
+        print(f"pipeline {name}", file=sys.stderr, flush=True)
+        out = fn(x)
+        words = out["index_packed" if num == 3 else "rgb_packed"]
+        entry = {"batch": list(shape), "psd_sha256": _digest(out["psd"][:8]),
+                 "words_sha256": _digest(words[:8]),
+                 "finite_sha256": _digest(out["finite"])}
+        del out, words
+        torch.cuda.synchronize()
+        for key, run in (("ms", 1), ("run_ms", RUN)):
+            reps = []
+            for _ in range(REPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(run):
+                    fn(x)
+                end.record()
+                torch.cuda.synchronize()
+                reps.append(start.elapsed_time(end) / run)
+            entry[key] = sorted(reps)[REPS // 2]
+            entry[key.replace("ms", "reps_ms")] = reps
+        report[f"pipeline {name}"] = entry
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> None:
@@ -94,6 +180,12 @@ def main(argv=None) -> None:
                     help="time scipy_default at these nperseg instead")
     ap.add_argument("--detrend", choices=("none", "constant", "linear"),
                     help="replace each config's detrend")
+    ap.add_argument("--pipelines", type=int, nargs="*",
+                    help="time batched_spectrogram_fn on paths 1-11's "
+                         "batches, or the paths numbered")
+    ap.add_argument("--dc", action="store_true",
+                    help="the flags of pure-DC clips at scipy_default 1024 "
+                         "and 8160")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -130,6 +222,19 @@ def main(argv=None) -> None:
     report = {"root": root, "card": card, "clips": CLIPS,
               "seconds": SECONDS, "route": args.route,
               "detrend": args.detrend, "frames_alone": args.frames_alone}
+    if args.dc:
+        from spectral_tpu_torch.parallel.sharding import (
+            batched_spectrogram_fn)
+        x = torch.stack([torch.full((int(FS * SECONDS),), v, device=dev)
+                         for v in (1e-4, 3e-3, 0.1)])
+        for k in (1024, 8160):
+            out = batched_spectrogram_fn(FS, SpecConfig.scipy_default(
+                k, log_scale=True))(x)
+            report[f"dc scipy_default {k}"] = {
+                "finite": out["finite"].tolist(),
+                "psd_max": out["psd"].amax(dim=(1, 2)).tolist()}
+    if args.pipelines is not None:
+        time_pipelines(args.pipelines, report, SpecConfig, batch, dev)
     nperseg = list(args.nperseg or [])
     if args.sweep:
         for route in ("odd", "bluestein"):
@@ -146,6 +251,10 @@ def main(argv=None) -> None:
         nperseg += list(range(2, 32))
     configs = [(f"scipy_default {k}", SpecConfig.scipy_default(k))
                for k in nperseg]
+    if not configs and args.paths is None and (args.pipelines is not None
+                                               or args.dc):
+        print(json.dumps(report))
+        return
     if not configs and args.paths is None:
         configs = [("scipy_default 1024", SpecConfig.scipy_default(1024)),
                    ("north_star 1024/256", SpecConfig.north_star(1024, 256)),
@@ -156,33 +265,11 @@ def main(argv=None) -> None:
                    for name, cfg in configs]
     shape = {name: (CLIPS, SECONDS) for name, _ in configs}
     if args.paths is not None:
-        s8160 = SpecConfig.scipy_default(8160, log_scale=True)
-        paths = [
-            ("path 1 north_star 1024/256",
-             SpecConfig.north_star(1024, 256, log_scale=True)),
-            ("path 2 scipy_default 8192",
-             SpecConfig.scipy_default(8192, log_scale=True)),
-            ("path 4 scipy_default 8160", s8160),
-            ("path 5 scipy_default 8032",
-             SpecConfig.scipy_default(8032, log_scale=True)),
-            ("path 6 scipy_default 8160 linear",
-             dataclasses.replace(s8160, detrend="linear")),
-            ("path 7 scipy_default 8191",
-             SpecConfig.scipy_default(8191, log_scale=True)),
-            ("path 8 scipy_default 8185",
-             SpecConfig.scipy_default(8185, log_scale=True)),
-            ("path 9 scipy_default 8182",
-             SpecConfig.scipy_default(8182, log_scale=True)),
-            ("path 10 scipy_default 24",
-             SpecConfig.scipy_default(24, log_scale=True)),
-            ("path 11 scipy_default 8186",
-             SpecConfig.scipy_default(8186, log_scale=True))]
-        paths = [(name, cfg) for name, cfg in paths
-                 if not args.paths or int(name.split()[1]) in args.paths]
-        shape.update({name: (CLIPS, SECONDS)
-                      if name.startswith(("path 1 ", "path 10"))
-                      else (256, 60.0) for name, _ in paths})
-        configs = paths + configs
+        paths = [(name, cfg, size) for num, name, cfg, size
+                 in path_configs(SpecConfig)
+                 if num != 3 and (not args.paths or num in args.paths)]
+        shape.update({name: size for name, _, size in paths})
+        configs = [(name, cfg) for name, cfg, _ in paths] + configs
     for name, cfg in configs:
         x = batch(*shape[name])
 
