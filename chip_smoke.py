@@ -5,9 +5,9 @@
 
 Needs one CUDA card and nvcc; run it from the root of a checkout. It
 builds every kernel of the port's paths from the sources in the checkout
-(``csrc/stft_psd.cu`` and ``csrc/display.cu``, one nvcc each, started
-together) and holds each kernel against its plain PyTorch version on the
-card: the STFT/PSD kernel's five routes (the FFT kernel at power-of-two
+(``csrc/stft_psd.cu``, ``csrc/display.cu`` and ``csrc/mel.cu``, one nvcc
+each, started together) and holds each kernel against its plain PyTorch
+version on the card: the STFT/PSD kernel's five routes (the FFT kernel at power-of-two
 nperseg 32-8192, under every detrend, beside zero, NaN and 1e-6 frames,
 an overflow clip, log10_out, B T = 1 and T = 0, each held to 1 float32
 ulp, with its ptxas registers and spills printed; the mixed-radix
@@ -36,12 +36,24 @@ than one LUT index apart, at odd T and F, T < 4, T = 0, share_max,
 flip_image, colormap=None, RGBA and palette words with and without the
 image, and past 65,535 clips). Pure-DC clips (1e-4, 3e-3, 0.1; 10 s)
 through ``batched_spectrogram_fn`` at scipy_default 1024 and 8160 must
-come out healthy. Then it drives eleven paths at full size, each with the
-launch counts set to 0 just before it and read just after, each call of
-the pipeline one launch of the route's STFT kernel, one of clip_stats and
-one of the display map (path 1 also under ``torch.profiler``, which must
-show those three kernels and no other; it prints them and the device's
-idle share):
+come out healthy. The fmin/fmax band on each of the five routes (phase
+``band``: the radix-2 kernel at 32, 1024 and 8192, the mixed-radix one at
+960 under linear detrend and 8160, its Rader plan at 1006, the odd one at
+1023 and 8191, the Bluestein one at 2049, 8182 and 8185, the GEMM one's
+small-K tile at 24 and its large tile forced at 1024) must give, at every
+band of ``_bands`` (DC alone, the Nyquist or last bin alone, a band from
+past 0, one row, inside one GEMM tile and across tiles), the full band's
+columns bitwise: the PSD, its log10_out and the partials; the PSD entry
+points of ``core/stft.py`` on a CUDA tensor must launch the route's kernel
+once each. The mel kernel (phase ``mel``) must match its plain version
+with injected inf and NaN bins, NaN and inf in the same places and the
+rest within MEL_ULPS. Then it drives thirteen paths at full size, each
+with the launch counts set to 0 just before it and read just after; each
+call of the pipeline on paths 1-11 and 13 is one launch of the route's
+STFT kernel, one of clip_stats and one of the display map, and on path 12
+the STFT kernel, the mel kernel, clip_stats and the display map (path 1
+also under ``torch.profiler``, which must show those three kernels and no
+other; it prints them and the device's idle share):
 
 1. the display spine: 1024 clips of 10 s at 16 kHz through
    ``batched_spectrogram_fn`` at north_star 1024/256 log (RGBA words), on
@@ -71,7 +83,14 @@ idle share):
     scipy_default 24, below the FFT kernels' 32 (the small-K tile);
 11. the mixed route's Rader plan at full width: path 2's batch at
     scipy_default 8186 (2 4093, and 4092 = 2^2 3 11 31), on the odd
-    kernel's PACKED form.
+    kernel's PACKED form;
+12. the mel branch (BASELINE.json config 2): path 1's batch at north_star
+    1024/256 with 128 log mels, the mel kernel timed against its bound
+    and against ``torch.matmul`` in float64 with ``amin``/``amax``; then
+    ``export_spectrograms`` over four batches of 64 of its clips;
+13. the GUI's band on an EEG-rate batch: 256 clips of 16 min at 1 kHz at
+    scipy_default 1024 with fmin 0 and fmax 30 (31 of 513 bins), held to
+    scipy in float64, its STFT kernel timed beside the full band's.
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
@@ -196,7 +215,7 @@ def ulp_distance(got, want):
     return int(torch.where(ok, (ordered(got) - ordered(want)).abs(), 0).max())
 
 
-def library_psd(x, cfg):
+def library_psd(x, cfg, fs=FS):
     """The STFT kernels' library yardstick, never called by the port: the
     same PSD through cuFFT's float64 real transform (the transform
     ``torch.stft`` runs) of the same frames, framed with ``unfold`` so the
@@ -212,7 +231,7 @@ def library_psd(x, cfg):
         t = t - t.mean()
         frames = frames - ((frames @ t) / (t @ t))[..., None] * t
     win = torch.tensor(_window_f64(cfg), dtype=torch.float64, device=x.device)
-    wts = torch.tensor(onesided_weights(cfg, FS), dtype=torch.float64,
+    wts = torch.tensor(onesided_weights(cfg, fs), dtype=torch.float64,
                        device=x.device)
     spec = torch.view_as_real(torch.fft.rfft(frames * win, dim=-1))
     return (spec.square().sum(dim=-1) * wts).float()
@@ -299,16 +318,18 @@ def time_ms(fn, reps=REPS, run=1):
 
 
 def reset_counts():
-    from spectral_tpu_torch.ops import display_cuda, stft_cuda
-    for counts in (stft_cuda.launches, display_cuda.launches):
+    from spectral_tpu_torch.ops import display_cuda, mel_cuda, stft_cuda
+    for counts in (stft_cuda.launches, display_cuda.launches,
+                   mel_cuda.launches):
         for key in counts:
             counts[key] = 0
 
 
 def read_counts():
-    from spectral_tpu_torch.ops import display_cuda, stft_cuda
+    from spectral_tpu_torch.ops import display_cuda, mel_cuda, stft_cuda
     return {"stft_psd": dict(stft_cuda.launches),
-            "display": dict(display_cuda.launches)}
+            "display": dict(display_cuda.launches),
+            "mel": dict(mel_cuda.launches)}
 
 
 def require_one_call(counts, route, calls, what):
@@ -316,6 +337,7 @@ def require_one_call(counts, route, calls, what):
     clip_stats and one display map, and nothing else."""
     stft, tail = counts["stft_psd"], counts["display"]
     require(stft[route] == calls and sum(stft.values()) == calls
+            and counts["mel"]["mel"] == 0
             and tail["clip_stats"] == calls
             and tail["rgba"] + tail["palette"] == calls,
             f"{what}: {calls} call(s), each one {route} STFT kernel, one "
@@ -420,10 +442,15 @@ def build_kernels():
     from spectral_tpu_torch.ops import build
     phase("build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        info, tail = pool.map(build.build_library, ("stft_psd", "display"))
-    print(f"both sources built side by side in "
+    with ThreadPoolExecutor(3) as pool:
+        info, tail, mel = pool.map(build.build_library,
+                                   ("stft_psd", "display", "mel"))
+    print(f"the three sources built side by side in "
           f"{time.perf_counter() - t0:.2f} s")
+    print(f"mel.cu -> {os.path.relpath(mel['path'], HERE)} in "
+          f"{mel['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
+              mel["log"], r"(mel_project_kernel)", lambda e: "mel_project")))
+    build.load_library("mel")
     print(f"display.cu -> {os.path.relpath(tail['path'], HERE)} in "
           f"{tail['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
               tail["log"], r"(clip_stats_kernel|display_map_kernelILi(\d)"
@@ -1372,6 +1399,12 @@ def main_path(dev, card):
           f"DGEMM) {timings['stft_plain'][0]:.3f} ms, library (cuFFT f64) "
           f"{timings['stft_library'][0]:.3f} ms; bound {stft_b[0]:.3f} ms "
           f"({stft_b[1]}) [{card}]")
+    log_b = stft_bound(BATCH, n, T, F, 1024)
+    print(f"K1-log (log10_out) at path 1's batch: kernel "
+          f"{timings['stft_kernel_log10'][0]:.3f} ms, plain "
+          f"{timings['stft_plain_log10'][0]:.3f} ms, library "
+          f"{timings['stft_library_log10'][0]:.3f} ms; bound {log_b[0]:.3f} "
+          f"ms ({log_b[1]}) [{card}]")
     print(json.dumps({"path1_times": summary}))
     disp_b = display_bound(BATCH, T, F, T)
     stats_b = clip_stats_bound(BATCH, n, T)
@@ -1727,8 +1760,547 @@ def export_path(dev, card):
         "stft_export_launches": counts["stft_psd"]["fft"]}
 
 
-PHASES = ("kernels", "tail", "dc", "scipy", "path1", "path2", "path3", "path4", "path5",
-          "path6", "path7", "path8", "path9", "path10", "path11")
+# ---------------------------------------------------------------------------
+# the band mask, the mel branch and the PSD entry points on the card
+# ---------------------------------------------------------------------------
+
+def _bands(F):
+    """The bands each route is held to: the full band, DC alone, the last
+    bin alone (the Nyquist bin g = M of an even K, the last bin of an odd
+    K), all but the edges, one row inside, a band from past 0 inside one
+    GEMM tile of 64 bins and one across tiles."""
+    cands = [(0, F), (0, 1), (F - 1, F), (1, F - 1), (F // 3, F // 3 + 1),
+             (3, 20), (5, 70), (60, 130)]
+    return sorted({(lo, hi) for lo, hi in cands if 0 <= lo < hi <= F})
+
+
+def _launched(route, before, what):
+    from spectral_tpu_torch.ops import stft_cuda
+    after = dict(stft_cuda.launches)
+    require(after[route] == before[route] + 1
+            and sum(after.values()) == sum(before.values()) + 1,
+            f"{what}: one launch of the {route} kernel, counts {before} -> "
+            f"{after}")
+
+
+def band_kernel_cases(dev):
+    """A band on each of the five routes, bitwise the matching columns of
+    the full band's output: the PSD, its log10_out and each row's (min,
+    max) partials (the full PSD's columns' min and max), at the bands of
+    ``_bands`` on 3 clips (one with a NaN sample), every kernel's launch
+    counted; the banded kernel held to the banded plain version too."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.ops import stft_cuda
+
+    phase("the band mask on every route, bitwise against the full band")
+    rs = np.random.RandomState(12)
+    cases = [
+        (SpecConfig.north_star(1024, 256), None),      # radix 2, 8 values
+        (SpecConfig.scipy_default(32), None),          # radix 2, 16 frames
+        (SpecConfig.scipy_default(8192), None),        # radix 2, 16 values
+        (SpecConfig(nperseg=960, hop=240, detrend="linear"), None),  # mixed
+        (SpecConfig.scipy_default(8160), None),        # mixed, RMAX 4
+        (SpecConfig.scipy_default(1006), None),        # mixed Rader, PACKED
+        (SpecConfig.scipy_default(1023), None),        # odd
+        (SpecConfig.scipy_default(8191), None),        # odd, Rader
+        (SpecConfig.scipy_default(2049), None),        # Bluestein, odd pairs
+        (SpecConfig.scipy_default(8182), None),        # Bluestein, one block
+        (SpecConfig.scipy_default(8185), None),        # Bluestein, cluster
+        (SpecConfig.scipy_default(24), None),          # GEMM, small-K tile
+        (SpecConfig.scipy_default(1024), "gemm"),      # GEMM, 128 x 64 tile
+    ]
+    worst = 0.0
+    for cfg, forced in cases:
+        route = forced or stft_cuda.route(cfg)
+        K, F = cfg.nperseg, cfg.n_freqs
+        x = rs.randn(3, 5 * K + 37) + 0.5
+        x[2, 2 * K] = np.nan
+        x = torch.from_numpy(x.astype(np.float32)).to(dev)
+        full = stft_cuda.stft_psd(x, FS, cfg, _route=forced)
+        full_log = stft_cuda.stft_psd(x, FS, cfg, log10_out=True,
+                                      _route=forced)
+        bands = _bands(F)
+        for band in bands:
+            lo, hi = band
+            what = f"nperseg {K} [{route}] band {band} of {F}"
+            before = dict(stft_cuda.launches)
+            got = stft_cuda.stft_psd(x, FS, cfg, band=band, _route=forced)
+            torch.cuda.synchronize()
+            _launched(route, before, what)
+            got_log = stft_cuda.stft_psd(x, FS, cfg, log10_out=True,
+                                         band=band, _route=forced)
+            psd, parts = stft_cuda._stft_psd_cuda(
+                x, FS, cfg, False, True, route, partials=True, band=band)
+            torch.cuda.synchronize()
+            cols = full[..., lo:hi].contiguous()
+            want_parts = torch.stack([torch.amin(cols, dim=-1),
+                                      torch.amax(cols, dim=-1)])
+            got_parts = torch.stack([torch.amin(parts[0], dim=0),
+                                     torch.amax(parts[1], dim=0)])
+            require(tuple(got.shape) == (3, full.shape[1], hi - lo)
+                    and bitwise(got, cols) and bitwise(psd, cols)
+                    and bitwise(got_log, full_log[..., lo:hi].contiguous())
+                    and bitwise(got_parts, want_parts),
+                    f"{what}: bitwise the full band's columns (psd "
+                    f"{bitwise(got, cols)}, log10 "
+                    f"{bitwise(got_log, full_log[..., lo:hi].contiguous())},"
+                    f" partials {bitwise(got_parts, want_parts)})")
+        band = bands[len(bands) // 2]
+        want = stft_cuda.stft_psd_reference(
+            x, stft_cuda.dft_constants(cfg, FS, dev, band), cfg)
+        got = stft_cuda.stft_psd(x, FS, cfg, band=band, _route=forced)
+        rel, _ = psd_err(got[:2], want[:2])
+        require(rel <= PSD_TOL, f"nperseg {K} band {band} vs the banded "
+                f"plain version: {rel:.2e}")
+        worst = max(worst, rel)
+        print(f"nperseg {K} [{route}]: {len(bands)} bands of {F} bins "
+              f"bitwise the full band's columns (psd, log10_out, partials); "
+              f"band {band} vs the banded plain version {rel:.2e} of clip "
+              f"max")
+    print(f"the band mask: every route bitwise; worst kernel vs plain "
+          f"{worst:.2e} (limit {PSD_TOL:g})")
+
+
+MEL_ULPS = 1      # the mel kernel against its plain version, float32 ulps
+
+
+def mel_kernel_cases(dev):
+    """The mel kernel against its plain version (the float64 dense
+    product, ``mel_project_reference``) on PSDs with injected inf and NaN
+    bins: an inf bin inside a triangle (that row inf, the others NaN), an
+    inf bin at Nyquist (no filter's: every row NaN), a NaN bin, a silent
+    frame; at 128 mels over 513 bins, 8 wide mels, HTK mels over a band of
+    the mel axis, 64 mels over 4097 bins (two rows a block), 600 mels over
+    513 bins (rows with no nonzero weight), T = 0. NaN and inf in the same
+    places, the rest within MEL_ULPS float32 ulps, and the partials the
+    same."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.mel import mel_centers, mel_filterbank
+    from spectral_tpu_torch.core.stft import band_row_slice
+    from spectral_tpu_torch.ops import mel_cuda
+
+    phase("the mel kernel against its plain version")
+    rs = np.random.RandomState(13)
+    cases = [
+        (SpecConfig.north_star(1024, 256, n_mels=128), FS),
+        (SpecConfig.north_star(512, 128, n_mels=8), FS),
+        (SpecConfig.north_star(256, 64, n_mels=40, mel_htk=True,
+                               mel_fmin=300.0, mel_fmax=6000.0, fmin=500.0,
+                               fmax=4000.0), FS),
+        (SpecConfig.scipy_default(8192, n_mels=64), FS),
+        (SpecConfig.north_star(1024, 256, n_mels=600), FS),
+    ]
+    for cfg, fs in cases:
+        F = cfg.n_freqs
+        results = []
+        fb = mel_filterbank(cfg.n_mels, F, fs, cfg.mel_fmin, cfg.mel_fmax,
+                            cfg.mel_htk)
+        m_lo, m_hi = band_row_slice(
+            mel_centers(cfg.n_mels, fs, cfg.mel_fmin, cfg.mel_fmax,
+                        cfg.mel_htk), cfg.fmin, cfg.fmax) or (0, cfg.n_mels)
+        spans = mel_cuda.mel_spans(fb[m_lo:m_hi], dev)
+        start = spans.start.cpu().numpy()
+        length = spans.length.cpu().numpy()
+        m = int(np.argmax(length))                 # the widest triangle
+        psd = rs.exponential(1e-3, (5, 37, F)).astype(np.float32)
+        psd[0, 3, start[m] + length[m] // 2] = np.inf
+        psd[0, 4, F - 1] = np.inf
+        psd[1, 5, 7] = np.nan
+        psd[2, 6] = 0.0
+        psd = torch.from_numpy(psd).to(dev)
+        for p in (psd, psd[:, :0].contiguous()):
+            what = (f"mel {cfg.n_mels} rows {m_lo}-{m_hi} over {F} bins, T "
+                    f"{p.shape[1]}")
+            before = dict(mel_cuda.launches)
+            got, gp = mel_cuda.mel_project(p, spans)
+            torch.cuda.synchronize()
+            want, wp = mel_cuda.mel_project_reference(p, spans)
+            torch.cuda.synchronize()
+            launched = mel_cuda.launches["mel"] - before["mel"]
+            require(launched == (1 if p.shape[1] else 0),
+                    f"{what}: mel kernel launches {launched}")
+            results.append((got, want))
+            for a, b, name in ((got, want, "mel"), (gp, wp, "partials")):
+                require(tuple(a.shape) == tuple(b.shape)
+                        and torch.equal(torch.isnan(a), torch.isnan(b))
+                        and torch.equal(torch.isinf(a), torch.isinf(b))
+                        and ulp_distance(a, b) <= MEL_ULPS,
+                        f"{what}: {name} vs plain: NaN "
+                        f"{torch.equal(torch.isnan(a), torch.isnan(b))}, "
+                        f"inf {torch.equal(torch.isinf(a), torch.isinf(b))}"
+                        f", {ulp_distance(a, b)} ulp")
+        got, want = results[0]
+        require(bool(torch.isinf(got[0, 3, m]))
+                and bool(torch.isnan(got[0, 3]).any())
+                and bool(torch.isnan(got[0, 4]).all())
+                and bool(torch.isnan(got[1, 5]).all())
+                and bool((got[2, 6] == 0).all()),
+                f"{what}: the inf row, the NaN rows and the silent frame")
+        print(f"{what[:what.index(', T')]}: NaN and inf in the plain "
+              f"version's places, "
+              f"{ulp_distance(got, want)} ulp (limit {MEL_ULPS}); "
+              f"{int((length == 0).sum())} rows with no weight")
+
+
+def repair_cases(dev):
+    """The PSD entry points of core/stft.py on a CUDA tensor launch the
+    route's STFT/PSD kernel once, bitwise its output, not the plain dense
+    product on the card: power_spectrogram, power_spectrogram_fm with a
+    band and a flip, and spectrogram with the GUI's band."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core import stft as tstft
+    from spectral_tpu_torch.ops import stft_cuda
+
+    phase("the PSD entry points launch the kernel for a CUDA tensor")
+    rs = np.random.RandomState(14)
+    x = torch.from_numpy(rs.randn(2, 3, 20000).astype(np.float32)).to(dev)
+    for cfg, route in ((SpecConfig.scipy_default(1024), "fft"),
+                       (SpecConfig.scipy_default(992), "mixed"),
+                       (SpecConfig.scipy_default(24), "gemm")):
+        kern = stft_cuda.stft_psd(x.reshape(6, -1), FS, cfg).reshape(
+            2, 3, -1, cfg.n_freqs)
+        before = dict(stft_cuda.launches)
+        p = tstft.power_spectrogram(x, FS, cfg)
+        torch.cuda.synchronize()
+        _launched(route, before, f"power_spectrogram at {cfg.nperseg}")
+        require(bitwise(p, kern), f"power_spectrogram at {cfg.nperseg}: "
+                "the kernel's output")
+        band = (1, cfg.n_freqs // 2)
+        before = dict(stft_cuda.launches)
+        fm = tstft.power_spectrogram_fm(x, FS, cfg, flip_freqs=True,
+                                        band=band)
+        torch.cuda.synchronize()
+        _launched(route, before, f"power_spectrogram_fm at {cfg.nperseg}")
+        want = kern[..., band[0]:band[1]].transpose(-1, -2).flip(-2)
+        require(bitwise(fm.contiguous(), want.contiguous()),
+                f"power_spectrogram_fm band {band} at {cfg.nperseg}")
+    cfg = SpecConfig.scipy_default(1024, fmin=0.0, fmax=30.0)
+    xs = torch.from_numpy(rs.randn(60000).astype(np.float32))
+    before = dict(stft_cuda.launches)
+    f, t, sxx = tstft.spectrogram(xs.to(dev), 1000.0, cfg)
+    torch.cuda.synchronize()
+    _launched("fft", before, "spectrogram")
+    f_c, t_c, sxx_c = tstft.spectrogram(xs.double(), 1000.0, cfg)
+    rel, _ = psd_err(sxx.cpu()[None], sxx_c.float()[None])
+    require(np.array_equal(f, f_c) and np.array_equal(t, t_c)
+            and tuple(sxx.shape) == (31, len(t)) and rel <= PSD_TOL,
+            f"spectrogram on the card vs the CPU: {rel:.2e}")
+    print(f"power_spectrogram, power_spectrogram_fm and spectrogram: one "
+          f"kernel launch each, bitwise the kernel; spectrogram's 0-30 Hz "
+          f"band ({len(f)} rows) on the card vs the plain version {rel:.2e}")
+
+
+def mel_bound(B, T, F, M):
+    """Bytes: the PSD read once, the mel rows and the per-frame partials
+    written once (the arithmetic, 2 per nonzero weight, is far below)."""
+    return 1e3 * (B * T * F * 4 + B * T * M * 4 + 2 * B * T * 4) / HBM_RATE, \
+        "bytes"
+
+
+def require_counts(counts, want, what):
+    """The path's run launched exactly ``want`` (kernel -> launches), every
+    other count 0."""
+    flat = {**{f"stft_{k}": v for k, v in counts["stft_psd"].items()},
+            **counts["display"], **counts["mel"]}
+    extra = {k: v for k, v in flat.items() if k not in want and v}
+    require(all(flat[k] == v for k, v in want.items()) and not extra,
+            f"{what}: launches {want} and no other, got {counts}")
+
+
+def mel_path(dev, card):
+    """Path 12, the mel branch (BASELINE.json config 2): 1024 clips of 10 s
+    at 16 kHz through ``batched_spectrogram_fn`` at north_star 1024/256
+    with 128 log mels (four launches: the STFT kernel without extrema, the
+    mel kernel, clip_stats and the display map), held to the plain path on
+    the card, timed against the bounds; then ``export_spectrograms`` over
+    four batches of 64 clips."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.mel import mel_filterbank
+    from spectral_tpu_torch.core.stft import num_frames
+    from spectral_tpu_torch.ops import display_cuda as disp
+    from spectral_tpu_torch.ops import mel_cuda, stft_cuda
+    from spectral_tpu_torch.ops.colormap import unpack_indices
+    from spectral_tpu_torch.parallel.pipeline import export_spectrograms
+    from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
+
+    n = int(FS * CLIP_SECONDS)
+    cfg = SpecConfig.north_star(1024, 256, n_mels=128, log_scale=True)
+    phase(f"path 12, the mel branch: {BATCH} clips x {CLIP_SECONDS:g} s at "
+          f"{FS:g} Hz, north_star 1024/256, 128 log mels")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((BATCH, n), generator=gen, device=dev)
+    fn = batched_spectrogram_fn(FS, cfg, flip_image=True)
+    reset_counts()
+    out = fn(x)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"launches in this path's run: {counts}")
+    require_counts(counts, {"stft_fft": 1, "mel": 1, "clip_stats": 1,
+                            "rgba": 1}, "path 12")
+    mel_launches = counts["mel"]["mel"]
+    T, F, M = num_frames(n, 1024, 256), cfg.n_freqs, 128
+    require(tuple(out["psd"].shape) == (BATCH, T, F)
+            and tuple(out["mel"].shape) == (BATCH, T, M)
+            and tuple(out["image"].shape) == (BATCH, M, T)
+            and tuple(out["rgb_packed"].shape) == (BATCH, M, T)
+            and bool(out["finite"].all())
+            and bool(torch.isfinite(out["image"]).all())
+            and float(out["image"].amin()) == 0.0
+            and float(out["image"].amax()) == 1.0,
+            "path 12 shapes, flags and image range")
+    spans = mel_cuda.mel_spans(mel_filterbank(128, F, FS), dev)
+    consts = stft_cuda.dft_constants(cfg, FS, dev)
+    psd_p = stft_cuda.stft_psd_reference(x, consts, cfg)
+    stft_rel, stft_abs = psd_err(out["psd"], psd_p)
+    require(stft_rel <= PSD_TOL, f"path 12 psd vs plain: {stft_rel:.2e}")
+    mel_p, parts_p = mel_cuda.mel_project_reference(out["psd"], spans)
+    mel_ulp = ulp_distance(out["mel"], mel_p)
+    mel_abs = float((out["mel"] - mel_p).abs().amax())
+    require(mel_ulp <= MEL_ULPS, f"path 12 mel vs plain: {mel_ulp} ulp")
+    mel_full_p, _ = mel_cuda.mel_project_reference(psd_p, spans)
+    mel_rel, _ = psd_err(out["mel"], mel_full_p)
+    require(mel_rel <= PSD_TOL, f"path 12 mel vs the plain path: "
+            f"{mel_rel:.2e}")
+    _, parts = mel_cuda.mel_project(out["psd"], spans)
+    stats = disp.clip_stats(x, parts)
+    stats_p = disp.clip_stats_reference(x, parts)
+    require(bitwise(stats.params, stats_p.params)
+            and torch.equal(stats.finite, stats_p.finite)
+            and torch.equal(out["finite"], stats.finite),
+            "path 12 clip_stats vs plain")
+    img_ref, rgb_ref = disp.display_map_reference(
+        out["mel"], stats.params, log_scale=True, flip_image=True)
+    disp_abs, bitwise_px = image_err(out["image"], img_ref, "path 12 image")
+    same = check_words(out["rgb_packed"][:64], rgb_ref[:64],
+                       "path 12 rgb_packed, 64 clips")
+    print(f"psd vs plain {stft_rel:.2e} of clip max; mel vs plain on the "
+          f"same PSD {mel_ulp} ulp ({mel_abs:.3e} abs), vs the plain path "
+          f"{mel_rel:.2e} of clip max; clip_stats params bitwise; image vs "
+          f"plain {disp_abs:.2e} ({bitwise_px:.6f} bitwise); words "
+          f"{same:.6f} identical")
+    del img_ref, rgb_ref, psd_p, mel_full_p
+
+    phase(f"path 12 times (CUDA events, median of {REPS} after a warm-up; "
+          f"{card})")
+    psd, mel, params = out["psd"], out["mel"], stats.params
+    rows64 = spans.rows
+
+    def library():
+        mm = torch.matmul(psd.double(), rows64.T)
+        return mm, torch.amin(mm, dim=-1), torch.amax(mm, dim=-1)
+
+    kw = dict(log_scale=True, flip_image=True)
+    timings = {
+        "stft_kernel": time_ms(lambda: stft_cuda.stft_psd(x, FS, cfg)),
+        "mel_kernel": time_ms(lambda: mel_cuda.mel_project(psd, spans)),
+        "mel_kernel_run": time_ms(lambda: mel_cuda.mel_project(psd, spans),
+                                  run=RUN),
+        "mel_plain": time_ms(lambda: mel_cuda.mel_project_reference(
+            psd, spans)),
+        "mel_library": time_ms(library),
+        "clip_stats_kernel_run": time_ms(lambda: disp.clip_stats(x, parts),
+                                         run=RUN),
+        "display_kernel_run": time_ms(lambda: disp.display_map(
+            mel, params, **kw), run=RUN),
+        "pipeline_kernel": time_ms(lambda: fn(x)),
+    }
+    for name, (ms, reps) in timings.items():
+        print(f"{name}: {ms:.4f} ms [{card}] reps {reps}")
+    b_mel = mel_bound(BATCH, T, F, M)
+    b_disp = display_bound(BATCH, T, M, T)
+    print(f"mel kernel: {timings['mel_kernel_run'][0]:.4f} ms a launch in "
+          f"runs of {RUN} ({timings['mel_kernel'][0]:.4f} single); bound "
+          f"{b_mel[0]:.4f} ms ({b_mel[1]}); plain (f64 dense product + "
+          f"amin/amax, cast) {timings['mel_plain'][0]:.3f} ms; library "
+          f"(torch.matmul f64 + amin/amax) {timings['mel_library'][0]:.3f} "
+          f"ms [{card}]")
+    print(f"display map over the mel rows: "
+          f"{timings['display_kernel_run'][0]:.4f} ms; bound "
+          f"{b_disp[0]:.4f} ms [{card}]")
+    ms = timings["pipeline_kernel"][0]
+    print(f"pipeline: {ms:.3f} ms per batch, "
+          f"{BATCH * CLIP_SECONDS / 3600.0 / (ms / 60000.0):.1f} audio-h/min "
+          f"[{card}]")
+    print(json.dumps({"path12_times": {k: v[0] for k, v in
+                                       timings.items()}, "card": card}))
+    del out, psd, mel
+
+    phase(f"path 12 export: 4 batches of {EXPORT_BATCH} clips x "
+          f"{CLIP_SECONDS:g} s, 128 log mels, palette PNGs")
+    clips = x[:4 * EXPORT_BATCH].cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        st = export_spectrograms(
+            ((f"mel{i:03d}", clips[i]) for i in range(len(clips))), FS, cfg,
+            tmp, clip_samples=n, batch=EXPORT_BATCH)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"launches in the export's run: {counts}")
+        require_counts(counts, {"stft_fft": 4, "mel": 4, "clip_stats": 4,
+                                "palette": 4}, "path 12 export")
+        require(st.pngs_written == len(clips) and st.failed == 0,
+                f"path 12 export: {st}")
+        xc = x[:2]
+        p_c = stft_cuda.stft_psd_reference(xc, consts, cfg)
+        m_c, parts_c = mel_cuda.mel_project_reference(p_c, spans)
+        st_c = disp.clip_stats_reference(xc, parts_c)
+        _, words = disp.display_map_reference(
+            m_c, st_c.params, log_scale=True, flip_image=True, palette=True)
+        want_idx = unpack_indices(words, T)
+        for i in range(2):
+            got = decode_palette_png(os.path.join(tmp, f"mel{i:03d}.png"))
+            same = check_indices(got, want_idx[i], f"mel{i:03d}.png")
+            require(got.shape == (M, T), f"mel{i:03d}.png {got.shape}")
+            print(f"mel{i:03d}.png decoded: {got.shape}, indices identical "
+                  f"to the plain path {same:.6f}")
+        ahpm = st.seconds_audio / 3600.0 / (st.wall_s / 60.0)
+        print(f"export: {st.pngs_written} PNGs, {st.seconds_audio:.0f} s of "
+              f"audio in {st.wall_s:.3f} s = {ahpm:.1f} audio-h/min [{card}]")
+        print(json.dumps({"path12_export_breakdown": st.breakdown(),
+                          "audio_h_per_min": ahpm, "card": card}))
+    return {"mel_project": dict(
+        launches=mel_launches, err=mel_abs,
+        ms=timings["mel_kernel_run"][0], plain_ms=timings["mel_plain"][0],
+        bound=b_mel, library_ms=timings["mel_library"][0])}
+
+
+BAND_FS = 1000.0
+BAND_SECONDS = 960.0    # 16 min of EEG-rate recording a clip
+BAND_CLIPS = 256
+
+
+def band_path(dev, card, dfma_peak):
+    """Path 13, the GUI's defaults on an EEG-rate batch: 256 clips of 16
+    min at 1 kHz through ``batched_spectrogram_fn`` at scipy_default 1024
+    with the GUI's band, 0-30 Hz (rows 0-30 of 513; three launches: the
+    STFT kernel on the band's bins, clip_stats and the display map), held
+    to the plain path on the card and to scipy in float64, timed against
+    the bounds beside the full band's kernel."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.stft import (band_row_slice, freq_axis,
+                                              num_frames)
+    from spectral_tpu_torch.ops import display_cuda as disp
+    from spectral_tpu_torch.ops import stft_cuda
+    from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
+    from torch_precision import log_display, scipy_psd
+
+    n = int(BAND_FS * BAND_SECONDS)
+    cfg = SpecConfig.scipy_default(1024, fmin=0.0, fmax=30.0, log_scale=True)
+    band = band_row_slice(freq_axis(cfg, BAND_FS), cfg.fmin, cfg.fmax)
+    phase(f"path 13, the GUI's band: {BAND_CLIPS} clips x {BAND_SECONDS:g} "
+          f"s at {BAND_FS:g} Hz, scipy_default 1024, 0-30 Hz (bins "
+          f"{band[0]}-{band[1] - 1}), log")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((BAND_CLIPS, n), generator=gen, device=dev)
+    fn = batched_spectrogram_fn(BAND_FS, cfg, flip_image=True)
+    reset_counts()
+    out = fn(x)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"launches in this path's run: {counts}")
+    require_counts(counts, {"stft_fft": 1, "clip_stats": 1, "rgba": 1},
+                   "path 13")
+    T, Fb = num_frames(n, 1024, cfg.hop_), band[1] - band[0]
+    require(band == (0, 31) and tuple(out["psd"].shape) == (BAND_CLIPS, T,
+                                                            Fb)
+            and tuple(out["image"].shape) == (BAND_CLIPS, Fb, T)
+            and bool(out["finite"].all())
+            and float(out["image"].amin()) == 0.0
+            and float(out["image"].amax()) == 1.0,
+            "path 13 shapes, flags and image range")
+    db_worst = 0.0
+    for i in (0, BAND_CLIPS - 1):
+        x64 = x[i].double().cpu().numpy()
+        ref = scipy_psd(x64, cfg, BAND_FS)[band[0]:band[1]]
+        img_ref, rng = log_display(ref)
+        img = out["image"][i].flip(0).cpu().numpy().astype(np.float64)
+        db = float(np.max(np.abs(img - img_ref)) * rng)
+        db_worst = max(db_worst, db)
+    require(db_worst <= DB_TOL, f"path 13 vs scipy f64: {db_worst:.3e} dB")
+    print(f"clips 0 and {BAND_CLIPS - 1}, band 0-30 Hz, vs scipy float64: "
+          f"{db_worst:.3e} dB (limit {DB_TOL:g})")
+    consts = stft_cuda.dft_constants(cfg, BAND_FS, dev, band)
+    psd_p = stft_cuda.stft_psd_reference(x, consts, cfg)
+    stft_rel, stft_abs = psd_err(out["psd"], psd_p)
+    require(stft_rel <= PSD_TOL, f"path 13 psd vs plain: {stft_rel:.2e}")
+    full = stft_cuda.stft_psd(x[:16], BAND_FS, cfg)
+    require(bitwise(out["psd"][:16], full[..., band[0]:band[1]].contiguous()),
+            f"path 13 psd bitwise the full band's first {Fb} bins")
+    _, parts = stft_cuda.stft_psd_partials(x, BAND_FS, cfg, band)
+    stats = disp.clip_stats(x, parts)
+    stats_p = disp.clip_stats_reference(x, parts)
+    require(bitwise(stats.params, stats_p.params)
+            and torch.equal(stats.finite, stats_p.finite)
+            and torch.equal(out["finite"], stats.finite),
+            "path 13 clip_stats vs plain")
+    img_ref, _ = disp.display_map_reference(
+        out["psd"], stats.params, log_scale=True, flip_image=True)
+    disp_abs, bitwise_px = image_err(out["image"], img_ref, "path 13 image")
+    print(f"psd vs plain (cuBLAS f64, banded matrices) {stft_rel:.2e} of "
+          f"clip max ({stft_abs:.3e} abs), {ulp_distance(out['psd'], psd_p)}"
+          f" ulp; bitwise the full band's columns (16 clips); clip_stats "
+          f"params bitwise; image vs plain {disp_abs:.2e} "
+          f"({bitwise_px:.6f} bitwise)")
+    del img_ref, psd_p, full
+
+    phase(f"path 13 times (CUDA events, median of {REPS} after a warm-up; "
+          f"{card})")
+    psd, params = out["psd"], stats.params
+    del out
+    timings = {
+        "stft_kernel": time_ms(lambda: stft_cuda.stft_psd(
+            x, BAND_FS, cfg, with_stats=True, band=band)),
+        "stft_kernel_full_band": time_ms(lambda: stft_cuda.stft_psd(
+            x, BAND_FS, cfg, with_stats=True)),
+        "stft_gemm_kernel": time_ms(lambda: stft_cuda.stft_psd(
+            x, BAND_FS, cfg, with_stats=True, band=band, _route="gemm")),
+        "stft_plain": time_ms(lambda: stft_cuda.stft_psd_reference(
+            x, consts, cfg, with_stats=True)),
+        "stft_library": time_ms(lambda: library_psd(x, cfg, BAND_FS)[
+            ..., band[0]:band[1]].contiguous()),
+        "clip_stats_kernel_run": time_ms(lambda: disp.clip_stats(x, parts),
+                                         run=RUN),
+        "display_kernel_run": time_ms(lambda: disp.display_map(
+            psd, params, log_scale=True, flip_image=True), run=RUN),
+        "pipeline_kernel": time_ms(lambda: fn(x)),
+    }
+    for name, (ms, reps) in timings.items():
+        print(f"{name}: {ms:.4f} ms [{card}] reps {reps}")
+    bound = stft_bound(BAND_CLIPS, n, T, Fb, 1024)
+    full_bound = stft_bound(BAND_CLIPS, n, T, cfg.n_freqs, 1024)
+    print(f"STFT kernel (fft) on the band: {timings['stft_kernel'][0]:.3f} "
+          f"ms, bound {bound[0]:.3f} ms ({bound[1]}); on the full band "
+          f"{timings['stft_kernel_full_band'][0]:.3f} ms, bound "
+          f"{full_bound[0]:.3f} ms; the GEMM kernel on the band's columns "
+          f"{timings['stft_gemm_kernel'][0]:.3f} ms (its ceiling "
+          f"{dense_dft_bound_ms(BAND_CLIPS, T, Fb, 1024):.3f} ms at the FP64 "
+          f"peak, {4e3 * BAND_CLIPS * T * Fb * 1024 / dfma_peak:.3f} ms of "
+          f"DFMA) [{card}]")
+    ms = timings["pipeline_kernel"][0]
+    print(f"pipeline: {ms:.3f} ms per batch, "
+          f"{BAND_CLIPS * BAND_SECONDS / 3600.0 / (ms / 60000.0):.1f} "
+          f"audio-h/min [{card}]")
+    print(json.dumps({"path13_times": {k: v[0] for k, v in
+                                       timings.items()}, "card": card}))
+    return {"stft_band": dict(
+        launches=counts["stft_psd"]["fft"], err=stft_abs,
+        ms=timings["stft_kernel"][0], plain_ms=timings["stft_plain"][0],
+        bound=bound, library_ms=timings["stft_library"][0])}
+
+
+PHASES = ("kernels", "tail", "dc", "scipy", "band", "mel", "path1", "path2",
+          "path3", "path4", "path5", "path6", "path7", "path8", "path9",
+          "path10", "path11", "path12", "path13")
 
 
 def main(_phases=None):
@@ -1767,6 +2339,11 @@ def main(_phases=None):
         dc_check(dev)
     if "scipy" in phases:
         scipy_checks(dev, card)
+    if "band" in phases:
+        band_kernel_cases(dev)
+        repair_cases(dev)
+    if "mel" in phases:
+        mel_kernel_cases(dev)
     rows = {}
     if "path1" in phases:
         rows.update(main_path(dev, card))
@@ -1814,6 +2391,12 @@ def main(_phases=None):
             SpecConfig.scipy_default(RADER_NPERSEG, log_scale=True),
             "path 11, the mixed route's Rader plan")
         torch.cuda.empty_cache()
+    if "path12" in phases:
+        rows.update(mel_path(dev, card))
+        torch.cuda.empty_cache()
+    if "path13" in phases:
+        rows.update(band_path(dev, card, dfma_peak))
+        torch.cuda.empty_cache()
     if _phases is not None:
         print(f"chip_smoke phases {sorted(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -1829,9 +2412,12 @@ def main(_phases=None):
           f"{rows['stft_bluestein']['launches']}; the GEMM kernel's: path 10 "
           f"{rows['stft_gemm']['launches']}; the mixed route's Rader plan's "
           f"(the odd kernel's PACKED form): path 11 "
-          f"{rows['stft_mixed_rader']['launches']}")
+          f"{rows['stft_mixed_rader']['launches']}; the mel kernel's: path "
+          f"12 {rows['mel_project']['launches']}; the FFT kernel on the "
+          f"band: path 13 {rows['stft_band']['launches']}")
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
     tail_src = "spectral_tpu_torch/ops/csrc/display.cu"
+    mel_src = "spectral_tpu_torch/ops/csrc/mel.cu"
     # each row names the instantiation its path launches
     meta = {
         "stft_1024": ("stft_fft_psd<LOG2M 9, 8 values>, nperseg 1024 "
@@ -1868,6 +2454,13 @@ def main(_phases=None):
             f"stft_odd_fft_psd<RADER 1, RMAX 1, PACKED>, the mixed route's "
             f"Rader plan, nperseg {RADER_NPERSEG} (path 11)", "cuda", src,
             "spectral_tpu/ops/stft_pallas.py:367"),
+        "stft_band": ("stft_fft_psd<LOG2M 9, 8 values>, nperseg 1024, the "
+                      "band 0-30 Hz, 31 of 513 bins (path 13)", "cuda", src,
+                      "spectral_tpu/ops/stft_pallas.py:217"),
+        "mel_project": ("mel_project, 128 mels over 513 bins (path 12)",
+                        "cuda", mel_src,
+                        "spectral_tpu/parallel/sharding.py:99 (an XLA "
+                        "einsum; no TPU kernel)"),
         "display_rgba": ("display_map<RGBA, LOG>, RGBA words and the "
                          "image (path 1)", "cuda", tail_src,
                          "spectral_tpu/ops/stft_pallas.py:456"),

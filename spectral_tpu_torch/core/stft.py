@@ -14,17 +14,23 @@ kernels' twiddle tables and plans (:func:`fft_twiddles`, :func:`fft_plan`,
 ``Tensor.unfold`` view; the JAX package's gcd slice-and-concat framing
 works around the TPU compiler and has no counterpart here.
 
-What this module computes is the plain version of the CUDA STFT/PSD kernel
-(``spectral_tpu_torch.ops.stft_cuda``). Only the dense route is ported; the
-centered framing and the non-PSD modes raise until their ROADMAP item.
+What this module computes on a CPU tensor is the plain version of the CUDA
+STFT/PSD kernel (``spectral_tpu_torch.ops.stft_cuda``); on a CUDA tensor
+its PSD entry points launch that kernel. The reference-parity entry point
+:func:`spectrogram` and the band mask (:func:`band_row_slice`,
+:func:`mask_band_rows`, :func:`effective_config`) are the JAX package's.
+The centered framing and the non-PSD modes raise until their ROADMAP
+item.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import math
-from typing import Iterator, NamedTuple, Tuple
+import warnings
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -512,27 +518,166 @@ def _require_dense_psd(cfg: SpecConfig) -> None:
             "[ext-modes] (the extended modes)")
 
 
+def _dense_psd(x: torch.Tensor, fs: float, cfg: SpecConfig,
+               band: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The plain dense route in x's float dtype on x's device: frame-major
+    (..., T, F), or only the bins band = (lo, hi), whose matrix columns
+    and weights are sliced before the product (each kept bin is the same
+    dot product as the full band's)."""
+    a_re, a_im = dft_matrices(cfg)
+    wts = onesided_weights(cfg, fs)
+    if band is not None:
+        a_re, a_im = a_re[:, band[0]:band[1]], a_im[:, band[0]:band[1]]
+        wts = wts[band[0]:band[1]]
+
+    def const(a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(np.ascontiguousarray(a), dtype=x.dtype,
+                            device=x.device)
+
+    return dense_power(frame_signal(x, cfg.nperseg, cfg.hop_),
+                       const(a_re), const(a_im), const(wts))
+
+
+def _kernel_psd(x: torch.Tensor, fs: float, cfg: SpecConfig,
+                band: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The route's STFT/PSD kernel on a tensor off the CPU, (..., n) ->
+    (..., T, F or hi - lo): the leading axes flattened into the kernel's
+    clips and restored."""
+    from spectral_tpu_torch.ops import stft_cuda   # it imports this module
+    lead = x.shape[:-1]
+    p = stft_cuda.stft_psd(x.reshape(-1, x.shape[-1]).contiguous(), fs, cfg,
+                           band=band)
+    return p.reshape(lead + p.shape[-2:])
+
+
 def power_spectrogram(x, fs: float, cfg: SpecConfig) -> torch.Tensor:
     """PSD spectrogram, frame-major: (..., n) -> (..., nframes, n_freqs).
 
-    The dense window/detrend-folded DFT route of the JAX package's
-    ``power_spectrogram(use_matmul=True)``, computed in x's float dtype on
-    x's device."""
-    _require_dense_psd(cfg)
-    x = ensure_real_waveform(x)
-    a_re, a_im = dft_matrices(cfg)
-
-    def const(a: np.ndarray) -> torch.Tensor:
-        return torch.tensor(a, dtype=x.dtype, device=x.device)
-
-    return dense_power(frame_signal(x, cfg.nperseg, cfg.hop_),
-                       const(a_re), const(a_im),
-                       const(onesided_weights(cfg, fs)))
+    On a CPU tensor, the dense window/detrend-folded DFT route of the JAX
+    package's ``power_spectrogram(use_matmul=True)``, computed in x's
+    float dtype (the plain version). On a CUDA tensor, one launch of the
+    route's STFT/PSD kernel (``ops.stft_cuda.stft_psd``), which takes
+    float32 and the configs it computes, and raises on anything else."""
+    return power_spectrogram_fm(x, fs, cfg).transpose(-1, -2)
 
 
 def power_spectrogram_fm(x, fs: float, cfg: SpecConfig,
-                         flip_freqs: bool = False) -> torch.Tensor:
+                         flip_freqs: bool = False,
+                         band: Optional[Tuple[int, int]] = None
+                         ) -> torch.Tensor:
     """Freq-major PSD: (..., n) -> (..., n_freqs, nframes), the display
-    layout; flip_freqs=True puts the highest frequency in row 0."""
-    p = power_spectrogram(x, fs, cfg).transpose(-1, -2)
+    layout; flip_freqs=True puts the highest frequency in row 0.
+    band=(lo, hi) returns only those bins of the unflipped one-sided axis
+    (the reference's row mask, PlotEngine.py:114-115), flipped within the
+    band under flip_freqs: the kernel and the plain version compute only
+    those bins, each bitwise the full band's. Device and dtype as
+    :func:`power_spectrogram`."""
+    _require_dense_psd(cfg)
+    if band is not None and not cfg.onesided:
+        raise ValueError("band slicing requires a one-sided spectrum")
+    x = ensure_real_waveform(x)
+    if x.device.type == "cpu":
+        p = _dense_psd(x, fs, cfg, band)
+    else:
+        p = _kernel_psd(x, fs, cfg, band)
+    p = p.transpose(-1, -2)
     return p.flip(-2) if flip_freqs else p
+
+
+def effective_config(cfg: SpecConfig, n: int) -> SpecConfig:
+    """scipy's short-signal auto-shrink: nperseg greater than the signal
+    length shrinks to the length (with scipy's UserWarning text), and the
+    scipy-default hop/noverlap recompute from the shrunk nperseg — so a
+    signal shorter than nperseg yields ONE frame like the reference, not
+    an empty spectrogram. Scoped to scipy-compat semantics (hop=None,
+    center=False); generalized explicit-hop configs keep their static
+    shape and yield zero frames, as num_frames documents."""
+    if 0 < n < cfg.nperseg and cfg.hop is None and not cfg.center:
+        warnings.warn(f"nperseg = {cfg.nperseg} is greater than input "
+                      f"length  = {n}, using nperseg = {n}", UserWarning)
+        return dataclasses.replace(cfg, nperseg=n)
+    return cfg
+
+
+def spectrogram(x, fs: float, cfg: SpecConfig
+                ) -> Tuple[np.ndarray, np.ndarray, torch.Tensor]:
+    """Reference-parity spectrogram: returns (f, t, Sxx), Sxx freq-major
+    (..., n_masked_freqs, nframes) on x's device, f and t host numpy.
+
+    Mirrors PlotEngine._plot_spectrogram's compute portion
+    (PlotEngine.py:113-115): the scipy call (after scipy's short-signal
+    shrink, :func:`effective_config`) and the frequency-band row mask
+    [cfg.fmin, cfg.fmax], applied before anything else (before any
+    normalization). A contiguous band on a one-sided axis is computed
+    alone (``power_spectrogram_fm(band=...)``); an empty one gives no rows,
+    as the reference's mask does. PSD mode only: the magnitude and complex
+    modes arrive with ROADMAP [ext-modes]."""
+    x = ensure_real_waveform(x)
+    cfg = effective_config(cfg, x.shape[-1])
+    if cfg.mode == "complex":
+        raise NotImplementedError(
+            "mode='complex' (the complex STFT) arrives with ROADMAP "
+            "[ext-modes] (the extended modes)")
+    _require_dense_psd(cfg)
+    f = freq_axis(cfg, fs)
+    t = time_axis(cfg, fs, x.shape[-1])
+    if cfg.fmin is None and cfg.fmax is None:
+        return f, t, power_spectrogram_fm(x, fs, cfg)
+    idx = _band_rows(f, cfg.fmin, cfg.fmax)
+    if cfg.onesided and idx.size and idx[-1] - idx[0] + 1 == idx.size:
+        band = (int(idx[0]), int(idx[-1]) + 1)
+        return f[band[0]:band[1]], t, power_spectrogram_fm(x, fs, cfg,
+                                                           band=band)
+    f, sxx = mask_band_rows(f, power_spectrogram_fm(x, fs, cfg), cfg.fmin,
+                            cfg.fmax)
+    return f, t, sxx
+
+
+def _band_rows(f: np.ndarray, fmin: Optional[float],
+               fmax: Optional[float]) -> np.ndarray:
+    """The rows of f inside [fmin, fmax] (None: unbounded), ascending."""
+    lo = fmin if fmin is not None else -np.inf
+    hi = fmax if fmax is not None else np.inf
+    return np.where((f >= lo) & (f <= hi))[0]
+
+
+def band_row_slice(f: np.ndarray, fmin: Optional[float],
+                   fmax: Optional[float]) -> Optional[Tuple[int, int]]:
+    """Static (lo, hi) row slice of the reference's frequency mask
+    (PlotEngine.py:114-115) on a monotone frequency axis; None = no mask.
+    Raises on an empty band (a dataset export should refuse instead of
+    writing blank images; interactive callers that need the reference's
+    empty-band early-return check emptiness themselves first) and on a
+    non-contiguous mask (two-sided fftfreq ordering — use
+    :func:`mask_band_rows`' gather fallback there)."""
+    if fmin is None and fmax is None:
+        return None
+    idx = _band_rows(f, fmin, fmax)
+    if idx.size == 0:
+        raise ValueError(
+            f"the requested band [{fmin}, {fmax}] Hz contains no "
+            f"frequency rows (axis spans {f[0]:.6g}..{f[-1]:.6g} Hz)")
+    if idx.size != int(idx[-1]) - int(idx[0]) + 1:
+        raise ValueError("band mask is non-contiguous on this frequency "
+                         "axis (two-sided spectra are not supported here)")
+    return int(idx[0]), int(idx[-1]) + 1
+
+
+def mask_band_rows(f: np.ndarray, sxx, fmin: Optional[float],
+                   fmax: Optional[float]):
+    """Apply the reference's frequency row mask (PlotEngine.py:114-115) to a
+    freq-major spectrogram (..., F, T), a numpy array or a tensor: a slice
+    where the masked band is contiguous (one-sided spectra), a gather where
+    it is not (two-sided fftfreq ordering). Returns (f masked, sxx
+    masked)."""
+    idx = _band_rows(f, fmin, fmax)
+    f = f[idx]
+    axis = sxx.ndim - 2
+    if idx.size == 0:
+        return f, sxx[..., :0, :]
+    if bool(np.all(np.diff(idx) == 1)):
+        return f, sxx[..., int(idx[0]):int(idx[-1]) + 1, :]
+    if isinstance(sxx, np.ndarray):
+        return f, np.take(sxx, idx, axis=axis)
+    return f, torch.index_select(
+        sxx, axis, torch.as_tensor(idx, dtype=torch.long, device=sxx.device))

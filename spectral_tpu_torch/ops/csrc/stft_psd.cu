@@ -602,16 +602,32 @@ __device__ __forceinline__ double2 frame_line(const float* frame, int K,
   return make_double2(s.x / K, detrend == DETREND_LINEAR ? s.y / d : 0.0);
 }
 
-// One bin of row r: the power pw rounded once to float32 (or its log10),
-// folded into the row's NaN-propagating (lo, hi)
+// The bins the FFT kernels write, the fmin/fmax band mask (the reference
+// masks rows before it normalizes, PlotEngine.py:114-127): bins lo to lo +
+// n - 1, bin f at column f - lo of an output row n wide; lo 0 and n the
+// config's bin count for the full band. The transform is the full band's
+// whatever the band: only the epilogue's bins, its stores and the row's
+// (min, max) shrink, so each stored bin is the full band's bit for bit.
+struct Band {
+  int lo;
+  int n;
+  __device__ __forceinline__ int end() const { return lo + n; }
+  __device__ __forceinline__ bool has(int f) const {
+    return static_cast<unsigned>(f - lo) < static_cast<unsigned>(n);
+  }
+};
+
+// One bin f of row r, in the band: the power pw rounded once to float32
+// (or its log10), folded into the row's NaN-propagating (lo, hi)
 __device__ __forceinline__ void store_bin(double pw, float* __restrict__ out,
-                                          long long r, int F, int f,
+                                          long long r, Band band, int f,
                                           int log10_out, float& lo,
                                           float& hi) {
   const float p = static_cast<float>(pw);
   lo = nan_min(lo, p);
   hi = nan_max(hi, p);
-  out[r * F + f] = log10_out ? static_cast<float>(log10(pw + 1e-20)) : p;
+  out[r * band.n + (f - band.lo)] =
+      log10_out ? static_cast<float>(log10(pw + 1e-20)) : p;
 }
 
 // The row's (min, max) over the block, one partial per row; red_lo and
@@ -648,19 +664,20 @@ __device__ __forceinline__ void row_extrema(float lo, float hi, float* red_lo,
 // E = (Z[g] + conj Z[M - g]) / 2 and O = -i (Z[g] - conj Z[M - g]) / 2
 // (indices mod M), X[f] = E + W_K^g O (W_K^g = split[g], -1 at g = M);
 // then the power, log10_out and the NaN-propagating (min, max) of the
-// row, one partial per row; bins in natural order, so the stores of one
-// frame coalesce. red_lo/red_hi hold one float per warp.
+// row, one partial per row, over the band's bins; bins in natural order,
+// so the stores of one frame coalesce. red_lo/red_hi hold one float per
+// warp.
 template <typename Read>
 __device__ __forceinline__ void split_psd_epilogue(
     Read z, const double2* __restrict__ split,
     const double* __restrict__ wts, float* __restrict__ out,
     float* __restrict__ part_min, float* __restrict__ part_max,
-    float* red_lo, float* red_hi, int r, int F, int K, int log10_out,
+    float* red_lo, float* red_hi, int r, Band band, int K, int log10_out,
     int with_stats) {
   const int M = K >> 1;
   float lo = INFINITY;
   float hi = -INFINITY;
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+  for (int f = band.lo + threadIdx.x; f < band.end(); f += blockDim.x) {
     const int g = f <= M ? f : K - f;
     const double2 a = z(g == M ? 0 : g);
     const double2 b = z(g == 0 ? 0 : M - g);
@@ -671,7 +688,7 @@ __device__ __forceinline__ void split_psd_epilogue(
     const double o_i = 0.5 * (b.x - a.x);
     const double xr = er + (w.x * o_r - w.y * o_i);
     const double xi = ei + (w.x * o_i + w.y * o_r);
-    store_bin(power(xr, xi, wts[f]), out, r, F, f, log10_out, lo, hi);
+    store_bin(power(xr, xi, wts[f]), out, r, band, f, log10_out, lo, hi);
   }
   if (with_stats)
     row_extrema(lo, hi, red_lo, red_hi, part_min, part_max, r);
@@ -839,8 +856,10 @@ __device__ __forceinline__ double2 r2_frame_sum(double2 s, double2* scratch) {
   }
 }
 
-// The epilogue of row r from its natural-order Z in the buffer: bins u, u +
-// P, ... as split_psd_epilogue computes them; the (min, max) partial by
+// The epilogue of row r from its natural-order Z in the buffer: the band's
+// bins lo + u, lo + u + P, ... as split_psd_epilogue computes them (the
+// buffer is read after the frame's barrier, so a lane may read any
+// slot, whatever the swizzle); the (min, max) partial by
 // shuffles over the frame's lanes, or by row_extrema when the frame is
 // the block. Rows past the last (valid false) store nothing.
 template <int LOG2M, int LR>
@@ -848,15 +867,15 @@ __device__ __forceinline__ void r2_epilogue(
     const double2* buf, const double2* __restrict__ split,
     const double* __restrict__ wts, float* __restrict__ out,
     float* __restrict__ part_min, float* __restrict__ part_max,
-    float* red_lo, float* red_hi, int fl, int u, int r, bool valid, int F,
-    int log10_out, int with_stats) {
+    float* red_lo, float* red_hi, int fl, int u, int r, bool valid,
+    Band band, int log10_out, int with_stats) {
   using G = R2Geometry<LOG2M, LR>;
   constexpr int M = G::M;
   constexpr int K = 2 * M;
   constexpr int P = G::P;
   float lo = INFINITY;
   float hi = -INFINITY;
-  for (int f = u; f < F; f += P) {
+  for (int f = band.lo + u; f < band.end(); f += P) {
     const int g = f <= M ? f : K - f;
     const double2 a = buf[r2_slot<LOG2M, LR>(fl, g == M ? 0 : g)];
     const double2 b = buf[r2_slot<LOG2M, LR>(fl, g == 0 ? 0 : M - g)];
@@ -868,7 +887,7 @@ __device__ __forceinline__ void r2_epilogue(
     const double xr = er + (w.x * o_r - w.y * o_i);
     const double xi = ei + (w.x * o_i + w.y * o_r);
     if (valid)
-      store_bin(power(xr, xi, wts[f]), out, r, F, f, log10_out, lo, hi);
+      store_bin(power(xr, xi, wts[f]), out, r, band, f, log10_out, lo, hi);
   }
   if (!with_stats) return;
   if constexpr (P > 32) {
@@ -894,8 +913,8 @@ stft_fft_psd_kernel(const float* __restrict__ x,
                     const double2* __restrict__ tw,
                     const double* __restrict__ wts, float* __restrict__ out,
                     float* __restrict__ part_min, float* __restrict__ part_max,
-                    long long n, int R, int T, int F, int hop, int detrend,
-                    int log10_out, int with_stats) {
+                    long long n, int R, int T, Band band, int hop,
+                    int detrend, int log10_out, int with_stats) {
   using G = R2Geometry<LOG2M, LR>;
   constexpr int V = G::VALUES;
   constexpr int K = 2 * G::M;
@@ -970,7 +989,7 @@ stft_fft_psd_kernel(const float* __restrict__ x,
   r2_store<LOG2M, LR, G::PASSES - 1>(v, buf, fl, u);
   r2_sync<P>();
   r2_epilogue<LOG2M, LR>(buf, tw + (G::M - 1), wts, out, part_min,
-                         part_max, red_lo, red_hi, fl, u, r, valid, F,
+                         part_max, red_lo, red_hi, fl, u, r, valid, band,
                          log10_out, with_stats);
 }
 
@@ -1529,7 +1548,7 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
                           float* __restrict__ out,
                           float* __restrict__ part_min,
                           float* __restrict__ part_max, long long n, int R,
-                          int T, int F, int K, int hop, int detrend,
+                          int T, Band band, int K, int hop, int detrend,
                           int log10_out, int with_stats,
                           const __grid_constant__ MixRegPlan plan) {
   extern __shared__ double2 buf[];  // plan.frames frames of K/2 values
@@ -1651,12 +1670,11 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
   }
 
   // the split step and the PSD epilogue of row r: bins g and M - g from
-  // Z[g] and Z[M - g] together, g = u, u + pf, ... up to M/2; past M (two
-  // sided) bin f as bin K - f
+  // Z[g] and Z[M - g] together, g = u, u + pf, ... up to M/2, each stored
+  // where it lies in the band; past M (two sided) bin f as bin K - f
   const double2* split = tw + plan.split;
   float lo = INFINITY;
   float hi = -INFINITY;
-  const int last = F - 1 < M ? F - 1 : M;      // the largest bin up to M
   // bin f from a = Z[g], b = Z[M - g], w = W_K^g and its weight, as
   // split_psd_epilogue
   const auto bin = [&](int f, double2 a, double2 b, double2 w, double wt) {
@@ -1666,19 +1684,21 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
     const double o_i = 0.5 * (b.x - a.x);
     const double xr = er + (w.x * o_r - w.y * o_i);
     const double xi = ei + (w.x * o_i + w.y * o_r);
-    if (valid) store_bin(power(xr, xi, wt), out, r, F, f, log10_out, lo, hi);
+    if (valid)
+      store_bin(power(xr, xi, wt), out, r, band, f, log10_out, lo, hi);
   };
 #pragma unroll 2
   for (int g = u; 2 * g <= M; g += pf) {
     const double2 a = fbuf[g];
     const double2 b = fbuf[g == 0 ? 0 : M - g];
-    if (g <= last)
+    if (band.has(g))
       bin(g, a, b, g < M ? split[g] : make_double2(-1.0, 0.0), wts[g]);
     const int f = M - g;                     // Z[f] is b, Z[M - f] is a
-    if (f > g && f <= last)
+    if (f > g && band.has(f))
       bin(f, b, a, f < M ? split[f] : make_double2(-1.0, 0.0), wts[f]);
   }
-  for (int f = M + 1 + u; f < F; f += pf) {
+  for (int f = (band.lo > M ? band.lo : M + 1) + u; f < band.end();
+       f += pf) {
     const int g = K - f;
     bin(f, fbuf[g], fbuf[M - g], split[g], wts[f]);
   }
@@ -2031,26 +2051,27 @@ struct ConvRaderRead {
 
 // The odd kernels' epilogue: the bins of row r0 from a lone frame's
 // transform z, X[f] = Z[f], or of rows r0 and r0 + 1 from a pair's, A[f] =
-// (Z[f] + conj Z[K - f]) / 2 and B[f] = (Z[f] - conj Z[K - f]) / 2i; the
-// power, log10_out and each row's (min, max)
+// (Z[f] + conj Z[K - f]) / 2 and B[f] = (Z[f] - conj Z[K - f]) / 2i, for
+// the band's bins f; the power, log10_out and each row's (min, max)
 template <typename Read>
 __device__ __forceinline__ void pair_psd_epilogue(
-    Read z, int r0, bool pair, int K, int F, const double* __restrict__ wts,
+    Read z, int r0, bool pair, int K, Band band,
+    const double* __restrict__ wts,
     float* __restrict__ out, float* __restrict__ part_min,
     float* __restrict__ part_max, float (*red_lo)[FFT_MAX_WARPS],
     float (*red_hi)[FFT_MAX_WARPS], int log10_out, int with_stats) {
   float lo[2] = {INFINITY, INFINITY};
   float hi[2] = {-INFINITY, -INFINITY};
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+  for (int f = band.lo + threadIdx.x; f < band.end(); f += blockDim.x) {
     const double2 a = z(f);
     if (pair) {
       const double2 b = z(f == 0 ? 0 : K - f);
       store_bin(power(0.5 * (a.x + b.x), 0.5 * (a.y - b.y), wts[f]), out, r0,
-                F, f, log10_out, lo[0], hi[0]);
+                band, f, log10_out, lo[0], hi[0]);
       store_bin(power(0.5 * (a.y + b.y), 0.5 * (b.x - a.x), wts[f]), out,
-                r0 + 1, F, f, log10_out, lo[1], hi[1]);
+                r0 + 1, band, f, log10_out, lo[1], hi[1]);
     } else {
-      store_bin(power(a.x, a.y, wts[f]), out, r0, F, f, log10_out, lo[0],
+      store_bin(power(a.x, a.y, wts[f]), out, r0, band, f, log10_out, lo[0],
                 hi[0]);
     }
   }
@@ -2147,8 +2168,8 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
                         const double* __restrict__ wts,
                         float* __restrict__ out, float* __restrict__ part_min,
                         float* __restrict__ part_max, long long n, int T,
-                        int F, int K, int hop, int detrend, int log10_out,
-                        int with_stats, int pack,
+                        Band band, int K, int hop, int detrend,
+                        int log10_out, int with_stats, int pack,
                         const __grid_constant__ ConvPlan plan) {
   extern __shared__ double2 buf[];  // K complex values
   __shared__ double2 roots[RMAX > 0 ? MIX_MAX_RADIX + 1 : 1];
@@ -2181,7 +2202,8 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
                                       &x_sum});
     split_psd_epilogue(ConvRaderRead{buf, perm, &x_sum, P, map},
                        tw + plan.split, wts, out, part_min, part_max,
-                       red_lo[0], red_hi[0], r, F, K, log10_out, with_stats);
+                       red_lo[0], red_hi[0], r, band, K, log10_out,
+                       with_stats);
     return;
   }
   const int pairs = (T + 1) >> 1;
@@ -2233,12 +2255,12 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
                            RaderProduct{tw + plan.rader, buf + map(P),
                                         &x_sum});
       pair_psd_epilogue(ConvRaderRead{buf, perm, &x_sum, P, map}, ra + u,
-                        paired, K, F, wts, out, part_min, part_max, red_lo,
+                        paired, K, band, wts, out, part_min, part_max, red_lo,
                         red_hi, log10_out, with_stats);
     } else {
       conv_forward<RMAX>(buf, roots, small, tw, plan, K, 0);
-      pair_psd_epilogue(ConvRead{buf, map}, ra + u, paired, K, F, wts, out,
-                        part_min, part_max, red_lo, red_hi, log10_out,
+      pair_psd_epilogue(ConvRead{buf, map}, ra + u, paired, K, band, wts,
+                        out, part_min, part_max, red_lo, red_hi, log10_out,
                         with_stats);
     }
   }
@@ -2388,9 +2410,9 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
                           float* __restrict__ out,
                           float* __restrict__ part_min,
                           float* __restrict__ part_max, long long n, int T,
-                          int F, int K, int hop, int detrend, int log10_out,
-                          int with_stats, int M, int bhat, int chirp_row,
-                          int half_row,
+                          Band band, int K, int hop, int detrend,
+                          int log10_out, int with_stats, int M, int bhat,
+                          int chirp_row, int half_row,
                           const __grid_constant__ ConvPlan plan) {
   extern __shared__ double2 buf[];  // M / RANKS complex values
   __shared__ double2 small[SMALL_ROOTS];
@@ -2467,10 +2489,10 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
     if (even)
       split_psd_epilogue(BluesteinRead{buf, chirp, map}, tw + plan.split,
                          wts, out, part_min, part_max, red_lo[0], red_hi[0],
-                         ra, F, K, log10_out, with_stats);
+                         ra, band, K, log10_out, with_stats);
     else
-      pair_psd_epilogue(BluesteinRead{buf, chirp, map}, ra + u, paired, K, F,
-                        wts, out, part_min, part_max, red_lo, red_hi,
+      pair_psd_epilogue(BluesteinRead{buf, chirp, map}, ra + u, paired, K,
+                        band, wts, out, part_min, part_max, red_lo, red_hi,
                         log10_out, with_stats);
   }
 }
@@ -2684,7 +2706,7 @@ constexpr int R2_LR[13] = {0, 0, 0, 0, 3, 3, 3, 3, 3, 3, 4, 4, 4};
 template <int LOG2M>
 int r2_launch(const float* x, const double* win, const double* tw,
               const double* wts, float* out, float* part_min,
-              float* part_max, int R, long long n, int T, int F, int hop,
+              float* part_max, int R, long long n, int T, Band band, int hop,
               int detrend, int log10_out, int with_stats, cudaStream_t s) {
   constexpr int LR = R2_LR[LOG2M];
   using G = R2Geometry<LOG2M, LR>;
@@ -2699,8 +2721,14 @@ int r2_launch(const float* x, const double* win, const double* tw,
       static_cast<unsigned>((R + G::FRAMES - 1) / G::FRAMES);
   stft_fft_psd_kernel<LOG2M, LR><<<blocks, G::THREADS, G::SMEM, s>>>(
       x, win, reinterpret_cast<const double2*>(tw), wts, out, part_min,
-      part_max, n, R, T, F, hop, detrend, log10_out, with_stats);
+      part_max, n, R, T, band, hop, detrend, log10_out, with_stats);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The band [f_lo, f_lo + F) of a K-point transform's bins, or false when
+// it is empty or lies past them
+bool band_ok(int f_lo, int F, int K) {
+  return f_lo >= 0 && F >= 1 && f_lo + F <= K;
 }
 
 }  // namespace
@@ -2725,8 +2753,8 @@ int stft_psd_launch(const float* x, const double* a_re, const double* a_im,
                     int hop, int log10_out, int with_stats, void* stream) {
   const int R = B * T;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (F <= SK_MAX_F) {
-    if (K < 1 || K >= 2 * SK_MAX_F || T < 1 || hop < 1)
+  if (F <= SK_MAX_F && K < 2 * SK_MAX_F) {
+    if (K < 1 || T < 1 || hop < 1)
       return static_cast<int>(cudaErrorInvalidValue);
     const int groups = F > SK_BINS ? 2 : 1;
     const int nb = (F + groups - 1) / groups;   // NB, 1 to SK_BINS
@@ -2764,9 +2792,11 @@ int stft_psd_launch(const float* x, const double* a_re, const double* a_im,
 // take, else that of raising the kernel's shared memory limit, else that
 // of the launch. x is (B, n) contiguous f32; win is (K,) f64; tw is
 // (K - 1, 2) f64, the
-// stage-ordered (cos, sin) rows of core/stft.py::fft_twiddles; wts is (F,)
-// f64 with F <= K; out is (B, T, F) f32;
-// part_min/part_max are (B * T,) f32 and may be null when with_stats is 0.
+// stage-ordered (cos, sin) rows of core/stft.py::fft_twiddles; wts holds
+// every bin's weight, f64, at least f_lo + F of them; out is (B, T, F)
+// f32, the band of F bins from bin f_lo (the full band: f_lo 0 and F the
+// config's bin count), f_lo + F <= K; part_min/part_max are (B * T,) f32,
+// each row's over the band, and may be null when with_stats is 0.
 // K is a power of two from 32 to 8192; detrend is 0 for none, 1 for
 // constant, 2 for linear, and any other value is refused. The caller keeps
 // B * T within the grid's limit.
@@ -2774,42 +2804,43 @@ int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
                         const double* wts, float* out, float* part_min,
                         float* part_max, int B, long long n, int T, int F,
                         int K, int hop, int detrend, int log10_out,
-                        int with_stats, void* stream) {
+                        int with_stats, int f_lo, void* stream) {
   int log2k = 0;
   while ((1 << log2k) < K) ++log2k;
-  if (K < 32 || K > 8192 || (1 << log2k) != K || F < 1 || F > K ||
+  if (K < 32 || K > 8192 || (1 << log2k) != K || !band_ok(f_lo, F, K) ||
       !detrend_ok(detrend))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = B * T;
+  const Band band{f_lo, F};
   switch (log2k - 1) {
     case 4:
       return r2_launch<4>(x, win, tw, wts, out, part_min, part_max, R, n, T,
-                          F, hop, detrend, log10_out, with_stats, s);
+                          band, hop, detrend, log10_out, with_stats, s);
     case 5:
       return r2_launch<5>(x, win, tw, wts, out, part_min, part_max, R, n, T,
-                          F, hop, detrend, log10_out, with_stats, s);
+                          band, hop, detrend, log10_out, with_stats, s);
     case 6:
       return r2_launch<6>(x, win, tw, wts, out, part_min, part_max, R, n, T,
-                          F, hop, detrend, log10_out, with_stats, s);
+                          band, hop, detrend, log10_out, with_stats, s);
     case 7:
       return r2_launch<7>(x, win, tw, wts, out, part_min, part_max, R, n, T,
-                          F, hop, detrend, log10_out, with_stats, s);
+                          band, hop, detrend, log10_out, with_stats, s);
     case 8:
       return r2_launch<8>(x, win, tw, wts, out, part_min, part_max, R, n, T,
-                          F, hop, detrend, log10_out, with_stats, s);
+                          band, hop, detrend, log10_out, with_stats, s);
     case 9:
       return r2_launch<9>(x, win, tw, wts, out, part_min, part_max, R, n, T,
-                          F, hop, detrend, log10_out, with_stats, s);
+                          band, hop, detrend, log10_out, with_stats, s);
     case 10:
       return r2_launch<10>(x, win, tw, wts, out, part_min, part_max, R, n,
-                           T, F, hop, detrend, log10_out, with_stats, s);
+                           T, band, hop, detrend, log10_out, with_stats, s);
     case 11:
       return r2_launch<11>(x, win, tw, wts, out, part_min, part_max, R, n,
-                           T, F, hop, detrend, log10_out, with_stats, s);
+                           T, band, hop, detrend, log10_out, with_stats, s);
     case 12:
       return r2_launch<12>(x, win, tw, wts, out, part_min, part_max, R, n,
-                           T, F, hop, detrend, log10_out, with_stats, s);
+                           T, band, hop, detrend, log10_out, with_stats, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -2822,9 +2853,8 @@ int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
 // (n_stages, 4) int32 rows (radix, span, twiddle row, root row), both
 // from core/stft.py::fft_plan, with split the first row of the split
 // step's twiddles and rader the first row of the Rader stage's b^ (-1
-// without one); wts is (F,) f64 with F <= K; out is (B, T, F) f32;
-// part_min/part_max are (B * T,) f32 and may be null when with_stats is
-// 0. K is even, 32 to 8192; detrend is 0 for none, 1 for constant, 2 for
+// without one); wts, out, part_min, part_max, F and f_lo as the FFT
+// route's. K is even, 32 to 8192; detrend is 0 for none, 1 for constant, 2 for
 // linear, and any other value is refused. The caller keeps B * T within
 // the grid's limit.
 int stft_mixed_fft_psd_launch(const float* x, const double* win,
@@ -2834,11 +2864,12 @@ int stft_mixed_fft_psd_launch(const float* x, const double* win,
                               float* part_min, float* part_max, int B,
                               long long n, int T, int F, int K, int hop,
                               int detrend, int log10_out, int with_stats,
-                              void* stream) {
+                              int f_lo, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
-  if (K < 32 || K > 8192 || K % 2 || F < 1 || F > K || !detrend_ok(detrend) ||
-      split < 0)
+  if (K < 32 || K > 8192 || K % 2 || !band_ok(f_lo, F, K) ||
+      !detrend_ok(detrend) || split < 0)
     return static_cast<int>(bad);
+  const Band band{f_lo, F};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const double2* tw2 = reinterpret_cast<const double2*>(tw);
   if (rader >= 0) {
@@ -2859,7 +2890,7 @@ int stft_mixed_fft_psd_launch(const float* x, const double* win,
     const unsigned blocks =
         static_cast<unsigned>(B) * static_cast<unsigned>(T);
     kernel<<<blocks, threads, smem, st>>>(x, win, perm, tw2, wts, out,
-                                          part_min, part_max, n, T, F, K,
+                                          part_min, part_max, n, T, band, K,
                                           hop, detrend, log10_out,
                                           with_stats, 1, plan);
     return static_cast<int>(cudaGetLastError());
@@ -2880,8 +2911,8 @@ int stft_mixed_fft_psd_launch(const float* x, const double* win,
   const unsigned blocks =
       static_cast<unsigned>((R + plan.frames - 1) / plan.frames);
   kernel<<<blocks, MIX_THREADS, smem, st>>>(x, win, perm, tw2, wts, out,
-                                             part_min, part_max, n, R, T, F,
-                                             K, hop, detrend, log10_out,
+                                             part_min, part_max, n, R, T,
+                                             band, K, hop, detrend, log10_out,
                                              with_stats, plan);
   return static_cast<int>(cudaGetLastError());
 }
@@ -2899,12 +2930,12 @@ int stft_odd_fft_psd_launch(const float* x, const double* win,
                             float* part_max, int B, long long n, int T,
                             int F, int K, int hop, int detrend,
                             int log10_out, int with_stats, int pack,
-                            void* stream) {
+                            int f_lo, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   ConvPlan plan;
   int rmax = 0;
   int threads = 0;
-  if (K < 33 || K > 8191 || K % 2 == 0 || F < 1 || F > K ||
+  if (K < 33 || K > 8191 || K % 2 == 0 || !band_ok(f_lo, F, K) ||
       !detrend_ok(detrend) || rader < -1 ||
       !conv_plan(stages, n_stages, rader >= 0 ? K - 1 : K, rader, -1,
                  rader >= 0, K,
@@ -2927,8 +2958,8 @@ int stft_odd_fft_psd_launch(const float* x, const double* win,
       static_cast<unsigned>(B) * static_cast<unsigned>((T + 1) / 2);
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, win, perm, reinterpret_cast<const double2*>(tw), wts, out, part_min,
-      part_max, n, T, F, K, hop, detrend, log10_out, with_stats, pack != 0,
-      plan);
+      part_max, n, T, Band{f_lo, F}, K, hop, detrend, log10_out, with_stats,
+      pack != 0, plan);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2940,9 +2971,8 @@ int stft_odd_fft_psd_launch(const float* x, const double* win,
 // HOST memory, the (n_stages, 4) int32 rows of M's plan, both from
 // core/stft.py::bluestein_plan, with bhat, chirp and split the first rows
 // of b^ (M rows), of the chirp (N rows) and of the split step (N rows;
-// -1 for odd K, which has none); wts is (F,) f64 with F <= K; out is (B,
-// T, F) f32; part_min/part_max are (B * T,) f32 and may be null when
-// with_stats is 0. K is 32 to 8192, M >= 2N - 1 (N = K/2, or K when odd)
+// -1 for odd K, which has none); wts, out, part_min, part_max, F and f_lo
+// as the FFT route's. K is 32 to 8192, M >= 2N - 1 (N = K/2, or K when odd)
 // with radices 2, 3, 5 and 7; M past BLUE_MAX_BLOCK_POINTS runs on
 // clusters of two blocks and must be even with a last stage of radix 2 at
 // span M/2, and K odd. detrend is 0 for none, 1 for constant, 2 for
@@ -2956,12 +2986,13 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
                               float* part_min, float* part_max, int B,
                               long long n, int T, int F, int K, int hop,
                               int detrend, int log10_out, int with_stats,
-                              void* stream) {
+                              int f_lo, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   const bool odd = K % 2 == 1;
   const int N = odd ? K : K / 2;
   const int ranks = M > BLUE_MAX_BLOCK_POINTS ? 2 : 1;
-  if (K < 32 || K > 8192 || F < 1 || F > K || !detrend_ok(detrend) ||
+  const Band band{f_lo, F};
+  if (K < 32 || K > 8192 || !band_ok(f_lo, F, K) || !detrend_ok(detrend) ||
       M < 2 * N - 1 || bhat < 0 || chirp < 0 || (split < 0) != odd ||
       n_stages < 1 || n_stages > MIX_MAX_STAGES)
     return static_cast<int>(bad);
@@ -3000,8 +3031,8 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
   const double2* tw2 = reinterpret_cast<const double2*>(tw);
   if (ranks == 1) {
     kernel<<<units, threads, smem, s>>>(
-        x, win, tw2, wts, out, part_min, part_max, n, T, F, K, hop, detrend,
-        log10_out, with_stats, M, bhat, chirp, half_row, plan);
+        x, win, tw2, wts, out, part_min, part_max, n, T, band, K, hop,
+        detrend, log10_out, with_stats, M, bhat, chirp, half_row, plan);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t config = {};
@@ -3017,8 +3048,8 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
   config.attrs = attr;
   config.numAttrs = 1;
   const cudaError_t launched = cudaLaunchKernelEx(
-      &config, kernel, x, win, tw2, wts, out, part_min, part_max, n, T, F, K,
-      hop, detrend, log10_out, with_stats, M, bhat, chirp, half_row, plan);
+      &config, kernel, x, win, tw2, wts, out, part_min, part_max, n, T, band,
+      K, hop, detrend, log10_out, with_stats, M, bhat, chirp, half_row, plan);
   if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }

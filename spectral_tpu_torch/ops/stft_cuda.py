@@ -64,6 +64,16 @@ written to memory. All compute the same function, by five routes that
 The FFT kernels take the detrend as a code (:data:`DETREND_CODES`: 0
 none, 1 constant, 2 linear); their launchers refuse any other value.
 
+The fmin/fmax band mask (the reference masks rows before it normalizes,
+PlotEngine.py:114-127) is a bin range ``band=(lo, hi)``: every route writes
+the bins lo to hi - 1 alone, bin f at column f - lo, and reduces each
+row's (min, max) over them, so the display reads the displayed spectrum.
+The FFT routes still compute the whole transform; only their epilogues
+and stores shrink. The GEMM route computes the band's columns alone, as
+the JAX package folds the band into its dense matrix columns. Each bin's
+arithmetic is the full band's, so a banded output is bitwise the matching
+columns of the full band's on every route.
+
 Precision. Every route computes in float64 from the float32 load to the
 float32 store, with the host's float64 constants unrounded, and round
 once at the store. A float32 chain does not hold the 1e-3 dB display
@@ -97,7 +107,7 @@ kernel or raise; nothing falls back to another route.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -146,9 +156,6 @@ def unsupported_reason(cfg: SpecConfig) -> Optional[str]:
         return ("the STFT kernel computes uncentered PSD with nfft == "
                 "nperseg; other modes arrive with ROADMAP [ext-modes] "
                 "(the extended modes)")
-    if cfg.n_mels is not None or cfg.fmin is not None or cfg.fmax is not None:
-        return ("the mel branch and the fmin/fmax band mask arrive with "
-                "ROADMAP [band-mel] (the rest of the main-path pipeline)")
     if cfg.nperseg > MAX_NPERSEG:
         return (f"nperseg {cfg.nperseg} > {MAX_NPERSEG}, the GUI's ceiling "
                 "(GUI.py:87-90); larger transforms arrive with ROADMAP "
@@ -158,7 +165,9 @@ def unsupported_reason(cfg: SpecConfig) -> Optional[str]:
 
 def kernel_supported(cfg: SpecConfig) -> bool:
     """The semantic conditions of the JAX package's ``pallas_supported``:
-    nfft == nperseg <= 8192, PSD mode, uncentered, no mel, no band mask."""
+    nfft == nperseg <= 8192, PSD mode, uncentered. The band mask and the mel
+    branch are not the kernel's concern: the caller passes the bins
+    (``band``) and projects the PSD (``ops.mel_cuda``)."""
     return unsupported_reason(cfg) is None
 
 
@@ -170,7 +179,8 @@ def check_supported(cfg: SpecConfig) -> None:
 
 def route(cfg: SpecConfig) -> str:
     """The kernel that computes a supported config (:func:`kernel_supported`;
-    others raise NotImplementedError), under any detrend: ``"gemm"`` for
+    others raise NotImplementedError), under any detrend and whatever its
+    band or mel settings: ``"gemm"`` for
     nperseg below 32; ``"fft"`` for a power-of-two nperseg from 32 to
     8192; for the other nperseg in that range whose plan's radices
     (``core.stft.plan_radices``: the prime factors of the transform
@@ -208,15 +218,34 @@ def constants_from_numpy(a_re: np.ndarray, a_im: np.ndarray,
 _CONSTANTS: dict = {}
 
 
-def dft_constants(cfg: SpecConfig, fs: float, device) -> DftConstants:
+def check_band(cfg: SpecConfig, band) -> Tuple[int, int]:
+    """band as (lo, hi), the bins lo to hi - 1 of cfg's n_freqs; None is
+    the full band. Raises ValueError on an empty band or one past the
+    bins."""
+    lo, hi = (0, cfg.n_freqs) if band is None else (int(band[0]),
+                                                     int(band[1]))
+    if not 0 <= lo < hi <= cfg.n_freqs:
+        raise ValueError(f"band {band} is not a nonempty range of the "
+                         f"{cfg.n_freqs} bins")
+    return lo, hi
+
+
+def dft_constants(cfg: SpecConfig, fs: float, device,
+                  band=None) -> DftConstants:
     """The operands for (cfg, fs) in float64, the kernel's precision,
-    cached per device."""
-    key = (cfg, float(fs), str(torch.device(device)))
+    cached per device: with band=(lo, hi) the matrices' columns and the
+    weights of those bins only (the JAX package folds the band into the
+    dense matrix columns the same way, spectral_tpu/core/stft.py:746-755),
+    copied contiguous."""
+    lo, hi = check_band(cfg, band)
+    key = (cfg, float(fs), str(torch.device(device)), lo, hi)
     consts = _CONSTANTS.get(key)
     if consts is None:
         a_re, a_im = dft_matrices(cfg)
-        consts = constants_from_numpy(a_re, a_im, onesided_weights(cfg, fs),
-                                      device, torch.float64)
+        consts = constants_from_numpy(
+            np.ascontiguousarray(a_re[:, lo:hi]),
+            np.ascontiguousarray(a_im[:, lo:hi]),
+            onesided_weights(cfg, fs)[lo:hi], device, torch.float64)
         _CONSTANTS[key] = consts
     return consts
 
@@ -321,7 +350,9 @@ def stft_psd_reference(x: torch.Tensor, consts: DftConstants,
                        with_stats: bool = False):
     """The plain version of the kernel: (B, n) -> (B, T, F) PSD in x's
     dtype, plus (pmin, pmax) of shape (B,) under with_stats
-    (NaN-propagating, like jnp.min/jnp.max).
+    (NaN-propagating, like jnp.min/jnp.max). F is the constants' columns:
+    the band's bins for banded constants (``dft_constants(..., band)``),
+    each the same dot product as the full band's.
 
     It computes as the kernel does: float64 matmuls, epilogue and log10,
     rounded once to x's dtype, and a bin whose |X|² lies past the float32
@@ -330,7 +361,7 @@ def stft_psd_reference(x: torch.Tensor, consts: DftConstants,
     which the kernel does not."""
     B = x.shape[0]
     if num_frames(x.shape[-1], cfg.nperseg, cfg.hop_) <= 0:
-        return _empty_result(B, cfg.n_freqs, x, with_stats)
+        return _empty_result(B, consts.a_re.shape[1], x, with_stats)
     if consts.a_re.dtype != torch.float64:
         raise ValueError(f"the plain STFT computes in float64; got "
                          f"{consts.a_re.dtype} constants")
@@ -362,16 +393,16 @@ def _library() -> ctypes.CDLL:
             i32, ctypes.c_longlong, i32, i32, i32, i32, i32, i32, ptr]
         lib.stft_psd_launch.restype = i32
         lib.stft_fft_psd_launch.argtypes = [ptr] * 7 + [
-            i32, ctypes.c_longlong, i32, i32, i32, i32, i32, i32, i32, ptr]
+            i32, ctypes.c_longlong] + [i32] * 8 + [ptr]
         lib.stft_fft_psd_launch.restype = i32
         lib.stft_mixed_fft_psd_launch.argtypes = [ptr] * 5 + [i32] * 3 + [
-            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 7 + [ptr]
+            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 8 + [ptr]
         lib.stft_mixed_fft_psd_launch.restype = i32
         lib.stft_odd_fft_psd_launch.argtypes = [ptr] * 5 + [i32] * 2 + [
-            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 8 + [ptr]
+            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 9 + [ptr]
         lib.stft_odd_fft_psd_launch.restype = i32
         lib.stft_bluestein_psd_launch.argtypes = [ptr] * 4 + [i32] * 5 + [
-            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 7 + [ptr]
+            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 8 + [ptr]
         lib.stft_bluestein_psd_launch.restype = i32
         lib.stft_psd_freq_tiles.argtypes = [i32]
         lib.stft_psd_freq_tiles.restype = i32
@@ -384,11 +415,15 @@ def _library() -> ctypes.CDLL:
 def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
                    log10_out: bool, with_stats: bool,
                    kernel: Optional[str] = None, pack: bool = True,
-                   partials: bool = False):
+                   partials: bool = False, band=None):
     """The route's launch; ``pack=False`` makes the odd kernel transform
     every frame alone, for timing its packing. With ``partials`` (and
     with_stats) it returns the PSD and the kernel's raw partials, (2,
-    n_tiles, B, T), unreduced."""
+    n_tiles, B, T), unreduced. band=(lo, hi) writes those bins only, and
+    the partials reduce over them: the FFT kernels compute the whole
+    transform and store the band's bins from its weights' rows (the full
+    weights, read at the band's bins), the GEMM kernel computes the band's
+    columns alone."""
     lib = _library()
     kernel = kernel or route(cfg)
     if x.dtype != torch.float32:
@@ -400,7 +435,8 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
         raise ValueError("the STFT kernel needs a contiguous (B, n) waveform")
     B, n = x.shape
     T = num_frames(n, cfg.nperseg, cfg.hop_)
-    F = cfg.n_freqs
+    f_lo, f_hi = check_band(cfg, band)
+    F = f_hi - f_lo
     if T <= 0:
         if partials:
             return x.new_zeros((B, 0, F)), x.new_zeros((2, 1, B, 0))
@@ -423,7 +459,7 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
                 x.data_ptr(), fc.window.data_ptr(), fc.twiddles.data_ptr(),
                 fc.wts.data_ptr(), out.data_ptr(), *stats, B, n, T, F,
                 cfg.nperseg, cfg.hop_, detrend, int(log10_out),
-                int(with_stats), stream)
+                int(with_stats), f_lo, stream)
         elif kernel == "mixed":
             mc = mixed_constants(cfg, fs, x.device)
             err = lib.stft_mixed_fft_psd_launch(
@@ -431,7 +467,7 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
                 mc.twiddles.data_ptr(), mc.stages.ctypes.data,
                 len(mc.stages), mc.split, mc.rader, mc.wts.data_ptr(),
                 out.data_ptr(), *stats, B, n, T, F, cfg.nperseg, cfg.hop_,
-                detrend, int(log10_out), int(with_stats), stream)
+                detrend, int(log10_out), int(with_stats), f_lo, stream)
         elif kernel == "odd":
             mc = mixed_constants(cfg, fs, x.device)
             err = lib.stft_odd_fft_psd_launch(
@@ -439,7 +475,7 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
                 mc.twiddles.data_ptr(), mc.stages.ctypes.data,
                 len(mc.stages), mc.rader, mc.wts.data_ptr(), out.data_ptr(),
                 *stats, B, n, T, F, cfg.nperseg, cfg.hop_, detrend,
-                int(log10_out), int(with_stats), int(pack), stream)
+                int(log10_out), int(with_stats), int(pack), f_lo, stream)
         elif kernel == "bluestein":
             bc = bluestein_constants(cfg, fs, x.device)
             err = lib.stft_bluestein_psd_launch(
@@ -447,9 +483,9 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
                 bc.stages.ctypes.data, len(bc.stages), bc.m, bc.bhat,
                 bc.chirp, bc.split, bc.wts.data_ptr(), out.data_ptr(),
                 *stats, B, n, T, F, cfg.nperseg, cfg.hop_, detrend,
-                int(log10_out), int(with_stats), stream)
+                int(log10_out), int(with_stats), f_lo, stream)
         else:
-            dc = dft_constants(cfg, fs, x.device)
+            dc = dft_constants(cfg, fs, x.device, (f_lo, f_hi))
             err = lib.stft_psd_launch(
                 x.data_ptr(), dc.a_re.data_ptr(), dc.a_im.data_ptr(),
                 dc.wts.data_ptr(), out.data_ptr(), *stats, B, n, T, F,
@@ -468,29 +504,41 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
     return out
 
 
-def stft_psd_partials(x: torch.Tensor, fs: float, cfg: SpecConfig):
+def stft_psd_partials(x: torch.Tensor, fs: float, cfg: SpecConfig,
+                      band=None):
     """The PSD of a (B, n) waveform and its per-row extrema unreduced:
     (B, T, F) float32 and the partials (2, n_tiles, B, T), the min and then
     the max of each frame's bins in each frequency tile (n_tiles 1 but on
     the GEMM route's forced large tile), which ``ops.display_cuda.
-    clip_stats`` reduces per clip. One launch of the route's kernel for a
-    CUDA tensor; for a CPU tensor the plain version, and the partials its
-    per-frame min and max (n_tiles 1)."""
+    clip_stats`` reduces per clip. band=(lo, hi) gives the bins lo to hi -
+    1 alone (F = hi - lo), and the partials over them. One launch of the
+    route's kernel for a CUDA tensor; for a CPU tensor the plain version,
+    and the partials its per-frame min and max (n_tiles 1)."""
     if x.ndim != 2:
         raise ValueError(f"expected a (B, n) waveform, got {x.ndim}-D")
     check_supported(cfg)
     if x.device.type == "cpu":
-        p = stft_psd_reference(x, dft_constants(cfg, fs, x.device), cfg)
-        return p, torch.stack([torch.amin(p, dim=-1),
-                               torch.amax(p, dim=-1)])[:, None]
-    return _stft_psd_cuda(x, fs, cfg, False, True, partials=True)
+        p = stft_psd_reference(x, dft_constants(cfg, fs, x.device, band),
+                               cfg)
+        return p, row_partials(p)
+    return _stft_psd_cuda(x, fs, cfg, False, True, partials=True, band=band)
+
+
+def row_partials(p: torch.Tensor) -> torch.Tensor:
+    """The plain partials of a (B, T, F) tensor: each row's NaN-propagating
+    min and max over its F values, (2, 1, B, T), the kernels' layout."""
+    return torch.stack([torch.amin(p, dim=-1), torch.amax(p, dim=-1)])[:, None]
 
 
 def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
-             with_stats: bool = False, _route: Optional[str] = None):
+             with_stats: bool = False, band=None,
+             _route: Optional[str] = None):
     """Fused PSD spectrogram: (n,) or (B, n) -> (B?, T, F) float32.
 
-    with_stats=True also returns each clip's PSD min and max, (B?,) each,
+    band=(lo, hi) computes the bins lo to hi - 1 alone (F = hi - lo; the
+    fmin/fmax mask, ``core.stft.band_row_slice``), each bitwise the full
+    band's bin on every route; None is the full band. with_stats=True
+    also returns each clip's PSD min and max over those bins, (B?,) each,
     NaN-propagating, for ``core.scale.normalize_from_stats``; it cannot be
     combined with log10_out. A config outside :func:`kernel_supported`
     raises NotImplementedError on every device. On a CUDA tensor the
@@ -510,15 +558,17 @@ def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
             raise ValueError(f"no {_route!r} route for nperseg "
                              f"{cfg.nperseg}, detrend {cfg.detrend!r}")
         kernel = _route
+    check_band(cfg, band)
     x = ensure_real_waveform(x)
     if x.ndim == 1:
         out = stft_psd(x[None], fs, cfg, log10_out=log10_out,
-                       with_stats=with_stats, _route=_route)
+                       with_stats=with_stats, band=band, _route=_route)
         return tuple(o[0] for o in out) if with_stats else out[0]
     if x.ndim != 2:
         raise ValueError(f"expected a (n,) or (B, n) waveform, got {x.ndim}-D")
     if x.device.type == "cpu":
-        return stft_psd_reference(x, dft_constants(cfg, fs, x.device),
+        return stft_psd_reference(x, dft_constants(cfg, fs, x.device, band),
                                   cfg, log10_out=log10_out,
                                   with_stats=with_stats)
-    return _stft_psd_cuda(x, fs, cfg, log10_out, with_stats, kernel)
+    return _stft_psd_cuda(x, fs, cfg, log10_out, with_stats, kernel,
+                          band=band)

@@ -190,8 +190,11 @@ def export_spectrograms(clips: Iterable[Tuple[str, np.ndarray]], fs: float,
     complete; after a power loss that needs durable=True (fsync before the
     rename).
 
-    A config the kernels cannot compute (mel, fmin/fmax, centered, nfft >
-    nperseg) raises NotImplementedError naming its ROADMAP label.
+    Band and mel configs export as ``batched_spectrogram_fn`` computes
+    them: the fmin/fmax band's rows, or the mel rows of the band on the
+    mel-centre axis, one PNG row each. A config the kernels cannot compute
+    (centered, nfft > nperseg, nperseg > 8192) raises NotImplementedError
+    naming its ROADMAP label; an empty band raises ValueError.
     ``cfg.precision == 'fast'`` runs at the contract precision, as the JAX
     package's Pallas kernel does (ROADMAP [ext-modes]).
 

@@ -40,11 +40,11 @@ def _clips(n_clips=5, seed=0):
     return [(f"c{i}", rs.randn(N).astype(np.float32)) for i in range(n_clips)]
 
 
-def _export_both(tmp_path, clips, **kw):
+def _export_both(tmp_path, clips, cfg=CFG, **kw):
     dirs = {}
     stats = {}
-    for name, fn, cfg in (("port", tpipe.export_spectrograms, CFG),
-                          ("jax", jpipe.export_spectrograms, _jax(CFG))):
+    for name, fn, cfg in (("port", tpipe.export_spectrograms, cfg),
+                          ("jax", jpipe.export_spectrograms, _jax(cfg))):
         d = str(tmp_path / name)
         extra = {"device": "cpu"} if name == "port" else {}
         stats[name] = fn(list(clips), FS, cfg, d, clip_samples=N, batch=2,
@@ -206,11 +206,10 @@ def test_process_pool_and_errors(tmp_path):
 
 
 def test_configs_the_kernels_cannot_compute_raise(tmp_path):
-    for cfg, item in ((SpecConfig.north_star(256, 64, n_mels=16),
-                       r"\[band-mel\]"),
-                      (SpecConfig.scipy_default(256, fmin=0.0, fmax=50.0),
-                       r"\[band-mel\]"),
-                      (SpecConfig.north_star(256, 64, center=True),
+    """The extended modes raise before anything is written; the mel and
+    band configs that [band-mel] refused now export (their PNGs are held
+    to JAX's in test_export_band_and_mel_match_jax)."""
+    for cfg, item in ((SpecConfig.north_star(256, 64, center=True),
                        r"\[ext-modes\]"),
                       (SpecConfig(nperseg=256, hop=64, nfft=512),
                        r"\[ext-modes\]")):
@@ -218,6 +217,13 @@ def test_configs_the_kernels_cannot_compute_raise(tmp_path):
             tpipe.export_spectrograms(_clips(1), FS, cfg, str(tmp_path),
                                       clip_samples=N, device="cpu")
     assert list(tmp_path.iterdir()) == []
+    for name, cfg in (("mel", SpecConfig.north_star(256, 64, n_mels=16)),
+                      ("band", SpecConfig.scipy_default(256, fmin=0.0,
+                                                        fmax=50.0))):
+        stats = tpipe.export_spectrograms(_clips(1), FS, cfg,
+                                          str(tmp_path / name),
+                                          clip_samples=N, device="cpu")
+        assert stats.pngs_written == 1
 
 
 def test_fast_precision_runs_at_the_contract(tmp_path):
@@ -252,3 +258,30 @@ def test_wav_source_skips_like_jax(tmp_path):
     (tmp_path / "out" / "g.png").write_bytes(b"done")
     assert [n for n, _ in tpipe.wav_clip_source(
         [good, stereo], skip_existing_in=str(tmp_path / "out"))] == ["s"]
+
+
+@pytest.mark.parametrize("pixel_format", ["palette", "rgba"])
+@pytest.mark.parametrize("kind,cfg,height", [
+    ("band", SpecConfig.north_star(256, 64, log_scale=True, fmin=300.0,
+                                   fmax=3000.0), 44),
+    ("mel", SpecConfig.north_star(256, 64, log_scale=True, n_mels=32), 32),
+    ("band_mel", SpecConfig.north_star(256, 64, log_scale=True, n_mels=32,
+                                       fmin=500.0, fmax=5000.0), None),
+], ids=["band", "mel", "band_mel"])
+def test_export_band_and_mel_match_jax(tmp_path, kind, cfg, height,
+                                       pixel_format):
+    """Band and mel configs export as the JAX export does through its
+    batched_spectrogram_fn: the same PNGs, the band's or the mel rows'
+    height, the counts equal; a NaN clip skipped in both."""
+    clips = _clips(3, seed=4)
+    bad = clips[1][1].copy()
+    bad[100] = np.nan
+    clips.append(("nan", bad))
+    dirs, stats = _export_both(tmp_path, clips, cfg=cfg, on_error="skip",
+                               pixel_format=pixel_format)
+    _assert_same_pngs(dirs)
+    assert _counts(stats["port"]) == _counts(stats["jax"])
+    assert stats["port"].nonfinite == 1 and stats["port"].pngs_written == 3
+    img = Image.open(os.path.join(dirs["port"], "c0.png"))
+    if height is not None:
+        assert img.size == (61, height)

@@ -150,10 +150,16 @@ def test_fft_route_on_the_gui_range():
     assert (len(before - after), len(after)) == (3103, 2389)
     for cfg in (SpecConfig.scipy_default(16384),      # past the GUI
                 SpecConfig(nperseg=256, nfft=512),    # unsupported anywhere
-                SpecConfig(nperseg=256, mode="magnitude"),
-                SpecConfig(nperseg=256, n_mels=32)):
+                SpecConfig(nperseg=256, mode="magnitude")):
         with pytest.raises(NotImplementedError):
             stft_cuda.route(cfg)
+    # the route does not depend on the band or the mel branch
+    for k in (24, 256, 8160, 8191, 8185):
+        plain = SpecConfig.scipy_default(k)
+        assert stft_cuda.route(dataclasses.replace(
+            plain, n_mels=32)) == stft_cuda.route(plain)
+        assert stft_cuda.route(dataclasses.replace(
+            plain, fmin=10.0, fmax=300.0)) == stft_cuda.route(plain)
     # a pure function of the config: equal configs, equal answers
     for k in (1024, 8160):
         assert stft_cuda.route(SpecConfig.scipy_default(k)) == \

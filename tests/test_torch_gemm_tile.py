@@ -226,12 +226,13 @@ def test_small_tile_log10_and_overflow(k):
 
 def test_small_tile_geometry_is_the_sources():
     """The transcription's constants and formulas are the CUDA source's,
-    and the launcher takes the tile at every F up to SK_MAX_F: each
-    nperseg 2-31 one-sided, and two-sided up to 16; the large tile keeps
-    F past it (nperseg 32 one-sided and up, forced)."""
+    and the launcher takes the tile at every F up to SK_MAX_F with K
+    below 32: each nperseg 2-31 one-sided, and two-sided up to 16, whole
+    or banded; the large tile keeps F past it (nperseg 32 one-sided and
+    up, forced) and every band of a forced nperseg from 32."""
     assert (THREADS, MAX_F, BINS, K_STEP) == (256, 16, 8, 4)
     for line in (
-            "if (F <= SK_MAX_F) {",
+            "if (F <= SK_MAX_F && K < 2 * SK_MAX_F) {",
             "const int groups = F > SK_BINS ? 2 : 1;",
             "const int rb = 2 * SK_THREADS / groups;",
             "const int RB = 2 * tpg;",
@@ -253,7 +254,7 @@ def test_small_tile_geometry_is_the_sources():
             "os[i * FS + f0 + j] =",
             "dst[e] = os[i * FS + (e - i * F)];",
             "for (int gg = 1; gg < groups; ++gg) {",
-            "if (K < 1 || K >= 2 * SK_MAX_F || T < 1 || hop < 1)"):
+            "if (K < 1 || T < 1 || hop < 1)"):
         assert " ".join(line.split()) in FLAT, line
     import dataclasses
     for k in range(2, 32):

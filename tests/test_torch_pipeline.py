@@ -182,13 +182,21 @@ def test_colormap_none_and_input_coercion():
 
 
 def test_unsupported_configs_raise_on_build():
-    for cfg, item in ((SpecConfig.north_star(256, 64, n_mels=32),
-                       r"\[band-mel\]"),
-                      (SpecConfig.scipy_default(256, fmax=100.0),
-                       r"\[band-mel\]"),
-                      (SpecConfig.scipy_default(16384), r"\[ext-modes\]")):
+    """The extended modes still raise when the pipeline is built; the mel
+    and band configs that [band-mel] refused now compute (their outputs
+    are held to JAX in test_torch_band.py)."""
+    for cfg, item in ((SpecConfig.scipy_default(16384), r"\[ext-modes\]"),):
         with pytest.raises(NotImplementedError, match=item):
             batched_spectrogram_fn(FS, cfg)
+    x = _clips(0, n=4096)
+    mel = batched_spectrogram_fn(
+        FS, SpecConfig.north_star(256, 64, n_mels=32))(x)
+    assert tuple(mel["mel"].shape) == (2, 61, 32)
+    assert tuple(mel["psd"].shape) == (2, 61, 129)
+    band = batched_spectrogram_fn(
+        FS, SpecConfig.scipy_default(256, fmax=100.0))(x)
+    assert tuple(band["psd"].shape) == (2, 18, 2)    # bins 0 and 62.5 Hz
+    assert tuple(band["image"].shape) == (2, 2, 18)
 
 
 def test_device_is_explicit(monkeypatch):
@@ -279,3 +287,169 @@ def test_slice_at_scipy_2048_matches_pallas_pipeline():
     for clip, img in zip(x.astype(np.float64), port["image"].numpy()):
         oracle, rng_db = scipy_display(clip, cfg, FS)
         assert np.abs(img - oracle).max() * rng_db <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the band mask and the mel branch (the JAX function's sharding.py:33-138)
+# ---------------------------------------------------------------------------
+
+BAND_CFGS = {
+    "band": dict(nperseg=256, hop=64, window="hann", detrend="none",
+                 fmin=300.0, fmax=3000.0),
+    "mel": dict(nperseg=256, hop=64, window="hann", detrend="none",
+                n_mels=40),
+    "band_mel": dict(nperseg=256, hop=64, window="hann", detrend="none",
+                     n_mels=40, fmin=500.0, fmax=5000.0),
+}
+
+
+def _assert_same_shown(port, ref, log_scale):
+    """The displayed rows (the banded PSD, or the mel rows) and what lies
+    beside them against the JAX function: psd and mel within PSD_TOL of
+    each clip's max, the image within DB_TOL dB (log) or PSD_TOL (linear),
+    the words as _assert_same_display, finite exactly."""
+    for key in ("psd", "mel"):
+        assert (key in port) == (key in ref)
+        if key in port:
+            got, want = port[key].numpy(), np.asarray(ref[key])
+            assert got.shape == want.shape
+            scale = want.max(axis=(1, 2))
+            assert np.all(np.abs(got - want).max(axis=(1, 2))
+                          <= PSD_TOL * scale), key
+    shown = np.asarray(ref["mel"] if "mel" in ref else ref["psd"])
+    img, img_r = port["image"].numpy(), np.asarray(ref["image"])
+    assert img.shape == img_r.shape
+    err = np.abs(img - img_r).max(axis=(1, 2))
+    if log_scale:
+        s64 = shown.astype(np.float64)
+        err = err * 10 * np.log10(s64.max(axis=(1, 2)) / s64.min(axis=(1, 2)))
+        assert np.all(err <= DB_TOL), err
+    else:
+        assert np.all(err <= PSD_TOL), err
+    if "rgb_packed" in ref:
+        words, words_r = (port["rgb_packed"].numpy(),
+                          np.asarray(ref["rgb_packed"]))
+        assert words.shape == words_r.shape
+        lo, hi = _index_range(words)
+        lo_r, hi_r = _index_range(words_r)
+        step = np.maximum(0, np.maximum(lo - hi_r, lo_r - hi)).max()
+        assert (words == words_r).mean() >= SAME_WORDS and step <= 1
+    assert np.array_equal(port["finite"].numpy(), np.asarray(ref["finite"]))
+
+
+@pytest.mark.parametrize("log_scale", [True, False])
+@pytest.mark.parametrize("share_max", [False, True])
+@pytest.mark.parametrize("flip_image", [False, True])
+@pytest.mark.parametrize("kind", sorted(BAND_CFGS))
+def test_band_and_mel_match_jax_pipeline(kind, flip_image, share_max,
+                                         log_scale):
+    """Ports of tests/test_parallel.py:69 and :938-999 and
+    tests/test_freq_major.py:143-240 against the JAX function itself: the
+    band, the mel branch and both, each with and without flip_image,
+    share_max and log_scale."""
+    cfg = SpecConfig(log_scale=log_scale, **BAND_CFGS[kind])
+    x = _clips(6, n=8192)
+    x[1] *= 40.0                                 # share_max sees the loud one
+    ref = jax.jit(jax_pipeline(FS, cfg, use_matmul=True,
+                               flip_image=flip_image,
+                               share_max=share_max))(jnp.asarray(x))
+    port = batched_spectrogram_fn(FS, cfg, flip_image=flip_image,
+                                  share_max=share_max)(torch.from_numpy(x))
+    T = 125
+    if kind == "band":
+        assert port["psd"].shape == (2, T, 44) and "mel" not in port
+    else:
+        assert port["psd"].shape == (2, T, 129)   # full band, pre-mel
+        assert port["mel"].shape[:2] == (2, T)
+    _assert_same_shown(port, ref, log_scale)
+
+
+def test_band_mask_is_mask_then_normalize():
+    """Port of tests/test_parallel.py:938: the banded image equals the
+    full-band PSD's rows masked, then normalized (PlotEngine.py:114-127),
+    under both flip senses, and the psd output is the band, frame-major,
+    unflipped."""
+    from spectral_tpu_torch.core.scale import normalize
+    from spectral_tpu_torch.core.stft import (band_row_slice, freq_axis,
+                                              mask_band_rows)
+    fs = 1000.0
+    cfg = SpecConfig.scipy_default(256, fmin=5.0, fmax=80.0, log_scale=True)
+    full_cfg = SpecConfig.scipy_default(256, log_scale=True)
+    x = np.random.RandomState(3).randn(4, 6000).astype(np.float32)
+    full = batched_spectrogram_fn(fs, full_cfg)(x)["psd"]
+    f = freq_axis(cfg, fs)
+    want = []
+    for i in range(4):
+        f_m, sxx_m = mask_band_rows(f, full[i].T, cfg.fmin, cfg.fmax)
+        want.append(normalize(sxx_m, True))
+    want = torch.stack(want)
+    assert (f_m >= 5.0).all() and (f_m <= 80.0).all() and len(f_m) < len(f)
+    for flip in (False, True):
+        out = batched_spectrogram_fn(fs, cfg, flip_image=flip)(x)
+        got = out["image"].flip(1) if flip else out["image"]
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 2e-6
+        assert out["psd"].shape == (4, full.shape[1], len(f_m))
+        lo, hi = band_row_slice(f, cfg.fmin, cfg.fmax)
+        assert torch.equal(out["psd"], full[..., lo:hi])
+
+
+def test_mel_flip_is_the_row_flip_and_mel_is_psd_times_fb():
+    """Port of tests/test_freq_major.py:143 and :211: under flip_image the
+    mel image is exactly the row flip of the unflipped one, mel is
+    unflipped, and mel is the psd output times the filterbank."""
+    from spectral_tpu_torch.core.mel import mel_filterbank
+    fs = 1000.0
+    x = np.random.RandomState(5).randn(3, 4000).astype(np.float32)
+    cfg = SpecConfig.north_star(256, 64, log_scale=True, n_mels=24)
+    flipped = batched_spectrogram_fn(fs, cfg, colormap=None,
+                                     flip_image=True)(x)
+    plain = batched_spectrogram_fn(fs, cfg, colormap=None)(x)
+    assert torch.equal(flipped["image"], plain["image"].flip(1))
+    assert torch.equal(flipped["mel"], plain["mel"])
+    fb = mel_filterbank(24, 129, fs)
+    want = plain["psd"].double().numpy() @ fb.T
+    got = plain["mel"].numpy()
+    assert got.shape == want.shape == (3, 59, 24)
+    assert np.abs(got - want).max() <= 1e-7 * want.max()
+
+
+def test_band_finite_flag_reads_the_displayed_rows():
+    """A clip whose only non-finite bins lie outside the band (a 400 Hz tone
+    at 1e19, whose power overflows float32 there alone) is healthy under
+    the 0-30 Hz band and not over the full band; under the mel branch the
+    full-band PSD's inf meets zero weights, so every mel row is NaN and
+    the clip is not healthy. All three against the JAX function."""
+    fs = 1000.0
+    t = np.arange(8000) / fs
+    loud = (1e19 * np.sin(2 * np.pi * 400.0 * t)).astype(np.float32)
+    x = np.stack([np.random.RandomState(6).randn(8000).astype(np.float32),
+                  loud])
+    cases = ((SpecConfig.scipy_default(256, fmin=0.0, fmax=30.0), True),
+             (SpecConfig.scipy_default(256), False),
+             (SpecConfig.scipy_default(256, n_mels=16, fmin=0.0,
+                                       fmax=100.0), False))
+    for cfg, healthy in cases:
+        port = batched_spectrogram_fn(fs, cfg)(x)
+        ref = jax.jit(jax_pipeline(fs, cfg, use_matmul=True))(jnp.asarray(x))
+        assert port["finite"].tolist() == [True, healthy]
+        assert np.asarray(ref["finite"]).tolist() == [True, healthy]
+
+
+def test_band_and_mel_refuse_on_build_like_jax():
+    """An empty band raises when the pipeline is built, with the JAX
+    package's text (tests/test_parallel.py:994); so does an empty band on
+    the mel-centre axis, and a band of a two-sided spectrum."""
+    with pytest.raises(ValueError, match="no frequency rows"):
+        batched_spectrogram_fn(
+            1000.0, SpecConfig.scipy_default(256, fmin=600.0, fmax=700.0))
+    with pytest.raises(ValueError, match="no frequency rows"):
+        batched_spectrogram_fn(FS, SpecConfig.north_star(
+            256, 64, n_mels=16, fmin=9000.0, fmax=9500.0))
+    two = SpecConfig(nperseg=64, hop=16, onesided=False, detrend="none",
+                     window="hann", fmin=0.0, fmax=100.0)
+    with pytest.raises(ValueError, match="one-sided"):
+        batched_spectrogram_fn(1000.0, two)
+    with pytest.raises(ValueError, match="one-sided"):
+        jax.jit(jax_pipeline(1000.0, two, use_matmul=True))(
+            jnp.zeros((1, 512)))

@@ -17,6 +17,7 @@ rtol 3e-4, atol 1e-6 of the max), and the display error against scipy in
 float64 is held to the 1e-3 dB contract.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -250,8 +251,6 @@ def test_kernel_supported_keeps_the_semantic_conditions():
                    SpecConfig(nperseg=256, mode="magnitude"),
                    SpecConfig(nperseg=256, center=True),
                    SpecConfig.scipy_default(16384)],
-        r"\[band-mel\]": [SpecConfig(nperseg=256, n_mels=32),
-                   SpecConfig.scipy_default(256, fmin=0.0, fmax=30.0)],
     }
     x = torch.zeros(1, 4096)
     for item, cfgs in refused.items():
@@ -259,6 +258,14 @@ def test_kernel_supported_keeps_the_semantic_conditions():
             assert not stft_cuda.kernel_supported(cfg)
             with pytest.raises(NotImplementedError, match=item):
                 stft_cuda.stft_psd(x, FS, cfg)
+    # the mel branch and the band mask are not the kernel's concern: the
+    # caller passes the band's bins, and projects the PSD onto mel rows
+    for cfg in (SpecConfig(nperseg=256, n_mels=32),
+                SpecConfig.scipy_default(256, fmin=0.0, fmax=30.0)):
+        assert stft_cuda.kernel_supported(cfg)
+        plain = dataclasses.replace(cfg, n_mels=None, fmin=None, fmax=None)
+        assert torch.equal(stft_cuda.stft_psd(x, FS, cfg),
+                           stft_cuda.stft_psd(x, FS, plain))
     with pytest.raises(NotImplementedError, match=r"\[ext-modes\]"):
         tstft.power_spectrogram(x, FS, SpecConfig(nperseg=256, center=True))
 

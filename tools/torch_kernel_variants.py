@@ -72,10 +72,10 @@ R2_VARIANTS = {
           "      (void)w;")]),
     "no_bins": (
         "ablation: the epilogue computes and stores bin 0 only",
-        [("  for (int f = u; f < F; f += P) {\n    const int g = f <= M ? f : "
-          "K - f;",
-          "  for (int f = u; f < 1; f += P) {\n    const int g = f <= M ? f : "
-          "K - f;")]),
+        [("  for (int f = band.lo + u; f < band.end(); f += P) {\n"
+          "    const int g = f <= M ? f : K - f;",
+          "  for (int f = band.lo + u; f < band.lo + 1; f += P) {\n"
+          "    const int g = f <= M ? f : K - f;")]),
 }
 
 # the pass engine's ablations, shared by the mixed-radix and conv kernels
@@ -338,7 +338,7 @@ def _r2_launch(stft_cuda, cfg, dev, a):
     c = stft_cuda.fft_constants(cfg, FS, dev)
     return lambda lib: lib.stft_fft_psd_launch(
         a.x, c.window.data_ptr(), c.twiddles.data_ptr(), c.wts.data_ptr(),
-        *a.outs, *a.shape, a.detrend, 0, 1, a.stream)
+        *a.outs, *a.shape, a.detrend, 0, 1, 0, a.stream)
 
 
 def _mixed_launch(stft_cuda, cfg, dev, a):
@@ -346,7 +346,7 @@ def _mixed_launch(stft_cuda, cfg, dev, a):
     return lambda lib: lib.stft_mixed_fft_psd_launch(
         a.x, c.window.data_ptr(), c.perm.data_ptr(), c.twiddles.data_ptr(),
         c.stages.ctypes.data, len(c.stages), c.split, c.rader,
-        c.wts.data_ptr(), *a.outs, *a.shape, a.detrend, 0, 1, a.stream)
+        c.wts.data_ptr(), *a.outs, *a.shape, a.detrend, 0, 1, 0, a.stream)
 
 
 def _conv_launch(stft_cuda, cfg, dev, a):
@@ -356,13 +356,12 @@ def _conv_launch(stft_cuda, cfg, dev, a):
             a.x, c.window.data_ptr(), c.perm.data_ptr(),
             c.twiddles.data_ptr(), c.stages.ctypes.data, len(c.stages),
             c.rader, c.wts.data_ptr(), *a.outs, *a.shape, a.detrend, 0, 1,
-            1, a.stream)
+            1, 0, a.stream)
     c = stft_cuda.bluestein_constants(cfg, FS, dev)
     return lambda lib: lib.stft_bluestein_psd_launch(
         a.x, c.window.data_ptr(), c.twiddles.data_ptr(),
         c.stages.ctypes.data, len(c.stages), c.m, c.bhat, c.chirp, c.split,
-        c.wts.data_ptr(), *a.outs, *a.shape, a.detrend, 0, 1, a.stream)
-
+        c.wts.data_ptr(), *a.outs, *a.shape, a.detrend, 0, 1, 0, a.stream)
 
 
 def _rader_launch(stft_cuda, cfg, dev, a):
@@ -445,13 +444,13 @@ def load(so):
     out = [ptr] * 3 + [i32, i64]
     for entry, args in (
             ("stft_psd_launch", [ptr] * 4 + out + [i32] * 6),
-            ("stft_fft_psd_launch", [ptr] * 4 + out + [i32] * 7),
+            ("stft_fft_psd_launch", [ptr] * 4 + out + [i32] * 8),
             ("stft_mixed_fft_psd_launch",
-             [ptr] * 5 + [i32] * 3 + [ptr] + out + [i32] * 7),
+             [ptr] * 5 + [i32] * 3 + [ptr] + out + [i32] * 8),
             ("stft_odd_fft_psd_launch",
-             [ptr] * 5 + [i32] * 2 + [ptr] + out + [i32] * 8),
+             [ptr] * 5 + [i32] * 2 + [ptr] + out + [i32] * 9),
             ("stft_bluestein_psd_launch",
-             [ptr] * 4 + [i32] * 5 + [ptr] + out + [i32] * 7)):
+             [ptr] * 4 + [i32] * 5 + [ptr] + out + [i32] * 8)):
         fn = getattr(lib, entry)
         fn.argtypes = args + [ptr]
         fn.restype = i32
