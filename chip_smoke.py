@@ -5,9 +5,9 @@
 
 Needs one CUDA card and nvcc; run it from the root of a checkout. It
 builds every kernel of the port's paths from the sources in the checkout
-(``csrc/stft_psd.cu``, ``csrc/display.cu`` and ``csrc/mel.cu``, one nvcc
-each, started together) and holds each kernel against its plain PyTorch
-version on the card: the STFT/PSD kernel's five routes (the FFT kernel at power-of-two
+(``csrc/stft_psd.cu``, ``csrc/display.cu``, ``csrc/mel.cu`` and
+``csrc/hmm.cu``, one nvcc each, started together) and holds each kernel
+against its plain PyTorch version on the card: the STFT/PSD kernel's five routes (the FFT kernel at power-of-two
 nperseg 32-8192, under every detrend, beside zero, NaN and 1e-6 frames,
 an overflow clip, log10_out, B T = 1 and T = 0, each held to 1 float32
 ulp, with its ptxas registers and spills printed; the mixed-radix
@@ -47,13 +47,26 @@ columns bitwise: the PSD, its log10_out and the partials; the PSD entry
 points of ``core/stft.py`` on a CUDA tensor must launch the route's kernel
 once each. The mel kernel (phase ``mel``) must match its plain version
 with injected inf and NaN bins, NaN and inf in the same places and the
-rest within MEL_ULPS. Then it drives thirteen paths at full size, each
+rest within MEL_ULPS. The HMM kernels (phase ``hmm``, float64): H1, the
+Baum-Welch fit, at T 4, 5, 600 and 2047, D 1 and 2, K 4 and 2, on a
+model with structural zeros and with the loop stopped at it == 1 and
+it == 2, its iteration counts equal to its plain version's, parameters
+within HMM_PARAM_TOL and log-likelihoods within HMM_LL_TOL; H2, Viterbi,
+at T 1, 2, 3, 600, 2047, 2048 and 65,536 on an escape-patched EM model
+and a supervised one, both forms (a block a sequence up to 2048, chunked
+at every T), paths identical to the plain versions' and to each other;
+H3, the chunked E-step, at T 2048, 8192 and 524,288, statistics within
+HMM_STATS_TOL and the log-likelihood within HMM_LL_TOL; a six-state model
+(the instantiation for 5-8 states) through all three at T 3000; with
+each kernel's ptxas registers and spills. Then it drives fifteen paths at
+full size, each
 with the launch counts set to 0 just before it and read just after; each
 call of the pipeline on paths 1-11 and 13 is one launch of the route's
 STFT kernel, one of clip_stats and one of the display map, and on path 12
 the STFT kernel, the mel kernel, clip_stats and the display map (path 1
 also under ``torch.profiler``, which must show those three kernels and no
-other; it prints them and the device's idle share):
+other; it prints them and the device's idle share; paths 14 and 15
+launch the detection kernels named there):
 
 1. the display spine: 1024 clips of 10 s at 16 kHz through
    ``batched_spectrogram_fn`` at north_star 1024/256 log (RGBA words), on
@@ -90,7 +103,21 @@ other; it prints them and the device's idle share):
     ``export_spectrograms`` over four batches of 64 of its clips;
 13. the GUI's band on an EEG-rate batch: 256 clips of 16 min at 1 kHz at
     scipy_default 1024 with fmin 0 and fmax 30 (31 of 513 bins), held to
-    scipy in float64, its STFT kernel timed beside the full band's.
+    scipy in float64, its STFT kernel timed beside the full band's;
+14. fleet detection (the CLI's ``detect --each --batched`` flow): path
+    13's batch with planted bursts (3-25 Hz, 6-12 dB, 2-20 s) through the
+    STFT kernel on the 0-30 Hz band, ``features_from_psd`` and
+    ``batch_unsupervised_detect``: one launch each of the STFT kernel, H1
+    and H2 (a block a sequence); the states of all 256 sweeps and the
+    events of the first 8 held to the plain versions, H2's chunked form
+    to the block form on the same inputs, the planted bursts found in the
+    decoded states (``detection_quality``); the stages timed (host
+    k-means init, H1, H2 in both forms, scans) with the EM iterations;
+15. one long recording: ``BurstDetector(engine='auto')`` on 524,288
+    frames (48 kHz, north_star 1024/256), features 0-4000 Hz: the STFT
+    kernel, one H3 launch an EM iteration and H2's chunked form; the path
+    held to the plain chunked versions (Viterbi on every frame, the
+    E-step's statistics and log-likelihood), the planted bursts found.
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
@@ -318,18 +345,21 @@ def time_ms(fn, reps=REPS, run=1):
 
 
 def reset_counts():
-    from spectral_tpu_torch.ops import display_cuda, mel_cuda, stft_cuda
+    from spectral_tpu_torch.ops import (display_cuda, hmm_cuda, mel_cuda,
+                                        stft_cuda)
     for counts in (stft_cuda.launches, display_cuda.launches,
-                   mel_cuda.launches):
+                   mel_cuda.launches, hmm_cuda.launches):
         for key in counts:
             counts[key] = 0
 
 
 def read_counts():
-    from spectral_tpu_torch.ops import display_cuda, mel_cuda, stft_cuda
+    from spectral_tpu_torch.ops import (display_cuda, hmm_cuda, mel_cuda,
+                                        stft_cuda)
     return {"stft_psd": dict(stft_cuda.launches),
             "display": dict(display_cuda.launches),
-            "mel": dict(mel_cuda.launches)}
+            "mel": dict(mel_cuda.launches),
+            "hmm": dict(hmm_cuda.launches)}
 
 
 def require_one_call(counts, route, calls, what):
@@ -338,6 +368,7 @@ def require_one_call(counts, route, calls, what):
     stft, tail = counts["stft_psd"], counts["display"]
     require(stft[route] == calls and sum(stft.values()) == calls
             and counts["mel"]["mel"] == 0
+            and not any(counts["hmm"].values())
             and tail["clip_stats"] == calls
             and tail["rgba"] + tail["palette"] == calls,
             f"{what}: {calls} call(s), each one {route} STFT kernel, one "
@@ -426,9 +457,10 @@ def toolchain():
     dfma = sms * 64 * 2 * mhz * 1e6
     print(f"{sms} SMs, max SM clock {mhz:g} MHz: DFMA outside the tensor "
           f"cores {dfma / 1e12:.2f} TFLOP/s (64 per clock per SM), the most "
-          f"the STFT kernel's design can reach; bounds use the FP64 peak on "
-          f"the tensor cores, {FP64_PEAK / 1e12:g} TFLOP/s, and HBM "
-          f"{HBM_RATE / 1e12:g} TB/s (data sheet)")
+          f"the STFT kernel's design can reach and the HMM kernels' bound; "
+          f"the other bounds use the FP64 peak on the tensor cores, "
+          f"{FP64_PEAK / 1e12:g} TFLOP/s, and HBM {HBM_RATE / 1e12:g} TB/s "
+          f"(data sheet)")
     try:
         import PIL
         print(f"PIL {PIL.__version__}: PNGs encode through PIL")
@@ -442,11 +474,15 @@ def build_kernels():
     from spectral_tpu_torch.ops import build
     phase("build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        info, tail, mel = pool.map(build.build_library,
-                                   ("stft_psd", "display", "mel"))
-    print(f"the three sources built side by side in "
+    with ThreadPoolExecutor(4) as pool:
+        info, tail, mel, hmm_lib = pool.map(
+            build.build_library, ("stft_psd", "display", "mel", "hmm"))
+    print(f"the four sources built side by side in "
           f"{time.perf_counter() - t0:.2f} s")
+    print(f"hmm.cu -> {os.path.relpath(hmm_lib['path'], HERE)} in "
+          f"{hmm_lib['seconds']:.2f} s; ptxas: "
+          + "; ".join(hmm_ptxas(hmm_lib["log"])))
+    build.load_library("hmm")
     print(f"mel.cu -> {os.path.relpath(mel['path'], HERE)} in "
           f"{mel['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
               mel["log"], r"(mel_project_kernel)", lambda e: "mel_project")))
@@ -2007,7 +2043,8 @@ def require_counts(counts, want, what):
     """The path's run launched exactly ``want`` (kernel -> launches), every
     other count 0."""
     flat = {**{f"stft_{k}": v for k, v in counts["stft_psd"].items()},
-            **counts["display"], **counts["mel"]}
+            **counts["display"], **counts["mel"],
+            **{f"hmm_{k}": v for k, v in counts["hmm"].items()}}
     extra = {k: v for k, v in flat.items() if k not in want and v}
     require(all(flat[k] == v for k, v in want.items()) and not extra,
             f"{what}: launches {want} and no other, got {counts}")
@@ -2286,6 +2323,10 @@ def band_path(dev, card, dfma_peak):
           f"{dense_dft_bound_ms(BAND_CLIPS, T, Fb, 1024):.3f} ms at the FP64 "
           f"peak, {4e3 * BAND_CLIPS * T * Fb * 1024 / dfma_peak:.3f} ms of "
           f"DFMA) [{card}]")
+    disp_b = display_bound(BAND_CLIPS, T, Fb, T)
+    print(f"display map on the band: "
+          f"{timings['display_kernel_run'][0]:.4f} ms a launch in runs of "
+          f"{RUN}, bound {disp_b[0]:.4f} ms ({disp_b[1]}) [{card}]")
     ms = timings["pipeline_kernel"][0]
     print(f"pipeline: {ms:.3f} ms per batch, "
           f"{BAND_CLIPS * BAND_SECONDS / 3600.0 / (ms / 60000.0):.1f} "
@@ -2298,9 +2339,604 @@ def band_path(dev, card, dfma_peak):
         bound=bound, library_ms=timings["stft_library"][0])}
 
 
+# ---------------------------------------------------------------------------
+# detection: the HMM kernels (H1-H3) and paths 14-15
+# ---------------------------------------------------------------------------
+
+HMM_PARAM_TOL = 1e-8    # fitted parameters, max |Δ| over each field's max
+HMM_LL_TOL = 1e-10      # log-likelihoods, relative
+HMM_STATS_TOL = 1e-9    # E-step statistics, max |Δ| over each group's max
+FIT_CASES = (           # (T, D, K, variant, n_iter)
+    (4, 2, 4, "init", 100), (5, 1, 4, "init", 100), (5, 2, 2, "init", 100),
+    (600, 2, 4, "init", 100), (600, 1, 4, "init", 100),
+    (600, 2, 2, "init", 50), (600, 2, 4, "zeros", 100),
+    (600, 2, 4, "converged", 100), (600, 2, 4, "init", 1),
+    (2047, 2, 4, "init", 8),
+    (2047, 1, 2, "init", 8), (600, 2, 6, "init", 30))
+VITERBI_T = (1, 2, 3, 600, 2047, 2048, 65536)
+ESTEP_T = (2048, 8192, 524288)
+
+
+def hmm_features(rng, T, D=2):
+    """Detection-like features (T, D) float64: log-power about -6 with
+    bursts about -3 (one per 200 frames, 3 to T/8 frames long), its delta
+    second; D = 1 keeps the log-power alone."""
+    import numpy as np
+    logp = -6.0 + 0.15 * rng.randn(T)
+    for _ in range(max(1, T // 200)):
+        a = int(rng.randint(0, max(1, T - 3)))
+        n = int(rng.randint(3, max(4, T // 8)))
+        logp[a:a + n] = -3.0 + 0.2 * rng.randn(len(logp[a:a + n]))
+    feats = np.stack([logp, np.diff(logp, prepend=logp[0])], axis=1)
+    return feats[:, :D]
+
+
+def field_err(got, want):
+    """max |Δ| over max |want|, 0 for two zero fields."""
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    return diff / scale if scale else diff
+
+
+def hmm_ptxas(log):
+    return radix2_ptxas(
+        log, r"(hmm_fit|hmm_viterbi|chunk_transfer|vit_scan|vit_decode|"
+        r"vit_compose|vit_backtrace|est_scan|est_chunk|est_reduce)_kernel"
+        r"(?:ILi(\d)E)?(?:Lb(\d)E)?",
+        lambda e: e.group(1) + (f"<KM {e.group(2)}" + (
+            f", LOGSUM {e.group(3)}" if e.group(3) else "") + ">"
+            if e.group(2) else ""))
+
+
+def hmm_params(feats, K, dev, variant):
+    """A model to start EM from: the host initialization, or that with
+    structural zeros (startprob [.5, .5, 0, ...], transmat[0, K-1] and
+    transmat[K-1, 1] pinned at 0)."""
+    import torch
+    from spectral_tpu_torch.models import hmm
+    p = hmm.init_params(feats, K, device=dev)
+    if variant != "zeros":
+        return p
+    start = torch.zeros(K, dtype=torch.float64, device=dev)
+    start[:2] = 0.5
+    trans = p.transmat.clone()
+    trans[0, K - 1] = 0.0
+    trans[K - 1, 1] = 0.0
+    trans = trans / trans.sum(dim=1, keepdim=True)
+    return hmm.HMMParams(start, trans, p.means, p.covars)
+
+
+def stack_params(ps):
+    import torch
+    from spectral_tpu_torch.models import hmm
+    return hmm.HMMParams(*(torch.stack(f).contiguous() for f in zip(*ps)))
+
+
+def hmm_kernel_cases(dev):
+    """H1-H3 against their plain versions on the card, float64: iteration
+    counts equal, fitted parameters within HMM_PARAM_TOL and
+    log-likelihoods within HMM_LL_TOL relative (the same arithmetic,
+    rounded alike but for the order of the frame sums), Viterbi paths
+    identical, E-step statistics within HMM_STATS_TOL."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch.core import events as ev
+    from spectral_tpu_torch.models import hmm
+    from spectral_tpu_torch.ops import hmm_cuda
+
+    phase("the HMM kernels against their plain versions (float64)")
+    for T, D, K, variant, n_iter in FIT_CASES:
+        feats = [hmm_features(np.random.RandomState(100 * T + 10 * s + D),
+                              T, D) for s in range(2)]
+        X = torch.tensor(np.stack(feats), device=dev)
+        p0 = stack_params([hmm_params(f, K, dev, variant) for f in feats])
+        # "converged": a tolerance no gain reaches, so the convergence
+        # test stops the loop at its first chance, it == 2 (the first
+        # gain is against -inf); n_iter 1 stops it at it == 1
+        tol = 1e30 if variant == "converged" else hmm.DEFAULT_TOL
+        got, ll, it = hmm_cuda.fit_seq(X, p0, n_iter, tol)
+        want, ll_p, it_p = hmm_cuda.fit_seq_reference(X, p0, n_iter, tol)
+        torch.cuda.synchronize()
+        errs = [field_err(g, w) for g, w in zip(got, want)]
+        ll_rel = float(((ll - ll_p).abs() / ll_p.abs()).max())
+        require(torch.equal(it, it_p) and max(errs) <= HMM_PARAM_TOL
+                and ll_rel <= HMM_LL_TOL
+                and bool((it == min(n_iter, 2)).all()
+                         if variant == "converged" or n_iter == 1 else True),
+                f"H1 T={T} D={D} K={K} {variant}: iterations {it.tolist()} "
+                f"vs {it_p.tolist()}, params {errs}, ll {ll_rel:.2e}")
+        if variant == "zeros":
+            require(bool((got[1][:, 0, K - 1] == 0).all())
+                    and bool((got[0][:, 2:] == 0).all()),
+                    "H1 keeps structural zeros")
+        print(f"H1 fit T={T} D={D} K={K} {variant}: iterations "
+              f"{it.tolist()} (plain {it_p.tolist()}), params max rel "
+              f"{max(errs):.2e}, ll rel {ll_rel:.2e}")
+
+    # H2 on an EM-fitted model with the escape patch and on a supervised
+    # model (1e-6 variances, structural zeros), at the main path's engine
+    # boundaries and past them
+    rng = np.random.RandomState(7)
+    long = hmm_features(rng, max(VITERBI_T))
+    fitted, _, _ = hmm_cuda.fit_seq(
+        torch.tensor(long[None, :600], device=dev),
+        stack_params([hmm.init_params(long[:600], 4, device=dev)]), 100,
+        hmm.DEFAULT_TOL)
+    fitted = hmm.HMMParams(*(f[0] for f in fitted))
+    base = torch.argmin(fitted.means[:, 0])
+    patched = fitted._replace(transmat=hmm.patch_escape_routes_traced(
+        fitted.transmat, base))
+    labels = ev.build_label_track(np.arange(600.0), [(100.0, 180.0),
+                                                     (300.0, 420.0)])
+    supervised = hmm.supervised_fit(long[:600], labels, 4, device=dev)
+    models = stack_params([patched, supervised])
+    for T in VITERBI_T:
+        X = torch.tensor(np.stack([long[:T], long[-T:]]), device=dev)
+        chunked = hmm_cuda.viterbi_chunked(X, models, hmm_cuda.chunk_len(4))
+        chunked_p = hmm_cuda.viterbi_chunked_reference(
+            X, models, hmm_cuda.chunk_len(4))
+        same = torch.equal(chunked, chunked_p)
+        line = f"H2 T={T}: chunked form vs plain identical {same}"
+        if T <= 2048:
+            seq = hmm_cuda.viterbi_seq(X, models)
+            seq_p = hmm_cuda.viterbi_seq_reference(X, models)
+            same = (same and torch.equal(seq, seq_p)
+                    and torch.equal(seq, chunked))
+            line += (f"; block a sequence vs plain identical "
+                     f"{torch.equal(seq, seq_p)}, vs the chunked form "
+                     f"{torch.equal(seq, chunked)}")
+        require(same, line)
+        print(line)
+
+    # score on the card: H3's log-likelihood, against the plain forward
+    Xs = torch.tensor(long[:2048], device=dev)
+    got_ll = float(hmm.score(patched, Xs))
+    want_ll = float(hmm._forward_b(stack_params([patched]), hmm._log_emission_b(
+        stack_params([patched]), Xs[None]))[1][0])
+    require(abs(got_ll - want_ll) <= HMM_LL_TOL * abs(want_ll),
+            f"hmm.score on the card {got_ll} vs the plain forward {want_ll}")
+    print(f"hmm.score on the card (H3) vs the plain forward pass, T=2048: "
+          f"{abs(got_ll - want_ll) / abs(want_ll):.2e} relative")
+
+    # six states: the instantiation for 5-8 states, chunks of 170 frames
+    X6 = torch.tensor(long[None, :3000], device=dev)
+    six, _, _ = hmm_cuda.fit_seq(
+        X6[:, :600].contiguous(),
+        stack_params([hmm.init_params(long[:600], 6, device=dev)]), 30,
+        hmm.DEFAULT_TOL)
+    L6 = hmm_cuda.chunk_len(6)
+    seq6 = hmm_cuda.viterbi_seq(X6, six)
+    same6 = (torch.equal(seq6, hmm_cuda.viterbi_seq_reference(X6, six))
+             and torch.equal(hmm_cuda.viterbi_chunked(X6, six, L6), seq6)
+             and torch.equal(hmm_cuda.viterbi_chunked_reference(X6, six, L6),
+                             seq6))
+    st6, ll6 = hmm_cuda.estep_chunked(X6, six, L6)
+    st6_p, ll6_p = hmm_cuda.estep_chunked_reference(X6, six, L6)
+    err6 = max(field_err(g, w) for g, w in zip(
+        hmm_cuda.split_stats(st6, 6, 2), hmm_cuda.split_stats(st6_p, 6, 2)))
+    ll6_rel = float((ll6 - ll6_p).abs().max() / ll6_p.abs().max())
+    require(same6 and err6 <= HMM_STATS_TOL and ll6_rel <= HMM_LL_TOL,
+            f"K=6 T=3000: paths identical {same6}, H3 statistics {err6:.2e},"
+            f" ll {ll6_rel:.2e}")
+    print(f"K=6 T=3000 (chunks of {L6}): H2 both forms identical to the "
+          f"plain versions; H3 statistics max rel {err6:.2e}, ll rel "
+          f"{ll6_rel:.2e}")
+
+    for T in ESTEP_T:
+        X = torch.tensor(hmm_features(np.random.RandomState(T), T)[None],
+                         device=dev)
+        p = stack_params([fitted])
+        L = hmm_cuda.chunk_len(4)
+        st, ll = hmm_cuda.estep_chunked(X, p, L)
+        st_p, ll_p = hmm_cuda.estep_chunked_reference(X, p, L)
+        torch.cuda.synchronize()
+        errs = [field_err(g, w) for g, w in zip(
+            hmm_cuda.split_stats(st, 4, 2), hmm_cuda.split_stats(st_p, 4, 2))]
+        ll_rel = float(((ll - ll_p).abs() / ll_p.abs()).max())
+        require(max(errs) <= HMM_STATS_TOL and ll_rel <= HMM_LL_TOL,
+                f"H3 T={T}: statistics {errs}, ll {ll_rel:.2e}")
+        print(f"H3 E-step T={T}: statistics max rel {max(errs):.2e}, ll "
+              f"{float(ll[0]):.6f} rel {ll_rel:.2e}")
+
+
+def hmm_fit_ops(T, D, K, iters):
+    """Float64 operations of iters E-steps on T frames, an exp or a log
+    counted as one (a lower bound): emissions 5KD a frame, the forward
+    and backward steps K(3K + 3) each, gamma 3K, the moments 5KD, xi
+    6K^2 (308 a frame at K = 4, D = 2). The sequential E-step's own work:
+    what a chunked form adds (transfers from K one-hot starts, a second
+    emission pass) is its overhead, not the function's."""
+    return iters * T * (10 * K * D + 2 * K * (3 * K + 3) + 3 * K
+                        + 6 * K * K)
+
+
+def hmm_viterbi_ops(T, D, K):
+    """Float64 operations of one Viterbi decode on T frames: emissions
+    5KD a frame, the max-plus step's K^2 additions and K^2 comparisons."""
+    return T * (5 * K * D + 2 * K * K)
+
+
+def hmm_bound(bytes_, ops, rate):
+    """The HMM kernels' bound: ops at ``rate``, the card's float64 rate
+    outside the tensor cores (their exps, logs, maxima and sums are
+    scalar work), beside bytes at HBM_RATE."""
+    t_mem, t_ops = bytes_ / HBM_RATE, ops / rate
+    return (1e3 * max(t_mem, t_ops),
+            "operations" if t_ops >= t_mem else "bytes")
+
+
+EEG_FS = 1000.0
+EEG_SECONDS = 960.0     # 16 min sweeps at 1 kHz, path 13's shape
+EEG_CLIPS = 256
+DETECT_CHECK = 8        # sweeps whose event lists meet the plain versions'
+
+
+def planted_bursts(rng, seconds, lo_hz, hi_hz):
+    """A clip's bursts: (start s, length s, Hz, dB above the band's noise
+    floor), lengths 2-20 s, 6-12 dB, gaps 20-150 s."""
+    out = []
+    t = rng.uniform(10.0, 60.0)
+    while t < seconds - 30.0:
+        n = rng.uniform(2.0, 20.0)
+        out.append((t, n, rng.uniform(lo_hz, hi_hz), rng.uniform(6.0, 12.0)))
+        t += n + rng.uniform(20.0, 150.0)
+    return out
+
+
+def bursty_batch(dev, clips, n, fs, band_hz, lo_hz, hi_hz, seed):
+    """Unit white noise on the card with tone bursts planted at seeded
+    times, each 6-12 dB above the noise's power in [0, band_hz] (a Tukey
+    envelope, 10% tapers): (x (clips, n) float32, plans)."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((clips, n), generator=gen, device=dev)
+    rng = np.random.RandomState(seed)
+    floor = band_hz / (fs / 2.0)
+    plans = []
+    for c in range(clips):
+        plan = planted_bursts(rng, n / fs, lo_hz, hi_hz)
+        plans.append(plan)
+        for start, length, hz, db in plan:
+            i0, m = int(start * fs), int(length * fs)
+            amp = math.sqrt(2.0 * (10.0 ** (db / 10.0) - 1.0) * floor)
+            r = np.linspace(0.0, 1.0, m)
+            env = np.clip(np.minimum(r, 1.0 - r) / 0.05, 0.0, 1.0)
+            tone = amp * env * np.sin(2.0 * np.pi * hz * np.arange(m) / fs)
+            x[c, i0:i0 + m] += torch.tensor(tone, dtype=torch.float32,
+                                            device=dev)
+    return x, plans
+
+
+DETECT_RECALL = 0.9     # burst frames decoded to a loud state, at least
+DETECT_FALSE = 0.05     # other frames decoded to a loud state, at most
+DETECT_HIT = 0.95       # planted bursts with a loud frame, at least
+
+
+def detection_quality(t, states, means, plans, events):
+    """What the decode found of the planted bursts, pooled over sequences.
+
+    A state is loud when its mean log-power lies above the midpoint of the
+    model's lowest and highest; a frame lies in a burst when its time
+    does. Returns the share of burst frames decoded to a loud state
+    (recall), the share of the other frames decoded so (false), the share
+    of bursts with a loud frame, and the shares of burst and other frames
+    inside an event. The events are runs of non-baseline states
+    (baseline_scan, the reference's semantics): the 4-state fit splits
+    the noise floor, so they cover most noise frames too and say little
+    of detection; the loud states do."""
+    import numpy as np
+    burst, other, ev_burst, ev_other = [], [], [], []
+    hits = []
+    for b, plan in enumerate(plans):
+        mu = means[b, :, 0]
+        loud = (mu > 0.5 * (mu.min() + mu.max()))[states[b]]
+        inb = np.zeros(len(t), bool)
+        for a, m, _, _ in plan:
+            span = (t >= a) & (t <= a + m)
+            inb |= span
+            hits.append(bool(loud[span].any()))
+        inev = np.zeros(len(t), bool)
+        for s, e in events[b]:
+            inev |= (t >= s) & (t <= e)
+        burst.append(loud[inb])
+        other.append(loud[~inb])
+        ev_burst.append(inev[inb])
+        ev_other.append(inev[~inb])
+    return tuple(float(np.concatenate(v).mean()) for v in (
+        burst, other, [np.array(hits)], ev_burst, ev_other))
+
+
+def check_detection(what, q):
+    recall, false, hit, ev_b, ev_o = q
+    line = (f"{what}: burst frames decoded to a loud state {recall:.4f} (at "
+            f"least {DETECT_RECALL}), other frames {false:.4f} (at most "
+            f"{DETECT_FALSE}), bursts with a loud frame {hit:.4f} (at least "
+            f"{DETECT_HIT}); inside an event: burst frames {ev_b:.4f}, other "
+            f"frames {ev_o:.4f}")
+    require(recall >= DETECT_RECALL and false <= DETECT_FALSE
+            and hit >= DETECT_HIT, line)
+    print(line)
+
+
+def detect_path(dev, card, dfma_peak):
+    """Path 14, fleet detection (the CLI's ``detect --each --batched``
+    flow, spectral_tpu/cli.py:139-204): path 13's EEG batch with planted
+    bursts -> the STFT kernel on the 0-30 Hz band -> features_from_psd ->
+    batch_unsupervised_detect (host k-means, H1, the patch, H2, host
+    scans), n_states 4, n_iter 100."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core import events as ev
+    from spectral_tpu_torch.core.stft import (band_row_slice, freq_axis,
+                                              power_spectrogram, time_axis)
+    from spectral_tpu_torch.models import batch, hmm
+    from spectral_tpu_torch.ops import hmm_cuda, stft_cuda
+
+    n = int(EEG_FS * EEG_SECONDS)
+    cfg = SpecConfig.scipy_default(1024)
+    f = freq_axis(cfg, EEG_FS)
+    t = time_axis(cfg, EEG_FS, n)
+    band = band_row_slice(f, 0.0, 30.0)
+    fb = f[band[0]:band[1]]
+    phase(f"path 14, fleet detection: {EEG_CLIPS} sweeps x {EEG_SECONDS:g} s "
+          f"at {EEG_FS:g} Hz, scipy_default 1024 ({len(t)} frames), features "
+          f"0-30 Hz (bins {band[0]}-{band[1] - 1}), 4 states, n_iter 100")
+    x, plans = bursty_batch(dev, EEG_CLIPS, n, EEG_FS, 30.0, 3.0, 25.0, 14)
+    torch.cuda.synchronize()
+    timings = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    psd = power_spectrogram(x, EEG_FS, cfg, band=band)
+    feats = ev.features_from_psd(fb, psd, 0.0, 30.0)
+    events = batch.batch_unsupervised_detect(t, feats, device=dev,
+                                             timings=timings)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"launches in this path's run: {counts}")
+    require_counts(counts, {"stft_fft": 1, "hmm_fit": 1, "hmm_viterbi": 1},
+                   "path 14")
+    T = len(t)
+    require(tuple(feats.shape) == (EEG_CLIPS, T, 2)
+            and feats.dtype == torch.float32
+            and bool(torch.isfinite(feats).all()), "path 14 features")
+    full = stft_cuda.stft_psd(x[:16], EEG_FS, cfg)
+    require(torch.equal(ev.features_from_psd(f, full, 0.0, 30.0),
+                        feats[:16]),
+            "features of the band's bins bitwise the full axis' mask")
+    print(f"{sum(map(len, plans))} bursts planted, {sum(map(len, events))} "
+          f"events found")
+
+    # the kernels and their plain versions on the whole batch, the same
+    # initial models
+    feats_np = feats.cpu().numpy()
+    p0 = stack_params([hmm.init_params(feats_np[b], 4, device=dev)
+                       for b in range(EEG_CLIPS)])
+    X = feats.to(torch.float64).contiguous()
+    t1 = time.perf_counter()
+    fit_p, ll_p, it_p = hmm_cuda.fit_seq_reference(X, p0, 100,
+                                                   hmm.DEFAULT_TOL)
+    torch.cuda.synchronize()
+    fit_plain_ms = 1e3 * (time.perf_counter() - t1)
+    fit_k, ll_k, it_k = hmm_cuda.fit_seq(X, p0, 100, hmm.DEFAULT_TOL)
+    torch.cuda.synchronize()
+    errs = [field_err(g, w) for g, w in zip(fit_k, fit_p)]
+    fit_abs = max(float((g - w).abs().max()) for g, w in zip(fit_k, fit_p))
+    require(torch.equal(it_k, it_p) and max(errs) <= HMM_PARAM_TOL,
+            f"path 14 H1 vs plain: iterations equal {torch.equal(it_k, it_p)}"
+            f", params {errs}")
+    fitted = hmm.HMMParams(*fit_k)
+    base = torch.argmin(fitted.means[..., 0], dim=-1)
+    patched = stack_params([fitted._replace(
+        transmat=hmm.patch_escape_routes_traced(fitted.transmat, base))])
+    patched = hmm.HMMParams(*(f[0] for f in patched))
+    states_k = hmm_cuda.viterbi_seq(X, patched)
+    t1 = time.perf_counter()
+    states_p = hmm_cuda.viterbi_seq_reference(X, patched)
+    torch.cuda.synchronize()
+    vit_plain_ms = 1e3 * (time.perf_counter() - t1)
+    vit_err = float((states_k.long() - states_p.long()).abs().max())
+    vit_diff = int((states_k != states_p).sum())
+    L = hmm_cuda.chunk_len(4)
+    states_c = hmm_cuda.viterbi_chunked(X, patched, L)
+    require(vit_diff == 0 and torch.equal(states_c, states_k),
+            f"path 14 H2 vs plain: {vit_diff} of {states_p.numel()} states "
+            f"differ; the chunked form equal "
+            f"{torch.equal(states_c, states_k)}")
+    sp = states_p.cpu().numpy()
+    ev_plain = [ev.merge_overlapping_events(ev.baseline_scan(
+        sp[b], t, int(base[b]))) for b in range(DETECT_CHECK)]
+    require(ev_plain == events[:DETECT_CHECK],
+            "path 14 event lists vs the plain versions' (first 8 sweeps)")
+    check_detection(f"path 14, all {EEG_CLIPS} sweeps", detection_quality(
+        t, states_k.cpu().numpy(), fitted.means.cpu().numpy(), plans,
+        events))
+    its = it_k.cpu().numpy()
+    print(f"H1 vs plain (all {EEG_CLIPS} sweeps): iterations equal, params "
+          f"max rel {max(errs):.2e} ({fit_abs:.2e} abs); H2 paths identical "
+          f"({vit_diff} of {states_p.numel()} states differ; the chunked form"
+          f" identical too); event lists of the first {DETECT_CHECK} sweeps "
+          f"identical; EM iterations min {its.min()} median "
+          f"{int(np.median(its))} max {its.max()}")
+
+    phase(f"path 14 times (CUDA events, median of {REPS} after a warm-up; "
+          f"{card})")
+    tm = {
+        "stft_kernel": time_ms(lambda: stft_cuda.stft_psd(
+            x, EEG_FS, cfg, band=band)),
+        "features": time_ms(lambda: ev.features_from_psd(fb, psd, 0.0,
+                                                         30.0)),
+        "fit_kernel": time_ms(lambda: hmm_cuda.fit_seq(
+            X, p0, 100, hmm.DEFAULT_TOL), reps=3),
+        "viterbi_kernel": time_ms(lambda: hmm_cuda.viterbi_seq(X, patched)),
+        "viterbi_chunked_kernel": time_ms(lambda: hmm_cuda.viterbi_chunked(
+            X, patched, L)),
+        "fit_plain": (fit_plain_ms, [fit_plain_ms]),
+        "viterbi_plain": (vit_plain_ms, [vit_plain_ms]),
+    }
+    for name, (ms, reps) in tm.items():
+        print(f"{name}: {ms:.4f} ms [{card}] reps {reps}")
+    steps = int(its.max()) * (T - 1)
+    print(f"host: init (k-means, {EEG_CLIPS} sweeps) {timings['init']:.3f} s,"
+          f" fit + patch + Viterbi + states read {timings['fit']:.3f} s, "
+          f"scans {1e3 * timings['scan']:.3f} ms; the flow's wall time "
+          f"{wall:.3f} s, {EEG_CLIPS * EEG_SECONDS / 3600.0 / (wall / 60.0):.2f}"
+          f" audio-h/min [{card}]")
+    print(f"H1's chain: {its.max()} iterations x {T - 1} steps = {steps} "
+          f"steps a pass on its slowest sweep, "
+          f"{1e6 * tm['fit_kernel'][0] / steps:.1f} ns a step")
+    fit_bound = hmm_bound(X.numel() * 8 + EEG_CLIPS * (4 + 16 + 16) * 8,
+                          sum(hmm_fit_ops(T, 2, 4, int(i)) for i in its),
+                          dfma_peak)
+    vit_bound = hmm_bound(X.numel() * 8 + EEG_CLIPS * T * 4,
+                          EEG_CLIPS * hmm_viterbi_ops(T, 2, 4), dfma_peak)
+    print(f"bounds: H1 {fit_bound[0]:.4f} ms ({fit_bound[1]}), H2 "
+          f"{vit_bound[0]:.4f} ms ({vit_bound[1]})")
+    print(json.dumps({"path14_times": {k: v[0] for k, v in tm.items()},
+                      "host_s": timings, "wall_s": wall,
+                      "iterations": [int(its.min()), int(np.median(its)),
+                                     int(its.max())], "card": card}))
+    return {
+        "hmm_fit": dict(launches=counts["hmm"]["fit"], err=fit_abs,
+                        ms=tm["fit_kernel"][0], plain_ms=fit_plain_ms,
+                        bound=fit_bound, library_ms=None),
+        "hmm_viterbi": dict(launches=counts["hmm"]["viterbi"], err=vit_err,
+                            ms=tm["viterbi_kernel"][0],
+                            plain_ms=vit_plain_ms, bound=vit_bound,
+                            library_ms=None)}
+
+
+LONG_FS = 48000.0
+LONG_T = 524288         # frames: an hour of 48 kHz audio at hop 256
+
+
+def long_detect_path(dev, card, dfma_peak):
+    """Path 15, one long recording: BurstDetector(engine='auto') on 524,288
+    frames (48 kHz, north_star 1024/256, 134,218,496 samples), features
+    0-4000 Hz: the chunked engine (the host EM loop over H3, then H2's
+    chunked form)."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core import events as ev
+    from spectral_tpu_torch.core.stft import (band_row_slice, freq_axis,
+                                              power_spectrogram, time_axis)
+    from spectral_tpu_torch.models import hmm, hmm_pscan
+    from spectral_tpu_torch.models.detector import BurstDetector
+    from spectral_tpu_torch.ops import hmm_cuda, stft_cuda
+
+    cfg = SpecConfig.north_star(1024, 256)
+    n = cfg.hop_ * (LONG_T - 1) + cfg.nperseg
+    f = freq_axis(cfg, LONG_FS)
+    t = time_axis(cfg, LONG_FS, n)
+    band = band_row_slice(f, 0.0, 4000.0)
+    fb = f[band[0]:band[1]]
+    phase(f"path 15, one long recording: {n} samples at {LONG_FS:g} Hz, "
+          f"north_star 1024/256 ({len(t)} frames), features 0-4000 Hz (bins "
+          f"{band[0]}-{band[1] - 1}), BurstDetector(engine='auto')")
+    require(len(t) == LONG_T, f"path 15 frames {len(t)}")
+    x, plan = bursty_batch(dev, 1, n, LONG_FS, 4000.0, 200.0, 3000.0, 15)
+    torch.cuda.synchronize()
+    det = BurstDetector(engine="auto", device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    psd = power_spectrogram(x, LONG_FS, cfg, band=band)
+    feats = ev.features_from_psd(fb, psd, 0.0, 4000.0)[0]
+    events = det.unsupervised_detect(t, feats)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"launches in this path's run: {counts}")
+    iters = det.timings["iterations"]
+    require_counts(counts, {"stft_fft": 1, "hmm_estep_chunked": iters,
+                            "hmm_viterbi_chunked": 1}, "path 15")
+    require(iters >= 1 and len(events) >= 1, f"path 15: {iters} "
+            f"iterations, {len(events)} events")
+    X = feats.to(torch.float64)[None].contiguous()
+    patched = hmm.HMMParams(*(p[None].contiguous() for p in det.params))
+    L = hmm_cuda.chunk_len(4)
+    states_k = hmm_cuda.viterbi_chunked(X, patched, L)
+    states_p = hmm_cuda.viterbi_chunked_reference(X, patched, L)
+    vit_err = float((states_k.long() - states_p.long()).abs().max())
+    vit_diff = int((states_k != states_p).sum())
+    states_b = hmm_cuda.viterbi_seq(X, patched)
+    require(vit_diff == 0 and torch.equal(states_b, states_k),
+            f"path 15 Viterbi vs plain: {vit_diff} of {LONG_T} states "
+            f"differ; the block form equal {torch.equal(states_b, states_k)}")
+    check_detection(f"path 15, {len(plan[0])} bursts planted, {len(events)} "
+                    f"events", detection_quality(
+                        t, states_k.cpu().numpy(),
+                        patched.means.cpu().numpy(), plan, [events]))
+    st, ll = hmm_cuda.estep_chunked(X, patched, L)
+    st_p, ll_p = hmm_cuda.estep_chunked_reference(X, patched, L)
+    ll_rel = float((ll - ll_p).abs().max() / ll_p.abs().max())
+    st_abs = float((st - st_p).abs().max())
+    errs = [field_err(g, w) for g, w in zip(
+        hmm_cuda.split_stats(st, 4, 2), hmm_cuda.split_stats(st_p, 4, 2))]
+    require(ll_rel <= HMM_LL_TOL and max(errs) <= HMM_STATS_TOL,
+            f"path 15 H3 vs plain: ll {ll_rel:.2e}, statistics {errs}")
+    print(f"{iters} EM iterations; Viterbi vs plain: all {LONG_T} frames "
+          f"identical (the block form too); H3 vs plain at the fitted model: ll {float(ll[0]):.6f} "
+          f"rel {ll_rel:.2e}, statistics max rel {max(errs):.2e}")
+
+    phase(f"path 15 times (CUDA events, median of {REPS} after a warm-up; "
+          f"{card})")
+    tiny = torch.zeros(1, dtype=torch.bool, device=dev)
+
+    def read():
+        bool(tiny.any())
+
+    tm = {
+        "stft_kernel": time_ms(lambda: stft_cuda.stft_psd(
+            x, LONG_FS, cfg, band=band)),
+        "estep_kernel": time_ms(lambda: hmm_cuda.estep_chunked(
+            X, patched, L)),
+        "estep_plain": time_ms(lambda: hmm_cuda.estep_chunked_reference(
+            X, patched, L), reps=1),
+        "viterbi_kernel": time_ms(lambda: hmm_cuda.viterbi_chunked(
+            X, patched, L)),
+        "viterbi_plain": time_ms(lambda: hmm_cuda.viterbi_chunked_reference(
+            X, patched, L), reps=1),
+        "viterbi_block_kernel": time_ms(lambda: hmm_cuda.viterbi_seq(
+            X, patched)),
+    }
+    t1 = time.perf_counter()
+    for _ in range(100):
+        read()
+    read_ms = 1e3 * (time.perf_counter() - t1) / 100
+    for name, (ms, reps) in tm.items():
+        print(f"{name}: {ms:.4f} ms [{card}] reps {reps}")
+    fit_s = det.timings["fit"]
+    print(f"host: init (k-means) {det.timings['init']:.3f} s, the EM loop + "
+          f"patch + Viterbi + states read {fit_s:.3f} s "
+          f"({1e3 * fit_s / iters:.3f} ms an iteration beside H3's "
+          f"{tm['estep_kernel'][0]:.3f} ms; "
+          f"a device-to-host read of the continue flag {read_ms:.4f} ms), "
+          f"scans {1e3 * det.timings['scan']:.3f} ms; the call's wall time "
+          f"{wall:.3f} s [{card}]")
+    est_bound = hmm_bound(X.numel() * 8 + 8 * (2 * 4 + 2 * 8 + 16 + 1),
+                          hmm_fit_ops(LONG_T, 2, 4, 1), dfma_peak)
+    vit_bound = hmm_bound(X.numel() * 8 + LONG_T * 4,
+                          hmm_viterbi_ops(LONG_T, 2, 4), dfma_peak)
+    print(f"bounds: H3 {est_bound[0]:.4f} ms ({est_bound[1]}), H2 chunked "
+          f"{vit_bound[0]:.4f} ms ({vit_bound[1]})")
+    print(json.dumps({"path15_times": {k: v[0] for k, v in tm.items()},
+                      "host": det.timings, "read_ms": read_ms,
+                      "wall_s": wall, "card": card}))
+    return {
+        "hmm_estep_chunked": dict(
+            launches=counts["hmm"]["estep_chunked"], err=st_abs,
+            ms=tm["estep_kernel"][0], plain_ms=tm["estep_plain"][0],
+            bound=est_bound, library_ms=None),
+        "hmm_viterbi_chunked": dict(
+            launches=counts["hmm"]["viterbi_chunked"], err=vit_err,
+            ms=tm["viterbi_kernel"][0], plain_ms=tm["viterbi_plain"][0],
+            bound=vit_bound, library_ms=None)}
+
+
 PHASES = ("kernels", "tail", "dc", "scipy", "band", "mel", "path1", "path2",
           "path3", "path4", "path5", "path6", "path7", "path8", "path9",
-          "path10", "path11", "path12", "path13")
+          "path10", "path11", "path12", "path13", "hmm", "path14", "path15")
 
 
 def main(_phases=None):
@@ -2397,6 +3033,15 @@ def main(_phases=None):
     if "path13" in phases:
         rows.update(band_path(dev, card, dfma_peak))
         torch.cuda.empty_cache()
+    if "hmm" in phases:
+        hmm_kernel_cases(dev)
+        torch.cuda.empty_cache()
+    if "path14" in phases:
+        rows.update(detect_path(dev, card, dfma_peak))
+        torch.cuda.empty_cache()
+    if "path15" in phases:
+        rows.update(long_detect_path(dev, card, dfma_peak))
+        torch.cuda.empty_cache()
     if _phases is not None:
         print(f"chip_smoke phases {sorted(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -2414,10 +3059,15 @@ def main(_phases=None):
           f"(the odd kernel's PACKED form): path 11 "
           f"{rows['stft_mixed_rader']['launches']}; the mel kernel's: path "
           f"12 {rows['mel_project']['launches']}; the FFT kernel on the "
-          f"band: path 13 {rows['stft_band']['launches']}")
+          f"band: path 13 {rows['stft_band']['launches']}; the HMM kernels': "
+          f"path 14 fit {rows['hmm_fit']['launches']}, Viterbi "
+          f"{rows['hmm_viterbi']['launches']}; path 15 chunked E-step "
+          f"{rows['hmm_estep_chunked']['launches']}, chunked Viterbi "
+          f"{rows['hmm_viterbi_chunked']['launches']}")
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
     tail_src = "spectral_tpu_torch/ops/csrc/display.cu"
     mel_src = "spectral_tpu_torch/ops/csrc/mel.cu"
+    hmm_src = "spectral_tpu_torch/ops/csrc/hmm.cu"
     # each row names the instantiation its path launches
     meta = {
         "stft_1024": ("stft_fft_psd<LOG2M 9, 8 values>, nperseg 1024 "
@@ -2470,6 +3120,24 @@ def main(_phases=None):
         "clip_stats": ("clip_stats, finite flag and per-clip extrema "
                        "(path 1)", "cuda", tail_src,
                        "spectral_tpu/ops/stft_pallas.py:486"),
+        "hmm_fit": ("hmm_fit<KM 4>, Baum-Welch a block a sequence, "
+                    f"{EEG_CLIPS} sweeps x 1071 frames (path 14)", "cuda",
+                    hmm_src, "spectral_tpu/models/hmm.py:188 (_em_loop, an "
+                    "XLA lax.while_loop; no TPU kernel)"),
+        "hmm_viterbi": ("hmm_viterbi<KM 4>, a block a sequence, "
+                        f"{EEG_CLIPS} sweeps x 1071 frames (path 14)", "cuda",
+                        hmm_src, "spectral_tpu/models/hmm.py:104 (viterbi, "
+                        "an XLA lax.scan; no TPU kernel)"),
+        "hmm_estep_chunked": (
+            f"hmm_estep_chunked<KM 4>, one E-step, {LONG_T} frames in "
+            "chunks of 256 (path 15)", "cuda", hmm_src,
+            "spectral_tpu/models/hmm_pscan.py:289 (e_step, an XLA "
+            "associative scan; no TPU kernel)"),
+        "hmm_viterbi_chunked": (
+            f"hmm_viterbi_chunked<KM 4>, {LONG_T} frames in chunks of 256 "
+            "(path 15)", "cuda", hmm_src,
+            "spectral_tpu/models/hmm_pscan.py:322 (viterbi, an XLA "
+            "associative scan; no TPU kernel)"),
     }
     kernels = []
     for key, (name, route, source, replaces) in meta.items():

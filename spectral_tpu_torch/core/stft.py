@@ -550,15 +550,19 @@ def _kernel_psd(x: torch.Tensor, fs: float, cfg: SpecConfig,
     return p.reshape(lead + p.shape[-2:])
 
 
-def power_spectrogram(x, fs: float, cfg: SpecConfig) -> torch.Tensor:
+def power_spectrogram(x, fs: float, cfg: SpecConfig,
+                      band: Optional[Tuple[int, int]] = None
+                      ) -> torch.Tensor:
     """PSD spectrogram, frame-major: (..., n) -> (..., nframes, n_freqs).
 
     On a CPU tensor, the dense window/detrend-folded DFT route of the JAX
     package's ``power_spectrogram(use_matmul=True)``, computed in x's
     float dtype (the plain version). On a CUDA tensor, one launch of the
     route's STFT/PSD kernel (``ops.stft_cuda.stft_psd``), which takes
-    float32 and the configs it computes, and raises on anything else."""
-    return power_spectrogram_fm(x, fs, cfg).transpose(-1, -2)
+    float32 and the configs it computes, and raises on anything else.
+    band=(lo, hi) returns only those bins, as
+    :func:`power_spectrogram_fm` does."""
+    return power_spectrogram_fm(x, fs, cfg, band=band).transpose(-1, -2)
 
 
 def power_spectrogram_fm(x, fs: float, cfg: SpecConfig,

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device]
@@ -37,3 +38,19 @@ def resolve_device(device: DeviceLike) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: expected cpu or cuda")
     return dev
+
+
+def detection_device(device: DeviceLike) -> torch.device:
+    """The detection entry points' device: 'auto' and 'default' -> the
+    current CUDA device; 'cpu', 'cuda' and 'cuda:N' as named; None
+    refused."""
+    if device in ("auto", "default"):
+        device = "cuda"
+    return resolve_device(device)
+
+
+def host_features(features) -> np.ndarray:
+    """Features as host float32, from numpy or a tensor on any device."""
+    if isinstance(features, torch.Tensor):
+        features = features.detach().cpu().numpy()
+    return np.asarray(features, np.float32)

@@ -1,8 +1,10 @@
 """The port's own host modules held against the JAX package's: SpecConfig
 (spectral_tpu_torch.config), the windows (core/windows.py), the colormap
-tables (render/lut.py), the PNG encoders (render/png.py) and the WAV reader
-(io/wav.py). All of them are exact: fields, JSON, window samples, LUT bytes
-and decoded pixels compare equal, never within a tolerance.
+tables (render/lut.py), the PNG encoders (render/png.py), the WAV reader
+(io/wav.py) and the sklearn-exact k-means (models/kmeans.py). All of them
+are exact: fields, JSON, window samples, LUT bytes, decoded pixels and
+k-means centres, labels and inertia compare equal, never within a
+tolerance.
 """
 
 import dataclasses
@@ -16,11 +18,13 @@ import pytest
 from spectral_tpu import config as jconfig
 from spectral_tpu.core import windows as jwin
 from spectral_tpu.io import wav as jwav
+from spectral_tpu.models import kmeans as jkmeans
 from spectral_tpu.render import lut as jlut
 from spectral_tpu.render import png as jpng
 from spectral_tpu_torch import config as tconfig
 from spectral_tpu_torch.core import windows as twin
 from spectral_tpu_torch.io import wav as twav
+from spectral_tpu_torch.models import kmeans as tkmeans
 from spectral_tpu_torch.render import lut as tlut
 from spectral_tpu_torch.render import png as tpng
 
@@ -186,3 +190,36 @@ def test_wav_reader_matches_jax(tmp_path):
     (tmp_path / "junk.wav").write_bytes(b"RIFX0000WAVE")
     with pytest.raises(ValueError, match="RIFF"):
         twav.read_wav(str(tmp_path / "junk.wav"))
+
+
+def test_kmeans_copy_is_the_original_text():
+    with open(jkmeans.__file__, "rb") as a, open(tkmeans.__file__, "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("trial", range(6))
+def test_kmeans_copy_bit_exact_with_jax_and_sklearn(trial):
+    """The copy against the JAX package's module and sklearn's KMeans
+    bit for bit, inertia included, with sklearn's OpenMP pool at one
+    thread: at its default the pool's threaded inertia sum moves in the
+    last digits (ROADMAP queue 3), which decides nothing of the centres
+    here; trial 5 is test_hmmlearn_parity.py's 9-feature case."""
+    from sklearn.cluster import KMeans
+    from threadpoolctl import threadpool_limits
+    rng = np.random.RandomState(trial)
+    if trial == 5:
+        X = np.round(rng.randn(200, 9) * 50.0 + 1000.0, 1)
+        k = 4
+    else:
+        X = rng.randn(int(rng.randint(40, 400)), int(rng.randint(1, 5)))
+        X[: len(X) // 3] += 4.0 * (trial % 2)
+        k = int(rng.choice([2, 3, 4, 5]))
+    got = tkmeans.kmeans_fit(X, k, seed=42 + trial, n_init=10)
+    want = jkmeans.kmeans_fit(X, k, seed=42 + trial, n_init=10)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    with threadpool_limits(1):
+        sk = KMeans(n_clusters=k, random_state=42 + trial, n_init=10).fit(X)
+    np.testing.assert_array_equal(got[0], sk.cluster_centers_)
+    np.testing.assert_array_equal(got[1], sk.labels_)
+    assert got[2] == sk.inertia_

@@ -66,6 +66,11 @@ def test_port_imports_and_runs_without_jax():
                 16000.0, cfg, tmp, clip_samples=4096, batch=2,
                 device="cpu", encode_workers=1)
             pngs = sorted(os.listdir(tmp))
+        from spectral_tpu_torch.models.detector import BurstDetector
+        ff = np.random.RandomState(0).randn(120, 2).astype(np.float32)
+        ff[40:70, 0] += 5.0
+        events = BurstDetector(device="cpu").unsupervised_detect(
+            np.arange(120) * 0.5, ff)
         loaded = [m for m in sys.modules
                   if m.startswith(("jax.", "jaxlib"))
                   or (m == "jax" and sys.modules[m] is not None)]
@@ -76,7 +81,8 @@ def test_port_imports_and_runs_without_jax():
                           "triton": "triton" in sys.modules,
                           "shapes": {k: list(v.shape) for k, v in out.items()},
                           "finite": out["finite"].tolist(),
-                          "pngs": pngs, "written": stats.pngs_written}))
+                          "pngs": pngs, "written": stats.pngs_written,
+                          "events": len(events)}))
     """)
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
@@ -87,6 +93,11 @@ def test_port_imports_and_runs_without_jax():
     assert "spectral_tpu_torch.parallel.pipeline" in report["modules"]
     assert "spectral_tpu_torch.ops.display_cuda" in report["modules"]
     assert "spectral_tpu_torch.parallel.sharding" in report["modules"]
+    for name in ("core.events", "models.kmeans", "models.hmm",
+                 "models.hmm_pscan", "models.detector", "models.batch",
+                 "ops.hmm_cuda"):
+        assert f"spectral_tpu_torch.{name}" in report["modules"]
+    assert report["events"] >= 1
     assert report["shapes"] == {"psd": [2, 61, 129], "image": [2, 129, 61],
                                 "rgb_packed": [2, 129, 61], "finite": [2]}
     assert report["finite"] == [True, True]
@@ -296,3 +307,124 @@ def test_entry_points_run_on_the_card_by_default(monkeypatch, tmp_path):
         pipeline.export_spectrograms(clips, FS, NS_256, str(tmp_path),
                                      clip_samples=4096)
     assert list(tmp_path.iterdir()) == []
+
+
+# ---------------------------------------------------------------------------
+# detection: the HMM kernels (ops/hmm_cuda.py) and the flows above them
+# ---------------------------------------------------------------------------
+
+def _bursty_features(T=150):
+    f = np.random.RandomState(4).randn(T, 2).astype(np.float32) * 0.2
+    f[50:90, 0] += 3.0
+    return np.arange(T) * 0.5, f
+
+
+def test_hmm_cpu_tensors_never_touch_the_kernels(monkeypatch):
+    from spectral_tpu_torch.models import batch, hmm, hmm_pscan
+    from spectral_tpu_torch.models.detector import BurstDetector
+    from spectral_tpu_torch.ops import hmm_cuda
+
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("an HMM kernel was reached for a CPU tensor")
+
+    monkeypatch.setattr(build, "load_library", no_kernel)
+    for name in ("_library", "fit_seq", "viterbi_seq", "viterbi_chunked",
+                 "estep_chunked"):
+        monkeypatch.setattr(hmm_cuda, name, no_kernel)
+    before = dict(hmm_cuda.launches)
+    t, f = _bursty_features()
+    for engine in ("scan", "pscan"):
+        det = BurstDetector(device="cpu", engine=engine)
+        assert det.unsupervised_detect(t, f)
+        assert det.learn_and_detect(t, f, [(20.0, 50.0)])
+    assert batch.batch_unsupervised_detect(t, f[None], device="cpu")
+    X = torch.from_numpy(f.astype(np.float64))
+    p = hmm.init_params(f, 4, device="cpu")
+    hmm_pscan.unsupervised_fit_decode(p, X, n_iter=2)
+    hmm_pscan.score(p, X)
+    assert hmm_cuda.launches == before
+
+
+def test_hmm_kernel_failure_propagates(monkeypatch):
+    """On a tensor off the CPU the models launch the kernels and never
+    reach a plain version; a kernel that cannot be built raises through
+    every entry point, _find_burst_in_roi's guard included."""
+    from spectral_tpu_torch.models import detector, hmm, hmm_pscan
+    from spectral_tpu_torch.ops import hmm_cuda
+
+    def broken(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    monkeypatch.setattr(build, "load_library", broken)
+    monkeypatch.setattr(hmm_cuda, "_LIB", [])
+    for mod, name in ((hmm, "_fit_plain"), (hmm, "_viterbi_plain"),
+                      (hmm, "_e_step_stats_plain"),
+                      (hmm_pscan, "_viterbi_plain"),
+                      (hmm_pscan, "_e_step_stats_plain")):
+        monkeypatch.setattr(mod, name, _fail)
+    meta = torch.device("meta")
+    monkeypatch.setattr(hmm, "resolve_device", lambda device: meta)
+    monkeypatch.setattr(detector, "detection_device", lambda device: meta)
+    X = torch.empty((2, 3000, 2), dtype=torch.float64, device=meta)
+    p = hmm.HMMParams(*(torch.empty(s, dtype=torch.float64, device=meta)
+                        for s in ((2, 4), (2, 4, 4), (2, 4, 2), (2, 4, 2))))
+    for call in (lambda: hmm.fit(p, X), lambda: hmm.viterbi(p, X),
+                 lambda: hmm_pscan.viterbi(p, X),
+                 lambda: hmm_pscan.e_step_stats(p, X)):
+        with pytest.raises(RuntimeError, match="cannot build hmm"):
+            call()
+    with pytest.raises(RuntimeError, match="cannot build hmm"):
+        hmm.score(p, X)
+    # the lattices have no kernel: a tensor off the CPU is refused
+    lb = torch.empty((2, 3000, 4), dtype=torch.float64, device=meta)
+    for call in (lambda: hmm.forward_log(p, lb),
+                 lambda: hmm.backward_log(p, lb), lambda: hmm._e_step(p, X),
+                 lambda: hmm_pscan.forward_log(p, lb),
+                 lambda: hmm_pscan.backward_log(p, lb),
+                 lambda: hmm_pscan.e_step(p, X)):
+        with pytest.raises(ValueError, match="CPU tensors only"):
+            call()
+    t, f = _bursty_features()
+    det = detector.BurstDetector()
+    with pytest.raises(RuntimeError, match="cannot build hmm"):
+        det.unsupervised_detect(t, f)
+    with pytest.raises(RuntimeError, match="cannot build hmm"):
+        det._find_burst_in_roi(f[40:100], t[40:100])
+
+
+def test_hmm_kernels_refuse_what_they_cannot_take(monkeypatch):
+    from spectral_tpu_torch.ops import hmm_cuda
+    monkeypatch.setattr(hmm_cuda, "_library", lambda: None)
+
+    def model(B, K, D, dtype=torch.float64, device="meta"):
+        return tuple(torch.empty(s, dtype=dtype, device=device)
+                     for s in ((B, K), (B, K, K), (B, K, D), (B, K, D)))
+
+    X = torch.empty((2, 100, 2), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        hmm_cuda.viterbi_seq(X, model(2, 4, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        hmm_cuda.fit_seq(torch.zeros(2, 100, 2, dtype=torch.float64),
+                         model(2, 4, 2, device="cpu"), 10, 1e-2)
+    with pytest.raises(TypeError, match="float64"):
+        hmm_cuda.viterbi_seq(X.float(), model(2, 4, 2))
+    with pytest.raises(ValueError, match="shape"):
+        hmm_cuda.viterbi_seq(X, model(3, 4, 2))
+    with pytest.raises(ValueError, match="states"):
+        hmm_cuda.estep_chunked(X, model(2, 9, 2), 64)
+    with pytest.raises(ValueError, match="chunk length"):
+        hmm_cuda.viterbi_chunked(X, model(2, 8, 2), 256)
+    with pytest.raises(ValueError, match="n_iter"):
+        hmm_cuda.fit_seq(X, model(2, 4, 2), -1, 1e-2)
+
+
+def test_detection_entry_points_run_on_the_card_by_default():
+    import inspect
+    from spectral_tpu_torch.models import batch, detector, hmm
+    assert inspect.signature(detector.BurstDetector).parameters[
+        "device"].default == "auto"
+    assert detector.detection_device("cpu") == torch.device("cpu")
+    for fn in (batch.batch_unsupervised_detect,):
+        assert inspect.signature(fn).parameters["device"].default == "auto"
+    for fn in (hmm.init_params, hmm.supervised_fit, hmm.params_from_jax):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
