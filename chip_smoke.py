@@ -6,7 +6,8 @@
 Needs one CUDA card and nvcc; run it from the root of a checkout. It
 builds every kernel of the port's paths from the sources in the checkout
 (``csrc/stft_psd.cu``, ``csrc/display.cu``, ``csrc/mel.cu`` and
-``csrc/hmm.cu``, one nvcc each, started together) and holds each kernel
+``csrc/hmm.cu``, one nvcc each, started together, beside the native PNG
+encoder's g++ build, which must succeed too) and holds each kernel
 against its plain PyTorch version on the card: the STFT/PSD kernel's five routes (the FFT kernel at power-of-two
 nperseg 32-8192, under every detrend, beside zero, NaN and 1e-6 frames,
 an overflow clip, log10_out, B T = 1 and T = 0, each held to 1 float32
@@ -58,7 +59,7 @@ at every T), paths identical to the plain versions' and to each other;
 H3, the chunked E-step, at T 2048, 8192 and 524,288, statistics within
 HMM_STATS_TOL and the log-likelihood within HMM_LL_TOL; a six-state model
 (the instantiation for 5-8 states) through all three at T 3000; with
-each kernel's ptxas registers and spills. Then it drives fifteen paths at
+each kernel's ptxas registers and spills. Then it drives sixteen paths at
 full size, each
 with the launch counts set to 0 just before it and read just after; each
 call of the pipeline on paths 1-11 and 13 is one launch of the route's
@@ -117,7 +118,20 @@ launch the detection kernels named there):
     frames (48 kHz, north_star 1024/256), features 0-4000 Hz: the STFT
     kernel, one H3 launch an EM iteration and H2's chunked form; the path
     held to the plain chunked versions (Viterbi on every frame, the
-    E-step's statistics and log-likelihood), the planted bursts found.
+    E-step's statistics and log-likelihood), the planted bursts found;
+16. the interactive session (``api/session.py``, the reference app's
+    flow): an hour at 48 kHz with path 15's kind of planted bursts,
+    written as a 16-bit WAV, loaded through ``SweepRegistry`` and plotted
+    by ``AnalysisSession(device="cuda")`` at scipy_default 1024, 0-4000
+    Hz (one STFT launch a plot; sxx and image held to the plain float64
+    PSD; the plot's latency split into upload, kernel, band + normalize,
+    the copy back and the host), a 10-minute cut held to scipy float64,
+    128 log mels with a global max (the mel kernel), ``unsupervised_detect``
+    (the PSD recomputed past the session's cache cap, H3 and H2 chunked,
+    ``detection_quality``), the CSV and PNG exports (their status strings
+    and files; the PNG encoded natively, timed beside PIL and zlib), and
+    an ABF file of 20 sweeps combined, its segment map and CSV
+    attribution checked, learned from two ROIs.
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
@@ -463,9 +477,10 @@ def toolchain():
           f"(data sheet)")
     try:
         import PIL
-        print(f"PIL {PIL.__version__}: PNGs encode through PIL")
+        print(f"PIL {PIL.__version__}, a fallback PNG encoder (the native "
+              f"one comes first)")
     except ImportError:
-        print("no PIL: PNGs encode through the stdlib zlib path")
+        print("no PIL: the stdlib zlib encoder is the fallback")
     return card, dfma
 
 
@@ -474,11 +489,24 @@ def build_kernels():
     from spectral_tpu_torch.ops import build
     phase("build")
     t0 = time.perf_counter()
+    # the native PNG encoder (g++ and zlib) beside the four nvcc builds; a
+    # failed build is fatal here, with the compiler's message
+    native = subprocess.Popen(
+        [sys.executable, "-m", "spectral_tpu_torch.native.build"], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     with ThreadPoolExecutor(4) as pool:
         info, tail, mel, hmm_lib = pool.map(
             build.build_library, ("stft_psd", "display", "mel", "hmm"))
-    print(f"the four sources built side by side in "
-          f"{time.perf_counter() - t0:.2f} s")
+    out, err = native.communicate(timeout=300)
+    require(native.returncode == 0,
+            f"the native PNG encoder did not build (it needs g++ and zlib's "
+            f"headers): {out}{err}")
+    from spectral_tpu_torch.native import build as native_build
+    from spectral_tpu_torch.native import png_native
+    require(png_native.available(), "the native PNG encoder does not load")
+    print(f"the four sources and the native PNG encoder built side by side "
+          f"in {time.perf_counter() - t0:.2f} s: "
+          f"{os.path.relpath(native_build.lib_path('libspectpu_png.so'), HERE)}")
     print(f"hmm.cu -> {os.path.relpath(hmm_lib['path'], HERE)} in "
           f"{hmm_lib['seconds']:.2f} s; ptxas: "
           + "; ".join(hmm_ptxas(hmm_lib["log"])))
@@ -1734,7 +1762,10 @@ def export_path(dev, card):
         ahpm = stats.seconds_audio / 3600.0 / (stats.wall_s / 60.0)
         print(f"export: {stats.seconds_audio:.0f} s of audio in "
               f"{stats.wall_s:.3f} s = {ahpm:.1f} audio-h/min [{card}]")
+        print(f"export: {stats.breakdown().get('encode_ms_per_png')} ms of "
+              f"encode CPU time a PNG through the {png_backend()} encoder")
         print(json.dumps({"export_breakdown": stats.breakdown(),
+                          "png_backend": png_backend(),
                           "audio_h_per_min": ahpm, "card": card}))
 
         # decoded PNG indices against the plain path on the card
@@ -2039,12 +2070,18 @@ def mel_bound(B, T, F, M):
         "bytes"
 
 
+def flat_counts(counts):
+    """``read_counts()`` as one dict: stft_<route>, the display and mel
+    kernels by name, hmm_<kernel>."""
+    return {**{f"stft_{k}": v for k, v in counts["stft_psd"].items()},
+            **counts["display"], **counts["mel"],
+            **{f"hmm_{k}": v for k, v in counts["hmm"].items()}}
+
+
 def require_counts(counts, want, what):
     """The path's run launched exactly ``want`` (kernel -> launches), every
     other count 0."""
-    flat = {**{f"stft_{k}": v for k, v in counts["stft_psd"].items()},
-            **counts["display"], **counts["mel"],
-            **{f"hmm_{k}": v for k, v in counts["hmm"].items()}}
+    flat = flat_counts(counts)
     extra = {k: v for k, v in flat.items() if k not in want and v}
     require(all(flat[k] == v for k, v in want.items()) and not extra,
             f"{what}: launches {want} and no other, got {counts}")
@@ -2934,9 +2971,459 @@ def long_detect_path(dev, card, dfma_peak):
             bound=vit_bound, library_ms=None)}
 
 
+SESSION_FS = 48000.0
+SESSION_SECONDS = 3600.0   # an hour at 48 kHz, the JAX README's hour row
+SESSION_CUT_SECONDS = 600.0
+SESSION_REPS = 5
+ABF_SWEEPS = 20
+ABF_SECONDS = 60.0
+ABF_FS = 20000.0
+
+
+def png_backend():
+    """The backend ``render/png.py`` encodes with: native, PIL or zlib."""
+    from spectral_tpu_torch.render import png
+    if png._get_native() is not None:
+        return "native"
+    try:
+        import PIL  # noqa: F401
+        return "PIL"
+    except ImportError:
+        return "zlib"
+
+
+def encode_ms(rgba, level=4):
+    """ms to encode one RGBA image through each backend, the same pixels
+    and level; the native and PIL bytes decode to the same pixels."""
+    import io
+    from PIL import Image
+    from spectral_tpu_torch.native import png_native
+    from spectral_tpu_torch.render.png import decode_png, encode_png_pure
+
+    def pil(a):
+        buf = io.BytesIO()
+        Image.fromarray(a, "RGBA").save(buf, format="PNG",
+                                        compress_level=level)
+        return buf.getvalue()
+
+    out = {}
+    for name, fn in (("native", lambda a: png_native.encode(a, level)),
+                     ("PIL", pil),
+                     ("zlib", lambda a: encode_png_pure(a, level))):
+        t0 = time.perf_counter()
+        data = fn(rgba)
+        out[name] = (1e3 * (time.perf_counter() - t0), len(data))
+        if name != "zlib":
+            require(bool((decode_png(data) == rgba).all()),
+                    f"{name} PNG decodes to other pixels")
+    return out
+
+
+def plain_unsupervised(det, feats, dev):
+    """``det.unsupervised_detect``'s compute through the plain versions on
+    the card: the same host k-means start, the host EM loop over the
+    chunked E-step's plain version, the escape-route patch and the chunked
+    Viterbi's plain version. Returns (patched params, states (T,) numpy,
+    baseline, log-likelihood, iterations)."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch.models import hmm
+    from spectral_tpu_torch.ops import hmm_cuda
+    K, D = det.n_states, feats.shape[-1]
+    L = hmm_cuda.chunk_len(K)
+
+    def estep(p, X):
+        st, ll = hmm_cuda.estep_chunked_reference(X, p, L)
+        return hmm_cuda.split_stats(st, K, D), ll
+
+    def fit(p0, X, n_iter, tol):
+        return hmm._em_loop(estep, p0, X, n_iter, tol)
+
+    p0 = hmm.init_params(feats, K, seed=det.seed, device=dev)
+    X = torch.as_tensor(feats.astype(np.float64), device=dev)
+    p0, X, _ = hmm._as_batch(p0, X)
+    params, states, base, ll, it = hmm._decode_patched(
+        fit, lambda p, X: hmm_cuda.viterbi_chunked_reference(X, p, L),
+        p0, X, det.n_iter, hmm.DEFAULT_TOL)
+    return (hmm.HMMParams(*(q[0] for q in params)), states[0].cpu().numpy(),
+            int(base[0]), float(ll[0]), int(it[0]))
+
+
+def nonzero_counts(counts):
+    """A run's launch counts, the kernels launched only."""
+    return {k: v for k, v in flat_counts(counts).items() if v}
+
+
+def session_path(dev, card):
+    """Path 16, the interactive session (the reference app's flow,
+    spectral_tpu/api/session.py): an hour of 48 kHz audio written as a
+    16-bit WAV and loaded through ``SweepRegistry``, then
+    ``AnalysisSession(device="cuda")``: ``plot_sweeps`` at
+    scipy_default(1024, fmin=0, fmax=4000) (one STFT kernel launch), a
+    10-minute cut held to scipy float64, a 128-mel log plot with a
+    global max (the mel kernel), ``unsupervised_detect`` (the PSD
+    recomputed: it is past the session's 64 Mi cache cap; H3 under the
+    host EM loop, H2 chunked), the CSV and PNG exports, and an ABF file's
+    20 sweeps combined, attributed in the CSV and learned from two
+    ROIs."""
+    import csv
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig, ViewSettings
+    from spectral_tpu_torch.api.session import AnalysisSession, _power
+    from spectral_tpu_torch.core import events as ev
+    from spectral_tpu_torch.core.mel import mel_centers, mel_filterbank
+    from spectral_tpu_torch.core.scale import normalize
+    from spectral_tpu_torch.core.stft import band_row_slice, freq_axis
+    from spectral_tpu_torch.io.abf import write_abf2_fixture
+    from spectral_tpu_torch.io.wav import write_wav
+    from spectral_tpu_torch.models import hmm
+    from spectral_tpu_torch.models.detector import BurstDetector
+    from spectral_tpu_torch.native import png_native
+    from spectral_tpu_torch.ops import hmm_cuda, mel_cuda, stft_cuda
+    from spectral_tpu_torch.ops.colormap import (apply_colormap_packed,
+                                                 unpack_rgba)
+    from spectral_tpu_torch.render.png import decode_png, encode_png_pure
+    from torch_precision import log_display, scipy_psd
+
+    require(png_native.available() and png_backend() == "native",
+            "the native PNG encoder is not the session's backend")
+    fs = SESSION_FS
+    n = int(fs * SESSION_SECONDS)
+    cfg = SpecConfig.scipy_default(1024, fmin=0.0, fmax=4000.0)
+    f = freq_axis(cfg, fs)
+    lo, hi = band_row_slice(f, 0.0, 4000.0)
+    phase(f"path 16, the interactive session: {SESSION_SECONDS:g} s at "
+          f"{fs:g} Hz ({n} samples) as a 16-bit WAV, scipy_default 1024, "
+          f"0-4000 Hz (bins {lo}-{hi - 1})")
+    x, plans = bursty_batch(dev, 1, n, fs, 4000.0, 200.0, 3000.0, 16)
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "hour.wav")
+        t0 = time.perf_counter()
+        write_wav(wav, 0.1 * x[0].cpu().numpy(), fs)
+        del x
+        s = AnalysisSession(device=dev)
+        names = s.load(wav)
+        load_s = time.perf_counter() - t0
+        require(names == ["hour_sweep0"], f"registered {names}")
+        print(f"{len(plans[0])} bursts planted; WAV written and loaded "
+              f"through SweepRegistry.load_file in {load_s:.3f} s")
+
+        # the plot: one STFT launch, held to the plain versions
+        reset_counts()
+        t0 = time.perf_counter()
+        res = s.plot_sweeps(names, cfg)
+        first_s = time.perf_counter() - t0
+        counts = read_counts()
+        print(f"launches in the plot: {counts}")
+        require_counts(counts, {"stft_fft": 1}, "path 16 plot")
+        run_counts = {"plot": nonzero_counts(counts)}
+        T = len(res.t)
+        require(res.sxx.shape == (hi - lo, T) and res.image.shape
+                == res.sxx.shape and bool(np.isfinite(res.sxx).all())
+                and float(res.image.max()) == 1.0
+                and (s._psd_cache is None) == (T * cfg.n_freqs > 2 ** 26),
+                "path 16 plot shapes, range and the PSD cache's cap")
+        xd = torch.as_tensor(s.spec_data_source, device=dev)
+        psd_p = stft_cuda.stft_psd_reference(
+            xd[None], stft_cuda.dft_constants(cfg, fs, dev), cfg)[0]
+        sxx_p = psd_p[:, lo:hi].T.contiguous()
+        sxx_k = torch.as_tensor(res.sxx, device=dev)
+        rel, abs_ = psd_err(sxx_k[None], sxx_p[None])
+        img_err = float((torch.as_tensor(res.image, device=dev)
+                         - normalize(sxx_p)).abs().max())
+        require(rel <= PSD_TOL and img_err <= IMAGE_TOL,
+                f"path 16 plot vs plain: psd {rel:.2e}, image {img_err:.2e}")
+        print(f"{T} frames x {hi - lo} rows on the host; vs the plain "
+              f"float64 PSD on the card: psd max rel {rel:.2e} ({abs_:.2e} "
+              f"abs), image {img_err:.2e}; the full PSD {T * cfg.n_freqs} "
+              f"elements, cached for detection: {s._psd_cache is not None} "
+              f"(the cap is 64 Mi)")
+        del psd_p
+
+        # the plot's latency and its split
+        walls = []
+        for _ in range(SESSION_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.plot_sweeps(names, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        h2d = []
+        for _ in range(SESSION_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xd = torch.as_tensor(s.spec_data_source, device=dev)
+            torch.cuda.synchronize()
+            h2d.append(time.perf_counter() - t0)
+        stft_ms = time_ms(lambda: _power(xd, fs, cfg))
+        psd = _power(xd, fs, cfg)
+
+        def display():
+            band = psd.transpose(-1, -2)[lo:hi]
+            return torch.stack([band, normalize(band)])
+
+        disp_ms = time_ms(display)
+        packed = display()
+        d2h = []
+        for _ in range(SESSION_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            packed.cpu()
+            d2h.append(time.perf_counter() - t0)
+        med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+        lat = {"plot_wall_ms": 1e3 * med(walls), "first_plot_ms":
+               1e3 * first_s, "h2d_ms": 1e3 * med(h2d),
+               "stft_kernel_ms": stft_ms[0], "band_normalize_ms": disp_ms[0],
+               "d2h_ms": 1e3 * med(d2h)}
+        lat["host_rest_ms"] = lat["plot_wall_ms"] - sum(
+            lat[k] for k in ("h2d_ms", "stft_kernel_ms", "band_normalize_ms",
+                             "d2h_ms"))
+        print(f"plot latency, median of {SESSION_REPS} after a warm-up, the "
+              f"card synchronised: {lat['plot_wall_ms']:.3f} ms (the first "
+              f"plot {lat['first_plot_ms']:.3f}); the waveform's upload "
+              f"{lat['h2d_ms']:.3f} ms ({xd.numel() * 4 / 2 ** 20:.0f} MiB), "
+              f"the STFT kernel {lat['stft_kernel_ms']:.3f} ms (CUDA events),"
+              f" band + normalize + stack {lat['band_normalize_ms']:.3f} ms, "
+              f"the display pair's copy to the host {lat['d2h_ms']:.3f} ms "
+              f"({packed.numel() * 4 / 2 ** 20:.0f} MiB), the rest on the "
+              f"host {lat['host_rest_ms']:.3f} ms [{card}]")
+        print(json.dumps({"path16_plot": lat, "frames": T, "card": card}))
+        del psd, packed
+
+        # a 10-minute cut through the same session against scipy float64
+        cut = int(fs * SESSION_CUT_SECONDS)
+        entry = s.registry.data[names[0]]
+        s.registry.register("cut_sweep0", type(entry)(
+            filepath=wav, sweep_idx=0, fs=fs, fs_raw=fs,
+            raw=entry.raw[:cut], processed=None))
+        cfg_log = SpecConfig.scipy_default(1024, fmin=0.0, fmax=4000.0,
+                                           log_scale=True)
+        reset_counts()
+        rc = s.plot_sweeps(["cut_sweep0"], cfg_log)
+        require_counts(read_counts(), {"stft_fft": 1}, "path 16 cut")
+        oracle, rng_db = log_display(scipy_psd(
+            s.spec_data_source.astype(np.float64), cfg_log, fs)[lo:hi])
+        db_err = float(np.max(np.abs(rc.image - oracle)) * rng_db)
+        require(db_err <= DB_TOL, f"path 16 cut vs scipy: {db_err:.2e} dB")
+        print(f"the {SESSION_CUT_SECONDS:g} s cut ({len(rc.t)} frames, log) "
+              f"vs scipy float64: {db_err:.2e} dB (limit {DB_TOL:g})")
+
+        # mel rows and a global max: the mel kernel once
+        cfg_mel = SpecConfig.scipy_default(1024, fmin=0.0, fmax=4000.0,
+                                           n_mels=128, log_scale=True)
+        gm = 2.0 * float(res.sxx.max())
+        reset_counts()
+        rm = s.plot_sweeps(names, cfg_mel, global_max=gm)
+        counts = read_counts()
+        require_counts(counts, {"stft_fft": 1, "mel": 1}, "path 16 mel")
+        run_counts["mel_plot"] = nonzero_counts(counts)
+        m_lo, m_hi = band_row_slice(mel_centers(128, fs), 0.0, 4000.0)
+        spans = mel_cuda.mel_spans(mel_filterbank(128, cfg.n_freqs, fs)
+                                   [m_lo:m_hi], dev)
+        psd_k = stft_cuda.stft_psd(xd, fs, cfg_mel)
+        mel_p = mel_cuda.mel_project_reference(psd_k[None], spans)[0][0].T
+        mel_k = torch.as_tensor(rm.sxx, device=dev)
+        ulps = ulp_distance(mel_k, mel_p)
+        mel_img = float((torch.as_tensor(rm.image, device=dev) - normalize(
+            mel_p.contiguous(), True, gm)).abs().max())
+        require(rm.sxx.shape == (m_hi - m_lo, T) and ulps <= MEL_ULPS
+                and mel_img <= IMAGE_TOL and torch.equal(
+                    torch.isfinite(mel_k), torch.isfinite(mel_p)),
+                f"path 16 mel vs plain: {ulps} ulps, image {mel_img:.2e}")
+        print(f"mel plot: {m_hi - m_lo} of 128 mel rows in the band, "
+              f"launches {counts}; vs the plain version {ulps} ulps, image "
+              f"{mel_img:.2e} (global max {gm:.4g})")
+        del psd_k, mel_p, mel_k
+
+        # detection on the linear plot: the PSD recomputed on the card
+        s.plot_sweeps(names, cfg)
+        det = s.detector
+        reset_counts()
+        t0 = time.perf_counter()
+        events = s.unsupervised_detect()
+        det_s = time.perf_counter() - t0
+        counts = read_counts()
+        iters = det.timings["iterations"]
+        print(f"launches in the detection: {counts}")
+        require_counts(counts, {"stft_fft": 1, "hmm_estep_chunked": iters,
+                                "hmm_viterbi_chunked": 1}, "path 16 detect")
+        run_counts["detect"] = nonzero_counts(counts)
+        # the same detection through the plain versions on the card: the
+        # fit's 46-odd E-steps, the fitted parameters, every frame's state
+        # and the event list
+        t, feat = s._features()
+        p_par, states, base, ll_p, it_p = plain_unsupervised(det, feat, dev)
+        perr = max(field_err(g, w) for g, w in zip(det.params, p_par))
+        require(it_p == iters and perr <= HMM_PARAM_TOL
+                and base == int(torch.argmin(det.params.means[:, 0])),
+                f"path 16 fit vs plain: iterations {iters} (plain {it_p}), "
+                f"params max rel {perr:.2e}")
+        X = torch.as_tensor(feat, dtype=torch.float64, device=dev)[None]
+        patched = hmm.HMMParams(*(q[None].contiguous() for q in det.params))
+        L = hmm_cuda.chunk_len(det.n_states)
+        states_k = hmm_cuda.viterbi_chunked(X, patched, L)[0].cpu().numpy()
+        vit_diff = int((states_k != states).sum())
+        require(vit_diff == 0 and events == ev.merge_overlapping_events(
+            ev.baseline_scan(states, t, base)),
+            f"path 16 Viterbi vs plain: {vit_diff} of {len(t)} states "
+            "differ, or the events are not the plain states' events")
+        st, ll = hmm_cuda.estep_chunked(X, patched, L)
+        st_p, ll_q = hmm_cuda.estep_chunked_reference(X, patched, L)
+        ll_rel = float((ll - ll_q).abs().max() / ll_q.abs().max())
+        errs = [field_err(g, w) for g, w in zip(
+            hmm_cuda.split_stats(st, det.n_states, X.shape[-1]),
+            hmm_cuda.split_stats(st_p, det.n_states, X.shape[-1]))]
+        require(ll_rel <= HMM_LL_TOL and max(errs) <= HMM_STATS_TOL,
+                f"path 16 H3 vs plain: ll {ll_rel:.2e}, statistics {errs}")
+        print(f"vs the plain versions on the card: the fit's {it_p} "
+              f"iterations, params max rel {perr:.2e}; all {len(t)} states "
+              f"identical and the same {len(events)} events; H3 at the "
+              f"fitted model ll rel {ll_rel:.2e}, statistics max rel "
+              f"{max(errs):.2e}")
+        check_detection(f"path 16, {len(plans[0])} bursts planted, "
+                        f"{len(events)} events", detection_quality(
+                            t, states[None],
+                            det.params.means[None].cpu().numpy(), plans,
+                            [events]))
+        print(f"unsupervised_detect: {det_s:.3f} s of wall time, {iters} EM "
+              f"iterations: the host's k-means {det.timings['init']:.3f} s, "
+              f"the EM loop + patch + Viterbi + states read "
+              f"{det.timings['fit']:.3f} s, scans "
+              f"{1e3 * det.timings['scan']:.3f} ms, the rest (the STFT "
+              f"kernel, features, copies) "
+              f"{det_s - det.timings['init'] - det.timings['fit'] - det.timings['scan']:.3f}"
+              f" s [{card}]")
+
+        # the exports: their status strings, the files they wrote
+        csv_path = os.path.join(tmp, "bursts.csv")
+        msg = s.export_csv(csv_path)
+        require(msg.startswith(f"Successfully exported {len(events)} "
+                               "events"), f"path 16 CSV: {msg}")
+        with open(csv_path) as fh:
+            rows = list(csv.reader(fh))
+        require(len(rows) == len(events) + 1
+                and all(r[1] == "hour" and r[2] == "0" for r in rows[1:]),
+                "path 16 CSV rows")
+        png_path = os.path.join(tmp, "hour.png")
+        t0 = time.perf_counter()
+        msg = s.export_png(png_path)
+        export_ms = 1e3 * (time.perf_counter() - t0)
+        require(msg.startswith("Successfully"), f"path 16 PNG: {msg}")
+        want = unpack_rgba(apply_colormap_packed(
+            torch.as_tensor(s.last_image, device=dev), flip_rows=True))
+        require(bool((decode_png(png_path) == want).all()),
+                "path 16 PNG decodes to the colormapped image")
+        enc = encode_ms(want)
+        # level 0 (stored blocks): the stdlib encoder's bytes against the
+        # native encoder's, the case that keeps the native encoder first
+        l0 = {"native": png_native.encode(want, 0),
+              "zlib": encode_png_pure(want, 0)}
+        require(all(bool((decode_png(v) == want).all()) for v in l0.values()),
+                "path 16 level-0 PNGs decode to other pixels")
+        l0_same = l0["native"] == l0["zlib"]
+        print(f"at compress level 0 the native and stdlib-zlib bytes are "
+              f"{'identical' if l0_same else 'different'} ({len(l0['native'])}"
+              f" and {len(l0['zlib'])} bytes, the same pixels)")
+        del l0
+        print(f"export_png ({want.shape[1]} x {want.shape[0]} RGBA): "
+              f"{export_ms:.1f} ms through the {png_backend()} encoder; the "
+              f"same image encoded at level 4: "
+              + ", ".join(f"{k} {v[0]:.1f} ms ({v[1]} bytes)"
+                          for k, v in enc.items()) + f" [{card}]")
+        print(json.dumps({"path16_detect_s": det_s,
+                          "host": det.timings, "export_png_ms": export_ms,
+                          "encode_ms": {k: v[0] for k, v in enc.items()},
+                          "backend": png_backend(),
+                          "level0_bytes_identical": l0_same, "card": card}))
+
+        # ABF sweeps combined: the segment map, the CSV's attribution, two
+        # ROIs learned
+        na = int(ABF_FS * ABF_SECONDS)
+        xa, plans_a = bursty_batch(dev, ABF_SWEEPS, na, ABF_FS, 2000.0,
+                                   100.0, 1500.0, 17)
+        abf = os.path.join(tmp, "abf.abf")
+        write_abf2_fixture(abf, xa.cpu().numpy(), ABF_FS)
+        del xa
+        sa = AnalysisSession(device=dev)
+        names_a = sa.load(abf)
+        require(len(names_a) == ABF_SWEEPS, f"ABF sweeps {names_a}")
+        cfg_a = SpecConfig.scipy_default(1024, fmin=0.0, fmax=2000.0)
+        reset_counts()
+        ra = sa.plot_sweeps(names_a, cfg_a, ViewSettings(combine=True))
+        require_counts(read_counts(), {"stft_fft": 1}, "path 16 ABF plot")
+        spans_ok = all(
+            seg.source_name == names_a[k]
+            and abs(seg.start_time_combined - k * ABF_SECONDS) < 1e-9
+            and abs(seg.end_time_combined - (k + 1) * ABF_SECONDS) < 1e-9
+            for k, seg in enumerate(sa.segment_map))
+        require(len(sa.segment_map) == ABF_SWEEPS and spans_ok,
+                "path 16 ABF segment map")
+        planted = [(k * ABF_SECONDS + a, k * ABF_SECONDS + a + m)
+                   for k, plan in enumerate(plans_a) for a, m, _, _ in plan]
+        require(len(planted) >= 2, f"{len(planted)} ABF bursts planted")
+        rois = [(a - 2.0, b + 2.0) for a, b in planted[:2]]
+        reset_counts()
+        t0 = time.perf_counter()
+        ev_a = sa.learn_and_detect(rois)
+        learn_s = time.perf_counter() - t0
+        counts = read_counts()
+        n_fit = counts["hmm"]["fit"]
+        print(f"launches in the ABF learn: {counts}")
+        require(1 <= n_fit <= len(rois), f"path 16 ABF learn: {n_fit} ROI "
+                "fits")
+        # each ROI fitted (H1) and decoded (H2) on its own, then the whole
+        # sequence's decode (H2 chunked)
+        require_counts(counts, {"hmm_fit": n_fit, "hmm_viterbi": n_fit,
+                                "hmm_viterbi_chunked": 1,
+                                "stft_fft": int(sa._psd_cache is None)},
+                       "path 16 ABF learn")
+        run_counts["abf_learn"] = nonzero_counts(counts)
+        # its Viterbi against the plain version on the card, every frame;
+        # the whole learn through the plain versions (a CPU detector)
+        t_a, feat_a = sa._features()
+        X = torch.as_tensor(feat_a, dtype=torch.float64, device=dev)[None]
+        fitted = hmm.HMMParams(*(q[None].contiguous()
+                                 for q in sa.detector.params))
+        L = hmm_cuda.chunk_len(sa.detector.n_states)
+        st_k = hmm_cuda.viterbi_chunked(X, fitted, L)
+        st_p = hmm_cuda.viterbi_chunked_reference(X, fitted, L)
+        diff_a = int((st_k != st_p).sum())
+        cpu_det = BurstDetector(device="cpu")
+        ev_cpu = cpu_det.learn_and_detect(t_a, feat_a, rois)
+        perr_a = max(field_err(g.cpu(), w) for g, w in zip(
+            sa.detector.params, cpu_det.params))
+        require(diff_a == 0 and ev_a == ev.merge_overlapping_events(
+            ev.label_scan(st_p[0].cpu().numpy(), t_a)) and ev_a == ev_cpu
+            and perr_a <= HMM_PARAM_TOL,
+            f"path 16 ABF learn vs plain: {diff_a} of {len(t_a)} states "
+            f"differ, params max rel {perr_a:.2e}, events {len(ev_a)} "
+            f"(plain {len(ev_cpu)})")
+        print(f"ABF learn vs the plain versions: all {len(t_a)} states "
+              f"identical on the card; the learn on a CPU detector gives "
+              f"the same {len(ev_a)} events, params max rel {perr_a:.2e}")
+        csv_a = os.path.join(tmp, "abf.csv")
+        msg = sa.export_csv(csv_a)
+        require(msg.startswith("Successfully") and len(ev_a) >= 2,
+                f"path 16 ABF learn: {len(ev_a)} events, {msg}")
+        with open(csv_a) as fh:
+            rows_a = list(csv.reader(fh))[1:]
+        require(all(r[1] == "abf" and int(r[2]) == int(float(r[3])
+                                                       // ABF_SECONDS)
+                    for r in rows_a), "path 16 ABF CSV attribution")
+        hits = sum(any(s_ <= b and e_ >= a for s_, e_ in ev_a)
+                   for a, b in planted)
+        print(f"ABF: {ABF_SWEEPS} sweeps x {ABF_SECONDS:g} s at {ABF_FS:g} "
+              f"Hz combined ({len(ra.t)} frames), segment map and CSV "
+              f"attribution checked; learn_and_detect from 2 ROIs: "
+              f"{len(ev_a)} events, {hits} of {len(planted)} planted bursts "
+              f"overlapped, {learn_s:.3f} s [{card}]")
+    return {"session_launches": run_counts}
+
 PHASES = ("kernels", "tail", "dc", "scipy", "band", "mel", "path1", "path2",
           "path3", "path4", "path5", "path6", "path7", "path8", "path9",
-          "path10", "path11", "path12", "path13", "hmm", "path14", "path15")
+          "path10", "path11", "path12", "path13", "hmm", "path14", "path15",
+          "path16")
 
 
 def main(_phases=None):
@@ -3042,6 +3529,9 @@ def main(_phases=None):
     if "path15" in phases:
         rows.update(long_detect_path(dev, card, dfma_peak))
         torch.cuda.empty_cache()
+    if "path16" in phases:
+        rows.update(session_path(dev, card))
+        torch.cuda.empty_cache()
     if _phases is not None:
         print(f"chip_smoke phases {sorted(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -3063,7 +3553,8 @@ def main(_phases=None):
           f"path 14 fit {rows['hmm_fit']['launches']}, Viterbi "
           f"{rows['hmm_viterbi']['launches']}; path 15 chunked E-step "
           f"{rows['hmm_estep_chunked']['launches']}, chunked Viterbi "
-          f"{rows['hmm_viterbi_chunked']['launches']}")
+          f"{rows['hmm_viterbi_chunked']['launches']}; path 16 (the session) "
+          f"{rows['session_launches']}")
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
     tail_src = "spectral_tpu_torch/ops/csrc/display.cu"
     mel_src = "spectral_tpu_torch/ops/csrc/mel.cu"

@@ -11,9 +11,10 @@ Here that becomes one frozen (hashable) dataclass covering both the
 scipy-compatible mode and a generalized mode (explicit hop, hann/hamming/...,
 optional mel filterbank, optional center padding).
 
-The port's own copy of ``spectral_tpu/config.py::SpecConfig``: the same
-fields, defaults, validation and JSON form, so a config serialized by one
-package loads in the other (``SpecConfig.from_json(cfg.to_json())``).
+The port's own copy of ``spectral_tpu/config.py`` (``SpecConfig`` and
+``ViewSettings``): the same fields, defaults, validation and JSON form, so
+a config serialized by one package loads in the other
+(``SpecConfig.from_json(cfg.to_json())``).
 """
 
 from __future__ import annotations
@@ -154,3 +155,15 @@ class SpecConfig:
         if isinstance(d.get("window"), list):
             d["window"] = tuple(d["window"])
         return cls(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class ViewSettings:
+    """The non-numeric half of the reference's per-plot settings dict
+    (GUI.py:421-431): which signals to draw / combine and how."""
+
+    combine: bool = False
+    draw_raw: bool = True
+    draw_proc: bool = True
+    mode_raw: str = "Signal"  # 'Signal' | 'Spectrogram' | 'Both'
+    mode_proc: str = "Signal"

@@ -4,9 +4,6 @@ The reference loads only ABF and NIX-HDF5 (SweepManager.py:12-19); the
 north-star workloads (BASELINE.json configs 1, 2, 5) are WAV audio clips, so a
 zero-dependency RIFF/WAVE reader is part of the IO layer. Supports PCM 8/16/
 24/32-bit and IEEE float32/64, mono or multi-channel.
-
-The port's own copy of ``spectral_tpu/io/wav.py`` without the registry
-hook (``load_wav``), which waits for the port of ``io/registry``.
 """
 
 from __future__ import annotations
@@ -212,3 +209,20 @@ def write_wav(filepath: str, x: np.ndarray, fs: float, bits: int = 16) -> None:
                              int(fs) * n_ch * 2, n_ch * 2, 16))
         fh.write(struct.pack("<4sI", b"data", len(payload)))
         fh.write(payload)
+
+
+def load_wav(filepath: str, registry) -> List[str]:
+    """Register a WAV file: one display name per channel for multi-channel
+    files ('{base}_sweep{ch}'), matching the registry's sweep convention."""
+    from spectral_tpu_torch.io.registry import SweepEntry
+    x, fs = read_wav(filepath)
+    base = os.path.splitext(os.path.basename(filepath))[0]
+    chans = x[:, None] if x.ndim == 1 else x
+    names = []
+    for ch in range(chans.shape[1]):
+        name = f"{base}_sweep{ch}"
+        registry.register(name, SweepEntry(
+            filepath=filepath, sweep_idx=ch, fs=fs, fs_raw=fs,
+            raw=np.ascontiguousarray(chans[:, ch]), processed=None))
+        names.append(name)
+    return names

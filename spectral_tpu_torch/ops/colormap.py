@@ -4,7 +4,9 @@ Counterpart of ``spectral_tpu/ops/colormap.py``. A normalized [0, 1] image
 maps to the 256-entry LUT of ``spectral_tpu_torch.render.lut`` (matplotlib's
 index rule, idx = clip(floor(x * 256), 0, 255), PlotEngine.py:134). Two
 packed forms leave the card: one little-endian RGBA word per pixel
-(R | G<<8 | B<<16 | A<<24), or four LUT indices per word for palette PNGs.
+(R | G<<8 | B<<16 | A<<24), or four LUT indices per word for palette PNGs;
+uint8 RGB(A) arrays come from :func:`apply_colormap` and
+:func:`apply_colormap_rgba`.
 
 The JAX package evaluates the channels as piecewise-linear hinge arithmetic
 because a TPU has no gather; on a GPU the 256-entry table lookup is the
@@ -14,6 +16,7 @@ natural form, and it is byte-exact by construction.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -59,11 +62,48 @@ def apply_colormap_packed(img: torch.Tensor, name: str = "jet",
     return out.view(torch.uint32)
 
 
-def lut_index(img: torch.Tensor) -> torch.Tensor:
-    """int32 LUT index of each pixel, clip(floor(x * 256), 0, 255); a NaN
-    pixel takes index 0, as the display kernel and jnp give it."""
-    level = torch.nan_to_num(img, nan=0.0) * N_LEVELS
-    return torch.clamp(level.to(torch.int32), 0, N_LEVELS - 1)
+def lut_index(img: torch.Tensor, n: int = N_LEVELS) -> torch.Tensor:
+    """int32 index of each pixel into an n-entry LUT, clip(floor(x * n), 0,
+    n - 1); a NaN pixel takes index 0, as the display kernel and jnp give
+    it."""
+    level = torch.nan_to_num(img, nan=0.0) * n
+    return torch.clamp(level.to(torch.int32), 0, n - 1)
+
+
+def apply_colormap(img: torch.Tensor, lut: Optional[np.ndarray] = None,
+                   name: str = "jet", flip_rows: bool = False
+                   ) -> torch.Tensor:
+    """Map a normalized image (..., H, W) in [0, 1] to uint8 RGB (..., H,
+    W, 3) on img's device, through ``lut`` (an (N, 3) uint8 table) or the
+    named colormap's 256 entries.
+
+    flip_rows=True flips the frequency axis so row 0 is the highest
+    frequency (the PNG row order)."""
+    if lut is None:
+        lut = get_lut(name)
+    table = torch.tensor(np.asarray(lut), device=img.device)
+    rgb = table[lut_index(img, table.shape[0])]
+    return rgb.flip(-3) if flip_rows else rgb
+
+
+def apply_colormap_rgba(img: torch.Tensor, alpha=None, name: str = "jet",
+                        flip_rows: bool = False) -> torch.Tensor:
+    """:func:`apply_colormap` with an alpha channel: uint8 (..., H, W, 4),
+    opaque unless ``alpha`` (in [0, 1], shaped like img or like img with a
+    trailing channel axis) is given. The channel axis is added before the
+    row flip, so a 2-D mask flips with the image."""
+    rgb = apply_colormap(img, name=name, flip_rows=flip_rows)
+    if alpha is None:
+        a = torch.full(rgb.shape[:-1] + (1,), 255, dtype=torch.uint8,
+                       device=rgb.device)
+    else:
+        a = torch.clamp(torch.as_tensor(alpha, device=rgb.device) * 255.0,
+                        0, 255).to(torch.uint8)
+        if a.ndim == rgb.ndim - 1:
+            a = a[..., None]
+        if flip_rows:
+            a = a.flip(-3)
+    return torch.cat([rgb, a], dim=-1)
 
 
 def colormap_index_packed(img: torch.Tensor,

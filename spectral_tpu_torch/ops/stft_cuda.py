@@ -345,6 +345,25 @@ def _empty_result(B: int, F: int, like: torch.Tensor, with_stats: bool):
     return empty
 
 
+def _detrend_frames(frames: torch.Tensor, detrend: str) -> torch.Tensor:
+    """Each float64 frame less its mean (constant) or its least-squares
+    line (linear, the slope against the centred sample index), as the FFT
+    kernels subtract them. The folded matrices project the detrend out
+    again, a no-op on detrended frames up to rounding, but a frame of equal
+    samples now gives the exact zeros that the kernels and scipy give,
+    where the folded product alone leaves a rounding residue."""
+    if detrend == "none":
+        return frames
+    frames = frames - frames.mean(dim=-1, keepdim=True)
+    if detrend == "linear":
+        K = frames.shape[-1]
+        c = torch.arange(K, dtype=frames.dtype, device=frames.device) \
+            - (K - 1) / 2
+        slope = (frames * c).sum(dim=-1, keepdim=True) / (c * c).sum()
+        frames = frames - slope * c
+    return frames
+
+
 def stft_psd_reference(x: torch.Tensor, consts: DftConstants,
                        cfg: SpecConfig, *, log10_out: bool = False,
                        with_stats: bool = False):
@@ -354,9 +373,12 @@ def stft_psd_reference(x: torch.Tensor, consts: DftConstants,
     the band's bins for banded constants (``dft_constants(..., band)``),
     each the same dot product as the full band's.
 
-    It computes as the kernel does: float64 matmuls, epilogue and log10,
-    rounded once to x's dtype, and a bin whose |X|² lies past the float32
-    range is inf (:data:`F32_MAX`). ``consts`` must be float64
+    It computes as the kernel does: from nperseg 32, where the FFT routes
+    take it, each frame detrended explicitly (:func:`_detrend_frames`);
+    below, the detrend only folded into the matrices, as the GEMM kernel
+    has it; float64 matmuls, epilogue and log10, rounded once to x's dtype,
+    and a bin whose |X|² lies past the float32 range is inf
+    (:data:`F32_MAX`). ``consts`` must be float64
     (``dft_constants(cfg, fs, device)``): float32 matrices would round A,
     which the kernel does not."""
     B = x.shape[0]
@@ -366,6 +388,8 @@ def stft_psd_reference(x: torch.Tensor, consts: DftConstants,
         raise ValueError(f"the plain STFT computes in float64; got "
                          f"{consts.a_re.dtype} constants")
     frames = frame_signal(x.double(), cfg.nperseg, cfg.hop_)
+    if cfg.nperseg >= MIN_FFT_NPERSEG:      # the FFT routes' explicit detrend
+        frames = _detrend_frames(frames, cfg.detrend)
     xr, xi = dense_dft(frames, consts.a_re, consts.a_im)
     power = xr * xr + xi * xi
     p = torch.where(power > F32_MAX, torch.inf, power * consts.wts)

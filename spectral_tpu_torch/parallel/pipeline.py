@@ -18,9 +18,8 @@ The three stages overlap:
 Bounded queues and a fixed ring of pinned buffers keep memory flat.
 
 Left out against the JAX package: ``use_pallas`` (the port has one route,
-its kernels), ``mesh``/``batch_axis`` (ROADMAP [multi-device]), the XLA compile
-cache, and ``registry_clip_source``/``registry_first_fs``, which wait for
-the port of ``io/registry``, ``abf`` and ``nix``.
+its kernels), ``mesh``/``batch_axis`` (ROADMAP [multi-device]) and the XLA
+compile cache.
 """
 
 from __future__ import annotations
@@ -41,6 +40,7 @@ import torch
 
 from spectral_tpu_torch.config import SpecConfig
 from spectral_tpu_torch.core.stft import num_frames
+from spectral_tpu_torch.io.registry import SweepRegistry
 from spectral_tpu_torch.io.wav import read_wav, read_wav_int16
 from spectral_tpu_torch.ops.colormap import unpack_indices, unpack_rgba
 from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
@@ -483,3 +483,70 @@ def wav_clip_source(paths: Sequence[str], on_error: str = "raise",
             continue
         seen.add(stem)
         yield stem, x
+
+
+def registry_first_fs(path: str) -> float:
+    """Sampling rate of the first loadable sweep of `path` (any
+    registry-supported format). The export pipeline is single-rate by
+    design; this anchors the dataset's rate the way wav_info anchors it
+    for WAV datasets."""
+    r = SweepRegistry()
+    names = r.load_file(path)
+    if not names:
+        raise ValueError(f"{path}: no loadable sweeps")
+    _x, fs = r.get_signal(names[0], processed=True)
+    return float(fs)
+
+
+def registry_clip_source(paths: Sequence[str], fs: float,
+                         on_error: str = "raise"
+                         ) -> Iterator[Tuple[str, np.ndarray]]:
+    """Decode ANY registry-supported recording (ABF / NIX-HDF5 / WAV /
+    NPZ) into per-sweep (display_name, float32 signal) clips for
+    export_spectrograms — the reference's datasets are .abf/.h5, not WAV
+    (SweepManager.py:12-19), so the config-5 pipeline must eat them
+    directly. Signals follow the session's source rule
+    (processed-over-raw, registry.get_signal). Output PNGs are named
+    '{base}_sweep{i}.png'.
+
+    The pipeline is single-rate: sweeps whose rate differs from `fs`
+    raise (on_error='raise') or are skipped with a log line
+    (on_error='skip'), exactly like undecodable files. One registry per
+    FILE keeps host memory bounded on large datasets."""
+    seen = set()
+    for p in paths:
+        r = SweepRegistry()
+        try:
+            names = r.load_file(p)
+        except (OSError, ValueError, KeyError) as e:
+            if on_error == "raise":
+                raise
+            log.warning("skipping undecodable recording %s: %s", p, e)
+            continue
+        for name in names:
+            try:
+                x, sweep_fs = r.get_signal(name, processed=True)
+            except KeyError as e:
+                if on_error == "raise":
+                    raise
+                log.warning("skipping sweep %s: %s", name, e)
+                continue
+            if float(sweep_fs) != float(fs):
+                if on_error == "raise":
+                    raise ValueError(
+                        f"{name}: sampling rate {sweep_fs:g} != dataset "
+                        f"rate {fs:g} (the export pipeline is single-rate;"
+                        f" export mismatched recordings separately)")
+                log.warning("skipping sweep %s: fs %g != dataset fs %g",
+                            name, sweep_fs, fs)
+                continue
+            if name in seen:
+                # two dataset files with the same stem (e.g. ds.h5 +
+                # ds.abf) produce the same '{base}_sweep{i}' names — the
+                # later clip's PNG silently overwrites the earlier one.
+                # Keep the last-write-wins registry semantics
+                # (SweepManager.data is a plain dict) but SAY so.
+                log.warning("duplicate sweep name %r (from %s): its PNG "
+                            "overwrites an earlier clip's output", name, p)
+            seen.add(name)
+            yield name, np.asarray(x, np.float32)

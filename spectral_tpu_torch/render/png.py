@@ -3,13 +3,14 @@
 The port's own copy of ``spectral_tpu/render/png.py``: the atomic write,
 the stale-temp sweep, RGB(A) and indexed-color (PLTE) encoders and the
 decode helper. Pixels come from the card as packed words and only need PNG
-encoding on the host. Two backends, the faster available wins:
+encoding on the host. Three backends, in the original's order, the first
+available wins:
 
-  1. PIL (if installed);
-  2. pure-Python stdlib-zlib fallback (always available).
-
-The JAX package's native C++ encoder (``spectral_tpu/native``) is not
-copied; it waits for its ROADMAP item.
+  1. the native C++ encoder (zlib), built from ``spectral_tpu_torch/native``
+     (:mod:`spectral_tpu_torch.native.build`), the JAX package's encoder
+     byte for byte, so both packages write the same PNG bytes;
+  2. PIL (if installed);
+  3. pure-Python stdlib-zlib fallback (always available).
 """
 
 from __future__ import annotations
@@ -91,6 +92,22 @@ def clean_stale_tmp(dir_path: str) -> int:
     return removed
 
 
+_native = None
+_native_checked = False
+
+
+def _get_native():
+    global _native, _native_checked
+    if not _native_checked:
+        _native_checked = True
+        try:
+            from spectral_tpu_torch.native import png_native
+            _native = png_native if png_native.available() else None
+        except Exception:
+            _native = None
+    return _native
+
+
 def _normalize_array(arr: np.ndarray) -> np.ndarray:
     arr = np.ascontiguousarray(arr)
     if arr.dtype != np.uint8:
@@ -124,20 +141,24 @@ def encode_png_pure(arr: np.ndarray, compress_level: int = 6) -> bytes:
 def encode_png(arr, path: Optional[str] = None, compress_level: int = 6,
                fsync: bool = False) -> Optional[bytes]:
     """Encode uint8 (H, W[, C]) pixels to PNG. Writes to ``path`` if given,
-    else returns the bytes."""
+    else returns the bytes. Uses the first available backend."""
     arr = _normalize_array(np.asarray(arr))
-    try:
-        import io
-        from PIL import Image
-        mode = {1: "L", 3: "RGB", 4: "RGBA"}[arr.shape[2]]
-        # arr[..., 0], not squeeze(): squeeze also collapses an H == 1 or
-        # W == 1 axis
-        img = Image.fromarray(arr[..., 0] if mode == "L" else arr, mode)
-        buf = io.BytesIO()
-        img.save(buf, format="PNG", compress_level=compress_level)
-        data = buf.getvalue()
-    except ImportError:
-        data = encode_png_pure(arr, compress_level)
+    native = _get_native()
+    if native is not None:
+        data = native.encode(arr, compress_level)
+    else:
+        try:
+            import io
+            from PIL import Image
+            mode = {1: "L", 3: "RGB", 4: "RGBA"}[arr.shape[2]]
+            # arr[..., 0], not squeeze(): squeeze also collapses an H == 1
+            # or W == 1 axis
+            img = Image.fromarray(arr[..., 0] if mode == "L" else arr, mode)
+            buf = io.BytesIO()
+            img.save(buf, format="PNG", compress_level=compress_level)
+            data = buf.getvalue()
+        except ImportError:
+            data = encode_png_pure(arr, compress_level)
     if path is not None:
         _write_atomic(path, data, fsync)
         return None
@@ -158,16 +179,20 @@ def encode_png_palette(indices: np.ndarray, palette: np.ndarray,
     if palette.shape[0] > 256:
         raise ValueError(
             f"palette has {palette.shape[0]} entries; PNG PLTE max is 256")
-    try:
-        import io
-        from PIL import Image
-        img = Image.fromarray(indices, "P")
-        img.putpalette(palette.reshape(-1).tolist())
-        buf = io.BytesIO()
-        img.save(buf, format="PNG", compress_level=compress_level)
-        data = buf.getvalue()
-    except ImportError:
-        data = _encode_png_palette_pure(indices, palette, compress_level)
+    native = _get_native()
+    if native is not None:
+        data = native.encode_palette(indices, palette, compress_level)
+    else:
+        try:
+            import io
+            from PIL import Image
+            img = Image.fromarray(indices, "P")
+            img.putpalette(palette.reshape(-1).tolist())
+            buf = io.BytesIO()
+            img.save(buf, format="PNG", compress_level=compress_level)
+            data = buf.getvalue()
+        except ImportError:
+            data = _encode_png_palette_pure(indices, palette, compress_level)
     if path is not None:
         _write_atomic(path, data, fsync)
         return None

@@ -71,6 +71,18 @@ def test_port_imports_and_runs_without_jax():
         ff[40:70, 0] += 5.0
         events = BurstDetector(device="cpu").unsupervised_detect(
             np.arange(120) * 0.5, ff)
+        from spectral_tpu_torch.api.session import AnalysisSession
+        from spectral_tpu_torch.io.wav import write_wav
+        sig = 0.02 * np.random.RandomState(1).randn(60000)
+        sig[20000:26000] += 0.5 * np.sin(0.04 * np.arange(6000))
+        with tempfile.TemporaryDirectory() as tmp:
+            write_wav(os.path.join(tmp, "rec.wav"), sig, 1000.0)
+            session = AnalysisSession(device="cpu")
+            plotted = session.plot_sweeps(
+                session.load(os.path.join(tmp, "rec.wav")),
+                SpecConfig.scipy_default(1024, fmin=0.0, fmax=30.0))
+            session_events = session.unsupervised_detect()
+            status = session.export_png(os.path.join(tmp, "s.png"))
         loaded = [m for m in sys.modules
                   if m.startswith(("jax.", "jaxlib"))
                   or (m == "jax" and sys.modules[m] is not None)]
@@ -82,7 +94,10 @@ def test_port_imports_and_runs_without_jax():
                           "shapes": {k: list(v.shape) for k, v in out.items()},
                           "finite": out["finite"].tolist(),
                           "pngs": pngs, "written": stats.pngs_written,
-                          "events": len(events)}))
+                          "events": len(events),
+                          "plot": list(plotted.image.shape),
+                          "session_events": len(session_events),
+                          "status": status}))
     """)
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
@@ -95,9 +110,13 @@ def test_port_imports_and_runs_without_jax():
     assert "spectral_tpu_torch.parallel.sharding" in report["modules"]
     for name in ("core.events", "models.kmeans", "models.hmm",
                  "models.hmm_pscan", "models.detector", "models.batch",
-                 "ops.hmm_cuda"):
+                 "ops.hmm_cuda", "api.session", "api.export", "io.registry",
+                 "io.abf", "io.nix", "native.build", "native.png_native",
+                 "render.figure", "render.waveform"):
         assert f"spectral_tpu_torch.{name}" in report["modules"]
     assert report["events"] >= 1
+    assert report["plot"] == [31, 66] and report["session_events"] >= 1
+    assert report["status"].startswith("Successfully")
     assert report["shapes"] == {"psd": [2, 61, 129], "image": [2, 129, 61],
                                 "rgb_packed": [2, 129, 61], "finite": [2]}
     assert report["finite"] == [True, True]
@@ -281,6 +300,9 @@ def test_chip_smoke_and_port_import_nothing_of_jax():
                                                          "torch_*.py")))
     assert len(paths) > 15
     assert os.path.join(REPO, "tools", "torch_precision.py") in paths
+    for sub in ("api", "io", "native", "render"):
+        assert any(p.startswith(os.path.join(REPO, "spectral_tpu_torch", sub,
+                                             "")) for p in paths), sub
     for path in paths:
         names = _imported_modules(path)
         bad = [n for n in names if n in ("jax", "jaxlib", "spectral_tpu")
@@ -428,3 +450,63 @@ def test_detection_entry_points_run_on_the_card_by_default():
         assert inspect.signature(fn).parameters["device"].default == "auto"
     for fn in (hmm.init_params, hmm.supervised_fit, hmm.params_from_jax):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the interactive session (api/session.py, api/export.py)
+# ---------------------------------------------------------------------------
+
+def test_session_and_exports_run_on_the_card_by_default(monkeypatch,
+                                                        tmp_path):
+    """AnalysisSession, its detector and the batch export take the card
+    unless told otherwise; without one the plot and the batch export
+    raise, and the PNG export's status says why (it swallows errors into
+    its status, as the reference does)."""
+    import inspect
+    from spectral_tpu_torch.api import export
+    from spectral_tpu_torch.api.session import AnalysisSession
+    from spectral_tpu_torch.io.registry import SweepEntry
+    assert inspect.signature(AnalysisSession).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(export.export_batch_signals_png).parameters[
+        "device"].default == "cuda"
+    s = AnalysisSession()
+    assert s.device == "cuda" and s.detector.device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.RandomState(0).randn(4096).astype(np.float32)
+    s.registry.register("a_sweep0", SweepEntry("f", 0, 1000.0, 1000.0, x,
+                                               None))
+    with pytest.raises(RuntimeError, match="is_available"):
+        s.plot_sweeps(["a_sweep0"], SpecConfig(nperseg=256))
+    s.last_image = np.zeros((4, 5), np.float32)
+    assert "is_available" in s.export_png(str(tmp_path / "a.png"))
+    with pytest.raises(RuntimeError, match="is_available"):
+        s.export_batch_png(str(tmp_path / "b"), ["a_sweep0"])
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_session_kernel_failure_propagates(monkeypatch):
+    """On a tensor off the CPU the plot launches the STFT kernel and never
+    reaches a plain version; a kernel that cannot be built raises out of
+    plot_sweeps and leaves no plot behind."""
+    from spectral_tpu_torch.api import session as sess
+    from spectral_tpu_torch.io.registry import SweepEntry
+
+    def broken(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    monkeypatch.setattr(build, "load_library", broken)
+    monkeypatch.setattr(stft_cuda, "_LIB", [])
+    monkeypatch.setattr(stft_cuda, "stft_psd_reference", _fail)
+    monkeypatch.setattr(sess, "resolve_device",
+                        lambda device: torch.device("meta"))
+    s = sess.AnalysisSession(device="cpu", warm_detection=False)
+    x = np.random.RandomState(0).randn(4096).astype(np.float32)
+    s.registry.register("a_sweep0", SweepEntry("f", 0, 1000.0, 1000.0, x,
+                                               None))
+    for cfg in (SpecConfig(nperseg=256),
+                SpecConfig.scipy_default(512, fmin=0.0, fmax=50.0,
+                                         n_mels=16)):
+        with pytest.raises(RuntimeError, match="cannot build stft_psd"):
+            s.plot_sweeps(["a_sweep0"], cfg)
+        assert s.last_image is None and s._psd_cache is None
