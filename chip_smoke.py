@@ -59,8 +59,8 @@ at every T), paths identical to the plain versions' and to each other;
 H3, the chunked E-step, at T 2048, 8192 and 524,288, statistics within
 HMM_STATS_TOL and the log-likelihood within HMM_LL_TOL; a six-state model
 (the instantiation for 5-8 states) through all three at T 3000; with
-each kernel's ptxas registers and spills. Then it drives sixteen paths at
-full size, each
+each kernel's ptxas registers and spills. Then it drives eighteen paths at
+full size and the GUI, each
 with the launch counts set to 0 just before it and read just after; each
 call of the pipeline on paths 1-11 and 13 is one launch of the route's
 STFT kernel, one of clip_stats and one of the display map, and on path 12
@@ -131,7 +131,37 @@ launch the detection kernels named there):
     ``detection_quality``), the CSV and PNG exports (their status strings
     and files; the PNG encoded natively, timed beside PIL and zlib), and
     an ABF file of 20 sweeps combined, its segment map and CSV
-    attribution checked, learned from two ROIs.
+    attribution checked, learned from two ROIs;
+17. long recordings in bounded memory (``parallel/streaming.py``,
+    BASELINE.json config 4): an hour of 48 kHz stereo (2 x 172,800,000
+    float32 samples on the host, path 15's kind of planted bursts) at
+    north_star 1024/256, chunks of 49,152 samples, 64 to a block:
+    ``scan_spectrogram`` on the fleet, one FFT launch a block (55),
+    bitwise the monolithic ``power_spectrogram`` of each channel, its
+    wall time, rate from the host and the device's idle share
+    (``torch.profiler``); ``stream_band_powers`` and ``stream_features``
+    on each channel at half and the whole hour, within 1e-6 of
+    ``band_powers_device`` and bitwise ``features_from_psd`` (0-4000 Hz),
+    the rise of ``max_memory_allocated`` under a bound from the block size
+    and no larger at the hour than at half of it; ``stream_detect`` on
+    channel 0, its events equal to ``BurstDetector(engine='auto')`` on the
+    monolithic features (H3 an EM iteration, H2 chunked once),
+    ``detection_quality``; ``iter_stream`` over a 10-minute cut ending in
+    a short chunk, bitwise the monolithic frames; ``stream_spectrogram``
+    over the cut at scipy_default 8191 (the odd route) within 2 float32
+    ulps; the FFT kernel on one streamed block timed against its plain
+    version, cuFFT and its bound;
+18. the sweep grid (``parallel/sweep_grid.py``, BASELINE.json config 3):
+    ``default_grid()``'s 16 configs over a 10-minute clip at 48 kHz, one
+    upload and 16 FFT launches (``torch.profiler``), each result bitwise
+    ``power_spectrogram`` of its config, a 10 s cut of each within 2e-5
+    of scipy float64, the time of each shape group;
+
+and the GUI (``gui/app.py`` over the port's session, ``device='cuda'``):
+under the real Qt offscreen where the host has PyQt5 and matplotlib, under
+``tests/qt_stub.py`` where it has matplotlib alone, plot (one STFT launch
+a plot), detect and the CSV and PNG exports on a synthetic sweep; where
+the host has no matplotlib, one line that says so.
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
@@ -2650,6 +2680,20 @@ DETECT_FALSE = 0.05     # other frames decoded to a loud state, at most
 DETECT_HIT = 0.95       # planted bursts with a loud frame, at least
 
 
+def in_events(t, events):
+    """Whether each time lies in one of the (start, end) intervals, ends
+    included: the largest end among the intervals that start at or before
+    it reaches it (a search, not a pass over t an event: an hour's decode
+    splits the noise floor into hundreds of thousands of events)."""
+    import numpy as np
+    if not len(events):
+        return np.zeros(len(t), bool)
+    iv = np.asarray(sorted(events), np.float64)
+    reach = np.maximum.accumulate(iv[:, 1])
+    k = np.searchsorted(iv[:, 0], t, side="right") - 1
+    return (k >= 0) & (t <= reach[np.maximum(k, 0)])
+
+
 def detection_quality(t, states, means, plans, events):
     """What the decode found of the planted bursts, pooled over sequences.
 
@@ -2673,9 +2717,7 @@ def detection_quality(t, states, means, plans, events):
             span = (t >= a) & (t <= a + m)
             inb |= span
             hits.append(bool(loud[span].any()))
-        inev = np.zeros(len(t), bool)
-        for s, e in events[b]:
-            inev |= (t >= s) & (t <= e)
+        inev = in_events(t, events[b])
         burst.append(loud[inb])
         other.append(loud[~inb])
         ev_burst.append(inev[inb])
@@ -3420,10 +3462,507 @@ def session_path(dev, card):
               f"overlapped, {learn_s:.3f} s [{card}]")
     return {"session_launches": run_counts}
 
+
+# ---------------------------------------------------------------------------
+# long recordings in bounded memory (parallel/streaming.py), the sweep grid
+# (parallel/sweep_grid.py) and the Qt window (gui/): paths 17-18, the GUI
+# ---------------------------------------------------------------------------
+
+STREAM_FS = 48000.0
+STREAM_SECONDS = 3600.0     # BASELINE.json config 4: an hour, stereo
+STREAM_CHUNK = 49152        # 192 hops of 256
+STREAM_CPB = 64             # chunks a block: 3,145,728 samples
+STREAM_CUT_SECONDS = 600.0  # iter_stream, 8191 and the grid's clip
+STREAM_ULPS = 2             # odd nperseg: the pairing may move the last bit
+GRID_SCIPY_SECONDS = 10.0
+GRID_REL = 2e-5
+
+
+def idle_share(fn, what, card, want_kernel):
+    """fn() once under torch.profiler, tracing the device alone (tracing
+    the host's ops too stretched path 17's window 3-fold on the H100):
+    the device's busy time (the union of its kernels and copies) over the
+    span from its first event's start to its last event's end, the summed
+    ms of the kernels whose name holds ``want_kernel``, and the events by
+    kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a profiler session after the process's first one was seen to
+        # miss the device's first events on the H100: let its device
+        # tracing start before the call
+        time.sleep(0.5)
+        out = fn()
+        torch.cuda.synchronize()
+    del out
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        print(f"{what}: torch.profiler shows no device time on this machine")
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    start, last = spans[0][0], max(b for _, b in spans)
+    kernel_us = sum(e.time_range.end - e.time_range.start for e in device
+                    if want_kernel in e.name)
+    kinds = {}
+    for e in device:
+        key = ("kernel " + want_kernel if want_kernel in e.name
+               else e.name.split("(")[0][:40])
+        kinds[key] = kinds.get(key, 0) + 1
+    share = 1 - busy / (last - start)
+    print(f"{what}: device busy {busy / 1e3:.3f} ms of the "
+          f"{(last - start) / 1e3:.3f} ms from its first event to its last "
+          f"(idle share {share:.4f}); {want_kernel} kernels "
+          f"{kernel_us / 1e3:.3f} ms summed; device events {kinds} [{card}]")
+    return {"busy_ms": busy / 1e3, "span_ms": (last - start) / 1e3,
+            "idle_share": share, "kernel_ms": kernel_us / 1e3,
+            "events": kinds}
+
+
+def fold_memory(fn):
+    """fn()'s result and two rises over what was allocated before it, the
+    allocator's cache emptied first: of max_memory_allocated() (the
+    allocator's blocks, which may hold up to 1 MiB past a request that
+    did not split its block) and of the peak of the bytes the tensors
+    requested (the allocator's ``requested_bytes``)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    req = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+    return out, torch.cuda.max_memory_allocated() - base, peak - req
+
+
+def stream_path(dev, card, dfma_peak):
+    """Path 17 (BASELINE.json config 4): an hour of 48 kHz stereo streamed
+    from the host at north_star 1024/256, chunks of 49,152 samples, 64 to a
+    block (55 blocks)."""
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core import events as ev
+    from spectral_tpu_torch.core.stft import (band_row_slice, freq_axis,
+                                              num_frames, power_spectrogram,
+                                              time_axis)
+    from spectral_tpu_torch.models import hmm
+    from spectral_tpu_torch.models.detector import BurstDetector
+    from spectral_tpu_torch.ops import hmm_cuda, stft_cuda
+    from spectral_tpu_torch.parallel import streaming
+
+    cfg = SpecConfig.north_star(1024, 256)
+    fs = STREAM_FS
+    n = int(STREAM_SECONDS * fs)
+    T = num_frames(n, cfg.nperseg, cfg.hop_)
+    F = cfg.n_freqs
+    L = STREAM_CHUNK * STREAM_CPB
+    c = streaming.carry_len(cfg)
+    fpb = L // cfg.hop_
+    n_blocks = math.ceil(n / L)
+    phase(f"path 17, an hour of 48 kHz stereo streamed from the host: 2 x "
+          f"{n} float32 samples ({2 * n * 4 / 1e9:.3f} GB), north_star "
+          f"1024/256 ({T} frames a channel), chunks of {STREAM_CHUNK}, "
+          f"{STREAM_CPB} a block ({L} samples, {fpb} frames), {n_blocks} "
+          f"blocks")
+    require((T, n_blocks) == (674997, 55), f"path 17 shape {T}, {n_blocks}")
+    x_dev, plans = bursty_batch(dev, 2, n, fs, 4000.0, 200.0, 3000.0, 17)
+    x = x_dev.cpu().numpy()
+    mono = power_spectrogram(x_dev, fs, cfg)
+    torch.cuda.synchronize()
+    print(f"the monolithic PSD: {tuple(mono.shape)}, "
+          f"{mono.numel() * 4 / 1e9:.3f} GB ({mono.numel() * 2:.0f} bytes a "
+          f"channel)")
+
+    def scan():
+        return streaming.scan_spectrogram(x, fs, cfg, STREAM_CHUNK,
+                                          chunks_per_block=STREAM_CPB)
+
+    scan()                               # warm: constants, allocator
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = scan()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    require_counts(counts, {"stft_fft": n_blocks}, "path 17 scan")
+    require(torch.equal(out, mono), "path 17: the streamed stereo PSD is "
+            "not bitwise the monolithic power_spectrogram")
+    scan_launches = counts["stft_psd"]["fft"]
+    del out
+    torch.cuda.empty_cache()
+    print(f"scan_spectrogram on the (2, {n}) fleet: {scan_launches} FFT "
+          f"launches (one a block), bitwise the monolithic PSD of each "
+          f"channel; wall {wall:.3f} s, {2 * n * 4 / 1e9 / wall:.3f} GB/s "
+          f"from the host [{card}]")
+    prof = idle_share(scan, "path 17 scan_spectrogram", card,
+                      "stft_fft_psd_kernel")
+    torch.cuda.empty_cache()
+
+    phase("path 17 folds: stream_band_powers and stream_features a channel "
+          "at a time, at half and the whole hour")
+    band = band_row_slice(freq_axis(cfg, fs), 0.0, 4000.0)
+    Fb = band[1] - band[0]
+    bcfg = SpecConfig.north_star(1024, 256, fmin=0.0, fmax=4000.0)
+    f = freq_axis(cfg, fs)
+    edges = list(ev.EEG_BANDS.values())
+    # the buffers, two blocks' PSD and a third for the fold's temporaries,
+    # from the block size alone; the output track on top
+    work = 2 * (c + L) * 4 + 3 * fpb * F * 4 + (streaming._SUM_ELEMENTS + F) * 8
+    memo = {}
+    for ch in (0, 1):
+        for frac in (0.5, 1.0):
+            m = int(n * frac)
+            Tm = num_frames(m, cfg.nperseg, cfg.hop_)
+            (rel, total), rise_b, req_b = fold_memory(
+                lambda: streaming.stream_band_powers(
+                    x[ch, :m], fs, cfg, STREAM_CHUNK,
+                    chunks_per_block=STREAM_CPB))
+            want = ev.band_powers_device(f, mono[ch, :Tm], edges).cpu()
+            got = torch.tensor([rel[k] for k in ev.EEG_BANDS],
+                               dtype=torch.float64)
+            b_err = float(((got - want.double()).abs()
+                           / want.double().abs().clamp_min(1e-30)).max())
+            total_want = float(mono[ch, :Tm].double().sum())
+            t_err = abs(total - total_want) / total_want
+            (t, feats), rise_f, req_f = fold_memory(
+                lambda: streaming.stream_features(
+                    x[ch, :m], fs, bcfg, STREAM_CHUNK,
+                    chunks_per_block=STREAM_CPB))
+            feats_want = ev.features_from_psd(f, mono[ch, :Tm], 0.0, 4000.0)
+            track = -(-Tm * 4 // 512) * 512       # the power track, allocated
+            require(b_err <= 1e-6 and t_err <= 1e-6,
+                    f"path 17 channel {ch} at {frac:g} h: band powers rel "
+                    f"{b_err:.2e}, total rel {t_err:.2e}")
+            require(torch.equal(feats, feats_want) and len(t) == Tm,
+                    f"path 17 channel {ch} at {frac:g} h: the streamed "
+                    "features are not bitwise the monolithic ones")
+            require(rise_b <= work and rise_f <= work + track,
+                    f"path 17 channel {ch} at {frac:g} h: memory rise band "
+                    f"powers {rise_b}, features {rise_f} over the bound "
+                    f"{work} (+ the track {track})")
+            memo[(ch, frac)] = (req_b, req_f - Tm * 4)
+            print(f"channel {ch}, {frac:g} h ({Tm} frames): band powers rel "
+                  f"{b_err:.2e} of band_powers_device (total {total:.6e}, "
+                  f"rel {t_err:.2e}); features bitwise features_from_psd "
+                  f"0-4000 Hz ({Fb} bins); max_memory_allocated rise: band "
+                  f"powers {rise_b / 2**20:.2f} MiB, features "
+                  f"{rise_f / 2**20:.2f} MiB (the track {track / 2**20:.2f}"
+                  f" MiB); requested bytes' rise: band powers {req_b}, "
+                  f"features {req_f} less the track {req_f - Tm * 4}; "
+                  f"the bound {work / 2**20:.2f} MiB + the track, "
+                  f"the monolithic PSD {Tm * F * 4 / 2**20:.2f} MiB [{card}]")
+        require(memo[(ch, 1.0)][0] <= memo[(ch, 0.5)][0]
+                and memo[(ch, 1.0)][1] <= memo[(ch, 0.5)][1],
+                f"path 17 channel {ch}: the fold's requested bytes grew "
+                f"with the length: {memo}")
+
+    phase("path 17 stream_detect on channel 0 against the monolithic flow")
+    tb = time_axis(cfg, fs, n)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    events = streaming.stream_detect(x[0], fs, bcfg, STREAM_CHUNK,
+                                     chunks_per_block=STREAM_CPB)
+    det_wall = time.perf_counter() - t0
+    counts = read_counts()
+    det = BurstDetector(engine="auto", device=dev)
+    feats_mono = ev.features_from_psd(f, mono[0], 0.0, 4000.0)
+    want_events = det.unsupervised_detect(tb, feats_mono)
+    iters = det.timings["iterations"]
+    require_counts(counts, {"stft_fft": n_blocks, "hmm_estep_chunked": iters,
+                            "hmm_viterbi_chunked": 1}, "path 17 detect")
+    require(events == want_events and len(events) >= 1,
+            f"path 17: stream_detect gave {len(events)} events, the "
+            f"monolithic flow {len(want_events)}")
+    X = feats_mono.to(torch.float64)[None].contiguous()
+    patched = hmm.HMMParams(*(p[None].contiguous() for p in det.params))
+    states = hmm_cuda.viterbi_chunked(X, patched, hmm_cuda.chunk_len(4))
+    check_detection(f"path 17, {len(plans[0])} bursts planted on channel 0, "
+                    f"{len(events)} events", detection_quality(
+                        tb, states.cpu().numpy(),
+                        patched.means.cpu().numpy(), plans[:1], [events]))
+    print(f"stream_detect: {len(events)} events equal to BurstDetector("
+          f"engine='auto') on the monolithic features; {iters} EM "
+          f"iterations; launches {flat_counts(counts)}; wall "
+          f"{det_wall:.3f} s (init {det.timings['init']:.3f} s on the "
+          f"monolithic run) [{card}]")
+
+    phase("path 17 iter_stream and stream_spectrogram over a 10-minute cut")
+    m = int(STREAM_CUT_SECONDS * fs)
+    cut = x[0, :m]
+    Tc = num_frames(m, cfg.nperseg, cfg.hop_)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    blocks = [(p, first) for p, first in streaming.iter_stream(
+        (cut[i:i + STREAM_CHUNK] for i in range(0, m, STREAM_CHUNK)), fs,
+        cfg, STREAM_CHUNK)]
+    torch.cuda.synchronize()
+    it_wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_chunks = math.ceil(m / STREAM_CHUNK)
+    require(m % STREAM_CHUNK and counts["stft_psd"]["fft"] == n_chunks,
+            f"path 17 iter_stream: {n_chunks} chunks, the last short, one "
+            f"launch each; counts {counts}")
+    firsts = [first for _, first in blocks]
+    cat = torch.cat([p for p, _ in blocks])
+    require(torch.equal(cat, mono[0, :Tc]) and firsts[0] == 0 and all(
+        b == a + p.shape[0] for a, b, (p, _) in zip(firsts, firsts[1:],
+                                                     blocks)),
+            "path 17 iter_stream: the blocks are not the monolithic frames")
+    print(f"iter_stream: {n_chunks} chunks (the last {m % STREAM_CHUNK} "
+          f"samples), one launch each, {Tc} frames bitwise the monolithic "
+          f"ones, contiguous indices; {it_wall:.3f} s [{card}]")
+    odd = SpecConfig.scipy_default(ODD_NPERSEG)
+    reset_counts()
+    s_odd = streaming.stream_spectrogram(cut, fs, odd, 8 * odd.hop_)
+    counts = read_counts()
+    m_odd = power_spectrogram(x_dev[0, :m], fs, odd)
+    ulps = ulp_distance(s_odd, m_odd)
+    require(s_odd.shape == m_odd.shape and ulps <= STREAM_ULPS
+            and counts["stft_psd"]["odd"] >= 1,
+            f"path 17 stream_spectrogram at {ODD_NPERSEG}: {ulps} ulps, "
+            f"counts {counts}")
+    print(f"stream_spectrogram at scipy_default {ODD_NPERSEG} (the odd "
+          f"route, a Rader stage): {tuple(s_odd.shape)}, "
+          f"{counts['stft_psd']['odd']} launches, largest distance {ulps} "
+          f"float32 ulps of the monolithic PSD (limit {STREAM_ULPS})")
+    del s_odd, m_odd, cat, blocks
+
+    phase(f"path 17 the STFT kernel on one streamed block ({card})")
+    blk = torch.zeros((2, c + L), dtype=torch.float32, device=dev)
+    blk[:, c:] = x_dev[:, L:2 * L]
+    blk[:, :c] = x_dev[:, L - c:L]
+    want = mono[:, fpb - c // cfg.hop_:2 * fpb - c // cfg.hop_]
+    got = stft_cuda.stft_psd(blk, fs, cfg)
+    err = float((got - want).abs().max())
+    require(torch.equal(got, want), "path 17: a block's PSD is not the "
+            "monolithic frames")
+    consts = stft_cuda.dft_constants(cfg, fs, dev)
+    plain = stft_cuda.stft_psd_reference(blk, consts, cfg)
+    p_err = psd_err(got, plain)[0]
+    require(p_err <= PSD_TOL, f"path 17 block vs plain {p_err:.2e}")
+    tm = {"kernel": time_ms(lambda: stft_cuda.stft_psd(blk, fs, cfg),
+                            run=RUN),
+          "kernel_single": time_ms(lambda: stft_cuda.stft_psd(blk, fs,
+                                                              cfg)),
+          "plain": time_ms(lambda: stft_cuda.stft_psd_reference(
+              blk, consts, cfg)),
+          "library": time_ms(lambda: library_psd(blk, cfg, fs=fs))}
+    bound = stft_bound(2, c + L, fpb, F, cfg.nperseg)
+    for k, (ms, _) in tm.items():
+        print(f"block {k}: {ms:.4f} ms [{card}]" + (
+            f" (runs of {RUN} launches)" if k == "kernel" else ""))
+    print(f"block bound {bound[0]:.4f} ms ({bound[1]}); the kernel against "
+          f"the plain version {p_err:.2e} of the PSD max")
+    print(json.dumps({"path17": {
+        "scan_wall_s": wall, "scan_gb_s": 2 * n * 4 / 1e9 / wall,
+        "scan_profile": prof, "detect_wall_s": det_wall,
+        "iter_stream_s": it_wall, "odd_ulps": ulps,
+        "requested_rise": {f"{k[0]}_{k[1]}": v for k, v in memo.items()},
+        "bound_bytes": work, "block_ms": {k: v[0] for k, v in tm.items()},
+        "card": card}}))
+    del mono, x_dev
+    return {"stft_stream": dict(
+        launches=scan_launches, err=err, ms=tm["kernel"][0],
+        plain_ms=tm["plain"][0], bound=bound,
+        library_ms=tm["library"][0])}
+
+
+def grid_path(dev, card):
+    """Path 18 (BASELINE.json config 3): ``default_grid()``'s 16 configs
+    over one 10-minute clip at 48 kHz."""
+    import numpy as np
+    import scipy.signal
+    import torch
+    from spectral_tpu_torch.core.stft import num_frames, power_spectrogram
+    from spectral_tpu_torch.parallel import sweep_grid
+
+    fs = STREAM_FS
+    n = int(STREAM_CUT_SECONDS * fs)
+    grid = sweep_grid.default_grid()
+    x = np.random.RandomState(18).randn(n).astype(np.float32)
+    out_bytes = sum(num_frames(n, c.nperseg, c.hop_) * c.n_freqs * 4
+                    for c in grid)
+    phase(f"path 18, the sweep grid: {len(grid)} configs (nperseg 256-4096, "
+          f"hann, hamming, tukey 0.25, blackman, hop nperseg/4) over {n} "
+          f"samples at {fs:g} Hz, {out_bytes / 1e9:.3f} GB of PSD")
+
+    def run():
+        return sweep_grid.sweep_grid(x, fs, grid)
+
+    run()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    require_counts(counts, {"stft_fft": len(grid)}, "path 18")
+    launches = counts["stft_psd"]["fft"]
+    xd = torch.from_numpy(x).to(dev)
+    m = int(GRID_SCIPY_SECONDS * fs)
+    worst = 0.0
+    for cfg, out in zip(grid, outs):
+        require(torch.equal(out, power_spectrogram(xd, fs, cfg)),
+                f"path 18 {cfg.nperseg} {cfg.window}: not bitwise "
+                "power_spectrogram")
+        win = cfg.window if isinstance(cfg.window, str) else tuple(cfg.window)
+        _, _, ref = scipy.signal.spectrogram(
+            x[:m].astype(np.float64), fs=fs, window=win, nperseg=cfg.nperseg,
+            noverlap=cfg.nperseg - cfg.hop_, detrend=False,
+            scaling="density", mode="psd")
+        got = out[:ref.shape[1]].double().cpu().numpy()
+        rel = float(np.abs(got - ref.T).max() / np.abs(ref).max())
+        worst = max(worst, rel)
+        require(rel <= GRID_REL, f"path 18 {cfg.nperseg} {cfg.window}: "
+                f"{rel:.2e} of scipy float64")
+    del outs
+    print(f"{launches} FFT launches, each result bitwise power_spectrogram "
+          f"of its config; a {GRID_SCIPY_SECONDS:g} s cut of each within "
+          f"{worst:.2e} of scipy float64 (limit {GRID_REL:g}); wall "
+          f"{wall:.3f} s with the upload [{card}]")
+    prof = idle_share(run, "path 18 sweep_grid", card, "stft_fft_psd_kernel")
+    if prof is not None:
+        uploads = sum(v for k, v in prof["events"].items() if "HtoD" in k)
+        if prof["events"].get("kernel stft_fft_psd_kernel") == len(grid):
+            require(uploads == 1, f"path 18: one upload and {len(grid)} "
+                    f"kernels, got {prof['events']}")
+        else:
+            print(f"path 18: the profile missed device events (the "
+                  f"launch counts above show {launches}); its upload "
+                  f"count is not read")
+    upload = time_ms(lambda: torch.from_numpy(x).to(dev))[0]
+    print(f"the signal's upload ({n * 4 / 2**20:.1f} MiB from pageable "
+          f"memory): {upload:.4f} ms [{card}]")
+    groups = {}
+    for cfg in grid:
+        groups.setdefault(sweep_grid._shape_key(cfg), []).append(cfg)
+    group_ms = {}
+    for key, cfgs in groups.items():
+        ms, _ = time_ms(lambda: sweep_grid.sweep_grid(xd, fs, cfgs))
+        group_ms[key[0]] = ms
+        print(f"group nperseg {key[0]}, hop {key[1]}: {len(cfgs)} windows "
+              f"{ms:.4f} ms ({ms / len(cfgs):.4f} a config) [{card}]")
+    print(f"the grid's kernels {sum(group_ms.values()):.4f} ms summed by "
+          f"groups, the upload {upload:.4f} ms, of the call's "
+          f"{1e3 * wall:.3f} ms wall [{card}]")
+    print(json.dumps({"path18": {"wall_s": wall, "scipy_rel": worst,
+                                 "upload_ms": upload,
+                                 "group_ms": group_ms, "profile": prof,
+                                 "card": card}}))
+    return {}
+
+
+def gui_phase(dev, card="the CPU"):
+    """The Qt window over the port's session: the real Qt offscreen where
+    the host has PyQt5 and matplotlib, tests/qt_stub.py where it has only
+    matplotlib, a line saying so where it has no matplotlib. Plot, detect,
+    the CSV and PNG exports on a synthetic sweep; one STFT launch a plot
+    on a card."""
+    import importlib
+    import numpy as np
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print("no matplotlib on this host: the window (gui/app.py) cannot "
+              "be built here; its session calls (plot, detection, the "
+              "exports) are path 16's")
+        return
+    try:
+        import PyQt5  # noqa: F401
+        stub = None
+        os.environ.setdefault("QT_QPA_PLATFORM", "offscreen")
+        from PyQt5 import QtWidgets
+        qapp = QtWidgets.QApplication.instance() or QtWidgets.QApplication([])
+    except ImportError:
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+        stub = importlib.import_module("qt_stub")
+        stub.install()
+        qapp = None
+    kind = "the real Qt, offscreen" if stub is None else "tests/qt_stub.py"
+    phase(f"the GUI: gui/app.py under {kind}, device {dev}")
+    try:
+        sys.modules.pop("spectral_tpu_torch.gui.app", None)
+        app = importlib.import_module("spectral_tpu_torch.gui.app")
+        from spectral_tpu_torch.io.registry import SweepEntry
+        from spectral_tpu_torch.ops import stft_cuda
+        w = app.build_window(device=str(dev))
+        fs = 1000.0
+        t = np.arange(int(fs * 120)) / fs
+        sweep = (0.05 * np.random.RandomState(3).randn(t.size)
+                 + np.where((t % 40 > 10) & (t % 40 < 16),
+                            np.sin(2 * np.pi * 6.0 * t), 0.0))
+        w.session.registry.register("synth_sweep0", SweepEntry(
+            filepath="<synth>", sweep_idx=0, fs=fs, fs_raw=fs,
+            raw=sweep.astype(np.float32), processed=None))
+        w._add_tree_item("synth_sweep0")
+        w.tree.topLevelItem(0).setSelected(True)
+        w.chk_raw.setChecked(True)
+        w.chk_proc.setChecked(False)
+        w.chk_combine.setChecked(False)   # QSettings may hold a user's
+        w.combo_raw.setCurrentText("Both")
+        w.spin_nperseg.setValue(512)
+        w.spin_fmin.setValue(0.0)
+        w.spin_fmax.setValue(30.0)
+        before = dict(stft_cuda.launches)
+        plots = 2
+        for _ in range(plots):
+            w.plot_selected()
+        plotted = w.status.text()
+        launched = sum(stft_cuda.launches.values()) - sum(before.values())
+        require(plotted.startswith("Plotted single sweep"),
+                f"the GUI's plot: {plotted}")
+        require(dev.type != "cuda" or launched == plots,
+                f"the GUI: {launched} STFT launches for {plots} plots")
+        w.detect()
+        detected = w.status.text()
+        require("HMM detected" in detected
+                and w.session.last_detected_events, f"the GUI: {detected}")
+        with tempfile.TemporaryDirectory() as tmp:
+            csv_path = os.path.join(tmp, "bursts.csv")
+            png_path = os.path.join(tmp, "figure.png")
+            if stub is not None:
+                stub.QFileDialog.next_save_file = csv_path
+                w.export_csv()
+                csv_status = w.status.text()
+                stub.QFileDialog.next_save_file = png_path
+                w.export_png()
+            else:
+                csv_status = w.session.export_csv(csv_path)
+                w.status.setText(w.session.export_png(png_path))
+            png_status = w.status.text()
+            require(csv_status.startswith("Successfully")
+                    and png_status.startswith("Successfully")
+                    and os.path.getsize(csv_path) > 0
+                    and os.path.getsize(png_path) > 0,
+                    f"the GUI's exports: {csv_status}; {png_status}")
+        print(f"the window under {kind}: {plotted!r}; {plots} plots, "
+              f"{launched} STFT launches; {detected!r} "
+              f"({len(w.session.last_detected_events)} events); the CSV "
+              f"and PNG exports succeeded [{card}]")
+        if qapp is not None:
+            w.close()
+    finally:
+        if stub is not None:
+            stub.uninstall()
+        sys.modules.pop("spectral_tpu_torch.gui.app", None)
+
+
 PHASES = ("kernels", "tail", "dc", "scipy", "band", "mel", "path1", "path2",
           "path3", "path4", "path5", "path6", "path7", "path8", "path9",
           "path10", "path11", "path12", "path13", "hmm", "path14", "path15",
-          "path16")
+          "path16", "path17", "path18", "gui")
 
 
 def main(_phases=None):
@@ -3532,6 +4071,14 @@ def main(_phases=None):
     if "path16" in phases:
         rows.update(session_path(dev, card))
         torch.cuda.empty_cache()
+    if "path17" in phases:
+        rows.update(stream_path(dev, card, dfma_peak))
+        torch.cuda.empty_cache()
+    if "path18" in phases:
+        rows.update(grid_path(dev, card))
+        torch.cuda.empty_cache()
+    if "gui" in phases:
+        gui_phase(dev, card)
     if _phases is not None:
         print(f"chip_smoke phases {sorted(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -3554,7 +4101,8 @@ def main(_phases=None):
           f"{rows['hmm_viterbi']['launches']}; path 15 chunked E-step "
           f"{rows['hmm_estep_chunked']['launches']}, chunked Viterbi "
           f"{rows['hmm_viterbi_chunked']['launches']}; path 16 (the session) "
-          f"{rows['session_launches']}")
+          f"{rows['session_launches']}; the FFT kernel streamed: path 17 "
+          f"{rows['stft_stream']['launches']}")
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
     tail_src = "spectral_tpu_torch/ops/csrc/display.cu"
     mel_src = "spectral_tpu_torch/ops/csrc/mel.cu"
@@ -3598,6 +4146,10 @@ def main(_phases=None):
         "stft_band": ("stft_fft_psd<LOG2M 9, 8 values>, nperseg 1024, the "
                       "band 0-30 Hz, 31 of 513 bins (path 13)", "cuda", src,
                       "spectral_tpu/ops/stft_pallas.py:217"),
+        "stft_stream": ("stft_fft_psd<LOG2M 9, 8 values>, nperseg 1024, a "
+                        "streamed block of the stereo hour, [carry | block] "
+                        "(path 17)", "cuda", src,
+                        "spectral_tpu/ops/stft_pallas.py:217"),
         "mel_project": ("mel_project, 128 mels over 513 bins (path 12)",
                         "cuda", mel_src,
                         "spectral_tpu/parallel/sharding.py:99 (an XLA "

@@ -58,18 +58,14 @@ def band_bins(f: np.ndarray, fmin: float, fmax: float) -> np.ndarray:
     return np.flatnonzero((f >= fmin) & (f <= fmax))
 
 
-def features_from_psd(f: np.ndarray, psd_tf: torch.Tensor, fmin: float,
-                      fmax: float) -> torch.Tensor:
-    """HMM features from a frame-major PSD (..., T, F) -> (..., T, 2)
-    float32, on the PSD's device.
-
-    Mirrors PlotEngine.py:238-242: per-frame band power = sum of the PSD
-    bins in [fmin, fmax] (inclusive), taken here in float64 and rounded to
-    float32; feature 0 = log10(power + 1e-20); feature 1 = delta of
-    feature 0 with the first value prepended. ``f`` is the PSD's own
-    frequency axis: a PSD computed for a band alone passes that band's
-    bins (``f[lo:hi]``), and the mask then selects the same bins as on the
-    full axis."""
+def band_power(f: np.ndarray, psd_tf: torch.Tensor, fmin: float,
+               fmax: float) -> torch.Tensor:
+    """Per-frame band power of a frame-major PSD (..., T, F) -> (..., T)
+    float32 on the PSD's device: the sum of the bins in [fmin, fmax]
+    (inclusive, :func:`band_bins`), taken in float64 and rounded to
+    float32. ``f`` is the PSD's own frequency axis: a PSD computed for a
+    band alone passes that band's bins (``f[lo:hi]``), and the mask then
+    selects the same bins as on the full axis."""
     f = np.asarray(f)
     if psd_tf.shape[-1] != f.shape[0]:
         raise ValueError(f"PSD of {psd_tf.shape[-1]} bins for a frequency "
@@ -80,8 +76,19 @@ def features_from_psd(f: np.ndarray, psd_tf: torch.Tensor, fmin: float,
     else:
         sel = torch.index_select(psd_tf, -1, torch.as_tensor(
             idx, dtype=torch.long, device=psd_tf.device))
-    power = sel.to(torch.float64).sum(dim=-1).to(torch.float32)
-    return features_from_band_power(power)
+    return sel.to(torch.float64).sum(dim=-1).to(torch.float32)
+
+
+def features_from_psd(f: np.ndarray, psd_tf: torch.Tensor, fmin: float,
+                      fmax: float) -> torch.Tensor:
+    """HMM features from a frame-major PSD (..., T, F) -> (..., T, 2)
+    float32, on the PSD's device.
+
+    Mirrors PlotEngine.py:238-242: per-frame band power
+    (:func:`band_power`: the PSD bins in [fmin, fmax], inclusive, summed
+    in float64 and rounded to float32); feature 0 = log10(power + 1e-20);
+    feature 1 = delta of feature 0 with the first value prepended."""
+    return features_from_band_power(band_power(f, psd_tf, fmin, fmax))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's own host modules held against the JAX package's: SpecConfig
 (spectral_tpu_torch.config), the windows (core/windows.py), the colormap
 tables (render/lut.py), the PNG encoders (render/png.py), the WAV reader
-(io/wav.py) and the sklearn-exact k-means (models/kmeans.py). All of them
+(io/wav.py), the sklearn-exact k-means (models/kmeans.py) and the GUI's
+controllers (gui/controller.py, a byte copy). All of them
 are exact: fields, JSON, window samples, LUT bytes, decoded pixels and
 k-means centres, labels and inertia compare equal, never within a
 tolerance.
@@ -17,12 +18,14 @@ import pytest
 
 from spectral_tpu import config as jconfig
 from spectral_tpu.core import windows as jwin
+from spectral_tpu.gui import controller as jcontroller
 from spectral_tpu.io import wav as jwav
 from spectral_tpu.models import kmeans as jkmeans
 from spectral_tpu.render import lut as jlut
 from spectral_tpu.render import png as jpng
 from spectral_tpu_torch import config as tconfig
 from spectral_tpu_torch.core import windows as twin
+from spectral_tpu_torch.gui import controller as tcontroller
 from spectral_tpu_torch.io import wav as twav
 from spectral_tpu_torch.models import kmeans as tkmeans
 from spectral_tpu_torch.render import lut as tlut
@@ -194,6 +197,12 @@ def test_wav_reader_matches_jax(tmp_path):
 
 def test_kmeans_copy_is_the_original_text():
     with open(jkmeans.__file__, "rb") as a, open(tkmeans.__file__, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_gui_controller_copy_is_the_original_text():
+    with open(jcontroller.__file__, "rb") as a, open(tcontroller.__file__,
+                                                     "rb") as b:
         assert a.read() == b.read()
 
 

@@ -83,6 +83,13 @@ def test_port_imports_and_runs_without_jax():
                 SpecConfig.scipy_default(1024, fmin=0.0, fmax=30.0))
             session_events = session.unsupervised_detect()
             status = session.export_png(os.path.join(tmp, "s.png"))
+        from spectral_tpu_torch.parallel.streaming import scan_spectrogram
+        from spectral_tpu_torch.parallel.sweep_grid import (default_grid,
+                                                            sweep_grid)
+        streamed = scan_spectrogram(x[0], 16000.0, cfg, 1024,
+                                    chunks_per_block=2, device="cpu")
+        grid = sweep_grid(x[0], 16000.0, default_grid(n_ffts=(256,)),
+                          device="cpu")
         loaded = [m for m in sys.modules
                   if m.startswith(("jax.", "jaxlib"))
                   or (m == "jax" and sys.modules[m] is not None)]
@@ -97,7 +104,9 @@ def test_port_imports_and_runs_without_jax():
                           "events": len(events),
                           "plot": list(plotted.image.shape),
                           "session_events": len(session_events),
-                          "status": status}))
+                          "status": status,
+                          "streamed": list(streamed.shape),
+                          "grid": [list(g.shape) for g in grid]}))
     """)
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
@@ -112,7 +121,8 @@ def test_port_imports_and_runs_without_jax():
                  "models.hmm_pscan", "models.detector", "models.batch",
                  "ops.hmm_cuda", "api.session", "api.export", "io.registry",
                  "io.abf", "io.nix", "native.build", "native.png_native",
-                 "render.figure", "render.waveform"):
+                 "render.figure", "render.waveform", "parallel.streaming",
+                 "parallel.sweep_grid", "gui.app", "gui.controller"):
         assert f"spectral_tpu_torch.{name}" in report["modules"]
     assert report["events"] >= 1
     assert report["plot"] == [31, 66] and report["session_events"] >= 1
@@ -120,6 +130,8 @@ def test_port_imports_and_runs_without_jax():
     assert report["shapes"] == {"psd": [2, 61, 129], "image": [2, 129, 61],
                                 "rgb_packed": [2, 129, 61], "finite": [2]}
     assert report["finite"] == [True, True]
+    assert report["streamed"] == [61, 129]
+    assert report["grid"] == [[61, 129]] * 4
 
 
 def test_plain_dots_run_in_ieee_float32(monkeypatch):
@@ -300,9 +312,12 @@ def test_chip_smoke_and_port_import_nothing_of_jax():
                                                          "torch_*.py")))
     assert len(paths) > 15
     assert os.path.join(REPO, "tools", "torch_precision.py") in paths
-    for sub in ("api", "io", "native", "render"):
+    for sub in ("api", "gui", "io", "native", "render"):
         assert any(p.startswith(os.path.join(REPO, "spectral_tpu_torch", sub,
                                              "")) for p in paths), sub
+    for name in ("parallel/streaming.py", "parallel/sweep_grid.py",
+                 "gui/app.py", "gui/controller.py"):
+        assert os.path.join(REPO, "spectral_tpu_torch", name) in paths
     for path in paths:
         names = _imported_modules(path)
         bad = [n for n in names if n in ("jax", "jaxlib", "spectral_tpu")
@@ -329,6 +344,58 @@ def test_entry_points_run_on_the_card_by_default(monkeypatch, tmp_path):
         pipeline.export_spectrograms(clips, FS, NS_256, str(tmp_path),
                                      clip_samples=4096)
     assert list(tmp_path.iterdir()) == []
+
+
+def test_streaming_and_grid_run_on_the_card_by_default(monkeypatch):
+    """The streaming entry points and the sweep grid take device='cuda'
+    unless told otherwise: a numpy signal goes to the card (here the
+    ``meta`` stand-in, which must reach the STFT kernel's build and
+    never its plain version), device='cpu' keeps it on the CPU, and
+    without a card they raise before any work."""
+    import inspect
+    from spectral_tpu_torch.parallel import streaming, sweep_grid
+    entries = (streaming.StreamingSTFT, streaming.BlockStreamingSTFT,
+               streaming.ScanStreamer, streaming.stream_spectrogram,
+               streaming.scan_spectrogram, streaming.stream_fold,
+               streaming.stream_band_powers, streaming.iter_stream,
+               streaming.stream_features, streaming.stream_detect,
+               sweep_grid.sweep_grid)
+    for fn in entries:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    x = np.random.RandomState(2).randn(8192).astype(np.float32)
+    cfg = SpecConfig.north_star(256, 64)
+    calls = (lambda **kw: streaming.scan_spectrogram(x, FS, cfg, 1024, **kw),
+             lambda **kw: streaming.stream_spectrogram(x, FS, cfg, 1024,
+                                                       **kw),
+             lambda **kw: streaming.stream_features(x, FS, cfg, 1024, **kw),
+             lambda **kw: streaming.stream_band_powers(x, FS, cfg, 1024,
+                                                       **kw)[1],
+             lambda **kw: next(streaming.iter_stream(iter([x[:1024]]), FS,
+                                                     cfg, 1024, **kw))[0],
+             lambda **kw: sweep_grid.sweep_grid(x, FS, [cfg], **kw)[0])
+    for call in calls:
+        out = call(device="cpu")
+        if isinstance(out, tuple):
+            out = out[1]
+        assert not isinstance(out, torch.Tensor) or out.device.type == "cpu"
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        for call in calls:
+            with pytest.raises(RuntimeError, match="is_available"):
+                call()
+
+    def broken(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    monkeypatch.setattr(build, "load_library", broken)
+    monkeypatch.setattr(stft_cuda, "_LIB", [])
+    monkeypatch.setattr(stft_cuda, "stft_psd_reference", _fail)
+    meta = torch.device("meta")
+    monkeypatch.setattr(streaming, "resolve_device", lambda device: meta)
+    monkeypatch.setattr(sweep_grid, "resolve_device", lambda device: meta)
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cannot build stft_psd"):
+            call()
 
 
 # ---------------------------------------------------------------------------
