@@ -60,7 +60,7 @@ H3, the chunked E-step, at T 2048, 8192 and 524,288, statistics within
 HMM_STATS_TOL and the log-likelihood within HMM_LL_TOL; a six-state model
 (the instantiation for 5-8 states) through all three at T 3000; with
 each kernel's ptxas registers and spills. Then it drives eighteen paths at
-full size and the GUI, each
+full size, the GUI and the command line, each
 with the launch counts set to 0 just before it and read just after; each
 call of the pipeline on paths 1-11 and 13 is one launch of the route's
 STFT kernel, one of clip_stats and one of the display map, and on path 12
@@ -157,11 +157,35 @@ launch the detection kernels named there):
     ``power_spectrogram`` of its config, a 10 s cut of each within 2e-5
     of scipy float64, the time of each shape group;
 
-and the GUI (``gui/app.py`` over the port's session, ``device='cuda'``):
+the GUI (``gui/app.py`` over the port's session, ``device='cuda'``):
 under the real Qt offscreen where the host has PyQt5 and matplotlib, under
 ``tests/qt_stub.py`` where it has matplotlib alone, plot (one STFT launch
 a plot), detect and the CSV and PNG exports on a synthetic sweep; where
-the host has no matplotlib, one line that says so.
+the host has no matplotlib, one line that says so; and
+
+19. the command line (``cli.py``, ``client.py``): every subcommand through
+    ``cli.main`` in this process, its launch counts read (a command that
+    computes and launches no kernel fails; ``info``, ``export-batch`` and
+    ``gui`` launch none), its outputs held to the same library calls made
+    in process and its wall time printed beside theirs: on path 16's hour
+    (scipy_default 1024, 0-4000 Hz) ``render --log`` (the PNG bytewise
+    ``export_png``'s), ``--mels 128`` (the mel kernel) and ``--nfft 4096``
+    (the GEMM kernel's 128 x 64 tile on 192,857 frames x 2,049 bins, held
+    to its plain version, timed against it, cuFFT's f64 ``rfft(n=4096)``
+    and its bound, and on a 10-minute cut within 1e-3 dB of scipy float64
+    at nfft 4096), ``detect --csv`` (lines and CSV bytes) and ``bands``;
+    ``info`` on the WAV and path 16's ABF file, ``learn --combine`` with
+    two ROIs and ``detect --each --batched`` over its sweeps (each
+    sweep's events the sequential flow's); ``grid`` over 60 s (bitwise
+    ``sweep_grid``); ``stream`` over a 10-minute cut (``-o x.npz``
+    bitwise ``stream_spectrogram``, ``--scan -o x.png`` bytewise, ``--bands``,
+    ``--detect --csv``); ``export-batch`` of the cut; ``export-specs`` of
+    64 WAV clips with ``--stats-json`` (PNG bytes the pipeline's);
+    ``doctor --json --probe-link``; NIX files where the host has h5py,
+    ``render --decorated`` where it has matplotlib, ``gui`` exiting 2
+    without PyQt5; then ``serve --tcp 0`` in a child process driven by
+    ``ServeClient`` (ping, render, detect, detect_batch, render_batch,
+    stream_bands, stats, shutdown), each reply the in-process command's.
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
@@ -289,7 +313,8 @@ def ulp_distance(got, want):
 def library_psd(x, cfg, fs=FS):
     """The STFT kernels' library yardstick, never called by the port: the
     same PSD through cuFFT's float64 real transform (the transform
-    ``torch.stft`` runs) of the same frames, framed with ``unfold`` so the
+    ``torch.stft`` runs) of the same frames, zero-padded to nfft, framed
+    with ``unfold`` so the
     detrend fits (the frame's mean, or its least-squares line), then |X|²
     times the weights, rounded to float32."""
     import torch
@@ -304,7 +329,8 @@ def library_psd(x, cfg, fs=FS):
     win = torch.tensor(_window_f64(cfg), dtype=torch.float64, device=x.device)
     wts = torch.tensor(onesided_weights(cfg, fs), dtype=torch.float64,
                        device=x.device)
-    spec = torch.view_as_real(torch.fft.rfft(frames * win, dim=-1))
+    spec = torch.view_as_real(torch.fft.rfft(frames * win, n=cfg.nfft_,
+                                             dim=-1))
     return (spec.square().sum(dim=-1) * wts).float()
 
 
@@ -3022,6 +3048,49 @@ ABF_SECONDS = 60.0
 ABF_FS = 20000.0
 
 
+_SHARED = {}
+
+
+def shared_dir():
+    """One temporary directory for the whole run, removed at exit: paths
+    16 and 19 read the same recordings from it."""
+    if "dir" not in _SHARED:
+        import atexit
+        import shutil
+        _SHARED["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
+        atexit.register(shutil.rmtree, _SHARED["dir"], True)
+    return _SHARED["dir"]
+
+
+def session_wav(dev):
+    """Path 16's recording: an hour at 48 kHz with path 15's kind of
+    planted bursts, written once as a 16-bit WAV. Returns (path, plans,
+    seconds the write took)."""
+    if "wav" not in _SHARED:
+        from spectral_tpu_torch.io.wav import write_wav
+        fs = SESSION_FS
+        x, plans = bursty_batch(dev, 1, int(fs * SESSION_SECONDS), fs,
+                                4000.0, 200.0, 3000.0, 16)
+        wav = os.path.join(shared_dir(), "hour.wav")
+        t0 = time.perf_counter()
+        write_wav(wav, 0.1 * x[0].cpu().numpy(), fs)
+        _SHARED["wav"] = (wav, plans, time.perf_counter() - t0)
+    return _SHARED["wav"]
+
+
+def session_abf(dev):
+    """Path 16's ABF file: ABF_SWEEPS sweeps of ABF_SECONDS at ABF_FS with
+    planted bursts, written once. Returns (path, plans)."""
+    if "abf" not in _SHARED:
+        from spectral_tpu_torch.io.abf import write_abf2_fixture
+        xa, plans = bursty_batch(dev, ABF_SWEEPS, int(ABF_FS * ABF_SECONDS),
+                                 ABF_FS, 2000.0, 100.0, 1500.0, 17)
+        abf = os.path.join(shared_dir(), "abf.abf")
+        write_abf2_fixture(abf, xa.cpu().numpy(), ABF_FS)
+        _SHARED["abf"] = (abf, plans)
+    return _SHARED["abf"]
+
+
 def png_backend():
     """The backend ``render/png.py`` encodes with: native, PIL or zlib."""
     from spectral_tpu_torch.render import png
@@ -3117,8 +3186,6 @@ def session_path(dev, card):
     from spectral_tpu_torch.core.mel import mel_centers, mel_filterbank
     from spectral_tpu_torch.core.scale import normalize
     from spectral_tpu_torch.core.stft import band_row_slice, freq_axis
-    from spectral_tpu_torch.io.abf import write_abf2_fixture
-    from spectral_tpu_torch.io.wav import write_wav
     from spectral_tpu_torch.models import hmm
     from spectral_tpu_torch.models.detector import BurstDetector
     from spectral_tpu_torch.native import png_native
@@ -3138,15 +3205,12 @@ def session_path(dev, card):
     phase(f"path 16, the interactive session: {SESSION_SECONDS:g} s at "
           f"{fs:g} Hz ({n} samples) as a 16-bit WAV, scipy_default 1024, "
           f"0-4000 Hz (bins {lo}-{hi - 1})")
-    x, plans = bursty_batch(dev, 1, n, fs, 4000.0, 200.0, 3000.0, 16)
+    wav, plans, write_s = session_wav(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        wav = os.path.join(tmp, "hour.wav")
         t0 = time.perf_counter()
-        write_wav(wav, 0.1 * x[0].cpu().numpy(), fs)
-        del x
         s = AnalysisSession(device=dev)
         names = s.load(wav)
-        load_s = time.perf_counter() - t0
+        load_s = write_s + time.perf_counter() - t0
         require(names == ["hour_sweep0"], f"registered {names}")
         print(f"{len(plans[0])} bursts planted; WAV written and loaded "
               f"through SweepRegistry.load_file in {load_s:.3f} s")
@@ -3381,12 +3445,7 @@ def session_path(dev, card):
 
         # ABF sweeps combined: the segment map, the CSV's attribution, two
         # ROIs learned
-        na = int(ABF_FS * ABF_SECONDS)
-        xa, plans_a = bursty_batch(dev, ABF_SWEEPS, na, ABF_FS, 2000.0,
-                                   100.0, 1500.0, 17)
-        abf = os.path.join(tmp, "abf.abf")
-        write_abf2_fixture(abf, xa.cpu().numpy(), ABF_FS)
-        del xa
+        abf, plans_a = session_abf(dev)
         sa = AnalysisSession(device=dev)
         names_a = sa.load(abf)
         require(len(names_a) == ABF_SWEEPS, f"ABF sweeps {names_a}")
@@ -3959,10 +4018,618 @@ def gui_phase(dev, card="the CPU"):
         sys.modules.pop("spectral_tpu_torch.gui.app", None)
 
 
+# ---------------------------------------------------------------------------
+# the command line on the card (cli.py, client.py): path 19
+# ---------------------------------------------------------------------------
+
+CLI_CLIPS = 64          # export-specs and render_batch: one batch of clips
+CLI_CLIP_FS = 16000.0
+CLI_GRID_SECONDS = 60.0
+CLI_NFFT = 4096         # render --nfft: the GEMM kernel, zero-padded frames
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_cli(dev, argv):
+    """``spectral_tpu_torch.cli.main(argv)`` in this process (``--cpu``
+    first off the card), the launch counts set to 0 just before it:
+    (exit code, stdout, counts, wall seconds with the card synchronised)."""
+    import contextlib
+    import io
+    from spectral_tpu_torch import cli
+    argv = (["--cpu"] if dev.type == "cpu" else []) + list(argv)
+    out = io.StringIO()
+    _sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+        out.write(f"SystemExit: {e.code}\n")
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    return rc, out.getvalue(), read_counts(), wall
+
+
+def timed_call(dev, fn):
+    """(fn(), wall seconds with the card synchronised)."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def read_bytes(path):
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def event_lines(events, prefix=""):
+    return "".join(f"{prefix}{a:.4f}\t{b:.4f}\n" for a, b in events)
+
+
+def serve_port(proc, timeout=120.0):
+    """The port a ``serve --tcp 0`` child listens on, from its 'serving on
+    host:port' line on stderr."""
+    import select
+    deadline = time.monotonic() + timeout
+    seen = []
+    while time.monotonic() < deadline:
+        ready, _, _ = select.select([proc.stderr], [], [], 1.0)
+        if ready:
+            line = proc.stderr.readline()
+            if not line:
+                break
+            seen.append(line)
+            if line.startswith("serving on "):
+                return int(line.rsplit(":", 1)[1])
+        elif proc.poll() is not None:
+            break
+    raise RuntimeError(f"chip_smoke check failed: serve --tcp 0 did not "
+                       f"start: {''.join(seen)[-2000:]}")
+
+
+def cli_path(dev, card):
+    """Path 19, the command line (``spectral_tpu_torch/cli.py``) on the
+    card: each command through ``cli.main`` in this process, its launch
+    counts read (a command that computes and launches no kernel fails),
+    its outputs held to the same library calls made in this process and
+    its wall time beside theirs; then one ``serve --tcp 0`` child driven
+    by ``ServeClient``, its replies held to the commands'. Path 16's hour
+    (scipy_default 1024, 0-4000 Hz) carries render (--log, --mels 128,
+    --nfft 4096: the GEMM kernel, timed against its plain version, cuFFT
+    and its bound, held to scipy float64 on a 10-minute cut), detect --csv
+    and bands; path 16's ABF file learn and detect --each --batched; a
+    60 s clip the grid; a 10-minute cut stream (npz, --scan png, --bands,
+    --detect --csv) and export-batch; 64 clips export-specs."""
+    import dataclasses
+    import json as _json
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig, ViewSettings
+    from spectral_tpu_torch.api.export import (export_batch_signals_png,
+                                               export_events_csv)
+    from spectral_tpu_torch.api.session import AnalysisSession
+    from spectral_tpu_torch.cli import _detect_each_batched
+    from spectral_tpu_torch.client import ServeClient
+    from spectral_tpu_torch.core.scale import normalize
+    from spectral_tpu_torch.core.stft import (band_row_slice, freq_axis,
+                                              mask_band_rows, time_axis)
+    from spectral_tpu_torch.io.registry import SweepRegistry
+    from spectral_tpu_torch.io.wav import write_wav
+    from spectral_tpu_torch.ops import stft_cuda
+    from spectral_tpu_torch.ops.colormap import (apply_colormap_packed,
+                                                 unpack_rgba)
+    from spectral_tpu_torch.parallel.pipeline import (export_spectrograms,
+                                                      wav_clip_source)
+    from spectral_tpu_torch.parallel.streaming import (scan_spectrogram,
+                                                       stream_band_powers,
+                                                       stream_detect,
+                                                       stream_spectrogram)
+    from spectral_tpu_torch.parallel.sweep_grid import sweep_grid
+    from spectral_tpu_torch.render.png import encode_png
+    from torch_precision import log_display, scipy_psd
+
+    on_card = dev.type == "cuda"
+    device = "cuda" if on_card else "cpu"
+    t_path = time.perf_counter()
+    wav, _plans, _ = session_wav(dev)
+    abf, plans_a = session_abf(dev)
+    fs = SESSION_FS
+    phase(f"path 19, the command line: cli.main on path 16's "
+          f"{SESSION_SECONDS:g} s at {fs:g} Hz, its ABF file, cuts of it and "
+          f"{CLI_CLIPS} clips; then serve --tcp 0 through ServeClient "
+          f"[{card}]")
+    tmp = os.path.join(shared_dir(), "path19")
+    os.makedirs(tmp, exist_ok=True)
+    spec = ["--scipy-compat", "--nperseg", "1024", "--fmin", "0", "--fmax",
+            "4000"]
+    cfg = SpecConfig.scipy_default(1024, fmin=0.0, fmax=4000.0)
+    cfg_log = dataclasses.replace(cfg, log_scale=True)
+    view = ViewSettings(mode_proc="Spectrogram", mode_raw="Spectrogram")
+    rows = []           # (command, CLI s, in-process s, launches)
+
+    def cli_ok(argv, what, want=None, at_least=None, host=False):
+        rc, out, counts, wall = run_cli(dev, argv)
+        require(rc == 0, f"path 19 {what}: exit {rc}: {out[-2000:]}")
+        flat = nonzero_counts(counts)
+        if on_card and not host:
+            require(flat, f"path 19 {what}: no kernel launched, so it may "
+                    "have run on the CPU")
+            if want is not None:
+                require_counts(counts, want, f"path 19 {what}")
+            for k, v in (at_least or {}).items():
+                require(flat.get(k, 0) >= v, f"path 19 {what}: {k} "
+                        f"launched {flat.get(k, 0)} times, want >= {v}")
+        if on_card and host:
+            require(not flat, f"path 19 {what}: launched {flat}")
+        return out, flat, wall
+
+    def session_call(c, fn):
+        def go():
+            s = AnalysisSession(warm_detection=False, device=device)
+            names = s.load(wav)
+            s.plot_sweeps(names[:1], c, view)
+            return s, fn(s)
+        return timed_call(dev, go)
+
+    # render --log, --mels 128, --nfft 4096: the PNG bytes
+    renders = {}
+    for label, extra, c, want in (
+            ("render --log", ["--log"], cfg_log, {"stft_fft": 1}),
+            ("render --mels 128 --log", ["--mels", "128", "--log"],
+             dataclasses.replace(cfg_log, n_mels=128),
+             {"stft_fft": 1, "mel": 1}),
+            (f"render --nfft {CLI_NFFT} --log",
+             ["--nfft", str(CLI_NFFT), "--log"],
+             dataclasses.replace(cfg_log, nfft=CLI_NFFT),
+             {"stft_gemm": 1})):
+        key = label.replace(" ", "_").replace("-", "")
+        png_cli = os.path.join(tmp, f"cli_{key}.png")
+        png_lib = os.path.join(tmp, f"lib_{key}.png")
+        out, flat, wall = cli_ok(["render", wav, "-o", png_cli, *spec,
+                                  *extra], label, want)
+        (s_lib, msg), lib_s = session_call(c, lambda s: s.export_png(png_lib))
+        require(msg.startswith("Successfully") and out.strip() == msg.replace(
+            png_lib, png_cli), f"path 19 {label}: {out!r} vs {msg!r}")
+        require(read_bytes(png_cli) == read_bytes(png_lib),
+                f"path 19 {label}: the PNG's bytes differ from export_png's")
+        renders[label] = (s_lib, png_cli)
+        rows.append((label, wall, lib_s, flat))
+        print(f"{label}: exit 0, the PNG ({len(read_bytes(png_cli))} bytes) "
+              f"bytewise AnalysisSession.export_png's; launches {flat}")
+
+    # the nfft case at full width: the GEMM kernel against its plain
+    # version, cuFFT and its bound; a 10-minute cut against scipy float64
+    s_n = renders[f"render --nfft {CLI_NFFT} --log"][0]
+    cfg_n = dataclasses.replace(cfg, nfft=CLI_NFFT)
+    require(stft_cuda.route(cfg_n) == "gemm", "nfft route")
+    x = torch.as_tensor(s_n.spec_data_source, device=dev)[None]
+    n = x.shape[-1]
+    T = (n - 1024) // cfg_n.hop_ + 1
+    F = cfg_n.n_freqs
+    nfft_row = None
+    if on_card:
+        reset_counts()
+        got = stft_cuda.stft_psd(x, fs, cfg_n)
+        require_counts(read_counts(), {"stft_gemm": 1}, "nfft GEMM launch")
+        want = stft_cuda.stft_psd_reference(
+            x, stft_cuda.dft_constants(cfg_n, fs, dev), cfg_n)
+        rel, abs_ = psd_err(got, want)
+        ulps = ulp_distance(got, want)
+        require(got.shape == (1, T, F) and rel <= PSD_TOL
+                and torch.equal(torch.isfinite(got), torch.isfinite(want)),
+                f"nfft GEMM vs plain: {rel:.2e}")
+        del got, want
+        k_ms = time_ms(lambda: stft_cuda.stft_psd(x, fs, cfg_n))[0]
+        p_ms = time_ms(lambda: stft_cuda.stft_psd_reference(
+            x, stft_cuda.dft_constants(cfg_n, fs, dev), cfg_n))[0]
+        lib_ms = time_ms(lambda: library_psd(x, cfg_n, fs))[0]
+        bound = stft_bound(1, n, T, F, CLI_NFFT)
+        dense = dense_dft_bound_ms(1, T, F, 1024)
+        torch.cuda.empty_cache()
+        nfft_row = {"launches": 1, "err": abs_, "ms": k_ms, "plain_ms": p_ms,
+                    "bound": bound, "library_ms": lib_ms}
+        print(f"nfft {CLI_NFFT} at nperseg 1024 on the GEMM kernel's 128 x 64 "
+              f"tile: {T} frames x {F} bins; vs the plain float64 dense DFT "
+              f"max rel {rel:.2e} ({abs_:.2e} abs, {ulps} float32 ulps); "
+              f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, cuFFT f64 "
+              f"rfft(n={CLI_NFFT}) then |X|^2 w {lib_ms:.3f} ms, bound "
+              f"{bound[0]:.3f} ms ({bound[1]}; the dense design's FP64 "
+              f"ceiling {dense:.3f} ms) [{card}]")
+    cut = int(fs * SESSION_CUT_SECONDS)
+    xc = x[:, :cut].contiguous()
+    f_n = freq_axis(cfg_n, fs)
+    lo_n, hi_n = band_row_slice(f_n, 0.0, 4000.0)
+    p_cut = stft_cuda.stft_psd(xc, fs, cfg_n)[0]
+    img, _ = log_display(p_cut[:, lo_n:hi_n].T.cpu().numpy())
+    oracle, rng_db = log_display(scipy_psd(
+        xc[0].cpu().numpy().astype(np.float64), cfg_n, fs)[lo_n:hi_n])
+    db_err = float(np.max(np.abs(img - oracle)) * rng_db)
+    require(db_err <= DB_TOL, f"nfft cut vs scipy: {db_err:.2e} dB")
+    print(f"nfft {CLI_NFFT}: the {SESSION_CUT_SECONDS:g} s cut, bins "
+          f"{lo_n}-{hi_n - 1}, vs scipy float64 at nfft={CLI_NFFT}: "
+          f"{db_err:.2e} dB (limit {DB_TOL:g})")
+    del x, xc, p_cut, s_n, renders
+
+    # detect --csv and bands on the hour
+    csv_cli = os.path.join(tmp, "cli_detect.csv")
+    csv_lib = os.path.join(tmp, "lib_detect.csv")
+    out, flat, wall = cli_ok(["detect", wav, *spec, "--csv", csv_cli],
+                             "detect --csv",
+                             at_least={"stft_fft": 1, "hmm_estep_chunked": 1,
+                                       "hmm_viterbi_chunked": 1})
+    (s_d, events), lib_s = session_call(cfg, lambda s: (
+        s.unsupervised_detect(), s.export_csv(csv_lib))[0])
+    require(out == event_lines(events) + f"Successfully exported "
+            f"{len(events)} events to cli_detect.csv\n",
+            "path 19 detect: stdout")
+    require(read_bytes(csv_cli) == read_bytes(csv_lib),
+            "path 19 detect: CSV bytes")
+    rows.append(("detect --csv", wall, lib_s, flat))
+    print(f"detect --csv: {len(events)} events, lines and CSV bytes the "
+          f"session's; launches {flat}")
+    out, flat, wall = cli_ok(["bands", wav, *spec], "bands",
+                             {"stft_fft": 1})
+    (s_b, bp), lib_s = session_call(cfg, lambda s: s.calculate_band_powers())
+    require(_json.loads(out) == {k: round(v, 6) for k, v in bp.items()},
+            f"path 19 bands: {out}")
+    rows.append(("bands", wall, lib_s, flat))
+    entry = s_b.registry.data[s_b.registry.names()[0]]
+    sig = np.asarray(entry.raw, np.float32)
+    del s_d, s_b
+
+    # info on the WAV and the ABF: the registry's lines, no launch
+    out, flat, wall = cli_ok(["info", wav, abf], "info", host=True)
+    r = SweepRegistry()
+    lines = []
+    for path in (wav, abf):
+        for nm in r.load_file(path):
+            e = r.data[nm]
+            t0s = "" if e.start_seconds is None else f" t0={e.start_seconds:g}s"
+            lines.append(f"{nm}: fs={e.fs:g} raw={len(e.raw)} processed="
+                         f"{0 if e.processed is None else len(e.processed)}"
+                         f"{t0s}\n")
+    require(out == "".join(lines), f"path 19 info: {out!r}")
+    rows.append(("info", wall, None, flat))
+
+    # learn over the ABF's sweeps combined, two ROIs
+    planted = [(k * ABF_SECONDS + a, k * ABF_SECONDS + a + m)
+               for k, plan in enumerate(plans_a) for a, m, _, _ in plan]
+    require(len(planted) >= 2, f"{len(planted)} ABF bursts planted")
+    rois = [(a - 2.0, b + 2.0) for a, b in planted[:2]]
+    spec_a = ["--scipy-compat", "--nperseg", "1024", "--fmin", "0", "--fmax",
+              "2000"]
+    cfg_a = SpecConfig.scipy_default(1024, fmin=0.0, fmax=2000.0)
+    out, flat, wall = cli_ok(
+        ["learn", abf, "--combine", *spec_a,
+         *itertools.chain.from_iterable(("--roi", f"{a!r}:{b!r}")
+                                        for a, b in rois)],
+        "learn", at_least={"hmm_fit": 1, "hmm_viterbi_chunked": 1})
+
+    def learn():
+        s = AnalysisSession(warm_detection=False, device=device)
+        names = s.load(abf)
+        s.plot_sweeps(names, cfg_a, ViewSettings(
+            combine=True, mode_proc="Spectrogram", mode_raw="Spectrogram"))
+        return s.learn_and_detect(rois)
+
+    ev_l, lib_s = timed_call(dev, learn)
+    require(out == event_lines(ev_l) and len(ev_l) >= 2,
+            f"path 19 learn: {out!r}")
+    rows.append(("learn --combine, 2 ROIs", wall, lib_s, flat))
+
+    # detect --each --batched over the ABF's sweeps: the fleet flow, and
+    # the sequential flow sweep by sweep, the same events
+    csv_each = os.path.join(tmp, "cli_each.csv")
+    out, flat, wall = cli_ok(["detect", abf, "--each", "--batched", *spec_a,
+                              "--csv", csv_each], "detect --each --batched",
+                             {"stft_fft": 1, "hmm_fit": 1, "hmm_viterbi": 1})
+
+    def fleet():
+        s = AnalysisSession(warm_detection=False, device=device)
+        names = s.load(abf)
+        return names, _detect_each_batched(s, names, cfg_a, device)
+
+    (names_a, batched), lib_s = timed_call(dev, fleet)
+    s_q = AnalysisSession(warm_detection=False, device=device)
+    s_q.load(abf)
+    want = ""
+    for nm in names_a:
+        require(not isinstance(batched[nm], Exception), f"{nm}: "
+                f"{batched[nm]}")
+        s_q.reset_model()
+        s_q.plot_sweeps([nm], cfg_a, view)
+        require(s_q.unsupervised_detect() == batched[nm],
+                f"path 19 detect --each --batched: {nm}'s events are not "
+                "the sequential flow's")
+        want += event_lines(batched[nm], f"{nm}\t")
+    n_ev = sum(len(v) for v in batched.values())
+    require(out == want + f"Successfully exported {n_ev} events to "
+            f"{csv_each}\n", "path 19 detect --each --batched: stdout")
+    rows.append(("detect --each --batched", wall, lib_s, flat))
+    print(f"detect --each --batched: {len(names_a)} sweeps, {n_ev} events, "
+          f"the fleet flow's in process and the sequential flow's sweep by "
+          f"sweep; launches {flat}")
+    del s_q
+
+    # grid over a 60 s clip: the npz bitwise sweep_grid's
+    npz_grid = os.path.join(tmp, "grid.npz")
+    out, flat, wall = cli_ok(["grid", wav, "-o", npz_grid, "--clip-seconds",
+                              f"{CLI_GRID_SECONDS:g}"], "grid",
+                             {"stft_fft": 16})
+    configs = [SpecConfig(nperseg=k, hop=k // 4, window=w, detrend="none")
+               for k in (256, 1024, 2048, 4096)
+               for w in ("hann", "hamming", "tukey", "blackman")]
+
+    def grid():
+        r2 = SweepRegistry()
+        xg, _ = r2.get_signal(r2.load_file(wav)[0], processed=True)
+        xg = np.asarray(xg, np.float32)[:int(CLI_GRID_SECONDS * fs)]
+        return [p.cpu().numpy() for p in sweep_grid(xg, fs, configs,
+                                                     device=device)]
+
+    psds, lib_s = timed_call(dev, grid)
+    z = np.load(npz_grid)
+    for c, p in zip(configs, psds):
+        require(np.array_equal(z[f"psd_{c.nperseg}_{c.window}"], p.T),
+                f"path 19 grid: {c.nperseg} {c.window}")
+    rows.append(("grid (16 configs, 60 s)", wall, lib_s, flat))
+
+    # stream over a 10-minute cut: npz, --scan png, --bands, --detect
+    cut_wav = os.path.join(tmp, "cut.wav")
+    write_wav(cut_wav, sig[:cut], fs)
+
+    def cut_signal():
+        r2 = SweepRegistry()
+        x2, _ = r2.get_signal(r2.load_file(cut_wav)[0], processed=True)
+        return np.asarray(x2, np.float32)
+
+    xs = cut_signal()
+    hop = cfg.hop_
+    chunk = max(-(-cfg.nperseg // hop) * hop, int(60.0 * fs) // hop * hop)
+    f_ax = freq_axis(cfg, fs)
+
+    def banded(psd):
+        return mask_band_rows(f_ax, psd.transpose(-1, -2), 0.0, 4000.0)[1]
+
+    npz_s = os.path.join(tmp, "stream.npz")
+    out, flat, wall = cli_ok(["stream", cut_wav, "-o", npz_s, *spec],
+                             "stream -o x.npz", at_least={"stft_fft": 1})
+    want, lib_s = timed_call(dev, lambda: banded(stream_spectrogram(
+        cut_signal(), fs, cfg, chunk, device=device)).cpu().numpy().T)
+    z = np.load(npz_s)
+    require(np.array_equal(z["psd"], want) and np.array_equal(
+        z["t"], time_axis(cfg, fs, len(xs))), "path 19 stream npz")
+    rows.append(("stream -o x.npz", wall, lib_s, flat))
+    png_s = os.path.join(tmp, "stream.png")
+    png_l = os.path.join(tmp, "stream_lib.png")
+    out, flat, wall = cli_ok(["stream", cut_wav, "--scan", "-o", png_s,
+                              *spec, "--log"], "stream --scan -o x.png",
+                             at_least={"stft_fft": 1})
+
+    def scan_png():
+        img = normalize(banded(scan_spectrogram(cut_signal(), fs, cfg_log,
+                                                chunk, device=device)), True)
+        encode_png(unpack_rgba(apply_colormap_packed(img, flip_rows=True)),
+                   path=png_l, compress_level=4)
+
+    _, lib_s = timed_call(dev, scan_png)
+    require(read_bytes(png_s) == read_bytes(png_l),
+            "path 19 stream --scan png bytes")
+    rows.append(("stream --scan -o x.png", wall, lib_s, flat))
+    out, flat, wall = cli_ok(["stream", cut_wav, "--bands", *spec],
+                             "stream --bands", at_least={"stft_fft": 1})
+    (bp, total), lib_s = timed_call(dev, lambda: stream_band_powers(
+        cut_signal(), fs, cfg, chunk, device=device))
+    require(out == _json.dumps({k: round(v, 6) for k, v in bp.items()},
+                               ensure_ascii=False, indent=2)
+            + f"\nTotal absolute power: {total:.6g}\n",
+            f"path 19 stream --bands: {out!r}")
+    rows.append(("stream --bands", wall, lib_s, flat))
+    csv_s = os.path.join(tmp, "stream.csv")
+    csv_sl = os.path.join(tmp, "stream_lib.csv")
+    out, flat, wall = cli_ok(["stream", cut_wav, "--detect", "--csv", csv_s,
+                              *spec], "stream --detect --csv",
+                             at_least={"stft_fft": 1,
+                                       "hmm_estep_chunked": 1})
+    ev_s, lib_s = timed_call(dev, lambda: stream_detect(
+        cut_signal(), fs, cfg, chunk, device=device))
+    from types import SimpleNamespace
+    msg = export_events_csv(csv_sl, SimpleNamespace(
+        last_detected_events=ev_s, segment_map=[],
+        currently_plotted_items=["cut.wav"]))
+    require(out == event_lines(ev_s) + msg.replace("stream_lib.csv",
+                                                   "stream.csv") + "\n"
+            and read_bytes(csv_s) == read_bytes(csv_sl),
+            "path 19 stream --detect: lines and CSV bytes")
+    rows.append(("stream --detect --csv", wall, lib_s, flat))
+
+    # export-batch of the cut: the waveform PNG's bytes
+    eb_cli, eb_lib = os.path.join(tmp, "eb_cli"), os.path.join(tmp, "eb_lib")
+    out, flat, wall = cli_ok(["export-batch", cut_wav, "-o", eb_cli],
+                             "export-batch", host=True)
+
+    def batch_png():
+        r2 = SweepRegistry()
+        return export_batch_signals_png(eb_lib, r2, r2.load_file(cut_wav),
+                                        use_proc=False, use_raw=True,
+                                        window_seconds=300.0, device=device)
+
+    msg, lib_s = timed_call(dev, batch_png)
+    require(out.strip() == msg.replace(eb_lib, eb_cli) and read_bytes(
+        os.path.join(eb_cli, "cut_sweep0.png")) == read_bytes(
+            os.path.join(eb_lib, "cut_sweep0.png")), "path 19 export-batch")
+    rows.append(("export-batch", wall, lib_s, flat))
+
+    # export-specs of 64 clips with --stats-json: PNG bytes the pipeline's
+    gen = np.random.RandomState(19)
+    n_clip = int(CLI_CLIP_FS * CLIP_SECONDS)
+    clip_dir = os.path.join(tmp, "clips")
+    os.makedirs(clip_dir, exist_ok=True)
+    clips = []
+    for i in range(CLI_CLIPS):
+        path = os.path.join(clip_dir, f"c{i:02d}.wav")
+        write_wav(path, (0.1 * gen.randn(n_clip)).astype(np.float32),
+                  CLI_CLIP_FS)
+        clips.append(path)
+    cfg_ns = SpecConfig.north_star(1024, 256, log_scale=True)
+    spec_cli, spec_lib = (os.path.join(tmp, "specs_cli"),
+                          os.path.join(tmp, "specs_lib"))
+    stats_json = os.path.join(tmp, "stats.json")
+    out, flat, wall = cli_ok(["export-specs", *clips, "-o", spec_cli,
+                              "--log", "--stats-json", stats_json],
+                             "export-specs",
+                             {"stft_fft": 1, "clip_stats": 1, "palette": 1})
+    stats, lib_s = timed_call(dev, lambda: export_spectrograms(
+        wav_clip_source(clips), CLI_CLIP_FS, cfg_ns, spec_lib,
+        clip_samples=n_clip, batch=64, compress_level=1, device=device))
+    rep = _json.load(open(stats_json))
+    require(rep["pngs_written"] == stats.pngs_written == CLI_CLIPS
+            and sorted(os.listdir(spec_cli)) == sorted(os.listdir(spec_lib))
+            and all(read_bytes(os.path.join(spec_cli, f)) == read_bytes(
+                os.path.join(spec_lib, f)) for f in os.listdir(spec_lib)),
+            "path 19 export-specs: PNG bytes and stats")
+    rows.append(("export-specs (64 clips)", wall, lib_s, flat))
+
+    # doctor --json --probe-link: one object, the tone through the kernel
+    out, flat, wall = cli_ok(["doctor", "--json", "--probe-link"], "doctor",
+                             {"stft_fft": 1} if on_card else None)
+    rep = _json.loads(out)
+    require(rep["ok"] and rep["sanity"] and rep["backend"] == dev.type,
+            f"path 19 doctor: {rep}")
+    rows.append(("doctor --json --probe-link", wall, None, flat))
+    print(f"doctor: {out.strip()}")
+
+    # what this host cannot run: NIX without h5py, --decorated without
+    # matplotlib, gui without PyQt5
+    try:
+        import h5py  # noqa: F401
+        from spectral_tpu_torch.io.nix import write_nix_fixture
+        nix = os.path.join(tmp, "rec.h5")
+        write_nix_fixture(nix, [{"proc_a": sig[:int(60 * fs)]}], fs=fs)
+        out, flat, wall = cli_ok(["info", nix], "info (NIX)", host=True)
+        require(out.startswith("rec_sweep0: fs=48000"), f"NIX info {out!r}")
+        nix_png = os.path.join(tmp, "nix.png")
+        out, flat, wall = cli_ok(["render", nix, "-o", nix_png, *spec],
+                                 "render (NIX)", {"stft_fft": 1})
+        print(f"h5py on this host: a NIX file through info and render "
+              f"({len(read_bytes(nix_png))} PNG bytes)")
+    except ImportError:
+        print("no h5py on this host: NIX files are not loaded here (info "
+              "and render of a NIX file run on the CPU in the tests)")
+    try:
+        import matplotlib  # noqa: F401
+        d_png = os.path.join(tmp, "decorated.png")
+        cli_ok(["render", cut_wav, "-o", d_png, "--decorated", *spec],
+               "render --decorated", {"stft_fft": 1})
+        print(f"render --decorated: {len(read_bytes(d_png))} PNG bytes")
+    except ImportError:
+        print("no matplotlib on this host: render --decorated skipped")
+    rc, out, counts, _ = run_cli(dev, ["gui"])
+    try:
+        import PyQt5  # noqa: F401
+        print("PyQt5 on this host: the gui phase drives the window")
+    except ImportError:
+        require(rc == 2, f"gui without PyQt5: exit {rc}")
+        print("no PyQt5 on this host: gui exits 2 with its pointer to the "
+              "CLI")
+
+    # serve --tcp 0 in a child process, through the port's ServeClient
+    cmd = [sys.executable, "-m", "spectral_tpu_torch.cli"] + (
+        [] if on_card else ["--cpu"]) + ["serve", "--tcp", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, stdin=subprocess.DEVNULL,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True)
+    tcp = {}
+    try:
+        port = serve_port(proc)
+        tcp["start_s"] = time.perf_counter() - t0
+        as_dict = lambda c: _json.loads(c.to_json())  # noqa: E731
+        with ServeClient.tcp(port) as c:
+            def req(name, fn):
+                t1 = time.perf_counter()
+                got = fn()
+                tcp[name] = time.perf_counter() - t1
+                return got
+
+            require(req("ping", c.ping), "serve ping")
+            png_t = os.path.join(tmp, "tcp.png")
+            msg = req("render", lambda: c.render([wav], png_t,
+                                                 config=as_dict(cfg_log)))
+            require(msg.startswith("Successfully") and read_bytes(png_t)
+                    == read_bytes(os.path.join(tmp, "cli_render_log.png")),
+                    "serve render: PNG bytes")
+            ev_t = req("detect", lambda: c.detect([wav], config=as_dict(cfg)))
+            require(ev_t == events, "serve detect: events")
+            res = req("detect_batch", lambda: c.detect_batch(
+                [abf], config=as_dict(cfg_a)))
+            require({k: [tuple(e) for e in v["events"]]
+                     for k, v in res.items()} == batched,
+                    "serve detect_batch: events")
+            rb_dir = os.path.join(tmp, "tcp_specs")
+            rb = req("render_batch", lambda: c.render_batch(
+                clips, rb_dir, clip_seconds=CLIP_SECONDS,
+                config=as_dict(cfg_ns)))
+            require(rb["written"] == CLI_CLIPS and all(
+                read_bytes(os.path.join(rb_dir, f)) == read_bytes(
+                    os.path.join(spec_lib, f)) for f in os.listdir(spec_lib)),
+                "serve render_batch: PNG bytes")
+            sb, stot = req("stream_bands", lambda: c.stream_bands(
+                [cut_wav], chunk_seconds=60.0, config=as_dict(cfg)))
+            require(sb == bp and stot == total, "serve stream_bands")
+            st = req("stats", c.stats)
+            # two file sets were cached, unless the RSS backstop (the
+            # default --max-rss-mb 8192) dropped them: an hour's sessions
+            # hold its samples twice on the host
+            require(st["requests"] == 7 and st["errors"] == 0
+                    and st["sessions_cached"] <= 2
+                    and (st["sessions_cached"] == 2 or st["cache_trims"]),
+                    f"serve stats {st}")
+            c.close(shutdown=True)
+        require(proc.wait(timeout=60) == 0, "serve exit")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stderr.close()
+    print(f"serve --tcp 0: listening after {tcp['start_s']:.2f} s; each "
+          f"reply the in-process command's (PNG bytes, events, band "
+          f"powers): " + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in
+                                  tcp.items() if k != "start_s")
+          + f"; the worker's RSS {st['rss_mb']} MB, {st['cache_trims']} "
+          f"cache trims [{card}]")
+
+    print(f"{'command':<28} {'CLI s':>9} {'in process s':>13} {'CLI cost s':>11}"
+          f"  launches")
+    for name, cli_s, lib_s, flat in rows:
+        lib = "" if lib_s is None else f"{lib_s:.3f}"
+        cost = "" if lib_s is None else f"{cli_s - lib_s:+.3f}"
+        print(f"{name:<28} {cli_s:>9.3f} {lib:>13} {cost:>11}  {flat}")
+    print(f"path 19 took {time.perf_counter() - t_path:.1f} s of wall time, "
+          "the recordings' writing included")
+    print(_json.dumps({"path19": [
+        {"command": name, "cli_s": cli_s, "in_process_s": lib_s,
+         "launches": flat} for name, cli_s, lib_s, flat in rows],
+        "serve_tcp_s": tcp, "card": card}))
+    out_rows = {"cli_rows": rows}
+    if nfft_row is not None:
+        out_rows["stft_gemm_nfft"] = nfft_row
+    return out_rows
+
+
 PHASES = ("kernels", "tail", "dc", "scipy", "band", "mel", "path1", "path2",
           "path3", "path4", "path5", "path6", "path7", "path8", "path9",
           "path10", "path11", "path12", "path13", "hmm", "path14", "path15",
-          "path16", "path17", "path18", "gui")
+          "path16", "path17", "path18", "gui", "path19")
 
 
 def main(_phases=None):
@@ -4079,6 +4746,9 @@ def main(_phases=None):
         torch.cuda.empty_cache()
     if "gui" in phases:
         gui_phase(dev, card)
+    if "path19" in phases:
+        rows.update(cli_path(dev, card))
+        torch.cuda.empty_cache()
     if _phases is not None:
         print(f"chip_smoke phases {sorted(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -4102,7 +4772,11 @@ def main(_phases=None):
           f"{rows['hmm_estep_chunked']['launches']}, chunked Viterbi "
           f"{rows['hmm_viterbi_chunked']['launches']}; path 16 (the session) "
           f"{rows['session_launches']}; the FFT kernel streamed: path 17 "
-          f"{rows['stft_stream']['launches']}")
+          f"{rows['stft_stream']['launches']}; the GEMM kernel at nfft "
+          f"{CLI_NFFT}: path 19 {rows['stft_gemm_nfft']['launches']}; the "
+          f"commands of path 19: "
+          + "; ".join(f"{name} {flat}" for name, _, _, flat in
+                      rows["cli_rows"]))
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
     tail_src = "spectral_tpu_torch/ops/csrc/display.cu"
     mel_src = "spectral_tpu_torch/ops/csrc/mel.cu"
@@ -4146,6 +4820,10 @@ def main(_phases=None):
         "stft_band": ("stft_fft_psd<LOG2M 9, 8 values>, nperseg 1024, the "
                       "band 0-30 Hz, 31 of 513 bins (path 13)", "cuda", src,
                       "spectral_tpu/ops/stft_pallas.py:217"),
+        "stft_gemm_nfft": (
+            f"stft_psd GEMM, 128 x 64 tile, nperseg 1024 zero-padded to "
+            f"nfft {CLI_NFFT} (path 19, render --nfft)", "cuda", src,
+            "spectral_tpu/ops/stft_pallas.py:217"),
         "stft_stream": ("stft_fft_psd<LOG2M 9, 8 values>, nperseg 1024, a "
                         "streamed block of the stereo hour, [carry | block] "
                         "(path 17)", "cuda", src,

@@ -472,10 +472,11 @@ class AnalysisSession:
 
     @staticmethod
     def _maybe_trim() -> None:
-        """The memory backstop's hook (the JAX package's
-        ``utils/memory.maybe_trim_caches``, opt-in by
-        SPECTRAL_TPU_MAX_RSS_MB). It does nothing until ``utils/memory.py``
-        is ported with the CLI (ROADMAP [cli])."""
+        """Opt-in memory backstop (SPECTRAL_TPU_MAX_RSS_MB): long sessions
+        exploring many configs grow the per-config constant caches;
+        utils/memory.py drops them when RSS crosses the threshold."""
+        from spectral_tpu_torch.utils.memory import maybe_trim_caches
+        maybe_trim_caches()
 
     def reset_model(self) -> None:
         self.detector.reset()

@@ -705,7 +705,9 @@ def build_window(device="cuda"):
     return MainWindow()
 
 
-def main(argv=None) -> int:
+def main(argv=None, device="cuda") -> int:
+    """Run the window over a session on ``device`` (the card unless 'cpu'
+    is named); 2 without PyQt5."""
     if not _require_qt():
         sys.stderr.write(
             "spectral-tpu gui requires PyQt5 (optional dependency; "
@@ -714,7 +716,7 @@ def main(argv=None) -> int:
         return 2
     from PyQt5 import QtWidgets
     app = QtWidgets.QApplication(argv or sys.argv)
-    win = build_window()
+    win = build_window(device=device)
     win.resize(1200, 800)
     win.show()
     return app.exec_()

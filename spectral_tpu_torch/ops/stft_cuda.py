@@ -129,10 +129,14 @@ MIN_FFT_NPERSEG = 32         # the GUI's floor, the FFT kernels' smallest;
 # pipeline overflows there: the clip's extrema turn inf and its finite flag
 # (the overflow guard) trips, though float64 could carry the value
 F32_MAX = float(np.finfo(np.float32).max)
-# B * T: the kernels index rows with int32; with nperseg <= 8192 (at most
-# 65 frequency tiles) the GEMM route's block count then stays below 2**31
-# too, and the FFT routes launch one block per row
+# B * T: the kernels index rows with int32, and the FFT routes launch one
+# block per row
 MAX_ROWS = 2 ** 31 - 256
+# the GEMM kernel's 128 x 64 tile (BM x BN in the source) launches a block
+# per 128 rows and 64 bins: past 65 frequency tiles (nfft > 8192) the
+# count can pass the grid's 2**31 - 1
+GEMM_TILE_ROWS = 128
+MAX_BLOCKS = 2 ** 31 - 1
 
 # kernel launches per route, for run-time proof of the path
 launches = {"gemm": 0, "fft": 0, "mixed": 0, "odd": 0, "bluestein": 0}
@@ -152,10 +156,9 @@ def unsupported_reason(cfg: SpecConfig) -> Optional[str]:
     the ROADMAP item that will bring it), or None when it can. These are the semantic conditions of
     the JAX package's ``pallas_supported``; its gcd and VMEM conditions are
     TPU layout limits, and the kernel reads frames by pointer."""
-    if cfg.mode != "psd" or cfg.center or cfg.nfft_ != cfg.nperseg:
-        return ("the STFT kernel computes uncentered PSD with nfft == "
-                "nperseg; other modes arrive with ROADMAP [ext-modes] "
-                "(the extended modes)")
+    if cfg.mode != "psd" or cfg.center:
+        return ("the STFT kernel computes uncentered PSD; other modes "
+                "arrive with ROADMAP [ext-modes] (the extended modes)")
     if cfg.nperseg > MAX_NPERSEG:
         return (f"nperseg {cfg.nperseg} > {MAX_NPERSEG}, the GUI's ceiling "
                 "(GUI.py:87-90); larger transforms arrive with ROADMAP "
@@ -164,10 +167,12 @@ def unsupported_reason(cfg: SpecConfig) -> Optional[str]:
 
 
 def kernel_supported(cfg: SpecConfig) -> bool:
-    """The semantic conditions of the JAX package's ``pallas_supported``:
-    nfft == nperseg <= 8192, PSD mode, uncentered. The band mask and the mel
-    branch are not the kernel's concern: the caller passes the bins
-    (``band``) and projects the PSD (``ops.mel_cuda``)."""
+    """The semantic conditions of the JAX package's ``pallas_supported``,
+    nperseg <= 8192, PSD mode, uncentered, with any nfft >= nperseg (the
+    JAX package computes a zero-padded transform outside its kernel, on
+    its dense matmul route; here the GEMM kernel takes it). The band mask
+    and the mel branch are not the kernel's concern: the caller passes the
+    bins (``band``) and projects the PSD (``ops.mel_cuda``)."""
     return unsupported_reason(cfg) is None
 
 
@@ -181,7 +186,10 @@ def route(cfg: SpecConfig) -> str:
     """The kernel that computes a supported config (:func:`kernel_supported`;
     others raise NotImplementedError), under any detrend and whatever its
     band or mel settings: ``"gemm"`` for
-    nperseg below 32; ``"fft"`` for a power-of-two nperseg from 32 to
+    nperseg below 32 and for every nfft > nperseg (the zero-padded
+    transform: the FFT kernels' transform length is nperseg, the GEMM
+    kernel's folded matrices carry the padding, (nperseg, nfft // 2 + 1));
+    ``"fft"`` for a power-of-two nperseg from 32 to
     8192; for the other nperseg in that range whose plan's radices
     (``core.stft.plan_radices``: the prime factors of the transform
     length, nperseg/2 or an odd nperseg, or of the length less one where
@@ -191,7 +199,7 @@ def route(cfg: SpecConfig) -> str:
     with a larger prime). A pure function of the config."""
     check_supported(cfg)
     k = cfg.nperseg
-    if not MIN_FFT_NPERSEG <= k <= MAX_NPERSEG:
+    if cfg.nfft_ != k or not MIN_FFT_NPERSEG <= k <= MAX_NPERSEG:
         return "gemm"
     if k & (k - 1) == 0:
         return "fft"
@@ -469,6 +477,9 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
         raise ValueError(f"at most {MAX_ROWS} frames per launch, got "
                          f"{B} clips x {T} frames")
     n_tiles = lib.stft_psd_freq_tiles(F) if kernel == "gemm" else 1
+    if n_tiles > 1 and -(-B * T // GEMM_TILE_ROWS) * n_tiles > MAX_BLOCKS:
+        raise ValueError(f"{B} clips x {T} frames x {F} bins is past the "
+                         f"GEMM kernel's {MAX_BLOCKS} blocks a launch")
     out = torch.empty((B, T, F), dtype=torch.float32, device=x.device)
     parts = (torch.empty((2, n_tiles, B * T), dtype=torch.float32,
                          device=x.device) if with_stats else None)
@@ -576,7 +587,7 @@ def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
     kernel = route(cfg)
     if _route is not None:
         forced = ["gemm", kernel]
-        if cfg.nperseg >= MIN_FFT_NPERSEG:
+        if cfg.nperseg >= MIN_FFT_NPERSEG and cfg.nfft_ == cfg.nperseg:
             forced.append("bluestein")
         if _route not in forced:
             raise ValueError(f"no {_route!r} route for nperseg "

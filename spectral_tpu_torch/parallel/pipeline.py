@@ -193,7 +193,7 @@ def export_spectrograms(clips: Iterable[Tuple[str, np.ndarray]], fs: float,
     Band and mel configs export as ``batched_spectrogram_fn`` computes
     them: the fmin/fmax band's rows, or the mel rows of the band on the
     mel-centre axis, one PNG row each. A config the kernels cannot compute
-    (centered, nfft > nperseg, nperseg > 8192) raises NotImplementedError
+    (centered, nperseg > 8192) raises NotImplementedError
     naming its ROADMAP label; an empty band raises ValueError.
     ``cfg.precision == 'fast'`` runs at the contract precision, as the JAX
     package's Pallas kernel does (ROADMAP [ext-modes]).

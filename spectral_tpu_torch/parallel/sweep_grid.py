@@ -9,8 +9,9 @@ its own transform, so the JAX package's window-stacked DFT matrices and
 its Cooley-Tukey engine have no counterpart here. On a CPU tensor each
 config runs the kernel's plain version.
 
-Left out against the JAX package: centered framing and nfft > nperseg
-(ROADMAP [ext-modes]), which raise NotImplementedError.
+Left out against the JAX package: centered framing and nperseg past
+8192 (ROADMAP [ext-modes]), which raise NotImplementedError. A config
+with nfft > nperseg runs on the GEMM kernel.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ def sweep_grid(x, fs: float, configs: Sequence[SpecConfig],
     launch of its route's kernel, whose result is bitwise
     ``power_spectrogram`` of that config. A non-PSD mode raises the JAX
     package's ValueError; a config the kernels cannot compute (centered,
-    nfft > nperseg, nperseg > 8192) raises NotImplementedError naming its
+    nperseg > 8192) raises NotImplementedError naming its
     ROADMAP item, before any work."""
     for cfg in configs:
         if cfg.mode != "psd":

@@ -149,10 +149,12 @@ def test_fft_route_on_the_gui_range():
     assert after <= before
     assert (len(before - after), len(after)) == (3103, 2389)
     for cfg in (SpecConfig.scipy_default(16384),      # past the GUI
-                SpecConfig(nperseg=256, nfft=512),    # unsupported anywhere
                 SpecConfig(nperseg=256, mode="magnitude")):
         with pytest.raises(NotImplementedError):
             stft_cuda.route(cfg)
+    # a zero-padded transform takes the GEMM kernel at every nperseg
+    for k in (256, 1024, 8191):
+        assert stft_cuda.route(SpecConfig(nperseg=k, nfft=2 * k)) == "gemm"
     # the route does not depend on the band or the mel branch
     for k in (24, 256, 8160, 8191, 8185):
         plain = SpecConfig.scipy_default(k)

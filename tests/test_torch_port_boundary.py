@@ -83,6 +83,13 @@ def test_port_imports_and_runs_without_jax():
                 SpecConfig.scipy_default(1024, fmin=0.0, fmax=30.0))
             session_events = session.unsupervised_detect()
             status = session.export_png(os.path.join(tmp, "s.png"))
+            from spectral_tpu_torch import cli
+            from spectral_tpu_torch.utils import memory
+            cli_rc = cli.main(["--cpu", "render", os.path.join(tmp, "rec.wav"),
+                               "-o", os.path.join(tmp, "c.png"),
+                               "--scipy-compat", "--fmin", "0", "--fmax",
+                               "30"])
+            trimmed = memory.maybe_trim_caches(1.0)
         from spectral_tpu_torch.parallel.streaming import scan_spectrogram
         from spectral_tpu_torch.parallel.sweep_grid import (default_grid,
                                                             sweep_grid)
@@ -104,7 +111,8 @@ def test_port_imports_and_runs_without_jax():
                           "events": len(events),
                           "plot": list(plotted.image.shape),
                           "session_events": len(session_events),
-                          "status": status,
+                          "status": status, "cli": cli_rc,
+                          "trimmed": trimmed,
                           "streamed": list(streamed.shape),
                           "grid": [list(g.shape) for g in grid]}))
     """)
@@ -122,11 +130,13 @@ def test_port_imports_and_runs_without_jax():
                  "ops.hmm_cuda", "api.session", "api.export", "io.registry",
                  "io.abf", "io.nix", "native.build", "native.png_native",
                  "render.figure", "render.waveform", "parallel.streaming",
-                 "parallel.sweep_grid", "gui.app", "gui.controller"):
+                 "parallel.sweep_grid", "gui.app", "gui.controller", "cli",
+                 "client", "utils.memory", "utils.metrics", "utils.device"):
         assert f"spectral_tpu_torch.{name}" in report["modules"]
     assert report["events"] >= 1
     assert report["plot"] == [31, 66] and report["session_events"] >= 1
     assert report["status"].startswith("Successfully")
+    assert report["cli"] == 0 and report["trimmed"] is True
     assert report["shapes"] == {"psd": [2, 61, 129], "image": [2, 129, 61],
                                 "rgb_packed": [2, 129, 61], "finite": [2]}
     assert report["finite"] == [True, True]
@@ -316,7 +326,8 @@ def test_chip_smoke_and_port_import_nothing_of_jax():
         assert any(p.startswith(os.path.join(REPO, "spectral_tpu_torch", sub,
                                              "")) for p in paths), sub
     for name in ("parallel/streaming.py", "parallel/sweep_grid.py",
-                 "gui/app.py", "gui/controller.py"):
+                 "gui/app.py", "gui/controller.py", "cli.py", "client.py",
+                 "utils/memory.py", "utils/metrics.py", "utils/device.py"):
         assert os.path.join(REPO, "spectral_tpu_torch", name) in paths
     for path in paths:
         names = _imported_modules(path)

@@ -241,14 +241,17 @@ def test_kernel_supported_keeps_the_semantic_conditions():
           SpecConfig.scipy_default(64), SpecConfig.north_star(256, 64,
                                                               window="hann"),
           SpecConfig.scipy_default(2048), SpecConfig.north_star(8192, 2048),
-          SpecConfig.scipy_default(8192), SpecConfig.north_star(8192, 24)]
+          SpecConfig.scipy_default(8192), SpecConfig.north_star(8192, 24),
+          SpecConfig(nperseg=256, nfft=512)]
     assert all(stft_cuda.kernel_supported(c) for c in ok)
     # the TPU's layout limits (gcd >= 8, the VMEM frame budget) are not
     # the port's: 8192/24 is refused by pallas_supported only
+    assert not stft_pallas.pallas_supported(_jax(ok[-2]))
+    # nfft > nperseg: the JAX package computes it off its kernel, on its
+    # dense matmul route; the port's GEMM kernel takes it
     assert not stft_pallas.pallas_supported(_jax(ok[-1]))
     refused = {
-        r"\[ext-modes\]": [SpecConfig(nperseg=256, nfft=512),
-                   SpecConfig(nperseg=256, mode="magnitude"),
+        r"\[ext-modes\]": [SpecConfig(nperseg=256, mode="magnitude"),
                    SpecConfig(nperseg=256, center=True),
                    SpecConfig.scipy_default(16384)],
     }

@@ -347,23 +347,32 @@ def test_refusals_carry_the_jax_texts():
 
 def test_refusals_of_the_port():
     """What the port leaves to later items: the mesh branch ([multi-
-    device]) and configs the kernels cannot compute ([ext-modes]), on
-    every device, before any work; the single-recording folds refuse a
-    fleet."""
+    device]) and configs the kernels cannot compute ([ext-modes]: here
+    nperseg past 8192), on every device, before any work; the
+    single-recording folds refuse a fleet. A zero-padded transform (nfft
+    > nperseg), refused until the GEMM kernel took it, streams like any
+    other config."""
     x = np.zeros(8192, np.float32)
     cfg = SpecConfig.north_star(256, 64)
     with pytest.raises(NotImplementedError, match=r"\[multi-device\]"):
         st.scan_spectrogram(x, 1000.0, cfg, 1024, mesh=object())
-    padded = SpecConfig.north_star(512, 128, nfft=1024)
-    for entry in (lambda: st.stream_spectrogram(x, 1000.0, padded, 1024,
+    past = SpecConfig.north_star(16384, 4096)
+    for entry in (lambda: st.stream_spectrogram(x, 1000.0, past, 16384,
                                                 device="cpu"),
-                  lambda: st.scan_spectrogram(x, 1000.0, padded, 1024,
+                  lambda: st.scan_spectrogram(x, 1000.0, past, 16384,
                                               device="cpu"),
-                  lambda: st.StreamingSTFT(1000.0, padded, 1024),
-                  lambda: st.stream_features(x, 1000.0, padded, 1024,
+                  lambda: st.StreamingSTFT(1000.0, past, 16384),
+                  lambda: st.stream_features(x, 1000.0, past, 16384,
                                              device="cpu")):
         with pytest.raises(NotImplementedError, match=r"\[ext-modes\]"):
             entry()
+    padded = SpecConfig.north_star(512, 128, nfft=1024)
+    y = np.random.RandomState(2).randn(8192).astype(np.float32)
+    mono = _mono(y, 1000.0, padded)
+    for entry in (st.stream_spectrogram, st.scan_spectrogram):
+        got = entry(y, 1000.0, padded, 1024, device="cpu").numpy()
+        assert got.shape == mono.shape == (61, 513)
+        assert np.abs(got - mono).max() <= CHUNK_REL * np.abs(mono).max()
     for entry in (st.stream_band_powers, st.stream_features):
         with pytest.raises(ValueError, match="one recording"):
             entry(np.zeros((2, 8192), np.float32), 1000.0, cfg, 1024,

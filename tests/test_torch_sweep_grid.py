@@ -120,10 +120,17 @@ def test_sweep_grid_refusals():
     ok = SpecConfig(nperseg=256, hop=64, detrend="none")
     for bad in (SpecConfig(nperseg=256, hop=64, detrend="none",
                            center=True),
-                SpecConfig(nperseg=250, nfft=512, hop=64, detrend="none"),
                 SpecConfig.scipy_default(16384)):
         with pytest.raises(NotImplementedError, match=r"\[ext-modes\]"):
             sg.sweep_grid(x, fs, [ok, bad], device="cpu")
+    # nfft > nperseg, refused until the GEMM kernel took it, is a config
+    # like any other: the same call as power_spectrogram's
+    padded = SpecConfig(nperseg=250, nfft=512, hop=64, detrend="none")
+    y = np.random.RandomState(5).randn(8192).astype(np.float32)
+    got = sg.sweep_grid(y, fs, [ok, padded], device="cpu")
+    assert torch.equal(got[1], power_spectrogram(torch.from_numpy(y), fs,
+                                                 padded))
+    assert got[1].shape[-1] == 257
 
 
 def test_sweep_grid_takes_the_card_by_default(monkeypatch):

@@ -82,11 +82,11 @@ def log_display(p: np.ndarray):
 
 def scipy_psd(x64: np.ndarray, cfg: SpecConfig, fs: float = FS):
     """scipy.signal.spectrogram's (F, T) PSD of a float64 clip at cfg's
-    framing, window and detrend."""
+    framing, window, detrend and transform length (nfft)."""
     from scipy.signal import spectrogram
     _f, _t, sxx = spectrogram(
         x64, fs=fs, window=cfg.window, nperseg=cfg.nperseg,
-        noverlap=cfg.nperseg - cfg.hop_, nfft=cfg.nperseg,
+        noverlap=cfg.nperseg - cfg.hop_, nfft=cfg.nfft_,
         detrend=False if cfg.detrend == "none" else cfg.detrend,
         scaling="density", mode="psd")
     return sxx
