@@ -60,7 +60,7 @@ H3, the chunked E-step, at T 2048, 8192 and 524,288, statistics within
 HMM_STATS_TOL and the log-likelihood within HMM_LL_TOL; a six-state model
 (the instantiation for 5-8 states) through all three at T 3000; with
 each kernel's ptxas registers and spills. Then it drives eighteen paths at
-full size, the GUI and the command line, each
+full size, the GUI, the command line and the extended modes, each
 with the launch counts set to 0 just before it and read just after; each
 call of the pipeline on paths 1-11 and 13 is one launch of the route's
 STFT kernel, one of clip_stats and one of the display map, and on path 12
@@ -170,10 +170,12 @@ the host has no matplotlib, one line that says so; and
     in process and its wall time printed beside theirs: on path 16's hour
     (scipy_default 1024, 0-4000 Hz) ``render --log`` (the PNG bytewise
     ``export_png``'s), ``--mels 128`` (the mel kernel) and ``--nfft 4096``
-    (the GEMM kernel's 128 x 64 tile on 192,857 frames x 2,049 bins, held
-    to its plain version, timed against it, cuFFT's f64 ``rfft(n=4096)``
-    and its bound, and on a 10-minute cut within 1e-3 dB of scipy float64
-    at nfft 4096), ``detect --csv`` (lines and CSV bytes) and ``bands``;
+    (the radix-2 kernel at K = 4096 over the zero-padded frames, 192,857
+    frames x 2,049 bins, held to its plain version within 1 float32 ulp,
+    timed against it, the GEMM kernel's 128 x 64 tile forced, cuFFT's f64
+    ``rfft(n=4096)`` and its bound, and on a 10-minute cut within 1e-3 dB
+    of scipy float64 at nfft 4096), ``detect --csv`` (lines and CSV bytes)
+    and ``bands``;
     ``info`` on the WAV and path 16's ABF file, ``learn --combine`` with
     two ROIs and ``detect --each --batched`` over its sweeps (each
     sweep's events the sequential flow's); ``grid`` over 60 s (bitwise
@@ -186,6 +188,28 @@ the host has no matplotlib, one line that says so; and
     without PyQt5; then ``serve --tcp 0`` in a child process driven by
     ``ServeClient`` (ping, render, detect, detect_batch, render_batch,
     stream_bands, stats, shutdown), each reply the in-process command's.
+
+20. the extended modes (``ext_modes_path``): zero-padded transforms on
+    every FFT family at 1024 clips of 10 s (PADDED_CASES: nperseg 1000 to
+    nfft 1536 on the mixed-radix kernel, 1024 to 2047 on the odd one, 2000
+    to 2049 on the Bluestein one, 24 to 64 on the radix-2 one, 4096 to
+    8190 on the mixed-radix one, 8000 to 8185 on the Bluestein one's
+    cluster of two blocks), each within 1 float32 ulp of its plain
+    version and timed against the GEMM kernel forced, cuFFT and its
+    bound; the magnitude (1 ulp, partials bitwise), the complex STFT (one-
+    and two-sided, the full band and a band, each frame within 2^-22 of
+    its max |X|, mirrored bins bitwise conjugates) and the two-sided PSD
+    (1 ulp) on each of the five routes (MODE_CASES); centered framing
+    (reflect, constant, edge, symmetric, wrap) through
+    ``batched_spectrogram_fn`` on path 1's batch, one STFT kernel,
+    clip_stats and display map a call, the words against the plain path
+    and clip 0 within 1e-3 dB of scipy float64 on the np.pad-padded clip;
+    ``spectrogram`` in magnitude and complex mode and ``stft`` on path
+    16's hour, one radix-2 launch each, against the plain version and, on
+    a 10-minute cut, scipy float64 (complex within 2e-5 of max |X|,
+    magnitude within 1e-3 dB), the magnitude and complex epilogues timed
+    against their plain versions, cuFFT with the same epilogue and their
+    bounds.
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
@@ -310,15 +334,19 @@ def ulp_distance(got, want):
     return int(torch.where(ok, (ordered(got) - ordered(want)).abs(), 0).max())
 
 
-def library_psd(x, cfg, fs=FS):
+def library_psd(x, cfg, fs=FS, out=None):
     """The STFT kernels' library yardstick, never called by the port: the
     same PSD through cuFFT's float64 real transform (the transform
-    ``torch.stft`` runs) of the same frames, zero-padded to nfft, framed
-    with ``unfold`` so the
-    detrend fits (the frame's mean, or its least-squares line), then |X|²
-    times the weights, rounded to float32."""
+    ``torch.stft`` runs; its complex transform for a two-sided spectrum)
+    of the same frames, zero-padded to nfft, framed with ``unfold`` so the
+    detrend fits (the frame's mean, or its least-squares line), then the
+    same epilogue: |X|² times the weights, sqrt(|X|²) times their square
+    roots for out 'magnitude', X times sqrt of the PSD scale for out
+    'complex' (out cfg.mode when None), rounded to float32 (complex64)."""
     import torch
-    from spectral_tpu_torch.core.stft import _window_f64, onesided_weights
+    from spectral_tpu_torch.core.stft import _window_f64
+    from spectral_tpu_torch.ops.stft_cuda import kernel_weights
+    out = out or cfg.mode
     frames = x.double().unfold(-1, cfg.nperseg, cfg.hop_)
     if cfg.detrend in ("constant", "linear"):
         frames = frames - frames.mean(dim=-1, keepdim=True)
@@ -327,11 +355,16 @@ def library_psd(x, cfg, fs=FS):
         t = t - t.mean()
         frames = frames - ((frames @ t) / (t @ t))[..., None] * t
     win = torch.tensor(_window_f64(cfg), dtype=torch.float64, device=x.device)
-    wts = torch.tensor(onesided_weights(cfg, fs), dtype=torch.float64,
+    wts = torch.tensor(kernel_weights(cfg, fs, out), dtype=torch.float64,
                        device=x.device)
-    spec = torch.view_as_real(torch.fft.rfft(frames * win, n=cfg.nfft_,
-                                             dim=-1))
-    return (spec.square().sum(dim=-1) * wts).float()
+    fft = torch.fft.rfft if cfg.onesided else torch.fft.fft
+    spec = fft(frames * win, n=cfg.nfft_, dim=-1)
+    if out == "complex":
+        return (spec * wts).to(torch.complex64)
+    power = torch.view_as_real(spec).square().sum(dim=-1)
+    if out == "magnitude":
+        return (power.sqrt() * wts).float()
+    return (power * wts).float()
 
 
 def word_index_range(words):
@@ -468,13 +501,14 @@ def card_flags(x, lo, hi):
     return got.finite.tolist()
 
 
-def stft_bound(B, n, T, F, K):
+def stft_bound(B, n, T, F, K, out_bytes=4):
     """(bound_ms, bound_by) of the STFT/PSD function, one count for both
-    routes: the signal read once and the PSD and per-clip min and max
-    written once, against a real FFT's 2.5*K*log2(K) operations per frame
-    plus 3 per output bin (the power and its weight) at the card's FP64
-    peak."""
-    bytes_ = B * n * 4 + B * T * F * 4 + 2 * B * 4
+    routes: the signal read once and the PSD (or magnitude; out_bytes 8
+    for the complex STFT) and per-clip min and max written once, against
+    a real FFT's 2.5*K*log2(K) operations per frame plus 3 per output bin
+    (the power and its weight) at the card's FP64 peak, K the transform
+    length (nfft)."""
+    bytes_ = B * n * 4 + B * T * F * out_bytes + 2 * B * 4
     ops = B * T * (2.5 * K * math.log2(K) + 3.0 * F)
     t_mem, t_ops = bytes_ / HBM_RATE, ops / FP64_PEAK
     return (1e3 * max(t_mem, t_ops),
@@ -584,7 +618,8 @@ def build_kernels():
         if ("registers" in line or "spill" in line or "error" in line
                 or "Compiling entry" in line):
             print("  " + line.strip())
-    print("radix-2 kernel (stft_fft_psd_kernel<LOG2M, LR>), ptxas: "
+    print("radix-2 kernel (stft_fft_psd_kernel<LOG2M, LR, EXT>; EXT the "
+          "zero-padded load or another output than the PSD), ptxas: "
           + "; ".join(radix2_ptxas(info["log"])))
     print("mixed-radix kernel (stft_mixed_fft_psd_kernel<RMAX>), ptxas: "
           + "; ".join(mixed_ptxas(info["log"])))
@@ -598,13 +633,16 @@ def build_kernels():
     print("GEMM kernel (stft_psd_kernel, 128 x 64 tile; "
           "stft_psd_small_kernel, nperseg 2-31), ptxas: "
           + "; ".join(radix2_ptxas(
-              info["log"], r"stft_psd_(small_kernelILi(\d)E|kernelE)",
-              lambda e: f"small-K tile<NB {e.group(2)}>" if e.group(2)
-              else "large tile")))
-    print("Bluestein kernel (stft_bluestein_psd_kernel<RANKS, TWO>), ptxas: "
-          + "; ".join(radix2_ptxas(
-              info["log"], r"stft_bluestein_psd_kernelILi(\d)ELb(\d)E",
-              lambda e: f"RANKS {e.group(1)}, TWO {e.group(2)}")))
+              info["log"], r"stft_psd_(small_kernelILi(\d)ELb(\d)E|kernelE)",
+              lambda e: (f"small-K tile<NB {e.group(2)}"
+                         f"{', EXT' if e.group(3) == '1' else ''}>")
+              if e.group(2) else "large tile")))
+    print("Bluestein kernel (stft_bluestein_psd_kernel<RANKS, TWO, EXT>), "
+          "ptxas: " + "; ".join(radix2_ptxas(
+              info["log"],
+              r"stft_bluestein_psd_kernelILi(\d)ELb(\d)ELb(\d)E",
+              lambda e: f"RANKS {e.group(1)}, TWO {e.group(2)}"
+                        f"{', EXT' if e.group(3) == '1' else ''}")))
     build.load_library("stft_psd")
 
 
@@ -615,9 +653,10 @@ def mixed_ptxas(log):
                         lambda e: f"RMAX {e.group(1)}")
 
 
-def radix2_ptxas(log, pattern=r"stft_fft_psd_kernelILi(\d+)ELi(\d+)E",
+def radix2_ptxas(log, pattern=r"stft_fft_psd_kernelILi(\d+)ELi(\d+)ELb(\d)E",
                  label=lambda e: f"LOG2M {e.group(1)}, "
-                 f"{2 ** int(e.group(2))} values"):
+                 f"{2 ** int(e.group(2))} values"
+                 f"{', EXT' if e.group(3) == '1' else ''}"):
     """The registers and spills of each radix-2 instantiation (or of the
     entries ``pattern`` matches) in nvcc's -Xptxas -v log, as "LOG2M m, v
     values: r registers, s bytes spilled"."""
@@ -4025,7 +4064,8 @@ def gui_phase(dev, card="the CPU"):
 CLI_CLIPS = 64          # export-specs and render_batch: one batch of clips
 CLI_CLIP_FS = 16000.0
 CLI_GRID_SECONDS = 60.0
-CLI_NFFT = 4096         # render --nfft: the GEMM kernel, zero-padded frames
+CLI_NFFT = 4096         # render --nfft: the radix-2 kernel at K = 4096 over
+                        # nperseg 1024 zero-padded, the GEMM kernel forced
 
 
 def _sync(dev):
@@ -4104,7 +4144,8 @@ def cli_path(dev, card):
     its wall time beside theirs; then one ``serve --tcp 0`` child driven
     by ``ServeClient``, its replies held to the commands'. Path 16's hour
     (scipy_default 1024, 0-4000 Hz) carries render (--log, --mels 128,
-    --nfft 4096: the GEMM kernel, timed against its plain version, cuFFT
+    --nfft 4096: the radix-2 kernel at K = 4096 over the zero-padded
+    frames, timed against the GEMM kernel forced, its plain version, cuFFT
     and its bound, held to scipy float64 on a 10-minute cut), detect --csv
     and bands; path 16's ABF file learn and detect --each --batched; a
     60 s clip the grid; a 10-minute cut stream (npz, --scan png, --bands,
@@ -4190,7 +4231,7 @@ def cli_path(dev, card):
             (f"render --nfft {CLI_NFFT} --log",
              ["--nfft", str(CLI_NFFT), "--log"],
              dataclasses.replace(cfg_log, nfft=CLI_NFFT),
-             {"stft_gemm": 1})):
+             {"stft_fft": 1})):
         key = label.replace(" ", "_").replace("-", "")
         png_cli = os.path.join(tmp, f"cli_{key}.png")
         png_lib = os.path.join(tmp, f"lib_{key}.png")
@@ -4206,44 +4247,58 @@ def cli_path(dev, card):
         print(f"{label}: exit 0, the PNG ({len(read_bytes(png_cli))} bytes) "
               f"bytewise AnalysisSession.export_png's; launches {flat}")
 
-    # the nfft case at full width: the GEMM kernel against its plain
-    # version, cuFFT and its bound; a 10-minute cut against scipy float64
+    # the nfft case at full width: the radix-2 kernel at K = 4096 (the
+    # render's route, its launch counted above) against its plain version,
+    # the GEMM kernel's 128 x 64 tile forced, cuFFT and its bound; a
+    # 10-minute cut against scipy float64
     s_n = renders[f"render --nfft {CLI_NFFT} --log"][0]
     cfg_n = dataclasses.replace(cfg, nfft=CLI_NFFT)
-    require(stft_cuda.route(cfg_n) == "gemm", "nfft route")
+    require(stft_cuda.route(cfg_n) == "fft", "nfft route")
     x = torch.as_tensor(s_n.spec_data_source, device=dev)[None]
     n = x.shape[-1]
     T = (n - 1024) // cfg_n.hop_ + 1
     F = cfg_n.n_freqs
-    nfft_row = None
+    nfft_row = gemm_row = None
     if on_card:
-        reset_counts()
-        got = stft_cuda.stft_psd(x, fs, cfg_n)
-        require_counts(read_counts(), {"stft_gemm": 1}, "nfft GEMM launch")
         want = stft_cuda.stft_psd_reference(
             x, stft_cuda.dft_constants(cfg_n, fs, dev), cfg_n)
-        rel, abs_ = psd_err(got, want)
-        ulps = ulp_distance(got, want)
-        require(got.shape == (1, T, F) and rel <= PSD_TOL
-                and torch.equal(torch.isfinite(got), torch.isfinite(want)),
-                f"nfft GEMM vs plain: {rel:.2e}")
-        del got, want
+        errs = {}
+        for route, key in (("fft", "stft_fft"), ("gemm", "stft_gemm")):
+            reset_counts()
+            got = stft_cuda.stft_psd(x, fs, cfg_n, _route=route)
+            require_counts(read_counts(), {key: 1}, f"nfft {route} launch")
+            rel, abs_ = psd_err(got, want)
+            ulps = ulp_distance(got, want)
+            require(got.shape == (1, T, F) and rel <= PSD_TOL and ulps <= 1
+                    and torch.equal(torch.isfinite(got),
+                                    torch.isfinite(want)),
+                    f"nfft {route} vs plain: {rel:.2e}, {ulps} ulps")
+            errs[route] = (rel, abs_, ulps)
+            del got
+        del want
         k_ms = time_ms(lambda: stft_cuda.stft_psd(x, fs, cfg_n))[0]
+        g_ms = time_ms(lambda: stft_cuda.stft_psd(x, fs, cfg_n,
+                                                  _route="gemm"))[0]
         p_ms = time_ms(lambda: stft_cuda.stft_psd_reference(
             x, stft_cuda.dft_constants(cfg_n, fs, dev), cfg_n))[0]
         lib_ms = time_ms(lambda: library_psd(x, cfg_n, fs))[0]
         bound = stft_bound(1, n, T, F, CLI_NFFT)
         dense = dense_dft_bound_ms(1, T, F, 1024)
         torch.cuda.empty_cache()
-        nfft_row = {"launches": 1, "err": abs_, "ms": k_ms, "plain_ms": p_ms,
-                    "bound": bound, "library_ms": lib_ms}
-        print(f"nfft {CLI_NFFT} at nperseg 1024 on the GEMM kernel's 128 x 64 "
-              f"tile: {T} frames x {F} bins; vs the plain float64 dense DFT "
-              f"max rel {rel:.2e} ({abs_:.2e} abs, {ulps} float32 ulps); "
-              f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, cuFFT f64 "
-              f"rfft(n={CLI_NFFT}) then |X|^2 w {lib_ms:.3f} ms, bound "
-              f"{bound[0]:.3f} ms ({bound[1]}; the dense design's FP64 "
-              f"ceiling {dense:.3f} ms) [{card}]")
+        nfft_row = {"launches": 1, "err": errs["fft"][1], "ms": k_ms,
+                    "plain_ms": p_ms, "bound": bound, "library_ms": lib_ms}
+        gemm_row = {"launches": 1, "err": errs["gemm"][1], "ms": g_ms,
+                    "plain_ms": p_ms, "bound": bound, "library_ms": lib_ms}
+        print(f"nfft {CLI_NFFT} at nperseg 1024, {T} frames x {F} bins: the "
+              f"radix-2 kernel at K = {CLI_NFFT} over the zero-padded "
+              f"frames vs the plain float64 dense DFT max rel "
+              f"{errs['fft'][0]:.2e} ({errs['fft'][1]:.2e} abs, "
+              f"{errs['fft'][2]} float32 ulps), the GEMM kernel's 128 x 64 "
+              f"tile forced {errs['gemm'][0]:.2e} ({errs['gemm'][2]} ulps); "
+              f"radix-2 {k_ms:.3f} ms, GEMM forced {g_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, cuFFT f64 rfft(n={CLI_NFFT}) then |X|^2 w "
+              f"{lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}; the "
+              f"dense design's FP64 ceiling {dense:.3f} ms) [{card}]")
     cut = int(fs * SESSION_CUT_SECONDS)
     xc = x[:, :cut].contiguous()
     f_n = freq_axis(cfg_n, fs)
@@ -4622,14 +4677,305 @@ def cli_path(dev, card):
         "serve_tcp_s": tcp, "card": card}))
     out_rows = {"cli_rows": rows}
     if nfft_row is not None:
-        out_rows["stft_gemm_nfft"] = nfft_row
+        out_rows["stft_nfft"] = nfft_row
+        out_rows["stft_gemm_nfft"] = gemm_row
     return out_rows
+
+
+# path 20: the extended modes. Zero-padded transforms on every FFT family
+# at 1024 clips of 10 s: (nperseg, nfft, route)
+PADDED_CASES = ((1000, 1536, "mixed"), (1024, 2047, "odd"),
+                (2000, 2049, "bluestein"), (24, 64, "fft"),
+                (4096, 8190, "mixed"), (8000, 8185, "bluestein"))
+# the output modes on each of the five routes (nfft == nperseg for the
+# radix-2 and GEMM ones; the Bluestein kernel's pair and split epilogues)
+MODE_CASES = ((1024, 1024, "fft"), (1000, 1536, "mixed"),
+              (1024, 2047, "odd"), (2000, 2049, "bluestein"),
+              (1100, 1126, "bluestein"), (24, 24, "gemm"))
+MODE_CLIPS = 256
+CENTER_PAD_MODES = ("reflect", "constant", "edge", "symmetric", "wrap")
+COMPLEX_TOL = 2.0 ** -22    # a frame's complex error over its max |X|
+CUT_REL = 2e-5              # the complex STFT against scipy, of max |X|
+
+
+def frame_err(got, want):
+    """The complex outputs' largest error over each frame's largest |X|
+    (a frame of zeros must come out zeros), and the frames past
+    COMPLEX_TOL."""
+    import torch
+    d = (got - want).abs().amax(dim=-1)
+    s = want.abs().amax(dim=-1)
+    over = torch.where(s > 0, d > COMPLEX_TOL * s, d > 0)
+    return float((d / s.clamp_min(1e-300)).amax()), int(over.sum())
+
+
+def mirrored(z, K):
+    """Whether a two-sided (..., K) complex spectrum's bins past K/2 are the
+    conjugates of their mirrors bit for bit."""
+    import torch
+    f = torch.arange(1, (K + 1) // 2, device=z.device)
+    return torch.equal(z[..., K - f], z[..., f].conj().resolve_conj())
+
+
+def ext_modes_path(dev, card):
+    """Path 20, the extended modes at full width, each launch counted
+    (reset before, read after) and held to its plain version on the card:
+    zero-padded transforms on every FFT family (PADDED_CASES, 1024 clips of
+    10 s: the PSD within 1 float32 ulp, timed against the GEMM kernel
+    forced, cuFFT and the bound); the magnitude (1 ulp, with its partials),
+    the complex STFT (one- and two-sided, the full band and a band: each
+    frame within COMPLEX_TOL of its max |X|, two-sided bins the conjugates
+    of their mirrors bitwise) and the two-sided PSD (1 ulp) on each of the
+    five routes (MODE_CASES, MODE_CLIPS clips); centered framing in five
+    pad modes through ``batched_spectrogram_fn`` on path 1's batch (words
+    against the plain path, the display against scipy float64 on the
+    np.pad-padded signal); ``spectrogram`` in magnitude and complex mode
+    and ``stft`` on path 16's hour (timed: the magnitude and complex rows)
+    against scipy float64 on a 10-minute cut."""
+    import dataclasses
+    import numpy as np
+    import scipy.signal
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core import stft as tstft
+    from spectral_tpu_torch.io.wav import read_wav
+    from spectral_tpu_torch.ops import display_cuda as disp
+    from spectral_tpu_torch.ops import stft_cuda
+    from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
+    from torch_precision import log_display
+
+    t_path = time.perf_counter()
+    n = int(FS * CLIP_SECONDS)
+    rows = {}
+    phase(f"path 20, the extended modes: zero-padded transforms on {BATCH} "
+          f"clips x {CLIP_SECONDS:g} s at {FS:g} Hz [{card}]")
+    x = torch.randn((BATCH, n), generator=torch.Generator(
+        device=dev).manual_seed(20), device=dev)
+
+    def launch(fn, key, what):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        require_counts(read_counts(), {key: 1}, what)
+        return out
+
+    for k, nfft, route in PADDED_CASES:
+        cfg = dataclasses.replace(SpecConfig.scipy_default(k), nfft=nfft)
+        require(stft_cuda.route(cfg) == route, f"{k}/{nfft}: route")
+        got = launch(lambda: stft_cuda.stft_psd(x, FS, cfg), f"stft_{route}",
+                     f"nperseg {k}, nfft {nfft}")
+        want = stft_cuda.stft_psd_reference(
+            x, stft_cuda.dft_constants(cfg, FS, dev), cfg)
+        rel, abs_ = psd_err(got, want)
+        ulps = ulp_distance(got, want)
+        require(rel <= PSD_TOL and ulps <= 1 and torch.equal(
+            torch.isfinite(got), torch.isfinite(want)),
+            f"nperseg {k}, nfft {nfft} [{route}] vs plain: {rel:.2e}, "
+            f"{ulps} ulps")
+        del got, want
+        T, F = tstft.num_frames(n, k, cfg.hop_), cfg.n_freqs
+        k_ms = time_ms(lambda: stft_cuda.stft_psd(x, FS, cfg))[0]
+        g_ms = time_ms(lambda: stft_cuda.stft_psd(x, FS, cfg,
+                                                  _route="gemm"))[0]
+        lib_ms = time_ms(lambda: library_psd(x, cfg))[0]
+        bound = stft_bound(BATCH, n, T, F, nfft)
+        torch.cuda.empty_cache()
+        print(f"nperseg {k} zero-padded to nfft {nfft} [{route}], {T} frames "
+              f"x {F} bins a clip: vs plain {rel:.2e} of the clip max "
+              f"({ulps} float32 ulps); kernel {k_ms:.3f} ms, GEMM forced "
+              f"{g_ms:.3f} ms, cuFFT f64 {lib_ms:.3f} ms, bound "
+              f"{bound[0]:.3f} ms ({bound[1]}) [{card}]")
+    del x
+    torch.cuda.empty_cache()
+
+    phase(f"path 20: magnitude, the complex STFT and two-sided spectra on "
+          f"each route, {MODE_CLIPS} clips x {CLIP_SECONDS:g} s")
+    xm = torch.randn((MODE_CLIPS, n), generator=torch.Generator(
+        device=dev).manual_seed(21), device=dev) + 0.5
+    for k, nfft, route in MODE_CASES:
+        base = dataclasses.replace(SpecConfig.scipy_default(k), nfft=nfft)
+        key = f"stft_{route}"
+        # magnitude, with its partials
+        mag = dataclasses.replace(base, mode="magnitude")
+        got, parts = launch(lambda: stft_cuda.stft_psd_partials(xm, FS, mag),
+                            key, f"{k}/{nfft} magnitude")
+        want = stft_cuda.stft_psd_reference(
+            xm, stft_cuda.dft_constants(mag, FS, dev), mag)
+        m_ulps = ulp_distance(got, want)
+        require(m_ulps <= 1 and bitwise(parts[0, 0], got.amin(-1))
+                and bitwise(parts[1, 0], got.amax(-1)),
+                f"{k}/{nfft} magnitude: {m_ulps} ulps, partials")
+        del got, want, parts
+        # the two-sided PSD
+        two = dataclasses.replace(base, onesided=False)
+        got = launch(lambda: stft_cuda.stft_psd(xm, FS, two), key,
+                     f"{k}/{nfft} two-sided PSD")
+        want = stft_cuda.stft_psd_reference(
+            xm, stft_cuda.dft_constants(two, FS, dev), two)
+        t_ulps = ulp_distance(got, want)
+        require(t_ulps <= 1 and got.shape[-1] == nfft,
+                f"{k}/{nfft} two-sided PSD: {t_ulps} ulps")
+        del got, want
+        # the complex STFT, one- and two-sided, full band and a band
+        worst = 0.0
+        for c in (base, two):
+            F = c.n_freqs
+            for band in (None, (F // 5, F // 2)):
+                got = launch(lambda: stft_cuda.stft_complex(xm, FS, c, band),
+                             key, f"{k}/{nfft} complex")
+                want = stft_cuda.stft_complex_reference(
+                    xm, stft_cuda.dft_constants(c, FS, dev, band, "complex"),
+                    c)
+                err, over = frame_err(got, want)
+                require(got.dtype == torch.complex64 and over == 0,
+                        f"{k}/{nfft} complex, onesided {c.onesided}, band "
+                        f"{band}: {over} frames past {COMPLEX_TOL:.2e} "
+                        f"({err:.2e})")
+                if band is None and not c.onesided:
+                    require(mirrored(got, nfft),
+                            f"{k}/{nfft}: two-sided bins not the conjugates "
+                            "of their mirrors")
+                worst = max(worst, err)
+                del got, want
+        print(f"nperseg {k}, nfft {nfft} [{route}]: magnitude {m_ulps} ulps "
+              f"(partials bitwise), two-sided PSD {t_ulps} ulps, complex "
+              f"(one- and two-sided, full band and a band) {worst:.2e} of "
+              f"each frame's max |X|, mirrored bins bitwise conjugates")
+    del xm
+    torch.cuda.empty_cache()
+
+    phase(f"path 20: centered framing through batched_spectrogram_fn on "
+          f"path 1's batch, north_star 1024/256, pad modes "
+          f"{', '.join(CENTER_PAD_MODES)}")
+    x_host = np.random.RandomState(0).randn(BATCH, n).astype(np.float32)
+    x = torch.from_numpy(x_host).to(dev)
+    for mode in CENTER_PAD_MODES:
+        cfg = SpecConfig.north_star(1024, 256, log_scale=True, center=True,
+                                    pad_mode=mode)
+        fn = batched_spectrogram_fn(FS, cfg, flip_image=True)
+        reset_counts()
+        out = fn(x)
+        torch.cuda.synchronize()
+        require_one_call(read_counts(), "fft", 1, f"centered {mode}")
+        T = tstft.num_frames(n + 1024, 1024, 256)
+        require(tuple(out["psd"].shape) == (BATCH, T, cfg.n_freqs)
+                and bool(out["finite"].all()), f"centered {mode}: shapes")
+        xp = tstft.center_pad(x[:8], cfg)
+        psd_p, pmin_p, pmax_p = stft_cuda.stft_psd_reference(
+            xp, stft_cuda.dft_constants(cfg, FS, dev), cfg, with_stats=True)
+        ulps = ulp_distance(out["psd"][:8], psd_p)
+        _, rgb_p = disp.display_map_reference(
+            psd_p, disp.clip_params(pmin_p, pmax_p), log_scale=True,
+            flip_image=True)
+        same = check_words(out["rgb_packed"][:8], rgb_p,
+                           f"centered {mode}, 8 clips")
+        x64 = np.pad(x_host[0].astype(np.float64), 512, mode=mode)
+        db = db_error_vs_scipy(out["image"][0].flip(0).cpu().numpy(), x64,
+                               dataclasses.replace(cfg, center=False))
+        require(ulps <= 1 and db <= DB_TOL,
+                f"centered {mode}: {ulps} ulps, {db:.2e} dB")
+        print(f"center, pad_mode {mode}: {T} frames; psd of 8 clips {ulps} "
+              f"ulps from the plain path, words {same:.6f} identical; clip "
+              f"0 vs scipy float64 on np.pad(mode={mode!r}): {db:.2e} dB")
+        del out, psd_p, rgb_p
+    del x
+    torch.cuda.empty_cache()
+
+    fs = SESSION_FS
+    wav, _plans, _ = session_wav(dev)
+    sig, _ = read_wav(wav)
+    xh = torch.as_tensor(np.ascontiguousarray(sig, np.float32), device=dev)
+    phase(f"path 20: spectrogram(mode=...) and stft on path 16's "
+          f"{SESSION_SECONDS:g} s at {fs:g} Hz, scipy_default 1024 [{card}]")
+    base = SpecConfig.scipy_default(1024)
+    N = xh.shape[-1]
+    T, F = tstft.num_frames(N, 1024, base.hop_), base.n_freqs
+    cut = int(fs * SESSION_CUT_SECONDS)
+    x64 = sig[:cut].astype(np.float64)
+    for mode in ("magnitude", "complex"):
+        cfg = dataclasses.replace(base, mode=mode)
+        reset_counts()
+        f, t, sxx = tstft.spectrogram(xh, fs, cfg)
+        torch.cuda.synchronize()
+        require_counts(read_counts(), {"stft_fft": 1},
+                       f"spectrogram(mode={mode!r})")
+        require(tuple(sxx.shape) == (F, T) and t.size == T,
+                f"{mode}: shape {tuple(sxx.shape)}")
+        fr = sxx.T[None]
+        if mode == "complex":
+            want = stft_cuda.stft_complex_reference(
+                xh[None], stft_cuda.dft_constants(cfg, fs, dev), cfg)
+            err, over = frame_err(fr, want)
+            require(over == 0, f"hour complex: {over} frames ({err:.2e})")
+            k_fn = lambda: stft_cuda.stft_complex(xh[None], fs, cfg)  # noqa
+            p_fn = lambda: stft_cuda.stft_complex_reference(  # noqa
+                xh[None], stft_cuda.dft_constants(cfg, fs, dev), cfg)
+            acc = f"{err:.2e} of each frame's max |X|"
+        else:
+            want = stft_cuda.stft_psd_reference(
+                xh[None], stft_cuda.dft_constants(cfg, fs, dev), cfg)
+            ulps = ulp_distance(fr, want)
+            require(ulps <= 1, f"hour magnitude: {ulps} ulps")
+            k_fn = lambda: stft_cuda.stft_psd(xh[None], fs, cfg)  # noqa
+            p_fn = lambda: stft_cuda.stft_psd_reference(  # noqa
+                xh[None], stft_cuda.dft_constants(cfg, fs, dev), cfg)
+            acc = f"{ulps} float32 ulps"
+        abs_ = float((fr - want).abs().amax())
+        del want
+        ref = scipy.signal.spectrogram(
+            x64, fs=fs, window=cfg.window, nperseg=1024,
+            noverlap=1024 - cfg.hop_, detrend="constant", scaling="density",
+            mode=mode)[2]
+        got_cut = sxx[:, :ref.shape[1]].cpu().numpy()
+        if mode == "complex":
+            c_rel = float(np.abs(got_cut - ref).max() / np.abs(ref).max())
+            require(c_rel <= CUT_REL, f"hour complex vs scipy: {c_rel:.2e}")
+            vs = f"{c_rel:.2e} of max |X|"
+        else:
+            img, _ = log_display(got_cut ** 2)
+            oracle, rng_db = log_display(ref ** 2)
+            db = float(np.max(np.abs(img - oracle)) * rng_db)
+            require(db <= DB_TOL, f"hour magnitude vs scipy: {db:.2e} dB")
+            vs = f"{db:.2e} dB on the magnitude squared"
+        del sxx, fr
+        k_ms = time_ms(k_fn)[0]
+        p_ms = time_ms(p_fn)[0]
+        lib_ms = time_ms(lambda: library_psd(xh[None], cfg, fs))[0]
+        bound = stft_bound(1, N, T, F, 1024,
+                           out_bytes=8 if mode == "complex" else 4)
+        rows[f"stft_{mode}"] = {"launches": 1, "err": abs_, "ms": k_ms,
+                                "plain_ms": p_ms, "bound": bound,
+                                "library_ms": lib_ms}
+        torch.cuda.empty_cache()
+        print(f"spectrogram(mode={mode!r}) on the hour, {T} frames x {F} "
+              f"bins: vs plain {acc}; the {SESSION_CUT_SECONDS:g} s cut vs "
+              f"scipy float64 {vs}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} "
+              f"ms, cuFFT f64 with the same epilogue {lib_ms:.3f} ms, bound "
+              f"{bound[0]:.3f} ms ({bound[1]}) [{card}]")
+    reset_counts()
+    z = tstft.stft(xh, base)
+    torch.cuda.synchronize()
+    require_counts(read_counts(), {"stft_fft": 1}, "stft")
+    ref = scipy.signal.stft(x64, fs=fs, window=base.window, nperseg=1024,
+                            noverlap=1024 - base.hop_, detrend="constant",
+                            boundary=None, padded=False, scaling="spectrum"
+                            )[2] * np.sum(tstft._window_f64(base))
+    got_cut = z[:ref.shape[1]].T.cpu().numpy()
+    s_rel = float(np.abs(got_cut - ref).max() / np.abs(ref).max())
+    require(z.dtype == torch.complex64 and tuple(z.shape) == (T, F)
+            and s_rel <= CUT_REL, f"stft vs scipy: {s_rel:.2e}")
+    print(f"stft on the hour: complex64 ({T}, {F}); the cut vs scipy "
+          f"float64 (unscaled) {s_rel:.2e} of max |X|")
+    del xh, z
+    torch.cuda.empty_cache()
+    print(f"path 20 took {time.perf_counter() - t_path:.1f} s")
+    return rows
 
 
 PHASES = ("kernels", "tail", "dc", "scipy", "band", "mel", "path1", "path2",
           "path3", "path4", "path5", "path6", "path7", "path8", "path9",
           "path10", "path11", "path12", "path13", "hmm", "path14", "path15",
-          "path16", "path17", "path18", "gui", "path19")
+          "path16", "path17", "path18", "gui", "path19", "path20")
 
 
 def main(_phases=None):
@@ -4749,6 +5095,9 @@ def main(_phases=None):
     if "path19" in phases:
         rows.update(cli_path(dev, card))
         torch.cuda.empty_cache()
+    if "path20" in phases:
+        rows.update(ext_modes_path(dev, card))
+        torch.cuda.empty_cache()
     if _phases is not None:
         print(f"chip_smoke phases {sorted(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -4772,9 +5121,12 @@ def main(_phases=None):
           f"{rows['hmm_estep_chunked']['launches']}, chunked Viterbi "
           f"{rows['hmm_viterbi_chunked']['launches']}; path 16 (the session) "
           f"{rows['session_launches']}; the FFT kernel streamed: path 17 "
-          f"{rows['stft_stream']['launches']}; the GEMM kernel at nfft "
-          f"{CLI_NFFT}: path 19 {rows['stft_gemm_nfft']['launches']}; the "
-          f"commands of path 19: "
+          f"{rows['stft_stream']['launches']}; the radix-2 kernel at nfft "
+          f"{CLI_NFFT} over nperseg 1024: path 19 "
+          f"{rows['stft_nfft']['launches']} (the GEMM kernel forced "
+          f"{rows['stft_gemm_nfft']['launches']}); the magnitude and complex "
+          f"epilogues: path 20 {rows['stft_magnitude']['launches']}, "
+          f"{rows['stft_complex']['launches']}; the commands of path 19: "
           + "; ".join(f"{name} {flat}" for name, _, _, flat in
                       rows["cli_rows"]))
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
@@ -4820,9 +5172,23 @@ def main(_phases=None):
         "stft_band": ("stft_fft_psd<LOG2M 9, 8 values>, nperseg 1024, the "
                       "band 0-30 Hz, 31 of 513 bins (path 13)", "cuda", src,
                       "spectral_tpu/ops/stft_pallas.py:217"),
+        "stft_nfft": (
+            f"stft_fft_psd<LOG2M 11, 16 values, EXT>, nperseg 1024 "
+            f"zero-padded to nfft {CLI_NFFT} (path 19, render --nfft)",
+            "cuda", src,
+            "spectral_tpu/ops/stft_pallas.py:217"),
         "stft_gemm_nfft": (
-            f"stft_psd GEMM, 128 x 64 tile, nperseg 1024 zero-padded to "
-            f"nfft {CLI_NFFT} (path 19, render --nfft)", "cuda", src,
+            f"stft_psd GEMM, 128 x 64 tile forced, nperseg 1024 zero-padded "
+            f"to nfft {CLI_NFFT} (path 19, render --nfft's config)", "cuda",
+            src, "spectral_tpu/ops/stft_pallas.py:217"),
+        "stft_magnitude": (
+            "stft_fft_psd<LOG2M 9, 8 values, EXT>, the magnitude epilogue, "
+            "scipy_default 1024 on the hour (path 20)", "cuda", src,
+            "spectral_tpu/ops/stft_pallas.py:217"),
+        "stft_complex": (
+            "stft_fft_psd<LOG2M 9, 8 values, EXT>, the complex STFT "
+            "epilogue, "
+            "scipy_default 1024 on the hour (path 20)", "cuda", src,
             "spectral_tpu/ops/stft_pallas.py:217"),
         "stft_stream": ("stft_fft_psd<LOG2M 9, 8 values>, nperseg 1024, a "
                         "streamed block of the stereo hour, [carry | block] "

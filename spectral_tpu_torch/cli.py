@@ -449,9 +449,8 @@ def _make_serve_loop(*, max_sessions: int = 16,
       RSS); {"cmd": "shutdown"} -> exit 0.
     Response: one JSON object per line: {"ok": true, ...result} or
       {"ok": false, "error": "..."}; errors never kill the worker. A
-      config the kernels cannot compute (centered, the magnitude and
-      complex modes, nperseg past 8192) answers ok: false naming ROADMAP
-      [ext-modes].
+      config the kernels cannot compute (nperseg past 8192) answers ok:
+      false naming ROADMAP [large-nperseg].
 
     Robustness guards (each surfaces as an error response, never a crash):
       * sessions are cached per file-set with LRU eviction at

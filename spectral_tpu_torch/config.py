@@ -62,7 +62,7 @@ class SpecConfig:
     # Precision tier: 'accurate' (the 1e-3 dB display contract) or 'fast'
     # (a display-only tier). The port runs both at the contract precision,
     # as the JAX package's Pallas kernel does, until the fast tier lands
-    # (ROADMAP [ext-modes]).
+    # (ROADMAP [fast-tier]).
     precision: str = "accurate"
 
     def __post_init__(self):

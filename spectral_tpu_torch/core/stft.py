@@ -16,11 +16,11 @@ works around the TPU compiler and has no counterpart here.
 
 What this module computes on a CPU tensor is the plain version of the CUDA
 STFT/PSD kernel (``spectral_tpu_torch.ops.stft_cuda``); on a CUDA tensor
-its PSD entry points launch that kernel. The reference-parity entry point
-:func:`spectrogram` and the band mask (:func:`band_row_slice`,
-:func:`mask_band_rows`, :func:`effective_config`) are the JAX package's.
-The centered framing and the non-PSD modes raise until their ROADMAP
-item.
+its PSD and STFT entry points launch that kernel. The reference-parity
+entry point :func:`spectrogram` (the PSD, magnitude and complex modes),
+the complex STFT :func:`stft`, the centered framing (:func:`center_pad`)
+and the band mask (:func:`band_row_slice`, :func:`mask_band_rows`,
+:func:`effective_config`) are the JAX package's.
 """
 
 from __future__ import annotations
@@ -77,6 +77,64 @@ def frame_signal(x, nperseg: int, hop: int) -> torch.Tensor:
     if num_frames(x.shape[-1], nperseg, hop) <= 0:
         return x.new_zeros(x.shape[:-1] + (0, nperseg))
     return x.unfold(-1, nperseg, hop)
+
+
+# jnp.pad's modes whose pad repeats samples: np.pad of the sample indices
+# gives each padded sample's source, as jnp.pad repeats them, a pad longer
+# than the signal included
+_INDEX_PAD_MODES = ("reflect", "symmetric", "edge", "wrap")
+_STAT_PAD_MODES = ("mean", "maximum", "minimum", "median")
+
+
+def center_pad(x: torch.Tensor, cfg: SpecConfig) -> torch.Tensor:
+    """The JAX package's centered framing pad (``_prep_frames``): with
+    cfg.center, nperseg // 2 samples on each side of the last axis as
+    ``jnp.pad(mode=cfg.pad_mode)`` pads them, on x's device; else x.
+
+    reflect, symmetric, edge and wrap gather the pads through the index
+    map ``np.pad(np.arange(n), p, mode)`` built on the host (from the
+    signal's first and last p + 1 indices when n > 2p + 1, which is all
+    a pad then reads, so an hour's map is not built); constant (and
+    empty, which jnp.pad fills with zeros) zeros; mean, maximum, minimum
+    and median the row's statistic; linear_ramp a ramp from 0 to the edge
+    sample. Another mode raises jnp.pad's NotImplementedError."""
+    if not cfg.center:
+        return x
+    p = cfg.nperseg // 2
+    mode = cfg.pad_mode
+    n = x.shape[-1]
+    if mode in ("constant", "empty"):
+        return torch.nn.functional.pad(x, (p, p))
+    if mode not in _INDEX_PAD_MODES + _STAT_PAD_MODES + ("linear_ramp",):
+        raise NotImplementedError(
+            f"Unimplemented padding mode '{mode}' for np.pad.")
+    if n == 0:
+        raise ValueError(f"Cannot apply '{mode}' padding to empty axis")
+    if mode in _INDEX_PAD_MODES:
+        if n <= 2 * p + 1:
+            idx = np.pad(np.arange(n), p, mode=mode)
+            return x.index_select(-1, torch.as_tensor(idx, device=x.device))
+        if mode == "wrap":
+            left, right = np.arange(n - p, n), np.arange(p)
+        else:
+            left = np.pad(np.arange(p + 1), (p, 0), mode=mode)[:p]
+            right = np.pad(np.arange(n - p - 1, n), (0, p), mode=mode)[p + 1:]
+        pads = x.index_select(-1, torch.as_tensor(
+            np.concatenate([left, right]), device=x.device))
+        return torch.cat([pads[..., :p], x, pads[..., p:]], dim=-1)
+    if mode == "linear_ramp":
+        ramp = torch.arange(p, dtype=torch.float64, device=x.device) / p
+        left = (x[..., :1].double() * ramp).to(x.dtype)
+        right = (x[..., -1:].double() * ramp.flip(0)).to(x.dtype)
+        return torch.cat([left, x, right], dim=-1)
+    if mode == "median":
+        s = x.sort(dim=-1).values
+        v = (s[..., (n - 1) // 2] + s[..., n // 2]) / 2
+    else:
+        v = {"mean": torch.mean, "maximum": torch.amax,
+             "minimum": torch.amin}[mode](x, dim=-1)
+    side = v[..., None].expand(x.shape[:-1] + (p,))
+    return torch.cat([side, x, side], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -510,12 +568,11 @@ def dense_power(frames: torch.Tensor, a_re: torch.Tensor,
     return (xr * xr + xi * xi) * wts
 
 
-def _require_dense_psd(cfg: SpecConfig) -> None:
-    if cfg.center or cfg.mode != "psd":
-        raise NotImplementedError(
-            "the port computes uncentered PSD spectrograms only; centered "
-            "framing and the magnitude/complex modes arrive with ROADMAP "
-            "[ext-modes] (the extended modes)")
+def _require_power(cfg: SpecConfig) -> None:
+    """The JAX package's refusal of a power spectrogram in complex mode."""
+    if cfg.mode == "complex":
+        raise ValueError("mode='complex' has no power spectrogram; "
+                         "use stft() (or spectrogram(), which routes it)")
 
 
 def _dense_psd(x: torch.Tensor, fs: float, cfg: SpecConfig,
@@ -523,7 +580,9 @@ def _dense_psd(x: torch.Tensor, fs: float, cfg: SpecConfig,
     """The plain dense route in x's float dtype on x's device: frame-major
     (..., T, F), or only the bins band = (lo, hi), whose matrix columns
     and weights are sliced before the product (each kept bin is the same
-    dot product as the full band's)."""
+    dot product as the full band's); the frames of the centered pad
+    (:func:`center_pad`) under cfg.center; in magnitude mode the JAX
+    package's sqrt(|X|²)·sqrt(w) (``_scale_psd``)."""
     a_re, a_im = dft_matrices(cfg)
     wts = onesided_weights(cfg, fs)
     if band is not None:
@@ -534,8 +593,11 @@ def _dense_psd(x: torch.Tensor, fs: float, cfg: SpecConfig,
         return torch.tensor(np.ascontiguousarray(a), dtype=x.dtype,
                             device=x.device)
 
-    return dense_power(frame_signal(x, cfg.nperseg, cfg.hop_),
-                       const(a_re), const(a_im), const(wts))
+    frames = frame_signal(center_pad(x, cfg), cfg.nperseg, cfg.hop_)
+    if cfg.mode == "magnitude":
+        xr, xi = dense_dft(frames, const(a_re), const(a_im))
+        return torch.sqrt(xr * xr + xi * xi) * torch.sqrt(const(wts))
+    return dense_power(frames, const(a_re), const(a_im), const(wts))
 
 
 def _kernel_psd(x: torch.Tensor, fs: float, cfg: SpecConfig,
@@ -553,7 +615,9 @@ def _kernel_psd(x: torch.Tensor, fs: float, cfg: SpecConfig,
 def power_spectrogram(x, fs: float, cfg: SpecConfig,
                       band: Optional[Tuple[int, int]] = None
                       ) -> torch.Tensor:
-    """PSD spectrogram, frame-major: (..., n) -> (..., nframes, n_freqs).
+    """PSD spectrogram, frame-major: (..., n) -> (..., nframes, n_freqs);
+    the magnitude in cfg.mode 'magnitude', and the JAX package's
+    ValueError in 'complex' (:func:`stft` computes that).
 
     On a CPU tensor, the dense window/detrend-folded DFT route of the JAX
     package's ``power_spectrogram(use_matmul=True)``, computed in x's
@@ -574,9 +638,12 @@ def power_spectrogram_fm(x, fs: float, cfg: SpecConfig,
     band=(lo, hi) returns only those bins of the unflipped one-sided axis
     (the reference's row mask, PlotEngine.py:114-115), flipped within the
     band under flip_freqs: the kernel and the plain version compute only
-    those bins, each bitwise the full band's. Device and dtype as
-    :func:`power_spectrogram`."""
-    _require_dense_psd(cfg)
+    those bins, each bitwise the full band's. Device, dtype and modes as
+    :func:`power_spectrogram`; a config the kernels cannot compute raises
+    NotImplementedError on every device."""
+    from spectral_tpu_torch.ops import stft_cuda   # it imports this module
+    _require_power(cfg)
+    stft_cuda.check_supported(cfg)
     if band is not None and not cfg.onesided:
         raise ValueError("band slicing requires a one-sided spectrum")
     x = ensure_real_waveform(x)
@@ -603,6 +670,29 @@ def effective_config(cfg: SpecConfig, n: int) -> SpecConfig:
     return cfg
 
 
+def _kernel_stft(x: torch.Tensor, fs: float, cfg: SpecConfig, band,
+                 scaled: bool) -> torch.Tensor:
+    """The complex STFT from the route's kernel (``ops.stft_cuda.
+    stft_complex``), (..., n) -> (..., T, F): the leading axes flattened
+    into the kernel's clips and restored."""
+    from spectral_tpu_torch.ops import stft_cuda   # it imports this module
+    lead = x.shape[:-1]
+    z = stft_cuda.stft_complex(x.reshape(-1, x.shape[-1]).contiguous(), fs,
+                               cfg, band, scaled=scaled)
+    return z.reshape(lead + z.shape[-2:])
+
+
+def stft(x, cfg: SpecConfig) -> torch.Tensor:
+    """Complex STFT: (..., n) -> (..., nframes, n_freqs), frame-major, the
+    JAX package's ``stft``: the unscaled transform of each windowed,
+    detrended frame (of the centered pad under cfg.center), zero-padded to
+    nfft, one- or two-sided, whatever cfg.mode. One launch of the route's
+    STFT kernel's complex epilogue on a CUDA tensor (float32 in, complex64
+    out); on a CPU tensor the kernels' plain version, complex in x's
+    precision."""
+    return _kernel_stft(ensure_real_waveform(x), 1.0, cfg, None, False)
+
+
 def spectrogram(x, fs: float, cfg: SpecConfig
                 ) -> Tuple[np.ndarray, np.ndarray, torch.Tensor]:
     """Reference-parity spectrogram: returns (f, t, Sxx), Sxx freq-major
@@ -612,28 +702,29 @@ def spectrogram(x, fs: float, cfg: SpecConfig
     (PlotEngine.py:113-115): the scipy call (after scipy's short-signal
     shrink, :func:`effective_config`) and the frequency-band row mask
     [cfg.fmin, cfg.fmax], applied before anything else (before any
-    normalization). A contiguous band on a one-sided axis is computed
-    alone (``power_spectrogram_fm(band=...)``); an empty one gives no rows,
-    as the reference's mask does. PSD mode only: the magnitude and complex
-    modes arrive with ROADMAP [ext-modes]."""
+    normalization). In the JAX package's order: mode 'complex' the
+    complex STFT times sqrt of the PSD scale (scipy's mode='complex', no
+    one-sided doubling), else the PSD or the magnitude; then the band
+    mask. A contiguous band on a one-sided axis is computed alone (the
+    kernels' ``band``); an empty one gives no rows, as the reference's
+    mask does."""
     x = ensure_real_waveform(x)
     cfg = effective_config(cfg, x.shape[-1])
-    if cfg.mode == "complex":
-        raise NotImplementedError(
-            "mode='complex' (the complex STFT) arrives with ROADMAP "
-            "[ext-modes] (the extended modes)")
-    _require_dense_psd(cfg)
     f = freq_axis(cfg, fs)
     t = time_axis(cfg, fs, x.shape[-1])
+
+    def sxx_of(band=None):
+        if cfg.mode == "complex":
+            return _kernel_stft(x, fs, cfg, band, True).transpose(-1, -2)
+        return power_spectrogram_fm(x, fs, cfg, band=band)
+
     if cfg.fmin is None and cfg.fmax is None:
-        return f, t, power_spectrogram_fm(x, fs, cfg)
+        return f, t, sxx_of()
     idx = _band_rows(f, cfg.fmin, cfg.fmax)
     if cfg.onesided and idx.size and idx[-1] - idx[0] + 1 == idx.size:
         band = (int(idx[0]), int(idx[-1]) + 1)
-        return f[band[0]:band[1]], t, power_spectrogram_fm(x, fs, cfg,
-                                                           band=band)
-    f, sxx = mask_band_rows(f, power_spectrogram_fm(x, fs, cfg), cfg.fmin,
-                            cfg.fmax)
+        return f[band[0]:band[1]], t, sxx_of(band)
+    f, sxx = mask_band_rows(f, sxx_of(), cfg.fmin, cfg.fmax)
     return f, t, sxx
 
 

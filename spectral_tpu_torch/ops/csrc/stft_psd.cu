@@ -25,8 +25,12 @@
 //   transform as a cyclic convolution of a 2, 3, 5, 7-smooth length, on
 //   one block or a cluster of two.
 //
-// The wrapper (ops/stft_cuda.py::route) picks the route by config. The
-// GEMM route computes:
+// The wrapper (ops/stft_cuda.py::route) picks the route by config, by the
+// transform length K = nfft: the FFT routes load a frame's L = nperseg <=
+// K samples and zero the other slots (scipy's zero-padded nfft; the
+// descriptions below take L = K), and every epilogue writes one of the
+// output modes OUT_* (the PSD, the magnitude, or the complex STFT as
+// interleaved float2). The GEMM route computes:
 //
 //   row r = b*T + t         : frame t of clip b, all clips' frames flattened
 //   frame                   = x[b, t*hop : t*hop + K]        (read in place)
@@ -124,6 +128,22 @@ __device__ __forceinline__ double power(double re, double im, double w) {
   return s > 3.4028234663852886e38 ? INFINITY : __dmul_rn(s, w);
 }
 
+// The epilogues' output modes (stft_cuda.OUTPUT_MODES): the PSD (re^2 +
+// im^2) w; the magnitude sqrt(re^2 + im^2) w, w the square root of the PSD
+// weight (scipy's mode='magnitude'); the complex STFT (re w, im w) as
+// interleaved float2, w sqrt of the PSD scale or 1 (mode='complex', and
+// stft()), with no log10 and no partials
+constexpr int OUT_PSD = 0;
+constexpr int OUT_MAGNITUDE = 1;
+constexpr int OUT_COMPLEX = 2;
+
+// sqrt(re^2 + im^2) w, each step rounded to nearest as power(); |X|^2 past
+// float32's range gives inf, as the JAX package's float32 |X|^2 does there
+__device__ __forceinline__ double magnitude(double re, double im, double w) {
+  const double s = __dadd_rn(__dmul_rn(re, re), __dmul_rn(im, im));
+  return s > 3.4028234663852886e38 ? INFINITY : __dmul_rn(__dsqrt_rn(s), w);
+}
+
 // x div d for 0 <= x < 2^31 by a multiply: shift = ceil(log2 d), mul =
 // floor(2^32 (2^shift - d) / d) + 1 (Granlund and Montgomery), made on the
 // host once per launch
@@ -154,7 +174,8 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
                 const Acc* __restrict__ a_im, const Acc* __restrict__ wts,
                 float* __restrict__ out, float* __restrict__ part_min,
                 float* __restrict__ part_max, long long n, int R, int T,
-                int F, int K, int hop, int log10_out, int with_stats) {
+                int F, int K, int hop, int log10_out, int mode,
+                int with_stats) {
   __shared__ __align__(16) Acc xs[BK][BM + XPAD];
   __shared__ __align__(16) Acc ars[BK][BN];
   __shared__ __align__(16) Acc ais[BK][BN];
@@ -242,8 +263,15 @@ stft_psd_kernel(const float* __restrict__ x, const Acc* __restrict__ a_re,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int f = f0 + tx * TN + j;
-      if (r < R && f < F) {
-        const Acc pw = power(acc_re[i][j], acc_im[i][j], wts[f]);
+      if (r < R && f < F && mode == OUT_COMPLEX) {
+        reinterpret_cast<float2*>(out)[(long long)r * F + f] = make_float2(
+            static_cast<float>(__dmul_rn(acc_re[i][j], wts[f])),
+            static_cast<float>(__dmul_rn(acc_im[i][j], wts[f])));
+      } else if (r < R && f < F) {
+        const Acc pw =
+            mode == OUT_MAGNITUDE
+                ? magnitude(acc_re[i][j], acc_im[i][j], wts[f])
+                : power(acc_re[i][j], acc_im[i][j], wts[f]);
         const float p = static_cast<float>(pw);
         lo = nan_min(lo, p);
         hi = nan_max(hi, p);
@@ -326,7 +354,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-template <int NB>
+// EXT: an output other than the PSD (out_mode at run time); without it
+// the PSD, a compile-time constant, as the radix-2 kernel's EXT
+template <int NB, bool EXT>
 __global__ void __launch_bounds__(SK_THREADS, SK_MIN_BLOCKS)
 stft_psd_small_kernel(const float* __restrict__ x,
                       const double* __restrict__ a_re,
@@ -334,15 +364,17 @@ stft_psd_small_kernel(const float* __restrict__ x,
                       const double* __restrict__ wts, float* __restrict__ out,
                       float* __restrict__ part_min,
                       float* __restrict__ part_max, long long n, int R,
-                      int F, int K, int hop, int log10_out, int with_stats,
-                      int groups, const FastDiv t_div, const FastDiv k_div,
-                      const FastDiv f_div) {
+                      int F, int K, int hop, int log10_out, int out_mode,
+                      int with_stats, int groups, const FastDiv t_div,
+                      const FastDiv k_div, const FastDiv f_div) {
   extern __shared__ __align__(16) double2 smem[];
+  const int mode = EXT ? out_mode : OUT_PSD;
   const int tid = threadIdx.x;
   const int tpg = SK_THREADS / groups;       // threads (and half the rows)
   const int RB = 2 * tpg;                    // a group's rows: the block's
   const int KP = (K + SK_K_STEP - 1) / SK_K_STEP * SK_K_STEP;
-  const int FS = F | 1;                      // the output stage's row stride
+  const int FW = mode == OUT_COMPLEX ? 2 * F : F;   // floats an output row
+  const int FS = FW | 1;                     // the output stage's row stride
   const int stage = RB * (K > FS ? K : FS);  // floats: frames, then output
   double2* as = smem;                        // KP x F (re, im)
   float* xs = reinterpret_cast<float*>(as + KP * F);
@@ -420,8 +452,15 @@ stft_psd_small_kernel(const float* __restrict__ x,
     float hi = -INFINITY;
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
-      if (j < fn) {
-        const double pw = power(re[h][j], im[h][j], wts[f0 + j]);
+      if (j < fn && mode == OUT_COMPLEX) {
+        os[i * FS + 2 * (f0 + j)] =
+            static_cast<float>(__dmul_rn(re[h][j], wts[f0 + j]));
+        os[i * FS + 2 * (f0 + j) + 1] =
+            static_cast<float>(__dmul_rn(im[h][j], wts[f0 + j]));
+      } else if (j < fn) {
+        const double pw =
+            mode == OUT_MAGNITUDE ? magnitude(re[h][j], im[h][j], wts[f0 + j])
+                                  : power(re[h][j], im[h][j], wts[f0 + j]);
         const float p = static_cast<float>(pw);
         lo = nan_min(lo, p);
         hi = nan_max(hi, p);
@@ -435,10 +474,10 @@ stft_psd_small_kernel(const float* __restrict__ x,
   __syncthreads();
 
   const int rows = R - r0 < RB ? R - r0 : RB;
-  float* dst = out + static_cast<long long>(r0) * F;
-  for (int e = tid; e < rows * F; e += SK_THREADS) {
+  float* dst = out + static_cast<long long>(r0) * FW;
+  for (int e = tid; e < rows * FW; e += SK_THREADS) {
     const int i = static_cast<int>(f_div.div(e));
-    dst[e] = os[i * FS + (e - i * F)];
+    dst[e] = os[i * FS + (e - i * FW)];
   }
   if (with_stats) {
     for (int i = tid; i < rows; i += SK_THREADS) {
@@ -617,17 +656,29 @@ struct Band {
   }
 };
 
-// One bin f of row r, in the band: the power pw rounded once to float32
-// (or its log10), folded into the row's NaN-propagating (lo, hi)
-__device__ __forceinline__ void store_bin(double pw, float* __restrict__ out,
+// One bin f of row r, in the band, from X = (xr, xi) and its weight w: in
+// OUT_COMPLEX mode X w stored as a float2; else the power (or magnitude)
+// rounded once to float32 (or its log10), folded into the row's
+// NaN-propagating (lo, hi). A mirrored bin of a two-sided spectrum (f >
+// K/2, X[f] = conj X[K - f]) comes with xi negated by the caller.
+__device__ __forceinline__ void store_bin(double xr, double xi, double w,
+                                          float* __restrict__ out,
                                           long long r, Band band, int f,
-                                          int log10_out, float& lo,
+                                          int log10_out, int mode, float& lo,
                                           float& hi) {
+  const long long at = r * band.n + (f - band.lo);
+  if (mode == OUT_COMPLEX) {
+    reinterpret_cast<float2*>(out)[at] = make_float2(
+        static_cast<float>(__dmul_rn(xr, w)),
+        static_cast<float>(__dmul_rn(xi, w)));
+    return;
+  }
+  const double pw =
+      mode == OUT_MAGNITUDE ? magnitude(xr, xi, w) : power(xr, xi, w);
   const float p = static_cast<float>(pw);
   lo = nan_min(lo, p);
   hi = nan_max(hi, p);
-  out[r * band.n + (f - band.lo)] =
-      log10_out ? static_cast<float>(log10(pw + 1e-20)) : p;
+  out[at] = log10_out ? static_cast<float>(log10(pw + 1e-20)) : p;
 }
 
 // The row's (min, max) over the block, one partial per row; red_lo and
@@ -662,18 +713,19 @@ __device__ __forceinline__ void row_extrema(float lo, float hi, float* red_lo,
 // The FFT kernels' epilogue for row r, from the M-point transform Z of the
 // packed frame (read through z): for bins f < F, with g = min(f, K - f),
 // E = (Z[g] + conj Z[M - g]) / 2 and O = -i (Z[g] - conj Z[M - g]) / 2
-// (indices mod M), X[f] = E + W_K^g O (W_K^g = split[g], -1 at g = M);
-// then the power, log10_out and the NaN-propagating (min, max) of the
-// row, one partial per row, over the band's bins; bins in natural order,
-// so the stores of one frame coalesce. red_lo/red_hi hold one float per
-// warp.
+// (indices mod M), X[f] = E + W_K^g O (W_K^g = split[g], -1 at g = M),
+// conjugated past M (two sided) for the complex output (for the power
+// and magnitude the sign is moot); then store_bin's output in `mode`,
+// log10_out and the NaN-propagating (min, max) of the row, one partial
+// per row, over the band's bins; bins in natural order, so the stores of
+// one frame coalesce. red_lo/red_hi hold one float per warp.
 template <typename Read>
 __device__ __forceinline__ void split_psd_epilogue(
     Read z, const double2* __restrict__ split,
     const double* __restrict__ wts, float* __restrict__ out,
     float* __restrict__ part_min, float* __restrict__ part_max,
     float* red_lo, float* red_hi, int r, Band band, int K, int log10_out,
-    int with_stats) {
+    int mode, int with_stats) {
   const int M = K >> 1;
   float lo = INFINITY;
   float hi = -INFINITY;
@@ -688,7 +740,9 @@ __device__ __forceinline__ void split_psd_epilogue(
     const double o_i = 0.5 * (b.x - a.x);
     const double xr = er + (w.x * o_r - w.y * o_i);
     const double xi = ei + (w.x * o_i + w.y * o_r);
-    store_bin(power(xr, xi, wts[f]), out, r, band, f, log10_out, lo, hi);
+    const bool cj = mode == OUT_COMPLEX && f > M;
+    store_bin(xr, cj ? -xi : xi, wts[f], out, r, band, f, log10_out, mode,
+              lo, hi);
   }
   if (with_stats)
     row_extrema(lo, hi, red_lo, red_hi, part_min, part_max, r);
@@ -868,7 +922,7 @@ __device__ __forceinline__ void r2_epilogue(
     const double* __restrict__ wts, float* __restrict__ out,
     float* __restrict__ part_min, float* __restrict__ part_max,
     float* red_lo, float* red_hi, int fl, int u, int r, bool valid,
-    Band band, int log10_out, int with_stats) {
+    Band band, int log10_out, int mode, int with_stats) {
   using G = R2Geometry<LOG2M, LR>;
   constexpr int M = G::M;
   constexpr int K = 2 * M;
@@ -886,8 +940,10 @@ __device__ __forceinline__ void r2_epilogue(
     const double o_i = 0.5 * (b.x - a.x);
     const double xr = er + (w.x * o_r - w.y * o_i);
     const double xi = ei + (w.x * o_i + w.y * o_r);
+    const bool cj = mode == OUT_COMPLEX && f > M;
     if (valid)
-      store_bin(power(xr, xi, wts[f]), out, r, band, f, log10_out, lo, hi);
+      store_bin(xr, cj ? -xi : xi, wts[f], out, r, band, f, log10_out, mode,
+                lo, hi);
   }
   if (!with_stats) return;
   if constexpr (P > 32) {
@@ -905,7 +961,13 @@ __device__ __forceinline__ void r2_epilogue(
   }
 }
 
-template <int LOG2M, int LR>
+// EXT: a frame shorter than the transform (frame_len < K, the zero-padded
+// load) or an output other than the PSD (out_mode), both read at run time;
+// without it the PSD of a K-sample frame, both compile-time constants, so
+// that the PSD kernels are the code they were before the extended modes
+// (at run time they took 5-12% longer on paths 1, 2 and 3: the frame's
+// bounds and the detrend's divisions by a run-time L, PR 19's call 2)
+template <int LOG2M, int LR, bool EXT>
 __global__ void __launch_bounds__(R2_MAX_THREADS,
                                   R2Geometry<LOG2M, LR>::MIN_BLOCKS)
 stft_fft_psd_kernel(const float* __restrict__ x,
@@ -914,11 +976,14 @@ stft_fft_psd_kernel(const float* __restrict__ x,
                     const double* __restrict__ wts, float* __restrict__ out,
                     float* __restrict__ part_min, float* __restrict__ part_max,
                     long long n, int R, int T, Band band, int hop,
-                    int detrend, int log10_out, int with_stats) {
+                    int frame_len, int detrend, int log10_out, int out_mode,
+                    int with_stats) {
   using G = R2Geometry<LOG2M, LR>;
   constexpr int V = G::VALUES;
   constexpr int K = 2 * G::M;
   constexpr int P = G::P;
+  const int L = EXT ? frame_len : K;
+  const int mode = EXT ? out_mode : OUT_PSD;
   extern __shared__ double2 buf[];  // G::FRAMES frames of M values
   __shared__ double2 red_sum[R2_WARPS];
   __shared__ float red_lo[R2_WARPS];
@@ -935,7 +1000,8 @@ stft_fft_psd_kernel(const float* __restrict__ x,
       x + (valid ? (long long)(r / T) * n + (long long)(r % T) * hop : 0);
 
   // pass 0's values straight from the frame: register i holds z[j], j =
-  // bitrev(i) P + u (over LR bits), samples 2j and 2j + 1
+  // bitrev(i) P + u (over LR bits), samples 2j and 2j + 1 of the frame's
+  // L, zero past them (nfft > nperseg: the zero-padded transform)
   double2 v[V];
   const bool pairs = (reinterpret_cast<size_t>(frame) & 7) == 0;
 #pragma unroll
@@ -943,15 +1009,16 @@ stft_fft_psd_kernel(const float* __restrict__ x,
     const int j = brev_low(i, LR) * P + u;
     v[i] = make_double2(0.0, 0.0);
     if (valid) {
-      if (pairs) {
+      if (pairs && (!EXT || 2 * j + 1 < L)) {
         const float2 s = reinterpret_cast<const float2*>(frame)[j];
         v[i] = make_double2(s.x, s.y);
       } else {
-        v[i] = make_double2(frame[2 * j], frame[2 * j + 1]);
+        v[i] = make_double2(!EXT || 2 * j < L ? frame[2 * j] : 0.0f,
+                            !EXT || 2 * j + 1 < L ? frame[2 * j + 1] : 0.0f);
       }
     }
   }
-  const double c = 0.5 * (K - 1);
+  const double c = 0.5 * (L - 1);
   double2 line = make_double2(0.0, 0.0);
   if (detrend != DETREND_NONE) {
     double2 s = make_double2(0.0, 0.0);
@@ -966,16 +1033,21 @@ stft_fft_psd_kernel(const float* __restrict__ x,
       }
     }
     s = r2_frame_sum<P>(s, red_sum);
-    const double d = K * (static_cast<double>(K) * K - 1.0) / 12.0;
-    line = make_double2(s.x / K, detrend == DETREND_LINEAR ? s.y / d : 0.0);
+    const double d = L * (static_cast<double>(L) * L - 1.0) / 12.0;
+    line = make_double2(s.x / L, detrend == DETREND_LINEAR ? s.y / d : 0.0);
   }
+  // the window, zero-padded to K on the host; slots past L exactly zero
+  // (without EXT every slot lies in the frame)
   const double2* win2 = reinterpret_cast<const double2*>(win);
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const int i0 = 2 * (brev_low(i, LR) * P + u);
     const double2 w = win2[i0 >> 1];
-    v[i].x = (v[i].x - line.x - line.y * (i0 - c)) * w.x;
-    v[i].y = (v[i].y - line.x - line.y * (i0 + 1 - c)) * w.y;
+    v[i].x = !EXT || i0 < L ? (v[i].x - line.x - line.y * (i0 - c)) * w.x
+                            : 0.0;
+    v[i].y = !EXT || i0 + 1 < L
+                 ? (v[i].y - line.x - line.y * (i0 + 1 - c)) * w.y
+                 : 0.0;
   }
 
   r2_pass<LOG2M, LR, 0>(v, tw, u);
@@ -990,7 +1062,7 @@ stft_fft_psd_kernel(const float* __restrict__ x,
   r2_sync<P>();
   r2_epilogue<LOG2M, LR>(buf, tw + (G::M - 1), wts, out, part_min,
                          part_max, red_lo, red_hi, fl, u, r, valid, band,
-                         log10_out, with_stats);
+                         log10_out, mode, with_stats);
 }
 
 // ---------------------------------------------------------------------------
@@ -1548,8 +1620,9 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
                           float* __restrict__ out,
                           float* __restrict__ part_min,
                           float* __restrict__ part_max, long long n, int R,
-                          int T, Band band, int K, int hop, int detrend,
-                          int log10_out, int with_stats,
+                          int T, Band band, int K, int hop, int L,
+                          int detrend, int log10_out, int mode,
+                          int with_stats,
                           const __grid_constant__ MixRegPlan plan) {
   extern __shared__ double2 buf[];  // plan.frames frames of K/2 values
   __shared__ double2 roots[MIX_MAX_RADIX + 1];
@@ -1579,7 +1652,7 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
   }
 
   // the frame's sample pairs j = u + i pf straight from device memory,
-  // consecutive across the frame's threads
+  // consecutive across the frame's threads; its L samples, zero past them
   float2 s[MIX_LOAD];
   const bool pairs = (reinterpret_cast<size_t>(frame) & 7) == 0;
 #pragma unroll
@@ -1587,10 +1660,12 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
     const int j = u + i * pf;
     s[i] = make_float2(0.0f, 0.0f);
     if (valid && j < M)
-      s[i] = pairs ? reinterpret_cast<const float2*>(frame)[j]
-                   : make_float2(frame[2 * j], frame[2 * j + 1]);
+      s[i] = pairs && 2 * j + 1 < L
+                 ? reinterpret_cast<const float2*>(frame)[j]
+                 : make_float2(2 * j < L ? frame[2 * j] : 0.0f,
+                               2 * j + 1 < L ? frame[2 * j + 1] : 0.0f);
   }
-  const double c = 0.5 * (K - 1);
+  const double c = 0.5 * (L - 1);
   double2 line = make_double2(0.0, 0.0);
   if (detrend != DETREND_NONE) {
     double2 a = make_double2(0.0, 0.0);
@@ -1607,9 +1682,10 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
       }
     }
     a = mix_frame_sum(a, pf, red_sum);
-    const double d = K * (static_cast<double>(K) * K - 1.0) / 12.0;
-    line = make_double2(a.x / K, detrend == DETREND_LINEAR ? a.y / d : 0.0);
+    const double d = L * (static_cast<double>(L) * L - 1.0) / 12.0;
+    line = make_double2(a.x / L, detrend == DETREND_LINEAR ? a.y / d : 0.0);
   }
+  // the window, zero-padded to K on the host; slots past L exactly zero
   const double2* win2 = reinterpret_cast<const double2*>(win);
 #pragma unroll
   for (int i = 0; i < MIX_LOAD; ++i) {
@@ -1618,9 +1694,12 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
       const double2 w = win2[j];
       const int i0 = 2 * j;
       fbuf[perm[j]] = make_double2(
-          (static_cast<double>(s[i].x) - line.x - line.y * (i0 - c)) * w.x,
-          (static_cast<double>(s[i].y) - line.x - line.y * (i0 + 1 - c)) *
-              w.y);
+          i0 < L ? (static_cast<double>(s[i].x) - line.x -
+                    line.y * (i0 - c)) * w.x
+                 : 0.0,
+          i0 + 1 < L ? (static_cast<double>(s[i].y) - line.x -
+                        line.y * (i0 + 1 - c)) * w.y
+                     : 0.0);
     }
   }
   __syncthreads();
@@ -1669,15 +1748,17 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
     __syncthreads();
   }
 
-  // the split step and the PSD epilogue of row r: bins g and M - g from
-  // Z[g] and Z[M - g] together, g = u, u + pf, ... up to M/2, each stored
-  // where it lies in the band; past M (two sided) bin f as bin K - f
+  // the split step and the epilogue of row r: bins g and M - g from Z[g]
+  // and Z[M - g] together, g = u, u + pf, ... up to M/2, each stored
+  // where it lies in the band; past M (two sided) bin f as the conjugate
+  // of bin K - f
   const double2* split = tw + plan.split;
   float lo = INFINITY;
   float hi = -INFINITY;
   // bin f from a = Z[g], b = Z[M - g], w = W_K^g and its weight, as
-  // split_psd_epilogue
-  const auto bin = [&](int f, double2 a, double2 b, double2 w, double wt) {
+  // split_psd_epilogue; cj conjugates it
+  const auto bin = [&](int f, double2 a, double2 b, double2 w, double wt,
+                       bool cj) {
     const double er = 0.5 * (a.x + b.x);
     const double ei = 0.5 * (a.y - b.y);
     const double o_r = 0.5 * (a.y + b.y);
@@ -1685,22 +1766,25 @@ stft_mixed_fft_psd_kernel(const float* __restrict__ x,
     const double xr = er + (w.x * o_r - w.y * o_i);
     const double xi = ei + (w.x * o_i + w.y * o_r);
     if (valid)
-      store_bin(power(xr, xi, wt), out, r, band, f, log10_out, lo, hi);
+      store_bin(xr, cj && mode == OUT_COMPLEX ? -xi : xi, wt, out, r, band,
+                f, log10_out, mode, lo, hi);
   };
 #pragma unroll 2
   for (int g = u; 2 * g <= M; g += pf) {
     const double2 a = fbuf[g];
     const double2 b = fbuf[g == 0 ? 0 : M - g];
     if (band.has(g))
-      bin(g, a, b, g < M ? split[g] : make_double2(-1.0, 0.0), wts[g]);
+      bin(g, a, b, g < M ? split[g] : make_double2(-1.0, 0.0), wts[g],
+          false);
     const int f = M - g;                     // Z[f] is b, Z[M - f] is a
     if (f > g && band.has(f))
-      bin(f, b, a, f < M ? split[f] : make_double2(-1.0, 0.0), wts[f]);
+      bin(f, b, a, f < M ? split[f] : make_double2(-1.0, 0.0), wts[f],
+          false);
   }
   for (int f = (band.lo > M ? band.lo : M + 1) + u; f < band.end();
        f += pf) {
     const int g = K - f;
-    bin(f, fbuf[g], fbuf[M - g], split[g], wts[f]);
+    bin(f, fbuf[g], fbuf[M - g], split[g], wts[f], true);
   }
   if (!with_stats) return;
   const int lanes = pf < 32 ? pf : 32;
@@ -2050,29 +2134,35 @@ struct ConvRaderRead {
 };
 
 // The odd kernels' epilogue: the bins of row r0 from a lone frame's
-// transform z, X[f] = Z[f], or of rows r0 and r0 + 1 from a pair's, A[f] =
-// (Z[f] + conj Z[K - f]) / 2 and B[f] = (Z[f] - conj Z[K - f]) / 2i, for
-// the band's bins f; the power, log10_out and each row's (min, max)
+// transform z, X[f] = Z[f] (for the complex output past K/2, two sided,
+// conj Z[K - f], so that mirrored bins are conjugates bit for bit as a
+// pair's are), or of rows r0
+// and r0 + 1 from a pair's, A[f] = (Z[f] + conj Z[K - f]) / 2 and B[f] =
+// (Z[f] - conj Z[K - f]) / 2i, for the band's bins f; store_bin's output
+// in `mode`, log10_out and each row's (min, max)
 template <typename Read>
 __device__ __forceinline__ void pair_psd_epilogue(
     Read z, int r0, bool pair, int K, Band band,
     const double* __restrict__ wts,
     float* __restrict__ out, float* __restrict__ part_min,
     float* __restrict__ part_max, float (*red_lo)[FFT_MAX_WARPS],
-    float (*red_hi)[FFT_MAX_WARPS], int log10_out, int with_stats) {
+    float (*red_hi)[FFT_MAX_WARPS], int log10_out, int mode,
+    int with_stats) {
   float lo[2] = {INFINITY, INFINITY};
   float hi[2] = {-INFINITY, -INFINITY};
   for (int f = band.lo + threadIdx.x; f < band.end(); f += blockDim.x) {
-    const double2 a = z(f);
     if (pair) {
+      const double2 a = z(f);
       const double2 b = z(f == 0 ? 0 : K - f);
-      store_bin(power(0.5 * (a.x + b.x), 0.5 * (a.y - b.y), wts[f]), out, r0,
-                band, f, log10_out, lo[0], hi[0]);
-      store_bin(power(0.5 * (a.y + b.y), 0.5 * (b.x - a.x), wts[f]), out,
-                r0 + 1, band, f, log10_out, lo[1], hi[1]);
+      store_bin(0.5 * (a.x + b.x), 0.5 * (a.y - b.y), wts[f], out, r0, band,
+                f, log10_out, mode, lo[0], hi[0]);
+      store_bin(0.5 * (a.y + b.y), 0.5 * (b.x - a.x), wts[f], out, r0 + 1,
+                band, f, log10_out, mode, lo[1], hi[1]);
     } else {
-      store_bin(power(a.x, a.y, wts[f]), out, r0, band, f, log10_out, lo[0],
-                hi[0]);
+      const bool mirror = mode == OUT_COMPLEX && 2 * f > K;
+      const double2 a = z(mirror ? K - f : f);
+      store_bin(a.x, mirror ? -a.y : a.y, wts[f], out, r0, band, f,
+                log10_out, mode, lo[0], hi[0]);
     }
   }
   if (with_stats) {
@@ -2168,8 +2258,8 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
                         const double* __restrict__ wts,
                         float* __restrict__ out, float* __restrict__ part_min,
                         float* __restrict__ part_max, long long n, int T,
-                        Band band, int K, int hop, int detrend,
-                        int log10_out, int with_stats, int pack,
+                        Band band, int K, int hop, int L, int detrend,
+                        int log10_out, int mode, int with_stats, int pack,
                         const __grid_constant__ ConvPlan plan) {
   extern __shared__ double2 buf[];  // K complex values
   __shared__ double2 roots[RMAX > 0 ? MIX_MAX_RADIX + 1 : 1];
@@ -2183,18 +2273,23 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
   const SlotMap map{plan.swz_mask, plan.swz_shift};
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const double c = 0.5 * (K - 1);
+  const double c = 0.5 * (L - 1);
+  // sample i of a frame detrended and windowed: its L samples, zero past
+  // them (nfft > nperseg: the zero-padded transform)
+  const auto sample = [&](const float* f, double2 line, int i) {
+    return i < L ? (static_cast<double>(f[i]) - line.x - line.y * (i - c)) *
+                       win[i]
+                 : 0.0;
+  };
   if constexpr (PACKED) {
     static_assert(RADER, "a packed frame's plan has a Rader stage");
     const int r = blockIdx.x;
     const float* frame =
         x + (long long)(r / T) * n + (long long)(r % T) * hop;
-    const double2 line = frame_line(frame, K, detrend, red_sum[0]);
+    const double2 line = frame_line(frame, L, detrend, red_sum[0]);
     double* bufd = reinterpret_cast<double*>(buf);
     for (int i = tid; i < K; i += nt)
-      bufd[2 * map(perm[i >> 1]) + (i & 1)] =
-          (static_cast<double>(frame[i]) - line.x - line.y * (i - c)) *
-          win[i];
+      bufd[2 * map(perm[i >> 1]) + (i & 1)] = sample(frame, line, i);
     __syncthreads();
     const int P = (K >> 1) - 1;
     conv_transform<RMAX>(buf, roots, small, tw, plan, P,
@@ -2202,7 +2297,7 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
                                       &x_sum});
     split_psd_epilogue(ConvRaderRead{buf, perm, &x_sum, P, map},
                        tw + plan.split, wts, out, part_min, part_max,
-                       red_lo[0], red_hi[0], r, band, K, log10_out,
+                       red_lo[0], red_hi[0], r, band, K, log10_out, mode,
                        with_stats);
     return;
   }
@@ -2213,17 +2308,14 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
   const bool has_b = t + 1 < T;
   const float* fa = x + (long long)clip * n + (long long)t * hop;
   const float* fb = fa + hop;
-  const double2 la = frame_line(fa, K, detrend, red_sum[0]);
-  const double2 lb = has_b ? frame_line(fb, K, detrend, red_sum[1])
+  const double2 la = frame_line(fa, L, detrend, red_sum[0]);
+  const double2 lb = has_b ? frame_line(fb, L, detrend, red_sum[1])
                            : make_double2(0.0, 0.0);
 
   double2 e = make_double2(0.0, 0.0);
   for (int i = tid; i < K; i += nt) {
-    const double va =
-        (static_cast<double>(fa[i]) - la.x - la.y * (i - c)) * win[i];
-    const double vb =
-        has_b ? (static_cast<double>(fb[i]) - lb.x - lb.y * (i - c)) * win[i]
-              : 0.0;
+    const double va = sample(fa, la, i);
+    const double vb = has_b ? sample(fb, lb, i) : 0.0;
     buf[map(perm[i])] = make_double2(va, vb);
     e.x += va * va;
     e.y += vb * vb;
@@ -2243,9 +2335,7 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
       } else {
         __syncthreads();            // the epilogue's reads before the loads
         for (int i = tid; i < K; i += nt)
-          buf[map(perm[i])] = make_double2(
-              (static_cast<double>(fb[i]) - lb.x - lb.y * (i - c)) * win[i],
-              0.0);
+          buf[map(perm[i])] = make_double2(sample(fb, lb, i), 0.0);
       }
       __syncthreads();
     }
@@ -2256,12 +2346,12 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
                                         &x_sum});
       pair_psd_epilogue(ConvRaderRead{buf, perm, &x_sum, P, map}, ra + u,
                         paired, K, band, wts, out, part_min, part_max, red_lo,
-                        red_hi, log10_out, with_stats);
+                        red_hi, log10_out, mode, with_stats);
     } else {
       conv_forward<RMAX>(buf, roots, small, tw, plan, K, 0);
       pair_psd_epilogue(ConvRead{buf, map}, ra + u, paired, K, band, wts,
                         out, part_min, part_max, red_lo, red_hi, log10_out,
-                        with_stats);
+                        mode, with_stats);
     }
   }
 }
@@ -2399,8 +2489,11 @@ __device__ __forceinline__ void bluestein_transform(
 // One block (RANKS = 1) or cluster (RANKS = 2) per unit: a frame of even
 // K, row blockIdx.x; or for odd K frames t = 2j and t + 1 of clip b, unit
 // b ceil(T / 2) + j. Even K runs on one block only. TWO: two blocks an SM
-// (M up to BLUE_TWO_BLOCK_POINTS).
-template <int RANKS, bool TWO>
+// (M up to BLUE_TWO_BLOCK_POINTS). EXT: a frame shorter than the
+// transform or an output other than the PSD, as the radix-2 kernel's
+// (without it path 9's instantiation spilled 20 bytes more, PR 19's call
+// 3).
+template <int RANKS, bool TWO, bool EXT>
 __global__ void __launch_bounds__(FFT_MAX_THREADS,
                                   TWO ? 2 : BLUE_MIN_BLOCKS)
 stft_bluestein_psd_kernel(const float* __restrict__ x,
@@ -2410,11 +2503,14 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
                           float* __restrict__ out,
                           float* __restrict__ part_min,
                           float* __restrict__ part_max, long long n, int T,
-                          Band band, int K, int hop, int detrend,
-                          int log10_out, int with_stats, int M, int bhat,
-                          int chirp_row, int half_row,
+                          Band band, int K, int hop, int frame_len,
+                          int detrend, int log10_out, int out_mode,
+                          int with_stats, int M, int bhat, int chirp_row,
+                          int half_row,
                           const __grid_constant__ ConvPlan plan) {
   extern __shared__ double2 buf[];  // M / RANKS complex values
+  const int L = EXT ? frame_len : K;
+  const int mode = EXT ? out_mode : OUT_PSD;
   __shared__ double2 small[SMALL_ROOTS];
   __shared__ double2 red_sum[3][FFT_MAX_WARPS];
   __shared__ float red_lo[2][FFT_MAX_WARPS];
@@ -2427,7 +2523,7 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
   const int unit = blockIdx.x / RANKS;
   const int H = M / RANKS;
   const double2* chirp = tw + chirp_row;
-  const double c = 0.5 * (K - 1);
+  const double c = 0.5 * (L - 1);
   bool loads = true;                // rank 0 loads, transforms and stores
   if constexpr (RANKS == 2) loads = cg::this_cluster().block_rank() == 0;
 
@@ -2442,11 +2538,16 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
   const bool has_b = !even && t + 1 < T;
   const float* fa = x + (long long)clip * n + (long long)t * hop;
   const float* fb = fa + hop;
-  const double2 la = frame_line(fa, K, detrend, red_sum[0]);
-  const double2 lb = has_b ? frame_line(fb, K, detrend, red_sum[1])
+  const double2 la = frame_line(fa, L, detrend, red_sum[0]);
+  const double2 lb = has_b ? frame_line(fb, L, detrend, red_sum[1])
                            : make_double2(0.0, 0.0);
+  // the frame's L samples, zero past them (the zero-padded transform;
+  // without EXT every index the loads pass lies in the frame)
   const auto sample = [&](const float* f, double2 line, int i) {
-    return (static_cast<double>(f[i]) - line.x - line.y * (i - c)) * win[i];
+    return !EXT || i < L
+               ? (static_cast<double>(f[i]) - line.x - line.y * (i - c)) *
+                     win[i]
+               : 0.0;
   };
 
   // the load, z_m = (v[2m] + i v[2m + 1]) w_m for even K, z_i = (v_a[i] +
@@ -2489,18 +2590,18 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
     if (even)
       split_psd_epilogue(BluesteinRead{buf, chirp, map}, tw + plan.split,
                          wts, out, part_min, part_max, red_lo[0], red_hi[0],
-                         ra, band, K, log10_out, with_stats);
+                         ra, band, K, log10_out, mode, with_stats);
     else
       pair_psd_epilogue(BluesteinRead{buf, chirp, map}, ra + u, paired, K,
                         band, wts, out, part_min, part_max, red_lo, red_hi,
-                        log10_out, with_stats);
+                        log10_out, mode, with_stats);
   }
 }
 
 constexpr int FFT_MAX_DEVICES = 64;
 // the dynamic shared memory limit already set for the FFT kernels, per
 // device (the radix-2 kernel's per LOG2M)
-size_t r2_smem_set[13][FFT_MAX_DEVICES] = {};
+size_t r2_smem_set[2][13][FFT_MAX_DEVICES] = {};
 // (the mixed-radix kernel's three instantiations)
 size_t mixed_smem_set[3][FFT_MAX_DEVICES] = {};
 // (the odd kernel's eight: without a Rader stage and with, by conv_plan's
@@ -2508,10 +2609,10 @@ size_t mixed_smem_set[3][FFT_MAX_DEVICES] = {};
 // PACKED, rmax 0 or 1)
 size_t odd_smem_set[10][FFT_MAX_DEVICES] = {};
 // (the Bluestein kernel's: on one block, at two blocks an SM, and on a
-// cluster of two)
-size_t blue_smem_set[3][FFT_MAX_DEVICES] = {};
+// cluster of two; each with and without EXT)
+size_t blue_smem_set[2][3][FFT_MAX_DEVICES] = {};
 // (the GEMM route's small-K tile, by its bins a thread)
-size_t small_smem_set[SK_BINS][FFT_MAX_DEVICES] = {};
+size_t small_smem_set[2][SK_BINS][FFT_MAX_DEVICES] = {};
 
 // raise `kernel`'s dynamic shared memory limit to smem once per device
 // (set[] records it); returns a cudaError_t. A block whose static and
@@ -2702,26 +2803,30 @@ bool conv_plan(const int* stages, int n_stages, int N, int rader, int split,
 constexpr int R2_LR[13] = {0, 0, 0, 0, 3, 3, 3, 3, 3, 3, 4, 4, 4};
 
 // The radix-2 kernel at M = 2^LOG2M (R2Geometry): R rows in blocks of
-// FRAMES rows, the last block masked
+// FRAMES rows, the last block masked; its EXT form for a zero-padded
+// frame or an output other than the PSD
 template <int LOG2M>
 int r2_launch(const float* x, const double* win, const double* tw,
               const double* wts, float* out, float* part_min,
               float* part_max, int R, long long n, int T, Band band, int hop,
-              int detrend, int log10_out, int with_stats, cudaStream_t s) {
+              int L, int detrend, int log10_out, int mode, int with_stats,
+              cudaStream_t s) {
   constexpr int LR = R2_LR[LOG2M];
   using G = R2Geometry<LOG2M, LR>;
   static_assert(G::SMEM + R2_STATIC_SMEM <= BLOCK_SMEM,
                 "the radix-2 kernel's buffers fit a block");
   static_assert(G::THREADS <= R2_MAX_THREADS && G::THREADS % 32 == 0,
                 "whole warps, at most R2_MAX_THREADS threads");
-  const int err = raise_smem(stft_fft_psd_kernel<LOG2M, LR>, G::SMEM,
-                             r2_smem_set[LOG2M]);
+  const bool ext = L < 2 * G::M || mode != OUT_PSD;
+  const auto kernel = ext ? stft_fft_psd_kernel<LOG2M, LR, true>
+                          : stft_fft_psd_kernel<LOG2M, LR, false>;
+  const int err = raise_smem(kernel, G::SMEM, r2_smem_set[ext][LOG2M]);
   if (err != 0) return err;
   const unsigned blocks =
       static_cast<unsigned>((R + G::FRAMES - 1) / G::FRAMES);
-  stft_fft_psd_kernel<LOG2M, LR><<<blocks, G::THREADS, G::SMEM, s>>>(
+  kernel<<<blocks, G::THREADS, G::SMEM, s>>>(
       x, win, reinterpret_cast<const double2*>(tw), wts, out, part_min,
-      part_max, n, R, T, band, hop, detrend, log10_out, with_stats);
+      part_max, n, R, T, band, hop, L, detrend, log10_out, mode, with_stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2729,6 +2834,13 @@ int r2_launch(const float* x, const double* win, const double* tw,
 // it is empty or lies past them
 bool band_ok(int f_lo, int F, int K) {
   return f_lo >= 0 && F >= 1 && f_lo + F <= K;
+}
+
+// An output mode (OUT_*) the epilogues take with these options: the
+// complex STFT has no log10 and no partials
+bool mode_ok(int mode, int log10_out, int with_stats) {
+  return mode == OUT_PSD || mode == OUT_MAGNITUDE ||
+         (mode == OUT_COMPLEX && !log10_out && !with_stats);
 }
 
 }  // namespace
@@ -2745,14 +2857,18 @@ int stft_psd_freq_tiles(int F) { return (F + BN - 1) / BN; }
 // (stft_psd_freq_tiles(F), B * T) f32 and may be null when with_stats is
 // 0. F <= SK_MAX_F (nperseg 2-31) runs the small-K tile, which refuses K
 // past 31 or T < 1 with cudaErrorInvalidValue; else the 128 x 64 tile.
-// The caller keeps B * T and the number of blocks, row tiles times
-// frequency tiles, within the grid's limits.
+// mode is an OUT_* code (mode_ok); with OUT_COMPLEX out is (B, T, F)
+// interleaved float2. The caller keeps B * T and the number of blocks,
+// row tiles times frequency tiles, within the grid's limits.
 int stft_psd_launch(const float* x, const double* a_re, const double* a_im,
                     const double* wts, float* out, float* part_min,
                     float* part_max, int B, long long n, int T, int F, int K,
-                    int hop, int log10_out, int with_stats, void* stream) {
+                    int hop, int log10_out, int mode, int with_stats,
+                    void* stream) {
   const int R = B * T;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!mode_ok(mode, log10_out, with_stats))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (F <= SK_MAX_F && K < 2 * SK_MAX_F) {
     if (K < 1 || T < 1 || hop < 1)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -2760,30 +2876,36 @@ int stft_psd_launch(const float* x, const double* a_re, const double* a_im,
     const int nb = (F + groups - 1) / groups;   // NB, 1 to SK_BINS
     const int rb = 2 * SK_THREADS / groups;
     const int kp = (K + SK_K_STEP - 1) / SK_K_STEP * SK_K_STEP;
-    const int fs = F | 1;
+    const int fw = mode == OUT_COMPLEX ? 2 * F : F;
+    const int fs = fw | 1;
     const size_t smem = static_cast<size_t>(kp) * F * sizeof(double2) +
                         static_cast<size_t>(rb) * (K > fs ? K : fs) * 4 +
                         static_cast<size_t>(rb) * (4 + 4 + 8) +
                         static_cast<size_t>(2 * groups * rb) * 4;
-    decltype(&stft_psd_small_kernel<1>) const by_nb[SK_BINS] = {
-        stft_psd_small_kernel<1>, stft_psd_small_kernel<2>,
-        stft_psd_small_kernel<3>, stft_psd_small_kernel<4>,
-        stft_psd_small_kernel<5>, stft_psd_small_kernel<6>,
-        stft_psd_small_kernel<7>, stft_psd_small_kernel<8>};
-    const auto kernel = by_nb[nb - 1];
-    const int err = raise_smem(kernel, smem, small_smem_set[nb - 1]);
+    decltype(&stft_psd_small_kernel<1, false>) const by_nb[2][SK_BINS] = {
+        {stft_psd_small_kernel<1, false>, stft_psd_small_kernel<2, false>,
+         stft_psd_small_kernel<3, false>, stft_psd_small_kernel<4, false>,
+         stft_psd_small_kernel<5, false>, stft_psd_small_kernel<6, false>,
+         stft_psd_small_kernel<7, false>, stft_psd_small_kernel<8, false>},
+        {stft_psd_small_kernel<1, true>, stft_psd_small_kernel<2, true>,
+         stft_psd_small_kernel<3, true>, stft_psd_small_kernel<4, true>,
+         stft_psd_small_kernel<5, true>, stft_psd_small_kernel<6, true>,
+         stft_psd_small_kernel<7, true>, stft_psd_small_kernel<8, true>}};
+    const int ext = mode != OUT_PSD;
+    const auto kernel = by_nb[ext][nb - 1];
+    const int err = raise_smem(kernel, smem, small_smem_set[ext][nb - 1]);
     if (err != 0) return err;
     const unsigned blocks = static_cast<unsigned>((R + rb - 1) / rb);
     kernel<<<blocks, SK_THREADS, smem, s>>>(
         x, a_re, a_im, wts, out, part_min, part_max, n, R, F, K, hop,
-        log10_out, with_stats, groups, make_fastdiv(T), make_fastdiv(K),
-        make_fastdiv(F));
+        log10_out, mode, with_stats, groups, make_fastdiv(T), make_fastdiv(K),
+        make_fastdiv(fw));
     return static_cast<int>(cudaGetLastError());
   }
   const unsigned blocks = (unsigned)((R + BM - 1) / BM) * ((F + BN - 1) / BN);
   stft_psd_kernel<<<blocks, NT, 0, s>>>(x, a_re, a_im, wts, out, part_min,
                                         part_max, n, R, T, F, K, hop,
-                                        log10_out, with_stats);
+                                        log10_out, mode, with_stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2797,18 +2919,22 @@ int stft_psd_launch(const float* x, const double* a_re, const double* a_im,
 // f32, the band of F bins from bin f_lo (the full band: f_lo 0 and F the
 // config's bin count), f_lo + F <= K; part_min/part_max are (B * T,) f32,
 // each row's over the band, and may be null when with_stats is 0.
-// K is a power of two from 32 to 8192; detrend is 0 for none, 1 for
-// constant, 2 for linear, and any other value is refused. The caller keeps
-// B * T within the grid's limit.
+// K, the transform length (nfft), is a power of two from 32 to 8192; a
+// frame is L samples, 1 <= L <= K (nperseg; slots L to K - 1 zero), and
+// win holds K values, zero past L. detrend is 0 for none, 1 for constant,
+// 2 for linear, and any other value is refused; mode an OUT_* code
+// (mode_ok), out (B, T, F) interleaved float2 under OUT_COMPLEX. The
+// caller keeps B * T within the grid's limit.
 int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
                         const double* wts, float* out, float* part_min,
                         float* part_max, int B, long long n, int T, int F,
-                        int K, int hop, int detrend, int log10_out,
-                        int with_stats, int f_lo, void* stream) {
+                        int K, int L, int hop, int detrend, int log10_out,
+                        int mode, int with_stats, int f_lo, void* stream) {
   int log2k = 0;
   while ((1 << log2k) < K) ++log2k;
   if (K < 32 || K > 8192 || (1 << log2k) != K || !band_ok(f_lo, F, K) ||
-      !detrend_ok(detrend))
+      !detrend_ok(detrend) || L < 1 || L > K ||
+      !mode_ok(mode, log10_out, with_stats))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = B * T;
@@ -2816,31 +2942,40 @@ int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
   switch (log2k - 1) {
     case 4:
       return r2_launch<4>(x, win, tw, wts, out, part_min, part_max, R, n, T,
-                          band, hop, detrend, log10_out, with_stats, s);
+                          band, hop, L, detrend, log10_out, mode, with_stats,
+                          s);
     case 5:
       return r2_launch<5>(x, win, tw, wts, out, part_min, part_max, R, n, T,
-                          band, hop, detrend, log10_out, with_stats, s);
+                          band, hop, L, detrend, log10_out, mode, with_stats,
+                          s);
     case 6:
       return r2_launch<6>(x, win, tw, wts, out, part_min, part_max, R, n, T,
-                          band, hop, detrend, log10_out, with_stats, s);
+                          band, hop, L, detrend, log10_out, mode, with_stats,
+                          s);
     case 7:
       return r2_launch<7>(x, win, tw, wts, out, part_min, part_max, R, n, T,
-                          band, hop, detrend, log10_out, with_stats, s);
+                          band, hop, L, detrend, log10_out, mode, with_stats,
+                          s);
     case 8:
       return r2_launch<8>(x, win, tw, wts, out, part_min, part_max, R, n, T,
-                          band, hop, detrend, log10_out, with_stats, s);
+                          band, hop, L, detrend, log10_out, mode, with_stats,
+                          s);
     case 9:
       return r2_launch<9>(x, win, tw, wts, out, part_min, part_max, R, n, T,
-                          band, hop, detrend, log10_out, with_stats, s);
+                          band, hop, L, detrend, log10_out, mode, with_stats,
+                          s);
     case 10:
       return r2_launch<10>(x, win, tw, wts, out, part_min, part_max, R, n,
-                           T, band, hop, detrend, log10_out, with_stats, s);
+                           T, band, hop, L, detrend, log10_out, mode,
+                           with_stats, s);
     case 11:
       return r2_launch<11>(x, win, tw, wts, out, part_min, part_max, R, n,
-                           T, band, hop, detrend, log10_out, with_stats, s);
+                           T, band, hop, L, detrend, log10_out, mode,
+                           with_stats, s);
     case 12:
       return r2_launch<12>(x, win, tw, wts, out, part_min, part_max, R, n,
-                           T, band, hop, detrend, log10_out, with_stats, s);
+                           T, band, hop, L, detrend, log10_out, mode,
+                           with_stats, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -2854,7 +2989,8 @@ int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
 // from core/stft.py::fft_plan, with split the first row of the split
 // step's twiddles and rader the first row of the Rader stage's b^ (-1
 // without one); wts, out, part_min, part_max, F and f_lo as the FFT
-// route's. K is even, 32 to 8192; detrend is 0 for none, 1 for constant, 2 for
+// route's. K, the transform length, is even, 32 to 8192, L, win and mode
+// as the FFT route's; detrend is 0 for none, 1 for constant, 2 for
 // linear, and any other value is refused. The caller keeps B * T within
 // the grid's limit.
 int stft_mixed_fft_psd_launch(const float* x, const double* win,
@@ -2862,12 +2998,13 @@ int stft_mixed_fft_psd_launch(const float* x, const double* win,
                               const int* stages, int n_stages, int split,
                               int rader, const double* wts, float* out,
                               float* part_min, float* part_max, int B,
-                              long long n, int T, int F, int K, int hop,
-                              int detrend, int log10_out, int with_stats,
-                              int f_lo, void* stream) {
+                              long long n, int T, int F, int K, int L,
+                              int hop, int detrend, int log10_out, int mode,
+                              int with_stats, int f_lo, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   if (K < 32 || K > 8192 || K % 2 || !band_ok(f_lo, F, K) ||
-      !detrend_ok(detrend) || split < 0)
+      !detrend_ok(detrend) || split < 0 || L < 1 || L > K ||
+      !mode_ok(mode, log10_out, with_stats))
     return static_cast<int>(bad);
   const Band band{f_lo, F};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2891,7 +3028,7 @@ int stft_mixed_fft_psd_launch(const float* x, const double* win,
         static_cast<unsigned>(B) * static_cast<unsigned>(T);
     kernel<<<blocks, threads, smem, st>>>(x, win, perm, tw2, wts, out,
                                           part_min, part_max, n, T, band, K,
-                                          hop, detrend, log10_out,
+                                          hop, L, detrend, log10_out, mode,
                                           with_stats, 1, plan);
     return static_cast<int>(cudaGetLastError());
   }
@@ -2912,31 +3049,34 @@ int stft_mixed_fft_psd_launch(const float* x, const double* win,
       static_cast<unsigned>((R + plan.frames - 1) / plan.frames);
   kernel<<<blocks, MIX_THREADS, smem, st>>>(x, win, perm, tw2, wts, out,
                                              part_min, part_max, n, R, T,
-                                             band, K, hop, detrend, log10_out,
-                                             with_stats, plan);
+                                             band, K, hop, L, detrend,
+                                             log10_out, mode, with_stats,
+                                             plan);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The odd route, on `stream`; returns a cudaError_t as the mixed-radix
 // launcher does. Its operands are the mixed-radix launcher's for an odd K,
-// 33 to 8191: perm is (K,) int32, the plan transforms K points (with a
-// Rader stage, K - 1) and has no split rows. pack 0 transforms every frame
-// alone (for timing the packing); 1 packs pairs of frames as the kernel's
-// guard allows. The kernel runs B * ceil(T / 2) blocks.
+// the transform length, 33 to 8191 (L, win and mode as the FFT route's):
+// perm is (K,) int32, the plan transforms K points (with a Rader stage,
+// K - 1) and has no split rows. pack 0 transforms every frame alone (for
+// timing the packing); 1 packs pairs of frames as the kernel's guard
+// allows. The kernel runs B * ceil(T / 2) blocks.
 int stft_odd_fft_psd_launch(const float* x, const double* win,
                             const int* perm, const double* tw,
                             const int* stages, int n_stages, int rader,
                             const double* wts, float* out, float* part_min,
                             float* part_max, int B, long long n, int T,
-                            int F, int K, int hop, int detrend,
-                            int log10_out, int with_stats, int pack,
+                            int F, int K, int L, int hop, int detrend,
+                            int log10_out, int mode, int with_stats, int pack,
                             int f_lo, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   ConvPlan plan;
   int rmax = 0;
   int threads = 0;
   if (K < 33 || K > 8191 || K % 2 == 0 || !band_ok(f_lo, F, K) ||
-      !detrend_ok(detrend) || rader < -1 ||
+      !detrend_ok(detrend) || rader < -1 || L < 1 || L > K ||
+      !mode_ok(mode, log10_out, with_stats) ||
       !conv_plan(stages, n_stages, rader >= 0 ? K - 1 : K, rader, -1,
                  rader >= 0, K,
                  rader >= 0 ? RADER_NARROW_POINTS : ODD_NARROW_POINTS,
@@ -2958,8 +3098,8 @@ int stft_odd_fft_psd_launch(const float* x, const double* win,
       static_cast<unsigned>(B) * static_cast<unsigned>((T + 1) / 2);
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, win, perm, reinterpret_cast<const double2*>(tw), wts, out, part_min,
-      part_max, n, T, Band{f_lo, F}, K, hop, detrend, log10_out, with_stats,
-      pack != 0, plan);
+      part_max, n, T, Band{f_lo, F}, K, hop, L, detrend, log10_out, mode,
+      with_stats, pack != 0, plan);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2972,7 +3112,8 @@ int stft_odd_fft_psd_launch(const float* x, const double* win,
 // core/stft.py::bluestein_plan, with bhat, chirp and split the first rows
 // of b^ (M rows), of the chirp (N rows) and of the split step (N rows;
 // -1 for odd K, which has none); wts, out, part_min, part_max, F and f_lo
-// as the FFT route's. K is 32 to 8192, M >= 2N - 1 (N = K/2, or K when odd)
+// as the FFT route's. K, the transform length, is 32 to 8192 (L, win and
+// mode as the FFT route's), M >= 2N - 1 (N = K/2, or K when odd)
 // with radices 2, 3, 5 and 7; M past BLUE_MAX_BLOCK_POINTS runs on
 // clusters of two blocks and must be even with a last stage of radix 2 at
 // span M/2, and K odd. detrend is 0 for none, 1 for constant, 2 for
@@ -2984,9 +3125,9 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
                               int n_stages, int M, int bhat, int chirp,
                               int split, const double* wts, float* out,
                               float* part_min, float* part_max, int B,
-                              long long n, int T, int F, int K, int hop,
-                              int detrend, int log10_out, int with_stats,
-                              int f_lo, void* stream) {
+                              long long n, int T, int F, int K, int L,
+                              int hop, int detrend, int log10_out, int mode,
+                              int with_stats, int f_lo, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   const bool odd = K % 2 == 1;
   const int N = odd ? K : K / 2;
@@ -2994,7 +3135,8 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
   const Band band{f_lo, F};
   if (K < 32 || K > 8192 || !band_ok(f_lo, F, K) || !detrend_ok(detrend) ||
       M < 2 * N - 1 || bhat < 0 || chirp < 0 || (split < 0) != odd ||
-      n_stages < 1 || n_stages > MIX_MAX_STAGES)
+      n_stages < 1 || n_stages > MIX_MAX_STAGES || L < 1 || L > K ||
+      !mode_ok(mode, log10_out, with_stats))
     return static_cast<int>(bad);
   for (int s = 0; s < n_stages; ++s)
     if (stages[4 * s] > BLUE_MAX_RADIX) return static_cast<int>(bad);
@@ -3018,11 +3160,17 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
     return static_cast<int>(bad);
   const int variant =
       ranks == 2 ? 2 : (local <= BLUE_TWO_BLOCK_POINTS ? 1 : 0);
-  const auto kernel = variant == 2   ? stft_bluestein_psd_kernel<2, false>
-                      : variant == 1 ? stft_bluestein_psd_kernel<1, true>
-                                     : stft_bluestein_psd_kernel<1, false>;
+  const bool ext = L < K || mode != OUT_PSD;
+  decltype(&stft_bluestein_psd_kernel<1, false, false>) const by_variant[2][3] =
+      {{stft_bluestein_psd_kernel<1, false, false>,
+        stft_bluestein_psd_kernel<1, true, false>,
+        stft_bluestein_psd_kernel<2, false, false>},
+       {stft_bluestein_psd_kernel<1, false, true>,
+        stft_bluestein_psd_kernel<1, true, true>,
+        stft_bluestein_psd_kernel<2, false, true>}};
+  const auto kernel = by_variant[ext][variant];
   const size_t smem = static_cast<size_t>(local) * sizeof(double2);
-  const int err = raise_smem(kernel, smem, blue_smem_set[variant]);
+  const int err = raise_smem(kernel, smem, blue_smem_set[ext][variant]);
   if (err != 0) return err;
   const unsigned units =
       static_cast<unsigned>(B) *
@@ -3031,8 +3179,8 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
   const double2* tw2 = reinterpret_cast<const double2*>(tw);
   if (ranks == 1) {
     kernel<<<units, threads, smem, s>>>(
-        x, win, tw2, wts, out, part_min, part_max, n, T, band, K, hop,
-        detrend, log10_out, with_stats, M, bhat, chirp, half_row, plan);
+        x, win, tw2, wts, out, part_min, part_max, n, T, band, K, hop, L,
+        detrend, log10_out, mode, with_stats, M, bhat, chirp, half_row, plan);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t config = {};
@@ -3049,7 +3197,8 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
   config.numAttrs = 1;
   const cudaError_t launched = cudaLaunchKernelEx(
       &config, kernel, x, win, tw2, wts, out, part_min, part_max, n, T, band,
-      K, hop, detrend, log10_out, with_stats, M, bhat, chirp, half_row, plan);
+      K, hop, L, detrend, log10_out, mode, with_stats, M, bhat, chirp,
+      half_row, plan);
   if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }

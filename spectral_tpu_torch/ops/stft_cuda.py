@@ -64,6 +64,21 @@ written to memory. All compute the same function, by five routes that
 The FFT kernels take the detrend as a code (:data:`DETREND_CODES`: 0
 none, 1 constant, 2 linear); their launchers refuse any other value.
 
+The extended modes. Routes go by the transform length nfft: a frame's
+nperseg samples load into an nfft-point transform whose other slots are
+zero (scipy's nfft, the zero-padded transform), the detrend taken over
+the nperseg samples, so nfft from 32 to 8192 runs on the FFT family of
+nfft's factorization whatever nperseg is (the descriptions above name
+the transform length nperseg where nfft == nperseg). Every epilogue takes
+an output mode (:data:`OUTPUT_MODES`): the PSD; the magnitude
+sqrt(re² + im²)·sqrt(w) in float64, rounded once (scipy's
+mode='magnitude'; its partials the magnitude's extrema); the complex STFT
+X·s as interleaved float2, s sqrt of the PSD scale (mode='complex') or 1
+(:func:`stft_complex`). A two-sided spectrum's bins past nfft/2 are the
+conjugates of their mirrors, bit for bit. A centered config is padded on
+the card before the launch (``core.stft.center_pad``, plain torch: the
+JAX package pads with ``jnp.pad``, no Pallas kernel).
+
 The fmin/fmax band mask (the reference masks rows before it normalizes,
 PlotEngine.py:114-127) is a bin range ``band=(lo, hi)``: every route writes
 the bins lo to hi - 1 alone, bin f at column f - lo, and reduces each
@@ -107,24 +122,28 @@ kernel or raise; nothing falls back to another route.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from spectral_tpu_torch.config import SpecConfig
-from spectral_tpu_torch.core.stft import (MAX_MIXED_RADIX, _window_f64,
-                                          bluestein_plan, dense_dft,
-                                          dft_matrices, ensure_real_waveform,
-                                          fft_plan, fft_twiddles,
-                                          frame_signal, num_frames,
-                                          onesided_weights, plan_radices)
+from spectral_tpu_torch.core.stft import (MAX_MIXED_RADIX, _require_power,
+                                          _window_f64, bluestein_plan,
+                                          center_pad,
+                                          dense_dft, dft_matrices,
+                                          ensure_real_waveform, fft_plan,
+                                          fft_twiddles, frame_signal,
+                                          num_frames, onesided_weights,
+                                          plan_radices, psd_scale)
 from spectral_tpu_torch.ops import build
 
 KERNEL = "stft_psd"
-MAX_NPERSEG = 8192           # the GUI's ceiling (GUI.py:87-90)
-MIN_FFT_NPERSEG = 32         # the GUI's floor, the FFT kernels' smallest;
-                             # below it the GEMM kernel computes
+MAX_NPERSEG = 8192           # the GUI's ceiling (GUI.py:87-90), and the FFT
+                             # kernels' longest transform
+MIN_FFT_NPERSEG = 32         # the GUI's floor, the FFT kernels' shortest
+                             # transform; below it the GEMM kernel computes
 # |X|² past float32's range makes the bin inf, as the JAX package's float32
 # pipeline overflows there: the clip's extrema turn inf and its finite flag
 # (the overflow guard) trips, though float64 could carry the value
@@ -142,6 +161,9 @@ MAX_BLOCKS = 2 ** 31 - 1
 launches = {"gemm": 0, "fft": 0, "mixed": 0, "odd": 0, "bluestein": 0}
 # the FFT kernels' detrend codes (DETREND_* in csrc/stft_psd.cu)
 DETREND_CODES = {"none": 0, "constant": 1, "linear": 2}
+# the epilogues' output modes (OUT_* in csrc/stft_psd.cu): cfg.mode, and
+# "complex" for the complex STFT
+OUTPUT_MODES = {"psd": 0, "magnitude": 1, "complex": 2}
 
 
 class DftConstants(NamedTuple):
@@ -152,27 +174,27 @@ class DftConstants(NamedTuple):
 
 
 def unsupported_reason(cfg: SpecConfig) -> Optional[str]:
-    """Why the kernel cannot compute cfg (naming, by its bracketed label,
-    the ROADMAP item that will bring it), or None when it can. These are the semantic conditions of
-    the JAX package's ``pallas_supported``; its gcd and VMEM conditions are
-    TPU layout limits, and the kernel reads frames by pointer."""
-    if cfg.mode != "psd" or cfg.center:
-        return ("the STFT kernel computes uncentered PSD; other modes "
-                "arrive with ROADMAP [ext-modes] (the extended modes)")
+    """Why the kernels cannot compute cfg (naming, by its bracketed label,
+    the ROADMAP item that will bring it), or None when they can: a frame
+    past 8192 samples, which no block's shared memory holds as the FFT
+    kernels do. Every mode, centered framing and a two-sided spectrum are
+    computed; the JAX package's ``pallas_supported`` refuses those, and
+    its gcd and VMEM conditions are TPU layout limits (the kernels read
+    frames by pointer)."""
     if cfg.nperseg > MAX_NPERSEG:
         return (f"nperseg {cfg.nperseg} > {MAX_NPERSEG}, the GUI's ceiling "
-                "(GUI.py:87-90); larger transforms arrive with ROADMAP "
-                "[ext-modes] (the extended modes)")
+                "(GUI.py:87-90); transforms past it arrive with ROADMAP "
+                "[large-nperseg]")
     return None
 
 
 def kernel_supported(cfg: SpecConfig) -> bool:
-    """The semantic conditions of the JAX package's ``pallas_supported``,
-    nperseg <= 8192, PSD mode, uncentered, with any nfft >= nperseg (the
-    JAX package computes a zero-padded transform outside its kernel, on
-    its dense matmul route; here the GEMM kernel takes it). The band mask
-    and the mel branch are not the kernel's concern: the caller passes the
-    bins (``band``) and projects the PSD (``ops.mel_cuda``)."""
+    """Whether the kernels compute cfg: nperseg <= 8192, in any mode,
+    centered or not, one- or two-sided, with any nfft >= nperseg (the JAX
+    package computes those outside its Pallas kernel, on its dense matmul
+    route). The band mask and the mel branch are not the kernel's concern:
+    the caller passes the bins (``band``) and projects the PSD
+    (``ops.mel_cuda``)."""
     return unsupported_reason(cfg) is None
 
 
@@ -184,22 +206,21 @@ def check_supported(cfg: SpecConfig) -> None:
 
 def route(cfg: SpecConfig) -> str:
     """The kernel that computes a supported config (:func:`kernel_supported`;
-    others raise NotImplementedError), under any detrend and whatever its
-    band or mel settings: ``"gemm"`` for
-    nperseg below 32 and for every nfft > nperseg (the zero-padded
-    transform: the FFT kernels' transform length is nperseg, the GEMM
-    kernel's folded matrices carry the padding, (nperseg, nfft // 2 + 1));
-    ``"fft"`` for a power-of-two nperseg from 32 to
-    8192; for the other nperseg in that range whose plan's radices
+    others raise NotImplementedError), by its transform length nfft, under
+    any detrend and mode and whatever its band or mel settings: ``"gemm"``
+    for nfft below 32 or past 8192 (its folded (nperseg, F) matrices carry
+    any zero padding); ``"fft"`` for a power-of-two nfft from 32 to 8192;
+    for the other nfft in that range whose plan's radices
     (``core.stft.plan_radices``: the prime factors of the transform
-    length, nperseg/2 or an odd nperseg, or of the length less one where
-    a Rader stage takes a prime length past :data:`MAX_MIXED_RADIX`) are
+    length, nfft/2 or an odd nfft, or of the length less one where a
+    Rader stage takes a prime length past :data:`MAX_MIXED_RADIX`) are
     all at most :data:`MAX_MIXED_RADIX`, ``"mixed"`` when even and
     ``"odd"`` when odd; ``"bluestein"`` for the rest (transform lengths
-    with a larger prime). A pure function of the config."""
+    with a larger prime). The FFT kernels load a frame's nperseg samples
+    and zero the rest of the nfft slots. A pure function of the config."""
     check_supported(cfg)
-    k = cfg.nperseg
-    if cfg.nfft_ != k or not MIN_FFT_NPERSEG <= k <= MAX_NPERSEG:
+    k = cfg.nfft_
+    if not MIN_FFT_NPERSEG <= k <= MAX_NPERSEG:
         return "gemm"
     if k & (k - 1) == 0:
         return "fft"
@@ -238,51 +259,108 @@ def check_band(cfg: SpecConfig, band) -> Tuple[int, int]:
     return lo, hi
 
 
-def dft_constants(cfg: SpecConfig, fs: float, device,
-                  band=None) -> DftConstants:
+def kernel_weights(cfg: SpecConfig, fs: float,
+                   out: Optional[str] = None) -> np.ndarray:
+    """The epilogues' per-bin weights (F,) float64 for the output ``out``
+    (cfg.mode when None): the PSD's one-sided weights for "psd"; for
+    "magnitude" their square roots (scipy's mode='magnitude', which has no
+    one-sided doubling: ``onesided_weights`` doubles PSD mode alone);
+    sqrt of the PSD scale at every bin for "complex" (scipy's
+    mode='complex'); 1 for "stft", the unscaled complex STFT."""
+    out = out or cfg.mode
+    if out == "stft":
+        return np.ones(cfg.n_freqs)
+    if out == "complex":
+        return np.full(cfg.n_freqs, np.sqrt(psd_scale(cfg, fs)))
+    w = onesided_weights(cfg, fs)
+    return np.sqrt(w) if out == "magnitude" else w
+
+
+def _out_mode(out: str) -> int:
+    """The epilogue's OUTPUT_MODES code of an output name."""
+    return OUTPUT_MODES["complex" if out == "stft" else out]
+
+
+def mirrored_dft_matrices(cfg: SpecConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """``dft_matrices(cfg)``, with a two-sided spectrum's bins f past nfft/2
+    the conjugates of bins nfft - f column for column (X[f] = conj X[nfft -
+    f] for a real frame), so that the GEMM kernel and the plain version
+    give mirrored bins bitwise conjugate, as the FFT kernels do. The
+    arrays are copies for a two-sided config, else the shared cache's."""
+    a_re, a_im = dft_matrices(cfg)
+    if cfg.onesided:
+        return a_re, a_im
+    K = cfg.nfft_
+    f = np.arange(K // 2 + 1, K)
+    a_re, a_im = a_re.copy(), a_im.copy()
+    a_re[:, f] = a_re[:, K - f]
+    a_im[:, f] = -a_im[:, K - f]
+    return a_re, a_im
+
+
+@functools.lru_cache(maxsize=16)
+def padded_window(cfg: SpecConfig) -> np.ndarray:
+    """The FFT kernels' window operand: cfg's nperseg-point window, zero
+    past it to nfft points, so the kernels read a pair of window values
+    anywhere in the transform. The array is cached and shared."""
+    w = np.zeros(cfg.nfft_)
+    w[:cfg.nperseg] = _window_f64(cfg)
+    return w
+
+
+def dft_constants(cfg: SpecConfig, fs: float, device, band=None,
+                  out: Optional[str] = None) -> DftConstants:
     """The operands for (cfg, fs) in float64, the kernel's precision,
     cached per device: with band=(lo, hi) the matrices' columns and the
     weights of those bins only (the JAX package folds the band into the
     dense matrix columns the same way, spectral_tpu/core/stft.py:746-755),
-    copied contiguous."""
+    copied contiguous; the weights of the output ``out``
+    (:func:`kernel_weights`), the matrices mirrored when two-sided
+    (:func:`mirrored_dft_matrices`)."""
     lo, hi = check_band(cfg, band)
-    key = (cfg, float(fs), str(torch.device(device)), lo, hi)
+    out = out or cfg.mode
+    key = (cfg, float(fs), str(torch.device(device)), lo, hi, out)
     consts = _CONSTANTS.get(key)
     if consts is None:
-        a_re, a_im = dft_matrices(cfg)
+        a_re, a_im = mirrored_dft_matrices(cfg)
         consts = constants_from_numpy(
             np.ascontiguousarray(a_re[:, lo:hi]),
             np.ascontiguousarray(a_im[:, lo:hi]),
-            onesided_weights(cfg, fs)[lo:hi], device, torch.float64)
+            kernel_weights(cfg, fs, out)[lo:hi], device, torch.float64)
         _CONSTANTS[key] = consts
     return consts
 
 
 class FftConstants(NamedTuple):
-    """The FFT kernel's operands, float64: the window (K,), the stage
-    twiddle table (K - 1, 2) of (cos, sin) (``core.stft.fft_twiddles``),
-    and the weights (F,)."""
+    """The FFT kernel's operands, float64: the window zero-padded to the
+    transform length K = nfft (:func:`padded_window`), the stage twiddle
+    table (K - 1, 2) of (cos, sin) (``core.stft.fft_twiddles``), and the
+    weights (F,) (:func:`kernel_weights`)."""
     window: torch.Tensor
     twiddles: torch.Tensor
     wts: torch.Tensor
 
 
-def fft_constants(cfg: SpecConfig, fs: float, device) -> FftConstants:
-    """The FFT route's operands for (cfg, fs), the host's float64 numpy
-    values unrounded, cached per device. No (K, F) matrix is built."""
-    key = ("fft", cfg, float(fs), str(torch.device(device)))
+def fft_constants(cfg: SpecConfig, fs: float, device,
+                  out: Optional[str] = None) -> FftConstants:
+    """The FFT route's operands for (cfg, fs) and the output ``out``
+    (cfg.mode when None), the host's float64 numpy values unrounded,
+    cached per device. No (K, F) matrix is built."""
+    out = out or cfg.mode
+    key = ("fft", cfg, float(fs), str(torch.device(device)), out)
     consts = _CONSTANTS.get(key)
     if consts is None:
-        consts = FftConstants(_put(_window_f64(cfg), device),
-                              _put(fft_twiddles(cfg.nperseg), device),
-                              _put(onesided_weights(cfg, fs), device))
+        consts = FftConstants(_put(padded_window(cfg), device),
+                              _put(fft_twiddles(cfg.nfft_), device),
+                              _put(kernel_weights(cfg, fs, out), device))
         _CONSTANTS[key] = consts
     return consts
 
 
 class MixedConstants(NamedTuple):
-    """The mixed-radix and odd kernels' operands: the window (K,), the
-    load order (N,) int32 (N = K/2, or K when odd), the plan's twiddle
+    """The mixed-radix and odd kernels' operands: the window zero-padded to
+    K = nfft, the load order (N,) int32 (N = K/2, or K when odd), the
+    plan's twiddle
     table (rows, 2) and the weights (F,) in float64 on the device, and the
     plan's (S, 4) int32 stage rows, the split step's first row (-1 when
     odd) and the Rader stage's (-1 without one) on the host
@@ -296,18 +374,20 @@ class MixedConstants(NamedTuple):
     rader: int
 
 
-def mixed_constants(cfg: SpecConfig, fs: float, device) -> MixedConstants:
-    """The mixed-radix and odd routes' operands for (cfg, fs), the host's
-    float64 numpy values unrounded, cached per device. No (K, F) matrix is
-    built."""
-    key = ("mixed", cfg, float(fs), str(torch.device(device)))
+def mixed_constants(cfg: SpecConfig, fs: float, device,
+                    out: Optional[str] = None) -> MixedConstants:
+    """The mixed-radix and odd routes' operands for (cfg, fs) and the output
+    ``out`` (cfg.mode when None), the host's float64 numpy values
+    unrounded, cached per device. No (K, F) matrix is built."""
+    out = out or cfg.mode
+    key = ("mixed", cfg, float(fs), str(torch.device(device)), out)
     consts = _CONSTANTS.get(key)
     if consts is None:
-        plan = fft_plan(cfg.nperseg)
-        consts = MixedConstants(_put(_window_f64(cfg), device),
+        plan = fft_plan(cfg.nfft_)
+        consts = MixedConstants(_put(padded_window(cfg), device),
                                 _put(plan.perm, device, torch.int32),
                                 _put(plan.twiddles, device),
-                                _put(onesided_weights(cfg, fs), device),
+                                _put(kernel_weights(cfg, fs, out), device),
                                 plan.stages.copy(), plan.split, plan.rader)
         _CONSTANTS[key] = consts
     return consts
@@ -315,7 +395,8 @@ def mixed_constants(cfg: SpecConfig, fs: float, device) -> MixedConstants:
 
 class BluesteinConstants(NamedTuple):
     """The Bluestein kernel's operands (``core.stft.bluestein_plan``): the
-    window (K,), the plan's twiddle table (rows, 2) and the weights (F,)
+    window zero-padded to K = nfft, the plan's twiddle table (rows, 2) and
+    the weights (F,)
     in float64 on the device; M's (S, 4) int32 stage rows on the host; M
     and the first rows of b̂, the chirp and the split step (-1 when odd)."""
     window: torch.Tensor
@@ -328,18 +409,20 @@ class BluesteinConstants(NamedTuple):
     split: int
 
 
-def bluestein_constants(cfg: SpecConfig, fs: float,
-                        device) -> BluesteinConstants:
-    """The Bluestein route's operands for (cfg, fs), the host's float64
-    numpy values unrounded, cached per device. No (K, F) matrix is
-    built."""
-    key = ("bluestein", cfg, float(fs), str(torch.device(device)))
+def bluestein_constants(cfg: SpecConfig, fs: float, device,
+                        out: Optional[str] = None) -> BluesteinConstants:
+    """The Bluestein route's operands for (cfg, fs) and the output ``out``
+    (cfg.mode when None), the host's float64 numpy values unrounded,
+    cached per device. No (K, F) matrix is built."""
+    out = out or cfg.mode
+    key = ("bluestein", cfg, float(fs), str(torch.device(device)), out)
     consts = _CONSTANTS.get(key)
     if consts is None:
-        plan = bluestein_plan(cfg.nperseg)
-        consts = BluesteinConstants(_put(_window_f64(cfg), device),
+        plan = bluestein_plan(cfg.nfft_)
+        consts = BluesteinConstants(_put(padded_window(cfg), device),
                                     _put(plan.twiddles, device),
-                                    _put(onesided_weights(cfg, fs), device),
+                                    _put(kernel_weights(cfg, fs, out),
+                                         device),
                                     plan.stages.copy(), plan.m, plan.bhat,
                                     plan.chirp, plan.split)
         _CONSTANTS[key] = consts
@@ -372,41 +455,68 @@ def _detrend_frames(frames: torch.Tensor, detrend: str) -> torch.Tensor:
     return frames
 
 
-def stft_psd_reference(x: torch.Tensor, consts: DftConstants,
-                       cfg: SpecConfig, *, log10_out: bool = False,
-                       with_stats: bool = False):
-    """The plain version of the kernel: (B, n) -> (B, T, F) PSD in x's
-    dtype, plus (pmin, pmax) of shape (B,) under with_stats
-    (NaN-propagating, like jnp.min/jnp.max). F is the constants' columns:
-    the band's bins for banded constants (``dft_constants(..., band)``),
-    each the same dot product as the full band's.
-
-    It computes as the kernel does: from nperseg 32, where the FFT routes
-    take it, each frame detrended explicitly (:func:`_detrend_frames`);
-    below, the detrend only folded into the matrices, as the GEMM kernel
-    has it; float64 matmuls, epilogue and log10, rounded once to x's dtype,
-    and a bin whose |X|² lies past the float32 range is inf
-    (:data:`F32_MAX`). ``consts`` must be float64
-    (``dft_constants(cfg, fs, device)``): float32 matrices would round A,
-    which the kernel does not."""
-    B = x.shape[0]
-    if num_frames(x.shape[-1], cfg.nperseg, cfg.hop_) <= 0:
-        return _empty_result(B, consts.a_re.shape[1], x, with_stats)
+def _reference_dft(x: torch.Tensor, consts: DftConstants, cfg: SpecConfig):
+    """The plain version's float64 transform of x's (uncentered) frames:
+    (X_re, X_im), (B, T, F) each, as the kernels compute it: from nfft 32
+    to 8192, where the FFT routes take it, each nperseg-sample frame
+    detrended explicitly (:func:`_detrend_frames`); elsewhere the detrend
+    only folded into the matrices, as the GEMM kernel has it; the zero
+    padding to nfft in the matrices' rows (``dft_matrices``)."""
     if consts.a_re.dtype != torch.float64:
         raise ValueError(f"the plain STFT computes in float64; got "
                          f"{consts.a_re.dtype} constants")
     frames = frame_signal(x.double(), cfg.nperseg, cfg.hop_)
-    if cfg.nperseg >= MIN_FFT_NPERSEG:      # the FFT routes' explicit detrend
+    if route(cfg) != "gemm":              # the FFT routes' explicit detrend
         frames = _detrend_frames(frames, cfg.detrend)
-    xr, xi = dense_dft(frames, consts.a_re, consts.a_im)
+    return dense_dft(frames, consts.a_re, consts.a_im)
+
+
+def stft_psd_reference(x: torch.Tensor, consts: DftConstants,
+                       cfg: SpecConfig, *, log10_out: bool = False,
+                       with_stats: bool = False):
+    """The plain version of the kernel: (B, n) -> (B, T, F) PSD, or with
+    cfg.mode 'magnitude' the magnitude, in x's dtype, plus (pmin, pmax) of
+    shape (B,) under with_stats (NaN-propagating, like jnp.min/jnp.max). F
+    is the constants' columns: the band's bins for banded constants
+    (``dft_constants(..., band)``), each the same dot product as the full
+    band's. x is framed as it stands (the caller pads a centered config,
+    ``core.stft.center_pad``).
+
+    It computes as the kernel does (:func:`_reference_dft`): float64
+    matmuls, epilogue and log10, rounded once to x's dtype; the power
+    (re² + im²)·w, the magnitude sqrt(re² + im²)·w with w the weights'
+    square roots (``dft_constants``' weights for cfg.mode), and a bin whose
+    |X|² lies past the float32 range inf (:data:`F32_MAX`). ``consts``
+    must be float64 (``dft_constants(cfg, fs, device)``): float32 matrices
+    would round A, which the kernel does not."""
+    B = x.shape[0]
+    if num_frames(x.shape[-1], cfg.nperseg, cfg.hop_) <= 0:
+        return _empty_result(B, consts.a_re.shape[1], x, with_stats)
+    xr, xi = _reference_dft(x, consts, cfg)
     power = xr * xr + xi * xi
-    p = torch.where(power > F32_MAX, torch.inf, power * consts.wts)
+    p = power.sqrt() if cfg.mode == "magnitude" else power
+    p = torch.where(power > F32_MAX, torch.inf, p * consts.wts)
     if log10_out:
         p = torch.log10(p + 1e-20)
     p = p.to(x.dtype)
     if with_stats:
         return p, torch.amin(p, dim=(1, 2)), torch.amax(p, dim=(1, 2))
     return p
+
+
+def stft_complex_reference(x: torch.Tensor, consts: DftConstants,
+                           cfg: SpecConfig) -> torch.Tensor:
+    """The plain version of the kernels' complex output: (B, n) -> (B, T,
+    F) X·w (``dft_constants(..., out='complex')`` scales by sqrt of the
+    PSD scale, ``out='stft'`` by 1), complex in x's precision (complex64
+    for float32), computed in float64 as :func:`stft_psd_reference` and
+    rounded once."""
+    ctype = torch.complex128 if x.dtype == torch.float64 else torch.complex64
+    if num_frames(x.shape[-1], cfg.nperseg, cfg.hop_) <= 0:
+        return torch.zeros((x.shape[0], 0, consts.a_re.shape[1]),
+                           dtype=ctype, device=x.device)
+    xr, xi = _reference_dft(x, consts, cfg)
+    return torch.complex(xr * consts.wts, xi * consts.wts).to(ctype)
 
 
 _LIB: list = []      # the library once loaded: finding it hashes the source
@@ -422,19 +532,19 @@ def _library() -> ctypes.CDLL:
     if lib.stft_psd_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.stft_psd_launch.argtypes = [ptr] * 7 + [
-            i32, ctypes.c_longlong, i32, i32, i32, i32, i32, i32, ptr]
+            i32, ctypes.c_longlong, i32, i32, i32, i32, i32, i32, i32, ptr]
         lib.stft_psd_launch.restype = i32
         lib.stft_fft_psd_launch.argtypes = [ptr] * 7 + [
-            i32, ctypes.c_longlong] + [i32] * 8 + [ptr]
+            i32, ctypes.c_longlong] + [i32] * 10 + [ptr]
         lib.stft_fft_psd_launch.restype = i32
         lib.stft_mixed_fft_psd_launch.argtypes = [ptr] * 5 + [i32] * 3 + [
-            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 8 + [ptr]
+            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 10 + [ptr]
         lib.stft_mixed_fft_psd_launch.restype = i32
         lib.stft_odd_fft_psd_launch.argtypes = [ptr] * 5 + [i32] * 2 + [
-            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 9 + [ptr]
+            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 11 + [ptr]
         lib.stft_odd_fft_psd_launch.restype = i32
         lib.stft_bluestein_psd_launch.argtypes = [ptr] * 4 + [i32] * 5 + [
-            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 8 + [ptr]
+            ptr] * 4 + [i32, ctypes.c_longlong] + [i32] * 10 + [ptr]
         lib.stft_bluestein_psd_launch.restype = i32
         lib.stft_psd_freq_tiles.argtypes = [i32]
         lib.stft_psd_freq_tiles.restype = i32
@@ -447,17 +557,22 @@ def _library() -> ctypes.CDLL:
 def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
                    log10_out: bool, with_stats: bool,
                    kernel: Optional[str] = None, pack: bool = True,
-                   partials: bool = False, band=None):
-    """The route's launch; ``pack=False`` makes the odd kernel transform
-    every frame alone, for timing its packing. With ``partials`` (and
-    with_stats) it returns the PSD and the kernel's raw partials, (2,
-    n_tiles, B, T), unreduced. band=(lo, hi) writes those bins only, and
-    the partials reduce over them: the FFT kernels compute the whole
-    transform and store the band's bins from its weights' rows (the full
-    weights, read at the band's bins), the GEMM kernel computes the band's
-    columns alone."""
+                   partials: bool = False, band=None,
+                   out_mode: Optional[str] = None):
+    """The route's launch on x's uncentered frames; ``pack=False`` makes
+    the odd kernel transform every frame alone, for timing its packing.
+    With ``partials`` (and with_stats) it returns the PSD and the kernel's
+    raw partials, (2, n_tiles, B, T), unreduced. band=(lo, hi) writes
+    those bins only, and the partials reduce over them: the FFT kernels
+    compute the whole transform and store the band's bins from its
+    weights' rows (the full weights, read at the band's bins), the GEMM
+    kernel computes the band's columns alone. ``out_mode`` is the
+    epilogue's output (:func:`kernel_weights`; cfg.mode when None):
+    "complex" and "stft" give a complex64 (B, T, F) tensor, without
+    log10_out or with_stats."""
     lib = _library()
     kernel = kernel or route(cfg)
+    out_mode = out_mode or cfg.mode
     if x.dtype != torch.float32:
         raise TypeError(f"the STFT kernel computes in float32, got {x.dtype}; "
                         "cast the waveform explicitly")
@@ -465,13 +580,18 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
         raise ValueError(f"the STFT kernel takes CUDA tensors, got {x.device}")
     if not x.is_contiguous():
         raise ValueError("the STFT kernel needs a contiguous (B, n) waveform")
+    mode = _out_mode(out_mode)
+    cplx = mode == OUTPUT_MODES["complex"]
     B, n = x.shape
     T = num_frames(n, cfg.nperseg, cfg.hop_)
     f_lo, f_hi = check_band(cfg, band)
     F = f_hi - f_lo
+    out_dtype = torch.complex64 if cplx else torch.float32
     if T <= 0:
         if partials:
             return x.new_zeros((B, 0, F)), x.new_zeros((2, 1, B, 0))
+        if cplx:
+            return torch.zeros((B, 0, F), dtype=out_dtype, device=x.device)
         return _empty_result(B, F, x, with_stats)
     if B * T > MAX_ROWS:
         raise ValueError(f"at most {MAX_ROWS} frames per launch, got "
@@ -480,52 +600,52 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
     if n_tiles > 1 and -(-B * T // GEMM_TILE_ROWS) * n_tiles > MAX_BLOCKS:
         raise ValueError(f"{B} clips x {T} frames x {F} bins is past the "
                          f"GEMM kernel's {MAX_BLOCKS} blocks a launch")
-    out = torch.empty((B, T, F), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, T, F), dtype=out_dtype, device=x.device)
     parts = (torch.empty((2, n_tiles, B * T), dtype=torch.float32,
                          device=x.device) if with_stats else None)
     stats = ((parts[0].data_ptr(), parts[1].data_ptr()) if with_stats
              else (None, None))
     detrend = DETREND_CODES[cfg.detrend]
+    K, L = cfg.nfft_, cfg.nperseg
+    opts = (detrend, int(log10_out), mode, int(with_stats))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if kernel == "fft":
-            fc = fft_constants(cfg, fs, x.device)
+            fc = fft_constants(cfg, fs, x.device, out_mode)
             err = lib.stft_fft_psd_launch(
                 x.data_ptr(), fc.window.data_ptr(), fc.twiddles.data_ptr(),
-                fc.wts.data_ptr(), out.data_ptr(), *stats, B, n, T, F,
-                cfg.nperseg, cfg.hop_, detrend, int(log10_out),
-                int(with_stats), f_lo, stream)
+                fc.wts.data_ptr(), out.data_ptr(), *stats, B, n, T, F, K, L,
+                cfg.hop_, *opts, f_lo, stream)
         elif kernel == "mixed":
-            mc = mixed_constants(cfg, fs, x.device)
+            mc = mixed_constants(cfg, fs, x.device, out_mode)
             err = lib.stft_mixed_fft_psd_launch(
                 x.data_ptr(), mc.window.data_ptr(), mc.perm.data_ptr(),
                 mc.twiddles.data_ptr(), mc.stages.ctypes.data,
                 len(mc.stages), mc.split, mc.rader, mc.wts.data_ptr(),
-                out.data_ptr(), *stats, B, n, T, F, cfg.nperseg, cfg.hop_,
-                detrend, int(log10_out), int(with_stats), f_lo, stream)
+                out.data_ptr(), *stats, B, n, T, F, K, L, cfg.hop_, *opts,
+                f_lo, stream)
         elif kernel == "odd":
-            mc = mixed_constants(cfg, fs, x.device)
+            mc = mixed_constants(cfg, fs, x.device, out_mode)
             err = lib.stft_odd_fft_psd_launch(
                 x.data_ptr(), mc.window.data_ptr(), mc.perm.data_ptr(),
                 mc.twiddles.data_ptr(), mc.stages.ctypes.data,
                 len(mc.stages), mc.rader, mc.wts.data_ptr(), out.data_ptr(),
-                *stats, B, n, T, F, cfg.nperseg, cfg.hop_, detrend,
-                int(log10_out), int(with_stats), int(pack), f_lo, stream)
+                *stats, B, n, T, F, K, L, cfg.hop_, *opts, int(pack), f_lo,
+                stream)
         elif kernel == "bluestein":
-            bc = bluestein_constants(cfg, fs, x.device)
+            bc = bluestein_constants(cfg, fs, x.device, out_mode)
             err = lib.stft_bluestein_psd_launch(
                 x.data_ptr(), bc.window.data_ptr(), bc.twiddles.data_ptr(),
                 bc.stages.ctypes.data, len(bc.stages), bc.m, bc.bhat,
                 bc.chirp, bc.split, bc.wts.data_ptr(), out.data_ptr(),
-                *stats, B, n, T, F, cfg.nperseg, cfg.hop_, detrend,
-                int(log10_out), int(with_stats), f_lo, stream)
+                *stats, B, n, T, F, K, L, cfg.hop_, *opts, f_lo, stream)
         else:
-            dc = dft_constants(cfg, fs, x.device, (f_lo, f_hi))
+            dc = dft_constants(cfg, fs, x.device, (f_lo, f_hi), out_mode)
             err = lib.stft_psd_launch(
                 x.data_ptr(), dc.a_re.data_ptr(), dc.a_im.data_ptr(),
                 dc.wts.data_ptr(), out.data_ptr(), *stats, B, n, T, F,
-                cfg.nperseg, cfg.hop_, int(log10_out), int(with_stats),
-                stream)
+                cfg.nperseg, cfg.hop_, int(log10_out), mode,
+                int(with_stats), stream)
     if err != 0:
         raise RuntimeError(f"stft_psd {kernel} kernel launch failed: "
                            + lib.stft_psd_error_string(err).decode())
@@ -541,17 +661,21 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
 
 def stft_psd_partials(x: torch.Tensor, fs: float, cfg: SpecConfig,
                       band=None):
-    """The PSD of a (B, n) waveform and its per-row extrema unreduced:
-    (B, T, F) float32 and the partials (2, n_tiles, B, T), the min and then
-    the max of each frame's bins in each frequency tile (n_tiles 1 but on
-    the GEMM route's forced large tile), which ``ops.display_cuda.
-    clip_stats`` reduces per clip. band=(lo, hi) gives the bins lo to hi -
-    1 alone (F = hi - lo), and the partials over them. One launch of the
-    route's kernel for a CUDA tensor; for a CPU tensor the plain version,
-    and the partials its per-frame min and max (n_tiles 1)."""
+    """The PSD (or cfg.mode's magnitude) of a (B, n) waveform and its
+    per-row extrema unreduced: (B, T, F) float32 and the partials (2,
+    n_tiles, B, T), the min and then the max of each frame's bins in each
+    frequency tile (n_tiles 1 but on the GEMM route's forced large tile),
+    which ``ops.display_cuda.clip_stats`` reduces per clip. band=(lo, hi)
+    gives the bins lo to hi - 1 alone (F = hi - lo), and the partials over
+    them. A centered config pads x first (``core.stft.center_pad``). One
+    launch of the route's kernel for a CUDA tensor; for a CPU tensor the
+    plain version, and the partials its per-frame min and max (n_tiles
+    1)."""
     if x.ndim != 2:
         raise ValueError(f"expected a (B, n) waveform, got {x.ndim}-D")
     check_supported(cfg)
+    _require_power(cfg)
+    x = center_pad(x, cfg)
     if x.device.type == "cpu":
         p = stft_psd_reference(x, dft_constants(cfg, fs, x.device, band),
                                cfg)
@@ -568,30 +692,36 @@ def row_partials(p: torch.Tensor) -> torch.Tensor:
 def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
              with_stats: bool = False, band=None,
              _route: Optional[str] = None):
-    """Fused PSD spectrogram: (n,) or (B, n) -> (B?, T, F) float32.
+    """Fused PSD spectrogram: (n,) or (B, n) -> (B?, T, F) float32, the
+    PSD, or the magnitude when cfg.mode is 'magnitude' (scipy's
+    mode='magnitude'); cfg.mode 'complex' raises the JAX package's
+    ValueError (:func:`stft_complex` computes it).
 
     band=(lo, hi) computes the bins lo to hi - 1 alone (F = hi - lo; the
     fmin/fmax mask, ``core.stft.band_row_slice``), each bitwise the full
     band's bin on every route; None is the full band. with_stats=True
-    also returns each clip's PSD min and max over those bins, (B?,) each,
+    also returns each clip's min and max over those bins, (B?,) each,
     NaN-propagating, for ``core.scale.normalize_from_stats``; it cannot be
-    combined with log10_out. A config outside :func:`kernel_supported`
-    raises NotImplementedError on every device. On a CUDA tensor the
-    kernel is the one :func:`route` picks; ``_route`` forces another the
-    config allows ("gemm" always, "bluestein" on any nperseg from 32,
-    else only the config's own route), for timing the kernels against
-    each other."""
+    combined with log10_out. A centered config pads x first
+    (``core.stft.center_pad``); a two-sided one gives all nfft bins. A
+    config outside :func:`kernel_supported` raises NotImplementedError on
+    every device. On a CUDA tensor the kernel is the one :func:`route`
+    picks; ``_route`` forces another the config allows ("gemm" always,
+    "bluestein" on any nfft from 32 to 8192, else only the config's own
+    route), for timing the kernels against each other."""
     if with_stats and log10_out:
         raise ValueError("with_stats computes linear-PSD extrema; "
                          "combine with log10_out is unsupported")
+    _require_power(cfg)
     kernel = route(cfg)
     if _route is not None:
         forced = ["gemm", kernel]
-        if cfg.nperseg >= MIN_FFT_NPERSEG and cfg.nfft_ == cfg.nperseg:
+        if MIN_FFT_NPERSEG <= cfg.nfft_ <= MAX_NPERSEG:
             forced.append("bluestein")
         if _route not in forced:
             raise ValueError(f"no {_route!r} route for nperseg "
-                             f"{cfg.nperseg}, detrend {cfg.detrend!r}")
+                             f"{cfg.nperseg}, nfft {cfg.nfft_}, detrend "
+                             f"{cfg.detrend!r}")
         kernel = _route
     check_band(cfg, band)
     x = ensure_real_waveform(x)
@@ -601,9 +731,39 @@ def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
         return tuple(o[0] for o in out) if with_stats else out[0]
     if x.ndim != 2:
         raise ValueError(f"expected a (n,) or (B, n) waveform, got {x.ndim}-D")
+    x = center_pad(x, cfg)
     if x.device.type == "cpu":
         return stft_psd_reference(x, dft_constants(cfg, fs, x.device, band),
                                   cfg, log10_out=log10_out,
                                   with_stats=with_stats)
     return _stft_psd_cuda(x, fs, cfg, log10_out, with_stats, kernel,
                           band=band)
+
+
+def stft_complex(x, fs: float, cfg: SpecConfig, band=None, *,
+                 scaled: bool = True):
+    """The complex STFT from the kernels' epilogue: (n,) or (B, n) -> (B?,
+    T, F), frame-major, X of each windowed, detrended (and zero-padded)
+    frame, whatever cfg.mode. scaled=True multiplies it by sqrt of the PSD
+    scale (scipy's mode='complex', with no one-sided doubling); False
+    gives the unscaled transform (``core.stft.stft``). A two-sided
+    spectrum's bins past nfft/2 are the conjugates of their mirrors
+    bitwise. band, centering, routes and devices as :func:`stft_psd`: on a
+    CUDA tensor one launch of the route's kernel (float32 in, complex64
+    out; another dtype raises TypeError), on a CPU tensor the plain
+    version (:func:`stft_complex_reference`), complex in x's
+    precision."""
+    kernel = route(cfg)
+    out_mode = "complex" if scaled else "stft"
+    check_band(cfg, band)
+    x = ensure_real_waveform(x)
+    if x.ndim == 1:
+        return stft_complex(x[None], fs, cfg, band, scaled=scaled)[0]
+    if x.ndim != 2:
+        raise ValueError(f"expected a (n,) or (B, n) waveform, got {x.ndim}-D")
+    x = center_pad(x, cfg)
+    if x.device.type == "cpu":
+        return stft_complex_reference(
+            x, dft_constants(cfg, fs, x.device, band, out_mode), cfg)
+    return _stft_psd_cuda(x, fs, cfg, False, False, kernel, band=band,
+                          out_mode=out_mode)

@@ -190,13 +190,15 @@ def export_spectrograms(clips: Iterable[Tuple[str, np.ndarray]], fs: float,
     complete; after a power loss that needs durable=True (fsync before the
     rename).
 
-    Band and mel configs export as ``batched_spectrogram_fn`` computes
-    them: the fmin/fmax band's rows, or the mel rows of the band on the
-    mel-centre axis, one PNG row each. A config the kernels cannot compute
-    (centered, nperseg > 8192) raises NotImplementedError
+    Band, mel, magnitude and centered configs export as
+    ``batched_spectrogram_fn`` computes them: the fmin/fmax band's rows,
+    or the mel rows of the band on the mel-centre axis, one PNG row each;
+    a centered config's frames span the padded clip, clip_samples + 2
+    (nperseg // 2) samples (the JAX package's unpack width). A config the
+    kernels cannot compute (nperseg > 8192) raises NotImplementedError
     naming its ROADMAP label; an empty band raises ValueError.
     ``cfg.precision == 'fast'`` runs at the contract precision, as the JAX
-    package's Pallas kernel does (ROADMAP [ext-modes]).
+    package's Pallas kernel does (ROADMAP [fast-tier]).
 
     The returned stats carry a per-stage breakdown
     (:meth:`PipelineStats.breakdown`)."""
@@ -214,7 +216,11 @@ def export_spectrograms(clips: Iterable[Tuple[str, np.ndarray]], fs: float,
         raise ValueError("prefetch must be >= 0")
     palette_mode = pixel_format == "palette"
     palette_arr = get_lut(colormap) if palette_mode else None
-    n_frames = num_frames(clip_samples, cfg.nperseg, cfg.hop_)
+    # center=True pads nperseg // 2 a side before framing
+    # (core.stft.center_pad): the unpack width is the padded clip's frames
+    n_pad = clip_samples + 2 * (cfg.nperseg // 2) if cfg.center \
+        else clip_samples
+    n_frames = num_frames(n_pad, cfg.nperseg, cfg.hop_)
     dev = resolve_device(device)
     # flip_image puts the PNG row order into the image itself; only the
     # packed words come back, so the float image is never written

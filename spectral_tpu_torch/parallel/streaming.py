@@ -87,7 +87,10 @@ def _stream_config(cfg: SpecConfig) -> SpecConfig:
     """The config every block is computed with: centered framing refused
     with the JAX package's text, the band dropped (the streamers emit the
     full one-sided axis), and a config the kernels cannot compute refused
-    on every device, naming its ROADMAP item."""
+    on every device, naming its ROADMAP item. The magnitude mode and nfft
+    > nperseg stream on the route of their nfft; the complex mode raises
+    the JAX package's ValueError at the first block, as its power
+    spectrogram does."""
     if cfg.center:
         raise ValueError(
             "streaming drivers require center=False: the overlap carry "

@@ -9,19 +9,23 @@ its own transform, so the JAX package's window-stacked DFT matrices and
 its Cooley-Tukey engine have no counterpart here. On a CPU tensor each
 config runs the kernel's plain version.
 
-Left out against the JAX package: centered framing and nperseg past
-8192 (ROADMAP [ext-modes]), which raise NotImplementedError. A config
-with nfft > nperseg runs on the GEMM kernel.
+Centered configs pad the shared buffer on the card once a pad
+(``core.stft.center_pad``, keyed by nperseg // 2 and the pad mode), as
+the JAX package pads once a group, and launch on the padded buffer;
+nperseg past 8192 (ROADMAP [large-nperseg]) raises NotImplementedError.
+A config with nfft > nperseg runs on the route of its nfft.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from spectral_tpu_torch.config import SpecConfig
-from spectral_tpu_torch.core.stft import ensure_real_waveform, power_spectrogram
+from spectral_tpu_torch.core.stft import (center_pad, ensure_real_waveform,
+                                          power_spectrogram)
 from spectral_tpu_torch.ops.stft_cuda import check_supported
 from spectral_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -43,9 +47,9 @@ def sweep_grid(x, fs: float, configs: Sequence[SpecConfig],
     CUDA signal's own). The signal is put there once; each config is one
     launch of its route's kernel, whose result is bitwise
     ``power_spectrogram`` of that config. A non-PSD mode raises the JAX
-    package's ValueError; a config the kernels cannot compute (centered,
-    nperseg > 8192) raises NotImplementedError naming its
-    ROADMAP item, before any work."""
+    package's ValueError; a config the kernels cannot compute (nperseg >
+    8192) raises NotImplementedError naming its ROADMAP item, before any
+    work."""
     for cfg in configs:
         if cfg.mode != "psd":
             # the fused (re^2 + im^2) * weights form IS the PSD; magnitude/
@@ -57,7 +61,18 @@ def sweep_grid(x, fs: float, configs: Sequence[SpecConfig],
         dev = resolve_device(device)
         if dev.type != "cpu":
             x = x.to(dev, torch.float32)
-    return [power_spectrogram(x, fs, cfg) for cfg in configs]
+    padded: Dict[Tuple, torch.Tensor] = {}
+    out = []
+    for cfg in configs:
+        if not cfg.center:
+            out.append(power_spectrogram(x, fs, cfg))
+            continue
+        key = (cfg.nperseg // 2, cfg.pad_mode)
+        if key not in padded:
+            padded[key] = center_pad(x, cfg)
+        out.append(power_spectrogram(padded[key], fs,
+                                     dataclasses.replace(cfg, center=False)))
+    return out
 
 
 def default_grid(n_ffts=(256, 1024, 2048, 4096),

@@ -164,12 +164,22 @@ def test_spectrogram_matches_jax(name, cfg, fs, shape):
 
 
 def test_spectrogram_refuses_the_extended_modes():
-    x = torch.zeros(4096)
-    with pytest.raises(NotImplementedError, match=r"\[ext-modes\]"):
-        tstft.spectrogram(x, 1000.0, SpecConfig(nperseg=256, mode="complex"))
-    with pytest.raises(NotImplementedError, match=r"\[ext-modes\]"):
-        tstft.spectrogram(x, 1000.0, SpecConfig(nperseg=256,
-                                                 mode="magnitude"))
+    """The complex and magnitude modes, refused until [ext-modes], are the
+    JAX package's spectrogram, banded or not: the axes equal, Sxx within
+    PSD_TOL of each clip's largest |Sxx|."""
+    x = np.random.RandomState(8).randn(2, 4096).astype(np.float32)
+    for mode in ("complex", "magnitude"):
+        for band in ({}, {"fmin": 40.0, "fmax": 200.0}):
+            cfg = SpecConfig(nperseg=256, mode=mode, **band)
+            f, t, sxx = tstft.spectrogram(torch.from_numpy(x), 1000.0, cfg)
+            f_j, t_j, sxx_j = jstft.spectrogram(jnp.asarray(x), 1000.0,
+                                                _jax(cfg), use_matmul=True)
+            sxx_j = np.asarray(sxx_j)
+            assert np.array_equal(f, f_j) and np.array_equal(t, t_j)
+            assert tuple(sxx.shape) == sxx_j.shape
+            assert sxx.is_complex() == (mode == "complex")
+            scale = np.abs(sxx_j).max(axis=(-2, -1), keepdims=True)
+            assert np.all(np.abs(sxx.numpy() - sxx_j) <= PSD_TOL * scale)
 
 
 def test_fmin_fmax_mask_before_normalization():

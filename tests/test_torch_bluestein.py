@@ -481,3 +481,17 @@ def test_forced_bluestein_route_is_checked():
         with pytest.raises(ValueError, match=f"'{own}' route"):
             stft_cuda.stft_psd(x, FS, SpecConfig.scipy_default(2049),
                                _route=own)
+
+
+@pytest.mark.parametrize("nperseg, nfft, detrend, onesided", [(2000, 2049, "constant", True), (1100, 1126, "linear", False),
+     (500, 563, "none", False)])
+def test_bluestein_model_zero_padded_load_and_output_modes(nperseg, nfft, detrend, onesided):
+    """The Bluestein model's zero-padded load (the chirp and b^ of
+    nfft, zeros past nperseg before the chirp), even and odd nfft, and the
+    magnitude and complex outputs of both epilogues, against the plain
+    version (test_torch_ext_modes.check_model_modes)."""
+    from test_torch_ext_modes import check_model_modes
+    cfg = SpecConfig(nperseg=nperseg, hop=max(1, nperseg // 2), nfft=nfft,
+                     detrend=detrend, onesided=onesided)
+    assert stft_cuda.route(cfg) == "bluestein"
+    check_model_modes(cfg)

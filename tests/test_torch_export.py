@@ -206,14 +206,14 @@ def test_process_pool_and_errors(tmp_path):
 
 
 def test_configs_the_kernels_cannot_compute_raise(tmp_path):
-    """The extended modes raise before anything is written; the mel and
-    band configs that [band-mel] refused now export (their PNGs are held
-    to JAX's in test_export_band_and_mel_match_jax), and so does nfft >
-    nperseg, on the GEMM kernel (held to JAX's in
-    tests/test_torch_nfft.py)."""
-    for cfg, item in ((SpecConfig.north_star(256, 64, center=True),
-                       r"\[ext-modes\]"),
-                      (SpecConfig.scipy_default(16384), r"\[ext-modes\]")):
+    """A transform past 8192 raises before anything is written; the mel
+    and band configs that [band-mel] refused now export (their PNGs are
+    held to JAX's in test_export_band_and_mel_match_jax), and so do nfft >
+    nperseg (held to JAX's in tests/test_torch_nfft.py) and, since
+    [ext-modes], centered and magnitude configs (held to JAX's in
+    tests/test_torch_ext_modes.py)."""
+    for cfg, item in ((SpecConfig.scipy_default(16384),
+                       r"\[large-nperseg\]"),):
         with pytest.raises(NotImplementedError, match=item):
             tpipe.export_spectrograms(_clips(1), FS, cfg, str(tmp_path),
                                       clip_samples=N, device="cpu")
@@ -221,7 +221,11 @@ def test_configs_the_kernels_cannot_compute_raise(tmp_path):
     for name, cfg in (("mel", SpecConfig.north_star(256, 64, n_mels=16)),
                       ("band", SpecConfig.scipy_default(256, fmin=0.0,
                                                         fmax=50.0)),
-                      ("nfft", SpecConfig(nperseg=256, hop=64, nfft=512))):
+                      ("nfft", SpecConfig(nperseg=256, hop=64, nfft=512)),
+                      ("center", SpecConfig.north_star(256, 64,
+                                                       center=True)),
+                      ("magnitude", SpecConfig.north_star(
+                          256, 64, mode="magnitude"))):
         stats = tpipe.export_spectrograms(_clips(1), FS, cfg,
                                           str(tmp_path / name),
                                           clip_samples=N, device="cpu")

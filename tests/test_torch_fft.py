@@ -148,13 +148,16 @@ def test_fft_route_on_the_gui_range():
             after.add(k)
     assert after <= before
     assert (len(before - after), len(after)) == (3103, 2389)
-    for cfg in (SpecConfig.scipy_default(16384),      # past the GUI
-                SpecConfig(nperseg=256, mode="magnitude")):
-        with pytest.raises(NotImplementedError):
-            stft_cuda.route(cfg)
-    # a zero-padded transform takes the GEMM kernel at every nperseg
-    for k in (256, 1024, 8191):
-        assert stft_cuda.route(SpecConfig(nperseg=k, nfft=2 * k)) == "gemm"
+    with pytest.raises(NotImplementedError, match=r"\[large-nperseg\]"):
+        stft_cuda.route(SpecConfig.scipy_default(16384))   # past the GUI
+    # the output mode does not move the route
+    for mode in ("magnitude", "complex"):
+        assert stft_cuda.route(SpecConfig(nperseg=256, mode=mode)) == "fft"
+    # a zero-padded transform takes the route of its nfft, the GEMM kernel
+    # past 8192
+    for k, want in ((256, "fft"), (1024, "fft"), (3000, "mixed"),
+                    (8191, "gemm")):
+        assert stft_cuda.route(SpecConfig(nperseg=k, nfft=2 * k)) == want
     # the route does not depend on the band or the mel branch
     for k in (24, 256, 8160, 8191, 8185):
         plain = SpecConfig.scipy_default(k)
@@ -366,3 +369,18 @@ def test_fft_model_linear_detrend_within_the_display_contract(nperseg):
     err = torch_precision.display_error_db(psd.T, x[0].astype(np.float64),
                                            cfg)
     assert err <= 1e-6, err
+
+
+@pytest.mark.parametrize("nperseg, nfft, detrend, onesided", [(1000, 1024, "constant", True), (24, 64, "linear", False),
+     (1023, 2048, "none", False), (32, 32, "constant", False)])
+def test_fft_model_zero_padded_load_and_output_modes(nperseg, nfft, detrend, onesided):
+    """The radix-2 model's zero-padded load (a frame's nperseg samples
+    in an nfft-point transform, the bit-reversed load order putting the
+    zeros at their slots, the detrend over the nperseg samples) and its
+    epilogue's magnitude and complex outputs, one- and two-sided, against
+    the plain version (test_torch_ext_modes.check_model_modes)."""
+    from test_torch_ext_modes import check_model_modes
+    cfg = SpecConfig(nperseg=nperseg, hop=max(1, nperseg // 2), nfft=nfft,
+                     detrend=detrend, onesided=onesided)
+    assert stft_cuda.route(cfg) == "fft"
+    check_model_modes(cfg)

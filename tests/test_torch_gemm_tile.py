@@ -60,16 +60,19 @@ K_STEP = _constant("SK_K_STEP")
 
 class SmallTile:
     """stft_psd_small_kernel's geometry for (R rows of T a clip, F bins,
-    nperseg K, hop), as the launcher sizes it."""
+    nperseg K, hop) and output ``mode`` ("psd", "magnitude", or "complex":
+    FW = 2F floats a row), as the launcher sizes it."""
 
-    def __init__(self, R, T, F, K, hop):
+    def __init__(self, R, T, F, K, hop, mode="psd"):
         assert F <= MAX_F and T >= 1
         self.R, self.T, self.F, self.K, self.hop = R, T, F, K, hop
+        self.mode = mode
         self.groups = 2 if F > BINS else 1
         self.tpg = THREADS // self.groups
         self.rb = 2 * self.tpg
         self.kp = -(-K // K_STEP) * K_STEP
-        self.fs = F | 1
+        self.fw = 2 * F if mode == "complex" else F
+        self.fs = self.fw | 1
         self.stage = self.rb * max(K, self.fs)
         self.s = min(hop, K)
         self.blocks = -(-R // self.rb)
@@ -125,9 +128,15 @@ class SmallTile:
                          else np.zeros(self.tpg))
                     re = re + v[:, None] * ar[k, f0:f0 + fn]
                     im = im + v[:, None] * ai[k, f0:f0 + fn]
+                if self.mode == "complex":       # (re w, im w) pairs
+                    at = (i * self.fs)[:, None] + 2 * (f0 + np.arange(fn))
+                    os_[at] = (re * wts[f0:f0 + fn]).astype(np.float32)
+                    os_[at + 1] = (im * wts[f0:f0 + fn]).astype(np.float32)
+                    continue
                 s = re * re + im * im
+                mag = np.sqrt(s) if self.mode == "magnitude" else s
                 pw = np.where(s > stft_cuda.F32_MAX, np.inf,
-                              s * wts[f0:f0 + fn])
+                              mag * wts[f0:f0 + fn])
                 p = pw.astype(np.float32)
                 stored = (np.log10(pw + 1e-20).astype(np.float32)
                           if log10_out else p)
@@ -136,8 +145,12 @@ class SmallTile:
                 red[g, i] = np.where(nan, np.nan, p.min(axis=1))
                 red[self.groups + g, i] = np.where(nan, np.nan,
                                                    p.max(axis=1))
-        e = np.arange(rows * F)                    # the contiguous store
-        out = os_[(e // F) * self.fs + e % F]
+        fw = self.fw
+        e = np.arange(rows * fw)                   # the contiguous store
+        out = os_[(e // fw) * self.fs + e % fw]
+        if self.mode == "complex":
+            out = out.reshape(rows, F, 2)
+            return out[..., 0] + 1j * out[..., 1], None, None
         lo = red[:self.groups, :rows]
         hi = red[self.groups:, :rows]
         lo = np.where(np.isnan(lo).any(0), np.nan, lo.min(0))
@@ -148,6 +161,8 @@ class SmallTile:
         a_re, a_im, wts = (c.numpy() for c in consts)
         outs = [self.block(x, a_re, a_im, wts, blk * self.rb, log10_out)
                 for blk in range(self.blocks)]
+        if self.mode == "complex":
+            return np.concatenate([o[0] for o in outs]), None, None
         return tuple(np.concatenate(o) for o in zip(*outs))
 
 
@@ -238,7 +253,8 @@ def test_small_tile_geometry_is_the_sources():
             "const int RB = 2 * tpg;",
             "const int tpg = SK_THREADS / groups;",
             "const int KP = (K + SK_K_STEP - 1) / SK_K_STEP * SK_K_STEP;",
-            "const int FS = F | 1;",
+            "const int FW = mode == OUT_COMPLEX ? 2 * F : F;",
+            "const int FS = FW | 1;",
             "const int stage = RB * (K > FS ? K : FS);",
             "const int s = hop < K ? hop : K;",
             "off[i] = i * s + (b - b0) * (K - s);",
@@ -248,11 +264,13 @@ def test_small_tile_geometry_is_the_sources():
             "const int nb = (F + groups - 1) / groups;",
             "const int f0 = g * NB;",
             "const int fn = F - f0 < NB ? F - f0 : NB;",
-            "const auto kernel = by_nb[nb - 1];",
+            "const auto kernel = by_nb[ext][nb - 1];",
+            "const int ext = mode != OUT_PSD;",
+            "const int mode = EXT ? out_mode : OUT_PSD;",
             "const double va = k < K ? static_cast<double>(xa[k]) : 0.0;",
             "re[0][j] = fma(va, a.x, re[0][j]);",
             "os[i * FS + f0 + j] =",
-            "dst[e] = os[i * FS + (e - i * F)];",
+            "dst[e] = os[i * FS + (e - i * FW)];",
             "for (int gg = 1; gg < groups; ++gg) {",
             "if (K < 1 || T < 1 || hop < 1)"):
         assert " ".join(line.split()) in FLAT, line
@@ -278,3 +296,33 @@ def test_port_matches_jax_pipeline_below_32(k):
     port = batched_spectrogram_fn(FS, cfg, flip_image=True)(
         torch.from_numpy(x))
     _assert_same_display(port, ref)
+
+
+@pytest.mark.parametrize("k", [2, 13, 24, 31])
+def test_small_tile_magnitude_and_complex_outputs(k):
+    """The tile's other output modes: the magnitude sqrt(re² + im²) times
+    the weights' square roots, with the PSD's partials rule, and the
+    complex STFT (re w, im w) staged as 2F floats a row (FW, FS = FW | 1)
+    and stored as one contiguous run of interleaved pairs; each the plain
+    version's within TOL."""
+    rs = np.random.RandomState(60 + k)
+    x = (rs.randn(5, 40 * k) + 1.0).astype(np.float32)
+    B, n = x.shape
+    for mode in ("magnitude", "complex"):
+        cfg = SpecConfig(nperseg=k, hop=max(1, k // 3), mode=mode)
+        T = num_frames(n, k, cfg.hop_)
+        consts = stft_cuda.dft_constants(cfg, FS, "cpu")
+        xt = torch.from_numpy(x)
+        tile = SmallTile(B * T, T, cfg.n_freqs, k, cfg.hop_, mode)
+        out, lo, hi = tile.run(x, consts)
+        if mode == "complex":
+            want = stft_cuda.stft_complex_reference(xt, consts, cfg).numpy()
+            got = out.reshape(want.shape)
+            scale = np.abs(want).max(axis=(1, 2), keepdims=True)
+            assert np.all(np.abs(got - want) <= TOL * scale)
+            continue
+        want = stft_cuda.stft_psd_reference(xt, consts, cfg).numpy()
+        _close(out.reshape(want.shape), want)
+        rows = want.reshape(-1, cfg.n_freqs)
+        assert np.array_equal(lo, rows.min(axis=1))
+        assert np.array_equal(hi, rows.max(axis=1))

@@ -327,3 +327,18 @@ def test_mixed_model_linear_detrend_within_the_display_contract(nperseg):
     err = torch_precision.display_error_db(psd.T, x[0].astype(np.float64),
                                            cfg)
     assert err <= 1e-6, err
+
+
+@pytest.mark.parametrize("nperseg, nfft, detrend, onesided", [(1000, 1536, "constant", True), (700, 960, "linear", False),
+     (500, 514, "none", False)])
+def test_mixed_model_zero_padded_load_and_output_modes(nperseg, nfft, detrend, onesided):
+    """The mixed-radix model's zero-padded load through the digit
+    reversal, a Rader plan's (nfft 514) through the Rader order, and the
+    magnitude and complex outputs of the split epilogue, one- and
+    two-sided, against the plain version
+    (test_torch_ext_modes.check_model_modes)."""
+    from test_torch_ext_modes import check_model_modes
+    cfg = SpecConfig(nperseg=nperseg, hop=max(1, nperseg // 2), nfft=nfft,
+                     detrend=detrend, onesided=onesided)
+    assert stft_cuda.route(cfg) == "mixed"
+    check_model_modes(cfg)

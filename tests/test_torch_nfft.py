@@ -1,6 +1,8 @@
 """Zero-padded transforms (nfft > nperseg, scipy's nfft, the CLI's --nfft)
-on the port: the GEMM route takes every such config, its small-K tile
-where the padded bins still fit it and the 128 x 64 tile past them, and
+on the port: the route of nfft takes every such config (an FFT family
+from nfft 32 to 8192, whose kernels load the frame's nperseg samples and
+zero the rest; the GEMM route below 32 and past 8192, its small-K tile
+where the padded bins still fit it and the 128 x 64 tile past them), and
 each entry point that reaches the kernel (the PSD, the session, the
 pipeline, the mel branch, the band) gives what the JAX package gives on
 the CPU, where it computes nfft > nperseg off its Pallas kernel on its
@@ -44,10 +46,15 @@ from test_torch_session import Pair, _same_plot  # noqa: E402
 FS = 16000.0
 PSD_REL = 2e-5
 
+# one config on each route of nfft: radix-2 (1024, 2048, 64 from nperseg
+# 24), mixed (1536), odd (2047), Bluestein (2049), the GEMM kernel (20)
 PADDED = [dataclasses.replace(SpecConfig.scipy_default(256), nfft=1024),
           SpecConfig.north_star(512, 128, nfft=2048),
           SpecConfig(nperseg=24, hop=21, nfft=64),
-          SpecConfig(nperseg=7, hop=3, nfft=20, detrend="linear")]
+          SpecConfig(nperseg=7, hop=3, nfft=20, detrend="linear"),
+          SpecConfig(nperseg=1000, hop=250, nfft=1536, detrend="linear"),
+          dataclasses.replace(SpecConfig.scipy_default(1024), nfft=2047),
+          SpecConfig(nperseg=2000, hop=500, nfft=2049, window="hann")]
 
 
 def _j(cfg):
@@ -62,28 +69,42 @@ def takes_small_tile(F, K):
 
 
 def test_route_takes_gemm_for_every_padded_config():
-    """nfft > nperseg routes to the GEMM kernel below nperseg 32 and from
-    32 to 8192 alike (the FFT kernels transform nperseg points); nfft ==
-    nperseg keeps its route; a forced Bluestein route is refused for a
-    padded config; the extended modes still name [ext-modes]."""
+    """nfft > nperseg routes by nfft: the GEMM kernel below nfft 32 and
+    past 8192, and from 32 to 8192 the FFT family of nfft's factorization,
+    whatever nperseg is (the route of the unpadded config of nperseg
+    nfft); a forced Bluestein route takes a padded config from nfft 32,
+    a forced GEMM one any; centered and magnitude padded configs run;
+    nperseg past 8192 names [large-nperseg]."""
     for k in list(range(2, 32)) + list(range(32, 8193, 331)) + [8191, 8192]:
         for nfft in (k + 1, 2 * k, 4 * k):
-            assert stft_cuda.route(SpecConfig(nperseg=k, hop=max(1, k // 4),
-                                              nfft=nfft)) == "gemm", (k, nfft)
+            cfg = SpecConfig(nperseg=k, hop=max(1, k // 4), nfft=nfft)
+            want = ("gemm" if not 32 <= nfft <= 8192 else stft_cuda.route(
+                SpecConfig(nperseg=nfft, hop=max(1, nfft // 4))))
+            assert stft_cuda.route(cfg) == want, (k, nfft)
+            assert want != "gemm" or nfft < 32 or nfft > 8192
     assert stft_cuda.route(SpecConfig(nperseg=1024, nfft=1024)) == "fft"
+    assert stft_cuda.route(SpecConfig(nperseg=1000, nfft=1536)) == "mixed"
+    assert stft_cuda.route(SpecConfig(nperseg=1024, nfft=2047)) == "odd"
+    assert stft_cuda.route(SpecConfig(nperseg=2000, nfft=2049)) == \
+        "bluestein"
     assert stft_cuda.route(SpecConfig.scipy_default(8160)) == "mixed"
-    x = torch.zeros(1, 4096)
+    x = torch.from_numpy(np.random.RandomState(2).randn(1, 4096).astype(
+        np.float32))
     padded = SpecConfig(nperseg=256, nfft=512)
-    with pytest.raises(ValueError, match="no 'bluestein' route"):
-        stft_cuda.stft_psd(x, FS, padded, _route="bluestein")
-    assert stft_cuda.stft_psd(x, FS, padded, _route="gemm").shape == (
-        1, 18, 257)
-    for bad in (SpecConfig(nperseg=256, nfft=512, center=True),
-                SpecConfig(nperseg=256, nfft=512, mode="magnitude"),
-                SpecConfig(nperseg=16384, nfft=32768)):
-        assert not stft_cuda.kernel_supported(bad)
-        with pytest.raises(NotImplementedError, match=r"\[ext-modes\]"):
-            stft_cuda.route(bad)
+    want = stft_cuda.stft_psd(x, FS, padded)
+    for forced in ("bluestein", "gemm"):
+        got = stft_cuda.stft_psd(x, FS, padded, _route=forced)
+        assert torch.equal(got, want) and got.shape == (1, 18, 257)
+    with pytest.raises(ValueError, match="no 'mixed' route"):
+        stft_cuda.stft_psd(x, FS, padded, _route="mixed")
+    for cfg in (SpecConfig(nperseg=256, nfft=512, center=True),
+                SpecConfig(nperseg=256, nfft=512, mode="magnitude")):
+        assert stft_cuda.kernel_supported(cfg)
+        assert stft_cuda.route(cfg) == "fft"
+    bad = SpecConfig(nperseg=16384, nfft=32768)
+    assert not stft_cuda.kernel_supported(bad)
+    with pytest.raises(NotImplementedError, match=r"\[large-nperseg\]"):
+        stft_cuda.route(bad)
 
 
 @pytest.mark.parametrize("cfg", PADDED, ids=lambda c: f"{c.nperseg}-"
@@ -127,12 +148,15 @@ def test_small_tile_takes_padded_configs_within_its_bins(k, nfft):
 
 def test_large_tile_takes_padded_configs_past_its_bins():
     """A small nperseg with a large nfft has more bins than the small-K
-    tile holds: the launcher must take the 128 x 64 tile, whose bins come
-    in frequency tiles of 64 (stft_psd_freq_tiles)."""
+    tile holds: the GEMM kernel, forced (these configs route to the FFT
+    family of nfft) or past nfft 8192, must take the 128 x 64 tile, whose
+    bins come in frequency tiles of 64 (stft_psd_freq_tiles)."""
     for k, nfft in ((2, 64), (8, 64), (24, 64), (31, 32), (24, 4096),
-                    (1024, 4096)):
+                    (1024, 4096), (24, 9000)):
         cfg = SpecConfig(nperseg=k, hop=max(1, k // 4), nfft=nfft)
-        assert stft_cuda.route(cfg) == "gemm"
+        assert stft_cuda.route(cfg) == ("gemm" if nfft > 8192 else "fft"
+                                        if nfft & (nfft - 1) == 0
+                                        else "mixed")
         assert cfg.n_freqs > MAX_F and not takes_small_tile(cfg.n_freqs, k)
     # one-sided configs at nfft == nperseg below 32 all fit the small tile
     assert all(takes_small_tile(SpecConfig.scipy_default(k).n_freqs, k)

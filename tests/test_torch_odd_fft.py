@@ -427,3 +427,18 @@ def test_forced_odd_route_is_checked():
     want = stft_cuda.stft_psd(x, FS, cfg)
     assert torch.equal(stft_cuda.stft_psd(x, FS, cfg, _route="odd"), want)
     assert torch.equal(stft_cuda.stft_psd(x, FS, cfg, _route="gemm"), want)
+
+
+@pytest.mark.parametrize("nperseg, nfft, detrend, onesided", [(1024, 2047, "constant", True), (200, 255, "none", False),
+     (250, 257, "linear", False)])
+def test_odd_model_zero_padded_load_and_output_modes(nperseg, nfft, detrend, onesided):
+    """The odd model's zero-padded load of both frames of a pair (the
+    guard's energies over the padded slots), a Rader stage (nfft 257), and
+    the pair epilogue's magnitude and complex outputs, two-sided bins of a
+    lone frame mirrored as a pair's are, against the plain version
+    (test_torch_ext_modes.check_model_modes)."""
+    from test_torch_ext_modes import check_model_modes
+    cfg = SpecConfig(nperseg=nperseg, hop=max(1, nperseg // 2), nfft=nfft,
+                     detrend=detrend, onesided=onesided)
+    assert stft_cuda.route(cfg) == "odd"
+    check_model_modes(cfg)

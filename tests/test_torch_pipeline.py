@@ -182,10 +182,12 @@ def test_colormap_none_and_input_coercion():
 
 
 def test_unsupported_configs_raise_on_build():
-    """The extended modes still raise when the pipeline is built; the mel
+    """A transform past 8192 raises when the pipeline is built; the mel
     and band configs that [band-mel] refused now compute (their outputs
-    are held to JAX in test_torch_band.py)."""
-    for cfg, item in ((SpecConfig.scipy_default(16384), r"\[ext-modes\]"),):
+    are held to JAX in test_torch_band.py), as do the magnitude and
+    centered configs (tests/test_torch_ext_modes.py)."""
+    for cfg, item in ((SpecConfig.scipy_default(16384),
+                       r"\[large-nperseg\]"),):
         with pytest.raises(NotImplementedError, match=item):
             batched_spectrogram_fn(FS, cfg)
     x = _clips(0, n=4096)

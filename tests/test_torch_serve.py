@@ -7,13 +7,14 @@ tests/test_api.py; serve --tcp 0 through the port's ServeClient.
 Tolerances: replies equal, but for band powers (each within 2e-5, the
 PSD contract on ratios of sums; the total power within 2e-5 relative)
 and rendered PNGs (tests/test_torch_cli.py's pixel rule); a config the
-kernels cannot compute answers ok: false naming ROADMAP [ext-modes] on
-the port.
+kernels cannot compute (nperseg past 8192) answers ok: false naming
+ROADMAP [large-nperseg] on the port.
 """
 
 import io
 import json
 import os
+import re
 import sys
 import threading
 
@@ -161,20 +162,45 @@ def test_fuzz_lines_answered_like_jax(tmp_path, wav):
                                     {"nperseg": 16384}],
                          ids=["complex", "magnitude", "center", "16384"])
 def test_configs_the_kernels_cannot_compute_answer_ok_false(wav, config):
-    """A request naming an extended mode gets the port's refusal as one
-    ok: false reply naming [ext-modes]; the worker keeps serving."""
+    """Requests naming the extended modes are answered as the JAX worker
+    answers them: the magnitude and centered configs computed (detect's
+    events equal, band powers within BAND_TOL), the complex mode refused
+    with the JAX package's ValueError (it has no power spectrogram); a
+    transform past 8192 (nperseg 16384) gets the port's refusal as one ok:
+    false reply naming [large-nperseg]. The worker keeps serving."""
     lines = [{"cmd": cmd, "files": [wav], "config": config}
              for cmd in ("render", "detect", "bands")]
     lines[0]["out"] = "/nonexistent/x.png"
     lines += [{"cmd": "ping"}, {"cmd": "shutdown"}]
-    stdout = io.StringIO()
-    tcli._serve(io.StringIO("\n".join(json.dumps(r) for r in lines) + "\n"),
-                stdout, device="cpu")
-    out = [json.loads(ln) for ln in stdout.getvalue().splitlines()]
-    for r in out[:3]:
-        assert not r["ok"] and "[ext-modes]" in r["error"], r
-        assert r["error"].startswith("NotImplementedError: ")
-    assert out[3] == {"ok": True, "pong": True}
+    if config.get("nperseg") == 16384:
+        stdout = io.StringIO()
+        tcli._serve(io.StringIO("\n".join(json.dumps(r) for r in lines)
+                                + "\n"), stdout, device="cpu")
+        out = [json.loads(ln) for ln in stdout.getvalue().splitlines()]
+        for r in out[:3]:
+            assert not r["ok"] and "[large-nperseg]" in r["error"], r
+            assert r["error"].startswith("NotImplementedError: ")
+        assert out[3] == {"ok": True, "pong": True}
+        return
+    j, t = serve_both(lines)
+    assert len(t) == len(j) == len(lines)
+
+    def tmp_free(r):
+        # the render's failed write names its temporary file, whose
+        # counter depends on the writes before it in the process
+        return json.loads(re.sub(r"\.tmp\.\d+\.\d+", ".tmp",
+                                 json.dumps(r)))
+
+    assert tmp_free(t[0]) == tmp_free(j[0]) and t[1] == j[1]
+    if config.get("mode") == "complex":
+        for r in t[:3]:
+            assert not r["ok"] and r["error"].startswith(
+                "ValueError: mode='complex' has no power spectrogram"), r
+        assert t[2] == j[2]
+    else:
+        assert t[1]["ok"] and len(t[1]["events"]) >= 1
+        same_bands(t[2], j[2])
+    assert t[3] == j[3] == {"ok": True, "pong": True}
 
 
 def test_batch_and_stream_requests_match_jax(tmp_path):

@@ -250,17 +250,24 @@ def test_kernel_supported_keeps_the_semantic_conditions():
     # nfft > nperseg: the JAX package computes it off its kernel, on its
     # dense matmul route; the port's GEMM kernel takes it
     assert not stft_pallas.pallas_supported(_jax(ok[-1]))
-    refused = {
-        r"\[ext-modes\]": [SpecConfig(nperseg=256, mode="magnitude"),
-                   SpecConfig(nperseg=256, center=True),
-                   SpecConfig.scipy_default(16384)],
-    }
+    # the extended modes, refused by pallas_supported, are the port's:
+    # the magnitude and centered configs run, and match the JAX package
+    # (tests/test_torch_ext_modes.py holds them across entry points)
     x = torch.zeros(1, 4096)
-    for item, cfgs in refused.items():
-        for cfg in cfgs:
-            assert not stft_cuda.kernel_supported(cfg)
-            with pytest.raises(NotImplementedError, match=item):
-                stft_cuda.stft_psd(x, FS, cfg)
+    xr = torch.from_numpy(_clips(5, n_clips=1, n=4096))
+    for cfg in (SpecConfig(nperseg=256, mode="magnitude"),
+                SpecConfig(nperseg=256, center=True)):
+        assert stft_cuda.kernel_supported(cfg)
+        assert not stft_pallas.pallas_supported(_jax(cfg))
+        got = stft_cuda.stft_psd(xr, FS, cfg).numpy()
+        want = np.asarray(jstft.power_spectrogram(
+            jnp.asarray(xr.numpy()), FS, _jax(cfg), use_matmul=False))
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+    big = SpecConfig.scipy_default(16384)
+    assert not stft_cuda.kernel_supported(big)
+    with pytest.raises(NotImplementedError, match=r"\[large-nperseg\]"):
+        stft_cuda.stft_psd(x, FS, big)
     # the mel branch and the band mask are not the kernel's concern: the
     # caller passes the band's bins, and projects the PSD onto mel rows
     for cfg in (SpecConfig(nperseg=256, n_mels=32),
@@ -269,8 +276,13 @@ def test_kernel_supported_keeps_the_semantic_conditions():
         plain = dataclasses.replace(cfg, n_mels=None, fmin=None, fmax=None)
         assert torch.equal(stft_cuda.stft_psd(x, FS, cfg),
                            stft_cuda.stft_psd(x, FS, plain))
-    with pytest.raises(NotImplementedError, match=r"\[ext-modes\]"):
-        tstft.power_spectrogram(x, FS, SpecConfig(nperseg=256, center=True))
+    centered = SpecConfig(nperseg=256, center=True)
+    got = tstft.power_spectrogram(xr, FS, centered).numpy()
+    want = np.asarray(jstft.power_spectrogram(
+        jnp.asarray(xr.numpy()), FS, _jax(centered), use_matmul=True))
+    assert got.shape == want.shape == (
+        1, tstft.num_frames(4096 + 256, 256, centered.hop_), 129)
+    assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
 
 
 # ---------------------------------------------------------------------------

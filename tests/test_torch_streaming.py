@@ -347,7 +347,7 @@ def test_refusals_carry_the_jax_texts():
 
 def test_refusals_of_the_port():
     """What the port leaves to later items: the mesh branch ([multi-
-    device]) and configs the kernels cannot compute ([ext-modes]: here
+    device]) and configs the kernels cannot compute ([large-nperseg]:
     nperseg past 8192), on every device, before any work; the
     single-recording folds refuse a fleet. A zero-padded transform (nfft
     > nperseg), refused until the GEMM kernel took it, streams like any
@@ -364,7 +364,7 @@ def test_refusals_of_the_port():
                   lambda: st.StreamingSTFT(1000.0, past, 16384),
                   lambda: st.stream_features(x, 1000.0, past, 16384,
                                              device="cpu")):
-        with pytest.raises(NotImplementedError, match=r"\[ext-modes\]"):
+        with pytest.raises(NotImplementedError, match=r"\[large-nperseg\]"):
             entry()
     padded = SpecConfig.north_star(512, 128, nfft=1024)
     y = np.random.RandomState(2).randn(8192).astype(np.float32)

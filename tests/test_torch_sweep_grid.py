@@ -118,11 +118,17 @@ def test_sweep_grid_refusals():
         jsg.sweep_grid(jnp.asarray(x), fs, [_j(magnitude)])
     assert str(got.value) == str(want.value)
     ok = SpecConfig(nperseg=256, hop=64, detrend="none")
-    for bad in (SpecConfig(nperseg=256, hop=64, detrend="none",
-                           center=True),
-                SpecConfig.scipy_default(16384)):
-        with pytest.raises(NotImplementedError, match=r"\[ext-modes\]"):
-            sg.sweep_grid(x, fs, [ok, bad], device="cpu")
+    with pytest.raises(NotImplementedError, match=r"\[large-nperseg\]"):
+        sg.sweep_grid(x, fs, [ok, SpecConfig.scipy_default(16384)],
+                      device="cpu")
+    # a centered group, refused until [ext-modes], pads as the JAX
+    # package's grid does (one jnp.pad a group)
+    centered = SpecConfig(nperseg=256, hop=64, detrend="none", center=True)
+    y = np.random.RandomState(4).randn(8192).astype(np.float32)
+    got = sg.sweep_grid(y, fs, [ok, centered], device="cpu")
+    want = jsg.sweep_grid(jnp.asarray(y), fs, [_j(ok), _j(centered)])
+    assert got[1].shape == want[1].shape == (8192 // 64 + 1, 129)
+    assert _rel(got[1], np.asarray(want[1])) <= PSD_REL
     # nfft > nperseg, refused until the GEMM kernel took it, is a config
     # like any other: the same call as power_spectrogram's
     padded = SpecConfig(nperseg=250, nfft=512, hop=64, detrend="none")

@@ -141,10 +141,10 @@ MIXED_VARIANTS = {
           "      const double2 w = win2[0];"),
          ("    const double2 w = tw[row + k + L * t];",
           "    const double2 w = tw[row];"),
-         ("bin(g, a, b, g < M ? split[g] : make_double2(-1.0, 0.0), wts[g]);",
-          "bin(g, a, b, g < M ? split[0] : make_double2(-1.0, 0.0), wts[0]);"),
-         ("    bin(f, fbuf[g], fbuf[M - g], split[g], wts[f]);",
-          "    bin(f, fbuf[g], fbuf[M - g], split[0], wts[0]);")]),
+         ("bin(g, a, b, g < M ? split[g] : make_double2(-1.0, 0.0), wts[g],",
+          "bin(g, a, b, g < M ? split[0] : make_double2(-1.0, 0.0), wts[0],"),
+         ("    bin(f, fbuf[g], fbuf[M - g], split[g], wts[f], true);",
+          "    bin(f, fbuf[g], fbuf[M - g], split[0], wts[0], true);")]),
 }
 
 ODD_MIN = ("  return rmax == 1 || (rmax == 0 && (!rader || packed)) ? "
@@ -312,10 +312,11 @@ SMALL_VARIANTS = {
     "sk_bins8": (
         "the small tile compiled for 8 bins a thread at every F (the bins "
         "a thread does not hold predicated off), not instantiated by them",
-        [("    const auto kernel = by_nb[nb - 1];",
-          "    const auto kernel = stft_psd_small_kernel<8>;"),
-         ("    const int err = raise_smem(kernel, smem, small_smem_set[nb - 1]);",
-          "    const int err = raise_smem(kernel, smem, small_smem_set[7]);")]),
+        [("    const auto kernel = by_nb[ext][nb - 1];",
+          "    const auto kernel = by_nb[ext][SK_BINS - 1];"),
+         ("    const int err = raise_smem(kernel, smem, small_smem_set[ext][nb - 1]);",
+          "    const int err = raise_smem(kernel, smem, "
+          "small_smem_set[ext][SK_BINS - 1]);")]),
     "sk_two_blocks": (
         "the small tile at two blocks an SM (128 registers)",
         [(SK_BLOCKS, SK_BLOCKS.replace("3;", "2;"))]),
@@ -338,7 +339,7 @@ def _r2_launch(stft_cuda, cfg, dev, a):
     c = stft_cuda.fft_constants(cfg, FS, dev)
     return lambda lib: lib.stft_fft_psd_launch(
         a.x, c.window.data_ptr(), c.twiddles.data_ptr(), c.wts.data_ptr(),
-        *a.outs, *a.shape, a.detrend, 0, 1, 0, a.stream)
+        *a.outs, *a.shape, a.detrend, 0, 0, 1, 0, a.stream)
 
 
 def _mixed_launch(stft_cuda, cfg, dev, a):
@@ -346,7 +347,7 @@ def _mixed_launch(stft_cuda, cfg, dev, a):
     return lambda lib: lib.stft_mixed_fft_psd_launch(
         a.x, c.window.data_ptr(), c.perm.data_ptr(), c.twiddles.data_ptr(),
         c.stages.ctypes.data, len(c.stages), c.split, c.rader,
-        c.wts.data_ptr(), *a.outs, *a.shape, a.detrend, 0, 1, 0, a.stream)
+        c.wts.data_ptr(), *a.outs, *a.shape, a.detrend, 0, 0, 1, 0, a.stream)
 
 
 def _conv_launch(stft_cuda, cfg, dev, a):
@@ -355,13 +356,13 @@ def _conv_launch(stft_cuda, cfg, dev, a):
         return lambda lib: lib.stft_odd_fft_psd_launch(
             a.x, c.window.data_ptr(), c.perm.data_ptr(),
             c.twiddles.data_ptr(), c.stages.ctypes.data, len(c.stages),
-            c.rader, c.wts.data_ptr(), *a.outs, *a.shape, a.detrend, 0, 1,
-            1, 0, a.stream)
+            c.rader, c.wts.data_ptr(), *a.outs, *a.shape, a.detrend, 0, 0,
+            1, 1, 0, a.stream)
     c = stft_cuda.bluestein_constants(cfg, FS, dev)
     return lambda lib: lib.stft_bluestein_psd_launch(
         a.x, c.window.data_ptr(), c.twiddles.data_ptr(),
         c.stages.ctypes.data, len(c.stages), c.m, c.bhat, c.chirp, c.split,
-        c.wts.data_ptr(), *a.outs, *a.shape, a.detrend, 0, 1, 0, a.stream)
+        c.wts.data_ptr(), *a.outs, *a.shape, a.detrend, 0, 0, 1, 0, a.stream)
 
 
 def _rader_launch(stft_cuda, cfg, dev, a):
@@ -374,7 +375,7 @@ def _small_launch(stft_cuda, cfg, dev, a):
     c = stft_cuda.dft_constants(cfg, FS, dev)
     return lambda lib: lib.stft_psd_launch(
         a.x, c.a_re.data_ptr(), c.a_im.data_ptr(), c.wts.data_ptr(), *a.outs,
-        *a.shape, 0, 1, a.stream)
+        *a.shape[:4], *a.shape[5:], 0, 0, 1, a.stream)
 
 @dataclasses.dataclass(frozen=True)
 class Kernel:
@@ -391,8 +392,9 @@ class Kernel:
 KERNELS = {
     "r2": Kernel(
         ("fft",),
-        (r"stft_fft_psd_kernelILi(\d+)ELi(\d+)E",
-         lambda e: f"LOG2M {e.group(1)}, {2 ** int(e.group(2))} values"),
+        (r"stft_fft_psd_kernelILi(\d+)ELi(\d+)ELb(\d)E",
+         lambda e: f"LOG2M {e.group(1)}, {2 ** int(e.group(2))} values"
+                   f"{', EXT' if e.group(3) == '1' else ''}"),
         (("path 1 north_star 1024/256", 1024, None),
          ("path 2 scipy_default 8192", 8192, None)),
         tuple(2 ** b for b in range(5, 14)), _r2_launch, R2_VARIANTS),
@@ -406,9 +408,11 @@ KERNELS = {
         (96, 352, 992, 1184, 4192), _mixed_launch, MIXED_VARIANTS),
     "conv": Kernel(
         ("odd", "bluestein"),
-        (r"stft_(odd_fft|bluestein)_psd_kernelIL[bi](\d)EL[ib](\d+)E",
+        (r"stft_(odd_fft|bluestein)_psd_kernelIL[bi](\d)EL[ib](\d+)E"
+         r"(?:Lb(\d)E)?",
          lambda e: f"{e.group(1).split('_')[0]}<{e.group(2)}, "
-                   f"{e.group(3)}>"),
+                   f"{e.group(3)}"
+                   f"{', ' + e.group(4) if e.group(4) else ''}>"),
         (("path 7 scipy_default 8191", 8191, None),
          ("path 8 scipy_default 8185", 8185, None),
          ("path 9 scipy_default 8182", 8182, None)),
@@ -421,8 +425,9 @@ KERNELS = {
         _rader_launch, RADER_VARIANTS),
     "small": Kernel(
         ("gemm",),
-        (r"stft_psd_(small_kernelILi(\d)E|kernelE)",
-         lambda e: f"small<{e.group(2)}>" if e.group(2) else "large"),
+        (r"stft_psd_(small_kernelILi(\d)ELb(\d)E|kernelE)",
+         lambda e: (f"small<{e.group(2)}{', EXT' if e.group(3) == '1' else ''}"
+                    ">") if e.group(2) else "large"),
         (), (2, 7, 13, 24, 31), _small_launch, SMALL_VARIANTS),
 }
 
@@ -443,14 +448,14 @@ def load(so):
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     out = [ptr] * 3 + [i32, i64]
     for entry, args in (
-            ("stft_psd_launch", [ptr] * 4 + out + [i32] * 6),
-            ("stft_fft_psd_launch", [ptr] * 4 + out + [i32] * 8),
+            ("stft_psd_launch", [ptr] * 4 + out + [i32] * 7),
+            ("stft_fft_psd_launch", [ptr] * 4 + out + [i32] * 10),
             ("stft_mixed_fft_psd_launch",
-             [ptr] * 5 + [i32] * 3 + [ptr] + out + [i32] * 8),
+             [ptr] * 5 + [i32] * 3 + [ptr] + out + [i32] * 10),
             ("stft_odd_fft_psd_launch",
-             [ptr] * 5 + [i32] * 2 + [ptr] + out + [i32] * 9),
+             [ptr] * 5 + [i32] * 2 + [ptr] + out + [i32] * 11),
             ("stft_bluestein_psd_launch",
-             [ptr] * 4 + [i32] * 5 + [ptr] + out + [i32] * 8)):
+             [ptr] * 4 + [i32] * 5 + [ptr] + out + [i32] * 10)):
         fn = getattr(lib, entry)
         fn.argtypes = args + [ptr]
         fn.restype = i32
@@ -567,7 +572,7 @@ def main(argv=None) -> None:
         launch = kern.launch(stft_cuda, cfg, dev, argparse.Namespace(
             x=x.data_ptr(), stream=stream,
             outs=(out.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr()),
-            shape=(B, n, T, F, cfg.nperseg, cfg.hop_),
+            shape=(B, n, T, F, cfg.nfft_, cfg.nperseg, cfg.hop_),
             detrend=stft_cuda.DETREND_CODES[cfg.detrend]))
 
         def checked(lib):

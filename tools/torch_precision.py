@@ -54,6 +54,7 @@ import argparse
 import dataclasses
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 
@@ -64,6 +65,7 @@ from spectral_tpu_torch.config import SpecConfig  # noqa: E402
 from spectral_tpu_torch.core.stft import (  # noqa: E402
     MAX_MIXED_RADIX, _window_f64, bluestein_plan, dft_matrices, fft_plan,
     fft_twiddles, onesided_weights, plan_radices)
+from spectral_tpu_torch.ops.stft_cuda import kernel_weights  # noqa: E402
 
 FS = 16000.0
 CONTRACT_DB = 1e-3
@@ -187,9 +189,19 @@ def detrended(f: np.ndarray, detrend: str) -> np.ndarray:
     return f - mean - slope * d
 
 
+def padded(v: np.ndarray, nfft: Optional[int]) -> np.ndarray:
+    """Detrended, windowed frames v (T, L) zero-padded to nfft slots, the
+    FFT kernels' zero-padded load (slots L to nfft - 1 exactly zero)."""
+    L = v.shape[-1]
+    if nfft is None or nfft == L:
+        return v
+    return np.concatenate([v, np.zeros(v.shape[:-1] + (nfft - L,))], -1)
+
+
 def psd_fft(frames: np.ndarray, window: np.ndarray, twiddles: np.ndarray,
             wts: np.ndarray, detrend: str = "none",
-            round_f32: bool = True) -> np.ndarray:
+            round_f32: bool = True, nfft: Optional[int] = None,
+            mode: str = "psd") -> np.ndarray:
     """(T, F) PSD by the FFT kernel's arithmetic
     (``csrc/stft_psd.cu::stft_fft_psd_kernel``), in float64, K = nperseg,
     M = K/2:
@@ -205,19 +217,23 @@ def psd_fft(frames: np.ndarray, window: np.ndarray, twiddles: np.ndarray,
       Z[M - g]) / 2, O = -i (Z[g] - conj Z[M - g]) / 2 (indices mod M),
       X = E + W_K^g O with W_K^g the table's row M - 1 + g (-1 at g = M);
     - (re² + im²)·w, inf past float32's range, rounded once to float32
-      unless round_f32 is False.
+      unless round_f32 is False (or the epilogue's other ``mode``,
+      :func:`epilogue_out`).
 
-    window, twiddles and wts are the kernel's host operands
-    (``ops/stft_cuda.py::fft_constants``). What differs from the card:
+    With ``nfft`` past the frames' L samples the transform is nfft points
+    (K = nfft) over the frames zero-padded (:func:`padded`), the detrend
+    over the L samples. window (L,), twiddles and wts are the kernel's host
+    operands (``ops/stft_cuda.py::fft_constants``, whose window is this
+    one zero-padded to nfft). What differs from the card:
     the detrend's sums are numpy's, not the kernel's block reduction;
     numpy rounds the products where the card may fuse them (FMA); the
     kernel's swizzle of shared-memory addresses moves values, not
     arithmetic."""
     f = frames.astype(np.float64)
-    K = f.shape[-1]
+    v = padded(detrended(f, detrend) * window, nfft)
+    K = v.shape[-1]
     M = K // 2
     F = wts.shape[0]
-    v = detrended(f, detrend) * window
     i = bit_reverse(M)
     re, im = v[:, 0::2][:, i], v[:, 1::2][:, i]
     j = np.arange(M // 2)
@@ -244,9 +260,7 @@ def psd_fft(frames: np.ndarray, window: np.ndarray, twiddles: np.ndarray,
     wi = np.where(g < M, twiddles[M - 1 + last, 1], 0.0)
     xr = er + (wr * o_r - wi * o_i)
     xi = ei + (wr * o_i + wi * o_r)
-    s = xr * xr + xi * xi
-    p = np.where(s > F32_MAX, np.inf, s * wts)
-    return p.astype(np.float32) if round_f32 else p
+    return epilogue_out(xr, np.where(fb > M, -xi, xi), wts, round_f32, mode)
 
 
 def _cmul(wr, wi, yr, yi):
@@ -350,15 +364,26 @@ def _transform(re: np.ndarray, im: np.ndarray, plan, n: int):
     return zr, zi
 
 
-def _power(xr, xi, wts, round_f32):
+def epilogue_out(xr, xi, wts, round_f32, mode="psd"):
+    """The epilogues' output (``csrc/stft_psd.cu::store_bin``) of the bins
+    X = xr + i xi and their weights: "psd", (re² + im²)·w; "magnitude",
+    sqrt(re² + im²)·w (w the PSD weights' square roots); both inf past
+    float32's |X|² range; "complex", X·w (w sqrt of the PSD scale, or 1);
+    rounded once to float32 (complex64) unless round_f32 is False."""
+    if mode == "complex":
+        z = xr * wts + 1j * (xi * wts)
+        return z.astype(np.complex64) if round_f32 else z
     s = xr * xr + xi * xi
-    p = np.where(s > F32_MAX, np.inf, s * wts)
+    p = np.sqrt(s) if mode == "magnitude" else s
+    p = np.where(s > F32_MAX, np.inf, p * wts)
     return p.astype(np.float32) if round_f32 else p
+
 
 
 def psd_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
                   wts: np.ndarray, detrend: str = "none",
-                  round_f32: bool = True) -> np.ndarray:
+                  round_f32: bool = True, nfft: Optional[int] = None,
+                  mode: str = "psd") -> np.ndarray:
     """(T, F) PSD by the mixed-radix FFT kernel's arithmetic
     (``csrc/stft_psd.cu::stft_mixed_fft_psd_kernel``, and with a Rader
     stage the odd kernel's PACKED form on the pass engine), in float64,
@@ -378,29 +403,32 @@ def psd_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
     - the split step and the epilogue of :func:`psd_fft` with indices
       reduced mod M (g = M reads slot 0 and takes W = -1).
 
-    What differs from the card: the detrend's sums are numpy's, not the
+    ``nfft`` and ``mode`` as :func:`psd_fft` (``plan`` then nfft's). What
+    differs from the card: the detrend's sums are numpy's, not the
     kernel's block reduction, and numpy rounds the products where the card
     may fuse them (FMA)."""
     f = frames.astype(np.float64)
-    T, K = f.shape
+    v = padded(detrended(f, detrend) * window, nfft)
+    T, K = v.shape
     M = K // 2
-    v = detrended(f, detrend) * window
     re = np.empty((T, M))
     im = np.empty((T, M))
     re[:, plan.perm] = v[:, 0::2]
     im[:, plan.perm] = v[:, 1::2]
     re, im = _transform(re, im, plan, M)
-    return _split_psd(re, im, plan.twiddles[plan.split:], K, wts, round_f32)
+    return _split_psd(re, im, plan.twiddles[plan.split:], K, wts, round_f32,
+                      mode)
 
 
 def _split_psd(re: np.ndarray, im: np.ndarray, split: np.ndarray, K: int,
-               wts: np.ndarray, round_f32: bool) -> np.ndarray:
+               wts: np.ndarray, round_f32: bool,
+               mode: str = "psd") -> np.ndarray:
     """The split step and the PSD epilogue of the even-K FFT kernels
     (``split_psd_epilogue``) on the (T, M) transform Z of the packed
     frames, M = K/2, in natural order: for bin f (g = min(f, K - f)), E =
     (Z[g] + conj Z[M - g]) / 2, O = -i (Z[g] - conj Z[M - g]) / 2 (indices
     mod M), X = E + W_K^g O with W_K^g the row g of ``split`` (-1 at g =
-    M); then :func:`_power`."""
+    M), conjugated past M (two sided); then :func:`epilogue_out`."""
     M = K // 2
     F = wts.shape[0]
     fb = np.arange(F)
@@ -414,7 +442,7 @@ def _split_psd(re: np.ndarray, im: np.ndarray, split: np.ndarray, K: int,
     wi = np.where(g < M, split[last, 1], 0.0)
     xr = er + (wr * o_r - wi * o_i)
     xi = ei + (wr * o_i + wi * o_r)
-    return _power(xr, xi, wts, round_f32)
+    return epilogue_out(xr, np.where(fb > M, -xi, xi), wts, round_f32, mode)
 
 
 # csrc/stft_psd.cu::PAIR_MAX_RATIO: two frames share a transform when both
@@ -443,7 +471,8 @@ def paired_frames(v: np.ndarray) -> np.ndarray:
 
 def psd_odd_fft(frames: np.ndarray, window: np.ndarray, plan,
                 wts: np.ndarray, detrend: str = "none",
-                round_f32: bool = True, pack: bool = True) -> np.ndarray:
+                round_f32: bool = True, pack: bool = True,
+                nfft: Optional[int] = None, mode: str = "psd") -> np.ndarray:
     """(T, F) PSD by the odd-nperseg kernel's arithmetic
     (``csrc/stft_psd.cu::stft_odd_fft_psd_kernel``), in float64, with
     ``plan`` = ``core/stft.py::fft_plan(nperseg)``, K = nperseg odd:
@@ -462,7 +491,8 @@ def psd_odd_fft(frames: np.ndarray, window: np.ndarray, plan,
     What differs from the card: the detrend's sums and the guard's
     energies are numpy's, not the kernel's block reductions, and numpy
     rounds the products where the card may fuse them (FMA)."""
-    K = frames.shape[-1]
+    v = padded(detrended(frames.astype(np.float64), detrend) * window, nfft)
+    K = v.shape[-1]
 
     def transform(re, im):
         zr = np.empty_like(re)
@@ -470,37 +500,45 @@ def psd_odd_fft(frames: np.ndarray, window: np.ndarray, plan,
         zr[:, plan.perm], zi[:, plan.perm] = re, im
         return _transform(zr, zi, plan, K)
 
-    v = detrended(frames.astype(np.float64), detrend) * window
-    return _pair_psd(v, transform, wts, round_f32, pack)
+    return _pair_psd(v, transform, wts, round_f32, pack, mode)
 
 
 def _pair_psd(v: np.ndarray, transform, wts: np.ndarray, round_f32: bool,
-              pack: bool = True) -> np.ndarray:
+              pack: bool = True, mode: str = "psd") -> np.ndarray:
     """The odd kernels' pairing and pair epilogue on the detrended,
     windowed odd frames v (T, K), with ``transform(re, im)`` the kernel's
     K-point transform of values in natural order: frames 2j and 2j + 1
     share one transform, z = v_a + i v_b, where :func:`paired_frames` says
     so (and ``pack``), their bins A[f] = (Z[f] + conj Z[K - f]) / 2 and
     B[f] = (Z[f] - conj Z[K - f]) / 2i (indices mod K); any other frame
-    is transformed alone, z = v + 0i, X[f] = Z[f]; then :func:`_power`."""
+    is transformed alone, z = v + 0i, X[f] = Z[f] (in complex mode past
+    K/2, two sided, conj Z[K - f]); then :func:`epilogue_out` in
+    ``mode``."""
     T, K = v.shape
     F = wts.shape[0]
     paired = (paired_frames(v) if pack else np.zeros(T, bool))
-    out = np.empty((T, F))
+    out = np.empty((T, F), complex if mode == "complex" else float)
     fb = np.arange(F)
     a_rows = np.flatnonzero(paired)[0::2]
     if a_rows.size:
         zr, zi = transform(v[a_rows], v[a_rows + 1])
         j = (K - fb) % K
         ar, ai, br, bi = zr[:, fb], zi[:, fb], zr[:, j], zi[:, j]
-        out[a_rows] = _power(0.5 * (ar + br), 0.5 * (ai - bi), wts, False)
-        out[a_rows + 1] = _power(0.5 * (ai + bi), 0.5 * (br - ar), wts,
-                                 False)
+        out[a_rows] = epilogue_out(0.5 * (ar + br), 0.5 * (ai - bi), wts,
+                                   False, mode)
+        out[a_rows + 1] = epilogue_out(0.5 * (ai + bi), 0.5 * (br - ar),
+                                       wts, False, mode)
     alone = np.flatnonzero(~paired)
     if alone.size:
         zr, zi = transform(v[alone], np.zeros((alone.size, K)))
-        out[alone] = _power(zr[:, :F], zi[:, :F], wts, False)
-    return out.astype(np.float32) if round_f32 else out
+        mirror = (2 * fb > K) & (mode == "complex")
+        g = np.where(mirror, K - fb, fb)
+        out[alone] = epilogue_out(zr[:, g], np.where(mirror, -zi[:, g],
+                                                     zi[:, g]),
+                                  wts, False, mode)
+    if not round_f32:
+        return out
+    return out.astype(np.complex64 if mode == "complex" else np.float32)
 
 
 def _bluestein_transform(re: np.ndarray, im: np.ndarray, plan):
@@ -560,7 +598,9 @@ def _bluestein_transform(re: np.ndarray, im: np.ndarray, plan):
 
 def psd_bluestein(frames: np.ndarray, window: np.ndarray, plan,
                   wts: np.ndarray, detrend: str = "none",
-                  round_f32: bool = True, pack: bool = True) -> np.ndarray:
+                  round_f32: bool = True, pack: bool = True,
+                  nfft: Optional[int] = None,
+                  mode: str = "psd") -> np.ndarray:
     """(T, F) PSD by the Bluestein kernel's arithmetic
     (``csrc/stft_psd.cu::stft_bluestein_psd_kernel``), in float64, with
     ``plan`` = ``core/stft.py::bluestein_plan(nperseg)``:
@@ -575,32 +615,36 @@ def psd_bluestein(frames: np.ndarray, window: np.ndarray, plan,
     What differs from the card: the detrend's sums and the guard's
     energies are numpy's, not the kernel's block reductions, and numpy
     rounds the products where the card may fuse them (FMA)."""
-    K = frames.shape[-1]
-    v = detrended(frames.astype(np.float64), detrend) * window
+    v = padded(detrended(frames.astype(np.float64), detrend) * window, nfft)
+    K = v.shape[-1]
     if K % 2:
         return _pair_psd(v, lambda re, im: _bluestein_transform(re, im, plan),
-                         wts, round_f32, pack)
+                         wts, round_f32, pack, mode)
     re, im = _bluestein_transform(v[:, 0::2], v[:, 1::2], plan)
-    return _split_psd(re, im, plan.twiddles[plan.split:], K, wts, round_f32)
+    return _split_psd(re, im, plan.twiddles[plan.split:], K, wts, round_f32,
+                      mode)
 
 
-def fft_operands(cfg: SpecConfig, fs: float = FS):
-    """The FFT kernel's host operands as numpy float64: window, twiddle
-    table, weights."""
-    return (_window_f64(cfg), fft_twiddles(cfg.nperseg),
-            onesided_weights(cfg, fs))
+def fft_operands(cfg: SpecConfig, fs: float = FS, out=None):
+    """The FFT kernel's host operands as numpy float64: window (nperseg
+    points; the kernel's is zero-padded to nfft), twiddle table of nfft,
+    weights of the output ``out`` (``stft_cuda.kernel_weights``)."""
+    return (_window_f64(cfg), fft_twiddles(cfg.nfft_),
+            kernel_weights(cfg, fs, out))
 
 
-def mixed_operands(cfg: SpecConfig, fs: float = FS):
-    """The mixed-radix kernel's host operands: window, plan, weights."""
-    return (_window_f64(cfg), fft_plan(cfg.nperseg),
-            onesided_weights(cfg, fs))
+def mixed_operands(cfg: SpecConfig, fs: float = FS, out=None):
+    """The mixed-radix kernel's host operands: window, plan of nfft,
+    weights."""
+    return (_window_f64(cfg), fft_plan(cfg.nfft_),
+            kernel_weights(cfg, fs, out))
 
 
-def bluestein_operands(cfg: SpecConfig, fs: float = FS):
-    """The Bluestein kernel's host operands: window, plan, weights."""
-    return (_window_f64(cfg), bluestein_plan(cfg.nperseg),
-            onesided_weights(cfg, fs))
+def bluestein_operands(cfg: SpecConfig, fs: float = FS, out=None):
+    """The Bluestein kernel's host operands: window, plan of nfft,
+    weights."""
+    return (_window_f64(cfg), bluestein_plan(cfg.nfft_),
+            kernel_weights(cfg, fs, out))
 
 
 def trend(n: int) -> np.ndarray:
