@@ -5,8 +5,9 @@
 
 Needs one CUDA card and nvcc; run it from the root of a checkout. It
 builds every kernel of the port's paths from the sources in the checkout
-(``csrc/stft_psd.cu``, ``csrc/display.cu``, ``csrc/mel.cu`` and
-``csrc/hmm.cu``, one nvcc each, started together, beside the native PNG
+(``csrc/stft_psd.cu``, ``csrc/display.cu``, ``csrc/mel.cu``,
+``csrc/hmm.cu`` and ``csrc/stft_grad.cu``, one nvcc each, started
+together, beside the native PNG
 encoder's g++ build, which must succeed too) and holds each kernel
 against its plain PyTorch version on the card: the STFT/PSD kernel's five routes (the FFT kernel at power-of-two
 nperseg 32-8192, under every detrend, beside zero, NaN and 1e-6 frames,
@@ -60,8 +61,9 @@ H3, the chunked E-step, at T 2048, 8192 and 524,288, statistics within
 HMM_STATS_TOL and the log-likelihood within HMM_LL_TOL; a six-state model
 (the instantiation for 5-8 states) through all three at T 3000; with
 each kernel's ptxas registers and spills. Then it drives eighteen paths at
-full size, the GUI, the command line and the extended modes, each
-with the launch counts set to 0 just before it and read just after; each
+full size, the GUI, the command line, the extended modes and the
+gradients, each with the launch counts set to 0 just before it and read
+just after; each
 call of the pipeline on paths 1-11 and 13 is one launch of the route's
 STFT kernel, one of clip_stats and one of the display map, and on path 12
 the STFT kernel, the mel kernel, clip_stats and the display map (path 1
@@ -210,6 +212,27 @@ the host has no matplotlib, one line that says so; and
     magnitude within 1e-3 dB), the magnitude and complex epilogues timed
     against their plain versions, cuFFT with the same epilogue and their
     bounds.
+
+21. gradients (``grad_path``): path 1's batch as a waveform that requires
+    grad, three SGD steps through ``batched_spectrogram_fn`` at
+    north_star 1024/256 log (the loss on the image and the PSD) and
+    three at path 12's 128 log mels (on the mel rows and the image), each
+    step the forward kernels, one recompute of X by the route's complex
+    epilogue and the backward kernels (``stft_backward_kernel``,
+    ``overlap_add_kernel``, ``mel_backward_kernel``, the display
+    backward's two kernels), its gradient on GRAD_CLIPS clips held within
+    GRAD_TOL of the clip's largest |gradient| to the plain backward on
+    the card; ``power_spectrogram`` and ``stft`` on 10 minutes at 48 kHz
+    (path 16's config) the same way; each backward kernel timed against
+    its plain version, its bound and its library call (the backward of
+    ``library_psd`` under autograd for the STFT's, ``F.fold`` for the
+    overlap-add, ``torch.matmul`` in float64 for the mel projection's).
+    Before it, phase ``grad`` holds the STFT backward to its plain
+    version on every route (radix-2, mixed, odd, Bluestein on one block
+    and on a cluster, GEMM, nfft past nperseg, two-sided, magnitude,
+    complex, a band, centered, linear detrend, T = 0) and the mel and
+    display backward at paths 12's and 1's shapes (tied extrema,
+    share_max, linear and log, flipped).
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
@@ -451,7 +474,9 @@ def reset_counts():
     from spectral_tpu_torch.ops import (display_cuda, hmm_cuda, mel_cuda,
                                         stft_cuda)
     for counts in (stft_cuda.launches, display_cuda.launches,
-                   mel_cuda.launches, hmm_cuda.launches):
+                   mel_cuda.launches, hmm_cuda.launches,
+                   stft_cuda.grad_launches, mel_cuda.grad_launches,
+                   display_cuda.grad_launches):
         for key in counts:
             counts[key] = 0
 
@@ -462,7 +487,9 @@ def read_counts():
     return {"stft_psd": dict(stft_cuda.launches),
             "display": dict(display_cuda.launches),
             "mel": dict(mel_cuda.launches),
-            "hmm": dict(hmm_cuda.launches)}
+            "hmm": dict(hmm_cuda.launches),
+            "grad": {**stft_cuda.grad_launches, **mel_cuda.grad_launches,
+                     **display_cuda.grad_launches}}
 
 
 def require_one_call(counts, route, calls, what):
@@ -584,9 +611,10 @@ def build_kernels():
     native = subprocess.Popen(
         [sys.executable, "-m", "spectral_tpu_torch.native.build"], cwd=HERE,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    with ThreadPoolExecutor(4) as pool:
-        info, tail, mel, hmm_lib = pool.map(
-            build.build_library, ("stft_psd", "display", "mel", "hmm"))
+    with ThreadPoolExecutor(5) as pool:
+        info, tail, mel, hmm_lib, grad = pool.map(
+            build.build_library,
+            ("stft_psd", "display", "mel", "hmm", "stft_grad"))
     out, err = native.communicate(timeout=300)
     require(native.returncode == 0,
             f"the native PNG encoder did not build (it needs g++ and zlib's "
@@ -594,23 +622,33 @@ def build_kernels():
     from spectral_tpu_torch.native import build as native_build
     from spectral_tpu_torch.native import png_native
     require(png_native.available(), "the native PNG encoder does not load")
-    print(f"the four sources and the native PNG encoder built side by side "
+    print(f"the five sources and the native PNG encoder built side by side "
           f"in {time.perf_counter() - t0:.2f} s: "
           f"{os.path.relpath(native_build.lib_path('libspectpu_png.so'), HERE)}")
     print(f"hmm.cu -> {os.path.relpath(hmm_lib['path'], HERE)} in "
           f"{hmm_lib['seconds']:.2f} s; ptxas: "
           + "; ".join(hmm_ptxas(hmm_lib["log"])))
     build.load_library("hmm")
+    print(f"stft_grad.cu -> {os.path.relpath(grad['path'], HERE)} in "
+          f"{grad['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
+              grad["log"], r"(stft_backward_kernel|overlap_add_kernel)",
+              lambda e: e.group(1))))
+    build.load_library("stft_grad")
     print(f"mel.cu -> {os.path.relpath(mel['path'], HERE)} in "
           f"{mel['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
-              mel["log"], r"(mel_project_kernel)", lambda e: "mel_project")))
+              mel["log"], r"(mel_project_kernel|mel_backward_kernel)",
+              lambda e: e.group(1))))
     build.load_library("mel")
     print(f"display.cu -> {os.path.relpath(tail['path'], HERE)} in "
           f"{tail['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
               tail["log"], r"(clip_stats_kernel|display_map_kernelILi(\d)"
-              r"ELb(\d)E)",
-              lambda e: "clip_stats" if e.group(2) is None else
-              f"display_map<MODE {e.group(2)}, LOG {e.group(3)}>")))
+              r"ELb(\d)E|display_grad_pixel_kernelILb(\d)E|"
+              r"display_grad_extrema_kernel)",
+              lambda e: "clip_stats" if e.group(1) == "clip_stats_kernel"
+              else f"display_map<MODE {e.group(2)}, LOG {e.group(3)}>"
+              if e.group(2) is not None
+              else f"display_grad_pixel<LOG {e.group(4)}>"
+              if e.group(4) is not None else "display_grad_extrema")))
     build.load_library("display")
     print(f"stft_psd.cu -> {os.path.relpath(info['path'], HERE)} in "
           f"{info['seconds']:.2f} s")
@@ -2167,10 +2205,11 @@ def mel_bound(B, T, F, M):
 
 def flat_counts(counts):
     """``read_counts()`` as one dict: stft_<route>, the display and mel
-    kernels by name, hmm_<kernel>."""
+    kernels by name, hmm_<kernel>, the backward kernels by name."""
     return {**{f"stft_{k}": v for k, v in counts["stft_psd"].items()},
             **counts["display"], **counts["mel"],
-            **{f"hmm_{k}": v for k, v in counts["hmm"].items()}}
+            **{f"hmm_{k}": v for k, v in counts["hmm"].items()},
+            **counts.get("grad", {})}
 
 
 def require_counts(counts, want, what):
@@ -4972,10 +5011,430 @@ def ext_modes_path(dev, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# gradients: the backward kernels (phase grad) and path 21
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = 1e-6         # of the clip's largest |gradient|, kernel vs plain
+GRAD_STEPS = 3          # SGD steps on path 21's waveforms
+GRAD_CLIPS = 8          # clips of path 21 held to the plain backward
+
+
+def clip_rel(got, want):
+    """Largest |Δ| of each clip (leading axis) over the clip's largest
+    |want|, the worst clip's; NaN required in the same places."""
+    import torch
+    require(tuple(got.shape) == tuple(want.shape),
+            f"shapes {tuple(got.shape)} vs {tuple(want.shape)}")
+    nan = torch.isnan(want)
+    require(torch.equal(torch.isnan(got), nan), "NaN in other places")
+    B = want.shape[0]
+    diff = torch.where(nan, 0.0, (got - want).abs()).reshape(B, -1)
+    scale = torch.where(nan, 0.0, want.abs()).reshape(B, -1).amax(dim=1)
+    return float((diff.amax(dim=1) / scale.clamp_min(1e-30)).amax()), \
+        float(diff.amax())
+
+
+def grad_counts_moved(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def grad_kernel_cases(dev):
+    """Phase grad: the STFT backward (stft_backward_kernel and
+    overlap_add_kernel, after one launch of the route's complex epilogue)
+    through ``loss.backward()`` of the kernels' entry points, held per
+    clip within GRAD_TOL to the plain backward on the same card, on every
+    route's config: radix-2 1024, mixed 992 and 8160, odd 1023, Bluestein
+    2049 and 8185 (a cluster), GEMM 24, nfft 4096 over nperseg 1024,
+    two-sided, magnitude, the complex STFT scaled and unscaled, a 0-30 Hz
+    band at 1 kHz, centered (reflect), linear detrend, T = 0; then the mel
+    backward at path 12's shapes and the display backward at path 1's and
+    path 12's (log and linear, flipped, share_max, tied extrema), each
+    against its plain version."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.mel import mel_filterbank
+    from spectral_tpu_torch.core.stft import center_pad, num_frames
+    from spectral_tpu_torch.ops import display_cuda as disp
+    from spectral_tpu_torch.ops import mel_cuda, stft_cuda
+
+    phase("grad: the backward kernels against their plain versions")
+    s1024 = SpecConfig.scipy_default(1024)
+    ns = SpecConfig.north_star(1024, 256)
+    cases = (
+        ("radix-2 1024", ns, FS, "psd", None),
+        ("mixed 992", SpecConfig.scipy_default(992), FS, "psd", None),
+        ("mixed 8160", SpecConfig.scipy_default(8160), FS, "psd", None),
+        ("odd 1023", SpecConfig.scipy_default(1023), FS, "psd", None),
+        ("Bluestein 2049", SpecConfig.scipy_default(2049), FS, "psd", None),
+        ("Bluestein 8185 (cluster)", SpecConfig.scipy_default(8185), FS,
+         "psd", None),
+        ("GEMM 24", SpecConfig.scipy_default(24), FS, "psd", None),
+        ("nfft 4096 over 1024", dataclasses.replace(s1024, nfft=4096), FS,
+         "psd", None),
+        ("two-sided 1024", dataclasses.replace(ns, onesided=False), FS,
+         "psd", None),
+        ("magnitude 1024", dataclasses.replace(s1024, mode="magnitude"), FS,
+         "psd", None),
+        ("complex 1024", s1024, FS, "complex", None),
+        ("stft (unscaled) 992", SpecConfig.scipy_default(992), FS, "stft",
+         None),
+        ("complex two-sided GEMM 24",
+         dataclasses.replace(SpecConfig.scipy_default(24), onesided=False),
+         FS, "complex", None),
+        ("band 0-30 Hz at 1 kHz", s1024, 1000.0, "psd", (0, 31)),
+        ("centered reflect 1024", dataclasses.replace(
+            ns, center=True, pad_mode="reflect"), FS, "psd", None),
+        ("linear 960", SpecConfig(nperseg=960, hop=240, detrend="linear"),
+         FS, "psd", None),
+    )
+    rs = np.random.RandomState(21)
+    for label, cfg, fs, kind, band in cases:
+        k = cfg.nperseg
+        n = 6 * k + 123                      # a tail past the last frame
+        x = torch.from_numpy(rs.randn(3, n).astype(np.float32)).to(dev)
+        x.requires_grad_()
+        out = cfg.mode if kind == "psd" else kind
+        before = flat_counts(read_counts())
+        if kind == "psd":
+            y = stft_cuda.stft_psd(x, fs, cfg, band=band)
+        else:
+            y = stft_cuda.stft_complex(x, fs, cfg, band,
+                                       scaled=kind == "complex")
+        gen = torch.Generator(device=dev).manual_seed(len(label))
+        g = torch.rand(y.shape, generator=gen, device=dev,
+                       dtype=torch.float32)
+        if y.is_complex():
+            g = torch.complex(g, torch.rand(y.shape, generator=gen,
+                                            device=dev) - 0.5)
+        dx, = torch.autograd.grad(y, x, g)
+        torch.cuda.synchronize()
+        moved = grad_counts_moved(before, flat_counts(read_counts()))
+        route = stft_cuda.route(cfg)
+        require(moved == {f"stft_{route}": 2, "stft_backward": 1,
+                          "overlap_add": 1},
+                f"grad {label}: launches {moved}")
+        consts = stft_cuda.dft_constants(cfg, fs, dev, band, out)
+        with torch.enable_grad():
+            xp = center_pad(x, cfg)
+        dxp = stft_cuda.stft_backward_reference(xp.detach(), g, consts, cfg,
+                                                out)
+        want = (torch.autograd.grad(xp, x, dxp)[0] if cfg.center else dxp)
+        rel, err = clip_rel(dx, want)
+        require(rel <= GRAD_TOL, f"grad {label}: {rel:.2e} of the clip's "
+                f"largest |gradient|")
+        T = num_frames(xp.shape[-1], k, cfg.hop_)
+        print(f"{label} [{route}]: the backward {rel:.2e} of the clip's "
+              f"largest |gradient| from the plain version ({err:.3e} abs), "
+              f"3 clips x {T} frames; launches {moved}")
+    # T = 0: no frame, a zero gradient, no backward launch
+    x = torch.zeros((2, 500), device=dev, requires_grad=True)
+    before = flat_counts(read_counts())
+    y = stft_cuda.stft_psd(x, FS, ns)
+    dx, = torch.autograd.grad(y, x, torch.zeros_like(y))
+    moved = grad_counts_moved(before, flat_counts(read_counts()))
+    require(y.shape[1] == 0 and bool((dx == 0).all())
+            and "stft_backward" not in moved, f"grad T = 0: {moved}")
+
+    # the mel backward at path 12's shapes: 8 clips x 622 frames, 513 bins,
+    # 128 mels; an inf gradient of one mel row (NaN outside its span)
+    T = num_frames(int(FS * CLIP_SECONDS), 1024, 256)
+    F = ns.n_freqs
+    spans = mel_cuda.mel_spans(mel_filterbank(128, F, FS), dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    dmel = torch.randn((8, T, 128), generator=gen, device=dev)
+    dmel[1, 7, 40] = float("inf")
+    got = mel_cuda.mel_backward(dmel, spans)
+    torch.cuda.synchronize()
+    want = mel_cuda.mel_backward_reference(dmel, spans)
+    rel, err = clip_rel(got[2:], want[2:])
+    require(rel <= GRAD_TOL and ulp_distance(got, want) <= MEL_ULPS,
+            f"mel backward: {rel:.2e}, {ulp_distance(got, want)} ulp")
+    require(torch.equal(torch.isnan(got), torch.isnan(want))
+            and bool(torch.isnan(got[1, 7]).any()),
+            "mel backward: the inf row's NaN bins")
+    print(f"mel backward (8 x {T} frames, 128 mels over {F} bins): "
+          f"{ulp_distance(got, want)} ulp from the plain version ({err:.3e} "
+          f"abs), NaN in its places")
+
+    # the display backward at path 1's shapes (PSD rows, log and linear,
+    # flipped or not, share_max) and path 12's (mel rows), tied extrema
+    x8 = torch.randn((8, int(FS * CLIP_SECONDS)), generator=gen, device=dev)
+    psd, parts = stft_cuda.stft_psd_partials(x8, FS, ns)
+    mel, mparts = mel_cuda.mel_project(psd, spans)
+    psd_ties = psd.clone()
+    psd_ties[0, 10, 3] = psd_ties[0].amax()
+    psd_ties[1, 20, :] = psd_ties[1].amin()
+    for what, rows, prt in (("PSD rows", psd, parts),
+                            ("PSD rows, tied extrema", psd_ties,
+                             stft_cuda.row_partials(psd_ties)),
+                            ("mel rows", mel, mparts)):
+        for log, flip, share in ((True, True, False), (False, False, False),
+                                 (True, False, True), (False, True, True)):
+            stats = disp.clip_stats(x8, prt.contiguous(), share)
+            g = torch.randn((8, rows.shape[2], rows.shape[1]),
+                            generator=gen, device=dev)
+            before = flat_counts(read_counts())
+            got = disp.display_backward(g, rows, stats.params, log_scale=log,
+                                        flip_image=flip, share_max=share)
+            torch.cuda.synchronize()
+            moved = grad_counts_moved(before, flat_counts(read_counts()))
+            want = disp.display_backward_reference(
+                g, rows, stats.params, log_scale=log, flip_image=flip,
+                share_max=share)
+            rel, err = clip_rel(got, want)
+            require(rel <= GRAD_TOL and moved == {"display_backward": 1},
+                    f"display backward, {what}, log {log}, flip {flip}, "
+                    f"share_max {share}: {rel:.2e}, launches {moved}")
+            print(f"display backward, {what} ({tuple(rows.shape)}), log "
+                  f"{log}, flip {flip}, share_max {share}: {rel:.2e} of the "
+                  f"clip's largest |gradient| ({err:.3e} abs)")
+    torch.cuda.empty_cache()
+
+
+def stft_backward_bound(R, F, L, K, g_bytes=4):
+    """Kernel 1: g and X (complex64) read once and d written once, or a
+    real FFT's 2.5 K log2 K a frame at the FP64 peak, the larger."""
+    t_mem = (R * F * (g_bytes + 8) + R * L * 4) / HBM_RATE
+    t_ops = R * 2.5 * K * math.log2(K) / FP64_PEAK
+    return (1e3 * max(t_mem, t_ops),
+            "operations" if t_ops >= t_mem else "bytes")
+
+
+def grad_path(dev, card):
+    """Path 21, gradients on the card: path 1's batch (1024 clips x 10 s at
+    16 kHz) as a waveform that requires grad, three SGD steps through
+    ``batched_spectrogram_fn`` at north_star 1024/256 log (the loss on the
+    image and the PSD), then three at path 12's 128 log mels (on the mel
+    rows and the image); each step's loss, gradient norm and launches
+    printed, its gradient on GRAD_CLIPS clips held within GRAD_TOL of the
+    plain backward on the card; then ``power_spectrogram`` and ``stft`` on
+    10 minutes at 48 kHz (path 16's config) the same way; each backward
+    kernel timed at path 1's and path 12's shapes against its plain
+    version, its bound and its library call."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.mel import mel_filterbank
+    from spectral_tpu_torch.core.stft import (band_row_slice, freq_axis,
+                                              num_frames, power_spectrogram,
+                                              stft)
+    from spectral_tpu_torch.ops import display_cuda as disp
+    from spectral_tpu_torch.ops import mel_cuda, stft_cuda
+    from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
+
+    from spectral_tpu_torch.utils.memory import trim_caches
+    t_path = time.perf_counter()
+    # the earlier phases' device operands (the DFT matrices of every config
+    # whose plain version ran, half a GB each near nperseg 8192) would
+    # crowd out the library's autograd graph below
+    before = torch.cuda.memory_allocated()
+    trim_caches()
+    print(f"path 21 starts with {before / 2 ** 30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB after the "
+          f"port's caches are trimmed")
+    n = int(FS * CLIP_SECONDS)
+    T = num_frames(n, 1024, 256)
+    plain = SpecConfig.north_star(1024, 256, log_scale=True)
+    mels = SpecConfig.north_star(1024, 256, n_mels=128, log_scale=True)
+    F, M = plain.n_freqs, 128
+    phase(f"path 21, gradients: {BATCH} clips x {CLIP_SECONDS:g} s at "
+          f"{FS:g} Hz that require grad, {GRAD_STEPS} SGD steps at "
+          f"north_star 1024/256 log and at 128 log mels")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x0 = torch.randn((BATCH, n), generator=gen, device=dev)
+    spans = mel_cuda.mel_spans(mel_filterbank(128, F, FS), dev)
+    consts = stft_cuda.dft_constants(plain, FS, dev, None, "psd")
+    reset_counts()
+    for label, cfg, keys in (("plain", plain, ("image", "psd")),
+                             ("mel", mels, ("image", "mel"))):
+        fn = batched_spectrogram_fn(FS, cfg, flip_image=True)
+        x = x0.clone().requires_grad_()
+        with torch.no_grad():
+            scale = float(fn(x)[keys[1]].mean())
+        for step in range(GRAD_STEPS):
+            before = flat_counts(read_counts())
+            t0 = time.perf_counter()
+            out = fn(x)
+            loss = out[keys[0]].mean() + out[keys[1]].mean() / scale
+            loss.backward()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            moved = grad_counts_moved(before, flat_counts(read_counts()))
+            want_moved = {"stft_fft": 2, "clip_stats": 1, "rgba": 1,
+                          "display_backward": 1, "stft_backward": 1,
+                          "overlap_add": 1}
+            if cfg.n_mels:
+                want_moved.update(mel=1, mel_backward=1)
+            require(moved == want_moved, f"path 21 {label} step {step}: "
+                    f"launches {moved}, want {want_moved}")
+            # the plain backward on GRAD_CLIPS clips, from the same forward
+            c = GRAD_CLIPS
+            xs = x.detach()[:c]
+            shown = out["mel" if cfg.n_mels else "psd"].detach()[:c]
+            st = disp.clip_stats_reference(xs, stft_cuda.row_partials(shown))
+            g_img = torch.full((c, shown.shape[2], T),
+                               1.0 / out["image"].numel(), device=dev)
+            g_out = torch.full(out[keys[1]][:c].shape,
+                               1.0 / (out[keys[1]].numel() * scale),
+                               device=dev)
+            d_shown = disp.display_backward_reference(
+                g_img, shown, st.params, log_scale=True, flip_image=True)
+            d_shown = d_shown + g_out
+            d_psd = (mel_cuda.mel_backward_reference(d_shown, spans)
+                     if cfg.n_mels else d_shown)
+            want = stft_cuda.stft_backward_reference(xs, d_psd, consts, cfg,
+                                                     "psd")
+            rel, err = clip_rel(x.grad[:c], want)
+            require(rel <= GRAD_TOL and bool(torch.isfinite(x.grad).all()),
+                    f"path 21 {label} step {step}: {rel:.2e} of the clip's "
+                    f"largest |gradient| from the plain backward")
+            gnorm = float(x.grad.norm())
+            print(f"{label} step {step}: loss {float(loss.detach()):.7f}, |grad| "
+                  f"{gnorm:.4e}, {wall * 1e3:.1f} ms forward + backward "
+                  f"(host clock, synchronised); {c} clips {rel:.2e} of the "
+                  f"clip's largest |gradient| from the plain backward "
+                  f"({err:.3e} abs); launches {moved}")
+            with torch.no_grad():
+                x -= 0.5 * x.grad / x.grad.abs().amax()
+            x.grad = None
+            del out, loss, want, d_psd, d_shown
+        del x
+        torch.cuda.empty_cache()
+
+    # power_spectrogram and stft on 10 minutes at 48 kHz (path 16's config)
+    fs16 = 48000.0
+    cfg16 = SpecConfig.scipy_default(1024, fmin=0.0, fmax=4000.0)
+    band = band_row_slice(freq_axis(cfg16, fs16), cfg16.fmin, cfg16.fmax)
+    xh = torch.randn((1, int(fs16 * 600)), generator=gen, device=dev)
+    for what in ("power_spectrogram", "stft"):
+        x = xh.clone().requires_grad_()
+        before = flat_counts(read_counts())
+        if what == "power_spectrogram":
+            y = power_spectrogram(x, fs16, cfg16, band=band)
+            g = torch.full(y.shape, 1.0 / y.numel(), device=dev)
+            out, cband = "psd", band
+        else:
+            y = stft(x, cfg16)
+            g = torch.complex(torch.full(y.shape, 1.0, device=dev),
+                              torch.full(y.shape, -0.5, device=dev))
+            out, cband = "stft", None
+        y.backward(g)
+        torch.cuda.synchronize()
+        moved = grad_counts_moved(before, flat_counts(read_counts()))
+        require(moved == {"stft_fft": 2, "stft_backward": 1,
+                          "overlap_add": 1}, f"path 21 {what}: {moved}")
+        want = stft_cuda.stft_backward_reference(
+            xh, g, stft_cuda.dft_constants(cfg16, fs16, dev, cband, out),
+            cfg16, out)
+        rel, err = clip_rel(x.grad, want)
+        require(rel <= GRAD_TOL, f"path 21 {what}: {rel:.2e}")
+        print(f"{what} on 10 minutes at 48 kHz ({tuple(y.shape)}): the "
+              f"gradient {rel:.2e} of its largest from the plain backward "
+              f"({err:.3e} abs); launches {moved}")
+        del x, y, g, want
+    del xh
+    torch.cuda.empty_cache()
+    counts = flat_counts(read_counts())
+    print(f"launches in this path's run: {counts}")
+    t_steps = time.perf_counter() - t_path
+
+    phase(f"path 21 times (CUDA events, median of {REPS} after a warm-up; "
+          f"{card})")
+    x = x0
+    X = stft_cuda._stft_psd_cuda(x, FS, plain, False, False,
+                                 out_mode="stft")
+    g = torch.rand((BATCH, T, F), generator=gen, device=dev)
+    d = stft_cuda.frames_backward(g, X, consts, "psd")
+    d_plain = stft_cuda.frames_backward_reference(g[:GRAD_CLIPS],
+                                                  X[:GRAD_CLIPS], consts,
+                                                  "psd")
+    err1 = clip_rel(d[:GRAD_CLIPS], d_plain)[1]
+    dx = stft_cuda.overlap_add(d, n, 256)
+    err2 = clip_rel(dx[:GRAD_CLIPS], stft_cuda.overlap_add_reference(
+        d[:GRAD_CLIPS], n, 256))[1]
+    del d_plain, dx
+    chunks = [slice(i, i + 256) for i in range(0, BATCH, 256)]
+    t1 = time_ms(lambda: stft_cuda.frames_backward(g, X, consts, "psd"))
+    t1p = time_ms(lambda: [stft_cuda.frames_backward_reference(
+        g[c], X[c], consts, "psd") for c in chunks])
+    t2 = time_ms(lambda: stft_cuda.overlap_add(d, n, 256))
+    t2p = time_ms(lambda: stft_cuda.overlap_add_reference(d, n, 256))
+    t2l = time_ms(lambda: torch.nn.functional.fold(
+        d.transpose(1, 2), (1, n), (1, 1024), stride=(1, 256)))
+    del X, d
+    torch.cuda.empty_cache()
+    # the library: the backward of cuFFT's f64 PSD under autograd
+    torch.cuda.reset_peak_memory_stats()
+    xl = x.clone().requires_grad_()
+    yl = library_psd(xl, plain)
+    t1l = time_ms(lambda: torch.autograd.grad(yl, xl, g,
+                                              retain_graph=True))[0]
+    print(f"the library's backward peaked at "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    del xl, yl
+    torch.cuda.empty_cache()
+    # the mel backward at path 12's shapes
+    dmel = torch.randn((BATCH, T, M), generator=gen, device=dev)
+    got = mel_cuda.mel_backward(dmel[:GRAD_CLIPS], spans)
+    err3 = clip_rel(got, mel_cuda.mel_backward_reference(
+        dmel[:GRAD_CLIPS], spans))[1]
+    t3 = time_ms(lambda: mel_cuda.mel_backward(dmel, spans))
+    t3p = time_ms(lambda: mel_cuda.mel_backward_reference(dmel, spans))
+    t3l = time_ms(lambda: torch.matmul(dmel.double(), spans.rows))
+    del dmel, got
+    # the display backward at path 1's shapes
+    psd, parts = stft_cuda.stft_psd_partials(x, FS, plain)
+    stats = disp.clip_stats(x, parts)
+    gi = torch.rand((BATCH, F, T), generator=gen, device=dev)
+    kw = dict(log_scale=True, flip_image=True)
+    got = disp.display_backward(gi[:GRAD_CLIPS], psd[:GRAD_CLIPS],
+                                stats.params[:GRAD_CLIPS], **kw)
+    err4 = clip_rel(got, disp.display_backward_reference(
+        gi[:GRAD_CLIPS], psd[:GRAD_CLIPS], stats.params[:GRAD_CLIPS],
+        **kw))[1]
+    t4 = time_ms(lambda: disp.display_backward(gi, psd, stats.params, **kw))
+    t4p = time_ms(lambda: [disp.display_backward_reference(
+        gi[c], psd[c], stats.params[c], **kw) for c in chunks])
+    del psd, parts, gi, got
+    torch.cuda.empty_cache()
+    R = BATCH * T
+    b1 = stft_backward_bound(R, F, 1024, 1024)
+    b2 = (1e3 * (R * 1024 * 4 + BATCH * n * 4) / HBM_RATE, "bytes")
+    b3 = (1e3 * (R * M * 4 + R * F * 4) / HBM_RATE, "bytes")
+    b4 = (1e3 * (3 * R * F * 4 + BATCH * 12) / HBM_RATE, "bytes")
+    rows = {}
+    for key, name, (ms, reps), (pms, _), lib_ms, bound, err, note in (
+            ("stft_backward", "stft_backward_kernel", t1, t1p, t1l, b1,
+             err1, "library: the backward of library_psd (cuFFT f64, "
+             "autograd) over kernels 1 and 2"),
+            ("overlap_add", "overlap_add_kernel", t2, t2p, t2l[0], b2, err2,
+             "library: torch.nn.functional.fold"),
+            ("mel_backward", "mel_backward_kernel", t3, t3p, t3l[0], b3,
+             err3, "library: torch.matmul f64"),
+            ("display_backward", "display_backward (two kernels)", t4, t4p,
+             None, b4, err4, "no library call")):
+        print(f"{name}: {ms:.4f} ms [{card}] reps {reps}; bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); plain {pms:.3f} ms; library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'} ({note})")
+        rows[key] = dict(launches=counts[key], err=err, ms=ms, plain_ms=pms,
+                         bound=bound, library_ms=lib_ms)
+    print(json.dumps({"path21_times": {k: {kk: v[kk] for kk in
+                                           ("ms", "plain_ms", "library_ms")}
+                                       for k, v in rows.items()},
+                      "card": card}))
+    print(f"path 21 took {time.perf_counter() - t_path:.1f} s (the steps "
+          f"and checks {t_steps:.1f} s)")
+    return rows
+
+
 PHASES = ("kernels", "tail", "dc", "scipy", "band", "mel", "path1", "path2",
           "path3", "path4", "path5", "path6", "path7", "path8", "path9",
           "path10", "path11", "path12", "path13", "hmm", "path14", "path15",
-          "path16", "path17", "path18", "gui", "path19", "path20")
+          "path16", "path17", "path18", "gui", "path19", "path20", "grad",
+          "path21")
 
 
 def main(_phases=None):
@@ -5098,6 +5557,11 @@ def main(_phases=None):
     if "path20" in phases:
         rows.update(ext_modes_path(dev, card))
         torch.cuda.empty_cache()
+    if "grad" in phases:
+        grad_kernel_cases(dev)
+    if "path21" in phases:
+        rows.update(grad_path(dev, card))
+        torch.cuda.empty_cache()
     if _phases is not None:
         print(f"chip_smoke phases {sorted(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -5126,13 +5590,18 @@ def main(_phases=None):
           f"{rows['stft_nfft']['launches']} (the GEMM kernel forced "
           f"{rows['stft_gemm_nfft']['launches']}); the magnitude and complex "
           f"epilogues: path 20 {rows['stft_magnitude']['launches']}, "
-          f"{rows['stft_complex']['launches']}; the commands of path 19: "
+          f"{rows['stft_complex']['launches']}; the backward kernels' on "
+          f"path 21: stft_backward {rows['stft_backward']['launches']}, "
+          f"overlap_add {rows['overlap_add']['launches']}, mel_backward "
+          f"{rows['mel_backward']['launches']}, display_backward "
+          f"{rows['display_backward']['launches']}; the commands of path 19: "
           + "; ".join(f"{name} {flat}" for name, _, _, flat in
                       rows["cli_rows"]))
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
     tail_src = "spectral_tpu_torch/ops/csrc/display.cu"
     mel_src = "spectral_tpu_torch/ops/csrc/mel.cu"
     hmm_src = "spectral_tpu_torch/ops/csrc/hmm.cu"
+    grad_src = "spectral_tpu_torch/ops/csrc/stft_grad.cu"
     # each row names the instantiation its path launches
     meta = {
         "stft_1024": ("stft_fft_psd<LOG2M 9, 8 values>, nperseg 1024 "
@@ -5220,6 +5689,25 @@ def main(_phases=None):
             "chunks of 256 (path 15)", "cuda", hmm_src,
             "spectral_tpu/models/hmm_pscan.py:289 (e_step, an XLA "
             "associative scan; no TPU kernel)"),
+        "stft_backward": (
+            "stft_backward_kernel, the STFT's adjoint (float64 tile), "
+            "north_star 1024/256 on 1024 x 10 s (path 21)", "cuda", grad_src,
+            "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
+            "XLA's transposed DFT; no TPU kernel)"),
+        "overlap_add": (
+            "overlap_add_kernel, the framing's adjoint, 1024 x 622 frames "
+            "of 1024 (path 21)", "cuda", grad_src,
+            "spectral_tpu/core/stft.py:86 (jax.grad of frame_signal; no TPU "
+            "kernel)"),
+        "mel_backward": (
+            "mel_backward_kernel, 128 mels over 513 bins (path 21)", "cuda",
+            mel_src, "spectral_tpu/parallel/sharding.py:99 (jax.grad of the "
+            "mel einsum; no TPU kernel)"),
+        "display_backward": (
+            "display_grad_pixel<LOG> + display_grad_extrema, the image's "
+            "adjoint, RGBA path's image (path 21)", "cuda", tail_src,
+            "spectral_tpu/core/scale.py:80 (jax.grad of normalize; no TPU "
+            "kernel)"),
         "hmm_viterbi_chunked": (
             f"hmm_viterbi_chunked<KM 4>, {LONG_T} frames in chunks of 256 "
             "(path 15)", "cuda", hmm_src,

@@ -625,7 +625,9 @@ def power_spectrogram(x, fs: float, cfg: SpecConfig,
     route's STFT/PSD kernel (``ops.stft_cuda.stft_psd``), which takes
     float32 and the configs it computes, and raises on anything else.
     band=(lo, hi) returns only those bins, as
-    :func:`power_spectrogram_fm` does."""
+    :func:`power_spectrogram_fm` does. Differentiable in x on either
+    device: on a CPU tensor by autograd through the dense route, on a
+    CUDA tensor by the kernels' backward (``ops.stft_cuda._StftGrad``)."""
     return power_spectrogram_fm(x, fs, cfg, band=band).transpose(-1, -2)
 
 
@@ -689,7 +691,9 @@ def stft(x, cfg: SpecConfig) -> torch.Tensor:
     nfft, one- or two-sided, whatever cfg.mode. One launch of the route's
     STFT kernel's complex epilogue on a CUDA tensor (float32 in, complex64
     out); on a CPU tensor the kernels' plain version, complex in x's
-    precision."""
+    precision. Differentiable in x through the kernels' backward (its
+    plain version on a CPU tensor); hold it to JAX through real losses,
+    as torch's gradient of a complex output is the conjugate of JAX's."""
     return _kernel_stft(ensure_real_waveform(x), 1.0, cfg, None, False)
 
 

@@ -87,6 +87,42 @@
 //   for RGBA and the image at 1024 x 10 s, north_star 1024/256; 0.0305 ms
 //   for palette words of 64 clips, no image).
 //
+// display_grad_pixel_kernel<LOG> and display_grad_extrema_kernel
+// (display_backward_launch): the image's adjoint, for the gradient through
+// the display (the JAX package's jax.grad of core/scale.py::normalize over
+// the displayed rows, sharding.py:115; its Pallas pipeline has none)
+//   in : g (B, F, T) f32, the gradient of the image (rows flipped under
+//        flip_image, as the map wrote them); psd (B, T, F) f32 and params
+//        (B, 3), the map's inputs; share_max
+//   out: dpsd (B, T, F) f32, the gradient of the displayed rows, through
+//        each pixel and through the clip's operands: the base (d = base +
+//        1e-20; the clip's max, or under share_max the batch's when it is >
+//        0), its min and its max, which reach the pixels that are the
+//        extrema (split evenly among ties, as jax.grad(jnp.max) and
+//        torch.amax split them). In float64, with u = v / d:
+//          non-log  img = clip(u, 0, 1): d img/dv = h(u) / d,
+//                   d img/dd = -h(u) u / d
+//          log      db(v) = 10 log10(clip(u, 0, 1) + 1e-12), r = (db(v) -
+//                   db(min)) / rng, rng = db(max) - db(min); img = clip(r,
+//                   0, 1) where rng > 1e-6, else 0 (and a zero gradient):
+//                   with k = h(r) g / rng, d img/dv = k db'(v), d img/d
+//                   db(min) = k (r - 1), d img/d db(max) = -k r
+//        where h, the clip's derivative, is 1 inside (0, 1), 0 outside and
+//        0.5 at 0 and at 1, as jax.grad of jnp.clip gives it (torch.clamp's
+//        1 there gives the same gradient wherever the extrema are not tied:
+//        the boundary pixel's two terms cancel either way).
+//   Work: two launches. The pixel pass takes a tile of DG_T frames x DG_F
+//   bins of a clip (its g rows read along frames, coalesced, and turned in
+//   shared memory), writes each pixel's own term to dpsd and reduces the
+//   tile's sums of g d img/dd, g d img/dmin and g d img/dmax and its counts
+//   of pixels equal to the min and to the max, in a fixed order, to a
+//   record. The extrema pass, a block a clip, folds the clip's records in
+//   order (and under share_max, in the block of the clip that holds the
+//   batch's max, every clip's), then reads the clip's pixels again and
+//   adds each extremum's share to its dpsd (rounded a second time there).
+//   No atomics, so the result is the same in every run.
+//   Bound: bytes, g and psd read once and dpsd written once.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared (no
 // -use_fast_math: log10f, the divisions and the roundings must be the ones
 // torch's CUDA kernels use, which the plain versions run).
@@ -474,6 +510,252 @@ int display_map_mode(const float* psd, const float* params,
                                             flip, s);
 }
 
+// ---------------------------------------------------------------------------
+// The display map's backward
+// ---------------------------------------------------------------------------
+
+constexpr int DG_T = 32;         // frames a tile
+constexpr int DG_F = 32;         // bins a tile
+constexpr int DG_THREADS = 256;
+constexpr int DG_WARPS = DG_THREADS / 32;
+constexpr int DG_FIELDS = 5;     // a record: dd, dmin, dmax, n_min, n_max
+constexpr double DB_SLOPE = 10.0 / 2.302585092994046;   // 10 / ln 10
+
+// jnp.clip's derivative at a (JAX's 0.5 at either bound)
+__device__ __forceinline__ double clip_slope(double a) {
+  return (a > 0.0 && a < 1.0) ? 1.0 : ((a == 0.0 || a == 1.0) ? 0.5 : 0.0);
+}
+
+// The derivatives of the dB map db(v) at one value: by v (slope) and by
+// the denominator d (-slope u), u = v / d, times the clip's derivative.
+struct DbGrad {
+  double db, dv, dd;
+};
+
+__device__ __forceinline__ DbGrad db_grad(double v, double d) {
+  const double u = __ddiv_rn(v, d);
+  const double c = u < 0.0 ? 0.0 : (u > 1.0 ? 1.0 : u);
+  const double y = __dadd_rn(c, 1e-12);
+  DbGrad o;
+  o.db = __dmul_rn(10.0, log10(y));
+  o.dv = __dmul_rn(clip_slope(u), __ddiv_rn(__ddiv_rn(DB_SLOPE, y), d));
+  o.dd = -__dmul_rn(o.dv, u);
+  return o;
+}
+
+// The clip's operands as the backward reads them.
+struct ClipGrad {
+  double d, lo, hi;        // base + 1e-20, min, max
+  DbGrad glo, ghi;         // db at the extrema (LOG)
+  double rng;
+  bool ok;
+};
+
+__device__ __forceinline__ ClipGrad clip_grad(const float* params, int b,
+                                              bool log) {
+  ClipGrad c;
+  c.d = params[3 * b];
+  c.lo = params[3 * b + 1];
+  c.hi = params[3 * b + 2];
+  c.ok = true;
+  c.rng = 1.0;
+  if (log) {
+    c.glo = db_grad(c.lo, c.d);
+    c.ghi = db_grad(c.hi, c.d);
+    c.rng = __dsub_rn(c.ghi.db, c.glo.db);
+    c.ok = c.rng > 1e-6;
+  }
+  return c;
+}
+
+// A pixel's own term and its shares of (dd, dmin, dmax); record[] += them.
+template <bool LOG>
+__device__ __forceinline__ double pixel_grad(double v, double g,
+                                             const ClipGrad& c,
+                                             double (&rec)[DG_FIELDS]) {
+  rec[3] += v == c.lo ? 1.0 : 0.0;
+  rec[4] += v == c.hi ? 1.0 : 0.0;
+  if (!LOG) {
+    const double u = __ddiv_rn(v, c.d);
+    const double h = clip_slope(u);
+    if (h == 0.0) return 0.0;
+    const double q = __dmul_rn(h, __ddiv_rn(g, c.d));
+    rec[0] = __dsub_rn(rec[0], __dmul_rn(q, u));
+    return q;
+  }
+  if (!c.ok) return 0.0;
+  const DbGrad p = db_grad(v, c.d);
+  const double r = __ddiv_rn(__dsub_rn(p.db, c.glo.db), c.rng);
+  const double h = clip_slope(r);
+  if (h == 0.0) return 0.0;
+  const double k = __dmul_rn(h, __ddiv_rn(g, c.rng));
+  const double a_lo = __dmul_rn(k, __dsub_rn(r, 1.0));
+  const double a_hi = -__dmul_rn(k, r);
+  rec[0] = __dadd_rn(rec[0], __dadd_rn(__dadd_rn(__dmul_rn(k, p.dd),
+                                                 __dmul_rn(a_lo, c.glo.dd)),
+                                       __dmul_rn(a_hi, c.ghi.dd)));
+  rec[1] = __dadd_rn(rec[1], __dmul_rn(a_lo, c.glo.dv));
+  rec[2] = __dadd_rn(rec[2], __dmul_rn(a_hi, c.ghi.dv));
+  return __dmul_rn(k, p.dv);
+}
+
+// The block's sum of each thread's record, in a fixed order; valid in
+// thread 0.
+__device__ void block_sum(double (&rec)[DG_FIELDS],
+                          double (*red)[DG_FIELDS]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < DG_FIELDS; ++i)
+      rec[i] += __shfl_down_sync(0xffffffffu, rec[i], off);
+  if (lane == 0)
+#pragma unroll
+    for (int i = 0; i < DG_FIELDS; ++i) red[warp][i] = rec[i];
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int w = 1; w < DG_WARPS; ++w)
+#pragma unroll
+      for (int i = 0; i < DG_FIELDS; ++i) rec[i] += red[w][i];
+  __syncthreads();
+}
+
+template <bool LOG>
+__global__ void __launch_bounds__(DG_THREADS)
+display_grad_pixel_kernel(const float* __restrict__ g,
+                          const float* __restrict__ psd,
+                          const float* __restrict__ params,
+                          float* __restrict__ dpsd, double* records,
+                          long long items, int T, int F, int n_tt, int n_ft,
+                          int flip) {
+  __shared__ float gs[DG_F][DG_T + 1];
+  __shared__ double red[DG_WARPS][DG_FIELDS];
+  const int lane = threadIdx.x & 31;
+  const int row = threadIdx.x >> 5;
+  const long long tiles = static_cast<long long>(n_tt) * n_ft;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int b = static_cast<int>(item / tiles);
+    const long long tile = item - b * tiles;
+    const int t0 = static_cast<int>(tile / n_ft) * DG_T;
+    const int f0 = static_cast<int>(tile % n_ft) * DG_F;
+    const ClipGrad c = clip_grad(params, b, LOG);
+    // g's rows of these bins, a warp a row along frames
+    for (int i = row; i < DG_F; i += DG_WARPS) {
+      const int f = f0 + i;
+      const int t = t0 + lane;
+      float v = 0.0f;
+      if (f < F && t < T) {
+        const int img_row = flip ? F - 1 - f : f;
+        v = g[(static_cast<long long>(b) * F + img_row) * T + t];
+      }
+      gs[i][lane] = v;
+    }
+    __syncthreads();
+    double rec[DG_FIELDS] = {0.0, 0.0, 0.0, 0.0, 0.0};
+    const int f = f0 + lane;
+    for (int i = row; i < DG_T; i += DG_WARPS) {
+      const int t = t0 + i;
+      if (f < F && t < T) {
+        const long long at = (static_cast<long long>(b) * T + t) * F + f;
+        const double own = pixel_grad<LOG>(psd[at], gs[lane][i], c, rec);
+        dpsd[at] = static_cast<float>(own);
+      }
+    }
+    block_sum(rec, red);
+    if (threadIdx.x == 0)
+#pragma unroll
+      for (int i = 0; i < DG_FIELDS; ++i)
+        records[item * DG_FIELDS + i] = rec[i];
+  }
+}
+
+// The sum of records [first, first + count) of field set `fields`
+// (dd, dmin, dmax, n_min, n_max), in a fixed order; valid in thread 0.
+// With `top` (the batch's max), a record's n_max counts only when its
+// clip's max is top, and only dd and n_max are summed.
+__device__ void fold_records(const double* records, long long first,
+                             long long count, long long per_clip,
+                             const float* params, float top, bool batch,
+                             double (&sum)[DG_FIELDS],
+                             double (*red)[DG_FIELDS]) {
+  for (int i = 0; i < DG_FIELDS; ++i) sum[i] = 0.0;
+  for (long long j = threadIdx.x; j < count; j += DG_THREADS) {
+    const double* rec = records + (first + j) * DG_FIELDS;
+    if (!batch) {
+#pragma unroll
+      for (int i = 0; i < DG_FIELDS; ++i) sum[i] += rec[i];
+    } else {
+      const long long clip = (first + j) / per_clip;
+      sum[0] += rec[0];
+      if (params[3 * clip + 2] == top) sum[4] += rec[4];
+    }
+  }
+  block_sum(sum, red);
+}
+
+__global__ void __launch_bounds__(DG_THREADS)
+display_grad_extrema_kernel(const float* __restrict__ psd,
+                            const float* __restrict__ params,
+                            const double* __restrict__ records,
+                            float* __restrict__ dpsd, int B, int T, int F,
+                            long long per_clip, int share_max) {
+  __shared__ double red[DG_WARPS][DG_FIELDS];
+  __shared__ double amount[2];
+  __shared__ float s_top;
+  // the batch's largest max, NaN-propagating (clip_stats' share_max base)
+  if (share_max) {
+    float top = __int_as_float(0xff800000);
+    for (int i = threadIdx.x; i < B; i += DG_THREADS)
+      top = nan_max(top, params[3 * i + 2]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      top = nan_max(top, __shfl_xor_sync(0xffffffffu, top, off));
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5][0] = top;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < DG_WARPS; ++w)
+        top = nan_max(top, static_cast<float>(red[w][0]));
+      s_top = top;
+    }
+    __syncthreads();
+  }
+  const float top = share_max ? s_top : 0.0f;
+  const bool batch_base = share_max && top > 0.0f;
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const float lo = params[3 * b + 1];
+    const float hi = params[3 * b + 2];
+    double sum[DG_FIELDS];
+    fold_records(records, b * per_clip, per_clip, per_clip, params, top,
+                 false, sum, red);
+    double tot[DG_FIELDS] = {0.0, 0.0, 0.0, 0.0, 0.0};
+    const bool holds_top = batch_base && hi == top;
+    if (holds_top)
+      fold_records(records, 0, B * per_clip, per_clip, params, top, true,
+                   tot, red);
+    if (threadIdx.x == 0) {
+      double at_hi = sum[2] + (batch_base ? 0.0 : sum[0]);
+      at_hi = sum[4] > 0.0 ? at_hi / sum[4] : 0.0;
+      if (holds_top && tot[4] > 0.0) at_hi += tot[0] / tot[4];
+      amount[0] = sum[3] > 0.0 ? sum[1] / sum[3] : 0.0;
+      amount[1] = at_hi;
+    }
+    __syncthreads();
+    const long long n = static_cast<long long>(T) * F;
+    const float* clip = psd + b * n;
+    float* out = dpsd + b * n;
+    for (long long i = threadIdx.x; i < n; i += DG_THREADS) {
+      const float v = clip[i];
+      if (v == lo || v == hi) {
+        double own = out[i];
+        if (v == lo) own += amount[0];
+        if (v == hi) own += amount[1];
+        out[i] = static_cast<float>(own);
+      }
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -541,6 +823,47 @@ int display_map_launch(const float* psd, const float* params,
   return display_map_mode<MODE_NONE>(psd, params, lut, img, words, B, T, F,
                                      n_tt, n_ft, log_scale, with_image, flip,
                                      s);
+}
+
+// Bytes of the workspace display_backward_launch takes: a record of
+// DG_FIELDS doubles a tile.
+long long display_backward_workspace_bytes(int B, int T, int F) {
+  const long long tiles = static_cast<long long>((T + DG_T - 1) / DG_T) *
+                          ((F + DG_F - 1) / DG_F);
+  return static_cast<long long>(B) * tiles * DG_FIELDS * 8;
+}
+
+// Launch both passes on `stream`; returns the cudaError_t (0 = success),
+// or cudaErrorInvalidValue for sizes the kernels do not take. g is (B, F,
+// T) contiguous f32 (rows flipped when flip is 1), psd (B, T, F) f32,
+// params (B, 3) f32, dpsd (B, T, F) f32; workspace holds
+// display_backward_workspace_bytes(B, T, F) bytes.
+int display_backward_launch(const float* g, const float* psd,
+                            const float* params, float* dpsd,
+                            void* workspace, int B, int T, int F,
+                            int log_scale, int flip, int share_max,
+                            void* stream) {
+  if (B < 1 || T < 1 || F < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tt = (T + DG_T - 1) / DG_T;
+  const int n_ft = (F + DG_F - 1) / DG_F;
+  const long long per_clip = static_cast<long long>(n_tt) * n_ft;
+  const long long items = static_cast<long long>(B) * per_clip;
+  const unsigned blocks =
+      static_cast<unsigned>(items < MAX_BLOCKS ? items : MAX_BLOCKS);
+  double* records = static_cast<double*>(workspace);
+  if (log_scale)
+    display_grad_pixel_kernel<true><<<blocks, DG_THREADS, 0, s>>>(
+        g, psd, params, dpsd, records, items, T, F, n_tt, n_ft, flip);
+  else
+    display_grad_pixel_kernel<false><<<blocks, DG_THREADS, 0, s>>>(
+        g, psd, params, dpsd, records, items, T, F, n_tt, n_ft, flip);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  display_grad_extrema_kernel<<<static_cast<unsigned>(B), DG_THREADS, 0,
+                                s>>>(psd, params, records, dpsd, B, T, F,
+                                     per_clip, share_max);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* display_error_string(int code) {

@@ -36,6 +36,24 @@
 //   memory, so a warp's stores of one row's mel values are consecutive.
 //   Bound: bytes, the PSD read once and the mel rows written once (0.49 ms
 //   at 1024 clips x 622 frames x 513 bins, 128 mels, on 3.35 TB/s).
+//
+// mel_backward_kernel (mel_backward_launch): the projection's adjoint, for
+// the gradient through the mel rows (the JAX package's jax.grad of its
+// einsum)
+//   in : dmel (R, M) f32, the gradient of mel; each bin's mel rows, from
+//        the host (ops/mel_cuda.py::bin_table, the span table transposed):
+//        bstart[f] and bcount[f], the rows m (ascending) whose span holds
+//        bin f at brow[bstart[f] ..] and their weights fb[m, f] at bw[..]
+//   out: dpsd (R, F) f32,
+//          dpsd[r, f] = sum_m fb[m, f] dmel[r, m]
+//        over the mel band's rows whose span holds f, in float64, rounded
+//        once; a bin no row covers gets 0. Non-finite gradients as the
+//        dense product dmel @ fb gives them: a non-finite dmel[r, m] makes
+//        every bin outside row m's span NaN (0 * inf).
+//   Work: a warp a row, its M gradients staged in shared memory (and a
+//   count of the non-finite ones); lane l sums bins l, l + 32, ..., so a
+//   warp's stores of one row are consecutive.
+//   Bound: bytes, dmel read once and dpsd written once.
 
 #include <cuda_runtime.h>
 
@@ -112,11 +130,53 @@ mel_project_kernel(const float* __restrict__ psd, const int* __restrict__ start,
   }
 }
 
-// Rows of the PSD a block takes at F bins: as many warps as MEL_SMEM holds
-// rows, at most MEL_MAX_WARPS; 0 when one row does not fit.
+// Rows a block takes at F floats a row (the PSD's bins, or the backward's
+// mel gradients): as many warps as MEL_SMEM holds rows, at most
+// MEL_MAX_WARPS; 0 when one row does not fit.
 int mel_rows_per_block(int F) {
   const int rows = F > 0 ? MEL_SMEM / (F * 4) : 0;
   return rows < MEL_MAX_WARPS ? rows : MEL_MAX_WARPS;
+}
+
+__global__ void __launch_bounds__(MEL_MAX_WARPS * 32)
+mel_backward_kernel(const float* __restrict__ dmel,
+                    const int* __restrict__ bstart,
+                    const int* __restrict__ bcount,
+                    const int* __restrict__ brow,
+                    const double* __restrict__ bw, long long R, int F, int M,
+                    float* __restrict__ dpsd) {
+  extern __shared__ float grads[];         // a row of M floats a warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long r =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (r >= R) return;                      // the whole warp: no block sync
+  float* row = grads + warp * M;
+  const float* src = dmel + r * M;
+  int bad = 0;                             // non-finite gradients in the row
+  for (int m = lane; m < M; m += 32) {
+    const float v = src[m];
+    row[m] = v;
+    bad += !isfinite(v);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) bad += __shfl_xor_sync(0xffffffffu, bad, o);
+  __syncwarp();
+  float* dst = dpsd + r * F;
+  for (int f = lane; f < F; f += 32) {
+    const int e0 = bstart[f];
+    const int e1 = e0 + bcount[f];
+    double acc = 0.0;
+    int inside = 0;
+    for (int e = e0; e < e1; ++e) {
+      const float v = row[brow[e]];
+      inside += !isfinite(v);
+      acc = fma(bw[e], static_cast<double>(v), acc);
+    }
+    // a non-finite gradient of a row whose span misses this bin
+    if (inside < bad) acc = __longlong_as_double(0x7ff8000000000000LL);
+    dst[f] = static_cast<float>(acc);
+  }
 }
 
 }  // namespace
@@ -142,6 +202,27 @@ int mel_project_launch(const float* psd, const int* start, const int* len,
                        static_cast<size_t>(rows) * F * sizeof(float),
                        static_cast<cudaStream_t>(stream)>>>(
       psd, start, len, off, w, R, F, M, out, part_min, part_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch on `stream`; returns the cudaError_t (0 = success), or
+// cudaErrorInvalidValue for sizes the kernel does not take. dmel is (R, M)
+// contiguous f32; bstart and bcount are (F,) int32, brow the rows (int32)
+// and bw their float64 weights, all on the device; dpsd is (R, F) f32.
+int mel_backward_launch(const float* dmel, const int* bstart,
+                        const int* bcount, const int* brow, const double* bw,
+                        long long R, int F, int M, float* dpsd,
+                        void* stream) {
+  const int rows = mel_rows_per_block(M);
+  if (R < 0 || F < 1 || rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0) return 0;
+  const long long blocks = (R + rows - 1) / rows;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  mel_backward_kernel<<<static_cast<unsigned>(blocks), rows * 32,
+                        static_cast<size_t>(rows) * M * sizeof(float),
+                        static_cast<cudaStream_t>(stream)>>>(
+      dmel, bstart, bcount, brow, bw, R, F, M, dpsd);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,11 +31,26 @@ display map reads 4 bytes a pixel and writes 8 (RGBA and the image) or one
 tensors and their plain versions (:func:`clip_stats_reference`,
 :func:`display_map_reference`) for CPU tensors, and only because those lie
 on the CPU. On a CUDA tensor they launch or raise.
+
+The gradient: a PSD that requires grad (with grad enabled) gives an image
+with a gradient (:class:`_DisplayGrad`), whose backward is the image's
+adjoint through ``core.scale.normalize``: each pixel's own term, and the
+clip's sums through its operands (the base, its min and its max, which
+:func:`clip_stats` reduced from the PSD's partials) added at the pixels
+that are the extrema, split evenly among ties; under ``share_max`` the
+base's sum goes to the batch's largest pixels. Two launches of
+``display.cu``'s backward kernels for a CUDA tensor
+(:func:`display_backward`), its plain version
+(:func:`display_backward_reference`) for a CPU tensor. The words, the
+flag and the extrema carry no gradient, and ``params`` receives none: the
+backward reads them as the PSD's own operands and carries their
+derivative to the PSD's extrema.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -53,6 +68,10 @@ MODES = {"none": 0, "rgba": 1, "palette": 2}
 # kernel launches, for run-time proof of the path: clip_stats, and the
 # display map by its words
 launches = {"clip_stats": 0, "rgba": 0, "palette": 0}
+# the backward's launches (a count a call of its two kernels)
+grad_launches = {"display_backward": 0}
+# 10 / ln 10, the dB map's slope (DB_SLOPE in csrc/display.cu)
+DB_SLOPE = 10.0 / math.log(10.0)
 
 
 class ClipStats(NamedTuple):
@@ -80,6 +99,10 @@ def _library() -> ctypes.CDLL:
     lib.clip_stats_launch.restype = i32
     lib.display_map_launch.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.display_map_launch.restype = i32
+    lib.display_backward_workspace_bytes.argtypes = [i32, i32, i32]
+    lib.display_backward_workspace_bytes.restype = i64
+    lib.display_backward_launch.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    lib.display_backward_launch.restype = i32
     lib.display_error_string.argtypes = [i32]
     lib.display_error_string.restype = ctypes.c_char_p
     _LIB.append(lib)
@@ -230,17 +253,171 @@ def _display_map_cuda(psd, params, log_scale, flip_image, colormap, palette,
     return image, (None if words is None else words.view(torch.uint32))
 
 
-def display_map(psd: torch.Tensor, params: torch.Tensor, *, log_scale: bool,
-                flip_image: bool = False, colormap: Optional[str] = "jet",
-                palette: bool = False, with_image: bool = True
-                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Display image and packed words from a PSD and its per-clip operands
-    (:func:`clip_stats`'s ``params``, or :func:`clip_params`); see
-    :func:`display_map_reference` for the layouts. with_image=False skips
-    the image (returned as None): the kernel then writes only the words."""
+def _display_forward(psd, params, log_scale, flip_image, colormap, palette,
+                     with_image):
     if psd.device.type == "cpu":
         return display_map_reference(
             psd, params, log_scale=log_scale, flip_image=flip_image,
             colormap=colormap, palette=palette, with_image=with_image)
     return _display_map_cuda(psd, params, log_scale, flip_image, colormap,
                              palette, with_image)
+
+
+def _clip_slope(a: torch.Tensor) -> torch.Tensor:
+    """jnp.clip(a, 0, 1)'s derivative as jax.grad gives it: 1 inside, 0
+    outside, 0.5 at either bound (``display.cu::clip_slope``)."""
+    return torch.where((a > 0.0) & (a < 1.0), 1.0,
+                       torch.where((a == 0.0) | (a == 1.0), 0.5, 0.0))
+
+
+def _db_grad(v: torch.Tensor, d: torch.Tensor):
+    """db(v) = 10 log10(clip(v / d, 0, 1) + 1e-12) and its derivatives by
+    v and by d, times the clip's derivative at v / d, in float64, as
+    ``display.cu::db_grad``."""
+    u = v / d
+    y = torch.clamp(u, 0.0, 1.0) + 1e-12
+    dv = _clip_slope(u) * (DB_SLOPE / y / d)
+    return 10.0 * torch.log10(y), dv, -(dv * u)
+
+
+def display_backward_reference(g: torch.Tensor, psd: torch.Tensor,
+                               params: torch.Tensor, *, log_scale: bool,
+                               flip_image: bool = False,
+                               share_max: bool = False) -> torch.Tensor:
+    """The plain version of the display backward kernels: the gradient of
+    the PSD (B, T, F) from the image's g (B, F, T) (rows flipped under
+    flip_image), in float64 from the map's inputs, rounded once to psd's
+    dtype. A pixel's own term, then the clip's sums through its operands
+    (base + 1e-20, min, max: ``params``) added at its extrema, split
+    evenly among ties; under share_max the base's sum of every clip at the
+    batch's largest pixels (when that max is > 0). Clips whose dB range is
+    at most 1e-6 (a zero image) get a zero gradient. The clips' derivative
+    is jax.grad's, 0.5 at a bound (torch.clamp's 1 there gives the same
+    gradient wherever the extrema are not tied)."""
+    s = psd.double()
+    G = (g.flip(1) if flip_image else g).transpose(1, 2).double()
+    p = params.double()[:, :, None, None]
+    d, lo, hi = p[:, 0], p[:, 1], p[:, 2]
+    n_lo = (s == lo).sum(dim=(1, 2), dtype=torch.float64)
+    n_hi = (s == hi).sum(dim=(1, 2), dtype=torch.float64)
+    if not log_scale:
+        u = s / d
+        h = _clip_slope(u)
+        inside = h != 0.0
+        q = h * (G / d)
+        own = torch.where(inside, q, 0.0)
+        c_d = torch.where(inside, -(q * u), 0.0).sum(dim=(1, 2))
+        c_lo = c_hi = torch.zeros_like(n_lo)
+    else:
+        db_lo, dv_lo, dd_lo = _db_grad(lo, d)
+        db_hi, dv_hi, dd_hi = _db_grad(hi, d)
+        rng = db_hi - db_lo
+        db, dv, dd = _db_grad(s, d)
+        r = (db - db_lo) / rng
+        h = _clip_slope(r)
+        inside = (h != 0.0) & (rng > 1e-6)
+        k = torch.where(inside, h * (G / rng), 0.0)
+        a_lo = k * (r - 1.0)
+        a_hi = -(k * r)
+        own = torch.where(inside, k * dv, 0.0)
+        c_d = torch.where(inside, k * dd + a_lo * dd_lo + a_hi * dd_hi,
+                          0.0).sum(dim=(1, 2))
+        c_lo = torch.where(inside, a_lo * dv_lo, 0.0).sum(dim=(1, 2))
+        c_hi = torch.where(inside, a_hi * dv_hi, 0.0).sum(dim=(1, 2))
+    top = torch.amax(params[:, 2]) if share_max else None
+    batch_base = top is not None and bool(top > 0)
+    at_lo = torch.where(n_lo > 0, c_lo / n_lo, 0.0)
+    at_hi = c_hi if batch_base else c_hi + c_d
+    at_hi = torch.where(n_hi > 0, at_hi / n_hi, 0.0)
+    if batch_base:
+        holds = params[:, 2] == top
+        tot_n = n_hi[holds].sum()
+        if tot_n > 0:
+            at_hi = at_hi + torch.where(holds, c_d.sum() / tot_n, 0.0)
+    dpsd = (own + torch.where(s == lo, at_lo[:, None, None], 0.0)
+            + torch.where(s == hi, at_hi[:, None, None], 0.0))
+    return dpsd.to(psd.dtype)
+
+
+def _display_backward_cuda(g, psd, params, log_scale, flip_image,
+                           share_max):
+    lib = _library()
+    g = g.contiguous()
+    B, T, F = psd.shape
+    if g.dtype != torch.float32 or tuple(g.shape) != (B, F, T):
+        raise ValueError(f"the display backward takes a ({B}, {F}, {T}) "
+                         f"float32 gradient, got {tuple(g.shape)} {g.dtype}")
+    dpsd = torch.empty_like(psd)
+    if B * T * F:
+        work = torch.empty(lib.display_backward_workspace_bytes(B, T, F),
+                           dtype=torch.uint8, device=psd.device)
+        with torch.cuda.device(psd.device):
+            err = lib.display_backward_launch(
+                g.data_ptr(), psd.data_ptr(), params.data_ptr(),
+                dpsd.data_ptr(), work.data_ptr(), B, T, F,
+                int(bool(log_scale)), int(bool(flip_image)),
+                int(bool(share_max)),
+                torch.cuda.current_stream(psd.device).cuda_stream)
+        _raise_on(err, "display backward")
+        grad_launches["display_backward"] += 1
+    return dpsd
+
+
+def display_backward(g: torch.Tensor, psd: torch.Tensor,
+                     params: torch.Tensor, *, log_scale: bool,
+                     flip_image: bool = False,
+                     share_max: bool = False) -> torch.Tensor:
+    """The gradient of the PSD from the image's: the two backward kernels
+    for a CUDA tensor, the plain version
+    (:func:`display_backward_reference`) for a CPU tensor."""
+    if psd.device.type == "cpu":
+        return display_backward_reference(g, psd, params,
+                                          log_scale=log_scale,
+                                          flip_image=flip_image,
+                                          share_max=share_max)
+    return _display_backward_cuda(g, psd, params, log_scale, flip_image,
+                                  share_max)
+
+
+class _DisplayGrad(torch.autograd.Function):
+    """The display image as a differentiable function of the PSD; the
+    words carry no gradient and params receives none."""
+
+    @staticmethod
+    def forward(ctx, psd, params, log_scale, flip_image, colormap, palette,
+                share_max):
+        ctx.save_for_backward(psd, params)
+        ctx.opts = (log_scale, flip_image, share_max)
+        image, words = _display_forward(psd, params, log_scale, flip_image,
+                                        colormap, palette, True)
+        if words is not None:
+            ctx.mark_non_differentiable(words)
+        return image, words
+
+    @staticmethod
+    def backward(ctx, g, _):
+        psd, params = ctx.saved_tensors
+        log_scale, flip_image, share_max = ctx.opts
+        return (display_backward(g, psd, params, log_scale=log_scale,
+                                 flip_image=flip_image, share_max=share_max),
+                None, None, None, None, None, None)
+
+
+def display_map(psd: torch.Tensor, params: torch.Tensor, *, log_scale: bool,
+                flip_image: bool = False, colormap: Optional[str] = "jet",
+                palette: bool = False, with_image: bool = True,
+                share_max: bool = False
+                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Display image and packed words from a PSD and its per-clip operands
+    (:func:`clip_stats`'s ``params``, or :func:`clip_params`); see
+    :func:`display_map_reference` for the layouts. with_image=False skips
+    the image (returned as None): the kernel then writes only the words.
+    A PSD that requires grad gives an image with a gradient
+    (:class:`_DisplayGrad`); share_max says that params' base is the
+    batch's (``clip_stats(..., share_max=True)``), which only the gradient
+    reads."""
+    if with_image and psd.requires_grad and torch.is_grad_enabled():
+        return _DisplayGrad.apply(psd, params, log_scale, flip_image,
+                                  colormap, palette, share_max)
+    return _display_forward(psd, params, log_scale, flip_image, colormap,
+                            palette, with_image)

@@ -117,6 +117,21 @@ CPU; so does :func:`stft_psd_partials`, the display pipeline's call,
 which returns the kernel's per-frame extrema unreduced for
 ``ops.display_cuda.clip_stats``. On a CUDA tensor they launch the route's
 kernel or raise; nothing falls back to another route.
+
+The gradient. A waveform that requires grad (with grad enabled) goes
+through an autograd Function (:class:`_StftGrad`) around the same
+launch, which saves only the waveform; its backward recomputes the
+unscaled STFT X with one launch of the route's complex epilogue, then
+runs the two kernels of ``csrc/stft_grad.cu`` (their own library): the
+transform's adjoint d = H A^T against the folded matrices, with the
+cotangent H formed from the output's gradient and X (the PSD's 2 w g X,
+the magnitude's w g X / |X|, 0 at |X| = 0, the complex STFT's w g), and
+the framing's adjoint, an overlap-add in gather form. A CPU tensor takes
+the plain backward (:func:`stft_backward_reference`, the same arithmetic
+as explicit torch). The partials and the extrema carry no gradient, and
+``log10_out`` has none (it raises with a waveform that requires grad,
+as the JAX package's Pallas kernel has no gradient there). Without grad
+the entry points run exactly as before: one launch, nothing saved.
 """
 
 from __future__ import annotations
@@ -164,6 +179,10 @@ DETREND_CODES = {"none": 0, "constant": 1, "linear": 2}
 # the epilogues' output modes (OUT_* in csrc/stft_psd.cu): cfg.mode, and
 # "complex" for the complex STFT
 OUTPUT_MODES = {"psd": 0, "magnitude": 1, "complex": 2}
+# the backward's launches (csrc/stft_grad.cu), for run-time proof of the
+# gradient path; its recompute of X counts in ``launches``
+GRAD_KERNEL = "stft_grad"
+grad_launches = {"stft_backward": 0, "overlap_add": 0}
 
 
 class DftConstants(NamedTuple):
@@ -519,6 +538,73 @@ def stft_complex_reference(x: torch.Tensor, consts: DftConstants,
     return torch.complex(xr * consts.wts, xi * consts.wts).to(ctype)
 
 
+def _cotangent_reference(g: torch.Tensor, X: torch.Tensor,
+                         wts: torch.Tensor, out: str):
+    """(H_re, H_im) float64, the gradient of the loss by X_re and X_im,
+    from the output's gradient g and the unscaled STFT X, as
+    ``stft_grad.cu::cotangent`` forms them: the PSD's 2 w g X, the
+    magnitude's w g X / |X| (0 at |X| = 0), the complex STFT's w g; 0
+    where |X|² is past float32's range (the forward's inf there is a
+    constant)."""
+    if out in ("complex", "stft"):
+        return wts * g.real.double(), wts * g.imag.double()
+    xr, xi = X.real.double(), X.imag.double()
+    s = xr * xr + xi * xi
+    keep = s <= F32_MAX
+    if out == "magnitude":
+        keep = keep & (s != 0)
+        c = wts * g.double() / torch.sqrt(torch.where(keep, s, 1.0))
+    else:
+        c = 2.0 * wts * g.double()
+    c = torch.where(keep, c, 0.0)
+    return c * xr, c * xi
+
+
+def overlap_add_reference(d: torch.Tensor, n: int, hop: int) -> torch.Tensor:
+    """The framing's adjoint: frames' gradients d (B, T, L) -> (B, n),
+    sample i the sum of d[b, t, i - t hop] over the frames that hold it,
+    in float64, rounded once to d's dtype; samples past the last frame 0."""
+    B, T, L = d.shape
+    pos = (torch.arange(T, device=d.device) * hop)[:, None] \
+        + torch.arange(L, device=d.device)
+    dx = torch.zeros((B, n), dtype=torch.float64, device=d.device)
+    dx.index_add_(1, pos.reshape(-1), d.reshape(B, T * L).double())
+    return dx.to(d.dtype)
+
+
+def frames_backward_reference(g: torch.Tensor, X: torch.Tensor,
+                              consts: DftConstants, out: str) -> torch.Tensor:
+    """The plain version of ``stft_backward_kernel``: the frames' gradient
+    d = H_re A_re^T + H_im A_im^T (B, T, L) in float64, rounded once to
+    X's real type, H from g and X (:func:`_cotangent_reference`)."""
+    hr, hi = _cotangent_reference(g, X, consts.wts, out)
+    return (hr @ consts.a_re.T + hi @ consts.a_im.T).to(X.real.dtype)
+
+
+def stft_backward_reference(x: torch.Tensor, g: torch.Tensor,
+                            consts: DftConstants, cfg: SpecConfig,
+                            out: str) -> torch.Tensor:
+    """The plain version of the backward kernels: the gradient of x (B, n)
+    from the gradient g (B, T, F) of the output ``out`` ("psd",
+    "magnitude", "complex" or "stft"), consts the forward's
+    (``dft_constants(cfg, fs, device, band, out)``: the band's folded
+    matrices and the output's weights). As the kernels compute it: X
+    recomputed unscaled and rounded to x's complex type (the route's
+    complex epilogue), the cotangent H in float64
+    (:func:`_cotangent_reference`), the frames' gradient d = H_re A_re^T +
+    H_im A_im^T in float64 rounded to x's dtype, then
+    :func:`overlap_add_reference`. The matrices' transposes carry the
+    window, the detrend projection and nfft > nperseg."""
+    B, n = x.shape
+    T = num_frames(n, cfg.nperseg, cfg.hop_)
+    if T <= 0:
+        return torch.zeros_like(x)
+    ctype = torch.complex128 if x.dtype == torch.float64 else torch.complex64
+    X = torch.complex(*_reference_dft(x, consts, cfg)).to(ctype)
+    return overlap_add_reference(frames_backward_reference(g, X, consts, out),
+                                 n, cfg.hop_)
+
+
 _LIB: list = []      # the library once loaded: finding it hashes the source
 
 
@@ -659,6 +745,179 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
     return out
 
 
+_GRAD_LIB: list = []
+
+
+def _grad_library() -> ctypes.CDLL:
+    """The backward kernels' library (``csrc/stft_grad.cu``), built and
+    loaded at first use, then kept for the process."""
+    if _GRAD_LIB:
+        return _GRAD_LIB[0]
+    lib = build.load_library(GRAD_KERNEL)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.stft_backward_launch.argtypes = [ptr] * 5 + [i64, i32, i32, i32,
+                                                     ptr, ptr]
+    lib.stft_backward_launch.restype = i32
+    lib.overlap_add_launch.argtypes = [ptr, i64, i64, i32, i32, i32, ptr,
+                                       ptr]
+    lib.overlap_add_launch.restype = i32
+    lib.stft_grad_error_string.argtypes = [i32]
+    lib.stft_grad_error_string.restype = ctypes.c_char_p
+    _GRAD_LIB.append(lib)
+    return lib
+
+
+class GradOp(NamedTuple):
+    """What the forward computed, for its backward: the output ``out``
+    ("psd" or "magnitude" by cfg.mode, "complex" scaled, "stft"
+    unscaled), its band, the route's kernel, and the extrema it returned
+    beside the output ("" none, "extrema" as with_stats, "partials" as
+    :func:`stft_psd_partials`)."""
+    fs: float
+    cfg: SpecConfig
+    band: Optional[Tuple[int, int]]
+    out: str
+    kernel: str
+    stats: str = ""
+
+
+def _forward(x: torch.Tensor, op: GradOp, log10_out: bool = False):
+    """The entry points' one launch of the route's kernel for a CUDA
+    tensor, the plain version for a CPU tensor, of x's (uncentered)
+    frames."""
+    cfg, fs = op.cfg, op.fs
+    if x.device.type == "cpu":
+        if op.out in ("complex", "stft"):
+            return stft_complex_reference(
+                x, dft_constants(cfg, fs, x.device, op.band, op.out), cfg)
+        p = stft_psd_reference(x, dft_constants(cfg, fs, x.device, op.band),
+                               cfg, log10_out=log10_out,
+                               with_stats=op.stats == "extrema")
+        return (p, row_partials(p)) if op.stats == "partials" else p
+    return _stft_psd_cuda(x, fs, cfg, log10_out, bool(op.stats), op.kernel,
+                          partials=op.stats == "partials", band=op.band,
+                          out_mode=op.out)
+
+
+class _StftGrad(torch.autograd.Function):
+    """The STFT kernels' output as a differentiable function of the
+    waveform: forward :func:`_forward` (saving only x), backward
+    :func:`stft_backward`. The partials and extrema beside the output are
+    marked non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, op):
+        ctx.op = op
+        ctx.save_for_backward(x)
+        out = _forward(x, op)
+        if isinstance(out, tuple):
+            ctx.mark_non_differentiable(*out[1:])
+        return out
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        x, = ctx.saved_tensors
+        return stft_backward(x, g, ctx.op), None
+
+
+def _apply(x: torch.Tensor, op: GradOp, log10_out: bool = False):
+    """:func:`_forward`, through :class:`_StftGrad` when x needs a
+    gradient."""
+    if x.requires_grad and torch.is_grad_enabled():
+        if log10_out:
+            raise ValueError("log10_out has no gradient (ROADMAP [grad]; "
+                             "the JAX package's Pallas kernel has none "
+                             "there): detach the waveform, or take "
+                             "torch.log10 of the PSD")
+        return _StftGrad.apply(x, op)
+    return _forward(x, op, log10_out)
+
+
+def stft_backward(x: torch.Tensor, g: torch.Tensor, op: GradOp
+                  ) -> torch.Tensor:
+    """The gradient of the (uncentered) waveform x (B, n) from the
+    gradient g of the output ``op`` describes: for a CUDA tensor one
+    launch of the route's complex epilogue (X unscaled), then the
+    transform's adjoint and the overlap-add (:func:`frames_backward`,
+    :func:`overlap_add`); for a CPU tensor the plain version
+    (:func:`stft_backward_reference`)."""
+    cfg = op.cfg
+    consts = dft_constants(cfg, op.fs, x.device, op.band, op.out)
+    if x.device.type == "cpu":
+        return stft_backward_reference(x, g, consts, cfg, op.out)
+    B, n = x.shape
+    T = num_frames(n, cfg.nperseg, cfg.hop_)
+    if tuple(g.shape) != (B, T, consts.a_re.shape[1]):
+        raise ValueError(f"the STFT backward takes a ({B}, {T}, "
+                         f"{consts.a_re.shape[1]}) gradient, got "
+                         f"{tuple(g.shape)}")
+    if T <= 0:
+        return torch.zeros_like(x)
+    X = _stft_psd_cuda(x, op.fs, cfg, False, False, op.kernel, band=op.band,
+                       out_mode="stft")
+    return overlap_add(frames_backward(g, X, consts, op.out), n, cfg.hop_)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def frames_backward(g: torch.Tensor, X: torch.Tensor, consts: DftConstants,
+                    out: str) -> torch.Tensor:
+    """The frames' gradient (B, T, L) from the output's gradient g and the
+    unscaled STFT X (B, T, F): one launch of ``stft_backward_kernel`` for
+    CUDA tensors (float32 g, complex64 for a complex output; complex64 X;
+    consts on the same device), the plain version
+    (:func:`frames_backward_reference`) for CPU tensors."""
+    if X.device.type == "cpu":
+        return frames_backward_reference(g, X, consts, out)
+    lib = _grad_library()
+    B, T, F = X.shape
+    L = consts.a_re.shape[0]
+    want = torch.complex64 if out in ("complex", "stft") else torch.float32
+    if (X.dtype != torch.complex64 or consts.a_re.shape[1] != F
+            or g.dtype != want or g.shape != X.shape):
+        raise ValueError(f"the STFT backward takes a complex64 X of the "
+                         f"constants' {consts.a_re.shape[1]} bins and a "
+                         f"{want} gradient of its shape, got X {X.dtype} "
+                         f"{tuple(X.shape)}, g {g.dtype} {tuple(g.shape)}")
+    g = g.resolve_conj().contiguous()
+    X = X.contiguous()
+    d = torch.empty((B, T, L), dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        err = lib.stft_backward_launch(
+            g.data_ptr(), X.data_ptr(), consts.wts.data_ptr(),
+            consts.a_re.data_ptr(), consts.a_im.data_ptr(), B * T, F, L,
+            _out_mode(out), d.data_ptr(), _stream(X))
+    if err != 0:
+        raise RuntimeError("stft_backward kernel launch failed: "
+                           + lib.stft_grad_error_string(err).decode())
+    grad_launches["stft_backward"] += 1
+    return d
+
+
+def overlap_add(d: torch.Tensor, n: int, hop: int) -> torch.Tensor:
+    """The framing's adjoint, (B, T, L) -> (B, n): one launch of
+    ``overlap_add_kernel`` for a contiguous float32 CUDA tensor (T >= 1),
+    the plain version (:func:`overlap_add_reference`) for a CPU tensor."""
+    if d.device.type == "cpu":
+        return overlap_add_reference(d, n, hop)
+    lib = _grad_library()
+    B, T, L = d.shape
+    if d.dtype != torch.float32 or not d.is_contiguous():
+        raise TypeError("the overlap-add kernel takes a contiguous float32 "
+                        "(B, T, L) tensor")
+    dx = torch.empty((B, n), dtype=torch.float32, device=d.device)
+    with torch.cuda.device(d.device):
+        err = lib.overlap_add_launch(d.data_ptr(), B, n, T, L, hop,
+                                     dx.data_ptr(), _stream(d))
+    if err != 0:
+        raise RuntimeError("overlap_add kernel launch failed: "
+                           + lib.stft_grad_error_string(err).decode())
+    grad_launches["overlap_add"] += 1
+    return dx
+
+
 def stft_psd_partials(x: torch.Tensor, fs: float, cfg: SpecConfig,
                       band=None):
     """The PSD (or cfg.mode's magnitude) of a (B, n) waveform and its
@@ -676,11 +935,8 @@ def stft_psd_partials(x: torch.Tensor, fs: float, cfg: SpecConfig,
     check_supported(cfg)
     _require_power(cfg)
     x = center_pad(x, cfg)
-    if x.device.type == "cpu":
-        p = stft_psd_reference(x, dft_constants(cfg, fs, x.device, band),
-                               cfg)
-        return p, row_partials(p)
-    return _stft_psd_cuda(x, fs, cfg, False, True, partials=True, band=band)
+    return _apply(x, GradOp(fs, cfg, band, cfg.mode, route(cfg),
+                            "partials"))
 
 
 def row_partials(p: torch.Tensor) -> torch.Tensor:
@@ -732,12 +988,8 @@ def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
     if x.ndim != 2:
         raise ValueError(f"expected a (n,) or (B, n) waveform, got {x.ndim}-D")
     x = center_pad(x, cfg)
-    if x.device.type == "cpu":
-        return stft_psd_reference(x, dft_constants(cfg, fs, x.device, band),
-                                  cfg, log10_out=log10_out,
-                                  with_stats=with_stats)
-    return _stft_psd_cuda(x, fs, cfg, log10_out, with_stats, kernel,
-                          band=band)
+    return _apply(x, GradOp(fs, cfg, band, cfg.mode, kernel,
+                            "extrema" if with_stats else ""), log10_out)
 
 
 def stft_complex(x, fs: float, cfg: SpecConfig, band=None, *,
@@ -762,8 +1014,4 @@ def stft_complex(x, fs: float, cfg: SpecConfig, band=None, *,
     if x.ndim != 2:
         raise ValueError(f"expected a (n,) or (B, n) waveform, got {x.ndim}-D")
     x = center_pad(x, cfg)
-    if x.device.type == "cpu":
-        return stft_complex_reference(
-            x, dft_constants(cfg, fs, x.device, band, out_mode), cfg)
-    return _stft_psd_cuda(x, fs, cfg, False, False, kernel, band=band,
-                          out_mode=out_mode)
+    return _apply(x, GradOp(fs, cfg, band, out_mode, kernel))

@@ -118,7 +118,8 @@ def batched_spectrogram_fn(fs: float, cfg: SpecConfig, *,
         image, words = display_map(shown, stats.params,
                                    log_scale=cfg.log_scale,
                                    flip_image=flip_image, colormap=colormap,
-                                   palette=palette, with_image=with_image)
+                                   palette=palette, with_image=with_image,
+                                   share_max=share_max)
         out["finite"] = stats.finite
         if with_image:
             out["image"] = image

@@ -10,6 +10,7 @@ kernel route for it.
 """
 
 import ast
+import dataclasses
 import glob
 import json
 import os
@@ -223,6 +224,143 @@ def test_display_kernel_failure_propagates(monkeypatch):
     x = torch.empty((2, 4096), device="meta")
     with pytest.raises(RuntimeError, match="cannot build display"):
         display_cuda.clip_stats(x, torch.empty((2, 1, 2, 61), device="meta"))
+
+
+def test_grad_on_cpu_tensors_never_touches_the_kernels(monkeypatch):
+    """A waveform that requires grad on the CPU runs the plain forward and
+    the plain backward of every Function: no library is loaded, no count
+    moves."""
+    from spectral_tpu_torch.ops import mel_cuda
+
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("a kernel was loaded for a CPU tensor")
+
+    monkeypatch.setattr(build, "load_library", no_kernel)
+    for mod in (stft_cuda, display_cuda, mel_cuda):
+        monkeypatch.setattr(mod, "_library", no_kernel)
+    monkeypatch.setattr(stft_cuda, "_grad_library", no_kernel)
+    counts = (stft_cuda.launches, stft_cuda.grad_launches,
+              display_cuda.launches, display_cuda.grad_launches,
+              mel_cuda.launches, mel_cuda.grad_launches)
+    before = [dict(c) for c in counts]
+    mel_cfg = SpecConfig.north_star(256, 64, log_scale=True, n_mels=16)
+    for cfg in (NS_256, mel_cfg, SpecConfig.scipy_default(2048)):
+        x = torch.from_numpy(np.random.RandomState(1).randn(2, 4096)
+                             .astype(np.float32)).requires_grad_()
+        out = batched_spectrogram_fn(FS, cfg, device="cpu")(x)
+        loss = out["image"].sum() + out["psd"].sum()
+        if cfg.n_mels:
+            loss = loss + out["mel"].sum()
+        loss.backward()
+        assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
+    z = stft_cuda.stft_complex(x, FS, NS_256)
+    (z.real.sum() + z.imag.sum()).backward()
+    assert [dict(c) for c in counts] == before
+
+
+def _meta_stft(x, fs, cfg, log10_out, with_stats, kernel=None, pack=True,
+               partials=False, band=None, out_mode=None):
+    """_stft_psd_cuda's outputs on the meta device, as the card's shapes."""
+    from spectral_tpu_torch.core.stft import num_frames
+    T = num_frames(x.shape[-1], cfg.nperseg, cfg.hop_)
+    lo, hi = stft_cuda.check_band(cfg, band)
+    cplx = (out_mode or cfg.mode) in ("complex", "stft")
+    out = torch.empty((x.shape[0], T, hi - lo), device="meta",
+                      dtype=torch.complex64 if cplx else torch.float32)
+    if partials:
+        return out, torch.empty((2, 1, x.shape[0], T), device="meta")
+    return out
+
+
+class _FailingLib:
+    """A kernel library whose every launch returns an error code."""
+
+    def __getattr__(self, name):
+        if name.endswith("error_string"):
+            return lambda code: b"invalid argument"
+        if name.endswith("workspace_bytes"):
+            return lambda *args: 8
+        return lambda *args: 1
+
+
+class _NoStream:
+    cuda_stream = 0
+
+
+def _no_card(monkeypatch):
+    """Let a wrapper pass torch.cuda's device and stream calls with a meta
+    tensor, so that its launch is reached."""
+    import contextlib
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _NoStream())
+
+
+def test_stft_grad_kernel_failure_propagates(monkeypatch):
+    """On a tensor off the CPU the backward launches stft_grad.cu's
+    kernels and never reaches the plain backward: a library that cannot
+    be built, or a launch that fails, raises through loss.backward()."""
+    def broken(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    monkeypatch.setattr(build, "load_library", broken)
+    monkeypatch.setattr(stft_cuda, "_GRAD_LIB", [])
+    monkeypatch.setattr(stft_cuda, "_stft_psd_cuda", _meta_stft)
+    monkeypatch.setattr(stft_cuda, "stft_backward_reference", _fail)
+    monkeypatch.setattr(stft_cuda, "stft_psd_reference", _fail)
+    for cfg in (NS_256, SpecConfig.scipy_default(24),
+                dataclasses.replace(NS_256, mode="magnitude")):
+        x = torch.empty((2, 4096), device="meta", requires_grad=True)
+        p = stft_cuda.stft_psd(x, FS, cfg)
+        assert p.requires_grad
+        with pytest.raises(RuntimeError, match="cannot build stft_grad"):
+            p.sum().backward()
+    z = stft_cuda.stft_complex(x, FS, NS_256)
+    with pytest.raises(RuntimeError, match="cannot build stft_grad"):
+        torch.view_as_real(z).sum().backward()
+    # a launch that fails raises, naming the kernel
+    monkeypatch.setattr(stft_cuda, "_grad_library", lambda: _FailingLib())
+    _no_card(monkeypatch)
+    p = stft_cuda.stft_psd_partials(x, FS, NS_256)[0]
+    with pytest.raises(RuntimeError, match="stft_backward kernel launch "
+                                           "failed: invalid argument"):
+        p.sum().backward()
+
+
+def test_mel_and_display_grad_kernel_failure_propagates(monkeypatch):
+    from spectral_tpu_torch.core.mel import mel_filterbank
+    from spectral_tpu_torch.ops import mel_cuda
+
+    def broken(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    monkeypatch.setattr(build, "load_library", broken)
+    monkeypatch.setattr(mel_cuda, "_LIB", [])
+    monkeypatch.setattr(display_cuda, "_LIB", [])
+    monkeypatch.setattr(mel_cuda, "mel_backward_reference", _fail)
+    monkeypatch.setattr(display_cuda, "display_backward_reference", _fail)
+    spans = mel_cuda.mel_spans(mel_filterbank(8, 65, FS), "meta")
+    with pytest.raises(RuntimeError, match="cannot build mel"):
+        mel_cuda.mel_backward(torch.empty((2, 3, 8), device="meta"), spans)
+    psd = torch.empty((2, 61, 129), device="meta")
+    params = torch.empty((2, 3), device="meta")
+    with pytest.raises(RuntimeError, match="cannot build display"):
+        display_cuda.display_backward(torch.empty((2, 129, 61),
+                                                  device="meta"),
+                                      psd, params, log_scale=True)
+    # a failed launch raises
+    for mod in (mel_cuda, display_cuda):
+        monkeypatch.setattr(mod, "_library", lambda: _FailingLib())
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="mel backward kernel launch "
+                                           "failed"):
+        mel_cuda.mel_backward(torch.empty((2, 3, 8), device="meta"), spans)
+    with pytest.raises(RuntimeError, match="display backward kernel launch "
+                                           "failed"):
+        display_cuda.display_backward(torch.empty((2, 129, 61),
+                                                  device="meta"),
+                                      psd, params, log_scale=False)
 
 
 def test_stft_kernel_refuses_what_it_cannot_take(monkeypatch):

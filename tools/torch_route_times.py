@@ -8,6 +8,7 @@ checkout of the port.
                                        [--frames-alone] [--library]
                                        [--plain] [--ulp]
                                        [--pipelines [P ...]] [--dc]
+                                       [--ptxas [SOURCE ...]]
 
 Imports ``spectral_tpu_torch`` from DIR (default: the checkout holding this
 script), builds its STFT kernel from DIR's sources, and times
@@ -51,6 +52,12 @@ the count, median of 5, with digests of the first clips' PSD, words and
 flags. ``--dc`` reports the flags and PSD maxima of pure-DC clips (1e-4,
 3e-3, 0.1; 10 s) through the checkout's ``batched_spectrogram_fn`` at
 scipy_default 1024 and 8160 (constant detrend).
+
+``--ptxas`` builds the checkout's CUDA sources (``ops/csrc/<SOURCE>.cu``;
+every one when none is named) into a temporary directory and reports each
+kernel entry's registers and spilled bytes from nvcc's ``-Xptxas -v``
+log, by its mangled name less the anonymous namespace's source hash, so
+two checkouts' entries compare one to one.
 
 A launch that fails is reported as such for its config, and the others
 run on. Needs one CUDA card. Prints one JSON line: the root, the card's name and
@@ -150,6 +157,40 @@ def time_pipelines(paths, report, SpecConfig, batch, dev):
         torch.cuda.empty_cache()
 
 
+def ptxas_report(names):
+    """{source: {mangled entry: [registers, spill store bytes, spill load
+    bytes]}} of the imported checkout's sources, each built anew into a
+    temporary directory."""
+    import re
+    import tempfile
+    from pathlib import Path
+    from spectral_tpu_torch.ops import build
+    names = names or sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        build.BUILD_DIR = Path(tmp)
+        for name in names:
+            entries, entry, spill = {}, None, (0, 0)
+            for line in build.build_library(name)["log"].splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    # the anonymous namespace's name hashes the source:
+                    # drop it, so that two checkouts' entries match
+                    entry = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}",
+                                   "anon", m.group(1))
+                    spill = (0, 0)
+                elif entry and "spill stores" in line:
+                    spill = tuple(int(v) for v in re.findall(
+                        r"(\d+) bytes spill", line))
+                elif entry and "Used" in line and "registers" in line:
+                    regs = int(re.search(r"Used (\d+) registers",
+                                         line).group(1))
+                    entries[entry] = [regs, *spill]
+                    entry = None
+            out[name] = entries
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -183,6 +224,9 @@ def main(argv=None) -> None:
     ap.add_argument("--pipelines", type=int, nargs="*",
                     help="time batched_spectrogram_fn on paths 1-11's "
                          "batches, or the paths numbered")
+    ap.add_argument("--ptxas", nargs="*",
+                    help="each kernel's registers and spills, building "
+                         "these sources (all when none is named)")
     ap.add_argument("--dc", action="store_true",
                     help="the flags of pure-DC clips at scipy_default 1024 "
                          "and 8160")
@@ -233,6 +277,8 @@ def main(argv=None) -> None:
             report[f"dc scipy_default {k}"] = {
                 "finite": out["finite"].tolist(),
                 "psd_max": out["psd"].amax(dim=(1, 2)).tolist()}
+    if args.ptxas is not None:
+        report["ptxas"] = ptxas_report(args.ptxas)
     if args.pipelines is not None:
         time_pipelines(args.pipelines, report, SpecConfig, batch, dev)
     nperseg = list(args.nperseg or [])
@@ -252,7 +298,8 @@ def main(argv=None) -> None:
     configs = [(f"scipy_default {k}", SpecConfig.scipy_default(k))
                for k in nperseg]
     if not configs and args.paths is None and (args.pipelines is not None
-                                               or args.dc):
+                                               or args.dc
+                                               or args.ptxas is not None):
         print(json.dumps(report))
         return
     if not configs and args.paths is None:
