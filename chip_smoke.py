@@ -217,22 +217,29 @@ the host has no matplotlib, one line that says so; and
     grad, three SGD steps through ``batched_spectrogram_fn`` at
     north_star 1024/256 log (the loss on the image and the PSD) and
     three at path 12's 128 log mels (on the mel rows and the image), each
-    step the forward kernels, one recompute of X by the route's complex
-    epilogue and the backward kernels (``stft_backward_kernel``,
-    ``overlap_add_kernel``, ``mel_backward_kernel``, the display
-    backward's two kernels), its gradient on GRAD_CLIPS clips held within
-    GRAD_TOL of the clip's largest |gradient| to the plain backward on
-    the card; ``power_spectrogram`` and ``stft`` on 10 minutes at 48 kHz
-    (path 16's config) the same way; each backward kernel timed against
-    its plain version, its bound and its library call (the backward of
+    step the forward kernels and the backward kernels
+    (``stft_fft_backward_kernel``, the radix-2 route's adjoint with X
+    recomputed in registers, ``overlap_add_kernel``,
+    ``mel_backward_kernel``, the display backward's two kernels), its
+    gradient on GRAD_CLIPS clips held within GRAD_TOL of the clip's
+    largest |gradient| to the plain backward on the card;
+    ``power_spectrogram`` and ``stft`` on 10 minutes at 48 kHz (path 16's
+    config) the same way; ``power_spectrogram`` at scipy_default 8160 on
+    the mixed route (one recompute of X by its complex epilogue, then
+    ``stft_backward_kernel``); each backward kernel timed against its
+    plain version, its bound and its library call (the backward of
     ``library_psd`` under autograd for the STFT's, ``F.fold`` for the
-    overlap-add, ``torch.matmul`` in float64 for the mel projection's).
-    Before it, phase ``grad`` holds the STFT backward to its plain
-    version on every route (radix-2, mixed, odd, Bluestein on one block
-    and on a cluster, GEMM, nfft past nperseg, two-sided, magnitude,
-    complex, a band, centered, linear detrend, T = 0) and the mel and
-    display backward at paths 12's and 1's shapes (tied extrema,
-    share_max, linear and log, flipped).
+    overlap-add, ``torch.matmul`` in float64 for the mel projection's),
+    ``stft_backward_kernel`` forced at path 1's shapes. No cache is
+    trimmed before it: the device operands' cache is bounded. Before it,
+    phase ``grad`` holds the STFT backward to its plain version on every
+    route (radix-2 at 32, 1024 and 8192, mixed, odd, Bluestein on one
+    block and on a cluster, GEMM, nfft past nperseg, two-sided,
+    magnitude, complex, unscaled, a band, centered, linear detrend, T =
+    0), each radix-2 case also to the plain FFT adjoint and to
+    ``stft_backward_kernel`` forced, with no recompute launch and no
+    dense operands built, and the mel and display backward at paths 12's
+    and 1's shapes (tied extrema, share_max, linear and log, flipped).
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
@@ -631,8 +638,11 @@ def build_kernels():
     build.load_library("hmm")
     print(f"stft_grad.cu -> {os.path.relpath(grad['path'], HERE)} in "
           f"{grad['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
-              grad["log"], r"(stft_backward_kernel|overlap_add_kernel)",
-              lambda e: e.group(1))))
+              grad["log"], r"(stft_backward_kernel|overlap_add_kernel|"
+              r"stft_fft_backward_kernelILi(\d+)ELi(\d+)E)",
+              lambda e: e.group(1) if e.group(2) is None else
+              f"stft_fft_backward<LOG2M {e.group(2)}, "
+              f"{2 ** int(e.group(3))} values>")))
     build.load_library("stft_grad")
     print(f"mel.cu -> {os.path.relpath(mel['path'], HERE)} in "
           f"{mel['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
@@ -5040,17 +5050,21 @@ def grad_counts_moved(before, after):
 
 
 def grad_kernel_cases(dev):
-    """Phase grad: the STFT backward (stft_backward_kernel and
-    overlap_add_kernel, after one launch of the route's complex epilogue)
-    through ``loss.backward()`` of the kernels' entry points, held per
-    clip within GRAD_TOL to the plain backward on the same card, on every
-    route's config: radix-2 1024, mixed 992 and 8160, odd 1023, Bluestein
-    2049 and 8185 (a cluster), GEMM 24, nfft 4096 over nperseg 1024,
-    two-sided, magnitude, the complex STFT scaled and unscaled, a 0-30 Hz
-    band at 1 kHz, centered (reflect), linear detrend, T = 0; then the mel
-    backward at path 12's shapes and the display backward at path 1's and
-    path 12's (log and linear, flipped, share_max, tied extrema), each
-    against its plain version."""
+    """Phase grad: the STFT backward through ``loss.backward()`` of the
+    kernels' entry points, by ``backward_route``: on the radix-2 route
+    stft_fft_backward_kernel (X recomputed in registers: no launch of the
+    forward's complex epilogue and no dense operands built), on the others
+    stft_backward_kernel after one launch of the route's complex epilogue;
+    overlap_add_kernel after both. Each held per clip within GRAD_TOL to
+    the plain dense backward on the same card, and each radix-2 case also
+    to the plain FFT adjoint and to stft_backward_kernel forced on it. The
+    configs: radix-2 32, 1024 and 8192, mixed 992 and 8160, odd 1023,
+    Bluestein 2049 and 8185 (a cluster), GEMM 24, nfft 4096 over nperseg
+    1024, two-sided, magnitude, the complex STFT scaled and unscaled, a
+    0-30 Hz band at 1 kHz, centered (reflect), linear detrend, T = 0; then
+    the mel backward at path 12's shapes and the display backward at path
+    1's and path 12's (log and linear, flipped, share_max, tied extrema),
+    each against its plain version."""
     import dataclasses
     import numpy as np
     import torch
@@ -5065,6 +5079,8 @@ def grad_kernel_cases(dev):
     ns = SpecConfig.north_star(1024, 256)
     cases = (
         ("radix-2 1024", ns, FS, "psd", None),
+        ("radix-2 32", SpecConfig.scipy_default(32), FS, "psd", None),
+        ("radix-2 8192", SpecConfig.scipy_default(8192), FS, "psd", None),
         ("mixed 992", SpecConfig.scipy_default(992), FS, "psd", None),
         ("mixed 8160", SpecConfig.scipy_default(8160), FS, "psd", None),
         ("odd 1023", SpecConfig.scipy_default(1023), FS, "psd", None),
@@ -5079,6 +5095,7 @@ def grad_kernel_cases(dev):
         ("magnitude 1024", dataclasses.replace(s1024, mode="magnitude"), FS,
          "psd", None),
         ("complex 1024", s1024, FS, "complex", None),
+        ("stft (unscaled) 1024", s1024, FS, "stft", None),
         ("stft (unscaled) 992", SpecConfig.scipy_default(992), FS, "stft",
          None),
         ("complex two-sided GEMM 24",
@@ -5087,17 +5104,29 @@ def grad_kernel_cases(dev):
         ("band 0-30 Hz at 1 kHz", s1024, 1000.0, "psd", (0, 31)),
         ("centered reflect 1024", dataclasses.replace(
             ns, center=True, pad_mode="reflect"), FS, "psd", None),
+        ("linear 1024", SpecConfig(nperseg=1024, hop=256, detrend="linear"),
+         FS, "psd", None),
         ("linear 960", SpecConfig(nperseg=960, hop=240, detrend="linear"),
          FS, "psd", None),
     )
     rs = np.random.RandomState(21)
+
+    def dense_keys():
+        return {k for k in stft_cuda._CONSTANTS if k[0] == "dense"}
+
+    def padded_grad(x, xp, dxp, cfg):
+        if not cfg.center:
+            return dxp
+        return torch.autograd.grad(xp, x, dxp, retain_graph=True)[0]
+
     for label, cfg, fs, kind, band in cases:
         k = cfg.nperseg
         n = 6 * k + 123                      # a tail past the last frame
         x = torch.from_numpy(rs.randn(3, n).astype(np.float32)).to(dev)
         x.requires_grad_()
         out = cfg.mode if kind == "psd" else kind
-        before = flat_counts(read_counts())
+        route, back = stft_cuda.route(cfg), stft_cuda.backward_route(cfg)
+        before, keys = flat_counts(read_counts()), dense_keys()
         if kind == "psd":
             y = stft_cuda.stft_psd(x, fs, cfg, band=band)
         else:
@@ -5112,23 +5141,48 @@ def grad_kernel_cases(dev):
         dx, = torch.autograd.grad(y, x, g)
         torch.cuda.synchronize()
         moved = grad_counts_moved(before, flat_counts(read_counts()))
-        route = stft_cuda.route(cfg)
-        require(moved == {f"stft_{route}": 2, "stft_backward": 1,
-                          "overlap_add": 1},
-                f"grad {label}: launches {moved}")
+        if back == "fft":
+            # no recompute launch, no dense operands
+            want_moved = {"stft_fft": 1, "stft_fft_backward": 1,
+                          "overlap_add": 1}
+            require(not dense_keys() - keys,
+                    f"grad {label}: the radix-2 backward built dense "
+                    f"operands {dense_keys() - keys}")
+        else:
+            want_moved = {f"stft_{route}": 2, "stft_backward": 1,
+                          "overlap_add": 1}
+        require(moved == want_moved, f"grad {label}: launches {moved}")
         consts = stft_cuda.dft_constants(cfg, fs, dev, band, out)
         with torch.enable_grad():
             xp = center_pad(x, cfg)
-        dxp = stft_cuda.stft_backward_reference(xp.detach(), g, consts, cfg,
-                                                out)
-        want = (torch.autograd.grad(xp, x, dxp)[0] if cfg.center else dxp)
-        rel, err = clip_rel(dx, want)
+        xd = xp.detach()
+        dxp = stft_cuda.stft_backward_reference(xd, g, consts, cfg, out)
+        rel, err = clip_rel(dx, padded_grad(x, xp, dxp, cfg))
         require(rel <= GRAD_TOL, f"grad {label}: {rel:.2e} of the clip's "
                 f"largest |gradient|")
         T = num_frames(xp.shape[-1], k, cfg.hop_)
-        print(f"{label} [{route}]: the backward {rel:.2e} of the clip's "
-              f"largest |gradient| from the plain version ({err:.3e} abs), "
-              f"3 clips x {T} frames; launches {moved}")
+        note = ""
+        if back == "fft":
+            # the plain FFT adjoint, and stft_backward_kernel forced
+            fft_plain = stft_cuda.overlap_add_reference(
+                stft_cuda.frames_backward_fft_reference(g, xd, cfg, fs, band,
+                                                        out), xd.shape[-1],
+                cfg.hop_)
+            rel_f = clip_rel(dx, padded_grad(x, xp, fft_plain, cfg))[0]
+            b1 = stft_cuda.stft_backward(
+                xd, g, stft_cuda.GradOp(fs, cfg, band, out, route),
+                _backward="dense")
+            rel_b = clip_rel(dx, padded_grad(x, xp, b1, cfg))[0]
+            require(rel_f <= GRAD_TOL and rel_b <= GRAD_TOL,
+                    f"grad {label}: {rel_f:.2e} from the plain FFT adjoint, "
+                    f"{rel_b:.2e} from stft_backward_kernel")
+            note = (f"; {rel_f:.2e} from the plain FFT adjoint, {rel_b:.2e} "
+                    f"from stft_backward_kernel forced")
+        print(f"{label} [{route}, backward {back}"
+              f"{'' if back == 'fft' else ': stft_backward_kernel (B1)'}]: "
+              f"{rel:.2e} of the clip's largest |gradient| from the plain "
+              f"dense backward ({err:.3e} abs){note}, 3 clips x {T} frames; "
+              f"launches {moved}")
     # T = 0: no frame, a zero gradient, no backward launch
     x = torch.zeros((2, 500), device=dev, requires_grad=True)
     before = flat_counts(read_counts())
@@ -5136,7 +5190,8 @@ def grad_kernel_cases(dev):
     dx, = torch.autograd.grad(y, x, torch.zeros_like(y))
     moved = grad_counts_moved(before, flat_counts(read_counts()))
     require(y.shape[1] == 0 and bool((dx == 0).all())
-            and "stft_backward" not in moved, f"grad T = 0: {moved}")
+            and "stft_backward" not in moved
+            and "stft_fft_backward" not in moved, f"grad T = 0: {moved}")
 
     # the mel backward at path 12's shapes: 8 clips x 622 frames, 513 bins,
     # 128 mels; an inf gradient of one mel row (NaN outside its span)
@@ -5203,17 +5258,33 @@ def stft_backward_bound(R, F, L, K, g_bytes=4):
             "operations" if t_ops >= t_mem else "bytes")
 
 
+def stft_fft_backward_bound(x_elems, R, F, L, K, g_bytes=4):
+    """The radix-2 adjoint: the waveform x and g read once and d written
+    once, or two real FFTs' 2 x 2.5 K log2 K a frame at the FP64 peak, the
+    larger."""
+    t_mem = (x_elems * 4 + R * F * g_bytes + R * L * 4) / HBM_RATE
+    t_ops = R * 5 * K * math.log2(K) / FP64_PEAK
+    return (1e3 * max(t_mem, t_ops),
+            "operations" if t_ops >= t_mem else "bytes")
+
+
 def grad_path(dev, card):
     """Path 21, gradients on the card: path 1's batch (1024 clips x 10 s at
     16 kHz) as a waveform that requires grad, three SGD steps through
     ``batched_spectrogram_fn`` at north_star 1024/256 log (the loss on the
     image and the PSD), then three at path 12's 128 log mels (on the mel
-    rows and the image); each step's loss, gradient norm and launches
-    printed, its gradient on GRAD_CLIPS clips held within GRAD_TOL of the
-    plain backward on the card; then ``power_spectrogram`` and ``stft`` on
-    10 minutes at 48 kHz (path 16's config) the same way; each backward
-    kernel timed at path 1's and path 12's shapes against its plain
-    version, its bound and its library call."""
+    rows and the image); each step's loss, gradient norm, wall ms and
+    launches printed (the radix-2 backward, stft_fft_backward_kernel), its
+    gradient on GRAD_CLIPS clips held within GRAD_TOL of the plain
+    backward on the card; then ``power_spectrogram`` and ``stft`` on 10
+    minutes at 48 kHz (path 16's config) the same way, and
+    ``power_spectrogram`` at scipy_default 8160 (path 4's config, the
+    mixed route: the complex epilogue's recompute and
+    stft_backward_kernel) on 8 clips of 60 s; each backward kernel timed
+    at path 1's and path 12's shapes against its plain version, its bound
+    and its library call, stft_backward_kernel forced there. No cache is
+    trimmed first: the device operands' cache is bounded
+    (``stft_cuda.CONSTANTS_BUDGET``)."""
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
@@ -5225,16 +5296,15 @@ def grad_path(dev, card):
     from spectral_tpu_torch.ops import mel_cuda, stft_cuda
     from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
 
-    from spectral_tpu_torch.utils.memory import trim_caches
     t_path = time.perf_counter()
-    # the earlier phases' device operands (the DFT matrices of every config
-    # whose plain version ran, half a GB each near nperseg 8192) would
-    # crowd out the library's autograd graph below
-    before = torch.cuda.memory_allocated()
-    trim_caches()
-    print(f"path 21 starts with {before / 2 ** 30:.2f} GiB allocated, "
-          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB after the "
-          f"port's caches are trimmed")
+    cached = sum(stft_cuda._tensor_bytes(v)
+                 for v in stft_cuda._CONSTANTS.values())
+    require(cached <= stft_cuda.CONSTANTS_BUDGET,
+            f"{cached} bytes of cached operands, past the budget")
+    print(f"path 21 starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+          f" GiB allocated, {cached / 2 ** 30:.2f} GiB of it the operand "
+          f"cache's ({len(stft_cuda._CONSTANTS)} entries; budget "
+          f"{stft_cuda.CONSTANTS_BUDGET / 2 ** 30:.0f} GiB a device)")
     n = int(FS * CLIP_SECONDS)
     T = num_frames(n, 1024, 256)
     plain = SpecConfig.north_star(1024, 256, log_scale=True)
@@ -5263,8 +5333,8 @@ def grad_path(dev, card):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             moved = grad_counts_moved(before, flat_counts(read_counts()))
-            want_moved = {"stft_fft": 2, "clip_stats": 1, "rgba": 1,
-                          "display_backward": 1, "stft_backward": 1,
+            want_moved = {"stft_fft": 1, "clip_stats": 1, "rgba": 1,
+                          "display_backward": 1, "stft_fft_backward": 1,
                           "overlap_add": 1}
             if cfg.n_mels:
                 want_moved.update(mel=1, mel_backward=1)
@@ -5324,7 +5394,7 @@ def grad_path(dev, card):
         y.backward(g)
         torch.cuda.synchronize()
         moved = grad_counts_moved(before, flat_counts(read_counts()))
-        require(moved == {"stft_fft": 2, "stft_backward": 1,
+        require(moved == {"stft_fft": 1, "stft_fft_backward": 1,
                           "overlap_add": 1}, f"path 21 {what}: {moved}")
         want = stft_cuda.stft_backward_reference(
             xh, g, stft_cuda.dft_constants(cfg16, fs16, dev, cband, out),
@@ -5336,6 +5406,28 @@ def grad_path(dev, card):
               f"({err:.3e} abs); launches {moved}")
         del x, y, g, want
     del xh
+    # the mixed route: the complex epilogue's recompute, then
+    # stft_backward_kernel against the folded matrices
+    cfg4 = SpecConfig.scipy_default(MIXED_NPERSEG)
+    x = torch.randn((8, int(FS * K2_SECONDS)), generator=gen,
+                    device=dev).requires_grad_()
+    before = flat_counts(read_counts())
+    y = stft_cuda.stft_psd(x, FS, cfg4)
+    g = torch.rand(y.shape, generator=gen, device=dev)
+    y.backward(g)
+    torch.cuda.synchronize()
+    moved = grad_counts_moved(before, flat_counts(read_counts()))
+    require(moved == {"stft_mixed": 2, "stft_backward": 1, "overlap_add": 1},
+            f"path 21 mixed: {moved}")
+    want = stft_cuda.stft_backward_reference(
+        x.detach(), g, stft_cuda.dft_constants(cfg4, FS, dev), cfg4, "psd")
+    rel, err = clip_rel(x.grad, want)
+    require(rel <= GRAD_TOL, f"path 21 mixed: {rel:.2e}")
+    print(f"power_spectrogram at scipy_default {MIXED_NPERSEG} (mixed route, "
+          f"backward dense) on 8 x {K2_SECONDS:g} s ({tuple(y.shape)}): "
+          f"{rel:.2e} of the clip's largest |gradient| from the plain "
+          f"backward ({err:.3e} abs); launches {moved}")
+    del x, y, g, want
     torch.cuda.empty_cache()
     counts = flat_counts(read_counts())
     print(f"launches in this path's run: {counts}")
@@ -5344,10 +5436,27 @@ def grad_path(dev, card):
     phase(f"path 21 times (CUDA events, median of {REPS} after a warm-up; "
           f"{card})")
     x = x0
+    chunks = [slice(i, i + 256) for i in range(0, BATCH, 256)]
+    g = torch.rand((BATCH, T, F), generator=gen, device=dev)
+    # the radix-2 adjoint against its plain version and forced B1
+    d_fft = stft_cuda.frames_backward_fft(g, x, plain, FS)
+    t5 = time_ms(lambda: stft_cuda.frames_backward_fft(g, x, plain, FS))
+    t5p = time_ms(lambda: [stft_cuda.frames_backward_fft_reference(
+        g[c], x[c], plain, FS) for c in chunks])
+    rel5, err5 = clip_rel(d_fft[:GRAD_CLIPS],
+                          stft_cuda.frames_backward_fft_reference(
+                              g[:GRAD_CLIPS], x[:GRAD_CLIPS], plain, FS))
     X = stft_cuda._stft_psd_cuda(x, FS, plain, False, False,
                                  out_mode="stft")
-    g = torch.rand((BATCH, T, F), generator=gen, device=dev)
     d = stft_cuda.frames_backward(g, X, consts, "psd")
+    rel5b = clip_rel(d_fft, d)[0]
+    require(rel5 <= GRAD_TOL and rel5b <= GRAD_TOL,
+            f"path 21 stft_fft_backward: {rel5:.2e} from its plain version, "
+            f"{rel5b:.2e} from stft_backward_kernel")
+    print(f"stft_fft_backward_kernel at path 1's shapes: {rel5:.2e} of the "
+          f"clip's largest |d| from the plain FFT adjoint ({GRAD_CLIPS} "
+          f"clips), {rel5b:.2e} from stft_backward_kernel (all clips)")
+    del d_fft
     d_plain = stft_cuda.frames_backward_reference(g[:GRAD_CLIPS],
                                                   X[:GRAD_CLIPS], consts,
                                                   "psd")
@@ -5356,7 +5465,6 @@ def grad_path(dev, card):
     err2 = clip_rel(dx[:GRAD_CLIPS], stft_cuda.overlap_add_reference(
         d[:GRAD_CLIPS], n, 256))[1]
     del d_plain, dx
-    chunks = [slice(i, i + 256) for i in range(0, BATCH, 256)]
     t1 = time_ms(lambda: stft_cuda.frames_backward(g, X, consts, "psd"))
     t1p = time_ms(lambda: [stft_cuda.frames_backward_reference(
         g[c], X[c], consts, "psd") for c in chunks])
@@ -5401,14 +5509,18 @@ def grad_path(dev, card):
     del psd, parts, gi, got
     torch.cuda.empty_cache()
     R = BATCH * T
+    b5 = stft_fft_backward_bound(BATCH * n, R, F, 1024, 1024)
     b1 = stft_backward_bound(R, F, 1024, 1024)
     b2 = (1e3 * (R * 1024 * 4 + BATCH * n * 4) / HBM_RATE, "bytes")
     b3 = (1e3 * (R * M * 4 + R * F * 4) / HBM_RATE, "bytes")
     b4 = (1e3 * (3 * R * F * 4 + BATCH * 12) / HBM_RATE, "bytes")
     rows = {}
     for key, name, (ms, reps), (pms, _), lib_ms, bound, err, note in (
-            ("stft_backward", "stft_backward_kernel", t1, t1p, t1l, b1,
-             err1, "library: the backward of library_psd (cuFFT f64, "
+            ("stft_fft_backward", "stft_fft_backward_kernel", t5, t5p, t1l,
+             b5, err5, "library: the backward of library_psd (cuFFT f64, "
+             "autograd) over kernels 1 and 2"),
+            ("stft_backward", "stft_backward_kernel (forced)", t1, t1p, t1l,
+             b1, err1, "library: the backward of library_psd (cuFFT f64, "
              "autograd) over kernels 1 and 2"),
             ("overlap_add", "overlap_add_kernel", t2, t2p, t2l[0], b2, err2,
              "library: torch.nn.functional.fold"),
@@ -5591,7 +5703,9 @@ def main(_phases=None):
           f"{rows['stft_gemm_nfft']['launches']}); the magnitude and complex "
           f"epilogues: path 20 {rows['stft_magnitude']['launches']}, "
           f"{rows['stft_complex']['launches']}; the backward kernels' on "
-          f"path 21: stft_backward {rows['stft_backward']['launches']}, "
+          f"path 21: stft_fft_backward "
+          f"{rows['stft_fft_backward']['launches']}, stft_backward "
+          f"{rows['stft_backward']['launches']}, "
           f"overlap_add {rows['overlap_add']['launches']}, mel_backward "
           f"{rows['mel_backward']['launches']}, display_backward "
           f"{rows['display_backward']['launches']}; the commands of path 19: "
@@ -5689,9 +5803,18 @@ def main(_phases=None):
             "chunks of 256 (path 15)", "cuda", hmm_src,
             "spectral_tpu/models/hmm_pscan.py:289 (e_step, an XLA "
             "associative scan; no TPU kernel)"),
+        "stft_fft_backward": (
+            "stft_fft_backward_kernel<LOG2M 9, 8 values>, the STFT's adjoint "
+            "on the radix-2 route (X recomputed in registers, a c2r "
+            "transform), north_star 1024/256 on 1024 x 10 s (path 21)",
+            "cuda", grad_src,
+            "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
+            "XLA's transposed DFT; no TPU kernel)"),
         "stft_backward": (
-            "stft_backward_kernel, the STFT's adjoint (float64 tile), "
-            "north_star 1024/256 on 1024 x 10 s (path 21)", "cuda", grad_src,
+            "stft_backward_kernel, the STFT's adjoint (float64 tile) on the "
+            "other routes: scipy_default 8160, mixed (path 21); timed "
+            "forced at north_star 1024/256 on 1024 x 10 s", "cuda",
+            grad_src,
             "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
             "XLA's transposed DFT; no TPU kernel)"),
         "overlap_add": (

@@ -120,22 +120,32 @@ kernel or raise; nothing falls back to another route.
 
 The gradient. A waveform that requires grad (with grad enabled) goes
 through an autograd Function (:class:`_StftGrad`) around the same
-launch, which saves only the waveform; its backward recomputes the
-unscaled STFT X with one launch of the route's complex epilogue, then
-runs the two kernels of ``csrc/stft_grad.cu`` (their own library): the
-transform's adjoint d = H A^T against the folded matrices, with the
-cotangent H formed from the output's gradient and X (the PSD's 2 w g X,
-the magnitude's w g X / |X|, 0 at |X| = 0, the complex STFT's w g), and
-the framing's adjoint, an overlap-add in gather form. A CPU tensor takes
-the plain backward (:func:`stft_backward_reference`, the same arithmetic
-as explicit torch). The partials and the extrema carry no gradient, and
+launch, which saves only the waveform; its backward runs the kernels of
+``csrc/stft_grad.cu`` (their own library) by :func:`backward_route`. On
+the radix-2 route (``"fft"``) one launch of ``stft_fft_backward_kernel``
+recomputes X in registers on the forward's radix-2 engine, forms the
+cotangent H from the output's gradient and X (the PSD's 2 w g X, the
+magnitude's w g X / |X|, 0 at |X| = 0, the complex STFT's w g) and takes
+the transform's adjoint as a c2r transform, no dense matrix and no X in
+memory; on the other routes (``"dense"``) one launch of the route's
+complex epilogue recomputes X, then ``stft_backward_kernel`` takes the
+adjoint d = H A^T against the folded matrices. The framing's adjoint, an
+overlap-add in gather form, follows both. A CPU tensor takes the plain
+backward (:func:`stft_backward_reference`, the same arithmetic as
+explicit torch). The partials and the extrema carry no gradient, and
 ``log10_out`` has none (it raises with a waveform that requires grad,
 as the JAX package's Pallas kernel has no gradient there). Without grad
 the entry points run exactly as before: one launch, nothing saved.
+
+The device operands (:func:`dft_constants`, :func:`fft_constants`,
+:func:`mixed_constants`, :func:`bluestein_constants`) are cached per
+device, least recently used first out, in at most
+:data:`CONSTANTS_BUDGET` bytes of device tensors a device.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
@@ -182,7 +192,11 @@ OUTPUT_MODES = {"psd": 0, "magnitude": 1, "complex": 2}
 # the backward's launches (csrc/stft_grad.cu), for run-time proof of the
 # gradient path; its recompute of X counts in ``launches``
 GRAD_KERNEL = "stft_grad"
-grad_launches = {"stft_backward": 0, "overlap_add": 0}
+grad_launches = {"stft_backward": 0, "stft_fft_backward": 0,
+                 "overlap_add": 0}
+# the bytes of device tensors the operand cache keeps a device: seven
+# configs' dense (8192, 4097) float64 pairs, the largest, fit
+CONSTANTS_BUDGET = 4 * 2 ** 30
 
 
 class DftConstants(NamedTuple):
@@ -248,6 +262,16 @@ def route(cfg: SpecConfig) -> str:
     return "odd" if k % 2 else "mixed"
 
 
+def backward_route(cfg: SpecConfig) -> str:
+    """The STFT backward's kernel for a supported config, a pure function
+    of it: ``"fft"`` (``stft_fft_backward_kernel``, X recomputed in
+    registers and the adjoint a c2r transform on the radix-2 engine) where
+    :func:`route` is ``"fft"``; ``"dense"`` (the route's complex epilogue,
+    then ``stft_backward_kernel`` against the folded matrices) for the
+    mixed, odd, Bluestein and GEMM routes."""
+    return "fft" if route(cfg) == "fft" else "dense"
+
+
 def _put(a, device, dtype: torch.dtype = torch.float64) -> torch.Tensor:
     """A copy of host array ``a`` on ``device`` in ``dtype``, never shared
     with the (cached) numpy array."""
@@ -263,7 +287,40 @@ def constants_from_numpy(a_re: np.ndarray, a_im: np.ndarray,
     return DftConstants(*(_put(a, device, dtype) for a in (a_re, a_im, wts)))
 
 
-_CONSTANTS: dict = {}
+# the kernels' operands by (kind, device, config...), oldest use first
+_CONSTANTS: "collections.OrderedDict" = collections.OrderedDict()
+
+
+def _tensor_bytes(consts) -> int:
+    return sum(t.numel() * t.element_size() for t in consts
+               if isinstance(t, torch.Tensor))
+
+
+def _cached(kind: str, device, key: tuple, build):
+    """The operands of ``key`` on ``device`` from :data:`_CONSTANTS`, or
+    ``build()`` kept there: a hit becomes the newest entry and returns the
+    same tensors; a miss evicts the device's oldest entries until the new
+    one fits :data:`CONSTANTS_BUDGET`, and an entry larger than the whole
+    budget is returned without being kept. Eviction drops references only,
+    so tensors a caller holds stay valid."""
+    dev = str(torch.device(device))
+    key = (kind, dev) + key
+    consts = _CONSTANTS.get(key)
+    if consts is not None:
+        _CONSTANTS.move_to_end(key)
+        return consts
+    consts = build()
+    size = _tensor_bytes(consts)
+    if size > CONSTANTS_BUDGET:
+        return consts
+    mine = [k for k in _CONSTANTS if k[1] == dev]
+    held = sum(_tensor_bytes(_CONSTANTS[k]) for k in mine)
+    for k in mine:
+        if held + size <= CONSTANTS_BUDGET:
+            break
+        held -= _tensor_bytes(_CONSTANTS.pop(k))
+    _CONSTANTS[key] = consts
+    return consts
 
 
 def check_band(cfg: SpecConfig, band) -> Tuple[int, int]:
@@ -338,16 +395,15 @@ def dft_constants(cfg: SpecConfig, fs: float, device, band=None,
     (:func:`mirrored_dft_matrices`)."""
     lo, hi = check_band(cfg, band)
     out = out or cfg.mode
-    key = (cfg, float(fs), str(torch.device(device)), lo, hi, out)
-    consts = _CONSTANTS.get(key)
-    if consts is None:
+
+    def build():
         a_re, a_im = mirrored_dft_matrices(cfg)
-        consts = constants_from_numpy(
+        return constants_from_numpy(
             np.ascontiguousarray(a_re[:, lo:hi]),
             np.ascontiguousarray(a_im[:, lo:hi]),
             kernel_weights(cfg, fs, out)[lo:hi], device, torch.float64)
-        _CONSTANTS[key] = consts
-    return consts
+
+    return _cached("dense", device, (cfg, float(fs), lo, hi, out), build)
 
 
 class FftConstants(NamedTuple):
@@ -366,14 +422,10 @@ def fft_constants(cfg: SpecConfig, fs: float, device,
     (cfg.mode when None), the host's float64 numpy values unrounded,
     cached per device. No (K, F) matrix is built."""
     out = out or cfg.mode
-    key = ("fft", cfg, float(fs), str(torch.device(device)), out)
-    consts = _CONSTANTS.get(key)
-    if consts is None:
-        consts = FftConstants(_put(padded_window(cfg), device),
-                              _put(fft_twiddles(cfg.nfft_), device),
-                              _put(kernel_weights(cfg, fs, out), device))
-        _CONSTANTS[key] = consts
-    return consts
+    return _cached("fft", device, (cfg, float(fs), out), lambda: FftConstants(
+        _put(padded_window(cfg), device),
+        _put(fft_twiddles(cfg.nfft_), device),
+        _put(kernel_weights(cfg, fs, out), device)))
 
 
 class MixedConstants(NamedTuple):
@@ -399,17 +451,16 @@ def mixed_constants(cfg: SpecConfig, fs: float, device,
     ``out`` (cfg.mode when None), the host's float64 numpy values
     unrounded, cached per device. No (K, F) matrix is built."""
     out = out or cfg.mode
-    key = ("mixed", cfg, float(fs), str(torch.device(device)), out)
-    consts = _CONSTANTS.get(key)
-    if consts is None:
+
+    def build():
         plan = fft_plan(cfg.nfft_)
-        consts = MixedConstants(_put(padded_window(cfg), device),
-                                _put(plan.perm, device, torch.int32),
-                                _put(plan.twiddles, device),
-                                _put(kernel_weights(cfg, fs, out), device),
-                                plan.stages.copy(), plan.split, plan.rader)
-        _CONSTANTS[key] = consts
-    return consts
+        return MixedConstants(_put(padded_window(cfg), device),
+                              _put(plan.perm, device, torch.int32),
+                              _put(plan.twiddles, device),
+                              _put(kernel_weights(cfg, fs, out), device),
+                              plan.stages.copy(), plan.split, plan.rader)
+
+    return _cached("mixed", device, (cfg, float(fs), out), build)
 
 
 class BluesteinConstants(NamedTuple):
@@ -434,18 +485,16 @@ def bluestein_constants(cfg: SpecConfig, fs: float, device,
     (cfg.mode when None), the host's float64 numpy values unrounded,
     cached per device. No (K, F) matrix is built."""
     out = out or cfg.mode
-    key = ("bluestein", cfg, float(fs), str(torch.device(device)), out)
-    consts = _CONSTANTS.get(key)
-    if consts is None:
+
+    def build():
         plan = bluestein_plan(cfg.nfft_)
-        consts = BluesteinConstants(_put(padded_window(cfg), device),
-                                    _put(plan.twiddles, device),
-                                    _put(kernel_weights(cfg, fs, out),
-                                         device),
-                                    plan.stages.copy(), plan.m, plan.bhat,
-                                    plan.chirp, plan.split)
-        _CONSTANTS[key] = consts
-    return consts
+        return BluesteinConstants(_put(padded_window(cfg), device),
+                                  _put(plan.twiddles, device),
+                                  _put(kernel_weights(cfg, fs, out), device),
+                                  plan.stages.copy(), plan.m, plan.bhat,
+                                  plan.chirp, plan.split)
+
+    return _cached("bluestein", device, (cfg, float(fs), out), build)
 
 
 def _empty_result(B: int, F: int, like: torch.Tensor, with_stats: bool):
@@ -579,6 +628,46 @@ def frames_backward_reference(g: torch.Tensor, X: torch.Tensor,
     X's real type, H from g and X (:func:`_cotangent_reference`)."""
     hr, hi = _cotangent_reference(g, X, consts.wts, out)
     return (hr @ consts.a_re.T + hi @ consts.a_im.T).to(X.real.dtype)
+
+
+def frames_backward_fft_reference(g: torch.Tensor, x: torch.Tensor,
+                                  cfg: SpecConfig, fs: float, band=None,
+                                  out: Optional[str] = None) -> torch.Tensor:
+    """The plain version of ``stft_fft_backward_kernel``: the frames'
+    gradient (B, T, L) from the gradient g (B, T, F) of the output ``out``
+    (cfg.mode when None; "complex" or "stft" for the complex STFT) of the
+    band's F bins, and the (uncentered) waveform x (B, n), in torch
+    float64 by ``torch.fft``, rounded once to x's dtype, as the kernel
+    computes it: X of each frame (detrended explicitly, windowed,
+    zero-padded to nfft) kept in float64; the cotangent H
+    (:func:`_cotangent_reference`) at the band's bins, 0 elsewhere, a
+    two-sided spectrum's bins past nfft/2 folded onto their mirrors as
+    conj H; the c2r adjoint d_v = K irfft(Y, K) with Y the folded H, its
+    interior bins at half weight; then the first L samples times the
+    window, less their mean or least-squares line (the detrend's
+    projection, its own transpose). For a power-of-two nfft from 32 to
+    8192 in the port (the radix-2 route), any even nfft here."""
+    out = out or cfg.mode
+    lo, hi = check_band(cfg, band)
+    K, L = cfg.nfft_, cfg.nperseg
+    M = K // 2
+    w = torch.from_numpy(_window_f64(cfg)).to(x.device)
+    wts = torch.from_numpy(kernel_weights(cfg, fs, out)[lo:hi]).to(x.device)
+    frames = frame_signal(x.double(), L, cfg.hop_)
+    X = torch.fft.rfft(_detrend_frames(frames, cfg.detrend) * w, n=K)
+    bins = torch.arange(lo, hi, device=x.device)
+    mirrored = bins > M
+    onesided = torch.where(mirrored, K - bins, bins)
+    Xb = X[..., onesided]
+    h = torch.complex(*_cotangent_reference(
+        g, torch.where(mirrored, Xb.conj(), Xb), wts, out))
+    Y = torch.zeros(X.shape, dtype=torch.complex128, device=x.device)
+    Y.index_add_(-1, onesided, torch.where(mirrored, h.conj(), h))
+    Y[..., 1:M] *= 0.5
+    Y[..., 0] = Y[..., 0].real
+    Y[..., M] = Y[..., M].real
+    d = K * torch.fft.irfft(Y, n=K)[..., :L] * w
+    return _detrend_frames(d, cfg.detrend).to(x.dtype)
 
 
 def stft_backward_reference(x: torch.Tensor, g: torch.Tensor,
@@ -761,6 +850,9 @@ def _grad_library() -> ctypes.CDLL:
     lib.overlap_add_launch.argtypes = [ptr, i64, i64, i32, i32, i32, ptr,
                                        ptr]
     lib.overlap_add_launch.restype = i32
+    lib.stft_fft_backward_launch.argtypes = [ptr] * 6 + [
+        i32, i64] + [i32] * 9 + [ptr]
+    lib.stft_fft_backward_launch.restype = i32
     lib.stft_grad_error_string.argtypes = [i32]
     lib.stft_grad_error_string.restype = ctypes.c_char_p
     _GRAD_LIB.append(lib)
@@ -833,29 +925,41 @@ def _apply(x: torch.Tensor, op: GradOp, log10_out: bool = False):
     return _forward(x, op, log10_out)
 
 
-def stft_backward(x: torch.Tensor, g: torch.Tensor, op: GradOp
-                  ) -> torch.Tensor:
+def stft_backward(x: torch.Tensor, g: torch.Tensor, op: GradOp,
+                  _backward: Optional[str] = None) -> torch.Tensor:
     """The gradient of the (uncentered) waveform x (B, n) from the
-    gradient g of the output ``op`` describes: for a CUDA tensor one
-    launch of the route's complex epilogue (X unscaled), then the
-    transform's adjoint and the overlap-add (:func:`frames_backward`,
-    :func:`overlap_add`); for a CPU tensor the plain version
-    (:func:`stft_backward_reference`)."""
+    gradient g of the output ``op`` describes. For a CUDA tensor, by
+    :func:`backward_route` (``_backward`` forces "dense" on any config, for
+    cross-checks and timing; a forced "fft" the config does not allow
+    raises): "fft", one launch of ``stft_fft_backward_kernel``
+    (:func:`frames_backward_fft`); "dense", one launch of the route's
+    complex epilogue (X unscaled), then :func:`frames_backward` against
+    the folded matrices; then :func:`overlap_add`. For a CPU tensor the
+    plain version (:func:`stft_backward_reference`)."""
     cfg = op.cfg
-    consts = dft_constants(cfg, op.fs, x.device, op.band, op.out)
     if x.device.type == "cpu":
+        consts = dft_constants(cfg, op.fs, x.device, op.band, op.out)
         return stft_backward_reference(x, g, consts, cfg, op.out)
+    kind = _backward or backward_route(cfg)
+    if kind not in ("dense", backward_route(cfg)):
+        raise ValueError(f"no {kind!r} backward for nperseg {cfg.nperseg}, "
+                         f"nfft {cfg.nfft_}")
+    lo, hi = check_band(cfg, op.band)
     B, n = x.shape
     T = num_frames(n, cfg.nperseg, cfg.hop_)
-    if tuple(g.shape) != (B, T, consts.a_re.shape[1]):
-        raise ValueError(f"the STFT backward takes a ({B}, {T}, "
-                         f"{consts.a_re.shape[1]}) gradient, got "
-                         f"{tuple(g.shape)}")
+    if tuple(g.shape) != (B, T, hi - lo):
+        raise ValueError(f"the STFT backward takes a ({B}, {T}, {hi - lo}) "
+                         f"gradient, got {tuple(g.shape)}")
     if T <= 0:
         return torch.zeros_like(x)
-    X = _stft_psd_cuda(x, op.fs, cfg, False, False, op.kernel, band=op.band,
-                       out_mode="stft")
-    return overlap_add(frames_backward(g, X, consts, op.out), n, cfg.hop_)
+    if kind == "fft":
+        d = frames_backward_fft(g, x, cfg, op.fs, op.band, op.out)
+    else:
+        X = _stft_psd_cuda(x, op.fs, cfg, False, False, op.kernel,
+                           band=op.band, out_mode="stft")
+        d = frames_backward(g, X, dft_constants(cfg, op.fs, x.device,
+                                                op.band, op.out), op.out)
+    return overlap_add(d, n, cfg.hop_)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -893,6 +997,56 @@ def frames_backward(g: torch.Tensor, X: torch.Tensor, consts: DftConstants,
         raise RuntimeError("stft_backward kernel launch failed: "
                            + lib.stft_grad_error_string(err).decode())
     grad_launches["stft_backward"] += 1
+    return d
+
+
+def frames_backward_fft(g: torch.Tensor, x: torch.Tensor, cfg: SpecConfig,
+                        fs: float, band=None,
+                        out: Optional[str] = None) -> torch.Tensor:
+    """The frames' gradient (B, T, L) on the radix-2 route from the
+    output's gradient g (B, T, F) (the band's bins; complex64 for a
+    complex output, else float32) and the forward's uncentered float32
+    waveform x (B, n): one launch of ``stft_fft_backward_kernel`` for CUDA
+    tensors, X recomputed in registers, the FFT route's operands
+    (:func:`fft_constants`), no dense matrix; the plain version
+    (:func:`frames_backward_fft_reference`) for CPU tensors. A config off
+    the radix-2 route raises."""
+    out = out or cfg.mode
+    if x.device.type == "cpu":
+        return frames_backward_fft_reference(g, x, cfg, fs, band, out)
+    if backward_route(cfg) != "fft":
+        raise ValueError(f"nfft {cfg.nfft_} is not on the radix-2 route")
+    lo, hi = check_band(cfg, band)
+    B, n = x.shape
+    T = num_frames(n, cfg.nperseg, cfg.hop_)
+    want = torch.complex64 if out in ("complex", "stft") else torch.float32
+    if (x.dtype != torch.float32 or g.dtype != want
+            or tuple(g.shape) != (B, T, hi - lo)):
+        raise ValueError(f"the radix-2 backward takes a float32 (B, n) "
+                         f"waveform and a {want} ({B}, {T}, {hi - lo}) "
+                         f"gradient, got x {x.dtype}, g {g.dtype} "
+                         f"{tuple(g.shape)}")
+    if B * T > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} frames per launch, got "
+                         f"{B} clips x {T} frames")
+    d = torch.empty((B, T, cfg.nperseg), dtype=torch.float32, device=x.device)
+    if T <= 0:
+        return d
+    lib = _grad_library()
+    fc = fft_constants(cfg, fs, x.device, out)
+    g = g.resolve_conj().contiguous()
+    x = x.contiguous()
+    with torch.cuda.device(x.device):
+        err = lib.stft_fft_backward_launch(
+            x.data_ptr(), g.data_ptr(), fc.window.data_ptr(),
+            fc.twiddles.data_ptr(), fc.wts.data_ptr(), d.data_ptr(), B, n, T,
+            hi - lo, cfg.nfft_, cfg.nperseg, cfg.hop_,
+            DETREND_CODES[cfg.detrend], _out_mode(out), int(not cfg.onesided),
+            lo, _stream(x))
+    if err != 0:
+        raise RuntimeError("stft_fft_backward kernel launch failed: "
+                           + lib.stft_grad_error_string(err).decode())
+    grad_launches["stft_fft_backward"] += 1
     return d
 
 

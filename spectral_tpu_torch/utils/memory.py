@@ -4,13 +4,15 @@ Counterpart of ``spectral_tpu/utils/memory.py``: the same RSS reading,
 threshold and hysteresis; only what a trim drops differs. JAX caches one
 compiled executable per (program, shape); the port compiles nothing at
 run time, and what grows instead is its per-config caches: the STFT
-kernels' operands on each device (``ops/stft_cuda._CONSTANTS``, unbounded:
-a (nperseg, nfft // 2 + 1) float64 pair of matrices per config on the
-GEMM route, 33.6 MB at nperseg 1024 and nfft 4096), the host constants
-behind them (the ``lru_cache``s of ``core/stft.py`` and ``core/mel.py``)
-and the packed colormaps (``ops/colormap.py``), plus the blocks PyTorch's
+kernels' operands on each device (``ops/stft_cuda._CONSTANTS``, least
+recently used first out past ``stft_cuda.CONSTANTS_BUDGET`` bytes a
+device: a (nperseg, nfft // 2 + 1) float64 pair of matrices per config
+on the GEMM route and in the other routes' plain versions, 33.6 MB at
+nperseg 1024 and nfft 4096, 537 MB at 8192), the host constants behind
+them (the ``lru_cache``s of ``core/stft.py`` and ``core/mel.py``) and
+the packed colormaps (``ops/colormap.py``), plus the blocks PyTorch's
 CUDA allocator keeps for reuse. A worker serving ever-new configs grows
-through them.
+through them up to those bounds.
 
 ``maybe_trim_caches`` is the backstop: when RSS crosses a threshold it
 drops them all; the next call of each config rebuilds its constants (host

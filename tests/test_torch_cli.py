@@ -18,6 +18,7 @@ Tolerances:
 """
 
 import argparse
+import itertools
 import os
 import shlex
 import sys
@@ -30,7 +31,9 @@ torch = pytest.importorskip("torch")
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from spectral_tpu import cli as jcli  # noqa: E402
+from spectral_tpu.render import png as jpng  # noqa: E402
 from spectral_tpu_torch import cli as tcli  # noqa: E402
+from spectral_tpu_torch.render import png as tpng  # noqa: E402
 from spectral_tpu_torch.io.wav import write_wav  # noqa: E402
 from test_torch_export import _indices  # noqa: E402
 from test_torch_session import _bursty  # noqa: E402
@@ -56,9 +59,13 @@ def both(argv, capsys, tmp_path, cpu=True):
     side's own output directory; returns {"jax": ..., "torch": ...} of
     run()'s triples with each side's directory written back as "{d}"."""
     got = {}
-    for name, mod in (("jax", jcli), ("torch", tcli)):
+    for name, mod, png in (("jax", jcli, jpng), ("torch", tcli, tpng)):
         d = str(tmp_path / name)
         os.makedirs(d, exist_ok=True)
+        # a PNG's temporary name counts the process's PNG writes, which
+        # depend on the tests run before in this process: start both
+        # sides' counts at 0, so an error message naming it compares
+        png._tmp_counter = itertools.count()
         args = (["--cpu"] if cpu else []) + [a.replace("{d}", d)
                                              for a in argv]
         rc, out, err = run(mod, args, capsys)

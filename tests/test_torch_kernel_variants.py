@@ -1,8 +1,9 @@
-"""tools/torch_kernel_variants.py's table, held to the CUDA source on the
-CPU: each variant of each kernel is a textual edit that must match
-csrc/stft_psd.cu exactly once (the tool refuses to build one that does
-not), so a change to the source that leaves a variant behind shows here
-and not first on the card."""
+"""tools/torch_kernel_variants.py's table, held to the CUDA sources on the
+CPU: each variant of each kernel is a textual edit that must match its
+source (csrc/stft_psd.cu, or csrc/stft_grad.cu for the radix-2 backward)
+exactly once (the tool refuses to build one that does not), so a change
+to the source that leaves a variant behind shows here and not first on
+the card."""
 
 import os
 import sys
@@ -20,7 +21,8 @@ VARIANTS = [(kernel, name) for kernel, kern in tkv.KERNELS.items()
 
 @pytest.mark.parametrize("kernel,name", VARIANTS)
 def test_variant_edits_match_the_source_once(kernel, name):
-    with open(tkv.SOURCE) as fh:
+    source = os.path.join(tkv.CSRC, f"{tkv.KERNELS[kernel].source}.cu")
+    with open(source) as fh:
         src = fh.read()
     what, edits = tkv.KERNELS[kernel].variants[name]
     assert what and edits
@@ -39,13 +41,14 @@ def test_variant_source_refuses_a_stale_edit():
 
 def test_every_kernel_names_its_routes_and_configs():
     """The kernels the table times are the STFT/PSD route's FFT kernels,
-    the pass engine's Rader plans (the mixed route's and the odd route's)
-    and the GEMM route's small-K tile, each on configs of its own
-    routes."""
+    the pass engine's Rader plans (the mixed route's and the odd route's),
+    the GEMM route's small-K tile and the radix-2 route's backward, each
+    on configs of its own routes."""
     import importlib
     stft_cuda = importlib.import_module("spectral_tpu_torch.ops.stft_cuda")
     from spectral_tpu_torch import SpecConfig
-    assert set(tkv.KERNELS) == {"r2", "mixed", "conv", "rader", "small"}
+    assert set(tkv.KERNELS) == {"r2", "mixed", "conv", "rader", "small",
+                                "grad"}
     for kern in tkv.KERNELS.values():
         for k in kern.nperseg:
             assert stft_cuda.route(SpecConfig.scipy_default(k)) in kern.routes

@@ -319,10 +319,15 @@ def test_stft_grad_kernel_failure_propagates(monkeypatch):
     z = stft_cuda.stft_complex(x, FS, NS_256)
     with pytest.raises(RuntimeError, match="cannot build stft_grad"):
         torch.view_as_real(z).sum().backward()
-    # a launch that fails raises, naming the kernel
+    # a launch that fails raises, naming the kernel: the radix-2 route's
+    # adjoint, and stft_backward_kernel on the other routes
     monkeypatch.setattr(stft_cuda, "_grad_library", lambda: _FailingLib())
     _no_card(monkeypatch)
     p = stft_cuda.stft_psd_partials(x, FS, NS_256)[0]
+    with pytest.raises(RuntimeError, match="stft_fft_backward kernel launch "
+                                           "failed: invalid argument"):
+        p.sum().backward()
+    p = stft_cuda.stft_psd(x, FS, SpecConfig.scipy_default(24))
     with pytest.raises(RuntimeError, match="stft_backward kernel launch "
                                            "failed: invalid argument"):
         p.sum().backward()

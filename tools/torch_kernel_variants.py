@@ -10,7 +10,11 @@ KERNEL is one of KERNELS below: ``r2`` (the radix-2 kernel, C entry
 ``stft_odd_fft_psd_launch`` or ``stft_bluestein_psd_launch`` by the
 config's route), ``rader`` (the pass engine's Rader plans: the mixed
 route's, PACKED, through ``stft_mixed_fft_psd_launch``, and the odd
-route's) or ``small`` (the GEMM route's small-K tile, ``stft_psd_launch``). Builds ``spectral_tpu_torch/ops/csrc/stft_psd.cu`` as it
+route's) or ``small`` (the GEMM route's small-K tile, ``stft_psd_launch``),
+all in ``spectral_tpu_torch/ops/csrc/stft_psd.cu``; or ``grad`` (the
+radix-2 route's backward, ``stft_fft_backward_launch`` in
+``csrc/stft_grad.cu``, on a seeded gradient of the PSD). Builds the
+kernel's source as it
 stands ("this") and each of the kernel's variants, a textual edit of the
 same source that must match it exactly once, with the port's nvcc flags
 into ``build/kernel_variants/`` (gitignored), one nvcc a variant, all at
@@ -20,9 +24,10 @@ kernel's own (KERNELS), or scipy_default at each ``--nperseg`` on 1024
 clips of 10 s, each with the per-row extrema on. Each kernel runs in two
 rounds, the variants in turn, CUDA events, median of 5 after a warm-up;
 ``stft_psd`` itself, the wrapper, is timed beside them on the first
-config. A variant's PSD of the first 16 clips is compared with this
-build's: the design variants must be bitwise equal; the ablations
-("no_...") compute something else and only time a part.
+config. A variant's output (the PSD, or the backward's frames'
+gradient) of the first 16 clips is compared with this build's: the
+design variants must be bitwise equal; the ablations ("no_...") compute
+something else and only time a part.
 
 Needs one CUDA card. Prints one JSON line: the kernel, the card's name
 and power limit, each variant's ptxas registers and spills per
@@ -42,8 +47,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(ROOT, "spectral_tpu_torch", "ops", "csrc",
-                      "stft_psd.cu")
+CSRC = os.path.join(ROOT, "spectral_tpu_torch", "ops", "csrc")
+SOURCE = os.path.join(CSRC, "stft_psd.cu")
 OUT_DIR = os.path.join(ROOT, "build", "kernel_variants")
 FS = 16000.0
 REPS = 5
@@ -335,6 +340,38 @@ SMALL_VARIANTS = {
           "      (void)src;")]),
 }
 
+GRAD_VARIANTS = {
+    "regs128": (
+        "8 values a thread at 128 registers (no spills): half the warps an "
+        "SM holds",
+        [("static constexpr int MIN_BLOCKS = LR == 3 ? 2 : 1;",
+          "static constexpr int MIN_BLOCKS = 1;")]),
+    "no_forward": (
+        "ablation: no load and no forward passes (X from whatever the "
+        "buffer holds)",
+        [("  if (mode != OUT_COMPLEX) {\n    const float* frame =",
+          "  if (false) {\n    const float* frame =")]),
+    "no_inverse": (
+        "ablation: the inverse passes removed (the store reads pass 0's "
+        "values)",
+        [("  r2_sync<P>();\n  r2_pass<LOG2M, LR, 0>(v, tw, u);\n"
+          "  if constexpr (G::PASSES > 1)\n"
+          "    r2_exchange_pass<LOG2M, LR, 1>(v, buf, tw, fl, u);\n"
+          "  if constexpr (G::PASSES > 2)\n"
+          "    r2_exchange_pass<LOG2M, LR, 2>(v, buf, tw, fl, u);\n"
+          "  if constexpr (G::PASSES > 3)\n"
+          "    r2_exchange_pass<LOG2M, LR, 3>(v, buf, tw, fl, u);\n",
+          "  r2_sync<P>();\n")]),
+    "no_cotangent": (
+        "ablation: no g or weights read and no H (Z' from X alone)",
+        [("  if (band.has(f)) h = cotangent_of(X.x, X.y, g, w, row + f, f, "
+          "mode);",
+          "  h = X;"),
+         ("  if (two_sided && f > 0 && f < M && band.has(m)) {",
+          "  if (false) {")]),
+}
+
+
 def _r2_launch(stft_cuda, cfg, dev, a):
     c = stft_cuda.fft_constants(cfg, FS, dev)
     return lambda lib: lib.stft_fft_psd_launch(
@@ -371,6 +408,25 @@ def _rader_launch(stft_cuda, cfg, dev, a):
     return _mixed_launch(stft_cuda, cfg, dev, a)
 
 
+def _grad_launch(stft_cuda, cfg, dev, a):
+    """stft_fft_backward_launch on a seeded gradient of the PSD; the
+    frames' gradient d is the output compared."""
+    import torch
+    c = stft_cuda.fft_constants(cfg, FS, dev)
+    B, n, T, F, K, L, hop = a.shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g = torch.rand((B, T, F), generator=gen, device=dev)
+    d = torch.empty((B, T, L), device=dev)
+
+    def launch(lib):
+        return lib.stft_fft_backward_launch(
+            a.x, g.data_ptr(), c.window.data_ptr(), c.twiddles.data_ptr(),
+            c.wts.data_ptr(), d.data_ptr(), B, n, T, F, K, L, hop, a.detrend,
+            0, 0, 0, a.stream)
+    launch.output = d
+    return launch
+
+
 def _small_launch(stft_cuda, cfg, dev, a):
     c = stft_cuda.dft_constants(cfg, FS, dev)
     return lambda lib: lib.stft_psd_launch(
@@ -385,8 +441,11 @@ class Kernel:
                            # scipy_default on 256 clips of 60 s, path 1
                            # north_star nperseg/256 on 1024 clips of 10 s
     nperseg: tuple         # scipy_default on 1024 clips of 10 s
-    launch: object         # (stft_cuda, cfg, dev, args) -> launch(lib)
+    launch: object         # (stft_cuda, cfg, dev, args) -> launch(lib),
+                           # its ``output`` the tensor compared (else the
+                           # PSD)
     variants: dict
+    source: str = "stft_psd"   # csrc/<source>.cu
 
 
 KERNELS = {
@@ -429,6 +488,12 @@ KERNELS = {
          lambda e: (f"small<{e.group(2)}{', EXT' if e.group(3) == '1' else ''}"
                     ">") if e.group(2) else "large"),
         (), (2, 7, 13, 24, 31), _small_launch, SMALL_VARIANTS),
+    "grad": Kernel(
+        ("fft",),
+        (r"stft_fft_backward_kernelILi(\d+)ELi(\d+)E",
+         lambda e: f"LOG2M {e.group(1)}, {2 ** int(e.group(2))} values"),
+        (("path 1 north_star 1024/256", 1024, None),),
+        (32, 256, 2048, 8192), _grad_launch, GRAD_VARIANTS, "stft_grad"),
 }
 
 
@@ -448,6 +513,7 @@ def load(so):
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     out = [ptr] * 3 + [i32, i64]
     for entry, args in (
+            ("stft_fft_backward_launch", [ptr] * 6 + [i32, i64] + [i32] * 9),
             ("stft_psd_launch", [ptr] * 4 + out + [i32] * 7),
             ("stft_fft_psd_launch", [ptr] * 4 + out + [i32] * 10),
             ("stft_mixed_fft_psd_launch",
@@ -456,6 +522,8 @@ def load(so):
              [ptr] * 5 + [i32] * 2 + [ptr] + out + [i32] * 11),
             ("stft_bluestein_psd_launch",
              [ptr] * 4 + [i32] * 5 + [ptr] + out + [i32] * 10)):
+        if not hasattr(lib, entry):        # another source's entry
+            continue
         fn = getattr(lib, entry)
         fn.argtypes = args + [ptr]
         fn.restype = i32
@@ -492,7 +560,7 @@ def main(argv=None) -> None:
     nvcc = port_build.find_nvcc()
     if nvcc is None:
         raise SystemExit("torch_kernel_variants: nvcc not found")
-    with open(SOURCE) as fh:
+    with open(os.path.join(CSRC, f"{kern.source}.cu")) as fh:
         this_src = fh.read()
     names = ["this"] + list(args.only or kern.variants)
     t0 = time.perf_counter()
@@ -502,12 +570,12 @@ def main(argv=None) -> None:
                variant_source(this_src, kern.variants[name][1], name))
         folder = os.path.join(OUT_DIR, args.kernel, name)
         os.makedirs(folder, exist_ok=True)
-        cu = os.path.join(folder, "stft_psd.cu")
+        cu = os.path.join(folder, f"{kern.source}.cu")
         with open(cu, "w") as fh:
             fh.write(src)
         procs[name] = subprocess.Popen(
             [nvcc, *port_build.NVCC_FLAGS, "-o",
-             os.path.join(folder, "libstft_psd.so"), cu],
+             os.path.join(folder, f"lib{kern.source}.so"), cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, regs = {}, {}
     for name, proc in procs.items():
@@ -515,7 +583,7 @@ def main(argv=None) -> None:
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{log}")
         libs[name] = load(os.path.join(OUT_DIR, args.kernel, name,
-                                       "libstft_psd.so"))
+                                       f"lib{kern.source}.so"))
         regs[name] = radix2_ptxas(log, *kern.ptxas)
     print(f"built {len(names)} variants in {time.perf_counter() - t0:.1f} "
           f"s; ptxas {regs}", flush=True)
@@ -582,6 +650,7 @@ def main(argv=None) -> None:
 
         checked(libs["this"])
         torch.cuda.synchronize()
+        out = getattr(launch, "output", out)
         want = out[:16].clone()
         row = {}
         for rnd in range(2):
@@ -589,8 +658,8 @@ def main(argv=None) -> None:
                 ms = timed(lambda: checked(libs[name]))
                 entry = row.setdefault(name, {"ms": []})
                 entry["ms"].append(ms)
-                entry["same_psd"] = bool(torch.equal(out[:16], want))
-        if i == 0:
+                entry["same_output"] = bool(torch.equal(out[:16], want))
+        if i == 0 and kern.source == "stft_psd":
             row["stft_psd (wrapper)"] = {"ms": [timed(
                 lambda: stft_cuda.stft_psd(x, FS, cfg, with_stats=True))]}
         report["configs"][label] = row

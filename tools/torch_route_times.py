@@ -49,9 +49,17 @@ of paths 1-11 (path 3: one export batch, 64 clips of 10 s, palette words
 and no image, as ``export_spectrograms`` calls it), or of the paths
 numbered: a single call between two events and a run of RUN calls over
 the count, median of 5, with digests of the first clips' PSD, words and
-flags. ``--dc`` reports the flags and PSD maxima of pure-DC clips (1e-4,
-3e-3, 0.1; 10 s) through the checkout's ``batched_spectrogram_fn`` at
-scipy_default 1024 and 8160 (constant detrend).
+flags; and path 21's training step (with no path named, or 21 named): the
+waveform of path 1's batch requiring grad, ``batched_spectrogram_fn`` at
+north_star 1024/256 log, the loss on the image and the PSD as
+``chip_smoke.py`` takes it, ``backward()`` and a synchronise, its wall ms
+on the host clock (median of 5 after a warm-up), the launches of a step,
+and a digest, the norm and the largest |entry| of the gradient of the
+first 8 clips (two checkouts whose backward sums in another order give
+other digests and norms equal to about 1e-7). ``--dc`` reports the
+flags and PSD maxima of pure-DC clips (1e-4, 3e-3, 0.1; 10 s) through
+the checkout's ``batched_spectrogram_fn`` at scipy_default 1024 and 8160
+(constant detrend).
 
 ``--ptxas`` builds the checkout's CUDA sources (``ops/csrc/<SOURCE>.cu``;
 every one when none is named) into a temporary directory and reports each
@@ -155,6 +163,47 @@ def time_pipelines(paths, report, SpecConfig, batch, dev):
             entry[key.replace("ms", "reps_ms")] = reps
         report[f"pipeline {name}"] = entry
         torch.cuda.empty_cache()
+    if not paths or 21 in paths:
+        time_grad_step(report, SpecConfig, batch)
+
+
+def time_grad_step(report, SpecConfig, batch):
+    """Path 21's training step on path 1's batch: the forward and the
+    backward through batched_spectrogram_fn, synchronised."""
+    import time
+    import torch
+    from spectral_tpu_torch.ops import stft_cuda
+    from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
+    cfg = SpecConfig.north_star(1024, 256, log_scale=True)
+    x0 = batch(CLIPS, SECONDS)
+    fn = batched_spectrogram_fn(FS, cfg, flip_image=True)
+    with torch.no_grad():
+        scale = float(fn(x0)["psd"].mean())
+
+    def step():
+        x = x0.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(x)
+        (out["image"].mean() + out["psd"].mean() / scale).backward()
+        torch.cuda.synchronize()
+        return x.grad, 1e3 * (time.perf_counter() - t0)
+
+    print("pipeline path 21 training step", file=sys.stderr, flush=True)
+    counts = (stft_cuda.launches, stft_cuda.grad_launches)
+    before = [dict(c) for c in counts]
+    grad = step()[0][:8]                         # build, warm up
+    launches = {k: c[k] - b.get(k, 0) for c, b in zip(counts, before)
+                for k in c if c[k] != b.get(k, 0)}
+    entry = {"batch": [CLIPS, SECONDS], "grad_sha256": _digest(grad),
+             "grad_norm": float(grad.double().norm()),
+             "grad_absmax": float(grad.abs().amax()), "launches": launches}
+    del grad
+    reps = [step()[1] for _ in range(REPS)]
+    entry["ms"] = sorted(reps)[REPS // 2]
+    entry["reps_ms"] = reps
+    report["pipeline path 21 training step"] = entry
+    torch.cuda.empty_cache()
 
 
 def ptxas_report(names):
@@ -223,7 +272,8 @@ def main(argv=None) -> None:
                     help="replace each config's detrend")
     ap.add_argument("--pipelines", type=int, nargs="*",
                     help="time batched_spectrogram_fn on paths 1-11's "
-                         "batches, or the paths numbered")
+                         "batches and path 21's training step, or the "
+                         "paths numbered")
     ap.add_argument("--ptxas", nargs="*",
                     help="each kernel's registers and spills, building "
                          "these sources (all when none is named)")
