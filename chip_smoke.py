@@ -6,7 +6,8 @@
 Needs one CUDA card and nvcc; run it from the root of a checkout. It
 builds every kernel of the port's paths from the sources in the checkout
 (``csrc/stft_psd.cu``, ``csrc/display.cu``, ``csrc/mel.cu``,
-``csrc/hmm.cu`` and ``csrc/stft_grad.cu``, one nvcc each, started
+``csrc/hmm.cu``, ``csrc/stft_grad.cu`` and ``csrc/stft_grad_mixed.cu``,
+one nvcc each, started
 together, beside the native PNG
 encoder's g++ build, which must succeed too) and holds each kernel
 against its plain PyTorch version on the card: the STFT/PSD kernel's five routes (the FFT kernel at power-of-two
@@ -224,22 +225,31 @@ the host has no matplotlib, one line that says so; and
     gradient on GRAD_CLIPS clips held within GRAD_TOL of the clip's
     largest |gradient| to the plain backward on the card;
     ``power_spectrogram`` and ``stft`` on 10 minutes at 48 kHz (path 16's
-    config) the same way; ``power_spectrogram`` at scipy_default 8160 on
-    the mixed route (one recompute of X by its complex epilogue, then
-    ``stft_backward_kernel``); each backward kernel timed against its
-    plain version, its bound and its library call (the backward of
-    ``library_psd`` under autograd for the STFT's, ``F.fold`` for the
-    overlap-add, ``torch.matmul`` in float64 for the mel projection's),
-    ``stft_backward_kernel`` forced at path 1's shapes. No cache is
-    trimmed before it: the device operands' cache is bounded. Before it,
-    phase ``grad`` holds the STFT backward to its plain version on every
-    route (radix-2 at 32, 1024 and 8192, mixed, odd, Bluestein on one
-    block and on a cluster, GEMM, nfft past nperseg, two-sided,
-    magnitude, complex, unscaled, a band, centered, linear detrend, T =
-    0), each radix-2 case also to the plain FFT adjoint and to
-    ``stft_backward_kernel`` forced, with no recompute launch and no
-    dense operands built, and the mel and display backward at paths 12's
-    and 1's shapes (tied extrema, share_max, linear and log, flipped).
+    config) the same way; ``power_spectrogram`` on 8 clips of 60 s at
+    scipy_default 8160 (the mixed route, ``stft_mixed_fft_backward_kernel``),
+    8186 (its Rader plan, the odd kernel's PACKED form) and 8191 (the odd
+    route, ``stft_odd_fft_backward_kernel``), one forward launch and one
+    backward launch each, X recomputed inside, and 8182 (the Bluestein
+    route: one recompute of X by its complex epilogue, then
+    ``stft_backward_kernel``); one SGD step at path 4's
+    config on its full batch (256 x 60 s at scipy_default 8160 log);
+    each backward kernel timed against its plain version, its bound and
+    its library call (the backward of ``library_psd`` under autograd for
+    the STFT's, ``F.fold`` for the overlap-add, ``torch.matmul`` in
+    float64 for the mel projection's), ``stft_backward_kernel`` (B1)
+    forced at path 1's shapes, and the mixed and odd adjoints at paths 4,
+    7 and 11's shapes beside B1 forced there. No cache is trimmed before
+    it: the device operands' cache is bounded. Before it, phase ``grad``
+    holds the STFT backward to its plain version on every route (radix-2
+    at 32, 1024 and 8192, mixed at 992, 8032 and 8160, the mixed route's
+    Rader plans at 1006 and 8186, odd at 1023, 8191 (Rader) and with T
+    odd, Bluestein on one block and on a cluster, GEMM, nfft past
+    nperseg, two-sided, magnitude, complex, unscaled, a band, centered,
+    linear detrend, T = 0), each radix-2, mixed and odd case also to the
+    plain FFT adjoint and to ``stft_backward_kernel`` forced, with no
+    recompute launch and no dense operands built, and the mel and display
+    backward at paths 12's and 1's shapes (tied extrema, share_max,
+    linear and log, flipped).
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
@@ -618,10 +628,11 @@ def build_kernels():
     native = subprocess.Popen(
         [sys.executable, "-m", "spectral_tpu_torch.native.build"], cwd=HERE,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    with ThreadPoolExecutor(5) as pool:
-        info, tail, mel, hmm_lib, grad = pool.map(
+    with ThreadPoolExecutor(6) as pool:
+        info, tail, mel, hmm_lib, grad, grad_mixed = pool.map(
             build.build_library,
-            ("stft_psd", "display", "mel", "hmm", "stft_grad"))
+            ("stft_psd", "display", "mel", "hmm", "stft_grad",
+             "stft_grad_mixed"))
     out, err = native.communicate(timeout=300)
     require(native.returncode == 0,
             f"the native PNG encoder did not build (it needs g++ and zlib's "
@@ -629,7 +640,7 @@ def build_kernels():
     from spectral_tpu_torch.native import build as native_build
     from spectral_tpu_torch.native import png_native
     require(png_native.available(), "the native PNG encoder does not load")
-    print(f"the five sources and the native PNG encoder built side by side "
+    print(f"the six sources and the native PNG encoder built side by side "
           f"in {time.perf_counter() - t0:.2f} s: "
           f"{os.path.relpath(native_build.lib_path('libspectpu_png.so'), HERE)}")
     print(f"hmm.cu -> {os.path.relpath(hmm_lib['path'], HERE)} in "
@@ -644,6 +655,17 @@ def build_kernels():
               f"stft_fft_backward<LOG2M {e.group(2)}, "
               f"{2 ** int(e.group(3))} values>")))
     build.load_library("stft_grad")
+    print(f"stft_grad_mixed.cu -> "
+          f"{os.path.relpath(grad_mixed['path'], HERE)} in "
+          f"{grad_mixed['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
+              grad_mixed["log"],
+              r"stft_(mixed_fft_backward_kernelILi(\d+)E|odd_fft_backward_"
+              r"kernelILb(\d)ELi(\d+)ELb(\d)E)",
+              lambda e: f"stft_mixed_fft_backward<RMAX {e.group(2)}>"
+              if e.group(2) is not None else
+              f"stft_odd_fft_backward<RADER {e.group(3)}, RMAX "
+              f"{e.group(4)}, PACKED {e.group(5)}>")))
+    build.load_library("stft_grad_mixed")
     print(f"mel.cu -> {os.path.relpath(mel['path'], HERE)} in "
           f"{mel['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
               mel["log"], r"(mel_project_kernel|mel_backward_kernel)",
@@ -5051,17 +5073,22 @@ def grad_counts_moved(before, after):
 
 def grad_kernel_cases(dev):
     """Phase grad: the STFT backward through ``loss.backward()`` of the
-    kernels' entry points, by ``backward_route``: on the radix-2 route
-    stft_fft_backward_kernel (X recomputed in registers: no launch of the
-    forward's complex epilogue and no dense operands built), on the others
-    stft_backward_kernel after one launch of the route's complex epilogue;
-    overlap_add_kernel after both. Each held per clip within GRAD_TOL to
-    the plain dense backward on the same card, and each radix-2 case also
+    kernels' entry points, by ``backward_route``: on the radix-2, mixed
+    and odd routes the route's FFT adjoint (stft_fft_backward_kernel,
+    stft_mixed_fft_backward_kernel, stft_odd_fft_backward_kernel, the
+    latter's PACKED form on the mixed route's Rader plans; X recomputed
+    inside: no launch of the forward's complex epilogue and no dense
+    operands built), on the Bluestein and GEMM routes stft_backward_kernel
+    after one launch of the route's complex epilogue; overlap_add_kernel
+    after both. Each held per clip within GRAD_TOL to the plain dense
+    backward on the same card, and each radix-2, mixed and odd case also
     to the plain FFT adjoint and to stft_backward_kernel forced on it. The
-    configs: radix-2 32, 1024 and 8192, mixed 992 and 8160, odd 1023,
-    Bluestein 2049 and 8185 (a cluster), GEMM 24, nfft 4096 over nperseg
-    1024, two-sided, magnitude, the complex STFT scaled and unscaled, a
-    0-30 Hz band at 1 kHz, centered (reflect), linear detrend, T = 0; then
+    configs: radix-2 32, 1024 and 8192, mixed 992, 8032 and 8160, the
+    mixed route's Rader plans 1006 and 8186, odd 1023, 8191 (Rader) and
+    33 with T odd, Bluestein 2049 and 8185 (a cluster), GEMM 24, nfft 4096
+    over nperseg 1024, two-sided, magnitude, the complex STFT scaled and
+    unscaled, a 0-30 Hz band at 1 kHz, centered (reflect), linear detrend,
+    T = 0; then
     the mel backward at path 12's shapes and the display backward at path
     1's and path 12's (log and linear, flipped, share_max, tied extrema),
     each against its plain version."""
@@ -5083,7 +5110,21 @@ def grad_kernel_cases(dev):
         ("radix-2 8192", SpecConfig.scipy_default(8192), FS, "psd", None),
         ("mixed 992", SpecConfig.scipy_default(992), FS, "psd", None),
         ("mixed 8160", SpecConfig.scipy_default(8160), FS, "psd", None),
+        ("mixed 8032 (p = 251)", SpecConfig.scipy_default(8032), FS, "psd",
+         None),
+        ("mixed Rader 1006", SpecConfig.scipy_default(1006), FS, "psd",
+         None),
+        ("mixed Rader 8186", SpecConfig.scipy_default(8186), FS, "psd",
+         None),
         ("odd 1023", SpecConfig.scipy_default(1023), FS, "psd", None),
+        ("odd Rader 8191", SpecConfig.scipy_default(8191), FS, "psd", None),
+        ("odd 33, T odd", SpecConfig.scipy_default(33), FS, "psd", None),
+        ("odd 1023 two-sided magnitude", dataclasses.replace(
+            SpecConfig.scipy_default(1023), onesided=False,
+            mode="magnitude"), FS, "psd", None),
+        ("odd Rader 8191 linear", dataclasses.replace(
+            SpecConfig.scipy_default(8191), detrend="linear"), FS, "psd",
+         None),
         ("Bluestein 2049", SpecConfig.scipy_default(2049), FS, "psd", None),
         ("Bluestein 8185 (cluster)", SpecConfig.scipy_default(8185), FS,
          "psd", None),
@@ -5119,9 +5160,12 @@ def grad_kernel_cases(dev):
             return dxp
         return torch.autograd.grad(xp, x, dxp, retain_graph=True)[0]
 
+    fft_kinds = ("fft", "mixed", "odd")
     for label, cfg, fs, kind, band in cases:
         k = cfg.nperseg
         n = 6 * k + 123                      # a tail past the last frame
+        if "T odd" in label:                 # 7 frames: the last alone
+            n = k + 6 * cfg.hop_ + 5
         x = torch.from_numpy(rs.randn(3, n).astype(np.float32)).to(dev)
         x.requires_grad_()
         out = cfg.mode if kind == "psd" else kind
@@ -5141,12 +5185,12 @@ def grad_kernel_cases(dev):
         dx, = torch.autograd.grad(y, x, g)
         torch.cuda.synchronize()
         moved = grad_counts_moved(before, flat_counts(read_counts()))
-        if back == "fft":
+        if back in fft_kinds:
             # no recompute launch, no dense operands
-            want_moved = {"stft_fft": 1, "stft_fft_backward": 1,
+            want_moved = {f"stft_{route}": 1, f"stft_{back}_backward": 1,
                           "overlap_add": 1}
             require(not dense_keys() - keys,
-                    f"grad {label}: the radix-2 backward built dense "
+                    f"grad {label}: the {back} backward built dense "
                     f"operands {dense_keys() - keys}")
         else:
             want_moved = {f"stft_{route}": 2, "stft_backward": 1,
@@ -5162,7 +5206,7 @@ def grad_kernel_cases(dev):
                 f"largest |gradient|")
         T = num_frames(xp.shape[-1], k, cfg.hop_)
         note = ""
-        if back == "fft":
+        if back in fft_kinds:
             # the plain FFT adjoint, and stft_backward_kernel forced
             fft_plain = stft_cuda.overlap_add_reference(
                 stft_cuda.frames_backward_fft_reference(g, xd, cfg, fs, band,
@@ -5179,7 +5223,8 @@ def grad_kernel_cases(dev):
             note = (f"; {rel_f:.2e} from the plain FFT adjoint, {rel_b:.2e} "
                     f"from stft_backward_kernel forced")
         print(f"{label} [{route}, backward {back}"
-              f"{'' if back == 'fft' else ': stft_backward_kernel (B1)'}]: "
+              f"{'' if back in fft_kinds else ': stft_backward_kernel (B1)'}"
+              f"]: "
               f"{rel:.2e} of the clip's largest |gradient| from the plain "
               f"dense backward ({err:.3e} abs){note}, 3 clips x {T} frames; "
               f"launches {moved}")
@@ -5190,8 +5235,8 @@ def grad_kernel_cases(dev):
     dx, = torch.autograd.grad(y, x, torch.zeros_like(y))
     moved = grad_counts_moved(before, flat_counts(read_counts()))
     require(y.shape[1] == 0 and bool((dx == 0).all())
-            and "stft_backward" not in moved
-            and "stft_fft_backward" not in moved, f"grad T = 0: {moved}")
+            and not any(k.endswith("backward") for k in moved),
+            f"grad T = 0: {moved}")
 
     # the mel backward at path 12's shapes: 8 clips x 622 frames, 513 bins,
     # 128 mels; an inf gradient of one mel row (NaN outside its span)
@@ -5278,12 +5323,19 @@ def grad_path(dev, card):
     gradient on GRAD_CLIPS clips held within GRAD_TOL of the plain
     backward on the card; then ``power_spectrogram`` and ``stft`` on 10
     minutes at 48 kHz (path 16's config) the same way, and
-    ``power_spectrogram`` at scipy_default 8160 (path 4's config, the
-    mixed route: the complex epilogue's recompute and
-    stft_backward_kernel) on 8 clips of 60 s; each backward kernel timed
-    at path 1's and path 12's shapes against its plain version, its bound
-    and its library call, stft_backward_kernel forced there. No cache is
-    trimmed first: the device operands' cache is bounded
+    ``power_spectrogram`` on 8 clips of 60 s at scipy_default 8160 (path
+    4's config, the mixed route: stft_mixed_fft_backward_kernel), 8186
+    (path 11's, its Rader plan: the odd kernel's PACKED form) and 8191
+    (path 7's, the odd route: stft_odd_fft_backward_kernel), one forward
+    and one backward launch each, and 8182 (path 9's, the Bluestein
+    route: its complex epilogue's recompute, then stft_backward_kernel);
+    one SGD step at path 4's config on its
+    whole batch (256 clips x 60 s, scipy_default 8160 log), checked on
+    GRAD_CLIPS clips; each backward kernel timed at path 1's and path
+    12's shapes against its plain version, its bound and its library
+    call, stft_backward_kernel (B1) forced there, and the mixed and odd
+    adjoints at paths 4, 7 and 11's shapes against theirs and B1 forced.
+    No cache is trimmed first: the device operands' cache is bounded
     (``stft_cuda.CONSTANTS_BUDGET``)."""
     import numpy as np
     import torch
@@ -5406,28 +5458,89 @@ def grad_path(dev, card):
               f"({err:.3e} abs); launches {moved}")
         del x, y, g, want
     del xh
-    # the mixed route: the complex epilogue's recompute, then
-    # stft_backward_kernel against the folded matrices
-    cfg4 = SpecConfig.scipy_default(MIXED_NPERSEG)
-    x = torch.randn((8, int(FS * K2_SECONDS)), generator=gen,
+    # the mixed route, its Rader plan and the odd route: one forward and
+    # one backward launch each, X recomputed inside the backward; the
+    # Bluestein route (path 9's config): B1 after the recompute of X
+    for k in (MIXED_NPERSEG, RADER_NPERSEG, ODD_NPERSEG,
+              BLUESTEIN_EVEN_NPERSEG):
+        cfgk = SpecConfig.scipy_default(k)
+        route, back = stft_cuda.route(cfgk), stft_cuda.backward_route(cfgk)
+        x = torch.randn((8, int(FS * K2_SECONDS)), generator=gen,
+                        device=dev).requires_grad_()
+        before = flat_counts(read_counts())
+        t0 = time.perf_counter()
+        y = power_spectrogram(x, FS, cfgk)
+        g = torch.rand(y.shape, generator=gen, device=dev)
+        y.backward(g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = grad_counts_moved(before, flat_counts(read_counts()))
+        want_moved = ({f"stft_{route}": 2, "stft_backward": 1,
+                       "overlap_add": 1} if back == "dense" else
+                      {f"stft_{route}": 1, f"stft_{back}_backward": 1,
+                       "overlap_add": 1})
+        require(moved == want_moved, f"path 21 {k}: {moved}")
+        want = stft_cuda.stft_backward_reference(
+            x.detach(), g, stft_cuda.dft_constants(cfgk, FS, dev), cfgk,
+            "psd")
+        rel, err = clip_rel(x.grad, want)
+        require(rel <= GRAD_TOL, f"path 21 {k}: {rel:.2e}")
+        print(f"power_spectrogram at scipy_default {k} ({route} route, "
+              f"backward {back}) on 8 x {K2_SECONDS:g} s "
+              f"({tuple(y.shape)}): {rel:.2e} of the clip's largest "
+              f"|gradient| from the plain backward ({err:.3e} abs); "
+              f"{wall * 1e3:.1f} ms forward + backward (host clock, "
+              f"synchronised, first call: the operands built); launches "
+              f"{moved}")
+        del x, y, g, want
+        torch.cuda.empty_cache()
+
+    # one SGD step at path 4's config on its whole batch
+    cfg4 = SpecConfig.scipy_default(MIXED_NPERSEG, log_scale=True)
+    n4 = int(FS * K2_SECONDS)
+    T4 = num_frames(n4, MIXED_NPERSEG, cfg4.hop_)
+    phase(f"path 21, an SGD step at path 4's config: {K2_CLIPS} clips x "
+          f"{K2_SECONDS:g} s, scipy_default {MIXED_NPERSEG} log")
+    fn4 = batched_spectrogram_fn(FS, cfg4, flip_image=True)
+    x = torch.randn((K2_CLIPS, n4), generator=gen,
                     device=dev).requires_grad_()
+    with torch.no_grad():
+        scale = float(fn4(x)["psd"].mean())
     before = flat_counts(read_counts())
-    y = stft_cuda.stft_psd(x, FS, cfg4)
-    g = torch.rand(y.shape, generator=gen, device=dev)
-    y.backward(g)
+    t0 = time.perf_counter()
+    out = fn4(x)
+    loss = out["image"].mean() + out["psd"].mean() / scale
+    loss.backward()
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     moved = grad_counts_moved(before, flat_counts(read_counts()))
-    require(moved == {"stft_mixed": 2, "stft_backward": 1, "overlap_add": 1},
-            f"path 21 mixed: {moved}")
+    want_moved = {"stft_mixed": 1, "clip_stats": 1, "rgba": 1,
+                  "display_backward": 1, "stft_mixed_backward": 1,
+                  "overlap_add": 1}
+    require(moved == want_moved, f"path 21 path-4 step: launches {moved}, "
+            f"want {want_moved}")
+    c = GRAD_CLIPS
+    shown = out["psd"].detach()[:c]
+    st = disp.clip_stats_reference(x.detach()[:c],
+                                   stft_cuda.row_partials(shown))
+    g_img = torch.full((c, shown.shape[2], T4), 1.0 / out["image"].numel(),
+                       device=dev)
+    d_shown = disp.display_backward_reference(
+        g_img, shown, st.params, log_scale=True, flip_image=True)
+    d_shown = d_shown + 1.0 / (out["psd"].numel() * scale)
     want = stft_cuda.stft_backward_reference(
-        x.detach(), g, stft_cuda.dft_constants(cfg4, FS, dev), cfg4, "psd")
-    rel, err = clip_rel(x.grad, want)
-    require(rel <= GRAD_TOL, f"path 21 mixed: {rel:.2e}")
-    print(f"power_spectrogram at scipy_default {MIXED_NPERSEG} (mixed route, "
-          f"backward dense) on 8 x {K2_SECONDS:g} s ({tuple(y.shape)}): "
-          f"{rel:.2e} of the clip's largest |gradient| from the plain "
-          f"backward ({err:.3e} abs); launches {moved}")
-    del x, y, g, want
+        x.detach()[:c], d_shown, stft_cuda.dft_constants(cfg4, FS, dev),
+        cfg4, "psd")
+    rel, err = clip_rel(x.grad[:c], want)
+    require(rel <= GRAD_TOL and bool(torch.isfinite(x.grad).all()),
+            f"path 21 path-4 step: {rel:.2e} of the clip's largest "
+            f"|gradient| from the plain backward")
+    print(f"path 4's config step: loss {float(loss.detach()):.7f}, |grad| "
+          f"{float(x.grad.norm()):.4e}, {wall * 1e3:.1f} ms forward + "
+          f"backward (host clock, synchronised); {c} clips {rel:.2e} of the "
+          f"clip's largest |gradient| from the plain backward ({err:.3e} "
+          f"abs); launches {moved}")
+    del x, out, loss, want, d_shown, g_img, shown
     torch.cuda.empty_cache()
     counts = flat_counts(read_counts())
     print(f"launches in this path's run: {counts}")
@@ -5533,12 +5646,95 @@ def grad_path(dev, card):
               f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'} ({note})")
         rows[key] = dict(launches=counts[key], err=err, ms=ms, plain_ms=pms,
                          bound=bound, library_ms=lib_ms)
+    rows.update(engine_backward_times(dev, card, gen, counts))
     print(json.dumps({"path21_times": {k: {kk: v[kk] for kk in
                                            ("ms", "plain_ms", "library_ms")}
                                        for k, v in rows.items()},
                       "card": card}))
     print(f"path 21 took {time.perf_counter() - t_path:.1f} s (the steps "
           f"and checks {t_steps:.1f} s)")
+    return rows
+
+
+def engine_backward_times(dev, card, gen, counts):
+    """The mixed and odd routes' FFT adjoints timed at paths 4, 7 and 11's
+    shapes (256 clips x 60 s at scipy_default 8160, 8191 and 8186), each
+    against its bound, its plain version (``frames_backward_fft_reference``
+    in chunks of 16 clips), stft_backward_kernel (B1) forced on the same
+    g and a recomputed X, and the library: the backward of
+    ``library_psd`` (cuFFT f64) under autograd, in chunks of 64 clips (one
+    batch's graph does not fit the card), the chunks' medians summed.
+    Returns the kernels-line rows of the mixed (8160) and odd (8191)
+    adjoints; 8186 (the PACKED form, counted as the mixed route's) is
+    printed."""
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.stft import num_frames
+    from spectral_tpu_torch.ops import stft_cuda
+
+    n = int(FS * K2_SECONDS)
+    x = torch.randn((K2_CLIPS, n), generator=gen, device=dev)
+    rows = {}
+    for key, k, path in (("stft_mixed_backward", MIXED_NPERSEG, 4),
+                         ("stft_odd_backward", ODD_NPERSEG, 7),
+                         (None, RADER_NPERSEG, 11)):
+        cfg = SpecConfig.scipy_default(k)
+        back = stft_cuda.backward_route(cfg)
+        frames = (stft_cuda.frames_backward_odd if back == "odd"
+                  else stft_cuda.frames_backward_mixed)
+        T, F = num_frames(n, k, cfg.hop_), cfg.n_freqs
+        R = K2_CLIPS * T
+        g = torch.rand((K2_CLIPS, T, F), generator=gen, device=dev)
+        d = frames(g, x, cfg, FS)
+        t = time_ms(lambda: frames(g, x, cfg, FS))
+        small = [slice(i, i + 16) for i in range(0, K2_CLIPS, 16)]
+        tp = time_ms(lambda: [stft_cuda.frames_backward_fft_reference(
+            g[c], x[c], cfg, FS) for c in small], reps=3)
+        rel, err = clip_rel(d[:GRAD_CLIPS],
+                            stft_cuda.frames_backward_fft_reference(
+                                g[:GRAD_CLIPS], x[:GRAD_CLIPS], cfg, FS))
+        X = stft_cuda._stft_psd_cuda(x, FS, cfg, False, False,
+                                     out_mode="stft")
+        consts = stft_cuda.dft_constants(cfg, FS, dev)
+        d1 = stft_cuda.frames_backward(g, X, consts, "psd")
+        rel1 = clip_rel(d, d1)[0]
+        require(rel <= GRAD_TOL and rel1 <= GRAD_TOL,
+                f"path {path}'s shapes, the {back} adjoint: {rel:.2e} from "
+                f"its plain version, {rel1:.2e} from stft_backward_kernel")
+        del d1
+        tb1 = time_ms(lambda: stft_cuda.frames_backward(g, X, consts, "psd"),
+                      reps=3)
+        del X, d
+        torch.cuda.empty_cache()
+        tl = 0.0
+        for c in [slice(i, i + 64) for i in range(0, K2_CLIPS, 64)]:
+            xl = x[c].clone().requires_grad_()
+            yl = library_psd(xl, cfg)
+            gc = g[c]
+            tl += time_ms(lambda: torch.autograd.grad(yl, xl, gc,
+                                                      retain_graph=True),
+                          reps=3)[0]
+            del xl, yl
+            torch.cuda.empty_cache()
+        bound = stft_fft_backward_bound(K2_CLIPS * n, R, F, k, k)
+        print(f"the {back} adjoint at path {path}'s shapes (scipy_default "
+              f"{k}, {K2_CLIPS} x {K2_SECONDS:g} s, {R} frames): {t[0]:.4f} "
+              f"ms [{card}] reps {t[1]}; bound {bound[0]:.4f} ms "
+              f"({bound[1]}); plain {tp[0]:.3f} ms; stft_backward_kernel "
+              f"(B1) forced {tb1[0]:.3f} ms; library {tl:.3f} ms (the "
+              f"backward of library_psd, cuFFT f64, autograd, 4 chunks of "
+              f"64 clips); {rel:.2e} of the clip's largest |d| from the "
+              f"plain version ({GRAD_CLIPS} clips), {rel1:.2e} from B1 (all "
+              f"clips)")
+        require(t[0] < tb1[0], f"the {back} adjoint at path {path}'s shapes "
+                f"is no faster than B1 forced")
+        if key:
+            rows[key] = dict(launches=counts[key], err=err, ms=t[0],
+                             plain_ms=tp[0], bound=bound, library_ms=tl,
+                             b1_ms=tb1[0])
+        del g
+        stft_cuda._CONSTANTS.clear()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -5704,7 +5900,9 @@ def main(_phases=None):
           f"epilogues: path 20 {rows['stft_magnitude']['launches']}, "
           f"{rows['stft_complex']['launches']}; the backward kernels' on "
           f"path 21: stft_fft_backward "
-          f"{rows['stft_fft_backward']['launches']}, stft_backward "
+          f"{rows['stft_fft_backward']['launches']}, stft_mixed_backward "
+          f"{rows['stft_mixed_backward']['launches']}, stft_odd_backward "
+          f"{rows['stft_odd_backward']['launches']}, stft_backward "
           f"{rows['stft_backward']['launches']}, "
           f"overlap_add {rows['overlap_add']['launches']}, mel_backward "
           f"{rows['mel_backward']['launches']}, display_backward "
@@ -5716,6 +5914,7 @@ def main(_phases=None):
     mel_src = "spectral_tpu_torch/ops/csrc/mel.cu"
     hmm_src = "spectral_tpu_torch/ops/csrc/hmm.cu"
     grad_src = "spectral_tpu_torch/ops/csrc/stft_grad.cu"
+    grad_mixed_src = "spectral_tpu_torch/ops/csrc/stft_grad_mixed.cu"
     # each row names the instantiation its path launches
     meta = {
         "stft_1024": ("stft_fft_psd<LOG2M 9, 8 values>, nperseg 1024 "
@@ -5810,11 +6009,28 @@ def main(_phases=None):
             "cuda", grad_src,
             "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
             "XLA's transposed DFT; no TPU kernel)"),
+        "stft_mixed_backward": (
+            "stft_mixed_fft_backward_kernel<RMAX 4>, the STFT's adjoint on "
+            "the mixed route (X recomputed on the mixed-radix passes, the "
+            "inverse by the passes in frequency), scipy_default 8160 on 256 "
+            "x 60 s (path 21, path 4's config; its Rader plans on "
+            "stft_odd_fft_backward_kernel<RADER 1, RMAX 1, PACKED>, "
+            "counted here)", "cuda", grad_mixed_src,
+            "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
+            "XLA's transposed DFT; no TPU kernel)"),
+        "stft_odd_backward": (
+            "stft_odd_fft_backward_kernel<RADER 1, RMAX 4>, the STFT's "
+            "adjoint on the odd route (two frames a transform where both "
+            "guards allow, the Rader transform twice), scipy_default 8191 "
+            "on 256 x 60 s (path 21, path 7's config)", "cuda",
+            grad_mixed_src,
+            "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
+            "XLA's transposed DFT; no TPU kernel)"),
         "stft_backward": (
-            "stft_backward_kernel, the STFT's adjoint (float64 tile) on the "
-            "other routes: scipy_default 8160, mixed (path 21); timed "
-            "forced at north_star 1024/256 on 1024 x 10 s", "cuda",
-            grad_src,
+            "stft_backward_kernel (B1), the STFT's adjoint (float64 tile) on "
+            "the Bluestein and GEMM routes: scipy_default 8182, Bluestein "
+            "(path 21); timed forced at north_star 1024/256 on 1024 x 10 s",
+            "cuda", grad_src,
             "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
             "XLA's transposed DFT; no TPU kernel)"),
         "overlap_add": (

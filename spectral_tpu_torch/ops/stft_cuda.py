@@ -121,16 +121,20 @@ kernel or raise; nothing falls back to another route.
 The gradient. A waveform that requires grad (with grad enabled) goes
 through an autograd Function (:class:`_StftGrad`) around the same
 launch, which saves only the waveform; its backward runs the kernels of
-``csrc/stft_grad.cu`` (their own library) by :func:`backward_route`. On
-the radix-2 route (``"fft"``) one launch of ``stft_fft_backward_kernel``
-recomputes X in registers on the forward's radix-2 engine, forms the
-cotangent H from the output's gradient and X (the PSD's 2 w g X, the
-magnitude's w g X / |X|, 0 at |X| = 0, the complex STFT's w g) and takes
-the transform's adjoint as a c2r transform, no dense matrix and no X in
-memory; on the other routes (``"dense"``) one launch of the route's
-complex epilogue recomputes X, then ``stft_backward_kernel`` takes the
-adjoint d = H A^T against the folded matrices. The framing's adjoint, an
-overlap-add in gather form, follows both. A CPU tensor takes the plain
+``csrc/stft_grad.cu`` and ``csrc/stft_grad_mixed.cu`` (each its own
+library) by :func:`backward_route`. On the radix-2, mixed and odd routes
+(``"fft"``, ``"mixed"``, ``"odd"``) one launch of the route's backward
+kernel (``stft_fft_backward_kernel``, ``stft_mixed_fft_backward_kernel``
+or, on the odd route and the mixed route's Rader plans,
+``stft_odd_fft_backward_kernel``) recomputes X on the forward's own
+engine, forms the cotangent H from the output's gradient and X (the
+PSD's 2 w g X, the magnitude's w g X / |X|, 0 at |X| = 0, the complex
+STFT's w g) and takes the transform's adjoint as a c2r transform on the
+same engine, no dense matrix and no X in memory; on the Bluestein and
+GEMM routes (``"dense"``) one launch of the route's complex epilogue
+recomputes X, then ``stft_backward_kernel`` takes the adjoint d = H A^T
+against the folded matrices. The framing's adjoint, an overlap-add in
+gather form, follows every route. A CPU tensor takes the plain
 backward (:func:`stft_backward_reference`, the same arithmetic as
 explicit torch). The partials and the extrema carry no gradient, and
 ``log10_out`` has none (it raises with a waveform that requires grad,
@@ -192,7 +196,9 @@ OUTPUT_MODES = {"psd": 0, "magnitude": 1, "complex": 2}
 # the backward's launches (csrc/stft_grad.cu), for run-time proof of the
 # gradient path; its recompute of X counts in ``launches``
 GRAD_KERNEL = "stft_grad"
+GRAD_MIXED_KERNEL = "stft_grad_mixed"
 grad_launches = {"stft_backward": 0, "stft_fft_backward": 0,
+                 "stft_mixed_backward": 0, "stft_odd_backward": 0,
                  "overlap_add": 0}
 # the bytes of device tensors the operand cache keeps a device: seven
 # configs' dense (8192, 4097) float64 pairs, the largest, fit
@@ -262,14 +268,23 @@ def route(cfg: SpecConfig) -> str:
     return "odd" if k % 2 else "mixed"
 
 
+# the routes whose backward recomputes X on the forward's own engine
+FFT_BACKWARD_ROUTES = ("fft", "mixed", "odd")
+
+
 def backward_route(cfg: SpecConfig) -> str:
     """The STFT backward's kernel for a supported config, a pure function
-    of it: ``"fft"`` (``stft_fft_backward_kernel``, X recomputed in
-    registers and the adjoint a c2r transform on the radix-2 engine) where
-    :func:`route` is ``"fft"``; ``"dense"`` (the route's complex epilogue,
-    then ``stft_backward_kernel`` against the folded matrices) for the
-    mixed, odd, Bluestein and GEMM routes."""
-    return "fft" if route(cfg) == "fft" else "dense"
+    of it: the forward's :func:`route` where it is ``"fft"``
+    (``stft_fft_backward_kernel``, the radix-2 engine), ``"mixed"``
+    (``stft_mixed_fft_backward_kernel``, the mixed-radix passes; its Rader
+    plans on ``stft_odd_fft_backward_kernel``'s PACKED form) or ``"odd"``
+    (``stft_odd_fft_backward_kernel``, the pass engine), each recomputing
+    X and taking the adjoint as a c2r transform on that engine;
+    ``"dense"`` (the route's complex epilogue, then
+    ``stft_backward_kernel`` against the folded matrices) for the
+    Bluestein and GEMM routes."""
+    r = route(cfg)
+    return r if r in FFT_BACKWARD_ROUTES else "dense"
 
 
 def _put(a, device, dtype: torch.dtype = torch.float64) -> torch.Tensor:
@@ -633,8 +648,10 @@ def frames_backward_reference(g: torch.Tensor, X: torch.Tensor,
 def frames_backward_fft_reference(g: torch.Tensor, x: torch.Tensor,
                                   cfg: SpecConfig, fs: float, band=None,
                                   out: Optional[str] = None) -> torch.Tensor:
-    """The plain version of ``stft_fft_backward_kernel``: the frames'
-    gradient (B, T, L) from the gradient g (B, T, F) of the output ``out``
+    """The plain version of the FFT adjoints (``stft_fft_backward_kernel``,
+    ``stft_mixed_fft_backward_kernel``, ``stft_odd_fft_backward_kernel``):
+    the frames' gradient (B, T, L) from the gradient g (B, T, F) of the
+    output ``out``
     (cfg.mode when None; "complex" or "stft" for the complex STFT) of the
     band's F bins, and the (uncentered) waveform x (B, n), in torch
     float64 by ``torch.fft``, rounded once to x's dtype, as the kernel
@@ -643,10 +660,11 @@ def frames_backward_fft_reference(g: torch.Tensor, x: torch.Tensor,
     (:func:`_cotangent_reference`) at the band's bins, 0 elsewhere, a
     two-sided spectrum's bins past nfft/2 folded onto their mirrors as
     conj H; the c2r adjoint d_v = K irfft(Y, K) with Y the folded H, its
-    interior bins at half weight; then the first L samples times the
-    window, less their mean or least-squares line (the detrend's
-    projection, its own transpose). For a power-of-two nfft from 32 to
-    8192 in the port (the radix-2 route), any even nfft here."""
+    interior bins at half weight (every bin past 0 for an odd nfft, which
+    has no Nyquist bin); then the first L samples times the window, less
+    their mean or least-squares line (the detrend's projection, its own
+    transpose). For nfft from 32 to 8192 on the radix-2, mixed and odd
+    routes in the port, any nfft here."""
     out = out or cfg.mode
     lo, hi = check_band(cfg, band)
     K, L = cfg.nfft_, cfg.nperseg
@@ -663,9 +681,10 @@ def frames_backward_fft_reference(g: torch.Tensor, x: torch.Tensor,
         g, torch.where(mirrored, Xb.conj(), Xb), wts, out))
     Y = torch.zeros(X.shape, dtype=torch.complex128, device=x.device)
     Y.index_add_(-1, onesided, torch.where(mirrored, h.conj(), h))
-    Y[..., 1:M] *= 0.5
-    Y[..., 0] = Y[..., 0].real
-    Y[..., M] = Y[..., M].real
+    Y[..., 1:(K + 1) // 2] *= 0.5
+    Y[..., 0].imag.zero_()
+    if K % 2 == 0:
+        Y[..., M].imag.zero_()
     d = K * torch.fft.irfft(Y, n=K)[..., :L] * w
     return _detrend_frames(d, cfg.detrend).to(x.dtype)
 
@@ -859,6 +878,29 @@ def _grad_library() -> ctypes.CDLL:
     return lib
 
 
+_GRAD_MIXED_LIB: list = []
+
+
+def _grad_mixed_library() -> ctypes.CDLL:
+    """The mixed and odd routes' backward kernels' library
+    (``csrc/stft_grad_mixed.cu``), built and loaded at first use, then
+    kept for the process."""
+    if _GRAD_MIXED_LIB:
+        return _GRAD_MIXED_LIB[0]
+    lib = build.load_library(GRAD_MIXED_KERNEL)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.stft_mixed_fft_backward_launch.argtypes = [ptr] * 6 + [
+        i32, i32, i32, ptr, ptr, i32, i64] + [i32] * 9 + [ptr]
+    lib.stft_mixed_fft_backward_launch.restype = i32
+    lib.stft_odd_fft_backward_launch.argtypes = [ptr] * 6 + [
+        i32, i32, ptr, ptr, i32, i64] + [i32] * 9 + [ptr]
+    lib.stft_odd_fft_backward_launch.restype = i32
+    lib.stft_grad_mixed_error_string.argtypes = [i32]
+    lib.stft_grad_mixed_error_string.restype = ctypes.c_char_p
+    _GRAD_MIXED_LIB.append(lib)
+    return lib
+
+
 class GradOp(NamedTuple):
     """What the forward computed, for its backward: the output ``out``
     ("psd" or "magnitude" by cfg.mode, "complex" scaled, "stft"
@@ -930,12 +972,14 @@ def stft_backward(x: torch.Tensor, g: torch.Tensor, op: GradOp,
     """The gradient of the (uncentered) waveform x (B, n) from the
     gradient g of the output ``op`` describes. For a CUDA tensor, by
     :func:`backward_route` (``_backward`` forces "dense" on any config, for
-    cross-checks and timing; a forced "fft" the config does not allow
-    raises): "fft", one launch of ``stft_fft_backward_kernel``
-    (:func:`frames_backward_fft`); "dense", one launch of the route's
-    complex epilogue (X unscaled), then :func:`frames_backward` against
-    the folded matrices; then :func:`overlap_add`. For a CPU tensor the
-    plain version (:func:`stft_backward_reference`)."""
+    cross-checks and timing; a forced FFT adjoint the config does not
+    allow raises): "fft", "mixed" or "odd", one launch of the route's FFT
+    adjoint (:func:`frames_backward_fft`, :func:`frames_backward_mixed`,
+    :func:`frames_backward_odd`), X recomputed inside it; "dense", one
+    launch of the route's complex epilogue (X unscaled), then
+    :func:`frames_backward` against the folded matrices; then
+    :func:`overlap_add`. For a CPU tensor the plain version
+    (:func:`stft_backward_reference`)."""
     cfg = op.cfg
     if x.device.type == "cpu":
         consts = dft_constants(cfg, op.fs, x.device, op.band, op.out)
@@ -952,8 +996,10 @@ def stft_backward(x: torch.Tensor, g: torch.Tensor, op: GradOp,
                          f"gradient, got {tuple(g.shape)}")
     if T <= 0:
         return torch.zeros_like(x)
-    if kind == "fft":
-        d = frames_backward_fft(g, x, cfg, op.fs, op.band, op.out)
+    if kind in FFT_BACKWARD_ROUTES:
+        frames = {"fft": frames_backward_fft, "mixed": frames_backward_mixed,
+                  "odd": frames_backward_odd}[kind]
+        d = frames(g, x, cfg, op.fs, op.band, op.out)
     else:
         X = _stft_psd_cuda(x, op.fs, cfg, False, False, op.kernel,
                            band=op.band, out_mode="stft")
@@ -1000,6 +1046,74 @@ def frames_backward(g: torch.Tensor, X: torch.Tensor, consts: DftConstants,
     return d
 
 
+# the FFT adjoints' names in messages
+_ROUTE_NAMES = {"fft": "radix-2", "mixed": "mixed", "odd": "odd"}
+
+
+def _frames_backward_engine(g: torch.Tensor, x: torch.Tensor,
+                            cfg: SpecConfig, fs: float, band, out: str,
+                            kind: str) -> torch.Tensor:
+    """One launch of the FFT adjoint of route ``kind`` ("fft", "mixed" or
+    "odd") for CUDA tensors, on the forward's operands
+    (:func:`fft_constants`, :func:`mixed_constants`); the plain version
+    for CPU tensors. A config off that route raises."""
+    if x.device.type == "cpu":
+        return frames_backward_fft_reference(g, x, cfg, fs, band, out)
+    name = _ROUTE_NAMES[kind]
+    if backward_route(cfg) != kind:
+        raise ValueError(f"nfft {cfg.nfft_} is not on the {name} route")
+    lo, hi = check_band(cfg, band)
+    B, n = x.shape
+    T = num_frames(n, cfg.nperseg, cfg.hop_)
+    want = torch.complex64 if out in ("complex", "stft") else torch.float32
+    if (x.dtype != torch.float32 or g.dtype != want
+            or tuple(g.shape) != (B, T, hi - lo)):
+        raise ValueError(f"the {name} backward takes a float32 (B, n) "
+                         f"waveform and a {want} ({B}, {T}, {hi - lo}) "
+                         f"gradient, got x {x.dtype}, g {g.dtype} "
+                         f"{tuple(g.shape)}")
+    if B * T > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} frames per launch, got "
+                         f"{B} clips x {T} frames")
+    d = torch.empty((B, T, cfg.nperseg), dtype=torch.float32, device=x.device)
+    if T <= 0:
+        return d
+    g = g.resolve_conj().contiguous()
+    x = x.contiguous()
+    sizes = (B, n, T, hi - lo, cfg.nfft_, cfg.nperseg, cfg.hop_,
+             DETREND_CODES[cfg.detrend], _out_mode(out), int(not cfg.onesided),
+             lo)
+    if kind == "fft":
+        lib = _grad_library()
+        fc = fft_constants(cfg, fs, x.device, out)
+        args = (x.data_ptr(), g.data_ptr(), fc.window.data_ptr(),
+                fc.twiddles.data_ptr(), fc.wts.data_ptr(), d.data_ptr(),
+                *sizes)
+        launch = lib.stft_fft_backward_launch
+        errors = lib.stft_grad_error_string
+    else:
+        lib = _grad_mixed_library()
+        mc = mixed_constants(cfg, fs, x.device, out)
+        args = (x.data_ptr(), g.data_ptr(), mc.window.data_ptr(),
+                mc.perm.data_ptr(), mc.twiddles.data_ptr(),
+                mc.stages.ctypes.data, len(mc.stages))
+        if kind == "mixed":
+            args += (mc.split, mc.rader, mc.wts.data_ptr(), d.data_ptr(),
+                     *sizes)
+            launch = lib.stft_mixed_fft_backward_launch
+        else:
+            args += (mc.rader, mc.wts.data_ptr(), d.data_ptr(), *sizes)
+            launch = lib.stft_odd_fft_backward_launch
+        errors = lib.stft_grad_mixed_error_string
+    with torch.cuda.device(x.device):
+        err = launch(*args, _stream(x))
+    if err != 0:
+        raise RuntimeError(f"stft_{kind}_backward kernel launch failed: "
+                           + errors(err).decode())
+    grad_launches[f"stft_{kind}_backward"] += 1
+    return d
+
+
 def frames_backward_fft(g: torch.Tensor, x: torch.Tensor, cfg: SpecConfig,
                         fs: float, band=None,
                         out: Optional[str] = None) -> torch.Tensor:
@@ -1011,43 +1125,35 @@ def frames_backward_fft(g: torch.Tensor, x: torch.Tensor, cfg: SpecConfig,
     (:func:`fft_constants`), no dense matrix; the plain version
     (:func:`frames_backward_fft_reference`) for CPU tensors. A config off
     the radix-2 route raises."""
-    out = out or cfg.mode
-    if x.device.type == "cpu":
-        return frames_backward_fft_reference(g, x, cfg, fs, band, out)
-    if backward_route(cfg) != "fft":
-        raise ValueError(f"nfft {cfg.nfft_} is not on the radix-2 route")
-    lo, hi = check_band(cfg, band)
-    B, n = x.shape
-    T = num_frames(n, cfg.nperseg, cfg.hop_)
-    want = torch.complex64 if out in ("complex", "stft") else torch.float32
-    if (x.dtype != torch.float32 or g.dtype != want
-            or tuple(g.shape) != (B, T, hi - lo)):
-        raise ValueError(f"the radix-2 backward takes a float32 (B, n) "
-                         f"waveform and a {want} ({B}, {T}, {hi - lo}) "
-                         f"gradient, got x {x.dtype}, g {g.dtype} "
-                         f"{tuple(g.shape)}")
-    if B * T > MAX_ROWS:
-        raise ValueError(f"at most {MAX_ROWS} frames per launch, got "
-                         f"{B} clips x {T} frames")
-    d = torch.empty((B, T, cfg.nperseg), dtype=torch.float32, device=x.device)
-    if T <= 0:
-        return d
-    lib = _grad_library()
-    fc = fft_constants(cfg, fs, x.device, out)
-    g = g.resolve_conj().contiguous()
-    x = x.contiguous()
-    with torch.cuda.device(x.device):
-        err = lib.stft_fft_backward_launch(
-            x.data_ptr(), g.data_ptr(), fc.window.data_ptr(),
-            fc.twiddles.data_ptr(), fc.wts.data_ptr(), d.data_ptr(), B, n, T,
-            hi - lo, cfg.nfft_, cfg.nperseg, cfg.hop_,
-            DETREND_CODES[cfg.detrend], _out_mode(out), int(not cfg.onesided),
-            lo, _stream(x))
-    if err != 0:
-        raise RuntimeError("stft_fft_backward kernel launch failed: "
-                           + lib.stft_grad_error_string(err).decode())
-    grad_launches["stft_fft_backward"] += 1
-    return d
+    return _frames_backward_engine(g, x, cfg, fs, band, out or cfg.mode,
+                                   "fft")
+
+
+def frames_backward_mixed(g: torch.Tensor, x: torch.Tensor, cfg: SpecConfig,
+                          fs: float, band=None,
+                          out: Optional[str] = None) -> torch.Tensor:
+    """The frames' gradient (B, T, L) on the mixed route, as
+    :func:`frames_backward_fft`: one launch of
+    ``stft_mixed_fft_backward_kernel`` (a Rader plan:
+    ``stft_odd_fft_backward_kernel``'s PACKED form) for CUDA tensors, X
+    recomputed on the mixed route's engine, its operands
+    (:func:`mixed_constants`), no dense matrix; the plain version for CPU
+    tensors. A config off the mixed route raises."""
+    return _frames_backward_engine(g, x, cfg, fs, band, out or cfg.mode,
+                                   "mixed")
+
+
+def frames_backward_odd(g: torch.Tensor, x: torch.Tensor, cfg: SpecConfig,
+                        fs: float, band=None,
+                        out: Optional[str] = None) -> torch.Tensor:
+    """The frames' gradient (B, T, L) on the odd route, as
+    :func:`frames_backward_mixed`: one launch of
+    ``stft_odd_fft_backward_kernel`` for CUDA tensors, two frames of a
+    clip a block, paired in the recompute as the forward pairs them and in
+    the inverse where the cotangents' guard allows; the plain version for
+    CPU tensors. A config off the odd route raises."""
+    return _frames_backward_engine(g, x, cfg, fs, band, out or cfg.mode,
+                                   "odd")
 
 
 def overlap_add(d: torch.Tensor, n: int, hop: int) -> torch.Tensor:

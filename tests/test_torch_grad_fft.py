@@ -11,15 +11,19 @@ in float64). Here, on seeded numpy inputs:
   EXACT of each clip's largest |d|, over nfft 32-1024, zero-padded
   transforms, every detrend, one- and two-sided spectra, a band, every
   output mode and a frame of equal samples (|X| = 0 in magnitude mode);
-- ``backward_route`` on a grid of configs;
+- ``backward_route`` on a grid of configs (the radix-2, mixed and odd
+  routes' own FFT adjoints, B1 on the Bluestein and GEMM routes);
 - the whole backward chain through the plain FFT adjoint (the framing's
   adjoint and the centered pad's after it) against ``jax.grad`` of the JAX
   package's ``power_spectrogram`` and ``stft``, at tests/test_torch_grad.py's
   tolerance;
 - the wrapper's dispatch off the CPU (meta tensors): the radix-2 route
   launches the new kernel alone, with no recompute of X and no dense
-  operands, the other routes the dense kernel;
-- the engine that stft_grad.cu copies from stft_psd.cu, text for text.
+  operands, the Bluestein route and a forced "dense" the dense kernel
+  (tests/test_torch_grad_mixed.py does the mixed and odd routes);
+- the engine that stft_grad.cu copies from stft_psd.cu, and that
+  stft_grad_mixed.cu copies from stft_psd.cu and stft_grad.cu, text for
+  text.
 """
 
 import dataclasses
@@ -180,13 +184,18 @@ def test_fft_adjoint_rounds_once_to_the_waveforms_dtype():
 ROUTE_GRID = [
     (SpecConfig.scipy_default(k), "fft") for k in (32, 64, 256, 1024, 8192)
 ] + [
-    (SpecConfig.scipy_default(k), "dense")
-    for k in (24, 31, 33, 96, 992, 1000, 1023, 2049, 8160, 8185, 8191)
+    (SpecConfig.scipy_default(k), "dense") for k in (24, 31, 2049, 8185)
+] + [
+    (SpecConfig.scipy_default(k), "mixed")
+    for k in (96, 992, 1000, 8160, 514, 8186)
+] + [
+    (SpecConfig.scipy_default(k), "odd") for k in (33, 1023, 8191)
 ] + [
     (dataclasses.replace(SpecConfig.scipy_default(1000), nfft=1024), "fft"),
     (dataclasses.replace(SpecConfig.scipy_default(16), nfft=64), "fft"),
     (dataclasses.replace(SpecConfig.scipy_default(1024), nfft=1536),
-     "dense"),
+     "mixed"),
+    (dataclasses.replace(SpecConfig.scipy_default(1024), nfft=2047), "odd"),
     (dataclasses.replace(SpecConfig.scipy_default(8192), nfft=16384),
      "dense"),
     (SpecConfig(nperseg=512, hop=128, detrend="linear"), "fft"),
@@ -199,11 +208,13 @@ ROUTE_GRID = [
                          ids=[f"{c.nperseg}_{c.nfft_}_{w}"
                               for c, w in ROUTE_GRID])
 def test_backward_route(cfg, want):
-    """The radix-2 backward exactly where the forward's route is the
-    radix-2 kernel's, by nfft, whatever the detrend, mode, sides or
-    centering; the dense kernel on every other route."""
+    """The radix-2, mixed and odd routes' FFT adjoints exactly where the
+    forward's route is that kernel's, by nfft, whatever the detrend, mode,
+    sides or centering; the dense kernel on the Bluestein and GEMM
+    routes."""
     assert stft_cuda.backward_route(cfg) == want
-    assert (want == "fft") == (stft_cuda.route(cfg) == "fft")
+    r = stft_cuda.route(cfg)
+    assert want == (r if r in ("fft", "mixed", "odd") else "dense")
 
 
 def test_backward_route_refuses_what_the_kernels_refuse():
@@ -382,11 +393,12 @@ def test_radix2_backward_launches_the_fft_kernel_alone(monkeypatch, cfg, out,
     assert lib.calls == ["stft_fft_backward_launch", "overlap_add_launch"]
     moved = {k: stft_cuda.grad_launches[k] - before[k] for k in before}
     assert moved == {"stft_backward": 0, "stft_fft_backward": 1,
+                     "stft_mixed_backward": 0, "stft_odd_backward": 0,
                      "overlap_add": 1}
 
 
 def test_dense_backward_on_the_other_routes_and_when_forced(monkeypatch):
-    """The mixed route's backward recomputes X and launches
+    """The Bluestein route's backward recomputes X and launches
     stft_backward_launch; forced "dense" does so on a radix-2 config; a
     forced "fft" off the radix-2 route raises, and so does the radix-2
     wrapper on such a config."""
@@ -399,7 +411,7 @@ def test_dense_backward_on_the_other_routes_and_when_forced(monkeypatch):
                            dtype=torch.complex64)
 
     monkeypatch.setattr(stft_cuda, "_stft_psd_cuda", meta_x)
-    for cfg, forced in ((SpecConfig.scipy_default(96), None),
+    for cfg, forced in ((SpecConfig.scipy_default(2049), None),
                         (NS, "dense")):
         lib.calls.clear()
         n = 4 * cfg.nperseg + 5
@@ -412,6 +424,7 @@ def test_dense_backward_on_the_other_routes_and_when_forced(monkeypatch):
     x = torch.empty((2, 500), device="meta")
     g = torch.empty((2, num_frames(500, 96, cfg.hop_), cfg.n_freqs),
                     device="meta")
+    assert stft_cuda.backward_route(cfg) == "mixed"
     with pytest.raises(ValueError, match="no 'fft' backward"):
         stft_cuda.stft_backward(x, g, _meta_op(cfg), _backward="fft")
     with pytest.raises(ValueError, match="radix-2 route"):
@@ -468,3 +481,57 @@ def test_backward_engine_is_the_forward_engine(name):
     bwd = (CSRC / "stft_grad.cu").read_text()
     get = constant if name in ENGINE_CONSTANTS else definition
     assert get(bwd, name) == get(fwd, name)
+
+
+# the definitions stft_grad_mixed.cu copies: from stft_psd.cu, the mixed
+# kernel's passes and the pass engine with their plans, constants and host
+# planners; from stft_grad.cu, the cotangent arithmetic
+MIXED_ENGINE = (
+    "FastDiv", "block_sum", "frame_line", "Band", "r2_butterfly", "cmul",
+    "mix_rmax", "MixPass", "MixRegPlan", "mix_base", "r2_dif_butterfly",
+    "mix_r2_stage", "mix_r2_stages", "SlotMap", "mix_r2_pass",
+    "mix_odd_pass", "mix_rm", "mix_generic_sums", "mix_generic_pass",
+    "mix_frame_sum", "small_root_at", "ConvPlan", "conv_stage_roots",
+    "conv_pass", "RaderProduct", "odd_dft", "conv_turn_r2",
+    "conv_turn_odd", "conv_forward", "conv_transform", "ConvRead",
+    "ConvRaderRead", "odd_min_blocks", "make_fastdiv", "raise_smem",
+    "detrend_ok", "fft_threads", "group_passes", "mixed_register_plan",
+    "conv_plan", "band_ok")
+MIXED_ENGINE_CONSTANTS = (
+    "OUT_PSD", "OUT_MAGNITUDE", "OUT_COMPLEX", "FFT_MAX_THREADS",
+    "FFT_MAX_WARPS", "DETREND_NONE", "DETREND_CONSTANT", "DETREND_LINEAR",
+    "MIX_MAX_STAGES", "MIX_MAX_RADIX", "MIX_THREADS", "MIX_LOAD",
+    "MIX_R2_BITS", "MIX_NARROW_RADIX", "MIX_MAX_PASSES", "SMALL_ROOTS",
+    "ODD_SMALL_BLOCKS", "ODD_NARROW_POINTS", "RADER_NARROW_POINTS",
+    "PACKED_R2_BITS", "PAIR_MAX_RATIO", "FFT_MAX_DEVICES")
+MIXED_FROM_GRAD = ("cotangent_of", "split_bin", "inverse_split",
+                   "half_weight", "F32_MAX")
+
+
+def any_definition(src, name):
+    """The text of the top-level definition of ``name`` in a CUDA source,
+    device or host: from its template line, if any, to its closing brace
+    in column 0; or a constexpr constant's line."""
+    found = re.search(rf"^constexpr (?:int|double) {name}\b[^\n]*\n", src,
+                      re.M)
+    if found:
+        return found.group(0)
+    found = re.search(
+        rf"^(?:template <[^\n]*>\n)?(?:__\w+__ |struct |bool |int |"
+        rf"constexpr int |FastDiv )[^\n]*?\b{name}\b[ (][^\n]*\n"
+        rf"(?:[^\n]*\n)*?}};?\n", src, re.M)
+    assert found, f"no definition of {name}"
+    return found.group(0)
+
+
+@pytest.mark.parametrize("name", MIXED_ENGINE + MIXED_ENGINE_CONSTANTS
+                         + MIXED_FROM_GRAD)
+def test_mixed_backward_engine_is_the_forward_engine(name):
+    """stft_grad_mixed.cu builds as a library of its own, so it carries the
+    mixed-radix kernel's passes, the pass engine and their host planners
+    (stft_psd.cu's) and the cotangent arithmetic (stft_grad.cu's); each
+    copied definition and constant is its source's, text for text."""
+    origin = "stft_grad.cu" if name in MIXED_FROM_GRAD else "stft_psd.cu"
+    fwd = (CSRC / origin).read_text()
+    bwd = (CSRC / "stft_grad_mixed.cu").read_text()
+    assert any_definition(bwd, name) == any_definition(fwd, name)

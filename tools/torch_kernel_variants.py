@@ -13,7 +13,10 @@ route's, PACKED, through ``stft_mixed_fft_psd_launch``, and the odd
 route's) or ``small`` (the GEMM route's small-K tile, ``stft_psd_launch``),
 all in ``spectral_tpu_torch/ops/csrc/stft_psd.cu``; or ``grad`` (the
 radix-2 route's backward, ``stft_fft_backward_launch`` in
-``csrc/stft_grad.cu``, on a seeded gradient of the PSD). Builds the
+``csrc/stft_grad.cu``, on a seeded gradient of the PSD) or ``grad_mixed``
+(the mixed and odd routes' backward, ``stft_mixed_fft_backward_launch``
+and ``stft_odd_fft_backward_launch`` in ``csrc/stft_grad_mixed.cu``, a
+source of their own, the same way). Builds the
 kernel's source as it
 stands ("this") and each of the kernel's variants, a textual edit of the
 same source that must match it exactly once, with the port's nvcc flags
@@ -372,6 +375,43 @@ GRAD_VARIANTS = {
 }
 
 
+GRAD_MIXED_VARIANTS = {
+    "odd_one_block": (
+        "the odd backward's narrow plans and plans of radix 3, 5, 7 passes "
+        "at one block an SM (128 registers), not two (64 registers, the "
+        "forward's)",
+        [("  return rmax == 1 || (rmax == 0 && (!rader || packed)) ? "
+          "ODD_SMALL_BLOCKS\n                                                "
+          "        : 1;",
+          "  return 1;")]),
+    "no_forward": (
+        "ablation: the recompute's transform removed (the loads, the "
+        "cotangent and the inverse kept; X from the loaded values)",
+        [("    __syncthreads();\n    mixed_passes<RMAX, false>(buf, roots, "
+          "odd_roots, tw, plan, M);\n  }",
+          "    __syncthreads();\n  }"),
+         ("      forward();\n    }\n    double2 x0 = make_double2(0.0, 0.0), "
+          "z0 = x0;",
+          "    }\n    double2 x0 = make_double2(0.0, 0.0), z0 = x0;"),
+         ("      __syncthreads();\n      forward();\n    }\n    // slot P",
+          "      __syncthreads();\n    }\n    // slot P")]),
+    "no_inverse": (
+        "ablation: the inverse transform removed (the store reads the "
+        "cotangent pass's values)",
+        [("  mixed_passes<RMAX, true>(buf, roots, odd_roots, tw, plan, M);\n",
+          ""),
+         ("    // pair, conj d for a lone frame\n    inverse();\n",
+          "    // pair, conj d for a lone frame\n"),
+         ("    inverse();\n    // 4. sample i", "    // 4. sample i")]),
+    "no_cotangent": (
+        "ablation: no g or weights read and no H (S from X alone)",
+        [("  if (band.has(f)) h = cotangent_of(X.x, X.y, g, w, row + f, f, "
+          "mode);\n  const int m = K - f;\n  if (two_sided && f > 0 && 2 * "
+          "f < K && band.has(m)) {",
+          "  h = X;\n  const int m = K - f;\n  if (false) {")]),
+}
+
+
 def _r2_launch(stft_cuda, cfg, dev, a):
     c = stft_cuda.fft_constants(cfg, FS, dev)
     return lambda lib: lib.stft_fft_psd_launch(
@@ -423,6 +463,32 @@ def _grad_launch(stft_cuda, cfg, dev, a):
             a.x, g.data_ptr(), c.window.data_ptr(), c.twiddles.data_ptr(),
             c.wts.data_ptr(), d.data_ptr(), B, n, T, F, K, L, hop, a.detrend,
             0, 0, 0, a.stream)
+    launch.output = d
+    return launch
+
+
+def _grad_mixed_launch(stft_cuda, cfg, dev, a):
+    """stft_mixed_fft_backward_launch or stft_odd_fft_backward_launch, by
+    the config's route, on a seeded gradient of the PSD; the frames'
+    gradient d is the output compared."""
+    import torch
+    c = stft_cuda.mixed_constants(cfg, FS, dev)
+    B, n, T, F, K, L, hop = a.shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g = torch.rand((B, T, F), generator=gen, device=dev)
+    d = torch.empty((B, T, L), device=dev)
+    head = (a.x, g.data_ptr(), c.window.data_ptr(), c.perm.data_ptr(),
+            c.twiddles.data_ptr(), c.stages.ctypes.data, len(c.stages))
+    sizes = (B, n, T, F, K, L, hop, a.detrend, 0, 0)
+
+    def launch(lib):
+        if stft_cuda.route(cfg) == "odd":
+            return lib.stft_odd_fft_backward_launch(
+                *head, c.rader, c.wts.data_ptr(), d.data_ptr(), *sizes, 0,
+                a.stream)
+        return lib.stft_mixed_fft_backward_launch(
+            *head, c.split, c.rader, c.wts.data_ptr(), d.data_ptr(), *sizes,
+            0, a.stream)
     launch.output = d
     return launch
 
@@ -494,6 +560,17 @@ KERNELS = {
          lambda e: f"LOG2M {e.group(1)}, {2 ** int(e.group(2))} values"),
         (("path 1 north_star 1024/256", 1024, None),),
         (32, 256, 2048, 8192), _grad_launch, GRAD_VARIANTS, "stft_grad"),
+    "grad_mixed": Kernel(
+        ("mixed", "odd"),
+        (r"stft_(mixed_fft_backward_kernelILi(\d+)E|odd_fft_backward_"
+         r"kernelILb(\d)ELi(\d+)ELb(\d)E)",
+         lambda e: f"mixed<{e.group(2)}>" if e.group(2) is not None else
+         f"odd<{e.group(3)}, {e.group(4)}, {e.group(5)}>"),
+        (("path 4 scipy_default 8160", 8160, None),
+         ("path 7 scipy_default 8191", 8191, None),
+         ("path 11 scipy_default 8186", 8186, None)),
+        (992, 1006, 1023, 8032), _grad_mixed_launch, GRAD_MIXED_VARIANTS,
+        "stft_grad_mixed"),
 }
 
 
@@ -514,6 +591,10 @@ def load(so):
     out = [ptr] * 3 + [i32, i64]
     for entry, args in (
             ("stft_fft_backward_launch", [ptr] * 6 + [i32, i64] + [i32] * 9),
+            ("stft_mixed_fft_backward_launch",
+             [ptr] * 6 + [i32] * 3 + [ptr] * 2 + [i32, i64] + [i32] * 9),
+            ("stft_odd_fft_backward_launch",
+             [ptr] * 6 + [i32] * 2 + [ptr] * 2 + [i32, i64] + [i32] * 9),
             ("stft_psd_launch", [ptr] * 4 + out + [i32] * 7),
             ("stft_fft_psd_launch", [ptr] * 4 + out + [i32] * 10),
             ("stft_mixed_fft_psd_launch",

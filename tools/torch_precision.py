@@ -625,6 +625,250 @@ def psd_bluestein(frames: np.ndarray, window: np.ndarray, plan,
                       mode)
 
 
+# ---------------------------------------------------------------------------
+# The backward kernels of csrc/stft_grad_mixed.cu in numpy: the mixed and odd
+# routes' FFT adjoints (the frames' gradient d from the output's gradient g)
+
+def _cotangent(xr, xi, g, w, mode):
+    """``stft_grad.cu::cotangent_of`` on arrays: (H_re, H_im) of bins X =
+    xr + i xi with weights w from the output's gradient g (complex for
+    the complex outputs): the PSD's 2 w g X, the magnitude's w g X / |X|
+    (0 at |X| = 0), the complex STFT's w g; 0 where |X|^2 is past
+    float32's range."""
+    if mode == "complex":
+        return w * g.real, w * g.imag
+    s = xr * xr + xi * xi
+    keep = s <= F32_MAX
+    with np.errstate(invalid="ignore", divide="ignore"):
+        if mode == "magnitude":
+            keep = keep & (s != 0)
+            c = w * g / np.sqrt(np.where(keep, s, 1.0))
+        else:
+            c = 2.0 * w * g
+    c = np.where(keep, c, 0.0)
+    return c * xr, c * xi
+
+
+def _one_sided_cotangent(xr, xi, g, wts, K: int, band, two_sided: bool,
+                         mode: str):
+    """``stft_grad_mixed.cu::one_sided_cotangent`` on (T, K//2 + 1) bins X:
+    H at the band's bins (g's column f - lo; ``wts`` every bin's weight),
+    0 elsewhere, plus, two-sided, conj H[K - f] from conj X[f] for 0 < f <
+    K/2."""
+    lo, hi = band
+    T, nb = xr.shape
+    hr, hi_ = np.zeros((T, nb)), np.zeros((T, nb))
+    f = np.arange(nb)
+    on = (f >= lo) & (f < hi)
+    if on.any():
+        cr, ci = _cotangent(xr[:, on], xi[:, on], g[:, f[on] - lo], wts[f[on]],
+                            mode)
+        hr[:, on], hi_[:, on] = cr, ci
+    m = K - f
+    mir = two_sided & (f > 0) & (2 * f < K) & (m >= lo) & (m < hi)
+    if mir.any():
+        cr, ci = _cotangent(xr[:, mir], -xi[:, mir], g[:, m[mir] - lo],
+                            wts[m[mir]], mode)
+        hr[:, mir] = hr[:, mir] + cr
+        hi_[:, mir] = hi_[:, mir] - ci
+    return hr, hi_
+
+
+def _halved(hr, hi, K: int):
+    """S from H1: bin 0 (and K/2 for even K) real, the others halved."""
+    sr, si = 0.5 * hr, 0.5 * hi
+    sr[:, 0], si[:, 0] = hr[:, 0], 0.0
+    if K % 2 == 0:
+        sr[:, K // 2], si[:, K // 2] = hr[:, K // 2], 0.0
+    return sr, si
+
+
+def _inverse_transform(re, im, plan, n: int):
+    """The kernels' inverse transform of (T, n) values re + i im given in
+    natural order: without a Rader stage the plan's stages in frequency
+    in place (``_stages(dif=True)``), value j then at slot perm[j]; with
+    one the values at the Rader order's slots and the Rader transform
+    (:func:`_transform`); natural order out."""
+    if plan.rader < 0:
+        _stages(re, im, plan, n, dif=True)
+        return re[:, plan.perm], im[:, plan.perm]
+    sr, si = np.empty_like(re), np.empty_like(im)
+    sr[:, plan.perm], si[:, plan.perm] = re, im
+    return _transform(sr, si, plan, n)
+
+
+def _frame_gradient(dv: np.ndarray, window: np.ndarray, detrend: str):
+    """The window and the detrend's projection (its own transpose) of d_v
+    over the first L samples: the kernels' store."""
+    L = window.shape[0]
+    return detrended(dv[:, :L] * window, detrend)
+
+
+def grad_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
+                   wts: np.ndarray, g: np.ndarray, detrend: str = "none",
+                   nfft: Optional[int] = None, mode: str = "psd",
+                   band=None, two_sided: bool = False) -> np.ndarray:
+    """(T, L) frames' gradient by the mixed-radix backward kernel's
+    arithmetic (``csrc/stft_grad_mixed.cu::stft_mixed_fft_backward_kernel``,
+    and with a Rader stage the odd backward kernel's PACKED form), float64,
+    ``plan`` = ``fft_plan(nfft)``, K = nfft even, M = K/2; g (T, F) the
+    gradient of the output ``mode`` ("psd", "magnitude", "complex") at the
+    band's F bins (``band`` = (lo, hi), the full band when None), ``wts``
+    every bin's weight of that output:
+
+    - X recomputed as :func:`psd_mixed_fft` computes it (skipped for the
+      complex output): the load at perm, the M-point transform, the split
+      step at bins k = 0..M (``split_bin``);
+    - H1 (:func:`_one_sided_cotangent`), S (bins 0 and M real, the others
+      halved), conj Z'[k] = the inverse split step of S[k], S[M - k] and
+      W_K^k (``inverse_split``);
+    - the inverse transform of conj Z' (:func:`_inverse_transform`: the
+      passes in frequency in place, or the Rader transform), y[j] the
+      conjugate of z'[j] = d_v[2j] + i d_v[2j + 1];
+    - the window and the detrend's projection (:func:`_frame_gradient`).
+
+    What differs from the card: the detrend's sums are numpy's, and numpy
+    rounds the products where the card may fuse them (FMA)."""
+    v = padded(detrended(frames.astype(np.float64), detrend) * window, nfft)
+    T, K = v.shape
+    M = K // 2
+    nb = M + 1
+    band = (0, wts.shape[0]) if band is None else band
+    split = plan.twiddles[plan.split:plan.split + M]
+    k = np.arange(nb)
+    wr = np.where(k < M, split[np.minimum(k, M - 1), 0], -1.0)
+    wi = np.where(k < M, split[np.minimum(k, M - 1), 1], 0.0)
+    xr, xi = np.zeros((T, nb)), np.zeros((T, nb))
+    if mode != "complex":
+        re, im = np.empty((T, M)), np.empty((T, M))
+        re[:, plan.perm], im[:, plan.perm] = v[:, 0::2], v[:, 1::2]
+        re, im = _transform(re, im, plan, M)
+        a, b = k % M, (M - k) % M
+        ar, ai, br, bi = re[:, a], im[:, a], re[:, b], im[:, b]
+        er, ei = 0.5 * (ar + br), 0.5 * (ai - bi)
+        o_r, o_i = 0.5 * (ai + bi), 0.5 * (br - ar)
+        xr = er + (wr * o_r - wi * o_i)
+        xi = ei + (wr * o_i + wi * o_r)
+    sr, si = _halved(*_one_sided_cotangent(xr, xi, g, wts, K, band,
+                                           two_sided, mode), K)
+    kk = np.arange(M)
+    tr, ti = sr[:, M - kk], si[:, M - kk]
+    s_r, s_i = sr[:, :M], si[:, :M]
+    er, ei = s_r + tr, s_i - ti
+    dr, di = s_r - tr, s_i + ti
+    o_r = dr * wr[:M] + di * wi[:M]
+    o_i = di * wr[:M] - dr * wi[:M]
+    yr, yi = _inverse_transform(er - o_i, -(ei + o_r), plan, M)
+    dv = np.empty((T, K))
+    dv[:, 0::2], dv[:, 1::2] = yr, -yi
+    return _frame_gradient(dv, window, detrend)
+
+
+def pair_units(paired_fwd: np.ndarray, sr: np.ndarray,
+               si: np.ndarray) -> np.ndarray:
+    """(T,) bool: frame t shares the odd backward kernel's inverse with its
+    partner (frames 2j and 2j + 1): both were transformed together in the
+    recompute (``paired_fwd``, :func:`paired_frames`; every pair for the
+    complex outputs, which recompute nothing) and the cotangents' guard
+    passes: each frame's sum of |S|^2 finite, nonzero and within
+    PAIR_MAX_RATIO of its partner's. What differs from the card: the sums
+    are numpy's, not the kernel's block reduction."""
+    T = sr.shape[0]
+    e = (sr * sr + si * si).sum(axis=1)
+    a, b = e[0:T - 1:2], e[1:T:2]
+    with np.errstate(invalid="ignore", over="ignore"):
+        ok = (np.isfinite(a) & np.isfinite(b) & (a > 0) & (b > 0)
+              & (np.maximum(a, b) <= PAIR_MAX_RATIO * np.minimum(a, b)))
+    ok = ok & paired_fwd[0:2 * ok.size:2]
+    paired = np.zeros(T, bool)
+    paired[0:2 * ok.size:2] = ok
+    paired[1:2 * ok.size:2] = ok
+    return paired
+
+
+def grad_odd_fft(frames: np.ndarray, window: np.ndarray, plan,
+                 wts: np.ndarray, g: np.ndarray, detrend: str = "none",
+                 nfft: Optional[int] = None, mode: str = "psd", band=None,
+                 two_sided: bool = False) -> np.ndarray:
+    """(T, L) frames' gradient by the odd backward kernel's arithmetic
+    (``csrc/stft_grad_mixed.cu::stft_odd_fft_backward_kernel``), float64,
+    ``plan`` = ``fft_plan(nfft)``, K = nfft odd, g, wts, ``mode``,
+    ``band`` and ``two_sided`` as :func:`grad_mixed_fft`:
+
+    - X recomputed as :func:`psd_odd_fft` computes it (the forward's
+      pairing, :func:`paired_frames`; skipped for the complex output): a
+      pair's A and B from one K-point transform, a lone frame's Z;
+    - H1 at bins f = 0..(K - 1)/2 (:func:`_one_sided_cotangent`) and S
+      (bin 0 real, the others halved: odd K has no Nyquist bin);
+    - frames 2j and 2j + 1 inverted together where :func:`pair_units`
+      says so: conj Z' = conj(S_a + i S_b) extended Hermitian (at bin f
+      (S_a.re - S_b.im, -(S_a.im + S_b.re)), at K - f (S_a.re + S_b.im,
+      S_a.im - S_b.re), at 0 (S_a, -S_b)); each other frame alone, conj Z'
+      = conj S at f and S at K - f;
+    - the inverse transform (:func:`_inverse_transform`), d_a = Re y, d_b =
+      -Im y, a lone frame's d = Re y;
+    - the window and the detrend's projection (:func:`_frame_gradient`).
+
+    What differs from the card: the detrend's sums and both guards' sums
+    are numpy's, and numpy rounds the products where the card may fuse
+    them (FMA)."""
+    v = padded(detrended(frames.astype(np.float64), detrend) * window, nfft)
+    T, K = v.shape
+    H = K // 2
+    nb = H + 1
+    band = (0, wts.shape[0]) if band is None else band
+    f = np.arange(nb)
+
+    def transform(re, im):
+        zr, zi = np.empty_like(re), np.empty_like(im)
+        zr[:, plan.perm], zi[:, plan.perm] = re, im
+        return _transform(zr, zi, plan, K)
+
+    xr, xi = np.zeros((T, nb)), np.zeros((T, nb))
+    fwd = paired_frames(v) if mode != "complex" else np.zeros(T, bool)
+    if mode != "complex":
+        a_rows = np.flatnonzero(fwd)[0::2]
+        if a_rows.size:
+            zr, zi = transform(v[a_rows], v[a_rows + 1])
+            j = (K - f) % K
+            ar, ai, br, bi = zr[:, f], zi[:, f], zr[:, j], zi[:, j]
+            xr[a_rows], xi[a_rows] = 0.5 * (ar + br), 0.5 * (ai - bi)
+            xr[a_rows + 1], xi[a_rows + 1] = 0.5 * (ai + bi), 0.5 * (br - ar)
+        alone = np.flatnonzero(~fwd)
+        if alone.size:
+            zr, zi = transform(v[alone], np.zeros((alone.size, K)))
+            xr[alone], xi[alone] = zr[:, f], zi[:, f]
+    else:
+        fwd = np.zeros(T, bool)
+        fwd[0:2 * (T // 2)] = True
+    sr, si = _halved(*_one_sided_cotangent(xr, xi, g, wts, K, band,
+                                           two_sided, mode), K)
+    inv = pair_units(fwd, sr, si)
+    dv = np.empty((T, K))
+    m = K - f[1:]
+    a_rows = np.flatnonzero(inv)[0::2]
+    if a_rows.size:
+        ar, ai = sr[a_rows], si[a_rows]
+        br, bi = sr[a_rows + 1], si[a_rows + 1]
+        zr, zi = np.empty((a_rows.size, K)), np.empty((a_rows.size, K))
+        zr[:, 0], zi[:, 0] = ar[:, 0], -br[:, 0]
+        zr[:, 1:nb], zi[:, 1:nb] = ar[:, 1:] - bi[:, 1:], -(ai[:, 1:]
+                                                             + br[:, 1:])
+        zr[:, m], zi[:, m] = ar[:, 1:] + bi[:, 1:], ai[:, 1:] - br[:, 1:]
+        yr, yi = _inverse_transform(zr, zi, plan, K)
+        dv[a_rows], dv[a_rows + 1] = yr, -yi
+    alone = np.flatnonzero(~inv)
+    if alone.size:
+        s_r, s_i = sr[alone], si[alone]
+        zr, zi = np.empty((alone.size, K)), np.empty((alone.size, K))
+        zr[:, 0], zi[:, 0] = s_r[:, 0], 0.0
+        zr[:, 1:nb], zi[:, 1:nb] = s_r[:, 1:], -s_i[:, 1:]
+        zr[:, m], zi[:, m] = s_r[:, 1:], s_i[:, 1:]
+        yr, _ = _inverse_transform(zr, zi, plan, K)
+        dv[alone] = yr
+    return _frame_gradient(dv, window, detrend)
+
+
 def fft_operands(cfg: SpecConfig, fs: float = FS, out=None):
     """The FFT kernel's host operands as numpy float64: window (nperseg
     points; the kernel's is zero-padded to nfft), twiddle table of nfft,

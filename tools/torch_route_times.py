@@ -49,14 +49,16 @@ of paths 1-11 (path 3: one export batch, 64 clips of 10 s, palette words
 and no image, as ``export_spectrograms`` calls it), or of the paths
 numbered: a single call between two events and a run of RUN calls over
 the count, median of 5, with digests of the first clips' PSD, words and
-flags; and path 21's training step (with no path named, or 21 named): the
-waveform of path 1's batch requiring grad, ``batched_spectrogram_fn`` at
-north_star 1024/256 log, the loss on the image and the PSD as
-``chip_smoke.py`` takes it, ``backward()`` and a synchronise, its wall ms
-on the host clock (median of 5 after a warm-up), the launches of a step,
-and a digest, the norm and the largest |entry| of the gradient of the
-first 8 clips (two checkouts whose backward sums in another order give
-other digests and norms equal to about 1e-7). ``--dc`` reports the
+flags; and path 21's training steps (with no path named, or 21 named):
+the waveform of path 1's batch requiring grad, ``batched_spectrogram_fn``
+at north_star 1024/256 log, and of path 4's batch (256 clips of 60 s) at
+scipy_default 8160 log (the mixed route's backward), the loss on the
+image and the PSD as ``chip_smoke.py`` takes it, ``backward()`` and a
+synchronise, its wall ms on the host clock (median of 5 after a
+warm-up), the launches of a step, and a digest, the norm and the largest
+|entry| of the gradient of the first 8 clips (two checkouts whose
+backward sums in another order give other digests and norms equal to
+about 1e-7). ``--dc`` reports the
 flags and PSD maxima of pure-DC clips (1e-4, 3e-3, 0.1; 10 s) through
 the checkout's ``batched_spectrogram_fn`` at scipy_default 1024 and 8160
 (constant detrend).
@@ -165,17 +167,26 @@ def time_pipelines(paths, report, SpecConfig, batch, dev):
         torch.cuda.empty_cache()
     if not paths or 21 in paths:
         time_grad_step(report, SpecConfig, batch)
+        time_grad_step(report, SpecConfig, batch, 8160)
 
 
-def time_grad_step(report, SpecConfig, batch):
-    """Path 21's training step on path 1's batch: the forward and the
-    backward through batched_spectrogram_fn, synchronised."""
+def time_grad_step(report, SpecConfig, batch, nperseg=None):
+    """Path 21's training step: on path 1's batch at north_star 1024/256
+    log, or with ``nperseg`` on path 4's batch (256 clips of 60 s) at
+    scipy_default ``nperseg`` log; the forward and the backward through
+    batched_spectrogram_fn, synchronised."""
     import time
     import torch
     from spectral_tpu_torch.ops import stft_cuda
     from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
-    cfg = SpecConfig.north_star(1024, 256, log_scale=True)
-    x0 = batch(CLIPS, SECONDS)
+    if nperseg is None:
+        cfg = SpecConfig.north_star(1024, 256, log_scale=True)
+        shape, name = (CLIPS, SECONDS), "pipeline path 21 training step"
+    else:
+        cfg = SpecConfig.scipy_default(nperseg, log_scale=True)
+        shape = (256, 60.0)
+        name = f"pipeline path 21 training step {nperseg}"
+    x0 = batch(*shape)
     fn = batched_spectrogram_fn(FS, cfg, flip_image=True)
     with torch.no_grad():
         scale = float(fn(x0)["psd"].mean())
@@ -189,20 +200,21 @@ def time_grad_step(report, SpecConfig, batch):
         torch.cuda.synchronize()
         return x.grad, 1e3 * (time.perf_counter() - t0)
 
-    print("pipeline path 21 training step", file=sys.stderr, flush=True)
+    print(name, file=sys.stderr, flush=True)
     counts = (stft_cuda.launches, stft_cuda.grad_launches)
     before = [dict(c) for c in counts]
     grad = step()[0][:8]                         # build, warm up
     launches = {k: c[k] - b.get(k, 0) for c, b in zip(counts, before)
                 for k in c if c[k] != b.get(k, 0)}
-    entry = {"batch": [CLIPS, SECONDS], "grad_sha256": _digest(grad),
+    entry = {"batch": list(shape), "grad_sha256": _digest(grad),
              "grad_norm": float(grad.double().norm()),
              "grad_absmax": float(grad.abs().amax()), "launches": launches}
     del grad
     reps = [step()[1] for _ in range(REPS)]
     entry["ms"] = sorted(reps)[REPS // 2]
     entry["reps_ms"] = reps
-    report["pipeline path 21 training step"] = entry
+    report[name] = entry
+    del x0
     torch.cuda.empty_cache()
 
 
