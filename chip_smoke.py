@@ -228,26 +228,31 @@ the host has no matplotlib, one line that says so; and
     config) the same way; ``power_spectrogram`` on 8 clips of 60 s at
     scipy_default 8160 (the mixed route, ``stft_mixed_fft_backward_kernel``),
     8186 (its Rader plan, the odd kernel's PACKED form) and 8191 (the odd
-    route, ``stft_odd_fft_backward_kernel``), one forward launch and one
-    backward launch each, X recomputed inside, and 8182 (the Bluestein
-    route: one recompute of X by its complex epilogue, then
+    route, ``stft_odd_fft_backward_kernel``), 8182 and 8185 (the Bluestein
+    route on one block and on a cluster of two,
+    ``stft_bluestein_fft_backward_kernel``), one forward launch and one
+    backward launch each, X recomputed inside, and 24 (the GEMM route:
+    one recompute of X by its complex epilogue, then
     ``stft_backward_kernel``); one SGD step at path 4's
     config on its full batch (256 x 60 s at scipy_default 8160 log);
     each backward kernel timed against its plain version, its bound and
     its library call (the backward of ``library_psd`` under autograd for
     the STFT's, ``F.fold`` for the overlap-add, ``torch.matmul`` in
-    float64 for the mel projection's), ``stft_backward_kernel`` (B1)
-    forced at path 1's shapes, and the mixed and odd adjoints at paths 4,
-    7 and 11's shapes beside B1 forced there. No cache is trimmed before
+    float64 for the mel projection's), ``stft_backward_kernel`` (B1) on
+    the GEMM route at path 10's shapes and forced at path 1's, and the
+    mixed, odd and Bluestein adjoints at paths 4, 7, 11, 8 and 9's shapes
+    beside B1 forced there. No cache is trimmed before
     it: the device operands' cache is bounded. Before it, phase ``grad``
     holds the STFT backward to its plain version on every route (radix-2
     at 32, 1024 and 8192, mixed at 992, 8032 and 8160, the mixed route's
     Rader plans at 1006 and 8186, odd at 1023, 8191 (Rader) and with T
-    odd, Bluestein on one block and on a cluster, GEMM, nfft past
-    nperseg, two-sided, magnitude, complex, unscaled, a band, centered,
-    linear detrend, T = 0), each radix-2, mixed and odd case also to the
-    plain FFT adjoint and to ``stft_backward_kernel`` forced, with no
-    recompute launch and no dense operands built, and the mel and display
+    odd, Bluestein on one block (at one and at two blocks an SM), on a
+    cluster, zero-padded, in every output, two-sided with a band, with T
+    odd and with a NaN in g, GEMM, nfft past nperseg, two-sided,
+    magnitude, complex, unscaled, a band, centered, linear detrend, T =
+    0), each radix-2, mixed, odd and Bluestein case also to the plain FFT
+    adjoint and to ``stft_backward_kernel`` forced, with no recompute
+    launch and no dense operands built, and the mel and display
     backward at paths 12's and 1's shapes (tied extrema, share_max,
     linear and log, flipped).
 
@@ -660,11 +665,15 @@ def build_kernels():
           f"{grad_mixed['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
               grad_mixed["log"],
               r"stft_(mixed_fft_backward_kernelILi(\d+)E|odd_fft_backward_"
-              r"kernelILb(\d)ELi(\d+)ELb(\d)E)",
+              r"kernelILb(\d)ELi(\d+)ELb(\d)E|bluestein_fft_backward_"
+              r"kernelILi(\d)ELb(\d)ELb(\d)E)",
               lambda e: f"stft_mixed_fft_backward<RMAX {e.group(2)}>"
               if e.group(2) is not None else
               f"stft_odd_fft_backward<RADER {e.group(3)}, RMAX "
-              f"{e.group(4)}, PACKED {e.group(5)}>")))
+              f"{e.group(4)}, PACKED {e.group(5)}>"
+              if e.group(3) is not None else
+              f"stft_bluestein_fft_backward<RANKS {e.group(6)}, TWO "
+              f"{e.group(7)}{', EXT' if e.group(8) == '1' else ''}>")))
     build.load_library("stft_grad_mixed")
     print(f"mel.cu -> {os.path.relpath(mel['path'], HERE)} in "
           f"{mel['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
@@ -5073,20 +5082,24 @@ def grad_counts_moved(before, after):
 
 def grad_kernel_cases(dev):
     """Phase grad: the STFT backward through ``loss.backward()`` of the
-    kernels' entry points, by ``backward_route``: on the radix-2, mixed
-    and odd routes the route's FFT adjoint (stft_fft_backward_kernel,
-    stft_mixed_fft_backward_kernel, stft_odd_fft_backward_kernel, the
-    latter's PACKED form on the mixed route's Rader plans; X recomputed
+    kernels' entry points, by ``backward_route``: on the radix-2, mixed,
+    odd and Bluestein routes the route's FFT adjoint
+    (stft_fft_backward_kernel, stft_mixed_fft_backward_kernel,
+    stft_odd_fft_backward_kernel, the latter's PACKED form on the mixed
+    route's Rader plans, stft_bluestein_fft_backward_kernel; X recomputed
     inside: no launch of the forward's complex epilogue and no dense
-    operands built), on the Bluestein and GEMM routes stft_backward_kernel
-    after one launch of the route's complex epilogue; overlap_add_kernel
-    after both. Each held per clip within GRAD_TOL to the plain dense
-    backward on the same card, and each radix-2, mixed and odd case also
-    to the plain FFT adjoint and to stft_backward_kernel forced on it. The
-    configs: radix-2 32, 1024 and 8192, mixed 992, 8032 and 8160, the
-    mixed route's Rader plans 1006 and 8186, odd 1023, 8191 (Rader) and
-    33 with T odd, Bluestein 2049 and 8185 (a cluster), GEMM 24, nfft 4096
-    over nperseg 1024, two-sided, magnitude, the complex STFT scaled and
+    operands built), on the GEMM route stft_backward_kernel after one
+    launch of the route's complex epilogue; overlap_add_kernel after both.
+    Each held per clip within GRAD_TOL to the plain dense backward on the
+    same card, and each FFT adjoint's case also to the plain FFT adjoint
+    and to stft_backward_kernel forced on it. The configs: radix-2 32,
+    1024 and 8192, mixed 992, 8032 and 8160, the mixed route's Rader plans
+    1006 and 8186, odd 1023, 8191 (Rader) and 33 with T odd, Bluestein
+    2049, 1126 (even, two blocks an SM), 8185 (a cluster; also unscaled,
+    with no recompute), 2049 over nperseg 2000,
+    magnitude at 2049, 563 two-sided complex on a band, 563 with T odd
+    and 563 with a NaN in one frame's gradient, GEMM 24, nfft 4096 over
+    nperseg 1024, two-sided, magnitude, the complex STFT scaled and
     unscaled, a 0-30 Hz band at 1 kHz, centered (reflect), linear detrend,
     T = 0; then
     the mel backward at path 12's shapes and the display backward at path
@@ -5128,6 +5141,22 @@ def grad_kernel_cases(dev):
         ("Bluestein 2049", SpecConfig.scipy_default(2049), FS, "psd", None),
         ("Bluestein 8185 (cluster)", SpecConfig.scipy_default(8185), FS,
          "psd", None),
+        ("Bluestein 1126 (even, two blocks an SM)",
+         SpecConfig.scipy_default(1126), FS, "psd", None),
+        ("Bluestein 2049 over nperseg 2000", dataclasses.replace(
+            SpecConfig.scipy_default(2000), nfft=2049), FS, "psd", None),
+        ("Bluestein magnitude 2049", dataclasses.replace(
+            SpecConfig.scipy_default(2049), mode="magnitude"), FS, "psd",
+         None),
+        ("Bluestein stft (unscaled) 8185 (cluster)",
+         SpecConfig.scipy_default(8185), FS, "stft", None),
+        ("Bluestein complex two-sided 563, band",
+         dataclasses.replace(SpecConfig.scipy_default(563), onesided=False),
+         FS, "complex", (10, 500)),
+        ("Bluestein 563, T odd", SpecConfig.scipy_default(563), FS, "psd",
+         None),
+        ("Bluestein 563, NaN in g", SpecConfig.scipy_default(563), FS, "psd",
+         None),
         ("GEMM 24", SpecConfig.scipy_default(24), FS, "psd", None),
         ("nfft 4096 over 1024", dataclasses.replace(s1024, nfft=4096), FS,
          "psd", None),
@@ -5160,7 +5189,7 @@ def grad_kernel_cases(dev):
             return dxp
         return torch.autograd.grad(xp, x, dxp, retain_graph=True)[0]
 
-    fft_kinds = ("fft", "mixed", "odd")
+    fft_kinds = stft_cuda.FFT_BACKWARD_ROUTES
     for label, cfg, fs, kind, band in cases:
         k = cfg.nperseg
         n = 6 * k + 123                      # a tail past the last frame
@@ -5182,6 +5211,8 @@ def grad_kernel_cases(dev):
         if y.is_complex():
             g = torch.complex(g, torch.rand(y.shape, generator=gen,
                                             device=dev) - 0.5)
+        if "NaN" in label:                   # stays in frame 1's samples
+            g[0, 1, y.shape[2] // 2] = float("nan")
         dx, = torch.autograd.grad(y, x, g)
         torch.cuda.synchronize()
         moved = grad_counts_moved(before, flat_counts(read_counts()))
@@ -5207,11 +5238,25 @@ def grad_kernel_cases(dev):
         T = num_frames(xp.shape[-1], k, cfg.hop_)
         note = ""
         if back in fft_kinds:
-            # the plain FFT adjoint, and stft_backward_kernel forced
+            # the plain FFT adjoint, and stft_backward_kernel forced; with a
+            # NaN in g the plain adjoint runs on the host, where each frame
+            # is transformed alone (on the card cuFFT's batched c2r
+            # transform spreads the NaN past its frame)
+            where = torch.device("cpu") if "NaN" in label else dev
             fft_plain = stft_cuda.overlap_add_reference(
-                stft_cuda.frames_backward_fft_reference(g, xd, cfg, fs, band,
-                                                        out), xd.shape[-1],
-                cfg.hop_)
+                stft_cuda.frames_backward_fft_reference(
+                    g.to(where), xd.to(where), cfg, fs, band, out),
+                xd.shape[-1], cfg.hop_).to(dev)
+            if "NaN" in label:
+                on_card = stft_cuda.overlap_add_reference(
+                    stft_cuda.frames_backward_fft_reference(
+                        g, xd, cfg, fs, band, out), xd.shape[-1], cfg.hop_)
+                print(f"{label}: NaN samples of clip 0, the kernel "
+                      f"{int(torch.isnan(dx[0]).sum())}, the plain FFT "
+                      f"adjoint on the host "
+                      f"{int(torch.isnan(fft_plain[0]).sum())}, on the card "
+                      f"(cuFFT) {int(torch.isnan(on_card[0]).sum())}; frame 1 "
+                      f"spans {k} samples")
             rel_f = clip_rel(dx, padded_grad(x, xp, fft_plain, cfg))[0]
             b1 = stft_cuda.stft_backward(
                 xd, g, stft_cuda.GradOp(fs, cfg, band, out, route),
@@ -5325,16 +5370,19 @@ def grad_path(dev, card):
     minutes at 48 kHz (path 16's config) the same way, and
     ``power_spectrogram`` on 8 clips of 60 s at scipy_default 8160 (path
     4's config, the mixed route: stft_mixed_fft_backward_kernel), 8186
-    (path 11's, its Rader plan: the odd kernel's PACKED form) and 8191
-    (path 7's, the odd route: stft_odd_fft_backward_kernel), one forward
-    and one backward launch each, and 8182 (path 9's, the Bluestein
-    route: its complex epilogue's recompute, then stft_backward_kernel);
+    (path 11's, its Rader plan: the odd kernel's PACKED form), 8191
+    (path 7's, the odd route: stft_odd_fft_backward_kernel), 8182 and
+    8185 (paths 9's and 8's, the Bluestein route on one block and on a
+    cluster: stft_bluestein_fft_backward_kernel), one forward and one
+    backward launch each, and 24 (path 10's, the GEMM route: its complex
+    epilogue's recompute, then stft_backward_kernel);
     one SGD step at path 4's config on its
     whole batch (256 clips x 60 s, scipy_default 8160 log), checked on
     GRAD_CLIPS clips; each backward kernel timed at path 1's and path
     12's shapes against its plain version, its bound and its library
-    call, stft_backward_kernel (B1) forced there, and the mixed and odd
-    adjoints at paths 4, 7 and 11's shapes against theirs and B1 forced.
+    call, stft_backward_kernel (B1) forced there and on its own route at
+    path 10's shapes, and the mixed, odd and Bluestein adjoints at paths
+    4, 7, 11, 8 and 9's shapes against theirs and B1 forced.
     No cache is trimmed first: the device operands' cache is bounded
     (``stft_cuda.CONSTANTS_BUDGET``)."""
     import numpy as np
@@ -5458,16 +5506,18 @@ def grad_path(dev, card):
               f"({err:.3e} abs); launches {moved}")
         del x, y, g, want
     del xh
-    # the mixed route, its Rader plan and the odd route: one forward and
-    # one backward launch each, X recomputed inside the backward; the
-    # Bluestein route (path 9's config): B1 after the recompute of X
+    # the mixed route, its Rader plan, the odd route and the Bluestein
+    # route (one block and a cluster): one forward and one backward launch
+    # each, X recomputed inside the backward; the GEMM route (path 10's
+    # config): B1 after the recompute of X
     for k in (MIXED_NPERSEG, RADER_NPERSEG, ODD_NPERSEG,
-              BLUESTEIN_EVEN_NPERSEG):
+              BLUESTEIN_EVEN_NPERSEG, BLUESTEIN_NPERSEG, GEMM_NPERSEG):
         cfgk = SpecConfig.scipy_default(k)
         route, back = stft_cuda.route(cfgk), stft_cuda.backward_route(cfgk)
         x = torch.randn((8, int(FS * K2_SECONDS)), generator=gen,
                         device=dev).requires_grad_()
         before = flat_counts(read_counts())
+        dense = {key for key in stft_cuda._CONSTANTS if key[0] == "dense"}
         t0 = time.perf_counter()
         y = power_spectrogram(x, FS, cfgk)
         g = torch.rand(y.shape, generator=gen, device=dev)
@@ -5480,6 +5530,10 @@ def grad_path(dev, card):
                       {f"stft_{route}": 1, f"stft_{back}_backward": 1,
                        "overlap_add": 1})
         require(moved == want_moved, f"path 21 {k}: {moved}")
+        built = {key for key in stft_cuda._CONSTANTS
+                 if key[0] == "dense"} - dense
+        require(back == "dense" or not built,
+                f"path 21 {k}: the {back} backward built dense operands")
         want = stft_cuda.stft_backward_reference(
             x.detach(), g, stft_cuda.dft_constants(cfgk, FS, dev), cfgk,
             "psd")
@@ -5632,9 +5686,9 @@ def grad_path(dev, card):
             ("stft_fft_backward", "stft_fft_backward_kernel", t5, t5p, t1l,
              b5, err5, "library: the backward of library_psd (cuFFT f64, "
              "autograd) over kernels 1 and 2"),
-            ("stft_backward", "stft_backward_kernel (forced)", t1, t1p, t1l,
-             b1, err1, "library: the backward of library_psd (cuFFT f64, "
-             "autograd) over kernels 1 and 2"),
+            (None, "stft_backward_kernel (B1) forced at path 1's shapes",
+             t1, t1p, t1l, b1, err1, "library: the backward of library_psd "
+             "(cuFFT f64, autograd) over kernels 1 and 2"),
             ("overlap_add", "overlap_add_kernel", t2, t2p, t2l[0], b2, err2,
              "library: torch.nn.functional.fold"),
             ("mel_backward", "mel_backward_kernel", t3, t3p, t3l[0], b3,
@@ -5644,8 +5698,10 @@ def grad_path(dev, card):
         print(f"{name}: {ms:.4f} ms [{card}] reps {reps}; bound "
               f"{bound[0]:.4f} ms ({bound[1]}); plain {pms:.3f} ms; library "
               f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'} ({note})")
-        rows[key] = dict(launches=counts[key], err=err, ms=ms, plain_ms=pms,
-                         bound=bound, library_ms=lib_ms)
+        if key:
+            rows[key] = dict(launches=counts[key], err=err, ms=ms,
+                             plain_ms=pms, bound=bound, library_ms=lib_ms)
+    rows["stft_backward"] = gemm_backward_times(dev, card, gen, counts)
     rows.update(engine_backward_times(dev, card, gen, counts))
     print(json.dumps({"path21_times": {k: {kk: v[kk] for kk in
                                            ("ms", "plain_ms", "library_ms")}
@@ -5657,16 +5713,17 @@ def grad_path(dev, card):
 
 
 def engine_backward_times(dev, card, gen, counts):
-    """The mixed and odd routes' FFT adjoints timed at paths 4, 7 and 11's
-    shapes (256 clips x 60 s at scipy_default 8160, 8191 and 8186), each
-    against its bound, its plain version (``frames_backward_fft_reference``
-    in chunks of 16 clips), stft_backward_kernel (B1) forced on the same
-    g and a recomputed X, and the library: the backward of
-    ``library_psd`` (cuFFT f64) under autograd, in chunks of 64 clips (one
-    batch's graph does not fit the card), the chunks' medians summed.
-    Returns the kernels-line rows of the mixed (8160) and odd (8191)
-    adjoints; 8186 (the PACKED form, counted as the mixed route's) is
-    printed."""
+    """The mixed, odd and Bluestein routes' FFT adjoints timed at paths 4,
+    7, 11, 8 and 9's shapes (256 clips x 60 s at scipy_default 8160, 8191,
+    8186, 8185 and 8182), each against its bound, its plain version
+    (``frames_backward_fft_reference`` in chunks of 16 clips),
+    stft_backward_kernel (B1) forced on the same g and a recomputed X, and
+    the library: the backward of ``library_psd`` (cuFFT f64) under
+    autograd, in chunks of 64 clips (one batch's graph does not fit the
+    card), the chunks' medians summed. Returns the kernels-line rows of
+    the mixed (8160), odd (8191) and Bluestein (8182, one block) adjoints;
+    8186 (the PACKED form, counted as the mixed route's) and 8185 (the
+    Bluestein cluster) are printed."""
     import torch
     from spectral_tpu_torch import SpecConfig
     from spectral_tpu_torch.core.stft import num_frames
@@ -5675,13 +5732,18 @@ def engine_backward_times(dev, card, gen, counts):
     n = int(FS * K2_SECONDS)
     x = torch.randn((K2_CLIPS, n), generator=gen, device=dev)
     rows = {}
+    adjoints = {"mixed": stft_cuda.frames_backward_mixed,
+                "odd": stft_cuda.frames_backward_odd,
+                "bluestein": stft_cuda.frames_backward_bluestein}
     for key, k, path in (("stft_mixed_backward", MIXED_NPERSEG, 4),
                          ("stft_odd_backward", ODD_NPERSEG, 7),
-                         (None, RADER_NPERSEG, 11)):
+                         (None, RADER_NPERSEG, 11),
+                         (None, BLUESTEIN_NPERSEG, 8),
+                         ("stft_bluestein_backward", BLUESTEIN_EVEN_NPERSEG,
+                          9)):
         cfg = SpecConfig.scipy_default(k)
         back = stft_cuda.backward_route(cfg)
-        frames = (stft_cuda.frames_backward_odd if back == "odd"
-                  else stft_cuda.frames_backward_mixed)
+        frames = adjoints[back]
         T, F = num_frames(n, k, cfg.hop_), cfg.n_freqs
         R = K2_CLIPS * T
         g = torch.rand((K2_CLIPS, T, F), generator=gen, device=dev)
@@ -5736,6 +5798,64 @@ def engine_backward_times(dev, card, gen, counts):
         stft_cuda._CONSTANTS.clear()
         torch.cuda.empty_cache()
     return rows
+
+
+def gemm_backward_times(dev, card, gen, counts):
+    """stft_backward_kernel (B1) on the route it keeps, the GEMM route, at
+    path 10's shapes (1024 clips x 10 s at scipy_default 24): the kernel
+    alone and after the recompute of X by the GEMM kernel's complex
+    epilogue, against its bound (g and X read once, d written once), its
+    plain version (``frames_backward_reference`` in chunks of 256 clips)
+    and the library, the backward of ``library_psd`` (cuFFT f64) under
+    autograd. Returns the kernels-line row of stft_backward."""
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.stft import num_frames
+    from spectral_tpu_torch.ops import stft_cuda
+
+    cfg = SpecConfig.scipy_default(GEMM_NPERSEG)
+    n = int(FS * CLIP_SECONDS)
+    T, F, L = num_frames(n, GEMM_NPERSEG, cfg.hop_), cfg.n_freqs, cfg.nperseg
+    R = BATCH * T
+    x = torch.randn((BATCH, n), generator=gen, device=dev)
+    g = torch.rand((BATCH, T, F), generator=gen, device=dev)
+    consts = stft_cuda.dft_constants(cfg, FS, dev)
+    require(stft_cuda.backward_route(cfg) == "dense",
+            "scipy_default 24 is off the GEMM route's backward")
+
+    def recompute():
+        return stft_cuda._stft_psd_cuda(x, FS, cfg, False, False,
+                                        out_mode="stft")
+
+    X = recompute()
+    d = stft_cuda.frames_backward(g, X, consts, "psd")
+    err = clip_rel(d[:GRAD_CLIPS], stft_cuda.frames_backward_reference(
+        g[:GRAD_CLIPS], X[:GRAD_CLIPS], consts, "psd"))[1]
+    t = time_ms(lambda: stft_cuda.frames_backward(g, X, consts, "psd"))
+    tr = time_ms(lambda: stft_cuda.frames_backward(g, recompute(), consts,
+                                                   "psd"))
+    chunks = [slice(i, i + 256) for i in range(0, BATCH, 256)]
+    tp = time_ms(lambda: [stft_cuda.frames_backward_reference(
+        g[c], X[c], consts, "psd") for c in chunks], reps=3)
+    del X, d
+    torch.cuda.empty_cache()
+    xl = x.clone().requires_grad_()
+    yl = library_psd(xl, cfg)
+    tl = time_ms(lambda: torch.autograd.grad(yl, xl, g, retain_graph=True),
+                 reps=3)[0]
+    del xl, yl
+    torch.cuda.empty_cache()
+    bound = stft_backward_bound(R, F, L, cfg.nfft_)
+    print(f"stft_backward_kernel (B1) on the GEMM route at path 10's shapes "
+          f"(scipy_default {GEMM_NPERSEG}, {BATCH} x {CLIP_SECONDS:g} s, {R} "
+          f"frames of {F} bins): {t[0]:.4f} ms [{card}] reps {t[1]}; after "
+          f"the recompute of X (the GEMM kernel's complex epilogue) "
+          f"{tr[0]:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); plain "
+          f"{tp[0]:.3f} ms; library {tl:.3f} ms (the backward of "
+          f"library_psd, cuFFT f64, autograd, over the recompute and B1)")
+    return dict(launches=counts["stft_backward"], err=err, ms=t[0],
+                plain_ms=tp[0], bound=bound, library_ms=tl,
+                recompute_ms=tr[0])
 
 
 PHASES = ("kernels", "tail", "dc", "scipy", "band", "mel", "path1", "path2",
@@ -5902,7 +6022,9 @@ def main(_phases=None):
           f"path 21: stft_fft_backward "
           f"{rows['stft_fft_backward']['launches']}, stft_mixed_backward "
           f"{rows['stft_mixed_backward']['launches']}, stft_odd_backward "
-          f"{rows['stft_odd_backward']['launches']}, stft_backward "
+          f"{rows['stft_odd_backward']['launches']}, "
+          f"stft_bluestein_backward "
+          f"{rows['stft_bluestein_backward']['launches']}, stft_backward "
           f"{rows['stft_backward']['launches']}, "
           f"overlap_add {rows['overlap_add']['launches']}, mel_backward "
           f"{rows['mel_backward']['launches']}, display_backward "
@@ -6026,11 +6148,19 @@ def main(_phases=None):
             grad_mixed_src,
             "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
             "XLA's transposed DFT; no TPU kernel)"),
+        "stft_bluestein_backward": (
+            "stft_bluestein_fft_backward_kernel<RANKS 1, TWO 0>, the STFT's "
+            "adjoint on the Bluestein route (X recomputed on the Bluestein "
+            "transform, the inverse by the same transform), scipy_default "
+            "8182 on 256 x 60 s (path 21, path 9's config; the cluster "
+            "<RANKS 2> at 8185 counted here)", "cuda", grad_mixed_src,
+            "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
+            "XLA's transposed DFT; no TPU kernel)"),
         "stft_backward": (
             "stft_backward_kernel (B1), the STFT's adjoint (float64 tile) on "
-            "the Bluestein and GEMM routes: scipy_default 8182, Bluestein "
-            "(path 21); timed forced at north_star 1024/256 on 1024 x 10 s",
-            "cuda", grad_src,
+            "the GEMM route after its complex epilogue's recompute of X: "
+            "scipy_default 24 (path 21), timed at path 10's shapes (1024 x "
+            "10 s)", "cuda", grad_src,
             "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
             "XLA's transposed DFT; no TPU kernel)"),
         "overlap_add": (

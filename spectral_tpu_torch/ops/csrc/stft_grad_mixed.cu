@@ -1,15 +1,16 @@
-// The STFT backward on the mixed-radix and odd routes for NVIDIA Hopper
-// (sm_90a): the adjoint of the forward kernels of csrc/stft_psd.cu on those
-// routes, on their own engines, as stft_grad.cu's stft_fft_backward_kernel
-// is on the radix-2 route.
+// The STFT backward on the mixed-radix, odd and Bluestein routes for
+// NVIDIA Hopper (sm_90a): the adjoint of the forward kernels of
+// csrc/stft_psd.cu on those routes, on their own engines, as stft_grad.cu's
+// stft_fft_backward_kernel is on the radix-2 route.
 //
 // The JAX package differentiates its STFT/PSD by jax.grad through
 // spectral_tpu/core/stft.py::power_spectrogram (:769) and stft (:388); its
 // Pallas kernel (stft_pallas.py:431) has no gradient. The port's backward
 // is launched by ops/stft_cuda.py::stft_backward by backward_route: here
-// "mixed" (stft_mixed_fft_backward_launch) and "odd"
-// (stft_odd_fft_backward_launch); overlap_add_kernel (stft_grad.cu)
-// follows both.
+// "mixed" (stft_mixed_fft_backward_launch), "odd"
+// (stft_odd_fft_backward_launch) and "bluestein"
+// (stft_bluestein_fft_backward_launch); overlap_add_kernel (stft_grad.cu)
+// follows each.
 //
 // The function. With X[f] = sum_n v[n] e^{-2 pi i f n / K} the forward's
 // transform of the frame v (its L samples detrended and windowed, zero to
@@ -90,20 +91,60 @@
 //     a block, packed as the mixed kernel's, the P = M - 1 point Rader
 //     transform, then steps 2-4 above on the Rader order.
 //
+// stft_bluestein_fft_backward_kernel<RANKS, TWO, EXT> (the Bluestein route,
+//   the 2,389 K = 32-8192 the other routes do not take; the forward's
+//   geometry: conv_plan's threads, a unit a block, or a cluster of two
+//   blocks past BLUE_MAX_BLOCK_POINTS; bluestein_transform, the N-point DFT
+//   as a cyclic convolution of M points on the pass engine, natural order
+//   in and out, X[k] = w_k conj(slot k) with w the chirp, BluesteinRead):
+//   - even K, one frame a block, N = K/2: the mixed kernel's steps 2-4 on
+//     Bluestein's engine. 1. The forward's load z_m = (v[2m] + i v[2m + 1])
+//     w_m, zeros to M, and the transform. 2. A pair of bins (k, N - k) a
+//     thread: X[k], X[N - k] by the split step, H1, S, the inverse split
+//     step's conj Z'[k], conj Z'[N - k], each times w_k into the slot the
+//     same thread read; slots N..M-1 zeroed (no thread reads them). 3. The
+//     same transform again: the DFT of conj Z' is conj z', read as
+//     w_j conj(slot j), z'[j] = d_v[2j] + i d_v[2j + 1]. 4. As the mixed
+//     kernel's.
+//   - odd K, frames t, t + 1 of a clip a unit, N = K: the odd kernel's
+//     pairing exactly (the recompute's energy guard as the forward's, the
+//     cotangents' guard for the inverse, frame b's second recompute, odd T,
+//     no Nyquist bin), each transform the Bluestein one and each value
+//     times w_f on its way in.
+//   - the cluster (odd K from 7207, M past 14,406, up to 16,384): both
+//     ranks run bluestein_transform<2> as many times, or cluster.sync
+//     would not pair; both compute the frames' lines and energies from
+//     global memory, as in the forward, so both know whether the recompute
+//     pairs. Every output index is below N <= M/2, so the cotangent and S
+//     lie in rank 0's half alone: rank 0 decides whether the inverse pairs
+//     and publishes it in its shared memory (inv_flag), which rank 1 reads
+//     through map_shared_rank after a cluster.sync, before the inverse's
+//     first sync (past which rank 0 may exit). Rank 0 loads, forms H and
+//     stores d; rank 1 only takes part in the transforms.
+//   - TWO: two blocks an SM up to BLUE_TWO_BLOCK_POINTS, and EXT (a frame
+//     zero-padded to nfft > nperseg, the magnitude and complex outputs), as
+//     the forward's; the complex outputs need no X, so no recompute runs.
+//
 // Everything from the float32 loads to the float32 store is float64, on
-// the host's float64 operands (ops/stft_cuda.py::mixed_constants): the
-// forward's window zero-padded to K, perm, the plan's twiddle rows (the
-// split step's and the Rader stage's b^ among them) and every bin's
-// weight. tools/torch_precision.py::grad_mixed_fft and grad_odd_fft are
-// this arithmetic in numpy (tests/test_torch_grad_mixed.py holds them to
-// the plain adjoint, ops/stft_cuda.py::frames_backward_fft_reference).
+// the host's float64 operands (ops/stft_cuda.py::mixed_constants and
+// bluestein_constants): the forward's window zero-padded to K, perm, the
+// plan's twiddle rows (the split step's, the Rader stage's b^, the
+// Bluestein b^ and chirp among them) and every bin's weight.
+// tools/torch_precision.py::grad_mixed_fft, grad_odd_fft and
+// grad_bluestein are this arithmetic in numpy (tests/test_torch_grad_mixed.py
+// holds them to the plain adjoint,
+// ops/stft_cuda.py::frames_backward_fft_reference).
 //
 // Bound: bytes, the waveform x and g read once and d written once; the
 // two transforms a frame (the recompute and the inverse) are the forward's
-// work twice, below the bytes at the FP64 rate.
+// work twice, below the bytes at the FP64 rate. The Bluestein design does
+// more than the function needs: four M-point transforms a frame (M >= 2N -
+// 1), about 7e10 operations at path 9's shapes, past the bytes' time even
+// at the FP64 peak; its bound stays the function's.
 //
 // The engine (the mixed kernel's passes, the pass engine, their plans and
-// constants) is copied from csrc/stft_psd.cu with its text unchanged, and
+// constants, the Bluestein transform and its constants) is copied from
+// csrc/stft_psd.cu with its text unchanged, and
 // the cotangent arithmetic from csrc/stft_grad.cu, so that this source
 // builds as a library of its own and neither of those sources, their
 // builds or their registers move (tests/test_torch_grad_fft.py holds each
@@ -112,6 +153,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared, its own
 // library (ops/build.py).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -963,6 +1005,89 @@ constexpr int odd_min_blocks(bool rader, int rmax, bool packed) {
                                                         : 1;
 }
 
+// ---------------------------------------------------------------------------
+// The Bluestein route's transform (stft_psd.cu's, text for text; the
+// route's design notes are there, above stft_bluestein_psd_kernel).
+
+namespace cg = cooperative_groups;
+
+constexpr int BLUE_MAX_RADIX = 7;              // M's radices: 2, 3, 5, 7
+constexpr int BLUE_MIN_BLOCKS = 1;             // blocks of 512 threads an SM
+// the largest M / RANKS that runs two blocks an SM (64 registers): two
+// buffers fit the SM's shared memory up to about 7150 points; on the card
+// two blocks ran M = 1125-6250 up to 1.5x faster (nperseg 563: 9.4 ms
+// against 14.2) and one block M = 8192 1.6x faster than two
+constexpr int BLUE_TWO_BLOCK_POINTS = 7000;
+// A block's shared memory on this card (227 KB, static and dynamic
+// together), the kernel's static arrays (small, red_sum, red_lo, red_hi),
+// and the most complex float64 values its dynamic buffer then holds: the
+// largest 2, 3, 5, 7-smooth M whose buffer fits, 14406 (225 KB). A
+// longer convolution runs on a cluster of two blocks.
+constexpr int BLOCK_SMEM = 232448;
+constexpr int BLUE_MAX_BLOCK_POINTS = 14406;
+// the backward kernel's static arrays (small, red_sum, inv_flag)
+constexpr int BLUE_BWD_STATIC_SMEM =
+    SMALL_ROOTS * 16 + 4 * FFT_MAX_WARPS * 16 + 16;
+static_assert(BLUE_MAX_BLOCK_POINTS * 16 + BLUE_BWD_STATIC_SMEM <= BLOCK_SMEM,
+              "the backward's one-block buffer fits");
+
+// X[i] = w_i conj(slot i), i < N: the Bluestein transform's output
+struct BluesteinRead {
+  const double2* buf;
+  const double2* __restrict__ chirp;
+  SlotMap map;
+  __device__ double2 operator()(int i) const {
+    const double2 o = buf[map(i)];
+    return cmul(chirp[i], make_double2(o.x, -o.y));
+  }
+};
+
+// The convolution of the values a_i the load put in slots 0..N-1 (zeros
+// to M) with b, in place, starting with the barrier that orders the
+// loads: slot k of rank 0 ends holding conj(y_k), k < N, after a barrier.
+// RANKS = 1: buf holds the M slots and the plan every stage of M. RANKS =
+// 2 (a cluster of two blocks): buf holds this block's M/2 slots, the plan
+// every stage but the last (radix 2 at span M/2, twiddle rows from
+// half_row), which the ranks take through each other's shared memory.
+template <int RANKS>
+__device__ __forceinline__ void bluestein_transform(
+    double2* buf, const double2* small, const double2* __restrict__ tw,
+    const ConvPlan& plan, int M, int N, int bhat, int half_row) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int H = M / RANKS;                      // this block's slots
+  const SlotMap map{plan.swz_mask, plan.swz_shift};
+  int rank = 0;
+  if constexpr (RANKS == 2) {
+    cg::cluster_group cluster = cg::this_cluster();
+    rank = static_cast<int>(cluster.block_rank());
+    cluster.sync();                             // rank 0's loads
+    if (rank == 1) {
+      const double2* half0 = cluster.map_shared_rank(buf, 0);
+      for (int j = tid; j < H; j += nt)
+        buf[map(j)] = cmul(tw[half_row + j], half0[map(j)]);
+    }
+    cluster.sync();                             // read before rank 0 writes
+  } else {
+    __syncthreads();
+  }
+  conv_transform<0>(buf, nullptr, small, tw, plan, H,
+                    BluesteinProduct{tw + bhat + rank * H});
+  if constexpr (RANKS == 2) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();                             // rank 1's half transformed
+    if (rank == 0) {
+      const double2* half1 = cluster.map_shared_rank(buf, 1);
+      for (int j = tid; j < N; j += nt) {
+        const double2 t = cmul(tw[half_row + j], half1[map(j)]);
+        const double2 a = buf[map(j)];
+        buf[map(j)] = make_double2(a.x + t.x, a.y + t.y);
+      }
+    }
+    cluster.sync();                             // rank 1 may go on or exit
+  }
+}
+
 constexpr int FFT_MAX_DEVICES = 64;
 
 // raise `kernel`'s dynamic shared memory limit to smem once per device
@@ -1456,6 +1581,50 @@ stft_mixed_fft_backward_kernel(const float* __restrict__ x,
   }
 }
 
+// The conv kernels' store: the window and the detrend's projection of d_v
+// (dv(i) for sample i < L; dv2 the second frame's when two), stored as
+// float32 at rows ra (and rb) of d by the block's threads; red_sum[0] and
+// red_sum[1] take the two frames' block reductions
+template <typename Dv, typename Dv2>
+__device__ __forceinline__ void store_frames(
+    float* __restrict__ d, const double* __restrict__ win, int L,
+    int detrend, Dv dv, Dv2 dv2, bool two, long long ra, long long rb,
+    double2 (*red_sum)[FFT_MAX_WARPS]) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const double c = 0.5 * (L - 1);
+  const double dd = L * (static_cast<double>(L) * L - 1.0) / 12.0;
+  double2 sa = make_double2(0.0, 0.0), sb = sa;
+  if (detrend != DETREND_NONE) {
+    for (int i = tid; i < L; i += nt) {
+      const double ua = dv(i) * win[i];
+      sa.x += ua;
+      if (detrend == DETREND_LINEAR) sa.y += (i - c) * ua;
+      if (two) {
+        const double ub = dv2(i) * win[i];
+        sb.x += ub;
+        if (detrend == DETREND_LINEAR) sb.y += (i - c) * ub;
+      }
+    }
+    sa = block_sum(sa, red_sum[0]);
+    if (two) sb = block_sum(sb, red_sum[1]);
+  }
+  const bool lin = detrend == DETREND_LINEAR;
+  const double2 pa = detrend == DETREND_NONE
+                         ? sa
+                         : make_double2(sa.x / L, lin ? sa.y / dd : 0.0);
+  const double2 pb = detrend == DETREND_NONE
+                         ? sb
+                         : make_double2(sb.x / L, lin ? sb.y / dd : 0.0);
+  for (int i = tid; i < L; i += nt) {
+    d[ra * L + i] =
+        static_cast<float>(dv(i) * win[i] - pa.x - pa.y * (i - c));
+    if (two)
+      d[rb * L + i] =
+          static_cast<float>(dv2(i) * win[i] - pb.x - pb.y * (i - c));
+  }
+}
+
 // the odd kernel's inverse forms: the pair, frame a (or a lone frame), and
 // frame b of a pair's cotangent pass
 constexpr int FORM_PAIR = 0;
@@ -1487,7 +1656,6 @@ stft_odd_fft_backward_kernel(const float* __restrict__ x,
   const int nt = blockDim.x;
   const bool cplx = mode == OUT_COMPLEX;
   const double c = 0.5 * (L - 1);
-  const double dd = L * (static_cast<double>(L) * L - 1.0) / 12.0;
   // the points of the transform a block holds, and with a Rader stage the
   // slot of the value at 0
   const int N = PACKED ? K >> 1 : K;
@@ -1536,39 +1704,9 @@ stft_odd_fft_backward_kernel(const float* __restrict__ x,
       return buf[map(perm[i])];
     }
   };
-  // the window and the detrend's projection of d_v (dv(i) for sample i <
-  // L; dv2 the second frame's when two), stored at rows ra (and rb)
   const auto store = [&](auto dv, auto dv2, bool two, long long ra,
                          long long rb) {
-    double2 sa = make_double2(0.0, 0.0), sb = sa;
-    if (detrend != DETREND_NONE) {
-      for (int i = tid; i < L; i += nt) {
-        const double ua = dv(i) * win[i];
-        sa.x += ua;
-        if (detrend == DETREND_LINEAR) sa.y += (i - c) * ua;
-        if (two) {
-          const double ub = dv2(i) * win[i];
-          sb.x += ub;
-          if (detrend == DETREND_LINEAR) sb.y += (i - c) * ub;
-        }
-      }
-      sa = block_sum(sa, red_sum[0]);
-      if (two) sb = block_sum(sb, red_sum[1]);
-    }
-    const bool lin = detrend == DETREND_LINEAR;
-    const double2 pa = detrend == DETREND_NONE
-                           ? sa
-                           : make_double2(sa.x / L, lin ? sa.y / dd : 0.0);
-    const double2 pb = detrend == DETREND_NONE
-                           ? sb
-                           : make_double2(sb.x / L, lin ? sb.y / dd : 0.0);
-    for (int i = tid; i < L; i += nt) {
-      d[ra * L + i] =
-          static_cast<float>(dv(i) * win[i] - pa.x - pa.y * (i - c));
-      if (two)
-        d[rb * L + i] =
-            static_cast<float>(dv2(i) * win[i] - pb.x - pb.y * (i - c));
-    }
+    store_frames(d, win, L, detrend, dv, dv2, two, ra, rb, red_sum);
   };
 
   if constexpr (PACKED) {
@@ -1781,12 +1919,289 @@ stft_odd_fft_backward_kernel(const float* __restrict__ x,
   }
 }
 
+// The Bluestein route's adjoint: one block (RANKS = 1) or a cluster of two
+// (RANKS = 2) a unit, as stft_bluestein_psd_kernel: a frame of even K, row
+// blockIdx.x, or for odd K frames t = 2j and t + 1 of clip b, unit b
+// ceil(T / 2) + j. TWO: two blocks an SM (M up to BLUE_TWO_BLOCK_POINTS).
+// EXT: a frame shorter than the transform or an output other than the PSD.
+// Rank 0 loads, forms the cotangent and stores; rank 1 only takes part in
+// the transforms, as many as rank 0 runs (cluster.sync pairs them), and
+// reads rank 0's pair-or-alone decision for the inverse from its shared
+// memory.
+template <int RANKS, bool TWO, bool EXT>
+__global__ void __launch_bounds__(FFT_MAX_THREADS,
+                                  TWO ? 2 : BLUE_MIN_BLOCKS)
+stft_bluestein_fft_backward_kernel(const float* __restrict__ x,
+                                   const float* __restrict__ g,
+                                   const double* __restrict__ win,
+                                   const double2* __restrict__ tw,
+                                   const double* __restrict__ wts,
+                                   float* __restrict__ d, long long n, int T,
+                                   Band band, int K, int hop, int frame_len,
+                                   int detrend, int out_mode, int two_sided,
+                                   int M, int bhat, int chirp_row,
+                                   int half_row,
+                                   const __grid_constant__ ConvPlan plan) {
+  extern __shared__ double2 buf[];  // M / RANKS complex values
+  __shared__ double2 small[SMALL_ROOTS];
+  __shared__ double2 red_sum[4][FFT_MAX_WARPS];
+  __shared__ int inv_flag;          // rank 0's: the pair shares the inverse
+  const int L = EXT ? frame_len : K;
+  const int mode = EXT ? out_mode : OUT_PSD;
+
+  conv_stage_roots(small, tw, plan);
+  const SlotMap map{plan.swz_mask, plan.swz_shift};
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int unit = blockIdx.x / RANKS;
+  const int H = M / RANKS;
+  const double2* chirp = tw + chirp_row;
+  const bool cplx = mode == OUT_COMPLEX;
+  const double c = 0.5 * (L - 1);
+  bool lead = true;                 // rank 0
+  if constexpr (RANKS == 2) lead = cg::this_cluster().block_rank() == 0;
+  const bool even = RANKS == 1 && K % 2 == 0;
+  const int N = even ? K >> 1 : K;
+  const BluesteinRead read{buf, chirp, map};
+  // the frame's L samples, zero past them, as the forward's
+  const auto sample = [&](const float* f, double2 line, int i) {
+    return !EXT || i < L
+               ? (static_cast<double>(f[i]) - line.x - line.y * (i - c)) *
+                     win[i]
+               : 0.0;
+  };
+  const auto transform = [&]() {
+    bluestein_transform<RANKS>(buf, small, tw, plan, M, N, bhat, half_row);
+  };
+  const auto store = [&](auto dv, auto dv2, bool two, long long ra,
+                         long long rb) {
+    store_frames(d, win, L, detrend, dv, dv2, two, ra, rb, red_sum);
+  };
+
+  if (even) {
+    // even K: a frame packed as the forward's, N = K/2
+    const int r = unit;
+    const float* frame =
+        x + (long long)(r / T) * n + (long long)(r % T) * hop;
+    // 1. X: the forward's load, z_m = (v[2m] + i v[2m + 1]) w_m, and
+    // transform
+    if (!cplx) {
+      const double2 line = frame_line(frame, L, detrend, red_sum[0]);
+      for (int i = tid; i < M; i += nt)
+        buf[map(i)] = i < N ? cmul(chirp[i],
+                                   make_double2(sample(frame, line, 2 * i),
+                                                sample(frame, line,
+                                                       2 * i + 1)))
+                            : make_double2(0.0, 0.0);
+      transform();
+    }
+    // 2. H a pair of bins (k, N - k) a thread, w_k conj Z'[k] where X's
+    // slots were read; the slots past N zero
+    const double2* split = tw + plan.split;
+    for (int k = tid; 2 * k <= N; k += nt) {
+      const int k2 = N - k;                 // bin N at k = 0
+      const int kb = k == 0 ? 0 : k2;
+      double2 xa = make_double2(0.0, 0.0), xb = xa;
+      if (!cplx) {
+        const double2 a = read(k);
+        const double2 b = read(kb);
+        xa = split_bin(a, b, split[k]);
+        xb = split_bin(b, a, k == 0 ? make_double2(-1.0, 0.0) : split[k2]);
+      }
+      const double2 hs = half_weight(
+          one_sided_cotangent(xa, g, wts, r, band, k, K, two_sided, mode,
+                              true), k, N);
+      const double2 ht = half_weight(
+          one_sided_cotangent(xb, g, wts, r, band, k2, K, two_sided, mode,
+                              true), k2, N);
+      buf[map(k)] = cmul(chirp[k], inverse_split(hs, ht, split[k]));
+      if (k > 0 && k2 != k)
+        buf[map(kb)] = cmul(chirp[kb], inverse_split(ht, hs, split[k2]));
+    }
+    for (int s = N + tid; s < M; s += nt)
+      buf[map(s)] = make_double2(0.0, 0.0);
+    // 3. the inverse: the same transform of conj Z', y_j = conj z'[j]
+    transform();
+    // 4. sample i from z'[i / 2] = d_v[2j] + i d_v[2j + 1]
+    store([&](int i) {
+            const double2 y = read(i >> 1);
+            return (i & 1) ? -y.y : y.x;
+          },
+          [&](int) { return 0.0; }, false, r, r);
+    return;
+  }
+
+  // odd K: frames t and t + 1 of a clip, N = K
+  const int pairs = (T + 1) >> 1;
+  const int clip = unit / pairs;
+  const int t = (unit - clip * pairs) * 2;
+  const long long ra = (long long)clip * T + t;
+  const bool has_b = t + 1 < T;
+  const float* fa = x + (long long)clip * n + (long long)t * hop;
+  const float* fb = fa + hop;
+  const int HB = K >> 1;            // the one-sided bins past 0
+  double2 la = make_double2(0.0, 0.0), lb = la;
+  bool fwd_pair = false;
+  if (!cplx) {
+    // the forward's load and guard, both ranks computing the lines and
+    // energies: a pair shares one transform or each frame is transformed
+    // alone, as stft_bluestein_psd_kernel decides
+    la = frame_line(fa, L, detrend, red_sum[0]);
+    if (has_b) lb = frame_line(fb, L, detrend, red_sum[1]);
+    double2 e = make_double2(0.0, 0.0);
+    for (int i = tid; i < H; i += nt) {
+      double2 z = make_double2(0.0, 0.0);
+      if (i < N) {
+        const double va = sample(fa, la, i);
+        const double vb = has_b ? sample(fb, lb, i) : 0.0;
+        z = cmul(chirp[i], make_double2(va, vb));
+        e.x += va * va;
+        e.y += vb * vb;
+      }
+      if (lead) buf[map(i)] = z;
+    }
+    e = block_sum(e, red_sum[2]);   // also orders the loads before reloads
+    fwd_pair = has_b && isfinite(e.x) && isfinite(e.y) && e.x > 0.0 &&
+               e.y > 0.0 && fmax(e.x, e.y) <= PAIR_MAX_RATIO * fmin(e.x, e.y);
+  }
+  // both frames' cotangents from one pass: the pair's transform, or g
+  // alone for the complex outputs
+  const bool both = has_b && (cplx || fwd_pair);
+  bool inv_pair = false;
+  for (int u = 0; u < 2; ++u) {
+    // unit 0: the pair or frame a; unit 1: frame b alone
+    if (u == 1 && (!has_b || inv_pair)) break;
+    if (u == 1) __syncthreads();    // unit 0's reads before these writes
+    // 1. X: the pair again for frame b alone (its S from the pair's B),
+    // or a lone frame reloaded, z_i = v[i] w_i
+    if (!cplx) {
+      if (u == 1 || !both) {
+        for (int i = tid; lead && i < H; i += nt)
+          buf[map(i)] =
+              i < N ? cmul(chirp[i],
+                           u == 1 && both
+                               ? make_double2(sample(fa, la, i),
+                                              sample(fb, lb, i))
+                               : make_double2(u ? sample(fb, lb, i)
+                                                : sample(fa, la, i),
+                                              0.0))
+                    : make_double2(0.0, 0.0);
+      }
+      transform();
+    }
+    const long long rl = ra + u;    // a lone frame's row
+    if (lead) {
+      // 2. the one-sided S of each frame, bins f and K - f a thread: S_a[f]
+      // at slot f, S_b[f] at slot K - f, (S_a[0], S_b[0]) at slot 0; a
+      // lone frame's S[f] at slot f
+      double2 e = make_double2(0.0, 0.0);
+      for (int f = tid; f <= HB; f += nt) {
+        const int m = f == 0 ? 0 : K - f;
+        double2 xa = make_double2(0.0, 0.0), xb = xa;
+        if (!cplx) {
+          const double2 a = read(f);
+          const double2 b = read(m);
+          if (both) {
+            xa = make_double2(0.5 * (a.x + b.x), 0.5 * (a.y - b.y));
+            xb = make_double2(0.5 * (a.y + b.y), 0.5 * (b.x - a.x));
+          } else {
+            xa = a;
+          }
+        }
+        double2 sa = one_sided_cotangent(xa, g, wts, both ? ra : rl, band,
+                                         f, K, two_sided, mode, true);
+        sa = f == 0 ? make_double2(sa.x, 0.0)
+                    : make_double2(0.5 * sa.x, 0.5 * sa.y);
+        if (both) {
+          double2 sb = one_sided_cotangent(xb, g, wts, ra + 1, band, f, K,
+                                           two_sided, mode, true);
+          sb = f == 0 ? make_double2(sb.x, 0.0)
+                      : make_double2(0.5 * sb.x, 0.5 * sb.y);
+          e.x += sa.x * sa.x + sa.y * sa.y;
+          e.y += sb.x * sb.x + sb.y * sb.y;
+          if (f == 0) {
+            buf[map(0)] = make_double2(sa.x, sb.x);
+          } else {
+            buf[map(f)] = sa;
+            buf[map(m)] = sb;
+          }
+        } else {
+          buf[map(f)] = sa;
+        }
+      }
+      // the cotangents' guard: the pair is inverted together only where
+      // both frames' S are finite, nonzero and within PAIR_MAX_RATIO
+      if (both && u == 0) {
+        e = block_sum(e, red_sum[3]);
+        inv_pair = isfinite(e.x) && isfinite(e.y) && e.x > 0.0 &&
+                   e.y > 0.0 &&
+                   fmax(e.x, e.y) <= PAIR_MAX_RATIO * fmin(e.x, e.y);
+      }
+    }
+    if constexpr (RANKS == 2) {
+      // rank 1 takes rank 0's decision before the inverse's first sync,
+      // past which rank 0 may exit
+      if (both && u == 0) {
+        cg::cluster_group cluster = cg::this_cluster();
+        if (lead && tid == 0) inv_flag = inv_pair ? 1 : 0;
+        cluster.sync();
+        if (!lead) inv_pair = *cluster.map_shared_rank(&inv_flag, 0) != 0;
+      }
+    }
+    if (lead) {
+      // w_f conj Z'[f] at slots f and K - f: the pair's S_a + i S_b, or a
+      // frame's S extended Hermitian; the slots past K zero
+      const int form = inv_pair ? FORM_PAIR
+                                : (both && u == 1 ? FORM_B : FORM_A);
+      for (int f = tid; f <= HB; f += nt) {
+        if (f == 0) {
+          const double2 s0 = buf[map(0)];
+          buf[map(0)] = cmul(chirp[0],
+                             form == FORM_PAIR
+                                 ? make_double2(s0.x, -s0.y)
+                                 : make_double2(form == FORM_B ? s0.y : s0.x,
+                                                0.0));
+          continue;
+        }
+        const int m = K - f;
+        if (form == FORM_PAIR) {
+          const double2 sa = buf[map(f)];
+          const double2 sb = buf[map(m)];
+          buf[map(f)] =
+              cmul(chirp[f], make_double2(sa.x - sb.y, -(sa.y + sb.x)));
+          buf[map(m)] = cmul(chirp[m], make_double2(sa.x + sb.y, sa.y - sb.x));
+        } else {
+          const double2 s = buf[map(form == FORM_B ? m : f)];
+          buf[map(f)] = cmul(chirp[f], make_double2(s.x, -s.y));
+          buf[map(m)] = cmul(chirp[m], s);
+        }
+      }
+      for (int s = K + tid; s < H; s += nt)
+        buf[map(s)] = make_double2(0.0, 0.0);
+    }
+    // 3. the inverse: the same transform, then 4. the store: y = conj(d_a
+    // + i d_b) for the pair, conj d for a lone frame
+    transform();
+    if (!lead) continue;
+    if (inv_pair) {
+      store([&](int i) { return read(i).x; },
+            [&](int i) { return -read(i).y; }, true, ra, ra + 1);
+    } else {
+      store([&](int i) { return read(i).x; }, [&](int) { return 0.0; },
+            false, rl, rl);
+    }
+  }
+}
+
 // the dynamic shared memory limit already set, per device: the mixed
 // kernel's three instantiations; the odd kernel's eight and its two PACKED
 size_t mixed_bwd_smem_set[3][FFT_MAX_DEVICES] = {};
 size_t odd_bwd_smem_set[10][FFT_MAX_DEVICES] = {};
+// (the Bluestein kernel's: on one block, at two blocks an SM, and on a
+// cluster of two; each with and without EXT)
+size_t blue_bwd_smem_set[2][3][FFT_MAX_DEVICES] = {};
 
-// the sizes both launchers take: a band of the K bins when two_sided,
+// the sizes the launchers take: a band of the K bins when two_sided,
 // else of K/2 + 1, and T >= 1 frames of L samples hop apart in n
 bool backward_sizes_ok(int B, long long n, int T, int F, int K, int L,
                        int hop, int detrend, int mode, int two_sided,
@@ -1916,6 +2331,103 @@ int stft_odd_fft_backward_launch(const float* x, const float* g,
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, g, win, perm, reinterpret_cast<const double2*>(tw), wts, d, n, T,
       Band{f_lo, F}, K, hop, L, detrend, mode, two_sided ? 1 : 0, plan);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Bluestein route's adjoint, on `stream`; returns a cudaError_t as the
+// mixed launcher does (a cluster that cannot be placed included). Its
+// operands are the forward Bluestein launcher's (tw (rows, 2) f64 and
+// stages, in HOST memory, of M's plan, with bhat, chirp and split the first
+// rows of b^, of the chirp and of the split step, -1 for odd K;
+// ops/stft_cuda.py::bluestein_constants) and the mixed launcher's g, wts
+// and d; K, the transform length, is 32 to 8192, M >= 2N - 1 (N = K/2, or
+// K when odd) with radices 2, 3, 5 and 7; M past BLUE_MAX_BLOCK_POINTS runs
+// on clusters of two blocks and must be even with a last stage of radix 2
+// at span M/2, and K odd. The kernel runs B * T units for even K and B *
+// ceil(T / 2) for odd K, a block or a cluster each.
+int stft_bluestein_fft_backward_launch(const float* x, const float* g,
+                                       const double* win, const double* tw,
+                                       const int* stages, int n_stages,
+                                       int M, int bhat, int chirp, int split,
+                                       const double* wts, float* d, int B,
+                                       long long n, int T, int F, int K,
+                                       int L, int hop, int detrend, int mode,
+                                       int two_sided, int f_lo,
+                                       void* stream) {
+  const cudaError_t bad = cudaErrorInvalidValue;
+  const bool odd = K % 2 == 1;
+  const int N = odd ? K : K / 2;
+  const int ranks = M > BLUE_MAX_BLOCK_POINTS ? 2 : 1;
+  if (K < 32 || K > 8192 || M < 2 * N - 1 || bhat < 0 || chirp < 0 ||
+      (split < 0) != odd || n_stages < 1 || n_stages > MIX_MAX_STAGES ||
+      !backward_sizes_ok(B, n, T, F, K, L, hop, detrend, mode, two_sided,
+                         f_lo))
+    return static_cast<int>(bad);
+  for (int s = 0; s < n_stages; ++s)
+    if (stages[4 * s] > BLUE_MAX_RADIX) return static_cast<int>(bad);
+  int half_row = -1;
+  int local_stages = n_stages;
+  if (ranks == 2) {
+    const int* last = stages + 4 * (n_stages - 1);
+    if (!odd || M % 2 || M / 2 > BLUE_MAX_BLOCK_POINTS || last[0] != 2 ||
+        last[1] != M / 2)
+      return static_cast<int>(bad);
+    half_row = last[2];
+    local_stages -= 1;              // the halves' stages; the last crosses
+  }
+  const int local = M / ranks;
+  ConvPlan plan;
+  int rmax = 0;
+  int threads = 0;
+  if (!conv_plan(stages, local_stages, local, -1, split, true, local,
+                 RADER_NARROW_POINTS, MIX_R2_BITS, &plan, &rmax, &threads) ||
+      rmax != 0)
+    return static_cast<int>(bad);
+  if (B == 0) return 0;
+  const int variant =
+      ranks == 2 ? 2 : (local <= BLUE_TWO_BLOCK_POINTS ? 1 : 0);
+  const bool ext = L < K || mode != OUT_PSD;
+  decltype(&stft_bluestein_fft_backward_kernel<1, false, false>)
+      const by_variant[2][3] =
+      {{stft_bluestein_fft_backward_kernel<1, false, false>,
+        stft_bluestein_fft_backward_kernel<1, true, false>,
+        stft_bluestein_fft_backward_kernel<2, false, false>},
+       {stft_bluestein_fft_backward_kernel<1, false, true>,
+        stft_bluestein_fft_backward_kernel<1, true, true>,
+        stft_bluestein_fft_backward_kernel<2, false, true>}};
+  const auto kernel = by_variant[ext][variant];
+  const size_t smem = static_cast<size_t>(local) * sizeof(double2);
+  const int err = raise_smem(kernel, smem, blue_bwd_smem_set[ext][variant]);
+  if (err != 0) return err;
+  const unsigned units =
+      static_cast<unsigned>(B) *
+      static_cast<unsigned>(odd ? (T + 1) / 2 : T);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const double2* tw2 = reinterpret_cast<const double2*>(tw);
+  const Band band{f_lo, F};
+  const int ts = two_sided ? 1 : 0;
+  if (ranks == 1) {
+    kernel<<<units, threads, smem, s>>>(x, g, win, tw2, wts, d, n, T, band,
+                                        K, hop, L, detrend, mode, ts, M,
+                                        bhat, chirp, half_row, plan);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(units * 2);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &config, kernel, x, g, win, tw2, wts, d, n, T, band, K, hop, L,
+      detrend, mode, ts, M, bhat, chirp, half_row, plan);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
 

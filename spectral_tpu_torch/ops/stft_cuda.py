@@ -122,16 +122,17 @@ The gradient. A waveform that requires grad (with grad enabled) goes
 through an autograd Function (:class:`_StftGrad`) around the same
 launch, which saves only the waveform; its backward runs the kernels of
 ``csrc/stft_grad.cu`` and ``csrc/stft_grad_mixed.cu`` (each its own
-library) by :func:`backward_route`. On the radix-2, mixed and odd routes
-(``"fft"``, ``"mixed"``, ``"odd"``) one launch of the route's backward
-kernel (``stft_fft_backward_kernel``, ``stft_mixed_fft_backward_kernel``
-or, on the odd route and the mixed route's Rader plans,
-``stft_odd_fft_backward_kernel``) recomputes X on the forward's own
+library) by :func:`backward_route`. On the radix-2, mixed, odd and
+Bluestein routes (``"fft"``, ``"mixed"``, ``"odd"``, ``"bluestein"``) one
+launch of the route's backward kernel (``stft_fft_backward_kernel``,
+``stft_mixed_fft_backward_kernel``, on the odd route and the mixed
+route's Rader plans ``stft_odd_fft_backward_kernel``, or
+``stft_bluestein_fft_backward_kernel``) recomputes X on the forward's own
 engine, forms the cotangent H from the output's gradient and X (the
 PSD's 2 w g X, the magnitude's w g X / |X|, 0 at |X| = 0, the complex
 STFT's w g) and takes the transform's adjoint as a c2r transform on the
-same engine, no dense matrix and no X in memory; on the Bluestein and
-GEMM routes (``"dense"``) one launch of the route's complex epilogue
+same engine, no dense matrix and no X in memory; on the GEMM route
+(``"dense"``) one launch of the route's complex epilogue
 recomputes X, then ``stft_backward_kernel`` takes the adjoint d = H A^T
 against the folded matrices. The framing's adjoint, an overlap-add in
 gather form, follows every route. A CPU tensor takes the plain
@@ -199,7 +200,7 @@ GRAD_KERNEL = "stft_grad"
 GRAD_MIXED_KERNEL = "stft_grad_mixed"
 grad_launches = {"stft_backward": 0, "stft_fft_backward": 0,
                  "stft_mixed_backward": 0, "stft_odd_backward": 0,
-                 "overlap_add": 0}
+                 "stft_bluestein_backward": 0, "overlap_add": 0}
 # the bytes of device tensors the operand cache keeps a device: seven
 # configs' dense (8192, 4097) float64 pairs, the largest, fit
 CONSTANTS_BUDGET = 4 * 2 ** 30
@@ -269,7 +270,7 @@ def route(cfg: SpecConfig) -> str:
 
 
 # the routes whose backward recomputes X on the forward's own engine
-FFT_BACKWARD_ROUTES = ("fft", "mixed", "odd")
+FFT_BACKWARD_ROUTES = ("fft", "mixed", "odd", "bluestein")
 
 
 def backward_route(cfg: SpecConfig) -> str:
@@ -277,12 +278,14 @@ def backward_route(cfg: SpecConfig) -> str:
     of it: the forward's :func:`route` where it is ``"fft"``
     (``stft_fft_backward_kernel``, the radix-2 engine), ``"mixed"``
     (``stft_mixed_fft_backward_kernel``, the mixed-radix passes; its Rader
-    plans on ``stft_odd_fft_backward_kernel``'s PACKED form) or ``"odd"``
-    (``stft_odd_fft_backward_kernel``, the pass engine), each recomputing
-    X and taking the adjoint as a c2r transform on that engine;
-    ``"dense"`` (the route's complex epilogue, then
-    ``stft_backward_kernel`` against the folded matrices) for the
-    Bluestein and GEMM routes."""
+    plans on ``stft_odd_fft_backward_kernel``'s PACKED form), ``"odd"``
+    (``stft_odd_fft_backward_kernel``, the pass engine) or
+    ``"bluestein"`` (``stft_bluestein_fft_backward_kernel``, the Bluestein
+    transform on the pass engine, one block or a cluster of two), each
+    recomputing X and taking the adjoint as a c2r transform on that
+    engine; ``"dense"`` (the route's complex epilogue, then
+    ``stft_backward_kernel`` against the folded matrices) for the GEMM
+    route alone."""
     r = route(cfg)
     return r if r in FFT_BACKWARD_ROUTES else "dense"
 
@@ -649,7 +652,8 @@ def frames_backward_fft_reference(g: torch.Tensor, x: torch.Tensor,
                                   cfg: SpecConfig, fs: float, band=None,
                                   out: Optional[str] = None) -> torch.Tensor:
     """The plain version of the FFT adjoints (``stft_fft_backward_kernel``,
-    ``stft_mixed_fft_backward_kernel``, ``stft_odd_fft_backward_kernel``):
+    ``stft_mixed_fft_backward_kernel``, ``stft_odd_fft_backward_kernel``,
+    ``stft_bluestein_fft_backward_kernel``):
     the frames' gradient (B, T, L) from the gradient g (B, T, F) of the
     output ``out``
     (cfg.mode when None; "complex" or "stft" for the complex STFT) of the
@@ -663,8 +667,8 @@ def frames_backward_fft_reference(g: torch.Tensor, x: torch.Tensor,
     interior bins at half weight (every bin past 0 for an odd nfft, which
     has no Nyquist bin); then the first L samples times the window, less
     their mean or least-squares line (the detrend's projection, its own
-    transpose). For nfft from 32 to 8192 on the radix-2, mixed and odd
-    routes in the port, any nfft here."""
+    transpose). For nfft from 32 to 8192 on the radix-2, mixed, odd and
+    Bluestein routes in the port, any nfft here."""
     out = out or cfg.mode
     lo, hi = check_band(cfg, band)
     K, L = cfg.nfft_, cfg.nperseg
@@ -882,7 +886,7 @@ _GRAD_MIXED_LIB: list = []
 
 
 def _grad_mixed_library() -> ctypes.CDLL:
-    """The mixed and odd routes' backward kernels' library
+    """The mixed, odd and Bluestein routes' backward kernels' library
     (``csrc/stft_grad_mixed.cu``), built and loaded at first use, then
     kept for the process."""
     if _GRAD_MIXED_LIB:
@@ -895,6 +899,9 @@ def _grad_mixed_library() -> ctypes.CDLL:
     lib.stft_odd_fft_backward_launch.argtypes = [ptr] * 6 + [
         i32, i32, ptr, ptr, i32, i64] + [i32] * 9 + [ptr]
     lib.stft_odd_fft_backward_launch.restype = i32
+    lib.stft_bluestein_fft_backward_launch.argtypes = [ptr] * 5 + [
+        i32] * 5 + [ptr] * 2 + [i32, i64] + [i32] * 9 + [ptr]
+    lib.stft_bluestein_fft_backward_launch.restype = i32
     lib.stft_grad_mixed_error_string.argtypes = [i32]
     lib.stft_grad_mixed_error_string.restype = ctypes.c_char_p
     _GRAD_MIXED_LIB.append(lib)
@@ -973,10 +980,12 @@ def stft_backward(x: torch.Tensor, g: torch.Tensor, op: GradOp,
     gradient g of the output ``op`` describes. For a CUDA tensor, by
     :func:`backward_route` (``_backward`` forces "dense" on any config, for
     cross-checks and timing; a forced FFT adjoint the config does not
-    allow raises): "fft", "mixed" or "odd", one launch of the route's FFT
-    adjoint (:func:`frames_backward_fft`, :func:`frames_backward_mixed`,
-    :func:`frames_backward_odd`), X recomputed inside it; "dense", one
-    launch of the route's complex epilogue (X unscaled), then
+    allow raises): "fft", "mixed", "odd" or "bluestein", one launch of the
+    route's FFT adjoint (:func:`frames_backward_fft`,
+    :func:`frames_backward_mixed`, :func:`frames_backward_odd`,
+    :func:`frames_backward_bluestein`), X recomputed inside it; "dense"
+    (the GEMM route), one launch of the route's complex epilogue (X
+    unscaled), then
     :func:`frames_backward` against the folded matrices; then
     :func:`overlap_add`. For a CPU tensor the plain version
     (:func:`stft_backward_reference`)."""
@@ -998,7 +1007,8 @@ def stft_backward(x: torch.Tensor, g: torch.Tensor, op: GradOp,
         return torch.zeros_like(x)
     if kind in FFT_BACKWARD_ROUTES:
         frames = {"fft": frames_backward_fft, "mixed": frames_backward_mixed,
-                  "odd": frames_backward_odd}[kind]
+                  "odd": frames_backward_odd,
+                  "bluestein": frames_backward_bluestein}[kind]
         d = frames(g, x, cfg, op.fs, op.band, op.out)
     else:
         X = _stft_psd_cuda(x, op.fs, cfg, False, False, op.kernel,
@@ -1047,16 +1057,18 @@ def frames_backward(g: torch.Tensor, X: torch.Tensor, consts: DftConstants,
 
 
 # the FFT adjoints' names in messages
-_ROUTE_NAMES = {"fft": "radix-2", "mixed": "mixed", "odd": "odd"}
+_ROUTE_NAMES = {"fft": "radix-2", "mixed": "mixed", "odd": "odd",
+                "bluestein": "Bluestein"}
 
 
 def _frames_backward_engine(g: torch.Tensor, x: torch.Tensor,
                             cfg: SpecConfig, fs: float, band, out: str,
                             kind: str) -> torch.Tensor:
-    """One launch of the FFT adjoint of route ``kind`` ("fft", "mixed" or
-    "odd") for CUDA tensors, on the forward's operands
-    (:func:`fft_constants`, :func:`mixed_constants`); the plain version
-    for CPU tensors. A config off that route raises."""
+    """One launch of the FFT adjoint of route ``kind`` ("fft", "mixed",
+    "odd" or "bluestein") for CUDA tensors, on the forward's operands
+    (:func:`fft_constants`, :func:`mixed_constants`,
+    :func:`bluestein_constants`); the plain version for CPU tensors. A
+    config off that route raises."""
     if x.device.type == "cpu":
         return frames_backward_fft_reference(g, x, cfg, fs, band, out)
     name = _ROUTE_NAMES[kind]
@@ -1091,6 +1103,15 @@ def _frames_backward_engine(g: torch.Tensor, x: torch.Tensor,
                 *sizes)
         launch = lib.stft_fft_backward_launch
         errors = lib.stft_grad_error_string
+    elif kind == "bluestein":
+        lib = _grad_mixed_library()
+        bc = bluestein_constants(cfg, fs, x.device, out)
+        args = (x.data_ptr(), g.data_ptr(), bc.window.data_ptr(),
+                bc.twiddles.data_ptr(), bc.stages.ctypes.data,
+                len(bc.stages), bc.m, bc.bhat, bc.chirp, bc.split,
+                bc.wts.data_ptr(), d.data_ptr(), *sizes)
+        launch = lib.stft_bluestein_fft_backward_launch
+        errors = lib.stft_grad_mixed_error_string
     else:
         lib = _grad_mixed_library()
         mc = mixed_constants(cfg, fs, x.device, out)
@@ -1154,6 +1175,20 @@ def frames_backward_odd(g: torch.Tensor, x: torch.Tensor, cfg: SpecConfig,
     CPU tensors. A config off the odd route raises."""
     return _frames_backward_engine(g, x, cfg, fs, band, out or cfg.mode,
                                    "odd")
+
+
+def frames_backward_bluestein(g: torch.Tensor, x: torch.Tensor,
+                              cfg: SpecConfig, fs: float, band=None,
+                              out: Optional[str] = None) -> torch.Tensor:
+    """The frames' gradient (B, T, L) on the Bluestein route, as
+    :func:`frames_backward_mixed`: one launch of
+    ``stft_bluestein_fft_backward_kernel`` for CUDA tensors (a block a
+    unit, or a cluster of two past the one-block buffer), X recomputed on
+    the Bluestein transform and the inverse by the same transform, its
+    operands (:func:`bluestein_constants`), no dense matrix; the plain
+    version for CPU tensors. A config off the Bluestein route raises."""
+    return _frames_backward_engine(g, x, cfg, fs, band, out or cfg.mode,
+                                   "bluestein")
 
 
 def overlap_add(d: torch.Tensor, n: int, hop: int) -> torch.Tensor:

@@ -11,16 +11,17 @@ in float64). Here, on seeded numpy inputs:
   EXACT of each clip's largest |d|, over nfft 32-1024, zero-padded
   transforms, every detrend, one- and two-sided spectra, a band, every
   output mode and a frame of equal samples (|X| = 0 in magnitude mode);
-- ``backward_route`` on a grid of configs (the radix-2, mixed and odd
-  routes' own FFT adjoints, B1 on the Bluestein and GEMM routes);
+- ``backward_route`` on a grid of configs (the radix-2, mixed, odd and
+  Bluestein routes' own FFT adjoints, B1 on the GEMM route);
 - the whole backward chain through the plain FFT adjoint (the framing's
   adjoint and the centered pad's after it) against ``jax.grad`` of the JAX
   package's ``power_spectrogram`` and ``stft``, at tests/test_torch_grad.py's
   tolerance;
 - the wrapper's dispatch off the CPU (meta tensors): the radix-2 route
   launches the new kernel alone, with no recompute of X and no dense
-  operands, the Bluestein route and a forced "dense" the dense kernel
-  (tests/test_torch_grad_mixed.py does the mixed and odd routes);
+  operands, the GEMM route and a forced "dense" the dense kernel
+  (tests/test_torch_grad_mixed.py does the mixed, odd and Bluestein
+  routes);
 - the engine that stft_grad.cu copies from stft_psd.cu, and that
   stft_grad_mixed.cu copies from stft_psd.cu and stft_grad.cu, text for
   text.
@@ -184,7 +185,9 @@ def test_fft_adjoint_rounds_once_to_the_waveforms_dtype():
 ROUTE_GRID = [
     (SpecConfig.scipy_default(k), "fft") for k in (32, 64, 256, 1024, 8192)
 ] + [
-    (SpecConfig.scipy_default(k), "dense") for k in (24, 31, 2049, 8185)
+    (SpecConfig.scipy_default(k), "dense") for k in (24, 31)
+] + [
+    (SpecConfig.scipy_default(k), "bluestein") for k in (2049, 8185)
 ] + [
     (SpecConfig.scipy_default(k), "mixed")
     for k in (96, 992, 1000, 8160, 514, 8186)
@@ -208,13 +211,14 @@ ROUTE_GRID = [
                          ids=[f"{c.nperseg}_{c.nfft_}_{w}"
                               for c, w in ROUTE_GRID])
 def test_backward_route(cfg, want):
-    """The radix-2, mixed and odd routes' FFT adjoints exactly where the
-    forward's route is that kernel's, by nfft, whatever the detrend, mode,
-    sides or centering; the dense kernel on the Bluestein and GEMM
-    routes."""
+    """The radix-2, mixed, odd and Bluestein routes' FFT adjoints exactly
+    where the forward's route is that kernel's, by nfft, whatever the
+    detrend, mode, sides or centering; the dense kernel on the GEMM route
+    alone."""
     assert stft_cuda.backward_route(cfg) == want
     r = stft_cuda.route(cfg)
-    assert want == (r if r in ("fft", "mixed", "odd") else "dense")
+    assert want == (r if r in ("fft", "mixed", "odd", "bluestein")
+                    else "dense")
 
 
 def test_backward_route_refuses_what_the_kernels_refuse():
@@ -394,11 +398,11 @@ def test_radix2_backward_launches_the_fft_kernel_alone(monkeypatch, cfg, out,
     moved = {k: stft_cuda.grad_launches[k] - before[k] for k in before}
     assert moved == {"stft_backward": 0, "stft_fft_backward": 1,
                      "stft_mixed_backward": 0, "stft_odd_backward": 0,
-                     "overlap_add": 1}
+                     "stft_bluestein_backward": 0, "overlap_add": 1}
 
 
 def test_dense_backward_on_the_other_routes_and_when_forced(monkeypatch):
-    """The Bluestein route's backward recomputes X and launches
+    """The GEMM route's backward recomputes X and launches
     stft_backward_launch; forced "dense" does so on a radix-2 config; a
     forced "fft" off the radix-2 route raises, and so does the radix-2
     wrapper on such a config."""
@@ -411,7 +415,7 @@ def test_dense_backward_on_the_other_routes_and_when_forced(monkeypatch):
                            dtype=torch.complex64)
 
     monkeypatch.setattr(stft_cuda, "_stft_psd_cuda", meta_x)
-    for cfg, forced in ((SpecConfig.scipy_default(2049), None),
+    for cfg, forced in ((SpecConfig.scipy_default(24), None),
                         (NS, "dense")):
         lib.calls.clear()
         n = 4 * cfg.nperseg + 5
@@ -485,7 +489,8 @@ def test_backward_engine_is_the_forward_engine(name):
 
 # the definitions stft_grad_mixed.cu copies: from stft_psd.cu, the mixed
 # kernel's passes and the pass engine with their plans, constants and host
-# planners; from stft_grad.cu, the cotangent arithmetic
+# planners, the Bluestein transform and its constants; from stft_grad.cu,
+# the cotangent arithmetic
 MIXED_ENGINE = (
     "FastDiv", "block_sum", "frame_line", "Band", "r2_butterfly", "cmul",
     "mix_rmax", "MixPass", "MixRegPlan", "mix_base", "r2_dif_butterfly",
@@ -494,7 +499,8 @@ MIXED_ENGINE = (
     "mix_frame_sum", "small_root_at", "ConvPlan", "conv_stage_roots",
     "conv_pass", "RaderProduct", "odd_dft", "conv_turn_r2",
     "conv_turn_odd", "conv_forward", "conv_transform", "ConvRead",
-    "ConvRaderRead", "odd_min_blocks", "make_fastdiv", "raise_smem",
+    "ConvRaderRead", "BluesteinProduct", "BluesteinRead",
+    "bluestein_transform", "odd_min_blocks", "make_fastdiv", "raise_smem",
     "detrend_ok", "fft_threads", "group_passes", "mixed_register_plan",
     "conv_plan", "band_ok")
 MIXED_ENGINE_CONSTANTS = (
@@ -503,7 +509,9 @@ MIXED_ENGINE_CONSTANTS = (
     "MIX_MAX_STAGES", "MIX_MAX_RADIX", "MIX_THREADS", "MIX_LOAD",
     "MIX_R2_BITS", "MIX_NARROW_RADIX", "MIX_MAX_PASSES", "SMALL_ROOTS",
     "ODD_SMALL_BLOCKS", "ODD_NARROW_POINTS", "RADER_NARROW_POINTS",
-    "PACKED_R2_BITS", "PAIR_MAX_RATIO", "FFT_MAX_DEVICES")
+    "PACKED_R2_BITS", "PAIR_MAX_RATIO", "FFT_MAX_DEVICES", "BLUE_MAX_RADIX",
+    "BLUE_MIN_BLOCKS", "BLUE_TWO_BLOCK_POINTS", "BLOCK_SMEM",
+    "BLUE_MAX_BLOCK_POINTS")
 MIXED_FROM_GRAD = ("cotangent_of", "split_bin", "inverse_split",
                    "half_weight", "F32_MAX")
 

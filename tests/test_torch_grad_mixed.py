@@ -1,8 +1,9 @@
-"""The STFT backward on the mixed-radix and odd routes
-(``stft_mixed_fft_backward_kernel``, ``stft_odd_fft_backward_kernel``),
-held on the CPU to the dense backward and to the JAX package.
+"""The STFT backward on the mixed-radix, odd and Bluestein routes
+(``stft_mixed_fft_backward_kernel``, ``stft_odd_fft_backward_kernel``,
+``stft_bluestein_fft_backward_kernel``), held on the CPU to the dense
+backward and to the JAX package.
 
-Both kernels recompute X on their route's forward engine and take the
+The kernels recompute X on their route's forward engine and take the
 transform's adjoint as a c2r transform on the same engine
 (``csrc/stft_grad_mixed.cu``); their plain version is
 ``ops/stft_cuda.py::frames_backward_fft_reference`` (torch.fft in
@@ -13,22 +14,26 @@ inputs:
   (``frames_backward_reference``, the folded matrices) within EXACT of each
   clip's largest |d|: mixed 96, 960 linear, 992, 8160, the generic prime
   8032 (p = 251), the Rader plans (mixed 514 and 1006, odd 257 and 8191),
-  odd 33 and 1023, zero padding (1000/1536, 1024/2047), two-sided,
-  magnitude with zero bins, complex, a band, centered, frames of equal
-  samples;
+  odd 33 and 1023, Bluestein 563, 1028, 1126, 2049 and 587, zero padding
+  (1000/1536, 1024/2047, 2000/2049), two-sided, magnitude with zero bins,
+  complex, a band, centered, frames of equal samples;
 - the chain through the plain FFT adjoint against ``jax.grad`` of the JAX
   package's ``power_spectrogram`` and ``stft`` at tests/test_torch_grad.py's
-  tolerance;
-- numpy models of both kernels' arithmetic
-  (``tools/torch_precision.py::grad_mixed_fft``, ``grad_odd_fft``: the
-  passes in frequency on conjugated values, the inverse split step, the
-  Rader transform again, the odd route's two pairings and the cotangents'
-  guard) against the plain adjoint within EXACT, NaN gradients, zero and
-  quiet frames beside loud ones and odd T included;
+  tolerance, the Bluestein route's configs among them;
+- numpy models of the kernels' arithmetic
+  (``tools/torch_precision.py::grad_mixed_fft``, ``grad_odd_fft``,
+  ``grad_bluestein``: the passes in frequency on conjugated values, the
+  inverse split step, the Rader transform again, the Bluestein transform
+  again with the chirp on the way in and the cluster's halves as its
+  ranks index them, the odd pairings and the cotangents' guard) against
+  the plain adjoint within EXACT, NaN gradients (which stay in their
+  frame), zero and quiet frames beside loud ones and odd T included;
 - the wrapper's dispatch off the CPU (meta tensors): the mixed route
-  (PACKED Rader plans included) and the odd route launch their kernel and
+  (PACKED Rader plans included), the odd route and the Bluestein route
+  (even, odd, cluster, zero-padded, every output) launch their kernel and
   the overlap-add alone, with no recompute of X and no dense operands; B1
-  only when forced; the ctypes prototypes against the C launchers.
+  only when forced; each wrapper refusing another route's config; the
+  ctypes prototypes against the C launchers (the Bluestein one's too).
 """
 
 import dataclasses
@@ -55,7 +60,8 @@ from spectral_tpu.core import stft as jstft  # noqa: E402
 
 from spectral_tpu_torch import SpecConfig  # noqa: E402
 from spectral_tpu_torch.core.stft import (  # noqa: E402
-    _window_f64, center_pad, fft_plan, frame_signal, num_frames)
+    _window_f64, bluestein_plan, center_pad, fft_plan, frame_signal,
+    num_frames)
 from spectral_tpu_torch.ops import stft_cuda  # noqa: E402
 
 FS = 1000.0
@@ -143,6 +149,21 @@ def _adjoint_cases():
             cases[f"{out}_{k}"] = (SD(k), out, None)
         cases[f"{out}_two_sided_odd"] = (
             dataclasses.replace(SD(45), onesided=False), out, None)
+    cases.update({
+        "bluestein_even_1028": (SD(1028), "psd", None),
+        "bluestein_odd_563": (SD(563), "psd", None),
+        "bluestein_linear_2049": (dataclasses.replace(SD(2049),
+                                                      detrend="linear"),
+                                  "psd", None),
+        "bluestein_nfft_2049_over_2000": (dataclasses.replace(SD(2000),
+                                                              nfft=2049),
+                                          "psd", None),
+        "bluestein_two_sided_magnitude_587": (
+            dataclasses.replace(SD(587), onesided=False, mode="magnitude"),
+            "magnitude", None),
+        "bluestein_stft_1126": (SD(1126), "stft", None),
+        "bluestein_band_563": (SD(563), "psd", (20, 200)),
+    })
     return cases
 
 
@@ -206,15 +227,16 @@ def _longdouble_adjoint(g, x, cfg, band, out):
 @pytest.mark.parametrize("name", sorted(ADJOINT_CASES))
 def test_fft_adjoint_matches_the_dense_backward(name, drop_large_operands):
     """frames_backward_fft_reference against frames_backward_reference,
-    both float64, on the mixed and odd routes, within EXACT. Past nfft 4096
-    the dense product's own error passes EXACT (1.34e-12 of the clip's
-    largest |d| at 8032, 8160 and 8191 against the long-double evaluation,
+    both float64, on the mixed, odd and Bluestein routes, within EXACT.
+    Past nfft 4096 the dense product's own error passes EXACT (1.34e-12 of
+    the clip's largest |d| at 8032, 8160 and 8191 against the long-double
+    evaluation,
     1.5e-13 at 992 and 1023, where the plain FFT adjoint stays within
     1e-14 of it), so there both are held to the long-double evaluation
     (:func:`_longdouble_adjoint`): the plain FFT adjoint within EXACT, the
     dense backward within its own error at that size."""
     cfg, out, band = ADJOINT_CASES[name]
-    assert stft_cuda.backward_route(cfg) in ("mixed", "odd")
+    assert stft_cuda.backward_route(cfg) in ("mixed", "odd", "bluestein")
     x = torch.from_numpy(signal(1, (2, 4 * cfg.nperseg + 37)))
     lo, hi = stft_cuda.check_band(cfg, band)
     T = num_frames(x.shape[-1], cfg.nperseg, cfg.hop_)
@@ -315,6 +337,11 @@ PSD_CHAIN = {
                                         pad_mode="reflect"),
     "mixed_linear": SpecConfig(nperseg=96, hop=24, detrend="linear"),
     "odd_linear": SpecConfig(nperseg=45, hop=11, detrend="linear"),
+    "bluestein_563": SD(563),
+    "bluestein_1028": SD(1028),
+    "bluestein_563_two_sided": dataclasses.replace(SD(563), onesided=False),
+    "bluestein_centered": dataclasses.replace(SD(563), center=True,
+                                              pad_mode="reflect"),
 }
 
 
@@ -324,7 +351,7 @@ def test_psd_chain_through_the_fft_adjoint_matches_jax(name, use_matmul):
     """The loss sum(psd * c) through the plain FFT adjoint against jax.grad
     of the JAX package's power_spectrogram on both its engines."""
     cfg = PSD_CHAIN[name]
-    assert stft_cuda.backward_route(cfg) in ("mixed", "odd")
+    assert stft_cuda.backward_route(cfg) in ("mixed", "odd", "bluestein")
     x = signal(3, (2, 1200), np.float32)
     shape = tuple(stft_cuda.stft_psd(torch.from_numpy(x), FS, cfg).shape)
     c = np.random.RandomState(4).rand(*shape).astype(np.float32)
@@ -342,6 +369,11 @@ STFT_CHAIN = {
     "rader_514": SD(514),
     "odd_centered": dataclasses.replace(SD(33), center=True,
                                         pad_mode="constant"),
+    "bluestein_563": SD(563),
+    "bluestein_1028": SD(1028),
+    "bluestein_563_two_sided": dataclasses.replace(SD(563), onesided=False),
+    "bluestein_centered": dataclasses.replace(SD(563), center=True,
+                                              pad_mode="constant"),
 }
 
 
@@ -428,6 +460,42 @@ def _model_cases():
         "odd_T_odd": (SD(33), "psd", None, {"n": 33 + 2 * 29 + 5}),
         "rader_T_odd": (SD(257), "psd", None, {"n": 257 + 2 * 225 + 5}),
     })
+    # the Bluestein route: even (one frame a block), odd (paired), 7207
+    # on the cluster's halves
+    for k in (1028, 1126, 563, 587, 2049, 7207):
+        cases[f"bluestein_{k}"] = (SD(k), "psd", None, {})
+    for k in (1028, 563):
+        cases[f"bluestein_linear_{k}"] = (
+            SpecConfig(nperseg=k, hop=k // 4, detrend="linear"), "psd", None,
+            {})
+        for out in ("magnitude", "complex", "stft"):
+            cases[f"bluestein_{out}_{k}"] = (SD(k), out, None, {})
+    cases.update({
+        "bluestein_stft_cluster_7207": (SD(7207), "stft", None, {}),
+        "bluestein_two_sided_even": (
+            dataclasses.replace(SD(1028), onesided=False), "psd", None, {}),
+        "bluestein_two_sided_odd": (
+            dataclasses.replace(SD(563), onesided=False), "psd", None, {}),
+        "bluestein_two_sided_odd_stft": (
+            dataclasses.replace(SD(587), onesided=False), "stft", None, {}),
+        "bluestein_band_even": (SD(1028), "psd", (30, 300), {}),
+        "bluestein_band_odd": (SD(563), "psd", (5, 90), {}),
+        "bluestein_nfft_2049_over_2000": (
+            dataclasses.replace(SD(2000), nfft=2049), "psd", None, {}),
+        "bluestein_T_odd_563": (SD(563), "psd", None,
+                                {"n": 563 + 2 * 493 + 5}),
+        "bluestein_T_odd_cluster_7207": (SD(7207), "psd", None,
+                                         {"n": 7207 + 2 * 6307 + 5}),
+        "bluestein_nan_g_odd": (SD(563), "psd", None, {"nan": True}),
+        "bluestein_nan_g_even": (SD(1028), "psd", None, {"nan": True}),
+        "bluestein_nan_g_odd_stft": (SD(587), "stft", None, {"nan": True}),
+        "bluestein_pair_breakers": (SD(563), "psd", None,
+                                    {"breakers": True}),
+        "bluestein_pair_breakers_magnitude": (
+            dataclasses.replace(SD(587), mode="magnitude"), "magnitude",
+            None, {"breakers": True}),
+        "bluestein_quiet_cotangent": (SD(563), "psd", None, {"quiet": True}),
+    })
     return cases
 
 
@@ -452,10 +520,12 @@ def _model_grad(cfg, out, band, opts):
         g[1, 2] *= 1e-6                       # frame 2's partner is loud
     want = stft_cuda.frames_backward_fft_reference(
         torch.from_numpy(g), torch.from_numpy(x), cfg, FS, band, out)
-    plan = fft_plan(cfg.nfft_)
+    route = stft_cuda.backward_route(cfg)
+    plan = (bluestein_plan if route == "bluestein" else fft_plan)(cfg.nfft_)
     wts = stft_cuda.kernel_weights(cfg, FS, out)
     mode = "complex" if out in ("complex", "stft") else out
-    model = tp.grad_odd_fft if cfg.nfft_ % 2 else tp.grad_mixed_fft
+    model = {"mixed": tp.grad_mixed_fft, "odd": tp.grad_odd_fft,
+             "bluestein": tp.grad_bluestein}[route]
     got = np.stack([model(
         frame_signal(torch.from_numpy(x[b]), cfg.nperseg, cfg.hop_).numpy(),
         _window_f64(cfg), plan, wts, g[b], cfg.detrend, cfg.nfft_, mode,
@@ -465,9 +535,9 @@ def _model_grad(cfg, out, band, opts):
 
 @pytest.mark.parametrize("name", sorted(MODEL_CASES))
 def test_kernel_models_match_the_plain_adjoint(name):
-    """grad_mixed_fft / grad_odd_fft (the kernels' arithmetic, in numpy)
-    against frames_backward_fft_reference, float64, within EXACT; a NaN in
-    one frame's gradient stays in that frame."""
+    """grad_mixed_fft / grad_odd_fft / grad_bluestein (the kernels'
+    arithmetic, in numpy) against frames_backward_fft_reference, float64,
+    within EXACT; a NaN in one frame's gradient stays in that frame."""
     cfg, out, band, opts = MODEL_CASES[name]
     got, want, g = _model_grad(cfg, out, band, opts)
     assert clip_rel(got, want) <= EXACT
@@ -475,6 +545,22 @@ def test_kernel_models_match_the_plain_adjoint(name):
         assert np.isnan(got[0, 1]).all()
         assert np.isfinite(np.delete(got[0], 1, axis=0)).all()
         assert np.isfinite(got[1]).all()
+
+
+def test_bluestein_model_on_the_clusters_halves():
+    """The Bluestein model's transform on the cluster's halves (7207: M =
+    14,580 on two ranks, the inverse's input zero past N in rank 0's half
+    as the recompute's) against the same plan on one block of M slots and
+    against numpy's DFT."""
+    plan = bluestein_plan(7207)
+    assert (plan.m, plan.ranks) == (14580, 2)
+    rs = np.random.RandomState(5)
+    re_, im = rs.randn(2, 7207), rs.randn(2, 7207)
+    want = np.fft.fft(re_ + 1j * im)
+    scale = np.abs(want).max()
+    for ranks in (2, 1):
+        zr, zi = tp._bluestein_transform(re_, im, plan._replace(ranks=ranks))
+        assert np.abs(zr + 1j * zi - want).max() <= 1e-12 * scale
 
 
 def test_odd_model_pairs_the_inverse_by_the_cotangents_guard():
@@ -573,6 +659,14 @@ DISPATCH = [
     ("odd", dataclasses.replace(SD(1023), onesided=False,
                                 mode="magnitude"), None, (3, 700)),
     ("odd", dataclasses.replace(SD(1024), nfft=2047), "stft", None),
+    ("bluestein", SD(1126), "psd", None),        # even, two blocks an SM
+    ("bluestein", SD(8182), "psd", None),        # even, one block
+    ("bluestein", dataclasses.replace(SD(2049), mode="magnitude"), None,
+     None),
+    ("bluestein", SD(8185), "stft", None),       # odd, the cluster
+    ("bluestein", dataclasses.replace(SD(2000), nfft=2049), "psd", None),
+    ("bluestein", dataclasses.replace(SD(563), onesided=False), "complex",
+     (10, 500)),
 ]
 
 
@@ -581,11 +675,12 @@ DISPATCH = [
                               for k, c, o, _ in DISPATCH])
 def test_backward_launches_the_routes_fft_adjoint_alone(monkeypatch, kind,
                                                         cfg, out, band):
-    """On a tensor off the CPU the mixed and odd routes' backward is one
-    launch of the route's FFT adjoint and the overlap-add: no recompute of
-    X by the forward's complex epilogue, no dense operands, no plain
-    version; the launch takes the forward's plan (its Rader row on the
-    Rader plans) and the config's sizes."""
+    """On a tensor off the CPU the mixed, odd and Bluestein routes'
+    backward is one launch of the route's FFT adjoint and the overlap-add:
+    no recompute of X by the forward's complex epilogue, no dense operands,
+    no plain version; the launch takes the forward's plan (its Rader row
+    on the Rader plans; M and the rows of b^, the chirp and the split step
+    on the Bluestein route) and the config's sizes."""
     calls = _meta_setup(monkeypatch)
     monkeypatch.setattr(stft_cuda, "_stft_psd_cuda", _fail)
     monkeypatch.setattr(stft_cuda, "dft_constants", _fail)
@@ -597,9 +692,14 @@ def test_backward_launches_the_routes_fft_adjoint_alone(monkeypatch, kind,
     assert names == [f"stft_{kind}_fft_backward_launch",
                      "overlap_add_launch"]
     args = calls[0][1]
-    plan = fft_plan(cfg.nfft_)
+    plan = (bluestein_plan if kind == "bluestein" else fft_plan)(cfg.nfft_)
     lo, hi = stft_cuda.check_band(cfg, band)
-    if kind == "mixed":
+    if kind == "bluestein":
+        assert args[5:10] == (len(plan.stages), plan.m, plan.bhat,
+                              plan.chirp, plan.split)
+        sizes = args[12:22]
+        assert args[22] == lo
+    elif kind == "mixed":
         assert args[7:9] == (plan.split, plan.rader)
         sizes = args[11:21]
         assert args[21] == lo
@@ -616,14 +716,18 @@ def test_backward_launches_the_routes_fft_adjoint_alone(monkeypatch, kind,
     assert moved == {"stft_backward": 0, "stft_fft_backward": 0,
                      "stft_mixed_backward": int(kind == "mixed"),
                      "stft_odd_backward": int(kind == "odd"),
+                     "stft_bluestein_backward": int(kind == "bluestein"),
                      "overlap_add": 1}
 
 
-@pytest.mark.parametrize("cfg", [SD(96), SD(514), SD(33), SD(8191)],
-                         ids=["mixed", "packed", "odd", "odd_rader"])
+@pytest.mark.parametrize("cfg", [SD(96), SD(514), SD(33), SD(8191),
+                                 SD(1126), SD(2049)],
+                         ids=["mixed", "packed", "odd", "odd_rader",
+                              "bluestein_even", "bluestein_odd"])
 def test_forced_dense_backward_launches_b1(monkeypatch, cfg):
-    """_backward="dense" on a mixed or odd config recomputes X by the
-    route's complex epilogue and launches stft_backward_launch (B1)."""
+    """_backward="dense" on a mixed, odd or Bluestein config recomputes X
+    by the route's complex epilogue and launches stft_backward_launch
+    (B1)."""
     calls = _meta_setup(monkeypatch)
 
     def meta_x(x, fs, cfg, *args, band=None, out_mode=None, **kwargs):
@@ -643,29 +747,37 @@ def test_each_fft_adjoint_refuses_another_routes_config():
     for cfg, wrong in ((SD(96), stft_cuda.frames_backward_odd),
                        (SD(33), stft_cuda.frames_backward_mixed),
                        (SD(2049), stft_cuda.frames_backward_mixed),
-                       (SD(64), stft_cuda.frames_backward_odd)):
+                       (SD(64), stft_cuda.frames_backward_odd),
+                       (SD(33), stft_cuda.frames_backward_bluestein),
+                       (SD(24), stft_cuda.frames_backward_bluestein)):
         T = num_frames(900, cfg.nperseg, cfg.hop_)
         g = torch.empty((2, T, cfg.n_freqs), device="meta")
         with pytest.raises(ValueError, match="is not on the"):
             wrong(g, x, cfg, FS)
     for cfg, forced in ((SD(96), "odd"), (SD(33), "mixed"), (SD(33), "fft"),
-                        (SD(2049), "mixed")):
+                        (SD(2049), "mixed"), (SD(96), "bluestein"),
+                        (SD(24), "bluestein"), (SD(2049), "odd")):
         T = num_frames(900, cfg.nperseg, cfg.hop_)
         g = torch.empty((2, T, cfg.n_freqs), device="meta")
         with pytest.raises(ValueError, match=f"no '{forced}' backward"):
             stft_cuda.stft_backward(x, g, _meta_op(cfg), _backward=forced)
 
 
-@pytest.mark.parametrize("cfg", [SD(96), SD(514), SD(33)],
-                         ids=["mixed", "packed", "odd"])
+@pytest.mark.parametrize("cfg", [SD(96), SD(514), SD(33), SD(1028),
+                                 SD(563)],
+                         ids=["mixed", "packed", "odd", "bluestein_even",
+                              "bluestein_odd"])
 def test_cpu_tensors_take_the_plain_adjoint(cfg):
-    """frames_backward_mixed / _odd on CPU tensors are the plain FFT
-    adjoint."""
-    x = torch.from_numpy(signal(9, (2, 700)))
-    T = num_frames(700, cfg.nperseg, cfg.hop_)
+    """frames_backward_mixed / _odd / _bluestein on CPU tensors are the
+    plain FFT adjoint."""
+    n = max(700, 3 * cfg.nperseg)
+    x = torch.from_numpy(signal(9, (2, n)))
+    T = num_frames(n, cfg.nperseg, cfg.hop_)
     g = cotangent(10, (2, T, cfg.n_freqs), "psd")
-    fn = (stft_cuda.frames_backward_odd if cfg.nfft_ % 2
-          else stft_cuda.frames_backward_mixed)
+    fn = {"mixed": stft_cuda.frames_backward_mixed,
+          "odd": stft_cuda.frames_backward_odd,
+          "bluestein": stft_cuda.frames_backward_bluestein}[
+              stft_cuda.backward_route(cfg)]
     assert torch.equal(fn(g, x, cfg, FS),
                        stft_cuda.frames_backward_fft_reference(g, x, cfg, FS))
 
@@ -697,7 +809,8 @@ def test_ctypes_prototypes_match_the_launchers(monkeypatch):
     lib = stft_cuda._grad_mixed_library()
     src = (CSRC / "stft_grad_mixed.cu").read_text()
     for entry in ("stft_mixed_fft_backward_launch",
-                  "stft_odd_fft_backward_launch"):
+                  "stft_odd_fft_backward_launch",
+                  "stft_bluestein_fft_backward_launch"):
         params = _c_params(src, entry)
         types = getattr(lib, entry).argtypes
         assert len(types) == len(params)

@@ -1,7 +1,8 @@
 """tools/torch_kernel_variants.py's table, held to the CUDA sources on the
 CPU: each variant of each kernel is a textual edit that must match its
 source (csrc/stft_psd.cu, csrc/stft_grad.cu for the radix-2 backward, or
-csrc/stft_grad_mixed.cu for the mixed and odd routes' backward) exactly
+csrc/stft_grad_mixed.cu for the mixed, odd and Bluestein routes'
+backward) exactly
 once (the tool refuses to build one that does not), so a change
 to the source that leaves a variant behind shows here and not first on
 the card."""
@@ -43,13 +44,14 @@ def test_variant_source_refuses_a_stale_edit():
 def test_every_kernel_names_its_routes_and_configs():
     """The kernels the table times are the STFT/PSD route's FFT kernels,
     the pass engine's Rader plans (the mixed route's and the odd route's),
-    the GEMM route's small-K tile, the radix-2 route's backward and the
-    mixed and odd routes' backward, each on configs of its own routes."""
+    the GEMM route's small-K tile, the radix-2 route's backward, the
+    mixed and odd routes' backward and the Bluestein route's, each on
+    configs of its own routes."""
     import importlib
     stft_cuda = importlib.import_module("spectral_tpu_torch.ops.stft_cuda")
     from spectral_tpu_torch import SpecConfig
     assert set(tkv.KERNELS) == {"r2", "mixed", "conv", "rader", "small",
-                                "grad", "grad_mixed"}
+                                "grad", "grad_mixed", "grad_bluestein"}
     for kern in tkv.KERNELS.values():
         for k in kern.nperseg:
             assert stft_cuda.route(SpecConfig.scipy_default(k)) in kern.routes

@@ -16,7 +16,9 @@ radix-2 route's backward, ``stft_fft_backward_launch`` in
 ``csrc/stft_grad.cu``, on a seeded gradient of the PSD) or ``grad_mixed``
 (the mixed and odd routes' backward, ``stft_mixed_fft_backward_launch``
 and ``stft_odd_fft_backward_launch`` in ``csrc/stft_grad_mixed.cu``, a
-source of their own, the same way). Builds the
+source of their own, the same way) or ``grad_bluestein`` (the Bluestein
+route's backward, ``stft_bluestein_fft_backward_launch`` in the same
+source). Builds the
 kernel's source as it
 stands ("this") and each of the kernel's variants, a textual edit of the
 same source that must match it exactly once, with the port's nvcc flags
@@ -412,6 +414,34 @@ GRAD_MIXED_VARIANTS = {
 }
 
 
+GRAD_BLUESTEIN_VARIANTS = {
+    "one_block": (
+        "one block an SM at every M, not two up to BLUE_TWO_BLOCK_POINTS "
+        "(64 registers, the forward's)",
+        [("ranks == 2 ? 2 : (local <= BLUE_TWO_BLOCK_POINTS ? 1 : 0);",
+          "ranks == 2 ? 2 : 0;")]),
+    "no_forward": (
+        "ablation: the recompute's transform removed (the loads, the "
+        "cotangent and the inverse kept; X from the loaded values)",
+        [("                            : make_double2(0.0, 0.0);\n"
+          "      transform();\n    }\n",
+          "                            : make_double2(0.0, 0.0);\n    }\n"),
+         ("                    : make_double2(0.0, 0.0);\n      }\n"
+          "      transform();\n    }\n",
+          "                    : make_double2(0.0, 0.0);\n      }\n    }\n")]),
+    "no_inverse": (
+        "ablation: the inverse transform removed (the store reads the "
+        "cotangent pass's values)",
+        [("    // 3. the inverse: the same transform of conj Z', y_j = conj "
+          "z'[j]\n    transform();\n",
+          "    // 3. the inverse: the same transform of conj Z', y_j = conj "
+          "z'[j]\n"),
+         ("    transform();\n    if (!lead) continue;\n",
+          "    if (!lead) continue;\n")]),
+    "no_cotangent": GRAD_MIXED_VARIANTS["no_cotangent"],
+}
+
+
 def _r2_launch(stft_cuda, cfg, dev, a):
     c = stft_cuda.fft_constants(cfg, FS, dev)
     return lambda lib: lib.stft_fft_psd_launch(
@@ -489,6 +519,26 @@ def _grad_mixed_launch(stft_cuda, cfg, dev, a):
         return lib.stft_mixed_fft_backward_launch(
             *head, c.split, c.rader, c.wts.data_ptr(), d.data_ptr(), *sizes,
             0, a.stream)
+    launch.output = d
+    return launch
+
+
+def _grad_bluestein_launch(stft_cuda, cfg, dev, a):
+    """stft_bluestein_fft_backward_launch on a seeded gradient of the PSD;
+    the frames' gradient d is the output compared."""
+    import torch
+    c = stft_cuda.bluestein_constants(cfg, FS, dev)
+    B, n, T, F, K, L, hop = a.shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g = torch.rand((B, T, F), generator=gen, device=dev)
+    d = torch.empty((B, T, L), device=dev)
+
+    def launch(lib):
+        return lib.stft_bluestein_fft_backward_launch(
+            a.x, g.data_ptr(), c.window.data_ptr(), c.twiddles.data_ptr(),
+            c.stages.ctypes.data, len(c.stages), c.m, c.bhat, c.chirp,
+            c.split, c.wts.data_ptr(), d.data_ptr(), B, n, T, F, K, L, hop,
+            a.detrend, 0, 0, 0, a.stream)
     launch.output = d
     return launch
 
@@ -571,6 +621,14 @@ KERNELS = {
          ("path 11 scipy_default 8186", 8186, None)),
         (992, 1006, 1023, 8032), _grad_mixed_launch, GRAD_MIXED_VARIANTS,
         "stft_grad_mixed"),
+    "grad_bluestein": Kernel(
+        ("bluestein",),
+        (r"stft_bluestein_fft_backward_kernelILi(\d)ELb(\d)ELb(\d)E",
+         lambda e: f"<{e.group(1)}, {e.group(2)}, {e.group(3)}>"),
+        (("path 8 scipy_default 8185", 8185, None),
+         ("path 9 scipy_default 8182", 8182, None)),
+        (563, 1126, 2049, 2999, 6994), _grad_bluestein_launch,
+        GRAD_BLUESTEIN_VARIANTS, "stft_grad_mixed"),
 }
 
 
@@ -595,6 +653,8 @@ def load(so):
              [ptr] * 6 + [i32] * 3 + [ptr] * 2 + [i32, i64] + [i32] * 9),
             ("stft_odd_fft_backward_launch",
              [ptr] * 6 + [i32] * 2 + [ptr] * 2 + [i32, i64] + [i32] * 9),
+            ("stft_bluestein_fft_backward_launch",
+             [ptr] * 5 + [i32] * 5 + [ptr] * 2 + [i32, i64] + [i32] * 9),
             ("stft_psd_launch", [ptr] * 4 + out + [i32] * 7),
             ("stft_fft_psd_launch", [ptr] * 4 + out + [i32] * 10),
             ("stft_mixed_fft_psd_launch",

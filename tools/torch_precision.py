@@ -730,19 +730,37 @@ def grad_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
     What differs from the card: the detrend's sums are numpy's, and numpy
     rounds the products where the card may fuse them (FMA)."""
     v = padded(detrended(frames.astype(np.float64), detrend) * window, nfft)
+    M = v.shape[-1] // 2
+
+    def transform(re, im):
+        zr, zi = np.empty_like(re), np.empty_like(im)
+        zr[:, plan.perm], zi[:, plan.perm] = re, im
+        return _transform(zr, zi, plan, M)
+
+    return _grad_packed(v, window, detrend, plan.twiddles[plan.split:],
+                        transform, lambda re, im: _inverse_transform(
+                            re, im, plan, M), wts, g, mode, band, two_sided)
+
+
+def _grad_packed(v, window, detrend, split, transform, inverse, wts, g,
+                 mode, band, two_sided):
+    """The even-K backward kernels' arithmetic on the detrended, windowed
+    (T, K) frames v: X of the packed frame (``transform(re, im)``, the
+    M = K/2-point DFT of values in natural order, natural order out) by the
+    split step (``split`` the W_K^k rows), H1, S, conj Z' by the inverse
+    split step, ``inverse(re, im)`` of conj Z' in natural order (the DFT,
+    natural order out: y[j] = conj z'[j]), then the store."""
     T, K = v.shape
     M = K // 2
     nb = M + 1
     band = (0, wts.shape[0]) if band is None else band
-    split = plan.twiddles[plan.split:plan.split + M]
+    split = split[:M]
     k = np.arange(nb)
     wr = np.where(k < M, split[np.minimum(k, M - 1), 0], -1.0)
     wi = np.where(k < M, split[np.minimum(k, M - 1), 1], 0.0)
     xr, xi = np.zeros((T, nb)), np.zeros((T, nb))
     if mode != "complex":
-        re, im = np.empty((T, M)), np.empty((T, M))
-        re[:, plan.perm], im[:, plan.perm] = v[:, 0::2], v[:, 1::2]
-        re, im = _transform(re, im, plan, M)
+        re, im = transform(v[:, 0::2], v[:, 1::2])
         a, b = k % M, (M - k) % M
         ar, ai, br, bi = re[:, a], im[:, a], re[:, b], im[:, b]
         er, ei = 0.5 * (ar + br), 0.5 * (ai - bi)
@@ -758,7 +776,7 @@ def grad_mixed_fft(frames: np.ndarray, window: np.ndarray, plan,
     dr, di = s_r - tr, s_i + ti
     o_r = dr * wr[:M] + di * wi[:M]
     o_i = di * wr[:M] - dr * wi[:M]
-    yr, yi = _inverse_transform(er - o_i, -(ei + o_r), plan, M)
+    yr, yi = inverse(er - o_i, -(ei + o_r))
     dv = np.empty((T, K))
     dv[:, 0::2], dv[:, 1::2] = yr, -yi
     return _frame_gradient(dv, window, detrend)
@@ -813,17 +831,31 @@ def grad_odd_fft(frames: np.ndarray, window: np.ndarray, plan,
     are numpy's, and numpy rounds the products where the card may fuse
     them (FMA)."""
     v = padded(detrended(frames.astype(np.float64), detrend) * window, nfft)
-    T, K = v.shape
-    H = K // 2
-    nb = H + 1
-    band = (0, wts.shape[0]) if band is None else band
-    f = np.arange(nb)
+    K = v.shape[-1]
 
     def transform(re, im):
         zr, zi = np.empty_like(re), np.empty_like(im)
         zr[:, plan.perm], zi[:, plan.perm] = re, im
         return _transform(zr, zi, plan, K)
 
+    return _grad_pairs(v, window, detrend, transform,
+                       lambda re, im: _inverse_transform(re, im, plan, K),
+                       wts, g, mode, band, two_sided)
+
+
+def _grad_pairs(v, window, detrend, transform, inverse, wts, g, mode, band,
+                two_sided):
+    """The odd-K backward kernels' arithmetic on the detrended, windowed
+    (T, K) frames v: the recompute's pairing (:func:`paired_frames`) around
+    ``transform(re, im)`` (the K-point DFT of values in natural order,
+    natural order out), S, the cotangents' pairing (:func:`pair_units`),
+    conj Z' and ``inverse(re, im)`` of it in natural order (the DFT,
+    natural order out), then the store."""
+    T, K = v.shape
+    H = K // 2
+    nb = H + 1
+    band = (0, wts.shape[0]) if band is None else band
+    f = np.arange(nb)
     xr, xi = np.zeros((T, nb)), np.zeros((T, nb))
     fwd = paired_frames(v) if mode != "complex" else np.zeros(T, bool)
     if mode != "complex":
@@ -855,7 +887,7 @@ def grad_odd_fft(frames: np.ndarray, window: np.ndarray, plan,
         zr[:, 1:nb], zi[:, 1:nb] = ar[:, 1:] - bi[:, 1:], -(ai[:, 1:]
                                                              + br[:, 1:])
         zr[:, m], zi[:, m] = ar[:, 1:] + bi[:, 1:], ai[:, 1:] - br[:, 1:]
-        yr, yi = _inverse_transform(zr, zi, plan, K)
+        yr, yi = inverse(zr, zi)
         dv[a_rows], dv[a_rows + 1] = yr, -yi
     alone = np.flatnonzero(~inv)
     if alone.size:
@@ -864,9 +896,44 @@ def grad_odd_fft(frames: np.ndarray, window: np.ndarray, plan,
         zr[:, 0], zi[:, 0] = s_r[:, 0], 0.0
         zr[:, 1:nb], zi[:, 1:nb] = s_r[:, 1:], -s_i[:, 1:]
         zr[:, m], zi[:, m] = s_r[:, 1:], s_i[:, 1:]
-        yr, _ = _inverse_transform(zr, zi, plan, K)
+        yr, _ = inverse(zr, zi)
         dv[alone] = yr
     return _frame_gradient(dv, window, detrend)
+
+
+def grad_bluestein(frames: np.ndarray, window: np.ndarray, plan,
+                   wts: np.ndarray, g: np.ndarray, detrend: str = "none",
+                   nfft: Optional[int] = None, mode: str = "psd", band=None,
+                   two_sided: bool = False) -> np.ndarray:
+    """(T, L) frames' gradient by the Bluestein backward kernel's arithmetic
+    (``csrc/stft_grad_mixed.cu::stft_bluestein_fft_backward_kernel``),
+    float64, ``plan`` = ``bluestein_plan(nfft)``, g, wts, ``mode``, ``band``
+    and ``two_sided`` as :func:`grad_mixed_fft`. Every transform, the
+    recompute's and the inverse's, is :func:`_bluestein_transform` (the
+    chirp times each value on its way in, the convolution, X[k] = w_k
+    conj(slot k) out; a plan of two ranks modelled as the cluster indexes
+    its halves):
+
+    - even K (N = K/2): :func:`grad_mixed_fft`'s arithmetic, the packed
+      frame's transform and the inverse of conj Z' both Bluestein's (the
+      kernel writes w_k conj Z'[k] into slot k and reads y_j = w_j
+      conj(slot j) = conj z'[j]);
+    - odd K (N = K): :func:`grad_odd_fft`'s pairings, each transform
+      Bluestein's.
+
+    What differs from the card: the detrend's sums and both guards' sums
+    are numpy's, and numpy rounds the products where the card may fuse
+    them (FMA)."""
+    v = padded(detrended(frames.astype(np.float64), detrend) * window, nfft)
+
+    def transform(re, im):
+        return _bluestein_transform(re, im, plan)
+
+    if v.shape[-1] % 2:
+        return _grad_pairs(v, window, detrend, transform, transform, wts, g,
+                           mode, band, two_sided)
+    return _grad_packed(v, window, detrend, plan.twiddles[plan.split:],
+                        transform, transform, wts, g, mode, band, two_sided)
 
 
 def fft_operands(cfg: SpecConfig, fs: float = FS, out=None):

@@ -52,7 +52,9 @@ the count, median of 5, with digests of the first clips' PSD, words and
 flags; and path 21's training steps (with no path named, or 21 named):
 the waveform of path 1's batch requiring grad, ``batched_spectrogram_fn``
 at north_star 1024/256 log, and of path 4's batch (256 clips of 60 s) at
-scipy_default 8160 log (the mixed route's backward), the loss on the
+scipy_default 8160 log (the mixed route's backward), 8182 log and 8185
+log (the Bluestein route's, on one block and on a cluster), the loss on
+the
 image and the PSD as ``chip_smoke.py`` takes it, ``backward()`` and a
 synchronise, its wall ms on the host clock (median of 5 after a
 warm-up), the launches of a step, and a digest, the norm and the largest
@@ -167,7 +169,8 @@ def time_pipelines(paths, report, SpecConfig, batch, dev):
         torch.cuda.empty_cache()
     if not paths or 21 in paths:
         time_grad_step(report, SpecConfig, batch)
-        time_grad_step(report, SpecConfig, batch, 8160)
+        for k in (8160, 8182, 8185):
+            time_grad_step(report, SpecConfig, batch, k)
 
 
 def time_grad_step(report, SpecConfig, batch, nperseg=None):
