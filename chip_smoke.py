@@ -59,7 +59,12 @@ at T 1, 2, 3, 600, 2047, 2048 and 65,536 on an escape-patched EM model
 and a supervised one, both forms (a block a sequence up to 2048, chunked
 at every T), paths identical to the plain versions' and to each other;
 H3, the chunked E-step, at T 2048, 8192 and 524,288, statistics within
-HMM_STATS_TOL and the log-likelihood within HMM_LL_TOL; a six-state model
+HMM_STATS_TOL and the log-likelihood within HMM_LL_TOL; H3's EM loop on
+the card (``fit_chunked``) at T 2048, 4097 and 65,536 on 1-4 sequences
+that converge apart, n_iter 0, 1, 12 and 100, with structural zeros and
+stopped at it == 2, its iteration counts equal to the plain loop's,
+within HMM_PARAM_TOL and HMM_LL_TOL of it, and bitwise the host loop over
+one E-step launch an iteration and the torch M-step; a six-state model
 (the instantiation for 5-8 states) through all three at T 3000; with
 each kernel's ptxas registers and spills. Then it drives eighteen paths at
 full size, the GUI, the command line, the extended modes and the
@@ -119,9 +124,12 @@ launch the detection kernels named there):
     k-means init, H1, H2 in both forms, scans) with the EM iterations;
 15. one long recording: ``BurstDetector(engine='auto')`` on 524,288
     frames (48 kHz, north_star 1024/256), features 0-4000 Hz: the STFT
-    kernel, one H3 launch an EM iteration and H2's chunked form; the path
-    held to the plain chunked versions (Viterbi on every frame, the
-    E-step's statistics and log-likelihood), the planted bursts found;
+    kernel, H3's EM loop on the card (one call, the flags read once every
+    EM_GROUP iterations) and H2's chunked form; the path held to the plain
+    chunked versions (Viterbi on every frame, the E-step's statistics and
+    log-likelihood), the loop bitwise the host loop over one E-step launch
+    an iteration and the torch M-step, the planted bursts found; the loop
+    timed and split by stage (``torch.profiler``);
 16. the interactive session (``api/session.py``, the reference app's
     flow): an hour at 48 kHz with path 15's kind of planted bursts,
     written as a 16-bit WAV, loaded through ``SweepRegistry`` and plotted
@@ -130,7 +138,8 @@ launch the detection kernels named there):
     PSD; the plot's latency split into upload, kernel, band + normalize,
     the copy back and the host), a 10-minute cut held to scipy float64,
     128 log mels with a global max (the mel kernel), ``unsupervised_detect``
-    (the PSD recomputed past the session's cache cap, H3 and H2 chunked,
+    (the PSD recomputed past the session's cache cap, H3's EM loop and H2
+    chunked,
     ``detection_quality``), the CSV and PNG exports (their status strings
     and files; the PNG encoded natively, timed beside PIL and zlib), and
     an ABF file of 20 sweeps combined, its segment map and CSV
@@ -148,7 +157,7 @@ launch the detection kernels named there):
     the rise of ``max_memory_allocated`` under a bound from the block size
     and no larger at the hour than at half of it; ``stream_detect`` on
     channel 0, its events equal to ``BurstDetector(engine='auto')`` on the
-    monolithic features (H3 an EM iteration, H2 chunked once),
+    monolithic features (H3's EM loop once, H2 chunked once),
     ``detection_quality``; ``iter_stream`` over a 10-minute cut ending in
     a short chunk, bitwise the monolithic frames; ``stream_spectrogram``
     over the cut at scipy_default 8191 (the odd route) within 2 float32
@@ -1033,11 +1042,15 @@ def kernel_cases(dev):
 
 
 def bitwise(a, b):
-    """Equal bit patterns, NaN in the same places (any payload)."""
+    """Equal bit patterns, NaN in the same places (any payload); 4- or
+    8-byte elements of one dtype."""
     import torch
+    if a.dtype != b.dtype:
+        return False
+    bits = torch.int64 if a.element_size() == 8 else torch.int32
     na, nb = torch.isnan(a), torch.isnan(b)
-    ia = torch.where(na, 0, a.contiguous().view(torch.int32))
-    ib = torch.where(nb, 0, b.contiguous().view(torch.int32))
+    ia = torch.where(na, 0, a.contiguous().view(bits))
+    ib = torch.where(nb, 0, b.contiguous().view(bits))
     return bool(torch.equal(na, nb) and torch.equal(ia, ib))
 
 
@@ -2567,6 +2580,10 @@ FIT_CASES = (           # (T, D, K, variant, n_iter)
     (2047, 1, 2, "init", 8), (600, 2, 6, "init", 30))
 VITERBI_T = (1, 2, 3, 600, 2047, 2048, 65536)
 ESTEP_T = (2048, 8192, 524288)
+FIT_CHUNKED_CASES = (   # (T, B, variant, n_iter) of H3's EM loop
+    (2048, 1, "init", 100), (4097, 3, "init", 100), (4097, 2, "zeros", 100),
+    (4097, 2, "converged", 100), (2048, 4, "init", 0), (2048, 2, "init", 1),
+    (65536, 2, "init", 12))
 
 
 def hmm_features(rng, T, D=2):
@@ -2590,14 +2607,76 @@ def field_err(got, want):
     return diff / scale if scale else diff
 
 
+# every kernel of csrc/hmm.cu in nvcc's log: (entry pattern, label)
+HMM_PTXAS = (r"(hmm_fit|hmm_viterbi|chunk_transfer|est_transfer|vit_scan|"
+             r"vit_decode|vit_compose|vit_backtrace|est_scan|est_chunk|"
+             r"est_reduce|est_mstep)_kernel(?:ILi(\d)E)?(?:Lb(\d)E)?",
+             lambda e: e.group(1) + (f"<KM {e.group(2)}" + (
+                 f", LOGSUM {e.group(3)}" if e.group(3) else "") + ">"
+                 if e.group(2) else ""))
+
+
 def hmm_ptxas(log):
-    return radix2_ptxas(
-        log, r"(hmm_fit|hmm_viterbi|chunk_transfer|vit_scan|vit_decode|"
-        r"vit_compose|vit_backtrace|est_scan|est_chunk|est_reduce)_kernel"
-        r"(?:ILi(\d)E)?(?:Lb(\d)E)?",
-        lambda e: e.group(1) + (f"<KM {e.group(2)}" + (
-            f", LOGSUM {e.group(3)}" if e.group(3) else "") + ">"
-            if e.group(2) else ""))
+    return radix2_ptxas(log, *HMM_PTXAS)
+
+
+def host_chunked_fit(X, p0, L, n_iter, tol):
+    """The chunked EM loop as the port ran it before the loop moved to the
+    card: ``models/hmm.py::_em_loop`` on the host over one launch of H3's
+    E-step an iteration (``estep_chunked``) and the M-step in float64
+    torch. Returns (params, ll, it)."""
+    from spectral_tpu_torch.models import hmm
+    from spectral_tpu_torch.ops import hmm_cuda
+    K, D = p0[0].shape[-1], X.shape[-1]
+
+    def estep(p, X):
+        st, ll = hmm_cuda.estep_chunked(X, tuple(q.contiguous() for q in p),
+                                        L)
+        return hmm_cuda.split_stats(st, K, D), ll
+    p, ll, it = hmm._em_loop(estep, hmm.HMMParams(*p0), X, n_iter, tol)
+    return tuple(p), ll, it
+
+
+# H3's kernels by stage, by a part of their names (the first match)
+HMM_STAGES = (("transfer", "transfer"), ("scan", "est_scan"),
+              ("chunk_pass", "est_chunk"), ("reduce_mstep", "est_mstep"),
+              ("reduce_mstep", "est_reduce"))
+
+
+def kernel_split(fn, stages):
+    """fn() once under torch.profiler, the device traced alone: the summed
+    device ms of the kernels of each stage ((stage, part of the kernel's
+    name) pairs, the first that matches), the device's busy ms and its
+    idle share over the span from its first event to its last, and the
+    device-to-host copies; None when the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.5)               # let the device tracing start first
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = max(b for _, b in spans) - spans[0][0]
+    split = {}
+    for e in device:
+        stage = next((st for st, part in stages if part in e.name), None)
+        if stage:
+            split[stage] = split.get(stage, 0.0) + 1e-3 * (
+                e.time_range.end - e.time_range.start)
+    copies = sum("DtoH" in e.name or "Device -> P" in e.name for e in device)
+    return {"stage_ms": split, "busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "idle_share": 1 - busy / span if span else 0.0,
+            "d2h_copies": copies}
 
 
 def hmm_params(feats, K, dev, variant):
@@ -2749,6 +2828,44 @@ def hmm_kernel_cases(dev):
                 f"H3 T={T}: statistics {errs}, ll {ll_rel:.2e}")
         print(f"H3 E-step T={T}: statistics max rel {max(errs):.2e}, ll "
               f"{float(ll[0]):.6f} rel {ll_rel:.2e}")
+
+    # H3's EM loop on the card against the plain loop (the host loop over
+    # the plain E-step) and, bitwise, against the host loop over H3's
+    # single E-step and the torch M-step
+    for T, B, variant, n_iter in FIT_CHUNKED_CASES:
+        feats = [hmm_features(np.random.RandomState(T + s), T)
+                 for s in range(B)]
+        X = torch.tensor(np.stack(feats), device=dev)
+        p0 = tuple(stack_params([hmm_params(f, 4, dev, variant)
+                                 for f in feats]))
+        tol = 1e30 if variant == "converged" else hmm.DEFAULT_TOL
+        L = hmm_cuda.chunk_len(4)
+        got, ll, it = hmm_cuda.fit_chunked(X, p0, L, n_iter, tol)
+        host, ll_h, it_h = host_chunked_fit(X, p0, L, n_iter, tol)
+        want, ll_p, it_p = hmm_cuda.fit_chunked_reference(X, p0, L, n_iter,
+                                                          tol)
+        torch.cuda.synchronize()
+        same = (all(bitwise(g, h) for g, h in zip(got, host))
+                and bitwise(ll, ll_h) and bitwise(it, it_h))
+        errs = [field_err(g, w) for g, w in zip(got, want)]
+        if n_iter == 0:
+            ll_rel = 0.0 if bool(torch.isneginf(ll).all()) else math.inf
+        else:
+            ll_rel = float(((ll - ll_p).abs() / ll_p.abs()).max())
+        line = (f"H3's EM loop T={T} B={B} {variant} n_iter {n_iter}: "
+                f"iterations {it.tolist()} (plain {it_p.tolist()}), params "
+                f"max rel {max(errs):.2e}, ll rel {ll_rel:.2e}; bitwise the "
+                f"host loop over one E-step a launch {same}")
+        require(same and torch.equal(it, it_p)
+                and max(errs) <= HMM_PARAM_TOL and ll_rel <= HMM_LL_TOL
+                and (variant != "converged" or it.tolist() == [2] * B)
+                and (n_iter > 0 or all(bitwise(g, q)
+                                       for g, q in zip(got, p0))), line)
+        if variant == "zeros" and n_iter > 0:
+            require(bool((got[1][:, 0, 3] == 0).all())
+                    and bool((got[0][:, 2:] == 0).all()),
+                    "H3's EM loop keeps structural zeros")
+        print(line)
 
 
 def hmm_fit_ops(T, D, K, iters):
@@ -3024,7 +3141,9 @@ def detect_path(dev, card, dfma_peak):
     return {
         "hmm_fit": dict(launches=counts["hmm"]["fit"], err=fit_abs,
                         ms=tm["fit_kernel"][0], plain_ms=fit_plain_ms,
-                        bound=fit_bound, library_ms=None),
+                        bound=fit_bound, library_ms=None, extra={
+                            "ns_a_step": 1e6 * tm["fit_kernel"][0] / steps,
+                            "iterations": int(its.max())}),
         "hmm_viterbi": dict(launches=counts["hmm"]["viterbi"], err=vit_err,
                             ms=tm["viterbi_kernel"][0],
                             plain_ms=vit_plain_ms, bound=vit_bound,
@@ -3038,7 +3157,7 @@ LONG_T = 524288         # frames: an hour of 48 kHz audio at hop 256
 def long_detect_path(dev, card, dfma_peak):
     """Path 15, one long recording: BurstDetector(engine='auto') on 524,288
     frames (48 kHz, north_star 1024/256, 134,218,496 samples), features
-    0-4000 Hz: the chunked engine (the host EM loop over H3, then H2's
+    0-4000 Hz: the chunked engine (H3's EM loop on the card, then H2's
     chunked form)."""
     import numpy as np
     import torch
@@ -3064,6 +3183,7 @@ def long_detect_path(dev, card, dfma_peak):
     torch.cuda.synchronize()
     det = BurstDetector(engine="auto", device=dev)
     reset_counts()
+    hmm_cuda.flag_reads["fit_chunked"] = 0
     t0 = time.perf_counter()
     psd = power_spectrogram(x, LONG_FS, cfg, band=band)
     feats = ev.features_from_psd(fb, psd, 0.0, 4000.0)[0]
@@ -3072,10 +3192,16 @@ def long_detect_path(dev, card, dfma_peak):
     counts = read_counts()
     print(f"launches in this path's run: {counts}")
     iters = det.timings["iterations"]
-    require_counts(counts, {"stft_fft": 1, "hmm_estep_chunked": iters,
+    reads = hmm_cuda.flag_reads["fit_chunked"]
+    require_counts(counts, {"stft_fft": 1, "hmm_fit_chunked": 1,
                             "hmm_viterbi_chunked": 1}, "path 15")
     require(iters >= 1 and len(events) >= 1, f"path 15: {iters} "
             f"iterations, {len(events)} events")
+    require(reads <= math.ceil(iters / hmm_cuda.EM_GROUP) + 1,
+            f"path 15: {reads} host reads of the flags for {iters} "
+            f"iterations")
+    print(f"the EM loop on the card: {iters} iterations, {reads} host reads "
+          f"of the flags (groups of {hmm_cuda.EM_GROUP})")
     X = feats.to(torch.float64)[None].contiguous()
     patched = hmm.HMMParams(*(p[None].contiguous() for p in det.params))
     L = hmm_cuda.chunk_len(4)
@@ -3110,9 +3236,38 @@ def long_detect_path(dev, card, dfma_peak):
     def read():
         bool(tiny.any())
 
+    # the loop from the detector's start (the host k-means again), against
+    # the host loop over one E-step a launch and the torch M-step, bitwise
+    p0 = tuple(q[None].contiguous() for q in hmm.init_params(
+        feats.cpu().numpy(), 4, seed=det.seed, device=dev))
+    fit_k = hmm_cuda.fit_chunked(X, p0, L, det.n_iter, hmm.DEFAULT_TOL)
+    fit_h = host_chunked_fit(X, p0, L, det.n_iter, hmm.DEFAULT_TOL)
+    require(all(bitwise(a, b) for a, b in zip((*fit_k[0], fit_k[1]),
+                                                (*fit_h[0], fit_h[1])))
+            and torch.equal(fit_k[2], fit_h[2]) and int(fit_k[2][0]) == iters,
+            "path 15: the EM loop on the card vs the host loop over H3's "
+            "E-step and the torch M-step (bitwise)")
+    print(f"the EM loop on the card: bitwise the host loop over one E-step "
+          f"a launch and the torch M-step ({iters} iterations)")
+    split = kernel_split(lambda: hmm_cuda.fit_chunked(
+        X, p0, L, det.n_iter, hmm.DEFAULT_TOL), HMM_STAGES)
+    if split is None:
+        print("path 15's EM loop: torch.profiler shows no device time on "
+              "this machine")
+    else:
+        print(f"path 15's EM loop, {iters} iterations: kernels by stage "
+              f"{split['stage_ms']} ms; device busy {split['busy_ms']:.3f} "
+              f"ms of {split['span_ms']:.3f} (idle share "
+              f"{split['idle_share']:.4f}); {split['d2h_copies']} "
+              f"device-to-host copies [{card}]")
     tm = {
         "stft_kernel": time_ms(lambda: stft_cuda.stft_psd(
             x, LONG_FS, cfg, band=band)),
+        "fit_chunked": time_ms(lambda: hmm_cuda.fit_chunked(
+            X, p0, L, det.n_iter, hmm.DEFAULT_TOL), reps=3),
+        "fit_chunked_plain_one_iteration": time_ms(
+            lambda: hmm_cuda.fit_chunked_reference(
+                X, p0, L, 1, hmm.DEFAULT_TOL), reps=1),
         "estep_kernel": time_ms(lambda: hmm_cuda.estep_chunked(
             X, patched, L)),
         "estep_plain": time_ms(lambda: hmm_cuda.estep_chunked_reference(
@@ -3131,11 +3286,13 @@ def long_detect_path(dev, card, dfma_peak):
     for name, (ms, reps) in tm.items():
         print(f"{name}: {ms:.4f} ms [{card}] reps {reps}")
     fit_s = det.timings["fit"]
+    it_ms = tm["fit_chunked"][0] / iters
     print(f"host: init (k-means) {det.timings['init']:.3f} s, the EM loop + "
           f"patch + Viterbi + states read {fit_s:.3f} s "
-          f"({1e3 * fit_s / iters:.3f} ms an iteration beside H3's "
+          f"({1e3 * fit_s / iters:.3f} ms an iteration beside the loop's "
+          f"{it_ms:.3f} ms an iteration on the card and one E-step's "
           f"{tm['estep_kernel'][0]:.3f} ms; "
-          f"a device-to-host read of the continue flag {read_ms:.4f} ms), "
+          f"a device-to-host read of the flags {read_ms:.4f} ms), "
           f"scans {1e3 * det.timings['scan']:.3f} ms; the call's wall time "
           f"{wall:.3f} s [{card}]")
     est_bound = hmm_bound(X.numel() * 8 + 8 * (2 * 4 + 2 * 8 + 16 + 1),
@@ -3146,12 +3303,20 @@ def long_detect_path(dev, card, dfma_peak):
           f"{vit_bound[0]:.4f} ms ({vit_bound[1]})")
     print(json.dumps({"path15_times": {k: v[0] for k, v in tm.items()},
                       "host": det.timings, "read_ms": read_ms,
+                      "flag_reads": reads, "split": split,
                       "wall_s": wall, "card": card}))
     return {
-        "hmm_estep_chunked": dict(
-            launches=counts["hmm"]["estep_chunked"], err=st_abs,
-            ms=tm["estep_kernel"][0], plain_ms=tm["estep_plain"][0],
-            bound=est_bound, library_ms=None),
+        "hmm_fit_chunked": dict(
+            launches=counts["hmm"]["fit_chunked"], err=st_abs,
+            ms=it_ms, plain_ms=tm["fit_chunked_plain_one_iteration"][0],
+            bound=est_bound, library_ms=None, extra={
+                "ns_a_step": 1e6 * it_ms / (2 * L + math.ceil(LONG_T / L)),
+                "loop_ms": tm["fit_chunked"][0], "iterations": iters,
+                "flag_reads": reads, "estep_ms": tm["estep_kernel"][0],
+                "split_ms_an_iteration": None if split is None else {
+                    k: v / iters for k, v in split["stage_ms"].items()},
+                "idle_share": None if split is None
+                else split["idle_share"]}),
         "hmm_viterbi_chunked": dict(
             launches=counts["hmm"]["viterbi_chunked"], err=vit_err,
             ms=tm["viterbi_kernel"][0], plain_ms=tm["viterbi_plain"][0],
@@ -3471,7 +3636,7 @@ def session_path(dev, card):
         counts = read_counts()
         iters = det.timings["iterations"]
         print(f"launches in the detection: {counts}")
-        require_counts(counts, {"stft_fft": 1, "hmm_estep_chunked": iters,
+        require_counts(counts, {"stft_fft": 1, "hmm_fit_chunked": 1,
                                 "hmm_viterbi_chunked": 1}, "path 16 detect")
         run_counts["detect"] = nonzero_counts(counts)
         # the same detection through the plain versions on the card: the
@@ -3856,7 +4021,7 @@ def stream_path(dev, card, dfma_peak):
     feats_mono = ev.features_from_psd(f, mono[0], 0.0, 4000.0)
     want_events = det.unsupervised_detect(tb, feats_mono)
     iters = det.timings["iterations"]
-    require_counts(counts, {"stft_fft": n_blocks, "hmm_estep_chunked": iters,
+    require_counts(counts, {"stft_fft": n_blocks, "hmm_fit_chunked": 1,
                             "hmm_viterbi_chunked": 1}, "path 17 detect")
     require(events == want_events and len(events) >= 1,
             f"path 17: stream_detect gave {len(events)} events, the "
@@ -4399,7 +4564,7 @@ def cli_path(dev, card):
     csv_lib = os.path.join(tmp, "lib_detect.csv")
     out, flat, wall = cli_ok(["detect", wav, *spec, "--csv", csv_cli],
                              "detect --csv",
-                             at_least={"stft_fft": 1, "hmm_estep_chunked": 1,
+                             at_least={"stft_fft": 1, "hmm_fit_chunked": 1,
                                        "hmm_viterbi_chunked": 1})
     (s_d, events), lib_s = session_call(cfg, lambda s: (
         s.unsupervised_detect(), s.export_csv(csv_lib))[0])
@@ -4574,7 +4739,7 @@ def cli_path(dev, card):
     out, flat, wall = cli_ok(["stream", cut_wav, "--detect", "--csv", csv_s,
                               *spec], "stream --detect --csv",
                              at_least={"stft_fft": 1,
-                                       "hmm_estep_chunked": 1})
+                                       "hmm_fit_chunked": 1})
     ev_s, lib_s = timed_call(dev, lambda: stream_detect(
         cut_signal(), fs, cfg, chunk, device=device))
     from types import SimpleNamespace
@@ -6009,8 +6174,8 @@ def main(_phases=None):
           f"12 {rows['mel_project']['launches']}; the FFT kernel on the "
           f"band: path 13 {rows['stft_band']['launches']}; the HMM kernels': "
           f"path 14 fit {rows['hmm_fit']['launches']}, Viterbi "
-          f"{rows['hmm_viterbi']['launches']}; path 15 chunked E-step "
-          f"{rows['hmm_estep_chunked']['launches']}, chunked Viterbi "
+          f"{rows['hmm_viterbi']['launches']}; path 15 chunked EM loop "
+          f"{rows['hmm_fit_chunked']['launches']}, chunked Viterbi "
           f"{rows['hmm_viterbi_chunked']['launches']}; path 16 (the session) "
           f"{rows['session_launches']}; the FFT kernel streamed: path 17 "
           f"{rows['stft_stream']['launches']}; the radix-2 kernel at nfft "
@@ -6119,11 +6284,14 @@ def main(_phases=None):
                         f"{EEG_CLIPS} sweeps x 1071 frames (path 14)", "cuda",
                         hmm_src, "spectral_tpu/models/hmm.py:104 (viterbi, "
                         "an XLA lax.scan; no TPU kernel)"),
-        "hmm_estep_chunked": (
-            f"hmm_estep_chunked<KM 4>, one E-step, {LONG_T} frames in "
-            "chunks of 256 (path 15)", "cuda", hmm_src,
+        "hmm_fit_chunked": (
+            f"hmm_fit_chunked<KM 4>, the chunked EM loop on the card "
+            f"(transfers, scan, chunk pass, reduce + M-step an iteration), "
+            f"{LONG_T} frames in chunks of 256 (path 15); ms and plain_ms "
+            f"an iteration", "cuda", hmm_src,
             "spectral_tpu/models/hmm_pscan.py:289 (e_step, an XLA "
-            "associative scan; no TPU kernel)"),
+            "associative scan, under fit's while_loop, :359; no TPU "
+            "kernel)"),
         "stft_fft_backward": (
             "stft_fft_backward_kernel<LOG2M 9, 8 values>, the STFT's adjoint "
             "on the radix-2 route (X recomputed in registers, a c2r "
@@ -6192,7 +6360,8 @@ def main(_phases=None):
             "replaces": replaces, "launches": r["launches"],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r.get("library_ms")})
+            "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
+            **r.get("extra", {})})
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,8 +3,8 @@
 The port's counterpart of ``spectral_tpu/models/hmm_pscan.py``: the same
 contracts as :mod:`spectral_tpu_torch.models.hmm` (signatures, return
 values), computed as a two-level scan over chunks of L frames, the form
-the card runs (``ops/hmm_cuda.py``: H3 for the E-step, H2's chunked form
-for Viterbi):
+the card runs (``ops/hmm_cuda.py``: H3 for the E-step and, in
+:func:`fit`, the whole EM loop; H2's chunked form for Viterbi):
 
   1. every chunk c >= 1 computes its K x K transfer from each one-hot start
      state (log-semiring for the E-step, max-plus for Viterbi); chunk 0
@@ -364,15 +364,58 @@ def viterbi(params: HMMParams, X: torch.Tensor) -> torch.Tensor:
 def fit(params0: HMMParams, X: torch.Tensor, n_iter: int = 100,
         tol: float = DEFAULT_TOL):
     """Baum-Welch EM with the chunked E-step (hmm.fit contract: (params,
-    final loglik, n_iterations_run)). The loop runs on the host: an E-step
-    (H3 on the card), the M-step in float64 torch, and one device-to-host
-    read of the convergence test an iteration."""
+    final loglik, n_iterations_run)). For a CUDA tensor one call of H3's
+    EM loop on the card (``hmm_cuda.fit_chunked``: the E-step, the M-step
+    and the convergence test on the device, a read of the flags every
+    ``hmm_cuda.EM_GROUP`` iterations); for a CPU tensor the host loop
+    ``hmm._em_loop`` over the plain E-step and the torch M-step."""
     params0, X, sq = _as_batch(params0, X)
-    params, ll, it = hmm._em_loop(_e_step_stats_b, params0,
-                                  X.to(torch.float64), n_iter, tol)
+    X = X.to(torch.float64)
+    if X.device.type == "cpu":
+        params, ll, it = hmm._em_loop(_e_step_stats_b, params0, X, n_iter,
+                                      tol)
+    else:
+        Xk, pk = _kernel_operands(params0, X)
+        p, ll, it = hmm_cuda.fit_chunked(
+            Xk, pk, chunk_len(params0.startprob.shape[-1]), n_iter, tol)
+        params = HMMParams(*p)
     if sq:
         return HMMParams(*(p[0] for p in params)), ll[0], it[0]
     return params, ll, it
+
+
+def _fit_gated_plain(e_step_stats, params0: HMMParams, X: torch.Tensor,
+                     n_iter: int, tol: float, group: int):
+    """A plain model of ``hmm_cuda.fit_chunked``'s schedule (batched):
+    the loop's state (params, ll, prev, it, active) kept whole, groups of
+    ``group`` iterations, each stepping a sequence only while its flag is
+    set and then setting the flag as the M-step kernel does (it < n_iter
+    and (it == 0 or ll - prev >= tol)), the flags read once after each
+    group but the last. Returns (params, ll, it, reads); the first three
+    equal ``hmm._em_loop``'s bitwise."""
+    B = X.shape[0]
+    dev = X.device
+    params = params0
+    prev = torch.full((B,), -math.inf, dtype=torch.float64, device=dev)
+    ll = prev.clone()
+    it = torch.zeros(B, dtype=torch.int32, device=dev)
+    active = torch.full((B,), n_iter > 0, dtype=torch.bool, device=dev)
+    done = reads = 0
+    while done < n_iter:
+        for _ in range(min(group, n_iter - done)):
+            stats, cur = e_step_stats(params, X)
+            params = hmm._select(active, hmm._m_step_stats(params, stats),
+                                 params)
+            prev = torch.where(active, ll, prev)
+            ll = torch.where(active, cur, ll)
+            it = torch.where(active, it + 1, it)
+            active = active & (it < n_iter) & ((it == 0) | (ll - prev >= tol))
+        done += min(group, n_iter - done)
+        if done < n_iter:
+            reads += 1
+            if not bool(active.any()):
+                break
+    return params, ll, it, reads
 
 
 def unsupervised_fit_decode(params0: HMMParams, X: torch.Tensor,

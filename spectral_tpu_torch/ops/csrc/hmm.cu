@@ -1,5 +1,5 @@
 // The Gaussian HMM's recursions for NVIDIA Hopper (sm_90a): Baum-Welch,
-// the chunked E-step and Viterbi, in float64.
+// the chunked E-step with its EM loop, and Viterbi, in float64.
 //
 // The JAX package has no Pallas kernel here: its HMM runs as jitted
 // lax.scan / lax.while_loop programs vmapped over sweeps
@@ -8,7 +8,8 @@
 // step, so each recursion is a kernel of its own, one launch serving a
 // whole batch of sequences. The plain PyTorch versions are
 // models/hmm.py::_fit_plain / _viterbi_plain and
-// models/hmm_pscan.py::_e_step_stats_plain / _viterbi_plain, which follow
+// models/hmm_pscan.py::_e_step_stats_plain / _viterbi_plain (the chunked
+// EM loop: models/hmm.py::_em_loop over _e_step_stats_plain), which follow
 // the arithmetic below operation for operation; ops/hmm_cuda.py holds the
 // wrappers and the launch counts.
 //
@@ -31,7 +32,8 @@
 // Sums over states and features run in index order, each product rounded
 // before its sum (__dmul_rn / __dadd_rn: no contraction into an FMA), so
 // the plain version on the card gives the same bits wherever it sums in
-// the same order; sums over frames are reduced in a fixed tree with no
+// the same order; a max runs in index order with a strict >, the first
+// element first; sums over frames are reduced in a fixed tree with no
 // atomics, so a rerun gives the same bits.
 //
 // Why this log form: a step in scaled probabilities would need no
@@ -41,27 +43,45 @@
 // step (one exp a source state) underflows a state whose only routes lie
 // 745 nats below the best to -inf, and the sequential and chunked forms
 // then disagree on where. The per-target max above keeps every value
-// finite (-1e10 stands for log 0) and exact at any emission scale. A
-// lane holds one state: its K exps are independent of each other and
-// overlap, so the dependent chain of a step is one exp, one log and one
-// round of K shuffles.
+// finite (-1e10 stands for log 0) and exact at any emission scale.
+//
+// The K^2-lane step (KM 2 and 4; k2_step, k2_lse): a step's K targets
+// each need K exps. With a state a lane, a lane issues all K of them: they
+// overlap in latency, but each costs its own float64 instructions, and
+// the H100's 64 FP64 units an SM set the pace wherever many chains share
+// an SM (the transfers: 2,048 chunks x 4 starts at once). So a group of
+// KM^2 lanes (16 at K = 4, 4 at K = 2; two or eight groups a warp, their
+// shuffles of width KM^2) holds one term each: lane (o, r), o = q / KM, r =
+// q % KM for the lane q of its group, o the state the step computes and r
+// the state summed over. Every lane of row o holds that row's value. A
+// step: the K previous values by K shuffles (as the one-state-a-lane step
+// gathered them), the row's K terms w_o0 .. w_o,K-1 and their max in index
+// order (the same adds, compares and order: signed zeros and -1e10 land
+// as before), ONE exp, exp(w_or - m_o), then the row's K exps by K
+// shuffles summed in index order, the log and the emission's add. The
+// operations and their order are the one-state-a-lane step's, so the
+// bits are; a lane issues one exp where it issued K, at one more round of
+// K shuffles on the chain. Lanes past K (K < KM) compute on clamped
+// indices and are never summed. KM 8 (K 5-8, off every driven path)
+// keeps the one-state-a-lane step (fwd_step, bwd_step).
 //
 // hmm_fit_kernel (H1; hmm_fit_launch): Baum-Welch for a batch of
 //   sequences, one block of 128 threads a sequence running the whole EM
 //   loop in one launch (_em_loop's while_loop, hmm.py:188-208): per
 //   iteration the emissions (all threads, into lb), the forward pass on
-//   warp 0 and the backward pass on warp 1 side by side (lanes = states),
-//   the statistics gamma = exp(a + b - ll) and xi = exp(((a + LA) + (lb +
-//   b)) - ll) over frames (all threads, frames strided, then a warp
-//   butterfly and the warps in order), the M-step with hmmlearn's rules
-//   (hmm.py:152-185) and the convergence rule it == 0 || ll - prev >= tol.
-//   lb, a and b (T x K float64 each, 192 KB at T = 2047, K = 4) live in
-//   shared memory up to FIT_SMEM bytes, past it in a global scratch the
-//   wrapper allocates.
+//   warp 0 and the backward pass on warp 1 side by side (K^2 lanes at KM
+//   2 and 4, h1_chains; H1_ONE_WARP puts both in warp 0, lanes 0-15 and
+//   16-31), the statistics gamma = exp(a + b - ll) and xi = exp(((a + LA)
+//   + (lb + b)) - ll) over frames (all threads, frames strided, then a
+//   warp butterfly and the warps in order), the M-step with hmmlearn's
+//   rules (hmm.py:152-185) and the convergence rule it == 0 || ll - prev
+//   >= tol. lb, a and b (T x K float64 each, 102.7 KB at T = 1,070, K = 4:
+//   two blocks an SM) live in shared memory up to FIT_SMEM bytes, past it
+//   in a global scratch the wrapper allocates.
 //   Bound: the dependent chain, not bytes or operations: T - 1 steps of
-//   (a K-way max, an exp, K products, a log, K shuffles each way) a pass,
-//   the two passes concurrent; the roofline's bytes (X read once, the
-//   parameters written once) take well under a microsecond.
+//   (K shuffles, K adds and a max, an exp, K shuffles, K adds, a log) a
+//   pass, the two passes concurrent; the roofline's bytes (X read once,
+//   the parameters written once) take well under a microsecond.
 // hmm_viterbi_kernel (H2, T < 2048 on the main path; hmm_viterbi_launch):
 //   one block a sequence: emissions into lb (all threads), the max-plus
 //   recursion on warp 0 (lanes = states) writing uint8 backpointers, the
@@ -84,16 +104,29 @@
 //       through the maps (hmm_pscan.py:322-355's suffix composition);
 //     vit_backtrace: each chunk walks its own backpointers from its end
 //       state.
-//   hmm_estep_chunked_launch (H3), four kernels: est_transfer (each chunk's
-//     K x K log-semiring transfer, from each one-hot start state; chunk 0
-//     its end vector), est_scan (one warp forward and one backward a
-//     sequence over the chunk totals: every chunk's incoming alpha and
-//     outgoing beta normalized to max 0, the offsets summed into the
-//     log-likelihood), est_chunk (each chunk re-runs forward and backward
-//     from its boundary vectors and sums gamma = softmax(a + b) and xi =
-//     softmax((a + LA) + (lb + b)) and their moments over its frames), and
-//     est_reduce (the chunks' partial sums in chunk order). The EM loop
-//     for such T runs on the host.
+//   H3, the chunked E-step, four kernels: est_transfer (each chunk's K x K
+//     log-semiring transfer from each one-hot start state, two starts a
+//     warp at K = 4; chunk 0 its end vector), est_scan (a forward and a
+//     backward chain a sequence over the chunk totals, K^2 lanes each, the
+//     transfers streamed into shared memory SCAN_TILE chunks ahead of the
+//     chain by cp.async, two buffers a chain: every chunk's incoming alpha
+//     and outgoing beta normalized to max 0, the offsets summed into the
+//     log-likelihood; the chunks associated one after another), est_chunk
+//     (each chunk re-runs forward and backward from its boundary vectors
+//     and sums gamma = softmax(a + b) and xi = softmax((a + LA) + (lb +
+//     b)) and their moments over its frames) and a reduce (the chunks'
+//     partial sums in chunk order, staged through shared memory in
+//     coalesced tiles by cp.async, the next tile fetched while one is
+//     summed). hmm_estep_chunked_launch runs them once with
+//     est_reduce (hmm.score's E-step); hmm_fit_chunked_launch runs the EM
+//     loop on the device: n_group iterations a call, each the four kernels
+//     with est_mstep in the reduce's place (the reduce, the M-step of
+//     hmm_fit_kernel, and _em_loop's bookkeeping prev = ll, ll = cur, it +=
+//     1, active = it < n_iter && (it == 0 || ll - prev >= tol)). Every
+//     kernel takes the sequence's active flag and a block of an inactive
+//     sequence returns at once, so a group may run past convergence at
+//     the cost of empty launches; the host reads the flags once a group
+//     (ops/hmm_cuda.py::EM_GROUP).
 //   Bound: the chains again, L steps a chunk on every chunk at once, plus
 //   the scan's one step a chunk; X is read once by each of the chunk
 //   kernels.
@@ -114,6 +147,13 @@ constexpr int CHUNK_CAP = 1024;              // frames x states a chunk
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t FIT_SMEM = 200 * 1024;      // lb, a, b in shared memory
 constexpr size_t VIT_SMEM = 200 * 1024;      // lb, backpointers
+constexpr bool K2_ONE_EXP = true;            // one exp a lane, then gathered
+constexpr bool H1_ONE_WARP = false;          // H1's two chains in one warp
+constexpr bool SCAN_SMEM = true;             // the scan's F from shared memory
+constexpr int SCAN_TILE = 32;                // chunks a tile of the scan's F
+constexpr int RED_TILE = 2048;               // doubles a tile of the reduce
+constexpr int RED_SPT = 2;                   // statistics a thread, reduce
+constexpr int CHUNK_MIN_BLOCKS = 4;          // chunk pass blocks an SM
 
 __device__ __forceinline__ double safe_log(double p) {
   return p > 0.0 ? log(fmax(p, 1e-300)) : LOG_EPS;
@@ -262,6 +302,105 @@ __device__ __forceinline__ double lane_logsumexp(double v, int K) {
   return __dadd_rn(M, log(s));
 }
 
+// ---------------------------------------------------------------------------
+// The K^2-lane step (KM 2 and 4): lane q of a group of KM^2 lanes is (o, r),
+// o = q / KM the state the step computes, r = q % KM the state summed over;
+// every lane of row o holds that row's value. Shuffles are of width KM^2.
+// ---------------------------------------------------------------------------
+
+// The K values of the group's rows (row i's from lane (i, 0)) into vi, and
+// their max in index order.
+template <int KM>
+__device__ __forceinline__ double k2_rows(double v, double (&vi)[KM], int K) {
+  double M = 0.0;
+#pragma unroll
+  for (int i = 0; i < KM; ++i) {
+    vi[i] = __shfl_sync(FULL, v, i * KM, KM * KM);
+    if (i < K && (i == 0 || vi[i] > M)) M = vi[i];
+  }
+  return M;
+}
+
+// m + log(sum_i exp(w_i - m)) over the row's K terms w (m their max), the
+// sum in index order: the lane's own exp, exp(w_r - m), gathered from the
+// row's lanes (K2_ONE_EXP), or all K exps on each lane.
+template <int KM>
+__device__ __forceinline__ double k2_lse(const double (&w)[KM], double m,
+                                         int o, int r, int K) {
+  double s = 0.0;
+  if constexpr (K2_ONE_EXP) {
+    double own = w[0];
+#pragma unroll
+    for (int i = 1; i < KM; ++i)
+      if (i == r) own = w[i];
+    const double e = exp(own - m);
+#pragma unroll
+    for (int i = 0; i < KM; ++i) {
+      const double ei = __shfl_sync(FULL, e, o * KM + i, KM * KM);
+      if (i < K) s = i == 0 ? ei : __dadd_rn(s, ei);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < KM; ++i)
+      if (i < K) s = i == 0 ? exp(w[i] - m) : __dadd_rn(s, exp(w[i] - m));
+  }
+  return __dadd_rn(m, log(s));
+}
+
+// One step of a chain on K^2 lanes. Forward (fwd): x is row o's a[t-1, o],
+// coef[i] = LA[i, o], lbv = lb[t, o]; returns a[t, o] as fwd_step does.
+// Backward: x is row o's b[t+1, o], coef[j] = LA[o, j], lbv = lb[t+1, o];
+// returns b[t, o] as bwd_step does (u_j = lb[t+1, j] + b[t+1, j], w_oj =
+// LA[o, j] + u_j: the same sum, IEEE addition being commutative).
+template <int KM>
+__device__ __forceinline__ double k2_step(double x, double lbv,
+                                          const double (&coef)[KM], bool fwd,
+                                          int o, int r, int K) {
+  const double u = fwd ? x : __dadd_rn(lbv, x);
+  double w[KM];
+  double m = 0.0;
+#pragma unroll
+  for (int i = 0; i < KM; ++i) {
+    w[i] = __dadd_rn(__shfl_sync(FULL, u, i * KM, KM * KM), coef[i]);
+    if (i < K && (i == 0 || w[i] > m)) m = w[i];
+  }
+  const double s = k2_lse<KM>(w, m, o, r, K);
+  return fwd ? __dadd_rn(lbv, s) : s;
+}
+
+// lane_logsumexp over the group's rows: M + log(sum_i exp(v_i - M)), one
+// exp a lane (row 0's lane i computes exp(v_i - M)).
+template <int KM>
+__device__ __forceinline__ double k2_logsumexp(double v, int r, int K) {
+  double vi[KM];
+  const double M = k2_rows<KM>(v, vi, K);
+  double own = vi[0];
+#pragma unroll
+  for (int i = 1; i < KM; ++i)
+    if (i == r) own = vi[i];
+  const double e = exp(own - M);
+  double s = 0.0;
+#pragma unroll
+  for (int i = 0; i < KM; ++i) {
+    const double ei = __shfl_sync(FULL, e, i, KM * KM);
+    if (i < K) s = i == 0 ? ei : __dadd_rn(s, ei);
+  }
+  return __dadd_rn(M, log(s));
+}
+
+// cp.async of one double from device to shared memory (sm_80 on)
+__device__ __forceinline__ void cp_async_f64(double* dst, const double* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
@@ -378,6 +517,44 @@ __device__ void block_sum(const double (&acc)[N], double* part,
   }
 }
 
+// H1's chains on K^2 lanes (KM 2 and 4): DIR 1 the forward pass into al
+// (and the log-likelihood into ll_out), -1 the backward pass into be, 0
+// both in one warp, lanes 0-15 forward and 16-31 backward. lb, al and be
+// are T x K; the first group of the chain (of each half-warp when DIR is
+// 0) stores.
+template <int KM, int DIR>
+__device__ __forceinline__ void h1_chains(const Model<KM>& m, const double* lb,
+                                          double* al, double* be, int T, int K,
+                                          double* ll_out) {
+  constexpr int G = KM * KM;
+  const int lane = threadIdx.x & 31;
+  const bool fwd = DIR == 0 ? lane < 16 : DIR > 0;
+  const int q = lane % G;
+  const int o = q / KM;
+  const int r = q % KM;
+  const int oo = o < K ? o : K - 1;
+  const bool lead = (DIR == 0 ? lane & 15 : lane) < G && r == 0 && o < K;
+  double coef[KM];
+#pragma unroll
+  for (int i = 0; i < KM; ++i)
+    coef[i] = i < K ? (fwd ? m.la[i][oo] : m.la[oo][i]) : 0.0;
+  double x = fwd ? __dadd_rn(m.ls[oo], lb[oo]) : 0.0;
+  if (lead) {
+    if (fwd) al[o] = x;
+    else be[static_cast<long long>(T - 1) * K + o] = 0.0;
+  }
+  for (int k = 1; k < T; ++k) {
+    const int t = fwd ? k : T - 1 - k;
+    x = k2_step<KM>(x, lb[static_cast<long long>(fwd ? t : t + 1) * K + oo],
+                    coef, fwd, o, r, K);
+    if (lead) (fwd ? al : be)[static_cast<long long>(t) * K + o] = x;
+  }
+  if (DIR >= 0) {
+    const double l = k2_logsumexp<KM>(x, r, K);
+    if (lane == 0) *ll_out = l;
+  }
+}
+
 template <int KM>
 __global__ void __launch_bounds__(THREADS)
 hmm_fit_kernel(const double* __restrict__ X, int T, int D, int K,
@@ -410,7 +587,14 @@ hmm_fit_kernel(const double* __restrict__ X, int T, int D, int K,
       lb[i] = emission<KM>(m, x + (i / K) * D, static_cast<int>(i % K), D);
     __syncthreads();
     const int jj = lane < K ? lane : K - 1;
-    if (warp == 0) {                       // forward, lanes = target states
+    if constexpr (KM <= 4) {               // K^2 lanes
+      if (H1_ONE_WARP && warp == 0)
+        h1_chains<KM, 0>(m, lb, al, be, T, K, &ll_sh);
+      else if (!H1_ONE_WARP && warp == 0)
+        h1_chains<KM, 1>(m, lb, al, be, T, K, &ll_sh);
+      else if (!H1_ONE_WARP && warp == 1)
+        h1_chains<KM, -1>(m, lb, al, be, T, K, &ll_sh);
+    } else if (warp == 0) {                // forward, lanes = target states
       double lacol[KM];
 #pragma unroll
       for (int i = 0; i < KM; ++i) lacol[i] = i < K ? m.la[i][jj] : 0.0;
@@ -646,6 +830,82 @@ chunk_transfer_kernel(const double* __restrict__ X, int T, int D, int K,
   if (lane < K) F[((b * n + c) * K + warp) * K + jj] = v;
 }
 
+// Threads of an H3 transfer block: the K^2 form's groups (two a warp at KM
+// 4, eight at KM 2) hold a start each; KM 8 a warp a start.
+template <int KM>
+constexpr int transfer_threads() {
+  return KM == 4 ? 64 : KM == 2 ? 32 : KM * 32;
+}
+
+// H3's transfers: a block per (chunk, sequence); each group of K^2 lanes
+// (KM 8: each warp) runs the forward recursion from one one-hot start
+// state; chunk 0's first group from the initial vector. active (B,) or
+// null: a block of an inactive sequence returns at once.
+template <int KM>
+__global__ void __launch_bounds__(transfer_threads<KM>())
+est_transfer_kernel(const double* __restrict__ X, int T, int D, int K, int L,
+                    const double* start, const double* trans,
+                    const double* means, const double* covars,
+                    const unsigned char* __restrict__ active,
+                    double* __restrict__ F) {
+  __shared__ Model<KM> m;
+  __shared__ double lbs[CHUNK_CAP];
+  const int c = blockIdx.x;
+  const long long b = blockIdx.y;
+  if (active && !active[b]) return;
+  const int n = gridDim.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  long long t0;
+  int len;
+  load_chunk<KM>(m, lbs, X, b, c, T, D, K, L, start, trans, means, covars,
+                 t0, len);
+  if constexpr (KM > 4) {                  // a warp a start, lanes = states
+    if (warp >= K || (c == 0 && warp > 0)) return;
+    const int jj = lane < K ? lane : K - 1;
+    double col[KM];
+#pragma unroll
+    for (int i = 0; i < KM; ++i) col[i] = i < K ? m.la[i][jj] : 0.0;
+    double v;
+    int first;
+    if (c == 0) {
+      v = __dadd_rn(m.ls[jj], lbs[jj]);
+      first = 1;
+    } else {
+      v = jj == warp ? 0.0 : -INFINITY;
+      first = 0;
+    }
+    for (int s = first; s < len; ++s)
+      v = fwd_step<KM>(v, col, lbs[s * K + jj], K);
+    if (lane < K) F[((b * n + c) * K + warp) * K + jj] = v;
+  } else {                                 // a group of K^2 lanes a start
+    constexpr int G = KM * KM;
+    if (c == 0 && warp > 0) return;
+    const int g = threadIdx.x / G;
+    const int from = g < K ? g : K - 1;
+    const int q = lane % G;
+    const int o = q / KM;
+    const int r = q % KM;
+    const int oo = o < K ? o : K - 1;
+    double col[KM];
+#pragma unroll
+    for (int i = 0; i < KM; ++i) col[i] = i < K ? m.la[i][oo] : 0.0;
+    double v;
+    int first;
+    if (c == 0) {
+      v = __dadd_rn(m.ls[oo], lbs[oo]);
+      first = 1;
+    } else {
+      v = oo == from ? 0.0 : -INFINITY;
+      first = 0;
+    }
+    for (int s = first; s < len; ++s)
+      v = k2_step<KM>(v, lbs[s * K + oo], col, true, o, r, K);
+    if (r == 0 && o < K && g < (c == 0 ? 1 : K))
+      F[((b * n + c) * K + from) * K + o] = v;
+  }
+}
+
 // Viterbi scan: one warp a sequence over the chunks in order. din (B, n,
 // K) receives each chunk's incoming delta normalized to max 0; send (B,)
 // the end state at frame T - 1.
@@ -774,80 +1034,180 @@ vit_backtrace_kernel(int T, int K, int L, const uint8_t* __restrict__ psi,
   }
 }
 
-// E-step scan: warp 0 forward over the chunk totals (ain (B, n, K), the
-// incoming alpha at frame c L - 1 normalized to max 0; ll (B,)), warp 1
-// backward (bout (B, n, K), the outgoing beta at the chunk's last frame
-// normalized to max 0).
+// E-step scan: a block of two warps a sequence; warp 0 forward over the
+// chunk totals (ain (B, n, K), the incoming alpha at frame c L - 1
+// normalized to max 0; ll (B,)), warp 1 backward (bout (B, n, K), the
+// outgoing beta at the chunk's last frame normalized to max 0). At KM 2
+// and 4 each chain runs on K^2 lanes (its warp's other groups repeat it)
+// and reads the transfers from shared memory, SCAN_TILE chunks a tile,
+// the next tile fetched by cp.async while the chain walks this one; KM 8
+// keeps a state a lane and reads them from global memory. active (B,) or
+// null.
 template <int KM>
 __global__ void __launch_bounds__(64)
 est_scan_kernel(int n, int K, const double* __restrict__ F,
                 double* __restrict__ ain, double* __restrict__ bout,
-                double* __restrict__ ll) {
+                double* __restrict__ ll,
+                const unsigned char* __restrict__ active) {
   const long long b = blockIdx.x;
+  if (active && !active[b]) return;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int jj = lane < K ? lane : K - 1;
   const double* Fb = F + b * n * K * K;
-  if (warp == 0) {
-    double v = Fb[jj];
-    double off = 0.0;
-    for (int c = 1; c < n; ++c) {
-      const double M = lane_max<KM>(v, K);
-      const double vin = v - M;
-      off = __dadd_rn(off, M);
-      if (lane < K) ain[(b * n + c) * K + jj] = vin;
-      const double* Fc = Fb + static_cast<long long>(c) * K * K;
-      double w[KM];
-      double mj = 0.0;
+  if constexpr (KM > 4) {
+    const int jj = lane < K ? lane : K - 1;
+    if (warp == 0) {
+      double v = Fb[jj];
+      double off = 0.0;
+      for (int c = 1; c < n; ++c) {
+        const double M = lane_max<KM>(v, K);
+        const double vin = v - M;
+        off = __dadd_rn(off, M);
+        if (lane < K) ain[(b * n + c) * K + jj] = vin;
+        const double* Fc = Fb + static_cast<long long>(c) * K * K;
+        double w[KM];
+        double mj = 0.0;
 #pragma unroll
-      for (int i = 0; i < KM; ++i) {
-        w[i] = __dadd_rn(__shfl_sync(FULL, vin, i),
-                         Fc[(i < K ? i : 0) * K + jj]);
-        if (i < K && (i == 0 || w[i] > mj)) mj = w[i];
+        for (int i = 0; i < KM; ++i) {
+          w[i] = __dadd_rn(__shfl_sync(FULL, vin, i),
+                           Fc[(i < K ? i : 0) * K + jj]);
+          if (i < K && (i == 0 || w[i] > mj)) mj = w[i];
+        }
+        double s = 0.0;
+#pragma unroll
+        for (int i = 0; i < KM; ++i)
+          if (i < K) s = i == 0 ? exp(w[i] - mj) : __dadd_rn(s, exp(w[i] - mj));
+        v = __dadd_rn(mj, log(s));
       }
-      double s = 0.0;
+      const double l = lane_logsumexp<KM>(v, K);
+      if (lane == 0) ll[b] = __dadd_rn(off, l);
+    } else {
+      double u = 0.0;
+      if (lane < K) bout[(b * n + n - 1) * K + jj] = 0.0;
+      for (int c = n - 1; c >= 1; --c) {
+        const double* Fc = Fb + static_cast<long long>(c) * K * K;
+        double w[KM];
+        double mi = 0.0;
 #pragma unroll
-      for (int i = 0; i < KM; ++i)
-        if (i < K) s = i == 0 ? exp(w[i] - mj) : __dadd_rn(s, exp(w[i] - mj));
-      v = __dadd_rn(mj, log(s));
+        for (int j = 0; j < KM; ++j) {
+          w[j] = __dadd_rn(Fc[jj * K + (j < K ? j : 0)],
+                           __shfl_sync(FULL, u, j));
+          if (j < K && (j == 0 || w[j] > mi)) mi = w[j];
+        }
+        double s = 0.0;
+#pragma unroll
+        for (int j = 0; j < KM; ++j)
+          if (j < K) s = j == 0 ? exp(w[j] - mi) : __dadd_rn(s, exp(w[j] - mi));
+        const double un = __dadd_rn(mi, log(s));
+        const double M = lane_max<KM>(un, K);
+        u = un - M;
+        if (lane < K) bout[(b * n + c - 1) * K + jj] = u;
+      }
     }
-    const double l = lane_logsumexp<KM>(v, K);
-    if (lane == 0) ll[b] = __dadd_rn(off, l);
   } else {
-    double u = 0.0;
-    if (lane < K) bout[(b * n + n - 1) * K + jj] = 0.0;
-    for (int c = n - 1; c >= 1; --c) {
-      const double* Fc = Fb + static_cast<long long>(c) * K * K;
-      double w[KM];
-      double mi = 0.0;
-#pragma unroll
-      for (int j = 0; j < KM; ++j) {
-        w[j] = __dadd_rn(Fc[jj * K + (j < K ? j : 0)],
-                         __shfl_sync(FULL, u, j));
-        if (j < K && (j == 0 || w[j] > mi)) mi = w[j];
+    constexpr int G = KM * KM;
+    __shared__ double tiles[2][2][SCAN_TILE * KM * KM];   // [warp][buffer]
+    const int KK = K * K;
+    const int q = lane % G;
+    const int o = q / KM;
+    const int r = q % KM;
+    const int oo = o < K ? o : K - 1;
+    const bool lead = lane < G && r == 0 && o < K;
+    const int ntiles = (n + SCAN_TILE - 1) / SCAN_TILE;
+    // tile t (chunks t SCAN_TILE ..) into buffer t & 1 of this warp, one
+    // commit group a tile (an empty one past the last)
+    auto fetch = [&](int t) {
+      if (SCAN_SMEM && t >= 0 && t < ntiles) {
+        const long long c0 = static_cast<long long>(t) * SCAN_TILE;
+        const int cnt = static_cast<int>(
+            min(static_cast<long long>(SCAN_TILE), n - c0)) * KK;
+        double* dst = tiles[warp][t & 1];
+        const double* src = Fb + c0 * KK;
+        for (int i = lane; i < cnt; i += 32) cp_async_f64(dst + i, src + i);
       }
-      double s = 0.0;
+      cp_async_commit();
+    };
+    // chunk c's transfer: in the tile buffer, or global memory
+    auto transfer = [&](int c) -> const double* {
+      if (!SCAN_SMEM) return Fb + static_cast<long long>(c) * KK;
+      return tiles[warp][(c / SCAN_TILE) & 1] + (c % SCAN_TILE) * KK;
+    };
+    if (warp == 0) {
+      double v = Fb[oo];
+      double off = 0.0;
+      fetch(0);
+      for (int t = 0; t < ntiles; ++t) {
+        fetch(t + 1);
+        cp_async_wait_one();
+        __syncwarp();
+        const int c1 = min(n, (t + 1) * SCAN_TILE);
+        for (int c = t == 0 ? 1 : t * SCAN_TILE; c < c1; ++c) {
+          const double* Fc = transfer(c);
+          double vi[KM];
+          const double M = k2_rows<KM>(v, vi, K);
+          off = __dadd_rn(off, M);
+          if (lead) ain[(b * n + c) * K + o] = v - M;
+          double w[KM];
+          double mj = 0.0;
 #pragma unroll
-      for (int j = 0; j < KM; ++j)
-        if (j < K) s = j == 0 ? exp(w[j] - mi) : __dadd_rn(s, exp(w[j] - mi));
-      const double un = __dadd_rn(mi, log(s));
-      const double M = lane_max<KM>(un, K);
-      u = un - M;
-      if (lane < K) bout[(b * n + c - 1) * K + jj] = u;
+          for (int i = 0; i < KM; ++i) {
+            w[i] = __dadd_rn(vi[i] - M, Fc[(i < K ? i : 0) * K + oo]);
+            if (i < K && (i == 0 || w[i] > mj)) mj = w[i];
+          }
+          v = k2_lse<KM>(w, mj, o, r, K);
+        }
+        __syncwarp();
+      }
+      const double l = k2_logsumexp<KM>(v, r, K);
+      if (lane == 0) ll[b] = __dadd_rn(off, l);
+    } else {
+      double u = 0.0;
+      if (lead) bout[(b * n + n - 1) * K + o] = 0.0;
+      fetch(ntiles - 1);
+      for (int t = ntiles - 1; t >= 0; --t) {
+        fetch(t - 1);
+        cp_async_wait_one();
+        __syncwarp();
+        for (int c = min(n, (t + 1) * SCAN_TILE) - 1;
+             c >= (t == 0 ? 1 : t * SCAN_TILE); --c) {
+          const double* Fc = transfer(c);
+          double ui[KM];
+          k2_rows<KM>(u, ui, K);
+          double w[KM];
+          double mi = 0.0;
+#pragma unroll
+          for (int j = 0; j < KM; ++j) {
+            w[j] = __dadd_rn(Fc[oo * K + (j < K ? j : 0)], ui[j]);
+            if (j < K && (j == 0 || w[j] > mi)) mi = w[j];
+          }
+          const double un = k2_lse<KM>(w, mi, o, r, K);
+          double uni[KM];
+          const double M = k2_rows<KM>(un, uni, K);
+          u = un - M;
+          if (lead) bout[(b * n + c - 1) * K + o] = u;
+        }
+        __syncwarp();
+      }
     }
   }
 }
 
 // E-step chunk pass: a block per (chunk, sequence): forward (warp 0) and
-// backward (warp 1) from the chunk's boundary vectors, then every thread's
-// frames' gamma and xi, reduced over the block into part (B, n, S).
+// backward (warp 1) from the chunk's boundary vectors (K^2 lanes at KM 2
+// and 4, the warp's other groups repeating the chain), then every
+// thread's frames' gamma and xi, reduced over the block into part (B, n,
+// S). active (B,) or null. At KM 2 and 4, CHUNK_MIN_BLOCKS blocks an SM
+// (128 registers): the chains wait on latency, and four blocks' chains
+// beside each other beat two blocks' without the statistics' spills.
 template <int KM>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, KM <= 4 ? CHUNK_MIN_BLOCKS : 1)
 est_chunk_kernel(const double* __restrict__ X, int T, int D, int K, int L,
                  const double* start, const double* trans,
                  const double* means, const double* covars,
                  const double* __restrict__ ain,
-                 const double* __restrict__ bout, double* __restrict__ part) {
+                 const double* __restrict__ bout,
+                 const unsigned char* __restrict__ active,
+                 double* __restrict__ part) {
   __shared__ Model<KM> m;
   __shared__ double lbs[CHUNK_CAP];
   __shared__ double al[CHUNK_CAP];
@@ -861,13 +1221,50 @@ est_chunk_kernel(const double* __restrict__ X, int T, int D, int K, int L,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int S = n_stats(K, D);
+  if (active && !active[b]) return;
   long long t0;
   int len;
   load_chunk<KM>(m, lbs, X, b, c, T, D, K, L, start, trans, means, covars,
                  t0, len);
   const int jj = lane < K ? lane : K - 1;
   const double* a_in = ain + (b * n + c) * K;
-  if (warp == 0) {
+  if constexpr (KM <= 4) {
+    constexpr int G = KM * KM;
+    const int q = lane % G;
+    const int o = q / KM;
+    const int r = q % KM;
+    const int oo = o < K ? o : K - 1;
+    const bool lead = lane < G && r == 0 && o < K;
+    if (warp == 0) {                       // forward from ain
+      double col[KM];
+#pragma unroll
+      for (int i = 0; i < KM; ++i) col[i] = i < K ? m.la[i][oo] : 0.0;
+      double a;
+      int first;
+      if (c == 0) {
+        a = __dadd_rn(m.ls[oo], lbs[oo]);
+        if (lead) al[o] = a;
+        first = 1;
+      } else {
+        a = a_in[oo];
+        first = 0;
+      }
+      for (int s = first; s < len; ++s) {
+        a = k2_step<KM>(a, lbs[s * K + oo], col, true, o, r, K);
+        if (lead) al[s * K + o] = a;
+      }
+    } else if (warp == 1) {                // backward from bout
+      double row[KM];
+#pragma unroll
+      for (int j = 0; j < KM; ++j) row[j] = j < K ? m.la[oo][j] : 0.0;
+      double bb = bout[(b * n + c) * K + oo];
+      if (lead) be[(len - 1) * K + o] = bb;
+      for (int s = len - 2; s >= 0; --s) {
+        bb = k2_step<KM>(bb, lbs[(s + 1) * K + oo], row, false, o, r, K);
+        if (lead) be[s * K + o] = bb;
+      }
+    }
+  } else if (warp == 0) {
     double lacol[KM];
 #pragma unroll
     for (int i = 0; i < KM; ++i) lacol[i] = i < K ? m.la[i][jj] : 0.0;
@@ -984,15 +1381,110 @@ est_chunk_kernel(const double* __restrict__ X, int T, int D, int K, int L,
   for (int s = tid; s < S; s += THREADS) out[s] = stp[padded<KM>(s, K, D)];
 }
 
+// The chunks' partial statistics p (n x S, one sequence's) summed in chunk
+// order into out[0..S), staged through shared memory whole chunks at a
+// time in coalesced cp.async copies, two tiles of RED_TILE doubles (tile
+// holds both), the next fetched while this one is summed; thread s sums
+// statistic s (and s + blockDim.x): the first chunk's value, then each
+// next chunk's added. Every thread of the block calls it.
+__device__ void reduce_chunks(const double* __restrict__ p, int n, int S,
+                              double* tile, double* out) {
+  const int per = RED_TILE / S;                 // chunks a tile
+  const int ntiles = (n + per - 1) / per;
+  auto fetch = [&](int t) {
+    if (t < ntiles) {
+      const long long c0 = static_cast<long long>(t) * per;
+      const int cnt = static_cast<int>(
+          min(static_cast<long long>(per), n - c0)) * S;
+      double* dst = tile + (t & 1) * RED_TILE;
+      for (int i = threadIdx.x; i < cnt; i += blockDim.x)
+        cp_async_f64(dst + i, p + c0 * S + i);
+    }
+    cp_async_commit();
+  };
+  double v[RED_SPT];
+#pragma unroll
+  for (int k = 0; k < RED_SPT; ++k) v[k] = 0.0;
+  fetch(0);
+  for (int t = 0; t < ntiles; ++t) {
+    fetch(t + 1);
+    cp_async_wait_one();
+    __syncthreads();
+    const double* tl = tile + (t & 1) * RED_TILE;
+    const int nc = static_cast<int>(
+        min(static_cast<long long>(per), n - static_cast<long long>(t) * per));
+#pragma unroll
+    for (int k = 0; k < RED_SPT; ++k) {
+      const int s = threadIdx.x + k * blockDim.x;
+      if (s < S) {
+        int c = 0;
+        if (t == 0) v[k] = tl[c++ * S + s];
+#pragma unroll 8
+        for (; c < nc; ++c) v[k] = __dadd_rn(v[k], tl[c * S + s]);
+      }
+    }
+    __syncthreads();                // this buffer is refilled at t + 2
+  }
+#pragma unroll
+  for (int k = 0; k < RED_SPT; ++k) {
+    const int s = threadIdx.x + k * blockDim.x;
+    if (s < S) out[s] = v[k];
+  }
+}
+
 // The chunks' partial statistics summed in chunk order: out (B, S).
-__global__ void est_reduce_kernel(int n, int S, const double* __restrict__ part,
-                                  double* __restrict__ out) {
+__global__ void __launch_bounds__(THREADS)
+est_reduce_kernel(int n, int S, const double* __restrict__ part,
+                  double* __restrict__ out) {
+  __shared__ double tile[2 * RED_TILE];
   const long long b = blockIdx.x;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const double* p = part + b * n * S + s;
-    double v = p[0];
-    for (int c = 1; c < n; ++c) v = __dadd_rn(v, p[static_cast<long long>(c) * S]);
-    out[b * S + s] = v;
+  reduce_chunks(part + b * n * S, n, S, tile, out + b * S);
+}
+
+// The EM loop's last kernel an iteration (hmm_fit_chunked_launch), a block
+// a sequence: the chunks' partials reduced as est_reduce does, H1's M-step
+// (m_step) on the sequence's parameters in place, then _em_loop's
+// bookkeeping (models/hmm.py): prev = ll, ll = cur, it += 1, active = it <
+// n_iter && (it == 0 || ll - prev >= tol). A block of an inactive
+// sequence returns at once, its parameters and state untouched.
+template <int KM>
+__global__ void __launch_bounds__(THREADS)
+est_mstep_kernel(int n, int K, int D, const double* __restrict__ part,
+                 const double* __restrict__ cur, int n_iter, double tol,
+                 double* start, double* trans, double* means, double* covars,
+                 double* ll, double* prev, int* it, unsigned char* active) {
+  __shared__ Model<KM> m;
+  __shared__ double tile[2 * RED_TILE];
+  __shared__ double raw[RED_SPT * THREADS];
+  __shared__ double st[Lay<KM>::N];
+  const long long b = blockIdx.x;
+  if (!active[b]) return;
+  const int tid = threadIdx.x;
+  const int S = n_stats(K, D);
+  load_model<KM>(m, b, K, D, start, trans, means, covars);
+  for (int s = tid; s < Lay<KM>::N; s += THREADS) st[s] = 0.0;
+  reduce_chunks(part + b * n * S, n, S, tile, raw);
+  __syncthreads();
+  for (int s = tid; s < S; s += THREADS) st[padded<KM>(s, K, D)] = raw[s];
+  __syncthreads();
+  m_step<KM>(m, st, K, D);
+  __syncthreads();
+  for (int i = tid; i < K * (K > D ? K : D); i += THREADS) {
+    if (i < K * K) trans[b * K * K + i] = m.trans[i / K][i % K];
+    if (i < K) start[b * K + i] = m.start[i];
+    if (i < K * D) {
+      means[b * K * D + i] = m.means[i / D][i % D];
+      covars[b * K * D + i] = m.covars[i / D][i % D];
+    }
+  }
+  if (tid == 0) {
+    const double p = ll[b];
+    const double c = cur[b];
+    const int i = it[b] + 1;
+    prev[b] = p;
+    ll[b] = c;
+    it[b] = i;
+    active[b] = i < n_iter && (i == 0 || __dsub_rn(c, p) >= tol);
   }
 }
 
@@ -1056,6 +1548,25 @@ int viterbi_chunked_launch(const double* X, long long B, int T, int D, int K,
   return static_cast<int>(cudaGetLastError());
 }
 
+// H3's first three kernels: transfers, the scan (the log-likelihood into
+// ll) and the chunk pass (the chunks' partials into part).
+template <int KM>
+void estep_kernels(const double* X, long long B, int T, int D, int K, int L,
+                   const double* start, const double* trans,
+                   const double* means, const double* covars,
+                   const unsigned char* active, double* ll, double* F,
+                   double* ain, double* bout, double* part, cudaStream_t st) {
+  const int n = (T + L - 1) / L;
+  const dim3 grid(n, static_cast<unsigned>(B));
+  est_transfer_kernel<KM><<<grid, transfer_threads<KM>(), 0, st>>>(
+      X, T, D, K, L, start, trans, means, covars, active, F);
+  est_scan_kernel<KM><<<static_cast<unsigned>(B), 64, 0, st>>>(
+      n, K, F, ain, bout, ll, active);
+  est_chunk_kernel<KM><<<grid, THREADS, 0, st>>>(X, T, D, K, L, start, trans,
+                                                 means, covars, ain, bout,
+                                                 active, part);
+}
+
 template <int KM>
 int estep_chunked_launch(const double* X, long long B, int T, int D, int K,
                          int L, const double* start, const double* trans,
@@ -1063,17 +1574,32 @@ int estep_chunked_launch(const double* X, long long B, int T, int D, int K,
                          double* stats, double* ll, double* F, double* ain,
                          double* bout, double* part, cudaStream_t st) {
   const int n = (T + L - 1) / L;
-  const dim3 grid(n, static_cast<unsigned>(B));
-  chunk_transfer_kernel<KM, true><<<grid, KM * 32, 0, st>>>(
-      X, T, D, K, L, start, trans, means, covars, F);
-  est_scan_kernel<KM><<<static_cast<unsigned>(B), 64, 0, st>>>(n, K, F, ain,
-                                                              bout, ll);
-  est_chunk_kernel<KM><<<grid, THREADS, 0, st>>>(X, T, D, K, L, start, trans,
-                                                 means, covars, ain, bout,
-                                                 part);
-  est_reduce_kernel<<<static_cast<unsigned>(B), 64, 0, st>>>(
+  estep_kernels<KM>(X, B, T, D, K, L, start, trans, means, covars, nullptr,
+                    ll, F, ain, bout, part, st);
+  est_reduce_kernel<<<static_cast<unsigned>(B), THREADS, 0, st>>>(
       n, n_stats(K, D), part, stats);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int KM>
+int fit_chunked_launch(const double* X, long long B, int T, int D, int K,
+                       int L, double* start, double* trans, double* means,
+                       double* covars, int n_iter, double tol, int n_group,
+                       double* ll, double* prev, int* it,
+                       unsigned char* active, double* cur, double* F,
+                       double* ain, double* bout, double* part,
+                       cudaStream_t st) {
+  const int n = (T + L - 1) / L;
+  for (int g = 0; g < n_group; ++g) {
+    estep_kernels<KM>(X, B, T, D, K, L, start, trans, means, covars, active,
+                      cur, F, ain, bout, part, st);
+    est_mstep_kernel<KM><<<static_cast<unsigned>(B), THREADS, 0, st>>>(
+        n, K, D, part, cur, n_iter, tol, start, trans, means, covars, ll,
+        prev, it, active);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -1190,6 +1716,40 @@ int hmm_estep_chunked_launch(const double* X, long long B, int T, int D,
     default: return estep_chunked_launch<8>(X, B, T, D, K, L, start, trans,
                                             means, covars, stats, ll, F, ain,
                                             bout, part, st);
+  }
+}
+
+// The chunked EM loop on the device: n_group iterations, each the
+// E-step's first three kernels and est_mstep, every kernel gated by the
+// sequence's active flag. start, trans, means and covars are updated in
+// place; ll, prev (B,) float64, it (B,) int32 and active (B,) uint8 are
+// the loop's state, which the caller sets before its first call (-inf,
+// -inf, 0, n_iter > 0) and reads after any; scratch: cur (B,), F (B, n, K,
+// K), ain and bout (B, n, K), part (B, n, S), float64.
+int hmm_fit_chunked_launch(const double* X, long long B, int T, int D, int K,
+                           int L, double* start, double* trans,
+                           double* means, double* covars, int n_iter,
+                           double tol, int n_group, double* ll, double* prev,
+                           int* it, unsigned char* active, double* cur,
+                           double* F, double* ain, double* bout, double* part,
+                           void* stream) {
+  if (bad_shape(B, T, D, K) || L < 1 || L > CHUNK_MAX || L * K > CHUNK_CAP ||
+      n_iter < 0 || n_group < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (km_of(K)) {
+    case 2: return fit_chunked_launch<2>(X, B, T, D, K, L, start, trans, means,
+                                         covars, n_iter, tol, n_group, ll,
+                                         prev, it, active, cur, F, ain, bout,
+                                         part, st);
+    case 4: return fit_chunked_launch<4>(X, B, T, D, K, L, start, trans, means,
+                                         covars, n_iter, tol, n_group, ll,
+                                         prev, it, active, cur, F, ain, bout,
+                                         part, st);
+    default: return fit_chunked_launch<8>(X, B, T, D, K, L, start, trans,
+                                          means, covars, n_iter, tol, n_group,
+                                          ll, prev, it, active, cur, F, ain,
+                                          bout, part, st);
   }
 }
 

@@ -14,9 +14,15 @@ batch of sequences:
   :func:`viterbi_chunked` (``hmm_viterbi_chunked_launch``, chunks of L
   frames: five kernels, one call); ``models/hmm.py::viterbi`` and
   ``models/hmm_pscan.py::viterbi`` on the card;
-- H3 :func:`estep_chunked` (``hmm_estep_chunked_launch``, four kernels,
-  one call): one E-step's statistics and log-likelihood for T >= 2048
-  (``models/hmm_pscan.py::e_step_stats`` on the card).
+- H3 :func:`fit_chunked` (``hmm_fit_chunked_launch``): the whole
+  Baum-Welch loop for T >= 2048 on the card (``models/hmm_pscan.py::fit``),
+  four kernels an iteration (transfers, scan, chunk pass, and the reduce
+  fused with the M-step and the loop's bookkeeping), every one gated by
+  the sequence's ``active`` flag on the card; the host enqueues
+  :data:`EM_GROUP` iterations a call and reads the flags once a group;
+  :func:`estep_chunked` (``hmm_estep_chunked_launch``, the first three
+  and a reduce, one call): one E-step's statistics and log-likelihood
+  (``hmm.score`` and ``models/hmm_pscan.py::e_step_stats`` on the card).
 
 Every array is float64, contiguous, on one CUDA device, batched: X (B, T,
 D), startprob (B, K), transmat (B, K, K), means and covars (B, K, D). Each
@@ -24,12 +30,12 @@ wrapper checks that, launches, and raises on a launch error; it never
 falls back. ``launches`` counts the calls that launched, one a call.
 
 The plain versions, :func:`fit_seq_reference`, :func:`viterbi_seq_reference`,
-:func:`viterbi_chunked_reference` and :func:`estep_chunked_reference`, are
-the model modules' torch forms of the same arithmetic
-(``models/hmm.py::_fit_plain``, ``_viterbi_plain``,
-``models/hmm_pscan.py::_viterbi_plain``, ``_e_step_stats_plain``); the
-model modules take them for a CPU tensor, and only because it lies on the
-CPU.
+:func:`viterbi_chunked_reference`, :func:`estep_chunked_reference` and
+:func:`fit_chunked_reference`, are the model modules' torch forms of the
+same arithmetic (``models/hmm.py::_fit_plain``, ``_viterbi_plain``,
+``models/hmm_pscan.py::_viterbi_plain``, ``_e_step_stats_plain``, and
+``models/hmm.py::_em_loop`` over the latter); the model modules take them
+for a CPU tensor, and only because it lies on the CPU.
 """
 
 from __future__ import annotations
@@ -48,9 +54,13 @@ MAX_FEATURES = 4
 CHUNK_CAP = 1024          # frames x states a chunk stages (csrc CHUNK_CAP)
 CHUNK_MAX = 256           # frames a chunk at most (csrc CHUNK_MAX)
 
+EM_GROUP = 8              # fit_chunked's iterations between reads of flags
+
 # kernel launches, for run-time proof of the path
 launches = {"fit": 0, "viterbi": 0, "viterbi_chunked": 0,
-            "estep_chunked": 0}
+            "estep_chunked": 0, "fit_chunked": 0}
+# the host's reads of fit_chunked's flags
+flag_reads = {"fit_chunked": 0}
 
 _LIB: list = []
 
@@ -107,6 +117,10 @@ def _library() -> ctypes.CDLL:
     lib.hmm_estep_chunked_launch.argtypes = (
         [ptr, i64, i32, i32, i32, i32] + [ptr] * 11)
     lib.hmm_estep_chunked_launch.restype = i32
+    lib.hmm_fit_chunked_launch.argtypes = (
+        [ptr, i64, i32, i32, i32, i32] + [ptr] * 4 + [i32, f64, i32]
+        + [ptr] * 10)
+    lib.hmm_fit_chunked_launch.restype = i32
     lib.hmm_error_string.argtypes = [i32]
     lib.hmm_error_string.restype = ctypes.c_char_p
     if (lib.hmm_chunk_cap() != CHUNK_CAP or lib.hmm_chunk_max() != CHUNK_MAX
@@ -254,6 +268,57 @@ def estep_chunked(X: torch.Tensor, params, L: int
     return stats, ll
 
 
+def fit_chunked(X: torch.Tensor, params, L: int, n_iter: int, tol: float):
+    """H3's EM loop on the card, chunks of L frames: Baum-Welch on every
+    sequence of the batch, each to its own convergence, as
+    ``models/hmm.py::_em_loop`` runs it over the chunked E-step. Returns
+    what ``models/hmm_pscan.py::fit`` returns for a batch: the fitted
+    (startprob, transmat, means, covars), the last E-step's
+    log-likelihood (B,) float64 and the iterations run (B,) int32.
+
+    The loop's state (the parameters, ll, prev, it, active) lives on the
+    card; each call of the launcher enqueues :data:`EM_GROUP` iterations
+    (fewer to reach n_iter), after which the host reads ``active.any()``
+    once: at most EM_GROUP - 1 iterations launch past convergence, and
+    each of their blocks returns at once. No torch op runs between the
+    launches."""
+    if n_iter < 0:
+        raise ValueError(f"n_iter must be >= 0, got {n_iter}")
+    lib = _library()
+    B, T, D, K = _check(X, params, L)
+    n = math.ceil(T / L)
+    dev = X.device
+    out = [p.clone() for p in params]
+    ll = torch.full((B,), -math.inf, dtype=torch.float64, device=dev)
+    prev = ll.clone()
+    it = torch.zeros(B, dtype=torch.int32, device=dev)
+    active = torch.full((B,), n_iter > 0, dtype=torch.bool, device=dev)
+    cur = torch.empty(B, dtype=torch.float64, device=dev)
+    F = torch.empty((B, n, K, K), dtype=torch.float64, device=dev)
+    ain = torch.empty((B, n, K), dtype=torch.float64, device=dev)
+    bout = torch.empty((B, n, K), dtype=torch.float64, device=dev)
+    part = torch.empty((B, n, n_stats(K, D)), dtype=torch.float64,
+                       device=dev)
+    done = 0
+    while done < n_iter:
+        group = min(EM_GROUP, n_iter - done)
+        with torch.cuda.device(dev):
+            err = lib.hmm_fit_chunked_launch(
+                X.data_ptr(), B, T, D, K, int(L),
+                *[o.data_ptr() for o in out], int(n_iter), float(tol),
+                int(group), ll.data_ptr(), prev.data_ptr(), it.data_ptr(),
+                active.data_ptr(), cur.data_ptr(), F.data_ptr(),
+                ain.data_ptr(), bout.data_ptr(), part.data_ptr(), _stream(X))
+        _raise_on(err, lib, "HMM chunked fit")
+        done += group
+        if done < n_iter:
+            flag_reads["fit_chunked"] += 1
+            if not bool(active.any()):
+                break
+    launches["fit_chunked"] += 1
+    return tuple(out), ll, it
+
+
 # ---------------------------------------------------------------------------
 # The plain versions (the model modules' torch forms; device-agnostic)
 # ---------------------------------------------------------------------------
@@ -281,3 +346,16 @@ def estep_chunked_reference(X, params, L: int):
     """The plain version of :func:`estep_chunked`."""
     from spectral_tpu_torch.models import hmm, hmm_pscan
     return hmm_pscan._e_step_stats_plain(hmm.HMMParams(*params), X, L)
+
+
+def fit_chunked_reference(X, params, L: int, n_iter: int, tol: float):
+    """The plain version of :func:`fit_chunked`: ``models/hmm.py::_em_loop``
+    over the plain chunked E-step."""
+    from spectral_tpu_torch.models import hmm, hmm_pscan
+    K, D = params[0].shape[-1], X.shape[-1]
+
+    def e_step(p, X):
+        st, ll = hmm_pscan._e_step_stats_plain(p, X, L)
+        return split_stats(st, K, D), ll
+    p, ll, it = hmm._em_loop(e_step, hmm.HMMParams(*params), X, n_iter, tol)
+    return tuple(p), ll, it

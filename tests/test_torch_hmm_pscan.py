@@ -225,6 +225,19 @@ def test_fit_and_decode_match_sequential():
     assert torch.equal(out_p[1], out_s[1]) and int(out_p[2]) == int(out_s[2])
     assert float(hmm_pscan.score(p_s, X)) == pytest.approx(
         float(hmm.score(p_s, X)), rel=1e-11)
+    # a batch of two that converge at different iterations (9 and 8 at a
+    # tolerance of 2 nats): the loop steps each to its own end
+    feats = [_feats(2304, s) for s in (5, 8)]
+    Xb = torch.from_numpy(np.stack(feats))
+    pb = hmm.HMMParams(*(torch.stack(a) for a in zip(*[
+        hmm.init_params(f, 4, device="cpu") for f in feats])))
+    p_s, ll_s, it_s = hmm.fit(pb, Xb, n_iter=30, tol=2.0)
+    p_p, ll_p, it_p = hmm_pscan.fit(pb, Xb, n_iter=30, tol=2.0)
+    assert torch.equal(it_p, it_s) and it_p.tolist() == [9, 8]
+    np.testing.assert_allclose(ll_p.numpy(), ll_s.numpy(), rtol=1e-11)
+    for a, b in zip(p_p, p_s):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-9,
+                                   atol=1e-9)
 
 
 @pytest.mark.parametrize("k", [2, 6])

@@ -2,7 +2,7 @@
 CPU: each variant of each kernel is a textual edit that must match its
 source (csrc/stft_psd.cu, csrc/stft_grad.cu for the radix-2 backward, or
 csrc/stft_grad_mixed.cu for the mixed, odd and Bluestein routes'
-backward) exactly
+backward, csrc/hmm.cu for the HMM kernels) exactly
 once (the tool refuses to build one that does not), so a change
 to the source that leaves a variant behind shows here and not first on
 the card."""
@@ -51,7 +51,8 @@ def test_every_kernel_names_its_routes_and_configs():
     stft_cuda = importlib.import_module("spectral_tpu_torch.ops.stft_cuda")
     from spectral_tpu_torch import SpecConfig
     assert set(tkv.KERNELS) == {"r2", "mixed", "conv", "rader", "small",
-                                "grad", "grad_mixed", "grad_bluestein"}
+                                "grad", "grad_mixed", "grad_bluestein",
+                                "hmm"}
     for kern in tkv.KERNELS.values():
         for k in kern.nperseg:
             assert stft_cuda.route(SpecConfig.scipy_default(k)) in kern.routes
@@ -59,3 +60,23 @@ def test_every_kernel_names_its_routes_and_configs():
             cfg = (SpecConfig.north_star(k, 256) if label.startswith(
                 "path 1 ") else SpecConfig.scipy_default(k))
             assert stft_cuda.route(cfg) in kern.routes
+
+
+def test_the_hmm_set_names_its_variants_and_groups():
+    """The hmm set: the ablations (no_chain, no_scan, no_stats), the
+    parent's step (old_step), H1's chains in one warp (one_warp), the
+    scan's transfers from global memory (scan_global), and EM_GROUP 1, 4,
+    8 and 16, each on csrc/hmm.cu; the ptxas pattern names every HMM
+    kernel."""
+    import re
+    hmm = tkv.KERNELS["hmm"]
+    assert hmm.source == "hmm" and not hmm.routes
+    assert {"no_chain", "no_scan", "no_stats", "old_step", "one_warp",
+            "scan_global"} <= set(hmm.variants)
+    assert tkv.HMM_EM_GROUPS == (1, 4, 8, 16)
+    with open(os.path.join(tkv.CSRC, "hmm.cu")) as fh:
+        src = fh.read()
+    kernels = set(re.findall(r"^(\w+_kernel)\(", src, re.M))
+    pattern = re.compile(hmm.ptxas[0])
+    for name in kernels:
+        assert pattern.search(f"_ZN{name}ILi4EE"), name

@@ -572,7 +572,7 @@ def test_hmm_cpu_tensors_never_touch_the_kernels(monkeypatch):
 
     monkeypatch.setattr(build, "load_library", no_kernel)
     for name in ("_library", "fit_seq", "viterbi_seq", "viterbi_chunked",
-                 "estep_chunked"):
+                 "estep_chunked", "fit_chunked"):
         monkeypatch.setattr(hmm_cuda, name, no_kernel)
     before = dict(hmm_cuda.launches)
     t, f = _bursty_features()

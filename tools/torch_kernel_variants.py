@@ -18,7 +18,11 @@ radix-2 route's backward, ``stft_fft_backward_launch`` in
 and ``stft_odd_fft_backward_launch`` in ``csrc/stft_grad_mixed.cu``, a
 source of their own, the same way) or ``grad_bluestein`` (the Bluestein
 route's backward, ``stft_bluestein_fft_backward_launch`` in the same
-source). Builds the
+source) or ``hmm`` (the HMM kernels of ``csrc/hmm.cu``: H1,
+``hmm_fit_launch``, at path 14's shapes; H3's EM loop,
+``hmm_fit_chunked_launch`` through ``ops/hmm_cuda.py::fit_chunked``'s
+host loop, at each ``EM_GROUP`` of ``HMM_EM_GROUPS`` too, and one E-step,
+``hmm_estep_chunked_launch``, at path 15's; see :func:`hmm_main`). Builds the
 kernel's source as it
 stands ("this") and each of the kernel's variants, a textual edit of the
 same source that must match it exactly once, with the port's nvcc flags
@@ -52,6 +56,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402  (the ptxas parser, its HMM pattern)
 CSRC = os.path.join(ROOT, "spectral_tpu_torch", "ops", "csrc")
 SOURCE = os.path.join(CSRC, "stft_psd.cu")
 OUT_DIR = os.path.join(ROOT, "build", "kernel_variants")
@@ -441,6 +447,68 @@ GRAD_BLUESTEIN_VARIANTS = {
     "no_cotangent": GRAD_MIXED_VARIANTS["no_cotangent"],
 }
 
+HMM_VARIANTS = {
+    "no_chain": (
+        "ablation: the transfers' and the chunk pass's K^2-lane steps "
+        "skipped (staging, the scan and the statistics kept)",
+        [("    for (int s = first; s < len; ++s)\n"
+          "      v = k2_step<KM>(v, lbs[s * K + oo], col, true, o, r, K);",
+          "    for (int s = first; s < first; ++s)\n"
+          "      v = k2_step<KM>(v, lbs[s * K + oo], col, true, o, r, K);"),
+         ("      for (int s = first; s < len; ++s) {\n"
+          "        a = k2_step<KM>(",
+          "      for (int s = first; s < first; ++s) {\n"
+          "        a = k2_step<KM>("),
+         ("      for (int s = len - 2; s >= 0; --s) {\n"
+          "        bb = k2_step<KM>(",
+          "      for (int s = len - 2; s >= len; --s) {\n"
+          "        bb = k2_step<KM>(")]),
+    "no_scan": (
+        "ablation: the scan's chains skipped (its tiles still fetched)",
+        [("        for (int c = t == 0 ? 1 : t * SCAN_TILE; c < c1; ++c) {",
+          "        for (int c = t == 0 ? 1 : t * SCAN_TILE; c < 0; ++c) {"),
+         ("             c >= (t == 0 ? 1 : t * SCAN_TILE); --c) {",
+          "             c >= n; --c) {")]),
+    "no_stats": (
+        "ablation: the chunk pass's statistics loop skipped (its block sum "
+        "kept)",
+        [("  for (int s = tid; s < len; s += THREADS) {\n"
+          "    double xd[MAX_D];",
+          "  for (int s = tid; s < 0; s += THREADS) {\n"
+          "    double xd[MAX_D];")]),
+    "old_step": (
+        "the one-state-a-lane step's exps: each lane computes its row's K "
+        "exps itself (no gather of the exps), on the same K^2 lanes",
+        [("constexpr bool K2_ONE_EXP = true;",
+          "constexpr bool K2_ONE_EXP = false;")]),
+    "one_warp": (
+        "H1's two chains in one warp, lanes 0-15 forward and 16-31 backward",
+        [("constexpr bool H1_ONE_WARP = false;",
+          "constexpr bool H1_ONE_WARP = true;")]),
+    "scan_global": (
+        "the scan's transfers read from global memory on the chain, as the "
+        "parent's scan read them",
+        [("constexpr bool SCAN_SMEM = true;",
+          "constexpr bool SCAN_SMEM = false;")]),
+    "scan_tile64": (
+        "the scan's tiles 64 chunks, not 32",
+        [("constexpr int SCAN_TILE = 32;", "constexpr int SCAN_TILE = 64;")]),
+    "chunk_blocks2": (
+        "the chunk pass at the blocks an SM its registers allow (233 "
+        "registers at KM 4: two), not four",
+        [("constexpr int CHUNK_MIN_BLOCKS = 4;",
+          "constexpr int CHUNK_MIN_BLOCKS = 1;")]),
+    "chunk_blocks3": (
+        "the chunk pass at three blocks an SM (168 registers), not four",
+        [("constexpr int CHUNK_MIN_BLOCKS = 4;",
+          "constexpr int CHUNK_MIN_BLOCKS = 3;")]),
+    "chunk_blocks5": (
+        "the chunk pass at five blocks an SM (102 registers), not four",
+        [("constexpr int CHUNK_MIN_BLOCKS = 4;",
+          "constexpr int CHUNK_MIN_BLOCKS = 5;")]),
+}
+HMM_EM_GROUPS = (1, 4, 8, 16)      # hmm_cuda.EM_GROUP, timed in turns too
+HMM_REPS = 3
 
 def _r2_launch(stft_cuda, cfg, dev, a):
     c = stft_cuda.fft_constants(cfg, FS, dev)
@@ -629,8 +697,134 @@ KERNELS = {
          ("path 9 scipy_default 8182", 8182, None)),
         (563, 1126, 2049, 2999, 6994), _grad_bluestein_launch,
         GRAD_BLUESTEIN_VARIANTS, "stft_grad_mixed"),
+    "hmm": Kernel((), chip_smoke.HMM_PTXAS, (), (), None, HMM_VARIANTS,
+                  "hmm"),
 }
 
+
+def hmm_shapes(dev):
+    """chip_smoke.py's detection shapes on seeded features
+    (``chip_smoke.hmm_features``): path 14's, 256 sweeps of 1,071 frames,
+    each from the host's k-means start, n_iter 100; path 15's, one hour of
+    524,288 frames from the k-means start of its first 65,536."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch.models import hmm
+    feats = [chip_smoke.hmm_features(np.random.RandomState(s), 1071)
+             for s in range(256)]
+    X14 = torch.tensor(np.stack(feats), device=dev)
+    p14 = chip_smoke.stack_params([hmm.init_params(f, 4, device=dev)
+                                   for f in feats])
+    f15 = chip_smoke.hmm_features(np.random.RandomState(15), 524288)
+    X15 = torch.tensor(f15[None], device=dev)
+    p15 = chip_smoke.stack_params([hmm.init_params(f15[:65536], 4,
+                                                   device=dev)])
+    return (X14, tuple(p14)), (X15, tuple(p15))
+
+
+def hmm_main(args, kern, names, libs, regs, card):
+    """The hmm set: H1 (hmm_fit_launch) at path 14's shapes, and at path
+    15's H3's EM loop (hmm_fit_chunked_launch, its host loop as
+    ops/hmm_cuda.py::fit_chunked runs it, at each EM_GROUP of
+    HMM_EM_GROUPS with this build) and one E-step
+    (hmm_estep_chunked_launch); two rounds in turns, CUDA events (the EM
+    loop on the host clock, synchronised), median of HMM_REPS. Design
+    variants must give this build's bits; ablations time a part."""
+    import time as _time
+    import torch
+    from spectral_tpu_torch.models import hmm
+    from spectral_tpu_torch.ops import hmm_cuda
+    dev = torch.device("cuda", 0)
+    ref = hmm_cuda._library()
+    for lib in libs.values():
+        for entry in ("hmm_fit_launch", "hmm_estep_chunked_launch",
+                      "hmm_fit_chunked_launch", "hmm_fit_scratch"):
+            getattr(lib, entry).argtypes = getattr(ref, entry).argtypes
+            getattr(lib, entry).restype = getattr(ref, entry).restype
+    (X14, p14), (X15, p15) = hmm_shapes(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tol = hmm.DEFAULT_TOL
+
+    def fit(lib):
+        B, T, D = X14.shape
+        K = p14[0].shape[-1]
+        out = [torch.empty_like(p) for p in p14]
+        ll = torch.empty(B, dtype=torch.float64, device=dev)
+        it = torch.empty(B, dtype=torch.int32, device=dev)
+        err = lib.hmm_fit_launch(X14.data_ptr(), B, T, D, K,
+                                 *[p.data_ptr() for p in p14], 100, tol,
+                                 *[o.data_ptr() for o in out], ll.data_ptr(),
+                                 it.data_ptr(), None, stream)
+        if err:
+            raise SystemExit(f"hmm_fit_launch failed with {err}")
+        return (*out, ll, it)
+
+    def em(lib, group=hmm_cuda.EM_GROUP):
+        saved = hmm_cuda._LIB[:]
+        hmm_cuda._LIB[:] = [lib]
+        old_group, hmm_cuda.EM_GROUP = hmm_cuda.EM_GROUP, group
+        try:
+            p, ll, it = hmm_cuda.fit_chunked(X15, p15, 256, 100, tol)
+        finally:
+            hmm_cuda._LIB[:] = saved
+            hmm_cuda.EM_GROUP = old_group
+        return (*p, ll, it)
+
+    def estep(lib):
+        saved = hmm_cuda._LIB[:]
+        hmm_cuda._LIB[:] = [lib]
+        try:
+            return hmm_cuda.estep_chunked(X15, p15, 256)
+        finally:
+            hmm_cuda._LIB[:] = saved
+
+    def events_ms(fn):
+        return chip_smoke.time_ms(fn, reps=HMM_REPS)[0]
+
+    def host_ms(fn):
+        times = []
+        for _ in range(HMM_REPS):
+            torch.cuda.synchronize()
+            t0 = _time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (_time.perf_counter() - t0))
+        return sorted(times)[HMM_REPS // 2]
+
+    def bits(ts):
+        return [t.view(torch.int64) if t.dtype == torch.float64 else t
+                for t in ts]
+
+    cases = {"H1 path 14 (256 x 1071, n_iter 100)": (fit, events_ms),
+             "H3 EM loop path 15 (524288 frames, n_iter 100)": (em, host_ms),
+             "H3 E-step path 15": (estep, events_ms)}
+    report = {"kernel": "hmm", "card": card, "ptxas": regs, "configs": {}}
+    for label, (fn, clock) in cases.items():
+        want = bits(fn(libs["this"]))
+        torch.cuda.synchronize()
+        row = {}
+        for rnd in range(2):
+            for name in (names if rnd == 0 else names[::-1]):
+                got = bits(fn(libs[name]))
+                entry = row.setdefault(name, {"ms": []})
+                entry["same_output"] = all(torch.equal(a, b)
+                                           for a, b in zip(got, want))
+                entry["ms"].append(clock(lambda: fn(libs[name])))
+        if fn is em:
+            it = int(want[-1].max())
+            for rnd in range(2):
+                for g in (HMM_EM_GROUPS if rnd == 0 else HMM_EM_GROUPS[::-1]):
+                    entry = row.setdefault(f"EM_GROUP {g}", {"ms": []})
+                    got = bits(em(libs["this"], g))
+                    entry["same_output"] = all(torch.equal(a, b)
+                                               for a, b in zip(got, want))
+                    entry["ms"].append(host_ms(lambda: em(libs["this"], g)))
+            row["iterations"] = it
+        report["configs"][label] = row
+        print(label, {k: v if not isinstance(v, dict) else
+                      [round(t, 3) for t in v["ms"]]
+                      for k, v in row.items()}, flush=True)
+    print(json.dumps(report))
 
 def variant_source(src, edits, name="variant"):
     """src with each (old, new) of edits replaced; each old must occur
@@ -685,11 +879,9 @@ def main(argv=None) -> None:
     if unknown:
         ap.error(f"{args.kernel} has no variants {sorted(unknown)}; it has "
                  f"{sorted(kern.variants)}")
-    sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_variants: this needs a CUDA card")
-    from chip_smoke import radix2_ptxas
     from spectral_tpu_torch import SpecConfig
     from spectral_tpu_torch.core.stft import num_frames
     from spectral_tpu_torch.ops import build as port_build
@@ -725,9 +917,12 @@ def main(argv=None) -> None:
             raise SystemExit(f"{name}: nvcc failed\n{log}")
         libs[name] = load(os.path.join(OUT_DIR, args.kernel, name,
                                        f"lib{kern.source}.so"))
-        regs[name] = radix2_ptxas(log, *kern.ptxas)
+        regs[name] = chip_smoke.radix2_ptxas(log, *kern.ptxas)
     print(f"built {len(names)} variants in {time.perf_counter() - t0:.1f} "
           f"s; ptxas {regs}", flush=True)
+    if kern.source == "hmm":
+        hmm_main(args, kern, names, libs, regs, card)
+        return
 
     dev = torch.device("cuda", 0)
     configs = []

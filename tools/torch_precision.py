@@ -44,6 +44,12 @@ Clips are white noise of 8·nperseg samples, with or without a +3 offset,
 or with a trend rising from 3 to 43 over the clip (ramp clips,
 :func:`trend`).
 
+The HMM kernels' steps are modelled here too, lane by lane
+(:func:`hmm_step_state_lanes`, :func:`hmm_step_lanes`), with their
+M-step (:func:`hmm_m_step_kernel`); ``tests/test_torch_hmm_lanes.py``
+holds the K^2-lane step to the one-state-a-lane step bitwise and the
+M-step to ``models/hmm.py::_m_step_stats``.
+
 scipy is an oracle here, as in ``bench.py`` and the tests; the port's
 package never imports it.
 """
@@ -1119,6 +1125,169 @@ def sweep_table(seeds: int, only=None) -> None:
                   f"{max(f64):.2e}           | {cols[0]:<17s}| "
                   f"{cols[1]:<19s}| {cols[2]:<17s}| {cols[3]}", flush=True)
         dft_matrices.cache_clear()      # 533 MB a config at 8160
+
+
+# ---------------------------------------------------------------------------
+# The HMM kernels' steps (csrc/hmm.cu), lane by lane in numpy float64: the
+# one-state-a-lane step (fwd_step, bwd_step, the scan's steps; KM 8, and
+# KM 2 and 4 before the K^2-lane step) and the K^2-lane step (k2_step,
+# k2_lse, est_scan_kernel's K^2 form), each on the lanes that compute.
+# ---------------------------------------------------------------------------
+
+HMM_STEPS = ("fwd", "bwd", "scan_fwd", "scan_bwd")
+
+
+def _ordered_max(vals, K: int):
+    """The kernels' max: index order, a strict >, the first element
+    first."""
+    m = vals[0]
+    for i in range(1, K):
+        if vals[i] > m:
+            m = vals[i]
+    return m
+
+
+def _ordered_sum(vals, K: int):
+    s = vals[0]
+    for i in range(1, K):
+        s = s + vals[i]
+    return s
+
+
+def _step_operands(x, coef, lbv):
+    return ([np.float64(v) for v in x], np.asarray(coef, np.float64),
+            np.asarray(lbv, np.float64))
+
+
+def hmm_step_state_lanes(kind: str, x, coef, lbv, K: int, KM: int):
+    """One step of the one-state-a-lane form on a warp: lane j holds state
+    jj = min(j, K - 1); x (K,) the states' values, coef (K, K) LA (or the
+    chunk's transfer F for the scan's steps), lbv (K,) the emissions
+    (lb[t] forward, lb[t + 1] backward; unused by the scan's steps).
+    Returns the K new values (and, for the scan's steps, the
+    normalization's max M; the forward scan also the normalized incoming
+    vector)."""
+    x, A, lb = _step_operands(x, coef, lbv)
+    lanes = [x[min(j, K - 1)] for j in range(32)]
+    out, extra = [], None
+    if kind == "scan_fwd":
+        M = _ordered_max(lanes, K)
+        vin = [v - M for v in lanes]
+        extra = (M, vin[:K])
+    elif kind == "bwd":
+        u = [lb[min(j, K - 1)] + lanes[j] for j in range(32)]
+    for j in range(K):
+        jj = min(j, K - 1)
+        w = []
+        for i in range(KM):
+            ii = i if i < K else 0
+            if kind == "fwd":
+                w.append(lanes[i] + (A[i, jj] if i < K else 0.0))
+            elif kind == "bwd":
+                w.append((A[jj, i] if i < K else 0.0) + u[i])
+            elif kind == "scan_fwd":
+                w.append(vin[i] + A[ii, jj])
+            else:
+                w.append(A[jj, ii] + lanes[i])
+        m = _ordered_max(w, K)
+        s = _ordered_sum([np.exp(w[i] - m) for i in range(K)], K)
+        r = m + np.log(s)
+        out.append(lb[jj] + r if kind == "fwd" else r)
+    if kind == "scan_bwd":
+        M = _ordered_max(out, K)
+        out = [v - M for v in out]
+        extra = M
+    return out, extra
+
+
+def hmm_step_lanes(kind: str, x, coef, lbv, K: int, KM: int):
+    """The same step on a group of KM^2 lanes, lane (o, r) = (q // KM, q %
+    KM): every lane of row o holds x[min(o, K - 1)]; the row values by
+    shuffles from lanes (i, 0), the row's K terms and their ordered max,
+    ONE exp a lane (its own term, w[r]), the row's K exps by shuffles from
+    lanes (o, i), summed in index order. Returns what
+    :func:`hmm_step_state_lanes` returns, read from lanes (o, 0), after
+    checking that every lane of a row holds the same value."""
+    x, A, lb = _step_operands(x, coef, lbv)
+    G = KM * KM
+    lanes = [x[min(q // KM, K - 1)] for q in range(G)]
+
+    def rows(vals):                       # k2_rows: vi[i] from lane (i, 0)
+        vi = [vals[i * KM] for i in range(KM)]
+        return vi, _ordered_max(vi, K)
+
+    if kind == "bwd":
+        lanes = [lb[min(q // KM, K - 1)] + lanes[q] for q in range(G)]
+    vi, M = rows(lanes)
+    w_all, m_all = [], []
+    for q in range(G):
+        o, r = divmod(q, KM)
+        oo = min(o, K - 1)
+        w = []
+        for i in range(KM):
+            ii = i if i < K else 0
+            if kind == "fwd":
+                w.append(vi[i] + (A[i, oo] if i < K else 0.0))
+            elif kind == "bwd":
+                w.append(vi[i] + (A[oo, i] if i < K else 0.0))
+            elif kind == "scan_fwd":
+                w.append((vi[i] - M) + A[ii, oo])
+            else:
+                w.append(A[oo, ii] + vi[i])
+        w_all.append(w)
+        m_all.append(_ordered_max(w, K))
+    with np.errstate(over="ignore"):       # lanes past K: never summed
+        e = [np.exp(w_all[q][q % KM] - m_all[q]) for q in range(G)]
+    new = []
+    for q in range(G):
+        o = q // KM
+        s = _ordered_sum([e[o * KM + i] for i in range(KM)], K)
+        res = m_all[q] + np.log(s)
+        new.append(lb[min(o, K - 1)] + res if kind == "fwd" else res)
+    extra = None
+    if kind == "scan_fwd":
+        extra = (M, [lanes[o * KM] - M for o in range(K)])
+    elif kind == "scan_bwd":
+        _, M2 = rows(new)
+        new = [v - M2 for v in new]
+        extra = M2
+    for o in range(K):
+        row = new[o * KM:(o + 1) * KM]
+        if any(v.tobytes() != row[0].tobytes() for v in row):
+            raise AssertionError(f"row {o}'s lanes disagree")
+    return [new[o * KM] for o in range(K)], extra
+
+
+def hmm_m_step_kernel(params, stats, covars_prior: float = 1e-2):
+    """csrc/hmm.cu's m_step<KM> in numpy float64, operation for operation:
+    thread 0 the start row, threads 32 + i transmat row i, threads 64 +
+    k D + d mean and covariance (k, d). params (startprob (K,), transmat
+    (K, K), means (K, D), covars (K, D)); stats (gamma0 (K,), sum gamma
+    (K,), gamma^T X (K, D), gamma^T X^2 (K, D), sum xi (K, K))."""
+    f = np.float64
+    start, trans, means, _ = (np.asarray(p, np.float64) for p in params)
+    g0, gs, gx, gx2, xi = (np.asarray(s, np.float64) for s in stats)
+    K, D = means.shape
+    num = [f(0.0) if start[k] == 0.0 else g0[k] for k in range(K)]
+    ssum = _ordered_sum(num, K)
+    den = f(1.0) if ssum == 0.0 else ssum
+    new_start = np.array([num[k] / den for k in range(K)])
+    new_trans = np.empty((K, K))
+    for i in range(K):
+        num = [f(0.0) if trans[i, j] == 0.0 else xi[i, j] for j in range(K)]
+        rsum = _ordered_sum(num, K)
+        den = f(1.0) if rsum == 0.0 else rsum
+        new_trans[i] = [num[j] / den for j in range(K)]
+    new_means = np.empty((K, D))
+    new_covars = np.empty((K, D))
+    for k in range(K):
+        for d in range(D):
+            denom, obs, obs2 = gs[k], gx[k, d], gx2[k, d]
+            mu = obs / max(denom, f(1e-30)) if denom > 0.0 else means[k, d]
+            num = (obs2 - (f(2.0) * mu) * obs) + (mu * mu) * denom
+            new_means[k, d] = mu
+            new_covars[k, d] = (f(covars_prior) + num) / max(denom, f(1e-5))
+    return new_start, new_trans, new_means, new_covars
 
 
 def main(argv=None) -> None:

@@ -49,7 +49,17 @@ of paths 1-11 (path 3: one export batch, 64 clips of 10 s, palette words
 and no image, as ``export_spectrograms`` calls it), or of the paths
 numbered: a single call between two events and a run of RUN calls over
 the count, median of 5, with digests of the first clips' PSD, words and
-flags; and path 21's training steps (with no path named, or 21 named):
+flags; path 12's (path 1's batch, 128 log mels) and path 13's (256
+sweeps of 16 min at 1 kHz, the 0-30 Hz band) the same way; detection on
+paths 14 and 15 (``chip_smoke.py``'s seeded batches with planted bursts:
+fleet detection, ``batch_unsupervised_detect`` on 256 sweeps of 16 min;
+an hour at 48 kHz through ``BurstDetector(engine='auto')``, 524,288
+frames): the stages' host times, H1's ms and ns a step, H3's ms an
+iteration and its split over transfers, scan, chunk pass and reduce
+(``torch.profiler``'s kernel times), the EM loop's host ms, its
+device-to-host reads and the device's idle share over it, and digests
+of the fitted model, ll, it, the states and the event lists; and path
+21's training steps (with no path named, or 21 named):
 the waveform of path 1's batch requiring grad, ``batched_spectrogram_fn``
 at north_star 1024/256 log, and of path 4's batch (256 clips of 60 s) at
 scipy_default 8160 log (the mixed route's backward), 8182 log and 8185
@@ -134,22 +144,29 @@ def _digest(t) -> str:
 def time_pipelines(paths, report, SpecConfig, batch, dev):
     """batched_spectrogram_fn on each path's batch, as chip_smoke.py
     drives it: flip_image, RGBA words and the image; path 3 palette words
-    and no image, as the export calls it."""
+    and no image, as the export calls it; then the detection paths and
+    path 21's training steps."""
     import torch
     from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
-    for num, name, cfg, shape in path_configs(SpecConfig):
+    configs = [(num, name, cfg, FS, shape)
+               for num, name, cfg, shape in path_configs(SpecConfig)]
+    for num, name, cfg, fs, shape in (configs
+                                      + extra_pipeline_configs(SpecConfig)):
         if paths and num not in paths:
             continue
         x = batch(*shape)
         kw = (dict(palette=True, with_image=False, colormap=None)
               if num == 3 else {})
-        fn = batched_spectrogram_fn(FS, cfg, flip_image=True, **kw)
+        fn = batched_spectrogram_fn(fs, cfg, flip_image=True, **kw)
         print(f"pipeline {name}", file=sys.stderr, flush=True)
         out = fn(x)
         words = out["index_packed" if num == 3 else "rgb_packed"]
-        entry = {"batch": list(shape), "psd_sha256": _digest(out["psd"][:8]),
+        entry = {"batch": list(shape), "fs": fs,
+                 "psd_sha256": _digest(out["psd"][:8]),
                  "words_sha256": _digest(words[:8]),
                  "finite_sha256": _digest(out["finite"])}
+        if "mel" in out:
+            entry["mel_sha256"] = _digest(out["mel"][:8])
         del out, words
         torch.cuda.synchronize()
         for key, run in (("ms", 1), ("run_ms", RUN)):
@@ -167,10 +184,185 @@ def time_pipelines(paths, report, SpecConfig, batch, dev):
             entry[key.replace("ms", "reps_ms")] = reps
         report[f"pipeline {name}"] = entry
         torch.cuda.empty_cache()
+    if not paths or 14 in paths:
+        time_fleet_detection(report, dev)
+    if not paths or 15 in paths:
+        time_long_detection(report, dev)
     if not paths or 21 in paths:
         time_grad_step(report, SpecConfig, batch)
         for k in (8160, 8182, 8185):
             time_grad_step(report, SpecConfig, batch, k)
+
+
+def extra_pipeline_configs(SpecConfig):
+    """(path number, label, config, fs, (clips, seconds at FS)) of
+    chip_smoke.py's paths 12 and 13: path 1's batch with 128 log mels; 256
+    sweeps of 16 min at 1 kHz (960,000 samples, the batch of 256 x 60 s
+    at FS) on the 0-30 Hz band, log."""
+    return [
+        (12, "path 12 north_star 1024/256 128 log mels",
+         SpecConfig.north_star(1024, 256, n_mels=128, log_scale=True),
+         FS, (CLIPS, SECONDS)),
+        (13, "path 13 scipy_default 1024 0-30 Hz at 1 kHz",
+         SpecConfig.scipy_default(1024, fmin=0.0, fmax=30.0,
+                                  log_scale=True), 1000.0, (256, 60.0))]
+
+
+def _smoke():
+    """This checkout's chip_smoke.py (its seeded inputs, the same data
+    whichever checkout is timed)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
+
+
+def _digest_obj(obj) -> str:
+    return hashlib.sha256(repr(obj).encode()).hexdigest()[:16]
+
+
+def _params_digests(params, ll, it) -> dict:
+    out = {name: _digest(p) for name, p in zip(
+        ("startprob", "transmat", "means", "covars"), params)}
+    out.update(ll=_digest(ll), it=_digest(it))
+    return out
+
+
+def time_fleet_detection(report, dev):
+    """Path 14: chip_smoke.py's EEG batch with planted bursts (256 sweeps
+    of 16 min at 1 kHz, seed 14), scipy_default 1024 on the 0-30 Hz band,
+    features_from_psd, batch_unsupervised_detect (host k-means, H1, the
+    patch, H2, host scans), 4 states, n_iter 100: the stages' times, H1's
+    ms and ns a step, H2's ms, and digests of the fitted model, ll, it,
+    the states and the event lists."""
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core import events as ev
+    from spectral_tpu_torch.core.stft import (band_row_slice, freq_axis,
+                                              power_spectrogram, time_axis)
+    from spectral_tpu_torch.models import batch as mbatch, hmm
+    from spectral_tpu_torch.ops import hmm_cuda
+    smoke = _smoke()
+    fs, n = smoke.EEG_FS, int(smoke.EEG_FS * smoke.EEG_SECONDS)
+    cfg = SpecConfig.scipy_default(1024)
+    f, t = freq_axis(cfg, fs), time_axis(cfg, fs, n)
+    band = band_row_slice(f, 0.0, 30.0)
+    fb = f[band[0]:band[1]]
+    print("detection path 14", file=sys.stderr, flush=True)
+    x, _ = smoke.bursty_batch(dev, smoke.EEG_CLIPS, n, fs, 30.0, 3.0, 25.0,
+                              14)
+    psd = power_spectrogram(x, fs, cfg, band=band)
+    feats = ev.features_from_psd(fb, psd, 0.0, 30.0)
+    hmm_cuda._library()                  # built before the stages' clocks
+    timings = {}
+    events = mbatch.batch_unsupervised_detect(t, feats, device=dev,
+                                              timings=timings)
+    feats_np = feats.cpu().numpy()
+    p0 = hmm.HMMParams(*(torch.stack(a).to(dev) for a in zip(*[
+        hmm.init_params(feats_np[b], 4, device="cpu")
+        for b in range(len(feats_np))])))
+    X = feats.to(torch.float64).contiguous()
+    params, states, _, ll, it = hmm.unsupervised_fit_decode(p0, X)
+    T = X.shape[1]
+    fit_ms, fit_reps = smoke.time_ms(lambda: hmm_cuda.fit_seq(
+        X, p0, 100, hmm.DEFAULT_TOL), reps=3)
+    steps = int(it.max()) * (T - 1)
+    entry = {
+        "frames": T, "host_s": timings,
+        "features_ms": smoke.time_ms(lambda: ev.features_from_psd(
+            fb, psd, 0.0, 30.0))[0],
+        "fit_kernel_ms": fit_ms, "fit_kernel_reps_ms": fit_reps,
+        "fit_ns_a_step": 1e6 * fit_ms / steps,
+        "viterbi_kernel_ms": smoke.time_ms(lambda: hmm_cuda.viterbi_seq(
+            X, hmm.HMMParams(*(p.contiguous() for p in params))))[0],
+        "iterations": [int(it.min()), int(it.cpu().median()), int(it.max())],
+        "digests": {**_params_digests(params, ll, it),
+                    "states": _digest(states), "events": _digest_obj(events)}}
+    report["detection path 14"] = entry
+    del x, psd
+    torch.cuda.empty_cache()
+
+
+def time_long_detection(report, dev):
+    """Path 15: chip_smoke.py's hour at 48 kHz with planted bursts (seed
+    15), north_star 1024/256 on the 0-4000 Hz band (524,288 frames),
+    BurstDetector(engine='auto'): the stages' times; the EM loop
+    (hmm_pscan.fit) on the host clock, its device idle share and its
+    device-to-host reads (torch.profiler); H3's ms an iteration (one
+    E-step, CUDA events) and its split over transfers, scan, chunk pass
+    and reduce (the profiler's kernel times); H2 chunked's ms; digests of
+    the fitted model, ll, it, the states and the event list."""
+    import time
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core import events as ev
+    from spectral_tpu_torch.core.stft import (band_row_slice, freq_axis,
+                                              power_spectrogram, time_axis)
+    from spectral_tpu_torch.models import hmm, hmm_pscan
+    from spectral_tpu_torch.models.detector import BurstDetector
+    from spectral_tpu_torch.ops import hmm_cuda
+    smoke = _smoke()
+    cfg = SpecConfig.north_star(1024, 256)
+    fs = smoke.LONG_FS
+    n = cfg.hop_ * (smoke.LONG_T - 1) + cfg.nperseg
+    f, t = freq_axis(cfg, fs), time_axis(cfg, fs, n)
+    band = band_row_slice(f, 0.0, 4000.0)
+    fb = f[band[0]:band[1]]
+    print("detection path 15", file=sys.stderr, flush=True)
+    x, _ = smoke.bursty_batch(dev, 1, n, fs, 4000.0, 200.0, 3000.0, 15)
+    feats = ev.features_from_psd(fb, power_spectrogram(
+        x, fs, cfg, band=band), 0.0, 4000.0)[0]
+    del x
+    det = BurstDetector(engine="auto", device=dev)
+    events = det.unsupervised_detect(t, feats)
+    feats_np = feats.cpu().numpy()
+    p0 = hmm.init_params(feats_np, 4, device=dev)
+    X = feats.to(torch.float64)
+    params, states, _, ll, it = hmm_pscan.unsupervised_fit_decode(p0, X)
+    iters = int(it)
+
+    def em():
+        return hmm_pscan.fit(p0, X, n_iter=100)
+
+    em()
+    torch.cuda.synchronize()
+    loop = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        em()
+        torch.cuda.synchronize()
+        loop.append(1e3 * (time.perf_counter() - t0))
+    trace = smoke.kernel_split(em, smoke.HMM_STAGES)
+    Xb = X[None].contiguous()
+    pb = tuple(p[None].contiguous() for p in params)
+    L = hmm_cuda.chunk_len(4)
+    est_ms, est_reps = smoke.time_ms(lambda: hmm_cuda.estep_chunked(Xb, pb,
+                                                                    L))
+    split = smoke.kernel_split(lambda: [hmm_cuda.estep_chunked(Xb, pb, L)
+                                        for _ in range(REPS)],
+                               smoke.HMM_STAGES)
+    entry = {
+        "frames": int(X.shape[0]), "host_s": det.timings,
+        "iterations": iters,
+        "em_loop_ms": sorted(loop)[1], "em_loop_reps_ms": loop,
+        "em_loop_ms_an_iteration": sorted(loop)[1] / iters,
+        "estep_ms": est_ms, "estep_reps_ms": est_reps,
+        "viterbi_chunked_ms": smoke.time_ms(lambda: hmm_cuda.viterbi_chunked(
+            Xb, pb, L))[0],
+        "digests": {**_params_digests(params, ll, it),
+                    "states": _digest(states), "events": _digest_obj(events)}}
+    if trace is None:
+        entry["em_loop_trace"] = "not measured: no device time in the trace"
+    else:
+        entry["em_loop_trace"] = dict(
+            trace, stage_ms_an_iteration={
+                k: v / iters for k, v in trace["stage_ms"].items()})
+        entry["flag_reads"] = trace["d2h_copies"]
+    if split is not None:
+        entry["estep_split_ms"] = {k: v / REPS
+                                   for k, v in split["stage_ms"].items()}
+    report["detection path 15"] = entry
+    torch.cuda.empty_cache()
 
 
 def time_grad_step(report, SpecConfig, batch, nperseg=None):
