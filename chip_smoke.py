@@ -230,7 +230,7 @@ the host has no matplotlib, one line that says so; and
     step the forward kernels and the backward kernels
     (``stft_fft_backward_kernel``, the radix-2 route's adjoint with X
     recomputed in registers, ``overlap_add_kernel``,
-    ``mel_backward_kernel``, the display backward's two kernels), its
+    ``mel_backward_kernel``, the display backward's kernel), its
     gradient on GRAD_CLIPS clips held within GRAD_TOL of the clip's
     largest |gradient| to the plain backward on the card;
     ``power_spectrogram`` and ``stft`` on 10 minutes at 48 kHz (path 16's
@@ -692,13 +692,13 @@ def build_kernels():
     print(f"display.cu -> {os.path.relpath(tail['path'], HERE)} in "
           f"{tail['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
               tail["log"], r"(clip_stats_kernel|display_map_kernelILi(\d)"
-              r"ELb(\d)E|display_grad_pixel_kernelILb(\d)E|"
-              r"display_grad_extrema_kernel)",
+              r"ELb(\d)E|display_grad_kernelILb(\d)E|"
+              r"display_grad_prep_kernel)",
               lambda e: "clip_stats" if e.group(1) == "clip_stats_kernel"
               else f"display_map<MODE {e.group(2)}, LOG {e.group(3)}>"
               if e.group(2) is not None
-              else f"display_grad_pixel<LOG {e.group(4)}>"
-              if e.group(4) is not None else "display_grad_extrema")))
+              else f"display_grad<LOG {e.group(4)}>"
+              if e.group(4) is not None else "display_grad_prep")))
     build.load_library("display")
     print(f"stft_psd.cu -> {os.path.relpath(info['path'], HERE)} in "
           f"{info['seconds']:.2f} s")
@@ -5268,8 +5268,11 @@ def grad_kernel_cases(dev):
     unscaled, a 0-30 Hz band at 1 kHz, centered (reflect), linear detrend,
     T = 0; then
     the mel backward at path 12's shapes and the display backward at path
-    1's and path 12's (log and linear, flipped, share_max, tied extrema),
-    each against its plain version."""
+    1's and path 12's (log and linear, flipped, share_max, tied extrema)
+    and on edge clips (silent frames, a pixel equal to the base, two clips
+    tied at the batch's max, dB ranges of 0 and 5.2e-7, a NaN pixel), each
+    against its plain version, the display backward also against itself
+    run again, bit for bit."""
     import dataclasses
     import numpy as np
     import torch
@@ -5470,20 +5473,42 @@ def grad_kernel_cases(dev):
           f"abs), NaN in its places")
 
     # the display backward at path 1's shapes (PSD rows, log and linear,
-    # flipped or not, share_max) and path 12's (mel rows), tied extrema
+    # flipped or not, share_max) and path 12's (mel rows), tied extrema;
+    # then edge clips: silent frames (thousands of pixels tied at the min),
+    # a pixel equal to the base (u = 1), two clips tied at the batch's max
+    # under share_max, a dB range of at most 1e-6, a NaN pixel (the clip's
+    # operands from its finite pixels); each within GRAD_TOL of the plain
+    # version and the same bits in two runs
     x8 = torch.randn((8, int(FS * CLIP_SECONDS)), generator=gen, device=dev)
     psd, parts = stft_cuda.stft_psd_partials(x8, FS, ns)
     mel, mparts = mel_cuda.mel_project(psd, spans)
     psd_ties = psd.clone()
     psd_ties[0, 10, 3] = psd_ties[0].amax()
     psd_ties[1, 20, :] = psd_ties[1].amin()
+    edge = psd.clone()
+    edge[0, 40:600] = 0.0                    # 287,280 pixels at the min
+    edge[1, 7, 9] = edge[1, 300, 30] = edge[1].amax()   # u = 1 three times
+    top = float(edge.amax()) * 2
+    edge[2, 5, 5] = edge[3, 600, 500] = edge[3, 9, 0] = top
+    edge[4] = 0.25                           # a dB range of 0
+    edge[5] = 0.5                            # and one of 5.2e-7 dB
+    edge[5, ::2, ::3] = float(np.nextafter(np.float32(0.5), np.float32(1)))
+    eparts = stft_cuda.row_partials(edge)
+    edge[6, 100, 200] = float("nan")         # after its operands
     for what, rows, prt in (("PSD rows", psd, parts),
                             ("PSD rows, tied extrema", psd_ties,
                              stft_cuda.row_partials(psd_ties)),
-                            ("mel rows", mel, mparts)):
+                            ("mel rows", mel, mparts),
+                            ("edge clips", edge, eparts)):
         for log, flip, share in ((True, True, False), (False, False, False),
                                  (True, False, True), (False, True, True)):
             stats = disp.clip_stats(x8, prt.contiguous(), share)
+            if what == "edge clips":
+                require(bool((stats.params[:, 0] == stats.params[:, 2])[1])
+                        if not share else int((stats.params[:, 2] == top)
+                                              .sum()) == 2,
+                        f"edge clips: the base and the batch's max "
+                        f"{stats.params.tolist()}")
             g = torch.randn((8, rows.shape[2], rows.shape[1]),
                             generator=gen, device=dev)
             before = flat_counts(read_counts())
@@ -5491,16 +5516,23 @@ def grad_kernel_cases(dev):
                                         flip_image=flip, share_max=share)
             torch.cuda.synchronize()
             moved = grad_counts_moved(before, flat_counts(read_counts()))
+            again = disp.display_backward(g, rows, stats.params,
+                                          log_scale=log, flip_image=flip,
+                                          share_max=share)
             want = disp.display_backward_reference(
                 g, rows, stats.params, log_scale=log, flip_image=flip,
                 share_max=share)
             rel, err = clip_rel(got, want)
-            require(rel <= GRAD_TOL and moved == {"display_backward": 1},
+            same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+            require(rel <= GRAD_TOL and moved == {"display_backward": 1}
+                    and same,
                     f"display backward, {what}, log {log}, flip {flip}, "
-                    f"share_max {share}: {rel:.2e}, launches {moved}")
+                    f"share_max {share}: {rel:.2e}, launches {moved}, the "
+                    f"same bits in two runs {same}")
             print(f"display backward, {what} ({tuple(rows.shape)}), log "
                   f"{log}, flip {flip}, share_max {share}: {rel:.2e} of the "
-                  f"clip's largest |gradient| ({err:.3e} abs)")
+                  f"clip's largest |gradient| ({err:.3e} abs), the same bits "
+                  f"in two runs")
     torch.cuda.empty_cache()
 
 
@@ -5858,7 +5890,7 @@ def grad_path(dev, card):
              "library: torch.nn.functional.fold"),
             ("mel_backward", "mel_backward_kernel", t3, t3p, t3l[0], b3,
              err3, "library: torch.matmul f64"),
-            ("display_backward", "display_backward (two kernels)", t4, t4p,
+            ("display_backward", "display_backward (prep + pass)", t4, t4p,
              None, b4, err4, "no library call")):
         print(f"{name}: {ms:.4f} ms [{card}] reps {reps}; bound "
               f"{bound[0]:.4f} ms ({bound[1]}); plain {pms:.3f} ms; library "
@@ -6341,7 +6373,7 @@ def main(_phases=None):
             mel_src, "spectral_tpu/parallel/sharding.py:99 (jax.grad of the "
             "mel einsum; no TPU kernel)"),
         "display_backward": (
-            "display_grad_pixel<LOG> + display_grad_extrema, the image's "
+            "display_grad<LOG> (after display_grad_prep), the image's "
             "adjoint, RGBA path's image (path 21)", "cuda", tail_src,
             "spectral_tpu/core/scale.py:80 (jax.grad of normalize; no TPU "
             "kernel)"),

@@ -87,7 +87,7 @@
 //   for RGBA and the image at 1024 x 10 s, north_star 1024/256; 0.0305 ms
 //   for palette words of 64 clips, no image).
 //
-// display_grad_pixel_kernel<LOG> and display_grad_extrema_kernel
+// display_grad_kernel<LOG> and display_grad_prep_kernel
 // (display_backward_launch): the image's adjoint, for the gradient through
 // the display (the JAX package's jax.grad of core/scale.py::normalize over
 // the displayed rows, sharding.py:115; its Pallas pipeline has none)
@@ -111,17 +111,36 @@
 //        0.5 at 0 and at 1, as jax.grad of jnp.clip gives it (torch.clamp's
 //        1 there gives the same gradient wherever the extrema are not tied:
 //        the boundary pixel's two terms cancel either way).
-//   Work: two launches. The pixel pass takes a tile of DG_T frames x DG_F
-//   bins of a clip (its g rows read along frames, coalesced, and turned in
-//   shared memory), writes each pixel's own term to dpsd and reduces the
-//   tile's sums of g d img/dd, g d img/dmin and g d img/dmax and its counts
-//   of pixels equal to the min and to the max, in a fixed order, to a
-//   record. The extrema pass, a block a clip, folds the clip's records in
-//   order (and under share_max, in the block of the clip that holds the
-//   batch's max, every clip's), then reads the clip's pixels again and
-//   adds each extremum's share to its dpsd (rounded a second time there).
-//   No atomics, so the result is the same in every run.
-//   Bound: bytes, g and psd read once and dpsd written once.
+//   Work: one pass over the pixels (display_grad_kernel<LOG>; a small
+//   kernel first zeroes its counts and takes the batch's largest max). A
+//   block an item: DG_F = 32 bins x 256 frames of a clip, a warp a chunk of
+//   32 x 32 pixels on its own (no block barrier a chunk): its g rows copied
+//   by cp.async into the warp's tile in shared memory along frames and read
+//   turned, lane l on bin l walking the frames with the PSD read straight
+//   from global memory along bins (a warp reads 128 consecutive bytes of a
+//   row; 4-byte accesses, since rows of F = 513 or T = 622 floats are not
+//   16-byte aligned), DG_BATCH pixels a lane in flight. The clip's operands
+//   (d, 1/d, DB_SLOPE/d, the dB values and slopes at the extrema, rng,
+//   1/rng, ok) are computed once an item while the first copies land, not
+//   per tile and thread. A pixel then costs one f64 log10 and no division:
+//   u = v / d is the reciprocal's product corrected twice by FMAs (the
+//   correctly rounded quotient, so u = 1 at a pixel equal to the base and
+//   db is the plain version's bits; u's place against 0 and 1 read from
+//   float compares of v against 0 and d), clip_slope(r) is read from db - db_lo
+//   against 0 and rng (exactly the IEEE quotient's decision), and the
+//   values no decision reads use reciprocals (a few f64 ulps from the
+//   plain version, far inside its tolerance). Each item reduces one record
+//   (sum own u, sum k, sum k r, and its counts of pixels equal to the min
+//   and the max) in a fixed order; the block that completes a clip (an
+//   atomic count, as clip_stats) folds the clip's records in index order
+//   and revisits only the items whose counts are non-zero to add each
+//   extremum's share (rounded a second time there); under share_max with
+//   a positive batch max, the block that completes the batch adds the
+//   batch's base term at the clips holding that max. Nothing is
+//   accumulated by atomics, so the result is the same in every run.
+//   Bound: bytes, g and psd read once and dpsd written once (1.170 ms at
+//   1024 x 10 s, north_star 1024/256); the per-pixel f64 work (the log10,
+//   the quotient's steps, the products and sums) is the second limit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared (no
 // -use_fast_math: log10f, the divisions and the roundings must be the ones
@@ -514,11 +533,15 @@ int display_map_mode(const float* psd, const float* params,
 // The display map's backward
 // ---------------------------------------------------------------------------
 
-constexpr int DG_T = 32;         // frames a tile
-constexpr int DG_F = 32;         // bins a tile
+constexpr int DG_F = 32;         // bins a strip: one a lane
+constexpr int DG_T = 32;         // frames a chunk: a warp's, 32 x 32 pixels
+constexpr int DG_CHUNKS = 8;     // chunks an item: 256 frames
+constexpr int DG_BATCH = 2;      // a lane's pixels in flight at once
 constexpr int DG_THREADS = 256;
+constexpr int DG_MIN_BLOCKS = 5; // blocks an SM: at most 48 registers
 constexpr int DG_WARPS = DG_THREADS / 32;
-constexpr int DG_FIELDS = 5;     // a record: dd, dmin, dmax, n_min, n_max
+constexpr int DG_FIELDS = 5;     // a record: su, sk, skr, n_lo, n_hi
+constexpr int DG_CLIP = 4;       // a clip's fold: c_d, n_hi, at_lo, at_hi
 constexpr double DB_SLOPE = 10.0 / 2.302585092994046;   // 10 / ln 10
 
 // jnp.clip's derivative at a (JAX's 0.5 at either bound)
@@ -526,8 +549,9 @@ __device__ __forceinline__ double clip_slope(double a) {
   return (a > 0.0 && a < 1.0) ? 1.0 : ((a == 0.0 || a == 1.0) ? 0.5 : 0.0);
 }
 
-// The derivatives of the dB map db(v) at one value: by v (slope) and by
-// the denominator d (-slope u), u = v / d, times the clip's derivative.
+// The derivatives of the dB map db(v) at one of the clip's extrema, in the
+// plain version's operations: by v (slope) and by the denominator d
+// (-slope u), u = v / d, times the clip's derivative.
 struct DbGrad {
   double db, dv, dd;
 };
@@ -543,215 +567,479 @@ __device__ __forceinline__ DbGrad db_grad(double v, double d) {
   return o;
 }
 
-// The clip's operands as the backward reads them.
-struct ClipGrad {
-  double d, lo, hi;        // base + 1e-20, min, max
-  DbGrad glo, ghi;         // db at the extrema (LOG)
-  double rng;
-  bool ok;
+// The clip's operands a pixel reads, computed once an item in shared
+// memory: d = base + 1e-20, its reciprocal and DB_SLOPE / d, the extrema
+// and the min's dB value; fast when d is finite and positive (then v / d
+// is the reciprocal's product corrected twice, see quotient()). The max's
+// dB value and both extrema's slopes (ClipEnds) only the clip's fold
+// reads.
+struct ClipOps {
+  double d, inv_d, sd, db_lo;
+  float df, lo, hi;
+  int fast;
 };
 
-__device__ __forceinline__ ClipGrad clip_grad(const float* params, int b,
-                                              bool log) {
-  ClipGrad c;
-  c.d = params[3 * b];
-  c.lo = params[3 * b + 1];
-  c.hi = params[3 * b + 2];
-  c.ok = true;
-  c.rng = 1.0;
-  if (log) {
-    c.glo = db_grad(c.lo, c.d);
-    c.ghi = db_grad(c.hi, c.d);
-    c.rng = __dsub_rn(c.ghi.db, c.glo.db);
-    c.ok = c.rng > 1e-6;
+struct ClipEnds {
+  double db_hi, dv_lo, dd_lo, dv_hi, dd_hi;
+};
+
+
+// u = v / d rounded to nearest, as __ddiv_rn gives it, without a
+// division, and u's clip and clip_slope(u): q0 = v (1/d) is within 1.5
+// ulps; each step q + (v - q d) (1/d), the residual exact in an FMA, lands
+// within half an ulp plus a hair, and the second is the correctly rounded
+// quotient (Markstein's theorem: 1/d correctly rounded, q within one ulp).
+// With f32 operands, d > 0 finite and v finite, no step under- or
+// overflows, and u's place against 0 and 1 is v's against 0 and d (float
+// compares); otherwise the IEEE division and u's own.
+struct Quotient {
+  double u, clipped, slope;
+};
+
+__device__ __forceinline__ Quotient quotient(float vf, const ClipOps& c) {
+  const double v = vf;
+  Quotient o;
+  if (!c.fast || !isfinite(vf)) {
+    o.u = __ddiv_rn(v, c.d);
+    o.clipped = o.u < 0.0 ? 0.0 : (o.u > 1.0 ? 1.0 : o.u);
+    o.slope = clip_slope(o.u);
+    return o;
   }
-  return c;
+  double q = __dmul_rn(v, c.inv_d);
+  q = __fma_rn(__fma_rn(-q, c.d, v), c.inv_d, q);
+  o.u = __fma_rn(__fma_rn(-q, c.d, v), c.inv_d, q);
+  o.clipped = vf >= c.df ? 1.0 : (vf <= 0.0f ? 0.0 : o.u);
+  o.slope = (vf > 0.0f && vf < c.df)
+                ? 1.0
+                : ((vf == 0.0f || vf == c.df) ? 0.5 : 0.0);
+  return o;
 }
 
-// A pixel's own term and its shares of (dd, dmin, dmax); record[] += them.
+// An approximate 1/y (MUFU's 64-bit reciprocal seed).
+__device__ __forceinline__ double rcp_approx(double y) {
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;\n" : "=d"(r) : "d"(y));
+  return r;
+}
+
+// 1/y for y in [1e-12, 1 + 1e-12]: the seed and two Newton steps (a value
+// only: no decision reads it).
+__device__ __forceinline__ double recip(double y) {
+  double r = rcp_approx(y);
+  r = __fma_rn(r, __fma_rn(-y, r, 1.0), r);
+  return __fma_rn(r, __fma_rn(-y, r, 1.0), r);
+}
+
+// A thread's share of an item's record: su = sum own u, sk = sum k, skr =
+// sum k r over the pixels whose term is live (the clip's sums are then
+// c_d = -su + dd_lo (skr - sk) - dd_hi skr, c_lo = dv_lo (skr - sk), c_hi
+// = -dv_hi skr under LOG, c_d = -su without), and the counts of pixels
+// equal to the clip's min and max.
+struct Acc {
+  double su, sk, skr;
+  int n_lo, n_hi;
+};
+
+// A pixel's own term; acc += its shares. Every value a decision reads (u,
+// its clip, the dB value, r's place against 0 and 1) is the plain
+// version's: u the correctly rounded quotient, db the same f64 log10 of
+// the same y, and clip_slope(r) read from num = db - db_lo against 0 and
+// rng, which is clip_slope(RN(num / rng)) for rng > 0 (num < rng gives a
+// quotient at most 1 - 2^-53, num > rng at least 1 + 2^-52; no quotient
+// underflows: db lies in [-120, 4.4e-12], so num is 0 or past 1e-16 in
+// size). The values no decision reads take reciprocals: k = h g / rng, r =
+// num / rng, DB_SLOPE / (y d).
 template <bool LOG>
-__device__ __forceinline__ double pixel_grad(double v, double g,
-                                             const ClipGrad& c,
-                                             double (&rec)[DG_FIELDS]) {
-  rec[3] += v == c.lo ? 1.0 : 0.0;
-  rec[4] += v == c.hi ? 1.0 : 0.0;
+__device__ __forceinline__ float pixel_grad(float vf, float gf,
+                                            const ClipOps& c, double rng,
+                                            double inv_rng, bool ok,
+                                            Acc& acc) {
+  acc.n_lo += vf == c.lo;
+  acc.n_hi += vf == c.hi;
+  if (!ok) return 0.0f;
+  const Quotient qu = quotient(vf, c);
+  const double u = qu.u, hu = qu.slope;
   if (!LOG) {
-    const double u = __ddiv_rn(v, c.d);
-    const double h = clip_slope(u);
-    if (h == 0.0) return 0.0;
-    const double q = __dmul_rn(h, __ddiv_rn(g, c.d));
-    rec[0] = __dsub_rn(rec[0], __dmul_rn(q, u));
-    return q;
+    if (hu == 0.0) return 0.0f;
+    const double q = __dmul_rn(hu, __dmul_rn(static_cast<double>(gf),
+                                             c.inv_d));
+    acc.su = __fma_rn(q, u, acc.su);
+    return static_cast<float>(q);
   }
-  if (!c.ok) return 0.0;
-  const DbGrad p = db_grad(v, c.d);
-  const double r = __ddiv_rn(__dsub_rn(p.db, c.glo.db), c.rng);
-  const double h = clip_slope(r);
-  if (h == 0.0) return 0.0;
-  const double k = __dmul_rn(h, __ddiv_rn(g, c.rng));
-  const double a_lo = __dmul_rn(k, __dsub_rn(r, 1.0));
-  const double a_hi = -__dmul_rn(k, r);
-  rec[0] = __dadd_rn(rec[0], __dadd_rn(__dadd_rn(__dmul_rn(k, p.dd),
-                                                 __dmul_rn(a_lo, c.glo.dd)),
-                                       __dmul_rn(a_hi, c.ghi.dd)));
-  rec[1] = __dadd_rn(rec[1], __dmul_rn(a_lo, c.glo.dv));
-  rec[2] = __dadd_rn(rec[2], __dmul_rn(a_hi, c.ghi.dv));
-  return __dmul_rn(k, p.dv);
+  const double y = __dadd_rn(qu.clipped, 1e-12);
+  const double num = __dsub_rn(__dmul_rn(10.0, log10(y)), c.db_lo);
+  const double hr = (num > 0.0 && num < rng)
+                        ? 1.0
+                        : ((num == 0.0 || num == rng) ? 0.5 : 0.0);
+  if (hr == 0.0) return 0.0f;
+  const double k =
+      __dmul_rn(hr, __dmul_rn(static_cast<double>(gf), inv_rng));
+  const double own = __dmul_rn(k, __dmul_rn(hu, __dmul_rn(c.sd, recip(y))));
+  acc.su = __fma_rn(own, u, acc.su);
+  acc.sk = __dadd_rn(acc.sk, k);
+  acc.skr = __fma_rn(k, __dmul_rn(num, inv_rng), acc.skr);
+  return static_cast<float>(own);
 }
 
-// The block's sum of each thread's record, in a fixed order; valid in
-// thread 0.
-__device__ void block_sum(double (&rec)[DG_FIELDS],
-                          double (*red)[DG_FIELDS]) {
+// The block's sum of each thread's fields, in a fixed order (the same
+// bits in every run); valid in thread 0.
+__device__ void block_fold(double (&v)[DG_FIELDS],
+                           double (*red)[DG_FIELDS]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
     for (int i = 0; i < DG_FIELDS; ++i)
-      rec[i] += __shfl_down_sync(0xffffffffu, rec[i], off);
+      v[i] += __shfl_down_sync(0xffffffffu, v[i], off);
   if (lane == 0)
 #pragma unroll
-    for (int i = 0; i < DG_FIELDS; ++i) red[warp][i] = rec[i];
+    for (int i = 0; i < DG_FIELDS; ++i) red[warp][i] = v[i];
   __syncthreads();
   if (threadIdx.x == 0)
     for (int w = 1; w < DG_WARPS; ++w)
 #pragma unroll
-      for (int i = 0; i < DG_FIELDS; ++i) rec[i] += red[w][i];
+      for (int i = 0; i < DG_FIELDS; ++i) v[i] += red[w][i];
   __syncthreads();
 }
 
-template <bool LOG>
-__global__ void __launch_bounds__(DG_THREADS)
-display_grad_pixel_kernel(const float* __restrict__ g,
-                          const float* __restrict__ psd,
-                          const float* __restrict__ params,
-                          float* __restrict__ dpsd, double* records,
-                          long long items, int T, int F, int n_tt, int n_ft,
-                          int flip) {
-  __shared__ float gs[DG_F][DG_T + 1];
-  __shared__ double red[DG_WARPS][DG_FIELDS];
+// An item's place: clip b, frames t0 .. t0 + DG_CHUNKS DG_T, bins f0 ..
+// f0 + DG_F; its record is item - b per_clip within the clip's.
+struct GradItem {
+  long long b;
+  int t0, f0;
+};
+
+__device__ __forceinline__ GradItem grad_item(long long item,
+                                              long long per_clip, int n_ft) {
+  GradItem it;
+  it.b = item / per_clip;
+  const int r = static_cast<int>(item - it.b * per_clip);
+  it.t0 = (r / n_ft) * (DG_T * DG_CHUNKS);
+  it.f0 = (r % n_ft) * DG_F;
+  return it;
+}
+
+// Copy a warp's chunk of g (the item's DG_F bin rows, DG_T frames from t0)
+// into its tile in shared memory by cp.async, a row at a time along
+// frames (128 bytes a warp), to be read turned: lane l on bin l.
+__device__ __forceinline__ void grad_stage(const float* g, long long b,
+                                           int T, int F, int t0, int f0,
+                                           int flip, float (*gs)[DG_T + 1]) {
   const int lane = threadIdx.x & 31;
-  const int row = threadIdx.x >> 5;
-  const long long tiles = static_cast<long long>(n_tt) * n_ft;
-  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
-    const int b = static_cast<int>(item / tiles);
-    const long long tile = item - b * tiles;
-    const int t0 = static_cast<int>(tile / n_ft) * DG_T;
-    const int f0 = static_cast<int>(tile % n_ft) * DG_F;
-    const ClipGrad c = clip_grad(params, b, LOG);
-    // g's rows of these bins, a warp a row along frames
-    for (int i = row; i < DG_F; i += DG_WARPS) {
-      const int f = f0 + i;
-      const int t = t0 + lane;
-      float v = 0.0f;
-      if (f < F && t < T) {
-        const int img_row = flip ? F - 1 - f : f;
-        v = g[(static_cast<long long>(b) * F + img_row) * T + t];
+  const int t = t0 + lane;
+  if (t >= T) return;
+#pragma unroll 4
+  for (int row = 0; row < DG_F; ++row) {
+    const int f = f0 + row;
+    if (f < F)
+      cp_async_f32(&gs[row][lane],
+                   g + (b * F + (flip ? F - 1 - f : f)) * T + t);
+  }
+}
+
+// The block's indices 0 .. DG_THREADS - 1 whose `hit` is set, in order,
+// into list[0 ..); returns their count. list holds DG_LIST ints. The whole
+// block; the caller synchronises before the next call.
+constexpr int DG_LIST = DG_THREADS + DG_WARPS + 1;
+
+__device__ int block_list(bool hit, int* list) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned mask = __ballot_sync(0xffffffffu, hit);
+  if (lane == 0) list[DG_THREADS + warp] = __popc(mask);
+  __syncthreads();
+  int base = 0;
+  for (int w = 0; w < warp; ++w) base += list[DG_THREADS + w];
+  if (hit) list[base + __popc(mask & ((1u << lane) - 1u))] = threadIdx.x;
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int w = 0; w < DG_WARPS; ++w) n += list[DG_THREADS + w];
+    list[DG_LIST - 1] = n;
+  }
+  __syncthreads();
+  return list[DG_LIST - 1];
+}
+
+// Add each extremum's share to the clip's pixels equal to its min or max
+// (split evenly among ties: the amounts are already divided by the
+// counts), in the items whose records count any, the records read in
+// index order; the own term there is rounded a second time. The whole
+// block; items are disjoint, so the result does not depend on the order.
+__device__ void grad_extrema(const float* psd, float* dpsd,
+                             const double* records, long long b,
+                             long long per_clip, int n_ft, int T, int F,
+                             float lo, float hi, double a_lo, double a_hi,
+                             int* list) {
+  if (a_lo == 0.0 && a_hi == 0.0) return;   // adds nothing (a NaN adds)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const double* rec = records + b * per_clip * DG_FIELDS;
+  for (long long r0 = 0; r0 < per_clip; r0 += DG_THREADS) {
+    const long long i = r0 + threadIdx.x;
+    const int n = block_list(
+        i < per_clip && (__ldcg(rec + i * DG_FIELDS + 3) > 0.0 ||
+                         __ldcg(rec + i * DG_FIELDS + 4) > 0.0),
+        list);
+    for (int k = 0; k < n; ++k) {
+      const GradItem it = grad_item(b * per_clip + r0 + list[k], per_clip,
+                                    n_ft);
+      // a thread's frames warp, warp + DG_WARPS, ... of its bin, eight
+      // loaded before any is compared (a round trip for eight frames)
+      constexpr int PER = DG_T * DG_CHUNKS / DG_WARPS, BATCH = 8;
+      const int f = it.f0 + lane;
+      for (int j0 = 0; j0 < PER; j0 += BATCH) {
+        float v[BATCH];
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) {
+          const int t = it.t0 + warp + DG_WARPS * (j0 + j);
+          v[j] = (t < T && f < F) ? psd[(b * T + t) * F + f]
+                                  : __int_as_float(0x7fc00000);   // NaN
+        }
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) {
+          if (v[j] == lo || v[j] == hi) {
+            const long long at =
+                (b * T + it.t0 + warp + DG_WARPS * (j0 + j)) * F + f;
+            double own = __ldcg(dpsd + at);
+            if (v[j] == lo) own += a_lo;
+            if (v[j] == hi) own += a_hi;
+            dpsd[at] = static_cast<float>(own);
+          }
+        }
       }
-      gs[i][lane] = v;
     }
     __syncthreads();
-    double rec[DG_FIELDS] = {0.0, 0.0, 0.0, 0.0, 0.0};
-    const int f = f0 + lane;
-    for (int i = row; i < DG_T; i += DG_WARPS) {
-      const int t = t0 + i;
-      if (f < F && t < T) {
-        const long long at = (static_cast<long long>(b) * T + t) * F + f;
-        const double own = pixel_grad<LOG>(psd[at], gs[lane][i], c, rec);
-        dpsd[at] = static_cast<float>(own);
+  }
+}
+
+// The workspace: a record a item, a fold a clip, the completion counts (a
+// clip's, the batch's) and the batch's largest max.
+struct GradWork {
+  double* records;   // (items, DG_FIELDS)
+  double* clips;     // (B, DG_CLIP)
+  unsigned* done;    // (B + 1,): a clip's items done, then the clips'
+  float* top;
+};
+
+// Zero the counts; block 0 also takes the batch's largest max,
+// NaN-propagating (clip_stats' share_max base), under share_max.
+__global__ void __launch_bounds__(DG_THREADS)
+display_grad_prep_kernel(const float* __restrict__ params, int B,
+                         int share_max, GradWork w) {
+  for (long long i = blockIdx.x * static_cast<long long>(DG_THREADS) +
+                     threadIdx.x;
+       i <= B; i += static_cast<long long>(gridDim.x) * DG_THREADS)
+    w.done[i] = 0u;
+  if (blockIdx.x != 0 || !share_max) return;
+  __shared__ float red[DG_WARPS];
+  float top = __int_as_float(0xff800000);
+  for (int i = threadIdx.x; i < B; i += DG_THREADS)
+    top = nan_max(top, params[3 * i + 2]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    top = nan_max(top, __shfl_xor_sync(0xffffffffu, top, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = top;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < DG_WARPS; ++i) top = nan_max(top, red[i]);
+    *w.top = top;
+  }
+}
+
+// The clip's records folded in a fixed order (thread j the records j, j +
+// DG_THREADS, ..., then block_fold): its sums c_d, c_lo, c_hi, counts and
+// the amounts at its min and max; the extrema step now, or, when it holds
+// the batch's max under a batch base, by the block that finishes the
+// batch. Then, under a batch base, the batch's count; the block that
+// finishes it adds the sum of every clip's c_d over the pixels at the
+// batch's max.
+template <bool LOG>
+__device__ void grad_clip_done(const float* psd, const float* params,
+                               float* dpsd, const GradWork& w, long long b,
+                               long long per_clip, int n_ft, int B, int T,
+                               int F, bool batch_base, float top,
+                               const ClipOps& c, const ClipEnds& e,
+                               double (*red)[DG_FIELDS],
+                               int* list, int* tops, int* flag,
+                               double* amount) {
+  __threadfence();
+  double s[DG_FIELDS] = {0.0, 0.0, 0.0, 0.0, 0.0};
+  const double* rec = w.records + b * per_clip * DG_FIELDS;
+  for (long long j = threadIdx.x; j < per_clip; j += DG_THREADS)
+#pragma unroll
+    for (int i = 0; i < DG_FIELDS; ++i)
+      s[i] += __ldcg(rec + j * DG_FIELDS + i);
+  block_fold(s, red);
+  if (threadIdx.x == 0) {
+    double c_d = -s[0], c_lo = 0.0, c_hi = 0.0;
+    if (LOG) {
+      const double a_lo = __dsub_rn(s[2], s[1]);
+      c_d = __dadd_rn(__dadd_rn(c_d, __dmul_rn(e.dd_lo, a_lo)),
+                      -__dmul_rn(e.dd_hi, s[2]));
+      c_lo = __dmul_rn(e.dv_lo, a_lo);
+      c_hi = -__dmul_rn(e.dv_hi, s[2]);
+    }
+    const bool holds = batch_base && c.hi == top;
+    double at_hi = batch_base ? c_hi : __dadd_rn(c_hi, c_d);
+    at_hi = s[4] > 0.0 ? at_hi / s[4] : 0.0;
+    amount[0] = s[3] > 0.0 ? c_lo / s[3] : 0.0;
+    amount[1] = at_hi;
+    double* out = w.clips + b * DG_CLIP;
+    out[0] = c_d;
+    out[1] = holds ? s[4] : 0.0;
+    out[2] = amount[0];
+    out[3] = amount[1];
+    *flag = holds;
+  }
+  __syncthreads();
+  if (!*flag)
+    grad_extrema(psd, dpsd, w.records, b, per_clip, n_ft, T, F, c.lo, c.hi,
+                 amount[0], amount[1], list);
+  if (!batch_base) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    *flag = atomicAdd(w.done + B, 1u) == static_cast<unsigned>(B - 1);
+  __syncthreads();
+  if (!*flag) return;
+  // the batch is complete: sum c_d over every clip and the counts at the
+  // batch's max, in clip order
+  double t[DG_FIELDS] = {0.0, 0.0, 0.0, 0.0, 0.0};
+  for (long long j = threadIdx.x; j < B; j += DG_THREADS) {
+    t[0] += __ldcg(w.clips + j * DG_CLIP);
+    t[1] += __ldcg(w.clips + j * DG_CLIP + 1);
+  }
+  block_fold(t, red);
+  if (threadIdx.x == 0) amount[2] = t[1] > 0.0 ? t[0] / t[1] : 0.0;
+  __syncthreads();
+  // the clips that hold the batch's max, DG_THREADS at a time
+  for (long long j0 = 0; j0 < B; j0 += DG_THREADS) {
+    const long long j = j0 + threadIdx.x;
+    const int n = block_list(j < B && params[3 * j + 2] == top, tops);
+    for (int k = 0; k < n; ++k) {
+      const long long jj = j0 + tops[k];
+      const double* cj = w.clips + jj * DG_CLIP;
+      grad_extrema(psd, dpsd, w.records, jj, per_clip, n_ft, T, F,
+                   params[3 * jj + 1], top, __ldcg(cj + 2),
+                   __ldcg(cj + 3) + amount[2], list);
+    }
+    __syncthreads();
+  }
+}
+
+// The pass over the pixels: a block an item (DG_F bins x DG_CHUNKS chunks
+// of DG_T frames of a clip), warp w its chunks w, w + DG_WARPS, ... on its
+// own (no block barrier a chunk): the chunk's g rows copied into the
+// warp's tile by cp.async and read turned, lane l on bin l walking the
+// chunk's frames, the PSD read straight from global memory along bins
+// (coalesced), DG_BATCH pixels a lane in flight with the next batch's
+// loads; each pixel's own term stored, the item's record reduced once;
+// the block that completes a clip (an atomic count) folds its records
+// and adds the extrema's shares.
+template <bool LOG>
+__global__ void __launch_bounds__(DG_THREADS, DG_MIN_BLOCKS)
+display_grad_kernel(const float* __restrict__ g, const float* __restrict__ psd,
+                    const float* __restrict__ params, float* dpsd,
+                    GradWork w, long long items, int B, int T, int F,
+                    int n_ft, int n_tc, int flip, int share_max) {
+  __shared__ float gs[DG_WARPS][DG_F][DG_T + 1];
+  __shared__ double red[DG_WARPS][DG_FIELDS];
+  __shared__ ClipOps s_ops;
+  __shared__ ClipEnds s_ends;
+  __shared__ int list[DG_LIST];
+  __shared__ int tops[DG_LIST];
+  __shared__ int flag[1];
+  __shared__ double amount[3];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long per_clip = static_cast<long long>(n_tc) * n_ft;
+  const float top = share_max ? *w.top : 0.0f;
+  const bool batch_base = share_max && top > 0.0f;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const GradItem it = grad_item(item, per_clip, n_ft);
+    // the warp's first chunk in flight while the clip's operands are made
+    grad_stage(g, it.b, T, F, it.t0 + warp * DG_T, it.f0, flip, gs[warp]);
+    cp_async_commit();
+    if (threadIdx.x == 0) {
+      const double d = params[3 * it.b];
+      s_ops.d = d;
+      s_ops.df = params[3 * it.b];
+      s_ops.inv_d = __ddiv_rn(1.0, d);
+      s_ops.sd = __ddiv_rn(DB_SLOPE, d);
+      s_ops.fast = isfinite(d) && d > 0.0;
+      s_ops.lo = params[3 * it.b + 1];
+      s_ops.hi = params[3 * it.b + 2];
+      if (LOG) {
+        const DbGrad lo = db_grad(s_ops.lo, d);
+        s_ops.db_lo = lo.db;
+        s_ends.dv_lo = lo.dv;
+        s_ends.dd_lo = lo.dd;
       }
     }
-    block_sum(rec, red);
-    if (threadIdx.x == 0)
+    if (LOG && threadIdx.x == 32) {
+      const DbGrad hi = db_grad(params[3 * it.b + 2], params[3 * it.b]);
+      s_ends.db_hi = hi.db;
+      s_ends.dv_hi = hi.dv;
+      s_ends.dd_hi = hi.dd;
+    }
+    __syncthreads();           // the clip's operands
+    const ClipOps c = s_ops;
+    double rng = 1.0, inv_rng = 1.0;
+    bool ok = true;
+    if (LOG) {
+      rng = __dsub_rn(s_ends.db_hi, c.db_lo);
+      ok = rng > 1e-6;
+      inv_rng = ok ? __ddiv_rn(1.0, rng) : 1.0;
+    }
+    Acc acc = {0.0, 0.0, 0.0, 0, 0};
+    const int f = it.f0 + lane;
+    for (int k = warp; k < DG_CHUNKS; k += DG_WARPS) {
+      const int t0 = it.t0 + k * DG_T;
+      if (k != warp) {         // a later chunk of this warp's
+        __syncwarp();          // the tile's reads done
+        grad_stage(g, it.b, T, F, t0, it.f0, flip, gs[warp]);
+        cp_async_commit();
+      }
+      cp_async_wait_all();
+      __syncwarp();            // the tile staged for every lane
+      if (f >= F || t0 >= T) continue;
+      const int nt = min(DG_T, T - t0);
+      const float* src = psd + (it.b * T + t0) * F + f;
+      float* dst = dpsd + (it.b * T + t0) * F + f;
+      float v[DG_BATCH], nv[DG_BATCH];
+#pragma unroll
+      for (int j = 0; j < DG_BATCH; ++j)
+        nv[j] = j < nt ? src[static_cast<long long>(j) * F] : 0.0f;
+      for (int j0 = 0; j0 < nt; j0 += DG_BATCH) {
+#pragma unroll
+        for (int j = 0; j < DG_BATCH; ++j) {
+          v[j] = nv[j];
+          const int jn = j0 + DG_BATCH + j;
+          nv[j] = jn < nt ? src[static_cast<long long>(jn) * F] : 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < DG_BATCH; ++j)
+          if (j0 + j < nt)
+            dst[static_cast<long long>(j0 + j) * F] = pixel_grad<LOG>(
+                v[j], gs[warp][lane][j0 + j], c, rng, inv_rng, ok, acc);
+      }
+    }
+    // the item's record; after the block's barrier thread 0's fence and
+    // count release the block's stores too (cumulativity)
+    double vals[DG_FIELDS] = {acc.su, acc.sk, acc.skr,
+                              static_cast<double>(acc.n_lo),
+                              static_cast<double>(acc.n_hi)};
+    block_fold(vals, red);
+    if (threadIdx.x == 0) {
 #pragma unroll
       for (int i = 0; i < DG_FIELDS; ++i)
-        records[item * DG_FIELDS + i] = rec[i];
-  }
-}
-
-// The sum of records [first, first + count) of field set `fields`
-// (dd, dmin, dmax, n_min, n_max), in a fixed order; valid in thread 0.
-// With `top` (the batch's max), a record's n_max counts only when its
-// clip's max is top, and only dd and n_max are summed.
-__device__ void fold_records(const double* records, long long first,
-                             long long count, long long per_clip,
-                             const float* params, float top, bool batch,
-                             double (&sum)[DG_FIELDS],
-                             double (*red)[DG_FIELDS]) {
-  for (int i = 0; i < DG_FIELDS; ++i) sum[i] = 0.0;
-  for (long long j = threadIdx.x; j < count; j += DG_THREADS) {
-    const double* rec = records + (first + j) * DG_FIELDS;
-    if (!batch) {
-#pragma unroll
-      for (int i = 0; i < DG_FIELDS; ++i) sum[i] += rec[i];
-    } else {
-      const long long clip = (first + j) / per_clip;
-      sum[0] += rec[0];
-      if (params[3 * clip + 2] == top) sum[4] += rec[4];
-    }
-  }
-  block_sum(sum, red);
-}
-
-__global__ void __launch_bounds__(DG_THREADS)
-display_grad_extrema_kernel(const float* __restrict__ psd,
-                            const float* __restrict__ params,
-                            const double* __restrict__ records,
-                            float* __restrict__ dpsd, int B, int T, int F,
-                            long long per_clip, int share_max) {
-  __shared__ double red[DG_WARPS][DG_FIELDS];
-  __shared__ double amount[2];
-  __shared__ float s_top;
-  // the batch's largest max, NaN-propagating (clip_stats' share_max base)
-  if (share_max) {
-    float top = __int_as_float(0xff800000);
-    for (int i = threadIdx.x; i < B; i += DG_THREADS)
-      top = nan_max(top, params[3 * i + 2]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      top = nan_max(top, __shfl_xor_sync(0xffffffffu, top, off));
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5][0] = top;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < DG_WARPS; ++w)
-        top = nan_max(top, static_cast<float>(red[w][0]));
-      s_top = top;
+        w.records[item * DG_FIELDS + i] = vals[i];
+      __threadfence();
+      flag[0] = atomicAdd(w.done + it.b, 1u) ==
+                static_cast<unsigned>(per_clip - 1);
     }
     __syncthreads();
-  }
-  const float top = share_max ? s_top : 0.0f;
-  const bool batch_base = share_max && top > 0.0f;
-  for (int b = blockIdx.x; b < B; b += gridDim.x) {
-    const float lo = params[3 * b + 1];
-    const float hi = params[3 * b + 2];
-    double sum[DG_FIELDS];
-    fold_records(records, b * per_clip, per_clip, per_clip, params, top,
-                 false, sum, red);
-    double tot[DG_FIELDS] = {0.0, 0.0, 0.0, 0.0, 0.0};
-    const bool holds_top = batch_base && hi == top;
-    if (holds_top)
-      fold_records(records, 0, B * per_clip, per_clip, params, top, true,
-                   tot, red);
-    if (threadIdx.x == 0) {
-      double at_hi = sum[2] + (batch_base ? 0.0 : sum[0]);
-      at_hi = sum[4] > 0.0 ? at_hi / sum[4] : 0.0;
-      if (holds_top && tot[4] > 0.0) at_hi += tot[0] / tot[4];
-      amount[0] = sum[3] > 0.0 ? sum[1] / sum[3] : 0.0;
-      amount[1] = at_hi;
-    }
-    __syncthreads();
-    const long long n = static_cast<long long>(T) * F;
-    const float* clip = psd + b * n;
-    float* out = dpsd + b * n;
-    for (long long i = threadIdx.x; i < n; i += DG_THREADS) {
-      const float v = clip[i];
-      if (v == lo || v == hi) {
-        double own = out[i];
-        if (v == lo) own += amount[0];
-        if (v == hi) own += amount[1];
-        out[i] = static_cast<float>(own);
-      }
-    }
+    if (flag[0])
+      grad_clip_done<LOG>(psd, params, dpsd, w, it.b, per_clip, n_ft, B, T,
+                          F, batch_base, top, c, s_ends, red, list, tops,
+                          flag, amount);
     __syncthreads();
   }
 }
@@ -826,18 +1114,24 @@ int display_map_launch(const float* psd, const float* params,
 }
 
 // Bytes of the workspace display_backward_launch takes: a record of
-// DG_FIELDS doubles a tile.
+// DG_FIELDS doubles an item, DG_CLIP doubles a clip, B + 1 counts and the
+// batch's largest max.
 long long display_backward_workspace_bytes(int B, int T, int F) {
-  const long long tiles = static_cast<long long>((T + DG_T - 1) / DG_T) *
-                          ((F + DG_F - 1) / DG_F);
-  return static_cast<long long>(B) * tiles * DG_FIELDS * 8;
+  const long long items =
+      static_cast<long long>(B) *
+      ((T + DG_T * DG_CHUNKS - 1) / (DG_T * DG_CHUNKS)) *
+      ((F + DG_F - 1) / DG_F);
+  return items * DG_FIELDS * 8 + static_cast<long long>(B) * DG_CLIP * 8 +
+         (static_cast<long long>(B) + 1) * 4 + 4;
 }
 
-// Launch both passes on `stream`; returns the cudaError_t (0 = success),
-// or cudaErrorInvalidValue for sizes the kernels do not take. g is (B, F,
-// T) contiguous f32 (rows flipped when flip is 1), psd (B, T, F) f32,
-// params (B, 3) f32, dpsd (B, T, F) f32; workspace holds
-// display_backward_workspace_bytes(B, T, F) bytes.
+// Launch the backward on `stream` (a kernel that zeroes the counts and
+// takes the batch's largest max, then the pass over the pixels); returns
+// the cudaError_t (0 = success), or cudaErrorInvalidValue for sizes the
+// kernels do not take. g is (B, F, T) contiguous f32 (rows flipped when
+// flip is 1), psd (B, T, F) f32, params (B, 3) f32, dpsd (B, T, F) f32;
+// workspace holds display_backward_workspace_bytes(B, T, F) bytes,
+// 8-byte aligned.
 int display_backward_launch(const float* g, const float* psd,
                             const float* params, float* dpsd,
                             void* workspace, int B, int T, int F,
@@ -845,24 +1139,32 @@ int display_backward_launch(const float* g, const float* psd,
                             void* stream) {
   if (B < 1 || T < 1 || F < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tt = (T + DG_T - 1) / DG_T;
+  const int n_tc = (T + DG_T * DG_CHUNKS - 1) / (DG_T * DG_CHUNKS);
   const int n_ft = (F + DG_F - 1) / DG_F;
-  const long long per_clip = static_cast<long long>(n_tt) * n_ft;
+  const long long per_clip = static_cast<long long>(n_tc) * n_ft;
   const long long items = static_cast<long long>(B) * per_clip;
-  const unsigned blocks =
-      static_cast<unsigned>(items < MAX_BLOCKS ? items : MAX_BLOCKS);
-  double* records = static_cast<double*>(workspace);
-  if (log_scale)
-    display_grad_pixel_kernel<true><<<blocks, DG_THREADS, 0, s>>>(
-        g, psd, params, dpsd, records, items, T, F, n_tt, n_ft, flip);
-  else
-    display_grad_pixel_kernel<false><<<blocks, DG_THREADS, 0, s>>>(
-        g, psd, params, dpsd, records, items, T, F, n_tt, n_ft, flip);
+  char* ws = static_cast<char*>(workspace);
+  GradWork w;
+  w.records = reinterpret_cast<double*>(ws);
+  w.clips = reinterpret_cast<double*>(ws + items * DG_FIELDS * 8);
+  w.done = reinterpret_cast<unsigned*>(
+      ws + items * DG_FIELDS * 8 + static_cast<long long>(B) * DG_CLIP * 8);
+  w.top = reinterpret_cast<float*>(w.done + B + 1);
+  const long long prep = (static_cast<long long>(B) + DG_THREADS) / DG_THREADS;
+  display_grad_prep_kernel<<<static_cast<unsigned>(prep < 1024 ? prep : 1024),
+                             DG_THREADS, 0, s>>>(params, B, share_max, w);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  display_grad_extrema_kernel<<<static_cast<unsigned>(B), DG_THREADS, 0,
-                                s>>>(psd, params, records, dpsd, B, T, F,
-                                     per_clip, share_max);
+  const unsigned blocks =
+      static_cast<unsigned>(items < MAX_BLOCKS ? items : MAX_BLOCKS);
+  if (log_scale)
+    display_grad_kernel<true><<<blocks, DG_THREADS, 0, s>>>(
+        g, psd, params, dpsd, w, items, B, T, F, n_ft, n_tc, flip,
+        share_max);
+  else
+    display_grad_kernel<false><<<blocks, DG_THREADS, 0, s>>>(
+        g, psd, params, dpsd, w, items, B, T, F, n_ft, n_tc, flip,
+        share_max);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,9 +38,10 @@ adjoint through ``core.scale.normalize``: each pixel's own term, and the
 clip's sums through its operands (the base, its min and its max, which
 :func:`clip_stats` reduced from the PSD's partials) added at the pixels
 that are the extrema, split evenly among ties; under ``share_max`` the
-base's sum goes to the batch's largest pixels. Two launches of
-``display.cu``'s backward kernels for a CUDA tensor
-(:func:`display_backward`), its plain version
+base's sum goes to the batch's largest pixels. ``display.cu``'s backward
+for a CUDA tensor (:func:`display_backward`: a small kernel zeroes its
+counts, then one pass over the pixels whose blocks that complete a clip
+add its extrema's shares), its plain version
 (:func:`display_backward_reference`) for a CPU tensor. The words, the
 flag and the extrema carry no gradient, and ``params`` receives none: the
 backward reads them as the PSD's own operands and carries their
@@ -68,7 +69,7 @@ MODES = {"none": 0, "rgba": 1, "palette": 2}
 # kernel launches, for run-time proof of the path: clip_stats, and the
 # display map by its words
 launches = {"clip_stats": 0, "rgba": 0, "palette": 0}
-# the backward's launches (a count a call of its two kernels)
+# the backward's launches (a count a call of its kernels)
 grad_launches = {"display_backward": 0}
 # 10 / ln 10, the dB map's slope (DB_SLOPE in csrc/display.cu)
 DB_SLOPE = 10.0 / math.log(10.0)
@@ -367,7 +368,7 @@ def display_backward(g: torch.Tensor, psd: torch.Tensor,
                      params: torch.Tensor, *, log_scale: bool,
                      flip_image: bool = False,
                      share_max: bool = False) -> torch.Tensor:
-    """The gradient of the PSD from the image's: the two backward kernels
+    """The gradient of the PSD from the image's: the backward kernel
     for a CUDA tensor, the plain version
     (:func:`display_backward_reference`) for a CPU tensor."""
     if psd.device.type == "cpu":

@@ -2,7 +2,8 @@
 CPU: each variant of each kernel is a textual edit that must match its
 source (csrc/stft_psd.cu, csrc/stft_grad.cu for the radix-2 backward, or
 csrc/stft_grad_mixed.cu for the mixed, odd and Bluestein routes'
-backward, csrc/hmm.cu for the HMM kernels) exactly
+backward, csrc/hmm.cu for the HMM kernels, csrc/display.cu for the display
+backward, csrc/mel.cu for the mel projection) exactly
 once (the tool refuses to build one that does not), so a change
 to the source that leaves a variant behind shows here and not first on
 the card."""
@@ -52,7 +53,7 @@ def test_every_kernel_names_its_routes_and_configs():
     from spectral_tpu_torch import SpecConfig
     assert set(tkv.KERNELS) == {"r2", "mixed", "conv", "rader", "small",
                                 "grad", "grad_mixed", "grad_bluestein",
-                                "hmm"}
+                                "hmm", "display_grad", "mel"}
     for kern in tkv.KERNELS.values():
         for k in kern.nperseg:
             assert stft_cuda.route(SpecConfig.scipy_default(k)) in kern.routes
@@ -80,3 +81,23 @@ def test_the_hmm_set_names_its_variants_and_groups():
     pattern = re.compile(hmm.ptxas[0])
     for name in kernels:
         assert pattern.search(f"_ZN{name}ILi4EE"), name
+
+
+def test_the_display_grad_and_mel_sets_name_their_kernels():
+    """The display_grad set (csrc/display.cu) and the mel set (csrc/mel.cu):
+    their ptxas patterns name the display backward's and the mel kernels'
+    entries, and each set holds the ablations its PERF.md split reads."""
+    import re
+    for kernel, source, names, ablations in (
+            ("display_grad", "display", ("display_grad_kernelILb1E",
+                                         "display_grad_prep_kernel"),
+             {"no_math", "no_log10", "no_extrema", "no_fallback"}),
+            ("mel", "mel", ("mel_project_kernel", "mel_backward_kernel"),
+             {"no_sums", "no_scan"})):
+        kern = tkv.KERNELS[kernel]
+        assert kern.source == source and not kern.routes
+        assert ablations <= set(kern.variants)
+        pattern = re.compile(kern.ptxas[0])
+        for name in names:
+            m = pattern.search(f"_ZN{name}EEEv")
+            assert m and kern.ptxas[1](m), name

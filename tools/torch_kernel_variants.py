@@ -510,6 +510,152 @@ HMM_VARIANTS = {
 HMM_EM_GROUPS = (1, 4, 8, 16)      # hmm_cuda.EM_GROUP, timed in turns too
 HMM_REPS = 3
 
+DG_BOUNDS = ("__global__ void __launch_bounds__(DG_THREADS, DG_MIN_BLOCKS)\n"
+             "display_grad_kernel(")
+DISPLAY_GRAD_VARIANTS = {
+    "ieee_divisions": (
+        "the parent's per-pixel divisions: u = v / d, g / rng, r = num / "
+        "rng and DB_SLOPE / y / d each an IEEE division (the log10 kept)",
+        [("  if (!c.fast || !isfinite(vf)) {",
+          "  if (true) {"),
+         ("__dmul_rn(hu, __dmul_rn(static_cast<double>(gf),\n"
+          "                                             c.inv_d));",
+          "__dmul_rn(hu, __ddiv_rn(static_cast<double>(gf),\n"
+          "                                             c.d));"),
+         ("__dmul_rn(static_cast<double>(gf), inv_rng)",
+          "__ddiv_rn(static_cast<double>(gf), rng)"),
+         ("__dmul_rn(num, inv_rng)", "__ddiv_rn(num, rng)"),
+         ("__dmul_rn(c.sd, recip(y))",
+          "__ddiv_rn(__ddiv_rn(DB_SLOPE, y), c.d)")]),
+    "per_tile_ops": (
+        "the parent's clip operands: every thread recomputes d's "
+        "reciprocals and both extrema's dB values (two log10, eight "
+        "divisions) for every DG_BATCH pixels",
+        [("    const ClipOps c = s_ops;\n", "    ClipOps c = s_ops;\n"),
+         ("      for (int j0 = 0; j0 < nt; j0 += DG_BATCH) {\n",
+          "      for (int j0 = 0; j0 < nt; j0 += DG_BATCH) {\n"
+          "        c.d = *reinterpret_cast<volatile double*>(&s_ops.d);\n"
+          "        c.inv_d = __ddiv_rn(1.0, c.d);\n"
+          "        c.sd = __ddiv_rn(DB_SLOPE, c.d);\n"
+          "        if (LOG) {\n"
+          "          c.db_lo = db_grad(c.lo, c.d).db;\n"
+          "          rng = __dsub_rn(db_grad(c.hi, c.d).db, c.db_lo);\n"
+          "          ok = rng > 1e-6;\n"
+          "          inv_rng = ok ? __ddiv_rn(1.0, rng) : 1.0;\n"
+          "        }\n")]),
+    "chunks16": (
+        "items of 16 chunks (512 frames), a warp two chunks in turn",
+        [("constexpr int DG_CHUNKS = 8;", "constexpr int DG_CHUNKS = 16;")]),
+    "batch4": (
+        "four pixels a lane in flight, not two",
+        [("constexpr int DG_BATCH = 2;", "constexpr int DG_BATCH = 4;")]),
+    "batch1": (
+        "a pixel a lane at a time, not two",
+        [("constexpr int DG_BATCH = 2;", "constexpr int DG_BATCH = 1;")]),
+    "f32_recip": (
+        "1/y from the float reciprocal and one Newton step (two F2F "
+        "conversions), not the 64-bit seed and two steps",
+        [("  double r = rcp_approx(y);\n"
+          "  r = __fma_rn(r, __fma_rn(-y, r, 1.0), r);\n",
+          "  const double r = __frcp_rn(__double2float_rn(y));\n")]),
+    "f64_decisions": (
+        "u's clip and clip_slope(u) from f64 compares of u, not float "
+        "compares of v against d",
+        [("  o.clipped = vf >= c.df ? 1.0 : (vf <= 0.0f ? 0.0 : o.u);\n"
+          "  o.slope = (vf > 0.0f && vf < c.df)\n"
+          "                ? 1.0\n"
+          "                : ((vf == 0.0f || vf == c.df) ? 0.5 : 0.0);\n",
+          "  o.clipped = o.u < 0.0 ? 0.0 : (o.u > 1.0 ? 1.0 : o.u);\n"
+          "  o.slope = clip_slope(o.u);\n")]),
+    "bounds_free": (
+        "no blocks-an-SM floor in the launch bounds (the registers ptxas "
+        "picks)",
+        [(DG_BOUNDS, DG_BOUNDS.replace("(DG_THREADS, DG_MIN_BLOCKS)",
+                                       "(DG_THREADS)"))]),
+    "blocks4": (
+        "at least four blocks an SM (at most 64 registers), not five",
+        [("constexpr int DG_MIN_BLOCKS = 5;",
+          "constexpr int DG_MIN_BLOCKS = 4;")]),
+    "blocks6": (
+        "at least six blocks an SM (at most 40 registers), not five",
+        [("constexpr int DG_MIN_BLOCKS = 5;",
+          "constexpr int DG_MIN_BLOCKS = 6;")]),
+    "noinline_clip_done": (
+        "the clip's fold and extrema step a function of its own (not "
+        "inlined into the pass)",
+        [("__device__ void grad_clip_done(",
+          "__device__ __noinline__ void grad_clip_done(")]),
+    "one_newton": (
+        "1/y from the 64-bit seed and one Newton step, not two",
+        [("  double r = rcp_approx(y);\n"
+          "  r = __fma_rn(r, __fma_rn(-y, r, 1.0), r);\n",
+          "  double r = rcp_approx(y);\n")]),
+    "no_memory": (
+        "ablation: the pixels' arithmetic on values made in registers (no "
+        "PSD loads, no stores; g's copies kept)",
+        [("        nv[j] = j < nt ? src[static_cast<long long>(j) * F] : 0.0f;",
+          "        nv[j] = c.lo + 1e-3f * (j + lane);"),
+         ("          nv[j] = jn < nt ? src[static_cast<long long>(jn) * F] "
+          ": 0.0f;",
+          "          nv[j] = c.lo + 1e-3f * (jn + lane);"),
+         ("            dst[static_cast<long long>(j0 + j) * F] = "
+          "pixel_grad<LOG>(",
+          "            acc.su += pixel_grad<LOG>(")]),
+    "no_extrema": (
+        "ablation: no clip's fold and no extrema step (the records kept)",
+        [("    if (flag[0])\n      grad_clip_done<LOG>(",
+          "    if (false)\n      grad_clip_done<LOG>(")]),
+    "no_fallback": (
+        "ablation: u always the corrected reciprocal product (no IEEE "
+        "division for a non-finite v or d; its SASS is the common path's)",
+        [("  if (!c.fast || !isfinite(vf)) {", "  if (false) {")]),
+    "no_log10": (
+        "ablation: the pixel's dB value without its log10 (10 y)",
+        [("__dsub_rn(__dmul_rn(10.0, log10(y)), c.db_lo)",
+          "__dsub_rn(__dmul_rn(10.0, y), c.db_lo)")]),
+    "no_math": (
+        "ablation: the pixel's term is g + v (copies, counts, records, "
+        "stores and the extrema step kept; the pixel's f64 code compiled "
+        "out, so its SASS is the rest's)",
+        [("  if (!ok) return 0.0f;\n  const Quotient qu = quotient(vf, c);",
+          "  if (ok || !ok) return vf + gf;\n"
+          "  const Quotient qu = quotient(vf, c);")]),
+}
+DISPLAY_GRAD_REPS = 5
+
+MEL_VARIANTS = {
+    "weights_global": (
+        "the weights read from global memory (a broadcast a step), not "
+        "staged in shared memory",
+        [("  if (static_cast<long long>(n_w) * 8 <= MP_W_SMEM)",
+          "  if (false)")]),
+    "rows16": (
+        "tiles of 16 rows (two blocks an SM; lanes 16-31 idle in the sums)",
+        [("constexpr int MP_ROWS = 32;", "constexpr int MP_ROWS = 16;")]),
+    "scalar_copies": (
+        "4-byte copies a row, not the tile's run in 16-byte copies",
+        [("  const int vec = (F & 1) &&", "  const int vec = false &&")]),
+    "one_chain": (
+        "one mel row at a time a warp (one FMA chain), not two",
+        [("constexpr int MP_CHAINS = 2;", "constexpr int MP_CHAINS = 1;")]),
+    "four_chains": (
+        "four consecutive mel rows at a time a warp, not two",
+        [("constexpr int MP_CHAINS = 2;", "constexpr int MP_CHAINS = 4;")]),
+    "threads256": (
+        "blocks of 256 threads (8 warps), not 512",
+        [("constexpr int MP_THREADS = 512;",
+          "constexpr int MP_THREADS = 256;")]),
+    "no_sums": (
+        "ablation: the spans' FMAs skipped (copies, scan, stores and "
+        "partials kept)",
+        [("        for (int k = 0; k < kn; ++k)\n",
+          "        for (int k = 0; k < 0; ++k)\n")]),
+    "no_scan": (
+        "ablation: the tile's non-finite pass skipped",
+        [("    if (F & 1) {\n      const int count = n * F;",
+          "    if (false) {\n      const int count = n * F;")]),
+}
+
 def _r2_launch(stft_cuda, cfg, dev, a):
     c = stft_cuda.fft_constants(cfg, FS, dev)
     return lambda lib: lib.stft_fft_psd_launch(
@@ -699,6 +845,14 @@ KERNELS = {
         GRAD_BLUESTEIN_VARIANTS, "stft_grad_mixed"),
     "hmm": Kernel((), chip_smoke.HMM_PTXAS, (), (), None, HMM_VARIANTS,
                   "hmm"),
+    "display_grad": Kernel(
+        (), (r"display_grad_(kernelILb(\d)E|prep_kernel)",
+             lambda e: f"grad<LOG {e.group(2)}>" if e.group(2) else "prep"),
+        (), (), None, DISPLAY_GRAD_VARIANTS, "display"),
+    "mel": Kernel(
+        (), (r"(mel_project_kernel|mel_backward_kernel)",
+             lambda e: e.group(1)),
+        (), (), None, MEL_VARIANTS, "mel"),
 }
 
 
@@ -826,6 +980,261 @@ def hmm_main(args, kern, names, libs, regs, card):
                       for k, v in row.items()}, flush=True)
     print(json.dumps(report))
 
+def sass_counts(so, pattern):
+    """{function: {opcode: count}} of the functions matching ``pattern`` in
+    cuobjdump's SASS of the library ``so`` (a static count: each
+    instruction once, wherever it sits)."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if re.search(pattern, m.group(1)) else None
+            if cur:
+                out[cur] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                     line)
+        if cur and m:
+            op = m.group(1)
+            out[cur][op] = out[cur].get(op, 0) + 1
+    return out
+
+
+def fp64_issue(counts):
+    """(FP64 pipe instructions, quarter-rate ones) of one function's
+    opcode counts: D* (DFMA, DMUL, DADD, DSETP, DMNMX) on the FP64 pipe;
+    conversions to or from F64 and MUFU's 64-bit ops at a quarter of its
+    rate."""
+    full = sum(n for op, n in counts.items() if op[0] == "D"
+               and op.split(".")[0] in ("DFMA", "DMUL", "DADD", "DSETP",
+                                        "DMNMX"))
+    quarter = sum(n for op, n in counts.items()
+                  if (op.startswith(("F2F", "I2F", "F2I")) and "64" in op)
+                  or (op.startswith("MUFU") and "64" in op))
+    return full, quarter
+
+
+def _timed(fn, reps=REPS):
+    """CUDA events around one call, median of ``reps`` after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
+
+
+def display_main(args, kern, names, libs, regs, card):
+    """The display_grad set: display_backward_launch at path 1's shapes
+    (1024 clips x 622 frames x 513 bins: log and flipped as path 21 calls
+    it, linear, share_max) and at path 12's mel rows (128), on the PSD of
+    seeded noise and its clip_stats operands and a seeded g; two rounds in
+    turns, CUDA events, median of DISPLAY_GRAD_REPS. This build is held to
+    the plain version (``display_backward_reference``) on 8 clips within
+    chip_smoke's GRAD_TOL; each variant's output of the first 16 clips to
+    this build's, bitwise or by the largest |difference| over the clip's
+    largest entry. The SASS of the LOG instantiation is counted
+    (cuobjdump): the FP64 and quarter-rate instructions of this build, of
+    the no_fallback and no_log10 ablations and of no_math, whose
+    difference from each over the pixel code's copies is the pixel's own
+    (a static count: each instruction once)."""
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.mel import mel_filterbank
+    from spectral_tpu_torch.ops import display_cuda as disp
+    from spectral_tpu_torch.ops import mel_cuda, stft_cuda
+    dev = torch.device("cuda", 0)
+    ref = disp._library()
+    for lib in libs.values():
+        for entry in ("display_backward_launch",
+                      "display_backward_workspace_bytes"):
+            getattr(lib, entry).argtypes = getattr(ref, entry).argtypes
+            getattr(lib, entry).restype = getattr(ref, entry).restype
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n = int(FS * 10.0)
+    x = torch.randn((1024, n), generator=gen, device=dev)
+    cfg = SpecConfig.north_star(1024, 256)
+    psd, parts = stft_cuda.stft_psd_partials(x, FS, cfg)
+    spans = mel_cuda.mel_spans(mel_filterbank(128, cfg.n_freqs, FS), dev)
+    mel, mparts = mel_cuda.mel_project(psd, spans)
+    cases = {
+        "path 1 PSD rows, log, flipped": (psd, parts, True, True, False),
+        "path 1 PSD rows, linear": (psd, parts, False, False, False),
+        "path 1 PSD rows, log, share_max": (psd, parts, True, True, True),
+        "path 12 mel rows, log, flipped": (mel, mparts, True, True, False)}
+
+    def launcher(lib, g, rows, params, out, log, flip, share):
+        B, T, F = rows.shape
+        ws = torch.empty(lib.display_backward_workspace_bytes(B, T, F),
+                         dtype=torch.uint8, device=dev)
+
+        def launch():
+            err = lib.display_backward_launch(
+                g.data_ptr(), rows.data_ptr(), params.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), B, T, F, int(log), int(flip),
+                int(share), stream)
+            if err:
+                raise SystemExit(f"display_backward_launch failed: {err}")
+        return launch
+
+    report = {"kernel": "display_grad", "card": card, "ptxas": regs,
+              "configs": {}}
+    for label, (rows, prt, log, flip, share) in cases.items():
+        B, T, F = rows.shape
+        params = disp.clip_stats(x, prt.contiguous(), share).params
+        g = torch.rand((B, F, T), generator=gen, device=dev)
+        # this build against the plain version on 8 clips
+        c = 8
+        p8 = disp.clip_stats(x[:c], prt[:, :, :c].contiguous(),
+                             share).params
+        o8 = torch.empty_like(rows[:c])
+        launcher(libs["this"], g[:c].contiguous(), rows[:c].contiguous(),
+                 p8, o8, log, flip, share)()
+        want = disp.display_backward_reference(
+            g[:c], rows[:c], p8, log_scale=log, flip_image=flip,
+            share_max=share)
+        plain_rel = chip_smoke.clip_rel(o8, want)[0]
+        if not plain_rel <= chip_smoke.GRAD_TOL:
+            raise SystemExit(f"{label}: {plain_rel:.2e} from the plain "
+                             f"version")
+        out = torch.empty_like(rows)
+        launcher(libs["this"], g, rows, params, out, log, flip, share)()
+        torch.cuda.synchronize()
+        want = out[:16].clone()
+        row = {"plain_rel": plain_rel}
+        for rnd in range(2):
+            for name in (names if rnd == 0 else names[::-1]):
+                launch = launcher(libs[name], g, rows, params, out, log,
+                                  flip, share)
+                entry = row.setdefault(name, {"ms": []})
+                entry["ms"].append(_timed(launch, DISPLAY_GRAD_REPS))
+                entry["same_output"] = bool(torch.equal(
+                    out[:16].view(torch.int32), want.view(torch.int32)))
+                entry["rel"] = chip_smoke.clip_rel(out[:16], want)[0] \
+                    if not name.startswith("no_") else None
+        report["configs"][label] = row
+        print(label, {k: v if not isinstance(v, dict) else
+                      [round(t, 3) for t in v["ms"]]
+                      for k, v in row.items()}, flush=True)
+        del out, g
+        torch.cuda.empty_cache()
+    sass = {}
+    for name in ("this", "no_fallback", "no_log10", "no_math"):
+        if name not in libs:
+            continue
+        so = os.path.join(OUT_DIR, "display_grad", name, "libdisplay.so")
+        for fn, counts in sass_counts(so, r"display_grad_kernelILb1E").items():
+            sass[name] = dict(zip(("fp64", "quarter_rate"),
+                                  fp64_issue(counts)), opcodes=counts)
+    if "no_math" in sass:
+        # the pixel's code, once a copy in the chunk's loop
+        copies = pixel_copies()
+        for name in ("this", "no_fallback", "no_log10"):
+            if name in sass:
+                sass[f"pixel ({name})"] = {
+                    k: (sass[name][k] - sass["no_math"][k]) / copies
+                    for k in ("fp64", "quarter_rate")}
+    report["sass"] = {k: {kk: vv for kk, vv in v.items() if kk != "opcodes"}
+                      for k, v in sass.items()}
+    report["sass_opcodes"] = {k: v.get("opcodes") for k, v in sass.items()}
+    print(json.dumps(report))
+
+
+def pixel_copies():
+    """The copies of the pixel's code in display_grad_kernel: its batch
+    loop (DG_BATCH pixels a lane) unrolled, the loop over batches not."""
+    import re
+    with open(os.path.join(CSRC, "display.cu")) as fh:
+        return int(re.search(r"constexpr int DG_BATCH = (\d+);",
+                             fh.read()).group(1))
+
+
+def mel_main(args, kern, names, libs, regs, card):
+    """The mel set: mel_project_launch at path 12's shapes (1024 clips x
+    622 frames x 513 bins, 128 mels) and at scipy_default 8192's (256
+    clips x 60 s, 4097 bins, 64 mels), on the PSD of seeded noise; two
+    rounds in turns, CUDA events, median of 5. This build is held to the
+    plain version (``mel_project_reference``) on 16 clips within
+    chip_smoke's MEL_ULPS, NaN and inf in its places; each variant's mel
+    rows and partials to this build's, bitwise."""
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.mel import mel_filterbank
+    from spectral_tpu_torch.ops import mel_cuda, stft_cuda
+    dev = torch.device("cuda", 0)
+    ref = mel_cuda._library()
+    for lib in libs.values():
+        lib.mel_project_launch.argtypes = ref.mel_project_launch.argtypes
+        lib.mel_project_launch.restype = ref.mel_project_launch.restype
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    report = {"kernel": "mel", "card": card, "ptxas": regs, "configs": {}}
+    for label, cfg, M, clips, seconds in (
+            ("path 12 128 mels over 513 bins",
+             SpecConfig.north_star(1024, 256), 128, 1024, 10.0),
+            ("scipy_default 8192, 64 mels over 4097 bins",
+             SpecConfig.scipy_default(8192), 64, 256, 60.0)):
+        gen = torch.Generator(device=dev).manual_seed(12)
+        x = torch.randn((clips, int(FS * seconds)), generator=gen,
+                        device=dev)
+        psd = stft_cuda.stft_psd(x, FS, cfg)
+        del x
+        B, T, F = psd.shape
+        spans = mel_cuda.mel_spans(mel_filterbank(M, F, FS), dev)
+        out = torch.empty((B, T, M), device=dev)
+        parts = torch.empty((2, B * T), device=dev)
+
+        def launcher(lib):
+            def launch():
+                err = lib.mel_project_launch(
+                    psd.data_ptr(), spans.start.data_ptr(),
+                    spans.length.data_ptr(), spans.offset.data_ptr(),
+                    spans.weights.data_ptr(), B * T, F, M, out.data_ptr(),
+                    parts[0].data_ptr(), parts[1].data_ptr(), stream)
+                if err:
+                    raise SystemExit(f"mel_project_launch failed: {err}")
+            return launch
+
+        launcher(libs["this"])()
+        torch.cuda.synchronize()
+        want, wparts = mel_cuda.mel_project_reference(psd[:16], spans)
+        ulps = chip_smoke.ulp_distance(out[:16], want)
+        same_places = bool(torch.equal(torch.isnan(out[:16]),
+                                       torch.isnan(want)))
+        if not (ulps <= chip_smoke.MEL_ULPS and same_places):
+            raise SystemExit(f"{label}: {ulps} ulp from the plain version")
+        want, wparts = out.clone(), parts.clone()
+        row = {"plain_ulps": ulps}
+        for rnd in range(2):
+            for name in (names if rnd == 0 else names[::-1]):
+                entry = row.setdefault(name, {"ms": []})
+                entry["ms"].append(_timed(launcher(libs[name])))
+                entry["same_output"] = bool(
+                    torch.equal(out.view(torch.int32),
+                                want.view(torch.int32))
+                    and torch.equal(parts.view(torch.int32),
+                                    wparts.view(torch.int32)))
+        report["configs"][label] = row
+        print(label, {k: v if not isinstance(v, dict) else
+                      [round(t, 3) for t in v["ms"]]
+                      for k, v in row.items()}, flush=True)
+        del psd, out, parts, want, wparts
+        torch.cuda.empty_cache()
+    print(json.dumps(report))
+
+
 def variant_source(src, edits, name="variant"):
     """src with each (old, new) of edits replaced; each old must occur
     exactly once."""
@@ -922,6 +1331,12 @@ def main(argv=None) -> None:
           f"s; ptxas {regs}", flush=True)
     if kern.source == "hmm":
         hmm_main(args, kern, names, libs, regs, card)
+        return
+    if kern.source == "display":
+        display_main(args, kern, names, libs, regs, card)
+        return
+    if kern.source == "mel":
+        mel_main(args, kern, names, libs, regs, card)
         return
 
     dev = torch.device("cuda", 0)

@@ -8,7 +8,7 @@ checkout of the port.
                                        [--frames-alone] [--library]
                                        [--plain] [--ulp]
                                        [--pipelines [P ...]] [--dc]
-                                       [--ptxas [SOURCE ...]]
+                                       [--split] [--ptxas [SOURCE ...]]
 
 Imports ``spectral_tpu_torch`` from DIR (default: the checkout holding this
 script), builds its STFT kernel from DIR's sources, and times
@@ -70,8 +70,13 @@ synchronise, its wall ms on the host clock (median of 5 after a
 warm-up), the launches of a step, and a digest, the norm and the largest
 |entry| of the gradient of the first 8 clips (two checkouts whose
 backward sums in another order give other digests and norms equal to
-about 1e-7). ``--dc`` reports the
-flags and PSD maxima of pure-DC clips (1e-4, 3e-3, 0.1; 10 s) through
+about 1e-7); path 12's also digest the partials of its first 8 clips'
+mel rows, and every pipeline the image of its first 8 clips.
+``--split`` times the display backward (B4) at path 1's shapes in log
+and linear mode with each of its kernels' device ms (torch.profiler),
+and the mel kernel at path 12's with and without its sums (spans of
+length 0), so a parent's split needs no edit of its source. ``--dc``
+reports the flags and PSD maxima of pure-DC clips (1e-4, 3e-3, 0.1; 10 s) through
 the checkout's ``batched_spectrogram_fn`` at scipy_default 1024 and 8160
 (constant detrend).
 
@@ -167,6 +172,14 @@ def time_pipelines(paths, report, SpecConfig, batch, dev):
                  "finite_sha256": _digest(out["finite"])}
         if "mel" in out:
             entry["mel_sha256"] = _digest(out["mel"][:8])
+            from spectral_tpu_torch.core.mel import mel_filterbank
+            from spectral_tpu_torch.ops import mel_cuda
+            spans = mel_cuda.mel_spans(mel_filterbank(
+                cfg.n_mels, out["psd"].shape[2], fs), dev)
+            entry["mel_parts_sha256"] = _digest(mel_cuda.mel_project(
+                out["psd"][:8].contiguous(), spans)[1])
+        if out.get("image") is not None:
+            entry["image_sha256"] = _digest(out["image"][:8])
         del out, words
         torch.cuda.synchronize()
         for key, run in (("ms", 1), ("run_ms", RUN)):
@@ -413,6 +426,60 @@ def time_grad_step(report, SpecConfig, batch, nperseg=None):
     torch.cuda.empty_cache()
 
 
+SPLIT_STAGES = (("pixel_pass", "display_grad_pixel"),
+                ("extrema_pass", "display_grad_extrema"),
+                ("prep", "display_grad_prep"), ("pass", "display_grad_kernel"))
+
+
+def time_split(report, SpecConfig, batch, dev):
+    """The display backward (B4) and the mel kernel of the checkout, with
+    the parts a split can be read from without editing its source: B4 at
+    path 1's shapes (1024 clips x 10 s, north_star 1024/256, the PSD's
+    clip_stats operands, a seeded g, flipped as path 21 calls it) in log
+    and in linear mode (no log10 and fewer divisions a pixel, the same
+    bytes), a call's ms (CUDA events, median of REPS) and each of its
+    kernels' device ms (torch.profiler over REPS calls); the mel kernel at
+    path 12's shapes (128 mels) with the filterbank's spans and with spans
+    of length 0 (no sums: the copies, stores and partials alone)."""
+    import torch
+    from spectral_tpu_torch.core.mel import mel_filterbank
+    from spectral_tpu_torch.ops import display_cuda as disp
+    from spectral_tpu_torch.ops import mel_cuda, stft_cuda
+    smoke = _smoke()
+    print("split B4 and the mel kernel", file=sys.stderr, flush=True)
+    x = batch(CLIPS, SECONDS)
+    cfg = SpecConfig.north_star(1024, 256)
+    psd, parts = stft_cuda.stft_psd_partials(x, FS, cfg)
+    params = disp.clip_stats(x, parts).params
+    B, T, F = psd.shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g = torch.rand((B, F, T), generator=gen, device=dev)
+    entry = {}
+    for log in (True, False):
+        def call(log=log):
+            return disp.display_backward(g, psd, params, log_scale=log,
+                                         flip_image=True)
+        out = call()
+        split = smoke.kernel_split(lambda: [call() for _ in range(REPS)],
+                                   SPLIT_STAGES)
+        ms, reps = smoke.time_ms(call)
+        entry["log" if log else "linear"] = {
+            "ms": ms, "reps_ms": reps, "sha256": _digest(out[:8]),
+            "kernels_ms": None if split is None else
+            {k: v / REPS for k, v in split["stage_ms"].items()}}
+        del out
+    report["split display_backward path 1"] = entry
+    del g
+    spans = mel_cuda.mel_spans(mel_filterbank(128, F, FS), dev)
+    zero = torch.zeros_like(spans.start)
+    none = spans._replace(start=zero, length=zero, offset=zero)
+    report["split mel path 12"] = {
+        "ms": smoke.time_ms(lambda: mel_cuda.mel_project(psd, spans))[0],
+        "no_sums_ms": smoke.time_ms(
+            lambda: mel_cuda.mel_project(psd, none))[0]}
+    torch.cuda.empty_cache()
+
+
 def ptxas_report(names):
     """{source: {mangled entry: [registers, spill store bytes, spill load
     bytes]}} of the imported checkout's sources, each built anew into a
@@ -484,6 +551,9 @@ def main(argv=None) -> None:
     ap.add_argument("--ptxas", nargs="*",
                     help="each kernel's registers and spills, building "
                          "these sources (all when none is named)")
+    ap.add_argument("--split", action="store_true",
+                    help="the display backward's and the mel kernel's "
+                         "times and parts at paths 1 and 12's shapes")
     ap.add_argument("--dc", action="store_true",
                     help="the flags of pure-DC clips at scipy_default 1024 "
                          "and 8160")
@@ -536,6 +606,8 @@ def main(argv=None) -> None:
                 "psd_max": out["psd"].amax(dim=(1, 2)).tolist()}
     if args.ptxas is not None:
         report["ptxas"] = ptxas_report(args.ptxas)
+    if args.split:
+        time_split(report, SpecConfig, batch, dev)
     if args.pipelines is not None:
         time_pipelines(args.pipelines, report, SpecConfig, batch, dev)
     nperseg = list(args.nperseg or [])
@@ -555,7 +627,7 @@ def main(argv=None) -> None:
     configs = [(f"scipy_default {k}", SpecConfig.scipy_default(k))
                for k in nperseg]
     if not configs and args.paths is None and (args.pipelines is not None
-                                               or args.dc
+                                               or args.dc or args.split
                                                or args.ptxas is not None):
         print(json.dumps(report))
         return
