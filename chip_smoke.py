@@ -57,7 +57,8 @@ it == 2, its iteration counts equal to its plain version's, parameters
 within HMM_PARAM_TOL and log-likelihoods within HMM_LL_TOL; H2, Viterbi,
 at T 1, 2, 3, 600, 2047, 2048 and 65,536 on an escape-patched EM model
 and a supervised one, both forms (a block a sequence up to 2048, chunked
-at every T), paths identical to the plain versions' and to each other;
+at every T), paths identical to the plain versions' and to each other
+(on paths 14-17 too);
 H3, the chunked E-step, at T 2048, 8192 and 524,288, statistics within
 HMM_STATS_TOL and the log-likelihood within HMM_LL_TOL; H3's EM loop on
 the card (``fit_chunked``) at T 2048, 4097 and 65,536 on 1-4 sequences
@@ -129,7 +130,8 @@ launch the detection kernels named there):
     chunked versions (Viterbi on every frame, the E-step's statistics and
     log-likelihood), the loop bitwise the host loop over one E-step launch
     an iteration and the torch M-step, the planted bursts found; the loop
-    timed and split by stage (``torch.profiler``);
+    timed and split by stage (``torch.profiler``), and H2 chunked split by
+    its five kernels;
 16. the interactive session (``api/session.py``, the reference app's
     flow): an hour at 48 kHz with path 15's kind of planted bursts,
     written as a 16-bit WAV, loaded through ``SweepRegistry`` and plotted
@@ -240,15 +242,19 @@ the host has no matplotlib, one line that says so; and
     route, ``stft_odd_fft_backward_kernel``), 8182 and 8185 (the Bluestein
     route on one block and on a cluster of two,
     ``stft_bluestein_fft_backward_kernel``), one forward launch and one
-    backward launch each, X recomputed inside, and 24 (the GEMM route:
-    one recompute of X by its complex epilogue, then
+    backward launch each, X recomputed inside, 24 (the GEMM route's
+    small-K configs: one launch of ``stft_small_backward_kernel``, X
+    recomputed in registers, held to its plain version and to B1
+    forced), and 24 two-sided and nfft 8200 over 24 (the rest of the GEMM
+    route: one recompute of X by its complex epilogue, then
     ``stft_backward_kernel``); one SGD step at path 4's
     config on its full batch (256 x 60 s at scipy_default 8160 log);
     each backward kernel timed against its plain version, its bound and
     its library call (the backward of ``library_psd`` under autograd for
     the STFT's, ``F.fold`` for the overlap-add, ``torch.matmul`` in
-    float64 for the mel projection's), ``stft_backward_kernel`` (B1) on
-    the GEMM route at path 10's shapes and forced at path 1's, and the
+    float64 for the mel projection's), ``stft_small_backward_kernel``
+    (B1-small) and ``stft_backward_kernel`` (B1) on the GEMM route at
+    path 10's shapes, B1 forced at path 1's, and the
     mixed, odd and Bluestein adjoints at paths 4, 7, 11, 8 and 9's shapes
     beside B1 forced there. No cache is trimmed before
     it: the device operands' cache is bounded. Before it, phase ``grad``
@@ -261,7 +267,13 @@ the host has no matplotlib, one line that says so; and
     magnitude, complex, unscaled, a band, centered, linear detrend, T =
     0), each radix-2, mixed, odd and Bluestein case also to the plain FFT
     adjoint and to ``stft_backward_kernel`` forced, with no recompute
-    launch and no dense operands built, and the mel and display
+    launch and no dense operands built, each small-K case (GEMM at 2, 12
+    two-sided, 13 linear on a band, 24, 24 two-sided on a band of 16
+    bins, 24 unscaled, 31 magnitude) to its plain version and to B1
+    forced within GRAD_TOL and to itself run again bit for bit (the
+    kernel fuses each product into an FMA where the plain version rounds
+    it apart, so it need not equal the plain version), and the GEMM route
+    past it (24 two-sided, nfft 8200 over 24) on B1, and the mel and display
     backward at paths 12's and 1's shapes (tied extrema, share_max,
     linear and log, flipped).
 
@@ -664,8 +676,11 @@ def build_kernels():
     print(f"stft_grad.cu -> {os.path.relpath(grad['path'], HERE)} in "
           f"{grad['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
               grad["log"], r"(stft_backward_kernel|overlap_add_kernel|"
-              r"stft_fft_backward_kernelILi(\d+)ELi(\d+)E)",
-              lambda e: e.group(1) if e.group(2) is None else
+              r"stft_fft_backward_kernelILi(\d+)ELi(\d+)E|"
+              r"stft_small_backward_kernelILi(\d)E)",
+              lambda e: f"stft_small_backward<NB {e.group(4)}>"
+              if e.group(4) is not None else e.group(1)
+              if e.group(2) is None else
               f"stft_fft_backward<LOG2M {e.group(2)}, "
               f"{2 ** int(e.group(3))} values>")))
     build.load_library("stft_grad")
@@ -2610,9 +2625,11 @@ def field_err(got, want):
 # every kernel of csrc/hmm.cu in nvcc's log: (entry pattern, label)
 HMM_PTXAS = (r"(hmm_fit|hmm_viterbi|chunk_transfer|est_transfer|vit_scan|"
              r"vit_decode|vit_compose|vit_backtrace|est_scan|est_chunk|"
-             r"est_reduce|est_mstep)_kernel(?:ILi(\d)E)?(?:Lb(\d)E)?",
+             r"est_reduce|est_mstep)_kernel(?:ILi(\d)E)?(?:Li(\d)E)?"
+             r"(?:Lb(\d)E)?",
              lambda e: e.group(1) + (f"<KM {e.group(2)}" + (
-                 f", LOGSUM {e.group(3)}" if e.group(3) else "") + ">"
+                 f", KC {e.group(3)}" if e.group(3) else "") + (
+                 f", LOGSUM {e.group(4)}" if e.group(4) else "") + ">"
                  if e.group(2) else ""))
 
 
@@ -2641,6 +2658,12 @@ def host_chunked_fit(X, p0, L, n_iter, tol):
 HMM_STAGES = (("transfer", "transfer"), ("scan", "est_scan"),
               ("chunk_pass", "est_chunk"), ("reduce_mstep", "est_mstep"),
               ("reduce_mstep", "est_reduce"))
+
+
+# H2 chunked's five kernels, by a part of their names
+H2_STAGES = (("transfer", "chunk_transfer"), ("scan", "vit_scan"),
+             ("decode", "vit_decode"), ("compose", "vit_compose"),
+             ("backtrace", "vit_backtrace"))
 
 
 def kernel_split(fn, stages):
@@ -3260,6 +3283,15 @@ def long_detect_path(dev, card, dfma_peak):
               f"ms of {split['span_ms']:.3f} (idle share "
               f"{split['idle_share']:.4f}); {split['d2h_copies']} "
               f"device-to-host copies [{card}]")
+    vsplit = kernel_split(lambda: [hmm_cuda.viterbi_chunked(X, patched, L)
+                                   for _ in range(REPS)], H2_STAGES)
+    if vsplit is None:
+        print("path 15's H2 chunked: torch.profiler shows no device time on "
+              "this machine")
+    else:
+        vsplit = {k: v / REPS for k, v in vsplit["stage_ms"].items()}
+        print(f"path 15's H2 chunked ({math.ceil(LONG_T / L)} chunks of {L}):"
+              f" its five kernels' device ms a call {vsplit} [{card}]")
     tm = {
         "stft_kernel": time_ms(lambda: stft_cuda.stft_psd(
             x, LONG_FS, cfg, band=band)),
@@ -3320,7 +3352,10 @@ def long_detect_path(dev, card, dfma_peak):
         "hmm_viterbi_chunked": dict(
             launches=counts["hmm"]["viterbi_chunked"], err=vit_err,
             ms=tm["viterbi_kernel"][0], plain_ms=tm["viterbi_plain"][0],
-            bound=vit_bound, library_ms=None)}
+            bound=vit_bound, library_ms=None,
+            extra={"split_ms": vsplit,
+                   "ns_a_step": 1e6 * tm["viterbi_kernel"][0]
+                   / (3 * L + 2 * math.ceil(LONG_T / L))})}
 
 
 SESSION_FS = 48000.0
@@ -4029,6 +4064,9 @@ def stream_path(dev, card, dfma_peak):
     X = feats_mono.to(torch.float64)[None].contiguous()
     patched = hmm.HMMParams(*(p[None].contiguous() for p in det.params))
     states = hmm_cuda.viterbi_chunked(X, patched, hmm_cuda.chunk_len(4))
+    require(torch.equal(states, hmm_cuda.viterbi_chunked_reference(
+        X, patched, hmm_cuda.chunk_len(4))),
+            "path 17: H2 chunked's states differ from the plain version's")
     check_detection(f"path 17, {len(plans[0])} bursts planted on channel 0, "
                     f"{len(events)} events", detection_quality(
                         tb, states.cpu().numpy(),
@@ -5326,6 +5364,24 @@ def grad_kernel_cases(dev):
         ("Bluestein 563, NaN in g", SpecConfig.scipy_default(563), FS, "psd",
          None),
         ("GEMM 24", SpecConfig.scipy_default(24), FS, "psd", None),
+        ("GEMM 2", SpecConfig.scipy_default(2), FS, "psd", None),
+        ("GEMM 13 linear, band", SpecConfig(nperseg=13, hop=4,
+                                             detrend="linear"), FS, "psd",
+         (1, 5)),
+        ("GEMM 31 magnitude", dataclasses.replace(
+            SpecConfig.scipy_default(31), mode="magnitude"), FS, "psd",
+         None),
+        ("GEMM 24 stft (unscaled)", SpecConfig.scipy_default(24), FS,
+         "stft", None),
+        ("GEMM 12 two-sided (12 bins)", dataclasses.replace(
+            SpecConfig.scipy_default(12), onesided=False), FS, "psd", None),
+        ("GEMM 24 two-sided, band of 16 bins", dataclasses.replace(
+            SpecConfig.scipy_default(24), onesided=False), FS, "psd",
+         (4, 20)),
+        ("GEMM 24 two-sided (24 bins: B1)", dataclasses.replace(
+            SpecConfig.scipy_default(24), onesided=False), FS, "psd", None),
+        ("GEMM nfft 8200 over 24 (B1)", dataclasses.replace(
+            SpecConfig.scipy_default(24), nfft=8200), FS, "psd", None),
         ("nfft 4096 over 1024", dataclasses.replace(s1024, nfft=4096), FS,
          "psd", None),
         ("two-sided 1024", dataclasses.replace(ns, onesided=False), FS,
@@ -5366,7 +5422,8 @@ def grad_kernel_cases(dev):
         x = torch.from_numpy(rs.randn(3, n).astype(np.float32)).to(dev)
         x.requires_grad_()
         out = cfg.mode if kind == "psd" else kind
-        route, back = stft_cuda.route(cfg), stft_cuda.backward_route(cfg)
+        route = stft_cuda.route(cfg)
+        back = stft_cuda.backward_route(cfg, band)
         before, keys = flat_counts(read_counts()), dense_keys()
         if kind == "psd":
             y = stft_cuda.stft_psd(x, fs, cfg, band=band)
@@ -5391,6 +5448,9 @@ def grad_kernel_cases(dev):
             require(not dense_keys() - keys,
                     f"grad {label}: the {back} backward built dense "
                     f"operands {dense_keys() - keys}")
+        elif back == "small":
+            want_moved = {f"stft_{route}": 1, "stft_small_backward": 1,
+                          "overlap_add": 1}
         else:
             want_moved = {f"stft_{route}": 2, "stft_backward": 1,
                           "overlap_add": 1}
@@ -5435,8 +5495,29 @@ def grad_kernel_cases(dev):
                     f"{rel_b:.2e} from stft_backward_kernel")
             note = (f"; {rel_f:.2e} from the plain FFT adjoint, {rel_b:.2e} "
                     f"from stft_backward_kernel forced")
+        if back == "small":
+            # its own plain version (X kept in float64), B1 forced, and
+            # the same bits in a second run
+            small_plain = stft_cuda.overlap_add_reference(
+                stft_cuda.frames_backward_small_reference(
+                    g, xd, cfg, fs, band, out), xd.shape[-1], cfg.hop_)
+            rel_s = clip_rel(dx, padded_grad(x, xp, small_plain, cfg))[0]
+            op = stft_cuda.GradOp(fs, cfg, band, out, route)
+            b1 = stft_cuda.stft_backward(xd, g, op, _backward="dense")
+            rel_b = clip_rel(dx, padded_grad(x, xp, b1, cfg))[0]
+            again = stft_cuda.stft_backward(xd, g, op)
+            same = torch.equal(padded_grad(x, xp, again, cfg).view(
+                torch.int32), dx.view(torch.int32))
+            require(rel_s <= GRAD_TOL and rel_b <= GRAD_TOL and same,
+                    f"grad {label}: {rel_s:.2e} from B1-small's plain "
+                    f"version, {rel_b:.2e} from stft_backward_kernel, the "
+                    f"same bits in two runs {same}")
+            note = (f"; {rel_s:.2e} from its plain version (X in float64), "
+                    f"{rel_b:.2e} from stft_backward_kernel forced, the "
+                    f"same bits in two runs")
         print(f"{label} [{route}, backward {back}"
-              f"{'' if back in fft_kinds else ': stft_backward_kernel (B1)'}"
+              f"{'' if back in fft_kinds else ': stft_small_backward_kernel'
+                 if back == 'small' else ': stft_backward_kernel (B1)'}"
               f"]: "
               f"{rel:.2e} of the clip's largest |gradient| from the plain "
               f"dense backward ({err:.3e} abs){note}, 3 clips x {T} frames; "
@@ -5582,6 +5663,7 @@ def grad_path(dev, card):
     4, 7, 11, 8 and 9's shapes against theirs and B1 forced.
     No cache is trimmed first: the device operands' cache is bounded
     (``stft_cuda.CONSTANTS_BUDGET``)."""
+    import dataclasses
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
@@ -5705,13 +5787,26 @@ def grad_path(dev, card):
     del xh
     # the mixed route, its Rader plan, the odd route and the Bluestein
     # route (one block and a cluster): one forward and one backward launch
-    # each, X recomputed inside the backward; the GEMM route (path 10's
-    # config): B1 after the recompute of X
-    for k in (MIXED_NPERSEG, RADER_NPERSEG, ODD_NPERSEG,
-              BLUESTEIN_EVEN_NPERSEG, BLUESTEIN_NPERSEG, GEMM_NPERSEG):
-        cfgk = SpecConfig.scipy_default(k)
+    # each, X recomputed inside the backward; the GEMM route at path 10's
+    # config: one forward and one launch of B1-small, X recomputed inside;
+    # the GEMM route's two-sided spectrum below 32 (24 bins) and nfft past
+    # 8192 (8200 over nperseg 24, on 1 clip of 10 s): B1 after the
+    # recompute of X
+    s24 = SpecConfig.scipy_default(GEMM_NPERSEG)
+    for k, cfgk, clips, seconds in (
+            (MIXED_NPERSEG, None, 8, K2_SECONDS),
+            (RADER_NPERSEG, None, 8, K2_SECONDS),
+            (ODD_NPERSEG, None, 8, K2_SECONDS),
+            (BLUESTEIN_EVEN_NPERSEG, None, 8, K2_SECONDS),
+            (BLUESTEIN_NPERSEG, None, 8, K2_SECONDS),
+            (GEMM_NPERSEG, None, 8, K2_SECONDS),
+            ("24 two-sided", dataclasses.replace(s24, onesided=False), 8,
+             K2_SECONDS),
+            ("8200 over 24", dataclasses.replace(s24, nfft=8200), 1,
+             CLIP_SECONDS)):
+        cfgk = cfgk or SpecConfig.scipy_default(k)
         route, back = stft_cuda.route(cfgk), stft_cuda.backward_route(cfgk)
-        x = torch.randn((8, int(FS * K2_SECONDS)), generator=gen,
+        x = torch.randn((clips, int(FS * seconds)), generator=gen,
                         device=dev).requires_grad_()
         before = flat_counts(read_counts())
         dense = {key for key in stft_cuda._CONSTANTS if key[0] == "dense"}
@@ -5729,15 +5824,22 @@ def grad_path(dev, card):
         require(moved == want_moved, f"path 21 {k}: {moved}")
         built = {key for key in stft_cuda._CONSTANTS
                  if key[0] == "dense"} - dense
-        require(back == "dense" or not built,
+        require(back in ("dense", "small") or not built,
                 f"path 21 {k}: the {back} backward built dense operands")
-        want = stft_cuda.stft_backward_reference(
-            x.detach(), g, stft_cuda.dft_constants(cfgk, FS, dev), cfgk,
-            "psd")
+        if back == "small":
+            # its own plain version; B1 forced is held to it after the
+            # path's counts are read (gemm_backward_times)
+            want = stft_cuda.overlap_add_reference(
+                stft_cuda.frames_backward_small_reference(
+                    g, x.detach(), cfgk, FS), x.shape[-1], cfgk.hop_)
+        else:
+            want = stft_cuda.stft_backward_reference(
+                x.detach(), g, stft_cuda.dft_constants(cfgk, FS, dev),
+                cfgk, "psd")
         rel, err = clip_rel(x.grad, want)
         require(rel <= GRAD_TOL, f"path 21 {k}: {rel:.2e}")
         print(f"power_spectrogram at scipy_default {k} ({route} route, "
-              f"backward {back}) on 8 x {K2_SECONDS:g} s "
+              f"backward {back}) on {clips} x {seconds:g} s "
               f"({tuple(y.shape)}): {rel:.2e} of the clip's largest "
               f"|gradient| from the plain backward ({err:.3e} abs); "
               f"{wall * 1e3:.1f} ms forward + backward (host clock, "
@@ -5898,7 +6000,7 @@ def grad_path(dev, card):
         if key:
             rows[key] = dict(launches=counts[key], err=err, ms=ms,
                              plain_ms=pms, bound=bound, library_ms=lib_ms)
-    rows["stft_backward"] = gemm_backward_times(dev, card, gen, counts)
+    rows.update(gemm_backward_times(dev, card, gen, counts))
     rows.update(engine_backward_times(dev, card, gen, counts))
     print(json.dumps({"path21_times": {k: {kk: v[kk] for kk in
                                            ("ms", "plain_ms", "library_ms")}
@@ -5997,14 +6099,30 @@ def engine_backward_times(dev, card, gen, counts):
     return rows
 
 
+def stft_small_backward_bound(x_elems, R, F, L):
+    """B1-small: the waveform x and g read once and d written once, or its
+    float64 operations, 2 L F multiply-adds for X and 2 L F for d a frame
+    (a FLOP two), at the card's FP64 peak, the larger."""
+    t_mem = (x_elems * 4 + R * F * 4 + R * L * 4) / HBM_RATE
+    t_ops = R * 2 * (4 * L * F) / FP64_PEAK
+    return (1e3 * max(t_mem, t_ops),
+            "operations" if t_ops >= t_mem else "bytes")
+
+
 def gemm_backward_times(dev, card, gen, counts):
-    """stft_backward_kernel (B1) on the route it keeps, the GEMM route, at
-    path 10's shapes (1024 clips x 10 s at scipy_default 24): the kernel
+    """The GEMM route's backward at path 10's shapes (1024 clips x 10 s at
+    scipy_default 24): B1-small (stft_small_backward_kernel, X recomputed
+    in registers) against its bound (x and g read once, d written once, or
+    its float64 operations at the FP64 peak), its plain version
+    (``frames_backward_small_reference`` in chunks of 256 clips), the
+    same bits in two runs and, per clip within GRAD_TOL, B1 forced on the
+    same g; stft_backward_kernel (B1), which the route ran there before,
     alone and after the recompute of X by the GEMM kernel's complex
-    epilogue, against its bound (g and X read once, d written once), its
-    plain version (``frames_backward_reference`` in chunks of 256 clips)
-    and the library, the backward of ``library_psd`` (cuFFT f64) under
-    autograd. Returns the kernels-line row of stft_backward."""
+    epilogue, against its bound (g and X read once, d written once) and
+    its plain version (``frames_backward_reference`` in chunks); the
+    library, the backward of ``library_psd`` (cuFFT f64) under autograd.
+    Returns the kernels-line rows of stft_small_backward and
+    stft_backward."""
     import torch
     from spectral_tpu_torch import SpecConfig
     from spectral_tpu_torch.core.stft import num_frames
@@ -6017,21 +6135,40 @@ def gemm_backward_times(dev, card, gen, counts):
     x = torch.randn((BATCH, n), generator=gen, device=dev)
     g = torch.rand((BATCH, T, F), generator=gen, device=dev)
     consts = stft_cuda.dft_constants(cfg, FS, dev)
-    require(stft_cuda.backward_route(cfg) == "dense",
-            "scipy_default 24 is off the GEMM route's backward")
+    require(stft_cuda.backward_route(cfg) == "small",
+            "scipy_default 24 is off the GEMM route's small-K backward")
+    chunks = [slice(i, i + 256) for i in range(0, BATCH, 256)]
+
+    def small():
+        return stft_cuda.frames_backward_small(g, x, cfg, FS)
 
     def recompute():
         return stft_cuda._stft_psd_cuda(x, FS, cfg, False, False,
                                         out_mode="stft")
 
+    ds = small()
+    again = small()
+    same = torch.equal(ds.view(torch.int32), again.view(torch.int32))
+    del again
+    rel_s, err_s = clip_rel(ds[:GRAD_CLIPS],
+                            stft_cuda.frames_backward_small_reference(
+                                g[:GRAD_CLIPS], x[:GRAD_CLIPS], cfg, FS))
     X = recompute()
     d = stft_cuda.frames_backward(g, X, consts, "psd")
+    rel_b = clip_rel(ds, d)[0]
+    require(rel_s <= GRAD_TOL and rel_b <= GRAD_TOL and same,
+            f"B1-small at path 10's shapes: {rel_s:.2e} from its plain "
+            f"version, {rel_b:.2e} from stft_backward_kernel, the same bits "
+            f"in two runs {same}")
+    del ds
+    ts = time_ms(small)
+    tsp = time_ms(lambda: [stft_cuda.frames_backward_small_reference(
+        g[c], x[c], cfg, FS) for c in chunks], reps=3)
     err = clip_rel(d[:GRAD_CLIPS], stft_cuda.frames_backward_reference(
         g[:GRAD_CLIPS], X[:GRAD_CLIPS], consts, "psd"))[1]
     t = time_ms(lambda: stft_cuda.frames_backward(g, X, consts, "psd"))
     tr = time_ms(lambda: stft_cuda.frames_backward(g, recompute(), consts,
                                                    "psd"))
-    chunks = [slice(i, i + 256) for i in range(0, BATCH, 256)]
     tp = time_ms(lambda: [stft_cuda.frames_backward_reference(
         g[c], X[c], consts, "psd") for c in chunks], reps=3)
     del X, d
@@ -6042,17 +6179,29 @@ def gemm_backward_times(dev, card, gen, counts):
                  reps=3)[0]
     del xl, yl
     torch.cuda.empty_cache()
+    bound_s = stft_small_backward_bound(BATCH * n, R, F, L)
     bound = stft_backward_bound(R, F, L, cfg.nfft_)
-    print(f"stft_backward_kernel (B1) on the GEMM route at path 10's shapes "
+    print(f"stft_small_backward_kernel (B1-small) at path 10's shapes "
           f"(scipy_default {GEMM_NPERSEG}, {BATCH} x {CLIP_SECONDS:g} s, {R} "
-          f"frames of {F} bins): {t[0]:.4f} ms [{card}] reps {t[1]}; after "
-          f"the recompute of X (the GEMM kernel's complex epilogue) "
-          f"{tr[0]:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); plain "
-          f"{tp[0]:.3f} ms; library {tl:.3f} ms (the backward of "
-          f"library_psd, cuFFT f64, autograd, over the recompute and B1)")
-    return dict(launches=counts["stft_backward"], err=err, ms=t[0],
-                plain_ms=tp[0], bound=bound, library_ms=tl,
-                recompute_ms=tr[0])
+          f"frames of {F} bins): {ts[0]:.4f} ms [{card}] reps {ts[1]}; "
+          f"bound {bound_s[0]:.4f} ms ({bound_s[1]}); plain {tsp[0]:.3f} "
+          f"ms; library {tl:.3f} ms (the backward of library_psd, cuFFT "
+          f"f64, autograd); {rel_s:.2e} of the clip's largest |d| from its "
+          f"plain version ({GRAD_CLIPS} clips), {rel_b:.2e} from B1 (all "
+          f"clips), the same bits in two runs")
+    print(f"stft_backward_kernel (B1) on the same shapes, forced: "
+          f"{t[0]:.4f} ms [{card}] reps {t[1]}; after the recompute of X "
+          f"(the GEMM kernel's complex epilogue) {tr[0]:.4f} ms; bound "
+          f"{bound[0]:.4f} ms ({bound[1]}); plain {tp[0]:.3f} ms")
+    return {
+        "stft_small_backward": dict(
+            launches=counts["stft_small_backward"], err=err_s, ms=ts[0],
+            plain_ms=tsp[0], bound=bound_s, library_ms=tl,
+            extra={"b1_recompute_ms": tr[0]}),
+        "stft_backward": dict(
+            launches=counts["stft_backward"], err=err, ms=t[0],
+            plain_ms=tp[0], bound=bound, library_ms=tl,
+            extra={"recompute_ms": tr[0]})}
 
 
 PHASES = ("kernels", "tail", "dc", "scipy", "band", "mel", "path1", "path2",
@@ -6221,8 +6370,9 @@ def main(_phases=None):
           f"{rows['stft_mixed_backward']['launches']}, stft_odd_backward "
           f"{rows['stft_odd_backward']['launches']}, "
           f"stft_bluestein_backward "
-          f"{rows['stft_bluestein_backward']['launches']}, stft_backward "
-          f"{rows['stft_backward']['launches']}, "
+          f"{rows['stft_bluestein_backward']['launches']}, "
+          f"stft_small_backward {rows['stft_small_backward']['launches']}, "
+          f"stft_backward {rows['stft_backward']['launches']}, "
           f"overlap_add {rows['overlap_add']['launches']}, mel_backward "
           f"{rows['mel_backward']['launches']}, display_backward "
           f"{rows['display_backward']['launches']}; the commands of path 19: "
@@ -6356,11 +6506,20 @@ def main(_phases=None):
             "<RANKS 2> at 8185 counted here)", "cuda", grad_mixed_src,
             "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
             "XLA's transposed DFT; no TPU kernel)"),
-        "stft_backward": (
-            "stft_backward_kernel (B1), the STFT's adjoint (float64 tile) on "
-            "the GEMM route after its complex epilogue's recompute of X: "
+        "stft_small_backward": (
+            "stft_small_backward_kernel<NB 7> (B1-small), the STFT's adjoint "
+            "on the GEMM route's small-K configs (X recomputed in registers "
+            "by the small-K tile's chains, d = H A^T in the same launch): "
             "scipy_default 24 (path 21), timed at path 10's shapes (1024 x "
             "10 s)", "cuda", grad_src,
+            "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
+            "XLA's transposed DFT; no TPU kernel)"),
+        "stft_backward": (
+            "stft_backward_kernel (B1), the STFT's adjoint (float64 tile) on "
+            "the GEMM route past the small-K configs after its complex "
+            "epilogue's recompute of X: scipy_default 24 two-sided and nfft "
+            "8200 over 24 (path 21), timed forced at path 10's shapes (1024 "
+            "x 10 s)", "cuda", grad_src,
             "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
             "XLA's transposed DFT; no TPU kernel)"),
         "overlap_add": (

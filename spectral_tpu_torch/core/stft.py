@@ -141,9 +141,19 @@ def center_pad(x: torch.Tensor, cfg: SpecConfig) -> torch.Tensor:
 # Window / scaling constants (host-side, float64)
 # ---------------------------------------------------------------------------
 
+def _read_only(*arrays: np.ndarray):
+    """The cached operands, shared by every caller, made read-only, so that
+    a caller's in-place edit raises instead of changing every later
+    result (tests/test_torch_shared_operands.py)."""
+    for a in arrays:
+        a.setflags(write=False)
+    return arrays if len(arrays) > 1 else arrays[0]
+
+
 @functools.lru_cache(maxsize=64)
 def _window_f64(cfg: SpecConfig) -> np.ndarray:
-    return get_window(cfg.window, cfg.nperseg, periodic=True)
+    """cfg's nperseg-point window in float64; cached, shared, read-only."""
+    return _read_only(get_window(cfg.window, cfg.nperseg, periodic=True))
 
 
 def _require_fs(fs: float) -> float:
@@ -211,7 +221,8 @@ def dft_matrices(cfg: SpecConfig) -> Tuple[np.ndarray, np.ndarray]:
         X_re = f @ A_re,  X_im = f @ A_im
         A[n,k] = w[n] c/s(-2π n k / nfft);  A <- (I - P) A  (detrend)
 
-    The arrays are cached and shared: copy before handing them to torch."""
+    The arrays are cached, shared and read-only: copy before handing them
+    to torch."""
     N = cfg.nperseg
     nfft = cfg.nfft_
     w = _window_f64(cfg)
@@ -228,7 +239,7 @@ def dft_matrices(cfg: SpecConfig) -> Tuple[np.ndarray, np.ndarray]:
         Q = np.linalg.qr(np.concatenate([np.ones((N, 1)), ns], axis=1))[0]
         a_re = a_re - Q @ (Q.T @ a_re)
         a_im = a_im - Q @ (Q.T @ a_im)
-    return np.ascontiguousarray(a_re), np.ascontiguousarray(a_im)
+    return _read_only(np.array(a_re, order="C"), np.array(a_im, order="C"))
 
 
 @functools.lru_cache(maxsize=16)
@@ -241,12 +252,12 @@ def fft_twiddles(nfft: int) -> np.ndarray:
     Every row is a row of numpy's table of (cos, sin) of -2π j / nfft,
     j < nfft / 2, at j = k · nfft / 2h, bitwise; the stage order lets the
     kernel's neighbouring threads read neighbouring rows. The array is
-    cached and shared: copy before handing it to torch."""
+    cached, shared and read-only: copy before handing it to torch."""
     ang = -2.0 * np.pi * np.arange(nfft // 2, dtype=np.float64) / nfft
     base = np.stack([np.cos(ang), np.sin(ang)], axis=1)
     spans = [1 << b for b in range(nfft.bit_length() - 1)]
     j = np.concatenate([np.arange(h) * (nfft // (2 * h)) for h in spans])
-    return np.ascontiguousarray(base[j])
+    return _read_only(np.ascontiguousarray(base[j]))
 
 
 # The largest odd radix the mixed-radix plan gives a direct stage

@@ -96,12 +96,16 @@
 //       F_c; chunk 0 runs from the initial vector;
 //     vit_scan: one warp a sequence walks the chunks in order: each
 //       chunk's incoming delta (normalized to max 0) and, at the end, the
-//       end state;
+//       end state; every lane holds the step's K values (no shuffles on
+//       the chain) and the transfers are streamed into shared memory
+//       SCAN_TILE chunks ahead of it by cp.async;
 //     vit_decode: each chunk re-runs its recursion from its incoming delta,
 //       writes its backpointers and composes them into its state map (the
 //       state at the chunk's first frame - 1 for each end state);
-//     vit_compose: one thread a sequence walks the chunks backwards
-//       through the maps (hmm_pscan.py:322-355's suffix composition);
+//     vit_compose: a block a sequence stages its maps in shared memory,
+//       COMPOSE_TILE chunks a tile by cp.async, and one thread walks the
+//       chunks backwards through them (hmm_pscan.py:322-355's suffix
+//       composition);
 //     vit_backtrace: each chunk walks its own backpointers from its end
 //       state.
 //   H3, the chunked E-step, four kernels: est_transfer (each chunk's K x K
@@ -151,6 +155,8 @@ constexpr bool K2_ONE_EXP = true;            // one exp a lane, then gathered
 constexpr bool H1_ONE_WARP = false;          // H1's two chains in one warp
 constexpr bool SCAN_SMEM = true;             // the scan's F from shared memory
 constexpr int SCAN_TILE = 32;                // chunks a tile of the scan's F
+constexpr int COMPOSE_TILE = 512;            // chunks a tile of the maps
+constexpr int COMPOSE_THREADS = 128;         // threads of a compose block
 constexpr int RED_TILE = 2048;               // doubles a tile of the reduce
 constexpr int RED_SPT = 2;                   // statistics a thread, reduce
 constexpr int CHUNK_MIN_BLOCKS = 4;          // chunk pass blocks an SM
@@ -392,6 +398,12 @@ __device__ __forceinline__ double k2_logsumexp(double v, int r, int K) {
 __device__ __forceinline__ void cp_async_f64(double* dst, const double* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src));
+}
+// cp.async of one 32-bit word
+__device__ __forceinline__ void cp_async_b32(int* dst, const int* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
                "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -908,37 +920,84 @@ est_transfer_kernel(const double* __restrict__ X, int T, int D, int K, int L,
 
 // Viterbi scan: one warp a sequence over the chunks in order. din (B, n,
 // K) receives each chunk's incoming delta normalized to max 0; send (B,)
-// the end state at frame T - 1.
-template <int KM>
+// the end state at frame T - 1. Every lane holds all K values of the step
+// and computes them all (lane 0 stores): the same adds and strict-> maxes
+// in index order as a state a lane gave, with no shuffle on the chain. The
+// transfers reach the chain from shared memory, SCAN_TILE chunks a tile,
+// the next tile fetched by cp.async while the chain walks this one. KC: K
+// at compile time (K == KM, the launcher's choice when it is), so a step
+// issues no index arithmetic or guard for K; 0 takes K = Kr at run time.
+template <int KM, int KC>
 __global__ void __launch_bounds__(32)
-vit_scan_kernel(int n, int K, const double* __restrict__ F,
+vit_scan_kernel(int n, int Kr, const double* __restrict__ F,
                 double* __restrict__ din, int* __restrict__ send) {
+  __shared__ __align__(16) double tiles[2][SCAN_TILE * KM * KM];
+  const int K = KC ? KC : Kr;
   const long long b = blockIdx.x;
   const int lane = threadIdx.x;
-  const int jj = lane < K ? lane : K - 1;
-  const double* Fb = F + b * n * K * K;
-  double v = Fb[jj];
-  for (int c = 1; c < n; ++c) {
-    const double M = lane_max<KM>(v, K);
-    const double vin = v - M;
-    if (lane < K) din[(b * n + c) * K + jj] = vin;
-    const double* Fc = Fb + static_cast<long long>(c) * K * K;
-    double best = __dadd_rn(__shfl_sync(FULL, vin, 0), Fc[jj]);
-#pragma unroll
-    for (int i = 1; i < KM; ++i) {
-      const double sc = __dadd_rn(__shfl_sync(FULL, vin, i),
-                                  Fc[(i < K ? i : 0) * K + jj]);
-      if (i < K && sc > best) best = sc;
+  const int KK = K * K;
+  const double* Fb = F + b * n * KK;
+  const int ntiles = (n + SCAN_TILE - 1) / SCAN_TILE;
+  // tile t (chunks t SCAN_TILE ..) into buffer t & 1, one commit group a
+  // tile (an empty one past the last)
+  auto fetch = [&](int t) {
+    if (t < ntiles) {
+      const long long c0 = static_cast<long long>(t) * SCAN_TILE;
+      const int cnt = static_cast<int>(
+          min(static_cast<long long>(SCAN_TILE), n - c0)) * KK;
+      double* dst = tiles[t & 1];
+      const double* src = Fb + c0 * KK;
+      for (int i = lane; i < cnt; i += 32) cp_async_f64(dst + i, src + i);
     }
-    v = best;
+    cp_async_commit();
+  };
+  // chunk c's transfer in its tile's buffer
+  auto transfer = [&](int c) -> const double* {
+    return tiles[(c / SCAN_TILE) & 1] + (c % SCAN_TILE) * KK;
+  };
+  double v[KM];
+#pragma unroll
+  for (int j = 0; j < KM; ++j) v[j] = Fb[j < K ? j : 0];
+  fetch(0);
+  for (int t = 0; t < ntiles; ++t) {
+    fetch(t + 1);
+    cp_async_wait_one();
+    __syncwarp();
+    const int c1 = min(n, (t + 1) * SCAN_TILE);
+    for (int c = t == 0 ? 1 : t * SCAN_TILE; c < c1; ++c) {
+      const double* Fc = transfer(c);
+      double M = v[0];
+#pragma unroll
+      for (int i = 1; i < KM; ++i)
+        if (i < K && v[i] > M) M = v[i];
+      double vin[KM];
+#pragma unroll
+      for (int i = 0; i < KM; ++i) vin[i] = v[i] - M;
+      if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < KM; ++j)
+          if (j < K) din[(b * n + c) * K + j] = vin[j];
+      }
+#pragma unroll
+      for (int j = 0; j < KM; ++j) {
+        const int jj = j < K ? j : 0;
+        double best = __dadd_rn(vin[0], Fc[jj]);
+#pragma unroll
+        for (int i = 1; i < KM; ++i) {
+          const double sc = __dadd_rn(vin[i], Fc[(i < K ? i : 0) * K + jj]);
+          if (i < K && sc > best) best = sc;
+        }
+        v[j] = best;
+      }
+    }
+    __syncwarp();
   }
-  double best = __shfl_sync(FULL, v, 0);
+  double best = v[0];
   int end = 0;
 #pragma unroll
   for (int j = 1; j < KM; ++j) {
-    const double vj = __shfl_sync(FULL, v, j);
-    if (j < K && vj > best) {
-      best = vj;
+    if (j < K && v[j] > best) {
+      best = v[j];
       end = j;
     }
   }
@@ -995,20 +1054,48 @@ vit_decode_kernel(const double* __restrict__ X, int T, int D, int K, int L,
 }
 
 // Compose the chunks' maps backwards from the end state: ends (B, n), the
-// state at each chunk's last frame.
-__global__ void vit_compose_kernel(int B, int n, int K,
-                                   const int* __restrict__ send,
-                                   const int* __restrict__ map,
-                                   int* __restrict__ ends) {
-  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (b >= B) return;
+// state at each chunk's last frame. A block a sequence: its maps (n, K)
+// reach shared memory COMPOSE_TILE chunks a tile, coalesced, by cp.async,
+// the tile before fetched while thread 0 walks this one backwards, so no
+// chunk of the walk waits on a load from global memory.
+template <int KM>
+__global__ void __launch_bounds__(COMPOSE_THREADS)
+vit_compose_kernel(int n, int K, const int* __restrict__ send,
+                   const int* __restrict__ map, int* __restrict__ ends) {
+  __shared__ __align__(16) int tiles[2][COMPOSE_TILE * KM];
+  const long long b = blockIdx.x;
+  const int* mb = map + b * n * K;
+  const int ntiles = (n + COMPOSE_TILE - 1) / COMPOSE_TILE;
+  auto fetch = [&](int t) {
+    if (t >= 0) {
+      const long long c0 = static_cast<long long>(t) * COMPOSE_TILE;
+      const int cnt = static_cast<int>(
+          min(static_cast<long long>(COMPOSE_TILE), n - c0)) * K;
+      int* dst = tiles[t & 1];
+      const int* src = mb + c0 * K;
+      for (int i = threadIdx.x; i < cnt; i += COMPOSE_THREADS)
+        cp_async_b32(dst + i, src + i);
+    }
+    cp_async_commit();
+  };
   int s = send[b];
-  for (int c = n - 1; c >= 1; --c) {
-    ends[b * n + c] = s;
-    s = map[(b * n + c) * K + s];
+  fetch(ntiles - 1);
+  for (int t = ntiles - 1; t >= 0; --t) {
+    fetch(t - 1);
+    cp_async_wait_one();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int c0 = t * COMPOSE_TILE;
+      const int* m = tiles[t & 1];
+      for (int c = min(n, c0 + COMPOSE_TILE) - 1; c >= (c0 > 1 ? c0 : 1);
+           --c) {
+        ends[b * n + c] = s;
+        s = m[(c - c0) * K + s];
+      }
+    }
+    __syncthreads();
   }
-  ends[b * n] = s;
+  if (threadIdx.x == 0) ends[b * n] = s;
 }
 
 // Each chunk walks its own backpointers from its end state.
@@ -1538,12 +1625,12 @@ int viterbi_chunked_launch(const double* X, long long B, int T, int D, int K,
   const dim3 grid(n, static_cast<unsigned>(B));
   chunk_transfer_kernel<KM, false><<<grid, KM * 32, 0, st>>>(
       X, T, D, K, L, start, trans, means, covars, F);
-  vit_scan_kernel<KM><<<static_cast<unsigned>(B), 32, 0, st>>>(n, K, F, din,
-                                                              send);
+  const auto scan = K == KM ? vit_scan_kernel<KM, KM> : vit_scan_kernel<KM, 0>;
+  scan<<<static_cast<unsigned>(B), 32, 0, st>>>(n, K, F, din, send);
   vit_decode_kernel<KM><<<grid, 32, 0, st>>>(X, T, D, K, L, start, trans,
                                              means, covars, din, psi, map);
-  vit_compose_kernel<<<static_cast<unsigned>((B + 127) / 128), 128, 0, st>>>(
-      static_cast<int>(B), n, K, send, map, ends);
+  vit_compose_kernel<KM><<<static_cast<unsigned>(B), COMPOSE_THREADS, 0,
+                           st>>>(n, K, send, map, ends);
   vit_backtrace_kernel<<<grid, 32, 0, st>>>(T, K, L, psi, ends, states);
   return static_cast<int>(cudaGetLastError());
 }

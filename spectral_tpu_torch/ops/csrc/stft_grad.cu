@@ -10,9 +10,15 @@
 // by ops/stft_cuda.py::backward_route: on the radix-2 route (a
 // power-of-two nfft from 32 to 8192) stft_fft_backward_kernel, which
 // recomputes X in registers and takes the adjoint as a c2r transform; on
-// the other routes stft_backward_kernel, after one launch of the forward
-// route's complex epilogue (OUT_COMPLEX at weight 1) has recomputed X;
-// then overlap_add_kernel on both.
+// the GEMM route at the forward's small-K tile's configs (F <= SK_MAX_F
+// bins, nperseg below 2 SK_MAX_F) stft_small_backward_kernel, which
+// recomputes X in registers by that tile's chains and takes d = H A^T in
+// the same launch; on the rest of the GEMM route (two-sided spectra past
+// 16 bins, nfft past 8192) and as the cross-check stft_backward_kernel,
+// after one launch of the forward route's complex epilogue (OUT_COMPLEX at
+// weight 1) has recomputed X; then overlap_add_kernel on every route.
+// (The mixed, odd and Bluestein routes' adjoints are csrc/
+// stft_grad_mixed.cu's.)
 //
 // stft_backward_kernel (stft_backward_launch): the transform's adjoint
 //   in : g (R, F) f32, the gradient of the forward's output (interleaved
@@ -46,8 +52,8 @@
 //   bytes, g, X and d moved once, 6.5 GB over 3.35 TB/s; the product is 2 R
 //   2F L = 1.34 TFLOP of float64, which this design takes on DFMA outside
 //   the tensor cores: it is slow by design, as the forced GEMM forward is.
-//   It stays for the mixed, odd, Bluestein and GEMM routes (their FFT
-//   adjoints are ROADMAP work) and as the cross-check of the kernel below.
+//   It stays for the GEMM route's configs past the small-K tile and as the
+//   cross-check of the adjoints below (``_backward="dense"``).
 //
 // stft_fft_backward_kernel<LOG2M, LR> (stft_fft_backward_launch): the
 //   radix-2 route's adjoint, K = nfft = 2M = 2^(LOG2M + 1), 32-8192
@@ -264,6 +270,307 @@ overlap_add_kernel(const float* __restrict__ d, long long B, long long n,
       acc += static_cast<double>(d[(b * T + t) * L + (i - t * hop)]);
     dx[idx] = static_cast<float>(acc);
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// The GEMM route's adjoint at F <= SK_MAX_F bins and L < 2 SK_MAX_F samples
+// (stft_small_backward_kernel, B1-small): the configs that run the forward's
+// small-K tile (csrc/stft_psd.cu::stft_psd_small_kernel), nperseg 2-31
+// one-sided in every mode, detrend and band.
+//
+// The forward's staging and its X chains are copied below from stft_psd.cu
+// with their text unchanged (FastDiv, make_fastdiv, cp_async_f32,
+// cp_async_wait_all, raise_smem, the SK_* constants, and the kernel's
+// staging and product lines; tests/test_torch_grad_small.py holds the
+// copies to the source), so this library builds on its own and
+// stft_psd.cu's build stays the parent's.
+//
+// What bounds it: at path 10's shapes (scipy_default 24 on 1024 clips of
+// 10 s: L = 24, F = 13, 7,800,832 rows) the bytes, x read once (655 MB), g
+// (406 MB) and d (749 MB), 0.54 ms at 3.35 TB/s; the DFMA, 2 L F for X and
+// 2 L F for d a row, 9.7 G, 0.58 ms at 64 an SM a clock outside the tensor
+// cores. B1 there launched the complex epilogue to write X (811 MB) and
+// read it back into a 128 x 64 tile that computes 64 samples for 24 and 16
+// bins for 13.
+//
+// The design: a block takes the forward tile's RB consecutive rows with
+// all their bins (RB = 512 / groups, groups 2 past SK_BINS bins):
+// - its frames staged once as the clip's span by cp.async (the forward's
+//   off / first / src), its g rows (RB x FW floats, one contiguous run)
+//   beside them, the folded (K, F) matrices (band columns, mirrored when
+//   two-sided) once as (re, im) pairs, K padded to KP;
+// - X in registers, the forward tile's DFMA chains (thread ia of group g,
+//   rows ia and ia + tpg, the NB bins from g NB, k ascending from 0, re and
+//   im apart): X stays in float64 (B1 read it rounded to complex64);
+// - H of each bin from X and g by cotangent_of (B1's arithmetic), written
+//   over the g rows as (re, im) at an odd row stride HS = F | 1;
+// - d of its rows ia and ia + tpg over its sample slices (groups x m of
+//   them, tn samples each, tn at most SKB_TN): each output one DFMA chain
+//   over the bins ascending from 0, re before im, as B1's
+//   (fma(hi, ci, fma(hr, cr, acc))), staged over the frames at an odd row
+//   stride, then the block's rows x L floats stored as one contiguous run
+//   of (B, T, L).
+// No recompute launch and no (R, F) X in memory.
+constexpr int SK_THREADS = 256;
+constexpr int SK_MAX_F = 16;     // the most bins the tile takes
+constexpr int SK_BINS = 8;       // bins a thread at most
+constexpr int SK_K_STEP = 4;     // K is padded to a multiple of this
+
+// x div d for 0 <= x < 2^31 by a multiply: shift = ceil(log2 d), mul =
+// floor(2^32 (2^shift - d) / d) + 1 (Granlund and Montgomery), made on the
+// host once per launch
+struct FastDiv {
+  unsigned d, mul, shift;
+  __host__ __device__ unsigned div(unsigned v) const {
+#ifdef __CUDA_ARCH__
+    const unsigned hi = __umulhi(v, mul);
+#else
+    const unsigned hi = static_cast<unsigned>(
+        (static_cast<unsigned long long>(v) * mul) >> 32);
+#endif
+    return (hi + v) >> shift;
+  }
+};
+
+FastDiv make_fastdiv(unsigned d) {
+  unsigned shift = 0;
+  while ((1u << shift) < d) ++shift;
+  const unsigned long long num = (1ull << 32) * ((1ull << shift) - d);
+  return FastDiv{d, static_cast<unsigned>(num / d + 1), shift};
+}
+
+// cp.async of one float from device to shared memory (sm_80 on)
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+constexpr int FFT_MAX_DEVICES = 64;
+template <typename Kernel>
+int raise_smem(Kernel kernel, size_t smem, size_t* set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= FFT_MAX_DEVICES || set[dev] < smem)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess && dev < FFT_MAX_DEVICES) set[dev] = smem;
+  }
+  return static_cast<int>(err);
+}
+
+// samples of a row a thread sums at once: 8 ran 1.94-2.04 ms at
+// scipy_default 24 and 31 on 1024 clips of 10 s, 12 1.95-2.37, 16
+// 2.64-2.87 (tools/torch_kernel_variants.py grad_small, H100, 700 W)
+constexpr int SKB_TN = 8;
+// blocks an SM: 2 (128 registers); its shared memory (the H rows, 16 bytes
+// a bin) holds at most two at F = 16
+constexpr int SKB_MIN_BLOCKS = 2;
+
+// the dynamic shared memory limit already set, per device, by bins a
+// thread
+size_t small_back_smem_set[SK_BINS][FFT_MAX_DEVICES] = {};
+
+template <int NB>
+__global__ void __launch_bounds__(SK_THREADS, SKB_MIN_BLOCKS)
+stft_small_backward_kernel(const float* __restrict__ x,
+                           const float* __restrict__ gy,
+                           const double* __restrict__ a_re,
+                           const double* __restrict__ a_im,
+                           const double* __restrict__ wts,
+                           float* __restrict__ d, long long n, int R, int F,
+                           int K, int hop, int mode, int groups, int m,
+                           int tn, const FastDiv t_div, const FastDiv k_div) {
+  extern __shared__ __align__(16) double2 smem[];
+  const int tid = threadIdx.x;
+  const int tpg = SK_THREADS / groups;       // threads (and half the rows)
+  const int RB = 2 * tpg;                    // a group's rows: the block's
+  const int KP = (K + SK_K_STEP - 1) / SK_K_STEP * SK_K_STEP;
+  const int FW = mode == OUT_COMPLEX ? 2 * F : F;   // floats a g row
+  const int HS = F | 1;                      // H's row stride, in pairs
+  const int LS = K | 1;                      // d's staged row stride
+  double2* as = smem;                        // KP x F (re, im)
+  double2* hs = as + KP * F;                 // RB x HS: g's rows, then H
+  float* gs = reinterpret_cast<float*>(hs);
+  float* xs = reinterpret_cast<float*>(hs + RB * HS);    // RB LS: frames,
+                                                          // then d
+  int* off = reinterpret_cast<int*>(xs + RB * LS);        // RB
+  int* first = off + RB;                                  // RB
+  long long* src = reinterpret_cast<long long*>(first + RB);   // RB
+
+  // the block's g rows, one contiguous run, in the frames' commit group
+  {
+    const long long row0 = static_cast<long long>(blockIdx.x) * RB;
+    const int rows = R - row0 < RB ? static_cast<int>(R - row0) : RB;
+    const float* gb = gy + row0 * FW;
+    for (int e = tid; e < rows * FW; e += SK_THREADS)
+      cp_async_f32(gs + e, gb + e);
+  }
+  const int r0 = blockIdx.x * RB;
+  const int s = hop < K ? hop : K;
+  const int b0 = static_cast<int>(t_div.div(r0));
+  for (int i = tid; i < RB; i += SK_THREADS) {
+    const int r = r0 + i;
+    const int b = static_cast<int>(t_div.div(r));
+    const int t = r - b * static_cast<int>(t_div.d);
+    off[i] = i * s + (b - b0) * (K - s);
+    first[i] = i == 0 || t == 0 ? 0 : K - s;
+    src[i] = static_cast<long long>(b) * n + static_cast<long long>(t) * hop;
+  }
+  for (int e = tid; e < KP * F; e += SK_THREADS) {
+    const int k = e / F;
+    const long long at = static_cast<long long>(k) * F + (e - k * F);
+    as[e] = k < K ? make_double2(a_re[at], a_im[at]) : make_double2(0.0, 0.0);
+  }
+  __syncthreads();
+  for (int e = tid; e < RB * K; e += SK_THREADS) {
+    const int i = static_cast<int>(k_div.div(e));
+    const int k = e - i * K;
+    if (r0 + i < R && k >= first[i])
+      cp_async_f32(xs + off[i] + k, x + src[i] + k);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int g = tid / tpg;
+  const int ia = tid - g * tpg;
+  const int f0 = g * NB;
+  const int fn = F - f0 < NB ? F - f0 : NB;  // this group's bins
+  const float* xa = xs + off[ia];
+  const float* xb = xs + off[ia + tpg];
+  double re[2][NB], im[2][NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    re[0][j] = 0.0;
+    im[0][j] = 0.0;
+    re[1][j] = 0.0;
+    im[1][j] = 0.0;
+  }
+  for (int k0 = 0; k0 < KP; k0 += SK_K_STEP) {
+#pragma unroll
+    for (int kk = 0; kk < SK_K_STEP; ++kk) {
+      const int k = k0 + kk;
+      const double va = k < K ? static_cast<double>(xa[k]) : 0.0;
+      const double vb = k < K ? static_cast<double>(xb[k]) : 0.0;
+      const double2* ak = as + k * F + f0;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (j < fn) {
+          const double2 a = ak[j];
+          re[0][j] = fma(va, a.x, re[0][j]);
+          im[0][j] = fma(va, a.y, im[0][j]);
+          re[1][j] = fma(vb, a.x, re[1][j]);
+          im[1][j] = fma(vb, a.y, im[1][j]);
+        }
+      }
+    }
+  }
+
+  // H of this thread's bins from X in float64 and the staged g
+  const int rows = R - r0 < RB ? R - r0 : RB;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = ia + h * tpg;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < fn) {
+        const double2 c =
+            i < rows ? cotangent_of(re[h][j], im[h][j], gs, wts,
+                                    static_cast<long long>(i) * F + f0 + j,
+                                    f0 + j, mode)
+                     : make_double2(0.0, 0.0);
+        re[h][j] = c.x;
+        im[h][j] = c.y;
+      }
+    }
+  }
+  __syncthreads();                           // every g row and sample read
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = ia + h * tpg;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      if (j < fn) hs[i * HS + f0 + j] = make_double2(re[h][j], im[h][j]);
+  }
+  __syncthreads();
+
+  // d of rows ia and ia + tpg over slices g, g + groups, ..., each a DFMA
+  // chain over the bins ascending, re before im
+  const double2* ha = hs + ia * HS;
+  const double2* hb = hs + (ia + tpg) * HS;
+  float* os = xs;                            // the output stage, RB x LS
+  for (int q = 0; q < m; ++q) {
+    const int n0 = (g + groups * q) * tn;
+    const int nn = K - n0 < tn ? K - n0 : tn;
+    if (nn <= 0) break;                      // the slices past the row
+    double acc[2][SKB_TN];
+#pragma unroll
+    for (int j = 0; j < SKB_TN; ++j) {
+      acc[0][j] = 0.0;
+      acc[1][j] = 0.0;
+    }
+    for (int f = 0; f < F; ++f) {
+      const double2 u = ha[f];
+      const double2 v = hb[f];
+      const double2* af = as + n0 * F + f;
+#pragma unroll
+      for (int j = 0; j < SKB_TN; ++j) {
+        if (j < nn) {
+          const double2 a = af[j * F];
+          acc[0][j] = fma(u.y, a.y, fma(u.x, a.x, acc[0][j]));
+          acc[1][j] = fma(v.y, a.y, fma(v.x, a.x, acc[1][j]));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < SKB_TN; ++j) {
+      if (j < nn) {
+        os[ia * LS + n0 + j] = static_cast<float>(acc[0][j]);
+        os[(ia + tpg) * LS + n0 + j] = static_cast<float>(acc[1][j]);
+      }
+    }
+  }
+  __syncthreads();
+
+  float* dst = d + static_cast<long long>(r0) * K;
+  for (int e = tid; e < rows * K; e += SK_THREADS) {
+    const int i = static_cast<int>(k_div.div(e));
+    dst[e] = os[i * LS + (e - i * K)];
+  }
+}
+
+// The launch geometry of stft_small_backward_kernel for F bins and K
+// samples: groups, bins a thread NB, rows a block, sample slices a thread
+// m of tn samples, and the dynamic shared memory
+struct SmallBackPlan {
+  int groups, nb, rb, m, tn;
+  size_t smem;
+};
+
+SmallBackPlan small_back_plan(int F, int K, int mode) {
+  SmallBackPlan p;
+  p.groups = F > SK_BINS ? 2 : 1;
+  p.nb = (F + p.groups - 1) / p.groups;
+  p.rb = 2 * SK_THREADS / p.groups;
+  const int per = (K + p.groups - 1) / p.groups;   // samples a thread
+  p.m = (per + SKB_TN - 1) / SKB_TN;
+  p.tn = (K + p.groups * p.m - 1) / (p.groups * p.m);
+  const int kp = (K + SK_K_STEP - 1) / SK_K_STEP * SK_K_STEP;
+  const int fw = mode == OUT_COMPLEX ? 2 * F : F;
+  const size_t hrow = static_cast<size_t>(F | 1) * sizeof(double2);
+  const size_t grow = static_cast<size_t>(fw) * sizeof(float);
+  p.smem = static_cast<size_t>(kp) * F * sizeof(double2) +
+           static_cast<size_t>(p.rb) * (hrow > grow ? hrow : grow) +
+           static_cast<size_t>(p.rb) * (K | 1) * sizeof(float) +
+           static_cast<size_t>(p.rb) * (4 + 4 + 8);
+  return p;
 }
 
 
@@ -818,6 +1125,45 @@ int stft_fft_backward_launch(const float* x, const float* g,
                                            s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The GEMM route's adjoint at F <= SK_MAX_F bins and K < 2 SK_MAX_F samples
+// (stft_small_backward_kernel), on `stream`; returns the cudaError_t (0 =
+// success), or cudaErrorInvalidValue for sizes or a mode the kernel does
+// not take, else that of raising its shared memory limit, else that of the
+// launch. x is (B, n) f32, the forward's uncentered waveform, T >= 1
+// frames of K samples hop apart; g (B * T, F) f32, or interleaved float2
+// for mode OUT_COMPLEX; a_re/a_im (K, F) f64, the folded matrices of the
+// band's F bins (mirrored when two-sided); w (F,) f64, the output's
+// weights; d (B * T, K) f32; all contiguous on the device. The caller keeps
+// B * T within the grid's limit.
+int stft_small_backward_launch(const float* x, const float* g,
+                               const double* a_re, const double* a_im,
+                               const double* w, float* d, int B, long long n,
+                               int T, int F, int K, int hop, int mode,
+                               void* stream) {
+  if (F < 1 || F > SK_MAX_F || K < 1 || K >= 2 * SK_MAX_F || B < 0 ||
+      T < 1 || hop < 1 || static_cast<long long>(T - 1) * hop + K > n ||
+      mode < OUT_PSD || mode > OUT_COMPLEX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(B) * T;
+  if (rows == 0) return 0;
+  if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int R = static_cast<int>(rows);
+  const SmallBackPlan p = small_back_plan(F, K, mode);
+  decltype(&stft_small_backward_kernel<1>) const by_nb[SK_BINS] = {
+      stft_small_backward_kernel<1>, stft_small_backward_kernel<2>,
+      stft_small_backward_kernel<3>, stft_small_backward_kernel<4>,
+      stft_small_backward_kernel<5>, stft_small_backward_kernel<6>,
+      stft_small_backward_kernel<7>, stft_small_backward_kernel<8>};
+  const auto kernel = by_nb[p.nb - 1];
+  const int err = raise_smem(kernel, p.smem, small_back_smem_set[p.nb - 1]);
+  if (err != 0) return err;
+  const unsigned blocks = static_cast<unsigned>((R + p.rb - 1) / p.rb);
+  kernel<<<blocks, SK_THREADS, p.smem, static_cast<cudaStream_t>(stream)>>>(
+      x, g, a_re, a_im, w, d, n, R, F, K, hop, mode, p.groups, p.m, p.tn,
+      make_fastdiv(T), make_fastdiv(K));
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* stft_grad_error_string(int code) {

@@ -131,11 +131,15 @@ route's Rader plans ``stft_odd_fft_backward_kernel``, or
 engine, forms the cotangent H from the output's gradient and X (the
 PSD's 2 w g X, the magnitude's w g X / |X|, 0 at |X| = 0, the complex
 STFT's w g) and takes the transform's adjoint as a c2r transform on the
-same engine, no dense matrix and no X in memory; on the GEMM route
-(``"dense"``) one launch of the route's complex epilogue
-recomputes X, then ``stft_backward_kernel`` takes the adjoint d = H A^T
-against the folded matrices. The framing's adjoint, an overlap-add in
-gather form, follows every route. A CPU tensor takes the plain
+same engine, no dense matrix and no X in memory; on the GEMM route at
+the configs of its small-K tile (``"small"``: nperseg below 32 and at most
+16 bins) one launch of ``stft_small_backward_kernel``, which recomputes X
+in registers by that tile's chains and takes the adjoint d = H A^T
+against the folded matrices in the same launch; on the rest of the GEMM
+route (``"dense"``: two-sided spectra past 16 bins, nfft past 8192) one
+launch of the route's complex epilogue recomputes X, then
+``stft_backward_kernel`` takes d = H A^T. The framing's adjoint, an
+overlap-add in gather form, follows every route. A CPU tensor takes the plain
 backward (:func:`stft_backward_reference`, the same arithmetic as
 explicit torch). The partials and the extrema carry no gradient, and
 ``log10_out`` has none (it raises with a waveform that requires grad,
@@ -198,9 +202,14 @@ OUTPUT_MODES = {"psd": 0, "magnitude": 1, "complex": 2}
 # gradient path; its recompute of X counts in ``launches``
 GRAD_KERNEL = "stft_grad"
 GRAD_MIXED_KERNEL = "stft_grad_mixed"
-grad_launches = {"stft_backward": 0, "stft_fft_backward": 0,
-                 "stft_mixed_backward": 0, "stft_odd_backward": 0,
-                 "stft_bluestein_backward": 0, "overlap_add": 0}
+grad_launches = {"stft_backward": 0, "stft_small_backward": 0,
+                 "stft_fft_backward": 0, "stft_mixed_backward": 0,
+                 "stft_odd_backward": 0, "stft_bluestein_backward": 0,
+                 "overlap_add": 0}
+# the GEMM route's small-K tile and its backward: at most SMALL_MAX_F bins
+# and nperseg below SMALL_MAX_L (SK_MAX_F and 2 SK_MAX_F in the sources)
+SMALL_MAX_F = 16
+SMALL_MAX_L = 32
 # the bytes of device tensors the operand cache keeps a device: seven
 # configs' dense (8192, 4097) float64 pairs, the largest, fit
 CONSTANTS_BUDGET = 4 * 2 ** 30
@@ -273,9 +282,10 @@ def route(cfg: SpecConfig) -> str:
 FFT_BACKWARD_ROUTES = ("fft", "mixed", "odd", "bluestein")
 
 
-def backward_route(cfg: SpecConfig) -> str:
-    """The STFT backward's kernel for a supported config, a pure function
-    of it: the forward's :func:`route` where it is ``"fft"``
+def backward_route(cfg: SpecConfig, band=None) -> str:
+    """The STFT backward's kernel for a supported config and band (None the
+    full band), a pure function of them: the forward's :func:`route` where
+    it is ``"fft"``
     (``stft_fft_backward_kernel``, the radix-2 engine), ``"mixed"``
     (``stft_mixed_fft_backward_kernel``, the mixed-radix passes; its Rader
     plans on ``stft_odd_fft_backward_kernel``'s PACKED form), ``"odd"``
@@ -283,11 +293,19 @@ def backward_route(cfg: SpecConfig) -> str:
     ``"bluestein"`` (``stft_bluestein_fft_backward_kernel``, the Bluestein
     transform on the pass engine, one block or a cluster of two), each
     recomputing X and taking the adjoint as a c2r transform on that
-    engine; ``"dense"`` (the route's complex epilogue, then
-    ``stft_backward_kernel`` against the folded matrices) for the GEMM
-    route alone."""
+    engine; on the GEMM route ``"small"`` (``stft_small_backward_kernel``,
+    X recomputed in registers and d = H A^T in one launch) where the
+    forward runs its small-K tile, the band's F <= :data:`SMALL_MAX_F`
+    bins at nperseg below :data:`SMALL_MAX_L`, else ``"dense"`` (the
+    route's complex epilogue, then ``stft_backward_kernel`` against the
+    folded matrices: two-sided spectra past 16 bins, nfft past 8192)."""
     r = route(cfg)
-    return r if r in FFT_BACKWARD_ROUTES else "dense"
+    if r in FFT_BACKWARD_ROUTES:
+        return r
+    lo, hi = check_band(cfg, band)
+    if hi - lo <= SMALL_MAX_F and cfg.nperseg < SMALL_MAX_L:
+        return "small"
+    return "dense"
 
 
 def _put(a, device, dtype: torch.dtype = torch.float64) -> torch.Tensor:
@@ -396,9 +414,11 @@ def mirrored_dft_matrices(cfg: SpecConfig) -> Tuple[np.ndarray, np.ndarray]:
 def padded_window(cfg: SpecConfig) -> np.ndarray:
     """The FFT kernels' window operand: cfg's nperseg-point window, zero
     past it to nfft points, so the kernels read a pair of window values
-    anywhere in the transform. The array is cached and shared."""
+    anywhere in the transform. The array is cached, shared and
+    read-only."""
     w = np.zeros(cfg.nfft_)
     w[:cfg.nperseg] = _window_f64(cfg)
+    w.setflags(write=False)
     return w
 
 
@@ -673,7 +693,7 @@ def frames_backward_fft_reference(g: torch.Tensor, x: torch.Tensor,
     lo, hi = check_band(cfg, band)
     K, L = cfg.nfft_, cfg.nperseg
     M = K // 2
-    w = torch.from_numpy(_window_f64(cfg)).to(x.device)
+    w = torch.tensor(_window_f64(cfg), device=x.device)
     wts = torch.from_numpy(kernel_weights(cfg, fs, out)[lo:hi]).to(x.device)
     frames = frame_signal(x.double(), L, cfg.hop_)
     X = torch.fft.rfft(_detrend_frames(frames, cfg.detrend) * w, n=K)
@@ -691,6 +711,37 @@ def frames_backward_fft_reference(g: torch.Tensor, x: torch.Tensor,
         Y[..., M].imag.zero_()
     d = K * torch.fft.irfft(Y, n=K)[..., :L] * w
     return _detrend_frames(d, cfg.detrend).to(x.dtype)
+
+
+def frames_backward_small_reference(g: torch.Tensor, x: torch.Tensor,
+                                    cfg: SpecConfig, fs: float, band=None,
+                                    out: Optional[str] = None
+                                    ) -> torch.Tensor:
+    """The plain version of ``stft_small_backward_kernel``: the frames'
+    gradient (B, T, L) from the gradient g (B, T, F) of the output ``out``
+    (cfg.mode when None) of the band's F bins and the (uncentered) waveform
+    x (B, n), in torch float64, rounded once to x's dtype, in the kernel's
+    order: X of each frame from the folded matrices (:func:`dft_constants`:
+    window, detrend projection and band in its columns), summed over the
+    samples ascending, re and im apart, and kept in float64; the cotangent
+    H (:func:`_cotangent_reference`); d summed over the bins ascending,
+    H_re A_re before H_im A_im. The kernel fuses each product into its sum
+    (FMA), which this version rounds apart."""
+    out = out or cfg.mode
+    consts = dft_constants(cfg, fs, x.device, band, out)
+    frames = frame_signal(x.double(), cfg.nperseg, cfg.hop_)
+    F = consts.a_re.shape[1]
+    xr = frames.new_zeros(frames.shape[:-1] + (F,))
+    xi = torch.zeros_like(xr)
+    for k in range(cfg.nperseg):
+        xr = xr + frames[..., k, None] * consts.a_re[k]
+        xi = xi + frames[..., k, None] * consts.a_im[k]
+    hr, hi = _cotangent_reference(g, torch.complex(xr, xi), consts.wts, out)
+    d = torch.zeros_like(frames)
+    for f in range(F):
+        d = d + hr[..., f, None] * consts.a_re[:, f]
+        d = d + hi[..., f, None] * consts.a_im[:, f]
+    return d.to(x.dtype)
 
 
 def stft_backward_reference(x: torch.Tensor, g: torch.Tensor,
@@ -876,6 +927,9 @@ def _grad_library() -> ctypes.CDLL:
     lib.stft_fft_backward_launch.argtypes = [ptr] * 6 + [
         i32, i64] + [i32] * 9 + [ptr]
     lib.stft_fft_backward_launch.restype = i32
+    lib.stft_small_backward_launch.argtypes = [ptr] * 6 + [
+        i32, i64] + [i32] * 5 + [ptr]
+    lib.stft_small_backward_launch.restype = i32
     lib.stft_grad_error_string.argtypes = [i32]
     lib.stft_grad_error_string.restype = ctypes.c_char_p
     _GRAD_LIB.append(lib)
@@ -979,22 +1033,23 @@ def stft_backward(x: torch.Tensor, g: torch.Tensor, op: GradOp,
     """The gradient of the (uncentered) waveform x (B, n) from the
     gradient g of the output ``op`` describes. For a CUDA tensor, by
     :func:`backward_route` (``_backward`` forces "dense" on any config, for
-    cross-checks and timing; a forced FFT adjoint the config does not
-    allow raises): "fft", "mixed", "odd" or "bluestein", one launch of the
+    cross-checks and timing; a forced adjoint the config does not allow
+    raises): "fft", "mixed", "odd" or "bluestein", one launch of the
     route's FFT adjoint (:func:`frames_backward_fft`,
     :func:`frames_backward_mixed`, :func:`frames_backward_odd`,
-    :func:`frames_backward_bluestein`), X recomputed inside it; "dense"
-    (the GEMM route), one launch of the route's complex epilogue (X
-    unscaled), then
-    :func:`frames_backward` against the folded matrices; then
-    :func:`overlap_add`. For a CPU tensor the plain version
+    :func:`frames_backward_bluestein`), X recomputed inside it; "small"
+    (the GEMM route's small-K configs), one launch of
+    :func:`frames_backward_small`, X recomputed inside it; "dense" (the
+    rest of the GEMM route), one launch of the route's complex epilogue (X
+    unscaled), then :func:`frames_backward` against the folded matrices;
+    then :func:`overlap_add`. For a CPU tensor the plain version
     (:func:`stft_backward_reference`)."""
     cfg = op.cfg
     if x.device.type == "cpu":
         consts = dft_constants(cfg, op.fs, x.device, op.band, op.out)
         return stft_backward_reference(x, g, consts, cfg, op.out)
-    kind = _backward or backward_route(cfg)
-    if kind not in ("dense", backward_route(cfg)):
+    kind = _backward or backward_route(cfg, op.band)
+    if kind not in ("dense", backward_route(cfg, op.band)):
         raise ValueError(f"no {kind!r} backward for nperseg {cfg.nperseg}, "
                          f"nfft {cfg.nfft_}")
     lo, hi = check_band(cfg, op.band)
@@ -1010,6 +1065,8 @@ def stft_backward(x: torch.Tensor, g: torch.Tensor, op: GradOp,
                   "odd": frames_backward_odd,
                   "bluestein": frames_backward_bluestein}[kind]
         d = frames(g, x, cfg, op.fs, op.band, op.out)
+    elif kind == "small":
+        d = frames_backward_small(g, x, cfg, op.fs, op.band, op.out)
     else:
         X = _stft_psd_cuda(x, op.fs, cfg, False, False, op.kernel,
                            band=op.band, out_mode="stft")
@@ -1189,6 +1246,56 @@ def frames_backward_bluestein(g: torch.Tensor, x: torch.Tensor,
     version for CPU tensors. A config off the Bluestein route raises."""
     return _frames_backward_engine(g, x, cfg, fs, band, out or cfg.mode,
                                    "bluestein")
+
+
+def frames_backward_small(g: torch.Tensor, x: torch.Tensor, cfg: SpecConfig,
+                          fs: float, band=None,
+                          out: Optional[str] = None) -> torch.Tensor:
+    """The frames' gradient (B, T, L) on the GEMM route's small-K configs
+    (:func:`backward_route` "small") from the output's gradient g (B, T, F)
+    (the band's bins; complex64 for a complex output, else float32) and the
+    forward's uncentered float32 waveform x (B, n): one launch of
+    ``stft_small_backward_kernel`` for CUDA tensors, X recomputed in
+    registers from the folded matrices (:func:`dft_constants`), no X in
+    memory; the plain version (:func:`frames_backward_small_reference`)
+    for CPU tensors. A config or band off those configs raises."""
+    out = out or cfg.mode
+    if x.device.type == "cpu":
+        return frames_backward_small_reference(g, x, cfg, fs, band, out)
+    if backward_route(cfg, band) != "small":
+        raise ValueError(f"nperseg {cfg.nperseg}, nfft {cfg.nfft_} with "
+                         f"band {band} is not on the GEMM route's small-K "
+                         "backward")
+    lo, hi = check_band(cfg, band)
+    B, n = x.shape
+    T = num_frames(n, cfg.nperseg, cfg.hop_)
+    want = torch.complex64 if out in ("complex", "stft") else torch.float32
+    if (x.dtype != torch.float32 or g.dtype != want
+            or tuple(g.shape) != (B, T, hi - lo)):
+        raise ValueError(f"the small-K backward takes a float32 (B, n) "
+                         f"waveform and a {want} ({B}, {T}, {hi - lo}) "
+                         f"gradient, got x {x.dtype}, g {g.dtype} "
+                         f"{tuple(g.shape)}")
+    if B * T > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} frames per launch, got "
+                         f"{B} clips x {T} frames")
+    d = torch.empty((B, T, cfg.nperseg), dtype=torch.float32, device=x.device)
+    if T <= 0:
+        return d
+    lib = _grad_library()
+    consts = dft_constants(cfg, fs, x.device, band, out)
+    g = g.resolve_conj().contiguous()
+    x = x.contiguous()
+    with torch.cuda.device(x.device):
+        err = lib.stft_small_backward_launch(
+            x.data_ptr(), g.data_ptr(), consts.a_re.data_ptr(),
+            consts.a_im.data_ptr(), consts.wts.data_ptr(), d.data_ptr(), B,
+            n, T, hi - lo, cfg.nperseg, cfg.hop_, _out_mode(out), _stream(x))
+    if err != 0:
+        raise RuntimeError("stft_small_backward kernel launch failed: "
+                           + lib.stft_grad_error_string(err).decode())
+    grad_launches["stft_small_backward"] += 1
+    return d
 
 
 def overlap_add(d: torch.Tensor, n: int, hop: int) -> torch.Tensor:

@@ -132,13 +132,60 @@ def plain_out(x, cfg, out="psd"):
         xt, consts, dataclasses.replace(cfg, mode=out)).numpy()
 
 
+def _same(a, b):
+    """a and b equal bitwise: arrays and tensors by value and dtype,
+    tuples element by element, anything else by ==."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a, b))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b))
+    if isinstance(a, tuple):
+        return (isinstance(b, tuple) and len(a) == len(b)
+                and all(_same(u, v) for u, v in zip(a, b)))
+    return a == b
+
+
+def check_cached_operands(cfg, fs=FS):
+    """The cached operands that the numpy models and the plain version read
+    at cfg in each output mode (the window, the twiddle table or plan of
+    nfft, the folded matrices, the plain version's operands) equal fresh
+    builds of them bitwise, so that a test before this one in the process
+    that changed one in place fails here, naming it, and not as a model
+    that drifted from the plain version."""
+    K = cfg.nfft_
+    plan = {"fft": tstft.fft_twiddles,
+            "bluestein": tstft.bluestein_plan}.get(stft_cuda.route(cfg),
+                                                   tstft.fft_plan)
+    assert _same(plan(K), plan.__wrapped__(K)), (
+        f"the cached {plan.__name__}({K}) was changed")
+    for out in ("psd", "magnitude", "complex"):
+        c = dataclasses.replace(cfg, mode=out)
+        for cached in (tstft._window_f64, tstft.dft_matrices):
+            assert _same(cached(c), cached.__wrapped__(c)), (
+                f"the cached {cached.__name__} at {c} was changed")
+        # the window and matrices checked, the plain version's operands
+        # are built from them afresh
+        key = ("dense", "cpu", c, float(fs), 0, c.n_freqs, out)
+        held = stft_cuda._CONSTANTS.get(key)
+        if held is not None:
+            fresh = stft_cuda.constants_from_numpy(
+                *stft_cuda.mirrored_dft_matrices(c),
+                stft_cuda.kernel_weights(c, fs, out), "cpu", torch.float64)
+            assert _same(tuple(held), tuple(fresh)), (
+                f"the cached plain-version operands at {c} were changed")
+
+
 def check_model_modes(cfg, seed=0):
     """The route's numpy model at cfg (nfft may pass nperseg) against the
     plain version in PSD, magnitude and complex modes, within MODEL_TOL of
     each clip's largest |value|, on noise + 3 (under linear detrend ramp
     clips); two-sided, the complex spectrum's bins past nfft/2 the
     conjugates of their mirrors bitwise, in the model and the plain
-    version alike."""
+    version alike. First the cached operands the two read are held
+    bitwise to fresh builds (:func:`check_cached_operands`)."""
+    check_cached_operands(cfg)
     x = _noise(seed, (2, 8 * cfg.nperseg), 3.0)
     if cfg.detrend == "linear":
         x = (x + tp.trend(x.shape[-1])).astype(np.float32)

@@ -12,14 +12,16 @@ in float64). Here, on seeded numpy inputs:
   transforms, every detrend, one- and two-sided spectra, a band, every
   output mode and a frame of equal samples (|X| = 0 in magnitude mode);
 - ``backward_route`` on a grid of configs (the radix-2, mixed, odd and
-  Bluestein routes' own FFT adjoints, B1 on the GEMM route);
+  Bluestein routes' own FFT adjoints; on the GEMM route B1-small at its
+  small-K configs, B1 past them, tests/test_torch_grad_small.py);
 - the whole backward chain through the plain FFT adjoint (the framing's
   adjoint and the centered pad's after it) against ``jax.grad`` of the JAX
   package's ``power_spectrogram`` and ``stft``, at tests/test_torch_grad.py's
   tolerance;
 - the wrapper's dispatch off the CPU (meta tensors): the radix-2 route
   launches the new kernel alone, with no recompute of X and no dense
-  operands, the GEMM route and a forced "dense" the dense kernel
+  operands, the GEMM route past its small-K configs and a forced "dense"
+  the dense kernel
   (tests/test_torch_grad_mixed.py does the mixed, odd and Bluestein
   routes);
 - the engine that stft_grad.cu copies from stft_psd.cu, and that
@@ -185,7 +187,10 @@ def test_fft_adjoint_rounds_once_to_the_waveforms_dtype():
 ROUTE_GRID = [
     (SpecConfig.scipy_default(k), "fft") for k in (32, 64, 256, 1024, 8192)
 ] + [
-    (SpecConfig.scipy_default(k), "dense") for k in (24, 31)
+    (SpecConfig.scipy_default(k), "small") for k in (24, 31)
+] + [
+    (dataclasses.replace(SpecConfig.scipy_default(24), onesided=False),
+     "dense"),
 ] + [
     (SpecConfig.scipy_default(k), "bluestein") for k in (2049, 8185)
 ] + [
@@ -213,12 +218,14 @@ ROUTE_GRID = [
 def test_backward_route(cfg, want):
     """The radix-2, mixed, odd and Bluestein routes' FFT adjoints exactly
     where the forward's route is that kernel's, by nfft, whatever the
-    detrend, mode, sides or centering; the dense kernel on the GEMM route
-    alone."""
+    detrend, mode, sides or centering; on the GEMM route the small-K
+    backward where the forward runs its small-K tile (at most 16 bins at
+    nperseg below 32) and the dense kernel past it."""
     assert stft_cuda.backward_route(cfg) == want
     r = stft_cuda.route(cfg)
+    small = cfg.n_freqs <= 16 and cfg.nperseg < 32
     assert want == (r if r in ("fft", "mixed", "odd", "bluestein")
-                    else "dense")
+                    else "small" if small else "dense")
 
 
 def test_backward_route_refuses_what_the_kernels_refuse():
@@ -396,16 +403,18 @@ def test_radix2_backward_launches_the_fft_kernel_alone(monkeypatch, cfg, out,
     assert dx.shape == x.shape and dx.device.type == "meta"
     assert lib.calls == ["stft_fft_backward_launch", "overlap_add_launch"]
     moved = {k: stft_cuda.grad_launches[k] - before[k] for k in before}
-    assert moved == {"stft_backward": 0, "stft_fft_backward": 1,
-                     "stft_mixed_backward": 0, "stft_odd_backward": 0,
-                     "stft_bluestein_backward": 0, "overlap_add": 1}
+    assert moved == {"stft_backward": 0, "stft_small_backward": 0,
+                     "stft_fft_backward": 1, "stft_mixed_backward": 0,
+                     "stft_odd_backward": 0, "stft_bluestein_backward": 0,
+                     "overlap_add": 1}
 
 
 def test_dense_backward_on_the_other_routes_and_when_forced(monkeypatch):
-    """The GEMM route's backward recomputes X and launches
-    stft_backward_launch; forced "dense" does so on a radix-2 config; a
-    forced "fft" off the radix-2 route raises, and so does the radix-2
-    wrapper on such a config."""
+    """The GEMM route's backward past its small-K configs (a two-sided
+    spectrum of 24 bins) recomputes X and launches stft_backward_launch;
+    forced "dense" does so on a radix-2 config; a forced "fft" off the
+    radix-2 route raises, and so does the radix-2 wrapper on such a
+    config."""
     lib = _meta_setup(monkeypatch)
 
     def meta_x(x, fs, cfg, *args, band=None, out_mode=None, **kwargs):
@@ -415,7 +424,8 @@ def test_dense_backward_on_the_other_routes_and_when_forced(monkeypatch):
                            dtype=torch.complex64)
 
     monkeypatch.setattr(stft_cuda, "_stft_psd_cuda", meta_x)
-    for cfg, forced in ((SpecConfig.scipy_default(24), None),
+    for cfg, forced in ((dataclasses.replace(SpecConfig.scipy_default(24),
+                                             onesided=False), None),
                         (NS, "dense")):
         lib.calls.clear()
         n = 4 * cfg.nperseg + 5

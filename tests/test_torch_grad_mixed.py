@@ -713,7 +713,8 @@ def test_backward_launches_the_routes_fft_adjoint_alone(monkeypatch, kind,
                      stft_cuda.DETREND_CODES[cfg.detrend],
                      stft_cuda._out_mode(o), int(not cfg.onesided))
     moved = {k: stft_cuda.grad_launches[k] - before[k] for k in before}
-    assert moved == {"stft_backward": 0, "stft_fft_backward": 0,
+    assert moved == {"stft_backward": 0, "stft_small_backward": 0,
+                     "stft_fft_backward": 0,
                      "stft_mixed_backward": int(kind == "mixed"),
                      "stft_odd_backward": int(kind == "odd"),
                      "stft_bluestein_backward": int(kind == "bluestein"),

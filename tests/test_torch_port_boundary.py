@@ -320,7 +320,8 @@ def test_stft_grad_kernel_failure_propagates(monkeypatch):
     with pytest.raises(RuntimeError, match="cannot build stft_grad"):
         torch.view_as_real(z).sum().backward()
     # a launch that fails raises, naming the kernel: the radix-2 route's
-    # adjoint, and stft_backward_kernel on the other routes
+    # adjoint, the GEMM route's small-K adjoint, and stft_backward_kernel
+    # past the small-K configs
     monkeypatch.setattr(stft_cuda, "_grad_library", lambda: _FailingLib())
     _no_card(monkeypatch)
     p = stft_cuda.stft_psd_partials(x, FS, NS_256)[0]
@@ -328,6 +329,11 @@ def test_stft_grad_kernel_failure_propagates(monkeypatch):
                                            "failed: invalid argument"):
         p.sum().backward()
     p = stft_cuda.stft_psd(x, FS, SpecConfig.scipy_default(24))
+    with pytest.raises(RuntimeError, match="stft_small_backward kernel "
+                                           "launch failed: invalid argument"):
+        p.sum().backward()
+    p = stft_cuda.stft_psd(x, FS, dataclasses.replace(
+        SpecConfig.scipy_default(24), onesided=False))
     with pytest.raises(RuntimeError, match="stft_backward kernel launch "
                                            "failed: invalid argument"):
         p.sum().backward()

@@ -18,7 +18,11 @@ radix-2 route's backward, ``stft_fft_backward_launch`` in
 and ``stft_odd_fft_backward_launch`` in ``csrc/stft_grad_mixed.cu``, a
 source of their own, the same way) or ``grad_bluestein`` (the Bluestein
 route's backward, ``stft_bluestein_fft_backward_launch`` in the same
-source) or ``hmm`` (the HMM kernels of ``csrc/hmm.cu``: H1,
+source) or ``grad_small`` (the GEMM route's backward at its small-K
+configs, ``stft_small_backward_launch`` in ``csrc/stft_grad.cu``, at path
+10's shapes first) or ``h2`` (H2 chunked, ``hmm_viterbi_chunked_launch``
+in ``csrc/hmm.cu``, at path 15's shapes, split by kernel; see
+:func:`h2_main`) or ``hmm`` (the HMM kernels of ``csrc/hmm.cu``: H1,
 ``hmm_fit_launch``, at path 14's shapes; H3's EM loop,
 ``hmm_fit_chunked_launch`` through ``ops/hmm_cuda.py::fit_chunked``'s
 host loop, at each ``EM_GROUP`` of ``HMM_EM_GROUPS`` too, and one E-step,
@@ -507,6 +511,169 @@ HMM_VARIANTS = {
         [("constexpr int CHUNK_MIN_BLOCKS = 4;",
           "constexpr int CHUNK_MIN_BLOCKS = 5;")]),
 }
+# H2 chunked (csrc/hmm.cu's hmm_viterbi_chunked_launch): the parent's scan
+# and compose, as they stood before their chains left global memory, for
+# the turns; the "h2" set swaps them in for the definitions the source
+# holds now (the text from its comment line to the blank line after it)
+H2_PARENT_SCAN = (
+    '// Viterbi scan: one warp a sequence over the chunks in order. din (B, n,\n'
+    "// K) receives each chunk's incoming delta normalized to max 0; send (B,)\n"
+    '// the end state at frame T - 1.\n'
+    'template <int KM>\n'
+    '__global__ void __launch_bounds__(32)\n'
+    'vit_scan_kernel(int n, int K, const double* __restrict__ F,\n'
+    '                double* __restrict__ din, int* __restrict__ send) {\n'
+    '  const long long b = blockIdx.x;\n'
+    '  const int lane = threadIdx.x;\n'
+    '  const int jj = lane < K ? lane : K - 1;\n'
+    '  const double* Fb = F + b * n * K * K;\n'
+    '  double v = Fb[jj];\n'
+    '  for (int c = 1; c < n; ++c) {\n'
+    '    const double M = lane_max<KM>(v, K);\n'
+    '    const double vin = v - M;\n'
+    '    if (lane < K) din[(b * n + c) * K + jj] = vin;\n'
+    '    const double* Fc = Fb + static_cast<long long>(c) * K * K;\n'
+    '    double best = __dadd_rn(__shfl_sync(FULL, vin, 0), Fc[jj]);\n'
+    '#pragma unroll\n'
+    '    for (int i = 1; i < KM; ++i) {\n'
+    '      const double sc = __dadd_rn(__shfl_sync(FULL, vin, i),\n'
+    '                                  Fc[(i < K ? i : 0) * K + jj]);\n'
+    '      if (i < K && sc > best) best = sc;\n'
+    '    }\n'
+    '    v = best;\n'
+    '  }\n'
+    '  double best = __shfl_sync(FULL, v, 0);\n'
+    '  int end = 0;\n'
+    '#pragma unroll\n'
+    '  for (int j = 1; j < KM; ++j) {\n'
+    '    const double vj = __shfl_sync(FULL, v, j);\n'
+    '    if (j < K && vj > best) {\n'
+    '      best = vj;\n'
+    '      end = j;\n'
+    '    }\n'
+    '  }\n'
+    '  if (lane == 0) send[b] = end;\n'
+    '}\n'
+    '\n')
+H2_PARENT_COMPOSE = (
+    "// Compose the chunks' maps backwards from the end state: ends (B, n), the\n"
+    "// state at each chunk's last frame.\n"
+    '__global__ void vit_compose_kernel(int B, int n, int K,\n'
+    '                                   const int* __restrict__ send,\n'
+    '                                   const int* __restrict__ map,\n'
+    '                                   int* __restrict__ ends) {\n'
+    '  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x +\n'
+    '                      threadIdx.x;\n'
+    '  if (b >= B) return;\n'
+    '  int s = send[b];\n'
+    '  for (int c = n - 1; c >= 1; --c) {\n'
+    '    ends[b * n + c] = s;\n'
+    '    s = map[(b * n + c) * K + s];\n'
+    '  }\n'
+    '  ends[b * n] = s;\n'
+    '}\n'
+    '\n')
+H2_PARENT_LAUNCH = (
+    '  vit_compose_kernel<<<static_cast<unsigned>((B + 127) / 128), 128, 0, st>>>(\n'
+    '      static_cast<int>(B), n, K, send, map, ends);')
+H2_LAUNCH = (
+    "  vit_compose_kernel<KM><<<static_cast<unsigned>(B), COMPOSE_THREADS, 0,\n"
+    "                           st>>>(n, K, send, map, ends);")
+H2_SCAN_LAUNCH = (
+    "  const auto scan = K == KM ? vit_scan_kernel<KM, KM> : "
+    "vit_scan_kernel<KM, 0>;\n"
+    "  scan<<<static_cast<unsigned>(B), 32, 0, st>>>(n, K, F, din, send);")
+H2_PARENT_SCAN_LAUNCH = (
+    "  vit_scan_kernel<KM><<<static_cast<unsigned>(B), 32, 0, st>>>(n, K, F, "
+    "din,\n"
+    "                                                              send);")
+
+
+def _section(src, start, end):
+    """The text of src from the line that starts with ``start`` up to the
+    line that starts with ``end``."""
+    i = src.index(start)
+    return src[i:src.index(end, i)]
+
+
+def _h2_parent_edits():
+    with open(os.path.join(CSRC, "hmm.cu")) as fh:
+        src = fh.read()
+    scan = _section(src, "// Viterbi scan: one warp a sequence",
+                    "// Viterbi decode: a warp per (chunk, sequence)")
+    compose = _section(src, "// Compose the chunks' maps backwards",
+                       "// Each chunk walks its own backpointers")
+    return [(scan, H2_PARENT_SCAN), (compose, H2_PARENT_COMPOSE),
+            (H2_LAUNCH, H2_PARENT_LAUNCH),
+            (H2_SCAN_LAUNCH, H2_PARENT_SCAN_LAUNCH)]
+
+
+H2_VARIANTS = {
+    "parent": (
+        "the parent's scan (a state a lane, K shuffles and a lane_max a "
+        "step, the transfers read from global memory on the chain) and "
+        "compose (one thread a sequence, a dependent global load a chunk)",
+        _h2_parent_edits()),
+    "scan_any_k": (
+        "the scan's step with K at run time at every K (its index "
+        "arithmetic and guards on the chain), not K = KM at compile time",
+        [("const auto scan = K == KM ? vit_scan_kernel<KM, KM> : "
+          "vit_scan_kernel<KM, 0>;",
+          "const auto scan = vit_scan_kernel<KM, 0>;")]),
+    "scan_global": (
+        "the scan's transfers read from global memory on the chain (its "
+        "step all K values a lane, as now; no tile fetched)",
+        [("    return tiles[(c / SCAN_TILE) & 1] + (c % SCAN_TILE) * KK;",
+          "    return Fb + static_cast<long long>(c) * KK;"),
+         ("    if (t < ntiles) {\n      const long long c0 = "
+          "static_cast<long long>(t) * SCAN_TILE;",
+          "    if (false) {\n      const long long c0 = "
+          "static_cast<long long>(t) * SCAN_TILE;")]),
+    "compose_global": (
+        "the compose walks the maps in global memory (a block a sequence, "
+        "no tile staged)",
+        [("      const int* m = tiles[t & 1];",
+          "      const int* m = mb + c0 * K;"),
+         ("    if (t >= 0) {\n      const long long c0 = "
+          "static_cast<long long>(t) * COMPOSE_TILE;",
+          "    if (false) {\n      const long long c0 = "
+          "static_cast<long long>(t) * COMPOSE_TILE;")]),
+}
+
+# B1-small (csrc/stft_grad.cu's stft_small_backward_launch), at path 10's
+# shapes first
+GRAD_SMALL_VARIANTS = {
+    "one_block": (
+        "one block an SM (255 registers), not two",
+        [("constexpr int SKB_MIN_BLOCKS = 2;",
+          "constexpr int SKB_MIN_BLOCKS = 1;")]),
+    "nb8": (
+        "compiled for 8 bins a thread at every F (the bins a thread does "
+        "not hold predicated off), not instantiated by them",
+        [("  const auto kernel = by_nb[p.nb - 1];\n"
+          "  const int err = raise_smem(kernel, p.smem, "
+          "small_back_smem_set[p.nb - 1]);",
+          "  const auto kernel = by_nb[SK_BINS - 1];\n"
+          "  const int err = raise_smem(kernel, p.smem, "
+          "small_back_smem_set[SK_BINS - 1]);")]),
+    "tn12": (
+        "12 samples of a row a thread at once (fewer slices), not 8",
+        [("constexpr int SKB_TN = 8;", "constexpr int SKB_TN = 12;")]),
+    "tn16": (
+        "16 samples of a row a thread at once, not 8",
+        [("constexpr int SKB_TN = 8;", "constexpr int SKB_TN = 16;")]),
+    "no_x": (
+        "ablation: no X recompute (the staging kept; H from zeros)",
+        [("  for (int k0 = 0; k0 < KP; k0 += SK_K_STEP) {",
+          "  for (int k0 = 0; k0 < 0; k0 += SK_K_STEP) {")]),
+    "no_d": (
+        "ablation: no d product (the staging, X and H kept; d stores "
+        "zeros)",
+        [("    for (int f = 0; f < F; ++f) {\n      const double2 u = ha[f];",
+          "    for (int f = 0; f < 0; ++f) {\n      const double2 u = ha[f];")
+         ]),
+}
+
 HMM_EM_GROUPS = (1, 4, 8, 16)      # hmm_cuda.EM_GROUP, timed in turns too
 HMM_REPS = 3
 
@@ -757,6 +924,24 @@ def _grad_bluestein_launch(stft_cuda, cfg, dev, a):
     return launch
 
 
+def _grad_small_launch(stft_cuda, cfg, dev, a):
+    """stft_small_backward_launch on a seeded gradient of the PSD; the
+    frames' gradient d is the output compared."""
+    import torch
+    c = stft_cuda.dft_constants(cfg, FS, dev)
+    B, n, T, F, K, L, hop = a.shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g = torch.rand((B, T, F), generator=gen, device=dev)
+    d = torch.empty((B, T, L), device=dev)
+
+    def launch(lib):
+        return lib.stft_small_backward_launch(
+            a.x, g.data_ptr(), c.a_re.data_ptr(), c.a_im.data_ptr(),
+            c.wts.data_ptr(), d.data_ptr(), B, n, T, F, L, hop, 0, a.stream)
+    launch.output = d
+    return launch
+
+
 def _small_launch(stft_cuda, cfg, dev, a):
     c = stft_cuda.dft_constants(cfg, FS, dev)
     return lambda lib: lib.stft_psd_launch(
@@ -843,8 +1028,16 @@ KERNELS = {
          ("path 9 scipy_default 8182", 8182, None)),
         (563, 1126, 2049, 2999, 6994), _grad_bluestein_launch,
         GRAD_BLUESTEIN_VARIANTS, "stft_grad_mixed"),
+    "grad_small": Kernel(
+        ("gemm",),
+        (r"stft_small_backward_kernelILi(\d)E",
+         lambda e: f"small_backward<NB {e.group(1)}>"),
+        (), (24, 2, 7, 13, 31), _grad_small_launch, GRAD_SMALL_VARIANTS,
+        "stft_grad"),
     "hmm": Kernel((), chip_smoke.HMM_PTXAS, (), (), None, HMM_VARIANTS,
                   "hmm"),
+    "h2": Kernel((), chip_smoke.HMM_PTXAS, (), (), None, H2_VARIANTS,
+                 "hmm"),
     "display_grad": Kernel(
         (), (r"display_grad_(kernelILb(\d)E|prep_kernel)",
              lambda e: f"grad<LOG {e.group(2)}>" if e.group(2) else "prep"),
@@ -979,6 +1172,105 @@ def hmm_main(args, kern, names, libs, regs, card):
                       [round(t, 3) for t in v["ms"]]
                       for k, v in row.items()}, flush=True)
     print(json.dumps(report))
+
+def _h2_buffers(lib, X, params, L):
+    """hmm_viterbi_chunked_launch of ``lib`` on (X, params), chunks of L
+    frames, with the buffers ops/hmm_cuda.py::viterbi_chunked allocates:
+    the states (B, T) and the kernels' own din (B, n, K), the chunks'
+    incoming deltas, send (B,), the end states, and ends (B, n), the state
+    at each chunk's last frame."""
+    import math
+    import torch
+    from spectral_tpu_torch.ops import hmm_cuda
+    B, T, D, K = hmm_cuda._check(X, params, L)
+    n = math.ceil(T / L)
+    dev = X.device
+    states = torch.empty((B, T), dtype=torch.int32, device=dev)
+    F = torch.empty((B, n, K, K), dtype=torch.float64, device=dev)
+    din = torch.empty((B, n, K), dtype=torch.float64, device=dev)
+    psi = torch.empty((B, T, K), dtype=torch.uint8, device=dev)
+    maps = torch.empty((B, n, K), dtype=torch.int32, device=dev)
+    send = torch.empty(B, dtype=torch.int32, device=dev)
+    ends = torch.empty((B, n), dtype=torch.int32, device=dev)
+    err = lib.hmm_viterbi_chunked_launch(
+        X.data_ptr(), B, T, D, K, int(L), *[q.data_ptr() for q in params],
+        states.data_ptr(), F.data_ptr(), din.data_ptr(), psi.data_ptr(),
+        maps.data_ptr(), send.data_ptr(), ends.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise SystemExit(f"h2: hmm_viterbi_chunked_launch returned {err}")
+    return states, din, send, ends
+
+
+# the h2 set's other sequences (T, K), beside path 15's: the hmm phase's
+# lengths of chip_smoke.py, and KM 2 and 8 (K 2 and 6)
+H2_CASES = ((1, 4), (2, 4), (3, 4), (600, 4), (2047, 4), (2048, 4),
+            (65536, 4), (3000, 2), (3000, 6))
+
+
+def h2_main(args, kern, names, libs, regs, card):
+    """The h2 set: H2 chunked (hmm_viterbi_chunked_launch) at path 15's
+    shapes (one sequence of 524,288 seeded frames, chunks of 256, the
+    k-means start of its first 65,536), each build in turn, two rounds,
+    CUDA events, median of REPS; each build's five kernels' device ms
+    (torch.profiler, H2_STAGES); the states and the kernels' own din,
+    send and ends held to this build's bitwise there and on H2_CASES
+    (seeded features, each model the k-means start of its sequence)."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch.models import hmm
+    from spectral_tpu_torch.ops import hmm_cuda
+    dev = torch.device("cuda", 0)
+    ref = hmm_cuda._library()
+    for lib in libs.values():
+        entry = "hmm_viterbi_chunked_launch"
+        getattr(lib, entry).argtypes = getattr(ref, entry).argtypes
+        getattr(lib, entry).restype = getattr(ref, entry).restype
+
+    def inputs(seed, T, K, fit=65536):
+        f = chip_smoke.hmm_features(np.random.RandomState(seed),
+                                    max(T, 4096))
+        p = tuple(chip_smoke.stack_params([hmm.init_params(
+            f[:min(len(f), fit)], K, device=dev)]))
+        return (torch.tensor(f[None, :T], device=dev), p,
+                hmm_cuda.chunk_len(K))
+
+    def bits(ts):
+        # din's chunk 0 is never written, by any build
+        states, din, send, ends = ts
+        return [states, din[:, 1:].contiguous().view(torch.int64), send,
+                ends]
+
+    cases = [inputs(100 + i, T, K) for i, (T, K) in enumerate(H2_CASES)]
+    X, p, L = inputs(15, 524288, 4)
+    run = lambda lib: _h2_buffers(lib, X, p, L)  # noqa: E731
+    want = bits(run(libs["this"]))
+    want_cases = [bits(_h2_buffers(libs["this"], *case)) for case in cases]
+    row = {}
+    for rnd in range(2):
+        for name in (names if rnd == 0 else names[::-1]):
+            got = bits(run(libs[name]))
+            entry = row.setdefault(name, {"ms": []})
+            entry["same_output"] = all(torch.equal(a, b)
+                                       for a, b in zip(got, want))
+            entry["ms"].append(_timed(lambda: run(libs[name])))
+            if rnd == 0:
+                entry["same_cases"] = [
+                    all(torch.equal(a, b) for a, b in zip(
+                        bits(_h2_buffers(libs[name], *case)), w))
+                    for case, w in zip(cases, want_cases)]
+                split = chip_smoke.kernel_split(
+                    lambda: [run(libs[name]) for _ in range(REPS)],
+                    chip_smoke.H2_STAGES)
+                entry["split_ms"] = None if split is None else {
+                    k: v / REPS for k, v in split["stage_ms"].items()}
+        print("round", rnd, {k: [round(t, 4) for t in v["ms"]]
+                             for k, v in row.items()}, flush=True)
+    print(json.dumps({"kernel": "h2", "card": card, "ptxas": regs,
+                      "cases (T, K)": H2_CASES,
+                      "configs": {"path 15 (524288 frames, chunks of 256)":
+                                  row}}))
+
 
 def sass_counts(so, pattern):
     """{function: {opcode: count}} of the functions matching ``pattern`` in
@@ -1252,6 +1544,7 @@ def load(so):
     out = [ptr] * 3 + [i32, i64]
     for entry, args in (
             ("stft_fft_backward_launch", [ptr] * 6 + [i32, i64] + [i32] * 9),
+            ("stft_small_backward_launch", [ptr] * 6 + [i32, i64] + [i32] * 5),
             ("stft_mixed_fft_backward_launch",
              [ptr] * 6 + [i32] * 3 + [ptr] * 2 + [i32, i64] + [i32] * 9),
             ("stft_odd_fft_backward_launch",
@@ -1272,6 +1565,31 @@ def load(so):
         fn.argtypes = args + [ptr]
         fn.restype = i32
     return lib
+
+
+def build_variant(kernel, name):
+    """Build variant ``name`` of KERNELS[kernel] with the port's nvcc flags
+    into OUT_DIR/kernel/name, waiting for nvcc; returns the library's path
+    and nvcc's log. Raises SystemExit when the edit or the build fails."""
+    from spectral_tpu_torch.ops import build as port_build
+    nvcc = port_build.find_nvcc()
+    if nvcc is None:
+        raise SystemExit("torch_kernel_variants: nvcc not found")
+    kern = KERNELS[kernel]
+    with open(os.path.join(CSRC, f"{kern.source}.cu")) as fh:
+        src = variant_source(fh.read(), kern.variants[name][1], name)
+    folder = os.path.join(OUT_DIR, kernel, name)
+    os.makedirs(folder, exist_ok=True)
+    cu = os.path.join(folder, f"{kern.source}.cu")
+    with open(cu, "w") as fh:
+        fh.write(src)
+    so = os.path.join(folder, f"lib{kern.source}.so")
+    done = subprocess.run([nvcc, *port_build.NVCC_FLAGS, "-o", so, cu],
+                          capture_output=True, text=True)
+    if done.returncode:
+        raise SystemExit(f"{kernel} {name}: nvcc failed\n{done.stdout}"
+                         f"{done.stderr}")
+    return so, done.stdout + done.stderr
 
 
 def main(argv=None) -> None:
@@ -1329,6 +1647,9 @@ def main(argv=None) -> None:
         regs[name] = chip_smoke.radix2_ptxas(log, *kern.ptxas)
     print(f"built {len(names)} variants in {time.perf_counter() - t0:.1f} "
           f"s; ptxas {regs}", flush=True)
+    if args.kernel == "h2":
+        h2_main(args, kern, names, libs, regs, card)
+        return
     if kern.source == "hmm":
         hmm_main(args, kern, names, libs, regs, card)
         return

@@ -56,10 +56,13 @@ fleet detection, ``batch_unsupervised_detect`` on 256 sweeps of 16 min;
 an hour at 48 kHz through ``BurstDetector(engine='auto')``, 524,288
 frames): the stages' host times, H1's ms and ns a step, H3's ms an
 iteration and its split over transfers, scan, chunk pass and reduce
-(``torch.profiler``'s kernel times), the EM loop's host ms, its
+(``torch.profiler``'s kernel times), H2 chunked's ms and its split over
+its five kernels (the same way), the EM loop's host ms, its
 device-to-host reads and the device's idle share over it, and digests
 of the fitted model, ll, it, the states and the event lists; and path
-21's training steps (with no path named, or 21 named):
+21's training steps (with no path named, or 21 named), scipy_default 24
+on path 10's batch (1024 clips of 10 s, the GEMM route's backward) among
+them:
 the waveform of path 1's batch requiring grad, ``batched_spectrogram_fn``
 at north_star 1024/256 log, and of path 4's batch (256 clips of 60 s) at
 scipy_default 8160 log (the mixed route's backward), 8182 log and 8185
@@ -203,6 +206,7 @@ def time_pipelines(paths, report, SpecConfig, batch, dev):
         time_long_detection(report, dev)
     if not paths or 21 in paths:
         time_grad_step(report, SpecConfig, batch)
+        time_grad_step(report, SpecConfig, batch, 24, (CLIPS, SECONDS))
         for k in (8160, 8182, 8185):
             time_grad_step(report, SpecConfig, batch, k)
 
@@ -354,6 +358,9 @@ def time_long_detection(report, dev):
     split = smoke.kernel_split(lambda: [hmm_cuda.estep_chunked(Xb, pb, L)
                                         for _ in range(REPS)],
                                smoke.HMM_STAGES)
+    vsplit = smoke.kernel_split(lambda: [hmm_cuda.viterbi_chunked(Xb, pb, L)
+                                         for _ in range(REPS)],
+                                smoke.H2_STAGES)
     entry = {
         "frames": int(X.shape[0]), "host_s": det.timings,
         "iterations": iters,
@@ -374,15 +381,19 @@ def time_long_detection(report, dev):
     if split is not None:
         entry["estep_split_ms"] = {k: v / REPS
                                    for k, v in split["stage_ms"].items()}
+    if vsplit is not None:
+        entry["viterbi_chunked_split_ms"] = {
+            k: v / REPS for k, v in vsplit["stage_ms"].items()}
     report["detection path 15"] = entry
     torch.cuda.empty_cache()
 
 
-def time_grad_step(report, SpecConfig, batch, nperseg=None):
+def time_grad_step(report, SpecConfig, batch, nperseg=None,
+                   shape=(256, 60.0)):
     """Path 21's training step: on path 1's batch at north_star 1024/256
-    log, or with ``nperseg`` on path 4's batch (256 clips of 60 s) at
-    scipy_default ``nperseg`` log; the forward and the backward through
-    batched_spectrogram_fn, synchronised."""
+    log, or with ``nperseg`` on ``shape``'s batch (path 4's, 256 clips of
+    60 s, unless named) at scipy_default ``nperseg`` log; the forward and
+    the backward through batched_spectrogram_fn, synchronised."""
     import time
     import torch
     from spectral_tpu_torch.ops import stft_cuda
@@ -392,7 +403,6 @@ def time_grad_step(report, SpecConfig, batch, nperseg=None):
         shape, name = (CLIPS, SECONDS), "pipeline path 21 training step"
     else:
         cfg = SpecConfig.scipy_default(nperseg, log_scale=True)
-        shape = (256, 60.0)
         name = f"pipeline path 21 training step {nperseg}"
     x0 = batch(*shape)
     fn = batched_spectrogram_fn(FS, cfg, flip_image=True)
