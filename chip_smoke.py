@@ -3134,6 +3134,8 @@ def detect_path(dev, card, dfma_peak):
         "fit_kernel": time_ms(lambda: hmm_cuda.fit_seq(
             X, p0, 100, hmm.DEFAULT_TOL), reps=3),
         "viterbi_kernel": time_ms(lambda: hmm_cuda.viterbi_seq(X, patched)),
+        "viterbi_kernel_run": time_ms(lambda: hmm_cuda.viterbi_seq(
+            X, patched), run=RUN),
         "viterbi_chunked_kernel": time_ms(lambda: hmm_cuda.viterbi_chunked(
             X, patched, L)),
         "fit_plain": (fit_plain_ms, [fit_plain_ms]),
@@ -3150,6 +3152,11 @@ def detect_path(dev, card, dfma_peak):
     print(f"H1's chain: {its.max()} iterations x {T - 1} steps = {steps} "
           f"steps a pass on its slowest sweep, "
           f"{1e6 * tm['fit_kernel'][0] / steps:.1f} ns a step")
+    vit_ms = tm["viterbi_kernel_run"][0]
+    print(f"H2's chain: {T - 1} steps a sweep, {EEG_CLIPS} sweeps at once; "
+          f"H2 {vit_ms:.4f} ms in runs of {RUN} "
+          f"({tm['viterbi_kernel'][0]:.4f} a single call through the "
+          f"wrapper), {1e6 * vit_ms / (T - 1):.1f} ns a step [{card}]")
     fit_bound = hmm_bound(X.numel() * 8 + EEG_CLIPS * (4 + 16 + 16) * 8,
                           sum(hmm_fit_ops(T, 2, 4, int(i)) for i in its),
                           dfma_peak)
@@ -3168,9 +3175,10 @@ def detect_path(dev, card, dfma_peak):
                             "ns_a_step": 1e6 * tm["fit_kernel"][0] / steps,
                             "iterations": int(its.max())}),
         "hmm_viterbi": dict(launches=counts["hmm"]["viterbi"], err=vit_err,
-                            ms=tm["viterbi_kernel"][0],
-                            plain_ms=vit_plain_ms, bound=vit_bound,
-                            library_ms=None)}
+                            ms=vit_ms, plain_ms=vit_plain_ms,
+                            bound=vit_bound, library_ms=None, extra={
+                                "single_call_ms": tm["viterbi_kernel"][0],
+                                "ns_a_step": 1e6 * vit_ms / (T - 1)})}
 
 
 LONG_FS = 48000.0
@@ -5552,6 +5560,40 @@ def grad_kernel_cases(dev):
     print(f"mel backward (8 x {T} frames, 128 mels over {F} bins): "
           f"{ulp_distance(got, want)} ulp from the plain version ({err:.3e} "
           f"abs), NaN in its places")
+    # the tile layout's edges: a mel band (bins no row covers), 40 mels
+    # over 257 bins on a row count not a multiple of the tile's 32, and
+    # 64 mels over 4097 bins (the table from global memory, the outputs in
+    # chunks of bins); an inf, a -inf and a NaN gradient in each
+    for what, fb, shape in (
+            ("a mel band, rows 10-99 of 128 over 513 bins",
+             mel_filterbank(128, F, FS)[10:100], (3, T)),
+            ("40 mels over 257 bins, 4,981 rows",
+             mel_filterbank(40, 257, FS), (1, 4981)),
+            ("64 mels over 4097 bins", mel_filterbank(64, 4097, FS),
+             (2, 50))):
+        sp = mel_cuda.mel_spans(fb, dev)
+        M_b = len(fb)
+        dm = torch.randn(shape + (M_b,), generator=gen, device=dev)
+        dm[0, 1, M_b // 3] = float("inf")
+        dm[-1, -2, M_b - 1] = -float("inf")
+        dm[0, shape[1] // 2, 0] = float("nan")
+        before = flat_counts(read_counts())
+        got = mel_cuda.mel_backward(dm, sp)
+        torch.cuda.synchronize()
+        moved = grad_counts_moved(before, flat_counts(read_counts()))
+        want = mel_cuda.mel_backward_reference(dm, sp)
+        ulps = ulp_distance(got, want)
+        rel = clip_rel(got.nan_to_num(0.0, 0.0, 0.0),
+                       want.nan_to_num(0.0, 0.0, 0.0))[0]
+        require(ulps <= MEL_ULPS and rel <= GRAD_TOL
+                and torch.equal(torch.isnan(got), torch.isnan(want))
+                and torch.equal(torch.isinf(got), torch.isinf(want))
+                and moved == {"mel_backward": 1},
+                f"mel backward, {what}: {ulps} ulp, {rel:.2e}, launches "
+                f"{moved}")
+        print(f"mel backward, {what} ({tuple(dm.shape)} -> "
+              f"{tuple(got.shape)}): {ulps} ulp from the plain version, "
+              f"NaN and inf in their places; launches {moved}")
 
     # the display backward at path 1's shapes (PSD rows, log and linear,
     # flipped or not, share_max) and path 12's (mel rows), tied extrema;
@@ -5634,6 +5676,77 @@ def stft_fft_backward_bound(x_elems, R, F, L, K, g_bytes=4):
     t_ops = R * 5 * K * math.log2(K) / FP64_PEAK
     return (1e3 * max(t_mem, t_ops),
             "operations" if t_ops >= t_mem else "bytes")
+
+
+# the port's kernels of path 21's step, by a part of their names
+STEP_KERNELS = ("stft_fft_psd_kernel", "clip_stats_kernel",
+                "display_map_kernel", "mel_project_kernel",
+                "stft_fft_backward_kernel", "overlap_add_kernel",
+                "mel_backward_kernel", "display_grad_prep_kernel",
+                "display_grad_kernel")
+
+
+def _torch_op(name):
+    """A short name for one of torch's own device kernels: its functor or
+    reduction (FillFunctor, MeanOps, ...), a copy, a memset."""
+    import re
+    for word in ("Memset", "Memcpy"):
+        if word in name:
+            return word.lower()
+    m = re.search(r"(\w*Functor\w*|\w*Ops\w*|\w*copy\w*)", name)
+    return m.group(1) if m else name.replace("void ", "")[:60]
+
+
+def step_split(step, what, card):
+    """One training step under torch.profiler (after a warm-up): the
+    port's kernels' device ms by name, torch's own device kernels' ms by
+    op (the loss's reductions, autograd's fills and adds, copies), the
+    device's busy ms and the rest of the step's wall time (host clock,
+    profiled), the host's gaps; None when the profiler shows no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.5)               # let the device tracing start first
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        print(f"{what}: torch.profiler shows no device time; not measured")
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    ours, theirs = {}, {}
+    for e in device:
+        ms = 1e-3 * (e.time_range.end - e.time_range.start)
+        key = next((k for k in STEP_KERNELS if k in e.name), None)
+        if key:
+            ours[key] = ours.get(key, 0.0) + ms
+        else:
+            op = _torch_op(e.name)
+            theirs[op] = theirs.get(op, 0.0) + ms
+    out = {"wall_ms": wall, "busy_ms": busy / 1e3,
+           "host_gaps_ms": wall - busy / 1e3, "kernels_ms": ours,
+           "torch_ops_ms": theirs,
+           "torch_ops_total_ms": sum(theirs.values())}
+    print(f"{what}, split by torch.profiler [{card}]: wall {wall:.3f} ms "
+          f"(profiled), device busy {busy / 1e3:.3f}, host gaps "
+          f"{wall - busy / 1e3:.3f}; the port's kernels "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ours.items())
+          + f"; torch's own ops {out['torch_ops_total_ms']:.3f}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+              theirs.items(), key=lambda kv: -kv[1])))
+    return out
 
 
 def grad_path(dev, card):
@@ -5901,6 +6014,23 @@ def grad_path(dev, card):
 
     phase(f"path 21 times (CUDA events, median of {REPS} after a warm-up; "
           f"{card})")
+    # the step split by torch.profiler at path 1's batch and at 128 mels
+    splits = {}
+    for label, cfg, keys in (("plain", plain, ("image", "psd")),
+                             ("mel", mels, ("image", "mel"))):
+        fn = batched_spectrogram_fn(FS, cfg, flip_image=True)
+        with torch.no_grad():
+            scale = float(fn(x0)[keys[1]].mean())
+
+        def step(fn=fn, keys=keys, scale=scale):
+            xs = x0.clone().requires_grad_()
+            out = fn(xs)
+            (out[keys[0]].mean() + out[keys[1]].mean() / scale).backward()
+
+        splits[label] = step_split(step, f"path 21's {label} step at path "
+                                   f"1's batch", card)
+        torch.cuda.empty_cache()
+    print(json.dumps({"path21_step_split": splits, "card": card}))
     x = x0
     chunks = [slice(i, i + 256) for i in range(0, BATCH, 256)]
     g = torch.rand((BATCH, T, F), generator=gen, device=dev)
@@ -6462,8 +6592,11 @@ def main(_phases=None):
                     f"{EEG_CLIPS} sweeps x 1071 frames (path 14)", "cuda",
                     hmm_src, "spectral_tpu/models/hmm.py:188 (_em_loop, an "
                     "XLA lax.while_loop; no TPU kernel)"),
-        "hmm_viterbi": ("hmm_viterbi<KM 4>, a block a sequence, "
-                        f"{EEG_CLIPS} sweeps x 1071 frames (path 14)", "cuda",
+        "hmm_viterbi": ("hmm_viterbi<KM 4, KC 4>, a block a sequence (the "
+                        "chain on warp 0, the emissions beside it, the "
+                        "backtrace on the block), "
+                        f"{EEG_CLIPS} sweeps x 1071 frames (path 14); ms in "
+                        f"runs of {RUN}", "cuda",
                         hmm_src, "spectral_tpu/models/hmm.py:104 (viterbi, "
                         "an XLA lax.scan; no TPU kernel)"),
         "hmm_fit_chunked": (
@@ -6528,7 +6661,9 @@ def main(_phases=None):
             "spectral_tpu/core/stft.py:86 (jax.grad of frame_signal; no TPU "
             "kernel)"),
         "mel_backward": (
-            "mel_backward_kernel, 128 mels over 513 bins (path 21)", "cuda",
+            "mel_backward_kernel<CC 2>, tiles of 32 rows, a lane a row, "
+            "the outputs to the bulk copy engine, 128 mels over 513 bins "
+            "(path 21)", "cuda",
             mel_src, "spectral_tpu/parallel/sharding.py:99 (jax.grad of the "
             "mel einsum; no TPU kernel)"),
         "display_backward": (

@@ -83,12 +83,33 @@
 //   pass, the two passes concurrent; the roofline's bytes (X read once,
 //   the parameters written once) take well under a microsecond.
 // hmm_viterbi_kernel (H2, T < 2048 on the main path; hmm_viterbi_launch):
-//   one block a sequence: emissions into lb (all threads), the max-plus
-//   recursion on warp 0 (lanes = states) writing uint8 backpointers, the
-//   end state, then the backtrace by one thread. lb and the backpointers
-//   live in shared memory up to VIT_SMEM bytes, past it in a global
-//   scratch. Bound: the chain of T - 1 dependent steps, then T dependent
-//   loads of the backtrace.
+//   one block a sequence, three phases:
+//   emissions: every thread the first VIT_EM_FIRST frames' lb, then warps
+//     1-3 the rest, VIT_EM_TILE frames a tile, each tile published to the
+//     chain through a flag in shared memory (after a barrier of the three
+//     warps), so they run beside the chain, not before it;
+//   the chain on warp 0, a state a lane (vit_step: the K values gathered
+//     by shuffles, the adds and strict-> compares in index order), K at
+//     compile time where K == KM, waiting on the flag once a tile; lanes
+//     below K store the step's uint8 backpointers, then the end state.
+//     Every lane holding all K values (vit_scan_kernel's form, no shuffle
+//     on the chain) measured three times slower here: at K = 4 a lane then
+//     issues four targets' adds and compares a step, so the chain is
+//     bound by one warp's issue rather than the shuffles' latency;
+//   the backtrace on all 128 threads, exact: thread i takes the i-th run
+//     of frames and composes its backpointers into its map (for each
+//     state at the run's last frame, the state before its first: K walks
+//     side by side), the maps are composed from the end in log2(128)
+//     rounds (a suffix scan of integer maps, hmm_pscan.py:322-355's
+//     composition inside one block), and each thread re-walks its run from
+//     its end state, the states staged in shared memory and stored
+//     coalesced. Integer maps compose exactly: the states are the
+//     one-thread walk's.
+//   lb and the backpointers live in shared memory up to VIT_SMEM bytes,
+//   past it in a global scratch (the emissions then all before the chain,
+//   the states stored directly). Bound: the chain of T - 1 dependent
+//   steps; the roofline's bytes (X read once, the states written once)
+//   take under 2 us.
 // The chunked forms (T >= 2048), chunks of L frames (CHUNK_MAX at most):
 //   hmm_viterbi_chunked_launch (H2 chunked), five kernels:
 //     vit_transfer: each chunk c >= 1 runs the recursion from each one-hot
@@ -160,6 +181,9 @@ constexpr int COMPOSE_THREADS = 128;         // threads of a compose block
 constexpr int RED_TILE = 2048;               // doubles a tile of the reduce
 constexpr int RED_SPT = 2;                   // statistics a thread, reduce
 constexpr int CHUNK_MIN_BLOCKS = 4;          // chunk pass blocks an SM
+constexpr int VIT_EM_FIRST = 32;             // H2's emissions before the chain
+constexpr int VIT_EM_TILE = 64;              // frames a tile of the rest
+constexpr bool VIT_EM_OVERLAP = true;        // the rest beside the chain
 
 __device__ __forceinline__ double safe_log(double p) {
   return p > 0.0 ? log(fmax(p, 1e-300)) : LOG_EPS;
@@ -703,54 +727,59 @@ __host__ __device__ __forceinline__ long long vit_stride(long long n) {
   return n * static_cast<long long>(sizeof(double)) + ((n + 7) & ~7LL);
 }
 
-// Backtrace from end state s at frame T - 1 through backpointers psi (T x
-// K, row t the pointers into frame t - 1), writing states[0..T).
-__device__ void backtrace(const uint8_t* psi, int T, int K, int s,
-                          int* states) {
-  states[T - 1] = s;
-  for (int t = T - 1; t >= 1; --t) {
-    s = psi[static_cast<long long>(t) * K + s];
-    states[t - 1] = s;
-  }
+// A barrier of the n threads from warp 1 on (warps 1-3), id 1.
+__device__ __forceinline__ void em_barrier(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
 }
 
-template <int KM>
-__global__ void __launch_bounds__(THREADS)
-hmm_viterbi_kernel(const double* __restrict__ X, int T, int D, int K,
-                   const double* start, const double* trans,
-                   const double* means, const double* covars,
-                   int* __restrict__ states, unsigned char* scratch) {
-  extern __shared__ double dyn[];
-  __shared__ Model<KM> m;
-  const long long b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const double* x = X + b * T * D;
-  const long long n = static_cast<long long>(T) * K;
-  double* lb = scratch
-      ? reinterpret_cast<double*>(scratch + b * vit_stride(n)) : dyn;
-  uint8_t* psi = reinterpret_cast<uint8_t*>(lb + n);
-  load_model<KM>(m, b, K, D, start, trans, means, covars);
-  __syncthreads();
-  derive<KM>(m, K, D);
-  __syncthreads();
-  for (long long i = tid; i < n; i += THREADS)
-    lb[i] = emission<KM>(m, x + (i / K) * D, static_cast<int>(i % K), D);
-  __syncthreads();
-  if (tid >= 32) return;
+// The emissions of frames [t0, t1) into lb (row t at t K) from x (row t at
+// t D), by `nthreads` threads, this one the tid-th (i / K and i % K on a
+// K known at compile time where K == KM).
+template <int KM, int KC>
+__device__ __forceinline__ void vit_emissions(const Model<KM>& m, double* lb,
+                                              const double* x, int t0,
+                                              int t1, int Kr, int D, int tid,
+                                              int nthreads) {
+  const int K = KC ? KC : Kr;
+  for (int i = t0 * K + tid; i < t1 * K; i += nthreads)
+    lb[i] = emission<KM>(m, x + (i / K) * D, i % K, D);
+}
+
+// H2's chain on warp 0, lane j on state j: d[t, j] = max_i (d[t - 1, i]
+// + LA[i, j]) + lb[t, j] by vit_step (the K values gathered by shuffles,
+// the adds and strict-> compares in index order), the first i attaining
+// the max into psi's row t (lanes below K store). Steps 1 .. first - 1
+// first, then a tile of VIT_EM_TILE frames at a time, each once `ready`
+// (frames whose lb is written) has passed its last frame; returns the end
+// state (the first j attaining the max of d[T - 1]).
+template <int KM, int KC>
+__device__ __forceinline__ int vit_chain(const Model<KM>& m, const double* lb,
+                                         uint8_t* psi, int T, int Kr,
+                                         int first, const int* ready) {
+  const int K = KC ? KC : Kr;
+  const int lane = threadIdx.x & 31;
   const int jj = lane < K ? lane : K - 1;
   double lacol[KM];
 #pragma unroll
   for (int i = 0; i < KM; ++i) lacol[i] = i < K ? m.la[i][jj] : 0.0;
   double d = __dadd_rn(m.ls[jj], lb[jj]);
-  for (int t = 1; t < T; ++t) {
-    int arg;
-    d = vit_step<KM>(d, lacol, lb[static_cast<long long>(t) * K + jj], K,
-                     arg);
-    if (lane < K) psi[static_cast<long long>(t) * K + jj] =
-        static_cast<uint8_t>(arg);
+  for (int t0 = 1, t1 = first; t0 < T;
+       t0 = t1, t1 = min(T, t1 + VIT_EM_TILE)) {
+    if (t1 > first) {
+      // every lane sees `ready` reach t1 itself
+      while (__reduce_min_sync(FULL, *reinterpret_cast<const volatile int*>(
+                                         ready)) < t1) {
+      }
+      __threadfence_block();
+    }
+    for (int t = t0; t < t1; ++t) {
+      int arg;
+      d = vit_step<KM>(d, lacol, lb[static_cast<long long>(t) * K + jj], K,
+                       arg);
+      if (lane < K) psi[static_cast<long long>(t) * K + jj] =
+          static_cast<uint8_t>(arg);
+    }
   }
-  // end state: the first lane attaining the max
   double best = __shfl_sync(FULL, d, 0);
   int end = 0;
 #pragma unroll
@@ -761,8 +790,113 @@ hmm_viterbi_kernel(const double* __restrict__ X, int T, int D, int K,
       end = j;
     }
   }
-  __syncwarp();
-  if (lane == 0) backtrace(psi, T, K, end, states + b * T);
+  return end;
+}
+
+// H2's backtrace on the block, from end state s_end at frame T - 1
+// through backpointers psi (T x K, row t the pointers into frame t - 1):
+// thread i's run of rows [a, b) composed into its map (a byte a state:
+// the state at frame a - 1 for each at frame b - 1), the maps composed
+// from the end (maps[i] <- maps[i] o maps[i + d], d = 1, 2, ..., 64: each
+// then the map from frame T - 1 to frame a - 1 of its run), then the run
+// re-walked from its end state into out[0 .. T); maps is THREADS words of
+// shared memory. The caller synchronizes before.
+template <int KM>
+__device__ __forceinline__ void vit_backtrace_block(
+    const uint8_t* psi, int T, int K, int s_end, unsigned long long* maps,
+    int* out) {
+  const int tid = threadIdx.x;
+  const long long rows = T - 1;
+  const int a = 1 + static_cast<int>(tid * rows / THREADS);
+  const int b = 1 + static_cast<int>((tid + 1) * rows / THREADS);
+  int s[KM];
+#pragma unroll
+  for (int x = 0; x < KM; ++x) s[x] = x;
+  for (int t = b - 1; t >= a; --t) {
+    const uint8_t* p = psi + static_cast<long long>(t) * K;
+#pragma unroll
+    for (int x = 0; x < KM; ++x)
+      if (x < K) s[x] = p[s[x]];
+  }
+  unsigned long long map = 0;
+#pragma unroll
+  for (int x = 0; x < KM; ++x)
+    map |= static_cast<unsigned long long>(s[x]) << (8 * x);
+  maps[tid] = map;
+  __syncthreads();
+  for (int d = 1; d < THREADS; d <<= 1) {
+    const unsigned long long cur = maps[tid];
+    const unsigned long long nxt = tid + d < THREADS ? maps[tid + d] : 0;
+    __syncthreads();
+    if (tid + d < THREADS) {
+      unsigned long long m = 0;
+#pragma unroll
+      for (int x = 0; x < KM; ++x)
+        m |= ((cur >> (8 * ((nxt >> (8 * x)) & 0xff))) & 0xff) << (8 * x);
+      maps[tid] = m;
+    }
+    __syncthreads();
+  }
+  // the state at frame b - 1: the later runs' map applied to s_end
+  int st = tid + 1 < THREADS
+      ? static_cast<int>((maps[tid + 1] >> (8 * s_end)) & 0xff) : s_end;
+  if (tid == THREADS - 1) out[T - 1] = s_end;
+  for (int t = b - 1; t >= a; --t) {
+    st = psi[static_cast<long long>(t) * K + st];
+    out[t - 1] = st;
+  }
+}
+
+template <int KM, int KC>
+__global__ void __launch_bounds__(THREADS)
+hmm_viterbi_kernel(const double* __restrict__ X, int T, int D, int K,
+                   const double* start, const double* trans,
+                   const double* means, const double* covars,
+                   int* __restrict__ states, unsigned char* scratch) {
+  extern __shared__ double dyn[];
+  __shared__ Model<KM> m;
+  __shared__ unsigned long long maps[THREADS];
+  __shared__ int ready, s_end;
+  const long long b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const long long n = static_cast<long long>(T) * K;
+  double* lb = scratch
+      ? reinterpret_cast<double*>(scratch + b * vit_stride(n)) : dyn;
+  uint8_t* psi = reinterpret_cast<uint8_t*>(lb + n);
+  const double* x = X + b * T * D;
+  load_model<KM>(m, b, K, D, start, trans, means, covars);
+  __syncthreads();
+  derive<KM>(m, K, D);
+  __syncthreads();
+  // the global scratch's lb is read through L1: all of it before the chain
+  const int first = VIT_EM_OVERLAP && !scratch ? min(T, VIT_EM_FIRST) : T;
+  vit_emissions<KM, KC>(m, lb, x, 0, first, K, D, tid, THREADS);
+  if (tid == 0) ready = first;
+  __syncthreads();
+  if (tid >= 32) {
+    for (int t0 = first; t0 < T; t0 += VIT_EM_TILE) {
+      const int t1 = min(T, t0 + VIT_EM_TILE);
+      vit_emissions<KM, KC>(m, lb, x, t0, t1, K, D, tid - 32, THREADS - 32);
+      __threadfence_block();
+      em_barrier(THREADS - 32);
+      if (tid == 32) {
+        __threadfence_block();
+        *reinterpret_cast<volatile int*>(&ready) = t1;
+      }
+    }
+  } else {
+    const int end = vit_chain<KM, KC>(m, lb, psi, T, K, first, &ready);
+    if (tid == 0) s_end = end;
+  }
+  __syncthreads();
+  // the states staged over lb (no longer read) when it is in shared
+  // memory, then stored coalesced; into `states` directly otherwise
+  int* out = scratch ? states + b * T : reinterpret_cast<int*>(dyn);
+  vit_backtrace_block<KM>(psi, T, K, s_end, maps, out);
+  if (!scratch) {
+    __syncthreads();
+    for (int i = tid; i < T; i += THREADS) states[b * T + i] = out[i];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1605,11 +1739,13 @@ int viterbi_launch(const double* X, long long B, int T, int D, int K,
                    const double* means, const double* covars, int* states,
                    unsigned char* scratch, cudaStream_t st) {
   const size_t smem = scratch ? 0 : vit_stride(static_cast<long long>(T) * K);
+  const auto kernel = K == KM ? hmm_viterbi_kernel<KM, KM>
+                              : hmm_viterbi_kernel<KM, 0>;
   cudaError_t e = cudaFuncSetAttribute(
-      hmm_viterbi_kernel<KM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  hmm_viterbi_kernel<KM><<<static_cast<unsigned>(B), THREADS, smem, st>>>(
+  kernel<<<static_cast<unsigned>(B), THREADS, smem, st>>>(
       X, T, D, K, start, trans, means, covars, states, scratch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,28 +54,46 @@
 // mel_backward_kernel (mel_backward_launch): the projection's adjoint, for
 // the gradient through the mel rows (the JAX package's jax.grad of its
 // einsum)
-//   in : dmel (R, M) f32, the gradient of mel; each bin's mel rows, from
-//        the host (ops/mel_cuda.py::bin_table, the span table transposed):
-//        bstart[f] and bcount[f], the rows m (ascending) whose span holds
-//        bin f at brow[bstart[f] ..] and their weights fb[m, f] at bw[..]
+//   in : dmel (R, M) f32, the gradient of mel; the bin table, from the
+//        host (ops/mel_cuda.py::bin_records, the span table transposed): C
+//        16-byte slots (w, row) a bin, C the most mel rows any bin has,
+//        bin f's rows m (ascending) whose span holds f with w = fb[m, f]
+//        in float64 (zeros inside a span kept), then empty slots (row -1)
 //   out: dpsd (R, F) f32,
 //          dpsd[r, f] = sum_m fb[m, f] dmel[r, m]
 //        over the mel band's rows whose span holds f, in float64, rounded
 //        once; a bin no row covers gets 0. Non-finite gradients as the
 //        dense product dmel @ fb gives them: a non-finite dmel[r, m] makes
-//        every bin outside row m's span NaN (0 * inf).
-//   Work: a warp a row, its M gradients staged in shared memory (and a
-//   count of the non-finite ones); lane l sums bins l, l + 32, ..., so a
-//   warp's stores of one row are consecutive.
-//   Bound: bytes, dmel read once and dpsd written once.
+//        every bin outside row m's span NaN (0 * inf): a row's non-finite
+//        gradients are counted, and a bin whose rows hold fewer of them is
+//        NaN.
+//   Work: the forward's shape turned around. A persistent grid (a block
+//   of 16 warps an SM) walks tiles of up to MB_ROWS = 32 gradient rows,
+//   two tiles' copies in flight by cp.async (16-byte copies of a tile's
+//   contiguous run). A tile is turned into doubles at the odd stride M |
+//   1 (its rows' non-finite gradients counted, a warp a row), then summed:
+//   lane l takes the tile's row l and warp w a run of consecutive bins, so
+//   every lane of a warp reads the same slot at once (a broadcast, the
+//   table read through L1), four bins in flight a lane (the slots a bin
+//   fixed, C = 2 at compile time on every filterbank whose triangles
+//   overlap in pairs): each bin one float64 FMA chain from 0.0 over its
+//   rows, ascending, rounded once, as the previous kernel summed it (a
+//   warp a row, lane l the bins l, l + 32, ..., every lane re-reading the
+//   table from global memory on every row, its loads through L1 setting
+//   the pace). The outputs are staged in shared memory (stride F | 1) in
+//   two buffers; with F odd a tile's outputs are one contiguous run,
+//   handed to the bulk copy engine (TMA) by one thread while the block
+//   sums the next tile; else (chunks of bins where a tile's rows do not
+//   fit MB_OUT_SMEM, or F even) the block stores them, a warp a row.
+//   Every output is the previous kernel's FMA chain over the same terms
+//   in the same order, and the same NaN rule, so its bits.
+//   Bound: bytes, dmel read once and dpsd written once (0.49 ms at 1024
+//   clips x 622 frames, 128 mels over 513 bins, on 3.35 TB/s).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int MEL_MAX_WARPS = 8;     // the backward's rows a block at most
-constexpr int MEL_SMEM = 48 * 1024;  // the backward's staging, at most
 
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (a != a || a < b) ? a : b;
@@ -106,6 +124,9 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 __host__ __device__ __forceinline__ long long align16(long long n) {
@@ -340,53 +361,204 @@ mel_project_kernel(const float* __restrict__ psd, const int* __restrict__ start,
                      part_min, part_max, smem);
 }
 
-// Rows a block of the backward takes at F floats a row (its mel
-// gradients): as many warps as MEL_SMEM holds rows, at most
-// MEL_MAX_WARPS; 0 when one row does not fit.
-int mel_rows_per_block(int F) {
-  const int rows = F > 0 ? MEL_SMEM / (F * 4) : 0;
-  return rows < MEL_MAX_WARPS ? rows : MEL_MAX_WARPS;
+constexpr int MB_THREADS = 512;
+constexpr int MB_WARPS = MB_THREADS / 32;
+constexpr int MB_ROWS = 32;                   // gradient rows a tile at most
+constexpr int MB_OUT_SMEM = 96 * 1024;        // a tile's staged outputs
+
+// A slot of the backward's bin table: 16 bytes, read as one broadcast.
+struct __align__(16) BinRec {
+  double w;
+  int row;       // -1: an empty slot
+  int pad;
+};
+
+// The bulk copy engine (TMA) from shared to global memory, sm_90: one
+// thread issues a copy of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned), commits it to its group, and later waits until at
+// most N of its groups still read shared memory; the writers of the
+// source fence it to the engine's view first.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(s), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(MEL_MAX_WARPS * 32)
+// The backward's shared memory for tiles of `rows` rows and chunks of fc
+// bins: two tiles of rows x M floats (the copies' targets), the tile's
+// gradients as doubles rows x (M | 1), two buffers of staged outputs rows
+// x (fc | 1), and each row's count of non-finite gradients.
+struct MelGradSmem {
+  long long in_floats, xd, out, out_floats, bad, total;
+};
+
+__host__ __device__ __forceinline__ MelGradSmem mel_grad_smem(int rows,
+                                                              int M,
+                                                              int fc) {
+  MelGradSmem s;
+  s.in_floats = align16(static_cast<long long>(rows) * M * 4) / 4;
+  s.xd = 8 * s.in_floats;
+  s.out = s.xd + align16(static_cast<long long>(rows) * (M | 1) * 8);
+  s.out_floats = align16(static_cast<long long>(rows) * (fc | 1) * 4) / 4;
+  s.bad = s.out + 8 * s.out_floats;
+  s.total = s.bad + 4LL * rows;
+  return s;
+}
+
+// Bins a chunk of the staged outputs at `rows` rows a tile.
+__host__ __device__ __forceinline__ int mel_grad_chunk(int rows, int F) {
+  const int fit = MB_OUT_SMEM / (4 * rows) - 1;
+  return F < fit ? F : fit;
+}
+
+// Copy gradient rows r0 .. r0 + n (n M contiguous floats) into the tile:
+// 16-byte copies when `vec` (the run 16-byte aligned), 4-byte ones after.
+__device__ __forceinline__ void mel_grad_stage(const float* dmel,
+                                               long long r0, int n, int M,
+                                               bool vec, float* tile) {
+  const float* src = dmel + r0 * M;
+  const int count = n * M;
+  const int quads = vec ? count >> 2 : 0;
+  for (int i = threadIdx.x; i < quads; i += MB_THREADS)
+    cp_async16(tile + 4 * i, src + 4 * i);
+  for (int i = 4 * quads + threadIdx.x; i < count; i += MB_THREADS)
+    cp_async4(tile + i, src + i);
+}
+
+// A persistent block walks tiles of `rows` gradient rows, two tiles'
+// copies (cp.async) in flight: a tile's copy lands while the two tiles
+// before it are summed. It is turned into doubles at stride M | 1 with
+// each row's non-finite gradients counted (a warp a row), and the copy
+// two tiles ahead issued into its buffer; then the tile is summed chunk
+// by chunk of fc bins: warp w the w-th run of consecutive bins of the
+// chunk, lane l the tile's row l, each bin's C slots in order (its rows
+// ascending, empty slots last) one float64 FMA chain from 0.0, rounded
+// once into a staged output buffer. With `vec` (one chunk, F odd: the
+// tile's outputs one contiguous run) thread 0 hands the buffer to the
+// bulk copy engine and the block goes on to the next tile, the two
+// buffers taking turns; else the block stores the chunk, a warp a row.
+// CC: the slots a bin at compile time (2, every filterbank whose
+// triangles overlap in pairs), 0 at run time.
+template <int CC>
+__global__ void __launch_bounds__(MB_THREADS, 1)
 mel_backward_kernel(const float* __restrict__ dmel,
-                    const int* __restrict__ bstart,
-                    const int* __restrict__ bcount,
-                    const int* __restrict__ brow,
-                    const double* __restrict__ bw, long long R, int F, int M,
+                    const BinRec* __restrict__ rec, int Cr, long long R,
+                    int F, int M, int rows, int fc, int vin, int vec,
                     float* __restrict__ dpsd) {
-  extern __shared__ float grads[];         // a row of M floats a warp
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long r =
-      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  if (r >= R) return;                      // the whole warp: no block sync
-  float* row = grads + warp * M;
-  const float* src = dmel + r * M;
-  int bad = 0;                             // non-finite gradients in the row
-  for (int m = lane; m < M; m += 32) {
-    const float v = src[m];
-    row[m] = v;
-    bad += !isfinite(v);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) bad += __shfl_xor_sync(0xffffffffu, bad, o);
-  __syncwarp();
-  float* dst = dpsd + r * F;
-  for (int f = lane; f < F; f += 32) {
-    const int e0 = bstart[f];
-    const int e1 = e0 + bcount[f];
-    double acc = 0.0;
-    int inside = 0;
-    for (int e = e0; e < e1; ++e) {
-      const float v = row[brow[e]];
-      inside += !isfinite(v);
-      acc = fma(bw[e], static_cast<double>(v), acc);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = CC ? CC : Cr;
+  const MelGradSmem lay = mel_grad_smem(rows, M, fc);
+  double* xd = reinterpret_cast<double*>(smem + lay.xd);
+  int* bad = reinterpret_cast<int*>(smem + lay.bad);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int Ms = M | 1, Os = fc | 1;
+  const long long n_tiles = (R + rows - 1) / rows;
+  // tile t's copy into buffer `buf`, one commit group a tile (an empty one
+  // past the last)
+  auto fetch = [&](long long t, int buf) {
+    if (t < n_tiles)
+      mel_grad_stage(dmel, t * rows,
+                     static_cast<int>(min(static_cast<long long>(rows),
+                                          R - t * rows)),
+                     M, vin, reinterpret_cast<float*>(smem) +
+                                 buf * lay.in_floats);
+    cp_async_commit();
+  };
+  fetch(blockIdx.x, 0);
+  fetch(blockIdx.x + gridDim.x, 1);
+  int ob = 0;                  // the output buffer the next chunk fills
+  for (long long tile = blockIdx.x, k = 0; tile < n_tiles;
+       tile += gridDim.x, ++k) {
+    const long long r0 = tile * rows;
+    const int n = static_cast<int>(min(static_cast<long long>(rows), R - r0));
+    const float* x = reinterpret_cast<float*>(smem) + (k & 1) * lay.in_floats;
+    cp_async_wait_one();       // this tile's copy; the next one in flight
+    // the store two chunks back has read the buffer this tile fills
+    if (threadIdx.x == 0) bulk_wait_read<1>();
+    __syncthreads();           // this tile staged; the doubles free
+    // the tile as doubles, and each row's non-finite gradients, a warp a
+    // row
+    for (int l = warp; l < n; l += MB_WARPS) {
+      int count = 0;
+      for (int m0 = 0; m0 < M; m0 += 32) {
+        const int m = m0 + lane;
+        bool nonfinite = false;
+        if (m < M) {
+          const float v = x[l * M + m];
+          xd[l * Ms + m] = static_cast<double>(v);
+          nonfinite = !isfinite(v);
+        }
+        count += __popc(__ballot_sync(0xffffffffu, nonfinite));
+      }
+      if (lane == 0) bad[l] = count;
     }
-    // a non-finite gradient of a row whose span misses this bin
-    if (inside < bad) acc = __longlong_as_double(0x7ff8000000000000LL);
-    dst[f] = static_cast<float>(acc);
+    __syncthreads();           // the doubles written; this buffer free
+    fetch(tile + 2LL * gridDim.x, k & 1);
+    for (int f0 = 0; f0 < F; f0 += fc, ob ^= 1) {
+      float* o = reinterpret_cast<float*>(smem + lay.out) +
+                 ob * lay.out_floats;
+      const int nf = min(fc, F - f0);
+      const int fa = f0 + warp * nf / MB_WARPS;
+      const int fb = f0 + (warp + 1) * nf / MB_WARPS;
+      if (lane < n) {
+        const double* row = xd + lane * Ms;
+        const int nonfinite = bad[lane];
+#pragma unroll 4
+        for (int f = fa; f < fb; ++f) {
+          const BinRec* slot = rec + f * C;
+          double acc = 0.0;
+          int inside = 0;
+          for (int c = 0; c < C; ++c) {
+            const BinRec r = slot[c];
+            if (r.row >= 0) {
+              const double v = row[r.row];
+              inside += !isfinite(v);
+              acc = fma(r.w, v, acc);
+            }
+          }
+          // a non-finite gradient of a row whose span misses this bin
+          if (inside < nonfinite)
+            acc = __longlong_as_double(0x7ff8000000000000LL);   // NaN
+          o[lane * Os + (f - f0)] = static_cast<float>(acc);
+        }
+      }
+      if (vec) {
+        // one chunk of F bins at stride F: the tile's n F outputs one
+        // contiguous run, 16-byte aligned, to the bulk copy engine; the
+        // last (n F) % 4 stored by threads
+        fence_async_shared();
+        __syncthreads();
+        const int count = n * F;
+        const int head = count & ~3;
+        if (threadIdx.x == 0 && head > 0)
+          bulk_store(dpsd + r0 * F, o, static_cast<unsigned>(head) * 4);
+        if (threadIdx.x < count - head)
+          dpsd[r0 * F + head + threadIdx.x] = o[head + threadIdx.x];
+      } else {
+        __syncthreads();
+        for (int l = warp; l < n; l += MB_WARPS) {
+          float* dst = dpsd + (r0 + l) * F + f0;
+          for (int j = lane; j < nf; j += 32) dst[j] = o[l * Os + j];
+        }
+      }
+    }
   }
+  if (threadIdx.x == 0) bulk_wait_all();
 }
 
 // An attribute of the current device (the SM count, the shared memory a
@@ -445,22 +617,53 @@ int mel_project_launch(const float* psd, const int* start, const int* len,
 
 // Launch on `stream`; returns the cudaError_t (0 = success), or
 // cudaErrorInvalidValue for sizes the kernel does not take. dmel is (R, M)
-// contiguous f32; bstart and bcount are (F,) int32, brow the rows (int32)
-// and bw their float64 weights, all on the device; dpsd is (R, F) f32.
-int mel_backward_launch(const float* dmel, const int* bstart,
-                        const int* bcount, const int* brow, const double* bw,
+// contiguous f32; rec the bin table, C slots a bin (16 bytes each, F C in
+// all), on the device, read from global memory (a broadcast a slot: the
+// table staged in shared memory measured slower); dpsd is (R, F) f32. The
+// tile: MB_ROWS rows, or fewer where the block's shared memory does not
+// hold two tiles, their doubles and the staged outputs; a persistent
+// grid, as many blocks as the SMs hold.
+int mel_backward_launch(const float* dmel, const void* rec, int C,
                         long long R, int F, int M, float* dpsd,
                         void* stream) {
-  const int rows = mel_rows_per_block(M);
-  if (R < 0 || F < 1 || rows < 1)
+  if (R < 0 || F < 1 || M < 1 || C < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return 0;
-  const long long blocks = (R + rows - 1) / rows;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  mel_backward_kernel<<<static_cast<unsigned>(blocks), rows * 32,
-                        static_cast<size_t>(rows) * M * sizeof(float),
-                        static_cast<cudaStream_t>(stream)>>>(
-      dmel, bstart, bcount, brow, bw, R, F, M, dpsd);
+  const long long cap = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  int rows = MB_ROWS;
+  while (rows > 1 && mel_grad_smem(rows, M, mel_grad_chunk(rows, F)).total >
+                         cap)
+    rows >>= 1;
+  const int fc = mel_grad_chunk(rows, F);
+  const long long smem = mel_grad_smem(rows, M, fc).total;
+  if (fc < 1 || smem > cap) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = C == 2 ? mel_backward_kernel<2>
+                              : mel_backward_kernel<0>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, MB_THREADS, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_tiles = (R + rows - 1) / rows;
+  const long long fill =
+      static_cast<long long>(device_attr(cudaDevAttrMultiProcessorCount)) *
+      (per_sm > 0 ? per_sm : 1);
+  // the tiles' copies in 16 bytes: every tile's run 16-byte aligned
+  const int vin = (static_cast<long long>(rows) * M) % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(dmel) % 16 == 0;
+  // one contiguous run a tile to the bulk copy engine: one chunk, F odd
+  // (no padding), every tile's first row on a 16-byte boundary
+  const int vec = fc == F && (F & 1) &&
+                  (static_cast<long long>(rows) * F) % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(dpsd) % 16 == 0;
+  kernel<<<static_cast<unsigned>(n_tiles < fill ? n_tiles : fill),
+           MB_THREADS, static_cast<size_t>(smem),
+           static_cast<cudaStream_t>(stream)>>>(
+      dmel, static_cast<const BinRec*>(rec), C, R, F, M, rows, fc, vin, vec,
+      dpsd);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,7 +26,7 @@ only because that lies on the CPU. On a CUDA tensor it launches or raises.
 The gradient: a PSD that requires grad goes through an autograd Function
 (:class:`_MelGrad`), whose backward is the projection's adjoint, dpsd =
 dmel fb over the spans (``mel_backward_kernel`` in the same source, one
-launch; each bin's rows from :func:`bin_table`), or for a CPU tensor its
+launch; each bin's rows from :func:`bin_records`), or for a CPU tensor its
 plain version (:func:`mel_backward_reference`, the float64 dense product
 with the band's rows). The partials carry no gradient.
 """
@@ -63,11 +63,9 @@ class MelSpans(NamedTuple):
     length: torch.Tensor
     offset: torch.Tensor
     weights: torch.Tensor
-    # the backward's: each bin's rows (:func:`bin_table`)
-    bin_start: torch.Tensor
-    bin_count: torch.Tensor
-    bin_row: torch.Tensor
-    bin_weight: torch.Tensor
+    # the backward's: each bin's slots, C a bin (:func:`bin_records`)
+    bin_records: torch.Tensor
+    bin_slots: int
 
 
 def span_table(fb: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
@@ -110,6 +108,28 @@ def bin_table(fb: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
     return first, count, row, weight
 
 
+def bin_records(fb: np.ndarray) -> Tuple[np.ndarray, int]:
+    """The backward kernel's bin table (``csrc/mel.cu``'s ``BinRec``):
+    (records (F C, 4) int32, C), C slots a bin, C the most rows any bin
+    has (at least 1). Bin f's slots are records[f C:(f + 1) C]: first one
+    a row of :func:`bin_table` in its order, then empty ones; each 16
+    bytes: the weight's float64 bits (words 0-1) and the mel row (word 2;
+    -1 and weight 0 in an empty slot)."""
+    start, count, row, weight = bin_table(fb)
+    F = fb.shape[1]
+    C = max(1, int(count.max()))
+    w = np.zeros((F, C), np.float64)
+    r = np.full((F, C), -1, np.int32)
+    for f in range(F):
+        c = int(count[f])
+        w[f, :c] = weight[start[f]:start[f] + c]
+        r[f, :c] = row[start[f]:start[f] + c]
+    rec = np.zeros((F * C, 4), np.int32)
+    rec[:, 0:2] = w.reshape(-1).view(np.int32).reshape(F * C, 2)
+    rec[:, 2] = r.reshape(-1)
+    return rec, C
+
+
 def mel_spans(fb: np.ndarray, device) -> MelSpans:
     """The operands of the mel band's rows fb (M, F) float64 on device."""
     fb = np.asarray(fb, np.float64)
@@ -118,12 +138,11 @@ def mel_spans(fb: np.ndarray, device) -> MelSpans:
     def put(a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
-    b_start, b_count, b_row, b_weight = bin_table(fb)
+    records, slots = bin_records(fb)
     return MelSpans(put(fb, torch.float64), put(start, torch.int32),
                     put(length, torch.int32), put(offset, torch.int32),
-                    put(weights, torch.float64), put(b_start, torch.int32),
-                    put(b_count, torch.int32), put(b_row, torch.int32),
-                    put(b_weight, torch.float64))
+                    put(weights, torch.float64), put(records, torch.int32),
+                    slots)
 
 
 _LIB: list = []
@@ -139,8 +158,8 @@ def _library() -> ctypes.CDLL:
     lib.mel_project_launch.argtypes = [ptr] * 5 + [i64, i32, i32] + [
         ptr] * 4
     lib.mel_project_launch.restype = i32
-    lib.mel_backward_launch.argtypes = [ptr] * 5 + [i64, i32, i32, ptr,
-                                                    ptr]
+    lib.mel_backward_launch.argtypes = [ptr, ptr, i32, i64, i32, i32, ptr,
+                                        ptr]
     lib.mel_backward_launch.restype = i32
     lib.mel_error_string.argtypes = [i32]
     lib.mel_error_string.restype = ctypes.c_char_p
@@ -208,17 +227,16 @@ def _mel_backward_cuda(dmel, spans):
         raise TypeError("the mel backward kernel takes a float32 gradient")
     B, T, M = dmel.shape
     M_rows, F = spans.rows.shape
-    if M_rows != M or spans.bin_row.device != dmel.device:
+    if M_rows != M or spans.bin_records.device != dmel.device:
         raise ValueError(f"mel spans of {M_rows} rows on "
-                         f"{spans.bin_row.device} for a gradient of {M} "
+                         f"{spans.bin_records.device} for a gradient of {M} "
                          f"rows on {dmel.device}")
     dpsd = torch.empty((B, T, F), dtype=torch.float32, device=dmel.device)
     if B * T:
         with torch.cuda.device(dmel.device):
             err = lib.mel_backward_launch(
-                dmel.data_ptr(), spans.bin_start.data_ptr(),
-                spans.bin_count.data_ptr(), spans.bin_row.data_ptr(),
-                spans.bin_weight.data_ptr(), B * T, F, M, dpsd.data_ptr(),
+                dmel.data_ptr(), spans.bin_records.data_ptr(),
+                spans.bin_slots, B * T, F, M, dpsd.data_ptr(),
                 torch.cuda.current_stream(dmel.device).cuda_stream)
         if err != 0:
             raise RuntimeError("mel backward kernel launch failed: "

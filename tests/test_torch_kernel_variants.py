@@ -48,14 +48,15 @@ def test_every_kernel_names_its_routes_and_configs():
     the GEMM route's small-K tile, the radix-2 route's backward, the
     mixed and odd routes' backward, the Bluestein route's and the GEMM
     route's small-K backward, each on configs of its own routes; and the
-    HMM, display backward and mel sets, H2 chunked's among them."""
+    HMM, display backward and mel sets, H2 chunked's, H2's block form's
+    and the mel backward's among them."""
     import importlib
     stft_cuda = importlib.import_module("spectral_tpu_torch.ops.stft_cuda")
     from spectral_tpu_torch import SpecConfig
     assert set(tkv.KERNELS) == {"r2", "mixed", "conv", "rader", "small",
                                 "grad", "grad_mixed", "grad_bluestein",
                                 "grad_small", "hmm", "h2", "display_grad",
-                                "mel"}
+                                "mel", "mel_grad", "h2_block"}
     for kern in tkv.KERNELS.values():
         for k in kern.nperseg:
             assert stft_cuda.route(SpecConfig.scipy_default(k)) in kern.routes

@@ -823,6 +823,390 @@ MEL_VARIANTS = {
           "    if (false) {\n      const int count = n * F;")]),
 }
 
+# B3 (csrc/mel.cu's mel_backward_launch): the parent's kernel (a warp a
+# row, lane l the bins l, l + 32, ..., every bin's rows and weights read
+# from global memory on every row) and its launcher, as they stood before
+# the redesign, for the turns; the "mel_grad" set swaps them in for the
+# kernel and launcher the source holds now and launches that build through
+# the parent's C entry, on the SoA table of ops/mel_cuda.py::bin_table
+MEL_GRAD_PARENT_KERNEL = (
+    "constexpr int MEL_MAX_WARPS = 8;     // the backward's rows a block at most\n"
+    "constexpr int MEL_SMEM = 48 * 1024;  // the backward's staging, at most\n"
+    '\n'
+    '// Rows a block of the backward takes at F floats a row (its mel\n'
+    '// gradients): as many warps as MEL_SMEM holds rows, at most\n'
+    '// MEL_MAX_WARPS; 0 when one row does not fit.\n'
+    'int mel_rows_per_block(int F) {\n'
+    '  const int rows = F > 0 ? MEL_SMEM / (F * 4) : 0;\n'
+    '  return rows < MEL_MAX_WARPS ? rows : MEL_MAX_WARPS;\n'
+    '}\n'
+    '\n'
+    '__global__ void __launch_bounds__(MEL_MAX_WARPS * 32)\n'
+    'mel_backward_kernel(const float* __restrict__ dmel,\n'
+    '                    const int* __restrict__ bstart,\n'
+    '                    const int* __restrict__ bcount,\n'
+    '                    const int* __restrict__ brow,\n'
+    '                    const double* __restrict__ bw, long long R, int F, int M,\n'
+    '                    float* __restrict__ dpsd) {\n'
+    '  extern __shared__ float grads[];         // a row of M floats a warp\n'
+    '  const int lane = threadIdx.x & 31;\n'
+    '  const int warp = threadIdx.x >> 5;\n'
+    '  const long long r =\n'
+    '      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;\n'
+    '  if (r >= R) return;                      // the whole warp: no block sync\n'
+    '  float* row = grads + warp * M;\n'
+    '  const float* src = dmel + r * M;\n'
+    '  int bad = 0;                             // non-finite gradients in the row\n'
+    '  for (int m = lane; m < M; m += 32) {\n'
+    '    const float v = src[m];\n'
+    '    row[m] = v;\n'
+    '    bad += !isfinite(v);\n'
+    '  }\n'
+    '#pragma unroll\n'
+    '  for (int o = 16; o > 0; o >>= 1) bad += __shfl_xor_sync(0xffffffffu, bad, o);\n'
+    '  __syncwarp();\n'
+    '  float* dst = dpsd + r * F;\n'
+    '  for (int f = lane; f < F; f += 32) {\n'
+    '    const int e0 = bstart[f];\n'
+    '    const int e1 = e0 + bcount[f];\n'
+    '    double acc = 0.0;\n'
+    '    int inside = 0;\n'
+    '    for (int e = e0; e < e1; ++e) {\n'
+    '      const float v = row[brow[e]];\n'
+    '      inside += !isfinite(v);\n'
+    '      acc = fma(bw[e], static_cast<double>(v), acc);\n'
+    '    }\n'
+    '    // a non-finite gradient of a row whose span misses this bin\n'
+    '    if (inside < bad) acc = __longlong_as_double(0x7ff8000000000000LL);\n'
+    '    dst[f] = static_cast<float>(acc);\n'
+    '  }\n'
+    '}\n'
+    '\n')
+MEL_GRAD_PARENT_LAUNCH = (
+    '// Launch on `stream`; returns the cudaError_t (0 = success), or\n'
+    '// cudaErrorInvalidValue for sizes the kernel does not take. dmel is (R, M)\n'
+    '// contiguous f32; bstart and bcount are (F,) int32, brow the rows (int32)\n'
+    '// and bw their float64 weights, all on the device; dpsd is (R, F) f32.\n'
+    'int mel_backward_launch(const float* dmel, const int* bstart,\n'
+    '                        const int* bcount, const int* brow, const double* bw,\n'
+    '                        long long R, int F, int M, float* dpsd,\n'
+    '                        void* stream) {\n'
+    '  const int rows = mel_rows_per_block(M);\n'
+    '  if (R < 0 || F < 1 || rows < 1)\n'
+    '    return static_cast<int>(cudaErrorInvalidValue);\n'
+    '  if (R == 0) return 0;\n'
+    '  const long long blocks = (R + rows - 1) / rows;\n'
+    '  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);\n'
+    '  mel_backward_kernel<<<static_cast<unsigned>(blocks), rows * 32,\n'
+    '                        static_cast<size_t>(rows) * M * sizeof(float),\n'
+    '                        static_cast<cudaStream_t>(stream)>>>(\n'
+    '      dmel, bstart, bcount, brow, bw, R, F, M, dpsd);\n'
+    '  return static_cast<int>(cudaGetLastError());\n'
+    '}\n'
+    '\n')
+
+
+def _mel_grad_parent_edits():
+    with open(os.path.join(CSRC, "mel.cu")) as fh:
+        src = fh.read()
+    kernel = _section(src, "constexpr int MB_THREADS = 512;",
+                      "// An attribute of the current device")
+    launch = _section(src, "// Launch on `stream`; returns the cudaError_t "
+                      "(0 = success), or\n// cudaErrorInvalidValue for sizes "
+                      "the kernel does not take. dmel",
+                      "const char* mel_error_string")
+    return [(kernel, MEL_GRAD_PARENT_KERNEL),
+            (launch, MEL_GRAD_PARENT_LAUNCH)]
+
+
+MEL_GRAD_VARIANTS = {
+    "parent": (
+        "the parent's kernel: a warp a row, its gradients staged, lane l "
+        "the bins l, l + 32, ..., each bin's rows and weights read from "
+        "global memory on every row",
+        _mel_grad_parent_edits()),
+    "rows16": (
+        "tiles of 16 rows (lanes 16-31 idle in the sums)",
+        [("constexpr int MB_ROWS = 32;", "constexpr int MB_ROWS = 16;")]),
+    "single_buffered": (
+        "the copies waited for as soon as issued: none in flight while a "
+        "tile is summed and stored",
+        [("    fetch(tile + 2LL * gridDim.x, k & 1);\n",
+          "    fetch(tile + 2LL * gridDim.x, k & 1);\n"
+          "    cp_async_wait_all();\n")]),
+    "scalar_copies": (
+        "4-byte copies of the tile, not 16-byte ones",
+        [("  const int vin = (static_cast<long long>(rows) * M) % 4 == 0 &&",
+          "  const int vin = false &&")]),
+    "thread_stores": (
+        "the outputs stored by the block, a warp a row (4-byte stores), "
+        "not handed to the bulk copy engine",
+        [("  const int vec = fc == F && (F & 1) &&",
+          "  const int vec = false && fc == F && (F & 1) &&")]),
+    "slots_any": (
+        "the slots a bin at run time (no unrolled pair)",
+        [("  const auto kernel = C == 2 ? mel_backward_kernel<2>\n",
+          "  const auto kernel = false ? mel_backward_kernel<2>\n")]),
+    "one_bin": (
+        "one bin at a time a lane (the bin loop not unrolled)",
+        [("#pragma unroll 4\n        for (int f = fa; f < fb; ++f) {",
+          "#pragma unroll 1\n        for (int f = fa; f < fb; ++f) {")]),
+    "no_sums": (
+        "ablation: the bins' sums skipped (copies, conversion, counts and "
+        "stores kept)",
+        [("      if (lane < n) {\n        const double* row", "      if (false) {\n        const double* row")]),
+    "no_stores": (
+        "ablation: the outputs' stores skipped (copies, conversion, counts "
+        "and sums kept)",
+        [("        if (threadIdx.x == 0 && head > 0)",
+          "        if (false)"),
+         ("        if (threadIdx.x < count - head)", "        if (false)"),
+         ("        for (int l = warp; l < n; l += MB_WARPS) {\n"
+          "          float* dst",
+          "        for (int l = warp; l < 0; l += MB_WARPS) {\n"
+          "          float* dst")]),
+}
+
+# H2's block form (csrc/hmm.cu's hmm_viterbi_launch): the parent's kernel
+# (the emissions before the chain, the chain a state a lane with K
+# shuffles a step, the backtrace on one thread) and its launch, for the
+# turns and P0's split by ablation; the "h2_block" set swaps them in for
+# the kernel and launch the source holds now
+H2_BLOCK_PARENT_KERNEL = (
+    '// Backtrace from end state s at frame T - 1 through backpointers psi (T x\n'
+    '// K, row t the pointers into frame t - 1), writing states[0..T).\n'
+    '__device__ void backtrace(const uint8_t* psi, int T, int K, int s,\n'
+    '                          int* states) {\n'
+    '  states[T - 1] = s;\n'
+    '  for (int t = T - 1; t >= 1; --t) {\n'
+    '    s = psi[static_cast<long long>(t) * K + s];\n'
+    '    states[t - 1] = s;\n'
+    '  }\n'
+    '}\n'
+    '\n'
+    'template <int KM>\n'
+    '__global__ void __launch_bounds__(THREADS)\n'
+    'hmm_viterbi_kernel(const double* __restrict__ X, int T, int D, int K,\n'
+    '                   const double* start, const double* trans,\n'
+    '                   const double* means, const double* covars,\n'
+    '                   int* __restrict__ states, unsigned char* scratch) {\n'
+    '  extern __shared__ double dyn[];\n'
+    '  __shared__ Model<KM> m;\n'
+    '  const long long b = blockIdx.x;\n'
+    '  const int tid = threadIdx.x;\n'
+    '  const int lane = tid & 31;\n'
+    '  const double* x = X + b * T * D;\n'
+    '  const long long n = static_cast<long long>(T) * K;\n'
+    '  double* lb = scratch\n'
+    '      ? reinterpret_cast<double*>(scratch + b * vit_stride(n)) : dyn;\n'
+    '  uint8_t* psi = reinterpret_cast<uint8_t*>(lb + n);\n'
+    '  load_model<KM>(m, b, K, D, start, trans, means, covars);\n'
+    '  __syncthreads();\n'
+    '  derive<KM>(m, K, D);\n'
+    '  __syncthreads();\n'
+    '  for (long long i = tid; i < n; i += THREADS)\n'
+    '    lb[i] = emission<KM>(m, x + (i / K) * D, static_cast<int>(i % K), D);\n'
+    '  __syncthreads();\n'
+    '  if (tid >= 32) return;\n'
+    '  const int jj = lane < K ? lane : K - 1;\n'
+    '  double lacol[KM];\n'
+    '#pragma unroll\n'
+    '  for (int i = 0; i < KM; ++i) lacol[i] = i < K ? m.la[i][jj] : 0.0;\n'
+    '  double d = __dadd_rn(m.ls[jj], lb[jj]);\n'
+    '  for (int t = 1; t < T; ++t) {\n'
+    '    int arg;\n'
+    '    d = vit_step<KM>(d, lacol, lb[static_cast<long long>(t) * K + jj], K,\n'
+    '                     arg);\n'
+    '    if (lane < K) psi[static_cast<long long>(t) * K + jj] =\n'
+    '        static_cast<uint8_t>(arg);\n'
+    '  }\n'
+    '  // end state: the first lane attaining the max\n'
+    '  double best = __shfl_sync(FULL, d, 0);\n'
+    '  int end = 0;\n'
+    '#pragma unroll\n'
+    '  for (int j = 1; j < KM; ++j) {\n'
+    '    const double dj = __shfl_sync(FULL, d, j);\n'
+    '    if (j < K && dj > best) {\n'
+    '      best = dj;\n'
+    '      end = j;\n'
+    '    }\n'
+    '  }\n'
+    '  __syncwarp();\n'
+    '  if (lane == 0) backtrace(psi, T, K, end, states + b * T);\n'
+    '}\n'
+    '\n')
+H2_BLOCK_PARENT_LAUNCH = (
+    '  const size_t smem = scratch ? 0 : vit_stride(static_cast<long long>(T) * K);\n'
+    '  cudaError_t e = cudaFuncSetAttribute(\n'
+    '      hmm_viterbi_kernel<KM>, cudaFuncAttributeMaxDynamicSharedMemorySize,\n'
+    '      static_cast<int>(smem));\n'
+    '  if (e != cudaSuccess) return static_cast<int>(e);\n'
+    '  hmm_viterbi_kernel<KM><<<static_cast<unsigned>(B), THREADS, smem, st>>>(\n'
+    '      X, T, D, K, start, trans, means, covars, states, scratch);\n')
+
+# the chain with every lane holding all K values of a step and LA's K x K
+# in registers (no shuffle on the chain, about four times the instructions
+# a lane; vit_scan_kernel's form), in place of vit_chain
+H2_ALL_K_CHAIN = (
+    "// H2's chain on warp 0, every lane holding all K values (and LA in\n"
+    '// registers): d[t, j] =\n'
+    '// max_i (d[t - 1, i] + LA[i, j]) + lb[t, j], the first i attaining the max\n'
+    "// into psi's row t (lane 0 stores), waiting on `ready` (frames whose lb\n"
+    '// is written) before it reads a row; returns the end state (the first j\n'
+    '// attaining the max of d[T - 1]). la: LA in registers, or shared memory.\n'
+    'template <int KM, int KC>\n'
+    '__device__ __forceinline__ int vit_chain(const Model<KM>& m, const double* lb,\n'
+    '                                         uint8_t* psi, int T, int Kr,\n'
+    '                                         int avail, const int* ready) {\n'
+    '  const int K = KC ? KC : Kr;\n'
+    '  const int lane = threadIdx.x & 31;\n'
+    '  double la[KM][KM];\n'
+    '#pragma unroll\n'
+    '  for (int i = 0; i < KM; ++i)\n'
+    '#pragma unroll\n'
+    '    for (int j = 0; j < KM; ++j)\n'
+    '      la[i][j] = (KC || (i < K && j < K)) ? m.la[i][j] : 0.0;\n'
+    "  // frame t's lb row written: every lane sees `ready` pass t itself\n"
+    '  auto need = [&](int t) {\n'
+    '    if (t >= avail) {\n'
+    '      do {\n'
+    '        avail = __reduce_min_sync(FULL, *reinterpret_cast<const volatile int*>(\n'
+    '                                            ready));\n'
+    '      } while (t >= avail);\n'
+    '      __threadfence_block();\n'
+    '    }\n'
+    '  };\n'
+    '  double d[KM], nb[KM];\n'
+    '#pragma unroll\n'
+    '  for (int j = 0; j < KM; ++j)\n'
+    '    d[j] = KC || j < K ? __dadd_rn(m.ls[j], lb[j]) : 0.0;\n'
+    '  if (T > 1) {\n'
+    '    need(1);\n'
+    '#pragma unroll\n'
+    '    for (int j = 0; j < KM; ++j) nb[j] = KC || j < K ? lb[K + j] : 0.0;\n'
+    '  }\n'
+    '  for (int t = 1; t < T; ++t) {\n'
+    '    double lbt[KM];\n'
+    '#pragma unroll\n'
+    '    for (int j = 0; j < KM; ++j) lbt[j] = nb[j];\n'
+    '    if (t + 1 < T) {\n'
+    '      need(t + 1);\n'
+    '      const double* row = lb + static_cast<long long>(t + 1) * K;\n'
+    '#pragma unroll\n'
+    '      for (int j = 0; j < KM; ++j) nb[j] = KC || j < K ? row[j] : 0.0;\n'
+    '    }\n'
+    '    int arg[KM];\n'
+    '    double nd[KM];\n'
+    '#pragma unroll\n'
+    '    for (int j = 0; j < KM; ++j) {\n'
+    '      double best = __dadd_rn(d[0], la[0][j]);\n'
+    '      int a = 0;\n'
+    '#pragma unroll\n'
+    '      for (int i = 1; i < KM; ++i) {\n'
+    '        const double sc = __dadd_rn(d[i], la[i][j]);\n'
+    '        if ((KC || i < K) && sc > best) {\n'
+    '          best = sc;\n'
+    '          a = i;\n'
+    '        }\n'
+    '      }\n'
+    '      nd[j] = __dadd_rn(best, lbt[j]);\n'
+    '      arg[j] = a;\n'
+    '    }\n'
+    '#pragma unroll\n'
+    '    for (int j = 0; j < KM; ++j) d[j] = nd[j];\n'
+    '    if (lane == 0) {\n'
+    '      uint8_t* p = psi + static_cast<long long>(t) * K;\n'
+    '      if constexpr (KC == 4) {\n'
+    '        *reinterpret_cast<uint32_t*>(p) =\n'
+    '            arg[0] | arg[1] << 8 | arg[2] << 16 | arg[3] << 24;\n'
+    '      } else {\n'
+    '#pragma unroll\n'
+    '        for (int j = 0; j < KM; ++j)\n'
+    '          if (KC || j < K) p[j] = static_cast<uint8_t>(arg[j]);\n'
+    '      }\n'
+    '    }\n'
+    '  }\n'
+    '  double best = d[0];\n'
+    '  int end = 0;\n'
+    '#pragma unroll\n'
+    '  for (int j = 1; j < KM; ++j) {\n'
+    '    if ((KC || j < K) && d[j] > best) {\n'
+    '      best = d[j];\n'
+    '      end = j;\n'
+    '    }\n'
+    '  }\n'
+    '  return end;\n'
+    '}\n'
+    '\n')
+H2_BLOCK_BACKTRACE = "  vit_backtrace_block<KM>(psi, T, K, s_end, maps, out);\n"
+H2_BLOCK_CHAIN = ("    const int end = vit_chain<KM, KC>(m, lb, psi, T, K, first, "
+                  "&ready);")
+H2_PARENT_BACKTRACE = ("  if (lane == 0) backtrace(psi, T, K, end, states + b "
+                       "* T);")
+H2_PARENT_CHAIN = ("  for (int t = 1; t < T; ++t) {\n    int arg;\n"
+                   "    d = vit_step<KM>(d, lacol, lb[")
+
+
+def _h2_block_parent_edits():
+    with open(os.path.join(CSRC, "hmm.cu")) as fh:
+        src = fh.read()
+    kernel = _section(src, "// A barrier of the n threads from warp 1 on",
+                      "// -------------------------------------------------"
+                      "--------------------------\n// The chunked forms.")
+    launch = _section(src, "  const size_t smem = scratch ? 0 : vit_stride",
+                      "  return static_cast<int>(cudaGetLastError());\n}\n\n"
+                      "template <int KM>\nint viterbi_chunked_launch")
+    return [(kernel, H2_BLOCK_PARENT_KERNEL), (launch, H2_BLOCK_PARENT_LAUNCH)]
+
+
+def _h2_block_chain_edit():
+    with open(os.path.join(CSRC, "hmm.cu")) as fh:
+        src = fh.read()
+    return (_section(src, "// H2's chain on warp 0, lane j on state j",
+                     "// H2's backtrace on the block"), H2_ALL_K_CHAIN)
+
+
+H2_BLOCK_VARIANTS = {
+    "parent": (
+        "the parent's kernel: the emissions before the chain, the chain a "
+        "state a lane (K shuffles of a double a step), the backtrace on "
+        "one thread into global memory",
+        _h2_block_parent_edits()),
+    "all_k_chain": (
+        "the chain with every lane holding all K values and LA in "
+        "registers (no shuffle on the chain, K targets a lane), "
+        "vit_scan_kernel's form",
+        [_h2_block_chain_edit()]),
+    "one_thread_backtrace": (
+        "the backtrace walked by one thread (the states staged and stored "
+        "as now)",
+        [(H2_BLOCK_BACKTRACE,
+          "  if (tid == 0) {\n    int st = s_end;\n    out[T - 1] = st;\n"
+          "    for (int t = T - 1; t >= 1; --t) {\n"
+          "      st = psi[static_cast<long long>(t) * K + st];\n"
+          "      out[t - 1] = st;\n    }\n  }\n")]),
+    "no_overlap": (
+        "every emission computed before the chain starts",
+        [("constexpr bool VIT_EM_OVERLAP = true;",
+          "constexpr bool VIT_EM_OVERLAP = false;")]),
+    "no_backtrace": (
+        "ablation: the backtrace skipped (emissions and chain kept)",
+        [(H2_BLOCK_BACKTRACE, "")]),
+    "emissions_only": (
+        "ablation: the chain and the backtrace skipped",
+        [(H2_BLOCK_CHAIN, "    const int end = 0;"),
+         (H2_BLOCK_BACKTRACE, "")]),
+    "parent_no_backtrace": (
+        "ablation: the parent's kernel without its backtrace",
+        _h2_block_parent_edits() + [(H2_PARENT_BACKTRACE, "  (void)end;")]),
+    "parent_emissions_only": (
+        "ablation: the parent's kernel without its chain and backtrace",
+        _h2_block_parent_edits() + [
+            (H2_PARENT_CHAIN, H2_PARENT_CHAIN.replace("t < T", "t < 1")),
+            (H2_PARENT_BACKTRACE, "  (void)end;")]),
+}
+
+
 def _r2_launch(stft_cuda, cfg, dev, a):
     c = stft_cuda.fft_constants(cfg, FS, dev)
     return lambda lib: lib.stft_fft_psd_launch(
@@ -963,6 +1347,10 @@ class Kernel:
     source: str = "stft_psd"   # csrc/<source>.cu
 
 
+# csrc/mel.cu's kernels in nvcc's log, the backward's table staged or not
+MEL_PTXAS = (r"(mel_project_kernel|mel_backward_kernel)(?:ILb(\d)E)?",
+             lambda e: e.group(1) + (f"<{e.group(2)}>" if e.group(2) else ""))
+
 KERNELS = {
     "r2": Kernel(
         ("fft",),
@@ -1042,10 +1430,11 @@ KERNELS = {
         (), (r"display_grad_(kernelILb(\d)E|prep_kernel)",
              lambda e: f"grad<LOG {e.group(2)}>" if e.group(2) else "prep"),
         (), (), None, DISPLAY_GRAD_VARIANTS, "display"),
-    "mel": Kernel(
-        (), (r"(mel_project_kernel|mel_backward_kernel)",
-             lambda e: e.group(1)),
-        (), (), None, MEL_VARIANTS, "mel"),
+    "mel": Kernel((), MEL_PTXAS, (), (), None, MEL_VARIANTS, "mel"),
+    "mel_grad": Kernel((), MEL_PTXAS, (), (), None, MEL_GRAD_VARIANTS,
+                       "mel"),
+    "h2_block": Kernel((), chip_smoke.HMM_PTXAS, (), (), None,
+                       H2_BLOCK_VARIANTS, "hmm"),
 }
 
 
@@ -1270,6 +1659,211 @@ def h2_main(args, kern, names, libs, regs, card):
                       "cases (T, K)": H2_CASES,
                       "configs": {"path 15 (524288 frames, chunks of 256)":
                                   row}}))
+
+
+# the h2_block set's other sequences (T, K, kind), beside path 14's:
+# chip_smoke.py's hmm phase lengths (65,536: the global scratch), K 1-8,
+# two states alike in every parameter (exact ties) and -1e10 zeros in the
+# start and transition probabilities
+H2_BLOCK_CASES = ((1, 4, "fit"), (2, 4, "fit"), (3, 4, "fit"),
+                  (33, 4, "fit"), (600, 4, "fit"), (2047, 4, "fit"),
+                  (65536, 4, "fit"), (1000, 1, "fit"), (1000, 2, "fit"),
+                  (1000, 3, "fit"), (1000, 5, "fit"), (1000, 6, "fit"),
+                  (1000, 8, "fit"), (1000, 4, "ties"), (1000, 4, "zeros"))
+H2_BLOCK_T = 1071       # path 14's frames: 16 min at 1 kHz, scipy_default 1024
+
+
+def h2_block_inputs(dev, T, K, kind, seed, B=1):
+    """B seeded sequences of T frames (chip_smoke.hmm_features) and their
+    k-means starts (``hmm.init_params``), as (X, params) for
+    hmm_viterbi_launch; ``ties``: states 1 and 2 made alike in every
+    parameter; ``zeros``: startprob [.5, .5, 0, ..] and two transitions
+    pinned at 0."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch.models import hmm
+    feats = [chip_smoke.hmm_features(np.random.RandomState(seed + b),
+                                     max(T, 64)) for b in range(B)]
+    ps = []
+    for f in feats:
+        p = (chip_smoke.hmm_params(f, K, dev, "zeros") if kind == "zeros"
+             else hmm.init_params(f, K, device=dev))
+        if kind == "ties":
+            means, covars, trans = (p.means.clone(), p.covars.clone(),
+                                    p.transmat.clone())
+            means[2], covars[2] = means[1], covars[1]
+            trans[:, 1:3] = ((trans[:, 1] + trans[:, 2]) / 2)[:, None]
+            trans[2] = trans[1]
+            start = p.startprob.clone()
+            start[1:3] = (start[1] + start[2]) / 2
+            p = hmm.HMMParams(start, trans, means, covars)
+        ps.append(p)
+    feats = [f[:T] for f in feats]
+    X = torch.tensor(np.stack(feats), dtype=torch.float64, device=dev)
+    return X, tuple(chip_smoke.stack_params(ps))
+
+
+def h2_block_main(args, kern, names, libs, regs, card):
+    """The h2_block set: H2's block form (hmm_viterbi_launch) at path 14's
+    shapes (256 seeded sequences of H2_BLOCK_T frames, K = 4, each from
+    its k-means start), each build in turn, two rounds, CUDA events,
+    median of REPS; the states held to this build's bitwise there and on
+    H2_BLOCK_CASES, and this build's to the plain version
+    (``viterbi_seq_reference``); each build also in runs of
+    chip_smoke.RUN launches between two events (``run_ms``: the host's
+    launch hidden behind the card's work). The ablations give P0's split: the
+    emissions (``emissions_only``), the chain (``no_backtrace`` less
+    that) and the backtrace (this less ``no_backtrace``), and the parent's
+    by its own two."""
+    import torch
+    from spectral_tpu_torch.ops import hmm_cuda
+    dev = torch.device("cuda", 0)
+    ref = hmm_cuda._library()
+    for lib in libs.values():
+        for entry in ("hmm_viterbi_launch", "hmm_viterbi_scratch"):
+            getattr(lib, entry).argtypes = getattr(ref, entry).argtypes
+            getattr(lib, entry).restype = getattr(ref, entry).restype
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(lib, X, p):
+        B, T, D = X.shape
+        K = p[0].shape[-1]
+        states = torch.empty((B, T), dtype=torch.int32, device=dev)
+        per = lib.hmm_viterbi_scratch(T, K)
+        scratch = (torch.empty(B * per, dtype=torch.uint8, device=dev)
+                   if per else None)
+        err = lib.hmm_viterbi_launch(
+            X.data_ptr(), B, T, D, K, *[q.data_ptr() for q in p],
+            states.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, stream)
+        if err:
+            raise SystemExit(f"h2_block: hmm_viterbi_launch returned {err}")
+        return states
+
+    X, p = h2_block_inputs(dev, H2_BLOCK_T, 4, "fit", 1400, B=256)
+    cases = [h2_block_inputs(dev, T, K, kind, 1500 + i)
+             for i, (T, K, kind) in enumerate(H2_BLOCK_CASES)]
+    want = run(libs["this"], X, p)
+    want_cases = [run(libs["this"], *c) for c in cases]
+    plain = [bool(torch.equal(w, hmm_cuda.viterbi_seq_reference(*c)))
+             for w, c in zip([want] + want_cases, [(X, p)] + cases)]
+    if not all(plain):
+        raise SystemExit(f"h2_block: this build's states differ from the "
+                         f"plain version's: {plain}")
+    row = {"plain_same": plain}
+    for rnd in range(2):
+        for name in (names if rnd == 0 else names[::-1]):
+            entry = row.setdefault(name, {"ms": [], "run_ms": []})
+            entry["ms"].append(_timed(lambda: run(libs[name], X, p)))
+            entry["run_ms"].append(chip_smoke.time_ms(
+                lambda: run(libs[name], X, p), run=chip_smoke.RUN)[0])
+            if rnd == 0:
+                entry["same_output"] = bool(torch.equal(
+                    run(libs[name], X, p), want))
+                entry["same_cases"] = [
+                    bool(torch.equal(run(libs[name], *c), w))
+                    for c, w in zip(cases, want_cases)]
+        print("round", rnd, {k: [round(t, 4) for t in v["ms"] + v["run_ms"]]
+                             for k, v in row.items() if isinstance(v, dict)},
+              flush=True)
+    print(json.dumps({"kernel": "h2_block", "card": card, "ptxas": regs,
+                      "cases (T, K, kind)": H2_BLOCK_CASES,
+                      "configs": {f"path 14 (256 x {H2_BLOCK_T}, K 4)": row}}))
+
+
+def mel_grad_cases():
+    """(label, n_mels, bins, mel band rows or None, rows R): path 21's
+    128-mel shapes first (path 1's batch: 1024 clips x 622 frames), then
+    the tile layout's edges: a mel band, 40 mels over 257 bins on R not a
+    multiple of 32, and 64 mels over 4097 bins (the table past
+    MB_TABLE_SMEM, the outputs in chunks of bins)."""
+    return (("path 21, 128 mels over 513 bins", 128, 513, None, 1024 * 622),
+            ("a mel band, rows 10-99 of 128 over 513 bins", 128, 513,
+             (10, 100), 8 * 622),
+            ("40 mels over 257 bins, R = 4981", 40, 257, None, 4981),
+            ("64 mels over 4097 bins", 64, 4097, None, 2000))
+
+
+def mel_grad_main(args, kern, names, libs, regs, card):
+    """The mel_grad set: mel_backward_launch on mel_grad_cases()'s shapes,
+    a seeded gradient with an inf, a -inf and a NaN in it; two rounds in
+    turns, CUDA events, median of 5. This build is held to the plain
+    version (``mel_backward_reference``) on its first 4,976 rows within
+    chip_smoke's MEL_ULPS, NaN in its places; each variant's dpsd to this
+    build's, bitwise, NaN payloads included (the parent's through its own
+    C entry, on the SoA table)."""
+    import torch
+    from spectral_tpu_torch.core.mel import mel_filterbank
+    from spectral_tpu_torch.ops import mel_cuda
+    dev = torch.device("cuda", 0)
+    ref = mel_cuda._library()
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, lib in libs.items():
+        if name.startswith("parent"):
+            lib.mel_backward_launch.argtypes = [ptr] * 5 + [i64, i32, i32,
+                                                            ptr, ptr]
+        else:
+            lib.mel_backward_launch.argtypes = \
+                ref.mel_backward_launch.argtypes
+        lib.mel_backward_launch.restype = i32
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    report = {"kernel": "mel_grad", "card": card, "ptxas": regs,
+              "configs": {}}
+    for label, n_mels, F, band, R in mel_grad_cases():
+        fb = mel_filterbank(n_mels, F, FS)
+        if band:
+            fb = fb[band[0]:band[1]]
+        M = len(fb)
+        spans = mel_cuda.mel_spans(fb, dev)
+        soa = [torch.tensor(a, device=dev) for a in mel_cuda.bin_table(fb)]
+        gen = torch.Generator(device=dev).manual_seed(27)
+        dmel = torch.randn((R, M), generator=gen, device=dev)
+        dmel[7, M // 3] = float("inf")
+        dmel[100, 3] = float("nan")
+        dmel[R - 9, M - 1] = -float("inf")
+        out = torch.empty((R, F), device=dev)
+
+        def launcher(name):
+            lib = libs[name]
+            if name.startswith("parent"):
+                args = (dmel.data_ptr(), *[a.data_ptr() for a in soa], R, F,
+                        M, out.data_ptr(), stream)
+            else:
+                args = (dmel.data_ptr(), spans.bin_records.data_ptr(),
+                        spans.bin_slots, R, F, M, out.data_ptr(), stream)
+
+            def launch():
+                err = lib.mel_backward_launch(*args)
+                if err:
+                    raise SystemExit(f"{label}: {name}'s "
+                                     f"mel_backward_launch failed: {err}")
+            return launch
+
+        launcher("this")()
+        torch.cuda.synchronize()
+        rows = min(R, 4976)
+        plain = mel_cuda.mel_backward_reference(dmel[:rows], spans)
+        ulps = chip_smoke.ulp_distance(out[:rows], plain)
+        same_places = bool(torch.equal(torch.isnan(out[:rows]),
+                                       torch.isnan(plain)))
+        if not (ulps <= chip_smoke.MEL_ULPS and same_places):
+            raise SystemExit(f"{label}: {ulps} ulp from the plain version, "
+                             f"NaN in its places {same_places}")
+        want = out.clone()
+        row = {"plain_ulps": ulps, "rows": R, "mels": M, "bins": F}
+        for rnd in range(2):
+            for name in (names if rnd == 0 else names[::-1]):
+                entry = row.setdefault(name, {"ms": []})
+                entry["ms"].append(_timed(launcher(name)))
+                entry["same_output"] = bool(torch.equal(
+                    out.view(torch.int32), want.view(torch.int32)))
+        report["configs"][label] = row
+        print(label, {k: v if not isinstance(v, dict) else
+                      [round(t, 3) for t in v["ms"]]
+                      for k, v in row.items()}, flush=True)
+        del dmel, out, want
+        torch.cuda.empty_cache()
+    print(json.dumps(report))
 
 
 def sass_counts(so, pattern):
@@ -1649,6 +2243,12 @@ def main(argv=None) -> None:
           f"s; ptxas {regs}", flush=True)
     if args.kernel == "h2":
         h2_main(args, kern, names, libs, regs, card)
+        return
+    if args.kernel == "h2_block":
+        h2_block_main(args, kern, names, libs, regs, card)
+        return
+    if args.kernel == "mel_grad":
+        mel_grad_main(args, kern, names, libs, regs, card)
         return
     if kern.source == "hmm":
         hmm_main(args, kern, names, libs, regs, card)

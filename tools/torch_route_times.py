@@ -64,14 +64,18 @@ of the fitted model, ll, it, the states and the event lists; and path
 on path 10's batch (1024 clips of 10 s, the GEMM route's backward) among
 them:
 the waveform of path 1's batch requiring grad, ``batched_spectrogram_fn``
-at north_star 1024/256 log, and of path 4's batch (256 clips of 60 s) at
+at north_star 1024/256 log and at 128 log mels (the loss on the image
+and the mel rows, the mel backward B3 in it), and of path 4's batch (256
+clips of 60 s) at
 scipy_default 8160 log (the mixed route's backward), 8182 log and 8185
 log (the Bluestein route's, on one block and on a cluster), the loss on
 the
 image and the PSD as ``chip_smoke.py`` takes it, ``backward()`` and a
 synchronise, its wall ms on the host clock (median of 5 after a
-warm-up), the launches of a step, and a digest, the norm and the largest
-|entry| of the gradient of the first 8 clips (two checkouts whose
+warm-up), the launches of a step (path 1's batch: and one more step
+under ``torch.profiler``, ``chip_smoke.py::step_split``: the port's
+kernels, torch's own ops and the host's gaps), and a digest, the norm
+and the largest |entry| of the gradient of the first 8 clips (two checkouts whose
 backward sums in another order give other digests and norms equal to
 about 1e-7); path 12's also digest the partials of its first 8 clips'
 mel rows, and every pipeline the image of its first 8 clips.
@@ -205,7 +209,8 @@ def time_pipelines(paths, report, SpecConfig, batch, dev):
     if not paths or 15 in paths:
         time_long_detection(report, dev)
     if not paths or 21 in paths:
-        time_grad_step(report, SpecConfig, batch)
+        time_grad_step(report, SpecConfig, batch, split=True)
+        time_grad_step(report, SpecConfig, batch, n_mels=128, split=True)
         time_grad_step(report, SpecConfig, batch, 24, (CLIPS, SECONDS))
         for k in (8160, 8182, 8185):
             time_grad_step(report, SpecConfig, batch, k)
@@ -250,8 +255,9 @@ def time_fleet_detection(report, dev):
     of 16 min at 1 kHz, seed 14), scipy_default 1024 on the 0-30 Hz band,
     features_from_psd, batch_unsupervised_detect (host k-means, H1, the
     patch, H2, host scans), 4 states, n_iter 100: the stages' times, H1's
-    ms and ns a step, H2's ms, and digests of the fitted model, ll, it,
-    the states and the event lists."""
+    ms and ns a step, H2's ms (a call, and in runs of chip_smoke.RUN) and
+    its chain's steps, and digests of the fitted model, ll, it, the
+    states and the event lists."""
     import torch
     from spectral_tpu_torch import SpecConfig
     from spectral_tpu_torch.core import events as ev
@@ -281,6 +287,7 @@ def time_fleet_detection(report, dev):
     X = feats.to(torch.float64).contiguous()
     params, states, _, ll, it = hmm.unsupervised_fit_decode(p0, X)
     T = X.shape[1]
+    vparams = hmm.HMMParams(*(p.contiguous() for p in params))
     fit_ms, fit_reps = smoke.time_ms(lambda: hmm_cuda.fit_seq(
         X, p0, 100, hmm.DEFAULT_TOL), reps=3)
     steps = int(it.max()) * (T - 1)
@@ -291,7 +298,10 @@ def time_fleet_detection(report, dev):
         "fit_kernel_ms": fit_ms, "fit_kernel_reps_ms": fit_reps,
         "fit_ns_a_step": 1e6 * fit_ms / steps,
         "viterbi_kernel_ms": smoke.time_ms(lambda: hmm_cuda.viterbi_seq(
-            X, hmm.HMMParams(*(p.contiguous() for p in params))))[0],
+            X, vparams))[0],
+        "viterbi_kernel_run_ms": smoke.time_ms(lambda: hmm_cuda.viterbi_seq(
+            X, vparams), run=smoke.RUN)[0],
+        "viterbi_chain_steps": T - 1,
         "iterations": [int(it.min()), int(it.cpu().median()), int(it.max())],
         "digests": {**_params_digests(params, ll, it),
                     "states": _digest(states), "events": _digest_obj(events)}}
@@ -389,37 +399,46 @@ def time_long_detection(report, dev):
 
 
 def time_grad_step(report, SpecConfig, batch, nperseg=None,
-                   shape=(256, 60.0)):
+                   shape=(256, 60.0), n_mels=None, split=False):
     """Path 21's training step: on path 1's batch at north_star 1024/256
-    log, or with ``nperseg`` on ``shape``'s batch (path 4's, 256 clips of
-    60 s, unless named) at scipy_default ``nperseg`` log; the forward and
-    the backward through batched_spectrogram_fn, synchronised."""
+    log (with ``n_mels``, that many log mels, the loss on the mel rows as
+    chip_smoke.py takes it), or with ``nperseg`` on ``shape``'s batch
+    (path 4's, 256 clips of 60 s, unless named) at scipy_default
+    ``nperseg`` log; the forward and the backward through
+    batched_spectrogram_fn, synchronised. With ``split``, one more step
+    under torch.profiler (``chip_smoke.py::step_split``): the port's
+    kernels, torch's own ops and the host's gaps."""
     import time
     import torch
-    from spectral_tpu_torch.ops import stft_cuda
+    from spectral_tpu_torch.ops import mel_cuda, stft_cuda
     from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
+    key = "mel" if n_mels else "psd"
     if nperseg is None:
-        cfg = SpecConfig.north_star(1024, 256, log_scale=True)
+        cfg = SpecConfig.north_star(1024, 256, n_mels=n_mels,
+                                    log_scale=True)
         shape, name = (CLIPS, SECONDS), "pipeline path 21 training step"
+        if n_mels:
+            name += f" {n_mels} mels"
     else:
         cfg = SpecConfig.scipy_default(nperseg, log_scale=True)
         name = f"pipeline path 21 training step {nperseg}"
     x0 = batch(*shape)
     fn = batched_spectrogram_fn(FS, cfg, flip_image=True)
     with torch.no_grad():
-        scale = float(fn(x0)["psd"].mean())
+        scale = float(fn(x0)[key].mean())
 
     def step():
         x = x0.clone().requires_grad_()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(x)
-        (out["image"].mean() + out["psd"].mean() / scale).backward()
+        (out["image"].mean() + out[key].mean() / scale).backward()
         torch.cuda.synchronize()
         return x.grad, 1e3 * (time.perf_counter() - t0)
 
     print(name, file=sys.stderr, flush=True)
-    counts = (stft_cuda.launches, stft_cuda.grad_launches)
+    counts = (stft_cuda.launches, stft_cuda.grad_launches,
+              mel_cuda.launches, mel_cuda.grad_launches)
     before = [dict(c) for c in counts]
     grad = step()[0][:8]                         # build, warm up
     launches = {k: c[k] - b.get(k, 0) for c, b in zip(counts, before)
@@ -431,6 +450,8 @@ def time_grad_step(report, SpecConfig, batch, nperseg=None,
     reps = [step()[1] for _ in range(REPS)]
     entry["ms"] = sorted(reps)[REPS // 2]
     entry["reps_ms"] = reps
+    if split:
+        entry["split"] = _smoke().step_split(step, name, report["card"])
     report[name] = entry
     del x0
     torch.cuda.empty_cache()
