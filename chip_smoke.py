@@ -28,7 +28,17 @@ and 8191; the GEMM route's small-K tile at every nperseg 2-31 with hop
 below and above nperseg, rows that cross a clip's edge inside a block,
 NaN and overflow clips, log10_out and T = 0 (GEMM_CASES); the ptxas
 registers and spills of the odd, Bluestein and GEMM kernels'
-instantiations; the GEMM kernel's large tile forced beside them) and the
+instantiations; the GEMM kernel's large tile forced beside them; past
+8192 (``large_kernel_cases``) the radix-2 kernel on one block of 8192
+points at nfft 16384 and as two half transforms a frame at 32768, and
+the Bluestein kernel on one block at
+8194, on clusters of two at 20000, of four at 14409 and 28814 and of
+eight at 28813 and 32767, within PSD_TOL of the plain version (float64
+``torch.fft``) and bitwise themselves on a rerun, under every detrend, the
+magnitude and the complex STFT, two-sided, bands bitwise the full band's
+columns, log10_out, an odd pair's zero, NaN and 1e-6 frames, nperseg 1024
+and 20000 zero-padded to 16384 and 32768, the partials' tiles, each
+cluster of four and eight placed on the card) and the
 display tail's two kernels (``clip_stats``: pmin and pmax bitwise
 ``torch.amin``/``amax`` of the partials, the flags and display operands
 the plain version's, on NaN, inf, DC, tiny, silent and loud clips, odd n,
@@ -68,8 +78,8 @@ within HMM_PARAM_TOL and HMM_LL_TOL of it, and bitwise the host loop over
 one E-step launch an iteration and the torch M-step; a six-state model
 (the instantiation for 5-8 states) through all three at T 3000; with
 each kernel's ptxas registers and spills. Then it drives eighteen paths at
-full size, the GUI, the command line, the extended modes and the
-gradients, each with the launch counts set to 0 just before it and read
+full size, the GUI, the command line, the extended modes, the
+gradients and transforms past 8192, each with the launch counts set to 0 just before it and read
 just after; each
 call of the pipeline on paths 1-11 and 13 is one launch of the route's
 STFT kernel, one of clip_stats and one of the display map, and on path 12
@@ -245,8 +255,9 @@ the host has no matplotlib, one line that says so; and
     backward launch each, X recomputed inside, 24 (the GEMM route's
     small-K configs: one launch of ``stft_small_backward_kernel``, X
     recomputed in registers, held to its plain version and to B1
-    forced), and 24 two-sided and nfft 8200 over 24 (the rest of the GEMM
-    route: one recompute of X by its complex epilogue, then
+    forced), and 24 two-sided and nfft 8200 over 24 (the "dense"
+    backward: one recompute of X by the route's complex epilogue, the GEMM
+    kernel's or, at nfft 8200, the Bluestein kernel's, then
     ``stft_backward_kernel``); one SGD step at path 4's
     config on its full batch (256 x 60 s at scipy_default 8160 log);
     each backward kernel timed against its plain version, its bound and
@@ -273,9 +284,22 @@ the host has no matplotlib, one line that says so; and
     forced within GRAD_TOL and to itself run again bit for bit (the
     kernel fuses each product into an FMA where the plain version rounds
     it apart, so it need not equal the plain version), and the GEMM route
-    past it (24 two-sided, nfft 8200 over 24) on B1, and the mel and display
+    past it (24 two-sided, nfft 8200 over 24, whose X the Bluestein kernel
+    recomputes) on B1, and the mel and display
     backward at paths 12's and 1's shapes (tied extrema, share_max,
-    linear and log, flipped).
+    linear and log, flipped); and a CUDA step at nperseg 16384, refused
+    naming [large-nperseg] before any launch.
+
+22. transforms past 8192 (``large_path``, [large-nperseg]): path 2's
+    batch through ``batched_spectrogram_fn`` at scipy_default 16384 (the
+    radix-2 kernel, one block of 8192 points a frame) and 32768 (two half
+    transforms a frame), 20000, 30000
+    and 32767 (the Bluestein kernel on clusters of two, four and eight),
+    and at 16384 with 128 log mels and with the 0-30 Hz band: one launch
+    of the route's kernel a call and none of the GEMM kernel, clip 0
+    within 1e-3 dB of scipy float64, the PSD within PSD_TOL of the plain
+    version, each kernel timed beside its bound, cuFFT and the plain
+    version.
 
 It checks images against scipy in float64 (limit 1e-3 dB), the oracle in
 ``tools/torch_precision.py``, and times kernel, plain and library paths
@@ -740,6 +764,16 @@ def build_kernels():
               lambda e: (f"small-K tile<NB {e.group(2)}"
                          f"{', EXT' if e.group(3) == '1' else ''}>")
               if e.group(2) else "large tile")))
+    print("radix-2 kernel past 8192 (stft_fft_split_psd_kernel<LOG2M, LR, "
+          "EXT>, two half transforms a frame), ptxas: " + "; ".join(
+              radix2_ptxas(info["log"],
+                           r"stft_fft_split_psd_kernelILi(\d+)ELi(\d+)ELb(\d)E")))
+    print("Bluestein kernel on clusters of four and eight "
+          "(stft_bluestein_cluster_psd_kernel<RANKS, EXT>), ptxas: "
+          + "; ".join(radix2_ptxas(
+              info["log"], r"stft_bluestein_cluster_psd_kernelILi(\d)ELb(\d)E",
+              lambda e: f"RANKS {e.group(1)}"
+                        f"{', EXT' if e.group(2) == '1' else ''}")))
     print("Bluestein kernel (stft_bluestein_psd_kernel<RANKS, TWO, EXT>), "
           "ptxas: " + "; ".join(radix2_ptxas(
               info["log"],
@@ -1407,6 +1441,179 @@ def odd_kernel_cases(dev, cases=ODD_CASES, edges=(1023, 8191),
             f"{over}")
 
 
+LARGE_R2_CASES = (16384, 32768)
+# one block, a cluster of two, of four (odd, even) and of eight (odd)
+LARGE_BLUESTEIN_CASES = (8194, 20000, 14409, 28814, 28813, 32767)
+
+
+def large_kernel_cases(dev):
+    """[large-nperseg]: the radix-2 kernel past 8192 at nfft 16384 (one
+    block of 8192 points a frame) and 32768 (a frame as two half
+    transforms, the bins of each parity), and the
+    Bluestein kernel on one block (8194), a cluster of two (20000), of
+    four (14409, 28814) and of eight (28813, 32767), against the plain
+    version (``plain_constants``: float64 ``torch.fft``, no dense matrix)
+    within PSD_TOL on 2 clips of T = 5 (an odd pair's lone last frame):
+    every detrend, the magnitude and the complex STFT (its mirrored bins
+    bitwise conjugates two-sided), a two-sided spectrum, bands bitwise the
+    full band's columns, log10_out, the zero, NaN and 1e-6 frames an odd
+    pair must keep apart, nperseg 1024 and 20000 zero-padded to 16384 and
+    32768; each launch once, its rerun bitwise, the partials' tiles (the
+    split's two, a cluster's ranks) reduced to each frame's extrema; the
+    clusters of four and eight placed on the card
+    (``cudaOccupancyMaxActiveClusters``)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.ops import stft_cuda
+    from torch_precision import trend
+
+    phase("transforms past 8192 ([large-nperseg]) against the plain version")
+    rs = np.random.RandomState(28)
+    worst = {}
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    def run(x, cfg, band, out, log10_out=False):
+        if out == "complex":
+            return (stft_cuda.stft_complex(x, FS, cfg, band),)
+        if log10_out:
+            return (stft_cuda.stft_psd(x, FS, cfg, band=band,
+                                       log10_out=True),)
+        return stft_cuda.stft_psd(x, FS, cfg, with_stats=True, band=band)
+
+    def check(x, cfg, what, band=None, out=None, log10_out=False):
+        route = stft_cuda.route(cfg)
+        require(route in ("fft", "bluestein"), f"{what}: route {route}")
+        before = dict(stft_cuda.launches)
+        got = run(x, cfg, band, out, log10_out)
+        torch.cuda.synchronize()
+        _launched(route, before, what)
+        again = run(x, cfg, band, out, log10_out)
+        require(all(bitwise(a, b) for a, b in zip(got, again)),
+                f"{what}: a rerun is not bitwise the first run")
+        consts = stft_cuda.plain_constants(cfg, FS, dev, band, out)
+        if out == "complex":
+            want = (stft_cuda.stft_complex_reference(x, consts, cfg),)
+            rel, _ = frame_err(got[0], want[0])
+            require(rel <= PSD_TOL, f"{what}: complex {rel:.2e} of a "
+                    "frame's max |X|")
+            if not cfg.onesided:
+                require(mirrored(got[0], cfg.nfft_),
+                        f"{what}: mirrored bins not conjugates bitwise")
+        else:
+            want = stft_cuda.stft_psd_reference(
+                x, consts, cfg, log10_out=log10_out,
+                with_stats=not log10_out)
+            want = (want,) if log10_out else want
+            for name, g, w in zip(("psd", "pmin", "pmax"), got, want):
+                odd = (torch.isnan(g) != torch.isnan(w)) | (
+                    torch.isinf(g) != torch.isinf(w))
+                require(not bool(odd.any()),
+                        f"{what}: NaN or inf in other places in {name}: "
+                        f"{odd.nonzero()[:8].tolist()} of "
+                        f"{int(odd.sum())}")
+            p, q = got[0], want[0]
+            if log10_out:
+                p, q = 10.0 ** p.double(), 10.0 ** q.double()
+            ok = torch.isfinite(q)
+            diff = torch.where(ok, (p - q).abs(), 0.0).amax(dim=(1, 2))
+            scale = torch.where(ok, q.abs(), 0.0).amax(dim=(1, 2))
+            rel = float((diff / scale.clamp_min(1e-30)).amax())
+            require(rel <= PSD_TOL, f"{what}: {rel:.2e} of the clip max")
+            if not log10_out:
+                require(bitwise(got[1], torch.amin(got[0], dim=(1, 2)))
+                        and bitwise(got[2], torch.amax(got[0], dim=(1, 2))),
+                        f"{what}: the extrema are not the PSD's")
+        ulps = ulp_distance(got[0], want[0]) if out != "complex" else 0
+        worst[f"{what} [{route}]"] = rel
+        print(f"{what} [{route}]: {rel:.2e} of the "
+              f"{'frame' if out == 'complex' else 'clip'} max"
+              + (f", {ulps} float32 ulps" if out != "complex" else ""))
+        return got
+
+    def bands_of(x, cfg, what):
+        full = run(x, cfg, None, None)[0]
+        F = cfg.n_freqs
+        for lo, hi in ((0, 1), (F - 1, F), (1, F - 1), (3, 20),
+                       (F // 3, F // 3 + 1), (F // 2 - 7, F // 2 + 8)):
+            got = check(x, cfg, f"{what}, band ({lo}, {hi})", band=(lo, hi))
+            require(bitwise(got[0], full[..., lo:hi]),
+                    f"{what}: band ({lo}, {hi}) is not the full band's "
+                    "columns bitwise")
+
+    def tiles(x, cfg, what):
+        psd, parts = stft_cuda.stft_psd_partials(x, FS, cfg)
+        want = stft_cuda.partial_tiles(cfg, stft_cuda.route(cfg))
+        require(parts.shape[1] == want
+                and bitwise(parts[0].amin(dim=0), psd.amin(dim=-1))
+                and bitwise(parts[1].amax(dim=0), psd.amax(dim=-1)),
+                f"{what}: {parts.shape[1]} tiles of partials, not {want} "
+                "that reduce to each frame's extrema")
+        print(f"{what}: {want} tile(s) of partials a frame, each frame's "
+              "extrema bitwise")
+
+    def clips(k, hop, offset, detrend):
+        n = k + 4 * hop                         # T = 5
+        x = rs.randn(2, n) + offset
+        return x + trend(n) if detrend == "linear" else x
+
+    for k in LARGE_R2_CASES + LARGE_BLUESTEIN_CASES:
+        hop = k // 2
+        for detrend, offset in (("none", 0.0), ("constant", 3.0),
+                                ("linear", 0.0)):
+            cfg = SpecConfig(nperseg=k, hop=hop, detrend=detrend)
+            x = on_card(clips(k, hop, offset, detrend))
+            check(x, cfg, f"nperseg {k}, {detrend}, T = 5")
+        cfg = SpecConfig(nperseg=k, hop=hop, detrend="constant")
+        x = on_card(clips(k, hop, 3.0, "constant"))
+        tiles(x, cfg, f"nperseg {k}")
+        bands_of(x, cfg, f"nperseg {k}")
+        check(x, cfg, f"nperseg {k}, log10_out", log10_out=True)
+        check(x, dataclasses.replace(cfg, mode="magnitude"),
+              f"nperseg {k}, magnitude")
+        check(x, cfg, f"nperseg {k}, complex", out="complex")
+        if k in (16384, 28814, 32767):
+            two = dataclasses.replace(cfg, onesided=False)
+            check(x, two, f"nperseg {k}, two-sided")
+            check(x, two, f"nperseg {k}, two-sided complex", out="complex")
+        if stft_cuda.route(cfg) == "bluestein" and k % 2:
+            # frames apart (hop = nperseg), T = 7: clip 0's frame 1 all
+            # zero beside loud frame 0, its frame 4 at 1e-6 beside frame 5;
+            # clip 1 a NaN in frame 3 beside frame 2; frame 6 alone
+            pcfg = SpecConfig(nperseg=k, hop=k, detrend="constant")
+            xc = rs.randn(2, 7 * k) + 3.0
+            xc[0, k:2 * k] = 0.0
+            xc[0, 4 * k:5 * k] = 1e-6 * rs.randn(k)
+            xc[1, 3 * k + k // 2] = np.nan
+            got = check(on_card(xc), pcfg, f"nperseg {k}, zero, 1e-6 and "
+                        "NaN frames beside loud ones")
+            frames_ok = torch.isfinite(got[0][1]).all(dim=1).tolist()
+            require(bool((got[0][0, 1] == 0).all())
+                    and float(got[1][0]) == 0.0
+                    and bool(torch.isnan(got[1][1]))
+                    and frames_ok == [True] * 3 + [False] + [True] * 3,
+                    f"nperseg {k}: the zero frame's bins exactly 0, the NaN "
+                    f"only in its own frame: {frames_ok}")
+        ranks = (stft_cuda.bluestein_plan(k).ranks
+                 if stft_cuda.route(cfg) == "bluestein" else 0)
+        if ranks > 2:
+            held = stft_cuda.bluestein_clusters(cfg, dev)
+            require(held >= 1, f"nperseg {k}: no cluster of {ranks} fits")
+            print(f"nperseg {k}: M = {stft_cuda.bluestein_plan(k).m} on "
+                  f"clusters of {ranks}, {held} of them on the card at once")
+    for L, K in ((1024, 16384), (20000, 32768)):
+        cfg = SpecConfig(nperseg=L, nfft=K, hop=L // 2, detrend="linear")
+        x = on_card(clips(L, L // 2, 0.0, "linear"))
+        check(x, cfg, f"nperseg {L} zero-padded to {K}")
+        check(x, cfg, f"nperseg {L} zero-padded to {K}, complex",
+              out="complex")
+    print(f"transforms past 8192: {len(worst)} cases, largest error "
+          f"{max(worst.values()):.2e} (limit {PSD_TOL:g})")
+
+
 def scipy_checks(dev, card):
     """The display contract against scipy float64 on clips that break a
     float32 chain (tools/torch_precision.py): scipy_default 1024 on
@@ -1855,6 +2062,181 @@ def long_path(dev, card, dfma_peak, cfg, label, clips=K2_CLIPS,
                 ms=timings["stft_kernel"][0],
                 plain_ms=timings["stft_plain"][0], bound=bound,
                 library_ms=timings["stft_library"][0])
+
+
+# path 22: transforms past 8192 at full width, the radix-2 kernel's split
+# (16384, 32768) and the Bluestein kernel on two, four and eight ranks
+LARGE_PATH = ((16384, "radix-2, one block of 8192 points a frame"),
+              (32768, "radix-2, two half transforms a frame"),
+              (20000, "Bluestein on a cluster of two"),
+              (30000, "Bluestein on a cluster of four"),
+              (32767, "Bluestein on a cluster of eight"))
+
+
+# the kernels past 8192 replace no TPU kernel: the JAX package computes those
+# frames on its rFFT route, its Pallas kernel's VMEM stopping at 8192
+LARGE_REPLACES = ("none: power_spectrogram's XLA rFFT past the Pallas "
+                  "kernel's 8192 (spectral_tpu/core/stft.py:769, :794; "
+                  "spectral_tpu/ops/stft_pallas.py:93)")
+
+
+def bluestein_m(k):
+    """The Bluestein kernel's convolution length at nfft k."""
+    from spectral_tpu_torch.core.stft import bluestein_plan
+    return bluestein_plan(k).m
+
+
+def large_grad_refusal(dev):
+    """[large-nperseg]: one training step at nperseg 16384 on a CUDA
+    waveform that requires grad raises NotImplementedError naming the item
+    before any launch; without grad the same call runs."""
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.stft import power_spectrogram
+    from spectral_tpu_torch.ops import stft_cuda
+    phase("the gradient past 8192: refused on the card")
+    cfg = SpecConfig.scipy_default(16384)
+    x = torch.randn((2, 40000), device=dev, requires_grad=True)
+    reset_counts()
+    try:
+        power_spectrogram(x, FS, cfg).sum().backward()
+    except NotImplementedError as err:
+        require("[large-nperseg]" in str(err), f"the refusal's text: {err}")
+        print(f"a step at nperseg 16384 raises: {err}")
+    else:
+        raise RuntimeError("chip_smoke check failed: a CUDA step at "
+                           "nperseg 16384 did not raise")
+    require(not any(flat_counts(read_counts()).values()),
+            f"launches before the refusal: {read_counts()}")
+    p = power_spectrogram(x.detach(), FS, cfg)
+    torch.cuda.synchronize()
+    require(stft_cuda.launches["fft"] == 1 and tuple(p.shape) == (2, 2, 8193),
+            "the same call without grad: one radix-2 launch")
+
+
+def large_path(dev, card):
+    """Path 22, transforms past 8192 ([large-nperseg]): path 2's batch (256
+    clips of 60 s at 16 kHz) through ``batched_spectrogram_fn`` at
+    scipy_default 16384 (the radix-2 kernel, one block of 8192 points a
+    frame) and 32768 (two half transforms a frame), 20000, 30000 and 32767 (the Bluestein kernel on clusters of
+    two, four and eight), log, then 128 log mels and the 0-30 Hz band at
+    16384: one launch of the route's kernel a call and no GEMM launch,
+    clip 0 within 1e-3 dB of scipy float64 (the band's rows, or the mel
+    rows of scipy's PSD), the PSD within PSD_TOL of the plain version
+    (float64 ``torch.fft``); the kernel's ms (CUDA events, median of REPS
+    after a warm-up) beside its bound, cuFFT's f64 yardstick
+    (``library_psd``) and the plain version's. Returns the kernels' rows
+    (the mel kernel's time printed, its row path 12's)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.mel import mel_filterbank
+    from spectral_tpu_torch.core.stft import (band_row_slice, freq_axis,
+                                              num_frames)
+    from spectral_tpu_torch.ops import mel_cuda, stft_cuda
+    from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
+    from torch_precision import log_display, scipy_psd
+
+    n = int(FS * K2_SECONDS)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn((K2_CLIPS, n), generator=gen, device=dev)
+    x0 = x[0].double().cpu().numpy()
+    rows = {}
+    configs = [(k, SpecConfig.scipy_default(k, log_scale=True), what)
+               for k, what in LARGE_PATH]
+    base = SpecConfig.scipy_default(16384, log_scale=True)
+    configs += [(16384, dataclasses.replace(base, n_mels=128),
+                 "128 log mels"),
+                (16384, dataclasses.replace(base, fmin=0.0, fmax=30.0),
+                 "the 0-30 Hz band")]
+    for k, cfg, what in configs:
+        route = stft_cuda.route(cfg)
+        label = f"path 22, scipy_default {k}, {what}"
+        phase(f"{label}: {K2_CLIPS} clips x {K2_SECONDS:g} s, the {route} "
+              "route")
+        T, F = num_frames(n, k, cfg.hop_), cfg.n_freqs
+        band = (band_row_slice(freq_axis(cfg, FS), cfg.fmin, cfg.fmax)
+                if cfg.fmax is not None else None)
+        lo, hi = band or (0, F)
+        fn = batched_spectrogram_fn(FS, cfg, flip_image=True)
+        reset_counts()
+        out = fn(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        flat = flat_counts(counts)
+        print(f"launches by route: "
+              + ", ".join(f"{r} {c}" for r, c in counts["stft_psd"].items()))
+        want = {f"stft_{route}": 1, "clip_stats": 1, "rgba": 1}
+        if cfg.n_mels:
+            want["mel"] = 1
+        require_counts(counts, want, label)
+        require(flat["stft_gemm"] == 0, f"{label}: a GEMM launch")
+        # clip 0 against scipy float64: the band's rows, or its mel rows
+        ref = scipy_psd(x0, cfg, FS)[lo:hi]
+        if cfg.n_mels:
+            ref = mel_filterbank(cfg.n_mels, F, FS) @ ref
+        oracle, db_range = log_display(ref)
+        img = out["image"][0].flip(0).double().cpu().numpy()
+        require(img.shape == oracle.shape,
+                f"{label}: image {img.shape}, scipy {oracle.shape}")
+        db_err = float(np.max(np.abs(img - oracle)) * db_range)
+        require(db_err <= DB_TOL, f"{label} clip 0 vs scipy f64: "
+                f"{db_err:.3e} dB")
+        consts = stft_cuda.plain_constants(cfg, FS, dev, band)
+        psd_p = stft_cuda.stft_psd_reference(x, consts, cfg)
+        rel, err = psd_err(out["psd"], psd_p)
+        require(rel <= PSD_TOL, f"{label} psd vs plain: {rel:.2e}")
+        print(f"clip 0 vs scipy float64: {db_err:.3e} dB (limit "
+              f"{DB_TOL:g}); psd vs plain (torch.fft f64): {rel:.2e} of "
+              f"clip max ({err:.3e} abs), largest float32 ulp distance "
+              f"{ulp_distance(out['psd'], psd_p)}")
+        del psd_p, out
+        timings = {
+            "stft_kernel": time_ms(lambda: stft_cuda.stft_psd(
+                x, FS, cfg, with_stats=True, band=band)),
+            "stft_plain": time_ms(lambda: stft_cuda.stft_psd_reference(
+                x, consts, cfg, with_stats=True)),
+            "stft_library": time_ms(lambda: library_psd(x, cfg)[..., lo:hi]),
+            "pipeline_kernel": time_ms(lambda: fn(x)),
+        }
+        if cfg.n_mels:
+            psd = stft_cuda.stft_psd(x, FS, cfg)
+            spans = mel_cuda.mel_spans(mel_filterbank(cfg.n_mels, F, FS),
+                                       dev)
+            timings["mel_kernel"] = time_ms(
+                lambda: mel_cuda.mel_project(psd, spans))
+
+            def mel_library():
+                mm = torch.matmul(psd.double(), spans.rows.T)
+                return mm, torch.amin(mm, dim=-1), torch.amax(mm, dim=-1)
+
+            timings["mel_library"] = time_ms(mel_library)
+            mb = mel_bound(K2_CLIPS, T, F, cfg.n_mels)
+            print(f"mel kernel at F = {F}: {timings['mel_kernel'][0]:.3f} ms;"
+                  f" bound {mb[0]:.3f} ms ({mb[1]}); torch.matmul f64 + "
+                  f"amin/amax {timings['mel_library'][0]:.3f} ms [{card}]")
+            del psd
+        for name, (ms, reps) in timings.items():
+            print(f"{name}: {ms:.3f} ms [{card}] reps {reps}")
+        bound = stft_bound(K2_CLIPS, n, T, hi - lo, cfg.nfft_)
+        ms = timings["pipeline_kernel"][0]
+        print(f"STFT kernel ({route}): {timings['stft_kernel'][0]:.3f} ms; "
+              f"bound {bound[0]:.3f} ms ({bound[1]}); cuFFT f64 "
+              f"{timings['stft_library'][0]:.3f} ms; plain "
+              f"{timings['stft_plain'][0]:.3f} ms; pipeline {ms:.3f} ms, "
+              f"{K2_CLIPS * K2_SECONDS / 3600.0 / (ms / 60000.0):.1f} "
+              f"audio-h/min [{card}]")
+        print(json.dumps({f"path22_{k}_{what}_times": {
+            key: v[0] for key, v in timings.items()}, "card": card}))
+        if cfg.n_mels is None and band is None:
+            rows[f"stft_large_{k}"] = dict(
+                launches=flat[f"stft_{route}"], err=err,
+                ms=timings["stft_kernel"][0],
+                plain_ms=timings["stft_plain"][0], bound=bound,
+                library_ms=timings["stft_library"][0])
+        torch.cuda.empty_cache()
+    return rows
 
 
 def decode_palette_png(path):
@@ -5388,7 +5770,7 @@ def grad_kernel_cases(dev):
          (4, 20)),
         ("GEMM 24 two-sided (24 bins: B1)", dataclasses.replace(
             SpecConfig.scipy_default(24), onesided=False), FS, "psd", None),
-        ("GEMM nfft 8200 over 24 (B1)", dataclasses.replace(
+        ("nfft 8200 over 24 (the Bluestein forward, B1)", dataclasses.replace(
             SpecConfig.scipy_default(24), nfft=8200), FS, "psd", None),
         ("nfft 4096 over 1024", dataclasses.replace(s1024, nfft=4096), FS,
          "psd", None),
@@ -5903,8 +6285,8 @@ def grad_path(dev, card):
     # each, X recomputed inside the backward; the GEMM route at path 10's
     # config: one forward and one launch of B1-small, X recomputed inside;
     # the GEMM route's two-sided spectrum below 32 (24 bins) and nfft past
-    # 8192 (8200 over nperseg 24, on 1 clip of 10 s): B1 after the
-    # recompute of X
+    # 8192 (8200 over nperseg 24, on 1 clip of 10 s, whose X the Bluestein
+    # kernel recomputes): B1 after the recompute of X
     s24 = SpecConfig.scipy_default(GEMM_NPERSEG)
     for k, cfgk, clips, seconds in (
             (MIXED_NPERSEG, None, 8, K2_SECONDS),
@@ -6338,7 +6720,7 @@ PHASES = ("kernels", "tail", "dc", "scipy", "band", "mel", "path1", "path2",
           "path3", "path4", "path5", "path6", "path7", "path8", "path9",
           "path10", "path11", "path12", "path13", "hmm", "path14", "path15",
           "path16", "path17", "path18", "gui", "path19", "path20", "grad",
-          "path21")
+          "path21", "path22")
 
 
 def main(_phases=None):
@@ -6371,6 +6753,7 @@ def main(_phases=None):
             title="the Bluestein route", seed=8,
             forced=((2049, "gemm"), (1024, "bluestein"), (8032, "bluestein"),
                     (8191, "bluestein"), (33, "bluestein")))
+        large_kernel_cases(dev)
     if "tail" in phases:
         tail_cases(dev)
     if "dc" in phases:
@@ -6463,8 +6846,12 @@ def main(_phases=None):
         torch.cuda.empty_cache()
     if "grad" in phases:
         grad_kernel_cases(dev)
+        large_grad_refusal(dev)
     if "path21" in phases:
         rows.update(grad_path(dev, card))
+        torch.cuda.empty_cache()
+    if "path22" in phases:
+        rows.update(large_path(dev, card))
         torch.cuda.empty_cache()
     if _phases is not None:
         print(f"chip_smoke phases {sorted(phases)} passed in "
@@ -6505,7 +6892,10 @@ def main(_phases=None):
           f"stft_backward {rows['stft_backward']['launches']}, "
           f"overlap_add {rows['overlap_add']['launches']}, mel_backward "
           f"{rows['mel_backward']['launches']}, display_backward "
-          f"{rows['display_backward']['launches']}; the commands of path 19: "
+          f"{rows['display_backward']['launches']}; past 8192 on path 22: "
+          + ", ".join(f"{k} {rows[f'stft_large_{k}']['launches']}"
+                      for k, _ in LARGE_PATH)
+          + "; the commands of path 19: "
           + "; ".join(f"{name} {flat}" for name, _, _, flat in
                       rows["cli_rows"]))
     src = "spectral_tpu_torch/ops/csrc/stft_psd.cu"
@@ -6648,11 +7038,12 @@ def main(_phases=None):
             "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
             "XLA's transposed DFT; no TPU kernel)"),
         "stft_backward": (
-            "stft_backward_kernel (B1), the STFT's adjoint (float64 tile) on "
-            "the GEMM route past the small-K configs after its complex "
-            "epilogue's recompute of X: scipy_default 24 two-sided and nfft "
-            "8200 over 24 (path 21), timed forced at path 10's shapes (1024 "
-            "x 10 s)", "cuda", grad_src,
+            "stft_backward_kernel (B1), the STFT's adjoint (float64 tile) "
+            "after the route's complex epilogue's recompute of X: "
+            "scipy_default 24 two-sided (the GEMM route past the small-K "
+            "configs) and nfft 8200 over 24 (the Bluestein kernel's X) "
+            "(path 21), timed forced at path 10's shapes (1024 x 10 s)",
+            "cuda", grad_src,
             "spectral_tpu/core/stft.py:769 (jax.grad of power_spectrogram, "
             "XLA's transposed DFT; no TPU kernel)"),
         "overlap_add": (
@@ -6671,6 +7062,21 @@ def main(_phases=None):
             "adjoint, RGBA path's image (path 21)", "cuda", tail_src,
             "spectral_tpu/core/scale.py:80 (jax.grad of normalize; no TPU "
             "kernel)"),
+        **{f"stft_large_{k}": (
+            (f"stft_fft_split_psd<LOG2M {k.bit_length() - 3}, 16 values>, "
+             f"two half transforms a frame (the bins of each parity), "
+             f"scipy_default {k} (path 22)")
+            if k & (k - 1) == 0 and k >= 32768 else
+            (f"stft_fft_psd<LOG2M {k.bit_length() - 2}, 16 values>, one "
+             f"block of {k // 2} points a frame, scipy_default {k} (path "
+             f"22)") if k & (k - 1) == 0 else
+            (f"stft_bluestein_psd<RANKS 2> on a cluster of two, M = "
+             f"{bluestein_m(k)}, scipy_default {k} (path 22)")
+            if bluestein_m(k) // 2 <= 14406 else
+            (f"stft_bluestein_cluster_psd<RANKS "
+             f"{8 if bluestein_m(k) > 4 * 14406 else 4}> on a cluster, M = "
+             f"{bluestein_m(k)}, scipy_default {k} (path 22)"),
+            "cuda", src, LARGE_REPLACES) for k, _ in LARGE_PATH},
         "hmm_viterbi_chunked": (
             f"hmm_viterbi_chunked<KM 4>, {LONG_T} frames in chunks of 256 "
             "(path 15)", "cuda", hmm_src,

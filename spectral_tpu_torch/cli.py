@@ -449,7 +449,7 @@ def _make_serve_loop(*, max_sessions: int = 16,
       RSS); {"cmd": "shutdown"} -> exit 0.
     Response: one JSON object per line: {"ok": true, ...result} or
       {"ok": false, "error": "..."}; errors never kill the worker. A
-      config the kernels cannot compute (nperseg past 8192) answers ok:
+      config the kernels cannot compute (nperseg past 32,768) answers ok:
       false naming ROADMAP [large-nperseg].
 
     Robustness guards (each surfaces as an error response, never a crash):

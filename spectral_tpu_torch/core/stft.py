@@ -4,7 +4,9 @@ plain dense route.
 Counterpart of the host and plain half of ``spectral_tpu/core/stft.py``.
 The numerical contract is the same: ``scipy.signal.spectrogram(...,
 scaling="density", mode="psd")`` (PlotEngine.py:113), computed as two real
-GEMMs against DFT matrices with the window and the detrend folded in.
+GEMMs against DFT matrices with the window and the detrend folded in, up
+to nperseg 8192; past it (to 32,768 on the kernels) as the JAX package's
+rFFT route in float64 (:func:`fft_dft`), with no dense matrix built.
 
 The host constants (window, PSD weights, axes, folded DFT matrices) are the
 JAX package's numpy f64 code, unchanged, over the port's own copy of the
@@ -440,8 +442,10 @@ def fft_plan(nfft: int) -> FftPlan:
 # shared memory (BLUE_MAX_BLOCK_POINTS in ops/csrc/stft_psd.cu, the largest
 # 2, 3, 5, 7-smooth number whose buffer fits the card's 227 KB beside the
 # kernel's static arrays): a convolution longer than this runs on a cluster
-# of two blocks, half each
+# of 2, 4 or 8 blocks (BLUE_MAX_RANKS, the portable cluster's largest), M /
+# RANKS slots each
 BLUESTEIN_BLOCK_POINTS = 14406
+BLUESTEIN_MAX_RANKS = 8
 BLUESTEIN_RADICES = (2, 3, 5, 7)
 
 
@@ -453,19 +457,38 @@ def _smooth(m: int) -> bool:
     return m == 1
 
 
+def bluestein_ranks(m: int) -> int:
+    """The blocks that hold an M-point convolution: the fewest of 1, 2, 4
+    and 8 whose M / RANKS slots a block fits
+    (:data:`BLUESTEIN_BLOCK_POINTS`); the launcher's rule."""
+    ranks = 1
+    while m > ranks * BLUESTEIN_BLOCK_POINTS:
+        ranks *= 2
+    if ranks > BLUESTEIN_MAX_RANKS:
+        raise ValueError(f"a {m}-point convolution needs {ranks} blocks, "
+                         f"past a cluster of {BLUESTEIN_MAX_RANKS}")
+    return ranks
+
+
 def bluestein_length(n: int) -> int:
     """M, the Bluestein kernel's convolution length for an n-point
     transform: the smallest number >= 2n - 1 whose prime factors are 2, 3,
-    5 and 7, or past :data:`BLUESTEIN_BLOCK_POINTS` (a cluster of two
-    blocks) the smallest even one, so that the plan's last stage is the
-    radix-2 stage that joins the two halves."""
+    5 and 7; past :data:`BLUESTEIN_BLOCK_POINTS`, on a cluster of R = 2, 4
+    or 8 blocks (the fewest whose M / R slots a block fits), the smallest
+    such multiple of R, so that the plan's last log2 R stages are the
+    radix-2 stages that join the ranks (spans M/2, M/4, ..., M/R)."""
     m = 2 * n - 1
     while not _smooth(m):
         m += 1
-    if m > BLUESTEIN_BLOCK_POINTS:
-        m += m % 2
+    ranks = 1
+    while m > ranks * BLUESTEIN_BLOCK_POINTS:
+        ranks *= 2
+        if ranks > BLUESTEIN_MAX_RANKS:
+            raise ValueError(f"an {n}-point transform is past the Bluestein "
+                             f"kernel's cluster of {BLUESTEIN_MAX_RANKS}")
+        m += -m % ranks
         while not _smooth(m):
-            m += 2
+            m += ranks
     return m
 
 
@@ -475,7 +498,7 @@ class BluesteinPlan(NamedTuple):
     convolution of M points."""
     n: int                     # N, the transform length
     m: int                     # M, the convolution length
-    ranks: int                 # blocks that hold the M slots: 1 or 2
+    ranks: int                 # blocks that hold the M slots: 1, 2, 4, 8
     stages: np.ndarray         # (S, 4) int32: M's stages, as in FftPlan
     perm: np.ndarray           # (M,) int32: M's digit reversal; DFT index
                                # j lies at slot perm[j] after the stages
@@ -535,8 +558,8 @@ def bluestein_plan(nfft: int) -> BluesteinPlan:
     if nfft % 2 == 0:
         blocks.append(_rows(idx, nfft))
         split = row
-    return BluesteinPlan(n, m, 1 if m <= BLUESTEIN_BLOCK_POINTS else 2,
-                         stages, perm.astype(np.int32),
+    return BluesteinPlan(n, m, bluestein_ranks(m), stages,
+                         perm.astype(np.int32),
                          np.ascontiguousarray(np.concatenate(blocks)), bhat,
                          chirp_row, split)
 
@@ -579,6 +602,58 @@ def dense_power(frames: torch.Tensor, a_re: torch.Tensor,
     return (xr * xr + xi * xi) * wts
 
 
+def detrend_frames(frames: torch.Tensor, detrend: str) -> torch.Tensor:
+    """Each float64 frame less its mean (constant) or its least-squares
+    line (linear, the slope against the centred sample index), as the FFT
+    kernels subtract them. The folded matrices project the detrend out
+    again, a no-op on detrended frames up to rounding, but a frame of equal
+    samples now gives the exact zeros that the kernels and scipy give,
+    where the folded product alone leaves a rounding residue."""
+    if detrend == "none":
+        return frames
+    frames = frames - frames.mean(dim=-1, keepdim=True)
+    if detrend == "linear":
+        K = frames.shape[-1]
+        c = torch.arange(K, dtype=frames.dtype, device=frames.device) \
+            - (K - 1) / 2
+        slope = (frames * c).sum(dim=-1, keepdim=True) / (c * c).sum()
+        frames = frames - slope * c
+    return frames
+
+
+# The longest frame whose plain version is the dense window- and
+# detrend-folded DFT (the GUI's ceiling, GUI.py:87-90); past it no (nperseg,
+# F) matrix is built and the plain version is the JAX package's rFFT route
+# (spectral_tpu/core/stft.py:794) in float64 (:func:`fft_dft`)
+DENSE_MAX_NPERSEG = 8192
+
+
+def fft_dft(frames: torch.Tensor, cfg: SpecConfig,
+            band: Optional[Tuple[int, int]] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain transform past :data:`DENSE_MAX_NPERSEG`: (..., T,
+    nperseg) frames -> (X_re, X_im), (..., T, F) float64 each, the
+    one-sided bins of ``torch.fft.fft`` of each frame in float64,
+    detrended explicitly (:func:`detrend_frames`), windowed and
+    zero-padded to nfft; a two-sided spectrum's bins past nfft/2 the
+    conjugates of their mirrors bit for bit, as the kernels give them;
+    only the bins band = (lo, hi) when given. A complex transform a frame,
+    not ``rfft``: cuFFT's real transform of an odd length packs
+    neighbouring frames into one, so a NaN frame reached the next one. No
+    (nperseg, F) matrix is built. Differentiable by autograd."""
+    K = cfg.nfft_
+    w = torch.tensor(_window_f64(cfg), dtype=torch.float64,
+                     device=frames.device)
+    v = detrend_frames(frames.double(), cfg.detrend) * w
+    X = torch.fft.fft(torch.complex(v, torch.zeros_like(v)), n=K)
+    X = X[..., :K // 2 + 1]
+    if not cfg.onesided:
+        X = torch.cat([X, X[..., 1:(K + 1) // 2].flip(-1).conj()], dim=-1)
+    if band is not None:
+        X = X[..., band[0]:band[1]]
+    return X.real, X.imag
+
+
 def _require_power(cfg: SpecConfig) -> None:
     """The JAX package's refusal of a power spectrogram in complex mode."""
     if cfg.mode == "complex":
@@ -593,12 +668,23 @@ def _dense_psd(x: torch.Tensor, fs: float, cfg: SpecConfig,
     and weights are sliced before the product (each kept bin is the same
     dot product as the full band's); the frames of the centered pad
     (:func:`center_pad`) under cfg.center; in magnitude mode the JAX
-    package's sqrt(|X|²)·sqrt(w) (``_scale_psd``)."""
-    a_re, a_im = dft_matrices(cfg)
+    package's sqrt(|X|²)·sqrt(w) (``_scale_psd``). Past nperseg
+    :data:`DENSE_MAX_NPERSEG` the transform is :func:`fft_dft`'s, the power
+    and weights in float64, rounded once to x's dtype."""
     wts = onesided_weights(cfg, fs)
     if band is not None:
-        a_re, a_im = a_re[:, band[0]:band[1]], a_im[:, band[0]:band[1]]
         wts = wts[band[0]:band[1]]
+    if cfg.nperseg > DENSE_MAX_NPERSEG:
+        frames = frame_signal(center_pad(x, cfg), cfg.nperseg, cfg.hop_)
+        xr, xi = fft_dft(frames, cfg, band)
+        w = torch.tensor(wts, dtype=torch.float64, device=x.device)
+        p = xr * xr + xi * xi
+        p = torch.sqrt(p) * torch.sqrt(w) if cfg.mode == "magnitude" \
+            else p * w
+        return p.to(x.dtype)
+    a_re, a_im = dft_matrices(cfg)
+    if band is not None:
+        a_re, a_im = a_re[:, band[0]:band[1]], a_im[:, band[0]:band[1]]
 
     def const(a: np.ndarray) -> torch.Tensor:
         return torch.tensor(np.ascontiguousarray(a), dtype=x.dtype,
@@ -632,13 +718,15 @@ def power_spectrogram(x, fs: float, cfg: SpecConfig,
 
     On a CPU tensor, the dense window/detrend-folded DFT route of the JAX
     package's ``power_spectrogram(use_matmul=True)``, computed in x's
-    float dtype (the plain version). On a CUDA tensor, one launch of the
+    float dtype (the plain version); past nperseg 8192 its rFFT route in
+    float64 (:func:`fft_dft`). On a CUDA tensor, one launch of the
     route's STFT/PSD kernel (``ops.stft_cuda.stft_psd``), which takes
     float32 and the configs it computes, and raises on anything else.
     band=(lo, hi) returns only those bins, as
     :func:`power_spectrogram_fm` does. Differentiable in x on either
-    device: on a CPU tensor by autograd through the dense route, on a
-    CUDA tensor by the kernels' backward (``ops.stft_cuda._StftGrad``)."""
+    device: on a CPU tensor by autograd through the plain route, on a
+    CUDA tensor by the kernels' backward (``ops.stft_cuda._StftGrad``; up
+    to nperseg 8192, past it refused naming ROADMAP [large-nperseg])."""
     return power_spectrogram_fm(x, fs, cfg, band=band).transpose(-1, -2)
 
 

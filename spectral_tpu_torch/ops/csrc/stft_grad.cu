@@ -632,7 +632,7 @@ constexpr int R2_STATIC_SMEM = R2_WARPS * (16 + 4 + 4);  // the reductions'
 // 16 at 128
 template <int LOG2M, int LR>
 struct R2Geometry {
-  static_assert(LOG2M >= 4 && LOG2M <= 12, "nperseg 32-8192");
+  static_assert(LOG2M >= 4 && LOG2M <= 13, "a block's 16-8192 points");
   static_assert((LR == 3 || LR == 4) && LOG2M > LR, "two threads a frame");
   static constexpr int M = 1 << LOG2M;
   static constexpr int P = M >> LR;                          // threads a frame

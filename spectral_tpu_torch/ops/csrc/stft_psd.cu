@@ -718,18 +718,20 @@ __device__ __forceinline__ void row_extrema(float lo, float hi, float* red_lo,
 // and magnitude the sign is moot); then store_bin's output in `mode`,
 // log10_out and the NaN-propagating (min, max) of the row, one partial
 // per row, over the band's bins; bins in natural order, so the stores of
-// one frame coalesce. red_lo/red_hi hold one float per warp.
+// one frame coalesce. red_lo/red_hi hold one float per warp. The thread
+// takes bins lo + first, stride apart (threadIdx.x and blockDim.x, or a
+// cluster rank's share).
 template <typename Read>
 __device__ __forceinline__ void split_psd_epilogue(
     Read z, const double2* __restrict__ split,
     const double* __restrict__ wts, float* __restrict__ out,
     float* __restrict__ part_min, float* __restrict__ part_max,
     float* red_lo, float* red_hi, int r, Band band, int K, int log10_out,
-    int mode, int with_stats) {
+    int mode, int with_stats, int first, int stride) {
   const int M = K >> 1;
   float lo = INFINITY;
   float hi = -INFINITY;
-  for (int f = band.lo + threadIdx.x; f < band.end(); f += blockDim.x) {
+  for (int f = band.lo + first; f < band.end(); f += stride) {
     const int g = f <= M ? f : K - f;
     const double2 a = z(g == M ? 0 : g);
     const double2 b = z(g == 0 ? 0 : M - g);
@@ -759,7 +761,7 @@ constexpr int R2_STATIC_SMEM = R2_WARPS * (16 + 4 + 4);  // the reductions'
 // 16 at 128
 template <int LOG2M, int LR>
 struct R2Geometry {
-  static_assert(LOG2M >= 4 && LOG2M <= 12, "nperseg 32-8192");
+  static_assert(LOG2M >= 4 && LOG2M <= 13, "a block's 16-8192 points");
   static_assert((LR == 3 || LR == 4) && LOG2M > LR, "two threads a frame");
   static constexpr int M = 1 << LOG2M;
   static constexpr int P = M >> LR;                          // threads a frame
@@ -2138,8 +2140,9 @@ struct ConvRaderRead {
 // conj Z[K - f], so that mirrored bins are conjugates bit for bit as a
 // pair's are), or of rows r0
 // and r0 + 1 from a pair's, A[f] = (Z[f] + conj Z[K - f]) / 2 and B[f] =
-// (Z[f] - conj Z[K - f]) / 2i, for the band's bins f; store_bin's output
-// in `mode`, log10_out and each row's (min, max)
+// (Z[f] - conj Z[K - f]) / 2i, for the band's bins f (from lo + first,
+// stride apart, as split_psd_epilogue); store_bin's output in `mode`,
+// log10_out and each row's (min, max)
 template <typename Read>
 __device__ __forceinline__ void pair_psd_epilogue(
     Read z, int r0, bool pair, int K, Band band,
@@ -2147,10 +2150,10 @@ __device__ __forceinline__ void pair_psd_epilogue(
     float* __restrict__ out, float* __restrict__ part_min,
     float* __restrict__ part_max, float (*red_lo)[FFT_MAX_WARPS],
     float (*red_hi)[FFT_MAX_WARPS], int log10_out, int mode,
-    int with_stats) {
+    int with_stats, int first, int stride) {
   float lo[2] = {INFINITY, INFINITY};
   float hi[2] = {-INFINITY, -INFINITY};
-  for (int f = band.lo + threadIdx.x; f < band.end(); f += blockDim.x) {
+  for (int f = band.lo + first; f < band.end(); f += stride) {
     if (pair) {
       const double2 a = z(f);
       const double2 b = z(f == 0 ? 0 : K - f);
@@ -2298,7 +2301,7 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
     split_psd_epilogue(ConvRaderRead{buf, perm, &x_sum, P, map},
                        tw + plan.split, wts, out, part_min, part_max,
                        red_lo[0], red_hi[0], r, band, K, log10_out, mode,
-                       with_stats);
+                       with_stats, tid, nt);
     return;
   }
   const int pairs = (T + 1) >> 1;
@@ -2346,12 +2349,12 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
                                         &x_sum});
       pair_psd_epilogue(ConvRaderRead{buf, perm, &x_sum, P, map}, ra + u,
                         paired, K, band, wts, out, part_min, part_max, red_lo,
-                        red_hi, log10_out, mode, with_stats);
+                        red_hi, log10_out, mode, with_stats, tid, nt);
     } else {
       conv_forward<RMAX>(buf, roots, small, tw, plan, K, 0);
       pair_psd_epilogue(ConvRead{buf, map}, ra + u, paired, K, band, wts,
                         out, part_min, part_max, red_lo, red_hi, log10_out,
-                        mode, with_stats);
+                        mode, with_stats, tid, nt);
     }
   }
 }
@@ -2360,7 +2363,8 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
 // The Bluestein route: every nperseg K = 32-8192 that the routes above do
 // not take (a transform length N, K/2 or an odd K, with a prime past 255
 // beside other factors, or a prime p past 255 whose p - 1 has one; 2049,
-// 8182, 8185), any detrend.
+// 8182, 8185), and every K from 8193 to 32768 that is not a power of two,
+// any detrend.
 //
 // Bluestein's identity n k = (n^2 + k^2 - (k - n)^2) / 2 turns the N-point
 // DFT into a cyclic convolution of any length M >= 2N - 1, taken M = 2^a
@@ -2381,7 +2385,7 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
 // 1 slots.
 //
 // Even K: one frame per block, two real samples packed a complex value
-// (z[m] = v[2m] + i v[2m + 1], N = K/2, M <= 8192), the split step and
+// (z[m] = v[2m] + i v[2m + 1], N = K/2), the split step and
 // epilogue of the other even kernels (split_psd_epilogue). Odd K: two
 // frames of a clip a transform (N = K), with the odd kernel's guard on
 // their energies and its pair epilogue (pair_psd_epilogue).
@@ -2391,8 +2395,10 @@ stft_odd_fft_psd_kernel(const float* __restrict__ x,
 // 2 M log2 M butterfly values for an N-point transform, 2-4x the mixed
 // kernel's at the same N, in passes of up to four radix-2 stages. The
 // buffer holds M complex float64 values. Past BLUE_MAX_BLOCK_POINTS (14406
-// values, 225 KB; odd K from 7207, M up to 16384, 256 KB) no block holds
-// it, so a cluster of two blocks on neighbouring SMs holds M/2 slots each,
+// values, 225 KB; odd K from 7207 and even K from 14,408) no block holds
+// it, so a cluster of two blocks on neighbouring SMs holds M/2 slots each
+// (up to 2 BLUE_MAX_BLOCK_POINTS; past it clusters of four and eight, the
+// kernel below stft_bluestein_psd_kernel),
 // rank 0 the first half, and reads the other's shared memory where a stage
 // crosses the halves. M is then even and the plan's last stage is radix 2
 // at span M/2 (core/stft.py::bluestein_length), and since N <= M/2 every
@@ -2529,7 +2535,7 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
 
   // even K: frame t of clip b, two samples a value (N = K/2); odd K: its
   // frames t = 2j and t + 1 (N = K)
-  const bool even = RANKS == 1 && K % 2 == 0;
+  const bool even = K % 2 == 0;
   const int N = even ? K >> 1 : K;
   const int pairs = (T + 1) >> 1;
   const int clip = even ? unit / T : unit / pairs;
@@ -2590,15 +2596,428 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
     if (even)
       split_psd_epilogue(BluesteinRead{buf, chirp, map}, tw + plan.split,
                          wts, out, part_min, part_max, red_lo[0], red_hi[0],
-                         ra, band, K, log10_out, mode, with_stats);
+                         ra, band, K, log10_out, mode, with_stats, tid, nt);
     else
       pair_psd_epilogue(BluesteinRead{buf, chirp, map}, ra + u, paired, K,
                         band, wts, out, part_min, part_max, red_lo, red_hi,
-                        log10_out, mode, with_stats);
+                        log10_out, mode, with_stats, tid, nt);
   }
 }
 
+// ---------------------------------------------------------------------------
+// The radix-2 route past 8192: nfft K = 32768 (from R2_SPLIT_K; 16384
+// runs on one block, the kernel above at LOG2M 13), a frame as two
+// blocks, each an independent half transform. Replaces no TPU kernel of its
+// own: the JAX package computes these frames outside its Pallas kernel,
+// whose VMEM stops at 8192 (stft_pallas.py:93), on its rFFT route
+// (spectral_tpu/core/stft.py:769, :794).
+//
+// The packed frame z_m = v[2m] + i v[2m + 1], m < M = K/2, has an M-point
+// transform Z whose first decimation-in-frequency stage splits it into two
+// transforms of H = M/2 points:
+//
+//   Z[2k]     = sum_j (z_j + z_(j+H)) W_H^(jk),
+//   Z[2k + 1] = sum_j (z_j - z_(j+H)) W_M^j W_H^(jk),   j, k < H,
+//
+// and the split step pairs bin g with M - g, both of g's parity since M is
+// even, so each half finishes its bins alone. Block 2r + h of row r loads
+// the whole frame (its detrend is over every sample; the second half's
+// read mostly hits L2), forms u_j = z_j + z_(j+H) (h = 0) or the
+// transposed butterfly's (z_j - z_(j+H)) W_M^j (h = 1, the table's row H -
+// 1 + j) in registers, runs the radix-2 kernel's passes on the H points of
+// u (R2Geometry at LOG2M = log2 H, 16 values a thread) and the split step
+// and epilogue of r2_epilogue on the band's bins of parity h (Z[2k + h] in
+// slot k). Each half stores its bins and its own (min, max) partial,
+// part_min[h R + r]: two tiles a frame, which clip_stats and the wrapper
+// reduce. At K = 32768 a half is 8192 points, 128 KB, the most one block's
+// buffer holds on 512 threads at 16 values.
+//
+// What bounds it: bytes, as below 8192 (K 4 bytes a frame read, F 4
+// written). The extra work of the split is the first stage's H butterflies
+// a half, fused into the load; every other butterfly, bin and row is the
+// radix-2 kernel's arithmetic. tools/torch_precision.py::psd_fft_split is
+// this arithmetic in numpy.
+template <int LOG2M, int LR, bool EXT>
+__global__ void __launch_bounds__(R2_MAX_THREADS,
+                                  R2Geometry<LOG2M, LR>::MIN_BLOCKS)
+stft_fft_split_psd_kernel(const float* __restrict__ x,
+                          const double* __restrict__ win,
+                          const double2* __restrict__ tw,
+                          const double* __restrict__ wts,
+                          float* __restrict__ out,
+                          float* __restrict__ part_min,
+                          float* __restrict__ part_max, long long n, int R,
+                          int T, Band band, int hop, int frame_len,
+                          int detrend, int log10_out, int out_mode,
+                          int with_stats) {
+  using G = R2Geometry<LOG2M, LR>;
+  static_assert(G::FRAMES == 1, "a half transform takes the block");
+  constexpr int V = G::VALUES;
+  constexpr int H = G::M;            // the half's points
+  constexpr int M = 2 * H;           // the packed frame's
+  constexpr int K = 2 * M;
+  constexpr int P = G::P;
+  const int L = EXT ? frame_len : K;
+  const int mode = EXT ? out_mode : OUT_PSD;
+  extern __shared__ double2 buf[];   // the half's H values
+  __shared__ double2 red_sum[R2_WARPS];
+  __shared__ float red_lo[R2_WARPS];
+  __shared__ float red_hi[R2_WARPS];
+
+  const int half = static_cast<int>(blockIdx.x & 1u);
+  const int r = static_cast<int>(blockIdx.x >> 1);
+  const int u = static_cast<int>(threadIdx.x);
+  const float* frame = x + (long long)(r / T) * n + (long long)(r % T) * hop;
+
+  // register i: z_j in v[i] and z_(j+H) in upper[i], j = bitrev(i) P + u
+  // (over LR bits): samples 2j, 2j + 1 and M + 2j, M + 2j + 1 of the
+  // frame's L, zero past them
+  const bool aligned = (reinterpret_cast<size_t>(frame) & 7) == 0;
+  const auto pair_at = [&](int s) {
+    if (aligned && (!EXT || s + 1 < L))
+      return reinterpret_cast<const float2*>(frame)[s >> 1];
+    return make_float2(!EXT || s < L ? frame[s] : 0.0f,
+                       !EXT || s + 1 < L ? frame[s + 1] : 0.0f);
+  };
+  double2 v[V];
+  float2 upper[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int j = brev_low(i, LR) * P + u;
+    const float2 s = pair_at(2 * j);
+    v[i] = make_double2(s.x, s.y);
+    upper[i] = pair_at(M + 2 * j);
+  }
+  const double c = 0.5 * (L - 1);
+  double2 line = make_double2(0.0, 0.0);
+  if (detrend != DETREND_NONE) {
+    double2 s = make_double2(0.0, 0.0);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int i0 = 2 * (brev_low(i, LR) * P + u);
+      s.x += v[i].x;
+      s.x += v[i].y;
+      s.x += upper[i].x;
+      s.x += upper[i].y;
+      if (detrend == DETREND_LINEAR) {
+        s.y += (i0 - c) * v[i].x;
+        s.y += (i0 + 1 - c) * v[i].y;
+        s.y += (M + i0 - c) * upper[i].x;
+        s.y += (M + i0 + 1 - c) * upper[i].y;
+      }
+    }
+    s = r2_frame_sum<P>(s, red_sum);
+    const double d = L * (static_cast<double>(L) * L - 1.0) / 12.0;
+    line = make_double2(s.x / L, detrend == DETREND_LINEAR ? s.y / d : 0.0);
+  }
+  // detrended and windowed (the window zero-padded to K on the host), then
+  // the first stage in frequency: this half's u_j
+  const double2* win2 = reinterpret_cast<const double2*>(win);
+  const auto windowed = [&](double a, double b, int i0, double2 w) {
+    return make_double2(
+        !EXT || i0 < L ? (a - line.x - line.y * (i0 - c)) * w.x : 0.0,
+        !EXT || i0 + 1 < L ? (b - line.x - line.y * (i0 + 1 - c)) * w.y
+                           : 0.0);
+  };
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int j = brev_low(i, LR) * P + u;
+    double2 a = windowed(v[i].x, v[i].y, 2 * j, win2[j]);
+    double2 b = windowed(upper[i].x, upper[i].y, M + 2 * j, win2[H + j]);
+    if (half == 0) {
+      v[i] = make_double2(a.x + b.x, a.y + b.y);
+    } else {
+      r2_dif_butterfly(a, b, tw[(H - 1) + j]);
+      v[i] = b;
+    }
+  }
+
+  r2_pass<LOG2M, LR, 0>(v, tw, u);
+  if constexpr (G::PASSES > 1)
+    r2_exchange_pass<LOG2M, LR, 1>(v, buf, tw, 0, u);
+  if constexpr (G::PASSES > 2)
+    r2_exchange_pass<LOG2M, LR, 2>(v, buf, tw, 0, u);
+  if constexpr (G::PASSES > 3)
+    r2_exchange_pass<LOG2M, LR, 3>(v, buf, tw, 0, u);
+  r2_store<LOG2M, LR, G::PASSES - 1>(v, buf, 0, u);
+  __syncthreads();
+
+  // the split step on the bins of this half's parity (r2_epilogue's
+  // arithmetic): Z[i] is the half's slot i >> 1
+  const double2* split = tw + (M - 1);
+  float lo = INFINITY;
+  float hi = -INFINITY;
+  for (int f = band.lo + ((band.lo ^ half) & 1) + 2 * u; f < band.end();
+       f += 2 * P) {
+    const int g = f <= M ? f : K - f;
+    const double2 a = buf[r2_slot<LOG2M, LR>(0, (g == M ? 0 : g) >> 1)];
+    const double2 b = buf[r2_slot<LOG2M, LR>(0, (g == 0 ? 0 : M - g) >> 1)];
+    const double2 w = g < M ? split[g] : make_double2(-1.0, 0.0);
+    const double er = 0.5 * (a.x + b.x);
+    const double ei = 0.5 * (a.y - b.y);
+    const double o_r = 0.5 * (a.y + b.y);
+    const double o_i = 0.5 * (b.x - a.x);
+    const double xr = er + (w.x * o_r - w.y * o_i);
+    const double xi = ei + (w.x * o_i + w.y * o_r);
+    const bool cj = mode == OUT_COMPLEX && f > M;
+    store_bin(xr, cj ? -xi : xi, wts[f], out, r, band, f, log10_out, mode,
+              lo, hi);
+  }
+  if (with_stats)
+    row_extrema(lo, hi, red_lo, red_hi, part_min + (long long)half * R,
+                part_max + (long long)half * R, r);
+}
+
+// ---------------------------------------------------------------------------
+// The Bluestein route on clusters of four and eight blocks: the nfft from
+// 8193 to 32768 whose convolution passes two blocks' buffers (M > 2
+// BLUE_MAX_BLOCK_POINTS: even K from 28,814 and odd K from 14,407; odd
+// 32767 takes M = 65536 on eight). Replaces no TPU kernel of its own, as
+// the split radix-2 kernel above.
+//
+// Rank q of the cluster holds slots q H to (q + 1) H - 1 (H = M / RANKS).
+// The plan's last r = log2 RANKS stages are radix 2 at spans H, 2H, ...,
+// M/2 (core/stft.py::bluestein_length), each pairing slot j of rank q with
+// slot j of rank q XOR 2^t; the stages before them run on each rank's H
+// slots alone. Unlike the cluster of two (bluestein_transform<2>), the
+// inputs (slots below N) and the outputs span several ranks (N up to (M +
+// 1)/2), so the crossing stages are butterflies on both sides. Column j,
+// slot j of every rank, belongs to one thread of one rank (j = rank nt +
+// tid + s RANKS nt), which
+// - loads the column's RANKS inputs a_(j + q H) (zero from N) from the
+//   frame, takes the crossing stages in frequency in registers (span M/2
+//   first: (a, b) <- (a + b, W (a - b))) and writes each value to its
+//   rank's slot j through distributed shared memory;
+// - after every rank's local passes in frequency, product with b^ (rows
+//   bhat + q H) and passes in time (conv_transform on H slots), reads the
+//   column back, takes the crossing stages in time (span H first: (a, b)
+//   <- (a + W b, a - W b)) and writes the slots below N back;
+// so a column is read and written by the thread that owns it alone, and a
+// cluster barrier before and after each exchange orders them. The
+// epilogue's bins are shared among the ranks (bins lo + rank nt + tid,
+// RANKS nt apart), each read through distributed shared memory from rank
+// i / H; each rank's (min, max) over its bins is a partial of its own,
+// part_min[rank R + r] (RANKS tiles a frame). An odd pair's energies, for
+// the odd kernel's guard, are each rank's sum over its columns, added in
+// rank order after a barrier so that every rank takes the same decision.
+// Each rank computes the frames' detrend lines itself. A last barrier
+// keeps each rank's slots until the others have read them.
+//
+// What bounds it: bytes, as every FFT route; the design by latency as the
+// one-block kernel, its M log M butterflies spread over RANKS SMs, the
+// crossings' two rounds of distributed shared memory, and the epilogue's
+// reads of another rank's slots. tools/torch_precision.py::
+// _bluestein_transform models the ranks as the cluster indexes them.
+
+constexpr int BLUE_MAX_RANKS = 8;    // the portable cluster's largest
+
+// The twiddle rows of the crossing stages, span H first (the plan's last
+// log2 RANKS stages)
+struct CrossRows {
+  int row[3];
+};
+
+// The crossing stages on column j's values v[q] (slot j of rank q), span
+// 2^t H between ranks q and q + 2^t (bit t of q clear), the row's k = (q
+// mod 2^t) H + j: in frequency (DIF) span M/2 first, r2_dif_butterfly; in
+// time span H first, r2_butterfly
+template <int RANKS, bool DIF>
+__device__ __forceinline__ void cross_stages(double2 (&v)[RANKS],
+                                             const double2* __restrict__ tw,
+                                             const CrossRows& rows, int H,
+                                             int j) {
+  constexpr int STAGES = RANKS == 8 ? 3 : (RANKS == 4 ? 2 : 1);
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) {
+    const int t = DIF ? STAGES - 1 - s : s;
+    const int span = 1 << t;
+#pragma unroll
+    for (int q = 0; q < RANKS; ++q) {
+      if (q & span) continue;
+      const double2 w = tw[rows.row[t] + (q & (span - 1)) * H + j];
+      if constexpr (DIF)
+        r2_dif_butterfly(v[q], v[q + span], w);
+      else
+        r2_butterfly(v[q], v[q + span], w);
+    }
+  }
+}
+
+// X[i] = w_i conj(slot i) of the cluster's convolution, slot i at rank
+// i / H
+struct ClusterBluesteinRead {
+  double2* buf;
+  const double2* __restrict__ chirp;
+  SlotMap map;
+  int H;
+  __device__ double2 operator()(int i) const {
+    const int q = i / H;
+    const double2* slots = cg::this_cluster().map_shared_rank(buf, q);
+    const double2 o = slots[map(i - q * H)];
+    return cmul(chirp[i], make_double2(o.x, -o.y));
+  }
+};
+
+// A cluster of RANKS blocks per unit, as stft_bluestein_psd_kernel's: a
+// frame of even K, row unit; or for odd K frames t = 2j and t + 1 of clip
+// b, unit b ceil(T / 2) + j. EXT as the one-block kernel's.
+template <int RANKS, bool EXT>
+__global__ void __launch_bounds__(FFT_MAX_THREADS, BLUE_MIN_BLOCKS)
+stft_bluestein_cluster_psd_kernel(const float* __restrict__ x,
+                                  const double* __restrict__ win,
+                                  const double2* __restrict__ tw,
+                                  const double* __restrict__ wts,
+                                  float* __restrict__ out,
+                                  float* __restrict__ part_min,
+                                  float* __restrict__ part_max, long long n,
+                                  int T, Band band, int K, int hop,
+                                  int frame_len, int detrend, int log10_out,
+                                  int out_mode, int with_stats, int M,
+                                  int bhat, int chirp_row, CrossRows cross,
+                                  const __grid_constant__ ConvPlan plan) {
+  extern __shared__ double2 buf[];  // M / RANKS complex values
+  const int L = EXT ? frame_len : K;
+  const int mode = EXT ? out_mode : OUT_PSD;
+  __shared__ double2 small[SMALL_ROOTS];
+  __shared__ double2 red_sum[3][FFT_MAX_WARPS];
+  __shared__ float red_lo[2][FFT_MAX_WARPS];
+  __shared__ float red_hi[2][FFT_MAX_WARPS];
+  __shared__ double2 energy;        // this rank's columns' pair energies
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  conv_stage_roots(small, tw, plan);
+  const SlotMap map{plan.swz_mask, plan.swz_shift};
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int unit = blockIdx.x / RANKS;
+  const int H = M / RANKS;
+  const double2* chirp = tw + chirp_row;
+  const double c = 0.5 * (L - 1);
+  double2* slots[RANKS];
+#pragma unroll
+  for (int q = 0; q < RANKS; ++q) slots[q] = cluster.map_shared_rank(buf, q);
+
+  const bool even = K % 2 == 0;
+  const int N = even ? K >> 1 : K;
+  const int pairs = (T + 1) >> 1;
+  const int clip = even ? unit / T : unit / pairs;
+  const int t = even ? unit - clip * T : (unit - clip * pairs) * 2;
+  const int ra = clip * T + t;
+  const bool has_b = !even && t + 1 < T;
+  const float* fa = x + (long long)clip * n + (long long)t * hop;
+  const float* fb = fa + hop;
+  const double2 la = frame_line(fa, L, detrend, red_sum[0]);
+  const double2 lb = has_b ? frame_line(fb, L, detrend, red_sum[1])
+                           : make_double2(0.0, 0.0);
+  const auto sample = [&](const float* f, double2 line, int i) {
+    return !EXT || i < L
+               ? (static_cast<double>(f[i]) - line.x - line.y * (i - c)) *
+                     win[i]
+               : 0.0;
+  };
+  // input i before the chirp: even K samples 2i and 2i + 1; odd K the
+  // pair's sample i (part 0), frame a alone (1) or frame b alone (2)
+  const auto input = [&](int i, int part) {
+    if (even)
+      return make_double2(sample(fa, la, 2 * i), sample(fa, la, 2 * i + 1));
+    if (part == 2) return make_double2(sample(fb, lb, i), 0.0);
+    return make_double2(sample(fa, la, i),
+                        part == 0 && has_b ? sample(fb, lb, i) : 0.0);
+  };
+  // this rank's columns: the inputs times the chirp, the crossing stages
+  // in frequency, each value to its rank; returns the inputs' energies
+  const auto load = [&](int part) {
+    double2 e = make_double2(0.0, 0.0);
+    for (int j = rank * nt + tid; j < H; j += RANKS * nt) {
+      double2 v[RANKS];
+#pragma unroll
+      for (int q = 0; q < RANKS; ++q) {
+        const int i = j + q * H;
+        v[q] = make_double2(0.0, 0.0);
+        if (i < N) {
+          const double2 a = input(i, part);
+          v[q] = cmul(chirp[i], a);
+          e.x += a.x * a.x;
+          e.y += a.y * a.y;
+        }
+      }
+      cross_stages<RANKS, true>(v, tw, cross, H, j);
+#pragma unroll
+      for (int q = 0; q < RANKS; ++q) slots[q][map(j)] = v[q];
+    }
+    return e;
+  };
+
+  double2 e = load(0);
+  if (!even) {
+    e = block_sum(e, red_sum[2]);
+    if (tid == 0) energy = e;
+  }
+  cluster.sync();                   // every column written, energies shown
+  if (!even) {
+    e = make_double2(0.0, 0.0);
+#pragma unroll
+    for (int q = 0; q < RANKS; ++q) {
+      const double2 eq = *cluster.map_shared_rank(&energy, q);
+      e.x += eq.x;
+      e.y += eq.y;
+    }
+  }
+  const bool paired = even || (has_b && isfinite(e.x) && isfinite(e.y) &&
+                               e.x > 0.0 && e.y > 0.0 &&
+                               fmax(e.x, e.y) <=
+                                   PAIR_MAX_RATIO * fmin(e.x, e.y));
+  const long long rows =
+      (long long)(gridDim.x / RANKS) / (even ? T : pairs) * T;
+  float* pmin = with_stats ? part_min + rank * rows : part_min;
+  float* pmax = with_stats ? part_max + rank * rows : part_max;
+  const ClusterBluesteinRead z{buf, chirp, map, H};
+  // the transform, or each odd frame alone (a, then b)
+  const int units = paired || !has_b ? 1 : 2;
+  for (int u = 0; u < units; ++u) {
+    if (!paired) {
+      if (u == 1) cluster.sync();   // every rank's epilogue reads first
+      load(u + 1);
+      cluster.sync();
+    }
+    conv_transform<0>(buf, nullptr, small, tw, plan, H,
+                      BluesteinProduct{tw + bhat + rank * H});
+    cluster.sync();                 // every rank's slots transformed
+    for (int j = rank * nt + tid; j < H; j += RANKS * nt) {
+      double2 v[RANKS];
+#pragma unroll
+      for (int q = 0; q < RANKS; ++q) v[q] = slots[q][map(j)];
+      cross_stages<RANKS, false>(v, tw, cross, H, j);
+#pragma unroll
+      for (int q = 0; q < RANKS; ++q)
+        if (j + q * H < N) slots[q][map(j)] = v[q];
+    }
+    cluster.sync();                 // the outputs in place
+    if (even)
+      split_psd_epilogue(z, tw + plan.split, wts, out, pmin, pmax, red_lo[0],
+                         red_hi[0], ra, band, K, log10_out, mode, with_stats,
+                         rank * nt + tid, RANKS * nt);
+    else
+      pair_psd_epilogue(z, ra + u, paired, K, band, wts, out, pmin, pmax,
+                        red_lo, red_hi, log10_out, mode, with_stats,
+                        rank * nt + tid, RANKS * nt);
+  }
+  cluster.sync();                   // no rank leaves while others read it
+}
+
 constexpr int FFT_MAX_DEVICES = 64;
+// the Bluestein route's longest transform
+constexpr int BLUE_MAX_K = 32768;
+
+// The blocks that hold an M-point convolution: the fewest of 1, 2, 4 and 8
+// whose M / RANKS slots a block holds (core/stft.py::bluestein_ranks)
+int blue_ranks(int M) {
+  int ranks = 1;
+  while (ranks < BLUE_MAX_RANKS && M > ranks * BLUE_MAX_BLOCK_POINTS)
+    ranks *= 2;
+  return ranks;
+}
 // the dynamic shared memory limit already set for the FFT kernels, per
 // device (the radix-2 kernel's per LOG2M)
 size_t r2_smem_set[2][13][FFT_MAX_DEVICES] = {};
@@ -2608,9 +3027,12 @@ size_t mixed_smem_set[3][FFT_MAX_DEVICES] = {};
 // rmax 0, 1, 4 or 8; then its two on the mixed route's Rader plans,
 // PACKED, rmax 0 or 1)
 size_t odd_smem_set[10][FFT_MAX_DEVICES] = {};
-// (the Bluestein kernel's: on one block, at two blocks an SM, and on a
-// cluster of two; each with and without EXT)
-size_t blue_smem_set[2][3][FFT_MAX_DEVICES] = {};
+// (the Bluestein kernel's: on one block, at two blocks an SM, and on
+// clusters of two, four and eight; each with and without EXT)
+size_t blue_smem_set[2][5][FFT_MAX_DEVICES] = {};
+// (the radix-2 kernel past 8192: by EXT, and the split or one block a
+// frame)
+size_t r2_large_smem_set[2][2][FFT_MAX_DEVICES] = {};
 // (the GEMM route's small-K tile, by its bins a thread)
 size_t small_smem_set[2][SK_BINS][FFT_MAX_DEVICES] = {};
 
@@ -2830,6 +3252,46 @@ int r2_launch(const float* x, const double* win, const double* tw,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The radix-2 route's longest transform, and the nfft from which a frame
+// runs as two half transforms (stft_fft_split_psd_kernel); below it, nfft
+// 16384 runs on one block of 8192 points (LOG2M 13, 128 KB, 512 threads):
+// 1.298-1.321 ms on 1024 clips of 10 s against 1.401-1.414 for its split
+// into two halves of 4096 (tools/torch_kernel_variants.py r2, NVIDIA H100
+// 80GB HBM3, 700 W; PERF.md)
+constexpr int R2_MAX_K = 32768;
+constexpr int R2_SPLIT_K = 32768;
+
+// The radix-2 kernel past 8192 at 16 values a thread: SPLIT, the frame's
+// two half transforms of 2^LOG2M points on two blocks (2 R blocks, each
+// half's partials a tile of R); else the whole transform of 2^LOG2M points
+// on one block (R blocks)
+template <int LOG2M, bool SPLIT>
+int r2_large_launch(const float* x, const double* win, const double* tw,
+                    const double* wts, float* out, float* part_min,
+                    float* part_max, int R, long long n, int T, Band band,
+                    int hop, int L, int detrend, int log10_out, int mode,
+                    int with_stats, cudaStream_t s) {
+  constexpr int LR = 4;
+  using G = R2Geometry<LOG2M, LR>;
+  static_assert(G::SMEM + R2_STATIC_SMEM <= BLOCK_SMEM && G::FRAMES == 1,
+                "a transform of the block's own");
+  constexpr int K = (SPLIT ? 4 : 2) * G::M;
+  const bool ext = L < K || mode != OUT_PSD;
+  const auto kernel =
+      SPLIT ? (ext ? stft_fft_split_psd_kernel<LOG2M, LR, true>
+                   : stft_fft_split_psd_kernel<LOG2M, LR, false>)
+            : (ext ? stft_fft_psd_kernel<LOG2M, LR, true>
+                   : stft_fft_psd_kernel<LOG2M, LR, false>);
+  const int err = raise_smem(kernel, G::SMEM, r2_large_smem_set[ext][SPLIT]);
+  if (err != 0) return err;
+  const long long blocks = (SPLIT ? 2LL : 1LL) * R;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), G::THREADS, G::SMEM, s>>>(
+      x, win, reinterpret_cast<const double2*>(tw), wts, out, part_min,
+      part_max, n, R, T, band, hop, L, detrend, log10_out, mode, with_stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The band [f_lo, f_lo + F) of a K-point transform's bins, or false when
 // it is empty or lies past them
 bool band_ok(int f_lo, int F, int K) {
@@ -2918,8 +3380,9 @@ int stft_psd_launch(const float* x, const double* a_re, const double* a_im,
 // every bin's weight, f64, at least f_lo + F of them; out is (B, T, F)
 // f32, the band of F bins from bin f_lo (the full band: f_lo 0 and F the
 // config's bin count), f_lo + F <= K; part_min/part_max are (B * T,) f32,
-// each row's over the band, and may be null when with_stats is 0.
-// K, the transform length (nfft), is a power of two from 32 to 8192; a
+// each row's over the band (from R2_SPLIT_K, (2, B * T): each half
+// transform's bins, of one parity), and may be null when with_stats is 0.
+// K, the transform length (nfft), is a power of two from 32 to 32768; a
 // frame is L samples, 1 <= L <= K (nperseg; slots L to K - 1 zero), and
 // win holds K values, zero past L. detrend is 0 for none, 1 for constant,
 // 2 for linear, and any other value is refused; mode an OUT_* code
@@ -2932,13 +3395,22 @@ int stft_fft_psd_launch(const float* x, const double* win, const double* tw,
                         int mode, int with_stats, int f_lo, void* stream) {
   int log2k = 0;
   while ((1 << log2k) < K) ++log2k;
-  if (K < 32 || K > 8192 || (1 << log2k) != K || !band_ok(f_lo, F, K) ||
+  if (K < 32 || K > R2_MAX_K || (1 << log2k) != K || !band_ok(f_lo, F, K) ||
       !detrend_ok(detrend) || L < 1 || L > K ||
       !mode_ok(mode, log10_out, with_stats))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = B * T;
   const Band band{f_lo, F};
+  if (K >= R2_SPLIT_K)
+    return r2_large_launch<13, true>(x, win, tw, wts, out, part_min,
+                                     part_max, R, n, T, band, hop, L, detrend,
+                                     log10_out, mode, with_stats, s);
+  if (K == 16384)
+    return r2_large_launch<13, false>(x, win, tw, wts, out, part_min,
+                                      part_max, R, n, T, band, hop, L,
+                                      detrend, log10_out, mode, with_stats,
+                                      s);
   switch (log2k - 1) {
     case 4:
       return r2_launch<4>(x, win, tw, wts, out, part_min, part_max, R, n, T,
@@ -3112,14 +3584,19 @@ int stft_odd_fft_psd_launch(const float* x, const double* win,
 // core/stft.py::bluestein_plan, with bhat, chirp and split the first rows
 // of b^ (M rows), of the chirp (N rows) and of the split step (N rows;
 // -1 for odd K, which has none); wts, out, part_min, part_max, F and f_lo
-// as the FFT route's. K, the transform length, is 32 to 8192 (L, win and
-// mode as the FFT route's), M >= 2N - 1 (N = K/2, or K when odd)
+// as the FFT route's. K, the transform length, is 32 to BLUE_MAX_K (L, win
+// and mode as the FFT route's), M >= 2N - 1 (N = K/2, or K when odd)
 // with radices 2, 3, 5 and 7; M past BLUE_MAX_BLOCK_POINTS runs on
-// clusters of two blocks and must be even with a last stage of radix 2 at
-// span M/2, and K odd. detrend is 0 for none, 1 for constant, 2 for
-// linear. The kernel runs B * T units for even K and B * ceil(T / 2) for
-// odd K, a block or a cluster each; the caller keeps B * T within the
-// grid's limit.
+// clusters of RANKS = 2, 4 or 8 blocks (the fewest whose M / RANKS slots a
+// block holds; blue_ranks) and must be a multiple of RANKS whose plan's
+// last log2 RANKS stages are radix 2 at spans M / RANKS, ..., M/2. On four
+// and eight ranks part_min/part_max are (RANKS, B * T), each rank's share
+// of the bins; a cluster that cannot be placed on the card at its shared
+// memory (cudaOccupancyMaxActiveClusters) is refused with
+// cudaErrorLaunchOutOfResources. detrend is 0 for none, 1 for constant, 2
+// for linear. The kernel runs B * T units for even K and B * ceil(T / 2)
+// for odd K, a block or a cluster each; the caller keeps B * T times the
+// ranks within the grid's limit.
 int stft_bluestein_psd_launch(const float* x, const double* win,
                               const double* tw, const int* stages,
                               int n_stages, int M, int bhat, int chirp,
@@ -3131,26 +3608,27 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
   const cudaError_t bad = cudaErrorInvalidValue;
   const bool odd = K % 2 == 1;
   const int N = odd ? K : K / 2;
-  const int ranks = M > BLUE_MAX_BLOCK_POINTS ? 2 : 1;
+  const int ranks = blue_ranks(M);
+  const int cross = ranks == 8 ? 3 : (ranks == 4 ? 2 : (ranks == 2 ? 1 : 0));
   const Band band{f_lo, F};
-  if (K < 32 || K > 8192 || !band_ok(f_lo, F, K) || !detrend_ok(detrend) ||
-      M < 2 * N - 1 || bhat < 0 || chirp < 0 || (split < 0) != odd ||
-      n_stages < 1 || n_stages > MIX_MAX_STAGES || L < 1 || L > K ||
-      !mode_ok(mode, log10_out, with_stats))
+  if (K < 32 || K > BLUE_MAX_K || !band_ok(f_lo, F, K) ||
+      !detrend_ok(detrend) || M < 2 * N - 1 || bhat < 0 || chirp < 0 ||
+      (split < 0) != odd || n_stages < 1 || n_stages > MIX_MAX_STAGES ||
+      L < 1 || L > K || !mode_ok(mode, log10_out, with_stats) ||
+      M > ranks * BLUE_MAX_BLOCK_POINTS || M % ranks || n_stages <= cross)
     return static_cast<int>(bad);
   for (int s = 0; s < n_stages; ++s)
     if (stages[4 * s] > BLUE_MAX_RADIX) return static_cast<int>(bad);
-  int half_row = -1;
-  int local_stages = n_stages;
-  if (ranks == 2) {
-    const int* last = stages + 4 * (n_stages - 1);
-    if (!odd || M % 2 || M / 2 > BLUE_MAX_BLOCK_POINTS || last[0] != 2 ||
-        last[1] != M / 2)
-      return static_cast<int>(bad);
-    half_row = last[2];
-    local_stages -= 1;              // the halves' stages; the last crosses
-  }
   const int local = M / ranks;
+  // the crossing stages: radix 2 at spans local, 2 local, ..., M/2
+  CrossRows rows = {{-1, -1, -1}};
+  for (int t = 0; t < cross; ++t) {
+    const int* st = stages + 4 * (n_stages - cross + t);
+    if (st[0] != 2 || st[1] != local << t) return static_cast<int>(bad);
+    rows.row[t] = st[2];
+  }
+  const int half_row = rows.row[0];
+  const int local_stages = n_stages - cross;  // each rank's; the rest cross
   ConvPlan plan;
   int rmax = 0;
   int threads = 0;
@@ -3158,9 +3636,50 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
                  RADER_NARROW_POINTS, MIX_R2_BITS, &plan, &rmax, &threads) ||
       rmax != 0)
     return static_cast<int>(bad);
+  const bool ext = L < K || mode != OUT_PSD;
+  const unsigned units =
+      static_cast<unsigned>(B) *
+      static_cast<unsigned>(odd ? (T + 1) / 2 : T);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const double2* tw2 = reinterpret_cast<const double2*>(tw);
+  const size_t smem = static_cast<size_t>(local) * sizeof(double2);
+  if (ranks > 2) {
+    const auto kernel =
+        ranks == 4 ? (ext ? stft_bluestein_cluster_psd_kernel<4, true>
+                          : stft_bluestein_cluster_psd_kernel<4, false>)
+                   : (ext ? stft_bluestein_cluster_psd_kernel<8, true>
+                          : stft_bluestein_cluster_psd_kernel<8, false>);
+    int err = raise_smem(kernel, smem, blue_smem_set[ext][ranks == 4 ? 3 : 4]);
+    if (err != 0) return err;
+    if (static_cast<unsigned long long>(units) * ranks > 0x7fffffffULL)
+      return static_cast<int>(bad);
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(units * ranks);
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = smem;
+    config.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ranks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    int clusters = 0;
+    err = static_cast<int>(cudaOccupancyMaxActiveClusters(
+        &clusters, reinterpret_cast<const void*>(kernel), &config));
+    if (err != 0) return err;
+    if (clusters < 1)
+      return static_cast<int>(cudaErrorLaunchOutOfResources);
+    const cudaError_t launched = cudaLaunchKernelEx(
+        &config, kernel, x, win, tw2, wts, out, part_min, part_max, n, T,
+        band, K, hop, L, detrend, log10_out, mode, with_stats, M, bhat,
+        chirp, rows, plan);
+    if (launched != cudaSuccess) return static_cast<int>(launched);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int variant =
       ranks == 2 ? 2 : (local <= BLUE_TWO_BLOCK_POINTS ? 1 : 0);
-  const bool ext = L < K || mode != OUT_PSD;
   decltype(&stft_bluestein_psd_kernel<1, false, false>) const by_variant[2][3] =
       {{stft_bluestein_psd_kernel<1, false, false>,
         stft_bluestein_psd_kernel<1, true, false>,
@@ -3169,14 +3688,8 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
         stft_bluestein_psd_kernel<1, true, true>,
         stft_bluestein_psd_kernel<2, false, true>}};
   const auto kernel = by_variant[ext][variant];
-  const size_t smem = static_cast<size_t>(local) * sizeof(double2);
   const int err = raise_smem(kernel, smem, blue_smem_set[ext][variant]);
   if (err != 0) return err;
-  const unsigned units =
-      static_cast<unsigned>(B) *
-      static_cast<unsigned>(odd ? (T + 1) / 2 : T);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const double2* tw2 = reinterpret_cast<const double2*>(tw);
   if (ranks == 1) {
     kernel<<<units, threads, smem, s>>>(
         x, win, tw2, wts, out, part_min, part_max, n, T, band, K, hop, L,
@@ -3201,6 +3714,38 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
       half_row, plan);
   if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The clusters of `ranks` blocks (4 or 8) of the Bluestein kernel that the
+// card can hold at once at `local` slots a block (EXT or not), into
+// *clusters (cudaOccupancyMaxActiveClusters); returns a cudaError_t. The
+// launcher refuses a cluster that cannot be placed.
+int stft_bluestein_clusters(int ranks, int local, int ext, int* clusters) {
+  if ((ranks != 4 && ranks != 8) || local < 1 ||
+      local > BLUE_MAX_BLOCK_POINTS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel =
+      ranks == 4 ? (ext ? stft_bluestein_cluster_psd_kernel<4, true>
+                        : stft_bluestein_cluster_psd_kernel<4, false>)
+                 : (ext ? stft_bluestein_cluster_psd_kernel<8, true>
+                        : stft_bluestein_cluster_psd_kernel<8, false>);
+  const size_t smem = static_cast<size_t>(local) * sizeof(double2);
+  const int err =
+      raise_smem(kernel, smem, blue_smem_set[ext != 0][ranks == 4 ? 3 : 4]);
+  if (err != 0) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(ranks);
+  config.blockDim = dim3(fft_threads(2 * local));
+  config.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(kernel), &config));
 }
 
 const char* stft_psd_error_string(int code) {

@@ -4,14 +4,19 @@ Counterpart of ``spectral_tpu/ops/stft_pallas.py``. Five kernels in
 ``csrc/stft_psd.cu`` replace ``stft_psd_pallas`` with its ``with_stats``
 and ``log10_out`` modes, across the GUI's whole nperseg range up to 8192
 (the TPU's auto kernel K1 and, above nperseg 6144, its manual-DMA kernel
-K2): framing, the windowed and detrended real DFT, |X|² times the
+K2), and past it to 32,768 (:data:`MAX_FFT_NFFT`; the JAX package
+computes those frames on its rFFT route, its Pallas kernel stopping at
+8192): framing, the windowed and detrended real DFT, |X|² times the
 one-sided PSD weights, and the per-clip PSD extrema, with no frame tensor
 written to memory. All compute the same function, by five routes that
 :func:`route` picks from the config alone:
 
 - ``"fft"`` (``stft_fft_psd_launch``): power-of-two nperseg from 32 to
-  8192 under any detrend (the GUI's nine powers of two, and the driven
-  paths at 1024 and 8192). A frame on nperseg/16 threads with 8 values
+  32,768 under any detrend (the GUI's nine powers of two, and the driven
+  paths at 1024, 8192, 16384 and 32768; 16384 on one block of 8192
+  points; from :data:`R2_SPLIT_NFFT` a frame is two blocks, each the
+  half transform of the bins of one parity, ``stft_fft_split_psd_kernel``,
+  whose partials are two tiles a frame). A frame on nperseg/16 threads with 8 values
   each up to 1024 (a warp at 512), on nperseg/32 with 16 values from 2048
   (8 warps at 8192): the frame read straight into registers and widened
   to float64, its mean (constant detrend) or its least-squares line
@@ -52,9 +57,13 @@ written to memory. All compute the same function, by five routes that
   chirp (``core.stft.bluestein_plan``, :func:`bluestein_constants`): M's
   stages in frequency, a product with the host's b̂, the stages in time,
   on even nperseg's packed frames or odd nperseg's pairs of frames as the
-  routes above; past 14,406 points (odd nperseg from 7207, M up to
-  16,384) on a cluster of two blocks that hold half of M each;
-- ``"gemm"`` (``stft_psd_launch``): nperseg below 32. The real DFT as a
+  routes above; past 14,406 points on a cluster of 2, 4 or 8 blocks that
+  hold M / RANKS slots each (``core.stft.bluestein_ranks``; odd nperseg
+  from 7207 on two, 14,407 on four, 28,813 on eight); and every nfft from
+  8193 to 32,768 that is not a power of two (the mixed and odd routes
+  stop at 8192);
+- ``"gemm"`` (``stft_psd_launch``): nfft below 32, and past 32,768 at
+  nperseg up to 8192. The real DFT as a
   GEMM against (nperseg, F) matrices with the window and detrend folded in
   (:func:`dft_constants`): at F <= 16 (every nperseg below 32) a tile of
   its own, 256 or 512 rows a block with all their bins, the rows' frames
@@ -67,7 +76,7 @@ none, 1 constant, 2 linear); their launchers refuse any other value.
 The extended modes. Routes go by the transform length nfft: a frame's
 nperseg samples load into an nfft-point transform whose other slots are
 zero (scipy's nfft, the zero-padded transform), the detrend taken over
-the nperseg samples, so nfft from 32 to 8192 runs on the FFT family of
+the nperseg samples, so nfft from 32 to 32,768 runs on the FFT family of
 nfft's factorization whatever nperseg is (the descriptions above name
 the transform length nperseg where nfft == nperseg). Every epilogue takes
 an output mode (:data:`OUTPUT_MODES`): the PSD; the magnitude
@@ -112,7 +121,8 @@ mixed-radix, odd and Bluestein routes' own configs).
 
 :func:`stft_psd` takes a kernel for a CUDA tensor and the plain version
 (:func:`stft_psd_reference`, a float64 dense DFT, the plain version of
-every kernel) for a CPU tensor, and only because the tensor lies on the
+every kernel; past nperseg 8192 float64 ``torch.fft``, no dense matrix,
+:func:`plain_constants`) for a CPU tensor, and only because the tensor lies on the
 CPU; so does :func:`stft_psd_partials`, the display pipeline's call,
 which returns the kernel's per-frame extrema unreduced for
 ``ops.display_cuda.clip_stats``. On a CUDA tensor they launch the route's
@@ -144,7 +154,10 @@ backward (:func:`stft_backward_reference`, the same arithmetic as
 explicit torch). The partials and the extrema carry no gradient, and
 ``log10_out`` has none (it raises with a waveform that requires grad,
 as the JAX package's Pallas kernel has no gradient there). Without grad
-the entry points run exactly as before: one launch, nothing saved.
+the entry points run exactly as before: one launch, nothing saved. Past
+nperseg 8192 a CUDA waveform that requires grad raises naming ROADMAP
+[large-nperseg] before any launch, and a CPU one is differentiated by
+autograd through the plain version (``core.stft.fft_dft``).
 
 The device operands (:func:`dft_constants`, :func:`fft_constants`,
 :func:`mixed_constants`, :func:`bluestein_constants`) are cached per
@@ -163,21 +176,32 @@ import numpy as np
 import torch
 
 from spectral_tpu_torch.config import SpecConfig
-from spectral_tpu_torch.core.stft import (MAX_MIXED_RADIX, _require_power,
+from spectral_tpu_torch.core.stft import (DENSE_MAX_NPERSEG,
+                                          MAX_MIXED_RADIX, _require_power,
                                           _window_f64, bluestein_plan,
-                                          center_pad,
-                                          dense_dft, dft_matrices,
-                                          ensure_real_waveform, fft_plan,
-                                          fft_twiddles, frame_signal,
-                                          num_frames, onesided_weights,
-                                          plan_radices, psd_scale)
+                                          center_pad, dense_dft,
+                                          detrend_frames as _detrend_frames,
+                                          dft_matrices, ensure_real_waveform,
+                                          fft_dft, fft_plan, fft_twiddles,
+                                          frame_signal, num_frames,
+                                          onesided_weights, plan_radices,
+                                          psd_scale)
 from spectral_tpu_torch.ops import build
 
 KERNEL = "stft_psd"
-MAX_NPERSEG = 8192           # the GUI's ceiling (GUI.py:87-90), and the FFT
-                             # kernels' longest transform
+MAX_NPERSEG = 8192           # the GUI's ceiling (GUI.py:87-90): the mixed
+                             # and odd routes' longest transform, and the
+                             # longest frame of the GEMM route and of the
+                             # dense plain version
+MAX_FFT_NFFT = 32768         # the radix-2 and Bluestein routes' longest
+                             # transform (R2_MAX_K and BLUE_MAX_K in
+                             # csrc/stft_psd.cu), and the longest frame
 MIN_FFT_NPERSEG = 32         # the GUI's floor, the FFT kernels' shortest
                              # transform; below it the GEMM kernel computes
+# the radix-2 kernel runs a frame as two blocks, each the half transform of
+# the bins of one parity, from this nfft on (R2_SPLIT_K in the source);
+# nfft 16384 runs on one block of 8192 points, 7% faster on the card
+R2_SPLIT_NFFT = 32768
 # |X|² past float32's range makes the bin inf, as the JAX package's float32
 # pipeline overflows there: the clip's extrema turn inf and its finite flag
 # (the overflow guard) trips, though float64 could carry the value
@@ -225,24 +249,31 @@ class DftConstants(NamedTuple):
 def unsupported_reason(cfg: SpecConfig) -> Optional[str]:
     """Why the kernels cannot compute cfg (naming, by its bracketed label,
     the ROADMAP item that will bring it), or None when they can: a frame
-    past 8192 samples, which no block's shared memory holds as the FFT
-    kernels do. Every mode, centered framing and a two-sided spectrum are
-    computed; the JAX package's ``pallas_supported`` refuses those, and
-    its gcd and VMEM conditions are TPU layout limits (the kernels read
-    frames by pointer)."""
-    if cfg.nperseg > MAX_NPERSEG:
-        return (f"nperseg {cfg.nperseg} > {MAX_NPERSEG}, the GUI's ceiling "
-                "(GUI.py:87-90); transforms past it arrive with ROADMAP "
-                "[large-nperseg]")
+    past :data:`MAX_FFT_NFFT` samples, or past 8192 with a transform past
+    :data:`MAX_FFT_NFFT` (the GEMM route's matrices stop at 8192 rows).
+    Every mode, centered framing and a two-sided spectrum are computed;
+    the JAX package's ``pallas_supported`` refuses those, and its gcd and
+    VMEM conditions are TPU layout limits (the kernels read frames by
+    pointer)."""
+    if cfg.nperseg > MAX_FFT_NFFT:
+        return (f"nperseg {cfg.nperseg} > {MAX_FFT_NFFT}, the FFT kernels' "
+                "ceiling; transforms past it arrive with ROADMAP "
+                "[large-nperseg] (passes through L2)")
+    if cfg.nperseg > MAX_NPERSEG and cfg.nfft_ > MAX_FFT_NFFT:
+        return (f"nperseg {cfg.nperseg} > {MAX_NPERSEG} with nfft "
+                f"{cfg.nfft_} > {MAX_FFT_NFFT}: past the FFT kernels' "
+                "ceiling, and the GEMM route's matrices stop at nperseg "
+                f"{MAX_NPERSEG}; ROADMAP [large-nperseg]")
     return None
 
 
 def kernel_supported(cfg: SpecConfig) -> bool:
-    """Whether the kernels compute cfg: nperseg <= 8192, in any mode,
-    centered or not, one- or two-sided, with any nfft >= nperseg (the JAX
-    package computes those outside its Pallas kernel, on its dense matmul
-    route). The band mask and the mel branch are not the kernel's concern:
-    the caller passes the bins (``band``) and projects the PSD
+    """Whether the kernels compute cfg: nperseg <= 32,768, in any mode,
+    centered or not, one- or two-sided, with any nfft >= nperseg up to
+    32,768, and past it where nperseg <= 8192 (the JAX package computes
+    those outside its Pallas kernel, on its dense matmul or rFFT route).
+    The band mask and the mel branch are not the kernel's concern: the
+    caller passes the bins (``band``) and projects the PSD
     (``ops.mel_cuda``)."""
     return unsupported_reason(cfg) is None
 
@@ -257,9 +288,12 @@ def route(cfg: SpecConfig) -> str:
     """The kernel that computes a supported config (:func:`kernel_supported`;
     others raise NotImplementedError), by its transform length nfft, under
     any detrend and mode and whatever its band or mel settings: ``"gemm"``
-    for nfft below 32 or past 8192 (its folded (nperseg, F) matrices carry
-    any zero padding); ``"fft"`` for a power-of-two nfft from 32 to 8192;
-    for the other nfft in that range whose plan's radices
+    for nfft below 32 or past :data:`MAX_FFT_NFFT` (its folded (nperseg,
+    F) matrices carry any zero padding; nperseg <= 8192 there); ``"fft"``
+    for a power-of-two nfft from 32 to 32,768 (from
+    :data:`R2_SPLIT_NFFT` two blocks a frame); ``"bluestein"`` for every
+    other nfft from 8193 to 32,768 (on one block or a cluster of 2, 4 or
+    8); for the other nfft from 32 to 8192 whose plan's radices
     (``core.stft.plan_radices``: the prime factors of the transform
     length, nfft/2 or an odd nfft, or of the length less one where a
     Rader stage takes a prime length past :data:`MAX_MIXED_RADIX`) are
@@ -269,11 +303,11 @@ def route(cfg: SpecConfig) -> str:
     and zero the rest of the nfft slots. A pure function of the config."""
     check_supported(cfg)
     k = cfg.nfft_
-    if not MIN_FFT_NPERSEG <= k <= MAX_NPERSEG:
+    if not MIN_FFT_NPERSEG <= k <= MAX_FFT_NFFT:
         return "gemm"
     if k & (k - 1) == 0:
         return "fft"
-    if max(plan_radices(k)) > MAX_MIXED_RADIX:
+    if k > MAX_NPERSEG or max(plan_radices(k)) > MAX_MIXED_RADIX:
         return "bluestein"
     return "odd" if k % 2 else "mixed"
 
@@ -298,9 +332,18 @@ def backward_route(cfg: SpecConfig, band=None) -> str:
     forward runs its small-K tile, the band's F <= :data:`SMALL_MAX_F`
     bins at nperseg below :data:`SMALL_MAX_L`, else ``"dense"`` (the
     route's complex epilogue, then ``stft_backward_kernel`` against the
-    folded matrices: two-sided spectra past 16 bins, nfft past 8192)."""
+    folded matrices: two-sided spectra past 16 bins, nfft past 8192, whose
+    X the radix-2 or Bluestein kernel recomputes). nperseg past 8192
+    raises NotImplementedError naming ROADMAP [large-nperseg]: its adjoint
+    on the card (B1-fft on the parity split, B1-bluestein on 4 and 8
+    ranks) is a later slice's."""
     r = route(cfg)
-    if r in FFT_BACKWARD_ROUTES:
+    if cfg.nperseg > MAX_NPERSEG:
+        raise NotImplementedError(
+            f"no gradient on the card at nperseg {cfg.nperseg} > "
+            f"{MAX_NPERSEG}: the STFT's backward past it arrives with "
+            "ROADMAP [large-nperseg]")
+    if r in FFT_BACKWARD_ROUTES and cfg.nfft_ <= MAX_NPERSEG:
         return r
     lo, hi = check_band(cfg, band)
     if hi - lo <= SMALL_MAX_F and cfg.nperseg < SMALL_MAX_L:
@@ -542,36 +585,43 @@ def _empty_result(B: int, F: int, like: torch.Tensor, with_stats: bool):
     return empty
 
 
-def _detrend_frames(frames: torch.Tensor, detrend: str) -> torch.Tensor:
-    """Each float64 frame less its mean (constant) or its least-squares
-    line (linear, the slope against the centred sample index), as the FFT
-    kernels subtract them. The folded matrices project the detrend out
-    again, a no-op on detrended frames up to rounding, but a frame of equal
-    samples now gives the exact zeros that the kernels and scipy give,
-    where the folded product alone leaves a rounding residue."""
-    if detrend == "none":
-        return frames
-    frames = frames - frames.mean(dim=-1, keepdim=True)
-    if detrend == "linear":
-        K = frames.shape[-1]
-        c = torch.arange(K, dtype=frames.dtype, device=frames.device) \
-            - (K - 1) / 2
-        slope = (frames * c).sum(dim=-1, keepdim=True) / (c * c).sum()
-        frames = frames - slope * c
-    return frames
+class BinWeights(NamedTuple):
+    """The plain version's operands past nperseg 8192, where no dense
+    matrix is built: the band's bins lo to hi - 1 and their weights (F,)
+    float64 (:func:`kernel_weights`)."""
+    lo: int
+    hi: int
+    wts: torch.Tensor
 
 
-def _reference_dft(x: torch.Tensor, consts: DftConstants, cfg: SpecConfig):
+def plain_constants(cfg: SpecConfig, fs: float, device, band=None,
+                    out: Optional[str] = None):
+    """The plain version's operands for (cfg, fs), the band and the output
+    ``out`` (cfg.mode when None): :func:`dft_constants` up to nperseg
+    8192; past it :class:`BinWeights`, the transform then being
+    ``core.stft.fft_dft``'s, and no (nperseg, F) matrix built."""
+    if cfg.nperseg <= DENSE_MAX_NPERSEG:
+        return dft_constants(cfg, fs, device, band, out)
+    lo, hi = check_band(cfg, band)
+    return BinWeights(lo, hi, _put(kernel_weights(cfg, fs, out)[lo:hi],
+                                   device))
+
+
+def _reference_dft(x: torch.Tensor, consts, cfg: SpecConfig):
     """The plain version's float64 transform of x's (uncentered) frames:
     (X_re, X_im), (B, T, F) each, as the kernels compute it: from nfft 32
-    to 8192, where the FFT routes take it, each nperseg-sample frame
-    detrended explicitly (:func:`_detrend_frames`); elsewhere the detrend
-    only folded into the matrices, as the GEMM kernel has it; the zero
-    padding to nfft in the matrices' rows (``dft_matrices``)."""
+    to 32,768, where the FFT routes take it, each nperseg-sample frame
+    detrended explicitly (``core.stft.detrend_frames``); elsewhere the
+    detrend only folded into the matrices, as the GEMM kernel has it; the
+    zero padding to nfft in the matrices' rows (``dft_matrices``). Past
+    nperseg 8192 (``consts`` a :class:`BinWeights`) the one-sided bins of
+    the frames' float64 FFT (``core.stft.fft_dft``)."""
+    frames = frame_signal(x.double(), cfg.nperseg, cfg.hop_)
+    if isinstance(consts, BinWeights):
+        return fft_dft(frames, cfg, (consts.lo, consts.hi))
     if consts.a_re.dtype != torch.float64:
         raise ValueError(f"the plain STFT computes in float64; got "
                          f"{consts.a_re.dtype} constants")
-    frames = frame_signal(x.double(), cfg.nperseg, cfg.hop_)
     if route(cfg) != "gemm":              # the FFT routes' explicit detrend
         frames = _detrend_frames(frames, cfg.detrend)
     return dense_dft(frames, consts.a_re, consts.a_im)
@@ -594,10 +644,12 @@ def stft_psd_reference(x: torch.Tensor, consts: DftConstants,
     square roots (``dft_constants``' weights for cfg.mode), and a bin whose
     |X|² lies past the float32 range inf (:data:`F32_MAX`). ``consts``
     must be float64 (``dft_constants(cfg, fs, device)``): float32 matrices
-    would round A, which the kernel does not."""
+    would round A, which the kernel does not; past nperseg 8192 they are
+    :func:`plain_constants`' bins and weights, the transform a float64
+    FFT."""
     B = x.shape[0]
     if num_frames(x.shape[-1], cfg.nperseg, cfg.hop_) <= 0:
-        return _empty_result(B, consts.a_re.shape[1], x, with_stats)
+        return _empty_result(B, consts.wts.shape[0], x, with_stats)
     xr, xi = _reference_dft(x, consts, cfg)
     power = xr * xr + xi * xi
     p = power.sqrt() if cfg.mode == "magnitude" else power
@@ -619,7 +671,7 @@ def stft_complex_reference(x: torch.Tensor, consts: DftConstants,
     rounded once."""
     ctype = torch.complex128 if x.dtype == torch.float64 else torch.complex64
     if num_frames(x.shape[-1], cfg.nperseg, cfg.hop_) <= 0:
-        return torch.zeros((x.shape[0], 0, consts.a_re.shape[1]),
+        return torch.zeros((x.shape[0], 0, consts.wts.shape[0]),
                            dtype=ctype, device=x.device)
     xr, xi = _reference_dft(x, consts, cfg)
     return torch.complex(xr * consts.wts, xi * consts.wts).to(ctype)
@@ -797,10 +849,27 @@ def _library() -> ctypes.CDLL:
         lib.stft_bluestein_psd_launch.restype = i32
         lib.stft_psd_freq_tiles.argtypes = [i32]
         lib.stft_psd_freq_tiles.restype = i32
+        lib.stft_bluestein_clusters.argtypes = [
+            i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
+        lib.stft_bluestein_clusters.restype = i32
         lib.stft_psd_error_string.argtypes = [i32]
         lib.stft_psd_error_string.restype = ctypes.c_char_p
     _LIB.append(lib)
     return lib
+
+
+def partial_tiles(cfg: SpecConfig, kernel: str) -> int:
+    """The per-frame partials' tiles of an FFT route's launch: 2 where the
+    radix-2 kernel runs a frame as two half transforms (nfft from
+    :data:`R2_SPLIT_NFFT`), each block's bins of one parity; the ranks of a
+    Bluestein cluster of 4 or 8, each its share of the bins; else 1 (a
+    cluster of two stores from rank 0 alone)."""
+    if kernel == "fft" and cfg.nfft_ >= R2_SPLIT_NFFT:
+        return 2
+    if kernel == "bluestein":
+        ranks = bluestein_plan(cfg.nfft_).ranks
+        return ranks if ranks > 2 else 1
+    return 1
 
 
 def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
@@ -845,10 +914,15 @@ def _stft_psd_cuda(x: torch.Tensor, fs: float, cfg: SpecConfig,
     if B * T > MAX_ROWS:
         raise ValueError(f"at most {MAX_ROWS} frames per launch, got "
                          f"{B} clips x {T} frames")
-    n_tiles = lib.stft_psd_freq_tiles(F) if kernel == "gemm" else 1
+    n_tiles = (lib.stft_psd_freq_tiles(F) if kernel == "gemm"
+               else partial_tiles(cfg, kernel))
     if n_tiles > 1 and -(-B * T // GEMM_TILE_ROWS) * n_tiles > MAX_BLOCKS:
         raise ValueError(f"{B} clips x {T} frames x {F} bins is past the "
                          f"GEMM kernel's {MAX_BLOCKS} blocks a launch")
+    if kernel != "gemm" and B * T * n_tiles > MAX_BLOCKS:
+        raise ValueError(f"{B} clips x {T} frames is past the "
+                         f"{MAX_BLOCKS} blocks a launch at {n_tiles} blocks "
+                         f"a frame on the {kernel} route")
     out = torch.empty((B, T, F), dtype=out_dtype, device=x.device)
     parts = (torch.empty((2, n_tiles, B * T), dtype=torch.float32,
                          device=x.device) if with_stats else None)
@@ -984,8 +1058,9 @@ def _forward(x: torch.Tensor, op: GradOp, log10_out: bool = False):
     if x.device.type == "cpu":
         if op.out in ("complex", "stft"):
             return stft_complex_reference(
-                x, dft_constants(cfg, fs, x.device, op.band, op.out), cfg)
-        p = stft_psd_reference(x, dft_constants(cfg, fs, x.device, op.band),
+                x, plain_constants(cfg, fs, x.device, op.band, op.out), cfg)
+        p = stft_psd_reference(x, plain_constants(cfg, fs, x.device,
+                                                  op.band),
                                cfg, log10_out=log10_out,
                                with_stats=op.stats == "extrema")
         return (p, row_partials(p)) if op.stats == "partials" else p
@@ -1017,8 +1092,14 @@ class _StftGrad(torch.autograd.Function):
 
 def _apply(x: torch.Tensor, op: GradOp, log10_out: bool = False):
     """:func:`_forward`, through :class:`_StftGrad` when x needs a
-    gradient."""
+    gradient; past nperseg 8192 autograd through the plain version on a
+    CPU tensor, and on a CUDA tensor NotImplementedError naming ROADMAP
+    [large-nperseg] before any launch (:func:`backward_route`)."""
     if x.requires_grad and torch.is_grad_enabled():
+        if op.cfg.nperseg > DENSE_MAX_NPERSEG:
+            if x.device.type == "cpu":
+                return _forward(x, op, log10_out)
+            backward_route(op.cfg, op.band)       # raises
         if log10_out:
             raise ValueError("log10_out has no gradient (ROADMAP [grad]; "
                              "the JAX package's Pallas kernel has none "
@@ -1341,6 +1422,27 @@ def stft_psd_partials(x: torch.Tensor, fs: float, cfg: SpecConfig,
                             "partials"))
 
 
+def bluestein_clusters(cfg: SpecConfig, device) -> int:
+    """How many of the Bluestein kernel's clusters of 4 or 8 blocks for
+    cfg's nfft the card ``device`` holds at once at their shared memory
+    (``cudaOccupancyMaxActiveClusters``); the launcher refuses a cluster
+    that cannot be placed (0). A config on another form raises."""
+    plan = bluestein_plan(cfg.nfft_)
+    if plan.ranks < 4:
+        raise ValueError(f"nfft {cfg.nfft_} runs on {plan.ranks} block(s), "
+                         "not a cluster of 4 or 8")
+    lib = _library()
+    count = ctypes.c_int(0)
+    ext = int(cfg.nperseg < cfg.nfft_ or cfg.mode != "psd")
+    with torch.cuda.device(torch.device(device)):
+        err = lib.stft_bluestein_clusters(plan.ranks, plan.m // plan.ranks,
+                                          ext, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError("stft_bluestein_clusters failed: "
+                           + lib.stft_psd_error_string(err).decode())
+    return count.value
+
+
 def row_partials(p: torch.Tensor) -> torch.Tensor:
     """The plain partials of a (B, T, F) tensor: each row's NaN-propagating
     min and max over its F values, (2, 1, B, T), the kernels' layout."""
@@ -1364,17 +1466,19 @@ def stft_psd(x, fs: float, cfg: SpecConfig, *, log10_out: bool = False,
     (``core.stft.center_pad``); a two-sided one gives all nfft bins. A
     config outside :func:`kernel_supported` raises NotImplementedError on
     every device. On a CUDA tensor the kernel is the one :func:`route`
-    picks; ``_route`` forces another the config allows ("gemm" always,
-    "bluestein" on any nfft from 32 to 8192, else only the config's own
-    route), for timing the kernels against each other."""
+    picks; ``_route`` forces another the config allows ("gemm" at nperseg
+    up to 8192, "bluestein" on any nfft from 32 to 32,768, else only the
+    config's own route), for timing the kernels against each other."""
     if with_stats and log10_out:
         raise ValueError("with_stats computes linear-PSD extrema; "
                          "combine with log10_out is unsupported")
     _require_power(cfg)
     kernel = route(cfg)
     if _route is not None:
-        forced = ["gemm", kernel]
-        if MIN_FFT_NPERSEG <= cfg.nfft_ <= MAX_NPERSEG:
+        forced = [kernel]
+        if cfg.nperseg <= MAX_NPERSEG:
+            forced.append("gemm")
+        if MIN_FFT_NPERSEG <= cfg.nfft_ <= MAX_FFT_NFFT:
             forced.append("bluestein")
         if _route not in forced:
             raise ValueError(f"no {_route!r} route for nperseg "

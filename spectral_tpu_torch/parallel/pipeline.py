@@ -195,7 +195,7 @@ def export_spectrograms(clips: Iterable[Tuple[str, np.ndarray]], fs: float,
     or the mel rows of the band on the mel-centre axis, one PNG row each;
     a centered config's frames span the padded clip, clip_samples + 2
     (nperseg // 2) samples (the JAX package's unpack width). A config the
-    kernels cannot compute (nperseg > 8192) raises NotImplementedError
+    kernels cannot compute (nperseg > 32,768) raises NotImplementedError
     naming its ROADMAP label; an empty band raises ValueError.
     ``cfg.precision == 'fast'`` runs at the contract precision, as the JAX
     package's Pallas kernel does (ROADMAP [fast-tier]).

@@ -12,7 +12,7 @@ config runs the kernel's plain version.
 Centered configs pad the shared buffer on the card once a pad
 (``core.stft.center_pad``, keyed by nperseg // 2 and the pad mode), as
 the JAX package pads once a group, and launch on the padded buffer;
-nperseg past 8192 (ROADMAP [large-nperseg]) raises NotImplementedError.
+nperseg past 32,768 (ROADMAP [large-nperseg]) raises NotImplementedError.
 A config with nfft > nperseg runs on the route of its nfft.
 """
 
@@ -48,7 +48,7 @@ def sweep_grid(x, fs: float, configs: Sequence[SpecConfig],
     launch of its route's kernel, whose result is bitwise
     ``power_spectrogram`` of that config. A non-PSD mode raises the JAX
     package's ValueError; a config the kernels cannot compute (nperseg >
-    8192) raises NotImplementedError naming its ROADMAP item, before any
+    32,768) raises NotImplementedError naming its ROADMAP item, before any
     work."""
     for cfg in configs:
         if cfg.mode != "psd":

@@ -206,13 +206,15 @@ def test_process_pool_and_errors(tmp_path):
 
 
 def test_configs_the_kernels_cannot_compute_raise(tmp_path):
-    """A transform past 8192 raises before anything is written; the mel
+    """A transform past 32,768 raises before anything is written (one past
+    8192, [large-nperseg], exports: test_torch_large_nperseg.py holds its
+    PNGs to JAX's); the mel
     and band configs that [band-mel] refused now export (their PNGs are
     held to JAX's in test_export_band_and_mel_match_jax), and so do nfft >
     nperseg (held to JAX's in tests/test_torch_nfft.py) and, since
     [ext-modes], centered and magnitude configs (held to JAX's in
     tests/test_torch_ext_modes.py)."""
-    for cfg, item in ((SpecConfig.scipy_default(16384),
+    for cfg, item in ((SpecConfig.scipy_default(65536),
                        r"\[large-nperseg\]"),):
         with pytest.raises(NotImplementedError, match=item):
             tpipe.export_spectrograms(_clips(1), FS, cfg, str(tmp_path),

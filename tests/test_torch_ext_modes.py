@@ -308,11 +308,12 @@ def test_magnitude_is_the_square_root_of_the_psd():
 
 
 def test_refusals_name_their_items():
-    """A transform past 8192 raises naming [large-nperseg] on every entry
-    point; the complex mode has no power spectrogram (the JAX package's
-    ValueError, text and all)."""
-    x = torch.zeros(1, 20000)
-    big = SpecConfig.scipy_default(16384)
+    """A transform past 32,768 raises naming [large-nperseg] on every entry
+    point (one past 8192 computes: test_torch_large_nperseg.py); the
+    complex mode has no power spectrogram (the JAX package's ValueError,
+    text and all)."""
+    x = torch.zeros(1, 70000)
+    big = SpecConfig.scipy_default(65536)
     for call in (lambda: tstft.stft(x, big),
                  lambda: tstft.spectrogram(x, FS, big),
                  lambda: stft_cuda.stft_complex(x, FS, big),

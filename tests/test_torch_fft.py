@@ -148,15 +148,19 @@ def test_fft_route_on_the_gui_range():
             after.add(k)
     assert after <= before
     assert (len(before - after), len(after)) == (3103, 2389)
+    # past the GUI's range: a power of two to 32,768 on the radix-2 kernel
+    # (two half transforms a frame), past that refused
+    assert stft_cuda.route(SpecConfig.scipy_default(16384)) == "fft"
+    assert stft_cuda.route(SpecConfig.scipy_default(32768)) == "fft"
     with pytest.raises(NotImplementedError, match=r"\[large-nperseg\]"):
-        stft_cuda.route(SpecConfig.scipy_default(16384))   # past the GUI
+        stft_cuda.route(SpecConfig.scipy_default(65536))
     # the output mode does not move the route
     for mode in ("magnitude", "complex"):
         assert stft_cuda.route(SpecConfig(nperseg=256, mode=mode)) == "fft"
-    # a zero-padded transform takes the route of its nfft, the GEMM kernel
-    # past 8192
+    # a zero-padded transform takes the route of its nfft, the Bluestein
+    # kernel past 8192 where nfft is no power of two
     for k, want in ((256, "fft"), (1024, "fft"), (3000, "mixed"),
-                    (8191, "gemm")):
+                    (8191, "bluestein"), (8192, "fft")):
         assert stft_cuda.route(SpecConfig(nperseg=k, nfft=2 * k)) == want
     # the route does not depend on the band or the mel branch
     for k in (24, 256, 8160, 8191, 8185):

@@ -217,14 +217,16 @@ ROUTE_GRID = [
                               for c, w in ROUTE_GRID])
 def test_backward_route(cfg, want):
     """The radix-2, mixed, odd and Bluestein routes' FFT adjoints exactly
-    where the forward's route is that kernel's, by nfft, whatever the
-    detrend, mode, sides or centering; on the GEMM route the small-K
-    backward where the forward runs its small-K tile (at most 16 bins at
-    nperseg below 32) and the dense kernel past it."""
+    where the forward's route is that kernel's, by nfft up to 8192,
+    whatever the detrend, mode, sides or centering; past nfft 8192 (the
+    radix-2 or Bluestein kernel's forward) and on the GEMM route the
+    small-K backward where the forward runs its small-K tile (at most 16
+    bins at nperseg below 32) and the dense kernel past it."""
     assert stft_cuda.backward_route(cfg) == want
     r = stft_cuda.route(cfg)
     small = cfg.n_freqs <= 16 and cfg.nperseg < 32
     assert want == (r if r in ("fft", "mixed", "odd", "bluestein")
+                    and cfg.nfft_ <= 8192
                     else "small" if small else "dense")
 
 

@@ -407,17 +407,19 @@ ROUTES = [(SD(k), None, "small") for k in (2, 7, 13, 24, 31)] + [
                               f"{'1' if c.onesided else '2'}_{b}_{w}"
                               for c, b, w in ROUTES])
 def test_backward_route_small(cfg, band, want):
-    """"small" exactly where the forward runs its small-K tile: the GEMM
-    route with the band's F <= 16 bins at nperseg below 32; "dense" (B1)
-    on the rest of the GEMM route (a two-sided spectrum past 16 bins,
-    nfft past 8192 over its bins, nperseg from 32); the FFT routes
-    unchanged."""
+    """"small" exactly where the forward runs its small-K tile, or would
+    past nfft 8192 (whose forward is now the radix-2 or Bluestein kernel's,
+    the backward unchanged): the GEMM route with the band's F <= 16 bins
+    at nperseg below 32; "dense" (B1) on the rest of the GEMM route (a
+    two-sided spectrum past 16 bins, nperseg from 32) and past nfft 8192
+    over its bins; the FFT routes' own adjoints unchanged."""
     assert stft_cuda.backward_route(cfg, band) == want
+    b1_route = stft_cuda.route(cfg) == "gemm" or cfg.nfft_ > 8192
     if want in ("small", "dense"):
-        assert stft_cuda.route(cfg) == "gemm"
+        assert b1_route
     lo, hi = stft_cuda.check_band(cfg, band)
-    assert (want == "small") == (stft_cuda.route(cfg) == "gemm"
-                                 and hi - lo <= 16 and cfg.nperseg < 32)
+    assert (want == "small") == (b1_route and hi - lo <= 16
+                                 and cfg.nperseg < 32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Zero-padded transforms (nfft > nperseg, scipy's nfft, the CLI's --nfft)
 on the port: the route of nfft takes every such config (an FFT family
-from nfft 32 to 8192, whose kernels load the frame's nperseg samples and
-zero the rest; the GEMM route below 32 and past 8192, its small-K tile
+from nfft 32 to 32,768, whose kernels load the frame's nperseg samples and
+zero the rest; the GEMM route below 32 and past 32,768, its small-K tile
 where the padded bins still fit it and the 128 x 64 tile past them), and
 each entry point that reaches the kernel (the PSD, the session, the
 pipeline, the mel branch, the band) gives what the JAX package gives on
@@ -70,18 +70,19 @@ def takes_small_tile(F, K):
 
 def test_route_takes_gemm_for_every_padded_config():
     """nfft > nperseg routes by nfft: the GEMM kernel below nfft 32 and
-    past 8192, and from 32 to 8192 the FFT family of nfft's factorization,
-    whatever nperseg is (the route of the unpadded config of nperseg
-    nfft); a forced Bluestein route takes a padded config from nfft 32,
-    a forced GEMM one any; centered and magnitude padded configs run;
-    nperseg past 8192 names [large-nperseg]."""
+    past 32,768, and from 32 to 32,768 the FFT family of nfft's
+    factorization, whatever nperseg is (the route of the unpadded config
+    of nperseg nfft: past 8192 the radix-2 or the Bluestein kernel); a
+    forced Bluestein route takes a padded config from nfft 32, a forced
+    GEMM one any up to nperseg 8192; centered and magnitude padded configs
+    run; nperseg past 8192 with nfft past 32,768 names [large-nperseg]."""
     for k in list(range(2, 32)) + list(range(32, 8193, 331)) + [8191, 8192]:
-        for nfft in (k + 1, 2 * k, 4 * k):
+        for nfft in (k + 1, 2 * k, 4 * k, 8 * k):
             cfg = SpecConfig(nperseg=k, hop=max(1, k // 4), nfft=nfft)
-            want = ("gemm" if not 32 <= nfft <= 8192 else stft_cuda.route(
+            want = ("gemm" if not 32 <= nfft <= 32768 else stft_cuda.route(
                 SpecConfig(nperseg=nfft, hop=max(1, nfft // 4))))
             assert stft_cuda.route(cfg) == want, (k, nfft)
-            assert want != "gemm" or nfft < 32 or nfft > 8192
+            assert want != "gemm" or nfft < 32 or nfft > 32768
     assert stft_cuda.route(SpecConfig(nperseg=1024, nfft=1024)) == "fft"
     assert stft_cuda.route(SpecConfig(nperseg=1000, nfft=1536)) == "mixed"
     assert stft_cuda.route(SpecConfig(nperseg=1024, nfft=2047)) == "odd"
@@ -101,7 +102,9 @@ def test_route_takes_gemm_for_every_padded_config():
                 SpecConfig(nperseg=256, nfft=512, mode="magnitude")):
         assert stft_cuda.kernel_supported(cfg)
         assert stft_cuda.route(cfg) == "fft"
-    bad = SpecConfig(nperseg=16384, nfft=32768)
+    assert stft_cuda.route(SpecConfig(nperseg=16384, nfft=32768)) == "fft"
+    assert stft_cuda.route(SpecConfig(nperseg=1024, nfft=65536)) == "gemm"
+    bad = SpecConfig(nperseg=16384, nfft=65536)
     assert not stft_cuda.kernel_supported(bad)
     with pytest.raises(NotImplementedError, match=r"\[large-nperseg\]"):
         stft_cuda.route(bad)
@@ -149,13 +152,15 @@ def test_small_tile_takes_padded_configs_within_its_bins(k, nfft):
 def test_large_tile_takes_padded_configs_past_its_bins():
     """A small nperseg with a large nfft has more bins than the small-K
     tile holds: the GEMM kernel, forced (these configs route to the FFT
-    family of nfft) or past nfft 8192, must take the 128 x 64 tile, whose
-    bins come in frequency tiles of 64 (stft_psd_freq_tiles)."""
+    family of nfft: past 8192 the Bluestein kernel) or past nfft 32,768,
+    must take the 128 x 64 tile, whose bins come in frequency tiles of 64
+    (stft_psd_freq_tiles)."""
     for k, nfft in ((2, 64), (8, 64), (24, 64), (31, 32), (24, 4096),
-                    (1024, 4096), (24, 9000)):
+                    (1024, 4096), (24, 9000), (24, 40000)):
         cfg = SpecConfig(nperseg=k, hop=max(1, k // 4), nfft=nfft)
-        assert stft_cuda.route(cfg) == ("gemm" if nfft > 8192 else "fft"
+        assert stft_cuda.route(cfg) == ("gemm" if nfft > 32768 else "fft"
                                         if nfft & (nfft - 1) == 0
+                                        else "bluestein" if nfft > 8192
                                         else "mixed")
         assert cfg.n_freqs > MAX_F and not takes_small_tile(cfg.n_freqs, k)
     # one-sided configs at nfft == nperseg below 32 all fit the small tile

@@ -182,14 +182,27 @@ def test_colormap_none_and_input_coercion():
 
 
 def test_unsupported_configs_raise_on_build():
-    """A transform past 8192 raises when the pipeline is built; the mel
-    and band configs that [band-mel] refused now compute (their outputs
-    are held to JAX in test_torch_band.py), as do the magnitude and
-    centered configs (tests/test_torch_ext_modes.py)."""
-    for cfg, item in ((SpecConfig.scipy_default(16384),
+    """A transform past 32,768 raises when the pipeline is built; one past
+    8192 ([large-nperseg]) computes, its PSD the JAX package's (the
+    outputs across entry points are held to JAX in
+    test_torch_large_nperseg.py); the mel and band configs that
+    [band-mel] refused now compute (their outputs are held to JAX in
+    test_torch_band.py), as do the magnitude and centered configs
+    (tests/test_torch_ext_modes.py)."""
+    for cfg, item in ((SpecConfig.scipy_default(65536),
                        r"\[large-nperseg\]"),):
         with pytest.raises(NotImplementedError, match=item):
             batched_spectrogram_fn(FS, cfg)
+    from spectral_tpu.core import stft as jstft
+    big = SpecConfig.scipy_default(16384)
+    xb = _clips(3, n=40000)
+    out = batched_spectrogram_fn(FS, big, colormap=None, device="cpu")(xb)
+    want = np.asarray(jstft.power_spectrogram(
+        jnp.asarray(xb), FS, jconfig.SpecConfig.from_json(big.to_json()),
+        use_matmul=False))
+    got = out["psd"].numpy()
+    assert got.shape == want.shape == (2, 2, 8193)
+    assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
     x = _clips(0, n=4096)
     mel = batched_spectrogram_fn(
         FS, SpecConfig.north_star(256, 64, n_mels=32))(x)

@@ -204,8 +204,11 @@ def test_stft_kernel_failure_propagates(monkeypatch):
             stft_cuda.stft_psd(x, FS, cfg, with_stats=True)
         with pytest.raises(RuntimeError, match="cannot build stft_psd"):
             batched_spectrogram_fn(FS, cfg)(x)
-    # unsupported configs raise before any device question
+    # unsupported configs raise before any device question; a transform
+    # past 8192 is a config like any other and needs the library
     with pytest.raises(NotImplementedError):
+        stft_cuda.stft_psd(x, FS, SpecConfig.scipy_default(65536))
+    with pytest.raises(RuntimeError, match="cannot build stft_psd"):
         stft_cuda.stft_psd(x, FS, SpecConfig.scipy_default(16384))
 
 

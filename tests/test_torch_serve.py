@@ -7,7 +7,7 @@ tests/test_api.py; serve --tcp 0 through the port's ServeClient.
 Tolerances: replies equal, but for band powers (each within 2e-5, the
 PSD contract on ratios of sums; the total power within 2e-5 relative)
 and rendered PNGs (tests/test_torch_cli.py's pixel rule); a config the
-kernels cannot compute (nperseg past 8192) answers ok: false naming
+kernels cannot compute (nperseg past 32,768) answers ok: false naming
 ROADMAP [large-nperseg] on the port.
 """
 
@@ -166,22 +166,24 @@ def test_configs_the_kernels_cannot_compute_answer_ok_false(wav, config):
     answers them: the magnitude and centered configs computed (detect's
     events equal, band powers within BAND_TOL), the complex mode refused
     with the JAX package's ValueError (it has no power spectrogram); a
-    transform past 8192 (nperseg 16384) gets the port's refusal as one ok:
-    false reply naming [large-nperseg]. The worker keeps serving."""
+    transform past 8192 (nperseg 16384, [large-nperseg]) computed as the
+    JAX worker computes it, and one past 32,768 gets the port's refusal as
+    one ok: false reply naming [large-nperseg]. The worker keeps
+    serving."""
     lines = [{"cmd": cmd, "files": [wav], "config": config}
              for cmd in ("render", "detect", "bands")]
     lines[0]["out"] = "/nonexistent/x.png"
     lines += [{"cmd": "ping"}, {"cmd": "shutdown"}]
     if config.get("nperseg") == 16384:
+        past = [dict(r, config={"nperseg": 65536}) for r in lines]
         stdout = io.StringIO()
-        tcli._serve(io.StringIO("\n".join(json.dumps(r) for r in lines)
+        tcli._serve(io.StringIO("\n".join(json.dumps(r) for r in past)
                                 + "\n"), stdout, device="cpu")
         out = [json.loads(ln) for ln in stdout.getvalue().splitlines()]
         for r in out[:3]:
             assert not r["ok"] and "[large-nperseg]" in r["error"], r
             assert r["error"].startswith("NotImplementedError: ")
         assert out[3] == {"ok": True, "pong": True}
-        return
     j, t = serve_both(lines)
     assert len(t) == len(j) == len(lines)
 
@@ -192,6 +194,10 @@ def test_configs_the_kernels_cannot_compute_answer_ok_false(wav, config):
                                  json.dumps(r)))
 
     assert tmp_free(t[0]) == tmp_free(j[0]) and t[1] == j[1]
+    if config.get("nperseg") == 16384:
+        same_bands(t[2], j[2])
+        assert t[3] == j[3] == {"ok": True, "pong": True}
+        return
     if config.get("mode") == "complex":
         for r in t[:3]:
             assert not r["ok"] and r["error"].startswith(

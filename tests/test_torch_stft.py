@@ -264,10 +264,22 @@ def test_kernel_supported_keeps_the_semantic_conditions():
             jnp.asarray(xr.numpy()), FS, _jax(cfg), use_matmul=False))
         assert got.shape == want.shape
         assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+    # a transform past 8192, computed off the JAX package's Pallas kernel
+    # (its VMEM stops there), is the port's to 32,768: the JAX package's
+    # rFFT route; past it refused
     big = SpecConfig.scipy_default(16384)
-    assert not stft_cuda.kernel_supported(big)
+    assert stft_cuda.kernel_supported(big)
+    assert not stft_pallas.pallas_supported(_jax(big))
+    xb = torch.from_numpy(_clips(6, n_clips=1, n=40000))
+    got = stft_cuda.stft_psd(xb, FS, big).numpy()
+    want = np.asarray(jstft.power_spectrogram(
+        jnp.asarray(xb.numpy()), FS, _jax(big), use_matmul=False))
+    assert got.shape == want.shape == (1, 2, 8193)
+    assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+    past = SpecConfig.scipy_default(65536)
+    assert not stft_cuda.kernel_supported(past)
     with pytest.raises(NotImplementedError, match=r"\[large-nperseg\]"):
-        stft_cuda.stft_psd(x, FS, big)
+        stft_cuda.stft_psd(x, FS, past)
     # the mel branch and the band mask are not the kernel's concern: the
     # caller passes the band's bins, and projects the PSD onto mel rows
     for cfg in (SpecConfig(nperseg=256, n_mels=32),

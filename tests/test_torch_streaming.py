@@ -348,24 +348,32 @@ def test_refusals_carry_the_jax_texts():
 def test_refusals_of_the_port():
     """What the port leaves to later items: the mesh branch ([multi-
     device]) and configs the kernels cannot compute ([large-nperseg]:
-    nperseg past 8192), on every device, before any work; the
-    single-recording folds refuse a fleet. A zero-padded transform (nfft
-    > nperseg), refused until the GEMM kernel took it, streams like any
-    other config."""
+    nperseg past 32,768), on every device, before any work; the
+    single-recording folds refuse a fleet. A transform past 8192 (to
+    32,768) streams like any other config, its PSD the JAX package's
+    stream's; so does a zero-padded transform (nfft > nperseg), refused
+    until the GEMM kernel took it."""
     x = np.zeros(8192, np.float32)
     cfg = SpecConfig.north_star(256, 64)
     with pytest.raises(NotImplementedError, match=r"\[multi-device\]"):
         st.scan_spectrogram(x, 1000.0, cfg, 1024, mesh=object())
-    past = SpecConfig.north_star(16384, 4096)
-    for entry in (lambda: st.stream_spectrogram(x, 1000.0, past, 16384,
+    past = SpecConfig.north_star(65536, 16384)
+    for entry in (lambda: st.stream_spectrogram(x, 1000.0, past, 65536,
                                                 device="cpu"),
-                  lambda: st.scan_spectrogram(x, 1000.0, past, 16384,
+                  lambda: st.scan_spectrogram(x, 1000.0, past, 65536,
                                               device="cpu"),
-                  lambda: st.StreamingSTFT(1000.0, past, 16384),
-                  lambda: st.stream_features(x, 1000.0, past, 16384,
+                  lambda: st.StreamingSTFT(1000.0, past, 65536),
+                  lambda: st.stream_features(x, 1000.0, past, 65536,
                                              device="cpu")):
         with pytest.raises(NotImplementedError, match=r"\[large-nperseg\]"):
             entry()
+    big = SpecConfig.north_star(16384, 4096)
+    z = np.random.RandomState(3).randn(40960).astype(np.float32)
+    jout = np.asarray(jst.stream_spectrogram(z, 1000.0, _j(big), 16384))
+    for entry in (st.stream_spectrogram, st.scan_spectrogram):
+        got = entry(z, 1000.0, big, 16384, device="cpu").numpy()
+        assert got.shape == jout.shape == (7, 8193)
+        assert np.abs(got - jout).max() <= CHUNK_REL * np.abs(jout).max()
     padded = SpecConfig.north_star(512, 128, nfft=1024)
     y = np.random.RandomState(2).randn(8192).astype(np.float32)
     mono = _mono(y, 1000.0, padded)

@@ -119,8 +119,16 @@ def test_sweep_grid_refusals():
     assert str(got.value) == str(want.value)
     ok = SpecConfig(nperseg=256, hop=64, detrend="none")
     with pytest.raises(NotImplementedError, match=r"\[large-nperseg\]"):
-        sg.sweep_grid(x, fs, [ok, SpecConfig.scipy_default(16384)],
+        sg.sweep_grid(x, fs, [ok, SpecConfig.scipy_default(65536)],
                       device="cpu")
+    # a transform past 8192 ([large-nperseg], to 32,768) is a config like
+    # any other: the JAX package's grid's PSD
+    big = SpecConfig(nperseg=16384, hop=4096, detrend="none")
+    z = np.random.RandomState(6).randn(24576).astype(np.float32)
+    got = sg.sweep_grid(z, fs, [ok, big], device="cpu")
+    want = jsg.sweep_grid(jnp.asarray(z), fs, [_j(ok), _j(big)])
+    assert got[1].shape == want[1].shape == (3, 8193)
+    assert _rel(got[1], np.asarray(want[1])) <= PSD_REL
     # a centered group, refused until [ext-modes], pads as the JAX
     # package's grid does (one jnp.pad a group)
     centered = SpecConfig(nperseg=256, hop=64, detrend="none", center=True)

@@ -1354,9 +1354,10 @@ MEL_PTXAS = (r"(mel_project_kernel|mel_backward_kernel)(?:ILb(\d)E)?",
 KERNELS = {
     "r2": Kernel(
         ("fft",),
-        (r"stft_fft_psd_kernelILi(\d+)ELi(\d+)ELb(\d)E",
-         lambda e: f"LOG2M {e.group(1)}, {2 ** int(e.group(2))} values"
-                   f"{', EXT' if e.group(3) == '1' else ''}"),
+        (r"stft_fft_(split_)?psd_kernelILi(\d+)ELi(\d+)ELb(\d)E",
+         lambda e: f"{'split, ' if e.group(1) else ''}LOG2M {e.group(2)}, "
+                   f"{2 ** int(e.group(3))} values"
+                   f"{', EXT' if e.group(4) == '1' else ''}"),
         (("path 1 north_star 1024/256", 1024, None),
          ("path 2 scipy_default 8192", 8192, None)),
         tuple(2 ** b for b in range(5, 14)), _r2_launch, R2_VARIANTS),
@@ -2308,7 +2309,9 @@ def main(argv=None) -> None:
         T = num_frames(n, cfg.nperseg, cfg.hop_)
         F = cfg.n_freqs
         out = torch.empty((B, T, F), device=dev)
-        parts = torch.empty((2, B * T), device=dev)
+        # a tile of partials for each block of a frame (two past 8192)
+        tiles = stft_cuda.partial_tiles(cfg, stft_cuda.route(cfg))
+        parts = torch.empty((2, tiles * B * T), device=dev)
         launch = kern.launch(stft_cuda, cfg, dev, argparse.Namespace(
             x=x.data_ptr(), stream=stream,
             outs=(out.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr()),

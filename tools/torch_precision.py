@@ -242,19 +242,7 @@ def psd_fft(frames: np.ndarray, window: np.ndarray, twiddles: np.ndarray,
     F = wts.shape[0]
     i = bit_reverse(M)
     re, im = v[:, 0::2][:, i], v[:, 1::2][:, i]
-    j = np.arange(M // 2)
-    h = 1
-    while h < M:
-        k = j & (h - 1)
-        i0 = ((j - k) << 1) + k
-        i1 = i0 + h
-        wr, wi = twiddles[h - 1 + k, 0], twiddles[h - 1 + k, 1]
-        ar, ai, br, bi = re[:, i0], im[:, i0], re[:, i1], im[:, i1]
-        tr = wr * br - wi * bi
-        ti = wr * bi + wi * br
-        re[:, i0], im[:, i0] = ar + tr, ai + ti
-        re[:, i1], im[:, i1] = ar - tr, ai - ti
-        h *= 2
+    _radix2_dit(re, im, twiddles)
     fb = np.arange(F)
     g = np.minimum(fb, K - fb)
     a, b = g % M, (M - g) % M
@@ -272,6 +260,67 @@ def psd_fft(frames: np.ndarray, window: np.ndarray, twiddles: np.ndarray,
 def _cmul(wr, wi, yr, yi):
     """(wr + i wi)(yr + i yi) as the kernels compute it."""
     return wr * yr - wi * yi, wr * yi + wi * yr
+
+
+def _radix2_dit(re: np.ndarray, im: np.ndarray,
+                twiddles: np.ndarray) -> None:
+    """:func:`psd_fft`'s radix-2 decimation-in-time stages, in place, on
+    (T, n) values loaded in bit-reversed order (n a power of two): stage h
+    combines slots i0 and i0 + h with the table's row h - 1 + (j mod h)."""
+    n = re.shape[-1]
+    j = np.arange(n // 2)
+    h = 1
+    while h < n:
+        k = j & (h - 1)
+        i0 = ((j - k) << 1) + k
+        i1 = i0 + h
+        wr, wi = twiddles[h - 1 + k, 0], twiddles[h - 1 + k, 1]
+        ar, ai, br, bi = re[:, i0], im[:, i0], re[:, i1], im[:, i1]
+        tr = wr * br - wi * bi
+        ti = wr * bi + wi * br
+        re[:, i0], im[:, i0] = ar + tr, ai + ti
+        re[:, i1], im[:, i1] = ar - tr, ai - ti
+        h *= 2
+
+
+def psd_fft_split(frames: np.ndarray, window: np.ndarray,
+                  twiddles: np.ndarray, wts: np.ndarray,
+                  detrend: str = "none", round_f32: bool = True,
+                  nfft: Optional[int] = None,
+                  mode: str = "psd") -> np.ndarray:
+    """(T, F) PSD by the radix-2 kernel's arithmetic past 8192
+    (``csrc/stft_psd.cu::stft_fft_split_psd_kernel``: nfft K from 16384, a
+    frame as two half transforms), in float64, M = K/2, H = M/2:
+
+    - v and z as :func:`psd_fft`'s; then the first stage in frequency, in
+      the load: u0_j = z_j + z_(j+H), u1_j = W_M^j (z_j - z_(j+H)) (the
+      table's row H - 1 + j, ``r2_dif_butterfly``), j < H;
+    - each half's H-point radix-2 transform (:func:`_radix2_dit`, from the
+      bit-reversed load), Z[2k + h] its output k;
+    - the split step and epilogue of :func:`_split_psd` on the table's rows
+      M - 1 + g, each bin from the half of its parity.
+
+    The half transforms are independent, so this is the arithmetic of the
+    kernel's two blocks whatever their order. What differs from the card:
+    the detrend's sums are numpy's, and numpy rounds the products where
+    the card may fuse them (FMA)."""
+    f = frames.astype(np.float64)
+    v = padded(detrended(f, detrend) * window, nfft)
+    T, K = v.shape
+    M = K // 2
+    H = M // 2
+    zr, zi = v[:, 0::2], v[:, 1::2]
+    ar, ai, br, bi = zr[:, :H], zi[:, :H], zr[:, H:], zi[:, H:]
+    wr, wi = twiddles[H - 1:M - 1, 0], twiddles[H - 1:M - 1, 1]
+    i = bit_reverse(H)
+    re = np.empty((T, M))
+    im = np.empty((T, M))
+    for h, (ur, ui) in enumerate(((ar + br, ai + bi),
+                                  _cmul(wr, wi, ar - br, ai - bi))):
+        hr, hi = ur[:, i], ui[:, i]
+        _radix2_dit(hr, hi, twiddles)
+        re[:, h::2], im[:, h::2] = hr, hi
+    return _split_psd(re, im, twiddles[M - 1:], K, wts, round_f32, mode)
 
 
 def _stages(re: np.ndarray, im: np.ndarray, plan, n: int,
@@ -556,13 +605,19 @@ def _bluestein_transform(re: np.ndarray, im: np.ndarray, plan):
     0..N-1 of M, zero past them; M's stages in frequency; each slot
     conj(b̂·slot); the stages in time; X[k] = w_k·conj(slot k).
 
-    With ``plan.ranks == 2`` the M slots are the two blocks' halves of M/2
-    as the cluster indexes them: the plan's last stage is radix 2 at span
-    M/2, which in frequency leaves rank 0's slots as they are (its
-    partner slots hold zeros: a + 0 = a) and gives rank 1 W^k·a from rank
-    0's slot k, and in time gives rank 0 a + W^k·b from rank 1's slot k;
-    every other stage, and the product, runs on each half alone with the
-    rows of the whole plan."""
+    With ``plan.ranks`` R = 2, 4 or 8 the M slots are the cluster's R
+    blocks of H = M / R, slot q H + j at rank q's slot j, as the cluster
+    indexes them: the plan's last log2 R stages are radix 2 at spans H,
+    2H, ..., M/2 and cross the ranks, pairing slot j of ranks q and q +
+    2^t; in frequency they run first on each column j (span M/2 first,
+    (a, b) <- (a + b, W (a - b)), the row's k = (q mod 2^t) H + j), in
+    time last (span H first, (a, b) <- (a + W b, a - W b)); every other
+    stage, and the product, runs on each rank's slots alone with the rows
+    of the whole plan. On two ranks the inputs and outputs lie in rank 0's
+    slots (N <= H), so rank 0's crossing in frequency adds zeros (a + 0 =
+    a) and the kernel (``bluestein_transform<2>``) skips it, and only rank
+    0's outputs are read; on four and eight
+    (``stft_bluestein_cluster_psd_kernel``) both sides compute."""
     T, N = re.shape
     M = plan.m
     tw = plan.twiddles
@@ -582,23 +637,50 @@ def _bluestein_transform(re: np.ndarray, im: np.ndarray, plan):
         _stages(sr, si, plan, M)
         o_r, o_i = sr[:, :N], si[:, :N]
     else:
-        H = M // 2
-        p, L, row, _ = plan.stages[-1].tolist()
-        assert (p, L) == (2, H) and N <= H
-        wr, wi = tw[row:row + H, 0], tw[row:row + H, 1]
-        local = plan._replace(stages=plan.stages[:-1])
-        h0r, h0i = np.zeros((T, H)), np.zeros((T, H))
-        h0r[:, :N], h0i[:, :N] = ar, ai
-        h1r, h1i = _cmul(wr, wi, h0r, h0i)
-        halves = []
-        for r, (hr, hi) in enumerate(((h0r, h0i), (h1r, h1i))):
+        R = plan.ranks
+        r = R.bit_length() - 1
+        H = M // R
+        rows = []
+        for t, (p, L, row, _) in enumerate(plan.stages[-r:].tolist()):
+            assert (p, L) == (2, H << t)
+            rows.append(row)
+        local = plan._replace(stages=plan.stages[:-r])
+        sr, si = np.zeros((T, M)), np.zeros((T, M))
+        sr[:, :N], si[:, :N] = ar, ai
+        # the slots as the ranks hold them: rank q's (T, H) columns
+        ranks = [[sr[:, q * H:(q + 1) * H].copy(),
+                  si[:, q * H:(q + 1) * H].copy()] for q in range(R)]
+        j = np.arange(H)
+
+        def crossing(t, dif):
+            span = 1 << t
+            for q in range(R):
+                if q & span:
+                    continue
+                k = (q & (span - 1)) * H + j
+                wr, wi = tw[rows[t] + k, 0], tw[rows[t] + k, 1]
+                (a_r, a_i), (b_r, b_i) = ranks[q], ranks[q + span]
+                if dif:
+                    ranks[q] = [a_r + b_r, a_i + b_i]
+                    ranks[q + span] = list(_cmul(wr, wi, a_r - b_r,
+                                                 a_i - b_i))
+                else:
+                    t_r, t_i = _cmul(wr, wi, b_r, b_i)
+                    ranks[q] = [a_r + t_r, a_i + t_i]
+                    ranks[q + span] = [a_r - t_r, a_i - t_i]
+
+        for t in reversed(range(r)):
+            crossing(t, True)
+        for q in range(R):
+            hr, hi = ranks[q]
             _stages(hr, hi, local, H, dif=True)
-            hr, hi = product(hr, hi, bhat[r * H:(r + 1) * H])
+            hr, hi = product(hr, hi, bhat[q * H:(q + 1) * H])
             _stages(hr, hi, local, H)
-            halves.append((hr, hi))
-        (h0r, h0i), (h1r, h1i) = halves
-        tr, ti = _cmul(wr[:N], wi[:N], h1r[:, :N], h1i[:, :N])
-        o_r, o_i = h0r[:, :N] + tr, h0i[:, :N] + ti
+            ranks[q] = [hr, hi]
+        for t in range(r):
+            crossing(t, False)
+        o_r = np.concatenate([h[0] for h in ranks], axis=1)[:, :N]
+        o_i = np.concatenate([h[1] for h in ranks], axis=1)[:, :N]
     return _cmul(cr, ci, o_r, -o_i)
 
 
