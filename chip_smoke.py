@@ -32,9 +32,13 @@ instantiations; the GEMM kernel's large tile forced beside them; past
 8192 (``large_kernel_cases``) the radix-2 kernel on one block of 8192
 points at nfft 16384 and as two half transforms a frame at 32768, and
 the Bluestein kernel on one block at
-8194, on clusters of two at 20000, of four at 14409 and 28814 and of
-eight at 28813 and 32767, within PSD_TOL of the plain version (float64
-``torch.fft``) and bitwise themselves on a rerun, under every detrend, the
+8194, on clusters of four at 14409, 28814 and 30002 and of eight at 28813
+and 32767, and split by bin parity into two half transforms a frame at
+14408 and 20000 (one block) and 30000 and 32764 (clusters of two),
+within PSD_TOL of the plain version (float64 ``torch.fft``),
+within BLUE_MODEL_TOL of the kernel's numpy model
+(``tools/torch_precision.py::psd_bluestein``) and bitwise themselves on a
+rerun, under every detrend, the
 magnitude and the complex STFT, two-sided, bands bitwise the full band's
 columns, log10_out, an odd pair's zero, NaN and 1e-6 frames, nperseg 1024
 and 20000 zero-padded to 16384 and 32768, the partials' tiles, each
@@ -60,7 +64,9 @@ columns bitwise: the PSD, its log10_out and the partials; the PSD entry
 points of ``core/stft.py`` on a CUDA tensor must launch the route's kernel
 once each. The mel kernel (phase ``mel``) must match its plain version
 with injected inf and NaN bins, NaN and inf in the same places and the
-rest within MEL_ULPS. The HMM kernels (phase ``hmm``, float64): H1, the
+rest within MEL_ULPS, on tiles of whole rows (F 513, 1025 and 1537, the
+last with its weights read from global memory) and in its chunked form (F
+4097 and 8193). The HMM kernels (phase ``hmm``, float64): H1, the
 Baum-Welch fit, at T 4, 5, 600 and 2047, D 1 and 2, K 4 and 2, on a
 model with structural zeros and with the loop stopped at it == 1 and
 it == 2, its iteration counts equal to its plain version's, parameters
@@ -541,7 +547,8 @@ def reset_counts():
     from spectral_tpu_torch.ops import (display_cuda, hmm_cuda, mel_cuda,
                                         stft_cuda)
     for counts in (stft_cuda.launches, display_cuda.launches,
-                   mel_cuda.launches, hmm_cuda.launches,
+                   mel_cuda.launches, mel_cuda.form_launches,
+                   hmm_cuda.launches,
                    stft_cuda.grad_launches, mel_cuda.grad_launches,
                    display_cuda.grad_launches):
         for key in counts:
@@ -554,6 +561,7 @@ def read_counts():
     return {"stft_psd": dict(stft_cuda.launches),
             "display": dict(display_cuda.launches),
             "mel": dict(mel_cuda.launches),
+            "mel_form": dict(mel_cuda.form_launches),
             "hmm": dict(hmm_cuda.launches),
             "grad": {**stft_cuda.grad_launches, **mel_cuda.grad_launches,
                      **display_cuda.grad_launches}}
@@ -725,7 +733,8 @@ def build_kernels():
     build.load_library("stft_grad_mixed")
     print(f"mel.cu -> {os.path.relpath(mel['path'], HERE)} in "
           f"{mel['seconds']:.2f} s; ptxas: " + "; ".join(radix2_ptxas(
-              mel["log"], r"(mel_project_kernel|mel_backward_kernel)",
+              mel["log"], r"(mel_project_kernel|mel_chunked_kernel|"
+              r"mel_backward_kernel)",
               lambda e: e.group(1))))
     build.load_library("mel")
     print(f"display.cu -> {os.path.relpath(tail['path'], HERE)} in "
@@ -774,12 +783,13 @@ def build_kernels():
               info["log"], r"stft_bluestein_cluster_psd_kernelILi(\d)ELb(\d)E",
               lambda e: f"RANKS {e.group(1)}"
                         f"{', EXT' if e.group(2) == '1' else ''}")))
-    print("Bluestein kernel (stft_bluestein_psd_kernel<RANKS, TWO, EXT>), "
-          "ptxas: " + "; ".join(radix2_ptxas(
+    print("Bluestein kernel (stft_bluestein_psd_kernel<RANKS, TWO, EXT, "
+          "SPLIT>), ptxas: " + "; ".join(radix2_ptxas(
               info["log"],
-              r"stft_bluestein_psd_kernelILi(\d)ELb(\d)ELb(\d)E",
+              r"stft_bluestein_psd_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
               lambda e: f"RANKS {e.group(1)}, TWO {e.group(2)}"
-                        f"{', EXT' if e.group(3) == '1' else ''}")))
+                        f"{', EXT' if e.group(3) == '1' else ''}"
+                        f"{', SPLIT' if e.group(4) == '1' else ''}")))
     build.load_library("stft_psd")
 
 
@@ -1442,18 +1452,43 @@ def odd_kernel_cases(dev, cases=ODD_CASES, edges=(1023, 8191),
 
 
 LARGE_R2_CASES = (16384, 32768)
-# one block, a cluster of two, of four (odd, even) and of eight (odd)
-LARGE_BLUESTEIN_CASES = (8194, 20000, 14409, 28814, 28813, 32767)
+# one block, a cluster of two (even = 2 mod 4: 20002, M = 20160), clusters
+# of four (odd, even = 2 mod 4) and of eight (odd); then split by bin
+# parity: halves on one block (14408, the first split length; 20000) and on
+# clusters of two (30000; 32764, M' = 16384, the swizzled slots)
+LARGE_BLUESTEIN_CASES = (8194, 20002, 14409, 28814, 30002, 28813, 32767,
+                         14408, 20000, 30000, 32764)
+# the Bluestein kernel past 8192 against its numpy model, of the frame's
+# largest bin: one float32 ulp of it (both round one float64 value; the
+# card fuses products and sums the detrend in another order)
+BLUE_MODEL_TOL = 2.0 ** -23
+
+
+def bluestein_form(k):
+    """The Bluestein kernel's form at nfft k, in words."""
+    from spectral_tpu_torch.core.stft import bluestein_route_plan
+    plan = bluestein_route_plan(k)
+    where = ("one block" if plan.ranks == 1 else
+             f"a cluster of {plan.ranks}")
+    if plan.halves == 2:
+        return (f"two half transforms of {plan.n} points a frame, M' = "
+                f"{plan.m} on {where} each")
+    return f"M = {plan.m} on {where}"
 
 
 def large_kernel_cases(dev):
     """[large-nperseg]: the radix-2 kernel past 8192 at nfft 16384 (one
     block of 8192 points a frame) and 32768 (a frame as two half
     transforms, the bins of each parity), and the
-    Bluestein kernel on one block (8194), a cluster of two (20000), of
-    four (14409, 28814) and of eight (28813, 32767), against the plain
-    version (``plain_constants``: float64 ``torch.fft``, no dense matrix)
-    within PSD_TOL on 2 clips of T = 5 (an odd pair's lone last frame):
+    Bluestein kernel on one block (8194), a cluster of two (20002), clusters
+    of four (14409, 28814, 30002) and of eight (28813, 32767), and split by
+    bin parity into two
+    half transforms a frame ([large-bluestein]: 14408 and 20000 on one
+    block, 30000 and 32764 on clusters of two), against the
+    plain version (``plain_constants``: float64 ``torch.fft``, no dense
+    matrix) within PSD_TOL on 2 clips of T = 5 (an odd pair's lone last
+    frame), the Bluestein configs under each detrend against the numpy
+    model of their form too (within BLUE_MODEL_TOL):
     every detrend, the magnitude and the complex STFT (its mirrored bins
     bitwise conjugates two-sided), a two-sided spectrum, bands bitwise the
     full band's columns, log10_out, the zero, NaN and 1e-6 frames an odd
@@ -1466,6 +1501,7 @@ def large_kernel_cases(dev):
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.stft import bluestein_route_plan
     from spectral_tpu_torch.ops import stft_cuda
     from torch_precision import trend
 
@@ -1560,6 +1596,26 @@ def large_kernel_cases(dev):
         x = rs.randn(2, n) + offset
         return x + trend(n) if detrend == "linear" else x
 
+    def model(x, cfg, what):
+        """The Bluestein kernel against its numpy model of the route's
+        form (the halves or the whole transform), on the card's float32
+        frames, within BLUE_MODEL_TOL of each frame's largest bin."""
+        from torch_precision import (bluestein_route_operands, frames_of,
+                                     psd_bluestein)
+        got = stft_cuda.stft_psd(x, FS, cfg).cpu().numpy()
+        window, plan, wts = bluestein_route_operands(cfg, FS)
+        worst = 0.0
+        for b, xb in enumerate(x.cpu().numpy()):
+            want = psd_bluestein(frames_of(xb, cfg), window, plan, wts,
+                                 cfg.detrend)
+            err = np.abs(got[b].astype(np.float64) - want).max(axis=-1)
+            worst = max(worst, float((err / want.max(axis=-1)).max()))
+        require(worst <= BLUE_MODEL_TOL, f"{what}: {worst:.2e} of a "
+                "frame's largest bin from the numpy model")
+        print(f"{what} [{bluestein_form(cfg.nfft_)}]: {worst:.2e} of a "
+              f"frame's largest bin from the numpy model (limit "
+              f"{BLUE_MODEL_TOL:.2e})")
+
     for k in LARGE_R2_CASES + LARGE_BLUESTEIN_CASES:
         hop = k // 2
         for detrend, offset in (("none", 0.0), ("constant", 3.0),
@@ -1567,6 +1623,8 @@ def large_kernel_cases(dev):
             cfg = SpecConfig(nperseg=k, hop=hop, detrend=detrend)
             x = on_card(clips(k, hop, offset, detrend))
             check(x, cfg, f"nperseg {k}, {detrend}, T = 5")
+            if stft_cuda.route(cfg) == "bluestein":
+                model(x, cfg, f"nperseg {k}, {detrend}, T = 5")
         cfg = SpecConfig(nperseg=k, hop=hop, detrend="constant")
         x = on_card(clips(k, hop, 3.0, "constant"))
         tiles(x, cfg, f"nperseg {k}")
@@ -1597,13 +1655,13 @@ def large_kernel_cases(dev):
                     and frames_ok == [True] * 3 + [False] + [True] * 3,
                     f"nperseg {k}: the zero frame's bins exactly 0, the NaN "
                     f"only in its own frame: {frames_ok}")
-        ranks = (stft_cuda.bluestein_plan(k).ranks
+        ranks = (bluestein_route_plan(k).ranks
                  if stft_cuda.route(cfg) == "bluestein" else 0)
         if ranks > 2:
             held = stft_cuda.bluestein_clusters(cfg, dev)
             require(held >= 1, f"nperseg {k}: no cluster of {ranks} fits")
-            print(f"nperseg {k}: M = {stft_cuda.bluestein_plan(k).m} on "
-                  f"clusters of {ranks}, {held} of them on the card at once")
+            print(f"nperseg {k}: {bluestein_form(k)}, {held} clusters on "
+                  "the card at once")
     for L, K in ((1024, 16384), (20000, 32768)):
         cfg = SpecConfig(nperseg=L, nfft=K, hop=L // 2, detrend="linear")
         x = on_card(clips(L, L // 2, 0.0, "linear"))
@@ -2064,12 +2122,17 @@ def long_path(dev, card, dfma_peak, cfg, label, clips=K2_CLIPS,
                 library_ms=timings["stft_library"][0])
 
 
-# path 22: transforms past 8192 at full width, the radix-2 kernel's split
-# (16384, 32768) and the Bluestein kernel on two, four and eight ranks
+# path 22: transforms past 8192 at full width, the radix-2 kernel (16384 on
+# one block, 32768 split by bin parity), the Bluestein kernel split by bin
+# parity (20000, 30000) and on clusters of four (30002, 2 mod 4) and eight
+# (32767, odd)
 LARGE_PATH = ((16384, "radix-2, one block of 8192 points a frame"),
               (32768, "radix-2, two half transforms a frame"),
-              (20000, "Bluestein on a cluster of two"),
-              (30000, "Bluestein on a cluster of four"),
+              (20000, "Bluestein, two halves of 5000 points a frame on one "
+                      "block each"),
+              (30000, "Bluestein, two halves of 7500 points a frame on a "
+                      "cluster of two each"),
+              (30002, "Bluestein on a cluster of four"),
               (32767, "Bluestein on a cluster of eight"))
 
 
@@ -2080,10 +2143,28 @@ LARGE_REPLACES = ("none: power_spectrogram's XLA rFFT past the Pallas "
                   "spectral_tpu/ops/stft_pallas.py:93)")
 
 
-def bluestein_m(k):
-    """The Bluestein kernel's convolution length at nfft k."""
-    from spectral_tpu_torch.core.stft import bluestein_plan
-    return bluestein_plan(k).m
+def large_kernel_name(k):
+    """The instantiation path 22 launches at scipy_default k."""
+    from spectral_tpu_torch.core.stft import bluestein_route_plan
+    if k & (k - 1) == 0:
+        if k >= 32768:
+            return (f"stft_fft_split_psd<LOG2M {k.bit_length() - 3}, 16 "
+                    f"values>, two half transforms a frame (the bins of each "
+                    f"parity), scipy_default {k} (path 22)")
+        return (f"stft_fft_psd<LOG2M {k.bit_length() - 2}, 16 values>, one "
+                f"block of {k // 2} points a frame, scipy_default {k} (path "
+                f"22)")
+    plan = bluestein_route_plan(k)
+    if plan.halves == 2:
+        return (f"stft_bluestein_psd<RANKS {plan.ranks}, SPLIT> split by bin "
+                f"parity, two half transforms of {plan.n} points a frame, M' "
+                f"= {plan.m} on {'one block' if plan.ranks == 1 else 'a '
+                'cluster of two'} each, scipy_default {k} (path 22)")
+    if plan.ranks <= 2:
+        return (f"stft_bluestein_psd<RANKS {plan.ranks}>, M = {plan.m}, "
+                f"scipy_default {k} (path 22)")
+    return (f"stft_bluestein_cluster_psd<RANKS {plan.ranks}> on a cluster, "
+            f"M = {plan.m}, scipy_default {k} (path 22)")
 
 
 def large_grad_refusal(dev):
@@ -2118,15 +2199,20 @@ def large_path(dev, card):
     """Path 22, transforms past 8192 ([large-nperseg]): path 2's batch (256
     clips of 60 s at 16 kHz) through ``batched_spectrogram_fn`` at
     scipy_default 16384 (the radix-2 kernel, one block of 8192 points a
-    frame) and 32768 (two half transforms a frame), 20000, 30000 and 32767 (the Bluestein kernel on clusters of
-    two, four and eight), log, then 128 log mels and the 0-30 Hz band at
-    16384: one launch of the route's kernel a call and no GEMM launch,
-    clip 0 within 1e-3 dB of scipy float64 (the band's rows, or the mel
-    rows of scipy's PSD), the PSD within PSD_TOL of the plain version
-    (float64 ``torch.fft``); the kernel's ms (CUDA events, median of REPS
-    after a warm-up) beside its bound, cuFFT's f64 yardstick
-    (``library_psd``) and the plain version's. Returns the kernels' rows
-    (the mel kernel's time printed, its row path 12's)."""
+    frame) and 32768 (two half transforms a frame), 20000 and 30000 (the
+    Bluestein kernel split by bin parity: two halves a frame, on one block
+    and on clusters of two), 30002 and 32767 (the Bluestein kernel on
+    clusters of four and eight), log, then 128 log mels (the mel kernel's
+    chunked form, F = 8,193) and the 0-30 Hz band at 16384: one launch of
+    the route's kernel a call and no GEMM launch, clip 0 within 1e-3 dB
+    of scipy float64 (the band's rows, or the mel rows of scipy's PSD),
+    the PSD within PSD_TOL of the plain version (float64 ``torch.fft``),
+    a Bluestein config's clip 0 within BLUE_MODEL_TOL of the numpy model
+    of its form, the mel rows within MEL_ULPS of the plain version; the
+    kernel's ms (CUDA events, median of REPS after a warm-up) beside its
+    bound, cuFFT's f64 yardstick (``library_psd``) and the plain
+    version's. Returns the kernels' rows (the mel kernel's chunked form's
+    row from the 128-mel config)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2136,7 +2222,8 @@ def large_path(dev, card):
                                               num_frames)
     from spectral_tpu_torch.ops import mel_cuda, stft_cuda
     from spectral_tpu_torch.parallel.sharding import batched_spectrogram_fn
-    from torch_precision import log_display, scipy_psd
+    from torch_precision import (bluestein_route_operands, frames_of,
+                                 log_display, psd_bluestein, scipy_psd)
 
     n = int(FS * K2_SECONDS)
     gen = torch.Generator(device=dev).manual_seed(22)
@@ -2172,6 +2259,13 @@ def large_path(dev, card):
             want["mel"] = 1
         require_counts(counts, want, label)
         require(flat["stft_gemm"] == 0, f"{label}: a GEMM launch")
+        chunked = counts["mel_form"]["mel_chunked"]
+        require(chunked == (1 if cfg.n_mels else 0),
+                f"{label}: {chunked} launches of the mel kernel's chunked "
+                "form")
+        if route == "bluestein":
+            print(f"the Bluestein kernel's form: {bluestein_form(k)}; "
+                  f"launches {flat['stft_bluestein']}")
         # clip 0 against scipy float64: the band's rows, or its mel rows
         ref = scipy_psd(x0, cfg, FS)[lo:hi]
         if cfg.n_mels:
@@ -2191,6 +2285,33 @@ def large_path(dev, card):
               f"{DB_TOL:g}); psd vs plain (torch.fft f64): {rel:.2e} of "
               f"clip max ({err:.3e} abs), largest float32 ulp distance "
               f"{ulp_distance(out['psd'], psd_p)}")
+        if route == "bluestein" and band is None:
+            # clip 0's frames through the numpy model of the kernel's form
+            window, plan, wts = bluestein_route_operands(cfg, FS)
+            p0 = stft_cuda.stft_psd(x[:1], FS, cfg)[0].cpu().numpy()
+            want0 = psd_bluestein(frames_of(x0.astype(np.float32), cfg),
+                                  window, plan, wts, cfg.detrend)
+            m_err = float((np.abs(p0.astype(np.float64) - want0).max(axis=-1)
+                           / want0.max(axis=-1)).max())
+            require(m_err <= BLUE_MODEL_TOL, f"{label} clip 0 vs the numpy "
+                    f"model: {m_err:.2e} of a frame's largest bin")
+            print(f"clip 0 vs the numpy model of its form: {m_err:.2e} of a "
+                  f"frame's largest bin (limit {BLUE_MODEL_TOL:.2e})")
+        if cfg.n_mels:
+            fb = mel_filterbank(cfg.n_mels, F, FS)
+            spans = mel_cuda.mel_spans(fb, dev)
+            mel_p, _ = mel_cuda.mel_project_reference(out["psd"], spans)
+            mel_k = out["mel"]
+            require(tuple(mel_k.shape) == tuple(mel_p.shape)
+                    and torch.equal(torch.isnan(mel_k), torch.isnan(mel_p))
+                    and ulp_distance(mel_k, mel_p) <= MEL_ULPS,
+                    f"{label}: mel rows vs plain: "
+                    f"{ulp_distance(mel_k, mel_p)} ulp")
+            mel_err = float((mel_k.double() - mel_p).abs().max())
+            print(f"mel rows (the chunked form) vs plain on the same PSD: "
+                  f"{ulp_distance(mel_k, mel_p)} ulp (limit {MEL_ULPS}), "
+                  f"{mel_err:.3e} abs")
+            del mel_p
         del psd_p, out
         timings = {
             "stft_kernel": time_ms(lambda: stft_cuda.stft_psd(
@@ -2206,6 +2327,8 @@ def large_path(dev, card):
                                        dev)
             timings["mel_kernel"] = time_ms(
                 lambda: mel_cuda.mel_project(psd, spans))
+            timings["mel_plain"] = time_ms(
+                lambda: mel_cuda.mel_project_reference(psd, spans))
 
             def mel_library():
                 mm = torch.matmul(psd.double(), spans.rows.T)
@@ -2235,6 +2358,11 @@ def large_path(dev, card):
                 ms=timings["stft_kernel"][0],
                 plain_ms=timings["stft_plain"][0], bound=bound,
                 library_ms=timings["stft_library"][0])
+        if cfg.n_mels:
+            rows["mel_chunked"] = dict(
+                launches=chunked, err=mel_err, ms=timings["mel_kernel"][0],
+                plain_ms=timings["mel_plain"][0], bound=mb,
+                library_ms=timings["mel_library"][0])
         torch.cuda.empty_cache()
     return rows
 
@@ -2523,10 +2651,12 @@ def mel_kernel_cases(dev):
     bins: an inf bin inside a triangle (that row inf, the others NaN), an
     inf bin at Nyquist (no filter's: every row NaN), a NaN bin, a silent
     frame; at 128 mels over 513 bins, 8 wide mels, HTK mels over a band of
-    the mel axis, 64 mels over 4097 bins (two rows a block), 600 mels over
-    513 bins (rows with no nonzero weight), T = 0. NaN and inf in the same
-    places, the rest within MEL_ULPS float32 ulps, and the partials the
-    same."""
+    the mel axis, 600 mels over 513 bins (rows with no nonzero weight), T
+    = 0, 128 mels over 1025 bins and 64 over 1537 (tiles of 16, the
+    latter's weights read from global memory) on tiles of whole rows; 64
+    mels over 4097 bins and 128 over 8193 in the chunked form. NaN and inf
+    in the same places, the rest within MEL_ULPS float32 ulps, and the
+    partials the same."""
     import numpy as np
     import torch
     from spectral_tpu_torch import SpecConfig
@@ -2536,16 +2666,20 @@ def mel_kernel_cases(dev):
 
     phase("the mel kernel against its plain version")
     rs = np.random.RandomState(13)
+    # each config with the form its launch must take (True: chunked)
     cases = [
-        (SpecConfig.north_star(1024, 256, n_mels=128), FS),
-        (SpecConfig.north_star(512, 128, n_mels=8), FS),
+        (SpecConfig.north_star(1024, 256, n_mels=128), FS, False),
+        (SpecConfig.north_star(512, 128, n_mels=8), FS, False),
         (SpecConfig.north_star(256, 64, n_mels=40, mel_htk=True,
                                mel_fmin=300.0, mel_fmax=6000.0, fmin=500.0,
-                               fmax=4000.0), FS),
-        (SpecConfig.scipy_default(8192, n_mels=64), FS),
-        (SpecConfig.north_star(1024, 256, n_mels=600), FS),
+                               fmax=4000.0), FS, False),
+        (SpecConfig.scipy_default(8192, n_mels=64), FS, True),
+        (SpecConfig.north_star(1024, 256, n_mels=600), FS, False),
+        (SpecConfig.north_star(2048, 512, n_mels=128), FS, False),
+        (SpecConfig.north_star(3072, 768, n_mels=64), FS, False),
+        (SpecConfig.scipy_default(16384, n_mels=128), FS, True),
     ]
-    for cfg, fs in cases:
+    for cfg, fs, form in cases:
         F = cfg.n_freqs
         results = []
         fb = mel_filterbank(cfg.n_mels, F, fs, cfg.mel_fmin, cfg.mel_fmax,
@@ -2567,13 +2701,17 @@ def mel_kernel_cases(dev):
             what = (f"mel {cfg.n_mels} rows {m_lo}-{m_hi} over {F} bins, T "
                     f"{p.shape[1]}")
             before = dict(mel_cuda.launches)
+            chunked = mel_cuda.form_launches["mel_chunked"]
             got, gp = mel_cuda.mel_project(p, spans)
             torch.cuda.synchronize()
             want, wp = mel_cuda.mel_project_reference(p, spans)
             torch.cuda.synchronize()
             launched = mel_cuda.launches["mel"] - before["mel"]
-            require(launched == (1 if p.shape[1] else 0),
-                    f"{what}: mel kernel launches {launched}")
+            chunked = mel_cuda.form_launches["mel_chunked"] - chunked
+            require(launched == (1 if p.shape[1] else 0)
+                    and chunked == (launched if form else 0),
+                    f"{what}: mel kernel launches {launched}, of the "
+                    f"chunked form {chunked}")
             results.append((got, want))
             for a, b, name in ((got, want, "mel"), (gp, wp, "partials")):
                 require(tuple(a.shape) == tuple(b.shape)
@@ -2591,8 +2729,9 @@ def mel_kernel_cases(dev):
                 and bool(torch.isnan(got[1, 5]).all())
                 and bool((got[2, 6] == 0).all()),
                 f"{what}: the inf row, the NaN rows and the silent frame")
-        print(f"{what[:what.index(', T')]}: NaN and inf in the plain "
-              f"version's places, "
+        print(f"{what[:what.index(', T')]} "
+              f"({'chunked' if form else 'tiles of whole rows'}): NaN "
+              f"and inf in the plain version's places, "
               f"{ulp_distance(got, want)} ulp (limit {MEL_ULPS}); "
               f"{int((length == 0).sum())} rows with no weight")
 
@@ -2704,6 +2843,9 @@ def mel_path(dev, card):
     print(f"launches in this path's run: {counts}")
     require_counts(counts, {"stft_fft": 1, "mel": 1, "clip_stats": 1,
                             "rgba": 1}, "path 12")
+    require(counts["mel_form"]["mel_chunked"] == 0,
+            "path 12: 513 bins take tiles of whole rows, not the chunked "
+            "form")
     mel_launches = counts["mel"]["mel"]
     T, F, M = num_frames(n, 1024, 256), cfg.n_freqs, 128
     require(tuple(out["psd"].shape) == (BATCH, T, F)
@@ -6063,6 +6205,7 @@ def stft_fft_backward_bound(x_elems, R, F, L, K, g_bytes=4):
 # the port's kernels of path 21's step, by a part of their names
 STEP_KERNELS = ("stft_fft_psd_kernel", "clip_stats_kernel",
                 "display_map_kernel", "mel_project_kernel",
+                "mel_chunked_kernel",
                 "stft_fft_backward_kernel", "overlap_add_kernel",
                 "mel_backward_kernel", "display_grad_prep_kernel",
                 "display_grad_kernel")
@@ -6895,6 +7038,8 @@ def main(_phases=None):
           f"{rows['display_backward']['launches']}; past 8192 on path 22: "
           + ", ".join(f"{k} {rows[f'stft_large_{k}']['launches']}"
                       for k, _ in LARGE_PATH)
+          + f", the mel kernel's chunked form "
+          f"{rows['mel_chunked']['launches']}"
           + "; the commands of path 19: "
           + "; ".join(f"{name} {flat}" for name, _, _, flat in
                       rows["cli_rows"]))
@@ -7062,21 +7207,14 @@ def main(_phases=None):
             "adjoint, RGBA path's image (path 21)", "cuda", tail_src,
             "spectral_tpu/core/scale.py:80 (jax.grad of normalize; no TPU "
             "kernel)"),
-        **{f"stft_large_{k}": (
-            (f"stft_fft_split_psd<LOG2M {k.bit_length() - 3}, 16 values>, "
-             f"two half transforms a frame (the bins of each parity), "
-             f"scipy_default {k} (path 22)")
-            if k & (k - 1) == 0 and k >= 32768 else
-            (f"stft_fft_psd<LOG2M {k.bit_length() - 2}, 16 values>, one "
-             f"block of {k // 2} points a frame, scipy_default {k} (path "
-             f"22)") if k & (k - 1) == 0 else
-            (f"stft_bluestein_psd<RANKS 2> on a cluster of two, M = "
-             f"{bluestein_m(k)}, scipy_default {k} (path 22)")
-            if bluestein_m(k) // 2 <= 14406 else
-            (f"stft_bluestein_cluster_psd<RANKS "
-             f"{8 if bluestein_m(k) > 4 * 14406 else 4}> on a cluster, M = "
-             f"{bluestein_m(k)}, scipy_default {k} (path 22)"),
-            "cuda", src, LARGE_REPLACES) for k, _ in LARGE_PATH},
+        **{f"stft_large_{k}": (large_kernel_name(k), "cuda", src,
+                                LARGE_REPLACES) for k, _ in LARGE_PATH},
+        "mel_chunked": (
+            "mel_chunked_kernel, the mel projection's chunked form (tiles "
+            "of 32 PSD rows, the bins in chunks of 128), 128 mels over "
+            "8,193 bins (path 22, scipy_default 16384)", "cuda", mel_src,
+            "spectral_tpu/parallel/sharding.py:99 (an XLA einsum; no TPU "
+            "kernel)"),
         "hmm_viterbi_chunked": (
             f"hmm_viterbi_chunked<KM 4>, {LONG_T} frames in chunks of 256 "
             "(path 15)", "cuda", hmm_src,

@@ -506,8 +506,11 @@ class BluesteinPlan(NamedTuple):
     twiddles: np.ndarray       # (rows, 2) float64 (cos, sin)
     bhat: int                  # first of the M rows of b̂, in slot order
     chirp: int                 # first of the N rows of the chirp w_i
-    split: int                 # first of the N split-step rows W_K^g (even
-                               # K); -1 for odd K
+    split: int                 # first of the K/2 split-step rows W_K^g
+                               # (even K); -1 for odd K
+    halves: int = 1            # 2: a frame as two half transforms of N =
+                               # K/4 points, one a bin parity
+                               # (:func:`bluestein_split_plan`)
 
 
 @functools.lru_cache(maxsize=16)
@@ -539,7 +542,12 @@ def bluestein_plan(nfft: int) -> BluesteinPlan:
     cached and shared: copy before handing them to torch."""
     if nfft < 3:
         raise ValueError(f"the Bluestein plan needs nfft >= 3, got {nfft}")
-    n = transform_length(nfft)
+    return _bluestein_rows(nfft, transform_length(nfft))
+
+
+def _bluestein_rows(nfft: int, n: int, halves: int = 1) -> BluesteinPlan:
+    """The Bluestein plan of an n-point transform for nfft: M's stages,
+    b̂, the chirp of n points and, for even nfft, the nfft/2 split rows."""
     m = bluestein_length(n)
     stages, perm, blocks, row = _dit_plan(m, m)
     idx = np.arange(n, dtype=np.int64)
@@ -556,12 +564,59 @@ def bluestein_plan(nfft: int) -> BluesteinPlan:
     chirp_row, row = row, row + n
     split = -1
     if nfft % 2 == 0:
-        blocks.append(_rows(idx, nfft))
+        blocks.append(_rows(np.arange(nfft // 2, dtype=np.int64), nfft))
         split = row
     return BluesteinPlan(n, m, bluestein_ranks(m), stages,
                          perm.astype(np.int32),
                          np.ascontiguousarray(np.concatenate(blocks)), bhat,
-                         chirp_row, split)
+                         chirp_row, split, halves)
+
+
+# From this nfft on, an nfft divisible by 4 runs on the Bluestein kernel as
+# two half transforms, one a bin parity (BLUE_SPLIT_K in
+# ops/csrc/stft_psd.cu; the route sends no power of two there): where the
+# whole transform's convolution passes one block (N = nfft/2 from 7204, M
+# past BLUESTEIN_BLOCK_POINTS). Below it the whole transform on one block
+# ran 1.12-1.16x faster than the halves on the card (NVIDIA H100, 8196,
+# 12,000, 14,404; tools/torch_kernel_variants.py large_bluestein)
+BLUESTEIN_SPLIT_NFFT = 14408
+
+
+def bluestein_halves(nfft: int) -> int:
+    """The Bluestein kernel's transforms a frame at nfft: 2 for nfft from
+    :data:`BLUESTEIN_SPLIT_NFFT` divisible by 4 (the launcher's
+    ``blue_split``), else 1."""
+    return 2 if nfft >= BLUESTEIN_SPLIT_NFFT and nfft % 4 == 0 else 1
+
+
+@functools.lru_cache(maxsize=16)
+def bluestein_split_plan(nfft: int) -> BluesteinPlan:
+    """Host plan of the Bluestein kernel for nfft = K divisible by 4 from
+    :data:`BLUESTEIN_SPLIT_NFFT` (:func:`bluestein_halves`): the packed
+    frame's M = K/2-point transform Z split by its first stage in
+    frequency into two transforms of N = K/4 points,
+
+        Z[2k]     = Σ_j (z_j + z_(j+N)) W_N^(jk),
+        Z[2k + 1] = Σ_j (z_j - z_(j+N)) W_M^j W_N^(jk),   j, k < N,
+
+    each a Bluestein convolution of M' = :func:`bluestein_length` (N)
+    points (one block, or a cluster of two past
+    :data:`BLUESTEIN_BLOCK_POINTS`): :func:`bluestein_plan`'s rows for an
+    N-point transform (M''s stages, b̂, the chirp over N), and the K/2
+    split rows W_K^g, whose row 2j is W_M^j. ``halves`` is 2."""
+    if bluestein_halves(nfft) != 2:
+        raise ValueError(f"nfft {nfft} does not split: the halves take "
+                         f"nfft >= {BLUESTEIN_SPLIT_NFFT} divisible by 4")
+    return _bluestein_rows(nfft, nfft // 4, halves=2)
+
+
+def bluestein_route_plan(nfft: int) -> BluesteinPlan:
+    """The plan the Bluestein kernel runs at nfft: :func:`bluestein_split_plan`
+    where it splits a frame (:func:`bluestein_halves`), else
+    :func:`bluestein_plan`."""
+    if bluestein_halves(nfft) == 2:
+        return bluestein_split_plan(nfft)
+    return bluestein_plan(nfft)
 
 
 # ---------------------------------------------------------------------------

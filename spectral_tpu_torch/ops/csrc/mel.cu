@@ -51,6 +51,33 @@
 //   Bound: bytes, the PSD read once and the mel rows written once (0.49 ms
 //   at 1024 clips x 622 frames x 513 bins, 128 mels, on 3.35 TB/s).
 //
+// mel_chunked_kernel (mel_project_launch, where a tile of whole rows
+// would hold fewer than MP_MIN_ROWS = 16 rows: F past 1,609 bins at 128
+// mels)
+//   The same function, and the same bits, on wide PSD rows. A tile of
+//   whole rows shrinks as F grows (two rows of 8,193 bins), and with lanes
+//   on rows most lanes of every warp idle. Here a tile keeps MC_ROWS = 32
+//   rows
+//   at every F and its bins stream through shared memory in chunks of
+//   MC_CHUNK bins: the next chunk (of this tile, or the next tile's first)
+//   in flight by cp.async while this one is summed. The chunks walk the
+//   bins in ascending order, and each (mel row, PSD row) float64 sum is
+//   carried from chunk to chunk in shared memory, so every sum is still
+//   its span's bins in order from the span's first, one FMA chain, rounded
+//   once at the store. In a chunk every warp lists the mel rows whose span
+//   meets it (a ballot over the span table), pairs them in order and takes
+//   pair p where p mod MC_WARPS is its index: it stages the pair's weights
+//   of the chunk in a slot of its own (the weights are read once a chunk
+//   and tile from L2, not at every step), loads the two sums, runs the two
+//   chains side by side with lane l on the tile's row l (the chunk at the
+//   odd stride MC_CHUNK | 1, free of bank conflicts), and stores them.
+//   Each warp scans its own PSD rows (l = warp, warp + MC_WARPS) in every
+//   chunk for non-finite bins and keeps the first and last in registers;
+//   after the last chunk the same warp stores the row, the NaN rule as
+//   above, and folds its partials as mel_tiles does.
+//   Bound: bytes, as above (0.168 ms at 256 clips x 66 frames x 8,193
+//   bins, 128 mels).
+//
 // mel_backward_kernel (mel_backward_launch): the projection's adjoint, for
 // the gradient through the mel rows (the JAX package's jax.grad of its
 // einsum)
@@ -106,6 +133,13 @@ constexpr int MP_THREADS = 512;
 constexpr int MP_WARPS = MP_THREADS / 32;
 constexpr int MP_CHAINS = 2;         // mel rows a warp sums at once
 constexpr int MP_ROWS = 32;          // PSD rows a tile at most: a lane each
+// the fewest whole rows a tile takes: past them the chunked form runs (on
+// the card, 128 mels: tiles of 16 rows of 1,025 bins ran 2.1x faster than
+// the chunked form, of 16 rows of 1,537 bins 1.06x faster, of 8 rows of
+// 2,049 bins 1.16x slower; NVIDIA H100. At 64 mels the chunked form wins
+// from 1,537 bins, 1.17x, and loses at 1,025: the crossing moves with the
+// mel count, which this rule does not follow)
+constexpr int MP_MIN_ROWS = 16;
 constexpr int MP_W_SMEM = 16 * 1024; // the weights staged up to this
 
 // cp.async of 16 or 4 bytes from device to shared memory (sm_80 on)
@@ -361,6 +395,249 @@ mel_project_kernel(const float* __restrict__ psd, const int* __restrict__ start,
                      part_min, part_max, smem);
 }
 
+// The chunked form's own geometry (the tiles' constants above may vary
+// apart from it)
+constexpr int MC_THREADS = 512;
+constexpr int MC_WARPS = MC_THREADS / 32;
+constexpr int MC_ROWS = 32;          // PSD rows a tile at most: a lane each
+constexpr int MC_CHAINS = 2;         // mel rows (chains) a warp sums at once
+constexpr int MC_CHUNK = 128;        // bins a chunk
+constexpr int MC_MIN_BLOCKS = 2;     // blocks an SM (64 registers)
+constexpr int MC_ROWS_A_WARP = MC_ROWS / MC_WARPS;   // rows a warp scans
+static_assert((MC_CHUNK & (MC_CHUNK - 1)) == 0 && MC_ROWS <= 32 &&
+                  MC_ROWS % MC_WARPS == 0 && MC_CHAINS == 2,
+              "a chunk of a power of two of bins; rows on lanes; pairs");
+
+// The chunked form's shared memory at `rows` rows: two chunk buffers of
+// rows x (MC_CHUNK | 1) floats, each (mel row, PSD row) sum as a double
+// at acc[m (rows | 1) + l], each warp's slot for its pair's weights of a
+// chunk (MC_CHAINS x MC_CHUNK doubles) and the span table (3 M ints).
+struct MelChunkSmem {
+  long long chunks, acc, w, table, total;
+};
+
+__host__ __device__ __forceinline__ MelChunkSmem mel_chunk_smem(int rows,
+                                                                int M) {
+  MelChunkSmem s;
+  s.chunks = 0;
+  s.acc = 2 * align16(static_cast<long long>(rows) * (MC_CHUNK | 1) * 4);
+  s.w = s.acc + align16(8LL * M * (rows | 1));
+  s.table = s.w + 8LL * MC_WARPS * MC_CHAINS * MC_CHUNK;
+  s.total = s.table + align16(3LL * M * 4);
+  return s;
+}
+
+// Copy bins c0 .. c0 + nc of PSD rows r0 .. r0 + n into a chunk buffer
+// (row l at l * (MC_CHUNK | 1)): 4-byte copies, a warp's 32 consecutive
+// bins of one row at a time (the rows lie F floats apart, F odd as a rule,
+// so no 16-byte copy lines up).
+__device__ __forceinline__ void mel_chunk_stage(const float* psd,
+                                                long long r0, int n, int F,
+                                                int c0, int nc, float* buf) {
+  constexpr int Cs = MC_CHUNK | 1;
+  for (int i = threadIdx.x; i < n * MC_CHUNK; i += MC_THREADS) {
+    const int l = i / MC_CHUNK, k = i & (MC_CHUNK - 1);
+    if (k < nc)
+      cp_async4(buf + l * Cs + k, psd + (r0 + l) * F + c0 + k);
+  }
+}
+
+// A persistent block walks its tiles of `rows` PSD rows chunk by chunk,
+// the next chunk's copy in flight (cp.async, two buffers) while this one
+// is scanned and summed; see the note at the top. Every mel value is the
+// FMA chain of mel_tiles over the same terms in the same order, its NaN
+// rule the same and its partials folded the same way, so the outputs are
+// that kernel's bits.
+__global__ void __launch_bounds__(MC_THREADS, MC_MIN_BLOCKS)
+mel_chunked_kernel(const float* __restrict__ psd,
+                   const int* __restrict__ start, const int* __restrict__ len,
+                   const int* __restrict__ off, const double* __restrict__ w,
+                   long long R, int F, int M, int rows,
+                   float* __restrict__ out, float* __restrict__ part_min,
+                   float* __restrict__ part_max) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int Cs = MC_CHUNK | 1;
+  const MelChunkSmem lay = mel_chunk_smem(rows, M);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* chunks = reinterpret_cast<float*>(smem + lay.chunks);
+  double* acc = reinterpret_cast<double*>(smem + lay.acc);
+  double* ws = reinterpret_cast<double*>(smem + lay.w) +
+               warp * (MC_CHAINS * MC_CHUNK);
+  int* s_start = reinterpret_cast<int*>(smem + lay.table);
+  int* s_len = s_start + M;
+  int* s_off = s_len + M;
+  const int As = rows | 1;
+  const long long buf_floats =
+      align16(static_cast<long long>(rows) * Cs * 4) / 4;
+  const int n_chunks = (F + MC_CHUNK - 1) / MC_CHUNK;
+  const long long n_tiles = (R + rows - 1) / rows;
+  for (int m = threadIdx.x; m < M; m += MC_THREADS) {
+    s_start[m] = start[m];
+    s_len[m] = len[m];
+    s_off[m] = off[m];
+  }
+  const auto stage = [&](long long t, int j, int b) {
+    const int c0 = j * MC_CHUNK;
+    mel_chunk_stage(psd, t * rows,
+                    static_cast<int>(min(static_cast<long long>(rows),
+                                         R - t * rows)),
+                    F, c0, min(MC_CHUNK, F - c0), chunks + b * buf_floats);
+    cp_async_commit();
+  };
+  long long tile = blockIdx.x;
+  if (tile < n_tiles) stage(tile, 0, 0);
+  // the first and last non-finite bin of the warp's rows warp + q MC_WARPS
+  int bad0[MC_ROWS_A_WARP], bad1[MC_ROWS_A_WARP];
+  for (int j = 0, buf = 0; tile < n_tiles; buf ^= 1) {
+    const long long r0 = tile * rows;
+    const int n = static_cast<int>(min(static_cast<long long>(rows), R - r0));
+    const int c0 = j * MC_CHUNK;
+    const int c1 = min(F, c0 + MC_CHUNK);
+    const float* x = chunks + buf * buf_floats;
+    cp_async_wait_all();
+    __syncthreads();           // this chunk staged, the last one's sums in
+                               // acc, the other buffer free
+    const bool last_chunk = j + 1 == n_chunks;
+    const long long next = last_chunk ? tile + gridDim.x : tile;
+    const int next_j = last_chunk ? 0 : j + 1;
+    if (next < n_tiles) stage(next, next_j, buf ^ 1);
+    // the warp's rows' non-finite bins in this chunk
+#pragma unroll
+    for (int q = 0; q < MC_ROWS_A_WARP; ++q) {
+      const int l = warp + q * MC_WARPS;
+      if (j == 0) {
+        bad0[q] = F;
+        bad1[q] = -1;
+      }
+      if (l >= n) continue;
+      for (int k0 = 0; k0 < c1 - c0; k0 += 32) {
+        const int k = k0 + lane;
+        const unsigned b = __ballot_sync(
+            0xffffffffu, k < c1 - c0 && !isfinite(x[l * Cs + k]));
+        if (b) {
+          bad0[q] = min(bad0[q], c0 + k0 + __ffs(b) - 1);
+          bad1[q] = max(bad1[q], c0 + k0 + 31 - __clz(b));
+        }
+      }
+    }
+    // the sums of one pair of mel rows (mb -1: one row) over this chunk
+    const auto pair = [&](int ma, int mb) {
+      int m[MC_CHAINS] = {ma, mb};
+      int k0[MC_CHAINS], kn[MC_CHAINS], b[MC_CHAINS];
+#pragma unroll
+      for (int c = 0; c < MC_CHAINS; ++c) {
+        k0[c] = kn[c] = b[c] = 0;
+        if (m[c] < 0) continue;
+        const int s = s_start[m[c]];
+        k0[c] = max(0, c0 - s);
+        kn[c] = min(s_len[m[c]], c1 - s) - k0[c];
+        b[c] = s + k0[c] - c0;
+      }
+      // the pair's weights of the chunk: every load in flight at once (one
+      // round trip to L2), then into the warp's slot
+      __syncwarp();            // the last pair's reads of the slot done
+#pragma unroll
+      for (int c = 0; c < MC_CHAINS; ++c) {
+        double t[MC_CHUNK / 32];
+#pragma unroll
+        for (int q = 0; q < MC_CHUNK / 32; ++q) {
+          const int i = lane + 32 * q;
+          t[q] = i < kn[c] ? __ldg(w + s_off[m[c]] + k0[c] + i) : 0.0;
+        }
+#pragma unroll
+        for (int q = 0; q < MC_CHUNK / 32; ++q)
+          if (lane + 32 * q < kn[c]) ws[c * MC_CHUNK + lane + 32 * q] = t[q];
+      }
+      __syncwarp();
+      if (lane >= n) return;
+      const float* row = x + lane * Cs;
+      double a[MC_CHAINS];
+#pragma unroll
+      for (int c = 0; c < MC_CHAINS; ++c)
+        a[c] = m[c] >= 0 && k0[c] > 0 ? acc[m[c] * As + lane] : 0.0;
+      // the steps both chains take side by side, unpredicated so that the
+      // loads run ahead of the FMAs, then the longer chain's own; each
+      // chain in its own order
+      const int both = min(kn[0], kn[1]);
+#pragma unroll 8
+      for (int k = 0; k < both; ++k) {
+        const double w0 = ws[k], w1 = ws[MC_CHUNK + k];
+        const double x0 = row[b[0] + k], x1 = row[b[1] + k];
+        a[0] = fma(w0, x0, a[0]);
+        a[1] = fma(w1, x1, a[1]);
+      }
+#pragma unroll
+      for (int c = 0; c < MC_CHAINS; ++c) {
+#pragma unroll 4
+        for (int k = both; k < kn[c]; ++k)
+          a[c] = fma(ws[c * MC_CHUNK + k],
+                     static_cast<double>(row[b[c] + k]), a[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < MC_CHAINS; ++c)
+        if (m[c] >= 0) acc[m[c] * As + lane] = a[c];
+    };
+    // the mel rows whose span meets the chunk, in order, paired; pair p
+    // to warp p mod MC_WARPS
+    int seen = 0;
+    int held = -1;
+    for (int m0 = 0; m0 < M; m0 += 32) {
+      const int mm = m0 + lane;
+      bool meets = false;
+      if (mm < M) {
+        const int s = s_start[mm];
+        meets = s_len[mm] > 0 && s < c1 && s + s_len[mm] > c0;
+      }
+      for (unsigned bits = __ballot_sync(0xffffffffu, meets); bits;
+           bits &= bits - 1) {
+        const int mr = m0 + __ffs(bits) - 1;
+        if (held < 0) {
+          held = mr;
+          continue;
+        }
+        if ((seen >> 1) % MC_WARPS == warp) pair(held, mr);
+        seen += 2;
+        held = -1;
+      }
+    }
+    if (held >= 0 && (seen >> 1) % MC_WARPS == warp) pair(held, -1);
+    if (last_chunk) {
+      __syncthreads();         // every sum of the tile in acc
+      // the mel rows stored and their partials, a warp a row
+#pragma unroll
+      for (int q = 0; q < MC_ROWS_A_WARP; ++q) {
+        const int l = warp + q * MC_WARPS;
+        if (l >= n) continue;
+        float lo = INFINITY;
+        float hi = -INFINITY;
+        float* dst = out + (r0 + l) * M;
+        for (int mm = lane; mm < M; mm += 32) {
+          const int s = s_start[mm], k1 = s_len[mm];
+          double a = k1 > 0 ? acc[mm * As + l] : 0.0;
+          // a non-finite bin outside the span meets a zero weight
+          if (bad0[q] < s || bad1[q] >= s + k1)
+            a = __longlong_as_double(0x7ff8000000000000LL);   // NaN
+          const float v = static_cast<float>(a);
+          dst[mm] = v;
+          lo = nan_min(lo, v);
+          hi = nan_max(hi, v);
+        }
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) {
+          lo = nan_min(lo, __shfl_xor_sync(0xffffffffu, lo, d));
+          hi = nan_max(hi, __shfl_xor_sync(0xffffffffu, hi, d));
+        }
+        if (lane == 0) {
+          part_min[r0 + l] = lo;
+          part_max[r0 + l] = hi;
+        }
+      }
+    }
+    tile = next;
+    j = next_j;
+  }
+}
+
 constexpr int MB_THREADS = 512;
 constexpr int MB_WARPS = MB_THREADS / 32;
 constexpr int MB_ROWS = 32;                   // gradient rows a tile at most
@@ -570,6 +847,42 @@ int device_attr(cudaDeviceAttr attr) {
   return v;
 }
 
+// Whether mel_project_launch takes the chunked form for F bins and M mel
+// rows under `cap` bytes of shared memory a block: where tiles of
+// MP_MIN_ROWS whole rows do not fit (F past 1,609 bins at 128 mels).
+bool mel_chunked(int F, int M, long long cap) {
+  return mel_smem(MP_MIN_ROWS, F, M).total > cap;
+}
+
+// The chunked form's launch (mel_project_launch's; see there).
+int mel_chunked_launch(const float* psd, const int* start, const int* len,
+                       const int* off, const double* w, long long R, int F,
+                       int M, float* out, float* part_min, float* part_max,
+                       cudaStream_t stream, long long cap, int* form) {
+  int rows = MC_ROWS;
+  while (rows > 1 && mel_chunk_smem(rows, M).total > cap) rows >>= 1;
+  const long long smem = mel_chunk_smem(rows, M).total;
+  if (smem > cap) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      mel_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, mel_chunked_kernel, MC_THREADS, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_tiles = (R + rows - 1) / rows;
+  const long long fill =
+      static_cast<long long>(device_attr(cudaDevAttrMultiProcessorCount)) *
+      (per_sm > 0 ? per_sm : 1);
+  *form = 1;
+  mel_chunked_kernel<<<static_cast<unsigned>(n_tiles < fill ? n_tiles
+                                                            : fill),
+                       MC_THREADS, static_cast<size_t>(smem), stream>>>(
+      psd, start, len, off, w, R, F, M, rows, out, part_min, part_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -578,20 +891,27 @@ extern "C" {
 // cudaErrorInvalidValue for sizes the kernel does not take. psd is (R, F)
 // contiguous f32; start, len and off are (M,) int32 and w the packed
 // float64 spans, all on the device; out is (R, M) f32; part_min/part_max
-// are (R,) f32. The tile: MP_ROWS rows, or fewer where the block's shared
-// memory does not hold two tiles of F floats a row; a persistent grid, as
-// many blocks as the SMs hold.
+// are (R,) f32. The form: tiles of MP_ROWS whole rows (mel_project_kernel),
+// halved down to MP_MIN_ROWS where the block's shared memory does not
+// hold two of them; else the chunked form (mel_chunked_kernel), tiles of
+// MC_ROWS rows, or fewer where its sums (M doubles a row) do not fit. A
+// persistent grid, as many blocks as the SMs hold. *form is set to the
+// form launched, 0 for tiles of whole rows and 1 for the chunked form,
+// and left as it was where nothing is launched.
 int mel_project_launch(const float* psd, const int* start, const int* len,
                        const int* off, const double* w, long long R, int F,
                        int M, float* out, float* part_min, float* part_max,
-                       void* stream) {
+                       void* stream, int* form) {
   if (R < 0 || M < 1 || F < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return 0;
   const long long cap = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  if (mel_chunked(F, M, cap))
+    return mel_chunked_launch(psd, start, len, off, w, R, F, M, out,
+                              part_min, part_max,
+                              static_cast<cudaStream_t>(stream), cap, form);
   int rows = MP_ROWS;
-  while (rows > 1 && mel_smem(rows, F, M).total > cap) rows >>= 1;
+  while (rows > MP_MIN_ROWS && mel_smem(rows, F, M).total > cap) rows >>= 1;
   const long long smem = mel_smem(rows, F, M).total;
-  if (smem > cap) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       mel_project_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -608,6 +928,7 @@ int mel_project_launch(const float* psd, const int* start, const int* len,
   // tile's first row on a 16-byte boundary
   const int vec = (F & 1) && (static_cast<long long>(rows) * F) % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(psd) % 16 == 0;
+  *form = 0;
   mel_project_kernel<<<static_cast<unsigned>(n_tiles < fill ? n_tiles : fill),
                        MP_THREADS, static_cast<size_t>(smem),
                        static_cast<cudaStream_t>(stream)>>>(

@@ -750,6 +750,42 @@ __device__ __forceinline__ void split_psd_epilogue(
     row_extrema(lo, hi, red_lo, red_hi, part_min, part_max, r);
 }
 
+// The same epilogue on the bins of parity h alone (f = g mod 2 = h), from
+// the transform of half h of a frame split by bin parity: Z[g] is the
+// half's output g >> 1 (read through z), and g and M - g share a parity
+// since M is even. The thread takes the band's bins of parity h (first
+// and stride as split_psd_epilogue's, counted over those bins); the row's
+// (min, max) over them is the half's partial.
+template <typename Read>
+__device__ __forceinline__ void parity_psd_epilogue(
+    Read z, const double2* __restrict__ split,
+    const double* __restrict__ wts, float* __restrict__ out,
+    float* __restrict__ part_min, float* __restrict__ part_max,
+    float* red_lo, float* red_hi, int r, Band band, int K, int h,
+    int log10_out, int mode, int with_stats, int first, int stride) {
+  const int M = K >> 1;
+  float lo = INFINITY;
+  float hi = -INFINITY;
+  for (int f = band.lo + ((band.lo ^ h) & 1) + 2 * first; f < band.end();
+       f += 2 * stride) {
+    const int g = f <= M ? f : K - f;
+    const double2 a = z((g == M ? 0 : g) >> 1);
+    const double2 b = z((g == 0 ? 0 : M - g) >> 1);
+    const double2 w = g < M ? split[g] : make_double2(-1.0, 0.0);
+    const double er = 0.5 * (a.x + b.x);
+    const double ei = 0.5 * (a.y - b.y);
+    const double o_r = 0.5 * (a.y + b.y);
+    const double o_i = 0.5 * (b.x - a.x);
+    const double xr = er + (w.x * o_r - w.y * o_i);
+    const double xi = ei + (w.x * o_i + w.y * o_r);
+    const bool cj = mode == OUT_COMPLEX && f > M;
+    store_bin(xr, cj ? -xi : xi, wts[f], out, r, band, f, log10_out, mode,
+              lo, hi);
+  }
+  if (with_stats)
+    row_extrema(lo, hi, red_lo, red_hi, part_min, part_max, r);
+}
+
 constexpr int R2_BLOCK = 256;        // threads of a block of frames of a
                                      // warp or less
 constexpr int R2_MAX_THREADS = 512;  // the largest frame's
@@ -809,6 +845,16 @@ __device__ __forceinline__ int r2_slot(int fl, int p) {
   constexpr int MASK = (G::P < 8 ? G::P : 8) - 1;
   return fl * G::M + (p ^ (((fl * G::P) & 7) ^ ((p >> SHIFT) & MASK)));
 }
+
+// Reads of output i of a transform the radix-2 passes left in buf (the
+// first frame's slots)
+template <int LOG2M, int LR>
+struct R2SlotRead {
+  const double2* buf;
+  __device__ double2 operator()(int i) const {
+    return buf[r2_slot<LOG2M, LR>(0, i)];
+  }
+};
 
 // The radix-2 butterfly of psd_fft: (a, b) <- (a + w b, a - w b)
 __device__ __forceinline__ void r2_butterfly(double2& a, double2& b,
@@ -2494,12 +2540,13 @@ __device__ __forceinline__ void bluestein_transform(
 
 // One block (RANKS = 1) or cluster (RANKS = 2) per unit: a frame of even
 // K, row blockIdx.x; or for odd K frames t = 2j and t + 1 of clip b, unit
-// b ceil(T / 2) + j. Even K runs on one block only. TWO: two blocks an SM
-// (M up to BLUE_TWO_BLOCK_POINTS). EXT: a frame shorter than the
-// transform or an output other than the PSD, as the radix-2 kernel's
-// (without it path 9's instantiation spilled 20 bytes more, PR 19's call
-// 3).
-template <int RANKS, bool TWO, bool EXT>
+// b ceil(T / 2) + j. TWO: two blocks an SM (M up to
+// BLUE_TWO_BLOCK_POINTS). EXT: a frame shorter than the transform or an
+// output other than the PSD, as the radix-2 kernel's (without it path 9's
+// instantiation spilled 20 bytes more). SPLIT: K
+// divisible by 4 from BLUE_SPLIT_K (blue_split), a frame as two half
+// transforms, see the note below the kernel.
+template <int RANKS, bool TWO, bool EXT, bool SPLIT = false>
 __global__ void __launch_bounds__(FFT_MAX_THREADS,
                                   TWO ? 2 : BLUE_MIN_BLOCKS)
 stft_bluestein_psd_kernel(const float* __restrict__ x,
@@ -2526,17 +2573,20 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
   const SlotMap map{plan.swz_mask, plan.swz_shift};
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int unit = blockIdx.x / RANKS;
+  // the unit's block (or cluster); SPLIT: two a frame, half h = cu & 1
+  const int cu = blockIdx.x / RANKS;
+  const int unit = SPLIT ? cu >> 1 : cu;
+  const int half = SPLIT ? cu & 1 : 0;
   const int H = M / RANKS;
   const double2* chirp = tw + chirp_row;
   const double c = 0.5 * (L - 1);
   bool loads = true;                // rank 0 loads, transforms and stores
   if constexpr (RANKS == 2) loads = cg::this_cluster().block_rank() == 0;
 
-  // even K: frame t of clip b, two samples a value (N = K/2); odd K: its
-  // frames t = 2j and t + 1 (N = K)
-  const bool even = K % 2 == 0;
-  const int N = even ? K >> 1 : K;
+  // even K: frame t of clip b, two samples a value (N = K/2; SPLIT, the
+  // half's N = K/4); odd K: its frames t = 2j and t + 1 (N = K)
+  const bool even = SPLIT || K % 2 == 0;
+  const int N = SPLIT ? K >> 2 : (even ? K >> 1 : K);
   const int pairs = (T + 1) >> 1;
   const int clip = even ? unit / T : unit / pairs;
   const int t = even ? unit - clip * T : (unit - clip * pairs) * 2;
@@ -2557,9 +2607,27 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
   };
 
   // the load, z_m = (v[2m] + i v[2m + 1]) w_m for even K, z_i = (v_a[i] +
-  // i v_b[i]) w_i and both energies for a pair of odd frames
+  // i v_b[i]) w_i and both energies for a pair of odd frames; SPLIT, the
+  // half's u_j = z_j + z_(j+N) (h = 0) or (z_j - z_(j+N)) W_(K/2)^j (h = 1,
+  // the split row 2j) times w_j
   double2 e = make_double2(0.0, 0.0);
-  for (int i = tid; i < H; i += nt) {
+  if constexpr (SPLIT) {
+    for (int i = tid; i < H; i += nt) {
+      double2 u = make_double2(0.0, 0.0);
+      if (i < N) {
+        const double2 a = make_double2(sample(fa, la, 2 * i),
+                                       sample(fa, la, 2 * i + 1));
+        const double2 b = make_double2(sample(fa, la, 2 * (i + N)),
+                                       sample(fa, la, 2 * (i + N) + 1));
+        u = half == 0 ? make_double2(a.x + b.x, a.y + b.y)
+                      : cmul(tw[plan.split + 2 * i],
+                             make_double2(a.x - b.x, a.y - b.y));
+        u = cmul(chirp[i], u);
+      }
+      if (loads) buf[map(i)] = u;
+    }
+  }
+  for (int i = tid; !SPLIT && i < H; i += nt) {
     double2 z = make_double2(0.0, 0.0);
     if (i < N) {
       const double va = sample(fa, la, even ? 2 * i : i);
@@ -2593,7 +2661,16 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
     }
     bluestein_transform<RANKS>(buf, small, tw, plan, M, N, bhat, half_row);
     if (!loads) continue;
-    if (even)
+    if constexpr (SPLIT) {
+      // this half's bins and its partial, tile h of (2, B T)
+      const long long rows = static_cast<long long>(gridDim.x / RANKS) >> 1;
+      parity_psd_epilogue(
+          BluesteinRead{buf, chirp, map}, tw + plan.split, wts, out,
+          with_stats ? part_min + half * rows : part_min,
+          with_stats ? part_max + half * rows : part_max, red_lo[0],
+          red_hi[0], ra, band, K, half, log10_out, mode, with_stats, tid,
+          nt);
+    } else if (even)
       split_psd_epilogue(BluesteinRead{buf, chirp, map}, tw + plan.split,
                          wts, out, part_min, part_max, red_lo[0], red_hi[0],
                          ra, band, K, log10_out, mode, with_stats, tid, nt);
@@ -2603,6 +2680,27 @@ stft_bluestein_psd_kernel(const float* __restrict__ x,
                         log10_out, mode, with_stats, tid, nt);
   }
 }
+
+// SPLIT: the Bluestein route past 8192 for K divisible by 4 whose whole
+// transform would take a cluster (blue_split: 4,589 lengths from 14,408
+// to 32,764, none a power of two), split by bin parity as the radix-2
+// kernel's split below. The packed frame's M = K/2
+// point transform takes its first decimation-in-frequency stage in the
+// load: block (or cluster) 2r + h of row r loads the whole frame (its
+// detrend spans every sample), forms u_j = z_j + z_(j+N) (h = 0) or (z_j -
+// z_(j+N)) W_M^j (h = 1; W_M^j is the split step's row 2j, W_K^(2j)) for j
+// < N = K/4 in registers, runs the Bluestein convolution of those N points
+// (M' = bluestein_length(N) from the host; one block while M' <=
+// BLUE_MAX_BLOCK_POINTS, else a cluster of two: halves of 7,204 points or
+// more), then the split step and epilogue on the band's bins of parity h
+// (parity_psd_epilogue, Z[g] the half's output g >> 1). Each half stores
+// its own (min, max) partial, part_min[h B T + r]: two tiles a frame. Two
+// half-length convolutions do less than one of full length (M' log M'
+// twice against M log M, M about 2 M'), on one block where the whole
+// transform took a cluster of two (20,000: M' = 10,000) or on clusters of
+// two where it took four (30,000: M' = 15,000), so no K divisible by 4
+// needs four or eight ranks. tools/torch_precision.py::
+// psd_bluestein_split is this arithmetic in numpy.
 
 // ---------------------------------------------------------------------------
 // The radix-2 route past 8192: nfft K = 32768 (from R2_SPLIT_K; 16384
@@ -2744,28 +2842,11 @@ stft_fft_split_psd_kernel(const float* __restrict__ x,
 
   // the split step on the bins of this half's parity (r2_epilogue's
   // arithmetic): Z[i] is the half's slot i >> 1
-  const double2* split = tw + (M - 1);
-  float lo = INFINITY;
-  float hi = -INFINITY;
-  for (int f = band.lo + ((band.lo ^ half) & 1) + 2 * u; f < band.end();
-       f += 2 * P) {
-    const int g = f <= M ? f : K - f;
-    const double2 a = buf[r2_slot<LOG2M, LR>(0, (g == M ? 0 : g) >> 1)];
-    const double2 b = buf[r2_slot<LOG2M, LR>(0, (g == 0 ? 0 : M - g) >> 1)];
-    const double2 w = g < M ? split[g] : make_double2(-1.0, 0.0);
-    const double er = 0.5 * (a.x + b.x);
-    const double ei = 0.5 * (a.y - b.y);
-    const double o_r = 0.5 * (a.y + b.y);
-    const double o_i = 0.5 * (b.x - a.x);
-    const double xr = er + (w.x * o_r - w.y * o_i);
-    const double xi = ei + (w.x * o_i + w.y * o_r);
-    const bool cj = mode == OUT_COMPLEX && f > M;
-    store_bin(xr, cj ? -xi : xi, wts[f], out, r, band, f, log10_out, mode,
-              lo, hi);
-  }
-  if (with_stats)
-    row_extrema(lo, hi, red_lo, red_hi, part_min + (long long)half * R,
-                part_max + (long long)half * R, r);
+  parity_psd_epilogue(R2SlotRead<LOG2M, LR>{buf}, tw + (M - 1), wts, out,
+                      with_stats ? part_min + (long long)half * R : part_min,
+                      with_stats ? part_max + (long long)half * R : part_max,
+                      red_lo, red_hi, r, band, K, half, log10_out, mode,
+                      with_stats, u, P);
 }
 
 // ---------------------------------------------------------------------------
@@ -3009,6 +3090,15 @@ stft_bluestein_cluster_psd_kernel(const float* __restrict__ x,
 constexpr int FFT_MAX_DEVICES = 64;
 // the Bluestein route's longest transform
 constexpr int BLUE_MAX_K = 32768;
+// from here a K divisible by 4 runs as two half transforms (SPLIT): N =
+// K/2 from 7204, whose convolution (M >= 2N - 1 > BLUE_MAX_BLOCK_POINTS)
+// no block holds; below it the whole transform on one block ran faster
+// (8196, 12,000, 14,404: 1.12-1.16x on the card)
+constexpr int BLUE_SPLIT_K = 14408;
+
+// whether the Bluestein kernel splits nfft K by bin parity
+// (core/stft.py::bluestein_halves)
+bool blue_split(int K) { return K >= BLUE_SPLIT_K && K % 4 == 0; }
 
 // The blocks that hold an M-point convolution: the fewest of 1, 2, 4 and 8
 // whose M / RANKS slots a block holds (core/stft.py::bluestein_ranks)
@@ -3028,8 +3118,9 @@ size_t mixed_smem_set[3][FFT_MAX_DEVICES] = {};
 // PACKED, rmax 0 or 1)
 size_t odd_smem_set[10][FFT_MAX_DEVICES] = {};
 // (the Bluestein kernel's: on one block, at two blocks an SM, and on
-// clusters of two, four and eight; each with and without EXT)
-size_t blue_smem_set[2][5][FFT_MAX_DEVICES] = {};
+// clusters of two, four and eight, then split by bin parity on one block,
+// at two blocks an SM and on clusters of two; each with and without EXT)
+size_t blue_smem_set[2][8][FFT_MAX_DEVICES] = {};
 // (the radix-2 kernel past 8192: by EXT, and the split or one block a
 // frame)
 size_t r2_large_smem_set[2][2][FFT_MAX_DEVICES] = {};
@@ -3582,11 +3673,14 @@ int stft_odd_fft_psd_launch(const float* x, const double* win,
 // contiguous f32; win is (K,) f64; tw is (rows, 2) f64, and stages, in
 // HOST memory, the (n_stages, 4) int32 rows of M's plan, both from
 // core/stft.py::bluestein_plan, with bhat, chirp and split the first rows
-// of b^ (M rows), of the chirp (N rows) and of the split step (N rows;
+// of b^ (M rows), of the chirp (N rows) and of the split step (K/2 rows;
 // -1 for odd K, which has none); wts, out, part_min, part_max, F and f_lo
 // as the FFT route's. K, the transform length, is 32 to BLUE_MAX_K (L, win
-// and mode as the FFT route's), M >= 2N - 1 (N = K/2, or K when odd)
-// with radices 2, 3, 5 and 7; M past BLUE_MAX_BLOCK_POINTS runs on
+// and mode as the FFT route's), M >= 2N - 1 (N = K/2, or K when odd; K/4
+// where blue_split(K) takes two half transforms a frame, the plan of
+// core/stft.py::bluestein_split_plan, on one block or a cluster of two,
+// part_min/part_max then (2, B * T), each half's bins' partial) with
+// radices 2, 3, 5 and 7; M past BLUE_MAX_BLOCK_POINTS runs on
 // clusters of RANKS = 2, 4 or 8 blocks (the fewest whose M / RANKS slots a
 // block holds; blue_ranks) and must be a multiple of RANKS whose plan's
 // last log2 RANKS stages are radix 2 at spans M / RANKS, ..., M/2. On four
@@ -3594,9 +3688,9 @@ int stft_odd_fft_psd_launch(const float* x, const double* win,
 // of the bins; a cluster that cannot be placed on the card at its shared
 // memory (cudaOccupancyMaxActiveClusters) is refused with
 // cudaErrorLaunchOutOfResources. detrend is 0 for none, 1 for constant, 2
-// for linear. The kernel runs B * T units for even K and B * ceil(T / 2)
-// for odd K, a block or a cluster each; the caller keeps B * T times the
-// ranks within the grid's limit.
+// for linear. The kernel runs B * T units for even K (2 B T split) and B *
+// ceil(T / 2) for odd K, a block or a cluster each; the caller keeps the
+// units times the ranks within the grid's limit.
 int stft_bluestein_psd_launch(const float* x, const double* win,
                               const double* tw, const int* stages,
                               int n_stages, int M, int bhat, int chirp,
@@ -3607,7 +3701,8 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
                               int with_stats, int f_lo, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   const bool odd = K % 2 == 1;
-  const int N = odd ? K : K / 2;
+  const bool halves = blue_split(K);  // two half transforms a frame
+  const int N = odd ? K : (halves ? K / 4 : K / 2);
   const int ranks = blue_ranks(M);
   const int cross = ranks == 8 ? 3 : (ranks == 4 ? 2 : (ranks == 2 ? 1 : 0));
   const Band band{f_lo, F};
@@ -3615,7 +3710,8 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
       !detrend_ok(detrend) || M < 2 * N - 1 || bhat < 0 || chirp < 0 ||
       (split < 0) != odd || n_stages < 1 || n_stages > MIX_MAX_STAGES ||
       L < 1 || L > K || !mode_ok(mode, log10_out, with_stats) ||
-      M > ranks * BLUE_MAX_BLOCK_POINTS || M % ranks || n_stages <= cross)
+      M > ranks * BLUE_MAX_BLOCK_POINTS || M % ranks || n_stages <= cross ||
+      (halves && ranks > 2))
     return static_cast<int>(bad);
   for (int s = 0; s < n_stages; ++s)
     if (stages[4 * s] > BLUE_MAX_RADIX) return static_cast<int>(bad);
@@ -3678,26 +3774,40 @@ int stft_bluestein_psd_launch(const float* x, const double* win,
     if (launched != cudaSuccess) return static_cast<int>(launched);
     return static_cast<int>(cudaGetLastError());
   }
+  // (the halves' M' >= K/2 - 1 > BLUE_TWO_BLOCK_POINTS: their table
+  // holds the one-block kernel at two blocks an SM's place too)
   const int variant =
       ranks == 2 ? 2 : (local <= BLUE_TWO_BLOCK_POINTS ? 1 : 0);
-  decltype(&stft_bluestein_psd_kernel<1, false, false>) const by_variant[2][3] =
-      {{stft_bluestein_psd_kernel<1, false, false>,
-        stft_bluestein_psd_kernel<1, true, false>,
-        stft_bluestein_psd_kernel<2, false, false>},
-       {stft_bluestein_psd_kernel<1, false, true>,
-        stft_bluestein_psd_kernel<1, true, true>,
-        stft_bluestein_psd_kernel<2, false, true>}};
-  const auto kernel = by_variant[ext][variant];
-  const int err = raise_smem(kernel, smem, blue_smem_set[ext][variant]);
+  decltype(&stft_bluestein_psd_kernel<1, false, false>) const
+      by_variant[2][2][3] = {
+          {{stft_bluestein_psd_kernel<1, false, false>,
+            stft_bluestein_psd_kernel<1, true, false>,
+            stft_bluestein_psd_kernel<2, false, false>},
+           {stft_bluestein_psd_kernel<1, false, true>,
+            stft_bluestein_psd_kernel<1, true, true>,
+            stft_bluestein_psd_kernel<2, false, true>}},
+          {{stft_bluestein_psd_kernel<1, false, false, true>,
+            stft_bluestein_psd_kernel<1, false, false, true>,
+            stft_bluestein_psd_kernel<2, false, false, true>},
+           {stft_bluestein_psd_kernel<1, false, true, true>,
+            stft_bluestein_psd_kernel<1, false, true, true>,
+            stft_bluestein_psd_kernel<2, false, true, true>}}};
+  const auto kernel = by_variant[halves][ext][variant];
+  const int err = raise_smem(
+      kernel, smem, blue_smem_set[ext][variant + (halves ? 5 : 0)]);
   if (err != 0) return err;
+  // a block (or cluster) a unit, two a frame for the halves
+  const unsigned long long blocks =
+      static_cast<unsigned long long>(units) * (halves ? 2 : 1) * ranks;
+  if (blocks > 0x7fffffffULL) return static_cast<int>(bad);
   if (ranks == 1) {
-    kernel<<<units, threads, smem, s>>>(
+    kernel<<<static_cast<unsigned>(blocks), threads, smem, s>>>(
         x, win, tw2, wts, out, part_min, part_max, n, T, band, K, hop, L,
         detrend, log10_out, mode, with_stats, M, bhat, chirp, half_row, plan);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(units * 2);
+  config.gridDim = dim3(static_cast<unsigned>(blocks));
   config.blockDim = dim3(threads);
   config.dynamicSmemBytes = smem;
   config.stream = s;

@@ -18,6 +18,11 @@ rounds once at the store, and gives a non-finite bin outside the span the
 dense product's answer, NaN (0 * inf). A dense product would do 65x the
 needed arithmetic there, and need another pass for the partials.
 
+PSD rows too wide for tiles of 16 whole rows in shared memory (F past
+1,609 bins at 128 mels) take the kernel's chunked form, the rows' bins
+streamed through shared memory in chunks, with the same bits
+(``form_launches`` counts those launches).
+
 :func:`mel_project` takes the kernel for a CUDA tensor and the plain
 version (:func:`mel_project_reference`: ``core.mel.apply_mel``, the
 float64 dense product, and ``torch.amin``/``amax``) for a CPU tensor, and
@@ -47,6 +52,9 @@ KERNEL = "mel"
 
 # kernel launches, for run-time proof of the path
 launches = {"mel": 0}
+# of those, the launches that took the chunked form (mel_chunked_kernel:
+# PSD rows too wide for tiles of 16 whole rows)
+form_launches = {"mel_chunked": 0}
 # the backward's launches
 grad_launches = {"mel_backward": 0}
 
@@ -156,7 +164,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load_library(KERNEL)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mel_project_launch.argtypes = [ptr] * 5 + [i64, i32, i32] + [
-        ptr] * 4
+        ptr] * 4 + [ctypes.POINTER(i32)]
     lib.mel_project_launch.restype = i32
     lib.mel_backward_launch.argtypes = [ptr, ptr, i32, i64, i32, i32, ptr,
                                         ptr]
@@ -192,17 +200,20 @@ def _mel_project_cuda(psd, spans):
     mel = torch.empty((B, T, M), dtype=torch.float32, device=psd.device)
     parts = torch.empty((2, 1, B, T), dtype=torch.float32, device=psd.device)
     if B * T:
+        form = ctypes.c_int(0)
         with torch.cuda.device(psd.device):
             err = lib.mel_project_launch(
                 psd.data_ptr(), spans.start.data_ptr(),
                 spans.length.data_ptr(), spans.offset.data_ptr(),
                 spans.weights.data_ptr(), B * T, F, M, mel.data_ptr(),
                 parts[0].data_ptr(), parts[1].data_ptr(),
-                torch.cuda.current_stream(psd.device).cuda_stream)
+                torch.cuda.current_stream(psd.device).cuda_stream,
+                ctypes.byref(form))
         if err != 0:
             raise RuntimeError("mel kernel launch failed: "
                                + lib.mel_error_string(err).decode())
         launches["mel"] += 1
+        form_launches["mel_chunked"] += form.value
     return mel, parts
 
 

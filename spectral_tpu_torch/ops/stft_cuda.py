@@ -61,7 +61,9 @@ written to memory. All compute the same function, by five routes that
   hold M / RANKS slots each (``core.stft.bluestein_ranks``; odd nperseg
   from 7207 on two, 14,407 on four, 28,813 on eight); and every nfft from
   8193 to 32,768 that is not a power of two (the mixed and odd routes
-  stop at 8192);
+  stop at 8192), those divisible by 4 as two half transforms a frame, one
+  a bin parity, each on one block or a cluster of two
+  (``core.stft.bluestein_split_plan``);
 - ``"gemm"`` (``stft_psd_launch``): nfft below 32, and past 32,768 at
   nperseg up to 8192. The real DFT as a
   GEMM against (nperseg, F) matrices with the window and detrend folded in
@@ -179,6 +181,7 @@ from spectral_tpu_torch.config import SpecConfig
 from spectral_tpu_torch.core.stft import (DENSE_MAX_NPERSEG,
                                           MAX_MIXED_RADIX, _require_power,
                                           _window_f64, bluestein_plan,
+                                          bluestein_route_plan,
                                           center_pad, dense_dft,
                                           detrend_frames as _detrend_frames,
                                           dft_matrices, ensure_real_waveform,
@@ -545,7 +548,9 @@ def mixed_constants(cfg: SpecConfig, fs: float, device,
 
 
 class BluesteinConstants(NamedTuple):
-    """The Bluestein kernel's operands (``core.stft.bluestein_plan``): the
+    """The Bluestein kernel's operands (``core.stft.bluestein_route_plan``:
+    ``bluestein_plan``, or ``bluestein_split_plan`` where the kernel splits
+    a frame by bin parity): the
     window zero-padded to K = nfft, the plan's twiddle table (rows, 2) and
     the weights (F,)
     in float64 on the device; M's (S, 4) int32 stage rows on the host; M
@@ -568,7 +573,7 @@ def bluestein_constants(cfg: SpecConfig, fs: float, device,
     out = out or cfg.mode
 
     def build():
-        plan = bluestein_plan(cfg.nfft_)
+        plan = bluestein_route_plan(cfg.nfft_)
         return BluesteinConstants(_put(padded_window(cfg), device),
                                   _put(plan.twiddles, device),
                                   _put(kernel_weights(cfg, fs, out), device),
@@ -861,14 +866,15 @@ def _library() -> ctypes.CDLL:
 def partial_tiles(cfg: SpecConfig, kernel: str) -> int:
     """The per-frame partials' tiles of an FFT route's launch: 2 where the
     radix-2 kernel runs a frame as two half transforms (nfft from
-    :data:`R2_SPLIT_NFFT`), each block's bins of one parity; the ranks of a
+    :data:`R2_SPLIT_NFFT`), each block's bins of one parity, and where the
+    Bluestein kernel does (``core.stft.bluestein_halves``); the ranks of a
     Bluestein cluster of 4 or 8, each its share of the bins; else 1 (a
     cluster of two stores from rank 0 alone)."""
     if kernel == "fft" and cfg.nfft_ >= R2_SPLIT_NFFT:
         return 2
     if kernel == "bluestein":
-        ranks = bluestein_plan(cfg.nfft_).ranks
-        return ranks if ranks > 2 else 1
+        plan = bluestein_route_plan(cfg.nfft_)
+        return plan.halves if plan.ranks <= 2 else plan.ranks
     return 1
 
 
@@ -1427,7 +1433,7 @@ def bluestein_clusters(cfg: SpecConfig, device) -> int:
     cfg's nfft the card ``device`` holds at once at their shared memory
     (``cudaOccupancyMaxActiveClusters``); the launcher refuses a cluster
     that cannot be placed (0). A config on another form raises."""
-    plan = bluestein_plan(cfg.nfft_)
+    plan = bluestein_route_plan(cfg.nfft_)
     if plan.ranks < 4:
         raise ValueError(f"nfft {cfg.nfft_} runs on {plan.ranks} block(s), "
                          "not a cluster of 4 or 8")

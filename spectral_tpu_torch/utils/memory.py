@@ -62,7 +62,8 @@ def trim_caches() -> None:
     from spectral_tpu_torch.ops import colormap, stft_cuda
     stft_cuda._CONSTANTS.clear()
     for fn in (stft._window_f64, stft.dft_matrices, stft.fft_twiddles,
-               stft.fft_plan, stft.bluestein_plan, mel.mel_filterbank,
+               stft.fft_plan, stft.bluestein_plan, stft.bluestein_split_plan,
+               mel.mel_filterbank,
                colormap._packed_lut_np):
         fn.cache_clear()
     colormap._LUT_CACHE.clear()

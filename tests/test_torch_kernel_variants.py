@@ -49,14 +49,16 @@ def test_every_kernel_names_its_routes_and_configs():
     mixed and odd routes' backward, the Bluestein route's and the GEMM
     route's small-K backward, each on configs of its own routes; and the
     HMM, display backward and mel sets, H2 chunked's, H2's block form's
-    and the mel backward's among them."""
+    and the mel backward's among them, and the Bluestein kernel past 8192
+    (large_bluestein)."""
     import importlib
     stft_cuda = importlib.import_module("spectral_tpu_torch.ops.stft_cuda")
     from spectral_tpu_torch import SpecConfig
     assert set(tkv.KERNELS) == {"r2", "mixed", "conv", "rader", "small",
                                 "grad", "grad_mixed", "grad_bluestein",
                                 "grad_small", "hmm", "h2", "display_grad",
-                                "mel", "mel_grad", "h2_block"}
+                                "mel", "mel_grad", "h2_block",
+                                "large_bluestein"}
     for kern in tkv.KERNELS.values():
         for k in kern.nperseg:
             assert stft_cuda.route(SpecConfig.scipy_default(k)) in kern.routes
@@ -95,7 +97,8 @@ def test_the_display_grad_and_mel_sets_name_their_kernels():
             ("display_grad", "display", ("display_grad_kernelILb1E",
                                          "display_grad_prep_kernel"),
              {"no_math", "no_log10", "no_extrema", "no_fallback"}),
-            ("mel", "mel", ("mel_project_kernel", "mel_backward_kernel"),
+            ("mel", "mel", ("mel_project_kernel", "mel_chunked_kernel",
+                            "mel_backward_kernel"),
              {"no_sums", "no_scan"})):
         kern = tkv.KERNELS[kernel]
         assert kern.source == source and not kern.routes
@@ -104,3 +107,45 @@ def test_the_display_grad_and_mel_sets_name_their_kernels():
         for name in names:
             m = pattern.search(f"_ZN{name}EEEv")
             assert m and kern.ptxas[1](m), name
+
+
+def test_the_large_bluestein_set_names_its_forms_and_phases():
+    """The large_bluestein set: the parent's design (the split by bin
+    parity turned off in blue_split alone), the cluster kernel's
+    cumulative stops in phase order, each one cut later than the one
+    before, the phases named for PERF.md's split; its configs on the
+    Bluestein route, the split ones split and the phase ones on four and
+    eight ranks; the ptxas pattern names both Bluestein kernels, SPLIT
+    included; the mel set's parent and chunked variants."""
+    import re
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core import stft as tstft
+    from spectral_tpu_torch.ops import stft_cuda
+    kern = tkv.KERNELS["large_bluestein"]
+    assert kern.source == "stft_psd" and kern.routes == ("bluestein",)
+    assert set(kern.variants) == {"parent"} | set(
+        tkv.LARGE_BLUESTEIN_STOPS[:-1])
+    assert tkv.LARGE_BLUESTEIN_STOPS[-1] == "this"
+    assert len(tkv.LARGE_BLUESTEIN_PHASES) == len(tkv.LARGE_BLUESTEIN_STOPS)
+    parent = kern.variants["parent"][1]
+    assert len(parent) == 1 and "blue_split" in parent[0][0]
+    # each stop keeps the one before's cut and adds none after it: the
+    # cluster kernel returns after its conv_transform (every stop but the
+    # last), which the earlier stops cut shorter
+    for stop in tkv.LARGE_BLUESTEIN_STOPS[:4]:
+        assert tkv.CL_RETURN in kern.variants[stop][1], stop
+    for k in tkv.LARGE_SPLIT_PATH + tkv.LARGE_SPLIT_SWEEP:
+        assert stft_cuda.route(SpecConfig.scipy_default(k)) == "bluestein"
+        assert tstft.bluestein_halves(k) == 2, k
+    for k in tkv.LARGE_CLUSTER_PATH:
+        assert tstft.bluestein_route_plan(k).ranks in (4, 8), k
+    pattern = re.compile(kern.ptxas[0])
+    for mangled, label in (
+            ("_Z25stft_bluestein_psd_kernelILi2ELb0ELb1ELb1EEvPKf",
+             "bluestein<RANKS 2, TWO 0, EXT, SPLIT>"),
+            ("_Z33stft_bluestein_cluster_psd_kernelILi8ELb0EEvPKf",
+             "cluster<RANKS 8>")):
+        assert kern.ptxas[1](pattern.search(mangled)) == label
+    mel = tkv.KERNELS["mel"].variants
+    assert {"parent", "chunked_everywhere", "chunk64", "chunk256"} <= \
+        set(mel)

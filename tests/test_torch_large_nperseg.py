@@ -135,8 +135,10 @@ def test_routes_ranks_and_refusals_past_8192():
                                                     28814, 28813, 32767)] \
         == [1, 2, 4, 4, 8, 8]
     assert tstft.bluestein_plan(32767).m == 65536
-    for k, tiles in ((16384, 1), (32768, 2), (20000, 1), (28814, 4),
-                     (32767, 8)):
+    # 20000 and 30000 run as two half transforms (a tile each), 28814 and
+    # 32767 on their clusters of four and eight
+    for k, tiles in ((16384, 1), (32768, 2), (20000, 2), (30000, 2),
+                     (28814, 4), (32767, 8)):
         cfg = SpecConfig(nperseg=k)
         assert stft_cuda.partial_tiles(cfg, stft_cuda.route(cfg)) == tiles
     # past 32,768
@@ -217,6 +219,101 @@ def test_ceilings_and_ranks_rule_are_the_sources():
     assert "if (K == 16384)\n    return r2_large_launch<13, false>" in src
 
 
+def test_split_rule_and_halves_ranks_are_the_sources():
+    """[large-bluestein]: the nfft the Bluestein kernel splits by bin
+    parity (BLUE_SPLIT_K, ``blue_split``: from 14,408, where the whole
+    transform's convolution passes one block, and divisible by 4),
+    the launcher's refusal of halves on four or eight ranks, and its grid
+    of two units a frame are the CUDA source's; on the route, every nfft
+    from 14,408 to 32,768 divisible by 4 (4,589 lengths, each one whose
+    whole transform takes a cluster) takes two halves of N = K/4 points
+    whose convolution runs on one block (M' up to 14,406: 3,601 lengths)
+    or a cluster of two (988, from 28,816), never four or eight, a
+    partials tile a half; below 14,408 the whole transform keeps one
+    block; K = 2 mod 4 and odd K keep the whole transform
+    and its ranks."""
+    with open(SOURCE) as fh:
+        src = fh.read()
+    assert _constant(src, "BLUE_SPLIT_K") == tstft.BLUESTEIN_SPLIT_NFFT
+    assert ("bool blue_split(int K) { return K >= BLUE_SPLIT_K && K % 4 == "
+            "0; }") in src
+    launch = re.search(r"^int stft_bluestein_psd_launch\(.*?^\}", src,
+                       re.M | re.S).group(0)
+    for text in ("const bool halves = blue_split(K);",
+                 "const int N = odd ? K : (halves ? K / 4 : K / 2);",
+                 "(halves && ranks > 2))",
+                 "static_cast<unsigned long long>(units) * (halves ? 2 : 1)"
+                 " * ranks;",
+                 "by_variant[halves][ext][variant]"):
+        assert text in launch, text
+
+    def blue_split(k):                  # the source's rule, transcribed
+        return k >= 14408 and k % 4 == 0
+
+    ranks = collections.Counter()
+    for k in range(8193, 32769):
+        cfg = SpecConfig(nperseg=k, hop=k // 2)
+        if stft_cuda.route(cfg) != "bluestein":
+            continue
+        halves = tstft.bluestein_halves(k)
+        assert halves == (2 if blue_split(k) else 1), k
+        if halves == 1:
+            continue
+        m = tstft.bluestein_length(k // 4)
+        assert m >= k // 2 - 1, k
+        ranks[tstft.bluestein_ranks(m)] += 1
+        # the whole transform would take a cluster; the halves never fit
+        # two blocks an SM (the launcher's TWO)
+        assert tstft.bluestein_ranks(tstft.bluestein_length(k // 2)) >= 2
+        assert m > 7000, k
+    assert ranks == {1: 3601, 2: 988}
+    assert all(tstft.bluestein_ranks(tstft.bluestein_length(k // 2)) == 1
+               for k in range(8196, 14408, 4))
+    # the plans and partials of a sample (each plan takes numpy's FFT of
+    # M' points to build)
+    for k in (8196, 8198, 14404, 14408, 20000, 28812, 28816, 30000, 30002,
+              32764, 32767):
+        cfg = SpecConfig(nperseg=k, hop=k // 2)
+        plan = tstft.bluestein_route_plan(k)
+        tiles = stft_cuda.partial_tiles(cfg, "bluestein")
+        if tstft.bluestein_halves(k) == 1:
+            assert plan == tstft.bluestein_plan(k)
+            assert tiles == (plan.ranks if plan.ranks > 2 else 1), k
+            continue
+        assert plan.halves == 2 and plan.n == k // 4, k
+        assert plan.m == tstft.bluestein_length(k // 4), k
+        assert plan.ranks == tstft.bluestein_ranks(plan.m) <= 2, k
+        assert tiles == 2, k
+    assert tstft.bluestein_route_plan(20000).m == 10000
+    assert (tstft.bluestein_route_plan(30000).m,
+            tstft.bluestein_route_plan(30000).ranks) == (15000, 2)
+    assert tstft.bluestein_route_plan(30002).ranks == 4
+    with pytest.raises(ValueError, match="does not split"):
+        tstft.bluestein_split_plan(30002)
+
+
+def test_split_plan_rows_are_the_whole_plans():
+    """The split plan's rows: its chirp, b̂ and stages those of the whole
+    transform's plan at half the length (an N-point transform), and its
+    K/2 split rows the whole plan's at K, bitwise; the whole plans at
+    K = 2 mod 4 and odd K as before (the split changes no other plan)."""
+    for k in (14408, 20000, 30000):
+        half = tstft.bluestein_split_plan(k)
+        whole = tstft.bluestein_plan(k)
+        n = k // 4
+        assert np.array_equal(half.twiddles[half.split:half.split + k // 2],
+                              whole.twiddles[whole.split:whole.split
+                                             + k // 2])
+        ref = tstft.bluestein_plan(2 * n) if n % 2 == 0 else None
+        if ref is not None and ref.n == n:
+            assert ref.m == half.m and np.array_equal(ref.stages,
+                                                      half.stages)
+            assert np.array_equal(
+                ref.twiddles[:ref.chirp + n], half.twiddles[:half.chirp + n])
+    for k in (28814, 30002, 32767, 20001):
+        assert tstft.bluestein_route_plan(k).halves == 1
+
+
 # ---------------------------------------------------------------------------
 # the numpy models of the kernels' arithmetic
 # ---------------------------------------------------------------------------
@@ -246,6 +343,37 @@ def test_split_model_against_numpy_fft(k, detrend):
                          mode="complex")
     assert np.all(np.abs(z - X * cw).max(axis=-1)
                   <= MODEL_TOL * np.abs(X * cw).max(axis=-1))
+
+
+SPLIT_CASES = (14408, 20000, 28816, 30000, 32764)
+
+
+@pytest.mark.parametrize("detrend", DETRENDS)
+@pytest.mark.parametrize("k", SPLIT_CASES)
+def test_bluestein_split_model_against_numpy_fft(k, detrend):
+    """[large-bluestein]: the Bluestein kernel's split by bin parity
+    (``psd_bluestein_split``: the first stage in frequency in the load,
+    two N = K/4-point Bluestein transforms on one block at 14408 and
+    20000 and on clusters of two at 28816, 30000 and 32764, the split step
+    on
+    each half's bins) against numpy's float64 rFFT of the same detrended,
+    windowed frames, on ramp clips with an offset: the PSD within 1e-12 of
+    the frame's largest bin; the complex STFT too at the first detrend."""
+    cfg, fr = _frames(k, 30 + k % 13, frames=3)
+    fr = fr + 3.0
+    window, plan, wts = tp.bluestein_route_operands(cfg)
+    assert plan.halves == 2 and plan.ranks == (1 if k <= 20000 else 2)
+    X = np.fft.rfft(tp.detrended(fr.astype(np.float64), detrend) * window)
+    got = tp.psd_bluestein(fr, window, plan, wts, detrend, round_f32=False)
+    want = (X.real ** 2 + X.imag ** 2) * wts
+    assert np.all(np.abs(got - want).max(axis=-1)
+                  <= MODEL_TOL * want.max(axis=-1))
+    if detrend == "none":
+        _, _, cw = tp.bluestein_route_operands(cfg, out="complex")
+        z = tp.psd_bluestein(fr, window, plan, cw, detrend, round_f32=False,
+                             mode="complex")
+        assert np.all(np.abs(z - X * cw).max(axis=-1)
+                      <= MODEL_TOL * np.abs(X * cw).max(axis=-1))
 
 
 @pytest.mark.parametrize("k", [8194, 20000, 14409, 28814, 28813, 32767])

@@ -26,7 +26,14 @@ in ``csrc/hmm.cu``, at path 15's shapes, split by kernel; see
 ``hmm_fit_launch``, at path 14's shapes; H3's EM loop,
 ``hmm_fit_chunked_launch`` through ``ops/hmm_cuda.py::fit_chunked``'s
 host loop, at each ``EM_GROUP`` of ``HMM_EM_GROUPS`` too, and one E-step,
-``hmm_estep_chunked_launch``, at path 15's; see :func:`hmm_main`). Builds the
+``hmm_estep_chunked_launch``, at path 15's; see :func:`hmm_main`) or
+``mel`` (the mel projection, ``mel_project_launch`` in ``csrc/mel.cu``: its
+tiles of whole rows and its chunked form, with the parent's design as
+the "parent" variant, at F 513, 1025, 4097 and 8193, bitwise; see
+:func:`mel_main`) or ``large_bluestein`` (the Bluestein kernel past 8192:
+the split by bin parity against the parent's design in turns, and the
+cluster kernel of four and eight ranks split by phase by ablation; see
+:func:`large_bluestein_main`). Builds the
 kernel's source as it
 stands ("this") and each of the kernel's variants, a textual edit of the
 same source that must match it exactly once, with the port's nvcc flags
@@ -790,6 +797,57 @@ DISPLAY_GRAD_VARIANTS = {
 }
 DISPLAY_GRAD_REPS = 5
 
+# csrc/mel.cu's launcher: the form's choice, and the parent's launcher (the
+# tile's rows halved until two tiles of whole rows fit, to one row) in its
+# place
+MEL_CHUNKED_PICK = (
+    "  if (mel_chunked(F, M, cap))\n"
+    "    return mel_chunked_launch(psd, start, len, off, w, R, F, M, out,\n"
+    "                              part_min, part_max,\n"
+    "                              static_cast<cudaStream_t>(stream), cap, "
+    "form);\n"
+    "  int rows = MP_ROWS;\n"
+    "  while (rows > MP_MIN_ROWS && mel_smem(rows, F, M).total > cap) "
+    "rows >>= 1;\n"
+    "  const long long smem = mel_smem(rows, F, M).total;\n",
+    "  int rows = MP_ROWS;\n"
+    "  while (rows > 1 && mel_smem(rows, F, M).total > cap) rows >>= 1;\n"
+    "  const long long smem = mel_smem(rows, F, M).total;\n"
+    "  if (smem > cap) return static_cast<int>(cudaErrorInvalidValue);\n")
+
+# the chunked form's staging of a pair's weights into the warp's slot, and
+# its chains
+MC_STAGE = (
+    "#pragma unroll\n"
+    "      for (int c = 0; c < MC_CHAINS; ++c) {\n"
+    "        double t[MC_CHUNK / 32];\n"
+    "#pragma unroll\n"
+    "        for (int q = 0; q < MC_CHUNK / 32; ++q) {\n"
+    "          const int i = lane + 32 * q;\n"
+    "          t[q] = i < kn[c] ? __ldg(w + s_off[m[c]] + k0[c] + i) : 0.0;\n"
+    "        }\n"
+    "#pragma unroll\n"
+    "        for (int q = 0; q < MC_CHUNK / 32; ++q)\n"
+    "          if (lane + 32 * q < kn[c]) ws[c * MC_CHUNK + lane + 32 * q] = "
+    "t[q];\n"
+    "      }\n")
+MC_CHAINS_LOOPS = (
+    "      const int both = min(kn[0], kn[1]);\n"
+    "#pragma unroll 8\n"
+    "      for (int k = 0; k < both; ++k) {\n"
+    "        const double w0 = ws[k], w1 = ws[MC_CHUNK + k];\n"
+    "        const double x0 = row[b[0] + k], x1 = row[b[1] + k];\n"
+    "        a[0] = fma(w0, x0, a[0]);\n"
+    "        a[1] = fma(w1, x1, a[1]);\n"
+    "      }\n"
+    "#pragma unroll\n"
+    "      for (int c = 0; c < MC_CHAINS; ++c) {\n"
+    "#pragma unroll 4\n"
+    "        for (int k = both; k < kn[c]; ++k)\n"
+    "          a[c] = fma(ws[c * MC_CHUNK + k],\n"
+    "                     static_cast<double>(row[b[c] + k]), a[c]);\n"
+    "      }\n")
+
 MEL_VARIANTS = {
     "weights_global": (
         "the weights read from global memory (a broadcast a step), not "
@@ -821,7 +879,127 @@ MEL_VARIANTS = {
         "ablation: the tile's non-finite pass skipped",
         [("    if (F & 1) {\n      const int count = n * F;",
           "    if (false) {\n      const int count = n * F;")]),
+    "parent": (
+        "the parent's design at every F: tiles of whole rows, halved until "
+        "two fit the block's shared memory (two rows of 8,193 bins), no "
+        "chunked form",
+        [MEL_CHUNKED_PICK]),
+    "chunked_everywhere": (
+        "the chunked form at every F, path 12's 513 bins too",
+        [("  return mel_smem(MP_MIN_ROWS, F, M).total > cap;",
+          "  return true;")]),
+    "chunk64": (
+        "the chunked form on chunks of 64 bins (three blocks an SM by "
+        "shared memory)",
+        [("constexpr int MC_CHUNK = 128;", "constexpr int MC_CHUNK = 64;")]),
+    "chunk256": (
+        "the chunked form on chunks of 256 bins (one block an SM)",
+        [("constexpr int MC_CHUNK = 128;", "constexpr int MC_CHUNK = 256;")]),
+    "chunk_one_block": (
+        "the chunked form at one block an SM (128 registers)",
+        [("constexpr int MC_MIN_BLOCKS = 2;",
+          "constexpr int MC_MIN_BLOCKS = 1;")]),
+    "stage_serial": (
+        "the chunked form's pair weights staged a load at a time (each "
+        "lane's loads one after another, a round trip to L2 each)",
+        [(MC_STAGE,
+          "#pragma unroll\n"
+          "      for (int c = 0; c < MC_CHAINS; ++c)\n"
+          "        for (int i = lane; i < kn[c]; i += 32)\n"
+          "          ws[c * MC_CHUNK + i] = __ldg(w + s_off[m[c]] + k0[c] + "
+          "i);\n")]),
+    "one_loop": (
+        "the chunked form's two chains in one loop over the longer "
+        "segment, each step predicated on its chain's length",
+        [(MC_CHAINS_LOOPS,
+          "      const int steps = max(kn[0], kn[1]);\n"
+          "#pragma unroll 4\n"
+          "      for (int k = 0; k < steps; ++k)\n"
+          "#pragma unroll\n"
+          "        for (int c = 0; c < MC_CHAINS; ++c)\n"
+          "          if (k < kn[c])\n"
+          "            a[c] = fma(ws[c * MC_CHUNK + k],\n"
+          "                       static_cast<double>(row[b[c] + k]), a[c]);\n"
+          )]),
+    "no_stage": (
+        "ablation: the chunked form's weight staging skipped (the chains "
+        "read the slot as it is)",
+        [(MC_STAGE, "")]),
+    "no_chains": (
+        "ablation: the chunked form's FMA chains skipped (staging, sums' "
+        "loads and stores kept)",
+        [(MC_CHAINS_LOOPS, "")]),
+    "no_pairs": (
+        "ablation: the chunked form's walk over the mel rows and its pairs "
+        "(staging, sums, chains) skipped",
+        [("    int seen = 0;\n    int held = -1;\n"
+          "    for (int m0 = 0; m0 < M; m0 += 32) {",
+          "    int seen = 0;\n    int held = -1;\n"
+          "    for (int m0 = 0; m0 < 0; m0 += 32) {")]),
+    "no_copies": (
+        "ablation: the chunked form's copies skipped (every step sums the "
+        "buffer as it is)",
+        [("    if (next < n_tiles) stage(next, next_j, buf ^ 1);",
+          "    (void)next_j;")]),
+    "no_chunk_scan": (
+        "ablation: the chunked form's non-finite scan skipped",
+        [("      for (int k0 = 0; k0 < c1 - c0; k0 += 32) {",
+          "      for (int k0 = 0; k0 < 0; k0 += 32) {")]),
 }
+
+# The Bluestein kernel past 8192 ([large-bluestein]): "parent" turns the
+# split by bin parity off (every K on the whole transform, the host passing
+# bluestein_plan's operands, the parent's design); the "stop_*" ablations
+# end the cluster kernel (clusters of four and eight) after a phase, each
+# one phase later than the one before, so that consecutive differences
+# split its time: the loads and the crossing stages in frequency, the
+# local passes in frequency, the turn-around (pass 0 in both directions
+# and the product with b^), the passes in time, the crossing in time, and
+# (this build less stop_cross) the epilogue. conv_transform, which the
+# ablations cut, is shared with the other conv kernels, which these
+# configs do not launch.
+CL_TRANSFORMED = ("    cluster.sync();                 // every rank's slots "
+                  "transformed\n")
+CL_RETURN = (CL_TRANSFORMED, CL_TRANSFORMED + "    return;\n")
+LARGE_BLUESTEIN_VARIANTS = {
+    "parent": (
+        "the parent's design: no split by bin parity (the whole transform "
+        "on a cluster of two at 20000, of four at 30000)",
+        [("bool blue_split(int K) { return K >= BLUE_SPLIT_K && K % 4 == 0; "
+          "}", "bool blue_split(int K) { return false; }")]),
+    "stop_load": (
+        "ablation: the cluster kernel ends after its loads and crossing "
+        "stages in frequency",
+        [("    conv_transform<0>(buf, nullptr, small, tw, plan, H,\n"
+          "                      BluesteinProduct{tw + bhat + rank * H});\n",
+          ""), CL_RETURN]),
+    "stop_freq": (
+        "ablation: ... and its local passes in frequency (pass 0 excluded "
+        "where it turns around in registers)",
+        [("  if (plan.fuse) {\n    const MixPass& ps = plan.pass[0];",
+          "  return;\n  if (plan.fuse) {\n    const MixPass& ps = "
+          "plan.pass[0];"), CL_RETURN]),
+    "stop_turn": (
+        "ablation: ... and the turn-around (pass 0 both ways and the "
+        "product with b^)",
+        [("  __syncthreads();\n  conv_forward<RMAX>(buf, roots, small, tw, "
+          "plan, N, plan.fuse);\n}", "  __syncthreads();\n}"),
+         CL_RETURN]),
+    "stop_conv": (
+        "ablation: ... and the passes in time",
+        [CL_RETURN]),
+    "stop_cross": (
+        "ablation: ... and the crossing stages in time (no epilogue)",
+        [("    cluster.sync();                 // the outputs in place\n",
+          "    cluster.sync();                 // the outputs in place\n"
+          "    return;\n")]),
+}
+LARGE_BLUESTEIN_STOPS = ("stop_load", "stop_freq", "stop_turn", "stop_conv",
+                         "stop_cross", "this")
+LARGE_BLUESTEIN_PHASES = ("loads and crossing in frequency",
+                          "local passes in frequency",
+                          "turn-around (pass 0 both ways, product)",
+                          "passes in time", "crossing in time", "epilogue")
 
 # B3 (csrc/mel.cu's mel_backward_launch): the parent's kernel (a warp a
 # row, lane l the bins l, l + 32, ..., every bin's rows and weights read
@@ -1348,7 +1526,8 @@ class Kernel:
 
 
 # csrc/mel.cu's kernels in nvcc's log, the backward's table staged or not
-MEL_PTXAS = (r"(mel_project_kernel|mel_backward_kernel)(?:ILb(\d)E)?",
+MEL_PTXAS = (r"(mel_project_kernel|mel_chunked_kernel|mel_backward_kernel)"
+             r"(?:ILb(\d)E)?",
              lambda e: e.group(1) + (f"<{e.group(2)}>" if e.group(2) else ""))
 
 KERNELS = {
@@ -1432,6 +1611,16 @@ KERNELS = {
              lambda e: f"grad<LOG {e.group(2)}>" if e.group(2) else "prep"),
         (), (), None, DISPLAY_GRAD_VARIANTS, "display"),
     "mel": Kernel((), MEL_PTXAS, (), (), None, MEL_VARIANTS, "mel"),
+    "large_bluestein": Kernel(
+        ("bluestein",),
+        (r"stft_bluestein_(?:psd_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E|"
+         r"cluster_psd_kernelILi(\d)ELb(\d)E)",
+         lambda e: (f"bluestein<RANKS {e.group(1)}, TWO {e.group(2)}"
+                    f"{', EXT' if e.group(3) == '1' else ''}"
+                    f"{', SPLIT' if e.group(4) == '1' else ''}>")
+         if e.group(1) else (f"cluster<RANKS {e.group(5)}"
+                             f"{', EXT' if e.group(6) == '1' else ''}>")),
+        (), (), None, LARGE_BLUESTEIN_VARIANTS),
     "mel_grad": Kernel((), MEL_PTXAS, (), (), None, MEL_GRAD_VARIANTS,
                        "mel"),
     "h2_block": Kernel((), chip_smoke.HMM_PTXAS, (), (), None,
@@ -2051,12 +2240,21 @@ def pixel_copies():
 
 def mel_main(args, kern, names, libs, regs, card):
     """The mel set: mel_project_launch at path 12's shapes (1024 clips x
-    622 frames x 513 bins, 128 mels) and at scipy_default 8192's (256
-    clips x 60 s, 4097 bins, 64 mels), on the PSD of seeded noise; two
-    rounds in turns, CUDA events, median of 5. This build is held to the
-    plain version (``mel_project_reference``) on 16 clips within
-    chip_smoke's MEL_ULPS, NaN and inf in its places; each variant's mel
-    rows and partials to this build's, bitwise."""
+    622 frames x 513 bins, 128 mels), at north_star 2048/512's and
+    4096/1024's on the same clips (1025 and 2049 bins, 128 mels), on
+    either side of the forms' crossover (64 mels at north_star 2048/512,
+    128 and 64 at 3072/768, 64 at 4096/1024 and 6144/1536: 1025, 1537,
+    2049 and 3073 bins), at scipy_default
+    8192's (256 clips x 60 s, 4097 bins, 64 mels) and at path 22's 16384
+    (256 clips x 60 s, 8193 bins, 128 mels), on the PSD of seeded noise;
+    two rounds in turns, CUDA
+    events, median of 5. This build is held to the plain version
+    (``mel_project_reference``) on 16 clips within chip_smoke's MEL_ULPS,
+    NaN and inf in its places; each variant's mel rows and partials to
+    this build's, bitwise (the "parent" variant, the parent's design, so
+    proves the chunked form's bits the parent's). ``torch.matmul`` f64 and
+    ``amin``/``amax`` of the same function, and the plain version, are
+    timed beside them."""
     import torch
     from spectral_tpu_torch import SpecConfig
     from spectral_tpu_torch.core.mel import mel_filterbank
@@ -2071,8 +2269,24 @@ def mel_main(args, kern, names, libs, regs, card):
     for label, cfg, M, clips, seconds in (
             ("path 12 128 mels over 513 bins",
              SpecConfig.north_star(1024, 256), 128, 1024, 10.0),
+            ("north_star 2048/512, 128 mels over 1025 bins",
+             SpecConfig.north_star(2048, 512), 128, 1024, 10.0),
+            ("north_star 4096/1024, 128 mels over 2049 bins",
+             SpecConfig.north_star(4096, 1024), 128, 1024, 10.0),
+            ("north_star 2048/512, 64 mels over 1025 bins",
+             SpecConfig.north_star(2048, 512), 64, 1024, 10.0),
+            ("north_star 3072/768, 128 mels over 1537 bins",
+             SpecConfig.north_star(3072, 768), 128, 1024, 10.0),
+            ("north_star 3072/768, 64 mels over 1537 bins",
+             SpecConfig.north_star(3072, 768), 64, 1024, 10.0),
+            ("north_star 4096/1024, 64 mels over 2049 bins",
+             SpecConfig.north_star(4096, 1024), 64, 1024, 10.0),
+            ("north_star 6144/1536, 64 mels over 3073 bins",
+             SpecConfig.north_star(6144, 1536), 64, 1024, 10.0),
             ("scipy_default 8192, 64 mels over 4097 bins",
-             SpecConfig.scipy_default(8192), 64, 256, 60.0)):
+             SpecConfig.scipy_default(8192), 64, 256, 60.0),
+            ("path 22 scipy_default 16384, 128 mels over 8193 bins",
+             SpecConfig.scipy_default(16384), 128, 256, 60.0)):
         gen = torch.Generator(device=dev).manual_seed(12)
         x = torch.randn((clips, int(FS * seconds)), generator=gen,
                         device=dev)
@@ -2083,13 +2297,16 @@ def mel_main(args, kern, names, libs, regs, card):
         out = torch.empty((B, T, M), device=dev)
         parts = torch.empty((2, B * T), device=dev)
 
+        form = ctypes.c_int(-1)
+
         def launcher(lib):
             def launch():
                 err = lib.mel_project_launch(
                     psd.data_ptr(), spans.start.data_ptr(),
                     spans.length.data_ptr(), spans.offset.data_ptr(),
                     spans.weights.data_ptr(), B * T, F, M, out.data_ptr(),
-                    parts[0].data_ptr(), parts[1].data_ptr(), stream)
+                    parts[0].data_ptr(), parts[1].data_ptr(), stream,
+                    ctypes.byref(form))
                 if err:
                     raise SystemExit(f"mel_project_launch failed: {err}")
             return launch
@@ -2103,7 +2320,12 @@ def mel_main(args, kern, names, libs, regs, card):
         if not (ulps <= chip_smoke.MEL_ULPS and same_places):
             raise SystemExit(f"{label}: {ulps} ulp from the plain version")
         want, wparts = out.clone(), parts.clone()
-        row = {"plain_ulps": ulps}
+        row = {"plain_ulps": ulps, "form_chunked": form.value == 1}
+
+        def library():
+            mm = torch.matmul(psd.double(), spans.rows.T)
+            return mm, torch.amin(mm, dim=-1), torch.amax(mm, dim=-1)
+
         for rnd in range(2):
             for name in (names if rnd == 0 else names[::-1]):
                 entry = row.setdefault(name, {"ms": []})
@@ -2113,12 +2335,150 @@ def mel_main(args, kern, names, libs, regs, card):
                                 want.view(torch.int32))
                     and torch.equal(parts.view(torch.int32),
                                     wparts.view(torch.int32)))
+        row["torch.matmul f64 + amin/amax"] = {"ms": [_timed(library)]}
+        row["plain (mel_project_reference)"] = {"ms": [_timed(
+            lambda: mel_cuda.mel_project_reference(psd, spans))]}
         report["configs"][label] = row
         print(label, {k: v if not isinstance(v, dict) else
                       [round(t, 3) for t in v["ms"]]
                       for k, v in row.items()}, flush=True)
         del psd, out, parts, want, wparts
         torch.cuda.empty_cache()
+    print(json.dumps(report))
+
+
+# [large-bluestein]'s configs: scipy_default on path 22's batch (256 clips
+# of 60 s) and a sweep of lengths divisible by 4 on 1024 clips of 10 s; the
+# cluster kernel's phase split at path 22's 30002 (four ranks) and 32767
+# (eight)
+LARGE_SPLIT_PATH = (20000, 30000)
+LARGE_SPLIT_SWEEP = (14408, 15000, 16388, 20000, 24000, 28816, 30000,
+                     32764)
+LARGE_CLUSTER_PATH = (30002, 32767)
+
+
+def large_bluestein_main(args, kern, names, libs, regs, card):
+    """The large_bluestein set: the Bluestein kernel split by bin parity
+    (this build) against the parent's design (the "parent" variant, the
+    whole transform on clusters of two and four, launched with
+    ``bluestein_plan``'s operands) at path 22's 20000 and 30000 and at the
+    sweep's lengths, in turns, two rounds, CUDA events, median of 5, beside
+    cuFFT's f64 yardstick (chip_smoke's ``library_psd``); each PSD against
+    this build's within chip_smoke's PSD_TOL. Then the cluster kernel at
+    30002 and 32767 (path 22's batch) with the stop_* ablations in turns,
+    and its time split by phase from their differences."""
+    import numpy as np
+    import torch
+    from spectral_tpu_torch import SpecConfig
+    from spectral_tpu_torch.core.stft import (bluestein_plan,
+                                              bluestein_route_plan,
+                                              num_frames)
+    from spectral_tpu_torch.ops import stft_cuda
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    report = {"kernel": "large_bluestein", "card": card, "ptxas": regs,
+              "configs": {}, "phases": {}}
+    batches = {}
+
+    def batch(clips, seconds):
+        if (clips, seconds) not in batches:
+            batches.clear()
+            torch.cuda.empty_cache()
+            gen = torch.Generator(device=dev).manual_seed(29)
+            batches[clips, seconds] = torch.randn(
+                (clips, int(FS * seconds)), generator=gen, device=dev)
+        return batches[clips, seconds]
+
+    def operands(cfg, whole):
+        """(window, twiddles, stages, m, bhat, chirp, split, wts) of the
+        route's plan, or of the whole transform's (the parent's)."""
+        c = stft_cuda.bluestein_constants(cfg, FS, dev)
+        if not whole:
+            return (c.window, c.twiddles, c.stages, c.m, c.bhat, c.chirp,
+                    c.split, c.wts)
+        plan = bluestein_plan(cfg.nfft_)
+        tw = torch.from_numpy(np.ascontiguousarray(plan.twiddles)).to(dev)
+        return (c.window, tw, plan.stages.copy(), plan.m, plan.bhat,
+                plan.chirp, plan.split, c.wts)
+
+    def case(label, k, clips, seconds, timed_names):
+        cfg = SpecConfig.scipy_default(k)
+        x = batch(clips, seconds)
+        B, n = x.shape
+        T = num_frames(n, cfg.nperseg, cfg.hop_)
+        F = cfg.n_freqs
+        outs = {name: torch.empty((B, T, F), device=dev)
+                for name in ("this", "parent")}
+        parts = torch.empty((2, 8 * B * T), device=dev)
+        ops = {False: operands(cfg, False), True: operands(cfg, True)}
+
+        def launcher(name):
+            whole = name == "parent"
+            win, tw, stages, m, bhat, chirp, split, wts = ops[whole]
+            out = outs["parent" if whole else "this"]
+
+            def launch():
+                err = libs[name].stft_bluestein_psd_launch(
+                    x.data_ptr(), win.data_ptr(), tw.data_ptr(),
+                    stages.ctypes.data, len(stages), m, bhat, chirp, split,
+                    wts.data_ptr(), out.data_ptr(), parts[0].data_ptr(),
+                    parts[1].data_ptr(), B, n, T, F, cfg.nfft_,
+                    cfg.nperseg, cfg.hop_,
+                    stft_cuda.DETREND_CODES[cfg.detrend], 0, 0, 1, 0,
+                    stream)
+                if err:
+                    raise SystemExit(f"{label} {name}: launch failed with "
+                                     f"{err}")
+            return launch
+
+        row = {"form": {
+            "this": (lambda p: {"halves": p.halves, "n": p.n, "m": p.m,
+                                "ranks": p.ranks})(
+                bluestein_route_plan(k)),
+            "parent": (lambda p: {"n": p.n, "m": p.m, "ranks": p.ranks})(
+                bluestein_plan(k))}}
+        for rnd in range(2):
+            for name in (timed_names if rnd == 0 else timed_names[::-1]):
+                entry = row.setdefault(name, {"ms": []})
+                entry["ms"].append(_timed(launcher(name)))
+        launcher("this")()
+        launcher("parent")()
+        torch.cuda.synchronize()
+        a, b = outs["this"], outs["parent"]
+        scale = a.abs().amax(dim=(1, 2)).clamp_min(1e-30)
+        rel = float(((a - b).abs().amax(dim=(1, 2)) / scale).amax())
+        if not rel <= chip_smoke.PSD_TOL:
+            raise SystemExit(f"{label}: the parent's PSD {rel:.2e} of the "
+                             "clip max from this build's")
+        row["parent_vs_this"] = rel
+        row["cuFFT f64 (library_psd)"] = {"ms": [_timed(
+            lambda: chip_smoke.library_psd(x, cfg))]}
+        report["configs"][label] = row
+        print(label, {kk: v if not isinstance(v, dict) or "ms" not in v
+                      else [round(t, 3) for t in v["ms"]]
+                      for kk, v in row.items()}, flush=True)
+        del outs, parts
+        return row
+
+    for k in LARGE_SPLIT_PATH:
+        case(f"path 22 scipy_default {k}", k, 256, 60.0, ["this", "parent"])
+    for k in LARGE_SPLIT_SWEEP:
+        case(f"scipy_default {k}, 1024 x 10 s", k, 1024, 10.0,
+             ["this", "parent"])
+    stops = [v for v in LARGE_BLUESTEIN_STOPS if v in names]
+    for k in LARGE_CLUSTER_PATH:
+        row = case(f"path 22 scipy_default {k} (cluster of "
+                   f"{bluestein_route_plan(k).ranks})", k, 256, 60.0, stops)
+        ms = {v: float(np.median(row[v]["ms"])) for v in stops}
+        if len(stops) == len(LARGE_BLUESTEIN_STOPS):
+            split, before = {}, 0.0
+            for v, what in zip(LARGE_BLUESTEIN_STOPS, LARGE_BLUESTEIN_PHASES):
+                split[what] = round(ms[v] - before, 4)
+                before = ms[v]
+            report["phases"][k] = split
+            print(f"scipy_default {k}: the cluster kernel's {ms['this']:.3f}"
+                  f" ms by phase (ablation differences): {split}",
+                  flush=True)
     print(json.dumps(report))
 
 
@@ -2259,6 +2619,9 @@ def main(argv=None) -> None:
         return
     if kern.source == "mel":
         mel_main(args, kern, names, libs, regs, card)
+        return
+    if args.kernel == "large_bluestein":
+        large_bluestein_main(args, kern, names, libs, regs, card)
         return
 
     dev = torch.device("cuda", 0)

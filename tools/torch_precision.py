@@ -69,8 +69,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from spectral_tpu_torch.config import SpecConfig  # noqa: E402
 from spectral_tpu_torch.core.stft import (  # noqa: E402
-    MAX_MIXED_RADIX, _window_f64, bluestein_plan, dft_matrices, fft_plan,
-    fft_twiddles, onesided_weights, plan_radices)
+    MAX_MIXED_RADIX, _window_f64, bluestein_plan, bluestein_route_plan,
+    dft_matrices, fft_plan, fft_twiddles, onesided_weights, plan_radices)
 from spectral_tpu_torch.ops.stft_cuda import kernel_weights  # noqa: E402
 
 FS = 16000.0
@@ -700,9 +700,15 @@ def psd_bluestein(frames: np.ndarray, window: np.ndarray, plan,
     - odd K: the odd kernel's pairing and pair epilogue (:func:`_pair_psd`)
       around the N = K-point transform.
 
+    A ``plan`` of two halves (``core/stft.py::bluestein_split_plan``)
+    takes :func:`psd_bluestein_split`.
+
     What differs from the card: the detrend's sums and the guard's
     energies are numpy's, not the kernel's block reductions, and numpy
     rounds the products where the card may fuse them (FMA)."""
+    if plan.halves == 2:
+        return psd_bluestein_split(frames, window, plan, wts, detrend,
+                                   round_f32, nfft, mode)
     v = padded(detrended(frames.astype(np.float64), detrend) * window, nfft)
     K = v.shape[-1]
     if K % 2:
@@ -711,6 +717,42 @@ def psd_bluestein(frames: np.ndarray, window: np.ndarray, plan,
     re, im = _bluestein_transform(v[:, 0::2], v[:, 1::2], plan)
     return _split_psd(re, im, plan.twiddles[plan.split:], K, wts, round_f32,
                       mode)
+
+
+def psd_bluestein_split(frames: np.ndarray, window: np.ndarray, plan,
+                        wts: np.ndarray, detrend: str = "none",
+                        round_f32: bool = True,
+                        nfft: Optional[int] = None,
+                        mode: str = "psd") -> np.ndarray:
+    """(T, F) PSD by the Bluestein kernel's arithmetic past 8192 at nfft K
+    divisible by 4 (``csrc/stft_psd.cu::stft_bluestein_psd_kernel``'s
+    SPLIT form, ``plan`` = ``core/stft.py::bluestein_split_plan(K)``), in
+    float64, M = K/2, N = K/4:
+
+    - v and z as :func:`psd_bluestein`'s; then the first stage in
+      frequency, in the load: u0_j = z_j + z_(j+N), u1_j = W_M^j (z_j -
+      z_(j+N)), W_M^j the plan's split row 2j, j < N;
+    - each half's N-point Bluestein transform (:func:`_bluestein_transform`
+      on the plan's one block or cluster of two), Z[2k + h] its output k;
+    - the split step and epilogue of :func:`_split_psd` on the plan's
+      split rows, each bin from the half of its parity.
+
+    What differs from the card: the detrend's sums are numpy's, and numpy
+    rounds the products where the card may fuse them (FMA)."""
+    v = padded(detrended(frames.astype(np.float64), detrend) * window, nfft)
+    T, K = v.shape
+    M, N = K // 2, K // 4
+    assert plan.halves == 2 and plan.n == N
+    split = plan.twiddles[plan.split:plan.split + M]
+    zr, zi = v[:, 0::2], v[:, 1::2]
+    ar, ai, br, bi = zr[:, :N], zi[:, :N], zr[:, N:], zi[:, N:]
+    wr, wi = split[0:M:2, 0], split[0:M:2, 1]
+    re = np.empty((T, M))
+    im = np.empty((T, M))
+    for h, (ur, ui) in enumerate(((ar + br, ai + bi),
+                                  _cmul(wr, wi, ar - br, ai - bi))):
+        re[:, h::2], im[:, h::2] = _bluestein_transform(ur, ui, plan)
+    return _split_psd(re, im, split, K, wts, round_f32, mode)
 
 
 # ---------------------------------------------------------------------------
@@ -1040,9 +1082,17 @@ def mixed_operands(cfg: SpecConfig, fs: float = FS, out=None):
 
 
 def bluestein_operands(cfg: SpecConfig, fs: float = FS, out=None):
-    """The Bluestein kernel's host operands: window, plan of nfft,
-    weights."""
+    """The Bluestein kernel's host operands: window, plan of nfft (the
+    whole transform's, ``bluestein_plan``), weights."""
     return (_window_f64(cfg), bluestein_plan(cfg.nfft_),
+            kernel_weights(cfg, fs, out))
+
+
+def bluestein_route_operands(cfg: SpecConfig, fs: float = FS, out=None):
+    """The operands of the form the Bluestein kernel runs at nfft
+    (``bluestein_route_plan``: the two halves past 8192 where nfft is
+    divisible by 4), for :func:`psd_bluestein`."""
+    return (_window_f64(cfg), bluestein_route_plan(cfg.nfft_),
             kernel_weights(cfg, fs, out))
 
 

@@ -218,16 +218,26 @@ def time_pipelines(paths, report, SpecConfig, batch, dev):
 
 def extra_pipeline_configs(SpecConfig):
     """(path number, label, config, fs, (clips, seconds at FS)) of
-    chip_smoke.py's paths 12 and 13: path 1's batch with 128 log mels; 256
-    sweeps of 16 min at 1 kHz (960,000 samples, the batch of 256 x 60 s
-    at FS) on the 0-30 Hz band, log."""
+    chip_smoke.py's paths 12, 13 and 22: path 1's batch with 128 log mels;
+    256 sweeps of 16 min at 1 kHz (960,000 samples, the batch of 256 x 60
+    s at FS) on the 0-30 Hz band, log; path 2's batch past 8192, each of
+    path 22's configs (the mel rows at 8,193 bins on the mel kernel's
+    chunked form)."""
     return [
         (12, "path 12 north_star 1024/256 128 log mels",
          SpecConfig.north_star(1024, 256, n_mels=128, log_scale=True),
          FS, (CLIPS, SECONDS)),
         (13, "path 13 scipy_default 1024 0-30 Hz at 1 kHz",
          SpecConfig.scipy_default(1024, fmin=0.0, fmax=30.0,
-                                  log_scale=True), 1000.0, (256, 60.0))]
+                                  log_scale=True), 1000.0, (256, 60.0))] + [
+        (22, f"path 22 scipy_default {k}{what}",
+         SpecConfig.scipy_default(k, log_scale=True, **kw), FS, (256, 60.0))
+        for k, what, kw in ((16384, "", {}), (32768, "", {}),
+                            (20000, "", {}), (30000, "", {}),
+                            (30002, "", {}), (32767, "", {}),
+                            (16384, " 128 log mels", {"n_mels": 128}),
+                            (16384, " 0-30 Hz", {"fmin": 0.0,
+                                                 "fmax": 30.0}))]
 
 
 def _smoke():
